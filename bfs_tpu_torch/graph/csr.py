@@ -1,0 +1,79 @@
+"""Graph container: flat directed edge arrays (int32) with a lazy CSR view.
+
+The port's copy of ``bfs_tpu.graph.csr`` without the padded device form
+(only the push engine uses it).  Undirected inputs are stored
+bi-directed, both (u, v) and (v, u), as algs4's ``Graph.addEdge`` does.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+INT32_MAX = np.int32(np.iinfo(np.int32).max)
+#: Distance of an unreached vertex (Java ``Integer.MAX_VALUE``).
+INF_DIST = int(INT32_MAX)
+#: Parent of a vertex with no parent yet (the source's parent is itself).
+NO_PARENT = -1
+
+
+@dataclass(frozen=True)
+class Graph:
+    """A directed multigraph as flat edge arrays (int32), plus lazy CSR.
+
+    ``num_vertices`` is V; ``src``/``dst`` hold E directed edges.
+    """
+
+    num_vertices: int
+    src: np.ndarray
+    dst: np.ndarray
+
+    def __post_init__(self):
+        object.__setattr__(self, "src", np.ascontiguousarray(self.src, dtype=np.int32))
+        object.__setattr__(self, "dst", np.ascontiguousarray(self.dst, dtype=np.int32))
+        if self.src.shape != self.dst.shape or self.src.ndim != 1:
+            raise ValueError("src/dst must be 1-D arrays of equal length")
+        if self.num_edges and (
+            int(min(self.src.min(initial=0), self.dst.min(initial=0))) < 0
+            or int(max(self.src.max(initial=0), self.dst.max(initial=0))) >= self.num_vertices
+        ):
+            raise ValueError("edge endpoint out of range")
+
+    @property
+    def num_edges(self) -> int:
+        """Directed edge count (an undirected input counts twice)."""
+        return int(self.src.shape[0])
+
+    @classmethod
+    def from_undirected_edges(cls, num_vertices: int, edges: np.ndarray) -> "Graph":
+        """Insert every undirected edge in both directions."""
+        edges = np.asarray(edges, dtype=np.int32).reshape(-1, 2)
+        src = np.concatenate([edges[:, 0], edges[:, 1]])
+        dst = np.concatenate([edges[:, 1], edges[:, 0]])
+        return cls(num_vertices, src, dst)
+
+    @classmethod
+    def from_directed_edges(cls, num_vertices: int, edges: np.ndarray) -> "Graph":
+        edges = np.asarray(edges, dtype=np.int32).reshape(-1, 2)
+        return cls(num_vertices, edges[:, 0].copy(), edges[:, 1].copy())
+
+    def csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(indptr int64[V+1], indices int32[E])`` with each vertex's
+        neighbours sorted ascending."""
+        if not hasattr(self, "_csr_cache"):
+            order = np.lexsort((self.dst, self.src))
+            indices = self.dst[order]
+            counts = np.bincount(self.src, minlength=self.num_vertices)
+            indptr = np.zeros(self.num_vertices + 1, dtype=np.int64)
+            np.cumsum(counts, out=indptr[1:])
+            object.__setattr__(self, "_csr_cache", (indptr, indices))
+        return self._csr_cache
+
+    def degree(self, v: int) -> int:
+        indptr, _ = self.csr()
+        return int(indptr[v + 1] - indptr[v])
+
+    def adj(self, v: int) -> np.ndarray:
+        indptr, indices = self.csr()
+        return indices[indptr[v] : indptr[v + 1]]

@@ -1,0 +1,209 @@
+"""Single-source relay BFS on the card: :class:`RelayEngine` and :func:`bfs`.
+
+The port of ``bfs_tpu.models.bfs`` for ``engine="relay"``.  The layout is
+built on the host once (:func:`~bfs_tpu_torch.graph.relay.build_relay_graph`)
+and shipped to the device once; every superstep then runs five phases on
+the device:
+
+  1. the vperm Beneš network on the frontier words (zero-padded to the
+     network size, the padding zeroed anew every superstep);
+  2. ``broadcast_l2`` (torch ops);
+  3. the net Beneš network;
+  4. the masked min-rank row-min per in-degree class;
+  5. the packed ``level:6|rank:26`` min-update, which also emits the next
+     frontier words and the ``changed`` flag.
+
+Phases 1, 3, 4 and 5 are the hand-written kernels of
+:mod:`bfs_tpu_torch.ops.relay_cuda` on a card and their plain versions on
+the CPU.  The level loop is a Python loop that reads ``changed`` once per
+level.  A search that hits the packed carry's 62-level cap is re-run on
+the unpacked carry.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..graph.csr import Graph, INF_DIST
+from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
+from ..ops import relay as R
+from ..ops import relay_cuda as K
+from ..ops.packed import packed_cap, packed_rank_fits, packed_truncated
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; without a card
+    and without an explicit device this raises rather than run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain PyTorch path"
+            )
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but no CUDA device is available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def check_sources(num_vertices: int, sources) -> None:
+    """Reject out-of-range sources on the host."""
+    arr = np.atleast_1d(np.asarray(sources))
+    if arr.size == 0 or arr.min() < 0 or arr.max() >= num_vertices:
+        raise ValueError(
+            f"source vertices {arr.tolist()} out of range for V={num_vertices}"
+        )
+
+
+@dataclass
+class BfsResult:
+    """Host-side result: ``dist``/``parent`` int32[V] in original ids.
+    ``num_levels`` counts executed supersteps including the final empty
+    one that detects termination (3 on tinyCG)."""
+
+    dist: np.ndarray
+    parent: np.ndarray
+    num_levels: int
+
+    def has_path_to(self, v: int) -> bool:
+        return int(self.dist[v]) != INF_DIST
+
+    def dist_to(self, v: int) -> int:
+        return int(self.dist[v])
+
+    def path_to(self, v: int) -> list[int]:
+        from ..graph.vertex import path_to
+
+        return path_to(self.parent, v)
+
+
+def slots_to_parent(parent_slots: torch.Tensor, src_l1: torch.Tensor) -> torch.Tensor:
+    """Relay parent values (L1 slot indices; -1 unreached) -> ORIGINAL src
+    ids: one gather per run, on the device that holds the slots."""
+    slots = parent_slots.clamp(0, src_l1.shape[-1] - 1).to(torch.int64)
+    return torch.where(parent_slots >= 0, src_l1[slots], parent_slots)
+
+
+class RelayEngine:
+    """Device-resident relay layout + the level loop (``engine='relay'``).
+
+    ``__init__`` builds the layout (unless given a :class:`RelayGraph`) and
+    ships masks and valid-slot words to ``device`` once; :meth:`run` runs
+    one source.
+    """
+
+    def __init__(self, graph: Graph | RelayGraph, *, device=None):
+        self.device = resolve_device(device)
+        rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
+        self.relay_graph = rg
+        self.packed = packed_rank_fits(rg.in_classes)
+        dev = self.device
+
+        def ship(words: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(
+                np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+            ).to(dev)
+
+        self.vperm_masks = ship(rg.vperm_masks)
+        self.net_masks = ship(rg.net_masks)
+        self.valid_words = ship(valid_slot_words(rg.src_l1, rg.net_size))
+        # Result mapping tables (relabeled -> original ids), on the device.
+        self.old2new = torch.from_numpy(rg.old2new.astype(np.int64)).to(dev)
+        self.src_l1 = torch.from_numpy(np.asarray(rg.src_l1, dtype=np.int32)).to(dev)
+        #: Host seconds of the last run: the level loop (it ends in a
+        #: device read) and the result mapping with its copy to the host.
+        self.last_run: dict = {}
+
+    # -- one superstep ------------------------------------------------------
+
+    def _routed(self, fwords: torch.Tensor) -> torch.Tensor:
+        """Phases 1-3: frontier words -> routed L1 slot words."""
+        rg = self.relay_graph
+        fw = torch.zeros(rg.vperm_size // 32, dtype=torch.int32, device=self.device)
+        fw[: rg.vr // 32] = fwords  # dummy out-positions read the zero tail
+        y = K.apply_benes(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size)
+        l2 = R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space)
+        return K.apply_benes(l2, self.net_masks, rg.net_table, rg.net_size)
+
+    def _ranks(self, fwords: torch.Tensor) -> torch.Tensor:
+        rg = self.relay_graph
+        return K.rowmin_ranks(
+            self._routed(fwords), self.valid_words, rg.in_classes, rg.vr
+        )
+
+    def superstep_packed(self, st: R.PackedRelayState) -> R.PackedRelayState:
+        return K.apply_relay_candidates_packed(st, self._ranks(st.fwords))
+
+    def superstep(self, st: R.RelayState) -> R.RelayState:
+        """Unpacked carry: the row-min's ranks become L1 slots through the
+        class slot formula, then the unpacked merge (torch ops)."""
+        rg = self.relay_graph
+        cand = R.rank_to_slot(self._ranks(st.fwords), rg.in_classes, rg.vr)
+        return R.apply_relay_candidates(st, cand)
+
+    # -- the level loop -----------------------------------------------------
+
+    def _loop(self, st, step, cap: int):
+        changed = True
+        while changed and st.level < cap:
+            st = step(st)
+            changed = bool(st.changed)  # the one host read per level
+        return st, changed
+
+    def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
+        rg = self.relay_graph
+        check_sources(rg.num_vertices, source)
+        max_levels = int(max_levels) if max_levels is not None else rg.vr
+        t0 = time.perf_counter()
+        dist, parent_slots, level = self._search(int(rg.old2new[source]), max_levels)
+        t1 = time.perf_counter()
+        result = self._to_result(dist, parent_slots, level, source)
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1}
+        return result
+
+    def _search(self, source_new: int, max_levels: int):
+        """(dist, parent L1 slots, levels) in the relabeled space."""
+        rg = self.relay_graph
+        if self.packed:
+            st, changed = self._loop(
+                R.init_packed_relay_state(rg.vr, source_new, self.device),
+                self.superstep_packed, packed_cap(max_levels),
+            )
+            if not packed_truncated(changed, st.level, max_levels):
+                dist, parent = R.unpack_relay_packed(st.packed, rg.in_classes, rg.vr)
+                return dist, parent, st.level
+        # Deeper than the packed level field (or a rank too wide for it):
+        # the unpacked carry has no level cap.
+        st, _ = self._loop(
+            R.init_relay_state(rg.vr, source_new, self.device),
+            self.superstep, max_levels,
+        )
+        return st.dist, st.parent, st.level
+
+    def _to_result(self, dist, parent_slots, level: int, source: int) -> BfsResult:
+        """Relabeled state -> original ids (on the device), then the host."""
+        dist = dist[self.old2new].cpu().numpy()
+        parent = slots_to_parent(parent_slots, self.src_l1)[self.old2new].cpu().numpy()
+        parent[source] = source  # the source's slot entry is not a parent
+        return BfsResult(dist=dist, parent=parent, num_levels=int(level))
+
+
+def bfs(
+    graph: Graph | RelayGraph,
+    source: int = 0,
+    *,
+    engine: str = "relay",
+    device=None,
+    max_levels: int | None = None,
+) -> BfsResult:
+    """Single-source BFS on the relay engine; on the card unless ``device``
+    names the CPU."""
+    if engine != "relay":
+        raise ValueError(f"unknown engine {engine!r}; this port runs 'relay'")
+    return RelayEngine(graph, device=device).run(source, max_levels=max_levels)

@@ -1,0 +1,355 @@
+"""Relay superstep v4, plain PyTorch: broadcast -> Beneš bit routing ->
+class row-min -> packed state update.
+
+These are the plain versions of the port's kernels
+(:mod:`bfs_tpu_torch.ops.relay_cuda`): the CPU path runs them, and the
+card's kernels are held against them bit for bit.  Each function computes
+what its namesake in ``bfs_tpu.ops.relay`` computes, on the same inputs.
+
+Words are uint32 bit patterns stored in ``int32`` tensors, standard
+packing (element ``e`` at word ``e >> 5``, bit ``e & 31``).  Shifts,
+unsigned mins and compares widen to ``int64 & 0xFFFFFFFF``
+(:func:`~bfs_tpu_torch.ops.packed.u32`) and narrow back
+(:func:`~bfs_tpu_torch.ops.packed.i32`); XOR, AND, OR and NOT work on the
+int32 patterns directly.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..graph.relay import StageSpec
+from .packed import (
+    INT32_MAX,
+    PACKED_SENTINEL,
+    PARENT_MASK,
+    U32,
+    i32,
+    level_word,
+    packed_dist,
+    u32,
+)
+
+__all__ = [
+    "RelayState",
+    "PackedRelayState",
+    "init_relay_state",
+    "init_packed_relay_state",
+    "pack_std",
+    "unpack_std",
+    "apply_benes_std",
+    "broadcast_l2",
+    "rowmin_ranks",
+    "rowmin_candidates",
+    "rank_to_slot",
+    "apply_relay_candidates",
+    "apply_relay_candidates_packed",
+    "unpack_relay_packed",
+]
+
+
+class RelayState(NamedTuple):
+    """Unpacked carry in the relabeled space of size vr: ``dist`` int32
+    (INT32_MAX unreached), ``parent`` int32 L1 slot (-1 unreached),
+    ``fwords`` int32[vr/32] frontier words, ``level`` a host int,
+    ``changed`` a device bool/int tensor."""
+
+    dist: torch.Tensor
+    parent: torch.Tensor
+    fwords: torch.Tensor
+    level: int
+    changed: torch.Tensor
+
+
+class PackedRelayState(NamedTuple):
+    """Packed carry: ``packed`` int32[vr] of ``level:6|rank:26`` words."""
+
+    packed: torch.Tensor
+    fwords: torch.Tensor
+    level: int
+    changed: torch.Tensor
+
+
+def _source_fwords(vr: int, source_new: int, device) -> torch.Tensor:
+    fwords = torch.zeros(vr // 32, dtype=torch.int32, device=device)
+    bit = 1 << (source_new & 31)
+    fwords[source_new >> 5] = bit - (1 << 32) if bit >= 1 << 31 else bit
+    return fwords
+
+
+def init_relay_state(vr: int, source_new: int, device="cpu") -> RelayState:
+    source_new = int(source_new)
+    dist = torch.full((vr,), INT32_MAX, dtype=torch.int32, device=device)
+    dist[source_new] = 0
+    parent = torch.full((vr,), -1, dtype=torch.int32, device=device)
+    parent[source_new] = source_new
+    return RelayState(
+        dist, parent, _source_fwords(vr, source_new, device), 0,
+        torch.ones((), dtype=torch.bool, device=device),
+    )
+
+
+def init_packed_relay_state(vr: int, source_new: int, device="cpu") -> PackedRelayState:
+    """The source's word is ``level 0 | rank 0``; callers fix the source's
+    self-parent up host-side, as on the unpacked path."""
+    source_new = int(source_new)
+    packed = torch.full((vr,), -1, dtype=torch.int32, device=device)  # sentinel
+    packed[source_new] = 0
+    return PackedRelayState(
+        packed, _source_fwords(vr, source_new, device), 0,
+        torch.ones((), dtype=torch.bool, device=device),
+    )
+
+
+def pack_std(bits: torch.Tensor) -> torch.Tensor:
+    """bool/uint8[n] -> int32[n/32] words, standard packing."""
+    b = bits.reshape(-1, 32).to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return i32((b << shifts).sum(dim=1))
+
+
+def unpack_std(words: torch.Tensor, n: int) -> torch.Tensor:
+    """int32[n/32] words -> uint8[n], standard packing."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    return ((u32(words)[:, None] >> shifts) & 1).to(torch.uint8).reshape(n)
+
+
+def apply_benes_std(
+    words: torch.Tensor, masks_flat: torch.Tensor,
+    table: tuple[StageSpec, ...], n: int,
+) -> torch.Tensor:
+    """Apply the stages of ``table`` (a whole routed network or any run of
+    its stages) to standard-packed words.
+
+    Stage ``d < 32`` swaps bits inside each word:
+    ``t = (x ^ (x >> d)) & m; x ^= t ^ (t << d)``.  Stage ``d >= 32`` swaps
+    word pairs ``(w, w + d/32)``: ``t = (x[w] ^ x[w+dw]) & m``, the mask
+    read at the lower word (full storage) or at its pair-compacted index
+    (``d >= 4096``)."""
+    x = u32(words)
+    for st in table:
+        m = u32(masks_flat[st.offset : st.offset + st.nwords])
+        d = st.d
+        if d < 32:
+            t = (x ^ (x >> d)) & m
+            x = x ^ t ^ (t << d)
+            continue
+        dw = d >> 5
+        mv = m.reshape(-1, dw) if st.compact else m.reshape(-1, 2, dw)[:, 0, :]
+        xr = x.reshape(-1, 2, dw)
+        lo, hi = xr[:, 0, :], xr[:, 1, :]
+        t = (lo ^ hi) & mv
+        x = torch.stack([lo ^ t, hi ^ t], dim=1).reshape(-1)
+    return i32(x)
+
+
+@functools.lru_cache(maxsize=8)
+def _broadcast_plan(out_classes: tuple, net_size: int, ywords: int, device: str):
+    """Gather plan of :func:`broadcast_l2`: the source word of every L2
+    word (``ywords`` names an appended zero word for the unused tail) and,
+    for the vertex-major word range, the bit of that word to fill from."""
+    nw2 = net_size // 32
+    idx = np.full(nw2, ywords, dtype=np.int64)
+    vm_lo = vm_hi = 0
+    shifts = []
+    for cs in out_classes:
+        a = cs.sa // 32
+        if not cs.vertex_major:
+            cw = cs.count // 32
+            src = cs.va // 32 + np.arange(cw, dtype=np.int64)
+            idx[a : a + cs.width * cw] = np.tile(src, cs.width)
+        else:
+            if not shifts:
+                vm_lo = a
+            pos = cs.va + np.arange(cs.count, dtype=np.int64)
+            ww = cs.width // 32
+            idx[a : a + cs.count * ww] = np.repeat(pos >> 5, ww)
+            shifts.append(np.repeat(pos & 31, ww))
+            vm_hi = a + cs.count * ww
+    shift = np.concatenate(shifts) if shifts else np.zeros(0, np.int64)
+    return (
+        torch.from_numpy(idx).to(device),
+        vm_lo,
+        vm_hi,
+        torch.from_numpy(shift).to(device),
+    )
+
+
+def broadcast_l2(
+    ywords: torch.Tensor, out_classes, net_size: int, out_space: int
+) -> torch.Tensor:
+    """Vperm-output words (out-position space) -> L2 slot words.
+    Rank-major classes replicate whole words (each rank's 32-slot word IS
+    the class's position-bit word); vertex-major classes fill width/32
+    words with one position bit (0 or all ones); the tail is zero.
+
+    One gather over a plan built once per layout, then the fill of the
+    vertex-major range."""
+    del out_space  # the classes carry it
+    idx, vm_lo, vm_hi, shift = _broadcast_plan(
+        tuple(out_classes), int(net_size), int(ywords.shape[0]),
+        str(ywords.device),
+    )
+    zero = torch.zeros(1, dtype=ywords.dtype, device=ywords.device)
+    out = torch.cat([ywords, zero])[idx]
+    if vm_hi > vm_lo:
+        bits = (u32(out[vm_lo:vm_hi]) >> shift) & 1
+        out[vm_lo:vm_hi] = i32(bits * U32)
+    return out
+
+
+def _word_tournament(wv: torch.Tensor):
+    """Min-row-index reduce over word rows: wv int32[rows, cw] -> (found
+    word row, rank bit-plane rows low..high), rows zero-padded to a power
+    of two (zero rows never win)."""
+    rows, cw = wv.shape
+    p2 = 1 << max((int(rows) - 1).bit_length(), 0)
+    if p2 != rows:
+        wv = torch.cat([wv, wv.new_zeros((p2 - rows, cw))])
+        rows = p2
+    f = wv
+    planes: list[torch.Tensor] = []
+    while rows > 1:
+        fr = f.reshape(rows // 2, 2, cw)
+        fa, fb = fr[:, 0, :], fr[:, 1, :]
+        new_planes = []
+        for pl in planes:
+            pr = pl.reshape(rows // 2, 2, cw)
+            new_planes.append(pr[:, 0, :] | (pr[:, 1, :] & ~fa))
+        new_planes.append(fb & ~fa)
+        planes = new_planes
+        f = fa | fb
+        rows //= 2
+    return f[0], [pl[0] for pl in planes]
+
+
+def _ctz32(word: torch.Tensor) -> torch.Tensor:
+    """Trailing zeros of nonzero unsigned words (int64 values)."""
+    low = word & -word
+    out = torch.zeros_like(word)
+    for bit, pattern in ((16, 0xFFFF0000), (8, 0xFF00FF00), (4, 0xF0F0F0F0),
+                         (2, 0xCCCCCCCC), (1, 0xAAAAAAAA)):
+        out = out + ((low & pattern) != 0).to(torch.int64) * bit
+    return out
+
+
+def _class_found_rank(lw: torch.Tensor, cs):
+    """(found bool[count], rank int64[count]) for one class from its masked
+    slot words: the min active RANK per vertex."""
+    if not cs.vertex_major:
+        cw = cs.count // 32
+        found_w, planes = _word_tournament(lw.reshape(cs.width, cw))
+        rank = torch.zeros(cs.count, dtype=torch.int64, device=lw.device)
+        for j, pl in enumerate(planes):
+            rank = rank | (unpack_std(pl, cs.count).to(torch.int64) << j)
+        return unpack_std(found_w, cs.count) != 0, rank
+    ww = cs.width // 32
+    wv = lw.reshape(cs.count, ww)
+    cols = torch.arange(ww, dtype=torch.int64, device=lw.device)
+    widx = torch.where(wv != 0, cols[None, :], ww).amin(dim=1)
+    word = torch.gather(wv, 1, widx.clamp(max=ww - 1)[:, None])[:, 0]
+    rank = widx * 32 + _ctz32(torch.clamp(u32(word), min=1))
+    return widx < ww, rank
+
+
+def _classes_in_order(in_classes):
+    covered = 0
+    for cs in sorted(in_classes, key=lambda c: c.va):
+        assert cs.va == covered, "in_classes must tile the vertex space"
+        yield cs
+        covered = cs.vb
+
+
+def rowmin_ranks(
+    l1words: torch.Tensor, valid_words: torch.Tensor, in_classes, vr: int
+) -> torch.Tensor:
+    """Min active RANK per relabeled vertex: uint32 words (int32[vr]),
+    PACKED_SENTINEL where none.  Slot words are ANDed with the valid-slot
+    words first (Beneš pad routing may deliver stray bits)."""
+    parts = []
+    covered = 0
+    for cs in _classes_in_order(in_classes):
+        a, b = cs.sa // 32, cs.sb // 32
+        found, rank = _class_found_rank(l1words[a:b] & valid_words[a:b], cs)
+        parts.append(torch.where(found, rank, PACKED_SENTINEL))
+        covered = cs.vb
+    if covered < vr:
+        parts.append(
+            torch.full((vr - covered,), PACKED_SENTINEL, dtype=torch.int64,
+                       device=l1words.device)
+        )
+    return i32(torch.cat(parts))
+
+
+@functools.lru_cache(maxsize=8)
+def _slot_tables(in_classes: tuple, vr: int, device: str):
+    """Per relabeled vertex: slot = base + rank * stride (the class slot
+    formula); stride 0 on the uncovered tail."""
+    base = np.zeros(vr, dtype=np.int64)
+    stride = np.zeros(vr, dtype=np.int64)
+    for cs in in_classes:
+        p = np.arange(cs.count, dtype=np.int64)
+        if cs.vertex_major:
+            base[cs.va : cs.vb] = cs.sa + p * cs.width
+            stride[cs.va : cs.vb] = 1
+        else:
+            base[cs.va : cs.vb] = cs.sa + p
+            stride[cs.va : cs.vb] = cs.count
+    return torch.from_numpy(base).to(device), torch.from_numpy(stride).to(device)
+
+
+def rank_to_slot(rank_or_sent: torch.Tensor, in_classes, vr: int) -> torch.Tensor:
+    """Ranks (int32 patterns, sentinel where none) -> global L1 slots,
+    INT32_MAX where none: rank-major ``sa + r*count + p``, vertex-major
+    ``sa + p*width + r``."""
+    base, stride = _slot_tables(tuple(in_classes), int(vr), str(rank_or_sent.device))
+    r = u32(rank_or_sent)
+    return torch.where(
+        r == PACKED_SENTINEL, INT32_MAX, base + r * stride
+    ).to(torch.int32)
+
+
+def rowmin_candidates(
+    l1words: torch.Tensor, valid_words: torch.Tensor, in_classes, vr: int
+) -> torch.Tensor:
+    """Min active L1 SLOT per relabeled vertex: int32[vr], INT32_MAX where
+    none (the unpacked carry's candidates)."""
+    return rank_to_slot(
+        rowmin_ranks(l1words, valid_words, in_classes, vr), in_classes, vr
+    )
+
+
+def apply_relay_candidates(state: RelayState, cand: torch.Tensor) -> RelayState:
+    """Merge candidate slots into the unpacked carry: a vertex not yet
+    reached takes level+1 and its candidate parent."""
+    newly = (cand != INT32_MAX) & (state.dist == INT32_MAX)
+    new_level = state.level + 1
+    dist = torch.where(newly, new_level, state.dist)
+    parent = torch.where(newly, cand, state.parent)
+    return RelayState(dist, parent, pack_std(newly), new_level, newly.any())
+
+
+def apply_relay_candidates_packed(
+    state: PackedRelayState, rank_or_sent: torch.Tensor
+) -> PackedRelayState:
+    """Packed state update: one unsigned ``min(packed, rank | level_word)``
+    per vertex; the changed words' bits are the next frontier."""
+    cand = u32(rank_or_sent) | level_word(state.level + 1)
+    old = u32(state.packed)
+    new = torch.minimum(old, cand)
+    newly = new != old
+    return PackedRelayState(i32(new), pack_std(newly), state.level + 1, newly.any())
+
+
+def unpack_relay_packed(packed: torch.Tensor, in_classes, vr: int):
+    """Packed words -> ``(dist int32[vr], parent int32[vr])`` with parent
+    as the global L1 slot (-1 unreached): the unpacked carry's contract."""
+    w = u32(packed)
+    rank = i32(w & PARENT_MASK)
+    slots = rank_to_slot(rank, in_classes, vr)
+    parent = torch.where(w == PACKED_SENTINEL, -1, slots).to(torch.int32)
+    return packed_dist(packed), parent

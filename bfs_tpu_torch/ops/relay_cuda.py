@@ -1,0 +1,298 @@
+"""Kernel wrappers of the relay superstep: the port's counterpart of
+``bfs_tpu.ops.relay_pallas``.
+
+Every wrapper takes the plain PyTorch version (:mod:`.relay`) for a tensor
+on the CPU and launches its hand-written CUDA kernel
+(``csrc/relay_kernels.cu``) for a tensor on a card; any other device
+raises, and a CUDA tensor never reaches the plain version.  Each kernel
+has a launch count in :data:`LAUNCHES`, raised by one where the wrapper
+launches it and nowhere else.
+
+  ==================  ====================================================
+  kernel              replaces (bfs_tpu/ops/relay_pallas.py)
+  ==================  ====================================================
+  benes_local_pass    _run_local_tile_major (K1), _run_pass local modes
+  benes_outer_stage   _run_pass outer passes A/C (K2)
+  class_rowmin        _class_tournament_call / rowmin_ranks_pallas (K3)
+  packed_update       apply_relay_candidates_packed_pallas (K4)
+  ==================  ====================================================
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..graph.relay import StageSpec
+from ..utils import cuda_build
+from . import relay as R
+from .packed import level_word
+
+LAUNCHES = {
+    "benes_local_pass": 0,
+    "benes_outer_stage": 0,
+    "class_rowmin": 0,
+    "packed_update": 0,
+}
+
+#: Shared-memory tile of the local pass, in words: a power of two in
+#: [MIN_TILE_WORDS, MAX_TILE_WORDS] (32 KB to 128 KB), chosen so a network
+#: spreads over about 128 blocks; a smaller network is one tile.
+MIN_TILE_WORDS = 1 << 13
+MAX_TILE_WORDS = 1 << 15
+TARGET_BLOCKS = 128
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_VP = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_INT = ctypes.c_int
+
+
+def _register(lib: ctypes.CDLL) -> None:
+    lib.benes_local_pass.restype = _INT
+    lib.benes_local_pass.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP,
+    ]
+    lib.benes_outer_stage.restype = _INT
+    lib.benes_outer_stage.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _VP]
+    lib.class_rowmin.restype = _INT
+    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _VP]
+    lib.packed_update.restype = _INT
+    lib.packed_update.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_uint, _VP]
+
+
+def kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the relay kernels."""
+    return cuda_build.load(
+        "relay_kernels", cuda_build.csrc("relay_kernels.cu"), _register
+    )
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (plain version), True for CUDA tensors (the
+    kernel); raises on a mix or on any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"relay kernels take CPU or CUDA tensors, got {sorted(kinds)}")
+
+
+def _check_words(name: str, t: torch.Tensor, numel: int | None = None) -> None:
+    if t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous int32 tensor")
+    if numel is not None and t.numel() != numel:
+        raise ValueError(f"{name}: expected {numel} words, got {t.numel()}")
+
+
+def _call(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _ptr(t: torch.Tensor, word_offset: int = 0) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() + 4 * word_offset)
+
+
+# ------------------------------------------------------------------ Beneš --
+
+def tile_words_for(n: int) -> int:
+    """The local pass's tile (words) for a size-``n`` network."""
+    nw = n // 32
+    t = 1 << max(nw // TARGET_BLOCKS, 1).bit_length() - 1
+    return min(max(t, MIN_TILE_WORDS), MAX_TILE_WORDS, nw)
+
+
+@functools.lru_cache(maxsize=16)
+def split_passes(table: tuple[StageSpec, ...], n: int, tile_words: int | None = None):
+    """``(prefix outer stages, local run, suffix outer stages, tile)``: the
+    local run is every stage with ``d < 32 * tile`` (consecutive, in the
+    middle of the network), the rest are outer stages.  The reference's
+    ``split_passes`` with the card's shared-memory tile in place of its
+    VMEM tile rows."""
+    tile = tile_words_for(n) if tile_words is None else int(tile_words)
+    nw = n // 32
+    if tile <= 0 or tile & (tile - 1) or nw % tile:
+        raise ValueError(f"tile of {tile} words does not divide the {nw}-word network")
+    local = [i for i, st in enumerate(table) if st.d < 32 * tile]
+    assert local, "no local stages"
+    lo, hi = local[0], local[-1] + 1
+    assert local == list(range(lo, hi)), "local stages must be consecutive"
+    return tuple(range(lo)), tuple(range(lo, hi)), tuple(range(hi, len(table))), tile
+
+
+@functools.lru_cache(maxsize=16)
+def _local_args(stages: tuple[StageSpec, ...]):
+    """Host arrays of the local run's stage table (kept alive by the cache)."""
+    offsets = np.array([st.offset for st in stages], dtype=np.int64)
+    dists = np.array([st.d for st in stages], dtype=np.int32)
+    compact = np.array([int(st.compact) for st in stages], dtype=np.int32)
+    return offsets, dists, compact
+
+
+def benes_local_pass(
+    x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
+    n: int, tile_words: int, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply a consecutive run of stages with ``d < 32 * tile_words`` (one
+    shared-memory tile per block).  ``out`` may alias ``x_in``."""
+    if not _on_card(x_in, masks):
+        return R.apply_benes_std(x_in, masks, stages, n)
+    nw = n // 32
+    _check_words("x_in", x_in, nw)
+    _check_words("masks", masks)
+    if any(st.d >= 32 * tile_words for st in stages):
+        raise ValueError("a local stage spans more than one tile")
+    out = torch.empty_like(x_in) if out is None else out
+    _check_words("out", out, nw)
+    offsets, dists, compact = _local_args(tuple(stages))
+    lib = kernels()
+    rc = lib.benes_local_pass(
+        _ptr(x_in), _ptr(out), _ptr(masks),
+        offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
+        compact.ctypes.data_as(_VP), len(stages), nw, tile_words, _stream(),
+    )
+    LAUNCHES["benes_local_pass"] += 1
+    _call(rc, "benes_local_pass")
+    return out
+
+
+def benes_outer_stage(
+    x_in: torch.Tensor, masks: torch.Tensor, st: StageSpec, n: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply one word-pair stage (``d >= 32``).  ``out`` may alias
+    ``x_in``."""
+    if not _on_card(x_in, masks):
+        return R.apply_benes_std(x_in, masks, (st,), n)
+    nw = n // 32
+    _check_words("x_in", x_in, nw)
+    _check_words("masks", masks)
+    if st.d < 32:
+        raise ValueError("an outer stage pairs whole words (d >= 32)")
+    out = torch.empty_like(x_in) if out is None else out
+    _check_words("out", out, nw)
+    rc = kernels().benes_outer_stage(
+        _ptr(x_in), _ptr(out), _ptr(masks, st.offset), nw, st.d >> 5,
+        int(st.compact), _stream(),
+    )
+    LAUNCHES["benes_outer_stage"] += 1
+    _call(rc, "benes_outer_stage")
+    return out
+
+
+def apply_benes(
+    words: torch.Tensor, masks: torch.Tensor, table: tuple[StageSpec, ...],
+    n: int, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The whole routed network: outer prefix stages, one local pass, outer
+    suffix stages (the plain version on the CPU)."""
+    if not _on_card(words, masks):
+        return R.apply_benes_std(words, masks, table, n)
+    pre, local, suf, tile = split_passes(table, n)
+    out = torch.empty_like(words) if out is None else out
+    src = words
+    for i in pre:
+        benes_outer_stage(src, masks, table[i], n, out=out)
+        src = out
+    benes_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=out)
+    for i in suf:
+        benes_outer_stage(out, masks, table[i], n, out=out)
+    return out
+
+
+# ---------------------------------------------------------------- row-min --
+
+ROWMIN_THREADS = 256
+
+
+@functools.lru_cache(maxsize=8)
+def rowmin_items(in_classes: tuple, vr: int, device: str):
+    """Device work table of :func:`rowmin_ranks`: int64 rows of (kind, va,
+    count, sa/32, width, first block) — kind 0 rank-major, 1 vertex-major,
+    2 the sentinel tail — and the total block count."""
+    rows = []
+    block = 0
+    covered = 0
+    for cs in sorted(in_classes, key=lambda c: c.va):
+        assert cs.va == covered, "in_classes must tile the vertex space"
+        if cs.vertex_major:
+            kind, blocks = 1, -(-cs.count // (ROWMIN_THREADS // 32))
+        else:
+            kind, blocks = 0, -(-(cs.count // 32) // ROWMIN_THREADS)
+        if blocks:
+            rows.append((kind, cs.va, cs.count, cs.sa // 32, cs.width, block))
+            block += blocks
+        covered = cs.vb
+    if covered < vr:
+        rows.append((2, covered, vr - covered, 0, 0, block))
+        block += -(-(vr - covered) // ROWMIN_THREADS)
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 6).to(device)
+    return table, block
+
+
+def rowmin_ranks(
+    l1words: torch.Tensor, valid_words: torch.Tensor, in_classes, vr: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Min active rank per relabeled vertex (sentinel where none): kernel
+    ``class_rowmin`` on the card, :func:`.relay.rowmin_ranks` on the CPU."""
+    if not _on_card(l1words, valid_words):
+        return R.rowmin_ranks(l1words, valid_words, in_classes, vr)
+    _check_words("l1words", l1words)
+    _check_words("valid_words", valid_words, l1words.numel())
+    table, blocks = rowmin_items(tuple(in_classes), int(vr), str(l1words.device))
+    out = torch.empty(vr, dtype=torch.int32, device=l1words.device) if out is None else out
+    _check_words("out", out, vr)
+    if blocks == 0:
+        return out
+    rc = kernels().class_rowmin(
+        _ptr(l1words), _ptr(valid_words), _ptr(out), _VP(table.data_ptr()),
+        table.shape[0], blocks, _stream(),
+    )
+    LAUNCHES["class_rowmin"] += 1
+    _call(rc, "class_rowmin")
+    return out
+
+
+# ----------------------------------------------------------- state update --
+
+def apply_relay_candidates_packed(
+    state: R.PackedRelayState, rank_or_sent: torch.Tensor,
+    fwords_out: torch.Tensor | None = None,
+) -> R.PackedRelayState:
+    """Packed state update (kernel ``packed_update`` on the card, updating
+    ``state.packed`` in place; :func:`.relay.apply_relay_candidates_packed`
+    on the CPU).  The returned ``changed`` is a device int32[1] flag."""
+    if not _on_card(state.packed, rank_or_sent):
+        return R.apply_relay_candidates_packed(state, rank_or_sent)
+    vr = state.packed.numel()
+    _check_words("packed", state.packed, vr)
+    _check_words("rank_or_sent", rank_or_sent, vr)
+    dev = state.packed.device
+    fwords = (
+        torch.empty(vr // 32, dtype=torch.int32, device=dev)
+        if fwords_out is None else fwords_out
+    )
+    _check_words("fwords_out", fwords, vr // 32)
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = kernels().packed_update(
+        _ptr(state.packed), _ptr(rank_or_sent), _ptr(state.packed),
+        _ptr(fwords), _ptr(changed), vr, level_word(state.level + 1), _stream(),
+    )
+    LAUNCHES["packed_update"] += 1
+    _call(rc, "packed_update")
+    return R.PackedRelayState(state.packed, fwords, state.level + 1, changed)

@@ -1,0 +1,78 @@
+"""nvcc -> shared library -> ctypes, for the port's hand-written kernels.
+
+Each ``csrc/*.cu`` source exports a plain C interface (pointers, ints and
+the CUDA stream as ``void*``; every function returns ``cudaGetLastError()``)
+and is compiled for Hopper (``sm_90a``) at first use into the port's build
+directory.  Nothing here runs at import time: the CPU test platform has no
+nvcc, and only a call that launches a kernel builds one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+from .native_loader import BUILD_DIR, PKG_ROOT
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: name -> {"seconds": build wall time (0.0 when reused), "ptxas": log}
+BUILD_INFO: dict[str, dict] = {}
+
+
+def csrc(name: str) -> str:
+    return os.path.join(PKG_ROOT, "csrc", name)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def load(name: str, source: str, register) -> ctypes.CDLL:
+    """Build ``source`` (if its content changed) into ``lib<name>.so``, load
+    it and call ``register`` once on it to set argtypes/restype.  Raises on
+    any build or load failure: there is no fallback."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        with open(source, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        info = {"seconds": 0.0, "ptxas": ""}
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp.{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, so)
+            info = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": proc.stdout + proc.stderr,
+            }
+        lib = ctypes.CDLL(so)
+        register(lib)
+        BUILD_INFO[name] = info
+        _libs[name] = lib
+        return lib
