@@ -13,19 +13,23 @@ from .graph.generators import gnm_graph, path_graph, rmat_graph
 from .graph.io import read_sedgewick
 from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
 from .models.bfs import BfsResult, RelayEngine, bfs
+from .models.multisource import MultiBfsResult, bfs_multi, collapse_multi_source
 from .oracle.bfs import canonical_bfs, check
 
 __all__ = [
     "BfsResult",
     "Graph",
     "INF_DIST",
+    "MultiBfsResult",
     "NO_PARENT",
     "RelayEngine",
     "RelayGraph",
     "bfs",
+    "bfs_multi",
     "build_relay_graph",
     "canonical_bfs",
     "check",
+    "collapse_multi_source",
     "from_reference_layout",
     "gnm_graph",
     "path_graph",

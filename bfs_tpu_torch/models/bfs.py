@@ -18,6 +18,14 @@ Phases 1, 3, 4 and 5 are the hand-written kernels of
 the CPU.  The level loop is a Python loop that reads ``changed`` once per
 level.  A search that hits the packed carry's 62-level cap is re-run on
 the unpacked carry.
+
+Batched multi-source BFS runs on the same layout:
+:meth:`RelayEngine.run_multi_elem` packs 32 trees into each uint32 element
+(:mod:`bfs_tpu_torch.ops.relay_elem`), so both Beneš networks read their
+masks once per superstep for every tree of a group; the elem Beneš passes
+and the fused row-min/update are the kernels of ``csrc/relay_elem_kernels.cu``
+on a card.  A batch deeper than the 31 levels its distance planes hold
+falls back to :meth:`RelayEngine.run_multi`, the lock-step form.
 """
 
 from __future__ import annotations
@@ -32,7 +40,10 @@ from ..graph.csr import Graph, INF_DIST
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
 from ..ops import relay as R
 from ..ops import relay_cuda as K
+from ..ops import relay_elem as RE
 from ..ops.packed import packed_cap, packed_rank_fits, packed_truncated
+from ..ops.relay import slots_to_parent
+from .multisource import MultiBfsResult
 
 
 def resolve_device(device=None) -> torch.device:
@@ -83,19 +94,12 @@ class BfsResult:
         return path_to(self.parent, v)
 
 
-def slots_to_parent(parent_slots: torch.Tensor, src_l1: torch.Tensor) -> torch.Tensor:
-    """Relay parent values (L1 slot indices; -1 unreached) -> ORIGINAL src
-    ids: one gather per run, on the device that holds the slots."""
-    slots = parent_slots.clamp(0, src_l1.shape[-1] - 1).to(torch.int64)
-    return torch.where(parent_slots >= 0, src_l1[slots], parent_slots)
-
-
 class RelayEngine:
     """Device-resident relay layout + the level loop (``engine='relay'``).
 
     ``__init__`` builds the layout (unless given a :class:`RelayGraph`) and
     ships masks and valid-slot words to ``device`` once; :meth:`run` runs
-    one source.
+    one source, :meth:`run_multi_elem` and :meth:`run_multi` a batch.
     """
 
     def __init__(self, graph: Graph | RelayGraph, *, device=None):
@@ -192,6 +196,93 @@ class RelayEngine:
         parent = slots_to_parent(parent_slots, self.src_l1)[self.old2new].cpu().numpy()
         parent[source] = source  # the source's slot entry is not a parent
         return BfsResult(dist=dist, parent=parent, num_levels=int(level))
+
+    # -- batched multi-source -------------------------------------------------
+
+    def superstep_elem(self, st: RE.ElemState) -> RE.ElemState:
+        """One element-major superstep for all 32·G trees: the frontier
+        zero-padded to ``vperm_size`` ELEMENTS (dummy out-positions read the
+        zero tail, zeroed anew every superstep), the vperm network,
+        ``broadcast_l2_elem`` (torch ops), the net network (in place on the
+        L2 elements), then the fused row-min/update."""
+        rg = self.relay_graph
+        fw = torch.zeros(
+            (st.frontier.shape[0], rg.vperm_size), dtype=torch.int32, device=self.device
+        )
+        fw[:, : rg.vr] = st.frontier
+        y = K.apply_benes_elem(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size)
+        l2 = RE.broadcast_l2_elem(y, rg.out_classes, rg.net_size)
+        l1 = K.apply_benes_elem(l2, self.net_masks, rg.net_table, rg.net_size, out=l2)
+        return K.elem_rowmin_update(l1, self.valid_words, st, rg.in_classes, rg.vr)
+
+    def run_multi_elem_device(self, sources, *, max_levels: int | None = None) -> RE.ElemState:
+        """Element-major batched BFS; the source count must be a multiple of
+        32.  Returns the device :class:`~bfs_tpu_torch.ops.relay_elem.ElemState`
+        (its ``level`` is a host int: the loop has read ``changed`` once per
+        level).
+
+        The distance planes hold levels up to ``MAX_ELEM_LEVELS`` (31).  The
+        default run allows one step past that cap: a step at level 32 that
+        changes nothing proves convergence at eccentricity 31 and writes no
+        distance; one that changes leaves ``changed`` set, and
+        :meth:`run_multi_elem` then discards the state and falls back.
+        Callers of this raw path test ``changed`` themselves."""
+        rg = self.relay_graph
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        if sources.shape[0] % 32 != 0:
+            raise ValueError("element-major batching needs a multiple of 32 sources")
+        check_sources(rg.num_vertices, sources)
+        if max_levels is None:
+            max_levels = RE.MAX_ELEM_LEVELS + 1
+        else:
+            max_levels = int(max_levels)
+            if max_levels > RE.MAX_ELEM_LEVELS:
+                raise ValueError(
+                    f"element-major mode carries {RE.MAX_ELEM_LEVELS} levels max; "
+                    "use run_multi for deeper graphs"
+                )
+        groups = sources.shape[0] // 32
+        _, pt = RE.rank_plane_layout(rg.in_classes)
+        st = RE.init_elem_state(
+            rg.vr, rg.old2new[sources].reshape(groups, 32), pt, self.device
+        )
+        st, _ = self._loop(st, self.superstep_elem, max_levels)
+        return st
+
+    def run_multi_elem(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
+        """Element-major batched BFS with host results in original ids,
+        bit-exact with :meth:`run_multi`.  A default run that is still
+        changing after the step past the 31-level cap (eccentricity > 31
+        from some source) falls back to :meth:`run_multi`, which has no
+        depth cap."""
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        t0 = time.perf_counter()
+        st = self.run_multi_elem_device(sources, max_levels=max_levels)
+        t1 = time.perf_counter()
+        if max_levels is None and bool(st.changed):
+            return self.run_multi(sources)
+        dist, parent = RE.extract_results(
+            st, self.relay_graph, sources, self.old2new, self.src_l1
+        )
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1}
+        return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=st.level)
+
+    def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
+        """Lock-step batched BFS without a depth cap: every source runs its
+        own search and ``num_levels`` is the largest, which is the lock-step
+        loop's level (all trees advance together until none changes)."""
+        rg = self.relay_graph
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        check_sources(rg.num_vertices, sources)
+        max_levels = int(max_levels) if max_levels is not None else rg.vr
+        dist = np.empty((sources.shape[0], rg.num_vertices), dtype=np.int32)
+        parent = np.empty_like(dist)
+        levels = 0
+        for i, s in enumerate(sources.tolist()):
+            res = self._to_result(*self._search(int(rg.old2new[s]), max_levels), s)
+            dist[i], parent[i] = res.dist, res.parent
+            levels = max(levels, res.num_levels)
+        return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=levels)
 
 
 def bfs(

@@ -48,6 +48,7 @@ __all__ = [
     "rank_to_slot",
     "apply_relay_candidates",
     "apply_relay_candidates_packed",
+    "slots_to_parent",
     "unpack_relay_packed",
 ]
 
@@ -343,6 +344,13 @@ def apply_relay_candidates_packed(
     new = torch.minimum(old, cand)
     newly = new != old
     return PackedRelayState(i32(new), pack_std(newly), state.level + 1, newly.any())
+
+
+def slots_to_parent(parent_slots: torch.Tensor, src_l1: torch.Tensor) -> torch.Tensor:
+    """Relay parent values (L1 slot indices; -1 unreached) -> ORIGINAL src
+    ids: one gather per run, on the device that holds the slots."""
+    slots = parent_slots.clamp(0, src_l1.shape[-1] - 1).to(torch.int64)
+    return torch.where(parent_slots >= 0, src_l1[slots], parent_slots)
 
 
 def unpack_relay_packed(packed: torch.Tensor, in_classes, vr: int):

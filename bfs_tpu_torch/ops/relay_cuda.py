@@ -1,21 +1,26 @@
 """Kernel wrappers of the relay superstep: the port's counterpart of
 ``bfs_tpu.ops.relay_pallas``.
 
-Every wrapper takes the plain PyTorch version (:mod:`.relay`) for a tensor
-on the CPU and launches its hand-written CUDA kernel
-(``csrc/relay_kernels.cu``) for a tensor on a card; any other device
-raises, and a CUDA tensor never reaches the plain version.  Each kernel
-has a launch count in :data:`LAUNCHES`, raised by one where the wrapper
-launches it and nowhere else.
+Every wrapper takes the plain PyTorch version (:mod:`.relay`,
+:mod:`.relay_elem`) for a tensor on the CPU and launches its hand-written
+CUDA kernel (``csrc/relay_kernels.cu``, ``csrc/relay_elem_kernels.cu``)
+for a tensor on a card; any other device raises, and a CUDA tensor never
+reaches the plain version.  Each kernel has a launch count in
+:data:`LAUNCHES`, raised by one where the wrapper launches it and nowhere
+else.
 
-  ==================  ====================================================
-  kernel              replaces (bfs_tpu/ops/relay_pallas.py)
-  ==================  ====================================================
-  benes_local_pass    _run_local_tile_major (K1), _run_pass local modes
-  benes_outer_stage   _run_pass outer passes A/C (K2)
-  class_rowmin        _class_tournament_call / rowmin_ranks_pallas (K3)
-  packed_update       apply_relay_candidates_packed_pallas (K4)
-  ==================  ====================================================
+  ======================  ================================================
+  kernel                  replaces (bfs_tpu/ops/relay_pallas.py)
+  ======================  ================================================
+  benes_local_pass        _run_local_tile_major (K1), _run_pass local modes
+  benes_outer_stage       _run_pass outer passes A/C (K2)
+  class_rowmin            _class_tournament_call / rowmin_ranks_pallas (K3)
+  packed_update           apply_relay_candidates_packed_pallas (K4)
+  benes_elem_local_pass   _run_elem_pass local mode (K5)
+  benes_elem_outer_stage  _run_elem_pass outer mode (K5)
+  elem_rowmin_update      the XLA row-min and update of elem_superstep
+                          (bfs_tpu/ops/relay_elem.py)
+  ======================  ================================================
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from ..graph.relay import StageSpec
 from ..utils import cuda_build
 from . import relay as R
+from . import relay_elem as RE
 from .packed import level_word
 
 LAUNCHES = {
@@ -36,6 +42,9 @@ LAUNCHES = {
     "benes_outer_stage": 0,
     "class_rowmin": 0,
     "packed_update": 0,
+    "benes_elem_local_pass": 0,
+    "benes_elem_outer_stage": 0,
+    "elem_rowmin_update": 0,
 }
 
 #: Shared-memory tile of the local pass, in words: a power of two in
@@ -44,6 +53,9 @@ LAUNCHES = {
 MIN_TILE_WORDS = 1 << 13
 MAX_TILE_WORDS = 1 << 15
 TARGET_BLOCKS = 128
+#: Shared-memory tile of the elem local pass, in elements (128 KB); a
+#: smaller network is one tile.
+MAX_TILE_ELEMS = 1 << 15
 
 
 def reset_launches() -> None:
@@ -69,10 +81,31 @@ def _register(lib: ctypes.CDLL) -> None:
     lib.packed_update.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_uint, _VP]
 
 
+def _register_elem(lib: ctypes.CDLL) -> None:
+    lib.benes_elem_local_pass.restype = _INT
+    lib.benes_elem_local_pass.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _LL, _INT, _VP,
+    ]
+    lib.benes_elem_outer_stage.restype = _INT
+    lib.benes_elem_outer_stage.argtypes = [_VP, _VP, _VP, _INT, _LL, _LL, _INT, _VP]
+    lib.elem_rowmin_update.restype = _INT
+    lib.elem_rowmin_update.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
+        ctypes.c_uint, _VP,
+    ]
+
+
 def kernels() -> ctypes.CDLL:
     """Build (at first use) and load the relay kernels."""
     return cuda_build.load(
         "relay_kernels", cuda_build.csrc("relay_kernels.cu"), _register
+    )
+
+
+def elem_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the element-major relay kernels."""
+    return cuda_build.load(
+        "relay_elem_kernels", cuda_build.csrc("relay_elem_kernels.cu"), _register_elem
     )
 
 
@@ -116,6 +149,16 @@ def tile_words_for(n: int) -> int:
     return min(max(t, MIN_TILE_WORDS), MAX_TILE_WORDS, nw)
 
 
+def _split(table: tuple[StageSpec, ...], limit: int):
+    """``(prefix, local, suffix)`` stage indices: the local run is every
+    stage with ``d < limit`` (consecutive, in the middle of the network)."""
+    local = [i for i, st in enumerate(table) if st.d < limit]
+    assert local, "no local stages"
+    lo, hi = local[0], local[-1] + 1
+    assert local == list(range(lo, hi)), "local stages must be consecutive"
+    return tuple(range(lo)), tuple(range(lo, hi)), tuple(range(hi, len(table)))
+
+
 @functools.lru_cache(maxsize=16)
 def split_passes(table: tuple[StageSpec, ...], n: int, tile_words: int | None = None):
     """``(prefix outer stages, local run, suffix outer stages, tile)``: the
@@ -127,11 +170,20 @@ def split_passes(table: tuple[StageSpec, ...], n: int, tile_words: int | None = 
     nw = n // 32
     if tile <= 0 or tile & (tile - 1) or nw % tile:
         raise ValueError(f"tile of {tile} words does not divide the {nw}-word network")
-    local = [i for i, st in enumerate(table) if st.d < 32 * tile]
-    assert local, "no local stages"
-    lo, hi = local[0], local[-1] + 1
-    assert local == list(range(lo, hi)), "local stages must be consecutive"
-    return tuple(range(lo)), tuple(range(lo, hi)), tuple(range(hi, len(table))), tile
+    return (*_split(table, 32 * tile), tile)
+
+
+@functools.lru_cache(maxsize=16)
+def split_elem_passes(table: tuple[StageSpec, ...], n: int, tile: int | None = None):
+    """The elem network's ``(prefix, local, suffix, tile)``: the local run is
+    every stage with ``d < tile`` elements.  The counterpart of the
+    reference's ``elem_pass_static`` with the card's element tile
+    (:data:`MAX_TILE_ELEMS`, or the whole network when it is smaller) in
+    place of ``TILE_ROWS_E`` rows of 128 lanes."""
+    tile = min(MAX_TILE_ELEMS, n) if tile is None else int(tile)
+    if tile <= 0 or tile & (tile - 1) or n % tile:
+        raise ValueError(f"tile of {tile} elements does not divide the {n}-element network")
+    return (*_split(table, tile), tile)
 
 
 @functools.lru_cache(maxsize=16)
@@ -296,3 +348,146 @@ def apply_relay_candidates_packed(
     LAUNCHES["packed_update"] += 1
     _call(rc, "packed_update")
     return R.PackedRelayState(state.packed, fwords, state.level + 1, changed)
+
+
+# ------------------------------------------------------- element-major (K5) --
+
+def _check_elems(name: str, t: torch.Tensor, n: int, groups: int | None = None) -> int:
+    """A contiguous int32[G, n] element array; returns G."""
+    if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() != 2 or t.shape[1] != n:
+        raise ValueError(f"{name}: expected a contiguous int32[G, {n}] tensor")
+    if groups is not None and t.shape[0] != groups:
+        raise ValueError(f"{name}: expected {groups} groups, got {t.shape[0]}")
+    return int(t.shape[0])
+
+
+def benes_elem_local_pass(
+    x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
+    n: int, tile: int, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply a consecutive run of stages with ``d < tile`` to int32[G, n]
+    elements (one shared-memory tile of one group per block).  ``out`` may
+    alias ``x_in``."""
+    if not _on_card(x_in, masks):
+        return RE.apply_benes_elem(x_in, masks, stages, n)
+    groups = _check_elems("x_in", x_in, n)
+    _check_words("masks", masks)
+    if any(st.d >= tile for st in stages):
+        raise ValueError("a local stage spans more than one tile")
+    out = torch.empty_like(x_in) if out is None else out
+    _check_elems("out", out, n, groups)
+    offsets, dists, compact = _local_args(tuple(stages))
+    rc = elem_kernels().benes_elem_local_pass(
+        _ptr(x_in), _ptr(out), _ptr(masks),
+        offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
+        compact.ctypes.data_as(_VP), len(stages), groups, n, tile, _stream(),
+    )
+    LAUNCHES["benes_elem_local_pass"] += 1
+    _call(rc, "benes_elem_local_pass")
+    return out
+
+
+def benes_elem_outer_stage(
+    x_in: torch.Tensor, masks: torch.Tensor, st: StageSpec, n: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Apply one stage to int32[G, n] elements, all groups in one launch.
+    ``out`` may alias ``x_in``."""
+    if not _on_card(x_in, masks):
+        return RE.apply_benes_elem(x_in, masks, (st,), n)
+    groups = _check_elems("x_in", x_in, n)
+    _check_words("masks", masks)
+    out = torch.empty_like(x_in) if out is None else out
+    _check_elems("out", out, n, groups)
+    rc = elem_kernels().benes_elem_outer_stage(
+        _ptr(x_in), _ptr(out), _ptr(masks, st.offset), groups, n, st.d,
+        int(st.compact), _stream(),
+    )
+    LAUNCHES["benes_elem_outer_stage"] += 1
+    _call(rc, "benes_elem_outer_stage")
+    return out
+
+
+def apply_benes_elem(
+    x: torch.Tensor, masks: torch.Tensor, table: tuple[StageSpec, ...],
+    n: int, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The whole routed network on int32[G, n] elements: outer prefix
+    stages, one local pass, outer suffix stages (the plain version on the
+    CPU).  ``out`` may alias ``x``."""
+    if not _on_card(x, masks):
+        return RE.apply_benes_elem(x, masks, table, n)
+    pre, local, suf, tile = split_elem_passes(table, n)
+    out = torch.empty_like(x) if out is None else out
+    src = x
+    for i in pre:
+        benes_elem_outer_stage(src, masks, table[i], n, out=out)
+        src = out
+    benes_elem_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=out)
+    for i in suf:
+        benes_elem_outer_stage(out, masks, table[i], n, out=out)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def elem_rowmin_items(in_classes: tuple, vr: int, device: str):
+    """Device work table of :func:`elem_rowmin_update`: int64 rows of (kind,
+    va, count, sa, width, rank-plane offset, nb, first block) — kind 0
+    rank-major (a thread per vertex), 1 vertex-major (a warp per vertex),
+    2 the tail — and the block count per group."""
+    offsets, _ = RE.rank_plane_layout(in_classes)
+    rows = []
+    block = 0
+    covered = 0
+    for cs in sorted(in_classes, key=lambda c: c.va):
+        assert cs.va == covered, "in_classes must tile the vertex space"
+        off, nb = offsets[cs.va]
+        if cs.vertex_major:
+            kind, blocks = 1, -(-cs.count // (ROWMIN_THREADS // 32))
+        else:
+            kind, blocks = 0, -(-cs.count // ROWMIN_THREADS)
+        if blocks:
+            rows.append((kind, cs.va, cs.count, cs.sa, cs.width, off, nb, block))
+            block += blocks
+        covered = cs.vb
+    if covered < vr:
+        rows.append((2, covered, vr - covered, 0, 0, 0, 0, block))
+        block += -(-(vr - covered) // ROWMIN_THREADS)
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(device)
+    return table, block
+
+
+def elem_rowmin_update(
+    l1: torch.Tensor, valid_words: torch.Tensor, state: RE.ElemState,
+    in_classes, vr: int,
+) -> RE.ElemState:
+    """Row-min and bit-sliced update of one elem superstep.  On the card the
+    kernel ``elem_rowmin_update`` updates ``visited``, ``dist_planes`` and
+    ``rank_planes`` IN PLACE and writes a new frontier; ``changed`` is a
+    device int32[1] flag.  On the CPU: :func:`.relay_elem.rowmin_elem` then
+    :func:`.relay_elem.apply_elem_found`."""
+    plane_offsets, pt = RE.rank_plane_layout(in_classes)
+    if not _on_card(l1, valid_words, state.visited):
+        found, rp = RE.rowmin_elem(l1, valid_words, in_classes, vr, plane_offsets, pt)
+        return RE.apply_elem_found(state, found, rp, in_classes, plane_offsets)
+    n = l1.shape[-1]
+    groups = _check_elems("l1", l1, n)
+    _check_words("valid_words", valid_words, n // 32)
+    _check_elems("visited", state.visited, vr, groups)
+    _check_elems("rank_planes", state.rank_planes, pt, groups)
+    _check_words("dist_planes", state.dist_planes, RE.DIST_PLANES * groups * vr)
+    table, blocks = elem_rowmin_items(tuple(in_classes), int(vr), str(l1.device))
+    frontier = torch.empty_like(state.visited)
+    changed = torch.empty(1, dtype=torch.int32, device=l1.device)
+    rc = elem_kernels().elem_rowmin_update(
+        _ptr(l1), _ptr(valid_words), _ptr(state.visited), _ptr(frontier),
+        _ptr(state.dist_planes), _ptr(state.rank_planes), _ptr(changed),
+        _VP(table.data_ptr()), table.shape[0], blocks, groups, n, vr, pt,
+        state.level + 1, _stream(),
+    )
+    LAUNCHES["elem_rowmin_update"] += 1
+    _call(rc, "elem_rowmin_update")
+    return RE.ElemState(
+        state.visited, frontier, state.dist_planes, state.rank_planes,
+        state.level + 1, changed,
+    )

@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time (0.0 when reused), "ptxas": log}
 BUILD_INFO: dict[str, dict] = {}
@@ -47,8 +48,11 @@ def _nvcc() -> str:
 def load(name: str, source: str, register) -> ctypes.CDLL:
     """Build ``source`` (if its content changed) into ``lib<name>.so``, load
     it and call ``register`` once on it to set argtypes/restype.  Raises on
-    any build or load failure: there is no fallback."""
-    with _lock:
+    any build or load failure: there is no fallback.  Different libraries
+    build in parallel when loaded from different threads."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

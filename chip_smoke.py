@@ -11,9 +11,16 @@ factor 6, graph seed 1, scale 22 by default), holds every kernel against its
 plain PyTorch version on the card at the layout's real shapes (bit-exact),
 then drives the main path — ``RelayEngine.run`` on the card for 4 roots drawn
 from ``--seed`` — and checks every result against the port's host oracle
-(``canonical_bfs`` bit for bit, ``check()`` without violations).  Two small
-graphs follow: tinyCG (the paper's worked example) and a 100-vertex path
-(deeper than the packed carry's 62 levels, so it takes the unpacked re-run).
+(``canonical_bfs`` bit for bit, ``check()`` without violations).  The
+multi-source path follows on the same graph: the element-major kernels held
+against their plain versions at the layout's real shapes (G = 2 groups of 32
+trees), then ``RelayEngine.run_multi_elem_device`` for a batch of 64 sources
+drawn from ``--seed`` (BASELINE.json config 5), timed, traced, and every
+tree checked against the port's single-source search (and four against the
+oracle).  Small graphs close the run: tinyCG (the paper's worked example)
+and a 100-vertex path (deeper than the packed carry's 62 levels, so it takes
+the unpacked re-run; with 32 sources, deeper than the 31 levels of the elem
+distance planes, so it takes the lock-step fallback).
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -29,17 +36,26 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data-sheet peak
 EDGE_FACTOR = 6  # the repo bench's R-MAT family: Graph500 a/b/c, edge factor 6
 GRAPH_SEED = 1
 ROOTS = 4
+BATCH = 64  # BASELINE.json config 5: 64 sources, two groups of 32 trees
 SOURCE = "bfs_tpu_torch/csrc/relay_kernels.cu"
+ELEM_SOURCE = "bfs_tpu_torch/csrc/relay_elem_kernels.cu"
 REPLACES = {
     "benes_local_pass": "bfs_tpu/ops/relay_pallas.py:455",
     "benes_outer_stage": "bfs_tpu/ops/relay_pallas.py:618",
     "class_rowmin": "bfs_tpu/ops/relay_pallas.py:1059",
     "packed_update": "bfs_tpu/ops/relay_pallas.py:1188",
+}
+ELEM_REPLACES = {
+    "benes_elem_local_pass": "bfs_tpu/ops/relay_pallas.py:860",
+    "benes_elem_outer_stage": "bfs_tpu/ops/relay_pallas.py:860",
+    # XLA in the reference: rowmin_elem (:186) and the update (:258)
+    "elem_rowmin_update": "bfs_tpu/ops/relay_elem.py:186",
 }
 
 
@@ -58,19 +74,24 @@ def card_line() -> str:
 _FLUSH = []
 
 
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+def cuda_ms(fn, reps: int, warm: int = 2, prep=None) -> float:
     """Mean milliseconds per call on the card: CUDA events around each of
     ``reps`` calls (after ``warm`` warm-up calls), each call preceded by a
     256 MB write that evicts the 50 MB L2, so every call starts cold as the
-    main path's mask reads do."""
+    main path's mask reads do.  ``prep`` (untimed) runs before each call,
+    to restore inputs that the call updates in place."""
     import torch
 
     if not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
     for _ in range(warm):
+        if prep:
+            prep()
         fn()
     pairs = []
     for _ in range(reps):
+        if prep:
+            prep()
         _FLUSH[0].zero_()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
@@ -84,24 +105,32 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
 
 def max_abs_err(a, b) -> int:
     """Largest difference of two uint32 word tensors (int32 patterns)."""
+    import torch
+
     from bfs_tpu_torch.ops.packed import u32
 
-    return int((u32(a) - u32(b)).abs().max().item()) if a.numel() else 0
+    if torch.equal(a, b):
+        return 0
+    return int((u32(a) - u32(b)).abs().max().item())
 
 
-def device_trace(eng, root: int, wall_s: float) -> None:
-    """Trace one more search of ``root`` with ``torch.profiler`` (CUPTI) and
-    print the card's busy time per search, its idle share against
-    ``wall_s`` (the untraced host seconds of that search), and the device
-    time per kernel name.  Busy time is the union of the device activity
-    intervals (kernels and copies)."""
+def device_trace(label: str, fn, wall_s: float) -> None:
+    """Trace one more call of ``fn`` with ``torch.profiler`` (CUPTI) and
+    print the card's busy time in it, its idle share against the traced
+    call's own host seconds (the untraced ``wall_s`` of the same work is
+    printed beside it: the result copy's time differs between the two
+    calls, so against ``wall_s`` the share can fall below zero), and the
+    device time per kernel name.  Busy time is the union of the device
+    activity intervals (kernels and copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.run(root)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -117,9 +146,9 @@ def device_trace(eng, root: int, wall_s: float) -> None:
         per_name[name] = per_name.get(name, 0.0) + (b - a)
     busy_s = busy_us * 1e-6
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"device trace, root {root}: {len(spans)} device activities, busy "
-        f"{busy_s:.6f} s of the untraced {wall_s:.6f} s search: idle share "
-        f"{1.0 - busy_s / wall_s:.4f}; device ms by name: "
+    log(f"device trace, {label}: {len(spans)} device activities, busy "
+        f"{busy_s:.6f} s of the traced {traced_s:.6f} s (untraced {wall_s:.6f} s): "
+        f"idle share {1.0 - busy_s / traced_s:.4f}; device ms by name: "
         + ", ".join(f"{n[:40]} {t * 1e-3:.4f}" for n, t in top))
 
 
@@ -245,6 +274,228 @@ def kernel_phase(eng, K, R, card: str) -> dict:
     return results
 
 
+def tree_count(words) -> int:
+    """Set bits of an int32 element tensor: trees at their vertices."""
+    return sum(int(((words >> t) & 1).sum()) for t in range(32))
+
+
+def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
+    """Each element-major kernel against its plain version on the card, on
+    the inputs the multi-source path gives it at the superstep with the
+    most trees in the frontier (G = 2 groups of 32 trees)."""
+    import numpy as np
+    import torch
+
+    rg = eng.relay_graph
+    dev = eng.device
+    groups = len(sources) // 32
+    _, pt = RE.rank_plane_layout(rg.in_classes)
+    st = RE.init_elem_state(rg.vr, rg.old2new[sources].reshape(groups, 32), pt, dev)
+    best = None
+    while bool(st.changed) and st.level <= RE.MAX_ELEM_LEVELS:
+        count = tree_count(st.frontier)
+        if best is None or count > best[0]:
+            best = (count, RE.ElemState(*(t.clone() for t in st[:4]), st.level, None))
+        st = eng.superstep_elem(st)  # updates st in place on the card
+    count, st0 = best
+    del st
+    log(f"elem kernel inputs: superstep {st0.level + 1}, {count} (tree, vertex) "
+        f"pairs in the frontier, G={groups}")
+
+    fw = torch.zeros((groups, rg.vperm_size), dtype=torch.int32, device=dev)
+    fw[:, : rg.vr] = st0.frontier
+    n, table, masks = rg.net_size, rg.net_table, eng.net_masks
+    y = K.apply_benes_elem(fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size)
+    l2 = RE.broadcast_l2_elem(y, rg.out_classes, n)
+    results = {}
+
+    def record(name, err, ms, plain_ms, nbytes, shape, per_step):
+        if err != 0:
+            raise AssertionError(f"{name}: kernel differs from its plain version (max err {err})")
+        results[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+            shape=shape, per_superstep=per_step,
+        )
+        log(f"kernel {name}: {shape}; bit-exact; {ms:.4f} ms per launch, cold L2 "
+            f"(plain {plain_ms:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
+            f"from {nbytes} bytes at 3.35 TB/s); {per_step} launches per superstep; on {card}")
+
+    # Whole networks, kernel route vs plain (both networks of the path).
+    splits = {}
+    for name, x, m, tb, size in (
+        ("vperm", fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size),
+        ("net", l2, masks, table, n),
+    ):
+        err = max_abs_err(K.apply_benes_elem(x, m, tb, size), RE.apply_benes_elem(x, m, tb, size))
+        if err:
+            raise AssertionError(f"elem {name} network: kernels differ from plain (max err {err})")
+        splits[name] = K.split_elem_passes(tb, size)
+        pre, local, suf, tile = splits[name]
+        log(f"elem network {name}: n={size} x G={groups}, {len(tb)} stages "
+            f"({len(pre)} + {len(suf)} outer around {len(local)} local, tile {tile} "
+            f"elements), kernels bit-exact vs plain")
+    outer_per_step = sum(len(v[0]) + len(v[2]) for v in splits.values())
+    elem_bytes = 4 * groups * n
+
+    pre, local, suf, tile = splits["net"]
+    if not pre:
+        raise AssertionError("network too small to have outer stages; use --scale >= 16")
+    st1 = table[pre[0]]
+    out = torch.empty_like(l2)
+    err = max_abs_err(K.benes_elem_outer_stage(l2, masks, st1, n, out=out),
+                      RE.apply_benes_elem(l2, masks, (st1,), n))
+    ms = cuda_ms(lambda: K.benes_elem_outer_stage(l2, masks, st1, n, out=out), 50)
+    pms = cuda_ms(lambda: RE.apply_benes_elem(l2, masks, (st1,), n), 5)
+    record("benes_elem_outer_stage", err, ms, pms, 2 * elem_bytes + 4 * st1.nwords,
+           f"net n={n} x G={groups}, d={st1.d}", outer_per_step)
+
+    x = l2
+    for i in pre:
+        x = RE.apply_benes_elem(x, masks, (table[i],), n)
+    stages = tuple(table[i] for i in local)
+    err = max_abs_err(K.benes_elem_local_pass(x, masks, stages, n, tile, out=out),
+                      RE.apply_benes_elem(x, masks, stages, n))
+    ms = cuda_ms(lambda: K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), 20)
+    pms = cuda_ms(lambda: RE.apply_benes_elem(x, masks, stages, n), 3)
+    record("benes_elem_local_pass", err, ms, pms,
+           2 * elem_bytes + 4 * sum(t.nwords for t in stages),
+           f"net n={n} x G={groups}, {len(stages)} local stages, tile {tile} elements", 2)
+    del x, out
+
+    # elem_rowmin_update on the routed L1 elements of that superstep.
+    l1 = K.apply_benes_elem(l2, masks, table, n)
+    del l2
+    valid = eng.valid_words
+    offsets, _ = RE.rank_plane_layout(rg.in_classes)
+    found, rp = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
+    want = RE.apply_elem_found(st0, found, rp, rg.in_classes, offsets)
+    del found, rp
+    work = RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
+    got = K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr)
+    err = max(max_abs_err(a, b) for a, b in zip(got[:4], want[:4]))
+    if bool(got.changed.item()) != bool(want.changed):
+        raise AssertionError("elem_rowmin_update: changed flag differs from the plain version")
+
+    def restore():
+        for dst, src in zip(work[:4], st0[:4]):
+            dst.copy_(src)
+
+    ms = cuda_ms(lambda: K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr), 20,
+                 prep=restore)
+
+    def plain():
+        f, r = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
+        return RE.apply_elem_found(st0, f, r, rg.in_classes, offsets)
+
+    pms = cuda_ms(plain, 3)
+    # Bytes the row-min/update must move on these inputs: visited read and
+    # frontier written once; the class slots of every unfinished (group,
+    # vertex) and the valid words of those slots read; visited, the set
+    # dist planes and the rank planes of newly reached vertices read and
+    # written.
+    width = torch.zeros(rg.vr, dtype=torch.int64, device=dev)
+    nbits = torch.zeros(rg.vr, dtype=torch.int64, device=dev)
+    for cs in rg.in_classes:
+        width[cs.va : cs.vb] = cs.width
+        nbits[cs.va : cs.vb] = offsets[cs.va][1]
+    unfinished = st0.visited != -1
+    newly = want.frontier != 0
+    lev_bits = bin((st0.level + 1) & ((1 << RE.DIST_PLANES) - 1)).count("1")
+    nbytes = (
+        2 * 4 * groups * rg.vr
+        + 4 * int((unfinished * width).sum())
+        + int((unfinished.any(dim=0) * width).sum()) // 8
+        + int((newly * (4 + 8 * lev_bits + 8 * nbits)).sum())
+    )
+    record("elem_rowmin_update", err, ms, pms, nbytes,
+           f"vr={rg.vr} x G={groups}, {len(rg.in_classes)} classes, "
+           f"{int(unfinished.sum())} unfinished (group, vertex) pairs", 1)
+    del l1, want, got, work, st0
+    torch.cuda.empty_cache()
+    return results
+
+
+def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> dict:
+    """The multi-source main path: ``run_multi_elem_device`` for one batch,
+    warmed, then timed with its launches counted, traced once, and its
+    results (``run_multi_elem``) checked tree by tree."""
+    import numpy as np
+    import torch
+
+    st = eng.run_multi_elem_device(sources)  # warm: caches and allocator
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    st = eng.run_multi_elem_device(sources)
+    level, changed = st.level, bool(st.changed)  # the loop read changed per level
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in ELEM_REPLACES}
+    peak = torch.cuda.max_memory_allocated()
+    del st
+    if changed:
+        raise AssertionError("64-source batch did not converge within the elem level cap")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"multi-source path never launched kernel {name}")
+    trees = len(sources)
+    log(f"multi-source batch: {trees} sources, G={trees // 32}: {secs:.6f} s per batch, "
+        f"{secs / trees:.6f} s per tree, {trees * directed_traversed / 2 / secs:.6g} "
+        f"aggregate undirected TEPS ({directed_traversed // 2} undirected edges per tree), "
+        f"{level} levels, peak device memory {peak} bytes; launches {launches}")
+    device_trace("64-source batch", lambda: eng.run_multi_elem_device(sources), secs)
+
+    res = eng.run_multi_elem(sources)
+    split = dict(eng.last_run)
+    log(f"run_multi_elem: level loop {split['loop_s']:.4f} s, result extraction + copy "
+        f"{split['result_s']:.4f} s, {res.num_levels} levels")
+    if res.num_levels != level:
+        raise AssertionError("run_multi_elem level count differs from the timed batch")
+    t0 = time.perf_counter()
+    for i, s in enumerate(sources.tolist()):
+        one = eng.run(s)
+        if not (np.array_equal(res.dist[i], one.dist) and np.array_equal(res.parent[i], one.parent)):
+            raise AssertionError(f"tree {i} (source {s}): differs from the single-source search")
+    log(f"all {trees} trees equal the port's single-source RelayEngine.run bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for i in (0, 31, 32, trees - 1):  # bit 0 and bit 31 of both groups
+        s = int(sources[i])
+        dist, parent = P.canonical_bfs(g, s)
+        if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
+            raise AssertionError(f"tree {i} (source {s}): differs from canonical_bfs")
+        violations = P.check(g, res.dist[i], res.parent[i], s)
+        if violations:
+            raise AssertionError(f"tree {i}: check() violations {violations[:3]}")
+    log("trees 0, 31, 32, 63: oracle-exact, check() clean")
+    return dict(launches=launches, secs=secs, levels=level, peak=peak)
+
+
+def small_multi_checks(P, tiny) -> None:
+    """tinyCG with 32 sources, and path(100) with 32 sources, which is
+    deeper than the elem distance planes and takes the lock-step
+    fallback; every tree against canonical_bfs."""
+    import numpy as np
+
+    for name, graph, sources in (
+        ("tinyCG", tiny, np.arange(32, dtype=np.int32) % tiny.num_vertices),
+        ("path_graph(100)", P.path_graph(100), (np.arange(32, dtype=np.int32) * 37) % 100),
+    ):
+        eng = P.RelayEngine(graph)
+        fell_back = bool(eng.run_multi_elem_device(sources).changed)
+        res = eng.run_multi_elem(sources)
+        for i, s in enumerate(sources.tolist()):
+            dist, parent = P.canonical_bfs(graph, s)
+            if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
+                raise AssertionError(f"{name}: tree {i} (source {s}) differs from canonical_bfs")
+        if fell_back != (name != "tinyCG"):
+            raise AssertionError(f"{name}: fallback to run_multi {'not ' * (not fell_back)}taken")
+        log(f"{name}, 32 sources: {res.num_levels} levels"
+            f"{' through the lock-step fallback' if fell_back else ''}, oracle-exact")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -262,6 +513,7 @@ def main(argv=None) -> int:
     from bfs_tpu_torch.graph import generators
     from bfs_tpu_torch.ops import relay as R
     from bfs_tpu_torch.ops import relay_cuda as K
+    from bfs_tpu_torch.ops import relay_elem as RE
     from bfs_tpu_torch.utils import cuda_build
 
     t_all = time.perf_counter()
@@ -270,15 +522,18 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # ---- build ----------------------------------------------------------
+    # ---- build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    K.kernels()
-    info = cuda_build.BUILD_INFO["relay_kernels"]
-    log(f"build: relay_kernels.cu in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['seconds']:.2f} s)")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", file=sys.stderr)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(K.kernels), pool.submit(K.elem_kernels)]:
+            fut.result()
+    log(f"build: both kernel libraries in {time.perf_counter() - t0:.2f} s")
+    for name in ("relay_kernels", "relay_elem_kernels"):
+        info = cuda_build.BUILD_INFO[name]
+        log(f"build: {name}.cu (nvcc {info['seconds']:.2f} s)")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
     # ---- layout ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -337,18 +592,26 @@ def main(argv=None) -> int:
             f"result mapping + copy {split['result_s']:.4f} s), {res.num_levels} levels, "
             f"{directed_traversed / 2 / s:.4g} TEPS; oracle-exact, check() clean")
         del res, dist, parent
-    launches = dict(K.LAUNCHES)
+    launches = {k: K.LAUNCHES[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
     mean_s = float(np.mean(secs))
     for r, s in zip(roots, secs):
-        device_trace(eng, r, s)
+        device_trace(f"root {r}", lambda: eng.run(r), s)
     log(f"main path: {len(roots)} searches, mean {mean_s:.4f} s/search, "
         f"{directed_traversed / 2 / mean_s:.6g} undirected TEPS "
         f"({directed_traversed // 2} undirected edges in the component); "
         f"peak device memory {peak} bytes; launches {launches}")
+
+    # ---- multi-source: elem kernels, then the batch ----------------------
+    sources = np.asarray(rng.choice(comp, BATCH, replace=False), dtype=np.int32)
+    torch.cuda.empty_cache()
+    eres = elem_kernel_phase(eng, sources, K, RE, card)
+    multi = multi_source_phase(eng, g, sources, directed_traversed, K, RE, P)
+    launches.update(multi["launches"])
+    kres.update(eres)
 
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -366,15 +629,17 @@ def main(argv=None) -> int:
             and res.num_levels == 100):
         raise AssertionError("path_graph(100): unpacked re-run differs from the oracle")
     log("path_graph(100): 100 levels through the unpacked re-run, oracle-exact")
+    small_multi_checks(P, tiny)
 
     # ---- report ---------------------------------------------------------
     kernels = [
-        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+        dict(name=name, route="cuda", source=source, replaces=replaces[name],
              launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
              bound_ms=kres[name]["bound_ms"], bound_by="bytes", library_ms=None,
              phase="kernel phase: " + kres[name]["shape"])
-        for name in REPLACES
+        for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES))
+        for name in replaces
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

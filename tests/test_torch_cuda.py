@@ -18,6 +18,7 @@ from bfs_tpu_torch.graph.relay import valid_slot_words
 from bfs_tpu_torch.models import bfs as p_bfs
 from bfs_tpu_torch.ops import relay as R
 from bfs_tpu_torch.ops import relay_cuda as K
+from bfs_tpu_torch.ops import relay_elem as RE
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +107,71 @@ def test_card_bfs_matches_cpu_and_oracle(card):
         np.testing.assert_array_equal(a.parent, parent)
     assert K.LAUNCHES["benes_local_pass"] > 0
     assert K.LAUNCHES["class_rowmin"] > 0 and K.LAUNCHES["packed_update"] > 0
+
+
+def _state(rng, rg, level: int, card) -> RE.ElemState:
+    """A G = 2 elem carry with random visited bits (frontier a subset) and
+    random distance and rank planes."""
+    _, pt = RE.rank_plane_layout(rg.in_classes)
+    visited = _words(rng, 2 * rg.vr)
+    frontier = visited & _words(rng, 2 * rg.vr)
+    return RE.ElemState(
+        _t(visited, card).reshape(2, rg.vr), _t(frontier, card).reshape(2, rg.vr),
+        _t(_words(rng, RE.DIST_PLANES * 2 * rg.vr), card).reshape(RE.DIST_PLANES, 2, rg.vr),
+        _t(_words(rng, 2 * pt), card).reshape(2, pt), level, None,
+    )
+
+
+def test_card_elem_benes_kernels_match_plain(card, layout):
+    rg = layout
+    x = _t(_words(np.random.default_rng(8), 2 * rg.net_size), card).reshape(2, rg.net_size)
+    masks = _t(rg.net_masks, card)
+    want = RE.apply_benes_elem(x, masks, rg.net_table, rg.net_size)
+    _eq(K.apply_benes_elem(x, masks, rg.net_table, rg.net_size), want)
+    K.reset_launches()
+    for tile in (1024, 4096):  # small tiles force outer stages at this size
+        pre, local, suf, _ = K.split_elem_passes(rg.net_table, rg.net_size, tile)
+        y = x
+        for i in pre:
+            y = K.benes_elem_outer_stage(y, masks, rg.net_table[i], rg.net_size)
+        y = K.benes_elem_local_pass(y, masks, tuple(rg.net_table[i] for i in local), rg.net_size, tile)
+        for i in suf:
+            y = K.benes_elem_outer_stage(y, masks, rg.net_table[i], rg.net_size)
+        _eq(y, want)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["benes_elem_local_pass"] == 2 and K.LAUNCHES["benes_elem_outer_stage"] > 0
+
+
+@pytest.mark.parametrize("level", [3, 31])
+def test_card_elem_rowmin_update_matches_plain(card, layout, level):
+    rg = layout
+    rng = np.random.default_rng(level)
+    l1 = _t(_words(rng, 2 * rg.net_size), card).reshape(2, rg.net_size)
+    valid = _t(valid_slot_words(rg.src_l1, rg.net_size), card)
+    st = _state(rng, rg, level, card)
+    offsets, pt = RE.rank_plane_layout(rg.in_classes)
+    found, rp = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
+    want = RE.apply_elem_found(st, found, rp, rg.in_classes, offsets)
+    got = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), level, None),
+                               rg.in_classes, rg.vr)
+    for a, b in zip(got[:4], want[:4]):
+        _eq(a, b)
+    assert got.level == want.level
+    assert bool(got.changed.item()) == bool(want.changed)
+
+
+def test_card_multi_elem_matches_cpu_and_oracle(card):
+    g = P.rmat_graph(12, 6, seed=1)
+    sources = np.random.default_rng(2).choice(g.num_vertices, 64, replace=False)
+    K.reset_launches()
+    a = P.RelayEngine(g).run_multi_elem(sources)
+    b = P.RelayEngine(g, device="cpu").run_multi_elem(sources)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    assert a.num_levels == b.num_levels
+    for i in (0, 31, 32, 63):
+        dist, parent = P.canonical_bfs(g, int(sources[i]))
+        np.testing.assert_array_equal(a.dist[i], dist)
+        np.testing.assert_array_equal(a.parent[i], parent)
+    for name in ("benes_elem_local_pass", "benes_elem_outer_stage", "elem_rowmin_update"):
+        assert K.LAUNCHES[name] > 0, name
