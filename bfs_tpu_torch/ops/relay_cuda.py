@@ -95,18 +95,30 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     ]
 
 
+SOURCES = {
+    "relay_kernels": cuda_build.csrc("relay_kernels.cu"),
+    "relay_elem_kernels": cuda_build.csrc("relay_elem_kernels.cu"),
+}
+
+
 def kernels() -> ctypes.CDLL:
     """Build (at first use) and load the relay kernels."""
-    return cuda_build.load(
-        "relay_kernels", cuda_build.csrc("relay_kernels.cu"), _register
-    )
+    return cuda_build.load("relay_kernels", SOURCES["relay_kernels"], _register)
 
 
 def elem_kernels() -> ctypes.CDLL:
     """Build (at first use) and load the element-major relay kernels."""
     return cuda_build.load(
-        "relay_elem_kernels", cuda_build.csrc("relay_elem_kernels.cu"), _register_elem
+        "relay_elem_kernels", SOURCES["relay_elem_kernels"], _register_elem
     )
+
+
+def build_all() -> None:
+    """Build both kernel libraries at once (one nvcc each, started
+    together), then load them."""
+    cuda_build.build(SOURCES)
+    kernels()
+    elem_kernels()
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -461,15 +473,23 @@ def elem_rowmin_update(
     l1: torch.Tensor, valid_words: torch.Tensor, state: RE.ElemState,
     in_classes, vr: int,
 ) -> RE.ElemState:
-    """Row-min and bit-sliced update of one elem superstep.  On the card the
-    kernel ``elem_rowmin_update`` updates ``visited``, ``dist_planes`` and
-    ``rank_planes`` IN PLACE and writes a new frontier; ``changed`` is a
-    device int32[1] flag.  On the CPU: :func:`.relay_elem.rowmin_elem` then
-    :func:`.relay_elem.apply_elem_found`."""
+    """Row-min and bit-sliced update of one elem superstep.  On both devices
+    ``state.visited``, ``state.dist_planes`` and ``state.rank_planes`` are
+    updated IN PLACE and returned with a new frontier.  On the card the
+    kernel ``elem_rowmin_update`` does it and ``changed`` is a device
+    int32[1] flag; on the CPU :func:`.relay_elem.rowmin_elem` then
+    :func:`.relay_elem.apply_elem_found`, copied into the given tensors."""
     plane_offsets, pt = RE.rank_plane_layout(in_classes)
     if not _on_card(l1, valid_words, state.visited):
         found, rp = RE.rowmin_elem(l1, valid_words, in_classes, vr, plane_offsets, pt)
-        return RE.apply_elem_found(state, found, rp, in_classes, plane_offsets)
+        new = RE.apply_elem_found(state, found, rp, in_classes, plane_offsets)
+        state.visited.copy_(new.visited)
+        state.dist_planes.copy_(new.dist_planes)
+        state.rank_planes.copy_(new.rank_planes)
+        return new._replace(
+            visited=state.visited, dist_planes=state.dist_planes,
+            rank_planes=state.rank_planes,
+        )
     n = l1.shape[-1]
     groups = _check_elems("l1", l1, n)
     _check_words("valid_words", valid_words, n // 32)

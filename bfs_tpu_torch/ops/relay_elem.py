@@ -21,7 +21,6 @@ tree 31 of its group, the sign bit).
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -140,29 +139,24 @@ def apply_benes_elem(
     return x
 
 
-@functools.lru_cache(maxsize=8)
-def _broadcast_elem_index(out_classes: tuple, net_size: int, ywidth: int, device: str):
-    """Source column of every L2 slot: rank-major classes tile their
-    out-position block ``width`` times, vertex-major classes repeat each
-    position ``width`` times; the tail reads column ``ywidth`` (zero)."""
-    idx = np.full(net_size, ywidth, dtype=np.int64)
-    used = 0
-    for cs in sorted(out_classes, key=lambda c: c.va):
-        pos = np.arange(cs.va, cs.vb, dtype=np.int64)
-        block = np.tile(pos, cs.width) if not cs.vertex_major else np.repeat(pos, cs.width)
-        idx[used : used + block.shape[0]] = block
-        used += block.shape[0]
-    return torch.from_numpy(idx).to(device)
-
-
 def broadcast_l2_elem(y: torch.Tensor, out_classes, net_size: int) -> torch.Tensor:
     """Out-position elements int32[G, vperm_size] -> L2 slot elements
-    int32[G, net_size]: one gather over a per-layout index."""
-    idx = _broadcast_elem_index(
-        tuple(out_classes), int(net_size), int(y.shape[1]), str(y.device)
-    )
-    zero = torch.zeros((y.shape[0], 1), dtype=y.dtype, device=y.device)
-    return torch.cat([y, zero], dim=1).index_select(1, idx)
+    int32[G, net_size]: each out-class's block is copied into its slots of
+    one L2 buffer, tiled ``width`` times (rank-major) or each element
+    repeated ``width`` times (vertex-major); the tail is zero."""
+    g = y.shape[0]
+    out = torch.empty((g, net_size), dtype=y.dtype, device=y.device)
+    used = 0
+    for cs in sorted(out_classes, key=lambda c: c.va):
+        blk = y[:, cs.va : cs.vb]
+        dst = out[:, used : used + cs.count * cs.width]
+        if not cs.vertex_major:
+            dst.view(g, cs.width, cs.count).copy_(blk[:, None, :].expand(g, cs.width, cs.count))
+        else:
+            dst.view(g, cs.count, cs.width).copy_(blk[:, :, None].expand(g, cs.count, cs.width))
+        used += cs.count * cs.width
+    out[:, used:].zero_()
+    return out
 
 
 def _tournament(xv: torch.Tensor):

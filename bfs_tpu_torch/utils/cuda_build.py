@@ -24,8 +24,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_locks_guard = threading.Lock()
-_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
+_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time (0.0 when reused), "ptxas": log}
 BUILD_INFO: dict[str, dict] = {}
@@ -45,38 +44,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _so_path(name: str, source: str) -> str:
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(sources: dict[str, str]) -> None:
+    """Build every ``name -> source`` whose library is missing (or whose
+    source changed): one nvcc per source, all started together.  Raises if
+    any of them fails."""
+    started = {}
+    for name, source in sources.items():
+        so = _so_path(name, source)
+        if os.path.exists(so):
+            BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp.{os.getpid()}"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        started[name] = (source, so, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (source, so, tmp, proc, t0) in started.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{log}")
+            continue
+        os.replace(tmp, so)
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, source: str, register) -> ctypes.CDLL:
     """Build ``source`` (if its content changed) into ``lib<name>.so``, load
     it and call ``register`` once on it to set argtypes/restype.  Raises on
-    any build or load failure: there is no fallback.  Different libraries
-    build in parallel when loaded from different threads."""
-    with _locks_guard:
-        lock = _locks.setdefault(name, threading.Lock())
-    with lock:
+    any build or load failure: there is no fallback."""
+    with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        with open(source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-        so = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-        info = {"seconds": 0.0, "ptxas": ""}
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            info = {
-                "seconds": time.perf_counter() - t0,
-                "ptxas": proc.stdout + proc.stderr,
-            }
-        lib = ctypes.CDLL(so)
+        build({name: source})
+        lib = ctypes.CDLL(_so_path(name, source))
         register(lib)
-        BUILD_INFO[name] = info
         _libs[name] = lib
         return lib

@@ -36,7 +36,6 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data-sheet peak
 EDGE_FACTOR = 6  # the repo bench's R-MAT family: Graph500 a/b/c, edge factor 6
@@ -279,6 +278,34 @@ def tree_count(words) -> int:
     return sum(int(((words >> t) & 1).sum()) for t in range(32))
 
 
+def rows_needed(visited, found, rp, in_classes, offsets):
+    """int64[G, vr]: how many of its class's rows, in row order, each
+    (group, vertex) must read on these inputs to know every unvisited
+    tree's minimum row: none where all 32 trees are visited; else up to
+    the largest such minimum (from the plain tournament's rank planes), or
+    all ``width`` rows where an unvisited tree is found in none."""
+    import torch
+
+    g, vr = visited.shape
+    need = torch.zeros((g, vr), dtype=torch.int64, device=visited.device)
+    for cs in in_classes:
+        off, nb = offsets[cs.va]
+        vis = visited[:, cs.va : cs.vb]
+        planes = rp[:, off : off + nb * cs.count].reshape(g, nb, cs.count)
+        last = torch.zeros((g, cs.count), dtype=torch.int64, device=visited.device)
+        for t in range(32):
+            rank = torch.zeros_like(last)
+            for j in range(nb):
+                rank |= ((planes[:, j] >> t) & 1).long() << j
+            open_t = ((vis >> t) & 1) == 0
+            last = torch.where(open_t, torch.maximum(last, rank + 1), last)
+        all_found = (found[:, cs.va : cs.vb] | vis) == -1
+        need[:, cs.va : cs.vb] = torch.where(
+            vis == -1, 0, torch.where(all_found, last, cs.width)
+        )
+    return need
+
+
 def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     """Each element-major kernel against its plain version on the card, on
     the inputs the multi-source path gives it at the superstep with the
@@ -309,17 +336,36 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     l2 = RE.broadcast_l2_elem(y, rg.out_classes, n)
     results = {}
 
-    def record(name, err, ms, plain_ms, nbytes, shape, per_step):
+    def record(name, err, ms, plain_ms, nbytes, shape, per_step, library_ms=None):
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max err {err})")
         results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
-            shape=shape, per_superstep=per_step,
+            shape=shape, per_superstep=per_step, library_ms=library_ms,
         )
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name}: {shape}; bit-exact; {ms:.4f} ms per launch, cold L2 "
-            f"(plain {plain_ms:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
-            f"from {nbytes} bytes at 3.35 TB/s); {per_step} launches per superstep; on {card}")
+            f"(plain {plain_ms:.4f} ms, index_select {lib}, bound "
+            f"{results[name]['bound_ms']:.4f} ms from {nbytes} bytes at 3.35 TB/s); "
+            f"{per_step} launches per superstep; on {card}")
+
+    def perm_index(stages):
+        """The element permutation that ``stages`` apply, from the plain
+        network on an iota row (untimed): ``out[:, j] = x[:, idx[j]]``, so
+        one ``index_select`` computes the same function."""
+        iota = torch.arange(n, dtype=torch.int32, device=dev)[None]
+        return RE.apply_benes_elem(iota, masks, stages, n)[0].long()
+
+    def library_ms(x, stages, want, reps):
+        """Cold-L2 ms of ``index_select`` over ``stages``' permutation,
+        checked against ``want``.  Timed here only: the port never calls
+        it."""
+        idx = perm_index(stages)
+        buf = torch.empty_like(x)
+        if not torch.equal(torch.index_select(x, 1, idx, out=buf), want):
+            raise AssertionError("index_select over the network's permutation differs")
+        return cuda_ms(lambda: torch.index_select(x, 1, idx, out=buf), reps)
 
     # Whole networks, kernel route vs plain (both networks of the path).
     splits = {}
@@ -343,25 +389,38 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
         raise AssertionError("network too small to have outer stages; use --scale >= 16")
     st1 = table[pre[0]]
     out = torch.empty_like(l2)
-    err = max_abs_err(K.benes_elem_outer_stage(l2, masks, st1, n, out=out),
-                      RE.apply_benes_elem(l2, masks, (st1,), n))
+    want = RE.apply_benes_elem(l2, masks, (st1,), n)
+    err = max_abs_err(K.benes_elem_outer_stage(l2, masks, st1, n, out=out), want)
     ms = cuda_ms(lambda: K.benes_elem_outer_stage(l2, masks, st1, n, out=out), 50)
     pms = cuda_ms(lambda: RE.apply_benes_elem(l2, masks, (st1,), n), 5)
+    lms = library_ms(l2, (st1,), want, 50)
     record("benes_elem_outer_stage", err, ms, pms, 2 * elem_bytes + 4 * st1.nwords,
-           f"net n={n} x G={groups}, d={st1.d}", outer_per_step)
+           f"net n={n} x G={groups}, d={st1.d}", outer_per_step, lms)
 
     x = l2
     for i in pre:
         x = RE.apply_benes_elem(x, masks, (table[i],), n)
     stages = tuple(table[i] for i in local)
-    err = max_abs_err(K.benes_elem_local_pass(x, masks, stages, n, tile, out=out),
-                      RE.apply_benes_elem(x, masks, stages, n))
+    want = RE.apply_benes_elem(x, masks, stages, n)
+    err = max_abs_err(K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), want)
     ms = cuda_ms(lambda: K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), 20)
     pms = cuda_ms(lambda: RE.apply_benes_elem(x, masks, stages, n), 3)
+    lms = library_ms(x, stages, want, 20)
     record("benes_elem_local_pass", err, ms, pms,
            2 * elem_bytes + 4 * sum(t.nwords for t in stages),
-           f"net n={n} x G={groups}, {len(stages)} local stages, tile {tile} elements", 2)
-    del x, out
+           f"net n={n} x G={groups}, {len(stages)} local stages, tile {tile} elements", 2,
+           lms)
+    del x, want
+
+    # The whole net network: the kernels' route against one index_select.
+    want = K.apply_benes_elem(l2, masks, table, n, out=out)
+    ms = cuda_ms(lambda: K.apply_benes_elem(l2, masks, table, n, out=out), 10)
+    lms = library_ms(l2, table, want, 10)
+    results["net_network"] = dict(ms=ms, library_ms=lms)
+    log(f"elem net network, all {len(table)} stages: kernels {ms:.4f} ms, one "
+        f"index_select over its permutation {lms:.4f} ms (cold L2, on {card})")
+    del want, out
+    torch.cuda.empty_cache()
 
     # elem_rowmin_update on the routed L1 elements of that superstep.
     l1 = K.apply_benes_elem(l2, masks, table, n)
@@ -370,8 +429,9 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     offsets, _ = RE.rank_plane_layout(rg.in_classes)
     found, rp = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
     want = RE.apply_elem_found(st0, found, rp, rg.in_classes, offsets)
+    need = rows_needed(st0.visited, found, rp, rg.in_classes, offsets)
     del found, rp
-    work = RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
+    work =RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
     got = K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr)
     err = max(max_abs_err(a, b) for a, b in zip(got[:4], want[:4]))
     if bool(got.changed.item()) != bool(want.changed):
@@ -390,8 +450,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
 
     pms = cuda_ms(plain, 3)
     # Bytes the row-min/update must move on these inputs: visited read and
-    # frontier written once; the class slots of every unfinished (group,
-    # vertex) and the valid words of those slots read; visited, the set
+    # frontier written once; the class rows each (group, vertex) needs
+    # (rows_needed) and the valid bits of those rows read; visited, the set
     # dist planes and the rank planes of newly reached vertices read and
     # written.
     width = torch.zeros(rg.vr, dtype=torch.int64, device=dev)
@@ -402,16 +462,18 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     unfinished = st0.visited != -1
     newly = want.frontier != 0
     lev_bits = bin((st0.level + 1) & ((1 << RE.DIST_PLANES) - 1)).count("1")
+    rows = int(need.sum())
     nbytes = (
         2 * 4 * groups * rg.vr
-        + 4 * int((unfinished * width).sum())
-        + int((unfinished.any(dim=0) * width).sum()) // 8
+        + 4 * rows
+        + int(need.max(dim=0).values.sum()) // 8
         + int((newly * (4 + 8 * lev_bits + 8 * nbits)).sum())
     )
     record("elem_rowmin_update", err, ms, pms, nbytes,
            f"vr={rg.vr} x G={groups}, {len(rg.in_classes)} classes, "
-           f"{int(unfinished.sum())} unfinished (group, vertex) pairs", 1)
-    del l1, want, got, work, st0
+           f"{int(unfinished.sum())} unfinished (group, vertex) pairs needing {rows} "
+           f"class rows of their {int((unfinished * width).sum())}", 1)
+    del l1, want, got, work, st0, need
     torch.cuda.empty_cache()
     return results
 
@@ -524,11 +586,9 @@ def main(argv=None) -> int:
 
     # ---- build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(K.kernels), pool.submit(K.elem_kernels)]:
-            fut.result()
+    K.build_all()
     log(f"build: both kernel libraries in {time.perf_counter() - t0:.2f} s")
-    for name in ("relay_kernels", "relay_elem_kernels"):
+    for name in K.SOURCES:
         info = cuda_build.BUILD_INFO[name]
         log(f"build: {name}.cu (nvcc {info['seconds']:.2f} s)")
         for line in info["ptxas"].splitlines():
@@ -636,7 +696,8 @@ def main(argv=None) -> int:
         dict(name=name, route="cuda", source=source, replaces=replaces[name],
              launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
-             bound_ms=kres[name]["bound_ms"], bound_by="bytes", library_ms=None,
+             bound_ms=kres[name]["bound_ms"], bound_by="bytes",
+             library_ms=kres[name].get("library_ms"),
              phase="kernel phase: " + kres[name]["shape"])
         for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES))
         for name in replaces

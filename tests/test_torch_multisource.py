@@ -410,6 +410,10 @@ def test_elem_wrappers_take_the_plain_version_on_cpu(layout):
     got = K.elem_rowmin_update(l1, valid, st, rg.in_classes, rg.vr)
     for a, b in zip(got[:4], want[:4]):
         np.testing.assert_array_equal(_u(a), _u(b))
+    # In place, as on the card: the given state holds the update.
+    assert got.visited is st.visited and got.dist_planes is st.dist_planes
+    assert got.rank_planes is st.rank_planes
+    np.testing.assert_array_equal(_u(st.visited), _u(want.visited))
     assert all(v == 0 for v in K.LAUNCHES.values())
     meta = torch.empty((2, rg.net_size), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
