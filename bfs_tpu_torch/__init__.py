@@ -8,15 +8,18 @@ nothing of ``bfs_tpu``.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
+from .graph.adj_tiles import AdjTiles
 from .graph.csr import INF_DIST, NO_PARENT, Graph
 from .graph.generators import gnm_graph, path_graph, rmat_graph
 from .graph.io import read_sedgewick
 from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
 from .models.bfs import BfsResult, RelayEngine, bfs
 from .models.multisource import MultiBfsResult, bfs_multi, collapse_multi_source
+from .ops.relay_mxu import resolve_expansion
 from .oracle.bfs import canonical_bfs, check
 
 __all__ = [
+    "AdjTiles",
     "BfsResult",
     "Graph",
     "INF_DIST",
@@ -34,5 +37,6 @@ __all__ = [
     "gnm_graph",
     "path_graph",
     "read_sedgewick",
+    "resolve_expansion",
     "rmat_graph",
 ]

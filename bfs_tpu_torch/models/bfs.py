@@ -26,24 +26,44 @@ masks once per superstep for every tree of a group; the elem Beneš passes
 and the fused row-min/update are the kernels of ``csrc/relay_elem_kernels.cu``
 on a card.  A batch deeper than the 31 levels its distance planes hold
 falls back to :meth:`RelayEngine.run_multi`, the lock-step form.
+
+``RelayEngine(..., expansion="mxu")`` runs single-source searches (and the
+lock-step :meth:`RelayEngine.run_multi`) through the MXU expansion arm
+instead: phases 1-4 become one tiled masked product of the frontier
+against bit-packed 128x128 adjacency tiles (:mod:`bfs_tpu_torch.graph.adj_tiles`,
+:mod:`bfs_tpu_torch.ops.relay_mxu`; kernel ``mxu_expand`` on tensor cores),
+whose candidates are ORIGINAL ids that the packed update merges as they
+are.  The element-major batch stays on the gather formulation.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..graph.adj_tiles import build_adj_tiles_from_relay
 from ..graph.csr import Graph, INF_DIST
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
 from ..ops import relay as R
 from ..ops import relay_cuda as K
 from ..ops import relay_elem as RE
-from ..ops.packed import packed_cap, packed_rank_fits, packed_truncated
+from ..ops import relay_mxu as RM
+from ..ops.packed import (
+    packed_cap,
+    packed_dist,
+    packed_parent,
+    packed_parent_fits,
+    packed_rank_fits,
+    packed_truncated,
+)
 from ..ops.relay import slots_to_parent
 from .multisource import MultiBfsResult
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,9 +120,18 @@ class RelayEngine:
     ``__init__`` builds the layout (unless given a :class:`RelayGraph`) and
     ships masks and valid-slot words to ``device`` once; :meth:`run` runs
     one source, :meth:`run_multi_elem` and :meth:`run_multi` a batch.
+
+    ``expansion`` (``gather|mxu``, default ``gather``: the port has no
+    measured probe to choose by yet) picks the dense superstep's arm:
+    ``mxu`` builds the adjacency tiles on ``device`` under
+    ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
+    they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
     """
 
-    def __init__(self, graph: Graph | RelayGraph, *, device=None):
+    def __init__(
+        self, graph: Graph | RelayGraph, *, device=None,
+        expansion: str | None = None, tiles_budget_bytes: int | None = None,
+    ):
         self.device = resolve_device(device)
         rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
         self.relay_graph = rg
@@ -123,6 +152,40 @@ class RelayEngine:
         #: Host seconds of the last run: the level loop (it ends in a
         #: device read) and the result mapping with its copy to the host.
         self.last_run: dict = {}
+        self.adj_tiles = None
+        self._resolve_expansion(expansion, tiles_budget_bytes)
+
+    # -- the expansion arm --------------------------------------------------
+
+    def _resolve_expansion(self, requested: str | None, budget: int | None) -> None:
+        """``mxu`` builds the tiles now (a budget refusal raises) and drops
+        to the unpacked carry where ``V`` exceeds the 26-bit packed parent
+        field, which holds original ids on this arm."""
+        self.expansion = RM.resolve_expansion(requested)
+        if requested is None:
+            self.expansion_basis = (
+                "default: gather (no measured expansion probe in the port yet)"
+            )
+        else:
+            self.expansion_basis = "requested"
+        if self.expansion == "mxu":
+            self.packed = self.packed and packed_parent_fits(self.relay_graph.num_vertices)
+            self._build_tiles(RM.DEFAULT_TILES_BUDGET_BYTES if budget is None else int(budget))
+
+    def _build_tiles(self, budget: int) -> None:
+        """Build the tiled adjacency on the engine's device and keep its
+        device operands."""
+        t0 = time.perf_counter()
+        at = build_adj_tiles_from_relay(self.relay_graph, budget_bytes=budget, device=self.device)
+        self.mxu_operands = RM.mxu_device_operands(at, self.device)
+        self.mxu_geometry = RM.mxu_static(at)
+        self.adj_tiles = at
+        #: Host seconds of the tile build and shipping.
+        self.tiles_build_s = time.perf_counter() - t0
+        logger.info(
+            "mxu tiles: %d tiles, %d bytes, built in %.3f s on %s",
+            at.nt, at.nbytes, self.tiles_build_s, self.device,
+        )
 
     # -- one superstep ------------------------------------------------------
 
@@ -142,11 +205,16 @@ class RelayEngine:
         )
 
     def superstep_packed(self, st: R.PackedRelayState) -> R.PackedRelayState:
+        if self.expansion == "mxu":
+            return RM.mxu_superstep_packed(st, self.mxu_operands, self.mxu_geometry)
         return K.apply_relay_candidates_packed(st, self._ranks(st.fwords))
 
     def superstep(self, st: R.RelayState) -> R.RelayState:
         """Unpacked carry: the row-min's ranks become L1 slots through the
-        class slot formula, then the unpacked merge (torch ops)."""
+        class slot formula, then the unpacked merge (torch ops).  On the MXU
+        arm the candidates are original ids and merge as they are."""
+        if self.expansion == "mxu":
+            return RM.mxu_superstep(st, self.mxu_operands, self.mxu_geometry)
         rg = self.relay_graph
         cand = R.rank_to_slot(self._ranks(st.fwords), rg.in_classes, rg.vr)
         return R.apply_relay_candidates(st, cand)
@@ -172,7 +240,8 @@ class RelayEngine:
         return result
 
     def _search(self, source_new: int, max_levels: int):
-        """(dist, parent L1 slots, levels) in the relabeled space."""
+        """(dist, parent, levels) in the relabeled space; parents are L1
+        slots on the gather arm and original ids on the MXU arm."""
         rg = self.relay_graph
         if self.packed:
             st, changed = self._loop(
@@ -180,6 +249,8 @@ class RelayEngine:
                 self.superstep_packed, packed_cap(max_levels),
             )
             if not packed_truncated(changed, st.level, max_levels):
+                if self.expansion == "mxu":
+                    return packed_dist(st.packed), packed_parent(st.packed), st.level
                 dist, parent = R.unpack_relay_packed(st.packed, rg.in_classes, rg.vr)
                 return dist, parent, st.level
         # Deeper than the packed level field (or a rank too wide for it):
@@ -191,9 +262,13 @@ class RelayEngine:
         return st.dist, st.parent, st.level
 
     def _to_result(self, dist, parent_slots, level: int, source: int) -> BfsResult:
-        """Relabeled state -> original ids (on the device), then the host."""
+        """Relabeled state -> original ids (on the device), then the host.
+        MXU-arm parents are original ids already: only the index space
+        is mapped."""
         dist = dist[self.old2new].cpu().numpy()
-        parent = slots_to_parent(parent_slots, self.src_l1)[self.old2new].cpu().numpy()
+        if self.expansion != "mxu":
+            parent_slots = slots_to_parent(parent_slots, self.src_l1)
+        parent = parent_slots[self.old2new].cpu().numpy()
         parent[source] = source  # the source's slot entry is not a parent
         return BfsResult(dist=dist, parent=parent, num_levels=int(level))
 
@@ -269,8 +344,9 @@ class RelayEngine:
 
     def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
         """Lock-step batched BFS without a depth cap: every source runs its
-        own search and ``num_levels`` is the largest, which is the lock-step
-        loop's level (all trees advance together until none changes)."""
+        own search (through the engine's expansion arm) and ``num_levels``
+        is the largest, which is the lock-step loop's level (all trees
+        advance together until none changes)."""
         rg = self.relay_graph
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
         check_sources(rg.num_vertices, sources)

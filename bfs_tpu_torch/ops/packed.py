@@ -5,8 +5,9 @@ Level is the MAJOR field, so the state update is one unsigned
 always wins, and among same-level candidates the smaller parent value
 (the canonical min-parent) wins.  All-ones (``PACKED_SENTINEL``) is the
 unreached value and the lattice top; OR-ing level bits onto it leaves it
-intact.  For the relay engine the parent field holds the parent's
-within-row RANK in the vertex's degree class.
+intact.  For the relay engine's gather arm the parent field holds the
+parent's within-row RANK in the vertex's degree class; for its MXU arm it
+holds the parent's ORIGINAL id (:func:`packed_parent` decodes it).
 
 The deepest representable level is 62 (63 is the sentinel's level
 field).  A search that reaches that cap is re-run on the unpacked carry
@@ -46,6 +47,12 @@ def i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def packed_parent_fits(num_vertices: int) -> bool:
+    """Can a parent VERTEX id (the MXU arm's original-id candidates) fit
+    the 26-bit field?"""
+    return int(num_vertices) <= (1 << PARENT_BITS)
+
+
 def packed_rank_fits(in_classes) -> bool:
     """Can every relay parent RANK (< its class width) fit 26 bits?"""
     widths = [int(c.width) for c in in_classes]
@@ -78,4 +85,12 @@ def packed_dist(packed: torch.Tensor) -> torch.Tensor:
     w = u32(packed)
     return torch.where(
         w == PACKED_SENTINEL, torch.full_like(w, INT32_MAX), w >> PARENT_BITS
+    ).to(torch.int32)
+
+
+def packed_parent(packed: torch.Tensor) -> torch.Tensor:
+    """int32 parent field from packed words (-1 where unreached)."""
+    w = u32(packed)
+    return torch.where(
+        w == PACKED_SENTINEL, torch.full_like(w, -1), w & PARENT_MASK
     ).to(torch.int32)

@@ -2,9 +2,10 @@
 ``bfs_tpu.ops.relay_pallas``.
 
 Every wrapper takes the plain PyTorch version (:mod:`.relay`,
-:mod:`.relay_elem`) for a tensor on the CPU and launches its hand-written
-CUDA kernel (``csrc/relay_kernels.cu``, ``csrc/relay_elem_kernels.cu``)
-for a tensor on a card; any other device raises, and a CUDA tensor never
+:mod:`.relay_elem`, :mod:`.relay_mxu`) for a tensor on the CPU and launches
+its hand-written CUDA kernel (``csrc/relay_kernels.cu``,
+``csrc/relay_elem_kernels.cu``, ``csrc/relay_mxu_kernels.cu``) for a tensor
+on a card; any other device raises, and a CUDA tensor never
 reaches the plain version.  Each kernel has a launch count in
 :data:`LAUNCHES`, raised by one where the wrapper launches it and nowhere
 else.
@@ -20,6 +21,7 @@ else.
   benes_elem_outer_stage  _run_elem_pass outer mode (K5)
   elem_rowmin_update      the XLA row-min and update of elem_superstep
                           (bfs_tpu/ops/relay_elem.py)
+  mxu_expand              expand_frontier_mxu (K6, bfs_tpu/ops/relay_mxu.py)
   ======================  ================================================
 """
 
@@ -35,6 +37,7 @@ from ..graph.relay import StageSpec
 from ..utils import cuda_build
 from . import relay as R
 from . import relay_elem as RE
+from . import relay_mxu as RM
 from .packed import level_word
 
 LAUNCHES = {
@@ -45,6 +48,7 @@ LAUNCHES = {
     "benes_elem_local_pass": 0,
     "benes_elem_outer_stage": 0,
     "elem_rowmin_update": 0,
+    "mxu_expand": 0,
 }
 
 #: Shared-memory tile of the local pass, in words: a power of two in
@@ -95,9 +99,15 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _register_mxu(lib: ctypes.CDLL) -> None:
+    lib.mxu_expand.restype = _INT
+    lib.mxu_expand.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL, _INT, _INT, _VP]
+
+
 SOURCES = {
     "relay_kernels": cuda_build.csrc("relay_kernels.cu"),
     "relay_elem_kernels": cuda_build.csrc("relay_elem_kernels.cu"),
+    "relay_mxu_kernels": cuda_build.csrc("relay_mxu_kernels.cu"),
 }
 
 
@@ -113,12 +123,20 @@ def elem_kernels() -> ctypes.CDLL:
     )
 
 
+def mxu_kernels() -> ctypes.CDLL:
+    """Build (at first use) and load the MXU expansion kernel."""
+    return cuda_build.load(
+        "relay_mxu_kernels", SOURCES["relay_mxu_kernels"], _register_mxu
+    )
+
+
 def build_all() -> None:
-    """Build both kernel libraries at once (one nvcc each, started
+    """Build every kernel library at once (one nvcc each, started
     together), then load them."""
     cuda_build.build(SOURCES)
     kernels()
     elem_kernels()
+    mxu_kernels()
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -511,3 +529,49 @@ def elem_rowmin_update(
         state.visited, frontier, state.dist_planes, state.rank_planes,
         state.level + 1, changed,
     )
+
+
+# ------------------------------------------------------------ MXU arm (K6) --
+
+#: Warps per block of ``mxu_expand`` (csrc/relay_mxu_kernels.cu kWarps),
+#: and blocks per SM in its grid; the grid-stride loop covers the rest.
+MXU_WARPS = 8
+MXU_BLOCKS_PER_SM = 8
+
+
+def expand_frontier_mxu(
+    fwords: torch.Tensor, tile_ops: tuple, *, rows: int, cols: int, rtp: int,
+    vtp: int,
+) -> torch.Tensor:
+    """Min original-id candidate per destination, int32[cols] (uint32
+    patterns, -1 where none): kernel ``mxu_expand`` on the card, into an
+    output cleared to 0xFFFFFFFF here;
+    :func:`.relay_mxu.expand_frontier_mxu_plain` on the CPU."""
+    tiles, row_idx, col_id, keys2d = tile_ops
+    if not _on_card(fwords, tiles, row_idx, col_id, keys2d):
+        return RM.expand_frontier_mxu_plain(
+            fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp
+        )
+    ntp = int(tiles.shape[0])
+    _check_words("fwords", fwords)
+    if fwords.numel() > rtp // 32:
+        raise ValueError(f"fwords: {fwords.numel()} words exceed the {rtp}-row space")
+    _check_words("tiles", tiles, ntp * 128 * 4)
+    if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (128, 4) or tiles.data_ptr() % 16:
+        raise ValueError("tiles: expected a 16-byte aligned int32[ntp, 128, 4] tensor")
+    _check_words("row_idx", row_idx, ntp)
+    _check_words("col_id", col_id, ntp)
+    _check_words("keys2d", keys2d, rtp + 128)
+    if keys2d.data_ptr() % 16:
+        raise ValueError("keys2d: expected a 16-byte aligned tensor")
+    dev = fwords.device
+    out = torch.full((vtp,), -1, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = min(-(-ntp // MXU_WARPS), sms * MXU_BLOCKS_PER_SM)
+    rc = mxu_kernels().mxu_expand(
+        _ptr(tiles), _ptr(row_idx), _ptr(col_id), _ptr(keys2d), _ptr(fwords),
+        fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _stream(),
+    )
+    LAUNCHES["mxu_expand"] += 1
+    _call(rc, "mxu_expand")
+    return out[:cols]

@@ -1,0 +1,145 @@
+"""The MXU expansion arm, plain PyTorch: the port of
+``bfs_tpu.ops.relay_mxu``.
+
+A dense superstep expands the frontier as a tiled masked product of the
+frontier bitmap against the bit-packed 128x128 adjacency tiles of
+:mod:`bfs_tpu_torch.graph.adj_tiles`.  For each destination ``v`` the
+expansion emits
+
+    cand[v] = min over frontier sources u with an edge u -> v of orig_id(u)
+
+as uint32 (stored as int32 patterns), ``0xFFFFFFFF`` where no frontier
+source reaches ``v``: the canonical min-parent candidate that the packed
+``level:6|parent:26`` update (K4, ``relay_cuda.apply_relay_candidates_packed``)
+merges as it is, since the parent field of this arm holds original ids.
+
+:func:`expand_frontier_mxu_plain` is the plain version of the card's
+kernel ``mxu_expand`` (K6, ``csrc/relay_mxu_kernels.cu``, wrapped as
+``relay_cuda.expand_frontier_mxu``) and computes what the reference's XLA
+twin ``expand_frontier_mxu_xla`` computes, bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..graph.adj_tiles import TILE, TILE_WORDS
+from .packed import INT32_MAX
+
+__all__ = [
+    "EXPANSION_MODES",
+    "DEFAULT_TILES_BUDGET_BYTES",
+    "resolve_expansion",
+    "mxu_device_operands",
+    "mxu_static",
+    "live_tiles",
+    "expand_frontier_mxu_plain",
+    "mxu_superstep_packed",
+    "mxu_superstep",
+]
+
+EXPANSION_MODES = ("gather", "mxu")
+
+#: Tile-storage ceiling for building the layout (the reference's default
+#: of 4 GiB): a scale-free tail can degrade toward one 2 KB tile per edge.
+DEFAULT_TILES_BUDGET_BYTES = 4 << 30
+
+#: XOR with this maps uint32 order onto int32 order (the sentinel
+#: 0xFFFFFFFF becomes INT32_MAX), so mins run on int32 patterns.
+_FLIP = -(1 << 31)
+
+
+def resolve_expansion(mode: str | None = None) -> str:
+    """The dense superstep's arm: ``gather`` unless ``mode`` says ``mxu``
+    (the port has no measured probe to choose by yet); raises on an
+    unknown mode."""
+    if mode is None:
+        return "gather"
+    if mode not in EXPANSION_MODES:
+        raise ValueError(f"unknown expansion {mode!r}; use 'gather' or 'mxu'")
+    return mode
+
+
+def mxu_device_operands(at, device) -> tuple:
+    """The layout as the expansion's operand tuple ``(tiles, row_idx,
+    col_id, keys2d)``, int32 tensors on ``device`` (shipped once; a layout
+    built there is used as it is, not copied)."""
+    return tuple(t.to(device) for t in (at.tiles, at.row_idx, at.col_id, at.keys2d))
+
+
+def mxu_static(at) -> tuple:
+    """The expansion's geometry ``(rows, cols, rtp, vtp, ntp)``."""
+    return (int(at.rows), int(at.cols), int(at.rtp), int(at.vtp), int(at.ntp))
+
+
+def _pad_frontier_words(fwords: torch.Tensor, rows: int, rtp: int) -> torch.Tensor:
+    """Frontier words padded to the row space plus ONE zero pad block (the
+    ``row_idx = rtp // TILE`` padding target reads zeros)."""
+    del rows  # the words cover it
+    want = rtp // 32 + TILE // 32
+    pad = fwords.new_zeros(want - fwords.shape[-1])
+    return torch.cat([fwords, pad])
+
+
+def live_tiles(fwords: torch.Tensor, tile_ops: tuple, *, rows: int, rtp: int) -> torch.Tensor:
+    """int64 indices of the tiles whose 128-bit frontier block is nonzero:
+    the only tiles that can contribute (the kernel skips the rest before
+    reading them)."""
+    fblk = _pad_frontier_words(fwords, rows, rtp).reshape(-1, TILE_WORDS)
+    return torch.nonzero((fblk != 0).any(dim=1)[tile_ops[1]]).flatten()
+
+
+def expand_frontier_mxu_plain(
+    fwords: torch.Tensor, tile_ops: tuple, *, rows: int, cols: int, rtp: int,
+    vtp: int, chunk: int = 4096,
+) -> torch.Tensor:
+    """``cand`` int32[cols] (uint32 patterns, ``-1`` = 0xFFFFFFFF where no
+    frontier in-neighbour): the minimum original id over the frontier
+    in-neighbours of each destination.
+
+    Only tiles whose 128-bit frontier block is nonzero can contribute (the
+    kernel's early-out); they are taken ``chunk`` at a time: frontier row
+    mask, contribution bits, the min key per tile column, then
+    ``scatter_reduce_(..., "amin")`` over ``col_id``.  Mins run on
+    ``key ^ 0x80000000`` so that int32 order is uint32 order; min is exact
+    and order-free, so chunking cannot change a bit."""
+    tiles, row_idx, col_id, keys2d = tile_ops
+    dev = tiles.device
+    fblk = _pad_frontier_words(fwords, rows, rtp).reshape(-1, TILE_WORDS)
+    live = live_tiles(fwords, tile_ops, rows=rows, rtp=rtp)
+    lane = torch.arange(TILE, dtype=torch.int32, device=dev)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    out = torch.full((vtp + TILE,), INT32_MAX, dtype=torch.int32, device=dev)
+    for lo in range(0, live.numel(), chunk):
+        ix = live[lo : lo + chunk]
+        rb = row_idx[ix].long()
+        fbit = ((fblk[rb][:, lane >> 5] >> (lane & 31)) & 1).bool()  # [n, 128] rows u
+        contrib = tiles[ix] * fbit[:, :, None]  # [n, 128, 4] words of live rows
+        bits = ((contrib[..., None] >> shifts) & 1).bool().reshape(-1, TILE, TILE)
+        keys = keys2d[rb] ^ _FLIP  # [n, 128]
+        cand = torch.where(bits, keys[:, :, None], INT32_MAX).amin(dim=1)  # [n, 128] cols v
+        dst = (col_id[ix].long()[:, None] * TILE + lane).reshape(-1)
+        out.scatter_reduce_(0, dst, cand.reshape(-1), "amin")
+    return out[:cols] ^ _FLIP
+
+
+def mxu_superstep_packed(st, tile_ops, geo: tuple):
+    """One MXU pull superstep on the packed carry: the expansion (kernel
+    ``mxu_expand`` on the card), then K4's lexicographic min; the
+    candidate's parent field is the ORIGINAL id."""
+    from . import relay_cuda as K
+
+    rows, cols, rtp, vtp, _ntp = geo
+    cand = K.expand_frontier_mxu(st.fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+    return K.apply_relay_candidates_packed(st, cand)
+
+
+def mxu_superstep(st, tile_ops, geo: tuple):
+    """The unpacked carry (the >62-level fallback): parent VALUES are
+    original ids, ``INT32_MAX`` for the sentinel at the apply boundary."""
+    from . import relay as R
+    from . import relay_cuda as K
+
+    rows, cols, rtp, vtp, _ntp = geo
+    cand = K.expand_frontier_mxu(st.fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+    return R.apply_relay_candidates(st, torch.where(cand == -1, INT32_MAX, cand))

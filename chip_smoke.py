@@ -11,16 +11,23 @@ factor 6, graph seed 1, scale 22 by default), holds every kernel against its
 plain PyTorch version on the card at the layout's real shapes (bit-exact),
 then drives the main path — ``RelayEngine.run`` on the card for 4 roots drawn
 from ``--seed`` — and checks every result against the port's host oracle
-(``canonical_bfs`` bit for bit, ``check()`` without violations).  The
-multi-source path follows on the same graph: the element-major kernels held
-against their plain versions at the layout's real shapes (G = 2 groups of 32
-trees), then ``RelayEngine.run_multi_elem_device`` for a batch of 64 sources
-drawn from ``--seed`` (BASELINE.json config 5), timed, traced, and every
-tree checked against the port's single-source search (and four against the
-oracle).  Small graphs close the run: tinyCG (the paper's worked example)
-and a 100-vertex path (deeper than the packed carry's 62 levels, so it takes
-the unpacked re-run; with 32 sources, deeper than the 31 levels of the elem
-distance planes, so it takes the lock-step fallback).
+(``canonical_bfs`` bit for bit, ``check()`` without violations).  The MXU
+expansion arm comes next: its device tile builder held byte for byte against
+the host oracle at scale 16, the scale-22 tiles built on the card (21 GB,
+under a budget raised to 32 GiB), the tensor-core kernel ``mxu_expand`` held
+bit-exact against its plain version at the level of the max-degree root's
+search with the most live tiles, and ``RelayEngine(expansion="mxu")`` for the
+same 4 roots, each result equal to ``canonical_bfs`` and to the gather arm's.
+The multi-source path follows on the same graph: the element-major kernels
+held against their plain versions at the layout's real shapes (G = 2 groups
+of 32 trees), then ``RelayEngine.run_multi_elem_device`` for a batch of 64
+sources drawn from ``--seed`` (BASELINE.json config 5), timed, traced, and
+every tree checked against the port's single-source search (and four against
+the oracle).  Small graphs close the run: tinyCG (the paper's worked
+example) and a 100-vertex path (deeper than the packed carry's 62 levels, so
+it takes the unpacked re-run, on both expansion arms; with 32 sources,
+deeper than the 31 levels of the elem distance planes, so it takes the
+lock-step fallback).
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one ``{"kernels": [...]}`` JSON line, and as the last line
@@ -38,12 +45,16 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data-sheet peak
+FP16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense fp16 tensor cores, data-sheet peak
 EDGE_FACTOR = 6  # the repo bench's R-MAT family: Graph500 a/b/c, edge factor 6
 GRAPH_SEED = 1
 ROOTS = 4
 BATCH = 64  # BASELINE.json config 5: 64 sources, two groups of 32 trees
 SOURCE = "bfs_tpu_torch/csrc/relay_kernels.cu"
 ELEM_SOURCE = "bfs_tpu_torch/csrc/relay_elem_kernels.cu"
+MXU_SOURCE = "bfs_tpu_torch/csrc/relay_mxu_kernels.cu"
+TILES_BUDGET = 32 << 30  # the s22 layout takes 21 GB; the default budget is 4 GiB
+ORACLE_SCALE = 16  # the tile builder against the host oracle (82 MB of tiles)
 REPLACES = {
     "benes_local_pass": "bfs_tpu/ops/relay_pallas.py:455",
     "benes_outer_stage": "bfs_tpu/ops/relay_pallas.py:618",
@@ -56,6 +67,7 @@ ELEM_REPLACES = {
     # XLA in the reference: rowmin_elem (:186) and the update (:258)
     "elem_rowmin_update": "bfs_tpu/ops/relay_elem.py:186",
 }
+MXU_REPLACES = {"mxu_expand": "bfs_tpu/ops/relay_mxu.py:373"}
 
 
 def log(msg: str) -> None:
@@ -558,6 +570,170 @@ def small_multi_checks(P, tiny) -> None:
             f"{' through the lock-step fallback' if fell_back else ''}, oracle-exact")
 
 
+def tiles_oracle_check(P, generators, AT) -> None:
+    """The device tile builder on the card against the numpy host oracle,
+    byte for byte, on the R-MAT scale-16 relay layout."""
+    import torch
+
+    g = generators.rmat_graph_native(ORACLE_SCALE, EDGE_FACTOR, seed=GRAPH_SEED)
+    rg = P.build_relay_graph(g)
+    t0 = time.perf_counter()
+    host = AT.build_adj_tiles_from_relay(rg, builder="host")
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = AT.build_adj_tiles_from_relay(rg, builder="device", device="cuda")
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    for f in ("tiles", "row_idx", "col_id", "keys2d"):
+        if not torch.equal(getattr(dev, f).cpu(), getattr(host, f)):
+            raise AssertionError(f"tiles s{ORACLE_SCALE}: device builder differs from the host oracle in {f}")
+    if (dev.rows, dev.cols, dev.rtp, dev.vtp, dev.nt) != (host.rows, host.cols, host.rtp, host.vtp, host.nt):
+        raise AssertionError(f"tiles s{ORACLE_SCALE}: device builder geometry differs from the host oracle")
+    log(f"tiles s{ORACLE_SCALE}: vr={rg.vr}, directed E={g.num_edges}, nt={host.nt}, "
+        f"{host.nt * AT.TILE_BYTES} tile bytes; device builder byte-identical to the host "
+        f"oracle (device {t_dev:.3f} s, host {t_host:.3f} s)")
+
+
+def mxu_engine(P, AT, rg, scale: int):
+    """The MXU engine on the cell's graph: the tiles built on the card, timed, with the
+    peak device memory of the build and the occupancy histogram."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meng = P.RelayEngine(rg, device="cuda", expansion="mxu", tiles_budget_bytes=TILES_BUDGET)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    at = meng.adj_tiles
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    log(f"tiles s{scale}: engine with expansion='mxu' in {secs:.2f} s (tile build and "
+        f"shipping {meng.tiles_build_s:.3f} s); nt={at.nt}, ntp={at.ntp}, "
+        f"{at.nt * AT.TILE_BYTES} tile bytes, layout {at.nbytes} bytes, "
+        f"{at.vtp // AT.SB_VERTS} superblocks; device memory held {held} bytes, "
+        f"peak during the build {peak} bytes (builder temporaries {peak - held})")
+    t0 = time.perf_counter()
+    hist = AT.tile_occupancy_hist(at)
+    log(f"tiles s{scale}: occupancy ({time.perf_counter() - t0:.2f} s): {json.dumps(hist)}")
+    return meng
+
+
+def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
+    """``mxu_expand`` against its plain version on the card, on the
+    frontier of the level of root0's search (the gather arm's) with the
+    most live tiles."""
+    rg = eng.relay_graph
+    ops, geo = meng.mxu_operands, meng.mxu_geometry
+    rows, cols, rtp, vtp, ntp = geo
+    kw = dict(rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+    st = R.init_packed_relay_state(rg.vr, int(rg.old2new[root0]), eng.device)
+    frontiers = []
+    while bool(st.changed):
+        frontiers.append(st.fwords.clone())
+        st = eng.superstep_packed(st)
+    live = [int(RM.live_tiles(f, ops, rows=rows, rtp=rtp).numel()) for f in frontiers]
+    level = max(range(len(live)), key=live.__getitem__)
+    fw, t = frontiers[level], live[level]
+    log(f"mxu kernel inputs: root {root0}, live tiles per superstep {live} of "
+        f"{ntp}; superstep {level + 1} has the most")
+    got = K.expand_frontier_mxu(fw, ops, **kw)
+    err = max_abs_err(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
+    if err:
+        raise AssertionError(f"mxu_expand: kernel differs from its plain version (max err {err})")
+    ms = cuda_ms(lambda: K.expand_frontier_mxu(fw, ops, **kw), 10)
+    pms = cuda_ms(lambda: RM.expand_frontier_mxu_plain(fw, ops, **kw), 2, warm=1)
+    nbytes = 2064 * t + 4 * rows + 4 * cols
+    nops = 262144 * t
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / FP16_TENSOR_OPS_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    shape = (f"{t} live tiles of {ntp}, rows=cols={cols}, superstep {level + 1} "
+             f"of root {root0}")
+    log(f"kernel mxu_expand: {shape}; bit-exact; {ms:.4f} ms per launch, cold L2 "
+        f"(plain {pms:.4f} ms, library none, bound {max(bytes_ms, ops_ms):.4f} ms by "
+        f"{bound_by}: {nbytes} bytes at 3.35 TB/s = {bytes_ms:.4f} ms, {nops} "
+        f"operations at 989 TFLOP/s dense fp16 = {ops_ms:.4f} ms); "
+        f"1 launch per superstep; on {card}")
+    return {"mxu_expand": dict(
+        max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=max(bytes_ms, ops_ms),
+        bound_by=bound_by, bound_bytes=nbytes, library_ms=None, shape=shape,
+    )}
+
+
+def mxu_main_path(meng, g, roots, want: dict, directed_traversed: int, K, P) -> dict:
+    """The MXU arm's main path: ``RelayEngine(expansion="mxu").run`` for
+    the 4 roots, each result against ``canonical_bfs`` and the gather
+    arm's (``want``), ``check()`` clean, launches counted, traced."""
+    import numpy as np
+    import torch
+
+    meng.run(roots[0])  # warm: caches and allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    secs = []
+    for r in roots:
+        t0 = time.perf_counter()
+        res = meng.run(r)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        secs.append(s)
+        split = dict(meng.last_run)
+        (dist, parent), gather = want[r]
+        for name, (d, p) in (("canonical_bfs", (dist, parent)),
+                             ("the gather arm", (gather.dist, gather.parent))):
+            if not (np.array_equal(res.dist, d) and np.array_equal(res.parent, p)):
+                raise AssertionError(f"mxu root {r}: result differs from {name}")
+        if res.num_levels != gather.num_levels:
+            raise AssertionError(f"mxu root {r}: {res.num_levels} levels, gather arm {gather.num_levels}")
+        violations = P.check(g, res.dist, res.parent, r)
+        if violations:
+            raise AssertionError(f"mxu root {r}: check() violations {violations[:3]}")
+        log(f"mxu search root {r}: {s:.4f} s (level loop {split['loop_s']:.4f} s, "
+            f"result mapping + copy {split['result_s']:.4f} s), {res.num_levels} levels, "
+            f"{directed_traversed / 2 / s:.4g} TEPS; equal to canonical_bfs and the "
+            f"gather arm, check() clean")
+        del res
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("mxu_expand", "packed_update"):
+        if launches[name] <= 0:
+            raise AssertionError(f"mxu path never launched kernel {name}")
+    mean_s = float(np.mean(secs))
+    for r, s in zip(roots, secs):
+        device_trace(f"mxu root {r}", lambda: meng.run(r), s)
+    log(f"mxu path: {len(roots)} searches, mean {mean_s:.4f} s/search, "
+        f"{directed_traversed / 2 / mean_s:.6g} undirected TEPS; peak device memory "
+        f"{peak} bytes (both engines resident); launches {launches}")
+    return dict(launches=launches, secs=secs, peak=peak)
+
+
+def small_mxu_checks(P, tiny, K) -> None:
+    """tinyCG and path_graph(100) through the MXU arm; the path takes the
+    unpacked re-run through ``mxu_expand``."""
+    import numpy as np
+
+    res = P.RelayEngine(tiny, expansion="mxu").run(0)
+    if (res.dist.tolist(), res.parent.tolist(), res.num_levels) != (
+        [0, 1, 1, 2, 2, 1], [0, 0, 0, 2, 2, 0], 3
+    ):
+        raise AssertionError(f"tinyCG mxu: got {res.dist.tolist()} {res.parent.tolist()} {res.num_levels}")
+    path = P.path_graph(100)
+    eng = P.RelayEngine(path, expansion="mxu")
+    K.reset_launches()
+    res = eng.run(0)
+    dist, parent = P.canonical_bfs(path, 0)
+    if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)
+            and res.num_levels == 100):
+        raise AssertionError("path_graph(100) mxu: unpacked re-run differs from the oracle")
+    if K.LAUNCHES["mxu_expand"] <= 100:  # 62 packed supersteps, then 100 unpacked
+        raise AssertionError("path_graph(100) mxu: the unpacked re-run did not go through mxu_expand")
+    log(f"tinyCG and path_graph(100) through the MXU arm: oracle-exact; the path's "
+        f"100 levels through the unpacked re-run ({K.LAUNCHES['mxu_expand']} mxu_expand launches)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -572,10 +748,12 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import bfs_tpu_torch as P
+    from bfs_tpu_torch.graph import adj_tiles as AT
     from bfs_tpu_torch.graph import generators
     from bfs_tpu_torch.ops import relay as R
     from bfs_tpu_torch.ops import relay_cuda as K
     from bfs_tpu_torch.ops import relay_elem as RE
+    from bfs_tpu_torch.ops import relay_mxu as RM
     from bfs_tpu_torch.utils import cuda_build
 
     t_all = time.perf_counter()
@@ -587,7 +765,7 @@ def main(argv=None) -> int:
     # ---- build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
     K.build_all()
-    log(f"build: both kernel libraries in {time.perf_counter() - t0:.2f} s")
+    log(f"build: all {len(K.SOURCES)} kernel libraries in {time.perf_counter() - t0:.2f} s")
     for name in K.SOURCES:
         info = cuda_build.BUILD_INFO[name]
         log(f"build: {name}.cu (nvcc {info['seconds']:.2f} s)")
@@ -631,10 +809,10 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    # Each search is timed alone and then checked (untimed) and dropped, so
-    # its host result arrays are released as a caller that consumes them
-    # would release them.
+    # Each search is timed alone and then checked (untimed); the oracle's
+    # and the search's host arrays are kept for the MXU arm's comparison.
     secs = []
+    want = {}
     for r in roots:
         t0 = time.perf_counter()
         res = eng.run(r)
@@ -651,6 +829,7 @@ def main(argv=None) -> int:
         log(f"search root {r}: {s:.4f} s (level loop {split['loop_s']:.4f} s, "
             f"result mapping + copy {split['result_s']:.4f} s), {res.num_levels} levels, "
             f"{directed_traversed / 2 / s:.4g} TEPS; oracle-exact, check() clean")
+        want[r] = ((dist, parent), res)
         del res, dist, parent
     launches = {k: K.LAUNCHES[k] for k in REPLACES}
     peak = torch.cuda.max_memory_allocated()
@@ -664,6 +843,16 @@ def main(argv=None) -> int:
         f"{directed_traversed / 2 / mean_s:.6g} undirected TEPS "
         f"({directed_traversed // 2} undirected edges in the component); "
         f"peak device memory {peak} bytes; launches {launches}")
+
+    # ---- MXU arm: tiles, K6 against its plain version, the 4 searches ---
+    tiles_oracle_check(P, generators, AT)
+    torch.cuda.empty_cache()
+    meng = mxu_engine(P, AT, rg, args.scale)
+    kres.update(mxu_kernel_phase(eng, meng, root0, K, R, RM, card))
+    mxu = mxu_main_path(meng, g, roots, want, directed_traversed, K, P)
+    launches.update({k: mxu["launches"][k] for k in MXU_REPLACES})
+    del meng, want
+    torch.cuda.empty_cache()
 
     # ---- multi-source: elem kernels, then the batch ----------------------
     sources = np.asarray(rng.choice(comp, BATCH, replace=False), dtype=np.int32)
@@ -689,6 +878,7 @@ def main(argv=None) -> int:
             and res.num_levels == 100):
         raise AssertionError("path_graph(100): unpacked re-run differs from the oracle")
     log("path_graph(100): 100 levels through the unpacked re-run, oracle-exact")
+    small_mxu_checks(P, tiny, K)
     small_multi_checks(P, tiny)
 
     # ---- report ---------------------------------------------------------
@@ -696,10 +886,11 @@ def main(argv=None) -> int:
         dict(name=name, route="cuda", source=source, replaces=replaces[name],
              launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
              ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
-             bound_ms=kres[name]["bound_ms"], bound_by="bytes",
+             bound_ms=kres[name]["bound_ms"], bound_by=kres[name].get("bound_by", "bytes"),
              library_ms=kres[name].get("library_ms"),
              phase="kernel phase: " + kres[name]["shape"])
-        for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES))
+        for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES),
+                                 (MXU_SOURCE, MXU_REPLACES))
         for name in replaces
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s")

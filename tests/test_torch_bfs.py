@@ -122,7 +122,8 @@ def test_bfs_without_a_card_raises(monkeypatch):
 def test_import_leaves_jax_out():
     code = (
         "import sys; import bfs_tpu_torch, bfs_tpu_torch.ops.relay_cuda, "
-        "bfs_tpu_torch.ops.relay_elem, bfs_tpu_torch.models.bfs, "
+        "bfs_tpu_torch.ops.relay_elem, bfs_tpu_torch.ops.relay_mxu, "
+        "bfs_tpu_torch.graph.adj_tiles, bfs_tpu_torch.models.bfs, "
         "bfs_tpu_torch.models.multisource; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "

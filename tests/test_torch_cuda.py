@@ -13,12 +13,15 @@ import pytest
 import torch
 
 import bfs_tpu_torch as P
+from bfs_tpu_torch.graph import adj_tiles as PT
 from bfs_tpu_torch.graph import benes
 from bfs_tpu_torch.graph.relay import valid_slot_words
 from bfs_tpu_torch.models import bfs as p_bfs
 from bfs_tpu_torch.ops import relay as R
 from bfs_tpu_torch.ops import relay_cuda as K
 from bfs_tpu_torch.ops import relay_elem as RE
+from bfs_tpu_torch.ops import relay_mxu as RM
+from bfs_tpu_torch.utils import cuda_build
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +178,102 @@ def test_card_multi_elem_matches_cpu_and_oracle(card):
         np.testing.assert_array_equal(a.parent[i], parent)
     for name in ("benes_elem_local_pass", "benes_elem_outer_stage", "elem_rowmin_update"):
         assert K.LAUNCHES[name] > 0, name
+
+
+# ------------------------------------------------------------ MXU arm (K6) --
+
+def _tiles_on(card, src, dst, rows: int, cols: int, n2o):
+    """The layout built on the card and its operand tuple there."""
+    at = PT.build_adj_tiles_device(
+        torch.from_numpy(np.asarray(src, np.int64)), torch.from_numpy(np.asarray(dst, np.int64)),
+        rows=rows, cols=cols, keys2d=PT.keys_from_new2old(n2o, rows), device=card,
+    )
+    kw = dict(rows=rows, cols=cols, rtp=at.rtp, vtp=at.vtp)
+    return at, RM.mxu_device_operands(at, card), kw
+
+
+def _frontier(rng, rows: int, fr: float, card) -> torch.Tensor:
+    bits = torch.from_numpy(rng.random(-(-rows // 32) * 32) < fr)
+    return R.pack_std(bits).to(card)
+
+
+@pytest.mark.parametrize("rows,cols,e,fr", [
+    (200, 200, 900, 0.4), (4000, 300, 2500, 0.02), (500, 9000, 3000, 0.9),
+    (20000, 20000, 400000, 0.3), (20000, 20000, 400000, 1.0),
+])
+def test_card_mxu_expand_matches_plain(card, rows, cols, e, fr):
+    rng = np.random.default_rng(e)
+    src = rng.integers(0, rows, e)
+    dst = rng.integers(0, cols, e)
+    _, ops, kw = _tiles_on(card, src, dst, rows, cols, rng.permutation(rows))
+    fw = _frontier(rng, rows, fr, card)
+    K.reset_launches()
+    got = K.expand_frontier_mxu(fw, ops, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mxu_expand"] == 1
+    _eq(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
+
+
+def test_card_mxu_expand_every_16bit_mask(card):
+    """64 tiles whose 8 groups of 16 rows x 128 columns spell every 16-bit
+    mask 0..65535, the whole frontier set: each output equals the
+    brute-force min key, so every tensor-core sum was exact."""
+    p = np.arange(1 << 16, dtype=np.int64)
+    pi, b = np.nonzero((p[:, None] >> np.arange(16)) & 1)
+    t, grp, v = pi // 1024, (pi // 128) % 8, pi % 128
+    src = t * 128 + 16 * grp + b
+    dst = t * 128 + v
+    rows = cols = 64 * 128
+    rng = np.random.default_rng(16)
+    n2o = rng.permutation(rows)
+    at, ops, kw = _tiles_on(card, src, dst, rows, cols, n2o)
+    assert at.nt == 64
+    want = np.full(cols, 0xFFFFFFFF, np.uint64)
+    np.minimum.at(want, dst, n2o[src].astype(np.uint64))
+    for fw in (torch.full((rows // 32,), -1, dtype=torch.int32, device=card),
+               _frontier(rng, rows, 0.5, card)):
+        got = K.expand_frontier_mxu(fw, ops, **kw)
+        _eq(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
+    got = K.expand_frontier_mxu(torch.full((rows // 32,), -1, dtype=torch.int32, device=card), ops, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32).astype(np.uint64), want)
+
+
+def test_card_mxu_expand_empty_frontier_and_devices(card, monkeypatch):
+    rng = np.random.default_rng(5)
+    src, dst = rng.integers(0, 3000, 9000), rng.integers(0, 3000, 9000)
+    _, ops, kw = _tiles_on(card, src, dst, 3000, 3000, rng.permutation(3000))
+    K.reset_launches()
+    got = K.expand_frontier_mxu(torch.zeros(94, dtype=torch.int32, device=card), ops, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mxu_expand"] == 1 and bool((got == -1).all())
+    with pytest.raises(ValueError):  # a device mix
+        K.expand_frontier_mxu(torch.zeros(94, dtype=torch.int32), ops, **kw)
+    # a CPU call never builds a library
+    cpu_ops = tuple(t.cpu() for t in ops)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor must not build the kernels")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    monkeypatch.setattr(cuda_build, "build", refuse)
+    K.expand_frontier_mxu(torch.full((94,), -1, dtype=torch.int32), cpu_ops, **kw)
+
+
+def test_card_mxu_engine_matches_gather_and_oracle(card):
+    g = P.rmat_graph(12, 6, seed=1)
+    mxu = P.RelayEngine(g, expansion="mxu")
+    gather = P.RelayEngine(g)
+    assert mxu.adj_tiles.device.type == "cuda"
+    K.reset_launches()
+    for s in (0, 9):
+        a, b = mxu.run(s), gather.run(s)
+        np.testing.assert_array_equal(a.dist, b.dist)
+        np.testing.assert_array_equal(a.parent, b.parent)
+        assert a.num_levels == b.num_levels
+    assert K.LAUNCHES["mxu_expand"] > 0 and K.LAUNCHES["packed_update"] > 0
+    path = P.path_graph(70)  # past the packed cap: the unpacked re-run through K6
+    res = P.RelayEngine(path, expansion="mxu").run(0)
+    dist, parent = P.canonical_bfs(path, 0)
+    np.testing.assert_array_equal(res.dist, dist)
+    np.testing.assert_array_equal(res.parent, parent)
+    assert res.num_levels == 70
