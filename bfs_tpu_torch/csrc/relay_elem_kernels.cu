@@ -144,6 +144,43 @@ benes_elem_outer_stage_kernel(const uint32_t* x_in, uint32_t* x_out,
 }
 
 // ---------------------------------------------------------------------------
+// elem_route_gather — replaces, inside the multi-source level loop, the
+// vperm and net Beneš networks (bfs_tpu/ops/relay_pallas.py _run_elem_pass,
+// K5, twice) and the XLA broadcast_l2_elem between them.
+//
+// The masks are fixed for a graph and the route only moves and copies whole
+// elements, so frontier element -> L1 slot element is one fixed map:
+// l1[g, i] = src[i] >= 0 ? frontier[g, src[i]] : 0, with src (int32[n])
+// built once per engine by routing iota + 1 through the K5 kernels
+// (RelayEngine.route_index).  One thread per 4 consecutive slots reads
+// their 4 indices in one 16-byte load, gathers each group's frontier
+// elements and writes each group's 4 slots in one 16-byte store.
+// Bound: bytes — the index read once, the frontier read once per group and
+// the slots written once per group.  The index and the slots stream past
+// the L2 (evict-first loads and stores), so the G x vr frontier (33.6 MB at
+// s22, G = 2) can stay in the 50 MB L2 for the random gathers; the K5 route
+// it replaces streamed every element through 38 outer stages and two local
+// passes per superstep.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+elem_route_gather_kernel(const uint32_t* __restrict__ frontier,
+                         const int4* __restrict__ src, uint4* __restrict__ l1,
+                         long long vr, long long n4, int groups) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (q >= n4) return;
+  const int4 s = __ldcs(src + q);
+  for (int g = 0; g < groups; ++g) {
+    const uint32_t* __restrict__ f = frontier + g * vr;
+    uint4 o;
+    o.x = s.x >= 0 ? __ldg(f + s.x) : 0u;
+    o.y = s.y >= 0 ? __ldg(f + s.y) : 0u;
+    o.z = s.z >= 0 ? __ldg(f + s.z) : 0u;
+    o.w = s.w >= 0 ? __ldg(f + s.w) : 0u;
+    __stcs(l1 + g * n4 + q, o);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // elem_rowmin_update — replaces the row-min tournament and the bit-sliced
 // update that bfs_tpu/ops/relay_elem.py rowmin_elem and elem_superstep run
 // in XLA (the TPU superstep, relay_pallas.py elem_superstep_tpu_factory,
@@ -330,6 +367,18 @@ int benes_elem_outer_stage(const void* x_in, void* x_out, const void* mask,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
       static_cast<const uint32_t*>(mask), n, d, compact);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int elem_route_gather(const void* frontier, const void* src, void* l1,
+                      long long vr, long long n, int groups, void* stream) {
+  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n >> 2;
+  const unsigned blocks = static_cast<unsigned>((n4 + kThreads - 1) / kThreads);
+  elem_route_gather_kernel<<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(frontier), static_cast<const int4*>(src),
+      static_cast<uint4*>(l1), vr, n4, groups);
   return static_cast<int>(cudaGetLastError());
 }
 

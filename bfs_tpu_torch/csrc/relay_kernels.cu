@@ -107,21 +107,132 @@ benes_outer_stage_kernel(const uint32_t* x_in, uint32_t* x_out,
 //
 // Output: uint32[vr], the min active rank (over l1 & valid) per relabeled
 // vertex, or the sentinel.  One launch covers every class through a small
-// device table of work items (kind, va, count, sa/32, width, first block):
-//   kind 0, rank-major: one thread per column word j scans the class's rows
-//     in ascending order; the first row that sets a lane's bit is that
-//     lane's rank (== the tournament's min row index).  Ranks are staged in
-//     shared memory (stride 33 against bank conflicts) and written out
+// device table of work items (kind, va, count, sa/32, width, chunks, rows,
+// first block); a block is kWarps warps:
+//   kind 0, rank-major (cw = count/32 column words of `width` rows): the
+//     rows are split into `chunks` C in {1, 2, 4, 8} of `rows` each, and a
+//     block covers kWarps / C spans of 32 column words with all C chunks,
+//     one warp per (span, chunk), lane = column word.  A thread scans its
+//     chunk's rows in ascending order, kRowBatch rows' loads in flight at a
+//     time, and stops once all 32 bits are found; the first row that sets a
+//     lane's bit is that lane's rank within the chunk.  Ranks are staged in
+//     shared memory (stride 33 against bank conflicts); the chunks hold
+//     disjoint ascending rows, so the min over them is the first row overall
+//     (== the tournament's min row index; zero rows never win), written out
 //     coalesced.
-//   kind 1, vertex-major: one warp per vertex scans its width/32 words 32 at
-//     a time; the first nonzero word and its lowest set bit give the rank.
+//   kind 1, vertex-major narrower than ROWMIN_WIDE_BITS (4,096 bits,
+//     ops/relay_cuda.py, which builds the table): one warp per vertex scans
+//     its width/32 words 32 at a time; the first nonzero word and its lowest
+//     set bit give the rank.
+//   kind 3, vertex-major at least ROWMIN_WIDE_BITS wide: one block per vertex,
+//     16-byte loads from the aligned word below the row's first (words
+//     outside the row masked off), 1024 words a step, stopping after the
+//     first step with a hit; the min over the block's threads.
 //   kind 2: the sentinel tail [covered, vr).
 // Bound: bytes — the class slot words of l1 and valid are read once, vr
-// words written once.
+// words written once.  What held the first design: one thread walked all
+// `width` rows of its column word, one row (two loads) at a time, so the
+// launch lasted as long as the widest class's chains of dependent steps
+// (1,536 rows at s22: 0.7322 ms against a 0.0096 ms bound).  Here no thread
+// walks more than ceil(width / 8) rows (32 up to width 256), with
+// 2 * kRowBatch loads in flight, and a wide vertex-major row is read by a
+// whole block.
 // ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowBatch = 16;
+constexpr uint32_t kAll = 0xFFFFFFFFu;
+
 struct RowminItem {
-  long long kind, va, count, sa_word, width, block0;
+  long long kind, va, count, sa_word, width, chunks, rows, block0;
 };
+
+__device__ __forceinline__ void rowmin_rank_major(
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
+    uint32_t* __restrict__ out, const RowminItem& it, long long b,
+    uint32_t* ranks) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int chunks = static_cast<int>(it.chunks);
+  const int spans = kWarps / chunks;  // spans of 32 column words per block
+  const long long cw = it.count >> 5;
+  const long long span0 = b * spans;
+  const long long j = (span0 + warp / chunks) * 32 + lane;
+  const long long r0 = (warp % chunks) * it.rows;
+  const long long r1 = r0 + it.rows < it.width ? r0 + it.rows : it.width;
+  uint32_t* mine = ranks + tid * 33;
+  for (int k = 0; k < 32; ++k) mine[k] = kSentinel;
+  if (j < cw) {
+    const uint32_t* __restrict__ x = l1 + it.sa_word + j;
+    const uint32_t* __restrict__ v = valid + it.sa_word + j;
+    uint32_t found = 0;
+    for (long long r = r0; r < r1 && found != kAll; r += kRowBatch) {
+      uint32_t w[kRowBatch];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        const long long at = (r + u) * cw;
+        w[u] = r + u < r1 ? __ldg(x + at) & __ldg(v + at) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        uint32_t fresh = w[u] & ~found;
+        found |= w[u];
+        while (fresh) {
+          mine[__ffs(fresh) - 1] = static_cast<uint32_t>(r + u);
+          fresh &= fresh - 1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // Output i of the block: span i >> 10, column word (i >> 5) & 31, bit
+  // i & 31; the staged rank of (span s, chunk c, word) is at thread
+  // (s * chunks + c) * 32 + word.
+  for (int i = tid; i < spans * 1024; i += kThreads) {
+    const int s = i >> 10, word = (i >> 5) & 31, bit = i & 31;
+    if ((span0 + s) * 32 + word >= cw) continue;
+    uint32_t best = kSentinel;
+    for (int c = 0; c < chunks; ++c) {
+      best = min(best, ranks[((s * chunks + c) * 32 + word) * 33 + bit]);
+    }
+    out[it.va + span0 * 1024 + i] = best;
+  }
+}
+
+__device__ __forceinline__ void rowmin_wide_vertex(
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
+    uint32_t* __restrict__ out, const RowminItem& it, long long p,
+    uint32_t* warp_min) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = it.sa_word + p * (it.width >> 5);
+  const long long end = row + (it.width >> 5);
+  const long long a0 = row & ~3LL;
+  const long long n4 = (((end + 3) & ~3LL) - a0) >> 2;
+  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(l1 + a0);
+  const uint4* __restrict__ v4 = reinterpret_cast<const uint4*>(valid + a0);
+  uint32_t best = kSentinel;
+  for (long long q0 = 0; q0 < n4; q0 += kThreads) {  // block-uniform trip count
+    const long long q = q0 + tid;
+    if (q < n4) {
+      const uint4 xa = __ldg(x4 + q);
+      const uint4 va = __ldg(v4 + q);
+      const uint32_t w[4] = {xa.x & va.x, xa.y & va.y, xa.z & va.z, xa.w & va.w};
+#pragma unroll
+      for (int u = 3; u >= 0; --u) {  // the lowest hit word of the four wins
+        const long long k = a0 + 4 * q + u;
+        if (w[u] && k >= row && k < end) {
+          best = static_cast<uint32_t>((k - row) * 32 + (__ffs(w[u]) - 1));
+        }
+      }
+    }
+    if (__syncthreads_or(best != kSentinel)) break;
+  }
+  best = __reduce_min_sync(kAll, best);
+  if (lane == 0) warp_min[warp] = best;
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kWarps; ++w) best = min(best, warp_min[w]);
+    out[it.va + p] = best;
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 class_rowmin_kernel(const uint32_t* __restrict__ l1,
@@ -139,34 +250,12 @@ class_rowmin_kernel(const uint32_t* __restrict__ l1,
   const long long b = blockIdx.x - it.block0;
   const int tid = threadIdx.x;
   if (it.kind == 0) {
-    const long long cw = it.count >> 5;
-    const long long j0 = b * kThreads;
-    const long long j = j0 + tid;
-    uint32_t* mine = ranks + tid * 33;
-    for (int k = 0; k < 32; ++k) mine[k] = kSentinel;
-    if (j < cw) {
-      uint32_t found = 0;
-      const long long col = it.sa_word + j;
-      for (long long r = 0; r < it.width; ++r) {
-        const long long at = col + r * cw;
-        const uint32_t w = __ldg(l1 + at) & __ldg(valid + at);
-        uint32_t fresh = w & ~found;
-        while (fresh) {
-          const int bit = __ffs(fresh) - 1;
-          mine[bit] = static_cast<uint32_t>(r);
-          fresh &= fresh - 1;
-        }
-        found |= w;
-      }
-    }
-    __syncthreads();
-    const long long limit = (cw - j0) * 32;  // lanes of this block's words
-    for (int i = tid; i < kThreads * 32; i += kThreads) {
-      if (i < limit) out[it.va + j0 * 32 + i] = ranks[(i >> 5) * 33 + (i & 31)];
-    }
+    rowmin_rank_major(l1, valid, out, it, b, ranks);
+  } else if (it.kind == 3) {
+    rowmin_wide_vertex(l1, valid, out, it, b, ranks);
   } else if (it.kind == 1) {
     const int warp = tid >> 5, lane = tid & 31;
-    const long long p = b * (kThreads / 32) + warp;
+    const long long p = b * kWarps + warp;
     if (p >= it.count) return;
     const long long ww = it.width >> 5;
     const long long row = it.sa_word + p * ww;
@@ -174,10 +263,10 @@ class_rowmin_kernel(const uint32_t* __restrict__ l1,
     for (long long k0 = 0; k0 < ww; k0 += 32) {
       const long long k = k0 + lane;
       const uint32_t w = k < ww ? (__ldg(l1 + row + k) & __ldg(valid + row + k)) : 0u;
-      const uint32_t hit = __ballot_sync(0xFFFFFFFFu, w != 0);
+      const uint32_t hit = __ballot_sync(kAll, w != 0);
       if (hit) {
         const int src = __ffs(hit) - 1;
-        const uint32_t first = __shfl_sync(0xFFFFFFFFu, w, src);
+        const uint32_t first = __shfl_sync(kAll, w, src);
         rank = static_cast<uint32_t>((k0 + src) * 32 + (__ffs(first) - 1));
         break;
       }

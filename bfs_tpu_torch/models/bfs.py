@@ -21,11 +21,14 @@ the unpacked carry.
 
 Batched multi-source BFS runs on the same layout:
 :meth:`RelayEngine.run_multi_elem` packs 32 trees into each uint32 element
-(:mod:`bfs_tpu_torch.ops.relay_elem`), so both Beneš networks read their
-masks once per superstep for every tree of a group; the elem Beneš passes
-and the fused row-min/update are the kernels of ``csrc/relay_elem_kernels.cu``
-on a card.  A batch deeper than the 31 levels its distance planes hold
-falls back to :meth:`RelayEngine.run_multi`, the lock-step form.
+(:mod:`bfs_tpu_torch.ops.relay_elem`).  The route from frontier elements to
+L1 slot elements (both Beneš networks and the broadcast) is fixed for a
+graph, so it is built once per engine as one gather index
+(:meth:`RelayEngine.route_index`, by the elem Beneš kernels) and every
+superstep is one gather and the fused row-min/update, the kernels of
+``csrc/relay_elem_kernels.cu`` on a card.  A batch deeper than the 31
+levels its distance planes hold falls back to :meth:`RelayEngine.run_multi`,
+the lock-step form.
 
 ``RelayEngine(..., expansion="mxu")`` runs single-source searches (and the
 lock-step :meth:`RelayEngine.run_multi`) through the MXU expansion arm
@@ -153,6 +156,7 @@ class RelayEngine:
         #: device read) and the result mapping with its copy to the host.
         self.last_run: dict = {}
         self.adj_tiles = None
+        self._route_index = None
         self._resolve_expansion(expansion, tiles_budget_bytes)
 
     # -- the expansion arm --------------------------------------------------
@@ -274,20 +278,35 @@ class RelayEngine:
 
     # -- batched multi-source -------------------------------------------------
 
-    def superstep_elem(self, st: RE.ElemState) -> RE.ElemState:
-        """One element-major superstep for all 32·G trees: the frontier
-        zero-padded to ``vperm_size`` ELEMENTS (dummy out-positions read the
-        zero tail, zeroed anew every superstep), the vperm network,
-        ``broadcast_l2_elem`` (torch ops), the net network (in place on the
-        L2 elements), then the fused row-min/update."""
+    def routed_elem(self, frontier: torch.Tensor, benes=K.apply_benes_elem) -> torch.Tensor:
+        """Frontier elements int32[G, vr] -> routed L1 slot elements
+        int32[G, net_size]: zero-padded to ``vperm_size`` (dummy
+        out-positions read the zero tail), the vperm network,
+        ``broadcast_l2_elem``, the net network.  ``benes`` runs a network:
+        the K5 kernels on a card (the plain version on the CPU), or
+        :func:`~bfs_tpu_torch.ops.relay_elem.apply_benes_elem` itself."""
         rg = self.relay_graph
-        fw = torch.zeros(
-            (st.frontier.shape[0], rg.vperm_size), dtype=torch.int32, device=self.device
-        )
-        fw[:, : rg.vr] = st.frontier
-        y = K.apply_benes_elem(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size)
+        fw = torch.zeros((frontier.shape[0], rg.vperm_size), dtype=torch.int32, device=self.device)
+        fw[:, : rg.vr] = frontier
+        y = benes(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size)
         l2 = RE.broadcast_l2_elem(y, rg.out_classes, rg.net_size)
-        l1 = K.apply_benes_elem(l2, self.net_masks, rg.net_table, rg.net_size, out=l2)
+        return benes(l2, self.net_masks, rg.net_table, rg.net_size)
+
+    def route_index(self) -> torch.Tensor:
+        """:meth:`routed_elem` as one gather index, int32[net_size]
+        (:func:`~bfs_tpu_torch.ops.relay_elem.route_index`), built by the
+        K5 kernels at the first call and kept: 4 bytes per slot (268 MB at
+        scale 22), which an engine that runs no batch never pays."""
+        if self._route_index is None:
+            rg = self.relay_graph
+            self._route_index = RE.route_index(self.routed_elem, rg.vr, self.device)
+        return self._route_index
+
+    def superstep_elem(self, st: RE.ElemState) -> RE.ElemState:
+        """One element-major superstep for all 32·G trees: the route as one
+        gather over :meth:`route_index`, then the fused row-min/update."""
+        rg = self.relay_graph
+        l1 = K.elem_route_gather(st.frontier, self.route_index())
         return K.elem_rowmin_update(l1, self.valid_words, st, rg.in_classes, rg.vr)
 
     def run_multi_elem_device(self, sources, *, max_levels: int | None = None) -> RE.ElemState:

@@ -19,6 +19,9 @@ else.
   packed_update           apply_relay_candidates_packed_pallas (K4)
   benes_elem_local_pass   _run_elem_pass local mode (K5)
   benes_elem_outer_stage  _run_elem_pass outer mode (K5)
+  elem_route_gather       both _run_elem_pass networks (K5) and the XLA
+                          broadcast between them, inside the level loop;
+                          the two K5 kernels build its index
   elem_rowmin_update      the XLA row-min and update of elem_superstep
                           (bfs_tpu/ops/relay_elem.py)
   mxu_expand              expand_frontier_mxu (K6, bfs_tpu/ops/relay_mxu.py)
@@ -47,6 +50,7 @@ LAUNCHES = {
     "packed_update": 0,
     "benes_elem_local_pass": 0,
     "benes_elem_outer_stage": 0,
+    "elem_route_gather": 0,
     "elem_rowmin_update": 0,
     "mxu_expand": 0,
 }
@@ -92,6 +96,8 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     ]
     lib.benes_elem_outer_stage.restype = _INT
     lib.benes_elem_outer_stage.argtypes = [_VP, _VP, _VP, _INT, _LL, _LL, _INT, _VP]
+    lib.elem_route_gather.restype = _INT
+    lib.elem_route_gather.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _VP]
     lib.elem_rowmin_update.restype = _INT
     lib.elem_rowmin_update.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
@@ -155,6 +161,13 @@ def _check_words(name: str, t: torch.Tensor, numel: int | None = None) -> None:
         raise ValueError(f"{name}: expected a contiguous int32 tensor")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{name}: expected {numel} words, got {t.numel()}")
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """For 16-byte loads and stores: a 16-byte aligned start and a multiple
+    of 4 words."""
+    if t.data_ptr() % 16 or t.numel() % 4:
+        raise ValueError(f"{name}: expected a 16-byte aligned tensor of a multiple of 4 words")
 
 
 def _call(rc: int, what: str) -> None:
@@ -299,31 +312,57 @@ def apply_benes(
 # ---------------------------------------------------------------- row-min --
 
 ROWMIN_THREADS = 256
+ROWMIN_WARPS = ROWMIN_THREADS // 32
+#: A rank-major class's rows are halved into more chunks (at most one per
+#: warp of a block) while a chunk holds more rows than this.
+ROWMIN_CHUNK_ROWS = 32
+#: Vertex-major classes at least this many bits wide take a block per
+#: vertex; narrower ones a warp per vertex.
+ROWMIN_WIDE_BITS = 4096
+
+
+def rowmin_chunks(width: int) -> tuple[int, int]:
+    """``(chunks, rows per chunk)`` of a rank-major class: chunks a power of
+    two up to :data:`ROWMIN_WARPS`, doubled while a chunk would hold more
+    than :data:`ROWMIN_CHUNK_ROWS` rows."""
+    chunks = 1
+    while chunks < ROWMIN_WARPS and -(-width // chunks) > ROWMIN_CHUNK_ROWS:
+        chunks *= 2
+    return chunks, -(-width // chunks)
 
 
 @functools.lru_cache(maxsize=8)
 def rowmin_items(in_classes: tuple, vr: int, device: str):
     """Device work table of :func:`rowmin_ranks`: int64 rows of (kind, va,
-    count, sa/32, width, first block) — kind 0 rank-major, 1 vertex-major,
-    2 the sentinel tail — and the total block count."""
+    count, sa/32, width, chunks, rows per chunk, first block) — kind 0
+    rank-major (a block covers ``ROWMIN_WARPS / chunks`` spans of 32
+    column words, a warp per span and chunk of rows), 1 vertex-major (a
+    warp per vertex), 3 vertex-major at least :data:`ROWMIN_WIDE_BITS` wide
+    (a block per vertex), 2 the sentinel tail — the total block count,
+    and whether any kind 3 row (16-byte loads) is in the table."""
     rows = []
     block = 0
     covered = 0
     for cs in sorted(in_classes, key=lambda c: c.va):
         assert cs.va == covered, "in_classes must tile the vertex space"
-        if cs.vertex_major:
-            kind, blocks = 1, -(-cs.count // (ROWMIN_THREADS // 32))
+        chunks, per = 1, cs.width
+        if cs.vertex_major and cs.width >= ROWMIN_WIDE_BITS:
+            kind, blocks = 3, cs.count
+        elif cs.vertex_major:
+            kind, blocks = 1, -(-cs.count // ROWMIN_WARPS)
         else:
-            kind, blocks = 0, -(-(cs.count // 32) // ROWMIN_THREADS)
+            chunks, per = rowmin_chunks(cs.width)
+            spans = -(-(cs.count // 32) // 32)
+            kind, blocks = 0, -(-spans // (ROWMIN_WARPS // chunks))
         if blocks:
-            rows.append((kind, cs.va, cs.count, cs.sa // 32, cs.width, block))
+            rows.append((kind, cs.va, cs.count, cs.sa // 32, cs.width, chunks, per, block))
             block += blocks
         covered = cs.vb
     if covered < vr:
-        rows.append((2, covered, vr - covered, 0, 0, block))
+        rows.append((2, covered, vr - covered, 0, 0, 1, 0, block))
         block += -(-(vr - covered) // ROWMIN_THREADS)
-    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 6).to(device)
-    return table, block
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(device)
+    return table, block, any(r[0] == 3 for r in rows)
 
 
 def rowmin_ranks(
@@ -336,7 +375,10 @@ def rowmin_ranks(
         return R.rowmin_ranks(l1words, valid_words, in_classes, vr)
     _check_words("l1words", l1words)
     _check_words("valid_words", valid_words, l1words.numel())
-    table, blocks = rowmin_items(tuple(in_classes), int(vr), str(l1words.device))
+    table, blocks, wide = rowmin_items(tuple(in_classes), int(vr), str(l1words.device))
+    if wide:  # 16-byte loads, up to a 4-word boundary
+        _check_aligned("l1words", l1words)
+        _check_aligned("valid_words", valid_words)
     out = torch.empty(vr, dtype=torch.int32, device=l1words.device) if out is None else out
     _check_words("out", out, vr)
     if blocks == 0:
@@ -459,6 +501,31 @@ def apply_benes_elem(
     return out
 
 
+def elem_route_gather(
+    frontier: torch.Tensor, src: torch.Tensor, out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Routed L1 slot elements int32[G, n] of one elem superstep from the
+    frontier int32[G, vr], through the composed route index ``src``
+    (int32[n], -1 where a slot receives nothing;
+    ``RelayEngine.route_index``): kernel ``elem_route_gather`` on the card,
+    :func:`.relay_elem.route_gather` on the CPU."""
+    if not _on_card(frontier, src):
+        return RE.route_gather(frontier, src)
+    groups = _check_elems("frontier", frontier, frontier.shape[-1])
+    _check_words("src", src)
+    _check_aligned("src", src)
+    n = src.numel()
+    out = torch.empty((groups, n), dtype=torch.int32, device=src.device) if out is None else out
+    _check_elems("out", out, n, groups)
+    _check_aligned("out", out)
+    rc = elem_kernels().elem_route_gather(
+        _ptr(frontier), _ptr(src), _ptr(out), frontier.shape[1], n, groups, _stream(),
+    )
+    LAUNCHES["elem_route_gather"] += 1
+    _call(rc, "elem_route_gather")
+    return out
+
+
 @functools.lru_cache(maxsize=8)
 def elem_rowmin_items(in_classes: tuple, vr: int, device: str):
     """Device work table of :func:`elem_rowmin_update`: int64 rows of (kind,
@@ -473,7 +540,7 @@ def elem_rowmin_items(in_classes: tuple, vr: int, device: str):
         assert cs.va == covered, "in_classes must tile the vertex space"
         off, nb = offsets[cs.va]
         if cs.vertex_major:
-            kind, blocks = 1, -(-cs.count // (ROWMIN_THREADS // 32))
+            kind, blocks = 1, -(-cs.count // ROWMIN_WARPS)
         else:
             kind, blocks = 0, -(-cs.count // ROWMIN_THREADS)
         if blocks:

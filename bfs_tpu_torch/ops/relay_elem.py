@@ -38,6 +38,8 @@ __all__ = [
     "init_elem_state",
     "apply_benes_elem",
     "broadcast_l2_elem",
+    "route_index",
+    "route_gather",
     "rowmin_elem",
     "apply_elem_found",
     "elem_superstep",
@@ -157,6 +159,25 @@ def broadcast_l2_elem(y: torch.Tensor, out_classes, net_size: int) -> torch.Tens
         used += cs.count * cs.width
     out[:, used:].zero_()
     return out
+
+
+def route_index(route, vr: int, device) -> torch.Tensor:
+    """The multi-source route (frontier elements int32[G, vr] -> routed L1
+    slot elements int32[G, n]) as one gather index: int32[n], slot ``i``
+    receives frontier element ``src[i]``, or nothing (0) where ``src[i]``
+    is -1.  ``route`` only moves and copies whole elements under masks
+    fixed for the graph, so routing ``iota + 1`` (one group; the zero
+    padding past ``vr`` stays 0) labels every slot with its source plus
+    one."""
+    iota = torch.arange(1, vr + 1, dtype=torch.int32, device=device)[None]
+    return route(iota)[0] - 1
+
+
+def route_gather(frontier: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Routed L1 slot elements int32[G, n] from the frontier int32[G, vr]
+    through :func:`route_index`'s ``src``: ``where(src >= 0,
+    frontier[:, src], 0)``."""
+    return torch.where(src >= 0, frontier[:, src.clamp(min=0).long()], 0)
 
 
 def _tournament(xv: torch.Tensor):

@@ -18,12 +18,15 @@ under a budget raised to 32 GiB), the tensor-core kernel ``mxu_expand`` held
 bit-exact against its plain version at the level of the max-degree root's
 search with the most live tiles, and ``RelayEngine(expansion="mxu")`` for the
 same 4 roots, each result equal to ``canonical_bfs`` and to the gather arm's.
-The multi-source path follows on the same graph: the element-major kernels
-held against their plain versions at the layout's real shapes (G = 2 groups
-of 32 trees), then ``RelayEngine.run_multi_elem_device`` for a batch of 64
-sources drawn from ``--seed`` (BASELINE.json config 5), timed, traced, and
-every tree checked against the port's single-source search (and four against
-the oracle).  Small graphs close the run: tinyCG (the paper's worked
+The multi-source path follows on the same graph:
+``RelayEngine.run_multi_elem_device`` for a batch of 64 sources drawn from
+``--seed`` (BASELINE.json config 5; G = 2 groups of 32 trees), whose first
+call builds the route index through the element-major Beneš kernels (K5),
+then timed (one ``elem_route_gather`` and one ``elem_rowmin_update`` per
+superstep, no K5 launch), traced, and every tree checked against the port's
+single-source search (and four against the oracle); then the route index
+against the one the plain networks build, and every element-major kernel
+against its plain version at the layout's real shapes.  Small graphs close the run: tinyCG (the paper's worked
 example) and a 100-vertex path (deeper than the packed carry's 62 levels, so
 it takes the unpacked re-run, on both expansion arms; with 32 sources,
 deeper than the 31 levels of the elem distance planes, so it takes the
@@ -61,9 +64,12 @@ REPLACES = {
     "class_rowmin": "bfs_tpu/ops/relay_pallas.py:1059",
     "packed_update": "bfs_tpu/ops/relay_pallas.py:1188",
 }
+ELEM_BUILD = ("benes_elem_local_pass", "benes_elem_outer_stage")  # the route index
 ELEM_REPLACES = {
     "benes_elem_local_pass": "bfs_tpu/ops/relay_pallas.py:860",
     "benes_elem_outer_stage": "bfs_tpu/ops/relay_pallas.py:860",
+    # both K5 networks and the broadcast between them, in the level loop
+    "elem_route_gather": "bfs_tpu/ops/relay_pallas.py:860",
     # XLA in the reference: rowmin_elem (:186) and the update (:258)
     "elem_rowmin_update": "bfs_tpu/ops/relay_elem.py:186",
 }
@@ -254,6 +260,10 @@ def kernel_phase(eng, K, R, card: str) -> dict:
     nbytes = 2 * 4 * class_words + 4 * rg.vr
     record("class_rowmin", err, ms, pms, nbytes,
            f"vr={rg.vr}, {len(rg.in_classes)} classes, {class_words} slot words")
+    items, blocks, _ = K.rowmin_items(tuple(rg.in_classes), rg.vr, str(dev))
+    log(f"class_rowmin work table: {items.shape[0]} items, {blocks} blocks of "
+        f"{K.ROWMIN_THREADS} threads; (kind, width, count, chunks x rows): "
+        + ", ".join(f"({k}, {w}, {c}, {ch}x{r})" for k, _, c, _, w, ch, r, _ in items.tolist()))
     cand = got
 
     # packed_update on that superstep's carry.
@@ -319,9 +329,12 @@ def rows_needed(visited, found, rp, in_classes, offsets):
 
 
 def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
-    """Each element-major kernel against its plain version on the card, on
-    the inputs the multi-source path gives it at the superstep with the
-    most trees in the frontier (G = 2 groups of 32 trees)."""
+    """The route index against the one the plain networks build, and each
+    element-major kernel against its plain version on the card, on the
+    inputs the multi-source path gives it at the superstep with the most
+    trees in the frontier (G = 2 groups of 32 trees).  The K5 kernels are
+    held on the networks' inputs of that superstep: they now run only in
+    the index build, which routes one group."""
     import numpy as np
     import torch
 
@@ -341,9 +354,34 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     log(f"elem kernel inputs: superstep {st0.level + 1}, {count} (tree, vertex) "
         f"pairs in the frontier, G={groups}")
 
+    # The route index: the engine's (built by the K5 kernels in the batch's
+    # first call), built again by the kernels (timed, as set-up) and by the
+    # plain networks on the card; all three equal bit for bit.
+    n = rg.net_size
+    src = eng.route_index()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = RE.route_index(eng.routed_elem, rg.vr, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = RE.route_index(lambda x: eng.routed_elem(x, benes=RE.apply_benes_elem), rg.vr, dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(max_abs_err(src, plain), max_abs_err(again, plain))
+    if err:
+        raise AssertionError(f"route index: the K5 kernels' index differs from the plain one (max err {err})")
+    lo, hi, fed = int(src.min()), int(src.max()), int((src >= 0).sum())
+    if lo < -1 or hi >= rg.vr:
+        raise AssertionError(f"route index: values in [{lo}, {hi}], outside [-1, {rg.vr})")
+    log(f"route index: int32[{n}], {4 * n} bytes on the card, set-up: built through the K5 "
+        f"kernels in {build_s:.4f} s (the plain networks on the card: {plain_s:.4f} s), "
+        f"equal bit for bit; {fed} slots fed, values in [{lo}, {hi}]")
+    del again, plain
+
     fw = torch.zeros((groups, rg.vperm_size), dtype=torch.int32, device=dev)
     fw[:, : rg.vr] = st0.frontier
-    n, table, masks = rg.net_size, rg.net_table, eng.net_masks
+    table, masks = rg.net_table, eng.net_masks
     y = K.apply_benes_elem(fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size)
     l2 = RE.broadcast_l2_elem(y, rg.out_classes, n)
     results = {}
@@ -407,7 +445,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     pms = cuda_ms(lambda: RE.apply_benes_elem(l2, masks, (st1,), n), 5)
     lms = library_ms(l2, (st1,), want, 50)
     record("benes_elem_outer_stage", err, ms, pms, 2 * elem_bytes + 4 * st1.nwords,
-           f"net n={n} x G={groups}, d={st1.d}", outer_per_step, lms)
+           f"net n={n} x G={groups}, d={st1.d}; launched only by the route index build "
+           f"(G=1, {outer_per_step} launches)", 0, lms)
 
     x = l2
     for i in pre:
@@ -420,8 +459,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     lms = library_ms(x, stages, want, 20)
     record("benes_elem_local_pass", err, ms, pms,
            2 * elem_bytes + 4 * sum(t.nwords for t in stages),
-           f"net n={n} x G={groups}, {len(stages)} local stages, tile {tile} elements", 2,
-           lms)
+           f"net n={n} x G={groups}, {len(stages)} local stages, tile {tile} elements; "
+           "launched only by the route index build (G=1, 2 launches)", 0, lms)
     del x, want
 
     # The whole net network: the kernels' route against one index_select.
@@ -434,24 +473,53 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     del want, out
     torch.cuda.empty_cache()
 
-    # elem_rowmin_update on the routed L1 elements of that superstep.
-    l1 = K.apply_benes_elem(l2, masks, table, n)
+    # elem_route_gather: the superstep's route in one launch, against the
+    # plain gather and the networks themselves; one index_select over the
+    # frontier with a zero column appended is its library yardstick.
+    f = st0.frontier
+    l1 = K.apply_benes_elem(l2, masks, table, n)  # through the networks
     del l2
+    got = K.elem_route_gather(f, src)
+    err = max_abs_err(got, RE.route_gather(f, src))
+    if not torch.equal(got, l1):
+        raise AssertionError("elem_route_gather differs from the route through the networks")
+    buf = torch.empty_like(got)
+    ms = cuda_ms(lambda: K.elem_route_gather(f, src, out=buf), 50)
+    pms = cuda_ms(lambda: RE.route_gather(f, src), 5)
+    fpad = torch.cat([f, f.new_zeros((groups, 1))], dim=1)
+    idx = torch.where(src >= 0, src, rg.vr).long()
+    if not torch.equal(torch.index_select(fpad, 1, idx, out=buf), got):
+        raise AssertionError("index_select over the route index differs")
+    lms = cuda_ms(lambda: torch.index_select(fpad, 1, idx, out=buf), 50)
+    del fpad, idx
+    route_ms = cuda_ms(lambda: eng.routed_elem(f), 10)
+    # Bytes: the index read once, the slots written and the frontier read
+    # once per group.
+    record("elem_route_gather", err, ms, pms, 4 * n + elem_bytes + 4 * groups * rg.vr,
+           f"net n={n} x G={groups} from vr={rg.vr}", 1, lms)
+    results["route"] = dict(networks_ms=route_ms, build_s=build_s, plain_build_s=plain_s)
+    log(f"elem route of one superstep: elem_route_gather {ms:.4f} ms against "
+        f"{route_ms:.4f} ms through the networks and the broadcast (K5 kernels; cold L2, "
+        f"on {card})")
+    del got, buf
+    torch.cuda.empty_cache()
+
+    # elem_rowmin_update on the routed L1 elements of that superstep.
     valid = eng.valid_words
     offsets, _ = RE.rank_plane_layout(rg.in_classes)
     found, rp = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
     want = RE.apply_elem_found(st0, found, rp, rg.in_classes, offsets)
     need = rows_needed(st0.visited, found, rp, rg.in_classes, offsets)
     del found, rp
-    work =RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
+    work = RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
     got = K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr)
     err = max(max_abs_err(a, b) for a, b in zip(got[:4], want[:4]))
     if bool(got.changed.item()) != bool(want.changed):
         raise AssertionError("elem_rowmin_update: changed flag differs from the plain version")
 
     def restore():
-        for dst, src in zip(work[:4], st0[:4]):
-            dst.copy_(src)
+        for dst, orig in zip(work[:4], st0[:4]):
+            dst.copy_(orig)
 
     ms = cuda_ms(lambda: K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr), 20,
                  prep=restore)
@@ -492,13 +560,31 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
 
 def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> dict:
     """The multi-source main path: ``run_multi_elem_device`` for one batch,
-    warmed, then timed with its launches counted, traced once, and its
-    results (``run_multi_elem``) checked tree by tree."""
+    first on an engine that has run none (its launches counted: the K5
+    kernels build the route index, then each superstep launches one
+    gather and one row-min/update), then timed with its launches counted
+    (no K5 launch), traced once, and its results (``run_multi_elem``)
+    checked tree by tree."""
     import numpy as np
     import torch
 
-    st = eng.run_multi_elem_device(sources)  # warm: caches and allocator
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    st = eng.run_multi_elem_device(sources)  # builds the route index; warms
+    level0 = st.level
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = {k: K.LAUNCHES[k] for k in ELEM_REPLACES}
     del st
+    for name in ELEM_BUILD:
+        if first[name] <= 0:
+            raise AssertionError(f"the route index build never launched kernel {name}")
+    for name in ("elem_route_gather", "elem_rowmin_update"):
+        if first[name] != level0:
+            raise AssertionError(f"first batch: {name} launched {first[name]} times in {level0} supersteps")
+    log(f"multi-source batch, first call (builds the route index): {first_s:.6f} s, "
+        f"{level0} levels; launches {first}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -512,9 +598,10 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> di
     del st
     if changed:
         raise AssertionError("64-source batch did not converge within the elem level cap")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"multi-source path never launched kernel {name}")
+    want = {name: 0 for name in ELEM_BUILD}
+    want.update(elem_route_gather=level, elem_rowmin_update=level)
+    if launches != want:
+        raise AssertionError(f"timed batch: launches {launches}, expected {want}")
     trees = len(sources)
     log(f"multi-source batch: {trees} sources, G={trees // 32}: {secs:.6f} s per batch, "
         f"{secs / trees:.6f} s per tree, {trees * directed_traversed / 2 / secs:.6g} "
@@ -544,7 +631,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> di
         if violations:
             raise AssertionError(f"tree {i}: check() violations {violations[:3]}")
     log("trees 0, 31, 32, 63: oracle-exact, check() clean")
-    return dict(launches=launches, secs=secs, levels=level, peak=peak)
+    return dict(launches=first, secs=secs, levels=level, peak=peak)
 
 
 def small_multi_checks(P, tiny) -> None:
@@ -854,13 +941,13 @@ def main(argv=None) -> int:
     del meng, want
     torch.cuda.empty_cache()
 
-    # ---- multi-source: elem kernels, then the batch ----------------------
+    # ---- multi-source: the batch (its first call builds the route index),
+    # then the route index and the elem kernels against their plain versions
     sources = np.asarray(rng.choice(comp, BATCH, replace=False), dtype=np.int32)
     torch.cuda.empty_cache()
-    eres = elem_kernel_phase(eng, sources, K, RE, card)
     multi = multi_source_phase(eng, g, sources, directed_traversed, K, RE, P)
     launches.update(multi["launches"])
-    kres.update(eres)
+    kres.update(elem_kernel_phase(eng, sources, K, RE, card))
 
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),

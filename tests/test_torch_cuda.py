@@ -15,6 +15,7 @@ import torch
 import bfs_tpu_torch as P
 from bfs_tpu_torch.graph import adj_tiles as PT
 from bfs_tpu_torch.graph import benes
+from bfs_tpu_torch.graph import relay as p_relay
 from bfs_tpu_torch.graph.relay import valid_slot_words
 from bfs_tpu_torch.models import bfs as p_bfs
 from bfs_tpu_torch.ops import relay as R
@@ -92,6 +93,35 @@ def test_card_rowmin_and_update_match_plain(card, layout):
     _eq(got.packed, want.packed)
     _eq(got.fwords, want.fwords)
     assert bool(got.changed.item()) == bool(want.changed)
+
+
+def _wide_classes(tail: int = 64):
+    """Rank-major widths 1, 3, 48 and 1,536 (2,048 vertices each), then
+    vertex-major widths 64 and 1,000 (a warp per vertex) and 4,096 and
+    131,072 (a block per vertex, rows not 16-byte aligned), and a sentinel
+    tail: ``(classes, vr, slot words)``."""
+    widths = np.array([1, 3, 48, 1536, 64, 1000, 4096, 131072])
+    counts = np.array([2048, 2048, 2048, 2048, 3, 5, 2, 1])
+    classes = tuple(p_relay._build_classes(widths, counts))
+    return classes, classes[-1].vb + tail, -(-classes[-1].sb // 128) * 4
+
+
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.5, 1.0])
+def test_card_class_rowmin_wide_classes_match_plain(card, density):
+    classes, vr, nwords = _wide_classes()
+    rng = np.random.default_rng(int(density * 1e4))
+    l1 = np.packbits(rng.random(32 * nwords) < density, bitorder="little").view(np.uint32)
+    valid = np.packbits(rng.random(32 * nwords) < 0.97, bitorder="little").view(np.uint32)
+    if density == 1.0:
+        valid[:] = 0xFFFFFFFF  # all ones: every vertex's rank is 0
+    l1, valid = _t(l1, card), _t(valid, card)
+    K.reset_launches()
+    got = K.rowmin_ranks(l1, valid, classes, vr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["class_rowmin"] == 1
+    _eq(got, R.rowmin_ranks(l1, valid, classes, vr))
+    if density == 1.0:
+        assert bool((got[: classes[-1].vb] == 0).all()) and bool((got[classes[-1].vb :] == -1).all())
 
 
 def test_card_bfs_matches_cpu_and_oracle(card):
@@ -176,8 +206,47 @@ def test_card_multi_elem_matches_cpu_and_oracle(card):
         dist, parent = P.canonical_bfs(g, int(sources[i]))
         np.testing.assert_array_equal(a.dist[i], dist)
         np.testing.assert_array_equal(a.parent[i], parent)
-    for name in ("benes_elem_local_pass", "benes_elem_outer_stage", "elem_rowmin_update"):
+    for name in ("benes_elem_local_pass", "benes_elem_outer_stage", "elem_route_gather",
+                 "elem_rowmin_update"):
         assert K.LAUNCHES[name] > 0, name
+
+
+def test_card_route_index_kernels_match_plain(card, layout):
+    """The index built through the K5 kernels equals the one built through
+    the plain networks, on the card and on the CPU; the build launches
+    the K5 local pass, a batch superstep none."""
+    rg = layout
+    eng = P.RelayEngine(rg)
+    K.reset_launches()
+    src = eng.route_index()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["benes_elem_local_pass"] == 2  # one per network at this size
+    plain = RE.route_index(lambda x: eng.routed_elem(x, benes=RE.apply_benes_elem), rg.vr, card)
+    _eq(src, plain)
+    _eq(src, P.RelayEngine(rg, device="cpu").route_index())
+    _, pt = RE.rank_plane_layout(rg.in_classes)
+    st = RE.init_elem_state(rg.vr, rg.old2new[np.arange(32) % rg.num_vertices].reshape(1, 32), pt, card)
+    K.reset_launches()
+    eng.superstep_elem(st)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["elem_route_gather"] == 1 and K.LAUNCHES["elem_rowmin_update"] == 1
+    assert K.LAUNCHES["benes_elem_local_pass"] == K.LAUNCHES["benes_elem_outer_stage"] == 0
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_card_elem_route_gather_matches_plain(card, layout, groups):
+    rg = layout
+    eng = P.RelayEngine(rg)
+    src = eng.route_index()
+    f = _t(_words(np.random.default_rng(groups), groups * rg.vr), card).reshape(groups, rg.vr)
+    K.reset_launches()
+    got = K.elem_route_gather(f, src)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["elem_route_gather"] == 1
+    _eq(got, RE.route_gather(f, src))
+    _eq(got, eng.routed_elem(f))  # the networks themselves, through the K5 kernels
+    out = torch.full_like(got, 7)
+    _eq(K.elem_route_gather(f, src, out=out), got)
 
 
 # ------------------------------------------------------------ MXU arm (K6) --
