@@ -186,39 +186,90 @@ elem_route_gather_kernel(const uint32_t* __restrict__ frontier,
 // in XLA (the TPU superstep, relay_pallas.py elem_superstep_tpu_factory,
 // leaves them there too).
 //
-// Per (group, vertex), scan the vertex's class rows in ascending order over
-// l1 & valid: rank-major slot sa + r * count + (v - va), vertex-major slot
-// sa + (v - va) * width + r.  At row r the fresh bits x & ~found take rank r
-// (their rank planes j get the bits where bit j of r is set), then join
-// found.  That is the tournament's min row index, since zero rows never win.
-// `found` starts at `visited`: a tree that already reached the vertex adopts
-// nothing, and the scan ends once every tree is reached or found.  Then
-// newly = found & ~visited is the next frontier, joins visited, is ORed into
-// dist plane b where bit b of `level` (the new level) is set — none at 32,
-// the step past the cap — and into the class's rank planes
-// rank_planes[g, off + j * count + (v - va)], j < nb.  A block OR of
-// newly != 0 sets the device `changed` flag, zeroed first on this stream.
-// One launch covers every class and group through a device table of work
-// items (kind, va, count, sa, width, off, nb, first block):
-//   kind 0, rank-major: one thread per vertex (coalesced across the warp);
-//   kind 1, vertex-major: one warp per vertex, 32 rows per step, the warp
-//     walking its lanes in row order only while fresh bits remain;
+// Per (group, vertex), the vertex's class rows over l1 & valid: rank-major
+// slot sa + r * count + (v - va), vertex-major slot sa + (v - va) * width +
+// r.  A walk over a span of rows in ascending order starts from found =
+// visited; at row r the fresh bits x & ~found take rank r (their rank planes
+// j get the bits where bit j of r is set), then join found; the walk ends
+// once every tree is reached or found.  The fresh bits of a span are the
+// trees whose first row in it is r.  The rows are split into spans walked in
+// parallel, and combined in row order (an OR-prefix): span c owns the fresh
+// bits no earlier span found, fresh_c & ~(fresh_0 | ... | fresh_{c-1}), and
+// the vertex's planes are the OR over c of planes_c[j] & owned_c.  Spans hold
+// disjoint ascending rows, so that is the tournament's min row index (zero
+// rows never win).  Then newly = the OR of the fresh bits is the next
+// frontier, joins visited, is ORed into dist plane b where bit b of `level`
+// (the new level) is set — none at 32, the step past the cap — and into the
+// class's rank planes rank_planes[g, off + j * count + (v - va)], j < nb.  A
+// block OR of newly != 0 sets the device `changed` flag, zeroed first on
+// this stream.  One launch covers every class and group (blockIdx.y)
+// through a table of work items (kind, va, count, sa, width, off, nb,
+// chunks, rows, passes, first block), built by ops/relay_cuda.py
+// elem_rowmin_items and passed by value, so a block finds its item by a
+// binary search in the kernel's parameter space (the constant cache)
+// without a device round trip:
+//   kind 0, rank-major: the rows are split into `chunks` C in {1, 2, 4, 8}
+//     of `rows` each; a block covers kWarps / C spans of 32 consecutive
+//     vertices with all C chunks, one warp per (span, chunk), lane = vertex.
+//     A warp walks its chunk for its 32 vertices with kRowBatch rows' loads
+//     in flight (the 32 lanes' slots of a row are one coalesced 128-byte
+//     line and one valid word, loaded once for the warp); with C > 1 the
+//     chunks are combined per vertex after a block barrier.  A one-chunk
+//     class's block makes `passes` passes over that many groups of 256
+//     vertices, so the block's own costs (its launch, its work item) are
+//     paid once for all of them;
+//   kind 1, vertex-major narrower than ROWMIN_WIDE_BITS rows: one warp per
+//     vertex, 16-byte loads (4 rows a lane, 128 a warp), kStepBatch steps in
+//     flight; per 128 rows, lanes in row order while fresh bits remain;
+//   kind 3, vertex-major at least ROWMIN_WIDE_BITS rows: one block per
+//     vertex, warp w walking rows [w * rows, (w + 1) * rows) as kind 1 does,
+//     the warps combined in row order;
 //   kind 2: the tail [covered, vr), which finds nothing.
+// Each span's planes live in a row of shared memory (stride 33 against bank
+// conflicts: a thread's row in kind 0, a warp's, written by its lane 0, in
+// kinds 1 and 3), not in registers.
 // Bound: bytes — visited read and frontier written once, the class slots of
 // every unfinished (group, vertex) and their valid words read, and the
-// state words of newly reached vertices rewritten.
+// state words of newly reached vertices rewritten.  What held the first
+// design at 29x that bound: one thread walked all `width` rows of its
+// vertex one dependent load at a time (1,536 rows at scale 22), and one warp
+// a wide vertex-major row 32 rows at a time.  Here no thread walks more than
+// ceil(width / 8) rows (32 up to width 256) with kRowBatch loads in flight,
+// and a wide vertex-major row is read by a whole block, 16 bytes a lane.
+// Splitting the rows alone left it at 0.93 ms at scale 22 (0.97 before;
+// chip_smoke.py on an H100): the time is in the 20,737 short blocks per
+// group, each paying a chain of dependent round trips (its work item, then
+// visited and the rows, then the writes), with too few blocks per SM to
+// hide them while 32 plane registers a thread held the occupancy at 2
+// blocks.  So the planes live in shared memory and the launch bounds ask
+// for kElemBlocksPerSm blocks; the work table is in the kernel's
+// parameters; a walk issues its first rows' loads with the visited load; a
+// one-chunk class's block makes several passes; and the dist and rank
+// planes take fire-and-forget atomicOr (each (group, vertex) has one
+// writer, so they are uncontended) instead of a read-modify-write.
+// bfs_tpu_torch/tools/elem_rowmin_breakdown.py times each kind of work item
+// and, with --sweep, other kRowBatch, kElemBlocksPerSm and passes; PERF.md
+// records both.
 // ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowBatch = 4;
+constexpr int kStepBatch = 4;
+constexpr int kElemBlocksPerSm = 6;
+constexpr int kMaxChunks = kWarps;
+
+constexpr int kMaxItems = 56;
+
 struct ElemItem {
-  long long kind, va, count, sa, width, off, nb, block0;
+  long long va, count, sa, off;
+  int kind, width, nb, chunks, rows, passes, block0;
 };
 
-__device__ __forceinline__ void adopt(uint32_t (&planes)[32], uint32_t fresh,
-                                      uint32_t r) {
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    if ((r >> j) & 1u) planes[j] |= fresh;
-  }
-}
+// The work table, passed by value (56 x 64 bytes fit the 4 KB of kernel
+// parameters).
+struct ElemTable {
+  ElemItem it[kMaxItems];
+  int n;
+};
 
 struct ElemOut {
   uint32_t* visited;      // [G, vr]
@@ -230,90 +281,216 @@ struct ElemOut {
   uint32_t level;
 };
 
-__device__ __forceinline__ void write_vertex(const ElemOut& o, int g, long long v,
-                                             uint32_t vis, uint32_t newly,
-                                             const uint32_t (&planes)[32],
-                                             const ElemItem& it) {
+// Rank r taken by `fresh`: plane j of a span's shared row gets the bits
+// where bit j of r is set.
+__device__ __forceinline__ void adopt(uint32_t* row, uint32_t fresh, uint32_t r) {
+  for (; r; r &= r - 1) row[__ffs(r) - 1] |= fresh;
+}
+
+// The vertex's update from the row-order combine of `n` spans staged at
+// k0, k0 + step, ... (fresh bits in fresh_s, plane rows in planes_s);
+// returns newly.
+__device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, const ElemItem& it, int g,
+                                                 long long v, uint32_t vis,
+                                                 const uint32_t* fresh_s,
+                                                 const uint32_t* planes_s, int k0, int step,
+                                                 int n) {
+  uint32_t own[kMaxChunks];
+  uint32_t newly = 0u;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    own[c] = c < n ? fresh_s[k0 + c * step] & ~newly : 0u;
+    newly |= own[c];
+  }
   const long long gv = g * o.vr + v;
   o.frontier[gv] = newly;
-  if (!newly) return;
+  if (!newly) return 0u;
   o.visited[gv] = vis | newly;
 #pragma unroll
   for (int b = 0; b < kDistPlanes; ++b) {
     if ((o.level >> b) & 1u) {
-      o.dist_planes[(static_cast<long long>(b) * o.groups + g) * o.vr + v] |= newly;
+      atomicOr(o.dist_planes + (static_cast<long long>(b) * o.groups + g) * o.vr + v, newly);
     }
   }
   uint32_t* rp = o.rank_planes + g * o.pt + it.off + (v - it.va);
+  for (int j = 0; j < it.nb; ++j) {
+    uint32_t bits = 0u;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    if (j < it.nb) rp[j * it.count] |= planes[j] & newly;
+    for (int c = 0; c < kMaxChunks; ++c) {
+      if (c < n) bits |= planes_s[(k0 + c * step) * 33 + j] & own[c];
+    }
+    if (bits) atomicOr(rp + j * it.count, bits);
+  }
+  return newly;
+}
+
+// A warp's walk over rank-major rows [r0, r1) of its 32 class vertices i
+// (lane = vertex; a lane past the class has found = ~0 and loads nothing),
+// planes into each lane's `row`.  The rows' valid words are shared by the
+// warp: lane l loads row r + l's for 32 rows at a time and each row's is
+// shuffled out, so only the element of a row takes a register; kRowBatch
+// rows' elements are in flight, the first issued before `found` (the
+// visited load) is needed.  The walk ends when every lane is done.
+__device__ __forceinline__ void walk_rank_rows(const uint32_t* __restrict__ x,
+                                               const uint32_t* __restrict__ valid,
+                                               const ElemItem& it, long long i,
+                                               long long r0, long long r1,
+                                               uint32_t& found, uint32_t* row) {
+  const int lane = threadIdx.x & 31;
+  const bool active = i < it.count;
+  const long long base = it.sa + (i & ~31LL);  // lane 0's slot of row 0
+  for (long long r = r0; r < r1; r += 32) {
+    const uint32_t vw = r + lane < r1 ? __ldg(valid + ((base + (r + lane) * it.count) >> 5)) : 0u;
+    for (int u0 = 0; u0 < 32 && r + u0 < r1; u0 += kRowBatch) {  // warp-uniform
+      uint32_t w[kRowBatch];
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        const long long rr = r + u0 + u;
+        w[u] = active && rr < r1 ? __ldg(x + it.sa + rr * it.count + i) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowBatch; ++u) {
+        const uint32_t v = __shfl_sync(kAll, vw, u0 + u);
+        const uint32_t f = w[u] & (0u - ((v >> lane) & 1u)) & ~found;
+        if (f) {
+          adopt(row, f, static_cast<uint32_t>(r + u0 + u));
+          found |= f;
+        }
+      }
+      if (__all_sync(kAll, found == kAll)) return;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A warp's walk over vertex-major rows [r0, r1) of the row at slot `row`
+// (a multiple of 32, as are r0 and r1): 16-byte loads, lane L holding rows
+// 4L .. 4L + 3 of each 128-row step, kStepBatch steps' loads in flight, the
+// first issued before `found` is needed.  `found` stays warp-uniform; lane
+// 0 writes the planes into `prow`.
+__device__ __forceinline__ void walk_vertex_rows(const uint32_t* __restrict__ x,
+                                                 const uint32_t* __restrict__ valid,
+                                                 long long row, long long r0, long long r1,
+                                                 uint32_t& found, uint32_t* prow) {
+  const int lane = threadIdx.x & 31;
+  for (long long r = r0; r < r1; r += 128 * kStepBatch) {
+    uint4 w[kStepBatch];
+#pragma unroll
+    for (int u = 0; u < kStepBatch; ++u) {
+      const long long rr = r + 128 * u + 4 * lane;  // this lane's first row
+      w[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < r1) {
+        const uint4 a = __ldg(reinterpret_cast<const uint4*>(x + row + rr));
+        const uint32_t vb = __ldg(valid + ((row + rr) >> 5)) >> ((row + rr) & 31);
+        w[u] = make_uint4(a.x & (0u - (vb & 1u)), a.y & (0u - ((vb >> 1) & 1u)),
+                          a.z & (0u - ((vb >> 2) & 1u)), a.w & (0u - ((vb >> 3) & 1u)));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStepBatch; ++u) {
+      const uint32_t any = w[u].x | w[u].y | w[u].z | w[u].w;
+      uint32_t pending = __reduce_or_sync(kAll, any) & ~found;
+      while (pending) {  // lanes in row order, while fresh bits remain
+        const int k = __ffs(__ballot_sync(kAll, (any & pending) != 0u)) - 1;
+        const uint32_t q[4] = {__shfl_sync(kAll, w[u].x, k), __shfl_sync(kAll, w[u].y, k),
+                               __shfl_sync(kAll, w[u].z, k), __shfl_sync(kAll, w[u].w, k)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t fresh = q[c] & pending;
+          if (fresh) {
+            if (lane == 0) adopt(prow, fresh, static_cast<uint32_t>(r + 128 * u + 4 * k + c));
+            found |= fresh;
+            pending &= ~fresh;
+          }
+        }
+      }
+    }
+    if (found == kAll) break;
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kThreads, kElemBlocksPerSm)
 elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
                           const uint32_t* __restrict__ valid,
-                          const ElemItem* __restrict__ items, int nitems,
-                          long long n, ElemOut o, int32_t* __restrict__ changed) {
-  int lo = 0, hi = nitems - 1;
+                          const ElemTable table, long long n, ElemOut o,
+                          int32_t* __restrict__ changed) {
+  __shared__ uint32_t fresh_s[kThreads];
+  __shared__ uint32_t vis_s[kThreads];
+  __shared__ uint32_t planes_s[kThreads * 33];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // The item owning this block: the last one whose first block <= blockIdx.
+  int lo = 0, hi = table.n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (items[mid].block0 <= blockIdx.x) lo = mid; else hi = mid - 1;
+    if (table.it[mid].block0 <= static_cast<int>(blockIdx.x)) lo = mid; else hi = mid - 1;
   }
-  const ElemItem it = items[lo];
+  const ElemItem& it = table.it[lo];
   const long long b = blockIdx.x - it.block0;
   const int g = blockIdx.y;
   const uint32_t* __restrict__ x = l1 + g * n;
-  const int tid = threadIdx.x;
   bool any = false;
-  uint32_t planes[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) planes[j] = 0u;
 
   if (it.kind == 0) {
-    const long long i = b * kThreads + tid;
-    if (i < it.count) {
-      const long long v = it.va + i;
-      const uint32_t vis = o.visited[g * o.vr + v];
+    const int chunks = it.chunks;
+    const int spans = kWarps / chunks;  // spans of 32 vertices per pass
+    const long long r0 = (warp % chunks) * it.rows;
+    const long long r1 = r0 + it.rows < it.width ? r0 + it.rows : it.width;
+    uint32_t* row = planes_s + tid * 33;
+    for (int pass = 0; pass < it.passes; ++pass) {  // block-uniform
+      const long long pb = b * it.passes + pass;
+      const long long i = (pb * spans + warp / chunks) * 32 + lane;
+      for (int j = 0; j < it.nb; ++j) row[j] = 0u;
+      const uint32_t vis = i < it.count ? o.visited[g * o.vr + it.va + i] : kAll;
       uint32_t found = vis;
-      for (long long r = 0; r < it.width && found != kAll; ++r) {
-        const long long slot = it.sa + r * it.count + i;
-        const uint32_t w = __ldg(x + slot) & mask_select(valid, slot);
-        const uint32_t fresh = w & ~found;
-        if (fresh) {
-          adopt(planes, fresh, static_cast<uint32_t>(r));
-          found |= fresh;
+      walk_rank_rows(x, valid, it, i, r0, r1, found, row);  // the whole warp
+      // Staging index of (span s, chunk c, lane) = (s * chunks + c) * 32 +
+      // lane = tid: the warps of one span are consecutive.
+      fresh_s[tid] = found & ~vis;
+      if (chunks == 1) {  // block-uniform: this thread holds its whole vertex
+        if (i < it.count) {
+          any |= write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, tid, 32, 1) != 0u;
         }
+      } else {
+        vis_s[tid] = vis;
+        __syncthreads();
+        if (tid < spans * 32) {
+          const int s = tid >> 5;
+          const int k0 = s * chunks * 32 + lane;
+          const long long iv = (pb * spans + s) * 32 + lane;
+          if (iv < it.count) {
+            any |= write_vertex(o, it, g, it.va + iv, vis_s[k0], fresh_s, planes_s, k0, 32,
+                                chunks) != 0u;
+          }
+        }
+        __syncthreads();  // the staged rows are read before the next pass
       }
-      const uint32_t newly = found & ~vis;
-      write_vertex(o, g, v, vis, newly, planes, it);
-      any = newly != 0;
     }
-  } else if (it.kind == 1) {
-    const int warp = tid >> 5, lane = tid & 31;
-    const long long i = b * (kThreads / 32) + warp;
+  } else if (it.kind == 1 || it.kind == 3) {
+    // Kind 1: a warp per vertex; kind 3: a block per vertex, warp w on
+    // rows [w * rows, (w + 1) * rows).
+    const bool wide = it.kind == 3;
+    const long long i = wide ? b : b * kWarps + warp;
+    uint32_t* prow = planes_s + warp * 33;
+    if (lane < it.nb) prow[lane] = 0u;
+    __syncwarp();
+    uint32_t vis = 0u;
     if (i < it.count) {  // warp-uniform
-      const long long v = it.va + i;
-      const uint32_t vis = o.visited[g * o.vr + v];
+      vis = o.visited[g * o.vr + it.va + i];
       uint32_t found = vis;
-      const long long row = it.sa + i * it.width;  // a multiple of 32
-      for (long long r0 = 0; r0 < it.width && found != kAll; r0 += 32) {
-        const uint32_t vw = __ldg(valid + ((row + r0) >> 5));
-        const uint32_t w = __ldg(x + row + r0 + lane) & (0u - ((vw >> lane) & 1u));
-        uint32_t pending = __reduce_or_sync(kAll, w) & ~found;
-        while (pending) {  // lanes in row order, while fresh bits remain
-          const int k = __ffs(__ballot_sync(kAll, (w & pending) != 0)) - 1;
-          const uint32_t fresh = __shfl_sync(kAll, w, k) & pending;
-          adopt(planes, fresh, static_cast<uint32_t>(r0 + k));
-          found |= fresh;
-          pending &= ~fresh;
-        }
+      const long long r0 = wide ? warp * it.rows : 0;
+      const long long r1 = !wide ? it.width : r0 + it.rows < it.width ? r0 + it.rows : it.width;
+      walk_vertex_rows(x, valid, it.sa + i * it.width, r0, r1, found, prow);
+      fresh_s[warp] = found & ~vis;
+    }
+    if (!wide) {
+      __syncwarp();
+      if (lane == 0 && i < it.count) {
+        any = write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, warp, 1, 1) != 0u;
       }
-      const uint32_t newly = found & ~vis;
-      if (lane == 0) {
-        write_vertex(o, g, v, vis, newly, planes, it);
-        any = newly != 0;
+    } else {
+      __syncthreads();
+      if (tid == 0) {
+        any = write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, 0, 1, kWarps) != 0u;
       }
     }
   } else {
@@ -384,10 +561,30 @@ int elem_route_gather(const void* frontier, const void* src, void* l1,
 
 int elem_rowmin_update(const void* l1, const void* valid, void* visited,
                        void* frontier, void* dist_planes, void* rank_planes,
-                       void* changed, const void* items, int nitems,
+                       void* changed, const long long* items, int nitems,
                        long long total_blocks, int groups, long long n,
                        long long vr, long long pt, unsigned level,
                        void* stream) {
+  if (nitems <= 0 || nitems > kMaxItems) return static_cast<int>(cudaErrorInvalidValue);
+  // Host rows (kind, va, count, sa, width, off, nb, chunks, rows, passes,
+  // block0).
+  ElemTable table;
+  table.n = nitems;
+  for (int i = 0; i < nitems; ++i) {
+    const long long* r = items + 11 * i;
+    ElemItem& e = table.it[i];
+    e.kind = static_cast<int>(r[0]);
+    e.va = r[1];
+    e.count = r[2];
+    e.sa = r[3];
+    e.width = static_cast<int>(r[4]);
+    e.off = r[5];
+    e.nb = static_cast<int>(r[6]);
+    e.chunks = static_cast<int>(r[7]);
+    e.rows = static_cast<int>(r[8]);
+    e.passes = static_cast<int>(r[9]);
+    e.block0 = static_cast<int>(r[10]);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaMemsetAsync(changed, 0, sizeof(int32_t), s);
   ElemOut o;
@@ -402,8 +599,7 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
   const dim3 grid(static_cast<unsigned>(total_blocks), static_cast<unsigned>(groups));
   elem_rowmin_update_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
-      static_cast<const ElemItem*>(items), nitems, n, o,
-      static_cast<int32_t*>(changed));
+      table, n, o, static_cast<int32_t*>(changed));
   return static_cast<int>(cudaGetLastError());
 }
 

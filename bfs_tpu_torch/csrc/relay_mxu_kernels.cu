@@ -18,40 +18,71 @@
 //
 // Layout of the work.  The TPU kernel walks one 16384-column superblock per
 // grid step; R-MAT skew gives superblocks of very unequal tile counts, which
-// on the card would serialise on a few SMs.  Here each warp takes one tile
-// at a time from a grid-stride loop over all tiles.  It first reads the
-// tile's 128-bit frontier block straight from the frontier words at
-// row_idx[t] (words past the end, the pad block, read as zero) and skips the
-// tile before touching its 2 KB if the block is zero; the reference's
-// per-tile gather of frontier blocks is never materialised.
+// on the card would serialise on a few SMs.  Here each warp owns batches of
+// 32 consecutive tiles, batch b = warp + k * (warps in the grid), and keeps
+// its own ring of kStages tiles in shared memory:
 //
-// The product on tensor cores.  mma.sync m16n8k16 (fp16 inputs, fp32
-// accumulation) computes C[r, v] = sum_u A[r, u] * B[u, v] with
-//   A[r, u] = frontier_bit(u) * 2^(u mod 8)   for u >> 3 == r   (16 x 128)
-//   B[u, v] = tile bit (u, v) as 0.0 / 1.0                        (128 x 128)
-// so C[r, v] is the 8-bit mask of frontier rows 8r..8r+7 that reach v.  The
-// reference uses 8 groups of 16 rows (an 8 x 128 left side); 16 groups of 8
-// fill all 16 rows of the m16n8k16 accumulator with real masks instead of
-// padding 8 of them with zeros, and keep every weight at or below 2^7.  A
-// sum of distinct powers of two below 2^8 is exact in fp32, so each
-// accumulator is exactly its mask.  Each warp runs 8 k-steps (16 source rows
-// each) x 16 n-tiles (8 destinations each) = at most 128 mma.sync per live
-// tile: an n-tile whose 8 columns no frontier row of the tile reaches (a
-// warp-wide OR of the rows' words) has all-zero products and is skipped.
+//   producer (the warp, lane 0 issuing): the 32 lanes read the heads of a
+//     batch at once (row block, column block, and the 128-bit frontier
+//     block straight from the frontier words; words past the end, the pad
+//     block, read as zero) and ballot the live tiles: a nonzero frontier
+//     block and a column block inside the output (cb >= col_tiles is the
+//     dropped overflow segment).  Dead tiles are never copied.  Each live
+//     tile is one cp.async.bulk (TMA bulk copy, 2,048 contiguous bytes,
+//     evict-first in L2) into a free ring slot, completed on the slot's
+//     mbarrier; its head goes to the slot's shared record;
+//   consumer (the same warp): waits on the oldest slot's mbarrier,
+//     computes the tile, and refills the slot with the next live tile, so
+//     kStages - 1 tiles stay in flight while one computes.
 //
-// Epilogue.  Each lane walks the set bits of its four masks (two columns,
-// two row groups), takes the minimum key over them (keys are original ids,
-// not monotone in u), and atomicMin's it, unsigned, into out where it found
-// one.  Min is associative and commutative, so the atomics give the bits of
-// the reference's in-order reduction.
+// Two paths in the one kernel, chosen per tile (warp-uniform).  Each lane
+// holds rows lane, lane + 32, lane + 64, lane + 96 (64 B) of the tile; rows
+// whose frontier bit is clear are zeroed, and the warp's sum of popcounts is
+// the tile's count of reachable (u, v) bits.
 //
-// Bound: bytes at R-MAT scale 22 — each live tile reads 2,048 B of tile and
-// 16 B of frontier against 262,144 useful multiply-adds (4.6 edges a tile on
-// average there).  The 2 KB tile and its 512-byte key row are read
-// coalesced (16 B per lane) into shared memory, from which the B fragments
-// are unpacked without bank conflicts and the epilogue reads its keys; the
-// next tile's indices and frontier block load while the current one
-// computes, so a warp's dependent loads do not serialise per tile.
+//   sparse, count <= kSparseMaxBits: each lane reads the key of each of its
+//     rows that still holds a bit and atomicMin's it into the destination of
+//     every set bit.  An R-MAT scale-22 tile holds 4.6 edges on average, so
+//     nearly every live tile takes this path.
+//   dense, count > kSparseMaxBits: the tensor-core product.  mma.sync
+//     m16n8k16 (fp16 inputs, fp32 accumulation) computes C[r, v] =
+//     sum_u A[r, u] * B[u, v] with
+//       A[r, u] = frontier_bit(u) * 2^(u mod 8)   for u >> 3 == r   (16 x 128)
+//       B[u, v] = tile bit (u, v) as 0.0 / 1.0                        (128 x 128)
+//     so C[r, v] is the 8-bit mask of frontier rows 8r..8r+7 that reach v.
+//     The reference uses 8 groups of 16 rows; 16 groups of 8 fill all 16
+//     accumulator rows with real masks and keep every weight at or below
+//     2^7.  A sum of distinct powers of two below 2^8 is exact in fp32, so
+//     each accumulator is exactly its mask.  Per tile word, an n-tile (8
+//     destinations) that no frontier row reaches (a warp-wide OR) is
+//     skipped; the others run 8 k-steps.  The fragments are built from the
+//     ring slot as each k-step needs them, so the path holds no fragment
+//     arrays in registers.  Epilogue: each lane walks the set bits of its
+//     four masks, takes the minimum key over them (keys are original ids,
+//     not monotone in u), and atomicMin's it.
+//
+// Min is associative and commutative, so tiles of both paths may write the
+// same column in one launch and the atomics still give the bits of the
+// reference's in-order reduction.
+//
+// Bound: bytes — each live tile reads 2,048 B of tile and 16 B of frontier
+// (R-MAT scale 22: 262,144 multiply-adds of the dense product a tile
+// against 4.6 edges).  What held the first design at 5.4x that bound: every
+// tile went through the dense path's 32 shared loads, 16 bit_pairs and 8
+// mma.sync per live n-tile, and each warp waited for its own tile's load
+// before computing.  Here the sparse path costs a few instructions per bit,
+// and kStages tiles per warp, kWarps * kBlocksPerSm warps per SM keep up to
+// 24 * 4 * 2 KB = 192 KB per SM in flight (Little's law at 3.35 TB/s and
+// about 1 us asks for about 25 KB).
+//
+// kSparseMaxBits: measured with bfs_tpu_torch/tools/mxu_sparse_sweep.py on
+// an H100 80GB HBM3 (700 W): 524,288 tiles of k bits each, all rows in the
+// frontier, with every tile sent down one path.  With the bits spread over
+// the rows the sparse path wins up to k = 2,048 (3.96 against 5.72 ms) and
+// loses from 4,096 (12.57 against 6.83); with them packed into one lane's
+// rows, its worst case, it wins at 256 (2.53 against 3.48 ms) and loses at
+// 512 (4.82 against 3.84).  256, the largest k at which it won both, is the
+// threshold; PERF.md records the sweep.
 // ---------------------------------------------------------------------------
 
 #include <cstdint>
@@ -61,9 +92,58 @@ namespace {
 
 constexpr int kTile = 128;
 constexpr int kTileWords = 4;
-constexpr int kWarps = 8;  // warps per block; each owns one tile at a time
+constexpr int kTileBytes = kTile * kTileWords * 4;  // 2,048
+constexpr int kWarps = 8;        // warps per block, each with its own ring
+constexpr int kStages = 4;       // ring slots per warp
+constexpr int kBlocksPerSm = 3;  // resident blocks an SM must fit (registers, shared memory)
+constexpr int kSparseMaxBits = 256;
+constexpr uint32_t kAll = 0xFFFFFFFFu;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 constexpr uint32_t kHalfOne = 0x3C00u;  // fp16 1.0
+
+// A ring slot's head: what the consumer needs besides the tile's bytes.
+struct TileHead {
+  int rb, cb;
+  uint32_t f[kTileWords];
+};
+
+constexpr size_t kSmemBytes =
+    static_cast<size_t>(kWarps) * kStages * (kTileBytes + sizeof(uint64_t) + sizeof(TileHead));
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The slot's tile: one bulk copy whose bytes complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(kTileBytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(kTileBytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
 
 // fp16 bits of 2^e for 0 <= e < 8.
 __device__ __forceinline__ uint32_t half_pow2(int e) {
@@ -93,131 +173,191 @@ __device__ __forceinline__ void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[
 }
 
 // Minimum key over the set bits of an 8-bit mask of row group r.
-__device__ __forceinline__ uint32_t min_key(float c, int r, const uint32_t* krow,
+__device__ __forceinline__ uint32_t min_key(float c, int r, const uint32_t* __restrict__ krow,
                                             uint32_t best) {
   uint32_t m = static_cast<uint32_t>(c);
   while (m) {
     const int b = __ffs(m) - 1;
     m &= m - 1;
-    const uint32_t k = krow[8 * r + b];
+    const uint32_t k = __ldg(krow + 8 * r + b);
     best = k < best ? k : best;
   }
   return best;
 }
 
-// A tile's row block, column block and 128-bit frontier block (frontier
-// words past the end, the pad block, read as zero).
-__device__ __forceinline__ void tile_head(long long tix, const int32_t* __restrict__ row_idx,
-                                          const int32_t* __restrict__ col_id,
-                                          const uint32_t* __restrict__ fwords, long long nfw,
-                                          long long& rb, int& cb, uint32_t (&f)[kTileWords]) {
-  rb = __ldg(row_idx + tix);
-  cb = __ldg(col_id + tix);
+// The tensor-core path over one tile in shared memory (ts: 128 rows x 4
+// words); krow: the tile's 128 keys, o: its 128 destinations.
+__device__ __forceinline__ void dense_tile(const uint32_t* ts, const uint32_t (&f)[kTileWords],
+                                           const uint32_t* __restrict__ krow,
+                                           uint32_t* __restrict__ o, int g, int t) {
+#pragma unroll 1
+  for (int w = 0; w < kTileWords; ++w) {
+    // live: the columns of word w that this lane's frontier rows reach.
+    uint32_t live = 0u;
 #pragma unroll
-  for (int i = 0; i < kTileWords; ++i) {
-    const long long w = rb * kTileWords + i;
-    f[i] = w < nfw ? __ldg(fwords + w) : 0u;
+    for (int j = 0; j < 8; ++j) {
+      const int u = 16 * j + 2 * t;
+      const uint32_t fw = f[j >> 1];
+      live |= ((fw >> (u & 31)) & 1u ? ts[u * kTileWords + w] : 0u) |
+              ((fw >> ((u + 1) & 31)) & 1u ? ts[(u + 1) * kTileWords + w] : 0u) |
+              ((fw >> ((u + 8) & 31)) & 1u ? ts[(u + 8) * kTileWords + w] : 0u) |
+              ((fw >> ((u + 9) & 31)) & 1u ? ts[(u + 9) * kTileWords + w] : 0u);
+    }
+    live = __reduce_or_sync(kAll, live);  // over the warp: every row
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      if (((live >> (8 * q)) & 0xFFu) == 0u) continue;  // warp-uniform
+      // n-tile 4w + q: destinations v = 32w + 8q + n; this lane's B column
+      // is n = g, its accumulators columns 2t and 2t + 1.
+      const int bit = 8 * q + g;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // k-step j: source rows 16j .. 16j + 15, groups 2j (k < 8) and
+        // 2j + 1 (k >= 8); a fragment register is nonzero only where its
+        // accumulator row is that group.
+        const int u = 16 * j + 2 * t;
+        const uint32_t fw = f[j >> 1];
+        const uint32_t lo = weight_pair(fw, u);
+        const uint32_t hi = weight_pair(fw, u + 8);
+        const uint32_t a[4] = {
+            g == 2 * j ? lo : 0u,          // row g,     k = 2t, 2t+1
+            g + 8 == 2 * j ? lo : 0u,      // row g + 8, k = 2t, 2t+1
+            g == 2 * j + 1 ? hi : 0u,      // row g,     k = 2t+8, 2t+9
+            g + 8 == 2 * j + 1 ? hi : 0u,  // row g + 8, k = 2t+8, 2t+9
+        };
+        mma_m16n8k16(c, a,
+                     bit_pair(ts[u * kTileWords + w], ts[(u + 1) * kTileWords + w], bit),
+                     bit_pair(ts[(u + 8) * kTileWords + w], ts[(u + 9) * kTileWords + w], bit));
+      }
+      // c[0], c[1]: row group g, columns 2t, 2t + 1; c[2], c[3]: group g + 8.
+      const uint32_t best0 = min_key(c[2], g + 8, krow, min_key(c[0], g, krow, kSentinel));
+      const uint32_t best1 = min_key(c[3], g + 8, krow, min_key(c[1], g, krow, kSentinel));
+      uint32_t* d = o + 32 * w + 8 * q + 2 * t;
+      if (best0 != kSentinel) atomicMin(d, best0);
+      if (best1 != kSentinel) atomicMin(d + 1, best1);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ uint32_t word_of(const uint4& r, int w) {
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
+__global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
 mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ row_idx,
                   const int32_t* __restrict__ col_id, const uint32_t* __restrict__ keys,
                   const uint32_t* __restrict__ fwords, long long nfw,
                   uint32_t* __restrict__ out, long long ntp, int col_tiles) {
-  __shared__ uint4 tile_s[kWarps][kTile];
-  __shared__ uint4 key_s[kWarps][kTile / 4];
+  extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * kStages * kTile;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kWarps * kStages * kTileBytes) +
+                  warp * kStages;
+  TileHead* head = reinterpret_cast<TileHead*>(
+                       smem + kWarps * kStages * (kTileBytes + sizeof(uint64_t))) +
+                   warp * kStages;
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bar + s);
+    mbar_fence_init();
+  }
+  __syncwarp();
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+
+  // Producer: this lane's head in the current batch, and the batch's live
+  // tiles not yet issued (warp-uniform).
+  const long long nbatch = (ntp + 31) >> 5;
+  const long long bstride = static_cast<long long>(gridDim.x) * kWarps;
+  long long batch = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  long long base = 0;
+  uint32_t pending = 0u;
+  int my_rb = 0, my_cb = 0;
+  uint32_t my_f[kTileWords] = {0u, 0u, 0u, 0u};
+
+  // Issue the next live tile into ring slot `slot`; false when the warp's
+  // tiles are exhausted.  Warp-uniform.
+  auto produce = [&](int slot) -> bool {
+    while (pending == 0u) {
+      if (batch >= nbatch) return false;
+      base = batch << 5;
+      batch += bstride;
+      const long long tix = base + lane;
+      bool live = false;
+      if (tix < ntp) {
+        my_rb = __ldg(row_idx + tix);
+        my_cb = __ldg(col_id + tix);
+        if (my_cb < col_tiles) {  // else the dropped overflow segment
+#pragma unroll
+          for (int i = 0; i < kTileWords; ++i) {
+            const long long w = static_cast<long long>(my_rb) * kTileWords + i;
+            my_f[i] = w < nfw ? __ldg(fwords + w) : 0u;  // the pad block reads zero
+          }
+          live = (my_f[0] | my_f[1] | my_f[2] | my_f[3]) != 0u;
+        }
+      }
+      pending = __ballot_sync(kAll, live);
+    }
+    const int src = __ffs(pending) - 1;
+    pending &= pending - 1;
+    TileHead h;
+    h.rb = __shfl_sync(kAll, my_rb, src);
+    h.cb = __shfl_sync(kAll, my_cb, src);
+#pragma unroll
+    for (int i = 0; i < kTileWords; ++i) h.f[i] = __shfl_sync(kAll, my_f[i], src);
+    if (lane == 0) {
+      head[slot] = h;  // published by the mbarrier arrive (release)
+      bulk_load(ring + slot * kTile, tiles + (base + src) * kTile, bar + slot, policy);
+    }
+    return true;
+  };
+
+  long long issued = 0;
+  while (issued < kStages && produce(static_cast<int>(issued))) ++issued;
   const int g = lane >> 2;  // mma groupID
   const int t = lane & 3;   // mma thread in group
-  const uint32_t* ts = reinterpret_cast<const uint32_t*>(tile_s[warp]);
-  const uint32_t* krow = reinterpret_cast<const uint32_t*>(key_s[warp]);
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  long long tix = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  // The next tile's head is loaded while the current tile computes.
-  long long rb_next = 0;
-  int cb_next = 0;
-  uint32_t f_next[kTileWords] = {0u, 0u, 0u, 0u};
-  if (tix < ntp) tile_head(tix, row_idx, col_id, fwords, nfw, rb_next, cb_next, f_next);
-  for (; tix < ntp; tix += stride) {
-    const long long rb = rb_next;
-    const int cb = cb_next;
-    uint32_t f[kTileWords];
+  for (long long done = 0; done < issued; ++done) {
+    const int slot = static_cast<int>(done % kStages);
+    mbar_wait(bar + slot, static_cast<uint32_t>((done / kStages) & 1));
+    const TileHead h = head[slot];
+    const uint4* ts = ring + slot * kTile;
+    // Rows lane + 32k, zeroed where the frontier bit is clear.
+    uint4 r[4];
+    int bits = 0;
 #pragma unroll
-    for (int i = 0; i < kTileWords; ++i) f[i] = f_next[i];
-    if (tix + stride < ntp) {
-      tile_head(tix + stride, row_idx, col_id, fwords, nfw, rb_next, cb_next, f_next);
+    for (int k = 0; k < 4; ++k) {
+      r[k] = ts[lane + 32 * k];
+      if (!((h.f[k] >> lane) & 1u)) r[k] = make_uint4(0u, 0u, 0u, 0u);
+      bits += __popc(r[k].x) + __popc(r[k].y) + __popc(r[k].z) + __popc(r[k].w);
     }
-    // Warp-uniform: every lane holds the same tile.
-    if ((f[0] | f[1] | f[2] | f[3]) == 0u) continue;
-    if (cb >= col_tiles) continue;  // the dropped overflow segment
-
-    __syncwarp();  // the previous tile's reads of tile_s and key_s are done
-    const uint4* src = tiles + tix * kTile;
+    const int total = __reduce_add_sync(kAll, bits);
+    const uint32_t* krow = keys + static_cast<long long>(h.rb) * kTile;
+    uint32_t* o = out + static_cast<long long>(h.cb) * kTile;
+    if (total <= kSparseMaxBits) {
+      uint32_t key[4];
 #pragma unroll
-    for (int i = lane; i < kTile; i += 32) tile_s[warp][i] = __ldg(src + i);
-    key_s[warp][lane] = __ldg(reinterpret_cast<const uint4*>(keys + rb * kTile) + lane);
-    __syncwarp();
-
-    // A fragments of the 8 k-steps (source rows 16j .. 16j + 15).  Rows of
-    // k-step j belong to groups 2j (k < 8) and 2j + 1 (k >= 8); a fragment
-    // register is nonzero only where its accumulator row is that group.
-    uint32_t a[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t fw = f[j >> 1];
-      const uint32_t lo = weight_pair(fw, 16 * j + 2 * t);
-      const uint32_t hi = weight_pair(fw, 16 * j + 2 * t + 8);
-      a[j][0] = g == 2 * j ? lo : 0u;          // row g,     k = 2t, 2t+1
-      a[j][1] = g + 8 == 2 * j ? lo : 0u;      // row g + 8, k = 2t, 2t+1
-      a[j][2] = g == 2 * j + 1 ? hi : 0u;      // row g,     k = 2t+8, 2t+9
-      a[j][3] = g + 8 == 2 * j + 1 ? hi : 0u;  // row g + 8, k = 2t+8, 2t+9
-    }
-
-#pragma unroll
-    for (int w = 0; w < kTileWords; ++w) {
-      // Word w of the four tile rows this lane's B fragments read per k-step.
-      uint32_t rw[8][4];
-      // live: the columns of word w that this lane's frontier rows reach.
-      uint32_t live = 0u;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int u = 16 * j + 2 * t;
-        const uint32_t fw = f[j >> 1];
-        rw[j][0] = ts[u * kTileWords + w];
-        rw[j][1] = ts[(u + 1) * kTileWords + w];
-        rw[j][2] = ts[(u + 8) * kTileWords + w];
-        rw[j][3] = ts[(u + 9) * kTileWords + w];
-        live |= ((fw >> (u & 31)) & 1u ? rw[j][0] : 0u) |
-                ((fw >> ((u + 1) & 31)) & 1u ? rw[j][1] : 0u) |
-                ((fw >> ((u + 8) & 31)) & 1u ? rw[j][2] : 0u) |
-                ((fw >> ((u + 9) & 31)) & 1u ? rw[j][3] : 0u);
+      for (int k = 0; k < 4; ++k) {
+        const bool hit = (r[k].x | r[k].y | r[k].z | r[k].w) != 0u;
+        key[k] = hit ? __ldg(krow + lane + 32 * k) : kSentinel;
       }
-      // Over the warp: every row of the tile.  An n-tile that no frontier
-      // row reaches has all-zero products and is skipped (warp-uniform);
-      // an s22 tile holds 4.6 edges on average, so most of its 16 are.
-      live = __reduce_or_sync(0xFFFFFFFFu, live);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (((live >> (8 * q)) & 0xFFu) == 0u) continue;
-        // n-tile 4w + q: destinations v = 32w + 8q + n; this lane's B
-        // column is n = g, its accumulators columns 2t and 2t + 1.
-        const int bit = 8 * q + g;
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < 4; ++k) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          mma_m16n8k16(c, a[j], bit_pair(rw[j][0], rw[j][1], bit),
-                       bit_pair(rw[j][2], rw[j][3], bit));
+        for (int w = 0; w < kTileWords; ++w) {
+          uint32_t m = word_of(r[k], w);
+          while (m) {
+            const int b = __ffs(m) - 1;
+            m &= m - 1;
+            atomicMin(o + 32 * w + b, key[k]);
+          }
         }
-        // c[0], c[1]: row group g, columns 2t, 2t + 1; c[2], c[3]: group g + 8.
-        const uint32_t best0 = min_key(c[2], g + 8, krow, min_key(c[0], g, krow, kSentinel));
-        const uint32_t best1 = min_key(c[3], g + 8, krow, min_key(c[1], g, krow, kSentinel));
-        uint32_t* o = out + static_cast<long long>(cb) * kTile + 32 * w + 8 * q + 2 * t;
-        if (best0 != kSentinel) atomicMin(o, best0);
-        if (best1 != kSentinel) atomicMin(o + 1, best1);
       }
+    } else {
+      dense_tile(reinterpret_cast<const uint32_t*>(ts), h.f, krow, o, g, t);
     }
+    __syncwarp();  // every lane's reads of the slot are done
+    if (produce(slot)) ++issued;  // slot == issued % kStages until exhausted
   }
 }
 
@@ -229,7 +369,15 @@ int mxu_expand(const void* tiles, const void* row_idx, const void* col_id,
                const void* keys, const void* fwords, long long nfw, void* out,
                long long ntp, int col_tiles, int blocks, void* stream) {
   if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  mxu_expand_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mxu_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  mxu_expand_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(tiles), static_cast<const int32_t*>(row_idx),
       static_cast<const int32_t*>(col_id), static_cast<const uint32_t*>(keys),

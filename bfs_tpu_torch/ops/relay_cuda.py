@@ -526,12 +526,26 @@ def elem_route_gather(
     return out
 
 
+#: ``elem_rowmin_update``'s work table travels in the kernel's parameters
+#: (csrc/relay_elem_kernels.cu kMaxItems).
+ELEM_MAX_ITEMS = 56
+#: Passes a block of a one-chunk rank-major class makes, over 256
+#: vertices each.
+ELEM_NARROW_PASSES = 4
+
+
 @functools.lru_cache(maxsize=8)
-def elem_rowmin_items(in_classes: tuple, vr: int, device: str):
-    """Device work table of :func:`elem_rowmin_update`: int64 rows of (kind,
-    va, count, sa, width, rank-plane offset, nb, first block) — kind 0
-    rank-major (a thread per vertex), 1 vertex-major (a warp per vertex),
-    2 the tail — and the block count per group."""
+def elem_rowmin_items(in_classes: tuple, vr: int):
+    """Work table of :func:`elem_rowmin_update`: int64 rows of (kind, va,
+    count, sa, width, rank-plane offset, nb, chunks, rows per chunk,
+    passes, first block) — kind 0 rank-major (a block makes ``passes``
+    passes, each over ``ROWMIN_WARPS / chunks`` spans of 32 vertices, a
+    warp per span and chunk of rows, as :func:`rowmin_chunks` splits
+    them; one-chunk classes take :data:`ELEM_NARROW_PASSES` passes), 1
+    vertex-major (a warp per vertex), 3 vertex-major at least
+    :data:`ROWMIN_WIDE_BITS` rows wide (a block per vertex, a warp per chunk
+    of rows, a multiple of 32), 2 the tail — on the host (the kernel takes
+    it as parameters), and the block count per group."""
     offsets, _ = RE.rank_plane_layout(in_classes)
     rows = []
     block = 0
@@ -539,19 +553,26 @@ def elem_rowmin_items(in_classes: tuple, vr: int, device: str):
     for cs in sorted(in_classes, key=lambda c: c.va):
         assert cs.va == covered, "in_classes must tile the vertex space"
         off, nb = offsets[cs.va]
-        if cs.vertex_major:
+        chunks, per, passes = 1, cs.width, 1
+        if cs.vertex_major and cs.width >= ROWMIN_WIDE_BITS:
+            chunks, per = ROWMIN_WARPS, -(-cs.width // (32 * ROWMIN_WARPS)) * 32
+            kind, blocks = 3, cs.count
+        elif cs.vertex_major:
             kind, blocks = 1, -(-cs.count // ROWMIN_WARPS)
         else:
-            kind, blocks = 0, -(-cs.count // ROWMIN_THREADS)
+            chunks, per = rowmin_chunks(cs.width)
+            passes = ELEM_NARROW_PASSES if chunks == 1 else 1
+            spans = -(-cs.count // 32)
+            kind, blocks = 0, -(-spans // (ROWMIN_WARPS // chunks * passes))
         if blocks:
-            rows.append((kind, cs.va, cs.count, cs.sa, cs.width, off, nb, block))
+            rows.append((kind, cs.va, cs.count, cs.sa, cs.width, off, nb, chunks, per, passes,
+                         block))
             block += blocks
         covered = cs.vb
     if covered < vr:
-        rows.append((2, covered, vr - covered, 0, 0, 0, 0, block))
+        rows.append((2, covered, vr - covered, 0, 0, 0, 0, 1, 0, 1, block))
         block += -(-(vr - covered) // ROWMIN_THREADS)
-    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(device)
-    return table, block
+    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 11), block
 
 
 def elem_rowmin_update(
@@ -577,11 +598,14 @@ def elem_rowmin_update(
         )
     n = l1.shape[-1]
     groups = _check_elems("l1", l1, n)
+    _check_aligned("l1", l1)  # 16-byte loads of vertex-major rows
     _check_words("valid_words", valid_words, n // 32)
     _check_elems("visited", state.visited, vr, groups)
     _check_elems("rank_planes", state.rank_planes, pt, groups)
     _check_words("dist_planes", state.dist_planes, RE.DIST_PLANES * groups * vr)
-    table, blocks = elem_rowmin_items(tuple(in_classes), int(vr), str(l1.device))
+    table, blocks = elem_rowmin_items(tuple(in_classes), int(vr))
+    if table.shape[0] > ELEM_MAX_ITEMS:
+        raise ValueError(f"elem_rowmin_update: {table.shape[0]} work items exceed {ELEM_MAX_ITEMS}")
     frontier = torch.empty_like(state.visited)
     changed = torch.empty(1, dtype=torch.int32, device=l1.device)
     rc = elem_kernels().elem_rowmin_update(
@@ -600,10 +624,14 @@ def elem_rowmin_update(
 
 # ------------------------------------------------------------ MXU arm (K6) --
 
-#: Warps per block of ``mxu_expand`` (csrc/relay_mxu_kernels.cu kWarps),
-#: and blocks per SM in its grid; the grid-stride loop covers the rest.
+#: ``mxu_expand``'s geometry (csrc/relay_mxu_kernels.cu): warps per block
+#: (kWarps), blocks resident per SM (kBlocksPerSm: the grid is exactly
+#: that many per SM, each warp walking batches of 32 tiles), and the most
+#: reachable (frontier row, destination) bits a tile may hold and still
+#: take the sparse path (kSparseMaxBits) rather than the tensor cores.
 MXU_WARPS = 8
-MXU_BLOCKS_PER_SM = 8
+MXU_BLOCKS_PER_SM = 3
+MXU_SPARSE_MAX_BITS = 256
 
 
 def expand_frontier_mxu(
@@ -634,7 +662,7 @@ def expand_frontier_mxu(
     dev = fwords.device
     out = torch.full((vtp,), -1, dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = min(-(-ntp // MXU_WARPS), sms * MXU_BLOCKS_PER_SM)
+    blocks = min(-(-ntp // (32 * MXU_WARPS)), sms * MXU_BLOCKS_PER_SM)
     rc = mxu_kernels().mxu_expand(
         _ptr(tiles), _ptr(row_idx), _ptr(col_id), _ptr(keys2d), _ptr(fwords),
         fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _stream(),

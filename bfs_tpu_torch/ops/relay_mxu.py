@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..graph.adj_tiles import TILE, TILE_WORDS
+from ..graph.adj_tiles import TILE, TILE_WORDS, _popcount32
 from .packed import INT32_MAX
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "mxu_device_operands",
     "mxu_static",
     "live_tiles",
+    "reachable_bits",
     "expand_frontier_mxu_plain",
     "mxu_superstep_packed",
     "mxu_superstep",
@@ -87,6 +88,25 @@ def live_tiles(fwords: torch.Tensor, tile_ops: tuple, *, rows: int, rtp: int) ->
     reading them)."""
     fblk = _pad_frontier_words(fwords, rows, rtp).reshape(-1, TILE_WORDS)
     return torch.nonzero((fblk != 0).any(dim=1)[tile_ops[1]]).flatten()
+
+
+def reachable_bits(
+    fwords: torch.Tensor, tile_ops: tuple, *, rows: int, rtp: int, chunk: int = 1 << 16,
+) -> torch.Tensor:
+    """int64 count, per live tile (in :func:`live_tiles` order), of its set
+    bits in frontier rows: the count by which the card's kernel sends a
+    tile down its sparse path (at most ``relay_cuda.MXU_SPARSE_MAX_BITS``)
+    or its tensor-core path."""
+    tiles, row_idx = tile_ops[0], tile_ops[1]
+    fblk = _pad_frontier_words(fwords, rows, rtp).reshape(-1, TILE_WORDS)
+    live = live_tiles(fwords, tile_ops, rows=rows, rtp=rtp)
+    lane = torch.arange(TILE, dtype=torch.int32, device=tiles.device)
+    parts = [torch.zeros(0, dtype=torch.int64, device=tiles.device)]
+    for lo in range(0, live.numel(), chunk):
+        ix = live[lo : lo + chunk]
+        fbit = (fblk[row_idx[ix].long()][:, lane >> 5] >> (lane & 31)) & 1  # [n, 128] rows u
+        parts.append((_popcount32(tiles[ix]).sum(dim=2) * fbit).sum(dim=1))
+    return torch.cat(parts)
 
 
 def expand_frontier_mxu_plain(

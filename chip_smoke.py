@@ -549,6 +549,16 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
         + int(need.max(dim=0).values.sum()) // 8
         + int((newly * (4 + 8 * lev_bits + 8 * nbits)).sum())
     )
+    items, blocks = K.elem_rowmin_items(tuple(rg.in_classes), rg.vr)
+    rows_t = [r for r in items.tolist() if r[0] != 2]
+    wide = max(rows_t, key=lambda r: r[4])
+    rank = max((r for r in rows_t if r[0] == 0), key=lambda r: r[4])
+    log(f"elem_rowmin_update work table: {len(rows_t)} class items, {blocks} blocks of "
+        f"{K.ROWMIN_THREADS} threads per group; widest class (kind {wide[0]}, width {wide[4]}, "
+        f"{wide[2]} vertices): {wide[7]} chunks x {wide[8]} rows; widest rank-major (width "
+        f"{rank[4]}, {rank[2]} vertices): {rank[7]} chunks x {rank[8]} rows; (kind, width, "
+        "count, chunks x rows): "
+        + ", ".join(f"({r[0]}, {r[4]}, {r[2]}, {r[7]}x{r[8]})" for r in rows_t))
     record("elem_rowmin_update", err, ms, pms, nbytes,
            f"vr={rg.vr} x G={groups}, {len(rg.in_classes)} classes, "
            f"{int(unfinished.sum())} unfinished (group, vertex) pairs needing {rows} "
@@ -725,6 +735,14 @@ def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
     fw, t = frontiers[level], live[level]
     log(f"mxu kernel inputs: root {root0}, live tiles per superstep {live} of "
         f"{ntp}; superstep {level + 1} has the most")
+    # The kernel's choice of path per live tile, counted here from the tiles
+    # and the frontier: reachable bits at most MXU_SPARSE_MAX_BITS go sparse.
+    bits = RM.reachable_bits(fw, ops, rows=rows, rtp=rtp)
+    sparse = int((bits <= K.MXU_SPARSE_MAX_BITS).sum())
+    log(f"mxu paths at superstep {level + 1}: {sparse} live tiles sparse (at most "
+        f"{K.MXU_SPARSE_MAX_BITS} reachable bits), {t - sparse} on the tensor cores; "
+        f"{int(bits.sum())} reachable bits, at most {int(bits.max())} in a tile")
+    del bits
     got = K.expand_frontier_mxu(fw, ops, **kw)
     err = max_abs_err(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
     if err:

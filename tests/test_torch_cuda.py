@@ -193,6 +193,53 @@ def test_card_elem_rowmin_update_matches_plain(card, layout, level):
     assert bool(got.changed.item()) == bool(want.changed)
 
 
+def _elem_classes(tail: int = 40):
+    """Rank-major widths 1, 33, 256 and 1,536 (the scale-22 layout's widest
+    rank-major class: 8 chunks of 192 rows), vertex-major widths 33 (padded
+    to 64), 256 and 1,536 (a warp per vertex) and 8,192 (a block per
+    vertex), and a tail of vertices in no class: ``(classes, vr, n)``."""
+    widths = np.array([1, 33, 256, 1536, 33, 256, 1536, 8192])
+    counts = np.array([300, 70, 300, 1600, 5, 3, 2, 2])
+    classes = tuple(p_relay._build_classes(widths, counts))
+    return classes, classes[-1].vb + tail, -(-classes[-1].sb // 128) * 128
+
+
+@pytest.mark.parametrize("level", [3, 31])
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.5, 1.0])
+def test_card_elem_rowmin_update_wide_classes_match_plain(card, density, level):
+    """Every kind of the work table (chunked rank-major rows, a warp and a
+    block per vertex-major vertex) against the plain row-min and update, at
+    the l1 densities of the class_rowmin test (all ones with every slot
+    valid: every unvisited tree is found at row 0)."""
+    classes, vr, n = _elem_classes()
+    rng = np.random.default_rng(int(density * 1e4) + level)
+    bits = rng.random((2, n, 32)) < density
+    l1 = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)[..., 0]
+    valid = np.packbits(rng.random(n) < 0.97, bitorder="little").view(np.uint32)
+    if density == 1.0:
+        valid[:] = 0xFFFFFFFF
+    l1, valid = _t(l1, card), _t(valid, card)
+    offsets, pt = RE.rank_plane_layout(classes)
+    visited = _words(rng, 2 * vr)
+    st = RE.ElemState(
+        _t(visited, card).reshape(2, vr), _t(visited & _words(rng, 2 * vr), card).reshape(2, vr),
+        _t(_words(rng, RE.DIST_PLANES * 2 * vr), card).reshape(RE.DIST_PLANES, 2, vr),
+        _t(_words(rng, 2 * pt), card).reshape(2, pt), level, None,
+    )
+    found, rp = RE.rowmin_elem(l1, valid, classes, vr, offsets, pt)
+    want = RE.apply_elem_found(st, found, rp, classes, offsets)
+    K.reset_launches()
+    got = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), level, None),
+                               classes, vr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["elem_rowmin_update"] == 1
+    for a, b in zip(got[:4], want[:4]):
+        _eq(a, b)
+    assert bool(got.changed.item()) == bool(want.changed)
+    if density == 1.0:
+        assert bool((got.frontier[:, : classes[-1].vb] == ~st.visited[:, : classes[-1].vb]).all())
+
+
 def test_card_multi_elem_matches_cpu_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
     sources = np.random.default_rng(2).choice(g.num_vertices, 64, replace=False)
@@ -305,6 +352,67 @@ def test_card_mxu_expand_every_16bit_mask(card):
         _eq(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
     got = K.expand_frontier_mxu(torch.full((rows // 32,), -1, dtype=torch.int32, device=card), ops, **kw)
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32).astype(np.uint64), want)
+
+
+def _ops_on(card, tiles: np.ndarray, row_idx, col_id, rows: int):
+    """A hand-made operand tuple on the card (keys: a seeded permutation,
+    the sentinel pad block)."""
+    n2o = np.random.default_rng(rows).permutation(rows)
+    return (_t(tiles.reshape(-1), card).reshape(-1, 128, 4),
+            torch.tensor(row_idx, dtype=torch.int32, device=card),
+            torch.tensor(col_id, dtype=torch.int32, device=card),
+            PT.keys_from_new2old(n2o, rows).to(card))
+
+
+def test_card_mxu_expand_mixes_both_paths_on_shared_columns(card):
+    """One launch over tiles holding MXU_SPARSE_MAX_BITS - 1, MXU_SPARSE_MAX_BITS
+    (sparse path) and MXU_SPARSE_MAX_BITS + 1 (tensor cores) reachable bits,
+    every bit in the same 8 destination columns of one column block, so
+    atomics of both paths meet on each output."""
+    thr = K.MXU_SPARSE_MAX_BITS
+    rows = cols = 16384
+    rng = np.random.default_rng(thr)
+    ks = [thr - 1] * 24 + [thr] * 24 + [thr + 1] * 24
+    rng.shuffle(ks)
+    tiles = np.zeros((len(ks), 128, 4), np.uint32)
+    for i, k in enumerate(ks):
+        cells = rng.choice(128 * 8, k, replace=False)  # (row u, column v < 8)
+        np.bitwise_or.at(tiles[i, :, 0], cells // 8, np.uint32(1) << (cells % 8).astype(np.uint32))
+    row_idx = rng.integers(0, rows // 128, len(ks))
+    ops = _ops_on(card, tiles, row_idx, np.full(len(ks), 5), rows)
+    kw = dict(rows=rows, cols=cols, rtp=rows, vtp=cols)
+    full = torch.full((rows // 32,), -1, dtype=torch.int32, device=card)
+    np.testing.assert_array_equal(RM.reachable_bits(full, ops, rows=rows, rtp=rows).cpu().numpy(), ks)
+    for fw in (full, _frontier(rng, rows, 0.7, card)):
+        K.reset_launches()
+        got = K.expand_frontier_mxu(fw, ops, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mxu_expand"] == 1
+        _eq(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
+    assert bool((got[5 * 128 : 5 * 128 + 8] != -1).all())
+
+
+def test_card_mxu_expand_one_bit_tiles_pad_block_and_overflow(card):
+    """5,000 one-bit tiles, with tiles on the zero frontier pad block (row
+    block rtp / 128, bits set) and on the dropped overflow segment (column
+    block vtp / 128, frontier set) mixed in: neither may write."""
+    rows = cols = 16384
+    rng = np.random.default_rng(1)
+    nt = 5000
+    tiles = np.zeros((nt, 128, 4), np.uint32)
+    cell = rng.integers(0, 128 * 128, nt)
+    tiles[np.arange(nt), cell // 128, (cell % 128) // 32] = np.uint32(1) << (cell % 32).astype(np.uint32)
+    row_idx = rng.integers(0, rows // 128, nt)
+    col_id = np.sort(rng.integers(0, cols // 128, nt))
+    row_idx[rng.random(nt) < 0.1] = rows // 128  # the pad block
+    col_id[rng.random(nt) < 0.1] = cols // 128  # the overflow segment
+    ops = _ops_on(card, tiles, row_idx, col_id, rows)
+    kw = dict(rows=rows, cols=cols, rtp=rows, vtp=cols)
+    for fw in (torch.full((rows // 32,), -1, dtype=torch.int32, device=card),
+               _frontier(rng, rows, 0.3, card)):
+        got = K.expand_frontier_mxu(fw, ops, **kw)
+        _eq(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
+    assert bool((got != -1).any())
 
 
 def test_card_mxu_expand_empty_frontier_and_devices(card, monkeypatch):
