@@ -8,96 +8,367 @@
 // bfs_tpu_torch/ops/relay.py and is held bit-exact against it.
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 namespace {
 
-constexpr int kMaxLocalStages = 64;
-constexpr int kLocalThreads = 1024;
 constexpr int kThreads = 256;
 constexpr uint32_t kSentinel = 0xFFFFFFFFu;
+
+// ---------------------------------------------------------------------------
+// benes_local_pass — replaces bfs_tpu/ops/relay_pallas.py
+// _run_local_tile_major (K1) and the local modes of _run_pass (K2).
+//
+// One block owns a tile of `tile_words` consecutive words in shared memory
+// and applies every stage of the local run (element distance d < 32 * tile)
+// to it, then writes the tile back once.  A stage's masks for one tile are
+// one contiguous slab of the stored flat layout: `tile_words` words at the
+// tile's base (full storage) or `tile_words / 2` at base / 2
+// (pair-compacted storage, d >= 4096, where the lower word w of pair p sits
+// at base / 2 + p).
+//
+// Bound: bytes — the tile is read and written once and every local stage's
+// stored masks are read once; a few integer ops per word and stage.  What
+// held the first design at 2.5x that bound: every stage issued its mask
+// loads only after the previous stage's barrier, so the pass was a chain of
+// 37 dependent device-memory round trips (5.4 us per stage at s22).  Here:
+//   - the tile and the slabs of the stages with d >= 32 are copied into a
+//     ring of `slots` shared-memory slots (cp.async.bulk on one mbarrier
+//     per slot, evict-first in L2), the next `slots` stages' slabs in
+//     flight while a stage computes; a slot is refilled as soon as the
+//     barrier after its stage has passed.  A slab that is not 16-byte
+//     aligned or not a multiple of 16 bytes (small networks only) is copied
+//     word by word with cp.async instead, by every thread;
+//   - each run of consecutive stages with d < 32 (16, 8, 4, 2, 1, 2, 4, 8,
+//     16 in a Beneš network) is one sweep: a thread reads a word of the
+//     tile once, issues all the run's mask loads for it at once (straight
+//     from device memory: each stage's slab is read once), applies the
+//     stages in registers and writes the word once — one barrier for the
+//     run instead of one per stage;
+//   - a stage changes nothing where its masks are zero: each stage's
+//     nonzero stored words [lo, hi) come with the table (StageSpec.lo/hi),
+//     a tile whose slab lies outside them skips that stage's copy, wait and
+//     barrier (a sweep, when all its stages do), and the sweep reads no
+//     mask word outside them (the reference's pass B skips such tiles too).
+//     At R-MAT scale 22, 0.45% of the vperm's local-run mask words lie
+//     inside those ranges (its dummy out-positions route zeros) and all of
+//     the net's;
+//   - the stage table is copied from the kernel's parameters into shared
+//     memory once per block: read per stage straight from the parameters,
+//     its dynamically indexed entries cost chains of constant-cache misses
+//     on every stage's control path.
+// ---------------------------------------------------------------------------
+constexpr int kMaxLocalStages = 64;
+constexpr int kLocalThreads = 1024;
+constexpr int kMaxRing = 8;     // ring slots at most
+constexpr int kMaxSweep = 9;    // in-word stages one sweep applies at most
+constexpr int kBarBytes = 128;  // kMaxRing + 1 mbarriers, rounded up
+constexpr size_t kSmemLimit = 232448;  // shared memory of one block
+constexpr size_t kTableSmem = 4096;    // static shared memory of the stage tables, at most
 
 struct LocalStages {
   long long offset[kMaxLocalStages];  // word offset of the stage's masks
   int d[kMaxLocalStages];             // element distance
   int compact[kMaxLocalStages];       // pair-compacted storage
+  int lo[kMaxLocalStages];            // the stage's nonzero stored words: [lo, hi)
+  int hi[kMaxLocalStages];
+  int cross[kMaxLocalStages];         // stage index of the c-th stage with d >= 32
   int count;
+  int ncross;
 };
 
-// ---------------------------------------------------------------------------
-// benes_local_pass — replaces bfs_tpu/ops/relay_pallas.py
-// _run_local_tile_major (K1) and the per-stage local modes of _run_pass (K2).
-//
-// One block owns a tile of `tile_words` consecutive words in shared memory
-// and applies every stage of the local run (element distance d < 32 * tile)
-// to it, then writes the tile back once.  Masks are read straight from the
-// stored flat layout (full storage at the lower word; pair-compacted storage
-// for d >= 4096, where the lower word w of pair p sits at tile_base/2 + p).
-// Bound: bytes — the tile is read and written once and every local stage's
-// stored masks are read once; the arithmetic is a few integer ops per word.
-// The design keeps the words in shared memory across all local stages, so
-// the mask stream is the only per-stage device-memory traffic.
-// ---------------------------------------------------------------------------
+__device__ __forceinline__ bool bulk_ok(const void* src, uint32_t bytes) {
+  return bytes != 0 && ((reinterpret_cast<uintptr_t>(src) | bytes) & 15u) == 0;
+}
+
+// `words` words from src to dst (16-byte aligned): one bulk copy completing on
+// `bar`, issued by thread 0, where the source allows it; else one cp.async per
+// word by every thread, as one committed group.  Block-uniform.
+__device__ __forceinline__ void fetch(uint32_t* dst, const uint32_t* src, int words,
+                                      uint64_t* bar, uint64_t policy) {
+  const uint32_t bytes = static_cast<uint32_t>(words) * 4u;
+  if (bulk_ok(src, bytes)) {
+    if (threadIdx.x == 0) {
+      fence_proxy_async();  // the slot's last readers passed the block barrier
+      bulk_load(dst, src, bytes, bar, policy);
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(uint32_t));
+    }
+    __pipeline_commit();
+  }
+}
+
+// Waits for the fetch of (src, words) on barrier number `which`; `parity`
+// holds each barrier's next phase bit.  Block-uniform.
+__device__ __forceinline__ void fetched(const uint32_t* src, int words, uint64_t* bar,
+                                        int which, uint32_t& parity) {
+  if (bulk_ok(src, static_cast<uint32_t>(words) * 4u)) {
+    mbar_wait(bar + which, (parity >> which) & 1u);
+    parity ^= 1u << which;
+  } else {
+    __pipeline_wait_prior(0);
+    __syncthreads();  // every thread's words in place
+  }
+}
+
+// One stage of the local run as a block reads it: copied from the kernel's
+// parameters into shared memory once, so the per-stage control flow reads
+// shared memory instead of chains of dynamically indexed parameters.
+struct StageInfo {
+  const uint32_t* m;  // the stage's stored masks
+  long long at;       // first stored word of this tile's slab
+  int d;              // element distance
+  int words;          // the slab's words
+  int compact;        // pair-compacted storage
+  int lo, hi;         // nonzero stored words
+  int live;           // the slab touches [lo, hi)
+};
+static_assert(kMaxLocalStages * (sizeof(StageInfo) + sizeof(int)) <= kTableSmem,
+              "the stage tables outgrow kTableSmem");
+
+// Stages s0 .. s0 + len - 1 (all d < 32) on words i and i2 of the tile
+// (i2 only if it is in the tile): every mask load issued first; a mask word
+// outside its stage's nonzero range is zero and is not read.
+__device__ __forceinline__ void sweep_pair(uint32_t* xs, const StageInfo* info, int s0,
+                                           int len, long long base, int i, bool two,
+                                           int i2) {
+  uint32_t ma[kMaxSweep], mb[kMaxSweep];
+#pragma unroll
+  for (int j = 0; j < kMaxSweep; ++j) {
+    const StageInfo& f = info[s0 + (j < len ? j : 0)];
+    const long long a = base + i, b = base + i2;  // stored words (full storage)
+    ma[j] = j < len && a >= f.lo && a < f.hi ? __ldg(f.m + a) : 0u;
+    mb[j] = j < len && two && b >= f.lo && b < f.hi ? __ldg(f.m + b) : 0u;
+  }
+  uint32_t a = xs[i];
+  uint32_t b = two ? xs[i2] : 0u;
+#pragma unroll
+  for (int j = 0; j < kMaxSweep; ++j) {
+    if (j < len) {
+      const int d = info[s0 + j].d;
+      const uint32_t ta = (a ^ (a >> d)) & ma[j];
+      const uint32_t tb = (b ^ (b >> d)) & mb[j];
+      a ^= ta ^ (ta << d);
+      b ^= tb ^ (tb << d);
+    }
+  }
+  xs[i] = a;
+  if (two) xs[i2] = b;
+}
+
 __global__ void __launch_bounds__(kLocalThreads)
 benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks,
-                        const LocalStages st, int tile_words) {
-  extern __shared__ uint32_t xs[];
+                        const LocalStages st, int tile_words, int slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ StageInfo info[kMaxLocalStages];
+  __shared__ int cross[kMaxLocalStages];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // ring slots, then the tile
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kBarBytes);
+  const int slab = (tile_words + 3) & ~3;  // words per ring slot
+  uint32_t* ring = xs + slab;
   const long long base = static_cast<long long>(blockIdx.x) * tile_words;
-  for (int i = threadIdx.x; i < tile_words; i += blockDim.x) xs[i] = x_in[base + i];
+  const int half = tile_words >> 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= slots; ++i) mbar_init(bar + i);
+    mbar_fence_init();
+  }
   __syncthreads();
-  for (int s = 0; s < st.count; ++s) {
-    const int d = st.d[s];
-    const uint32_t* __restrict__ m = masks + st.offset[s];
-    if (d < 32) {
-      for (int i = threadIdx.x; i < tile_words; i += blockDim.x) {
-        const uint32_t x = xs[i];
-        const uint32_t t = (x ^ (x >> d)) & __ldg(m + base + i);
-        xs[i] = x ^ t ^ (t << d);
+  const uint64_t policy = evict_first_policy();
+  uint32_t parity = 0;
+  fetch(xs, x_in + base, tile_words, bar + slots, policy);
+  if (threadIdx.x < st.count) {
+    const int s = threadIdx.x;
+    StageInfo f;
+    f.m = masks + st.offset[s];
+    f.d = st.d[s];
+    f.compact = st.compact[s];
+    f.at = f.compact ? base >> 1 : base;
+    f.words = f.compact ? half : tile_words;
+    f.lo = st.lo[s];
+    f.hi = st.hi[s];
+    f.live = f.at < f.hi && f.at + f.words > f.lo;
+    info[s] = f;
+  }
+  if (threadIdx.x < st.ncross) cross[threadIdx.x] = st.cross[threadIdx.x];
+  __syncthreads();
+  const int count = st.count, ncross = st.ncross;
+  // The c-th stage with d >= 32, into ring slot c % slots, if its slab
+  // touches its nonzero range.
+  auto issue = [&](int c) {
+    const StageInfo& f = info[cross[c]];
+    if (f.live) fetch(ring + (c % slots) * slab, f.m + f.at, f.words, bar + c % slots, policy);
+  };
+  for (int c = 0; c < ncross && c < slots; ++c) issue(c);
+  fetched(x_in + base, tile_words, bar, slots, parity);
+
+  int c = 0;
+  for (int s = 0; s < count;) {
+    const StageInfo& f = info[s];
+    if (f.d < 32) {
+      int len = 1;
+      bool live = f.live;
+      while (s + len < count && len < kMaxSweep && info[s + len].d < 32) {
+        live = live || info[s + len].live;
+        ++len;
       }
-    } else {
-      const int dw = d >> 5;
-      const int half = tile_words >> 1;
-      const bool compact = st.compact[s] != 0;
+      if (live) {  // else every mask of the run is zero on this tile
+        // Two words per step: 2 * len mask loads in flight per thread.
+        for (int i = threadIdx.x; i < tile_words; i += 2 * blockDim.x) {
+          const int i2 = i + blockDim.x;
+          sweep_pair(xs, info, s, len, base, i, i2 < tile_words, i2);
+        }
+        __syncthreads();
+      }
+      s += len;
+      continue;
+    }
+    // A stage whose masks are all zero on this tile changes nothing: no
+    // copy, no wait, no barrier.
+    if (f.live) {
+      const int slot = c % slots;
+      fetched(f.m + f.at, f.words, bar, slot, parity);
+      const uint32_t* m = ring + slot * slab;
+      const int dw = f.d >> 5;
+      const bool compact = f.compact != 0;
       for (int p = threadIdx.x; p < half; p += blockDim.x) {
         const int w = ((p & ~(dw - 1)) << 1) | (p & (dw - 1));
-        const long long mi = compact ? (base >> 1) + p : base + w;
         const uint32_t a = xs[w];
         const uint32_t b = xs[w + dw];
-        const uint32_t t = (a ^ b) & __ldg(m + mi);
+        const uint32_t t = (a ^ b) & m[compact ? p : w];
         xs[w] = a ^ t;
         xs[w + dw] = b ^ t;
       }
+      __syncthreads();  // the tile consistent, and the slot free
     }
-    __syncthreads();
+    if (c + slots < ncross) issue(c + slots);
+    ++c;
+    ++s;
   }
   for (int i = threadIdx.x; i < tile_words; i += blockDim.x) x_out[base + i] = xs[i];
 }
 
 // ---------------------------------------------------------------------------
-// benes_outer_stage — replaces the outer (pass A/C) mode of
-// bfs_tpu/ops/relay_pallas.py _run_pass (K2).
+// benes_outer_pass — replaces the outer mode of bfs_tpu/ops/relay_pallas.py
+// _run_pass (K2: passes A and C, which fuse the outer prefix and suffix).
 //
-// One launch per stage whose element distance is at least 32 * tile: one
-// thread per lower word w of each word pair (w, w + dw), with the stage's
-// mask at the pair number p (pair-compacted storage, which every stage of a
-// network at least 32 * 2^13 words wide has) or at w (full storage).  In
-// place when x_in == x_out (each pair is owned by one thread).
-// Bound: bytes — the words are read and written once, the stored mask words
-// read once.
+// One launch applies a run of k outer stages of one side of a network, in
+// the network's order: word distances dw = 2^b for the k consecutive bits b
+// in [b0, b0 + k) (each once).  A block owns a unit of R = 2^lg_row
+// consecutive low words times all 2^k combinations of those bits, for one
+// value of the other bits: R * 2^k words, 2^k coalesced rows of R words
+// (R <= 2^b0, at most kOuterWords in all).  Slot i of the unit is word
+// base + (i mod R) + (i / R) * 2^b0, so the stage of bit b0 + j pairs slots
+// (i, i + R * 2^j) and every pair of every stage lies inside the unit.
+// Each stage's mask is read at the lower word w (full storage) or at its
+// pair number p = ((w >> (b+1)) << b) | (w & (2^b - 1)) (pair-compacted
+// storage, which every outer stage at scale >= 13 has): R consecutive
+// lanes read R consecutive mask words.  All of a thread's mask words, for
+// every stage, are loaded into registers and the unit's words copied into
+// shared memory (cp.async, 16 bytes a copy where rows hold whole aligned
+// quads) before the block waits, so it waits for one round trip; the k
+// stages then run in shared memory with one barrier each, and the words
+// are written back once.  Every word is read and written by exactly one
+// block, so x_in == x_out is allowed.
+// Bound: bytes — the words read and written once, each stage's stored
+// masks read once.  The design it replaces launched once per stage and
+// moved every word through device memory per stage (24 launches per
+// single-source superstep at s22).  What stays above the bound: the rows
+// are short runs at a stride of 2^b0 words, and a block's load, compute
+// and store phases do not overlap.  kOuterWords and kOuterThreads were
+// chosen with bfs_tpu_torch/tools/benes_pass_sweep.py on the net's 7-stage
+// prefix at R-MAT scale 22; PERF.md records the sweep.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-benes_outer_stage_kernel(const uint32_t* x_in, uint32_t* x_out,
-                         const uint32_t* __restrict__ mask,
-                         long long pairs, long long dw, int compact) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (p >= pairs) return;
-  const long long w = ((p & ~(dw - 1)) << 1) | (p & (dw - 1));
-  const uint32_t a = x_in[w];
-  const uint32_t b = x_in[w + dw];
-  const uint32_t t = (a ^ b) & __ldg(mask + (compact ? p : w));
-  x_out[w] = a ^ t;
-  x_out[w + dw] = b ^ t;
+constexpr int kMaxOuterStages = 8;
+constexpr int kOuterThreads = 256;
+constexpr int kOuterWords = 2048;  // words per unit at most
+constexpr int kOuterPairs = kOuterWords / 2 / kOuterThreads;  // pairs per thread and stage
+
+struct OuterStages {
+  long long offset[kMaxOuterStages];  // word offset of the stage's masks
+  int bit[kMaxOuterStages];           // log2(dw) - b0
+  int compact[kMaxOuterStages];       // pair-compacted storage
+  int count;
+};
+
+// Slot of pair q's lower word, pairs at slot distance 2^e.
+__device__ __forceinline__ int lower_slot(int q, int e) {
+  return ((q >> e) << (e + 1)) | (q & ((1 << e) - 1));
+}
+
+__global__ void __launch_bounds__(kOuterThreads)
+benes_outer_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
+                        const uint32_t* __restrict__ masks, const OuterStages st,
+                        int b0, int k, int lg_row, int quads) {
+  __shared__ __align__(16) uint32_t xs[kOuterWords];
+  const int row = 1 << lg_row;
+  const int words = row << k;
+  const int pairs = words >> 1;
+  const int mid_bits = b0 - lg_row;
+  const long long u = blockIdx.x;
+  const long long base = ((u & ((1LL << mid_bits) - 1)) << lg_row) |
+                         ((u >> mid_bits) << (b0 + k));
+  auto word_of = [&](int i) {
+    return base + (i & (row - 1)) + (static_cast<long long>(i >> lg_row) << b0);
+  };
+  uint32_t m[kMaxOuterStages][kOuterPairs];
+#pragma unroll
+  for (int s = 0; s < kMaxOuterStages; ++s) {
+#pragma unroll
+    for (int v = 0; v < kOuterPairs; ++v) {
+      const int q = threadIdx.x + v * kOuterThreads;
+      m[s][v] = 0u;
+      if (s < st.count && q < pairs) {
+        const int b = b0 + st.bit[s];
+        const long long w = word_of(lower_slot(q, lg_row + st.bit[s]));
+        const long long at =
+            st.compact[s] ? (((w >> (b + 1)) << b) | (w & ((1LL << b) - 1))) : w;
+        m[s][v] = __ldg(masks + st.offset[s] + at);
+      }
+    }
+  }
+  if (quads) {
+    for (int i = 4 * threadIdx.x; i < words; i += 4 * kOuterThreads) {
+      __pipeline_memcpy_async(xs + i, x_in + word_of(i), 4 * sizeof(uint32_t));
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += kOuterThreads) {
+      __pipeline_memcpy_async(xs + i, x_in + word_of(i), sizeof(uint32_t));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kMaxOuterStages; ++s) {
+    if (s >= st.count) break;
+    const int e = lg_row + st.bit[s];
+#pragma unroll
+    for (int v = 0; v < kOuterPairs; ++v) {
+      const int q = threadIdx.x + v * kOuterThreads;
+      if (q < pairs) {
+        const int i = lower_slot(q, e);
+        const uint32_t a = xs[i];
+        const uint32_t b = xs[i + (1 << e)];
+        const uint32_t t = (a ^ b) & m[s][v];
+        xs[i] = a ^ t;
+        xs[i + (1 << e)] = b ^ t;
+      }
+    }
+    __syncthreads();
+  }
+  if (quads) {
+    for (int i = 4 * threadIdx.x; i < words; i += 4 * kOuterThreads) {
+      *reinterpret_cast<uint4*>(x_out + word_of(i)) = *reinterpret_cast<const uint4*>(xs + i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < words; i += kOuterThreads) x_out[word_of(i)] = xs[i];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -315,19 +586,33 @@ extern "C" {
 
 int benes_local_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* dists,
-                     const int* compact, int nstages, long long nwords,
-                     int tile_words, void* stream) {
-  if (nstages > kMaxLocalStages || nwords % tile_words != 0) {
+                     const int* compact, const int* lo, const int* hi, int nstages,
+                     long long nwords, int tile_words, void* stream) {
+  if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LocalStages st;
   st.count = nstages;
+  st.ncross = 0;
   for (int s = 0; s < nstages; ++s) {
     st.offset[s] = offsets[s];
     st.d[s] = dists[s];
     st.compact[s] = compact[s];
+    st.lo[s] = lo[s];
+    st.hi[s] = hi[s];
+    if (dists[s] >= 32) st.cross[st.ncross++] = s;
   }
-  const size_t smem = static_cast<size_t>(tile_words) * sizeof(uint32_t);
+  // Shared memory: the stage tables, the barriers, the tile, and as many
+  // ring slots of one tile each as fit (at most kMaxRing, at most one per
+  // stage with d >= 32).
+  const size_t slab = static_cast<size_t>((tile_words + 3) & ~3) * sizeof(uint32_t);
+  const size_t fixed = kTableSmem + kBarBytes + slab;
+  if (fixed + slab > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  size_t slots = (kSmemLimit - fixed) / slab;
+  slots = slots < kMaxRing ? slots : kMaxRing;
+  const size_t wanted = st.ncross > 0 ? static_cast<size_t>(st.ncross) : 1;
+  slots = slots < wanted ? slots : wanted;
+  const size_t smem = kBarBytes + slab + slots * slab;  // dynamic
   static size_t configured = 0;
   if (smem > configured) {
     cudaFuncSetAttribute(benes_local_pass_kernel,
@@ -339,19 +624,34 @@ int benes_local_pass(const void* x_in, void* x_out, const void* masks,
   benes_local_pass_kernel<<<blocks, kLocalThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, tile_words);
+      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots));
   return static_cast<int>(cudaGetLastError());
 }
 
-int benes_outer_stage(const void* x_in, void* x_out, const void* mask,
-                      long long nwords, long long dw, int compact,
-                      void* stream) {
-  const long long pairs = nwords >> 1;
-  const unsigned blocks = static_cast<unsigned>((pairs + kThreads - 1) / kThreads);
-  benes_outer_stage_kernel<<<blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
+                     const long long* offsets, const int* bits, const int* compact,
+                     int nstages, int b0, int k, int lg_row, long long nwords,
+                     void* stream) {
+  if (nstages < 1 || nstages > kMaxOuterStages || k < 1 || k > kMaxOuterStages ||
+      lg_row < 0 || lg_row > b0 || (1LL << (lg_row + k)) > kOuterWords ||
+      (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OuterStages st;
+  st.count = nstages;
+  for (int s = 0; s < nstages; ++s) {
+    if (bits[s] < 0 || bits[s] >= k) return static_cast<int>(cudaErrorInvalidValue);
+    st.offset[s] = offsets[s];
+    st.bit[s] = bits[s];
+    st.compact[s] = compact[s];
+  }
+  // 16-byte word copies: rows of whole quads, both word arrays 16-byte aligned.
+  const bool quads = lg_row >= 2 && ((reinterpret_cast<uintptr_t>(x_in) |
+                                      reinterpret_cast<uintptr_t>(x_out)) & 15u) == 0;
+  const unsigned units = static_cast<unsigned>(nwords >> (lg_row + k));
+  benes_outer_pass_kernel<<<units, kOuterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(mask), pairs, dw, compact);
+      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,6 +88,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kTile = 128;
@@ -109,41 +111,6 @@ struct TileHead {
 
 constexpr size_t kSmemBytes =
     static_cast<size_t>(kWarps) * kStages * (kTileBytes + sizeof(uint64_t) + sizeof(TileHead));
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// The slot's tile: one bulk copy whose bytes complete on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint64_t* bar,
-                                          uint64_t policy) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(kTileBytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
-      "[%0], [%1], %2, [%3], %4;"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(kTileBytes), "r"(smem_addr(bar)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
 
 // fp16 bits of 2^e for 0 <= e < 8.
 __device__ __forceinline__ uint32_t half_pow2(int e) {
@@ -263,8 +230,7 @@ mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ r
     mbar_fence_init();
   }
   __syncwarp();
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  const uint64_t policy = evict_first_policy();
 
   // Producer: this lane's head in the current batch, and the batch's live
   // tiles not yet issued (warp-uniform).
@@ -308,7 +274,8 @@ mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ r
     for (int i = 0; i < kTileWords; ++i) h.f[i] = __shfl_sync(kAll, my_f[i], src);
     if (lane == 0) {
       head[slot] = h;  // published by the mbarrier arrive (release)
-      bulk_load(ring + slot * kTile, tiles + (base + src) * kTile, bar + slot, policy);
+      bulk_load(ring + slot * kTile, tiles + (base + src) * kTile, kTileBytes, bar + slot,
+                policy);
     }
     return true;
   };

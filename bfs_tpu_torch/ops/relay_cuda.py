@@ -14,7 +14,7 @@ else.
   kernel                  replaces (bfs_tpu/ops/relay_pallas.py)
   ======================  ================================================
   benes_local_pass        _run_local_tile_major (K1), _run_pass local modes
-  benes_outer_stage       _run_pass outer passes A/C (K2)
+  benes_outer_pass        _run_pass outer passes A/C (K2)
   class_rowmin            _class_tournament_call / rowmin_ranks_pallas (K3)
   packed_update           apply_relay_candidates_packed_pallas (K4)
   benes_elem_local_pass   _run_elem_pass local mode (K5)
@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +46,7 @@ from .packed import level_word
 
 LAUNCHES = {
     "benes_local_pass": 0,
-    "benes_outer_stage": 0,
+    "benes_outer_pass": 0,
     "class_rowmin": 0,
     "packed_update": 0,
     "benes_elem_local_pass": 0,
@@ -56,11 +57,23 @@ LAUNCHES = {
 }
 
 #: Shared-memory tile of the local pass, in words: a power of two in
-#: [MIN_TILE_WORDS, MAX_TILE_WORDS] (32 KB to 128 KB), chosen so a network
-#: spreads over about 128 blocks; a smaller network is one tile.
-MIN_TILE_WORDS = 1 << 13
-MAX_TILE_WORDS = 1 << 15
+#: [MIN_TILE_WORDS, MAX_TILE_WORDS] (8 KB to 64 KB), chosen so a network
+#: spreads over about 128 blocks; a smaller network is one tile.  At the
+#: largest tile a block holds the tile and two ring slots of stage masks of
+#: one tile each (192 KB of the 227 KB of shared memory).
+MIN_TILE_WORDS = 1 << 11
+MAX_TILE_WORDS = 1 << 14
 TARGET_BLOCKS = 128
+#: ``benes_outer_pass``'s geometry (csrc/relay_kernels.cu): outer stages one
+#: launch applies at most (kMaxOuterStages) and words at most
+#: (kOuterWords) in one unit of work.  A unit's rows start at OUTER_ROW_WORDS
+#: words (128 B) and halve, down to OUTER_MIN_ROW_WORDS (one 32 B sector),
+#: while there are fewer than OUTER_TARGET_UNITS units.
+OUTER_MAX_STAGES = 8
+OUTER_MAX_WORDS = 2048
+OUTER_ROW_WORDS = 32
+OUTER_MIN_ROW_WORDS = 8
+OUTER_TARGET_UNITS = 256
 #: Shared-memory tile of the elem local pass, in elements (128 KB); a
 #: smaller network is one tile.
 MAX_TILE_ELEMS = 1 << 15
@@ -79,10 +92,12 @@ _INT = ctypes.c_int
 def _register(lib: ctypes.CDLL) -> None:
     lib.benes_local_pass.restype = _INT
     lib.benes_local_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP,
     ]
-    lib.benes_outer_stage.restype = _INT
-    lib.benes_outer_stage.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _VP]
+    lib.benes_outer_pass.restype = _INT
+    lib.benes_outer_pass.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _VP,
+    ]
     lib.class_rowmin.restype = _INT
     lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _VP]
     lib.packed_update.restype = _INT
@@ -231,11 +246,15 @@ def split_elem_passes(table: tuple[StageSpec, ...], n: int, tile: int | None = N
 
 @functools.lru_cache(maxsize=16)
 def _local_args(stages: tuple[StageSpec, ...]):
-    """Host arrays of the local run's stage table (kept alive by the cache)."""
+    """Host arrays of the local run's stage table (kept alive by the cache):
+    offsets, distances, compact flags, and each stage's nonzero stored
+    words ``[lo, hi)``."""
     offsets = np.array([st.offset for st in stages], dtype=np.int64)
     dists = np.array([st.d for st in stages], dtype=np.int32)
     compact = np.array([int(st.compact) for st in stages], dtype=np.int32)
-    return offsets, dists, compact
+    lo = np.array([st.lo for st in stages], dtype=np.int32)
+    hi = np.array([st.hi for st in stages], dtype=np.int32)
+    return offsets, dists, compact, lo, hi
 
 
 def benes_local_pass(
@@ -243,7 +262,8 @@ def benes_local_pass(
     n: int, tile_words: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Apply a consecutive run of stages with ``d < 32 * tile_words`` (one
-    shared-memory tile per block).  ``out`` may alias ``x_in``."""
+    shared-memory tile per block; a stage is skipped on a tile outside its
+    nonzero range ``StageSpec.lo/hi``).  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
     nw = n // 32
@@ -253,39 +273,97 @@ def benes_local_pass(
         raise ValueError("a local stage spans more than one tile")
     out = torch.empty_like(x_in) if out is None else out
     _check_words("out", out, nw)
-    offsets, dists, compact = _local_args(tuple(stages))
-    lib = kernels()
-    rc = lib.benes_local_pass(
+    offsets, dists, compact, lo, hi = _local_args(tuple(stages))
+    rc = kernels().benes_local_pass(
         _ptr(x_in), _ptr(out), _ptr(masks),
         offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
-        compact.ctypes.data_as(_VP), len(stages), nw, tile_words, _stream(),
+        compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
+        len(stages), nw, tile_words, _stream(),
     )
     LAUNCHES["benes_local_pass"] += 1
     _call(rc, "benes_local_pass")
     return out
 
 
-def benes_outer_stage(
-    x_in: torch.Tensor, masks: torch.Tensor, st: StageSpec, n: int,
-    out: torch.Tensor | None = None,
+class OuterRun(NamedTuple):
+    """One ``benes_outer_pass`` launch: table indices of its stages (in
+    network order), their word-distance bits ``[b0, b0 + k)``, the words of
+    a unit's rows and the number of units (a block each)."""
+
+    stages: tuple[int, ...]
+    b0: int
+    k: int
+    row_words: int
+    units: int
+
+
+def outer_geometry(dists: tuple[int, ...], n: int) -> tuple[int, int, int, int]:
+    """``(b0, k, row_words, units)`` of one fused outer pass over stages of
+    element distances ``dists``: word distances ``2^b`` for the ``k``
+    consecutive bits ``b`` in ``[b0, b0 + k)``, each once.  A unit holds
+    ``row_words << k`` words: ``2^k`` rows of ``row_words`` consecutive
+    words (at most ``2^b0``), one per combination of those bits; the units
+    partition the words."""
+    nw = n // 32
+    if any(d < 32 or d & (d - 1) for d in dists):
+        raise ValueError(f"outer stages pair whole words at power-of-two distances, got {dists}")
+    bits = sorted((d >> 5).bit_length() - 1 for d in dists)
+    b0, k = bits[0], len(bits)
+    if bits != list(range(b0, b0 + k)):
+        raise ValueError(f"an outer pass takes consecutive distinct word-distance bits, got {bits}")
+    if k > OUTER_MAX_STAGES or (1 << (b0 + k)) > nw:
+        raise ValueError(f"{k} outer stages from bit {b0} do not fit one pass of {nw} words")
+    row = min(OUTER_ROW_WORDS, 1 << b0, OUTER_MAX_WORDS >> k)
+    while nw // (row << k) < OUTER_TARGET_UNITS and row > OUTER_MIN_ROW_WORDS:
+        row //= 2
+    return b0, k, row, nw // (row << k)
+
+
+@functools.lru_cache(maxsize=32)
+def outer_plan(table: tuple[StageSpec, ...], stages: tuple[int, ...], n: int):
+    """The ``benes_outer_pass`` launches of one side's outer stages
+    (``stages``: table indices in network order, the prefix or the suffix
+    of :func:`split_passes`): runs of at most :data:`OUTER_MAX_STAGES`
+    consecutive stages, one :class:`OuterRun` each."""
+    runs = []
+    for i in range(0, len(stages), OUTER_MAX_STAGES):
+        run = tuple(stages[i : i + OUTER_MAX_STAGES])
+        runs.append(OuterRun(run, *outer_geometry(tuple(table[j].d for j in run), n)))
+    return tuple(runs)
+
+
+@functools.lru_cache(maxsize=32)
+def _outer_args(stages: tuple[StageSpec, ...], b0: int):
+    """Host arrays of one outer pass's stage table (kept alive by the cache)."""
+    offsets = np.array([st.offset for st in stages], dtype=np.int64)
+    bits = np.array([(st.d >> 5).bit_length() - 1 - b0 for st in stages], dtype=np.int32)
+    compact = np.array([int(st.compact) for st in stages], dtype=np.int32)
+    return offsets, bits, compact
+
+
+def benes_outer_pass(
+    x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
+    n: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Apply one word-pair stage (``d >= 32``).  ``out`` may alias
-    ``x_in``."""
+    """Apply a run of outer stages of one side of a network (word distances
+    ``2^b`` for consecutive bits ``b``, each once, at most
+    :data:`OUTER_MAX_STAGES`) in one launch.  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
-        return R.apply_benes_std(x_in, masks, (st,), n)
+        return R.apply_benes_std(x_in, masks, stages, n)
     nw = n // 32
     _check_words("x_in", x_in, nw)
     _check_words("masks", masks)
-    if st.d < 32:
-        raise ValueError("an outer stage pairs whole words (d >= 32)")
+    b0, k, row, _ = outer_geometry(tuple(st.d for st in stages), n)
     out = torch.empty_like(x_in) if out is None else out
     _check_words("out", out, nw)
-    rc = kernels().benes_outer_stage(
-        _ptr(x_in), _ptr(out), _ptr(masks, st.offset), nw, st.d >> 5,
-        int(st.compact), _stream(),
+    offsets, bits, compact = _outer_args(tuple(stages), b0)
+    rc = kernels().benes_outer_pass(
+        _ptr(x_in), _ptr(out), _ptr(masks), offsets.ctypes.data_as(_VP),
+        bits.ctypes.data_as(_VP), compact.ctypes.data_as(_VP), len(stages), b0, k,
+        row.bit_length() - 1, nw, _stream(),
     )
-    LAUNCHES["benes_outer_stage"] += 1
-    _call(rc, "benes_outer_stage")
+    LAUNCHES["benes_outer_pass"] += 1
+    _call(rc, "benes_outer_pass")
     return out
 
 
@@ -293,19 +371,20 @@ def apply_benes(
     words: torch.Tensor, masks: torch.Tensor, table: tuple[StageSpec, ...],
     n: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The whole routed network: outer prefix stages, one local pass, outer
-    suffix stages (the plain version on the CPU)."""
+    """The whole routed network: the outer prefix (one fused pass per run
+    of :func:`outer_plan`), one local pass, the outer suffix (the plain
+    version on the CPU)."""
     if not _on_card(words, masks):
         return R.apply_benes_std(words, masks, table, n)
     pre, local, suf, tile = split_passes(table, n)
     out = torch.empty_like(words) if out is None else out
     src = words
-    for i in pre:
-        benes_outer_stage(src, masks, table[i], n, out=out)
+    for run in outer_plan(table, pre, n):
+        benes_outer_pass(src, masks, tuple(table[i] for i in run.stages), n, out=out)
         src = out
     benes_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=out)
-    for i in suf:
-        benes_outer_stage(out, masks, table[i], n, out=out)
+    for run in outer_plan(table, suf, n):
+        benes_outer_pass(out, masks, tuple(table[i] for i in run.stages), n, out=out)
     return out
 
 
@@ -448,7 +527,7 @@ def benes_elem_local_pass(
         raise ValueError("a local stage spans more than one tile")
     out = torch.empty_like(x_in) if out is None else out
     _check_elems("out", out, n, groups)
-    offsets, dists, compact = _local_args(tuple(stages))
+    offsets, dists, compact, _, _ = _local_args(tuple(stages))
     rc = elem_kernels().benes_elem_local_pass(
         _ptr(x_in), _ptr(out), _ptr(masks),
         offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),

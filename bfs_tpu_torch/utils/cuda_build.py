@@ -1,6 +1,7 @@
 """nvcc -> shared library -> ctypes, for the port's hand-written kernels.
 
-Each ``csrc/*.cu`` source exports a plain C interface (pointers, ints and
+Each ``csrc/*.cu`` source (which may include the shared ``csrc/*.cuh``
+headers) exports a plain C interface (pointers, ints and
 the CUDA stream as ``void*``; every function returns ``cudaGetLastError()``)
 and is compiled for Hopper (``sm_90a``) at first use into the port's build
 directory.  Nothing here runs at import time: the CPU test platform has no
@@ -44,9 +45,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _headers() -> list[str]:
+    """The shared headers (``csrc/*.cuh``) every source may include."""
+    d = os.path.join(PKG_ROOT, "csrc")
+    return sorted(os.path.join(d, f) for f in os.listdir(d) if f.endswith(".cuh"))
+
+
 def _so_path(name: str, source: str) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (source, *_headers()):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -63,7 +72,7 @@ def build(sources: dict[str, str]) -> None:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp.{os.getpid()}"
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            [_nvcc(), *NVCC_FLAGS, "-I", os.path.join(PKG_ROOT, "csrc"), "-o", tmp, source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         started[name] = (source, so, tmp, proc, time.perf_counter())

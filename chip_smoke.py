@@ -11,7 +11,9 @@ factor 6, graph seed 1, scale 22 by default), holds every kernel against its
 plain PyTorch version on the card at the layout's real shapes (bit-exact),
 then drives the main path — ``RelayEngine.run`` on the card for 4 roots drawn
 from ``--seed`` — and checks every result against the port's host oracle
-(``canonical_bfs`` bit for bit, ``check()`` without violations).  The MXU
+(``canonical_bfs`` bit for bit, ``check()`` without violations) and that
+each superstep made 8 kernel launches (per Beneš network one outer pass per
+side and one local pass, then the row-min and the update).  The MXU
 expansion arm comes next: its device tile builder held byte for byte against
 the host oracle at scale 16, the scale-22 tiles built on the card (21 GB,
 under a budget raised to 32 GiB), the tensor-core kernel ``mxu_expand`` held
@@ -60,7 +62,7 @@ TILES_BUDGET = 32 << 30  # the s22 layout takes 21 GB; the default budget is 4 G
 ORACLE_SCALE = 16  # the tile builder against the host oracle (82 MB of tiles)
 REPLACES = {
     "benes_local_pass": "bfs_tpu/ops/relay_pallas.py:455",
-    "benes_outer_stage": "bfs_tpu/ops/relay_pallas.py:618",
+    "benes_outer_pass": "bfs_tpu/ops/relay_pallas.py:618",
     "class_rowmin": "bfs_tpu/ops/relay_pallas.py:1059",
     "packed_update": "bfs_tpu/ops/relay_pallas.py:1188",
 }
@@ -89,14 +91,17 @@ def card_line() -> str:
 
 
 _FLUSH = []
+SLEEP_CYCLES = 2_000_000  # about 1 ms of device time at the H100's clocks
 
 
 def cuda_ms(fn, reps: int, warm: int = 2, prep=None) -> float:
     """Mean milliseconds per call on the card: CUDA events around each of
     ``reps`` calls (after ``warm`` warm-up calls), each call preceded by a
     256 MB write that evicts the 50 MB L2, so every call starts cold as the
-    main path's mask reads do.  ``prep`` (untimed) runs before each call,
-    to restore inputs that the call updates in place."""
+    main path's mask reads do, and by about 1 ms of device sleep, so the
+    host's time to launch the call's kernels passes while the device
+    sleeps and the events span device time only.  ``prep`` (untimed) runs
+    before each call, to restore inputs that the call updates in place."""
     import torch
 
     if not _FLUSH:
@@ -110,6 +115,7 @@ def cuda_ms(fn, reps: int, warm: int = 2, prep=None) -> float:
         if prep:
             prep()
         _FLUSH[0].zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -223,31 +229,57 @@ def kernel_phase(eng, K, R, card: str) -> dict:
             raise AssertionError(f"{name} network: kernels differ from plain (max err {err})")
         log(f"network {name}: n={size}, {len(tb)} stages, kernels bit-exact vs plain")
 
-    # benes_outer_stage: the net's first outer stage.
-    if not pre:
-        raise AssertionError("network too small to have outer stages; use --scale >= 16")
-    st0 = table[pre[0]]
+    # How much of the local runs' stored masks lies inside each stage's
+    # nonzero range [lo, hi): the local pass skips a stage on a tile whose
+    # slab lies outside it, as the reference's pass B does.
+    for name, tb, size in (("vperm", rg.vperm_table, rg.vperm_size), ("net", table, n)):
+        _, loc, _, t = K.split_passes(tb, size)
+        words = inside = slabs = live = 0
+        for st in (tb[i] for i in loc):
+            words += st.nwords
+            inside += st.hi - st.lo
+            span = t // 2 if st.compact else t
+            for a in range(0, st.nwords, span):
+                slabs += 1
+                live += a < st.hi and a + span > st.lo
+        log(f"local run of {name}: {inside / words:.6f} of its {words} stored mask words "
+            f"inside the stages' nonzero ranges; {live} of {slabs} tile slabs touch one")
+
+    # benes_outer_pass: the net's outer prefix, one launch.
+    runs = K.outer_plan(table, pre, n)
+    if len(runs) != 1:
+        raise AssertionError(f"net prefix: {len(runs)} outer passes, expected one")
+    run = runs[0]
+    pstages = tuple(table[i] for i in run.stages)
     out = torch.empty_like(l2)
-    got = K.benes_outer_stage(l2, masks, st0, n, out=out)
-    err = max_abs_err(got, R.apply_benes_std(l2, masks, (st0,), n))
-    ms = cuda_ms(lambda: K.benes_outer_stage(l2, masks, st0, n, out=out), 50)
-    pms = cuda_ms(lambda: R.apply_benes_std(l2, masks, (st0,), n), 10)
-    nbytes = 2 * 4 * nw + 4 * st0.nwords
-    record("benes_outer_stage", err, ms, pms, nbytes,
-           f"net n={n} d={st0.d} ({len(pre) + len(suf)} outer stages per apply)")
-    # benes_local_pass: the net's local run, on the prefix's output.
-    x = l2
-    for i in pre:
-        x = R.apply_benes_std(x, masks, (table[i],), n)
-    stages = tuple(table[i] for i in local)
-    out = torch.empty_like(x)
-    got = K.benes_local_pass(x, masks, stages, n, tile, out=out)
-    err = max_abs_err(got, R.apply_benes_std(x, masks, stages, n))
-    ms = cuda_ms(lambda: K.benes_local_pass(x, masks, stages, n, tile, out=out), 50)
-    pms = cuda_ms(lambda: R.apply_benes_std(x, masks, stages, n), 5)
-    nbytes = 2 * 4 * nw + 4 * sum(s.nwords for s in stages)
-    record("benes_local_pass", err, ms, pms, nbytes,
-           f"net n={n}, {len(stages)} local stages, tile {tile} words")
+    got = K.benes_outer_pass(l2, masks, pstages, n, out=out)
+    err = max_abs_err(got, R.apply_benes_std(l2, masks, pstages, n))
+    ms = cuda_ms(lambda: K.benes_outer_pass(l2, masks, pstages, n, out=out), 50)
+    pms = cuda_ms(lambda: R.apply_benes_std(l2, masks, pstages, n), 10)
+    nbytes = 2 * 4 * nw + 4 * sum(st.nwords for st in pstages)
+    record("benes_outer_pass", err, ms, pms, nbytes,
+           f"net n={n} prefix, {run.k} stages d={pstages[0].d}..{pstages[-1].d}, "
+           f"{run.units} units of {run.row_words} x {1 << run.k} words (one launch per side)")
+    # benes_local_pass: each network's local run, on its prefix's output.
+    for name, words, m, tb, size, row in (
+        ("vperm", fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size, "benes_local_pass (vperm)"),
+        ("net", l2, masks, table, n, "benes_local_pass"),
+    ):
+        p_, loc, _, t = K.split_passes(tb, size)
+        x = R.apply_benes_std(words, m, tuple(tb[i] for i in p_), size)
+        stages = tuple(tb[i] for i in loc)
+        out = torch.empty_like(x)
+        got = K.benes_local_pass(x, m, stages, size, t, out=out)
+        err = max_abs_err(got, R.apply_benes_std(x, m, stages, size))
+        ms = cuda_ms(lambda: K.benes_local_pass(x, m, stages, size, t, out=out), 50)
+        pms = cuda_ms(lambda: R.apply_benes_std(x, m, stages, size), 5)
+        # Bytes: the words read and written once, and the mask words inside
+        # each stage's nonzero range (the kernel reads no other).
+        nbytes = 2 * 4 * (size // 32) + 4 * sum(st.hi - st.lo for st in stages)
+        record(row, err, ms, pms, nbytes,
+               f"{name} n={size}, {len(stages)} local stages, tile {t} words, "
+               f"{size // 32 // t} blocks")
+        del x, out, got
 
     # class_rowmin on the routed L1 words.
     l1 = K.apply_benes(l2, masks, table, n)
@@ -941,6 +973,16 @@ def main(argv=None) -> int:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"main path never launched kernel {name}")
+    # Per gather superstep: per network one outer pass per side and one
+    # local pass, then the row-min and the update.
+    steps = launches["packed_update"]
+    per_step = {"benes_outer_pass": 4, "benes_local_pass": 2, "class_rowmin": 1,
+                "packed_update": 1}
+    if launches != {k: v * steps for k, v in per_step.items()}:
+        raise AssertionError(f"main path: launches {launches} in {steps} supersteps, "
+                             f"expected {per_step} per superstep")
+    log(f"main path: {sum(launches.values())} launches in {steps} supersteps, "
+        f"{sum(launches.values()) // steps} per gather superstep")
     mean_s = float(np.mean(secs))
     for r, s in zip(roots, secs):
         device_trace(f"root {r}", lambda: eng.run(r), s)
@@ -998,6 +1040,14 @@ def main(argv=None) -> int:
                                  (MXU_SOURCE, MXU_REPLACES))
         for name in replaces
     ]
+    # The vperm's local pass: its own row, the same kernel and count.
+    at = next(i for i, k in enumerate(kernels) if k["name"] == "benes_local_pass")
+    vp = kres["benes_local_pass (vperm)"]
+    kernels.insert(at, dict(
+        kernels[at], name="benes_local_pass (vperm)", max_abs_err=vp["max_abs_err"],
+        ms=vp["ms"], plain_ms=vp["plain_ms"], bound_ms=vp["bound_ms"], library_ms=None,
+        phase="kernel phase: " + vp["shape"] + "; launches: both networks' passes",
+    ))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -56,24 +56,78 @@ def _eq(a: torch.Tensor, b: torch.Tensor) -> None:
     np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
 
 
+def _passes(x, masks, table, n, tile, inplace):
+    """The network as ``apply_benes`` runs it, at ``tile``: one
+    ``benes_outer_pass`` per run of each side, one ``benes_local_pass``;
+    in place or into fresh outputs.  Returns the words after the prefix
+    and after the whole network."""
+    pre, local, suf, _ = K.split_passes(table, n, tile)
+    y = x.clone()
+    for run in K.outer_plan(table, pre, n):
+        stages = tuple(table[i] for i in run.stages)
+        y = K.benes_outer_pass(y, masks, stages, n, out=y if inplace else None)
+    after_pre = y.clone()
+    y = K.benes_local_pass(y, masks, tuple(table[i] for i in local), n, tile,
+                           out=y if inplace else None)
+    for run in K.outer_plan(table, suf, n):
+        stages = tuple(table[i] for i in run.stages)
+        y = K.benes_outer_pass(y, masks, stages, n, out=y if inplace else None)
+    return after_pre, y
+
+
 def test_card_benes_kernels_match_plain(card, layout):
     rg = layout
-    x = _t(_words(np.random.default_rng(6), rg.net_size // 32), card)
+    table, n = rg.net_table, rg.net_size
+    x = _t(_words(np.random.default_rng(6), n // 32), card)
     masks = _t(rg.net_masks, card)
-    want = R.apply_benes_std(x, masks, rg.net_table, rg.net_size)
-    _eq(K.apply_benes(x, masks, rg.net_table, rg.net_size), want)
-    K.reset_launches()
+    want = R.apply_benes_std(x, masks, table, n)
+    _eq(K.apply_benes(x, masks, table, n), want)
     for tile in (64, 256):  # small tiles force outer stages at this size
-        pre, local, suf, _ = K.split_passes(rg.net_table, rg.net_size, tile)
-        y = x
-        for i in pre:
-            y = K.benes_outer_stage(y, masks, rg.net_table[i], rg.net_size)
-        y = K.benes_local_pass(y, masks, tuple(rg.net_table[i] for i in local), rg.net_size, tile)
-        for i in suf:
-            y = K.benes_outer_stage(y, masks, rg.net_table[i], rg.net_size)
-        _eq(y, want)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["benes_local_pass"] == 2 and K.LAUNCHES["benes_outer_stage"] > 0
+        pre, _, suf, _ = K.split_passes(table, n, tile)
+        runs = len(K.outer_plan(table, pre, n)) + len(K.outer_plan(table, suf, n))
+        for inplace in (False, True):
+            K.reset_launches()
+            after_pre, y = _passes(x, masks, table, n, tile, inplace)
+            _eq(after_pre, R.apply_benes_std(x, masks, tuple(table[i] for i in pre), n))
+            _eq(y, want)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["benes_local_pass"] == 1
+            assert K.LAUNCHES["benes_outer_pass"] == runs > 0
+
+
+def test_card_benes_per_word_copy_path(card, layout):
+    """Mask slabs that are not 16-byte aligned take the local pass's
+    per-word copy path: the layout's net with its masks one word off
+    alignment, and networks of 32, 64 and 128 elements (tiles of 1, 2 and
+    4 words; 4-, 8- and 16-byte slabs).  Words one word off alignment, or
+    rows under 4 words (tile 2), take the outer pass's word-by-word copies
+    and the local pass's per-word tile copy."""
+    rg = layout
+    table, n = rg.net_table, rg.net_size
+    rng = np.random.default_rng(8)
+    buf = torch.empty(rg.net_masks.size + 1, dtype=torch.int32, device=card)
+    masks = buf[1:]
+    masks.copy_(_t(rg.net_masks, card))
+    assert masks.data_ptr() % 16
+    x = _t(_words(rng, n // 32), card)
+    want = R.apply_benes_std(x, masks, table, n)
+    _eq(K.apply_benes(x, masks, table, n), want)
+    for tile in (64, 256):
+        _eq(_passes(x, masks, table, n, tile, True)[1], want)
+    xbuf = torch.empty(n // 32 + 1, dtype=torch.int32, device=card)
+    xm = xbuf[1:]
+    xm.copy_(x)
+    assert xm.data_ptr() % 16
+    for tile in (2, 64):
+        pre, _, _, _ = K.split_passes(table, n, tile)
+        assert min(r.row_words for r in K.outer_plan(table, pre, n)) < 4 or tile != 2
+        _eq(_passes(xm, masks, table, n, tile, False)[1], want)
+        _eq(_passes(x, masks, table, n, tile, True)[1], want)
+    for size in (32, 64, 128):
+        m, tb = p_relay._compact_and_table(benes.route_std(rng.permutation(size)), size)
+        m = _t(m, card)
+        x = _t(_words(rng, size // 32), card)
+        _eq(K.apply_benes(x, m, tb, size), R.apply_benes_std(x, m, tb, size))
 
 
 def test_card_rowmin_and_update_match_plain(card, layout):
