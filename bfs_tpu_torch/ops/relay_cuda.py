@@ -266,6 +266,12 @@ def benes_local_pass(
     nonzero range ``StageSpec.lo/hi``).  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
+    return launch_local_pass(kernels(), x_in, masks, stages, n, tile_words, out)
+
+
+def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None) -> torch.Tensor:
+    """:func:`benes_local_pass` on the card, through ``lib`` (the built
+    ``relay_kernels.cu``, or a copy of it with other constants)."""
     nw = n // 32
     _check_words("x_in", x_in, nw)
     _check_words("masks", masks)
@@ -274,7 +280,7 @@ def benes_local_pass(
     out = torch.empty_like(x_in) if out is None else out
     _check_words("out", out, nw)
     offsets, dists, compact, lo, hi = _local_args(tuple(stages))
-    rc = kernels().benes_local_pass(
+    rc = lib.benes_local_pass(
         _ptr(x_in), _ptr(out), _ptr(masks),
         offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
         compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
@@ -297,13 +303,16 @@ class OuterRun(NamedTuple):
     units: int
 
 
-def outer_geometry(dists: tuple[int, ...], n: int) -> tuple[int, int, int, int]:
+def outer_geometry(
+    dists: tuple[int, ...], n: int, max_words: int = OUTER_MAX_WORDS,
+) -> tuple[int, int, int, int]:
     """``(b0, k, row_words, units)`` of one fused outer pass over stages of
     element distances ``dists``: word distances ``2^b`` for the ``k``
     consecutive bits ``b`` in ``[b0, b0 + k)``, each once.  A unit holds
-    ``row_words << k`` words: ``2^k`` rows of ``row_words`` consecutive
-    words (at most ``2^b0``), one per combination of those bits; the units
-    partition the words."""
+    ``row_words << k`` words, at most ``max_words`` (the kernel's
+    ``kOuterWords``): ``2^k`` rows of ``row_words`` consecutive words (at
+    most ``2^b0``), one per combination of those bits; the units partition
+    the words."""
     nw = n // 32
     if any(d < 32 or d & (d - 1) for d in dists):
         raise ValueError(f"outer stages pair whole words at power-of-two distances, got {dists}")
@@ -313,7 +322,7 @@ def outer_geometry(dists: tuple[int, ...], n: int) -> tuple[int, int, int, int]:
         raise ValueError(f"an outer pass takes consecutive distinct word-distance bits, got {bits}")
     if k > OUTER_MAX_STAGES or (1 << (b0 + k)) > nw:
         raise ValueError(f"{k} outer stages from bit {b0} do not fit one pass of {nw} words")
-    row = min(OUTER_ROW_WORDS, 1 << b0, OUTER_MAX_WORDS >> k)
+    row = min(OUTER_ROW_WORDS, 1 << b0, max_words >> k)
     while nw // (row << k) < OUTER_TARGET_UNITS and row > OUTER_MIN_ROW_WORDS:
         row //= 2
     return b0, k, row, nw // (row << k)
@@ -350,14 +359,22 @@ def benes_outer_pass(
     :data:`OUTER_MAX_STAGES`) in one launch.  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
+    return launch_outer_pass(kernels(), x_in, masks, stages, n, out)
+
+
+def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
+                      max_words: int = OUTER_MAX_WORDS) -> torch.Tensor:
+    """:func:`benes_outer_pass` on the card, through ``lib`` (the built
+    ``relay_kernels.cu``, or a copy of it with other constants, whose
+    ``kOuterWords`` is ``max_words``)."""
     nw = n // 32
     _check_words("x_in", x_in, nw)
     _check_words("masks", masks)
-    b0, k, row, _ = outer_geometry(tuple(st.d for st in stages), n)
+    b0, k, row, _ = outer_geometry(tuple(st.d for st in stages), n, max_words)
     out = torch.empty_like(x_in) if out is None else out
     _check_words("out", out, nw)
     offsets, bits, compact = _outer_args(tuple(stages), b0)
-    rc = kernels().benes_outer_pass(
+    rc = lib.benes_outer_pass(
         _ptr(x_in), _ptr(out), _ptr(masks), offsets.ctypes.data_as(_VP),
         bits.ctypes.data_as(_VP), compact.ctypes.data_as(_VP), len(stages), b0, k,
         row.bit_length() - 1, nw, _stream(),

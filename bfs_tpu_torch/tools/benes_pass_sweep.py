@@ -18,13 +18,12 @@ network's prefix with every build that changes it, on random masks (every
 stored word may be nonzero, so no tile skips a stage), each output held
 against the plain version:
 
-  cold      one launch after a 256 MB write that evicts the L2 and about
-            1 ms of device sleep, CUDA events around the wrapper call (as
-            ``chip_smoke.py`` times kernels: the host's time to launch the
-            kernel passes during the sleep);
-  unpadded  the same without the sleep, as ``chip_smoke.py`` timed kernels
-            before it slept there: where the L2 write ends before the host
-            has launched the kernel, the span holds the difference.
+  cold      ``utils.timing.cold_ms``, as ``chip_smoke.py`` times kernels:
+            one launch after a 256 MB write that evicts the L2 and a few ms
+            of device sleep, CUDA events around the wrapper call (the
+            host's time to launch the kernel passes during the sleep);
+  unpadded  the same without the sleep: where the L2 write ends before
+            the host has launched the kernel, the span holds the difference.
 
 Also the host microseconds per wrapper call.  One line per (build,
 kernel), the card's name and power limit, and one JSON line.
@@ -33,11 +32,8 @@ kernel), the card's name and power limit, and one JSON line.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
-import os
-import re
-import subprocess
-import time
 
 import torch
 
@@ -46,44 +42,31 @@ from ..graph.relay import COMPACT_MIN_D, StageSpec
 from ..ops import relay as R
 from ..ops import relay_cuda as K
 from ..utils import cuda_build
-from ..utils.native_loader import BUILD_DIR
+from ..utils.timing import card_line, cold_ms, host_us
 
 HBM_BYTES_PER_S = 3.35e12
-SLEEP_CYCLES = 2_000_000  # about 1 ms at the H100's clocks
-#: name -> (the kernel it changes, its constants, ``relay_cuda.OUTER_MAX_WORDS``
-#: while it runs).
+#: name -> (the kernel it changes, its constants).
 VARIANTS = {
-    "ring1": ("benes_local_pass", {"kMaxRing": 1}, None),
-    "ring2": ("benes_local_pass", {"kMaxRing": 2}, None),
-    "ring4": ("benes_local_pass", {"kMaxRing": 4}, None),
-    "sweep1": ("benes_local_pass", {"kMaxSweep": 1}, None),
-    "units1024x128": ("benes_outer_pass", {"kOuterWords": 1024, "kOuterThreads": 128}, 1024),
-    "units4096x256": ("benes_outer_pass", {"kOuterWords": 4096, "kOuterThreads": 256}, 4096),
-    "units4096x512": ("benes_outer_pass", {"kOuterWords": 4096, "kOuterThreads": 512}, 4096),
+    "ring1": ("benes_local_pass", {"kMaxRing": 1}),
+    "ring2": ("benes_local_pass", {"kMaxRing": 2}),
+    "ring4": ("benes_local_pass", {"kMaxRing": 4}),
+    "sweep1": ("benes_local_pass", {"kMaxSweep": 1}),
+    "units1024x128": ("benes_outer_pass", {"kOuterWords": 1024, "kOuterThreads": 128}),
+    "units4096x256": ("benes_outer_pass", {"kOuterWords": 4096, "kOuterThreads": 256}),
+    "units4096x512": ("benes_outer_pass", {"kOuterWords": 4096, "kOuterThreads": 512}),
 }
 
 
 def builds() -> dict:
-    """name -> loaded library: the committed build and the variants."""
-    src = open(K.SOURCES["relay_kernels"]).read()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {}
-    for name, (_, consts, _) in VARIANTS.items():
-        text = src
-        for const, value in consts.items():
-            pat = re.compile(rf"constexpr int {const} = (\d+);")
-            if not pat.search(text):
-                raise RuntimeError(f"{const} not found in relay_kernels.cu")
-            text = pat.sub(f"constexpr int {const} = {value};", text)
-        path = os.path.join(BUILD_DIR, f"relay_benes_sweep_{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        paths[f"relay_benes_sweep_{name}"] = path
-    cuda_build.build({**paths, "relay_kernels": K.SOURCES["relay_kernels"]})
-    libs = {"committed": K.kernels()}
-    for name, path in paths.items():
-        libs[name[len("relay_benes_sweep_"):]] = cuda_build.load(name, path, K._register)
-    return libs
+    """name -> (loaded library, the kernel it changes or None, its
+    ``kOuterWords``): the committed build and the variants."""
+    libs = cuda_build.build_variants(
+        "relay_kernels", K.SOURCES["relay_kernels"],
+        {name: consts for name, (_, consts) in VARIANTS.items()}, K._register)
+    out = {"committed": (K.kernels(), None, K.OUTER_MAX_WORDS)}
+    for name, (kernel, consts) in VARIANTS.items():
+        out[name] = (libs[name], kernel, consts.get("kOuterWords", K.OUTER_MAX_WORDS))
+    return out
 
 
 def network(log_n: int, gen: torch.Generator):
@@ -108,39 +91,6 @@ def network(log_n: int, gen: torch.Generator):
     return tuple(table), masks, n
 
 
-_FLUSH = []
-
-
-def timed(fn, mode: str, reps: int = 20) -> float:
-    """Milliseconds per call of ``fn`` on the card, as the module docstring
-    defines ``mode``."""
-    if not _FLUSH:
-        _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
-    fn()
-    fn()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(reps)]
-    for t0, t1 in ev:
-        _FLUSH[0].zero_()
-        if mode == "cold":
-            torch.cuda._sleep(SLEEP_CYCLES)
-        t0.record()
-        fn()
-        t1.record()
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in ev) / reps
-
-
-def host_us(fn, reps: int = 200) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / reps * 1e6
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", type=int, default=26)
@@ -148,63 +98,54 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("benes_pass_sweep: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     libs = builds()
     for line in cuda_build.BUILD_INFO["relay_kernels"]["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"ptxas: {line.strip()}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    committed, max_words = K.kernels, K.OUTER_MAX_WORDS
-    try:
-        for name, log_n in (("vperm", args.vperm), ("net", args.net)):
-            table, masks, n = network(log_n, gen)
-            pre, local, _, tile = K.split_passes(table, n)
-            nw = n // 32
-            x = torch.randint(-(2**31), 2**31, (nw,), dtype=torch.int32, device="cuda",
-                              generator=gen)
-            out = torch.empty_like(x)
-            lstages = tuple(table[i] for i in local)
-            ostages = tuple(table[i] for i in pre)
-            cases = {
-                "benes_local_pass": (
-                    lambda: K.benes_local_pass(x, masks, lstages, n, tile, out=out),
-                    R.apply_benes_std(x, masks, lstages, n),
-                    2 * 4 * nw + 4 * sum(st.nwords for st in lstages),
-                    lambda: f"{len(lstages)} stages, tile {tile} words, {nw // tile} blocks"),
-                "benes_outer_pass": (
-                    lambda: K.benes_outer_pass(x, masks, ostages, n, out=out),
-                    R.apply_benes_std(x, masks, ostages, n),
-                    2 * 4 * nw + 4 * sum(st.nwords for st in ostages),
-                    lambda: "prefix, {1} stages, {3} units of {2} x 2^{1} words".format(
-                        *K.outer_geometry(tuple(st.d for st in ostages), n))),
-            }
-            for lib_name, lib in libs.items():
-                only, _, words = VARIANTS.get(lib_name, (None, None, None))
-                K.kernels = lambda lib=lib: lib
-                K.OUTER_MAX_WORDS = words or max_words
-                for kernel, (fn, want, nbytes, shape) in cases.items():
-                    if only not in (None, kernel):
-                        continue
-                    shape = shape()
-                    if not torch.equal(fn(), want):
-                        raise AssertionError(f"{name} {kernel} ({lib_name}) differs from plain")
-                    ms = {mode: timed(fn, mode) for mode in ("cold", "unpadded")}
-                    row = dict(network=name, n=n, kernel=kernel, build=lib_name, shape=shape,
-                               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, host_us=host_us(fn),
-                               **ms)
-                    rows.append(row)
-                    print(f"{name} n=2^{log_n} {kernel} [{lib_name}] ({shape}): cold "
-                          f"{ms['cold']:.4f} ms, unpadded {ms['unpadded']:.4f} ms; bound "
-                          f"{row['bound_ms']:.4f} ms; host "
-                          f"{row['host_us']:.1f} us per call; bit-exact", flush=True)
-            del masks, x, out
-            torch.cuda.empty_cache()
-    finally:
-        K.kernels, K.OUTER_MAX_WORDS = committed, max_words
+    for name, log_n in (("vperm", args.vperm), ("net", args.net)):
+        table, masks, n = network(log_n, gen)
+        pre, local, _, tile = K.split_passes(table, n)
+        nw = n // 32
+        x = torch.randint(-(2**31), 2**31, (nw,), dtype=torch.int32, device="cuda",
+                          generator=gen)
+        out = torch.empty_like(x)
+        lstages = tuple(table[i] for i in local)
+        ostages = tuple(table[i] for i in pre)
+        cases = {
+            "benes_local_pass": (
+                lambda lib, words: K.launch_local_pass(lib, x, masks, lstages, n, tile, out),
+                R.apply_benes_std(x, masks, lstages, n),
+                2 * 4 * nw + 4 * sum(st.nwords for st in lstages),
+                lambda words: f"{len(lstages)} stages, tile {tile} words, {nw // tile} blocks"),
+            "benes_outer_pass": (
+                lambda lib, words: K.launch_outer_pass(lib, x, masks, ostages, n, out, words),
+                R.apply_benes_std(x, masks, ostages, n),
+                2 * 4 * nw + 4 * sum(st.nwords for st in ostages),
+                lambda words: "prefix, {1} stages, {3} units of {2} x 2^{1} words".format(
+                    *K.outer_geometry(tuple(st.d for st in ostages), n, words))),
+        }
+        for lib_name, (lib, only, words) in libs.items():
+            for kernel, (launch, want, nbytes, shape) in cases.items():
+                if only not in (None, kernel):
+                    continue
+                fn = functools.partial(launch, lib, words)
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"{name} {kernel} ({lib_name}) differs from plain")
+                ms = {mode: cold_ms(fn, 20, sleep=mode == "cold")
+                      for mode in ("cold", "unpadded")}
+                row = dict(network=name, n=n, kernel=kernel, build=lib_name,
+                           shape=shape(words), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                           host_us=host_us(fn), **ms)
+                rows.append(row)
+                print(f"{name} n=2^{log_n} {kernel} [{lib_name}] ({row['shape']}): cold "
+                      f"{ms['cold']:.4f} ms, unpadded {ms['unpadded']:.4f} ms; bound "
+                      f"{row['bound_ms']:.4f} ms; host "
+                      f"{row['host_us']:.1f} us per call; bit-exact", flush=True)
+        del masks, x, out
+        torch.cuda.empty_cache()
     print(card)
     print(json.dumps({"card": card, "sweep": rows}))
     return 0

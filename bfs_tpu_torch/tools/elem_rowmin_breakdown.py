@@ -8,8 +8,9 @@ Builds the graph and the 64-source batch that ``chip_smoke.py`` builds
 (R-MAT, edge factor 6, graph seed 1, sources drawn with ``--seed`` after
 its three roots), walks the batch to the superstep with the most trees in
 the frontier, and times one ``elem_rowmin_update`` launch (after an L2
-flush, mean of 20, the state restored before each) over the whole work
-table and over each kind of its rows alone: rank-major classes walked by
+flush and a device sleep, ``utils.timing.cold_ms``; mean of 20, the state
+restored before each) over the whole work table and over each kind of its
+rows alone: rank-major classes walked by
 one chunk, rank-major classes split into chunks, vertex-major classes with
 a block per vertex or a warp per vertex, and the tail.  A partial table
 leaves the other vertices' outputs unwritten; only its time is read.
@@ -28,9 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
-import subprocess
 
 import numpy as np
 import torch
@@ -40,7 +38,7 @@ from ..graph import generators
 from ..ops import relay_cuda as K
 from ..ops import relay_elem as RE
 from ..utils import cuda_build
-from ..utils.native_loader import BUILD_DIR
+from ..utils.timing import card_line, cold_ms
 
 #: (kRowBatch, kElemBlocksPerSm) of the copies ``--sweep`` times.
 SWEEP = ((2, 6), (4, 6), (8, 6), (4, 5))
@@ -54,25 +52,6 @@ KINDS = {
     "vertex-major, block per vertex": lambda r: r[0] == 3,
     "tail": lambda r: r[0] == 2,
 }
-
-
-def cold_ms(fn, prep, reps: int = 20) -> float:
-    """Mean ms per call, each after ``prep`` and a 256 MB write that
-    evicts the L2."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    prep()
-    fn()
-    pairs = []
-    for _ in range(reps):
-        prep()
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def densest_superstep(eng, sources):
@@ -136,8 +115,8 @@ def breakdown(eng, st0, l1) -> dict:
     table, total = K.elem_rowmin_items(tuple(rg.in_classes), rg.vr)
     rows = table.tolist()
     nblocks = [(rows[i + 1][10] if i + 1 < len(rows) else total) - r[10] for i, r in enumerate(rows)]
-    out = {"full": dict(ms=cold_ms(lambda: launch(eng, l1, work, table, total), restore),
-                        blocks=total, items=len(rows))}
+    full = cold_ms(lambda: launch(eng, l1, work, table, total), 20, warm=1, prep=restore)
+    out = {"full": dict(ms=full, blocks=total, items=len(rows))}
     for name, keep in KINDS.items():
         sub, block = [], 0
         for r, n in zip(rows, nblocks):
@@ -146,36 +125,29 @@ def breakdown(eng, st0, l1) -> dict:
                 block += n
         if sub:
             t = torch.tensor(sub, dtype=torch.int64)
-            out[name] = dict(ms=cold_ms(lambda: launch(eng, l1, work, t, block), restore),
-                             blocks=block, items=len(sub))
+            ms = cold_ms(lambda: launch(eng, l1, work, t, block), 20, warm=1, prep=restore)
+            out[name] = dict(ms=ms, blocks=block, items=len(sub))
     return out
 
 
 def sweep_builds() -> dict:
-    """name -> loaded library: a copy of the elem source for each
-    (kRowBatch, kElemBlocksPerSm) in SWEEP other than the committed one."""
-    src = open(K.SOURCES["relay_elem_kernels"]).read()
-    pats = [re.compile(r"constexpr int kRowBatch = (\d+);"),
-            re.compile(r"constexpr int kElemBlocksPerSm = (\d+);")]
-    committed = tuple(int(p.search(src).group(1)) for p in pats)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {}
-    for rb, lb in SWEEP:
-        if (rb, lb) == committed:
-            continue
-        text = pats[1].sub(f"constexpr int kElemBlocksPerSm = {lb};",
-                           pats[0].sub(f"constexpr int kRowBatch = {rb};", src))
-        path = os.path.join(BUILD_DIR, f"relay_elem_sweep_rb{rb}_lb{lb}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        paths[f"relay_elem_sweep_rb{rb}_lb{lb}"] = path
-    cuda_build.build(paths)
-    libs = {f"kRowBatch={committed[0]}, kElemBlocksPerSm={committed[1]} (committed)": K.elem_kernels()}
-    for name, path in paths.items():
-        rb, lb = name.split("_")[-2:]
-        libs[f"kRowBatch={rb[2:]}, kElemBlocksPerSm={lb[2:]}"] = cuda_build.load(
-            name, path, K._register_elem)
-    return libs
+    """name -> loaded library: the committed build and a copy of the elem
+    source for each (kRowBatch, kElemBlocksPerSm) in SWEEP other than the
+    committed one."""
+    src = K.SOURCES["relay_elem_kernels"]
+    committed = (cuda_build.constant(src, "kRowBatch"),
+                 cuda_build.constant(src, "kElemBlocksPerSm"))
+    libs = cuda_build.build_variants(
+        "relay_elem_kernels", src,
+        {f"rb{rb}_lb{lb}": {"kRowBatch": rb, "kElemBlocksPerSm": lb}
+         for rb, lb in SWEEP if (rb, lb) != committed},
+        K._register_elem)
+    out = {f"kRowBatch={committed[0]}, kElemBlocksPerSm={committed[1]} (committed)":
+           K.elem_kernels()}
+    for name, lib in libs.items():
+        rb, lb = name.split("_")
+        out[f"kRowBatch={rb[2:]}, kElemBlocksPerSm={lb[2:]}"] = lib
+    return out
 
 
 def main(argv=None) -> int:
@@ -186,10 +158,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("elem_rowmin_breakdown: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     libs = sweep_builds() if args.sweep else {"committed": K.elem_kernels()}
     eng, st0, l1, pairs = batch_inputs(args.scale, args.seed)
     print(f"densest superstep {st0.level + 1}: {pairs} (tree, vertex) pairs in the frontier, "

@@ -12,9 +12,9 @@ at 0 (every tile with a reachable bit takes the tensor cores) and one at
 2^20 (every tile takes the sparse path), and times them beside the
 committed build on layouts of ``--tiles`` tiles that each hold exactly k
 bits (1 to 16384), spread over the tile's rows or packed into the rows of
-one lane, under an all-ones frontier: one launch after an L2 flush, mean
-of 10.  Every output is held against the
-plain version.  One line per k, the card's name and power limit, and one
+one lane, under an all-ones frontier: one launch after an L2 flush and a
+device sleep (``utils.timing.cold_ms``), mean of 10.  Every output is
+held against the plain version.  One line per k, the card's name and power limit, and one
 JSON line; the threshold is the k where the two paths' times cross.
 """
 
@@ -22,41 +22,27 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
-import subprocess
 
 import torch
 
 from ..ops import relay_cuda as K
 from ..ops import relay_mxu as RM
 from ..utils import cuda_build
-from ..utils.native_loader import BUILD_DIR
+from ..utils.timing import card_line, cold_ms
 
 KS = tuple(1 << i for i in range(15))  # 1 .. 16384 bits: up to a full tile
 ROWS = 1 << 22  # rows = cols: 32,768 row and column blocks
-CONSTANT = re.compile(r"constexpr int kSparseMaxBits = (\d+);")
 HBM_BYTES_PER_S = 3.35e12
 
 
 def variants() -> dict:
     """name -> loaded library: the committed build and the all-dense and
     all-sparse copies."""
-    src = open(K.SOURCES["relay_mxu_kernels"]).read()
-    if not CONSTANT.search(src):
-        raise RuntimeError("kSparseMaxBits not found in relay_mxu_kernels.cu")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {}
-    for name, value in (("dense", 0), ("sparse", 1 << 20)):
-        path = os.path.join(BUILD_DIR, f"relay_mxu_sweep_{name}.cu")
-        with open(path, "w") as f:
-            f.write(CONSTANT.sub(f"constexpr int kSparseMaxBits = {value};", src))
-        paths[f"relay_mxu_sweep_{name}"] = path
-    cuda_build.build({**paths, "relay_mxu_kernels": K.SOURCES["relay_mxu_kernels"]})
-    libs = {"committed": K.mxu_kernels()}
-    for name, path in paths.items():
-        libs[name.rsplit("_", 1)[1]] = cuda_build.load(name, path, K._register_mxu)
-    return libs
+    libs = cuda_build.build_variants(
+        "relay_mxu_kernels", K.SOURCES["relay_mxu_kernels"],
+        {"dense": {"kSparseMaxBits": 0}, "sparse": {"kSparseMaxBits": 1 << 20}},
+        K._register_mxu)
+    return {"committed": K.mxu_kernels(), **libs}
 
 
 def launch(lib, fw, ops, vtp: int, cols: int) -> torch.Tensor:
@@ -74,22 +60,6 @@ def launch(lib, fw, ops, vtp: int, cols: int) -> torch.Tensor:
     if rc:
         raise RuntimeError(f"mxu_expand: CUDA error {rc} at launch")
     return out[:cols]
-
-
-def cold_ms(fn, reps: int = 10) -> float:
-    """Mean ms per call, each after a 256 MB write that evicts the L2."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    fn()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 #: Rows in the order that fills one lane's rows first: the kernel's lane L
@@ -133,12 +103,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mxu_sparse_sweep: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     libs = variants()
-    committed = int(CONSTANT.search(open(K.SOURCES["relay_mxu_kernels"]).read()).group(1))
+    committed = cuda_build.constant(K.SOURCES["relay_mxu_kernels"], "kSparseMaxBits")
     gen = torch.Generator(device="cuda").manual_seed(0)
     fw = torch.full((ROWS // 32,), -1, dtype=torch.int32, device="cuda")
     kw = dict(rows=ROWS, cols=ROWS, rtp=ROWS, vtp=ROWS)
@@ -152,7 +119,7 @@ def main(argv=None) -> int:
             for name, lib in libs.items():
                 if not torch.equal(launch(lib, fw, ops, ROWS, ROWS), want):
                     raise AssertionError(f"k={k}: the {name} build differs from the plain version")
-                ms[name] = cold_ms(lambda: launch(lib, fw, ops, ROWS, ROWS))
+                ms[name] = cold_ms(lambda: launch(lib, fw, ops, ROWS, ROWS), 10, warm=1)
             kind = "spread" if spread else "one lane"
             rows.append(dict(k=k, layout=kind, **ms))
             print(f"k={k} ({kind}): dense {ms['dense']:.4f} ms, sparse {ms['sparse']:.4f} ms, "

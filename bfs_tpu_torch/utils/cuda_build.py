@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -101,3 +102,36 @@ def load(name: str, source: str, register) -> ctypes.CDLL:
         register(lib)
         _libs[name] = lib
         return lib
+
+
+def constant(source: str, const: str) -> int:
+    """The value of ``constexpr int <const>`` in ``source``."""
+    found = re.search(rf"constexpr int {const} = (\d+);", open(source).read())
+    if not found:
+        raise RuntimeError(f"{const} not found in {source}")
+    return int(found.group(1))
+
+
+def build_variants(name: str, source: str, variants: dict[str, dict[str, int]],
+                   register) -> dict[str, ctypes.CDLL]:
+    """Copies of ``source`` with some of its ``constexpr int`` constants
+    changed, for tuning: ``variants`` maps a variant's name to its
+    ``{constant: value}``.  Each copy is written into the build directory
+    and built beside ``source`` itself (one nvcc each, all started
+    together); returns variant name -> loaded library (``lib<name>_<variant>``)."""
+    text = open(source).read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {}
+    for var, consts in variants.items():
+        copy = text
+        for const, value in consts.items():
+            pat = re.compile(rf"constexpr int {const} = \d+;")
+            if not pat.search(copy):
+                raise RuntimeError(f"{const} not found in {source}")
+            copy = pat.sub(f"constexpr int {const} = {value};", copy)
+        path = os.path.join(BUILD_DIR, f"{name}_{var}.cu")
+        with open(path, "w") as f:
+            f.write(copy)
+        paths[f"{name}_{var}"] = path
+    build({**paths, name: source})
+    return {var: load(f"{name}_{var}", paths[f"{name}_{var}"], register) for var in variants}

@@ -1,0 +1,74 @@
+"""Timing on the card, shared by ``chip_smoke.py`` and the tools.
+
+Nothing here runs at import time; every function needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+#: Device sleep before each timed call: about 4 ms at the H100's clocks,
+#: longer than the host takes to launch a superstep's kernels (26-54 us of
+#: host time per wrapper call, 28 launches per superstep at most).
+SLEEP_CYCLES = 8_000_000
+_FLUSH: list[torch.Tensor] = []
+
+
+def card_line() -> str:
+    """The card's name and power limit, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
+    them (the first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+def cold_ms(fn, reps: int, warm: int = 2, prep=None, sleep: bool = True) -> float:
+    """Mean milliseconds per call of ``fn`` on the card: CUDA events around
+    each of ``reps`` calls (after ``warm`` warm-up calls), each call
+    preceded by a 256 MB write that evicts the 50 MB L2, so every call
+    starts cold as the main path's mask reads do, and (``sleep``) by
+    :data:`SLEEP_CYCLES` of device sleep, so the host's time to launch the
+    call's kernels passes while the device sleeps and the events span
+    device time only.  Without the sleep, where the write ends before the
+    host has launched the call's kernels, the span holds the difference.
+    ``prep`` (untimed) runs before each call, to restore inputs that the
+    call updates in place."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
+    for _ in range(warm):
+        if prep:
+            prep()
+        fn()
+    pairs = []
+    for _ in range(reps):
+        if prep:
+            prep()
+        _FLUSH[0].zero_()
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (the time to launch its
+    kernels; the device may still be running them)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6

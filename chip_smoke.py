@@ -45,7 +45,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -80,50 +79,6 @@ MXU_REPLACES = {"mxu_expand": "bfs_tpu/ops/relay_mxu.py:373"}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0].strip()
-
-
-_FLUSH = []
-SLEEP_CYCLES = 2_000_000  # about 1 ms of device time at the H100's clocks
-
-
-def cuda_ms(fn, reps: int, warm: int = 2, prep=None) -> float:
-    """Mean milliseconds per call on the card: CUDA events around each of
-    ``reps`` calls (after ``warm`` warm-up calls), each call preceded by a
-    256 MB write that evicts the 50 MB L2, so every call starts cold as the
-    main path's mask reads do, and by about 1 ms of device sleep, so the
-    host's time to launch the call's kernels passes while the device
-    sleeps and the events span device time only.  ``prep`` (untimed) runs
-    before each call, to restore inputs that the call updates in place."""
-    import torch
-
-    if not _FLUSH:
-        _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
-    for _ in range(warm):
-        if prep:
-            prep()
-        fn()
-    pairs = []
-    for _ in range(reps):
-        if prep:
-            prep()
-        _FLUSH[0].zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        pairs.append((t0, t1))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def max_abs_err(a, b) -> int:
@@ -178,40 +133,30 @@ def device_trace(label: str, fn, wall_s: float) -> None:
 def kernel_phase(eng, K, R, card: str) -> dict:
     """Each kernel against its plain version on the card, on the inputs the
     main path gives it at the superstep with the largest frontier."""
-    import numpy as np
     import torch
+
+    from bfs_tpu_torch.tools.superstep_phases import largest_superstep, phase_fns
+    from bfs_tpu_torch.utils.timing import cold_ms
 
     rg = eng.relay_graph
     dev = eng.device
-    # Inputs: walk the main path (kernels) from the max-out-degree vertex
-    # and keep the carry of the superstep with the largest frontier.
-    outdeg = np.diff(rg.adj_indptr[: rg.vr + 1])
-    st = R.init_packed_relay_state(rg.vr, int(np.argmax(outdeg)), dev)
-    best = None
-    while bool(st.changed):
-        count = int(R.unpack_std(st.fwords, rg.vr).sum())
-        if best is None or count > best[0]:
-            best = (count, st.packed.clone(), st.fwords.clone(), st.level)
-        st = eng.superstep_packed(st)
-    count, packed0, fwords0, level0 = best
-    log(f"kernel inputs: superstep {level0 + 1}, frontier {count} vertices")
-
-    fw = torch.zeros(rg.vperm_size // 32, dtype=torch.int32, device=dev)
-    fw[: rg.vr // 32] = fwords0
-    y = K.apply_benes(fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size)
-    l2 = R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space)
+    s = largest_superstep(eng)
+    log(f"kernel inputs: superstep {s.level + 1}, frontier {s.count} vertices")
+    fw, l2 = s.fw, s.l2
     n, table, masks = rg.net_size, rg.net_table, eng.net_masks
     pre, local, suf, tile = K.split_passes(table, n)
     nw = n // 32
     results = {}
 
-    def record(name, err, ms, plain_ms, nbytes, shape):
+    def record(name, err, ms, plain_ms, nbytes, shape, kernel=None, share=1):
+        """``kernel``: the wrapper whose launch count the row reads (default
+        ``name``); the row's launches are that count over ``share``."""
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version (max err {err})")
         results[name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
-            shape=shape,
+            shape=shape, kernel=kernel or name, share=share,
         )
         log(f"kernel {name}: {shape}; bit-exact; {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
@@ -254,13 +199,15 @@ def kernel_phase(eng, K, R, card: str) -> dict:
     out = torch.empty_like(l2)
     got = K.benes_outer_pass(l2, masks, pstages, n, out=out)
     err = max_abs_err(got, R.apply_benes_std(l2, masks, pstages, n))
-    ms = cuda_ms(lambda: K.benes_outer_pass(l2, masks, pstages, n, out=out), 50)
-    pms = cuda_ms(lambda: R.apply_benes_std(l2, masks, pstages, n), 10)
+    ms = cold_ms(lambda: K.benes_outer_pass(l2, masks, pstages, n, out=out), 50)
+    pms = cold_ms(lambda: R.apply_benes_std(l2, masks, pstages, n), 10)
     nbytes = 2 * 4 * nw + 4 * sum(st.nwords for st in pstages)
     record("benes_outer_pass", err, ms, pms, nbytes,
            f"net n={n} prefix, {run.k} stages d={pstages[0].d}..{pstages[-1].d}, "
            f"{run.units} units of {run.row_words} x {1 << run.k} words (one launch per side)")
-    # benes_local_pass: each network's local run, on its prefix's output.
+    # benes_local_pass: each network's local run, on its prefix's output;
+    # each network launches it once per superstep, so each row takes half
+    # of the wrapper's count.
     for name, words, m, tb, size, row in (
         ("vperm", fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size, "benes_local_pass (vperm)"),
         ("net", l2, masks, table, n, "benes_local_pass"),
@@ -271,23 +218,24 @@ def kernel_phase(eng, K, R, card: str) -> dict:
         out = torch.empty_like(x)
         got = K.benes_local_pass(x, m, stages, size, t, out=out)
         err = max_abs_err(got, R.apply_benes_std(x, m, stages, size))
-        ms = cuda_ms(lambda: K.benes_local_pass(x, m, stages, size, t, out=out), 50)
-        pms = cuda_ms(lambda: R.apply_benes_std(x, m, stages, size), 5)
+        ms = cold_ms(lambda: K.benes_local_pass(x, m, stages, size, t, out=out), 50)
+        pms = cold_ms(lambda: R.apply_benes_std(x, m, stages, size), 5)
         # Bytes: the words read and written once, and the mask words inside
         # each stage's nonzero range (the kernel reads no other).
         nbytes = 2 * 4 * (size // 32) + 4 * sum(st.hi - st.lo for st in stages)
         record(row, err, ms, pms, nbytes,
                f"{name} n={size}, {len(stages)} local stages, tile {t} words, "
-               f"{size // 32 // t} blocks")
+               f"{size // 32 // t} blocks; launches: this network's passes",
+               kernel="benes_local_pass", share=2)
         del x, out, got
 
     # class_rowmin on the routed L1 words.
-    l1 = K.apply_benes(l2, masks, table, n)
+    l1 = s.l1
     valid = eng.valid_words
     got = K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr)
     err = max_abs_err(got, R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr))
-    ms = cuda_ms(lambda: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 50)
-    pms = cuda_ms(lambda: R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 5)
+    ms = cold_ms(lambda: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 50)
+    pms = cold_ms(lambda: R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 5)
     class_words = sum((c.sb - c.sa) // 32 for c in rg.in_classes)
     nbytes = 2 * 4 * class_words + 4 * rg.vr
     record("class_rowmin", err, ms, pms, nbytes,
@@ -299,29 +247,22 @@ def kernel_phase(eng, K, R, card: str) -> dict:
     cand = got
 
     # packed_update on that superstep's carry.
-    st_in = R.PackedRelayState(packed0, fwords0, level0, None)
+    st_in = R.PackedRelayState(s.packed, s.fwords, s.level, None)
     want = R.apply_relay_candidates_packed(st_in, cand)
-    got = K.apply_relay_candidates_packed(st_in._replace(packed=packed0.clone()), cand)
+    got = K.apply_relay_candidates_packed(st_in._replace(packed=s.packed.clone()), cand)
     err = max(max_abs_err(got.packed, want.packed), max_abs_err(got.fwords, want.fwords))
     if bool(got.changed.item()) != bool(want.changed):
         raise AssertionError("packed_update: changed flag differs from the plain version")
-    scratch = R.PackedRelayState(packed0.clone(), fwords0, level0, None)
-    fout = torch.empty_like(fwords0)
-    ms = cuda_ms(lambda: K.apply_relay_candidates_packed(scratch, cand, fwords_out=fout), 50)
-    pms = cuda_ms(lambda: R.apply_relay_candidates_packed(st_in, cand), 10)
+    scratch = R.PackedRelayState(s.packed.clone(), s.fwords, s.level, None)
+    fout = torch.empty_like(s.fwords)
+    ms = cold_ms(lambda: K.apply_relay_candidates_packed(scratch, cand, fwords_out=fout), 50)
+    pms = cold_ms(lambda: R.apply_relay_candidates_packed(st_in, cand), 10)
     nbytes = 3 * 4 * rg.vr + rg.vr // 8 + 4
     record("packed_update", err, ms, pms, nbytes, f"vr={rg.vr}")
 
     # One superstep at this frontier, phase by phase (kernel route).
-    phases = {
-        "vperm_benes": lambda: K.apply_benes(fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size),
-        "broadcast_l2": lambda: R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space),
-        "net_benes": lambda: K.apply_benes(l2, masks, table, n),
-        "class_rowmin": lambda: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr),
-        "packed_update": lambda: K.apply_relay_candidates_packed(scratch, cand, fwords_out=fout),
-        "superstep": lambda: eng.superstep_packed(scratch._replace(fwords=fwords0)),
-    }
-    times = {k: cuda_ms(f, 10) for k, f in phases.items()}
+    phases = phase_fns(eng, s)
+    times = {k: cold_ms(f, 10) for k, f in phases.items()}
     log("superstep phases (ms, cold L2): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
     results["phases"] = times
     return results
@@ -369,6 +310,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     the index build, which routes one group."""
     import numpy as np
     import torch
+
+    from bfs_tpu_torch.utils.timing import cold_ms
 
     rg = eng.relay_graph
     dev = eng.device
@@ -447,7 +390,7 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
         buf = torch.empty_like(x)
         if not torch.equal(torch.index_select(x, 1, idx, out=buf), want):
             raise AssertionError("index_select over the network's permutation differs")
-        return cuda_ms(lambda: torch.index_select(x, 1, idx, out=buf), reps)
+        return cold_ms(lambda: torch.index_select(x, 1, idx, out=buf), reps)
 
     # Whole networks, kernel route vs plain (both networks of the path).
     splits = {}
@@ -473,8 +416,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     out = torch.empty_like(l2)
     want = RE.apply_benes_elem(l2, masks, (st1,), n)
     err = max_abs_err(K.benes_elem_outer_stage(l2, masks, st1, n, out=out), want)
-    ms = cuda_ms(lambda: K.benes_elem_outer_stage(l2, masks, st1, n, out=out), 50)
-    pms = cuda_ms(lambda: RE.apply_benes_elem(l2, masks, (st1,), n), 5)
+    ms = cold_ms(lambda: K.benes_elem_outer_stage(l2, masks, st1, n, out=out), 50)
+    pms = cold_ms(lambda: RE.apply_benes_elem(l2, masks, (st1,), n), 5)
     lms = library_ms(l2, (st1,), want, 50)
     record("benes_elem_outer_stage", err, ms, pms, 2 * elem_bytes + 4 * st1.nwords,
            f"net n={n} x G={groups}, d={st1.d}; launched only by the route index build "
@@ -486,8 +429,8 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     stages = tuple(table[i] for i in local)
     want = RE.apply_benes_elem(x, masks, stages, n)
     err = max_abs_err(K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), want)
-    ms = cuda_ms(lambda: K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), 20)
-    pms = cuda_ms(lambda: RE.apply_benes_elem(x, masks, stages, n), 3)
+    ms = cold_ms(lambda: K.benes_elem_local_pass(x, masks, stages, n, tile, out=out), 20)
+    pms = cold_ms(lambda: RE.apply_benes_elem(x, masks, stages, n), 3)
     lms = library_ms(x, stages, want, 20)
     record("benes_elem_local_pass", err, ms, pms,
            2 * elem_bytes + 4 * sum(t.nwords for t in stages),
@@ -497,7 +440,7 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
 
     # The whole net network: the kernels' route against one index_select.
     want = K.apply_benes_elem(l2, masks, table, n, out=out)
-    ms = cuda_ms(lambda: K.apply_benes_elem(l2, masks, table, n, out=out), 10)
+    ms = cold_ms(lambda: K.apply_benes_elem(l2, masks, table, n, out=out), 10)
     lms = library_ms(l2, table, want, 10)
     results["net_network"] = dict(ms=ms, library_ms=lms)
     log(f"elem net network, all {len(table)} stages: kernels {ms:.4f} ms, one "
@@ -516,15 +459,15 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     if not torch.equal(got, l1):
         raise AssertionError("elem_route_gather differs from the route through the networks")
     buf = torch.empty_like(got)
-    ms = cuda_ms(lambda: K.elem_route_gather(f, src, out=buf), 50)
-    pms = cuda_ms(lambda: RE.route_gather(f, src), 5)
+    ms = cold_ms(lambda: K.elem_route_gather(f, src, out=buf), 50)
+    pms = cold_ms(lambda: RE.route_gather(f, src), 5)
     fpad = torch.cat([f, f.new_zeros((groups, 1))], dim=1)
     idx = torch.where(src >= 0, src, rg.vr).long()
     if not torch.equal(torch.index_select(fpad, 1, idx, out=buf), got):
         raise AssertionError("index_select over the route index differs")
-    lms = cuda_ms(lambda: torch.index_select(fpad, 1, idx, out=buf), 50)
+    lms = cold_ms(lambda: torch.index_select(fpad, 1, idx, out=buf), 50)
     del fpad, idx
-    route_ms = cuda_ms(lambda: eng.routed_elem(f), 10)
+    route_ms = cold_ms(lambda: eng.routed_elem(f), 10)
     # Bytes: the index read once, the slots written and the frontier read
     # once per group.
     record("elem_route_gather", err, ms, pms, 4 * n + elem_bytes + 4 * groups * rg.vr,
@@ -553,14 +496,14 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
         for dst, orig in zip(work[:4], st0[:4]):
             dst.copy_(orig)
 
-    ms = cuda_ms(lambda: K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr), 20,
+    ms = cold_ms(lambda: K.elem_rowmin_update(l1, valid, work, rg.in_classes, rg.vr), 20,
                  prep=restore)
 
     def plain():
         f, r = RE.rowmin_elem(l1, valid, rg.in_classes, rg.vr, offsets, pt)
         return RE.apply_elem_found(st0, f, r, rg.in_classes, offsets)
 
-    pms = cuda_ms(plain, 3)
+    pms = cold_ms(plain, 3)
     # Bytes the row-min/update must move on these inputs: visited read and
     # frontier written once; the class rows each (group, vertex) needs
     # (rows_needed) and the valid bits of those rows read; visited, the set
@@ -753,6 +696,8 @@ def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
     """``mxu_expand`` against its plain version on the card, on the
     frontier of the level of root0's search (the gather arm's) with the
     most live tiles."""
+    from bfs_tpu_torch.utils.timing import cold_ms
+
     rg = eng.relay_graph
     ops, geo = meng.mxu_operands, meng.mxu_geometry
     rows, cols, rtp, vtp, ntp = geo
@@ -779,8 +724,8 @@ def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
     err = max_abs_err(got, RM.expand_frontier_mxu_plain(fw, ops, **kw))
     if err:
         raise AssertionError(f"mxu_expand: kernel differs from its plain version (max err {err})")
-    ms = cuda_ms(lambda: K.expand_frontier_mxu(fw, ops, **kw), 10)
-    pms = cuda_ms(lambda: RM.expand_frontier_mxu_plain(fw, ops, **kw), 2, warm=1)
+    ms = cold_ms(lambda: K.expand_frontier_mxu(fw, ops, **kw), 10)
+    pms = cold_ms(lambda: RM.expand_frontier_mxu_plain(fw, ops, **kw), 2, warm=1)
     nbytes = 2064 * t + 4 * rows + 4 * cols
     nops = 262144 * t
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -892,6 +837,7 @@ def main(argv=None) -> int:
     from bfs_tpu_torch.ops import relay_elem as RE
     from bfs_tpu_torch.ops import relay_mxu as RM
     from bfs_tpu_torch.utils import cuda_build
+    from bfs_tpu_torch.utils.timing import card_line
 
     t_all = time.perf_counter()
     card = card_line()
@@ -1029,25 +975,23 @@ def main(argv=None) -> int:
     small_multi_checks(P, tiny)
 
     # ---- report ---------------------------------------------------------
+    # One row per kres entry of a kernel (``kernel``, default the entry's
+    # name); a row shared by ``share`` entries takes that part of the count.
     kernels = [
-        dict(name=name, route="cuda", source=source, replaces=replaces[name],
-             launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
-             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"],
-             bound_ms=kres[name]["bound_ms"], bound_by=kres[name].get("bound_by", "bytes"),
-             library_ms=kres[name].get("library_ms"),
-             phase="kernel phase: " + kres[name]["shape"])
+        dict(name=row, route="cuda", source=source, replaces=replaces[name],
+             launches=launches[name] // r.get("share", 1), max_abs_err=r["max_abs_err"],
+             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r.get("bound_by", "bytes"), library_ms=r.get("library_ms"),
+             phase="kernel phase: " + r["shape"])
         for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES),
                                  (MXU_SOURCE, MXU_REPLACES))
         for name in replaces
+        for row, r in kres.items() if r.get("kernel", row) == name
     ]
-    # The vperm's local pass: its own row, the same kernel and count.
-    at = next(i for i, k in enumerate(kernels) if k["name"] == "benes_local_pass")
-    vp = kres["benes_local_pass (vperm)"]
-    kernels.insert(at, dict(
-        kernels[at], name="benes_local_pass (vperm)", max_abs_err=vp["max_abs_err"],
-        ms=vp["ms"], plain_ms=vp["plain_ms"], bound_ms=vp["bound_ms"], library_ms=None,
-        phase="kernel phase: " + vp["shape"] + "; launches: both networks' passes",
-    ))
+    missing = {*REPLACES, *ELEM_REPLACES, *MXU_REPLACES} - {
+        r.get("kernel", row) for row, r in kres.items()}
+    if missing:
+        raise AssertionError(f"no kernel-phase row for {sorted(missing)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -288,6 +288,37 @@ def test_outer_pass_model_matches_plain(scale, tile):
             assert len(K.outer_plan(table, pre, n)) == 2
 
 
+@pytest.mark.parametrize("max_words", [1024, 2048, 4096])
+def test_outer_geometry_under_other_unit_caps(max_words):
+    """``outer_geometry``'s unit cap (the kernel's ``kOuterWords``, which a
+    tuning build may change): each side's units stay within it, partition
+    the words, and the model's walk over them still equals the plain
+    stages."""
+    rng = np.random.default_rng(max_words)
+    for name, masks, table, n in _networks(16):
+        pre, _, suf, _ = K.split_passes(table, n, 8)
+        x = _words(rng, n // 32)
+        for side in (pre, suf):
+            got = x
+            for i in range(0, len(side), K.OUTER_MAX_STAGES):
+                stages = tuple(side[i : i + K.OUTER_MAX_STAGES])
+                run = K.OuterRun(stages, *K.outer_geometry(
+                    tuple(table[j].d for j in stages), n, max_words))
+                assert run.row_words << run.k <= max_words
+                words = np.sort(_unit_words(run, n // 32).ravel())
+                np.testing.assert_array_equal(words, np.arange(n // 32))
+                got = model_outer_pass(got, masks, table, run, n)
+            want = _u(R.apply_benes_std(_t(x), _t(masks), tuple(table[i] for i in side), n))
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} cap {max_words}")
+
+
+@pytest.mark.parametrize("const", ["kMaxOuterStages", "kOuterWords", "kMaxRing", "kMaxSweep"])
+def test_cuda_build_reads_the_source_constants(const):
+    from bfs_tpu_torch.utils import cuda_build
+
+    assert cuda_build.constant(K.SOURCES["relay_kernels"], const) == _cu_constant(const)
+
+
 @pytest.mark.parametrize("tile_rows", [8, 16])
 def test_outer_pass_model_matches_pallas_passes(tile_rows):
     """The whole network — model prefix, plain local run, model suffix —
