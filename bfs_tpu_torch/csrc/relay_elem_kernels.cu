@@ -14,20 +14,15 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "tma.cuh"
+
 namespace {
 
-constexpr int kMaxLocalStages = 64;
-constexpr int kLocalThreads = 1024;
 constexpr int kThreads = 256;
 constexpr int kDistPlanes = 5;
 constexpr uint32_t kAll = 0xFFFFFFFFu;
-
-struct LocalStages {
-  long long offset[kMaxLocalStages];  // word offset of the stage's masks
-  int d[kMaxLocalStages];             // element distance
-  int compact[kMaxLocalStages];       // pair-compacted storage
-  int count;
-};
 
 // 0 or ~0 from mask bit `bit` of a stage's stored words.
 __device__ __forceinline__ uint32_t mask_select(const uint32_t* __restrict__ m,
@@ -40,80 +35,294 @@ __device__ __forceinline__ uint32_t mask_select(const uint32_t* __restrict__ m,
 // bfs_tpu/ops/relay_pallas.py _run_elem_pass (K5, behind
 // apply_benes_elem_fused).
 //
-// Block (x, g) owns the tile of `tile` consecutive elements of group g in
-// shared memory and applies every stage of the local run (d < tile) to it:
-// one thread per lower/upper pair, t = (lo ^ hi) & sel, lo ^= t, hi ^= t,
-// where sel is 0 or ~0 from the stage's mask bit of the lower element.  The
-// bit comes straight from the stored flat layout: bit e for full storage,
-// bit (e / 2d) * d + e % d = tile_base / 2 + p for pair-compacted storage
-// (the TPU's vertical repack exists only for its lane layout).
-// Bound: bytes — the tile is read and written once per group and the local
-// stages' stored masks are read once per group; a few integer ops per
-// element and stage.  The tile stays in shared memory across all local
-// stages, so the mask stream is the only per-stage device-memory traffic.
-// The tile's mask words of stage s + 1 are copied into a second shared
-// buffer (cp.async) while stage s runs, so no thread waits on a device
-// memory load inside a stage: with one 128 KB block per SM, reading the
-// mask bit from global memory per pair left the pass latency-bound.
+// A work item is a tile of 2^L consecutive elements (L <= 15) of one group,
+// item = tile * G + group, with every stage of the local run (d = 2^bit <
+// 2^L) on it.  Each stage swaps the pair (e, e + d) where the stored mask
+// bit of the lower element e is set: bit e of the tile's slab (full
+// storage, a bit per element) or bit p = (e >> (bit + 1)) << bit |
+// (e & (d - 1)) (pair-compacted storage).
+//
+// Stages in registers.  A thread holds kElemRegs = 2^kElemRegBits elements
+// whose tile indices differ in a window of kElemRegBits consecutive bits
+// [lo, lo + kElemRegBits): element e = E_t | (j << lo) in register j, where
+// E_t spreads the thread's index over the other bits (its low lo bits stay
+// low, the rest go above the window).  Every stage whose bit lies in the
+// window pairs two registers of one thread, so it runs with no barrier and
+// no shared-memory traffic but its mask words.  The host cuts the run into
+// phases, each the longest run of stages one window covers
+// (relay_cuda.elem_local_plan); at L = 15 the 29 stages (bits 14 .. 0 .. 14)
+// are 5 phases, windows at bits 10, 5, 0, 5 and 10.  Between two phases the
+// tile is re-laid out through shared memory: every thread writes its
+// registers at their indices and reads the next window's, XOR-swizzled
+// (word e at e ^ ((e >> 5) & 31)) so that a warp's 32 accesses of one
+// register fall in 32 banks for every window.  The last phase writes the
+// tile straight from registers (coalesced where the window starts at bit 5
+// or above).  A tile smaller than kElemRegs elements has one thread, whose
+// registers past the tile are never written back.
+//
+// A block takes one item, with 2^(L - kElemRegBits) threads: at L = 15,
+// 1,024 threads of 64 registers, so one block fills an SM.  It reads its
+// tile straight into registers.  Each stage's slab (the tile's stored mask
+// words: tile / 32 words, tile / 64 when compact) comes into a ring of
+// kElemSlots shared-memory slots by one bulk copy (TMA, mbarrier) when the
+// source allows it, else by cp.async; the ring is refilled at each phase
+// boundary, so slabs land a phase or more before their stage, which waits
+// for its own slab alone.  A stage whose slab lies outside its nonzero
+// stored words (StageSpec.lo/hi) is all zero on the tile and is neither
+// fetched nor applied.  A thread tests each of its pairs' mask bits in a
+// word of the slot: one word per stage when the window is at bit 0, a word
+// per pair (the same for the whole warp) above it.
+//
+// Bound: bytes — the tile read and written once per group, the local
+// stages' masks read once per group (the G blocks of a tile are
+// neighbours, so all but the first read of a slab hit the L2).  Against it,
+// the issue slots: a pair and stage costs a mask test and a select on the
+// ALU pipe and two multiply-adds on the FMA pipe (c' = a + c - a'), 29 x
+// 2^14 pairs per tile at L = 15, where three ALU operations (a test, two
+// selects) took 8% longer; plus a mask load per pair above bit 0.  What
+// stays above the bound: the 4 re-layouts, and a block's load, stages and
+// store do not overlap (an SM holds one block).  The design it replaces ran
+// each stage as a pass over the tile in shared memory, a barrier each: 29
+// passes of 128 KB per tile at scale 22.  bfs_tpu_torch/tools/
+// benes_pass_sweep.py times it against builds with other kElemRegBits,
+// kElemSlots and kElemSwapMad, and splits its time into the tile's copy,
+// the re-layouts and the stages; PERF.md records the sweep and what else
+// was tried.
 // ---------------------------------------------------------------------------
+constexpr int kMaxLocalStages = 64;
+constexpr int kElemRegBits = 5;  // elements a thread holds: 2^kElemRegBits
+constexpr int kElemRegs = 1 << kElemRegBits;
+constexpr int kMaxTileBits = 15;  // relay_cuda.MAX_TILE_ELEMS = 2^15
+constexpr int kElemLocalThreads = (1 << kMaxTileBits) >> kElemRegBits;
+constexpr int kMaxLo = kMaxTileBits - kElemRegBits;
+constexpr int kElemSlots = 16;  // mask slab ring slots
+// A swap as one select and two multiply-adds (1: the adds run on the FMA
+// pipe beside the ALU's mask test and select) or as two selects (0).
+constexpr int kElemSwapMad = 1;
+constexpr int kElemBarBytes = (kElemSlots * 8 + 15) & ~15;
+static_assert(kElemRegBits >= 1 && kElemRegBits <= 6, "2 to 64 elements a thread");
+static_assert(kElemSlots >= 1 && kElemSlots <= 32, "a parity bit per slot");
 
-// First stored mask bit of the tile at element `base` in one stage's words:
-// compact storage holds a bit per pair (tile / 2 bits), full storage a bit
-// per element (tile bits).
-__device__ __forceinline__ long long tile_bit0(bool compact, long long base) {
-  return compact ? base >> 1 : base;
+struct ElemLocalPlan {
+  long long offset[kMaxLocalStages];  // word offset of the stage's masks
+  int bit[kMaxLocalStages];           // log2 of the element distance
+  int compact[kMaxLocalStages];       // pair-compacted storage
+  int lo[kMaxLocalStages];            // the stage's nonzero stored words: [lo, hi)
+  int hi[kMaxLocalStages];
+  int phase_lo[kMaxLocalStages];      // each phase's window: bits [lo, lo + kElemRegBits)
+  int phase_end[kMaxLocalStages];     // one past each phase's last stage
+  int count;
+  int phases;
+};
+
+// One stage as a block reads it (copied from the parameters once).
+struct ElemStage {
+  const uint32_t* src;  // the tile's slab in device memory
+  int words;            // the slab's words
+  int bit;
+  int compact;
+  int live;             // the slab touches the stage's nonzero words
+  int bulk;             // one bulk copy (16-byte aligned source and size)
+};
+
+__device__ __forceinline__ uint32_t swizzle(uint32_t e) { return e ^ ((e >> 5) & 31u); }
+
+// The thread's part E_t of its element indices under a window at bit LO.
+template <int LO>
+__device__ __forceinline__ uint32_t thread_elems(uint32_t t) {
+  return (t & ((1u << LO) - 1u)) | ((t >> LO) << (LO + kElemRegBits));
 }
 
-// Words of a stage's mask bits [bit0, bit0 + span) into `buf`, as one
-// committed cp.async group.
-__device__ __forceinline__ void fetch_masks(uint32_t* buf, const uint32_t* m,
-                                            long long bit0, int span) {
-  const long long w0 = bit0 >> 5;
-  const int nw = static_cast<int>(((bit0 + span - 1) >> 5) - w0 + 1);
-  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
-    __pipeline_memcpy_async(buf + i, m + w0 + i, sizeof(uint32_t));
-  }
-  __pipeline_commit();
-}
-
-__global__ void __launch_bounds__(kLocalThreads)
-benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
-                             const uint32_t* __restrict__ masks,
-                             const LocalStages st, long long n, int tile) {
-  extern __shared__ uint32_t xs[];  // tile elements, then two mask buffers
-  const int mask_words = (tile >> 5) + 1;
-  uint32_t* mbuf = xs + tile;
-  const long long base = static_cast<long long>(blockIdx.x) * tile;
-  const long long at = static_cast<long long>(blockIdx.y) * n + base;
-  const int half = tile >> 1;
-  auto fetch = [&](int s) {
-    const bool compact = st.compact[s] != 0;
-    fetch_masks(mbuf + (s & 1) * mask_words, masks + st.offset[s],
-                tile_bit0(compact, base), compact ? half : tile);
-  };
-  if (st.count > 0) fetch(0);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) xs[i] = x_in[at + i];
-  for (int s = 0; s < st.count; ++s) {
-    __pipeline_wait_prior(0);
-    __syncthreads();  // stage s's masks and stage s - 1's elements in place
-    if (s + 1 < st.count) fetch(s + 1);  // its buffer was last read by s - 1
-    const int d = st.d[s];
-    const bool compact = st.compact[s] != 0;
-    const uint32_t* m = mbuf + (s & 1) * mask_words;
-    const int lead = static_cast<int>(tile_bit0(compact, base) & 31);
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int e = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-      const int q = lead + (compact ? p : e);
-      const uint32_t sel = 0u - ((m[q >> 5] >> (q & 31)) & 1u);
-      const uint32_t a = xs[e];
-      const uint32_t b = xs[e + d];
-      const uint32_t t = (a ^ b) & sel;
-      xs[e] = a ^ t;
-      xs[e + d] = b ^ t;
+// Calls f(std::integral_constant<int, lo>) for the runtime lo in [0, kMaxLo].
+template <int LO = 0, typename F>
+__device__ __forceinline__ void with_lo(int lo, F&& f) {
+  if constexpr (LO <= kMaxLo) {
+    if (lo == LO) {
+      f(std::integral_constant<int, LO>{});
+    } else {
+      with_lo<LO + 1>(lo, f);
     }
   }
+}
+
+// The stage of bit LO + K on the registers: pairs (j, j | 2^K), mask bit of
+// the lower element j (bit q = E_t | (j << LO), or its pair number when
+// compact) from the slab in shared memory.
+template <int LO, int K, bool COMPACT>
+__device__ __forceinline__ void reg_stage(uint32_t (&x)[kElemRegs], const uint32_t* slab,
+                                          uint32_t et, uint32_t one) {
+  constexpr int b = LO + K;
+  constexpr uint32_t low = (1u << b) - 1u;
+  const uint32_t q = COMPACT ? (et & low) | ((et >> (b + 1)) << b) : et;
+  const uint32_t* w = slab + (q >> 5);
+  const uint32_t sh = q & 31u;
+  const uint32_t bm = 1u << sh;
+#pragma unroll
+  for (int j = 0; j < kElemRegs; ++j) {
+    if (j & (1 << K)) continue;
+    const uint32_t J = static_cast<uint32_t>(j) << LO;
+    const uint32_t Q = COMPACT ? (J & low) | ((J >> (b + 1)) << b) : J;
+    const uint32_t m = w[Q >> 5];
+    const bool swap = (Q & 31u) == 0u ? (m & bm) != 0u : ((m >> (sh | (Q & 31u))) & 1u) != 0u;
+    const uint32_t a = x[j], c = x[j | (1 << K)];
+    x[j] = swap ? c : a;
+    if constexpr (kElemSwapMad) {
+      // c' = (a + c) - a', both as multiply-adds by a runtime 1 and -1, so
+      // that the compiler keeps them on the FMA pipe.
+      uint32_t sum, rest;
+      asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(sum) : "r"(a), "r"(one), "r"(c));
+      asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(rest) : "r"(x[j]), "r"(0u - one), "r"(sum));
+      x[j | (1 << K)] = rest;
+    } else {
+      x[j | (1 << K)] = swap ? a : c;
+    }
+  }
+}
+
+template <int LO, bool COMPACT, int K = 0>
+__device__ __forceinline__ void reg_stage_k(int k, uint32_t (&x)[kElemRegs],
+                                            const uint32_t* slab, uint32_t et, uint32_t one) {
+  if constexpr (K < kElemRegBits) {
+    if (k == K) {
+      reg_stage<LO, K, COMPACT>(x, slab, et, one);
+    } else {
+      reg_stage_k<LO, COMPACT, K + 1>(k, x, slab, et, one);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kElemLocalThreads, 1)
+benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
+                             const uint32_t* __restrict__ masks,
+                             const ElemLocalPlan plan, long long n, int groups,
+                             int lg_tile, int slot_words, int keep_masks, uint32_t one) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ElemStage info[kMaxLocalStages];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kElemBarBytes);  // the tile, swizzled
+  const int tile = 1 << lg_tile;
+  uint32_t* ring = xs + (tile > kElemRegs ? tile : kElemRegs);
+  const long long base = static_cast<long long>(blockIdx.x / groups) * tile;
+  const long long at = static_cast<long long>(blockIdx.x % groups) * n + base;
+  const uint32_t t = threadIdx.x;
+  const int count = plan.count;
+  if (t == 0) {
+    for (int i = 0; i < kElemSlots; ++i) mbar_init(bar + i);
+    mbar_fence_init();
+  }
+  for (int s = t; s < count; s += blockDim.x) {  // a small tile has few threads
+    ElemStage f;
+    f.bit = plan.bit[s];
+    f.compact = plan.compact[s];
+    const long long w0 = f.compact ? base >> 6 : base >> 5;
+    const int words = f.compact ? tile >> 6 : tile >> 5;
+    f.words = words > 0 ? words : 1;
+    f.src = masks + plan.offset[s] + w0;
+    f.live = w0 < plan.hi[s] && w0 + f.words > plan.lo[s];
+    f.bulk = ((reinterpret_cast<uintptr_t>(f.src) | (f.words * 4u)) & 15u) == 0;
+    info[s] = f;
+  }
   __syncthreads();
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) x_out[at + i] = xs[i];
+  // The G blocks of a tile read the same slabs: keep them in the L2 for the
+  // others when G > 1.
+  uint64_t policy;
+  if (keep_masks) {
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(policy));
+  } else {
+    policy = evict_first_policy();
+  }
+  auto issue = [&](int s) {  // block-uniform
+    const ElemStage& f = info[s];
+    if (!f.live) return;
+    uint32_t* dst = ring + (s % kElemSlots) * slot_words;
+    if (f.bulk) {
+      if (t == 0) {
+        fence_proxy_async();  // the slot's last readers passed a block barrier
+        bulk_load(dst, f.src, static_cast<uint32_t>(f.words) * 4u, bar + s % kElemSlots, policy);
+      }
+    } else {
+      for (int i = t; i < f.words; i += blockDim.x) {
+        __pipeline_memcpy_async(dst + i, f.src + i, sizeof(uint32_t));
+      }
+      __pipeline_commit();
+    }
+  };
+  int issued = 0;
+  for (; issued < count && issued < kElemSlots; ++issued) issue(issued);
+
+  uint32_t x[kElemRegs];
+  const bool ghosts = tile < kElemRegs;  // one thread; registers past the tile idle
+  with_lo(plan.phase_lo[0], [&](auto c) {
+    constexpr int LO = decltype(c)::value;
+    const uint32_t et = thread_elems<LO>(t);
+#pragma unroll
+    for (int j = 0; j < kElemRegs; ++j) {
+      const uint32_t e = et | (static_cast<uint32_t>(j) << LO);
+      x[j] = ghosts && e >= static_cast<uint32_t>(tile) ? 0u : x_in[at + e];
+    }
+  });
+  uint32_t parity = 0;
+  for (int p = 0; p < plan.phases; ++p) {
+    const int s0 = p ? plan.phase_end[p - 1] : 0;
+    const int lo = plan.phase_lo[p];
+    if (p > 0) {
+      const int prev = plan.phase_lo[p - 1];
+      if (prev != lo) {
+        if (p > 1) __syncthreads();  // the last re-layout's reads are done
+        with_lo(prev, [&](auto c) {
+          constexpr int LO = decltype(c)::value;
+          const uint32_t pe = swizzle(thread_elems<LO>(t));
+#pragma unroll
+          for (int j = 0; j < kElemRegs; ++j) {
+            xs[pe ^ swizzle(static_cast<uint32_t>(j) << LO)] = x[j];
+          }
+        });
+      }
+      __syncthreads();  // every stage before s0 applied: its slot is free
+      for (; issued < count && issued < s0 + kElemSlots; ++issued) issue(issued);
+      if (prev != lo) {
+        with_lo(lo, [&](auto c) {
+          constexpr int LO = decltype(c)::value;
+          const uint32_t pe = swizzle(thread_elems<LO>(t));
+#pragma unroll
+          for (int j = 0; j < kElemRegs; ++j) {
+            x[j] = xs[pe ^ swizzle(static_cast<uint32_t>(j) << LO)];
+          }
+        });
+      }
+    }
+    with_lo(lo, [&](auto c) {
+      constexpr int LO = decltype(c)::value;
+      const uint32_t et = thread_elems<LO>(t);
+      for (int s = s0; s < plan.phase_end[p]; ++s) {
+        const ElemStage& f = info[s];
+        if (!f.live) continue;  // all zero on this tile
+        const int slot = s % kElemSlots;
+        if (f.bulk) {  // each slab waited for just before its stage
+          mbar_wait(bar + slot, (parity >> slot) & 1u);
+          parity ^= 1u << slot;
+        } else {
+          __pipeline_wait_prior(0);
+          __syncthreads();  // every thread's words in place
+        }
+        const uint32_t* slab = ring + slot * slot_words;
+        if (f.compact) {
+          reg_stage_k<LO, true>(f.bit - LO, x, slab, et, one);
+        } else {
+          reg_stage_k<LO, false>(f.bit - LO, x, slab, et, one);
+        }
+      }
+    });
+  }
+  with_lo(plan.phase_lo[plan.phases - 1], [&](auto c) {
+    constexpr int LO = decltype(c)::value;
+    const uint32_t et = thread_elems<LO>(t);
+#pragma unroll
+    for (int j = 0; j < kElemRegs; ++j) {
+      const uint32_t e = et | (static_cast<uint32_t>(j) << LO);
+      if (!ghosts || e < static_cast<uint32_t>(tile)) x_out[at + e] = x[j];
+    }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -505,20 +714,44 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
 extern "C" {
 
 int benes_elem_local_pass(const void* x_in, void* x_out, const void* masks,
-                          const long long* offsets, const int* dists,
-                          const int* compact, int nstages, int groups,
-                          long long n, int tile, void* stream) {
-  if (nstages > kMaxLocalStages || tile <= 0 || n % tile != 0) {
+                          const long long* offsets, const int* bits, const int* compact,
+                          const int* lo, const int* hi, int nstages, const int* phase_lo,
+                          const int* phase_end, int nphases, int groups, long long n,
+                          int lg_tile, void* stream) {
+  if (nstages < 0 || nstages > kMaxLocalStages || nphases < 1 ||
+      nphases > kMaxLocalStages || lg_tile < 5 || lg_tile > kMaxTileBits || groups < 1 ||
+      n % (1LL << lg_tile) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LocalStages st;
-  st.count = nstages;
-  for (int s = 0; s < nstages; ++s) {
-    st.offset[s] = offsets[s];
-    st.d[s] = dists[s];
-    st.compact[s] = compact[s];
+  ElemLocalPlan plan;
+  plan.count = nstages;
+  plan.phases = nphases;
+  const int top_lo = lg_tile > kElemRegBits ? lg_tile - kElemRegBits : 0;
+  for (int p = 0, s = 0; p < nphases; ++p) {
+    plan.phase_lo[p] = phase_lo[p];
+    plan.phase_end[p] = phase_end[p];
+    if (phase_lo[p] < 0 || phase_lo[p] > top_lo || phase_end[p] < s ||
+        phase_end[p] - s > kElemSlots || phase_end[p] > nstages) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    for (; s < phase_end[p]; ++s) {  // each stage inside its phase's window
+      if (bits[s] < phase_lo[p] || bits[s] >= phase_lo[p] + kElemRegBits ||
+          bits[s] >= lg_tile || (compact[s] && lg_tile < 6)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      plan.offset[s] = offsets[s];
+      plan.bit[s] = bits[s];
+      plan.compact[s] = compact[s];
+      plan.lo[s] = lo[s];
+      plan.hi[s] = hi[s];
+    }
   }
-  const size_t smem = (static_cast<size_t>(tile) + 2 * ((tile >> 5) + 1)) * sizeof(uint32_t);
+  if (phase_end[nphases - 1] != nstages) return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = 1 << lg_tile;
+  const int slot_words = tile >> 5 > 4 ? tile >> 5 : 4;
+  const size_t smem = kElemBarBytes +
+                      (static_cast<size_t>(tile > kElemRegs ? tile : kElemRegs) +
+                       static_cast<size_t>(kElemSlots) * slot_words) * sizeof(uint32_t);
   static size_t configured = 0;
   if (smem > configured) {
     cudaFuncSetAttribute(benes_elem_local_pass_kernel,
@@ -526,11 +759,12 @@ int benes_elem_local_pass(const void* x_in, void* x_out, const void* masks,
                          static_cast<int>(smem));
     configured = smem;
   }
-  const dim3 grid(static_cast<unsigned>(n / tile), static_cast<unsigned>(groups));
-  benes_elem_local_pass_kernel<<<grid, kLocalThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  const int threads = tile >> kElemRegBits > 1 ? tile >> kElemRegBits : 1;
+  const unsigned blocks = static_cast<unsigned>(n / tile * groups);
+  benes_elem_local_pass_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, n, tile);
+      static_cast<const uint32_t*>(masks), plan, n, groups, lg_tile, slot_words,
+      groups > 1 ? 1 : 0, 1u);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -77,6 +77,12 @@ OUTER_TARGET_UNITS = 256
 #: Shared-memory tile of the elem local pass, in elements (128 KB); a
 #: smaller network is one tile.
 MAX_TILE_ELEMS = 1 << 15
+#: ``benes_elem_local_pass``'s geometry (csrc/relay_elem_kernels.cu): a
+#: thread holds 2^ELEM_REG_BITS elements in registers (kElemRegBits), and a
+#: ring of ELEM_SLOTS shared-memory slots holds stage mask slabs
+#: (kElemSlots), so a register phase takes at most that many stages.
+ELEM_REG_BITS = 5
+ELEM_SLOTS = 16
 
 
 def reset_launches() -> None:
@@ -107,7 +113,7 @@ def _register(lib: ctypes.CDLL) -> None:
 def _register_elem(lib: ctypes.CDLL) -> None:
     lib.benes_elem_local_pass.restype = _INT
     lib.benes_elem_local_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _LL, _INT, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _INT, _INT, _LL, _INT, _VP,
     ]
     lib.benes_elem_outer_stage.restype = _INT
     lib.benes_elem_outer_stage.argtypes = [_VP, _VP, _VP, _INT, _LL, _LL, _INT, _VP]
@@ -529,30 +535,88 @@ def _check_elems(name: str, t: torch.Tensor, n: int, groups: int | None = None) 
     return int(t.shape[0])
 
 
+@functools.lru_cache(maxsize=64)
+def elem_local_plan(bits: tuple[int, ...], lg_tile: int, reg_bits: int = ELEM_REG_BITS,
+                    slots: int = ELEM_SLOTS) -> tuple[tuple[int, int], ...]:
+    """``benes_elem_local_pass``'s register phases of a run of stages
+    (``bits``: log2 of each stage's distance, in order) on tiles of
+    ``2^lg_tile`` elements: ``(lo, end)`` per phase, whose stages
+    ``[previous end, end)`` all have bits in the window ``[lo, lo +
+    reg_bits)`` that a thread's registers span.  Each phase is the longest
+    run of at most ``slots`` stages that one window covers (the lowest such
+    window on a tie); windows lie in ``[0, max(lg_tile - reg_bits, 0)]``.
+    A run of no stages is one empty phase (a copy)."""
+    top = max(lg_tile - reg_bits, 0)
+    if any(not 0 <= b < lg_tile for b in bits):
+        raise ValueError(f"stage bits {bits} outside a tile of 2^{lg_tile} elements")
+    phases, i = [], 0
+    while i < len(bits):
+        best = (0, 0)
+        for lo in range(top + 1):
+            k = 0
+            while i + k < len(bits) and k < slots and lo <= bits[i + k] < lo + reg_bits:
+                k += 1
+            if k > best[1]:
+                best = (lo, k)
+        i += best[1]
+        phases.append((best[0], i))
+    return tuple(phases) or ((top, 0),)
+
+
 def benes_elem_local_pass(
     x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
     n: int, tile: int, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Apply a consecutive run of stages with ``d < tile`` to int32[G, n]
-    elements (one shared-memory tile of one group per block).  ``out`` may
-    alias ``x_in``."""
+    elements (a block per tile and group; the stages in registers, in the
+    phases of :func:`elem_local_plan`).  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return RE.apply_benes_elem(x_in, masks, stages, n)
+    return launch_elem_local_pass(elem_kernels(), x_in, masks, stages, n, tile, out)
+
+
+def launch_elem_local_pass(lib, x_in, masks, stages, n, tile, out=None,
+                           reg_bits: int = ELEM_REG_BITS,
+                           slots: int = ELEM_SLOTS) -> torch.Tensor:
+    """:func:`benes_elem_local_pass` on the card, through ``lib`` (the built
+    ``relay_elem_kernels.cu``, or a copy of it whose ``kElemRegBits`` and
+    ``kElemSlots`` are ``reg_bits`` and ``slots``)."""
     groups = _check_elems("x_in", x_in, n)
     _check_words("masks", masks)
+    if tile < 32 or tile > MAX_TILE_ELEMS or tile & (tile - 1) or n % tile:
+        raise ValueError(f"tile of {tile} elements: a power of two in [32, {MAX_TILE_ELEMS}] "
+                         f"dividing {n}")
     if any(st.d >= tile for st in stages):
         raise ValueError("a local stage spans more than one tile")
+    if any(st.compact for st in stages) and tile < 64:
+        raise ValueError("pair-compacted stages need a tile of at least 64 elements")
     out = torch.empty_like(x_in) if out is None else out
     _check_elems("out", out, n, groups)
-    offsets, dists, compact, _, _ = _local_args(tuple(stages))
-    rc = elem_kernels().benes_elem_local_pass(
+    offsets, _, compact, lo, hi = _local_args(tuple(stages))
+    bits = tuple(st.d.bit_length() - 1 for st in stages)
+    lg_tile = tile.bit_length() - 1
+    plan = elem_local_plan(bits, lg_tile, reg_bits, slots)
+    phase_lo, phase_end = _plan_args(plan)
+    rc = lib.benes_elem_local_pass(
         _ptr(x_in), _ptr(out), _ptr(masks),
-        offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
-        compact.ctypes.data_as(_VP), len(stages), groups, n, tile, _stream(),
+        offsets.ctypes.data_as(_VP), _int_array(bits).ctypes.data_as(_VP),
+        compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
+        len(stages), phase_lo.ctypes.data_as(_VP), phase_end.ctypes.data_as(_VP),
+        len(plan), groups, n, lg_tile, _stream(),
     )
     LAUNCHES["benes_elem_local_pass"] += 1
     _call(rc, "benes_elem_local_pass")
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _int_array(values: tuple[int, ...]) -> np.ndarray:
+    """A host int32 array of ``values``, kept alive by the cache."""
+    return np.array(values, dtype=np.int32)
+
+
+def _plan_args(plan: tuple[tuple[int, int], ...]):
+    return _int_array(tuple(lo for lo, _ in plan)), _int_array(tuple(e for _, e in plan))
 
 
 def benes_elem_outer_stage(

@@ -25,6 +25,18 @@ against the plain version:
   unpadded  the same without the sleep: where the L2 write ends before
             the host has launched the kernel, the span holds the difference.
 
+The element-major local pass (``benes_elem_local_pass``, K5) follows on
+the net's shape at ``--groups`` groups (the local run of 29 stages on
+tiles of 2^15 elements at 2^26): copies of ``csrc/relay_elem_kernels.cu``
+with 64 elements a thread (``kElemRegBits`` = 6, 512 threads), a ring of 8
+mask slots (``kElemSlots``) and the swap as two selects (``kElemSwapMad``
+= 0; the committed build has 32 elements a thread, 1,024 threads, 16 slots
+and the swap as a select and two multiply-adds), each held against the
+plain version, beside ``index_select`` over the same stages' permutation,
+and the committed build on the same launch with no stages (the tile's
+copy) and with every stage's masks outside the tile (the copy and the
+re-layouts).  ``--only single`` or ``--only elem`` runs one part.
+
 Also the host microseconds per wrapper call.  One line per (build,
 kernel), the card's name and power limit, and one JSON line.
 """
@@ -41,6 +53,7 @@ from ..graph import benes
 from ..graph.relay import COMPACT_MIN_D, StageSpec
 from ..ops import relay as R
 from ..ops import relay_cuda as K
+from ..ops import relay_elem as RE
 from ..utils import cuda_build
 from ..utils.timing import card_line, cold_ms, host_us
 
@@ -57,6 +70,14 @@ VARIANTS = {
 }
 
 
+#: name -> the constants of relay_elem_kernels.cu it changes.
+ELEM_VARIANTS = {
+    "regs64": {"kElemRegBits": 6},
+    "slots8": {"kElemSlots": 8},
+    "swap_by_selects": {"kElemSwapMad": 0},
+}
+
+
 def builds() -> dict:
     """name -> (loaded library, the kernel it changes or None, its
     ``kOuterWords``): the committed build and the variants."""
@@ -67,6 +88,77 @@ def builds() -> dict:
     for name, (kernel, consts) in VARIANTS.items():
         out[name] = (libs[name], kernel, consts.get("kOuterWords", K.OUTER_MAX_WORDS))
     return out
+
+
+def elem_builds() -> dict:
+    """name -> (loaded library, kElemRegBits, kElemSlots): the committed
+    build of ``relay_elem_kernels.cu`` and its variants."""
+    libs = cuda_build.build_variants(
+        "relay_elem_kernels", K.SOURCES["relay_elem_kernels"], ELEM_VARIANTS, K._register_elem)
+    out = {"committed": (K.elem_kernels(), K.ELEM_REG_BITS, K.ELEM_SLOTS)}
+    for name, consts in ELEM_VARIANTS.items():
+        out[name] = (libs[name], consts.get("kElemRegBits", K.ELEM_REG_BITS),
+                     consts.get("kElemSlots", K.ELEM_SLOTS))
+    return out
+
+
+def elem_sweep(log_n: int, groups: int, gen: torch.Generator) -> list[dict]:
+    """``benes_elem_local_pass`` on the local run of a random size-2^log_n
+    network at ``groups`` groups, per build, and ``index_select`` over the
+    same permutation."""
+    libs = elem_builds()
+    for build, info in cuda_build.BUILD_INFO.items():
+        if build.startswith("relay_elem_kernels"):
+            for line in info["ptxas"].splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    print(f"ptxas [{build}]: {line.strip()}")
+    table, masks, n = network(log_n, gen)
+    _, local, _, tile = K.split_elem_passes(table, n)
+    stages = tuple(table[i] for i in local)
+    x = torch.randint(-(2**31), 2**31, (groups, n), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    out = torch.empty_like(x)
+    want = RE.apply_benes_elem(x, masks, stages, n)
+    idx = RE.apply_benes_elem(torch.arange(n, dtype=torch.int32, device="cuda")[None], masks,
+                              stages, n)[0].long()
+    nbytes = 2 * 4 * groups * n + 4 * sum(st.nwords for st in stages)
+    shape = f"{len(stages)} stages, G={groups}, tile {tile} elements, {n // tile * groups} blocks"
+    cases = {name: functools.partial(K.launch_elem_local_pass, lib, x, masks, stages, n, tile,
+                                     out, reg_bits, slots)
+             for name, (lib, reg_bits, slots) in libs.items()}
+    cases["index_select"] = lambda: torch.index_select(x, 1, idx, out=out)
+    # Where the committed build's time goes: the same launch with no stages
+    # (the tile read and written), and with every stage's nonzero range
+    # emptied (also the re-layouts between windows; no mask read, no swap).
+    lib, reg_bits, slots = libs["committed"]
+    dead = tuple(st._replace(lo=0, hi=0) for st in stages)
+    diag = {
+        "copy only": (functools.partial(K.launch_elem_local_pass, lib, x, masks, (), n, tile,
+                                        out, reg_bits, slots), x),
+        "re-layouts only": (functools.partial(K.launch_elem_local_pass, lib, x, masks, dead, n,
+                                              tile, out, reg_bits, slots), x),
+    }
+    rows = []
+    for name, (fn, same) in diag.items():
+        if not torch.equal(fn(), same):
+            raise AssertionError(f"elem local pass ({name}) changed its input")
+        ms = cold_ms(fn, 20)
+        rows.append(dict(network="net", n=n, kernel="benes_elem_local_pass", build=name,
+                         shape=shape, cold=ms))
+        print(f"elem n=2^{log_n} benes_elem_local_pass [committed, {name}]: cold {ms:.4f} ms",
+              flush=True)
+    for name, fn in cases.items():
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"elem local pass ({name}) differs from plain")
+        ms = {mode: cold_ms(fn, 20, sleep=mode == "cold") for mode in ("cold", "unpadded")}
+        row = dict(network="net", n=n, kernel="benes_elem_local_pass", build=name, shape=shape,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, host_us=host_us(fn), **ms)
+        rows.append(row)
+        print(f"elem n=2^{log_n} benes_elem_local_pass [{name}] ({shape}): cold "
+              f"{ms['cold']:.4f} ms, unpadded {ms['unpadded']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms; host {row['host_us']:.1f} us per call; bit-exact",
+              flush=True)
+    return rows
 
 
 def network(log_n: int, gen: torch.Generator):
@@ -95,15 +187,30 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", type=int, default=26)
     ap.add_argument("--vperm", type=int, default=23)
+    ap.add_argument("--groups", type=int, default=2)
+    ap.add_argument("--only", choices=("all", "single", "elem"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("benes_pass_sweep: no CUDA device")
     card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    if args.only != "elem":
+        rows += single_sweep(args, gen)
+    if args.only != "single":
+        rows += elem_sweep(args.net, args.groups, gen)
+    print(card)
+    print(json.dumps({"card": card, "sweep": rows}))
+    return 0
+
+
+def single_sweep(args, gen: torch.Generator) -> list[dict]:
+    """``benes_local_pass`` and ``benes_outer_pass`` on both networks, per
+    build."""
     libs = builds()
     for line in cuda_build.BUILD_INFO["relay_kernels"]["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"ptxas: {line.strip()}")
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, log_n in (("vperm", args.vperm), ("net", args.net)):
         table, masks, n = network(log_n, gen)
@@ -146,9 +253,7 @@ def main(argv=None) -> int:
                       f"{row['host_us']:.1f} us per call; bit-exact", flush=True)
         del masks, x, out
         torch.cuda.empty_cache()
-    print(card)
-    print(json.dumps({"card": card, "sweep": rows}))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

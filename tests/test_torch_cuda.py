@@ -229,6 +229,42 @@ def test_card_elem_benes_kernels_match_plain(card, layout):
     assert K.LAUNCHES["benes_elem_local_pass"] == 2 and K.LAUNCHES["benes_elem_outer_stage"] > 0
 
 
+def _routed_network(log_n: int, seed: int, moved: float = 1.0):
+    """Stored masks and stage table of a routed permutation of 2^log_n
+    elements that moves the first ``moved`` of them and fixes the rest
+    (whose masks are then zero: tiles there skip stages)."""
+    n = 1 << log_n
+    rng = np.random.default_rng(seed)
+    k = int(n * moved)
+    perm = np.concatenate([rng.permutation(k), np.arange(k, n)]).astype(np.int64)
+    masks, table = p_relay._compact_and_table(benes.route_std(perm), n)
+    return masks, table, n
+
+
+@pytest.mark.parametrize("log_n,groups,tile,moved", [
+    (16, 2, 1 << 15, 1.0),  # two tiles; compact stages in registers
+    (13, 3, 1 << 13, 1.0),  # one tile: the whole network
+    (16, 1, 1 << 12, 1.0),  # partial register windows (7, 2, 0, 5, 7), 16 tiles
+    (18, 2, 1 << 15, 0.25),  # tiles past the moved quarter skip every stage
+    (6, 2, 1 << 5, 1.0),  # a tile of 32 elements: one thread
+])
+def test_card_elem_local_pass_matches_plain(card, log_n, groups, tile, moved):
+    """``benes_elem_local_pass`` (stages in registers between re-layouts)
+    against the plain local run, into a fresh output and in place."""
+    masks, table, n = _routed_network(log_n, log_n, moved)
+    _, local, _, t = K.split_elem_passes(table, n, tile)
+    stages = tuple(table[i] for i in local)
+    x = _t(_words(np.random.default_rng(log_n), groups * n), card).reshape(groups, n)
+    m = _t(masks, card)
+    want = RE.apply_benes_elem(x, m, stages, n)
+    K.reset_launches()
+    _eq(K.benes_elem_local_pass(x, m, stages, n, t), want)
+    y = x.clone()
+    _eq(K.benes_elem_local_pass(y, m, stages, n, t, out=y), want)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["benes_elem_local_pass"] == 2
+
+
 @pytest.mark.parametrize("level", [3, 31])
 def test_card_elem_rowmin_update_matches_plain(card, layout, level):
     rg = layout
