@@ -361,31 +361,99 @@ benes_elem_outer_stage_kernel(const uint32_t* x_in, uint32_t* x_out,
 // elements, so frontier element -> L1 slot element is one fixed map:
 // l1[g, i] = src[i] >= 0 ? frontier[g, src[i]] : 0, with src (int32[n])
 // built once per engine by routing iota + 1 through the K5 kernels
-// (RelayEngine.route_index).  One thread per 4 consecutive slots reads
-// their 4 indices in one 16-byte load, gathers each group's frontier
-// elements and writes each group's 4 slots in one 16-byte store.
+// (RelayEngine.route_index).  A thread takes kGatherQuads runs of 4
+// consecutive slots: their indices in one 16-byte load each, then each
+// slot's frontier elements, then each group's 4 slots in one 16-byte store.
 // Bound: bytes — the index read once, the frontier read once per group and
 // the slots written once per group.  The index and the slots stream past
-// the L2 (evict-first loads and stores), so the G x vr frontier (33.6 MB at
-// s22, G = 2) can stay in the 50 MB L2 for the random gathers; the K5 route
-// it replaces streamed every element through 38 outer stages and two local
-// passes per superstep.
+// the L2 (evict-first loads and stores), so the frontier (33.6 MB at scale
+// 22, G = 2) can stay in the 50 MB L2 for the random reads.  Those reads are
+// what costs: each takes a 32-byte L2 sector for 4 bytes.  So for G = 2 and
+// 4 the frontier is read interleaved, int32[vr, G] (elem_frontier_interleave
+// writes it each superstep), and a slot reads all its groups' elements in
+// one 8- or 16-byte load, one sector, where the [G, vr] frontier costs G
+// sectors; other G read [G, vr] directly.
 // ---------------------------------------------------------------------------
+constexpr int kGatherQuads = 1;  // runs of 4 slots a thread
+
+template <int G>
+struct GroupVec;
+template <>
+struct GroupVec<1> {
+  using T = uint32_t;
+  __device__ static uint32_t at(T v, int) { return v; }
+};
+template <>
+struct GroupVec<2> {
+  using T = uint2;
+  __device__ static uint32_t at(T v, int g) { return g ? v.y : v.x; }
+};
+template <>
+struct GroupVec<4> {
+  using T = uint4;
+  __device__ static uint32_t at(T v, int g) {
+    return g == 0 ? v.x : g == 1 ? v.y : g == 2 ? v.z : v.w;
+  }
+};
+
+// G interleaved groups (frontier int32[vr, G]) when G > 1 or `groups` = 1;
+// G = 1 with groups > 1 reads each group's row of int32[groups, vr].
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 elem_route_gather_kernel(const uint32_t* __restrict__ frontier,
                          const int4* __restrict__ src, uint4* __restrict__ l1,
                          long long vr, long long n4, int groups) {
-  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= n4) return;
-  const int4 s = __ldcs(src + q);
-  for (int g = 0; g < groups; ++g) {
-    const uint32_t* __restrict__ f = frontier + g * vr;
-    uint4 o;
-    o.x = s.x >= 0 ? __ldg(f + s.x) : 0u;
-    o.y = s.y >= 0 ? __ldg(f + s.y) : 0u;
-    o.z = s.z >= 0 ? __ldg(f + s.z) : 0u;
-    o.w = s.w >= 0 ? __ldg(f + s.w) : 0u;
-    __stcs(l1 + g * n4 + q, o);
+  using V = typename GroupVec<G>::T;
+  const long long q0 = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
+                       kGatherQuads;
+  int4 s[kGatherQuads];
+#pragma unroll
+  for (int u = 0; u < kGatherQuads; ++u) {
+    s[u] = q0 + u < n4 ? __ldcs(src + q0 + u) : make_int4(-1, -1, -1, -1);
+  }
+  for (int g0 = 0; g0 < groups; g0 += G) {  // one pass when G == groups
+    const V* __restrict__ f = reinterpret_cast<const V*>(frontier + g0 * vr);
+    V v[kGatherQuads][4];
+#pragma unroll
+    for (int u = 0; u < kGatherQuads; ++u) {
+      const int idx[4] = {s[u].x, s[u].y, s[u].z, s[u].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[u][c] = idx[c] >= 0 ? __ldg(f + idx[c]) : V{};
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherQuads; ++u) {
+      if (q0 + u >= n4) break;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const uint4 o = make_uint4(GroupVec<G>::at(v[u][0], g), GroupVec<G>::at(v[u][1], g),
+                                   GroupVec<G>::at(v[u][2], g), GroupVec<G>::at(v[u][3], g));
+        __stcs(l1 + (g0 + g) * n4 + q0 + u, o);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// elem_frontier_interleave — the frontier int32[G, vr] as int32[vr, G], for
+// elem_route_gather's one-sector reads (G = 2 or 4).  Part of the same
+// replacement: no kernel of the reference does this; its route moved every
+// element through the K5 networks.  A thread per vertex: G coalesced
+// 4-byte reads, one 8- or 16-byte store.
+// Bound: bytes — the frontier read and written once.
+// ---------------------------------------------------------------------------
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+elem_frontier_interleave_kernel(const uint32_t* __restrict__ frontier,
+                                typename GroupVec<G>::T* __restrict__ out, long long vr) {
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v >= vr) return;
+  uint32_t e[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int g = 0; g < G; ++g) e[g] = __ldcs(frontier + g * vr + v);
+  if constexpr (G == 2) {
+    out[v] = make_uint2(e[0], e[1]);
+  } else {
+    out[v] = make_uint4(e[0], e[1], e[2], e[3]);
   }
 }
 
@@ -483,6 +551,7 @@ struct ElemTable {
 struct ElemOut {
   uint32_t* visited;      // [G, vr]
   uint32_t* frontier;     // [G, vr]
+  uint32_t* frontier_t;   // [vr, G] as well, or null
   uint32_t* dist_planes;  // [kDistPlanes, G, vr]
   uint32_t* rank_planes;  // [G, pt]
   long long vr, pt;
@@ -513,6 +582,7 @@ __device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, const ElemIte
   }
   const long long gv = g * o.vr + v;
   o.frontier[gv] = newly;
+  if (o.frontier_t) o.frontier_t[v * o.groups + g] = newly;
   if (!newly) return 0u;
   o.visited[gv] = vis | newly;
 #pragma unroll
@@ -704,7 +774,10 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
     }
   } else {
     const long long i = b * kThreads + tid;
-    if (i < it.count) o.frontier[g * o.vr + it.va + i] = 0u;
+    if (i < it.count) {
+      o.frontier[g * o.vr + it.va + i] = 0u;
+      if (o.frontier_t) o.frontier_t[(it.va + i) * o.groups + g] = 0u;
+    }
   }
   if (__syncthreads_or(any) && tid == 0) *changed = 1;
 }
@@ -782,19 +855,47 @@ int benes_elem_outer_stage(const void* x_in, void* x_out, const void* mask,
 }
 
 int elem_route_gather(const void* frontier, const void* src, void* l1,
-                      long long vr, long long n, int groups, void* stream) {
-  if (n % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                      long long vr, long long n, int groups, int interleaved,
+                      void* stream) {
+  if (n % 4 != 0 || groups < 1 ||
+      (interleaved && groups != 2 && groups != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long n4 = n >> 2;
-  const unsigned blocks = static_cast<unsigned>((n4 + kThreads - 1) / kThreads);
-  elem_route_gather_kernel<<<blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(frontier), static_cast<const int4*>(src),
-      static_cast<uint4*>(l1), vr, n4, groups);
+  const long long per_block = static_cast<long long>(kThreads) * kGatherQuads;
+  const unsigned blocks = static_cast<unsigned>((n4 + per_block - 1) / per_block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint32_t*>(frontier);
+  const auto* idx = static_cast<const int4*>(src);
+  auto* out = static_cast<uint4*>(l1);
+  if (!interleaved) {
+    elem_route_gather_kernel<1><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+  } else if (groups == 2) {
+    elem_route_gather_kernel<2><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+  } else {
+    elem_route_gather_kernel<4><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int elem_frontier_interleave(const void* frontier, void* out, long long vr, int groups,
+                             void* stream) {
+  if (groups != 2 && groups != 4) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((vr + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const uint32_t*>(frontier);
+  if (groups == 2) {
+    elem_frontier_interleave_kernel<2><<<blocks, kThreads, 0, s>>>(
+        f, static_cast<uint2*>(out), vr);
+  } else {
+    elem_frontier_interleave_kernel<4><<<blocks, kThreads, 0, s>>>(
+        f, static_cast<uint4*>(out), vr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int elem_rowmin_update(const void* l1, const void* valid, void* visited,
-                       void* frontier, void* dist_planes, void* rank_planes,
+                       void* frontier, void* frontier_t, void* dist_planes, void* rank_planes,
                        void* changed, const long long* items, int nitems,
                        long long total_blocks, int groups, long long n,
                        long long vr, long long pt, unsigned level,
@@ -824,6 +925,7 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
   ElemOut o;
   o.visited = static_cast<uint32_t*>(visited);
   o.frontier = static_cast<uint32_t*>(frontier);
+  o.frontier_t = static_cast<uint32_t*>(frontier_t);
   o.dist_planes = static_cast<uint32_t*>(dist_planes);
   o.rank_planes = static_cast<uint32_t*>(rank_planes);
   o.vr = vr;

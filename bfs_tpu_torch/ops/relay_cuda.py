@@ -22,6 +22,8 @@ else.
   elem_route_gather       both _run_elem_pass networks (K5) and the XLA
                           broadcast between them, inside the level loop;
                           the two K5 kernels build its index
+  elem_frontier_interleave  the same route: the frontier as [vr, G] for
+                          the gather's one-sector reads (G = 2 or 4)
   elem_rowmin_update      the XLA row-min and update of elem_superstep
                           (bfs_tpu/ops/relay_elem.py)
   mxu_expand              expand_frontier_mxu (K6, bfs_tpu/ops/relay_mxu.py)
@@ -52,6 +54,7 @@ LAUNCHES = {
     "benes_elem_local_pass": 0,
     "benes_elem_outer_stage": 0,
     "elem_route_gather": 0,
+    "elem_frontier_interleave": 0,
     "elem_rowmin_update": 0,
     "mxu_expand": 0,
 }
@@ -118,10 +121,12 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     lib.benes_elem_outer_stage.restype = _INT
     lib.benes_elem_outer_stage.argtypes = [_VP, _VP, _VP, _INT, _LL, _LL, _INT, _VP]
     lib.elem_route_gather.restype = _INT
-    lib.elem_route_gather.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _VP]
+    lib.elem_route_gather.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _VP]
+    lib.elem_frontier_interleave.restype = _INT
+    lib.elem_frontier_interleave.argtypes = [_VP, _VP, _LL, _INT, _VP]
     lib.elem_rowmin_update.restype = _INT
     lib.elem_rowmin_update.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
         ctypes.c_uint, _VP,
     ]
 
@@ -661,16 +666,53 @@ def apply_benes_elem(
     return out
 
 
+#: Group counts whose frontier the gather reads interleaved, int32[vr, G]:
+#: one 8- or 16-byte load per slot for all its groups.
+INTERLEAVED_GROUPS = (2, 4)
+
+
+def elem_frontier_interleave(frontier: torch.Tensor, out: torch.Tensor | None = None,
+                             lib=None) -> torch.Tensor:
+    """The frontier int32[G, vr] as int32[vr, G] (G = 2 or 4): kernel
+    ``elem_frontier_interleave`` on the card (through ``lib``, default the
+    built ``relay_elem_kernels.cu``), :func:`.relay_elem.interleave_frontier`
+    on the CPU."""
+    if not _on_card(frontier):
+        return RE.interleave_frontier(frontier)
+    groups = _check_elems("frontier", frontier, frontier.shape[-1])
+    if groups not in INTERLEAVED_GROUPS:
+        raise ValueError(f"interleaving takes {INTERLEAVED_GROUPS} groups, got {groups}")
+    vr = int(frontier.shape[1])
+    out = torch.empty((vr, groups), dtype=torch.int32, device=frontier.device) if out is None else out
+    if (out.dtype != torch.int32 or not out.is_contiguous() or tuple(out.shape) != (vr, groups)
+            or out.data_ptr() % 16):
+        raise ValueError(f"out: expected a 16-byte aligned contiguous int32[{vr}, {groups}] tensor")
+    rc = (lib or elem_kernels()).elem_frontier_interleave(
+        _ptr(frontier), _ptr(out), vr, groups, _stream())
+    LAUNCHES["elem_frontier_interleave"] += 1
+    _call(rc, "elem_frontier_interleave")
+    return out
+
+
 def elem_route_gather(
     frontier: torch.Tensor, src: torch.Tensor, out: torch.Tensor | None = None,
+    frontier_t: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Routed L1 slot elements int32[G, n] of one elem superstep from the
     frontier int32[G, vr], through the composed route index ``src``
     (int32[n], -1 where a slot receives nothing;
-    ``RelayEngine.route_index``): kernel ``elem_route_gather`` on the card,
+    ``RelayEngine.route_index``): kernel ``elem_route_gather`` on the card
+    (for G in :data:`INTERLEAVED_GROUPS` from ``frontier_t``, the frontier
+    interleaved, made by ``elem_frontier_interleave`` when not given),
     :func:`.relay_elem.route_gather` on the CPU."""
     if not _on_card(frontier, src):
         return RE.route_gather(frontier, src)
+    return launch_route_gather(elem_kernels(), frontier, src, out, frontier_t)
+
+
+def launch_route_gather(lib, frontier, src, out=None, frontier_t=None) -> torch.Tensor:
+    """:func:`elem_route_gather` on the card, through ``lib`` (the built
+    ``relay_elem_kernels.cu``, or a copy of it with other constants)."""
     groups = _check_elems("frontier", frontier, frontier.shape[-1])
     _check_words("src", src)
     _check_aligned("src", src)
@@ -678,8 +720,19 @@ def elem_route_gather(
     out = torch.empty((groups, n), dtype=torch.int32, device=src.device) if out is None else out
     _check_elems("out", out, n, groups)
     _check_aligned("out", out)
-    rc = elem_kernels().elem_route_gather(
-        _ptr(frontier), _ptr(src), _ptr(out), frontier.shape[1], n, groups, _stream(),
+    interleaved = groups in INTERLEAVED_GROUPS
+    f = frontier
+    if interleaved and frontier_t is None:
+        f = elem_frontier_interleave(frontier, lib=lib)
+    elif interleaved:
+        f = frontier_t
+        if (f.dtype != torch.int32 or not f.is_contiguous()
+                or tuple(f.shape) != (frontier.shape[1], groups) or f.data_ptr() % 16):
+            raise ValueError("frontier_t: expected the frontier as a 16-byte aligned "
+                             f"contiguous int32[{frontier.shape[1]}, {groups}] tensor")
+    rc = lib.elem_route_gather(
+        _ptr(f), _ptr(src), _ptr(out), frontier.shape[1], n, groups, int(interleaved),
+        _stream(),
     )
     LAUNCHES["elem_route_gather"] += 1
     _call(rc, "elem_route_gather")
@@ -737,14 +790,16 @@ def elem_rowmin_items(in_classes: tuple, vr: int):
 
 def elem_rowmin_update(
     l1: torch.Tensor, valid_words: torch.Tensor, state: RE.ElemState,
-    in_classes, vr: int,
+    in_classes, vr: int, frontier_t: torch.Tensor | None = None,
 ) -> RE.ElemState:
     """Row-min and bit-sliced update of one elem superstep.  On both devices
     ``state.visited``, ``state.dist_planes`` and ``state.rank_planes`` are
     updated IN PLACE and returned with a new frontier.  On the card the
     kernel ``elem_rowmin_update`` does it and ``changed`` is a device
-    int32[1] flag; on the CPU :func:`.relay_elem.rowmin_elem` then
-    :func:`.relay_elem.apply_elem_found`, copied into the given tensors."""
+    int32[1] flag (and, given ``frontier_t``, writes the new frontier
+    interleaved there too, int32[vr, G]); on the CPU
+    :func:`.relay_elem.rowmin_elem` then :func:`.relay_elem.apply_elem_found`,
+    copied into the given tensors (and ``frontier_t``)."""
     plane_offsets, pt = RE.rank_plane_layout(in_classes)
     if not _on_card(l1, valid_words, state.visited):
         found, rp = RE.rowmin_elem(l1, valid_words, in_classes, vr, plane_offsets, pt)
@@ -752,6 +807,8 @@ def elem_rowmin_update(
         state.visited.copy_(new.visited)
         state.dist_planes.copy_(new.dist_planes)
         state.rank_planes.copy_(new.rank_planes)
+        if frontier_t is not None:
+            frontier_t.copy_(RE.interleave_frontier(new.frontier))
         return new._replace(
             visited=state.visited, dist_planes=state.dist_planes,
             rank_planes=state.rank_planes,
@@ -766,11 +823,16 @@ def elem_rowmin_update(
     table, blocks = elem_rowmin_items(tuple(in_classes), int(vr))
     if table.shape[0] > ELEM_MAX_ITEMS:
         raise ValueError(f"elem_rowmin_update: {table.shape[0]} work items exceed {ELEM_MAX_ITEMS}")
+    if frontier_t is not None and (
+            frontier_t.dtype != torch.int32 or not frontier_t.is_contiguous()
+            or tuple(frontier_t.shape) != (vr, groups)):
+        raise ValueError(f"frontier_t: expected a contiguous int32[{vr}, {groups}] tensor")
     frontier = torch.empty_like(state.visited)
     changed = torch.empty(1, dtype=torch.int32, device=l1.device)
     rc = elem_kernels().elem_rowmin_update(
         _ptr(l1), _ptr(valid_words), _ptr(state.visited), _ptr(frontier),
-        _ptr(state.dist_planes), _ptr(state.rank_planes), _ptr(changed),
+        _VP(None) if frontier_t is None else _ptr(frontier_t), _ptr(state.dist_planes),
+        _ptr(state.rank_planes), _ptr(changed),
         _VP(table.data_ptr()), table.shape[0], blocks, groups, n, vr, pt,
         state.level + 1, _stream(),
     )

@@ -40,6 +40,7 @@ __all__ = [
     "broadcast_l2_elem",
     "route_index",
     "route_gather",
+    "interleave_frontier",
     "rowmin_elem",
     "apply_elem_found",
     "elem_superstep",
@@ -178,6 +179,12 @@ def route_gather(frontier: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     through :func:`route_index`'s ``src``: ``where(src >= 0,
     frontier[:, src], 0)``."""
     return torch.where(src >= 0, frontier[:, src.clamp(min=0).long()], 0)
+
+
+def interleave_frontier(frontier: torch.Tensor) -> torch.Tensor:
+    """The frontier int32[G, vr] as int32[vr, G]: a vertex's groups side
+    by side, the layout the card's route gather reads."""
+    return frontier.t().contiguous()
 
 
 def _tournament(xv: torch.Tensor):

@@ -24,8 +24,8 @@ The multi-source path follows on the same graph:
 ``RelayEngine.run_multi_elem_device`` for a batch of 64 sources drawn from
 ``--seed`` (BASELINE.json config 5; G = 2 groups of 32 trees), whose first
 call builds the route index through the element-major Beneš kernels (K5),
-then timed (one ``elem_route_gather`` and one ``elem_rowmin_update`` per
-superstep, no K5 launch), traced, and every tree checked against the port's
+then timed (one ``elem_frontier_interleave``, one ``elem_route_gather`` and
+one ``elem_rowmin_update`` per superstep, no K5 launch), traced, and every tree checked against the port's
 single-source search (and four against the oracle); then the route index
 against the one the plain networks build, and every element-major kernel
 against its plain version at the layout's real shapes.  Small graphs close the run: tinyCG (the paper's worked
@@ -71,10 +71,14 @@ ELEM_REPLACES = {
     "benes_elem_outer_stage": "bfs_tpu/ops/relay_pallas.py:860",
     # both K5 networks and the broadcast between them, in the level loop
     "elem_route_gather": "bfs_tpu/ops/relay_pallas.py:860",
+    # the same route: the frontier interleaved for the gather (G = 2)
+    "elem_frontier_interleave": "bfs_tpu/ops/relay_pallas.py:860",
     # XLA in the reference: rowmin_elem (:186) and the update (:258)
     "elem_rowmin_update": "bfs_tpu/ops/relay_elem.py:186",
 }
 MXU_REPLACES = {"mxu_expand": "bfs_tpu/ops/relay_mxu.py:373"}
+# Each launched once per batch superstep at G = 2.
+LOOP_KERNELS = ("elem_frontier_interleave", "elem_route_gather", "elem_rowmin_update")
 
 
 def log(msg: str) -> None:
@@ -454,12 +458,23 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     f = st0.frontier
     l1 = K.apply_benes_elem(l2, masks, table, n)  # through the networks
     del l2
-    got = K.elem_route_gather(f, src)
+    # elem_frontier_interleave: the frontier as [vr, G] for the gather.
+    ft = K.elem_frontier_interleave(f)
+    err = max_abs_err(ft, RE.interleave_frontier(f))
+    ftbuf = torch.empty_like(ft)
+    ms = cold_ms(lambda: K.elem_frontier_interleave(f, out=ftbuf), 50)
+    pms = cold_ms(lambda: RE.interleave_frontier(f), 50)
+    # Bytes: the frontier read and written once; the plain version is one
+    # torch call (a transposed copy), so it is the library time too.
+    record("elem_frontier_interleave", err, ms, pms, 2 * 4 * groups * rg.vr,
+           f"vr={rg.vr} x G={groups}", 1, pms)
+    got = K.elem_route_gather(f, src, frontier_t=ft)
     err = max_abs_err(got, RE.route_gather(f, src))
     if not torch.equal(got, l1):
         raise AssertionError("elem_route_gather differs from the route through the networks")
     buf = torch.empty_like(got)
-    ms = cold_ms(lambda: K.elem_route_gather(f, src, out=buf), 50)
+    ms = cold_ms(lambda: K.elem_route_gather(f, src, out=buf, frontier_t=ft), 50)
+    both_ms = cold_ms(lambda: K.elem_route_gather(f, src, out=buf), 50)
     pms = cold_ms(lambda: RE.route_gather(f, src), 5)
     fpad = torch.cat([f, f.new_zeros((groups, 1))], dim=1)
     idx = torch.where(src >= 0, src, rg.vr).long()
@@ -472,11 +487,12 @@ def elem_kernel_phase(eng, sources, K, RE, card: str) -> dict:
     # once per group.
     record("elem_route_gather", err, ms, pms, 4 * n + elem_bytes + 4 * groups * rg.vr,
            f"net n={n} x G={groups} from vr={rg.vr}", 1, lms)
-    results["route"] = dict(networks_ms=route_ms, build_s=build_s, plain_build_s=plain_s)
-    log(f"elem route of one superstep: elem_route_gather {ms:.4f} ms against "
-        f"{route_ms:.4f} ms through the networks and the broadcast (K5 kernels; cold L2, "
-        f"on {card})")
-    del got, buf
+    results["route"] = dict(networks_ms=route_ms, build_s=build_s, plain_build_s=plain_s,
+                            interleave_and_gather_ms=both_ms)
+    log(f"elem route of one superstep: elem_frontier_interleave + elem_route_gather "
+        f"{both_ms:.4f} ms (the gather alone {ms:.4f}) against {route_ms:.4f} ms through the "
+        f"networks and the broadcast (K5 kernels; cold L2, on {card})")
+    del got, buf, ft, ftbuf
     torch.cuda.empty_cache()
 
     # elem_rowmin_update on the routed L1 elements of that superstep.
@@ -547,7 +563,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> di
     """The multi-source main path: ``run_multi_elem_device`` for one batch,
     first on an engine that has run none (its launches counted: the K5
     kernels build the route index, then each superstep launches one
-    gather and one row-min/update), then timed with its launches counted
+    interleave, one gather and one row-min/update), then timed with its launches counted
     (no K5 launch), traced once, and its results (``run_multi_elem``)
     checked tree by tree."""
     import numpy as np
@@ -565,7 +581,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> di
     for name in ELEM_BUILD:
         if first[name] <= 0:
             raise AssertionError(f"the route index build never launched kernel {name}")
-    for name in ("elem_route_gather", "elem_rowmin_update"):
+    for name in LOOP_KERNELS:
         if first[name] != level0:
             raise AssertionError(f"first batch: {name} launched {first[name]} times in {level0} supersteps")
     log(f"multi-source batch, first call (builds the route index): {first_s:.6f} s, "
@@ -584,7 +600,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P) -> di
     if changed:
         raise AssertionError("64-source batch did not converge within the elem level cap")
     want = {name: 0 for name in ELEM_BUILD}
-    want.update(elem_route_gather=level, elem_rowmin_update=level)
+    want.update({name: level for name in LOOP_KERNELS})
     if launches != want:
         raise AssertionError(f"timed batch: launches {launches}, expected {want}")
     trees = len(sources)

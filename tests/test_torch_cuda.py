@@ -283,6 +283,33 @@ def test_card_elem_rowmin_update_matches_plain(card, layout, level):
     assert bool(got.changed.item()) == bool(want.changed)
 
 
+@pytest.mark.parametrize("groups", [2, 4])
+def test_card_elem_rowmin_update_writes_the_interleaved_frontier(card, layout, groups):
+    """Given ``frontier_t``, the kernel also writes the new frontier as
+    int32[vr, G]: the transposed plain frontier, every vertex (the tail
+    included)."""
+    rg = layout
+    rng = np.random.default_rng(groups)
+    l1 = _t(_words(rng, groups * rg.net_size), card).reshape(groups, rg.net_size)
+    valid = _t(valid_slot_words(rg.src_l1, rg.net_size), card)
+    _, pt = RE.rank_plane_layout(rg.in_classes)
+    visited = _words(rng, groups * rg.vr)
+    st = RE.ElemState(
+        _t(visited, card).reshape(groups, rg.vr),
+        _t(visited & _words(rng, groups * rg.vr), card).reshape(groups, rg.vr),
+        _t(_words(rng, RE.DIST_PLANES * groups * rg.vr), card).reshape(RE.DIST_PLANES, groups, rg.vr),
+        _t(_words(rng, groups * pt), card).reshape(groups, pt), 4, None,
+    )
+    want = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), 4, None),
+                                rg.in_classes, rg.vr)
+    ft = torch.full((rg.vr, groups), 7, dtype=torch.int32, device=card)
+    got = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), 4, None),
+                               rg.in_classes, rg.vr, frontier_t=ft)
+    for a, b in zip(got[:4], want[:4]):
+        _eq(a, b)
+    _eq(ft, RE.interleave_frontier(want.frontier))
+
+
 def _elem_classes(tail: int = 40):
     """Rank-major widths 1, 33, 256 and 1,536 (the scale-22 layout's widest
     rank-major class: 8 chunks of 192 rows), vertex-major widths 33 (padded
@@ -370,8 +397,11 @@ def test_card_route_index_kernels_match_plain(card, layout):
     assert K.LAUNCHES["benes_elem_local_pass"] == K.LAUNCHES["benes_elem_outer_stage"] == 0
 
 
-@pytest.mark.parametrize("groups", [1, 2, 3])
+@pytest.mark.parametrize("groups", [1, 2, 3, 4])
 def test_card_elem_route_gather_matches_plain(card, layout, groups):
+    """The gather (from the interleaved frontier at G = 2 and 4, one
+    ``elem_frontier_interleave`` launch before it) against the plain gather
+    and the route through the networks."""
     rg = layout
     eng = P.RelayEngine(rg)
     src = eng.route_index()
@@ -380,10 +410,22 @@ def test_card_elem_route_gather_matches_plain(card, layout, groups):
     got = K.elem_route_gather(f, src)
     torch.cuda.synchronize()
     assert K.LAUNCHES["elem_route_gather"] == 1
+    assert K.LAUNCHES["elem_frontier_interleave"] == int(groups in K.INTERLEAVED_GROUPS)
     _eq(got, RE.route_gather(f, src))
     _eq(got, eng.routed_elem(f))  # the networks themselves, through the K5 kernels
     out = torch.full_like(got, 7)
     _eq(K.elem_route_gather(f, src, out=out), got)
+
+
+@pytest.mark.parametrize("groups,vr", [(2, 4103), (4, 70001), (2, 1 << 20)])
+def test_card_elem_frontier_interleave_matches_plain(card, groups, vr):
+    f = _t(_words(np.random.default_rng(vr), groups * vr), card).reshape(groups, vr)
+    K.reset_launches()
+    got = K.elem_frontier_interleave(f)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["elem_frontier_interleave"] == 1
+    _eq(got, RE.interleave_frontier(f))
+    _eq(got, f.t())
 
 
 # ------------------------------------------------------------ MXU arm (K6) --

@@ -111,6 +111,30 @@ def test_route_index_and_gather_match_jax_route(layout, groups):
     assert all(v == 0 for v in K.LAUNCHES.values())  # CPU tensors: plain versions
 
 
+@pytest.mark.parametrize("groups", [2, 4])
+def test_interleaved_frontier_matches_jax_route(layout, groups):
+    """The frontier interleaved as int32[vr, G] (the layout the card's
+    gather reads for G = 2 and 4) holds every group's element of a vertex
+    side by side, and gathering its columns gives the reference's route;
+    the row-min/update's plain path writes the new frontier interleaved when
+    asked to."""
+    rg = layout
+    eng = P.RelayEngine(rg, device="cpu")
+    src = eng.route_index()
+    f = _elems(np.random.default_rng(10 + groups), (groups, rg.vr))
+    ft = K.elem_frontier_interleave(_t(f))
+    assert tuple(ft.shape) == (rg.vr, groups) and ft.is_contiguous()
+    np.testing.assert_array_equal(_u(ft), f.T)
+    np.testing.assert_array_equal(_u(RE.route_gather(ft.t(), src)), _jax_route(rg, f))
+    _, pt = RE.rank_plane_layout(rg.in_classes)
+    sources = np.random.default_rng(groups).choice(rg.num_vertices, 32 * groups, replace=False)
+    st = RE.init_elem_state(rg.vr, rg.old2new[sources].reshape(groups, 32), pt)
+    l1 = K.elem_route_gather(st.frontier, src)
+    out = torch.full((rg.vr, groups), 7, dtype=torch.int32)
+    new = K.elem_rowmin_update(l1, eng.valid_words, st, rg.in_classes, rg.vr, frontier_t=out)
+    np.testing.assert_array_equal(_u(out), _u(new.frontier).T)
+
+
 def test_superstep_elem_uses_the_route_gather(layout):
     """One engine superstep (gather + row-min/update, plain on the CPU)
     equals the reference's superstep through the networks."""
