@@ -84,10 +84,9 @@ __device__ __forceinline__ uint32_t mask_select(const uint32_t* __restrict__ m,
 // store do not overlap (an SM holds one block).  The design it replaces ran
 // each stage as a pass over the tile in shared memory, a barrier each: 29
 // passes of 128 KB per tile at scale 22.  bfs_tpu_torch/tools/
-// benes_pass_sweep.py times it against builds with other kElemRegBits,
-// kElemSlots and kElemSwapMad, and splits its time into the tile's copy,
-// the re-layouts and the stages; PERF.md records the sweep and what else
-// was tried.
+// benes_pass_sweep.py times it against builds with other kElemRegBits and
+// kElemSlots, and splits its time into the tile's copy, the re-layouts and
+// the stages; PERF.md records the sweep and what else was tried.
 // ---------------------------------------------------------------------------
 constexpr int kMaxLocalStages = 64;
 constexpr int kElemRegBits = 5;  // elements a thread holds: 2^kElemRegBits
@@ -96,9 +95,6 @@ constexpr int kMaxTileBits = 15;  // relay_cuda.MAX_TILE_ELEMS = 2^15
 constexpr int kElemLocalThreads = (1 << kMaxTileBits) >> kElemRegBits;
 constexpr int kMaxLo = kMaxTileBits - kElemRegBits;
 constexpr int kElemSlots = 16;  // mask slab ring slots
-// A swap as one select and two multiply-adds (1: the adds run on the FMA
-// pipe beside the ALU's mask test and select) or as two selects (0).
-constexpr int kElemSwapMad = 1;
 constexpr int kElemBarBytes = (kElemSlots * 8 + 15) & ~15;
 static_assert(kElemRegBits >= 1 && kElemRegBits <= 6, "2 to 64 elements a thread");
 static_assert(kElemSlots >= 1 && kElemSlots <= 32, "a parity bit per slot");
@@ -119,10 +115,6 @@ struct ElemLocalPlan {
 struct ElemStage {
   const uint32_t* src;  // the tile's slab in device memory
   int words;            // the slab's words
-  int bit;
-  int compact;
-  int live;             // the slab touches the stage's nonzero words
-  int bulk;             // one bulk copy (16-byte aligned source and size)
 };
 
 __device__ __forceinline__ uint32_t swizzle(uint32_t e) { return e ^ ((e >> 5) & 31u); }
@@ -166,16 +158,13 @@ __device__ __forceinline__ void reg_stage(uint32_t (&x)[kElemRegs], const uint32
     const bool swap = (Q & 31u) == 0u ? (m & bm) != 0u : ((m >> (sh | (Q & 31u))) & 1u) != 0u;
     const uint32_t a = x[j], c = x[j | (1 << K)];
     x[j] = swap ? c : a;
-    if constexpr (kElemSwapMad) {
-      // c' = (a + c) - a', both as multiply-adds by a runtime 1 and -1, so
-      // that the compiler keeps them on the FMA pipe.
-      uint32_t sum, rest;
-      asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(sum) : "r"(a), "r"(one), "r"(c));
-      asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(rest) : "r"(x[j]), "r"(0u - one), "r"(sum));
-      x[j | (1 << K)] = rest;
-    } else {
-      x[j | (1 << K)] = swap ? a : c;
-    }
+    // c' = (a + c) - a' as two multiply-adds by a runtime 1 and -1, which
+    // the compiler keeps on the FMA pipe: a second select would take the
+    // ALU pipe, which the mask test and the first select already load.
+    uint32_t sum, rest;
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(sum) : "r"(a), "r"(one), "r"(c));
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(rest) : "r"(x[j]), "r"(0u - one), "r"(sum));
+    x[j | (1 << K)] = rest;
   }
 }
 
@@ -191,6 +180,10 @@ __device__ __forceinline__ void reg_stage_k(int k, uint32_t (&x)[kElemRegs],
   }
 }
 
+// A stage as one word of shared memory: live | bulk << 1 | compact << 2 |
+// bit << 3.
+constexpr int kLive = 1, kBulk = 2, kCompact = 4;
+
 __global__ void __launch_bounds__(kElemLocalThreads, 1)
 benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                              const uint32_t* __restrict__ masks,
@@ -198,6 +191,7 @@ benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                              int lg_tile, int slot_words, int keep_masks, uint32_t one) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ElemStage info[kMaxLocalStages];
+  __shared__ int code[kMaxLocalStages];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kElemBarBytes);  // the tile, swizzled
   const int tile = 1 << lg_tile;
@@ -212,15 +206,16 @@ benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
   }
   for (int s = t; s < count; s += blockDim.x) {  // a small tile has few threads
     ElemStage f;
-    f.bit = plan.bit[s];
-    f.compact = plan.compact[s];
-    const long long w0 = f.compact ? base >> 6 : base >> 5;
-    const int words = f.compact ? tile >> 6 : tile >> 5;
+    const bool compact = plan.compact[s] != 0;
+    const long long w0 = compact ? base >> 6 : base >> 5;
+    const int words = compact ? tile >> 6 : tile >> 5;
     f.words = words > 0 ? words : 1;
     f.src = masks + plan.offset[s] + w0;
-    f.live = w0 < plan.hi[s] && w0 + f.words > plan.lo[s];
-    f.bulk = ((reinterpret_cast<uintptr_t>(f.src) | (f.words * 4u)) & 15u) == 0;
     info[s] = f;
+    const bool live = w0 < plan.hi[s] && w0 + f.words > plan.lo[s];
+    const bool bulk = ((reinterpret_cast<uintptr_t>(f.src) | (f.words * 4u)) & 15u) == 0;
+    code[s] = (live ? kLive : 0) | (bulk ? kBulk : 0) | (compact ? kCompact : 0) |
+              (plan.bit[s] << 3);
   }
   __syncthreads();
   // The G blocks of a tile read the same slabs: keep them in the L2 for the
@@ -232,10 +227,10 @@ benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
     policy = evict_first_policy();
   }
   auto issue = [&](int s) {  // block-uniform
+    if (!(code[s] & kLive)) return;
     const ElemStage& f = info[s];
-    if (!f.live) return;
     uint32_t* dst = ring + (s % kElemSlots) * slot_words;
-    if (f.bulk) {
+    if (code[s] & kBulk) {
       if (t == 0) {
         fence_proxy_async();  // the slot's last readers passed a block barrier
         bulk_load(dst, f.src, static_cast<uint32_t>(f.words) * 4u, bar + s % kElemSlots, policy);
@@ -295,10 +290,10 @@ benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
       constexpr int LO = decltype(c)::value;
       const uint32_t et = thread_elems<LO>(t);
       for (int s = s0; s < plan.phase_end[p]; ++s) {
-        const ElemStage& f = info[s];
-        if (!f.live) continue;  // all zero on this tile
+        const int cs = code[s];
+        if (!(cs & kLive)) continue;  // all zero on this tile
         const int slot = s % kElemSlots;
-        if (f.bulk) {  // each slab waited for just before its stage
+        if (cs & kBulk) {  // each slab waited for just before its stage
           mbar_wait(bar + slot, (parity >> slot) & 1u);
           parity ^= 1u << slot;
         } else {
@@ -306,10 +301,10 @@ benes_elem_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
           __syncthreads();  // every thread's words in place
         }
         const uint32_t* slab = ring + slot * slot_words;
-        if (f.compact) {
-          reg_stage_k<LO, true>(f.bit - LO, x, slab, et, one);
+        if (cs & kCompact) {
+          reg_stage_k<LO, true>((cs >> 3) - LO, x, slab, et, one);
         } else {
-          reg_stage_k<LO, false>(f.bit - LO, x, slab, et, one);
+          reg_stage_k<LO, false>((cs >> 3) - LO, x, slab, et, one);
         }
       }
     });
@@ -551,7 +546,6 @@ struct ElemTable {
 struct ElemOut {
   uint32_t* visited;      // [G, vr]
   uint32_t* frontier;     // [G, vr]
-  uint32_t* frontier_t;   // [vr, G] as well, or null
   uint32_t* dist_planes;  // [kDistPlanes, G, vr]
   uint32_t* rank_planes;  // [G, pt]
   long long vr, pt;
@@ -582,7 +576,6 @@ __device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, const ElemIte
   }
   const long long gv = g * o.vr + v;
   o.frontier[gv] = newly;
-  if (o.frontier_t) o.frontier_t[v * o.groups + g] = newly;
   if (!newly) return 0u;
   o.visited[gv] = vis | newly;
 #pragma unroll
@@ -774,10 +767,7 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
     }
   } else {
     const long long i = b * kThreads + tid;
-    if (i < it.count) {
-      o.frontier[g * o.vr + it.va + i] = 0u;
-      if (o.frontier_t) o.frontier_t[(it.va + i) * o.groups + g] = 0u;
-    }
+    if (i < it.count) o.frontier[g * o.vr + it.va + i] = 0u;
   }
   if (__syncthreads_or(any) && tid == 0) *changed = 1;
 }
@@ -895,7 +885,7 @@ int elem_frontier_interleave(const void* frontier, void* out, long long vr, int 
 }
 
 int elem_rowmin_update(const void* l1, const void* valid, void* visited,
-                       void* frontier, void* frontier_t, void* dist_planes, void* rank_planes,
+                       void* frontier, void* dist_planes, void* rank_planes,
                        void* changed, const long long* items, int nitems,
                        long long total_blocks, int groups, long long n,
                        long long vr, long long pt, unsigned level,
@@ -925,7 +915,6 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
   ElemOut o;
   o.visited = static_cast<uint32_t*>(visited);
   o.frontier = static_cast<uint32_t*>(frontier);
-  o.frontier_t = static_cast<uint32_t*>(frontier_t);
   o.dist_planes = static_cast<uint32_t*>(dist_planes);
   o.rank_planes = static_cast<uint32_t*>(rank_planes);
   o.vr = vr;

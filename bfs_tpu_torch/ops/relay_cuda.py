@@ -126,7 +126,7 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     lib.elem_frontier_interleave.argtypes = [_VP, _VP, _LL, _INT, _VP]
     lib.elem_rowmin_update.restype = _INT
     lib.elem_rowmin_update.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
         ctypes.c_uint, _VP,
     ]
 
@@ -790,16 +790,14 @@ def elem_rowmin_items(in_classes: tuple, vr: int):
 
 def elem_rowmin_update(
     l1: torch.Tensor, valid_words: torch.Tensor, state: RE.ElemState,
-    in_classes, vr: int, frontier_t: torch.Tensor | None = None,
+    in_classes, vr: int,
 ) -> RE.ElemState:
     """Row-min and bit-sliced update of one elem superstep.  On both devices
     ``state.visited``, ``state.dist_planes`` and ``state.rank_planes`` are
     updated IN PLACE and returned with a new frontier.  On the card the
     kernel ``elem_rowmin_update`` does it and ``changed`` is a device
-    int32[1] flag (and, given ``frontier_t``, writes the new frontier
-    interleaved there too, int32[vr, G]); on the CPU
-    :func:`.relay_elem.rowmin_elem` then :func:`.relay_elem.apply_elem_found`,
-    copied into the given tensors (and ``frontier_t``)."""
+    int32[1] flag; on the CPU :func:`.relay_elem.rowmin_elem` then
+    :func:`.relay_elem.apply_elem_found`, copied into the given tensors."""
     plane_offsets, pt = RE.rank_plane_layout(in_classes)
     if not _on_card(l1, valid_words, state.visited):
         found, rp = RE.rowmin_elem(l1, valid_words, in_classes, vr, plane_offsets, pt)
@@ -807,8 +805,6 @@ def elem_rowmin_update(
         state.visited.copy_(new.visited)
         state.dist_planes.copy_(new.dist_planes)
         state.rank_planes.copy_(new.rank_planes)
-        if frontier_t is not None:
-            frontier_t.copy_(RE.interleave_frontier(new.frontier))
         return new._replace(
             visited=state.visited, dist_planes=state.dist_planes,
             rank_planes=state.rank_planes,
@@ -823,16 +819,11 @@ def elem_rowmin_update(
     table, blocks = elem_rowmin_items(tuple(in_classes), int(vr))
     if table.shape[0] > ELEM_MAX_ITEMS:
         raise ValueError(f"elem_rowmin_update: {table.shape[0]} work items exceed {ELEM_MAX_ITEMS}")
-    if frontier_t is not None and (
-            frontier_t.dtype != torch.int32 or not frontier_t.is_contiguous()
-            or tuple(frontier_t.shape) != (vr, groups)):
-        raise ValueError(f"frontier_t: expected a contiguous int32[{vr}, {groups}] tensor")
     frontier = torch.empty_like(state.visited)
     changed = torch.empty(1, dtype=torch.int32, device=l1.device)
     rc = elem_kernels().elem_rowmin_update(
         _ptr(l1), _ptr(valid_words), _ptr(state.visited), _ptr(frontier),
-        _VP(None) if frontier_t is None else _ptr(frontier_t), _ptr(state.dist_planes),
-        _ptr(state.rank_planes), _ptr(changed),
+        _ptr(state.dist_planes), _ptr(state.rank_planes), _ptr(changed),
         _VP(table.data_ptr()), table.shape[0], blocks, groups, n, vr, pt,
         state.level + 1, _stream(),
     )

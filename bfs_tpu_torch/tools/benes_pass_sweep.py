@@ -28,10 +28,9 @@ against the plain version:
 The element-major local pass (``benes_elem_local_pass``, K5) follows on
 the net's shape at ``--groups`` groups (the local run of 29 stages on
 tiles of 2^15 elements at 2^26): copies of ``csrc/relay_elem_kernels.cu``
-with 64 elements a thread (``kElemRegBits`` = 6, 512 threads), a ring of 8
-mask slots (``kElemSlots``) and the swap as two selects (``kElemSwapMad``
-= 0; the committed build has 32 elements a thread, 1,024 threads, 16 slots
-and the swap as a select and two multiply-adds), each held against the
+with 64 elements a thread (``kElemRegBits`` = 6, 512 threads) and a ring
+of 8 mask slots (``kElemSlots``; the committed build has 32 elements a
+thread, 1,024 threads and 16 slots), each held against the
 plain version, beside ``index_select`` over the same stages' permutation,
 and the committed build on the same launch with no stages (the tile's
 copy) and with every stage's masks outside the tile (the copy and the
@@ -74,7 +73,6 @@ VARIANTS = {
 ELEM_VARIANTS = {
     "regs64": {"kElemRegBits": 6},
     "slots8": {"kElemSlots": 8},
-    "swap_by_selects": {"kElemSwapMad": 0},
 }
 
 

@@ -3,8 +3,7 @@
 
 Run from the root of a checkout on a machine with a card::
 
-    python3 -m bfs_tpu_torch.tools.elem_phases [--scale 22] [--reps 20]
-        [--profile local_pass,gather]
+    python3 -m bfs_tpu_torch.tools.elem_phases [--scale 22] [--reps 20] [--variants]
 
 Builds ``chip_smoke.py``'s graph (R-MAT, edge factor 6, graph seed 1), its
 engine and its batch of 64 sources (``--seed`` 0, drawn as
@@ -23,14 +22,9 @@ times there, each held against its plain version first:
 
 Each is timed with ``utils.timing.cold_ms`` (mean of ``--reps`` calls, each
 after an L2 flush), with the device sleep (``cold``: device time) and
-without it (``unpadded``).  ``--profile`` names phases to run once more
-between ``torch.cuda.profiler.start()`` and ``stop()``, for a profiler
-started with profiling off (Nsight Compute's ``--profile-from-start off``).
-``--variants`` (this tree only) also times the gather built with 8 and 16
-slots a thread (``kGatherQuads`` 2 and 4; the committed build takes 4), its
-two launches apart, and the superstep whose row-min/update writes the
-interleaved frontier for the next gather in place of the interleave
-launch.
+without it (``unpadded``).  ``--variants`` (trees from this one on) also times the gather built with
+8 and 16 slots a thread (``kGatherQuads`` 2 and 4; the committed build
+takes 4) and its two launches apart.
 
 The script uses only entry points older than this file
 (``benes_elem_local_pass``, ``elem_route_gather``, ``elem_rowmin_update``,
@@ -145,52 +139,27 @@ GATHER_VARIANTS = {"quads2": {"kGatherQuads": 2}, "quads4": {"kGatherQuads": 4}}
 
 
 def variants(eng, st0) -> dict:
-    """At this superstep: the gather through each variant build, its two
-    launches apart (``interleave``, ``gather_only``), and the superstep
-    with the interleaved frontier written by the row-min/update instead
-    (``rowmin_copy``, ``superstep_copy``: the gather then reads the copy
-    the last superstep wrote), each held against its plain version first."""
+    """At this superstep: the gather through each variant build, and its
+    two launches apart (``interleave``, ``gather_only``), each held against
+    its plain version first."""
     libs = cuda_build.build_variants("relay_elem_kernels", K.SOURCES["relay_elem_kernels"],
                                      GATHER_VARIANTS, K._register_elem)
-    rg = eng.relay_graph
     src, f = eng.route_index(), st0.frontier
     want = RE.route_gather(f, src)
     out = torch.empty_like(want)
-    ft, ft_out = RE.interleave_frontier(f), torch.empty_like(RE.interleave_frontier(f))
-    work = RE.ElemState(*(t.clone() for t in st0[:4]), st0.level, None)
-
-    def restore():
-        for dst, orig in zip(work[:4], st0[:4]):
-            dst.copy_(orig)
-
-    def rowmin_copy():
-        return K.elem_rowmin_update(want, eng.valid_words, work, rg.in_classes, rg.vr,
-                                    frontier_t=ft_out).frontier
-
-    def superstep_copy():
-        l1 = K.elem_route_gather(work.frontier, src, frontier_t=ft)
-        return K.elem_rowmin_update(l1, eng.valid_words, work, rg.in_classes, rg.vr,
-                                    frontier_t=ft_out).frontier
-
-    cases = {f"gather_{name}": (functools.partial(K.launch_route_gather, lib, f, src, out),
-                                want, None) for name, lib in libs.items()}
+    ft = RE.interleave_frontier(f)
+    ft_out = torch.empty_like(ft)
+    cases = {f"gather_{name}": (functools.partial(K.launch_route_gather, lib, f, src, out), want)
+             for name, lib in libs.items()}
     cases.update(
-        interleave=(lambda: K.elem_frontier_interleave(f, out=ft_out), ft, None),
-        gather_only=(lambda: K.elem_route_gather(f, src, out=out, frontier_t=ft), want, None),
-        rowmin_copy=(rowmin_copy, None, restore),
-        superstep_copy=(superstep_copy, None, restore),
+        interleave=(lambda: K.elem_frontier_interleave(f, out=ft_out), ft),
+        gather_only=(lambda: K.elem_route_gather(f, src, out=out, frontier_t=ft), want),
     )
     times = {}
-    for name, (fn, plain, prep) in cases.items():
-        if prep:
-            prep()
-        got = fn()
-        if plain is not None and not torch.equal(got, plain):
+    for name, (fn, plain) in cases.items():
+        if not torch.equal(fn(), plain):
             raise AssertionError(f"{name} differs from its plain version")
-        if name == "rowmin_copy" and not torch.equal(ft_out, RE.interleave_frontier(got)):
-            raise AssertionError("the row-min/update's interleaved frontier differs")
-        times[name] = dict(cold=cold_ms(fn, 20, prep=prep),
-                           unpadded=cold_ms(fn, 20, prep=prep, sleep=False))
+        times[name] = dict(cold=cold_ms(fn, 20), unpadded=cold_ms(fn, 20, sleep=False))
         print(f"{name}: cold {times[name]['cold']:.4f} ms, unpadded "
               f"{times[name]['unpadded']:.4f} ms", flush=True)
     return times
@@ -201,7 +170,6 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--profile", default="", help="comma-separated phases to profile once")
     ap.add_argument("--variants", action="store_true",
                     help="also time the gather's variants and launches apart")
     args = ap.parse_args(argv)
@@ -236,15 +204,6 @@ def main(argv=None) -> int:
               f"{p['host_us']:.1f} us per call", flush=True)
     if args.variants:
         phases.update(variants(eng, st0))
-    for name in filter(None, args.profile.split(",")):
-        fn, _, prep = fns[name]
-        if prep:
-            prep()
-        torch.cuda.synchronize()
-        torch.cuda.profiler.start()
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.profiler.stop()
     print(card)
     print(json.dumps({"scale": args.scale, "card": card, "level": st0.level,
                       "launches": launches, "phases": phases}))

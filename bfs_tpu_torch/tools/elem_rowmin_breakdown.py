@@ -81,7 +81,7 @@ def launch(eng, l1, work, table, blocks: int) -> None:
     frontier = torch.empty_like(work.visited)
     rc = K.elem_kernels().elem_rowmin_update(
         K._ptr(l1), K._ptr(eng.valid_words), K._ptr(work.visited), K._ptr(frontier),
-        K._VP(None), K._ptr(work.dist_planes), K._ptr(work.rank_planes), K._ptr(changed),
+        K._ptr(work.dist_planes), K._ptr(work.rank_planes), K._ptr(changed),
         K._VP(table.data_ptr()), table.shape[0], blocks, l1.shape[0], l1.shape[1],
         rg.vr, pt,
         work.level + 1, K._stream(),

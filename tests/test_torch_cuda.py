@@ -283,33 +283,6 @@ def test_card_elem_rowmin_update_matches_plain(card, layout, level):
     assert bool(got.changed.item()) == bool(want.changed)
 
 
-@pytest.mark.parametrize("groups", [2, 4])
-def test_card_elem_rowmin_update_writes_the_interleaved_frontier(card, layout, groups):
-    """Given ``frontier_t``, the kernel also writes the new frontier as
-    int32[vr, G]: the transposed plain frontier, every vertex (the tail
-    included)."""
-    rg = layout
-    rng = np.random.default_rng(groups)
-    l1 = _t(_words(rng, groups * rg.net_size), card).reshape(groups, rg.net_size)
-    valid = _t(valid_slot_words(rg.src_l1, rg.net_size), card)
-    _, pt = RE.rank_plane_layout(rg.in_classes)
-    visited = _words(rng, groups * rg.vr)
-    st = RE.ElemState(
-        _t(visited, card).reshape(groups, rg.vr),
-        _t(visited & _words(rng, groups * rg.vr), card).reshape(groups, rg.vr),
-        _t(_words(rng, RE.DIST_PLANES * groups * rg.vr), card).reshape(RE.DIST_PLANES, groups, rg.vr),
-        _t(_words(rng, groups * pt), card).reshape(groups, pt), 4, None,
-    )
-    want = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), 4, None),
-                                rg.in_classes, rg.vr)
-    ft = torch.full((rg.vr, groups), 7, dtype=torch.int32, device=card)
-    got = K.elem_rowmin_update(l1, valid, RE.ElemState(*(t.clone() for t in st[:4]), 4, None),
-                               rg.in_classes, rg.vr, frontier_t=ft)
-    for a, b in zip(got[:4], want[:4]):
-        _eq(a, b)
-    _eq(ft, RE.interleave_frontier(want.frontier))
-
-
 def _elem_classes(tail: int = 40):
     """Rank-major widths 1, 33, 256 and 1,536 (the scale-22 layout's widest
     rank-major class: 8 chunks of 192 rows), vertex-major widths 33 (padded

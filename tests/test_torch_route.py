@@ -115,9 +115,7 @@ def test_route_index_and_gather_match_jax_route(layout, groups):
 def test_interleaved_frontier_matches_jax_route(layout, groups):
     """The frontier interleaved as int32[vr, G] (the layout the card's
     gather reads for G = 2 and 4) holds every group's element of a vertex
-    side by side, and gathering its columns gives the reference's route;
-    the row-min/update's plain path writes the new frontier interleaved when
-    asked to."""
+    side by side, and gathering its columns gives the reference's route."""
     rg = layout
     eng = P.RelayEngine(rg, device="cpu")
     src = eng.route_index()
@@ -126,13 +124,8 @@ def test_interleaved_frontier_matches_jax_route(layout, groups):
     assert tuple(ft.shape) == (rg.vr, groups) and ft.is_contiguous()
     np.testing.assert_array_equal(_u(ft), f.T)
     np.testing.assert_array_equal(_u(RE.route_gather(ft.t(), src)), _jax_route(rg, f))
-    _, pt = RE.rank_plane_layout(rg.in_classes)
-    sources = np.random.default_rng(groups).choice(rg.num_vertices, 32 * groups, replace=False)
-    st = RE.init_elem_state(rg.vr, rg.old2new[sources].reshape(groups, 32), pt)
-    l1 = K.elem_route_gather(st.frontier, src)
-    out = torch.full((rg.vr, groups), 7, dtype=torch.int32)
-    new = K.elem_rowmin_update(l1, eng.valid_words, st, rg.in_classes, rg.vr, frontier_t=out)
-    np.testing.assert_array_equal(_u(out), _u(new.frontier).T)
+    np.testing.assert_array_equal(_u(K.elem_route_gather(_t(f), src, frontier_t=ft)),
+                                  _jax_route(rg, f))
 
 
 def test_superstep_elem_uses_the_route_gather(layout):
