@@ -16,6 +16,7 @@
 
 #include <type_traits>
 
+#include "control.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -397,7 +398,9 @@ template <int G>
 __global__ void __launch_bounds__(kThreads)
 elem_route_gather_kernel(const uint32_t* __restrict__ frontier,
                          const int4* __restrict__ src, uint4* __restrict__ l1,
-                         long long vr, long long n4, int groups) {
+                         long long vr, long long n4, int groups,
+                         const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
   using V = typename GroupVec<G>::T;
   const long long q0 = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) *
                        kGatherQuads;
@@ -439,7 +442,9 @@ elem_route_gather_kernel(const uint32_t* __restrict__ frontier,
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 elem_frontier_interleave_kernel(const uint32_t* __restrict__ frontier,
-                                typename GroupVec<G>::T* __restrict__ out, long long vr) {
+                                typename GroupVec<G>::T* __restrict__ out, long long vr,
+                                const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (v >= vr) return;
   uint32_t e[4] = {0u, 0u, 0u, 0u};
@@ -474,7 +479,10 @@ elem_frontier_interleave_kernel(const uint32_t* __restrict__ frontier,
 // (the new level) is set — none at 32, the step past the cap — and into the
 // class's rank planes rank_planes[g, off + j * count + (v - va)], j < nb.  A
 // block OR of newly != 0 sets the device `changed` flag, zeroed first on
-// this stream.  One launch covers every class and group (blockIdx.y)
+// this stream; inside the block loop the level is the control block's
+// level + 1 and the flag its flag word (control.cuh), and a superstep that
+// is not live returns at entry.  The frontier is not read, so it may be
+// written in place of the one the superstep routed.  One launch covers every class and group (blockIdx.y)
 // through a table of work items (kind, va, count, sa, width, off, nb,
 // chunks, rows, passes, first block), built by ops/relay_cuda.py
 // elem_rowmin_items and passed by value, so a block finds its item by a
@@ -562,7 +570,8 @@ __device__ __forceinline__ void adopt(uint32_t* row, uint32_t fresh, uint32_t r)
 // The vertex's update from the row-order combine of `n` spans staged at
 // k0, k0 + step, ... (fresh bits in fresh_s, plane rows in planes_s);
 // returns newly.
-__device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, const ElemItem& it, int g,
+__device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, uint32_t level,
+                                                 const ElemItem& it, int g,
                                                  long long v, uint32_t vis,
                                                  const uint32_t* fresh_s,
                                                  const uint32_t* planes_s, int k0, int step,
@@ -580,7 +589,7 @@ __device__ __forceinline__ uint32_t write_vertex(const ElemOut& o, const ElemIte
   o.visited[gv] = vis | newly;
 #pragma unroll
   for (int b = 0; b < kDistPlanes; ++b) {
-    if ((o.level >> b) & 1u) {
+    if ((level >> b) & 1u) {
       atomicOr(o.dist_planes + (static_cast<long long>(b) * o.groups + g) * o.vr + v, newly);
     }
   }
@@ -684,11 +693,17 @@ __device__ __forceinline__ void walk_vertex_rows(const uint32_t* __restrict__ x,
 __global__ void __launch_bounds__(kThreads, kElemBlocksPerSm)
 elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
                           const uint32_t* __restrict__ valid,
-                          const ElemTable table, long long n, ElemOut o,
-                          int32_t* __restrict__ changed) {
+                          const ElemTable table, long long n, const ElemOut o,
+                          int32_t* __restrict__ changed, const int32_t* __restrict__ ctl) {
   __shared__ uint32_t fresh_s[kThreads];
   __shared__ uint32_t vis_s[kThreads];
   __shared__ uint32_t planes_s[kThreads * 33];
+  if (superstep_dead(ctl)) return;
+  // The level stamped: the control block's level + 1 in the block loop.  A
+  // local, not a write into `o`, which would move the parameter struct to
+  // local memory.
+  const uint32_t level =
+      ctl != nullptr ? static_cast<uint32_t>(ctl_word(ctl, kCtlLevel) + 1) : o.level;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // The item owning this block: the last one whose first block <= blockIdx.
   int lo = 0, hi = table.n - 1;
@@ -720,7 +735,7 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
       fresh_s[tid] = found & ~vis;
       if (chunks == 1) {  // block-uniform: this thread holds its whole vertex
         if (i < it.count) {
-          any |= write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, tid, 32, 1) != 0u;
+          any |= write_vertex(o, level, it, g, it.va + i, vis, fresh_s, planes_s, tid, 32, 1) != 0u;
         }
       } else {
         vis_s[tid] = vis;
@@ -730,7 +745,7 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
           const int k0 = s * chunks * 32 + lane;
           const long long iv = (pb * spans + s) * 32 + lane;
           if (iv < it.count) {
-            any |= write_vertex(o, it, g, it.va + iv, vis_s[k0], fresh_s, planes_s, k0, 32,
+            any |= write_vertex(o, level, it, g, it.va + iv, vis_s[k0], fresh_s, planes_s, k0, 32,
                                 chunks) != 0u;
           }
         }
@@ -757,12 +772,12 @@ elem_rowmin_update_kernel(const uint32_t* __restrict__ l1,
     if (!wide) {
       __syncwarp();
       if (lane == 0 && i < it.count) {
-        any = write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, warp, 1, 1) != 0u;
+        any = write_vertex(o, level, it, g, it.va + i, vis, fresh_s, planes_s, warp, 1, 1) != 0u;
       }
     } else {
       __syncthreads();
       if (tid == 0) {
-        any = write_vertex(o, it, g, it.va + i, vis, fresh_s, planes_s, 0, 1, kWarps) != 0u;
+        any = write_vertex(o, level, it, g, it.va + i, vis, fresh_s, planes_s, 0, 1, kWarps) != 0u;
       }
     }
   } else {
@@ -846,7 +861,7 @@ int benes_elem_outer_stage(const void* x_in, void* x_out, const void* mask,
 
 int elem_route_gather(const void* frontier, const void* src, void* l1,
                       long long vr, long long n, int groups, int interleaved,
-                      void* stream) {
+                      const void* ctl, void* stream) {
   if (n % 4 != 0 || groups < 1 ||
       (interleaved && groups != 2 && groups != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -858,28 +873,30 @@ int elem_route_gather(const void* frontier, const void* src, void* l1,
   const auto* f = static_cast<const uint32_t*>(frontier);
   const auto* idx = static_cast<const int4*>(src);
   auto* out = static_cast<uint4*>(l1);
+  const auto* c = static_cast<const int32_t*>(ctl);
   if (!interleaved) {
-    elem_route_gather_kernel<1><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+    elem_route_gather_kernel<1><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups, c);
   } else if (groups == 2) {
-    elem_route_gather_kernel<2><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+    elem_route_gather_kernel<2><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups, c);
   } else {
-    elem_route_gather_kernel<4><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups);
+    elem_route_gather_kernel<4><<<blocks, kThreads, 0, s>>>(f, idx, out, vr, n4, groups, c);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int elem_frontier_interleave(const void* frontier, void* out, long long vr, int groups,
-                             void* stream) {
+                             const void* ctl, void* stream) {
   if (groups != 2 && groups != 4) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((vr + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* f = static_cast<const uint32_t*>(frontier);
+  const auto* c = static_cast<const int32_t*>(ctl);
   if (groups == 2) {
     elem_frontier_interleave_kernel<2><<<blocks, kThreads, 0, s>>>(
-        f, static_cast<uint2*>(out), vr);
+        f, static_cast<uint2*>(out), vr, c);
   } else {
     elem_frontier_interleave_kernel<4><<<blocks, kThreads, 0, s>>>(
-        f, static_cast<uint4*>(out), vr);
+        f, static_cast<uint4*>(out), vr, c);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -888,7 +905,7 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
                        void* frontier, void* dist_planes, void* rank_planes,
                        void* changed, const long long* items, int nitems,
                        long long total_blocks, int groups, long long n,
-                       long long vr, long long pt, unsigned level,
+                       long long vr, long long pt, unsigned level, void* ctl,
                        void* stream) {
   if (nitems <= 0 || nitems > kMaxItems) return static_cast<int>(cudaErrorInvalidValue);
   // Host rows (kind, va, count, sa, width, off, nb, chunks, rows, passes,
@@ -910,8 +927,13 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
     e.passes = static_cast<int>(r[9]);
     e.block0 = static_cast<int>(r[10]);
   }
+  // With a control block the level is read from it and its flag is raised
+  // (the control step clears it): nothing is cleared here, so a superstep
+  // that is not live leaves the flag alone.
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(changed, 0, sizeof(int32_t), s);
+  int32_t* c = static_cast<int32_t*>(ctl);
+  int32_t* flag = c != nullptr ? c + kCtlFlag : static_cast<int32_t*>(changed);
+  if (c == nullptr) cudaMemsetAsync(flag, 0, sizeof(int32_t), s);
   ElemOut o;
   o.visited = static_cast<uint32_t*>(visited);
   o.frontier = static_cast<uint32_t*>(frontier);
@@ -924,7 +946,7 @@ int elem_rowmin_update(const void* l1, const void* valid, void* visited,
   const dim3 grid(static_cast<unsigned>(total_blocks), static_cast<unsigned>(groups));
   elem_rowmin_update_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
-      table, n, o, static_cast<int32_t*>(changed));
+      table, n, o, flag, c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "control.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -164,7 +165,9 @@ __device__ __forceinline__ void sweep_pair(uint32_t* xs, const StageInfo* info, 
 __global__ void __launch_bounds__(kLocalThreads)
 benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks,
-                        const LocalStages st, int tile_words, int slots) {
+                        const LocalStages st, int tile_words, int slots,
+                        const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ StageInfo info[kMaxLocalStages];
   __shared__ int cross[kMaxLocalStages];
@@ -304,7 +307,9 @@ __device__ __forceinline__ int lower_slot(int q, int e) {
 __global__ void __launch_bounds__(kOuterThreads)
 benes_outer_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks, const OuterStages st,
-                        int b0, int k, int lg_row, int quads) {
+                        int b0, int k, int lg_row, int quads,
+                        const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
   __shared__ __align__(16) uint32_t xs[kOuterWords];
   const int row = 1 << lg_row;
   const int words = row << k;
@@ -509,8 +514,10 @@ __global__ void __launch_bounds__(kThreads)
 class_rowmin_kernel(const uint32_t* __restrict__ l1,
                     const uint32_t* __restrict__ valid,
                     uint32_t* __restrict__ out,
-                    const RowminItem* __restrict__ items, int nitems) {
+                    const RowminItem* __restrict__ items, int nitems,
+                    const int32_t* __restrict__ ctl) {
   __shared__ uint32_t ranks[kThreads * 33];
+  if (superstep_dead(ctl)) return;
   // The item owning this block: the last one whose first block <= blockIdx.
   int lo = 0, hi = nitems - 1;
   while (lo < hi) {
@@ -556,16 +563,25 @@ class_rowmin_kernel(const uint32_t* __restrict__ l1,
 // One thread per vertex: pk2 = min(pk, cand | level_bits) in unsigned order.
 // The warp's ballot of (pk2 != pk) is the standard-packed frontier word of
 // its 32 vertices (vr is a multiple of 32, so warps never straddle it), and
-// a block OR of those bits sets the device `changed` flag, which the caller
-// zeroes first (here, on the same stream) and reads once per level.
+// a block OR of those bits sets the device `changed` flag.  Outside the
+// block loop (ctl null) level_bits is a launch parameter and `changed` a
+// flag the launcher zeroes first on the same stream; inside it, the level
+// is the control block's (level + 1) << kParentBits and `changed` is its
+// flag word, which the control step clears.
 // Bound: bytes — packed and cand read once, packed and vr/32 frontier words
 // written once.  In place when packed_in == packed_out.
 // ---------------------------------------------------------------------------
+constexpr int kParentBits = 26;  // the packed word is level:6 | parent:26
+
 __global__ void __launch_bounds__(kThreads)
 packed_update_kernel(const uint32_t* packed_in, const uint32_t* __restrict__ cand,
                      uint32_t* packed_out, uint32_t* __restrict__ fwords,
                      int32_t* __restrict__ changed, long long vr,
-                     uint32_t level_bits) {
+                     uint32_t level_bits, const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
+  if (ctl != nullptr) {
+    level_bits = static_cast<uint32_t>(ctl_word(ctl, kCtlLevel) + 1) << kParentBits;
+  }
   const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   bool newly = false;
   if (v < vr) {
@@ -580,6 +596,28 @@ packed_update_kernel(const uint32_t* packed_in, const uint32_t* __restrict__ can
   if (__syncthreads_or(newly) && threadIdx.x == 0) *changed = 1;
 }
 
+// ---------------------------------------------------------------------------
+// loop_control — replaces the while-loop condition of the reference's fused
+// programs (bfs_tpu/models/bfs.py _relay_fused_program and
+// _relay_elem_program: st.changed & (st.level < cap), evaluated by XLA on
+// the device).  No kernel of the reference: XLA's loop did it.
+//
+// One thread, after a superstep's update: if the superstep was live,
+// level += 1, changed = flag and steps += 1; then the flag is cleared and
+// live = changed && level < cap.  A superstep that was not live leaves
+// every word as it was.
+// Bound: bytes — six words read and written.
+// ---------------------------------------------------------------------------
+__global__ void loop_control_kernel(int32_t* ctl) {
+  if (ctl[kCtlLive]) {
+    ctl[kCtlLevel] += 1;
+    ctl[kCtlChanged] = ctl[kCtlFlag] != 0;
+    ctl[kCtlSteps] += 1;
+  }
+  ctl[kCtlFlag] = 0;
+  ctl[kCtlLive] = ctl[kCtlChanged] != 0 && ctl[kCtlLevel] < ctl[kCtlCap];
+}
+
 }  // namespace
 
 extern "C" {
@@ -587,7 +625,7 @@ extern "C" {
 int benes_local_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* dists,
                      const int* compact, const int* lo, const int* hi, int nstages,
-                     long long nwords, int tile_words, void* stream) {
+                     long long nwords, int tile_words, const void* ctl, void* stream) {
   if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -624,14 +662,15 @@ int benes_local_pass(const void* x_in, void* x_out, const void* masks,
   benes_local_pass_kernel<<<blocks, kLocalThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots));
+      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots),
+      static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
 int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* bits, const int* compact,
                      int nstages, int b0, int k, int lg_row, long long nwords,
-                     void* stream) {
+                     const void* ctl, void* stream) {
   if (nstages < 1 || nstages > kMaxOuterStages || k < 1 || k > kMaxOuterStages ||
       lg_row < 0 || lg_row > b0 || (1LL << (lg_row + k)) > kOuterWords ||
       (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0) {
@@ -651,32 +690,43 @@ int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
   const unsigned units = static_cast<unsigned>(nwords >> (lg_row + k));
   benes_outer_pass_kernel<<<units, kOuterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0);
+      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0,
+      static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
 int class_rowmin(const void* l1, const void* valid, void* out,
                  const void* items, int nitems, long long total_blocks,
-                 void* stream) {
+                 const void* ctl, void* stream) {
   class_rowmin_kernel<<<static_cast<unsigned>(total_blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
       static_cast<uint32_t*>(out), static_cast<const RowminItem*>(items),
-      nitems);
+      nitems, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
+// With a control block (ctl not null) `changed` is ignored: the kernel
+// raises the block's flag, and nothing is cleared here, so a superstep that
+// is not live leaves the flag of the last live one to the control step.
 int packed_update(const void* packed_in, const void* cand, void* packed_out,
                   void* fwords, void* changed, long long vr,
-                  unsigned level_bits, void* stream) {
+                  unsigned level_bits, void* ctl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(changed, 0, sizeof(int32_t), s);
+  int32_t* c = static_cast<int32_t*>(ctl);
+  int32_t* flag = c != nullptr ? c + kCtlFlag : static_cast<int32_t*>(changed);
+  if (c == nullptr) cudaMemsetAsync(flag, 0, sizeof(int32_t), s);
   const unsigned blocks = static_cast<unsigned>((vr + kThreads - 1) / kThreads);
   packed_update_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(packed_in),
       static_cast<const uint32_t*>(cand), static_cast<uint32_t*>(packed_out),
-      static_cast<uint32_t*>(fwords), static_cast<int32_t*>(changed), vr,
-      level_bits);
+      static_cast<uint32_t*>(fwords), flag, vr, level_bits, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int loop_control(void* ctl, void* stream) {
+  loop_control_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 

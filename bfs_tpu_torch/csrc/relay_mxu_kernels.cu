@@ -88,6 +88,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "control.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -215,7 +216,9 @@ __global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
 mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ row_idx,
                   const int32_t* __restrict__ col_id, const uint32_t* __restrict__ keys,
                   const uint32_t* __restrict__ fwords, long long nfw,
-                  uint32_t* __restrict__ out, long long ntp, int col_tiles) {
+                  uint32_t* __restrict__ out, long long ntp, int col_tiles,
+                  const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -334,7 +337,7 @@ extern "C" {
 
 int mxu_expand(const void* tiles, const void* row_idx, const void* col_id,
                const void* keys, const void* fwords, long long nfw, void* out,
-               long long ntp, int col_tiles, int blocks, void* stream) {
+               long long ntp, int col_tiles, int blocks, const void* ctl, void* stream) {
   if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
@@ -349,7 +352,7 @@ int mxu_expand(const void* tiles, const void* row_idx, const void* col_id,
       static_cast<const uint4*>(tiles), static_cast<const int32_t*>(row_idx),
       static_cast<const int32_t*>(col_id), static_cast<const uint32_t*>(keys),
       static_cast<const uint32_t*>(fwords), nfw, static_cast<uint32_t*>(out), ntp,
-      col_tiles);
+      col_tiles, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 

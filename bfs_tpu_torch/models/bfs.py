@@ -15,9 +15,12 @@ the device:
 
 Phases 1, 3, 4 and 5 are the hand-written kernels of
 :mod:`bfs_tpu_torch.ops.relay_cuda` on a card and their plain versions on
-the CPU.  The level loop is a Python loop that reads ``changed`` once per
-level.  A search that hits the packed carry's 62-level cap is re-run on
-the unpacked carry.
+the CPU.  The level loop runs in blocks of supersteps gated by a control
+block in device memory (:mod:`bfs_tpu_torch.models.loop`): on a card a
+block is a replayed CUDA graph and the host reads the control block once
+per block.  A search that hits the packed carry's 62-level cap is re-run on
+the unpacked carry.  Results are mapped to original ids on the device and
+reach the host through pinned memory.
 
 Batched multi-source BFS runs on the same layout:
 :meth:`RelayEngine.run_multi_elem` packs 32 trees into each uint32 element
@@ -51,11 +54,13 @@ import torch
 from ..graph.adj_tiles import build_adj_tiles_from_relay
 from ..graph.csr import Graph, INF_DIST
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
+from ..ops import control as C
 from ..ops import relay as R
 from ..ops import relay_cuda as K
 from ..ops import relay_elem as RE
 from ..ops import relay_mxu as RM
 from ..ops.packed import (
+    INT32_MAX,
     packed_cap,
     packed_dist,
     packed_parent,
@@ -64,6 +69,7 @@ from ..ops.packed import (
     packed_truncated,
 )
 from ..ops.relay import slots_to_parent
+from . import loop as L
 from .multisource import MultiBfsResult
 
 logger = logging.getLogger(__name__)
@@ -157,6 +163,13 @@ class RelayEngine:
         self.last_run: dict = {}
         self.adj_tiles = None
         self._route_index = None
+        self._rank_tables = None
+        #: ``blocks``: the level loop runs in blocks of gated supersteps
+        #: (:mod:`~bfs_tpu_torch.models.loop`, captured and replayed on a
+        #: card); ``eager``: its plain version, a host read of ``changed``
+        #: per level, for comparison.
+        self.loop = "blocks"
+        self._loops: dict = {}
         self._resolve_expansion(expansion, tiles_budget_bytes)
 
     # -- the expansion arm --------------------------------------------------
@@ -193,87 +206,280 @@ class RelayEngine:
 
     # -- one superstep ------------------------------------------------------
 
-    def _routed(self, fwords: torch.Tensor) -> torch.Tensor:
+    def _routed(self, fwords: torch.Tensor, ctl: torch.Tensor | None = None) -> torch.Tensor:
         """Phases 1-3: frontier words -> routed L1 slot words."""
         rg = self.relay_graph
         fw = torch.zeros(rg.vperm_size // 32, dtype=torch.int32, device=self.device)
         fw[: rg.vr // 32] = fwords  # dummy out-positions read the zero tail
-        y = K.apply_benes(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size)
+        y = K.apply_benes(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size, ctl=ctl)
         l2 = R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space)
-        return K.apply_benes(l2, self.net_masks, rg.net_table, rg.net_size)
+        return K.apply_benes(l2, self.net_masks, rg.net_table, rg.net_size, ctl=ctl)
 
-    def _ranks(self, fwords: torch.Tensor) -> torch.Tensor:
+    def _ranks(self, fwords: torch.Tensor, ctl: torch.Tensor | None = None) -> torch.Tensor:
         rg = self.relay_graph
         return K.rowmin_ranks(
-            self._routed(fwords), self.valid_words, rg.in_classes, rg.vr
+            self._routed(fwords, ctl), self.valid_words, rg.in_classes, rg.vr, ctl=ctl
         )
 
-    def superstep_packed(self, st: R.PackedRelayState) -> R.PackedRelayState:
+    def _cand_packed(self, fwords: torch.Tensor, ctl: torch.Tensor | None = None) -> torch.Tensor:
+        """The packed carry's candidates: min ranks per vertex (gather arm),
+        or min ORIGINAL ids (MXU arm, kernel ``mxu_expand``)."""
         if self.expansion == "mxu":
-            return RM.mxu_superstep_packed(st, self.mxu_operands, self.mxu_geometry)
-        return K.apply_relay_candidates_packed(st, self._ranks(st.fwords))
+            rows, cols, rtp, vtp, _ = self.mxu_geometry
+            return K.expand_frontier_mxu(
+                fwords, self.mxu_operands, rows=rows, cols=cols, rtp=rtp, vtp=vtp, ctl=ctl
+            )
+        return self._ranks(fwords, ctl)
+
+    def _cand_unpacked(self, fwords: torch.Tensor, ctl: torch.Tensor | None = None) -> torch.Tensor:
+        """The unpacked carry's candidates, INT32_MAX where none: the
+        row-min's ranks as L1 slots through the class slot formula, or on
+        the MXU arm the original ids as they are."""
+        cand = self._cand_packed(fwords, ctl)
+        if self.expansion == "mxu":
+            return torch.where(cand == -1, INT32_MAX, cand)
+        rg = self.relay_graph
+        return R.rank_to_slot(cand, rg.in_classes, rg.vr)
+
+    def superstep_packed(self, st: R.PackedRelayState) -> R.PackedRelayState:
+        return K.apply_relay_candidates_packed(st, self._cand_packed(st.fwords))
 
     def superstep(self, st: R.RelayState) -> R.RelayState:
-        """Unpacked carry: the row-min's ranks become L1 slots through the
-        class slot formula, then the unpacked merge (torch ops).  On the MXU
-        arm the candidates are original ids and merge as they are."""
-        if self.expansion == "mxu":
-            return RM.mxu_superstep(st, self.mxu_operands, self.mxu_geometry)
-        rg = self.relay_graph
-        cand = R.rank_to_slot(self._ranks(st.fwords), rg.in_classes, rg.vr)
-        return R.apply_relay_candidates(st, cand)
+        """Unpacked carry: the candidates of :meth:`_cand_unpacked`, then the
+        unpacked merge (torch ops)."""
+        return R.apply_relay_candidates(st, self._cand_unpacked(st.fwords))
 
     # -- the level loop -----------------------------------------------------
 
     def _loop(self, st, step, cap: int):
+        """The eager loop, a host read of ``changed`` per level: the plain
+        version of the block loop (``loop = "eager"``)."""
+        stats = L.LoopStats()
         changed = True
         while changed and st.level < cap:
             st = step(st)
             changed = bool(st.changed)  # the one host read per level
-        return st, changed
+            stats.host_reads += 1
+            stats.issued += 1
+            stats.live += 1
+        stats.level, stats.changed = st.level, changed
+        return st, stats
+
+    def _block_loop(self, kind, make) -> L.BlockLoop:
+        """The engine's :class:`~bfs_tpu_torch.models.loop.BlockLoop` of one
+        carry kind at the current block size, made (buffers and step) by
+        ``make`` at first use."""
+        key = (kind, L.BLOCK)
+        loop = self._loops.get(key)
+        if loop is None:
+            loop = self._loops[key] = L.BlockLoop(*make(), k=L.BLOCK)
+        return loop
+
+    def _empty(self, *shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.int32, device=self.device)
+
+    def _packed_loop(self) -> L.BlockLoop:
+        """Packed carry ``(packed, fwords, ctl)``: the candidates, then the
+        gated ``packed_update`` in place (the next frontier into the
+        carry's own words), then the control step."""
+        vr = self.relay_graph.vr
+
+        def make():
+            packed, fwords, ctl = self._empty(vr), self._empty(vr // 32), C.new_ctl(self.device)
+            state = R.PackedRelayState(packed, fwords, None, None)
+
+            def step():
+                cand = self._cand_packed(fwords, ctl)
+                K.apply_relay_candidates_packed(state, cand, fwords_out=fwords, ctl=ctl)
+                K.loop_control(ctl)
+
+            return (packed, fwords, ctl), step
+
+        return self._block_loop("packed", make)
+
+    def _unpacked_loop(self) -> L.BlockLoop:
+        """Unpacked carry ``(dist, parent, fwords, ctl)``: the candidates,
+        then the gated merge (torch ops) copied into the carry, its flag
+        raised, then the control step."""
+        vr = self.relay_graph.vr
+
+        def make():
+            dist, parent, fwords = self._empty(vr), self._empty(vr), self._empty(vr // 32)
+            ctl = C.new_ctl(self.device)
+
+            def step():
+                cand = self._cand_unpacked(fwords, ctl)
+                new = R.apply_relay_candidates(R.RelayState(dist, parent, fwords, None, None), cand, ctl)
+                dist.copy_(new.dist)
+                parent.copy_(new.parent)
+                fwords.copy_(new.fwords)
+                C.raise_flag(ctl, new.changed)
+                K.loop_control(ctl)
+
+            return (dist, parent, fwords, ctl), step
+
+        return self._block_loop("unpacked", make)
+
+    @staticmethod
+    def _start(carry, state, cap: int) -> bool:
+        """Start a run in a loop's carry: the tensors of a fresh ``state``
+        (its fields in the carry's order) copied in on the device, the
+        control block started with ``cap``; returns LIVE."""
+        for dst, src in zip(carry[:-1], state):
+            dst.copy_(src)
+        return C.init_ctl(carry[-1], cap)
 
     def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
         t0 = time.perf_counter()
-        dist, parent_slots, level = self._search(int(rg.old2new[source]), max_levels)
+        dist, parent_slots, stats = self._search(int(rg.old2new[source]), max_levels)
         t1 = time.perf_counter()
-        result = self._to_result(dist, parent_slots, level, source)
-        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1}
+        result = self._to_result(dist, parent_slots, stats.level, source)
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1,
+                         **vars(stats)}
         return result
 
     def _search(self, source_new: int, max_levels: int):
-        """(dist, parent, levels) in the relabeled space; parents are L1
-        slots on the gather arm and original ids on the MXU arm."""
+        """(dist, parent, :class:`~bfs_tpu_torch.models.loop.LoopStats`) in
+        the relabeled space; parents are L1 slots on the gather arm and
+        original ids on the MXU arm.  On the block loop the tensors are the
+        loop's buffers (or decoded from them): the caller reads them before
+        the next search."""
         rg = self.relay_graph
+        stats = L.LoopStats()
         if self.packed:
-            st, changed = self._loop(
-                R.init_packed_relay_state(rg.vr, source_new, self.device),
-                self.superstep_packed, packed_cap(max_levels),
-            )
-            if not packed_truncated(changed, st.level, max_levels):
+            cap = packed_cap(max_levels)
+            if self.loop == "eager":
+                st, stats = self._loop(
+                    R.init_packed_relay_state(rg.vr, source_new, self.device),
+                    self.superstep_packed, cap,
+                )
+                packed = st.packed
+            else:
+                loop = self._packed_loop()
+                init = R.init_packed_relay_state(rg.vr, source_new, self.device)
+                stats = loop.run(self._start(loop.buffers, init, cap))
+                packed = loop.buffers[0]
+            if not packed_truncated(stats.changed, stats.level, max_levels):
                 if self.expansion == "mxu":
-                    return packed_dist(st.packed), packed_parent(st.packed), st.level
-                dist, parent = R.unpack_relay_packed(st.packed, rg.in_classes, rg.vr)
-                return dist, parent, st.level
+                    return packed_dist(packed), packed_parent(packed), stats
+                dist, parent = R.unpack_relay_packed(packed, rg.in_classes, rg.vr)
+                return dist, parent, stats
         # Deeper than the packed level field (or a rank too wide for it):
         # the unpacked carry has no level cap.
-        st, _ = self._loop(
-            R.init_relay_state(rg.vr, source_new, self.device),
-            self.superstep, max_levels,
+        if self.loop == "eager":
+            st, more = self._loop(
+                R.init_relay_state(rg.vr, source_new, self.device),
+                self.superstep, max_levels,
+            )
+            dist, parent = st.dist, st.parent
+        else:
+            loop = self._unpacked_loop()
+            init = R.init_relay_state(rg.vr, source_new, self.device)
+            more = loop.run(self._start(loop.buffers, init, max_levels))
+            dist, parent = loop.buffers[0], loop.buffers[1]
+        return dist, parent, stats.add(more)
+
+    def run_many_device(self, sources, *, max_levels: int | None = None) -> list:
+        """One search per source on the block loop, chained without a host
+        read between them: each round issues one block for every source
+        still live (its carry copied into the loop's buffers and back, on
+        the device), then reads all their control blocks at once.  Returns
+        the device states, :class:`~bfs_tpu_torch.ops.relay.RelayState` in
+        the relabeled space (``parent`` L1 slots, or original ids on the
+        MXU arm; ``level`` a host int, ``changed`` a host bool), as the
+        reference's ``run_many_device`` returns its finished states; map one
+        with :meth:`to_original_device`.
+
+        Runs the packed carry when the engine is packed: a search deeper
+        than the packed carry's 62 levels comes back with ``changed`` still
+        set (no per-root fallback; :meth:`run` is the single-root path that
+        re-runs it).  :attr:`last_run` holds the rounds' counts."""
+        rg = self.relay_graph
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        check_sources(rg.num_vertices, sources)
+        max_levels = int(max_levels) if max_levels is not None else rg.vr
+        if self.packed:
+            loop, init, cap = self._packed_loop(), R.init_packed_relay_state, packed_cap(max_levels)
+        else:
+            loop, init, cap = self._unpacked_loop(), R.init_relay_state, max_levels
+        carries = []
+        for s in sources.tolist():
+            carry = tuple(torch.empty_like(b) for b in loop.buffers)
+            self._start(carry, init(rg.vr, int(rg.old2new[s]), self.device), cap)
+            carries.append(carry)
+        # The control words as started (LEVEL 0, CHANGED 1), until read.
+        ctls = [[int(w == C.CHANGED) for w in range(C.WORDS)] for _ in carries]
+        stats = L.LoopStats()
+        live = list(range(len(carries))) if cap > 0 else []
+        while live:
+            for i in live:
+                loop.load(carries[i])
+                loop.issue(stats)
+                loop.store(carries[i])
+            for i, words in zip(live, L.read_ctls([carries[i][-1] for i in live], stats)):
+                ctls[i] = words
+            live = [i for i in live if ctls[i][C.LIVE]]
+        self.last_run = vars(stats)
+        states = []
+        for carry, words in zip(carries, ctls):
+            level, changed = words[C.LEVEL], bool(words[C.CHANGED])
+            if not self.packed:
+                dist, parent = carry[0], carry[1]
+            elif self.expansion == "mxu":
+                dist, parent = packed_dist(carry[0]), packed_parent(carry[0])
+            else:
+                dist, parent = R.unpack_relay_packed(carry[0], rg.in_classes, rg.vr)
+            states.append(R.RelayState(dist, parent, carry[-2], level, changed))
+        return states
+
+    # -- results in original ids ----------------------------------------------
+
+    def _map_original_device(self, dist_new, parent, source: int, flavor: str | None = None):
+        """Relabeled-space device ``(dist, parent)`` -> ORIGINAL id space, on
+        the device: parents that are L1 slots become their source ids
+        (``flavor`` ``gather``; MXU-arm parents are original ids already),
+        both are gathered through ``old2new``, and the source's entry is set
+        to itself.  ``flavor`` overrides the engine's arm for callers whose
+        parents are always slots (the elem trees)."""
+        flavor = self.expansion if flavor is None else flavor
+        par = parent if flavor == "mxu" else slots_to_parent(parent, self.src_l1)
+        dist_o, par_o = dist_new[self.old2new], par[self.old2new]
+        par_o[int(source)] = int(source)  # the source's slot entry is not a parent
+        return dist_o, par_o
+
+    def to_original_device(self, state, source: int):
+        """Device-resident ``(dist, parent)`` int32[V] in ORIGINAL ids for a
+        state of :meth:`run_many_device`, with no host transfer: the device
+        twin of the mapping in :meth:`run`."""
+        return self._map_original_device(state.dist, state.parent, source)
+
+    def _rank_tables_device(self):
+        """The rank -> L1 slot tables ``(base, stride)`` on the device, for
+        the elem trees' extraction (shipped once, at first use)."""
+        if self._rank_tables is None:
+            self._rank_tables = RE.rank_tables(self.relay_graph, self.device)
+        return self._rank_tables
+
+    def multi_tree_to_original_device(self, state, i: int, source: int):
+        """Device-resident ``(dist, parent)`` in ORIGINAL ids for tree ``i``
+        of a batched state: the bit-sliced
+        :class:`~bfs_tpu_torch.ops.relay_elem.ElemState`, or a state whose
+        ``dist``/``parent`` have a leading source axis."""
+        if not isinstance(state, RE.ElemState):
+            return self._map_original_device(state.dist[i], state.parent[i], source)
+        dist, parent = RE.decode_trees(
+            state, self.relay_graph, i // 32, i % 32, i % 32 + 1, self._rank_tables_device()
         )
-        return st.dist, st.parent, st.level
+        # Elem parents are always slots, whatever the engine's arm.
+        return self._map_original_device(dist[0], parent[0], source, flavor="gather")
 
     def _to_result(self, dist, parent_slots, level: int, source: int) -> BfsResult:
-        """Relabeled state -> original ids (on the device), then the host.
-        MXU-arm parents are original ids already: only the index space
-        is mapped."""
-        dist = dist[self.old2new].cpu().numpy()
-        if self.expansion != "mxu":
-            parent_slots = slots_to_parent(parent_slots, self.src_l1)
-        parent = parent_slots[self.old2new].cpu().numpy()
-        parent[source] = source  # the source's slot entry is not a parent
+        """Relabeled state -> original ids on the device, then the host
+        through pinned memory (:func:`to_host`)."""
+        dist, parent = to_host(*self._map_original_device(dist, parent_slots, source))
         return BfsResult(dist=dist, parent=parent, num_levels=int(level))
 
     # -- batched multi-source -------------------------------------------------
@@ -302,27 +508,40 @@ class RelayEngine:
             self._route_index = RE.route_index(self.routed_elem, rg.vr, self.device)
         return self._route_index
 
-    def superstep_elem(self, st: RE.ElemState) -> RE.ElemState:
+    def superstep_elem(self, st: RE.ElemState, frontier_out=None, ctl=None) -> RE.ElemState:
         """One element-major superstep for all 32·G trees: the route as one
-        gather over :meth:`route_index`, then the fused row-min/update."""
+        gather over :meth:`route_index`, then the fused row-min/update
+        (gated by ``ctl`` in the block loop)."""
         rg = self.relay_graph
-        l1 = K.elem_route_gather(st.frontier, self.route_index())
-        return K.elem_rowmin_update(l1, self.valid_words, st, rg.in_classes, rg.vr)
+        l1 = K.elem_route_gather(st.frontier, self.route_index(), ctl=ctl)
+        return K.elem_rowmin_update(
+            l1, self.valid_words, st, rg.in_classes, rg.vr, frontier_out=frontier_out, ctl=ctl
+        )
 
-    def run_multi_elem_device(self, sources, *, max_levels: int | None = None) -> RE.ElemState:
-        """Element-major batched BFS; the source count must be a multiple of
-        32.  Returns the device :class:`~bfs_tpu_torch.ops.relay_elem.ElemState`
-        (its ``level`` is a host int: the loop has read ``changed`` once per
-        level).
-
-        The distance planes hold levels up to ``MAX_ELEM_LEVELS`` (31).  The
-        default run allows one step past that cap: a step at level 32 that
-        changes nothing proves convergence at eccentricity 31 and writes no
-        distance; one that changes leaves ``changed`` set, and
-        :meth:`run_multi_elem` then discards the state and falls back.
-        Callers of this raw path test ``changed`` themselves."""
+    def _elem_loop(self, groups: int) -> L.BlockLoop:
+        """Elem carry ``(visited, frontier, dist_planes, rank_planes, ctl)``
+        for ``groups`` groups (one loop per group count): the gated
+        superstep, the next frontier written into the carry's own buffer,
+        then the control step."""
         rg = self.relay_graph
-        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        _, pt = RE.rank_plane_layout(rg.in_classes)
+
+        def make():
+            carry = (self._empty(groups, rg.vr), self._empty(groups, rg.vr),
+                     self._empty(RE.DIST_PLANES, groups, rg.vr), self._empty(groups, pt))
+            ctl = C.new_ctl(self.device)
+            state = RE.ElemState(*carry, None, None)
+
+            def step():
+                self.superstep_elem(state, frontier_out=carry[1], ctl=ctl)
+                K.loop_control(ctl)
+
+            return (*carry, ctl), step
+
+        return self._block_loop(("elem", groups), make)
+
+    def _run_elem(self, sources: np.ndarray, max_levels: int | None) -> RE.ElemState:
+        rg = self.relay_graph
         if sources.shape[0] % 32 != 0:
             raise ValueError("element-major batching needs a multiple of 32 sources")
         check_sources(rg.num_vertices, sources)
@@ -336,12 +555,36 @@ class RelayEngine:
                     "use run_multi for deeper graphs"
                 )
         groups = sources.shape[0] // 32
+        sources_new = rg.old2new[sources].reshape(groups, 32)
         _, pt = RE.rank_plane_layout(rg.in_classes)
-        st = RE.init_elem_state(
-            rg.vr, rg.old2new[sources].reshape(groups, 32), pt, self.device
-        )
-        st, _ = self._loop(st, self.superstep_elem, max_levels)
-        return st
+        if self.loop == "eager":
+            st, stats = self._loop(
+                RE.init_elem_state(rg.vr, sources_new, pt, self.device), self.superstep_elem,
+                max_levels,
+            )
+        else:
+            loop = self._elem_loop(groups)
+            RE.init_elem_state(rg.vr, sources_new, pt, self.device, out=loop.buffers[:4])
+            stats = loop.run(C.init_ctl(loop.ctl, max_levels))
+            st = RE.ElemState(*loop.buffers[:4], stats.level, stats.changed)
+        self.last_run = vars(stats)
+        return st._replace(level=stats.level, changed=stats.changed)
+
+    def run_multi_elem_device(self, sources, *, max_levels: int | None = None) -> RE.ElemState:
+        """Element-major batched BFS; the source count must be a multiple of
+        32.  Returns the device :class:`~bfs_tpu_torch.ops.relay_elem.ElemState`
+        (``level`` a host int and ``changed`` a host bool, read once from the
+        control block at the end).  On the block loop its tensors are the
+        engine's loop buffers for that group count: the next batch of as
+        many groups overwrites them, so clone what must outlive it.
+
+        The distance planes hold levels up to ``MAX_ELEM_LEVELS`` (31).  The
+        default run allows one step past that cap: a step at level 32 that
+        changes nothing proves convergence at eccentricity 31 and writes no
+        distance; one that changes leaves ``changed`` set, and
+        :meth:`run_multi_elem` then discards the state and falls back.
+        Callers of this raw path test ``changed`` themselves."""
+        return self._run_elem(np.atleast_1d(np.asarray(sources, dtype=np.int32)), max_levels)
 
     def run_multi_elem(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
         """Element-major batched BFS with host results in original ids,
@@ -351,14 +594,16 @@ class RelayEngine:
         depth cap."""
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
         t0 = time.perf_counter()
-        st = self.run_multi_elem_device(sources, max_levels=max_levels)
+        st = self._run_elem(sources, max_levels)
+        stats = dict(self.last_run)
         t1 = time.perf_counter()
-        if max_levels is None and bool(st.changed):
+        if max_levels is None and st.changed:
             return self.run_multi(sources)
         dist, parent = RE.extract_results(
-            st, self.relay_graph, sources, self.old2new, self.src_l1
+            st, self.relay_graph, sources, self.old2new, self.src_l1,
+            self._rank_tables_device(),
         )
-        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1}
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **stats}
         return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=st.level)
 
     def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
@@ -374,10 +619,25 @@ class RelayEngine:
         parent = np.empty_like(dist)
         levels = 0
         for i, s in enumerate(sources.tolist()):
-            res = self._to_result(*self._search(int(rg.old2new[s]), max_levels), s)
+            d, p, stats = self._search(int(rg.old2new[s]), max_levels)
+            res = self._to_result(d, p, stats.level, s)
             dist[i], parent[i] = res.dist, res.parent
             levels = max(levels, res.num_levels)
         return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=levels)
+
+
+def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Numpy arrays of ``tensors``: on a card each is copied into a pinned
+    host tensor (PyTorch's caching host allocator, which reuses the block of
+    a result the caller has freed) and the array is a view that keeps it
+    alive, one wait for all copies; on the CPU the tensors' own memory."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream().synchronize()
+    return [h.numpy() for h in host]
 
 
 def bfs(

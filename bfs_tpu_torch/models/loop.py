@@ -1,0 +1,176 @@
+"""The level loop on the device: blocks of gated supersteps.
+
+The counterpart of the ``jax.lax.while_loop`` of the reference's fused
+programs (``bfs_tpu/models/bfs.py`` ``_relay_fused_program``,
+``_relay_elem_program``), whose condition ``changed & (level < cap)`` XLA
+evaluates on the device so the host syncs once per search.
+
+A :class:`BlockLoop` owns one carry kind's static buffers and its control
+block (:mod:`bfs_tpu_torch.ops.control`).  A block is :data:`BLOCK`
+supersteps, each gated by the control block: every kernel of a superstep
+returns at entry when it is not live, and the control step ends it.  On a
+card the block is captured once into a ``torch.cuda.CUDAGraph``, after one
+eager superstep that fills every cache the superstep keeps (device tables,
+kernel attributes), and then replayed; the host reads the control block (a
+pinned copy of 32 bytes) once per block and stops when LIVE is 0.  On the
+CPU the same block runs eagerly with the same gates and control step.
+A capture or a replay that fails raises: nothing falls back to the eager
+loop on a card.
+
+Kernel launch counts (``ops/relay_cuda.py::LAUNCHES``) count what reaches
+the card: a wrapper counts its launch when it is called, which happens once
+at capture; the capture's counts are taken back and each replay adds the
+block's captured launches.
+"""
+
+from __future__ import annotations
+
+import gc
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..ops import control as C
+from ..ops import relay_cuda as K
+
+#: Supersteps per block, chosen on the card from ``chip_smoke.py``'s table
+#: of k = 1, 4, 8, 16 (``PERF.md``): the best or within noise of it on the
+#: gather and MXU searches (6-8 levels), and on the 9-level batch it issues
+#: 3 dead supersteps where k = 8 issues 7.  Not a knob.
+BLOCK = 4
+
+
+@dataclass
+class LoopStats:
+    """One run of a loop: the final ``level`` and ``changed`` (read from the
+    control block at the end), host reads of the control block, graph
+    replays, supersteps issued (eager and replayed) and live supersteps
+    (counted on the device)."""
+
+    level: int = 0
+    changed: bool = True
+    host_reads: int = 0
+    replays: int = 0
+    issued: int = 0
+    live: int = 0
+
+    def add(self, other: "LoopStats") -> "LoopStats":
+        """The counts of two runs summed; level and changed from ``other``."""
+        return LoopStats(
+            other.level, other.changed, self.host_reads + other.host_reads,
+            self.replays + other.replays, self.issued + other.issued,
+            self.live + other.live,
+        )
+
+
+class BlockLoop:
+    """Blocks of ``k`` gated supersteps over static buffers.
+
+    ``buffers``: the carry's tensors, the control block last; ``step``: one
+    gated superstep on exactly those tensors (the control step included),
+    the same Python callable eagerly and under capture."""
+
+    def __init__(self, buffers: tuple[torch.Tensor, ...], step: Callable[[], None],
+                 k: int | None = None):
+        self.buffers = buffers
+        self.ctl = buffers[-1]
+        self.step = step
+        self.k = BLOCK if k is None else int(k)
+        if self.k < 1:
+            raise ValueError(f"a block holds at least one superstep, got {self.k}")
+        self.on_card = self.ctl.device.type == "cuda"
+        self.graph: torch.cuda.CUDAGraph | None = None
+        #: Kernel launches of one captured block, by name.
+        self.per_block: dict[str, int] = {}
+
+    # -- one block -----------------------------------------------------------
+
+    def _capture(self) -> None:
+        before = dict(K.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        # Garbage of earlier engines (their graphs, memory pools, pinned
+        # buffers) is freed now: freed during the capture, it would make a
+        # call that a capture forbids.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(self.k):
+                    self.step()
+        finally:
+            if collecting:
+                gc.enable()
+        self.per_block = {n: K.LAUNCHES[n] - c for n, c in before.items() if K.LAUNCHES[n] != c}
+        K.LAUNCHES.update(before)  # captured, not launched
+        self.graph = graph
+
+    def issue(self, stats: LoopStats) -> None:
+        """Issue one block on the current stream (no host read): eagerly on
+        the CPU; on a card the graph's replay, the first time after one
+        eager superstep and the capture."""
+        if not self.on_card:
+            for _ in range(self.k):
+                self.step()
+            stats.issued += self.k
+            return
+        if self.graph is None:
+            self.step()  # warm-up: a real, gated superstep of this run
+            stats.issued += 1
+            self._capture()
+        self.graph.replay()
+        for name, count in self.per_block.items():
+            K.LAUNCHES[name] += count
+        stats.replays += 1
+        stats.issued += self.k
+
+    def dead_replay(self) -> None:
+        """Issue the block once more, uncounted (the graph's replay on a
+        card, its supersteps eagerly on the CPU): after a run has converged,
+        LIVE is 0 and every superstep of it is dead, which times a dead
+        superstep and must change nothing."""
+        if self.graph is not None:
+            self.graph.replay()
+            return
+        for _ in range(self.k):
+            self.step()
+
+    # -- the host's side ------------------------------------------------------
+
+    def run(self, live: bool) -> LoopStats:
+        """Issue blocks until the control block reads not LIVE; ``live`` is
+        LIVE as the caller initialised it (no block when it is 0)."""
+        stats = LoopStats()
+        ctl = [0] * C.WORDS
+        ctl[C.CHANGED] = 1
+        while live:
+            self.issue(stats)
+            (ctl,) = read_ctls([self.ctl], stats)
+            live = bool(ctl[C.LIVE])
+        stats.level, stats.changed, stats.live = ctl[C.LEVEL], bool(ctl[C.CHANGED]), ctl[C.STEPS]
+        return stats
+
+    def load(self, carry: tuple[torch.Tensor, ...]) -> None:
+        """Copy a carry of the same shapes into the static buffers (on the
+        device, no host read)."""
+        for dst, src in zip(self.buffers, carry):
+            dst.copy_(src)
+
+    def store(self, carry: tuple[torch.Tensor, ...]) -> None:
+        """Copy the static buffers out into ``carry``."""
+        for dst, src in zip(carry, self.buffers):
+            dst.copy_(src)
+
+
+def read_ctls(ctls: list[torch.Tensor], stats: LoopStats) -> list[list[int]]:
+    """Control blocks on the host in one read: stacked on the device, one
+    pinned copy and one wait on a card; a plain read on the CPU."""
+    stats.host_reads += 1
+    both = torch.stack(ctls)
+    if both.device.type != "cuda":
+        return both.tolist()
+    host = torch.empty(both.shape, dtype=both.dtype, pin_memory=True)
+    host.copy_(both, non_blocking=True)
+    torch.cuda.current_stream().synchronize()
+    return host.tolist()

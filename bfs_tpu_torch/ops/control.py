@@ -1,0 +1,80 @@
+"""The level loop's control block: one small int32 tensor per loop, on the
+device that runs the loop.
+
+The counterpart of the ``jax.lax.while_loop`` condition of the reference's
+fused programs (``st.changed & (st.level < cap)``, ``bfs_tpu/models/bfs.py``
+``_relay_fused_program`` and ``_relay_elem_program``).  Words:
+
+  ======== ==============================================================
+  LEVEL    levels run so far (the state's ``level``)
+  CHANGED  did the last live superstep change anything (1 at the start)
+  LIVE     does the next superstep run: ``changed and level < cap``
+  CAP      the loop's level bound (``packed_cap(max_levels)`` or
+           ``max_levels``); in device memory, so one captured block
+           serves every bound
+  FLAG     set by the superstep's update when a vertex changed; read and
+           cleared by the control step
+  STEPS    live supersteps counted on the device
+  ======== ==============================================================
+
+Every loop kernel reads LIVE at entry and returns at once when it is 0; the
+update kernels read LEVEL for the level they stamp.  The control step
+(kernel ``loop_control``, ``csrc/relay_kernels.cu``; :func:`loop_control`
+here is its plain version) ends each superstep.  A superstep that is not
+live leaves the state, LEVEL and CHANGED as they were.  The word indices
+mirror the ``kCtl*`` constants of ``csrc/control.cuh``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LEVEL, CHANGED, LIVE, CAP, STEPS = range(5)
+#: FLAG sits in a 128-byte line of its own: the update's blocks store to it
+#: while every block of every gated kernel loads LIVE.
+FLAG = 32
+#: Words of a control block.
+WORDS = 64
+
+
+def new_ctl(device) -> torch.Tensor:
+    """A control block on ``device`` (zeros; :func:`init_ctl` starts a run)."""
+    return torch.zeros(WORDS, dtype=torch.int32, device=device)
+
+
+def init_ctl(ctl: torch.Tensor, cap: int) -> bool:
+    """Start a run of at most ``cap`` levels in ``ctl``, in place, with
+    device fills only (no copy from the host); returns LIVE."""
+    live = int(cap) > 0
+    ctl.zero_()
+    ctl[CHANGED] = 1
+    ctl[CAP] = int(cap)
+    ctl[LIVE] = int(live)
+    return live
+
+
+def level_live(ctl: torch.Tensor | None, level: int | None):
+    """``(level, live)``: device scalars (int64, bool) from ``ctl`` when
+    given; else the host ``level`` and ``None`` (always live: the loop
+    without a control block)."""
+    if ctl is None:
+        return int(level), None
+    return ctl[LEVEL].to(torch.int64), ctl[LIVE] != 0
+
+
+def raise_flag(ctl: torch.Tensor, changed: torch.Tensor) -> None:
+    """OR a superstep's ``changed`` (a device bool or int) into FLAG."""
+    ctl[FLAG] |= (changed != 0).to(torch.int32)
+
+
+def loop_control(ctl: torch.Tensor) -> torch.Tensor:
+    """The control step, plain version, in place: if the superstep was
+    live, ``level += 1``, ``changed = flag`` and ``steps += 1``; then the
+    flag is cleared and ``live = changed and level < cap``."""
+    live = ctl[LIVE] != 0
+    ctl[LEVEL] += live.to(torch.int32)
+    ctl[STEPS] += live.to(torch.int32)
+    ctl[CHANGED] = torch.where(live, (ctl[FLAG] != 0).to(torch.int32), ctl[CHANGED])
+    ctl[FLAG] = 0
+    ctl[LIVE] = ((ctl[CHANGED] != 0) & (ctl[LEVEL] < ctl[CAP])).to(torch.int32)
+    return ctl

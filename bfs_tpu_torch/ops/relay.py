@@ -23,13 +23,14 @@ import numpy as np
 import torch
 
 from ..graph.relay import StageSpec
+from .control import level_live
 from .packed import (
     INT32_MAX,
     PACKED_SENTINEL,
+    PARENT_BITS,
     PARENT_MASK,
     U32,
     i32,
-    level_word,
     packed_dist,
     u32,
 )
@@ -56,8 +57,9 @@ __all__ = [
 class RelayState(NamedTuple):
     """Unpacked carry in the relabeled space of size vr: ``dist`` int32
     (INT32_MAX unreached), ``parent`` int32 L1 slot (-1 unreached),
-    ``fwords`` int32[vr/32] frontier words, ``level`` a host int,
-    ``changed`` a device bool/int tensor."""
+    ``fwords`` int32[vr/32] frontier words, ``level`` a host int (``None``
+    inside the block loop, where the control block holds it), ``changed``
+    a device bool/int tensor."""
 
     dist: torch.Tensor
     parent: torch.Tensor
@@ -324,26 +326,51 @@ def rowmin_candidates(
     )
 
 
-def apply_relay_candidates(state: RelayState, cand: torch.Tensor) -> RelayState:
+def _next_level(state, ctl):
+    """The returned state's ``level``: the host level plus one without a
+    control block; inside the block loop the level lives in ``ctl`` and the
+    field is passed through."""
+    return state.level + 1 if ctl is None else state.level
+
+
+def apply_relay_candidates(
+    state: RelayState, cand: torch.Tensor, ctl: torch.Tensor | None = None
+) -> RelayState:
     """Merge candidate slots into the unpacked carry: a vertex not yet
-    reached takes level+1 and its candidate parent."""
+    reached takes level+1 and its candidate parent.  With a control block
+    ``ctl`` (:mod:`.control`) the level is its LEVEL word and a superstep
+    that is not LIVE changes nothing (the frontier words included)."""
+    level, live = level_live(ctl, state.level)
     newly = (cand != INT32_MAX) & (state.dist == INT32_MAX)
-    new_level = state.level + 1
-    dist = torch.where(newly, new_level, state.dist)
+    if live is not None:
+        newly = newly & live
+    dist = torch.where(newly, level + 1, state.dist).to(torch.int32)
     parent = torch.where(newly, cand, state.parent)
-    return RelayState(dist, parent, pack_std(newly), new_level, newly.any())
+    fwords = pack_std(newly)
+    if live is not None:
+        fwords = torch.where(live, fwords, state.fwords)
+    return RelayState(dist, parent, fwords, _next_level(state, ctl), newly.any())
 
 
 def apply_relay_candidates_packed(
-    state: PackedRelayState, rank_or_sent: torch.Tensor
+    state: PackedRelayState, rank_or_sent: torch.Tensor,
+    ctl: torch.Tensor | None = None,
 ) -> PackedRelayState:
     """Packed state update: one unsigned ``min(packed, rank | level_word)``
-    per vertex; the changed words' bits are the next frontier."""
-    cand = u32(rank_or_sent) | level_word(state.level + 1)
+    per vertex; the changed words' bits are the next frontier.  With a
+    control block ``ctl`` the level is its LEVEL word and a superstep that
+    is not LIVE changes nothing."""
+    level, live = level_live(ctl, state.level)
+    cand = u32(rank_or_sent) | (((level + 1) << PARENT_BITS) & U32)
     old = u32(state.packed)
     new = torch.minimum(old, cand)
+    if live is not None:
+        new = torch.where(live, new, old)
     newly = new != old
-    return PackedRelayState(i32(new), pack_std(newly), state.level + 1, newly.any())
+    fwords = pack_std(newly)
+    if live is not None:
+        fwords = torch.where(live, fwords, state.fwords)
+    return PackedRelayState(i32(new), fwords, _next_level(state, ctl), newly.any())
 
 
 def slots_to_parent(parent_slots: torch.Tensor, src_l1: torch.Tensor) -> torch.Tensor:

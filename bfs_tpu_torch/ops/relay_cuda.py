@@ -27,7 +27,15 @@ else.
   elem_rowmin_update      the XLA row-min and update of elem_superstep
                           (bfs_tpu/ops/relay_elem.py)
   mxu_expand              expand_frontier_mxu (K6, bfs_tpu/ops/relay_mxu.py)
+  loop_control            the while-loop condition of the reference's fused
+                          programs (XLA; bfs_tpu/models/bfs.py)
   ======================  ================================================
+
+The wrappers of the kernels that run inside the level loop take an
+optional control block ``ctl`` (:mod:`.control`): the kernel then returns at
+entry when the superstep is not live, and the two update kernels read the
+level they stamp from it and raise its flag.  Without one the kernel is
+always live, as outside the block loop.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..utils import cuda_build
 from . import relay as R
 from . import relay_elem as RE
 from . import relay_mxu as RM
+from . import control as C
 from .packed import level_word
 
 LAUNCHES = {
@@ -57,6 +66,7 @@ LAUNCHES = {
     "elem_frontier_interleave": 0,
     "elem_rowmin_update": 0,
     "mxu_expand": 0,
+    "loop_control": 0,
 }
 
 #: Shared-memory tile of the local pass, in words: a power of two in
@@ -101,16 +111,18 @@ _INT = ctypes.c_int
 def _register(lib: ctypes.CDLL) -> None:
     lib.benes_local_pass.restype = _INT
     lib.benes_local_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP, _VP,
     ]
     lib.benes_outer_pass.restype = _INT
     lib.benes_outer_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _VP, _VP,
     ]
     lib.class_rowmin.restype = _INT
-    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _VP]
+    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _VP, _VP]
     lib.packed_update.restype = _INT
-    lib.packed_update.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_uint, _VP]
+    lib.packed_update.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_uint, _VP, _VP]
+    lib.loop_control.restype = _INT
+    lib.loop_control.argtypes = [_VP, _VP]
 
 
 def _register_elem(lib: ctypes.CDLL) -> None:
@@ -121,19 +133,19 @@ def _register_elem(lib: ctypes.CDLL) -> None:
     lib.benes_elem_outer_stage.restype = _INT
     lib.benes_elem_outer_stage.argtypes = [_VP, _VP, _VP, _INT, _LL, _LL, _INT, _VP]
     lib.elem_route_gather.restype = _INT
-    lib.elem_route_gather.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _VP]
+    lib.elem_route_gather.argtypes = [_VP, _VP, _VP, _LL, _LL, _INT, _INT, _VP, _VP]
     lib.elem_frontier_interleave.restype = _INT
-    lib.elem_frontier_interleave.argtypes = [_VP, _VP, _LL, _INT, _VP]
+    lib.elem_frontier_interleave.argtypes = [_VP, _VP, _LL, _INT, _VP, _VP]
     lib.elem_rowmin_update.restype = _INT
     lib.elem_rowmin_update.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _LL,
-        ctypes.c_uint, _VP,
+        ctypes.c_uint, _VP, _VP,
     ]
 
 
 def _register_mxu(lib: ctypes.CDLL) -> None:
     lib.mxu_expand.restype = _INT
-    lib.mxu_expand.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL, _INT, _INT, _VP]
+    lib.mxu_expand.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL, _INT, _INT, _VP, _VP]
 
 
 SOURCES = {
@@ -209,6 +221,15 @@ def _ptr(t: torch.Tensor, word_offset: int = 0) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() + 4 * word_offset)
 
 
+def _ctl(ctl: torch.Tensor | None) -> ctypes.c_void_p:
+    """The control block's pointer (null without one: always live)."""
+    if ctl is None:
+        return ctypes.c_void_p(None)
+    if ctl.dtype != torch.int32 or not ctl.is_contiguous() or ctl.numel() != C.WORDS:
+        raise ValueError(f"ctl: expected a contiguous int32[{C.WORDS}] control block")
+    return _ptr(ctl)
+
+
 # ------------------------------------------------------------------ Beneš --
 
 def tile_words_for(n: int) -> int:
@@ -271,16 +292,18 @@ def _local_args(stages: tuple[StageSpec, ...]):
 def benes_local_pass(
     x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
     n: int, tile_words: int, out: torch.Tensor | None = None,
+    ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Apply a consecutive run of stages with ``d < 32 * tile_words`` (one
     shared-memory tile per block; a stage is skipped on a tile outside its
     nonzero range ``StageSpec.lo/hi``).  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
-    return launch_local_pass(kernels(), x_in, masks, stages, n, tile_words, out)
+    return launch_local_pass(kernels(), x_in, masks, stages, n, tile_words, out, ctl)
 
 
-def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None) -> torch.Tensor:
+def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None,
+                      ctl=None) -> torch.Tensor:
     """:func:`benes_local_pass` on the card, through ``lib`` (the built
     ``relay_kernels.cu``, or a copy of it with other constants)."""
     nw = n // 32
@@ -295,7 +318,7 @@ def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None) -> torc
         _ptr(x_in), _ptr(out), _ptr(masks),
         offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
         compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
-        len(stages), nw, tile_words, _stream(),
+        len(stages), nw, tile_words, _ctl(ctl), _stream(),
     )
     LAUNCHES["benes_local_pass"] += 1
     _call(rc, "benes_local_pass")
@@ -363,18 +386,18 @@ def _outer_args(stages: tuple[StageSpec, ...], b0: int):
 
 def benes_outer_pass(
     x_in: torch.Tensor, masks: torch.Tensor, stages: tuple[StageSpec, ...],
-    n: int, out: torch.Tensor | None = None,
+    n: int, out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Apply a run of outer stages of one side of a network (word distances
     ``2^b`` for consecutive bits ``b``, each once, at most
     :data:`OUTER_MAX_STAGES`) in one launch.  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
-    return launch_outer_pass(kernels(), x_in, masks, stages, n, out)
+    return launch_outer_pass(kernels(), x_in, masks, stages, n, out, ctl=ctl)
 
 
 def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
-                      max_words: int = OUTER_MAX_WORDS) -> torch.Tensor:
+                      max_words: int = OUTER_MAX_WORDS, ctl=None) -> torch.Tensor:
     """:func:`benes_outer_pass` on the card, through ``lib`` (the built
     ``relay_kernels.cu``, or a copy of it with other constants, whose
     ``kOuterWords`` is ``max_words``)."""
@@ -388,7 +411,7 @@ def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
     rc = lib.benes_outer_pass(
         _ptr(x_in), _ptr(out), _ptr(masks), offsets.ctypes.data_as(_VP),
         bits.ctypes.data_as(_VP), compact.ctypes.data_as(_VP), len(stages), b0, k,
-        row.bit_length() - 1, nw, _stream(),
+        row.bit_length() - 1, nw, _ctl(ctl), _stream(),
     )
     LAUNCHES["benes_outer_pass"] += 1
     _call(rc, "benes_outer_pass")
@@ -397,7 +420,7 @@ def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
 
 def apply_benes(
     words: torch.Tensor, masks: torch.Tensor, table: tuple[StageSpec, ...],
-    n: int, out: torch.Tensor | None = None,
+    n: int, out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The whole routed network: the outer prefix (one fused pass per run
     of :func:`outer_plan`), one local pass, the outer suffix (the plain
@@ -408,11 +431,11 @@ def apply_benes(
     out = torch.empty_like(words) if out is None else out
     src = words
     for run in outer_plan(table, pre, n):
-        benes_outer_pass(src, masks, tuple(table[i] for i in run.stages), n, out=out)
+        benes_outer_pass(src, masks, tuple(table[i] for i in run.stages), n, out=out, ctl=ctl)
         src = out
-    benes_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=out)
+    benes_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=out, ctl=ctl)
     for run in outer_plan(table, suf, n):
-        benes_outer_pass(out, masks, tuple(table[i] for i in run.stages), n, out=out)
+        benes_outer_pass(out, masks, tuple(table[i] for i in run.stages), n, out=out, ctl=ctl)
     return out
 
 
@@ -474,7 +497,7 @@ def rowmin_items(in_classes: tuple, vr: int, device: str):
 
 def rowmin_ranks(
     l1words: torch.Tensor, valid_words: torch.Tensor, in_classes, vr: int,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Min active rank per relabeled vertex (sentinel where none): kernel
     ``class_rowmin`` on the card, :func:`.relay.rowmin_ranks` on the CPU."""
@@ -492,7 +515,7 @@ def rowmin_ranks(
         return out
     rc = kernels().class_rowmin(
         _ptr(l1words), _ptr(valid_words), _ptr(out), _VP(table.data_ptr()),
-        table.shape[0], blocks, _stream(),
+        table.shape[0], blocks, _ctl(ctl), _stream(),
     )
     LAUNCHES["class_rowmin"] += 1
     _call(rc, "class_rowmin")
@@ -503,13 +526,25 @@ def rowmin_ranks(
 
 def apply_relay_candidates_packed(
     state: R.PackedRelayState, rank_or_sent: torch.Tensor,
-    fwords_out: torch.Tensor | None = None,
+    fwords_out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> R.PackedRelayState:
     """Packed state update (kernel ``packed_update`` on the card, updating
     ``state.packed`` in place; :func:`.relay.apply_relay_candidates_packed`
-    on the CPU).  The returned ``changed`` is a device int32[1] flag."""
+    on the CPU).  The returned ``changed`` is a device int32[1] flag.
+
+    With a control block ``ctl`` (the block loop) the level is its LEVEL
+    word, a superstep that is not LIVE changes nothing, the update raises
+    the block's flag (``changed`` is returned as ``None``), and on both
+    devices ``state.packed`` and ``fwords_out`` are written in place."""
     if not _on_card(state.packed, rank_or_sent):
-        return R.apply_relay_candidates_packed(state, rank_or_sent)
+        new = R.apply_relay_candidates_packed(state, rank_or_sent, ctl)
+        if ctl is None:
+            return new
+        state.packed.copy_(new.packed)
+        fwords = new.fwords if fwords_out is None else fwords_out.copy_(
+            torch.where(ctl[C.LIVE] != 0, new.fwords, fwords_out))  # dead: not written
+        C.raise_flag(ctl, new.changed)
+        return new._replace(packed=state.packed, fwords=fwords, changed=None)
     vr = state.packed.numel()
     _check_words("packed", state.packed, vr)
     _check_words("rank_or_sent", rank_or_sent, vr)
@@ -519,14 +554,31 @@ def apply_relay_candidates_packed(
         if fwords_out is None else fwords_out
     )
     _check_words("fwords_out", fwords, vr // 32)
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    if ctl is None:
+        changed, level = torch.empty(1, dtype=torch.int32, device=dev), state.level + 1
+        bits = level_word(level)
+    else:  # the level and the flag live in the control block
+        changed, level, bits = None, state.level, 0
     rc = kernels().packed_update(
         _ptr(state.packed), _ptr(rank_or_sent), _ptr(state.packed),
-        _ptr(fwords), _ptr(changed), vr, level_word(state.level + 1), _stream(),
+        _ptr(fwords), ctypes.c_void_p(None) if changed is None else _ptr(changed), vr,
+        bits, _ctl(ctl), _stream(),
     )
     LAUNCHES["packed_update"] += 1
     _call(rc, "packed_update")
-    return R.PackedRelayState(state.packed, fwords, state.level + 1, changed)
+    return R.PackedRelayState(state.packed, fwords, level, changed)
+
+
+def loop_control(ctl: torch.Tensor) -> torch.Tensor:
+    """The control step that ends each superstep of the block loop (kernel
+    ``loop_control`` on the card, :func:`.control.loop_control` on the
+    CPU), in place on ``ctl``."""
+    if not _on_card(ctl):
+        return C.loop_control(ctl)
+    rc = kernels().loop_control(_ctl(ctl), _stream())
+    LAUNCHES["loop_control"] += 1
+    _call(rc, "loop_control")
+    return ctl
 
 
 # ------------------------------------------------------- element-major (K5) --
@@ -672,7 +724,7 @@ INTERLEAVED_GROUPS = (2, 4)
 
 
 def elem_frontier_interleave(frontier: torch.Tensor, out: torch.Tensor | None = None,
-                             lib=None) -> torch.Tensor:
+                             lib=None, ctl: torch.Tensor | None = None) -> torch.Tensor:
     """The frontier int32[G, vr] as int32[vr, G] (G = 2 or 4): kernel
     ``elem_frontier_interleave`` on the card (through ``lib``, default the
     built ``relay_elem_kernels.cu``), :func:`.relay_elem.interleave_frontier`
@@ -688,7 +740,7 @@ def elem_frontier_interleave(frontier: torch.Tensor, out: torch.Tensor | None = 
             or out.data_ptr() % 16):
         raise ValueError(f"out: expected a 16-byte aligned contiguous int32[{vr}, {groups}] tensor")
     rc = (lib or elem_kernels()).elem_frontier_interleave(
-        _ptr(frontier), _ptr(out), vr, groups, _stream())
+        _ptr(frontier), _ptr(out), vr, groups, _ctl(ctl), _stream())
     LAUNCHES["elem_frontier_interleave"] += 1
     _call(rc, "elem_frontier_interleave")
     return out
@@ -696,7 +748,7 @@ def elem_frontier_interleave(frontier: torch.Tensor, out: torch.Tensor | None = 
 
 def elem_route_gather(
     frontier: torch.Tensor, src: torch.Tensor, out: torch.Tensor | None = None,
-    frontier_t: torch.Tensor | None = None,
+    frontier_t: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Routed L1 slot elements int32[G, n] of one elem superstep from the
     frontier int32[G, vr], through the composed route index ``src``
@@ -707,10 +759,11 @@ def elem_route_gather(
     :func:`.relay_elem.route_gather` on the CPU."""
     if not _on_card(frontier, src):
         return RE.route_gather(frontier, src)
-    return launch_route_gather(elem_kernels(), frontier, src, out, frontier_t)
+    return launch_route_gather(elem_kernels(), frontier, src, out, frontier_t, ctl)
 
 
-def launch_route_gather(lib, frontier, src, out=None, frontier_t=None) -> torch.Tensor:
+def launch_route_gather(lib, frontier, src, out=None, frontier_t=None,
+                        ctl=None) -> torch.Tensor:
     """:func:`elem_route_gather` on the card, through ``lib`` (the built
     ``relay_elem_kernels.cu``, or a copy of it with other constants)."""
     groups = _check_elems("frontier", frontier, frontier.shape[-1])
@@ -723,7 +776,7 @@ def launch_route_gather(lib, frontier, src, out=None, frontier_t=None) -> torch.
     interleaved = groups in INTERLEAVED_GROUPS
     f = frontier
     if interleaved and frontier_t is None:
-        f = elem_frontier_interleave(frontier, lib=lib)
+        f = elem_frontier_interleave(frontier, lib=lib, ctl=ctl)
     elif interleaved:
         f = frontier_t
         if (f.dtype != torch.int32 or not f.is_contiguous()
@@ -732,7 +785,7 @@ def launch_route_gather(lib, frontier, src, out=None, frontier_t=None) -> torch.
                              f"contiguous int32[{frontier.shape[1]}, {groups}] tensor")
     rc = lib.elem_route_gather(
         _ptr(f), _ptr(src), _ptr(out), frontier.shape[1], n, groups, int(interleaved),
-        _stream(),
+        _ctl(ctl), _stream(),
     )
     LAUNCHES["elem_route_gather"] += 1
     _call(rc, "elem_route_gather")
@@ -790,24 +843,39 @@ def elem_rowmin_items(in_classes: tuple, vr: int):
 
 def elem_rowmin_update(
     l1: torch.Tensor, valid_words: torch.Tensor, state: RE.ElemState,
-    in_classes, vr: int,
+    in_classes, vr: int, frontier_out: torch.Tensor | None = None,
+    ctl: torch.Tensor | None = None,
 ) -> RE.ElemState:
     """Row-min and bit-sliced update of one elem superstep.  On both devices
     ``state.visited``, ``state.dist_planes`` and ``state.rank_planes`` are
-    updated IN PLACE and returned with a new frontier.  On the card the
-    kernel ``elem_rowmin_update`` does it and ``changed`` is a device
-    int32[1] flag; on the CPU :func:`.relay_elem.rowmin_elem` then
-    :func:`.relay_elem.apply_elem_found`, copied into the given tensors."""
+    updated IN PLACE and returned with the new frontier (written into
+    ``frontier_out`` when given: the kernel does not read the frontier, so
+    that may be ``state.frontier``).  On the card the kernel
+    ``elem_rowmin_update`` does it and ``changed`` is a device int32[1]
+    flag; on the CPU :func:`.relay_elem.rowmin_elem` then
+    :func:`.relay_elem.apply_elem_found`, copied into the given tensors.
+    With a control block ``ctl`` the level is its LEVEL word plus one, a
+    superstep that is not LIVE changes nothing, and the update raises the
+    block's flag (``changed`` is returned as ``None``)."""
     plane_offsets, pt = RE.rank_plane_layout(in_classes)
     if not _on_card(l1, valid_words, state.visited):
         found, rp = RE.rowmin_elem(l1, valid_words, in_classes, vr, plane_offsets, pt)
-        new = RE.apply_elem_found(state, found, rp, in_classes, plane_offsets)
+        new = RE.apply_elem_found(state, found, rp, in_classes, plane_offsets, ctl)
         state.visited.copy_(new.visited)
         state.dist_planes.copy_(new.dist_planes)
         state.rank_planes.copy_(new.rank_planes)
+        frontier = new.frontier
+        if frontier_out is not None:
+            if ctl is not None:  # dead: not written
+                frontier = torch.where(ctl[C.LIVE] != 0, frontier, frontier_out)
+            frontier = frontier_out.copy_(frontier)
+        changed = new.changed
+        if ctl is not None:
+            C.raise_flag(ctl, changed)
+            changed = None
         return new._replace(
-            visited=state.visited, dist_planes=state.dist_planes,
-            rank_planes=state.rank_planes,
+            visited=state.visited, frontier=frontier, dist_planes=state.dist_planes,
+            rank_planes=state.rank_planes, changed=changed,
         )
     n = l1.shape[-1]
     groups = _check_elems("l1", l1, n)
@@ -819,19 +887,23 @@ def elem_rowmin_update(
     table, blocks = elem_rowmin_items(tuple(in_classes), int(vr))
     if table.shape[0] > ELEM_MAX_ITEMS:
         raise ValueError(f"elem_rowmin_update: {table.shape[0]} work items exceed {ELEM_MAX_ITEMS}")
-    frontier = torch.empty_like(state.visited)
-    changed = torch.empty(1, dtype=torch.int32, device=l1.device)
+    frontier = torch.empty_like(state.visited) if frontier_out is None else frontier_out
+    _check_elems("frontier_out", frontier, vr, groups)
+    if ctl is None:
+        changed, level = torch.empty(1, dtype=torch.int32, device=l1.device), state.level + 1
+    else:  # the level and the flag live in the control block
+        changed, level = None, state.level
     rc = elem_kernels().elem_rowmin_update(
         _ptr(l1), _ptr(valid_words), _ptr(state.visited), _ptr(frontier),
-        _ptr(state.dist_planes), _ptr(state.rank_planes), _ptr(changed),
+        _ptr(state.dist_planes), _ptr(state.rank_planes),
+        ctypes.c_void_p(None) if changed is None else _ptr(changed),
         _VP(table.data_ptr()), table.shape[0], blocks, groups, n, vr, pt,
-        state.level + 1, _stream(),
+        0 if ctl is not None else level, _ctl(ctl), _stream(),
     )
     LAUNCHES["elem_rowmin_update"] += 1
     _call(rc, "elem_rowmin_update")
     return RE.ElemState(
-        state.visited, frontier, state.dist_planes, state.rank_planes,
-        state.level + 1, changed,
+        state.visited, frontier, state.dist_planes, state.rank_planes, level, changed,
     )
 
 
@@ -849,7 +921,7 @@ MXU_SPARSE_MAX_BITS = 256
 
 def expand_frontier_mxu(
     fwords: torch.Tensor, tile_ops: tuple, *, rows: int, cols: int, rtp: int,
-    vtp: int,
+    vtp: int, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Min original-id candidate per destination, int32[cols] (uint32
     patterns, -1 where none): kernel ``mxu_expand`` on the card, into an
@@ -878,7 +950,7 @@ def expand_frontier_mxu(
     blocks = min(-(-ntp // (32 * MXU_WARPS)), sms * MXU_BLOCKS_PER_SM)
     rc = mxu_kernels().mxu_expand(
         _ptr(tiles), _ptr(row_idx), _ptr(col_id), _ptr(keys2d), _ptr(fwords),
-        fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _stream(),
+        fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _ctl(ctl), _stream(),
     )
     LAUNCHES["mxu_expand"] += 1
     _call(rc, "mxu_expand")

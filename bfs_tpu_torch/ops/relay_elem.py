@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..graph.relay import StageSpec, _vertex_tables
+from .control import level_live
 from .packed import INT32_MAX
 from .relay import slots_to_parent, unpack_std
 
@@ -44,6 +45,7 @@ __all__ = [
     "rowmin_elem",
     "apply_elem_found",
     "elem_superstep",
+    "decode_trees",
     "extract_results",
 ]
 
@@ -60,8 +62,9 @@ class ElemState(NamedTuple):
     ``visited``/``frontier``: int32[G, vr] (bit t = tree t);
     ``dist_planes``: int32[DIST_PLANES, G, vr], bit b of a vertex's level;
     ``rank_planes``: int32[G, PT], per-class packed parent-rank bits
-    (:func:`rank_plane_layout`); ``level`` a host int; ``changed`` a
-    device flag (bool or int tensor)."""
+    (:func:`rank_plane_layout`); ``level`` a host int (``None`` inside the
+    block loop, where the control block holds it); ``changed`` a device
+    flag (bool or int tensor), or a host bool once a loop has read it."""
 
     visited: torch.Tensor
     frontier: torch.Tensor
@@ -87,33 +90,46 @@ def rank_plane_layout(in_classes):
     return offsets, total
 
 
-def init_elem_state(vr: int, sources_new: np.ndarray, pt: int, device="cpu") -> ElemState:
+def init_elem_state(vr: int, sources_new: np.ndarray, pt: int, device="cpu",
+                    out: tuple | None = None) -> ElemState:
     """``sources_new``: int[G, 32] relabeled source ids.  Tree ``t`` of
     group ``g`` adds bit ``t`` at its source, as the reference's
     scatter-add does, on ``device``: two trees on one vertex add two
     distinct bits, so the sum is their OR and never carries (bit 31
-    included, in two's complement)."""
+    included, in two's complement).  ``out``: existing ``(visited,
+    frontier, dist_planes, rank_planes)`` to start in, in place (the block
+    loop's buffers: no copy of the planes)."""
     src = torch.as_tensor(np.asarray(sources_new, dtype=np.int64)).to(device)
     g = src.shape[0]
     bits = torch.from_numpy(
         (np.uint32(1) << np.tile(np.arange(32, dtype=np.uint32), g)).view(np.int32)
     ).to(device)
     rows = torch.arange(g, device=device).repeat_interleave(32)
-    vis = torch.zeros((g, vr), dtype=torch.int32, device=device)
+    if out is None:
+        out = tuple(
+            torch.empty(shape, dtype=torch.int32, device=device)
+            for shape in ((g, vr), (g, vr), (DIST_PLANES, g, vr), (g, pt))
+        )
+    vis, frontier, dist_planes, rank_planes = out
+    vis.zero_()
     vis.index_put_((rows, src.reshape(-1)), bits, accumulate=True)
+    frontier.copy_(vis)
+    dist_planes.zero_()
+    rank_planes.zero_()
     return ElemState(
         visited=vis,
-        frontier=vis.clone(),
-        dist_planes=torch.zeros((DIST_PLANES, g, vr), dtype=torch.int32, device=device),
-        rank_planes=torch.zeros((g, pt), dtype=torch.int32, device=device),
+        frontier=frontier,
+        dist_planes=dist_planes,
+        rank_planes=rank_planes,
         level=0,
         changed=torch.ones((), dtype=torch.bool, device=device),
     )
 
 
-def _select(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 values -> int32 0 / ~0 select patterns."""
-    return -bits.to(torch.int32)
+def _select(bits) -> torch.Tensor | int:
+    """0/1 values (a tensor, or a host int) -> int32 0 / ~0 select
+    patterns."""
+    return -bits.to(torch.int32) if isinstance(bits, torch.Tensor) else -int(bits)
 
 
 def _stage_select(m: torch.Tensor, st: StageSpec, n: int) -> torch.Tensor:
@@ -251,17 +267,23 @@ def rowmin_elem(
 
 def apply_elem_found(
     state: ElemState, found: torch.Tensor, rp_new: torch.Tensor, in_classes,
-    plane_offsets,
+    plane_offsets, ctl: torch.Tensor | None = None,
 ) -> ElemState:
     """The bit-sliced update of one superstep: ``newly = found & ~visited``
     becomes the frontier and joins ``visited``; it is ORed into dist plane
     ``b`` where bit ``b`` of the new level is set (none at level 32, the
     step past the cap); the new rank bits are adopted for newly reached
-    trees only."""
+    trees only.  The new level is the host ``state.level + 1``, or with a
+    control block ``ctl`` (:mod:`.control`) its LEVEL word plus one, and
+    then a superstep that is not LIVE changes nothing (the frontier
+    included)."""
+    level, live = level_live(ctl, state.level)
     newly = found & ~state.visited
-    new_level = state.level + 1
+    if live is not None:
+        newly = newly & _select(live)
+    new_level = level + 1
     dist_planes = torch.stack([
-        state.dist_planes[b] | newly if (new_level >> b) & 1 else state.dist_planes[b]
+        state.dist_planes[b] | (newly & _select((new_level >> b) & 1))
         for b in range(DIST_PLANES)
     ])
     rp_mask_parts = []
@@ -274,10 +296,10 @@ def apply_elem_found(
     )
     return ElemState(
         visited=state.visited | newly,
-        frontier=newly,
+        frontier=newly if live is None else torch.where(live, newly, state.frontier),
         dist_planes=dist_planes,
         rank_planes=state.rank_planes | (rp_new & rp_mask),
-        level=new_level,
+        level=new_level if ctl is None else state.level,
         changed=(newly != 0).any(),
     )
 
@@ -309,51 +331,104 @@ def elem_superstep(
     return apply_elem_found(state, found, rp_new, in_classes, plane_offsets)
 
 
-def _tree_bits(words: torch.Tensor) -> torch.Tensor:
-    """int32[n] elements -> int32[32, n] 0/1 bits, row t = tree t."""
-    shifts = torch.arange(32, dtype=torch.int32, device=words.device)[:, None]
+#: Trees per chunk of the batch extraction: decoded on the device while the
+#: chunk before is copied to the host.
+EXTRACT_TREES = 16
+
+
+def _tree_bits(words: torch.Tensor, t0: int, t1: int) -> torch.Tensor:
+    """int32[n] elements -> int32[t1 - t0, n] 0/1 bits, row i = tree t0 + i."""
+    shifts = torch.arange(t0, t1, dtype=torch.int32, device=words.device)[:, None]
     return (words[None, :] >> shifts) & 1
+
+
+def rank_tables(rg, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank -> L1 slot tables ``(base, stride)``, int32[vr] on ``device``:
+    slot = base + rank * stride.  int32 holds every slot: a slot is below
+    ``net_size``, and a layout of 2^31 slots or more is refused here."""
+    if rg.net_size > 1 << 31:
+        raise ValueError(f"net_size {rg.net_size}: slots past int32")
+    return tuple(torch.from_numpy(a).to(device) for a in _vertex_tables(list(rg.in_classes), rg.vr))
+
+
+def decode_trees(state: ElemState, rg, gi: int, t0: int, t1: int, tables):
+    """Trees ``[t0, t1)`` of group ``gi`` in the relabeled space:
+    ``(dist, parent_slots)`` int32[t1 - t0, vr], INT32_MAX / -1 where
+    unreached; ``tables`` from :func:`rank_tables`.  Torch ops on the
+    state's device."""
+    base, stride = tables
+    vis = _tree_bits(state.visited[gi], t0, t1) == 1
+    dv = _tree_bits(state.dist_planes[0, gi], t0, t1)
+    for b in range(1, DIST_PLANES):
+        dv |= _tree_bits(state.dist_planes[b, gi], t0, t1) << b
+    rank = torch.zeros_like(dv)
+    offsets, _ = rank_plane_layout(rg.in_classes)
+    for cs in rg.in_classes:
+        off, nb = offsets[cs.va]
+        for j in range(nb):
+            seg = state.rank_planes[gi, off + j * cs.count : off + (j + 1) * cs.count]
+            rank[:, cs.va : cs.vb] |= _tree_bits(seg, t0, t1) << j
+    dist = torch.where(vis, dv, INT32_MAX)
+    parent = torch.where(vis, base + rank * stride, -1)
+    return dist, parent
+
+
+def _chunks(s: int):
+    """``(group, first tree, last tree + 1, first result row)`` per chunk:
+    at most :data:`EXTRACT_TREES` trees of one group."""
+    for g0 in range(0, s, 32):
+        for t0 in range(0, min(32, s - g0), EXTRACT_TREES):
+            yield g0 // 32, t0, min(t0 + EXTRACT_TREES, 32, s - g0), g0 + t0
 
 
 def extract_results(
     state: ElemState, rg, sources: np.ndarray, old2new: torch.Tensor,
-    src_l1: torch.Tensor,
+    src_l1: torch.Tensor, tables=None,
 ):
     """Bit-sliced state -> per-tree ``(dist, parent)`` int32[S, V] numpy
-    arrays in ORIGINAL ids, S = 32·G.  Runs as torch ops on the state's
-    device, one group of 32 trees at a time; ``old2new`` (int64[V]) and
-    ``src_l1`` (int32[m1]) are the layout's tables on that device."""
+    arrays in ORIGINAL ids, S = 32·G; ``old2new`` (int64[V]), ``src_l1``
+    (int32[m1]) and ``tables`` (:func:`rank_tables`, built here when not
+    given) are the layout's tables on the state's device.
+
+    Chunks of :data:`EXTRACT_TREES` trees are decoded on the device
+    (:func:`decode_trees`, then the original-id gathers into one of two
+    device buffers).  On a card the result arrays are numpy views of pinned
+    host tensors (PyTorch's caching host allocator), which they keep alive,
+    and each chunk's copy into them runs on a second stream while the next
+    chunk is decoded (events order the two); on the CPU the chunks are
+    written straight into the arrays."""
     dev = state.visited.device
-    g, vr = state.visited.shape
-    s = int(sources.shape[0])
-    base, stride = (
-        torch.from_numpy(a.astype(np.int64)).to(dev)
-        for a in _vertex_tables(list(rg.in_classes), rg.vr)
-    )
-    offsets, _ = rank_plane_layout(rg.in_classes)
-    dist = np.empty((s, rg.num_vertices), dtype=np.int32)
-    parent = np.empty((s, rg.num_vertices), dtype=np.int32)
-    for gi in range(g):
-        rows = slice(32 * gi, min(32 * gi + 32, s))
-        n_t = rows.stop - rows.start
-        vis = _tree_bits(state.visited[gi]) == 1
-        dv = torch.zeros((32, vr), dtype=torch.int32, device=dev)
-        for b in range(DIST_PLANES):
-            dv |= _tree_bits(state.dist_planes[b, gi]) << b
-        rank = torch.zeros((32, vr), dtype=torch.int64, device=dev)
-        for cs in rg.in_classes:
-            off, nb = offsets[cs.va]
-            for j in range(nb):
-                seg = state.rank_planes[gi, off + j * cs.count : off + (j + 1) * cs.count]
-                rank[:, cs.va : cs.vb] |= _tree_bits(seg).to(torch.int64) << j
-        pn = torch.where(vis, base + rank * stride, -1)
-        d_orig = torch.where(vis, dv, INT32_MAX)[:, old2new]
-        p_orig = slots_to_parent(pn, src_l1)[:, old2new].to(torch.int32)
-        src = torch.from_numpy(sources[rows].astype(np.int64)).to(dev)
-        t = torch.arange(n_t, device=dev)
-        d_orig[t, src] = 0
-        p_orig[t, src] = src.to(torch.int32)
-        # Straight into the result rows: no host temporary, one host copy.
-        torch.from_numpy(dist[rows]).copy_(d_orig[:n_t])
-        torch.from_numpy(parent[rows]).copy_(p_orig[:n_t])
-    return dist, parent
+    s, v = int(sources.shape[0]), rg.num_vertices
+    tables = rank_tables(rg, dev) if tables is None else tables
+    src = torch.from_numpy(sources.astype(np.int64)).to(dev)
+    on_card = dev.type == "cuda"
+    out = [torch.empty((s, v), dtype=torch.int32, pin_memory=on_card) for _ in range(2)]
+    if on_card:
+        main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+        bufs = torch.empty((2, 2, EXTRACT_TREES, v), dtype=torch.int32, device=dev)
+        copied = [None, None]
+    for ci, (gi, t0, t1, row) in enumerate(_chunks(s)):
+        n = t1 - t0
+        rows = slice(row, row + n)
+        if on_card:
+            slot = ci % 2
+            if copied[slot] is not None:
+                main.wait_event(copied[slot])  # its last chunk has reached the host
+            dst = bufs[slot, :, :n]
+        else:
+            dst = [o[rows] for o in out]
+        dist, parent = decode_trees(state, rg, gi, t0, t1, tables)
+        torch.index_select(dist, 1, old2new, out=dst[0])
+        torch.index_select(slots_to_parent(parent, src_l1), 1, old2new, out=dst[1])
+        t = torch.arange(n, device=dev)
+        dst[0][t, src[rows]] = 0
+        dst[1][t, src[rows]] = src[rows].to(torch.int32)
+        if on_card:
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for o, d in zip(out, dst):
+                    o[rows].copy_(d, non_blocking=True)
+                copied[slot] = side.record_event()
+    if on_card:
+        side.synchronize()
+    return out[0].numpy(), out[1].numpy()

@@ -35,8 +35,6 @@ __all__ = [
     "live_tiles",
     "reachable_bits",
     "expand_frontier_mxu_plain",
-    "mxu_superstep_packed",
-    "mxu_superstep",
 ]
 
 EXPANSION_MODES = ("gather", "mxu")
@@ -141,25 +139,3 @@ def expand_frontier_mxu_plain(
         dst = (col_id[ix].long()[:, None] * TILE + lane).reshape(-1)
         out.scatter_reduce_(0, dst, cand.reshape(-1), "amin")
     return out[:cols] ^ _FLIP
-
-
-def mxu_superstep_packed(st, tile_ops, geo: tuple):
-    """One MXU pull superstep on the packed carry: the expansion (kernel
-    ``mxu_expand`` on the card), then K4's lexicographic min; the
-    candidate's parent field is the ORIGINAL id."""
-    from . import relay_cuda as K
-
-    rows, cols, rtp, vtp, _ntp = geo
-    cand = K.expand_frontier_mxu(st.fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp)
-    return K.apply_relay_candidates_packed(st, cand)
-
-
-def mxu_superstep(st, tile_ops, geo: tuple):
-    """The unpacked carry (the >62-level fallback): parent VALUES are
-    original ids, ``INT32_MAX`` for the sentinel at the apply boundary."""
-    from . import relay as R
-    from . import relay_cuda as K
-
-    rows, cols, rtp, vtp, _ntp = geo
-    cand = K.expand_frontier_mxu(st.fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp)
-    return R.apply_relay_candidates(st, torch.where(cand == -1, INT32_MAX, cand))

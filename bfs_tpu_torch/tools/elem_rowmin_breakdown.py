@@ -84,7 +84,7 @@ def launch(eng, l1, work, table, blocks: int) -> None:
         K._ptr(work.dist_planes), K._ptr(work.rank_planes), K._ptr(changed),
         K._VP(table.data_ptr()), table.shape[0], blocks, l1.shape[0], l1.shape[1],
         rg.vr, pt,
-        work.level + 1, K._stream(),
+        work.level + 1, K._ctl(None), K._stream(),
     )
     if rc:
         raise RuntimeError(f"elem_rowmin_update: CUDA error {rc} at launch")

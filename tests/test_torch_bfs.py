@@ -124,7 +124,8 @@ def test_import_leaves_jax_out():
         "import sys; import bfs_tpu_torch, bfs_tpu_torch.ops.relay_cuda, "
         "bfs_tpu_torch.ops.relay_elem, bfs_tpu_torch.ops.relay_mxu, "
         "bfs_tpu_torch.graph.adj_tiles, bfs_tpu_torch.models.bfs, "
-        "bfs_tpu_torch.models.multisource; "
+        "bfs_tpu_torch.models.multisource, bfs_tpu_torch.models.loop, "
+        "bfs_tpu_torch.ops.control; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"

@@ -559,3 +559,132 @@ def test_card_mxu_engine_matches_gather_and_oracle(card):
     np.testing.assert_array_equal(res.dist, dist)
     np.testing.assert_array_equal(res.parent, parent)
     assert res.num_levels == 70
+
+
+# ------------------------------------------------ the block loop on the card --
+
+#: Kernel launches per superstep of each block loop.
+PER_STEP = {
+    "gather": {"benes_outer_pass": 4, "benes_local_pass": 2, "class_rowmin": 1,
+               "packed_update": 1, "loop_control": 1},
+    "mxu": {"mxu_expand": 1, "packed_update": 1, "loop_control": 1},
+    "elem": {"elem_frontier_interleave": 1, "elem_route_gather": 1, "elem_rowmin_update": 1,
+             "loop_control": 1},
+}
+
+
+def _counts(names):
+    torch.cuda.synchronize()
+    return {n: K.LAUNCHES[n] for n in names}
+
+
+@pytest.mark.parametrize("expansion", ["gather", "mxu"])
+def test_card_captured_loop_matches_eager(card, expansion):
+    """The captured block loop against the eager loop, bit for bit, and its
+    accounting: launches = per-superstep count x supersteps issued, live
+    supersteps = num_levels, one host read per replay."""
+    from bfs_tpu_torch.models import loop as L
+
+    g = P.rmat_graph(12, 6, seed=1)
+    eng = P.RelayEngine(g, expansion=expansion)
+    eng.run(0)  # captures the graph
+    per_step = dict(PER_STEP[expansion])
+    if expansion == "gather":  # outer passes of both networks at this size
+        rg = eng.relay_graph
+        per_step["benes_outer_pass"] = sum(
+            len(K.outer_plan(tb, side, n))
+            for tb, n in ((rg.vperm_table, rg.vperm_size), (rg.net_table, rg.net_size))
+            for side in K.split_passes(tb, n)[0:3:2])
+    for s in (0, 9, 100):
+        K.reset_launches()
+        got = eng.run(s)
+        run = dict(eng.last_run)
+        assert _counts(per_step) == {n: c * run["issued"] for n, c in per_step.items()}
+        assert run["live"] == got.num_levels and run["host_reads"] == run["replays"]
+        assert run["issued"] == L.BLOCK * run["replays"]
+        eng.loop = "eager"
+        want = eng.run(s)
+        eng.loop = "blocks"
+        np.testing.assert_array_equal(got.dist, want.dist)
+        np.testing.assert_array_equal(got.parent, want.parent)
+        assert got.num_levels == want.num_levels
+    # A block replayed past convergence changes nothing.
+    loop = eng._packed_loop()
+    before = [b.clone() for b in loop.buffers]
+    loop.dead_replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, loop.buffers))
+    # The unpacked re-run and the truncation through the captured loops.
+    path = P.path_graph(100)
+    a = P.RelayEngine(path, expansion=expansion).run(0)
+    dist, parent = P.canonical_bfs(path, 0)
+    np.testing.assert_array_equal(a.dist, dist)
+    np.testing.assert_array_equal(a.parent, parent)
+    assert a.num_levels == 100
+
+
+def test_card_captured_elem_loop_matches_eager(card):
+    from bfs_tpu_torch.models import loop as L
+
+    g = P.rmat_graph(12, 6, seed=1)
+    sources = np.random.default_rng(2).choice(g.num_vertices, 64, replace=False)
+    eng = P.RelayEngine(g)
+    eng.run_multi_elem_device(sources)  # builds the route index, captures
+    K.reset_launches()
+    st = eng.run_multi_elem_device(sources)
+    run = dict(eng.last_run)
+    per_step = PER_STEP["elem"]
+    assert _counts(per_step) == {n: c * run["issued"] for n, c in per_step.items()}
+    assert run["live"] == st.level and run["issued"] == L.BLOCK * run["replays"]
+    got = [t.clone() for t in st[:4]]
+    eng.loop = "eager"
+    want = eng.run_multi_elem_device(sources)
+    for a, b in zip(got, want[:4]):
+        _eq(a, b)
+    assert (st.level, st.changed) == (want.level, bool(want.changed))
+    a = eng.run_multi_elem(sources)
+    eng.loop = "blocks"
+    b = eng.run_multi_elem(sources)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    path = P.path_graph(33)  # eccentricity 32 from vertex 0: the fallback
+    res = P.RelayEngine(path).run_multi_elem(np.arange(32))
+    dist, parent = P.canonical_bfs(path, 0)
+    np.testing.assert_array_equal(res.dist[0], dist)
+    np.testing.assert_array_equal(res.parent[0], parent)
+
+
+def test_card_result_path_matches_cpu(card):
+    g = P.rmat_graph(11, 6, seed=3)
+    sources = np.random.default_rng(4).choice(g.num_vertices, 64, replace=False)
+    gpu, cpu = P.RelayEngine(g), P.RelayEngine(g, device="cpu")
+    for s, st in zip((0, 17), gpu.run_many_device([0, 17])):
+        for a, b in zip(gpu.to_original_device(st, s), cpu.to_original_device(
+                cpu.run_many_device([s])[0], s)):
+            _eq(a, b)
+    a, b = gpu.run_multi_elem(sources), cpu.run_multi_elem(sources)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    st = gpu.run_multi_elem_device(sources)
+    for i in (0, 33):
+        for x, y in zip(gpu.multi_tree_to_original_device(st, i, int(sources[i])),
+                        (a.dist[i], a.parent[i])):
+            np.testing.assert_array_equal(x.cpu().numpy(), y)
+
+
+def test_card_capture_failure_raises(card):
+    """A superstep that syncs with the host cannot be captured: the loop
+    raises rather than fall back to the eager loop."""
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.ops import control as C
+
+    ctl = C.new_ctl(card)
+    C.init_ctl(ctl, 4)
+
+    def step():
+        if bool(ctl[C.LIVE]):  # a host read: refused under capture
+            K.loop_control(ctl)
+
+    loop = L.BlockLoop((ctl,), step, k=2)
+    with pytest.raises(RuntimeError):
+        loop.run(True)
