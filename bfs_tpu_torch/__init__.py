@@ -1,42 +1,67 @@
-"""bfs_tpu_torch — the relay BFS engine in PyTorch, with hand-written CUDA
+"""bfs_tpu_torch — the BFS engines in PyTorch, with hand-written CUDA
 kernels for NVIDIA Hopper.
 
 The port of the JAX package ``bfs_tpu`` (which stays the reference): the
-same host layout, byte for byte, and the same ``dist``/``parent``/
-``num_levels``, bit for bit.  It imports torch and numpy, never jax and
-nothing of ``bfs_tpu``.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+same host layouts, byte for byte, and the same ``dist``/``parent``/
+``num_levels``, bit for bit, on the pull (the default), push and relay
+engines.  It imports torch and numpy, never jax and nothing of
+``bfs_tpu``.  Entry points run on the card unless the caller passes
+``device="cpu"``.  The command-line entry points are
+``python -m bfs_tpu_torch.runners.run_parallel`` and
+``python -m bfs_tpu_torch.runners.run_sequential``.
 """
 
+from .config import ServiceConfiguration
 from .graph.adj_tiles import AdjTiles
-from .graph.csr import INF_DIST, NO_PARENT, Graph
+from .graph.csr import INF_DIST, NO_PARENT, DeviceGraph, Graph, build_device_graph
+from .graph.ell import PullGraph, build_pull_graph
 from .graph.generators import gnm_graph, path_graph, rmat_graph
 from .graph.io import read_sedgewick
 from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
-from .models.bfs import BfsResult, RelayEngine, bfs
-from .models.multisource import MultiBfsResult, bfs_multi, collapse_multi_source
+from .graph.vertex import Color, Vertex, parse_state, path_to, serialize_state
+from .models.bfs import BfsResult, EdgeEngine, RelayEngine, SuperstepRunner, bfs
+from .models.multisource import (
+    MultiBfsResult,
+    bfs_multi,
+    bfs_multi_device,
+    collapse_multi_source,
+)
 from .ops.relay_mxu import resolve_expansion
-from .oracle.bfs import canonical_bfs, check
+from .oracle.bfs import canonical_bfs, check, queue_bfs
 
 __all__ = [
     "AdjTiles",
     "BfsResult",
+    "Color",
+    "DeviceGraph",
+    "EdgeEngine",
     "Graph",
     "INF_DIST",
     "MultiBfsResult",
     "NO_PARENT",
+    "PullGraph",
     "RelayEngine",
     "RelayGraph",
+    "ServiceConfiguration",
+    "SuperstepRunner",
+    "Vertex",
     "bfs",
     "bfs_multi",
+    "bfs_multi_device",
+    "build_device_graph",
+    "build_pull_graph",
     "build_relay_graph",
     "canonical_bfs",
     "check",
     "collapse_multi_source",
     "from_reference_layout",
     "gnm_graph",
+    "parse_state",
     "path_graph",
+    "path_to",
+    "queue_bfs",
     "read_sedgewick",
     "resolve_expansion",
     "rmat_graph",
+    "serialize_state",
 ]

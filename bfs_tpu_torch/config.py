@@ -1,0 +1,60 @@
+"""The ``service.properties`` layer: :func:`parse_properties` and
+:class:`ServiceConfiguration`, the port of ``bfs_tpu.config``'s properties
+half.
+
+A ``key=value`` file loaded once: the app name, the comma-separated
+problem files (``problemFiles``), the source, the superstep dumps and the
+checkpoint interval.  ``mesh-batch`` and ``mesh-graph`` are read as the
+reference reads them; the port's runners run on one card and ignore them.
+A missing or malformed file raises.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+
+def parse_properties(text: str) -> dict[str, str]:
+    """Java-properties subset: ``k=v`` lines, ``#``/``!`` comments,
+    whitespace-trimmed keys and values."""
+    out: dict[str, str] = {}
+    for raw in text.splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#") or line.startswith("!"):
+            continue
+        if "=" not in line:
+            raise ValueError(f"malformed properties line: {raw!r}")
+        k, _, v = line.partition("=")
+        out[k.strip()] = v.strip()
+    return out
+
+
+@dataclass(frozen=True)
+class ServiceConfiguration:
+    app_name: str = "BFS with MapReduce, TPU edition"
+    problem_files: tuple[str, ...] = ()
+    source: int = 0
+    mesh_batch: int = 1
+    mesh_graph: int = 0  # 0 = use all devices
+    dump_supersteps: bool = False
+    checkpoint_every: int = 0
+    work_dir: str = "."
+
+    @classmethod
+    def load(cls, path: str | os.PathLike) -> "ServiceConfiguration":
+        with open(path, "r") as f:
+            props = parse_properties(f.read())
+        files = tuple(
+            p.strip() for p in props.get("problemFiles", "").split(",") if p.strip()
+        )
+        return cls(
+            app_name=props.get("app-name", cls.app_name),
+            problem_files=files,
+            source=int(props.get("source", "0")),
+            mesh_batch=int(props.get("mesh-batch", "1")),
+            mesh_graph=int(props.get("mesh-graph", "0")),
+            dump_supersteps=props.get("dump-supersteps", "false").lower() == "true",
+            checkpoint_every=int(props.get("checkpoint-every", "0")),
+            work_dir=props.get("work-dir", os.path.dirname(os.fspath(path)) or "."),
+        )

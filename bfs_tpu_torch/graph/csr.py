@@ -1,7 +1,9 @@
-"""Graph container: flat directed edge arrays (int32) with a lazy CSR view.
+"""Graph containers: flat directed edge arrays (int32) with a lazy CSR
+view, and the push engine's padded edge form.
 
-The port's copy of ``bfs_tpu.graph.csr`` without the padded device form
-(only the push engine uses it).  Undirected inputs are stored
+The port's copy of ``bfs_tpu.graph.csr``, single-shard: a
+:class:`DeviceGraph` is byte for byte the reference's
+``build_device_graph(graph, num_shards=1)``.  Undirected inputs are stored
 bi-directed, both (u, v) and (v, u), as algs4's ``Graph.addEdge`` does.
 """
 
@@ -77,3 +79,61 @@ class Graph:
     def adj(self, v: int) -> np.ndarray:
         indptr, indices = self.csr()
         return indices[indptr[v] : indptr[v + 1]]
+
+
+@dataclass(frozen=True)
+class DeviceGraph:
+    """The push engine's edge arrays: sorted by ``(dst, src)``, padded to a
+    multiple of ``block`` with ``(sentinel, sentinel)`` edges, where
+    ``sentinel == V``.  State arrays have V+1 slots and slot V is never on
+    the frontier, so padded edges are inert without masks."""
+
+    num_vertices: int
+    num_edges: int  # real (unpadded) directed edges
+    src: np.ndarray  # int32[padded_edges]
+    dst: np.ndarray
+
+    @property
+    def padded_edges(self) -> int:
+        return int(self.src.size)
+
+    @property
+    def sentinel(self) -> int:
+        return self.num_vertices
+
+
+def pad_to_multiple(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _sorted_by_dst(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Edges sorted by (dst, src): the native radix sort for large inputs
+    when it builds, else ``np.lexsort``; both are the same stable order."""
+    from .native_gen import native_available, sort_edges_by_dst_native
+
+    if src.size > 100_000 and native_available():
+        return sort_edges_by_dst_native(src, dst)
+    order = np.lexsort((src, dst))
+    return src[order], dst[order]
+
+
+def build_device_graph(graph: Graph, *, block: int = 1024) -> DeviceGraph:
+    """Sort edges by destination and pad with sentinel edges to a multiple
+    of ``block``."""
+    src, dst = _sorted_by_dst(graph.src, graph.dst)
+    e = graph.num_edges
+    pad = pad_to_multiple(max(e, 1), block) - e
+    sentinel = np.full(pad, graph.num_vertices, dtype=np.int32)
+    return DeviceGraph(
+        num_vertices=graph.num_vertices,
+        num_edges=e,
+        src=np.concatenate([src, sentinel]),
+        dst=np.concatenate([dst, sentinel]),
+    )
+
+
+def unpad_edges(dg: DeviceGraph) -> tuple[np.ndarray, np.ndarray]:
+    """The real ``(src, dst)`` host arrays of a DeviceGraph, in stored
+    (dst-sorted) order."""
+    keep = dg.dst != dg.sentinel
+    return dg.src[keep], dg.dst[keep]

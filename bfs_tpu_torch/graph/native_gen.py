@@ -1,9 +1,10 @@
 """ctypes bindings for the native data loader (``native/graph_gen.cpp``).
 
 The subset the port's layout build and graph ingest use: native R-MAT,
-the counting/radix helpers of the relay layout build, and the Sedgewick
-parser.  Every entry point has a NumPy twin in :mod:`.relay`,
-:mod:`.generators` or :mod:`.io`; callers guard with
+the counting/radix helpers of the relay layout build, the (dst, src) edge
+sort of the push and pull layouts, and the Sedgewick parser.  Every entry
+point has a NumPy twin in :mod:`.relay`, :mod:`.csr`, :mod:`.generators`
+or :mod:`.io`; callers guard with
 :func:`native_available`, and both paths give the same bytes.
 """
 
@@ -48,6 +49,8 @@ def _register(lib: ctypes.CDLL) -> None:
     lib.mark_u8.argtypes = [ctypes.c_int64, _I32, _U8]
     lib.pad_identity_i32.restype = None
     lib.pad_identity_i32.argtypes = [ctypes.c_int64, _I32, _U8]
+    lib.sort_edges_by_dst.restype = None
+    lib.sort_edges_by_dst.argtypes = [ctypes.c_int64, _I32, _I32]
     lib.sedgewick_header.restype = ctypes.c_int64
     lib.sedgewick_header.argtypes = [ctypes.c_char_p, _I64, _I64]
     lib.sedgewick_edges.restype = ctypes.c_int64
@@ -166,6 +169,14 @@ def pad_identity_native(perm: np.ndarray, used: np.ndarray) -> None:
     assert perm.dtype == np.int32 and perm.flags.c_contiguous
     assert used.dtype == np.uint8 and used.flags.c_contiguous
     _lib().pad_identity_i32(perm.shape[0], perm, used)
+
+
+def sort_edges_by_dst_native(src, dst) -> tuple[np.ndarray, np.ndarray]:
+    """Stable sort of the (src, dst) pair arrays by (dst, src), in place on
+    contiguous int32 copies; returns the sorted arrays."""
+    src, dst = _i32(src).copy(), _i32(dst).copy()
+    _lib().sort_edges_by_dst(src.shape[0], src, dst)
+    return src, dst
 
 
 def read_sedgewick_native(path: str) -> tuple[int, np.ndarray, np.ndarray]:

@@ -1,6 +1,12 @@
-"""Single-source relay BFS on the card: :class:`RelayEngine` and :func:`bfs`.
+"""BFS on the card: :func:`bfs`, the engines :class:`RelayEngine` and
+:class:`EdgeEngine`, and :class:`SuperstepRunner`.
 
-The port of ``bfs_tpu.models.bfs`` for ``engine="relay"``.  The layout is
+The port of ``bfs_tpu.models.bfs``.  :func:`bfs` runs the pull engine by
+default, as the reference's does; :class:`EdgeEngine` holds the push and
+pull layouts, whose supersteps are plain torch ops on the same level loop;
+:class:`SuperstepRunner` steps any engine one superstep per call.
+
+The relay engine (``engine="relay"``): the layout is
 built on the host once (:func:`~bfs_tpu_torch.graph.relay.build_relay_graph`)
 and shipped to the device once; every superstep then runs five phases on
 the device:
@@ -52,7 +58,8 @@ import numpy as np
 import torch
 
 from ..graph.adj_tiles import build_adj_tiles_from_relay
-from ..graph.csr import Graph, INF_DIST
+from ..graph.csr import DeviceGraph, Graph, INF_DIST, build_device_graph
+from ..graph.ell import PullGraph, build_pull_graph, device_ell
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
 from ..ops import control as C
 from ..ops import relay as R
@@ -61,12 +68,29 @@ from ..ops import relay_elem as RE
 from ..ops import relay_mxu as RM
 from ..ops.packed import (
     INT32_MAX,
+    PACKED_MAX_LEVELS,
+    level_bits,
     packed_cap,
     packed_dist,
     packed_parent,
     packed_parent_fits,
     packed_rank_fits,
     packed_truncated,
+)
+from ..ops.pull import frontier_table, pull_candidates
+from ..ops.relax import (
+    BfsState,
+    PackedBfsState,
+    _batched_push_candidates,
+    _push_candidates,
+    apply_candidates,
+    apply_candidates_packed,
+    frontier_size,
+    init_batched_state,
+    init_packed_batched_state,
+    init_packed_state,
+    init_state,
+    unpack_bfs_state,
 )
 from ..ops.relay import slots_to_parent
 from . import loop as L
@@ -249,31 +273,38 @@ class RelayEngine:
         unpacked merge (torch ops)."""
         return R.apply_relay_candidates(st, self._cand_unpacked(st.fwords))
 
+    # -- stepped execution (SuperstepRunner) ----------------------------------
+
+    def init_state(self, source: int) -> R.RelayState:
+        """The unpacked carry of a search from ``source`` (an original id)
+        at iteration 0, in the relabeled space."""
+        rg = self.relay_graph
+        check_sources(rg.num_vertices, source)
+        return R.init_relay_state(rg.vr, int(rg.old2new[source]), self.device)
+
+    def step(self, st: R.RelayState) -> R.RelayState:
+        """One eager superstep of the unpacked carry, equal to
+        :meth:`superstep`.  While ``level + 1`` fits the packed level field,
+        the merge is the packed update (kernel ``packed_update`` on the
+        card) on words built from the carry: a reached vertex's word holds
+        its distance, below every candidate's level, and an unreached one
+        the sentinel; a vertex whose word leaves the sentinel takes its new
+        level and its candidate's parent."""
+        if not self.packed or st.level + 1 > PACKED_MAX_LEVELS:
+            return self.superstep(st)
+        rg = self.relay_graph
+        unreached = st.dist == INT32_MAX
+        words = torch.where(unreached, -1, level_bits(st.dist))
+        new = K.apply_relay_candidates_packed(
+            R.PackedRelayState(words, st.fwords, st.level, None), self._cand_packed(st.fwords))
+        if self.expansion == "mxu":
+            dist, parent = packed_dist(new.packed), packed_parent(new.packed)
+        else:
+            dist, parent = R.unpack_relay_packed(new.packed, rg.in_classes, rg.vr)
+        parent = torch.where(unreached & (new.packed != -1), parent, st.parent)
+        return R.RelayState(dist, parent, new.fwords, st.level + 1, new.changed)
+
     # -- the level loop -----------------------------------------------------
-
-    def _loop(self, st, step, cap: int):
-        """The eager loop, a host read of ``changed`` per level: the plain
-        version of the block loop (``loop = "eager"``)."""
-        stats = L.LoopStats()
-        changed = True
-        while changed and st.level < cap:
-            st = step(st)
-            changed = bool(st.changed)  # the one host read per level
-            stats.host_reads += 1
-            stats.issued += 1
-            stats.live += 1
-        stats.level, stats.changed = st.level, changed
-        return st, stats
-
-    def _block_loop(self, kind, make) -> L.BlockLoop:
-        """The engine's :class:`~bfs_tpu_torch.models.loop.BlockLoop` of one
-        carry kind at the current block size, made (buffers and step) by
-        ``make`` at first use."""
-        key = (kind, L.BLOCK)
-        loop = self._loops.get(key)
-        if loop is None:
-            loop = self._loops[key] = L.BlockLoop(*make(), k=L.BLOCK)
-        return loop
 
     def _empty(self, *shape) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.int32, device=self.device)
@@ -295,7 +326,7 @@ class RelayEngine:
 
             return (packed, fwords, ctl), step
 
-        return self._block_loop("packed", make)
+        return L.cached(self._loops, "packed", make)
 
     def _unpacked_loop(self) -> L.BlockLoop:
         """Unpacked carry ``(dist, parent, fwords, ctl)``: the candidates,
@@ -318,16 +349,7 @@ class RelayEngine:
 
             return (dist, parent, fwords, ctl), step
 
-        return self._block_loop("unpacked", make)
-
-    @staticmethod
-    def _start(carry, state, cap: int) -> bool:
-        """Start a run in a loop's carry: the tensors of a fresh ``state``
-        (its fields in the carry's order) copied in on the device, the
-        control block started with ``cap``; returns LIVE."""
-        for dst, src in zip(carry[:-1], state):
-            dst.copy_(src)
-        return C.init_ctl(carry[-1], cap)
+        return L.cached(self._loops, "unpacked", make)
 
     def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
         rg = self.relay_graph
@@ -352,7 +374,7 @@ class RelayEngine:
         if self.packed:
             cap = packed_cap(max_levels)
             if self.loop == "eager":
-                st, stats = self._loop(
+                st, stats = L.eager(
                     R.init_packed_relay_state(rg.vr, source_new, self.device),
                     self.superstep_packed, cap,
                 )
@@ -360,7 +382,7 @@ class RelayEngine:
             else:
                 loop = self._packed_loop()
                 init = R.init_packed_relay_state(rg.vr, source_new, self.device)
-                stats = loop.run(self._start(loop.buffers, init, cap))
+                stats = loop.run(L.start(loop.buffers, init, cap))
                 packed = loop.buffers[0]
             if not packed_truncated(stats.changed, stats.level, max_levels):
                 if self.expansion == "mxu":
@@ -370,7 +392,7 @@ class RelayEngine:
         # Deeper than the packed level field (or a rank too wide for it):
         # the unpacked carry has no level cap.
         if self.loop == "eager":
-            st, more = self._loop(
+            st, more = L.eager(
                 R.init_relay_state(rg.vr, source_new, self.device),
                 self.superstep, max_levels,
             )
@@ -378,7 +400,7 @@ class RelayEngine:
         else:
             loop = self._unpacked_loop()
             init = R.init_relay_state(rg.vr, source_new, self.device)
-            more = loop.run(self._start(loop.buffers, init, max_levels))
+            more = loop.run(L.start(loop.buffers, init, max_levels))
             dist, parent = loop.buffers[0], loop.buffers[1]
         return dist, parent, stats.add(more)
 
@@ -408,7 +430,7 @@ class RelayEngine:
         carries = []
         for s in sources.tolist():
             carry = tuple(torch.empty_like(b) for b in loop.buffers)
-            self._start(carry, init(rg.vr, int(rg.old2new[s]), self.device), cap)
+            L.start(carry, init(rg.vr, int(rg.old2new[s]), self.device), cap)
             carries.append(carry)
         # The control words as started (LEVEL 0, CHANGED 1), until read.
         ctls = [[int(w == C.CHANGED) for w in range(C.WORDS)] for _ in carries]
@@ -538,7 +560,7 @@ class RelayEngine:
 
             return (*carry, ctl), step
 
-        return self._block_loop(("elem", groups), make)
+        return L.cached(self._loops, ("elem", groups), make)
 
     def _run_elem(self, sources: np.ndarray, max_levels: int | None) -> RE.ElemState:
         rg = self.relay_graph
@@ -558,7 +580,7 @@ class RelayEngine:
         sources_new = rg.old2new[sources].reshape(groups, 32)
         _, pt = RE.rank_plane_layout(rg.in_classes)
         if self.loop == "eager":
-            st, stats = self._loop(
+            st, stats = L.eager(
                 RE.init_elem_state(rg.vr, sources_new, pt, self.device), self.superstep_elem,
                 max_levels,
             )
@@ -640,16 +662,261 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     return [h.numpy() for h in host]
 
 
+class EdgeEngine:
+    """Device-resident push or pull layout + the level loop
+    (``engine='push'|'pull'``).
+
+    ``__init__`` builds the layout unless given one (a
+    :class:`~bfs_tpu_torch.graph.csr.DeviceGraph` for push, a
+    :class:`~bfs_tpu_torch.graph.ell.PullGraph` or a DeviceGraph for pull)
+    and ships it to ``device`` once.  :meth:`run` runs one source,
+    :meth:`run_multi` a batch in lock-step; :meth:`fused` is the loop
+    itself, the counterpart of the reference's ``_bfs_fused``,
+    ``_bfs_pull_fused``, ``_bfs_multi_fused`` and ``_bfs_multi_pull_fused``.
+    The packed carry runs when ``packed_parent_fits(V)``; a search that
+    stops on its 62-level cap is re-run on the unpacked carry.
+
+    The supersteps are plain torch ops (XLA in the reference, no TPU
+    kernel): on a card the level loop captures blocks of them, gated by
+    the control block, in a CUDA graph, with the control step
+    ``loop_control`` ending each; ``loop = "eager"`` is the plain loop.
+    """
+
+    def __init__(self, graph, *, engine: str = "pull", device=None, block: int = 1024):
+        if engine not in ("push", "pull"):
+            raise ValueError(f"unknown engine {engine!r}; use 'push' or 'pull'")
+        self.device = resolve_device(device)
+        self.engine = engine
+        if engine == "pull":
+            pg = graph if isinstance(graph, PullGraph) else build_pull_graph(graph)
+            self.layout = pg
+            self.ell0, self.folds = device_ell(pg, self.device)
+        else:
+            if isinstance(graph, (PullGraph, RelayGraph)):
+                raise ValueError("engine='push' needs a Graph or DeviceGraph")
+            dg = graph if isinstance(graph, DeviceGraph) else build_device_graph(graph, block=block)
+            self.layout = dg
+            self.src = torch.from_numpy(dg.src).to(self.device)
+            self.dst = torch.from_numpy(dg.dst).to(self.device, torch.int64)
+        self.num_vertices = self.layout.num_vertices
+        self.packed = packed_parent_fits(self.num_vertices)
+        #: ``blocks`` (captured and replayed on a card) or ``eager``.
+        self.loop = "blocks"
+        self._loops: dict = {}
+        #: Host seconds and loop counts of the last run, as on RelayEngine.
+        self.last_run: dict = {}
+
+    def candidates(self, state) -> torch.Tensor:
+        """Min active in-neighbour per vertex (INT32_MAX where none),
+        ``[..., V+1]``."""
+        if self.engine == "pull":
+            return pull_candidates(frontier_table(state), self.ell0, self.folds)
+        f = state.frontier
+        push = _batched_push_candidates if f.dim() == 2 else _push_candidates
+        return push(f, self.src, self.dst, f.shape[-1])
+
+    def superstep(self, state, ctl: torch.Tensor | None = None):
+        """One superstep of either carry, single or batched (gated by
+        ``ctl`` in the block loop)."""
+        if isinstance(state, PackedBfsState):
+            return apply_candidates_packed(state, self.candidates(state), ctl)
+        return apply_candidates(state, self.candidates(state), ctl)
+
+    def _carry_loop(self, packed: bool, trees: int | None) -> L.BlockLoop:
+        """The block loop of one carry kind for a single search (``trees``
+        None) or a batch of ``trees``: the gated superstep, its fields
+        copied into the carry, its flag raised, then the control step."""
+        shape = (self.num_vertices + 1,) if trees is None else (trees, self.num_vertices + 1)
+
+        def make():
+            def buf(dtype):
+                return torch.empty(shape, dtype=dtype, device=self.device)
+
+            ctl = C.new_ctl(self.device)
+            if packed:
+                fields = (buf(torch.int32), buf(torch.bool))
+                state = PackedBfsState(*fields, None, None)
+            else:
+                fields = (buf(torch.int32), buf(torch.int32), buf(torch.bool))
+                state = BfsState(*fields, None, None)
+
+            def step():
+                new = self.superstep(state, ctl)
+                for dst, src in zip(fields, new):
+                    dst.copy_(src)
+                C.raise_flag(ctl, new.changed)
+                K.loop_control(ctl)
+
+            return (*fields, ctl), step
+
+        return L.cached(self._loops, ("packed" if packed else "unpacked", trees), make)
+
+    def _packed_loop(self) -> L.BlockLoop:
+        return self._carry_loop(True, None)
+
+    def fused(self, sources, max_levels: int, packed: bool):
+        """The level loop from one source (an int) or a batch (a sequence):
+        ``(BfsState, LoopStats)``, the state unpacked, on the device, with
+        ``level`` a host int and ``changed`` a host bool.  On the block
+        loop an unpacked state's tensors are the loop's buffers: read them
+        before the next run."""
+        single = isinstance(sources, (int, np.integer))
+        v = self.num_vertices
+        if packed:
+            init = init_packed_state(v, sources, self.device) if single else \
+                init_packed_batched_state(v, sources, self.device)
+            cap = packed_cap(max_levels)
+        else:
+            init = init_state(v, sources, self.device) if single else \
+                init_batched_state(v, sources, self.device)
+            cap = max_levels
+        if self.loop == "eager":
+            st, stats = L.eager(init, self.superstep, cap)
+        else:
+            loop = self._carry_loop(packed, None if single else len(sources))
+            stats = loop.run(L.start(loop.buffers, init, cap))
+            st = type(init)(*loop.buffers[:-1], None, None)
+        if packed:
+            st = unpack_bfs_state(st)
+        return st._replace(level=stats.level, changed=stats.changed), stats
+
+    def _search(self, sources, max_levels: int):
+        """:meth:`fused` on the engine's carry, re-run unpacked past the
+        packed cap; the stats of both runs summed."""
+        st, stats = self.fused(sources, max_levels, self.packed)
+        if self.packed and packed_truncated(stats.changed, stats.level, max_levels):
+            st, more = self.fused(sources, max_levels, False)
+            stats = stats.add(more)
+        return st, stats
+
+    def _host_run(self, sources, max_levels: int | None):
+        """``(dist, parent, num_levels)`` on the host for one source (an
+        int) or a batch (a list), with :attr:`last_run` set."""
+        v = self.num_vertices
+        check_sources(v, sources)
+        max_levels = int(max_levels) if max_levels is not None else v
+        t0 = time.perf_counter()
+        st, stats = self._search(sources, max_levels)
+        t1 = time.perf_counter()
+        dist, parent = to_host(st.dist[..., :v].contiguous(), st.parent[..., :v].contiguous())
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats)}
+        return dist, parent, stats.level
+
+    def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
+        return BfsResult(*self._host_run(int(source), max_levels))
+
+    def run_multi_device(self, sources, *, max_levels: int | None = None,
+                         packed: bool | None = None) -> BfsState:
+        """The batched loop's device state ``[S, V+1]`` (unpacked), no host
+        transfer beyond the control block; ``packed=None`` takes the
+        engine's carry, and a packed run stopped by its cap comes back with
+        ``changed`` set (:meth:`run_multi` re-runs it)."""
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        check_sources(self.num_vertices, sources)
+        max_levels = int(max_levels) if max_levels is not None else self.num_vertices
+        st, stats = self.fused(sources.tolist(), max_levels, self.packed if packed is None else packed)
+        self.last_run = vars(stats)
+        return st
+
+    def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
+        """Lock-step batched BFS with host results; every tree equals its
+        single-source search."""
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        return MultiBfsResult(sources, *self._host_run(sources.tolist(), max_levels))
+
+
 def bfs(
-    graph: Graph | RelayGraph,
+    graph: Graph | DeviceGraph | PullGraph | RelayGraph,
     source: int = 0,
     *,
-    engine: str = "relay",
+    engine: str = "pull",
     device=None,
     max_levels: int | None = None,
+    block: int = 1024,
 ) -> BfsResult:
-    """Single-source BFS on the relay engine; on the card unless ``device``
-    names the CPU."""
-    if engine != "relay":
-        raise ValueError(f"unknown engine {engine!r}; this port runs 'relay'")
-    return RelayEngine(graph, device=device).run(source, max_levels=max_levels)
+    """Single-source BFS on the card unless ``device`` names the CPU.
+
+    Engines (same results, bit for bit): ``'pull'`` (default, as in the
+    reference), the ELL gather/row-min formulation; ``'push'``, the
+    segmented-min formulation; ``'relay'``, the Beneš layout with the
+    hand-written kernels.  A prebuilt layout skips its build: a
+    :class:`PullGraph` runs only on pull, a :class:`RelayGraph` only on
+    relay."""
+    if engine not in ("pull", "push", "relay"):
+        raise ValueError(f"unknown engine {engine!r}; use 'relay', 'pull' or 'push'")
+    if isinstance(graph, PullGraph) and engine != "pull":
+        raise ValueError("a prebuilt PullGraph only runs on engine='pull'")
+    if isinstance(graph, RelayGraph) and engine != "relay":
+        raise ValueError("a prebuilt RelayGraph only runs on engine='relay'")
+    if engine == "relay":
+        return RelayEngine(graph, device=device).run(source, max_levels=max_levels)
+    eng = EdgeEngine(graph, engine=engine, device=device, block=block)
+    return eng.run(source, max_levels=max_levels)
+
+
+class SuperstepRunner:
+    """Stepped execution, one superstep per call, on any engine: the
+    observable path (per-superstep time, frontier sizes, state dumps,
+    checkpoints).  ``engine``: ``'push'`` (default, as in the reference),
+    ``'pull'`` or ``'relay'``.  Each step runs eagerly on the engine's
+    device; the caller reads ``changed`` between steps.
+
+    For relay the state lives in the RELABELED vertex space (the unpacked
+    :class:`~bfs_tpu_torch.ops.relay.RelayState`); :meth:`to_original` maps
+    any state to original-id host arrays and is the identity for push and
+    pull.  Frontier sizes and levels are permutation-invariant."""
+
+    def __init__(self, graph, *, engine: str = "push", device=None, block: int = 1024):
+        self.engine = engine
+        if engine in ("push", "pull"):
+            self._edges = EdgeEngine(graph, engine=engine, device=device, block=block)
+            self.device = self._edges.device
+            self.num_vertices = self._edges.num_vertices
+        elif engine == "relay":
+            self._relay = RelayEngine(graph, device=device)
+            self.device = self._relay.device
+            self.num_vertices = self._relay.relay_graph.num_vertices
+        else:
+            raise ValueError(f"unknown engine {engine!r}; use 'push', 'pull' or 'relay'")
+
+    def init(self, source: int = 0):
+        check_sources(self.num_vertices, source)
+        if self.engine == "relay":
+            return self._relay.init_state(source)
+        return init_state(self.num_vertices, int(source), self.device)
+
+    def step(self, state):
+        if self.engine == "relay":
+            return self._relay.step(state)
+        return self._edges.superstep(state)
+
+    def frontier_size(self, state) -> int:
+        if self.engine == "relay":
+            return int(R.unpack_std(state.fwords, self._relay.relay_graph.vr).sum())
+        return int(frontier_size(state))
+
+    def to_original(self, state, *, source: int | None = None):
+        """Host ``(dist, parent, frontier)`` in ORIGINAL vertex ids.
+        ``source`` (an original id) is required for relay: the source's
+        self-parent is written in relabeled space."""
+        if self.engine != "relay":
+            v = self.num_vertices
+            return tuple(t[:v].cpu().numpy() for t in (state.dist, state.parent, state.frontier))
+        if source is None:
+            raise ValueError("to_original requires source= for the relay engine")
+        eng = self._relay
+        dist, parent = eng._map_original_device(state.dist, state.parent, source)
+        bits = R.unpack_std(state.fwords, eng.relay_graph.vr)[eng.old2new] != 0
+        return tuple(t.cpu().numpy() for t in (dist, parent, bits))
+
+    def run(self, source: int = 0, *, max_levels: int | None = None, observer=None) -> BfsResult:
+        """Run to termination; ``observer(level, state)`` is called after
+        each superstep."""
+        state = self.init(source)
+        limit = max_levels if max_levels is not None else self.num_vertices
+        while bool(state.changed) and int(state.level) < limit:
+            state = self.step(state)
+            if observer is not None:
+                observer(int(state.level), state)
+        dist, parent, _ = self.to_original(state, source=source)
+        return BfsResult(dist=dist, parent=parent, num_levels=int(state.level))

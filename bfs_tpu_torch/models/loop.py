@@ -163,6 +163,44 @@ class BlockLoop:
             dst.copy_(src)
 
 
+def cached(loops: dict, kind, make) -> BlockLoop:
+    """The :class:`BlockLoop` of one carry kind at the current :data:`BLOCK`
+    in an engine's ``loops``, made (buffers and step) by ``make`` at first
+    use."""
+    key = (kind, BLOCK)
+    loop = loops.get(key)
+    if loop is None:
+        loop = loops[key] = BlockLoop(*make(), k=BLOCK)
+    return loop
+
+
+def start(carry: tuple[torch.Tensor, ...], state, cap: int) -> bool:
+    """Start a run in a loop's carry: the tensors of a fresh ``state`` (its
+    fields in the carry's order) copied in on the device, the control block
+    started with ``cap``; returns LIVE."""
+    for dst, src in zip(carry[:-1], state):
+        dst.copy_(src)
+    return C.init_ctl(carry[-1], cap)
+
+
+def eager(state, step: Callable, cap: int):
+    """The plain version of the block loop: ``state = step(state)`` while
+    the last superstep changed something and fewer than ``cap`` levels ran,
+    with a host read of ``changed`` per level.  Returns ``(state,
+    LoopStats)``."""
+    stats = LoopStats()
+    changed = True
+    while changed and stats.level < cap:
+        state = step(state)
+        changed = bool(state.changed)  # the one host read per level
+        stats.level += 1
+        stats.host_reads += 1
+        stats.issued += 1
+        stats.live += 1
+    stats.changed = changed
+    return state, stats
+
+
 def read_ctls(ctls: list[torch.Tensor], stats: LoopStats) -> list[list[int]]:
     """Control blocks on the host in one read: stacked on the device, one
     pinned copy and one wait on a card; a plain read on the CPU."""

@@ -1,10 +1,13 @@
-"""Batched multi-source BFS: :class:`MultiBfsResult`, :func:`bfs_multi` and
-:func:`collapse_multi_source`.
+"""Batched multi-source BFS: :class:`MultiBfsResult`, :func:`bfs_multi`,
+:func:`bfs_multi_device` and :func:`collapse_multi_source`.
 
-The port of the relay half of ``bfs_tpu.models.multisource``.  The engine
-work lives on :class:`~bfs_tpu_torch.models.bfs.RelayEngine`
-(``run_multi_elem``, the element-major batch on the card, and
-``run_multi``, the lock-step form).
+The port of ``bfs_tpu.models.multisource`` without the direction and
+telemetry variants.  The engine work lives on
+:class:`~bfs_tpu_torch.models.bfs.EdgeEngine` (push and pull: one
+lock-step loop over ``[S, V+1]`` carries, the reference's
+``_bfs_multi_fused`` and ``_bfs_multi_pull_fused``) and
+:class:`~bfs_tpu_torch.models.bfs.RelayEngine` (``run_multi_elem``, the
+element-major batch on the card, and ``run_multi``, the lock-step form).
 """
 
 from __future__ import annotations
@@ -27,17 +30,34 @@ class MultiBfsResult:
     num_levels: int
 
 
-def bfs_multi(graph, sources, *, engine: str = "relay", device=None,
-              max_levels: int | None = None) -> MultiBfsResult:
-    """Batched multi-source BFS on the relay engine (lock-step trees,
-    :meth:`RelayEngine.run_multi`); on the card unless ``device`` names the
-    CPU.  Each tree equals its single-source search bit for bit."""
-    from .bfs import RelayEngine  # bfs.py imports this module
+def bfs_multi_device(graph, sources, *, engine: str = "pull", device=None,
+                     max_levels: int | None = None, block: int = 1024,
+                     packed: bool | None = None):
+    """The device half of :func:`bfs_multi` for pull and push: ``(state,
+    V)``, the batched :class:`~bfs_tpu_torch.ops.relax.BfsState` on the
+    device.  ``packed=None`` runs the packed carry when parent ids fit;
+    a run stopped by its 62-level cap then comes back with ``changed``
+    set, which raw callers test themselves."""
+    from .bfs import EdgeEngine  # bfs.py imports this module
 
-    if engine != "relay":
-        raise ValueError(f"unknown engine {engine!r}; this port runs 'relay'")
+    eng = EdgeEngine(graph, engine=engine, device=device, block=block)
+    return eng.run_multi_device(sources, max_levels=max_levels, packed=packed), eng.num_vertices
+
+
+def bfs_multi(graph, sources, *, engine: str = "pull", device=None,
+              max_levels: int | None = None, block: int = 1024) -> MultiBfsResult:
+    """Batched multi-source BFS on one card unless ``device`` names the
+    CPU.  Engines as in :func:`~bfs_tpu_torch.models.bfs.bfs`: ``'pull'``
+    (default, as in the reference), ``'push'``, or ``'relay'``
+    (:meth:`RelayEngine.run_multi`).  Each tree equals its single-source
+    search bit for bit; the packed carry is re-run unpacked past its cap."""
+    from .bfs import EdgeEngine, RelayEngine  # bfs.py imports this module
+
     sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
-    return RelayEngine(graph, device=device).run_multi(sources, max_levels=max_levels)
+    if engine == "relay":
+        return RelayEngine(graph, device=device).run_multi(sources, max_levels=max_levels)
+    eng = EdgeEngine(graph, engine=engine, device=device, block=block)
+    return eng.run_multi(sources, max_levels=max_levels)
 
 
 def collapse_multi_source(result: MultiBfsResult):

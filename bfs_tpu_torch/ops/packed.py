@@ -14,9 +14,10 @@ field).  A search that reaches that cap is re-run on the unpacked carry
 (:func:`packed_truncated`).
 
 In torch the words are stored as ``int32`` bit patterns (the CUDA side
-reads them as ``uint32``); the helpers here widen to ``int64 & 0xFFFFFFFF``
-for shifts, mins and compares, where a signed view would put the
-sentinel (-1) below every word.
+reads them as ``uint32``).  Unsigned shifts, mins and compares either widen
+to ``int64 & 0xFFFFFFFF`` (:func:`u32`) or stay in int32 with the sign bit
+flipped or masked (:func:`merge_packed`, :func:`packed_dist`), where a
+signed view would put the sentinel (-1) below every word.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ PACKED_SENTINEL = 0xFFFFFFFF
 PACKED_MAX_LEVELS = (1 << LEVEL_BITS) - 2  # 62
 
 U32 = 0xFFFFFFFF
+_SIGN = -(1 << 31)
 
 
 def u32(x: torch.Tensor) -> torch.Tensor:
@@ -81,16 +83,25 @@ def level_word(level: int) -> int:
 
 
 def packed_dist(packed: torch.Tensor) -> torch.Tensor:
-    """int32 distances from packed words (INT32_MAX where unreached)."""
-    w = u32(packed)
-    return torch.where(
-        w == PACKED_SENTINEL, torch.full_like(w, INT32_MAX), w >> PARENT_BITS
-    ).to(torch.int32)
+    """int32 distances from packed words (INT32_MAX where unreached); int32
+    arithmetic throughout (the level field masked after the shift)."""
+    level = (packed >> PARENT_BITS) & ((1 << LEVEL_BITS) - 1)
+    return torch.where(packed == -1, INT32_MAX, level)
 
 
 def packed_parent(packed: torch.Tensor) -> torch.Tensor:
     """int32 parent field from packed words (-1 where unreached)."""
-    w = u32(packed)
-    return torch.where(
-        w == PACKED_SENTINEL, torch.full_like(w, -1), w & PARENT_MASK
-    ).to(torch.int32)
+    return torch.where(packed == -1, -1, packed & PARENT_MASK)
+
+
+def level_bits(level: torch.Tensor) -> torch.Tensor:
+    """The level field of a device ``level`` (a 0-d int tensor) as an int32
+    bit pattern, without a host read."""
+    return i32((level.to(torch.int64) << PARENT_BITS) & U32)
+
+
+def merge_packed(packed: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """THE packed state update: the unsigned ``min(packed, cand)`` of int32
+    bit patterns (flipping the sign bit maps unsigned order onto signed)."""
+    return torch.where((packed ^ _SIGN) <= (cand ^ _SIGN), packed, cand)
+

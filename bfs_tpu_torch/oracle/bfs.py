@@ -1,5 +1,7 @@
 """Sequential BFS oracle: the port's host-side correctness anchor.
 
+  * :func:`queue_bfs` — algs4's FIFO-queue BFS, first-discovery parents
+    (the sequential runner's oracle).
   * :func:`canonical_bfs` — level-synchronous BFS whose parent choice is
     the canonical *minimum* frontier neighbour, the rule every engine of
     both packages implements, so distances AND parents compare bit for
@@ -12,13 +14,14 @@ Both run on the host in NumPy, independent of the engine under test.
 
 from __future__ import annotations
 
+from collections import deque
 from collections.abc import Sequence
 
 import numpy as np
 
 from ..graph.csr import Graph, INF_DIST, NO_PARENT
 
-__all__ = ["canonical_bfs", "check"]
+__all__ = ["canonical_bfs", "check", "queue_bfs"]
 
 
 def _sources_array(sources: int | Sequence[int], num_vertices: int) -> np.ndarray:
@@ -46,6 +49,32 @@ def _edges_by_dst(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
         return graph.src[order], graph.dst[order]
 
     return _cached(graph, "_oracle_by_dst", make)
+
+
+def queue_bfs(graph: Graph, sources: int | Sequence[int] = 0):
+    """FIFO-queue BFS: ``(dist int32[V], parent int32[V])`` with algs4's
+    first-discovery parents (enqueue order over the sorted adjacency);
+    sources are their own parents."""
+    v = graph.num_vertices
+    srcs = _sources_array(sources, v)
+    indptr, indices = graph.csr()
+    dist = np.full(v, INF_DIST, dtype=np.int32)
+    parent = np.full(v, NO_PARENT, dtype=np.int32)
+    q = deque()
+    for s in srcs:  # a multi-source search seeds the queue with every source
+        if dist[s] != 0:
+            dist[s] = 0
+            parent[s] = s
+            q.append(int(s))
+    while q:
+        u = q.popleft()
+        for w in indices[indptr[u] : indptr[u + 1]]:
+            w = int(w)
+            if parent[w] == NO_PARENT:
+                parent[w] = u
+                dist[w] = dist[u] + 1
+                q.append(w)
+    return dist, parent
 
 
 def canonical_bfs(graph: Graph, sources: int | Sequence[int] = 0):

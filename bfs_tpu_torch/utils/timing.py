@@ -1,6 +1,9 @@
-"""Timing on the card, shared by ``chip_smoke.py`` and the tools.
+"""Timing: the reference's :class:`Stopwatch` (the runners' per-superstep
+clock), and the card timing helpers shared by ``chip_smoke.py`` and the
+tools.
 
-Nothing here runs at import time; every function needs a CUDA device.
+Nothing here runs at import time; every function but the Stopwatch needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -15,6 +18,59 @@ import torch
 #: host time per wrapper call, 28 launches per superstep at most).
 SLEEP_CYCLES = 8_000_000
 _FLUSH: list[torch.Tensor] = []
+
+
+class Stopwatch:
+    """``start``/``stop`` accumulate; ``elapsed_s`` is the total in seconds
+    (Guava ``Stopwatch`` as the reference's runners use it).  With a CUDA
+    ``device``, ``stop`` first waits for the device, so a span around a
+    superstep holds the device's time and not only its launch."""
+
+    def __init__(self, device=None):
+        self._acc = 0.0
+        self._started_at: float | None = None
+        self._cuda = device is not None and torch.device(device).type == "cuda"
+
+    @classmethod
+    def create_started(cls, device=None) -> "Stopwatch":
+        return cls(device).start()
+
+    def start(self) -> "Stopwatch":
+        if self._started_at is not None:
+            raise RuntimeError("stopwatch already running")
+        self._started_at = time.perf_counter()
+        return self
+
+    def stop(self) -> "Stopwatch":
+        if self._started_at is None:
+            raise RuntimeError("stopwatch not running")
+        if self._cuda:
+            torch.cuda.synchronize()
+        self._acc += time.perf_counter() - self._started_at
+        self._started_at = None
+        return self
+
+    def reset(self) -> "Stopwatch":
+        self._acc = 0.0
+        self._started_at = None
+        return self
+
+    @property
+    def running(self) -> bool:
+        return self._started_at is not None
+
+    @property
+    def elapsed_s(self) -> float:
+        extra = time.perf_counter() - self._started_at if self.running else 0.0
+        return self._acc + extra
+
+    def __str__(self) -> str:  # Guava's human form, "342.8 ms"
+        s = self.elapsed_s
+        if s >= 1.0:
+            return f"{s:.3f} s"
+        if s >= 1e-3:
+            return f"{s * 1e3:.3f} ms"
+        return f"{s * 1e6:.1f} us"
 
 
 def card_line() -> str:

@@ -28,11 +28,23 @@ then timed (one ``elem_frontier_interleave``, one ``elem_route_gather`` and
 one ``elem_rowmin_update`` per superstep, no K5 launch), traced, and every tree checked against the port's
 single-source search (and four against the oracle); then the route index
 against the one the plain networks build, and every element-major kernel
-against its plain version at the layout's real shapes.  Small graphs close the run: tinyCG (the paper's worked
-example) and a 100-vertex path (deeper than the packed carry's 62 levels, so
-it takes the unpacked re-run, on both expansion arms; with 32 sources,
-deeper than the 31 levels of the elem distance planes, so it takes the
-lock-step fallback).
+against its plain version at the layout's real shapes.  The push and pull
+engines follow on the same graph: their layouts built on the host (timed),
+``EdgeEngine.run`` for the same 4 roots on the captured loop and the eager
+loop, each result equal to ``canonical_bfs`` and to the relay engine's,
+each superstep's device time beside its byte bound, the pull batch of the
+same 64 sources and the push batch of the first ``PUSH_BATCH`` of them
+(every tree equal to the relay batch's), ``SuperstepRunner`` on push, pull
+and relay for the max-degree root (each step timed by the
+device-synchronised ``Stopwatch``, the final state equal to the fused
+result, the relay runner's K1–K4 launches counted against its steps), and
+the command-line runners ``run_parallel`` (stepped push, ``--fused`` pull,
+stepped relay) and ``run_sequential`` on ``service.properties``.  Small
+graphs close the run: tinyCG (the paper's worked example) on the relay and
+the default (pull) engine, and a 100-vertex path (deeper than the packed
+carry's 62 levels, so it takes the unpacked re-run, on both expansion arms
+and on push and pull; with 32 sources, deeper than the 31 levels of the
+elem distance planes, so it takes the lock-step fallback).
 
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
@@ -97,6 +109,14 @@ LOOP_KERNELS = ("elem_frontier_interleave", "elem_route_gather", "elem_rowmin_up
 GATHER_STEP = {"benes_outer_pass": 4, "benes_local_pass": 2, "class_rowmin": 1,
                "packed_update": 1, "loop_control": 1}
 MXU_STEP = {"mxu_expand": 1, "packed_update": 1, "loop_control": 1}
+# A push or pull superstep is torch ops (XLA in the reference, no TPU
+# kernel); of the port's kernels its block loop launches the control step.
+EDGE_STEP = {"loop_control": 1}
+# The relay SuperstepRunner's eager step: both networks, the row-min and
+# the packed update, no control step.
+RELAY_RUNNER_STEP = {k: v for k, v in GATHER_STEP.items() if k != "loop_control"}
+# bfs_multi(engine="push") runs the first PUSH_BATCH sources of the batch.
+PUSH_BATCH = 64
 
 
 def log(msg: str) -> None:
@@ -1043,7 +1063,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
     log("trees 0, 31, 32, 63: oracle-exact, check() clean")
     return dict(launches={k: first[k] for k in ELEM_REPLACES}, secs=secs, eager_secs=esecs, levels=level, peak=peak,
                 eager_peak=epeak, run=run, idle=idle, dead_ms=dead, splits=splits,
-                staged_s=staged_s, table=table)
+                staged_s=staged_s, table=table, result=res)
 
 
 def staged_extract(eng, sources, RE, keep: list) -> float:
@@ -1304,6 +1324,222 @@ def small_mxu_checks(P, tiny, K) -> None:
     small_path_check(P, K, "mxu")
 
 
+# ------------------------------------------------------- push and pull engines --
+
+def edge_layouts(g, P) -> tuple:
+    """The push engine's DeviceGraph and the pull engine's PullGraph (from
+    the DeviceGraph, so the edges are sorted once), with host seconds."""
+    t0 = time.perf_counter()
+    dg = P.build_device_graph(g)
+    t_dg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pg = P.build_pull_graph(dg)
+    t_pg = time.perf_counter() - t0
+    log(f"push layout: DeviceGraph built in {t_dg:.3f} s on the host, {dg.padded_edges} padded "
+        f"edges; pull layout: PullGraph built in {t_pg:.3f} s from it, ell0 {pg.ell0.shape}, "
+        f"folds {[f.shape for f in pg.folds]}, {pg.padded_slots} slots")
+    return dg, pg, {"device_graph_s": t_dg, "pull_graph_s": t_pg}
+
+
+def superstep_bytes(eng) -> int:
+    """Bytes a push or pull superstep must move on one tree: the layout read
+    once (ELL levels; src int32 and dst int64 as stored), the frontier
+    table (pull) or the candidate array (push) written once, and the packed
+    carry (int32 words, bool frontier) read and written once."""
+    n = eng.num_vertices + 1
+    if eng.engine == "pull":
+        layout = sum(t.numel() * t.element_size() for t in (eng.ell0, *eng.folds))
+    else:
+        layout = eng.src.numel() * 4 + eng.dst.numel() * 8
+    return layout + 4 * n + 2 * 5 * n
+
+
+def superstep_table(label: str, eng, root: int) -> dict:
+    """Every superstep of ``root``'s search on the packed carry, stepped
+    eagerly: device ms of each (``cold_ms``: L2 flushed, launches hidden
+    behind a device sleep, mean of 3) beside the byte bound at 3.35 TB/s."""
+    from bfs_tpu_torch.ops.relax import init_packed_state
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    st = init_packed_state(eng.num_vertices, root, eng.device)
+    nbytes = superstep_bytes(eng)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rows = []
+    while True:
+        front = int(st.frontier.sum())
+        ms = cold_ms(lambda: eng.superstep(st), reps=3, warm=1)
+        st = eng.superstep(st)
+        rows.append(dict(level=len(rows) + 1, frontier=front, ms=ms))
+        if not bool(st.changed):
+            break
+    dense = max(rows, key=lambda r: r["ms"])
+    log(f"{label} supersteps from root {root} (device ms, cold, mean of 3; frontier at entry): "
+        + ", ".join(f"{r['level']}: {r['ms']:.4f} ({r['frontier']})" for r in rows)
+        + f"; byte bound {bound:.4f} ms ({nbytes} bytes at 3.35 TB/s); slowest "
+        f"{dense['ms']:.4f} ms = {dense['ms'] / bound:.1f}x the bound")
+    return dict(rows=rows, bound_ms=bound, bytes=nbytes, max_ms=dense["ms"],
+                mean_ms=sum(r["ms"] for r in rows) / len(rows))
+
+
+def edge_search_phase(label: str, eng, roots, want: dict, K, L) -> dict:
+    """One engine's fused searches (``loop_phase``: captured against eager,
+    traced, the dead superstep), each result equal to ``canonical_bfs``
+    and to the relay engine's bit for bit; then its superstep table."""
+    import numpy as np
+
+    res = loop_phase(label, eng, roots, EDGE_STEP, "loop_control", K, L)
+    for r in roots:
+        (dist, parent), relay = want[r]
+        got = res["results"][r]
+        if not (np.array_equal(got.dist, dist) and np.array_equal(got.parent, parent)):
+            raise AssertionError(f"{label} root {r}: result differs from canonical_bfs")
+        if not (np.array_equal(got.dist, relay.dist) and np.array_equal(got.parent, relay.parent)
+                and got.num_levels == relay.num_levels):
+            raise AssertionError(f"{label} root {r}: result differs from the relay engine's")
+    log(f"{label}: all {len(roots)} roots oracle-exact and equal to the relay engine's bit for bit")
+    res["steps"] = superstep_table(label, eng, roots[0])
+    return res
+
+
+def edge_batch_phase(label: str, eng, sources, relay, K) -> dict:
+    """``run_multi`` (what ``bfs_multi`` runs) on the captured loop: the
+    first call (captures the batch's block) and a timed one, each tree equal
+    to the relay batch's bit for bit (whose trees equal the single-source
+    searches, four of them ``canonical_bfs``)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_multi(sources)
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run_multi(sources)
+    secs = time.perf_counter() - t0
+    run, peak = dict(eng.last_run), torch.cuda.max_memory_allocated()
+    n = len(sources)
+    if not (np.array_equal(res.dist, relay.dist[:n]) and np.array_equal(res.parent, relay.parent[:n])):
+        raise AssertionError(f"{label}: a tree differs from the relay batch's")
+    if n == len(relay.sources) and res.num_levels != relay.num_levels:
+        raise AssertionError(f"{label}: {res.num_levels} levels, the relay batch {relay.num_levels}")
+    if K.LAUNCHES["loop_control"] != run["issued"] or run["live"] != res.num_levels:
+        raise AssertionError(f"{label}: {K.LAUNCHES['loop_control']} control steps, "
+                             f"{run['issued']} issued, {run['live']} live, {res.num_levels} levels")
+    log(f"{label}, {n} sources: first call (captures) {first_s:.6f} s; then {secs:.6f} s per "
+        f"batch (level loop {run['loop_s']:.6f} s, results {run['result_s']:.6f} s), "
+        f"{secs / n:.6f} s per tree, {res.num_levels} levels; host reads {run['host_reads']}, "
+        f"replays {run['replays']}, supersteps issued {run['issued']}, live {run['live']}; "
+        f"peak device memory {peak} bytes; every tree equal to the relay batch's")
+    return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res.num_levels)
+
+
+def runner_phase(layouts: dict, root: int, want: dict, K, P) -> dict:
+    """``SuperstepRunner`` on push, pull and relay from ``root``: each step
+    timed by the device-synchronised ``Stopwatch``, the final state in
+    original ids equal to the fused result; the relay runner's kernel
+    launches held to its per-step count times its steps."""
+    import numpy as np
+
+    from bfs_tpu_torch.utils.timing import Stopwatch
+
+    (dist, parent), relay = want[root]
+    out = {}
+    for engine, layout in layouts.items():
+        runner = P.SuperstepRunner(layout, engine=engine, device="cuda")
+        st = runner.init(root)
+        K.reset_launches()
+        sw, steps = Stopwatch("cuda"), []
+        while bool(st.changed):
+            sw.reset().start()
+            st = runner.step(st)
+            sw.stop()
+            steps.append(sw.elapsed_s)
+        got_d, got_p, _ = runner.to_original(st, source=root)
+        if not (np.array_equal(got_d, dist) and np.array_equal(got_p, parent)
+                and int(st.level) == relay.num_levels):
+            raise AssertionError(f"SuperstepRunner({engine}): final state differs from the fused result")
+        if engine == "relay":
+            want_launches = {k: v * len(steps) for k, v in RELAY_RUNNER_STEP.items()}
+            got = {k: K.LAUNCHES[k] for k in want_launches}
+            if got != want_launches:
+                raise AssertionError(f"relay runner: launches {got} in {len(steps)} steps, "
+                                     f"expected {want_launches}")
+        log(f"SuperstepRunner({engine}) root {root}: {len(steps)} steps, ms each (Stopwatch, "
+            "device-synchronised): " + ", ".join(f"{t * 1e3:.3f}" for t in steps)
+            + "; final state equal to the fused result"
+            + (f"; launches {got}" if engine == "relay" else ""))
+        out[engine] = steps
+        del runner, st
+    return out
+
+
+def cli_phase(K) -> None:
+    """The command-line runners in-process on ``service.properties``
+    (tinyCG and randomG): ``run_parallel`` stepped (push), ``--fused``
+    (pull) and stepped on relay, then ``run_sequential``; each ends with
+    ``check()`` and raises on a violation."""
+    from bfs_tpu_torch.runners import run_parallel, run_sequential
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    props = os.path.join(here, "service.properties")
+    cwd = os.getcwd()
+    os.chdir(here)  # the properties name their files relative to the checkout
+    try:
+        for argv in ([props], [props, "--fused"], [props, "--engine", "relay"]):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            run_parallel.main(argv)
+            launched = {k: v for k, v in K.LAUNCHES.items() if v}
+            if "--fused" in argv and not launched.get("loop_control"):
+                raise AssertionError("run_parallel --fused launched no control step")
+            if "relay" in argv and not launched.get("packed_update"):
+                raise AssertionError("run_parallel --engine relay launched no packed_update")
+            log(f"run_parallel {' '.join(argv[1:]) or '(stepped, push)'}: clean, check() clean, "
+                f"{time.perf_counter() - t0:.3f} s; launches {launched}")
+        run_sequential.main([props])
+        log("run_sequential: clean, check() clean")
+    finally:
+        os.chdir(cwd)
+
+
+def small_edge_checks(P, K, tiny) -> None:
+    """tinyCG on the default engine (pull), and path_graph(100) on push and
+    pull: 62 levels on the packed carry, stopped by its cap, then the
+    unpacked re-run to 100; the captured loop against the eager loop and
+    the oracle."""
+    import numpy as np
+
+    res = P.bfs(tiny, 0)
+    if (res.dist.tolist(), res.parent.tolist(), res.num_levels) != (
+        [0, 1, 1, 2, 2, 1], [0, 0, 0, 2, 2, 0], 3
+    ):
+        raise AssertionError(f"tinyCG pull: got {res.dist.tolist()} {res.parent.tolist()}")
+    log("tinyCG on bfs()'s default engine (pull): oracle-exact")
+    path = P.path_graph(100)
+    dist, parent = P.canonical_bfs(path, 0)
+    for engine in ("push", "pull"):
+        eng = P.EdgeEngine(path, engine=engine)
+        K.reset_launches()
+        res = eng.run(0)
+        run = dict(eng.last_run)
+        eng.loop = "eager"
+        eager = eng.run(0)
+        for name, d, p, levels in (("the oracle", dist, parent, 100),
+                                   ("the eager loop", eager.dist, eager.parent, eager.num_levels)):
+            if not (np.array_equal(res.dist, d) and np.array_equal(res.parent, p)
+                    and res.num_levels == levels):
+                raise AssertionError(f"path_graph(100) {engine}: the captured loop differs from {name}")
+        if run["live"] != 62 + 100 or K.LAUNCHES["loop_control"] != run["issued"]:
+            raise AssertionError(f"path_graph(100) {engine}: {run['live']} live supersteps, "
+                                 f"{K.LAUNCHES['loop_control']} control steps in {run['issued']} issued")
+        log(f"path_graph(100), {engine}: 62 packed levels then the unpacked re-run to 100 "
+            f"through the captured loops (host reads {run['host_reads']}, replays "
+            f"{run['replays']}, issued {run['issued']}, live {run['live']}); oracle-exact, equal "
+            "to the eager loop")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1407,7 +1643,7 @@ def main(argv=None) -> int:
     kres.update(mxu_kernel_phase(eng, meng, root0, K, R, RM, card))
     mxu = mxu_main_path(meng, g, roots, want, directed_traversed, K, P, L)
     launches.update({k: mxu["launches"][k] for k in MXU_REPLACES})
-    del meng, want
+    del meng
     torch.cuda.empty_cache()
 
     # ---- multi-source: the batch (its first call builds the route index),
@@ -1418,16 +1654,37 @@ def main(argv=None) -> int:
     launches.update(multi["launches"])
     kres.update(elem_kernel_phase(eng, sources, K, RE, card))
 
+    # ---- the push and pull engines: layouts, the fused searches (captured
+    # against eager), their supersteps against the byte bound, the batches,
+    # the stepped runners on all three engines and the command-line runners
+    dg, pg, edge_build = edge_layouts(g, P)
+    edge = {}
+    for engine, layout in (("pull", pg), ("push", dg)):
+        t0 = time.perf_counter()
+        eeng = P.EdgeEngine(layout, engine=engine)
+        torch.cuda.synchronize()
+        log(f"{engine} engine: layout shipped in {time.perf_counter() - t0:.2f} s")
+        edge[engine] = edge_search_phase(f"{engine} search", eeng, roots, want, K, L)
+        batch = sources if engine == "pull" else sources[:PUSH_BATCH]
+        edge[engine]["batch"] = edge_batch_phase(f"bfs_multi({engine})", eeng, batch,
+                                                 multi["result"], K)
+        del eeng
+        torch.cuda.empty_cache()
+    runners = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
+    del want
+    cli_phase(K)
+
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                          "test-sets", "tinyCG.txt"))
-    res = P.bfs(tiny, 0)
+    res = P.bfs(tiny, 0, engine="relay")
     if (res.dist.tolist(), res.parent.tolist(), res.num_levels) != (
         [0, 1, 1, 2, 2, 1], [0, 0, 0, 2, 2, 0], 3
     ):
         raise AssertionError(f"tinyCG: got {res.dist.tolist()} {res.parent.tolist()} {res.num_levels}")
-    log("tinyCG: dist [0,1,1,2,2,1], parents [0,0,0,2,2,0], 3 supersteps")
+    log("tinyCG on the relay engine: dist [0,1,1,2,2,1], parents [0,0,0,2,2,0], 3 supersteps")
     small_path_check(P, K, "gather")
+    small_edge_checks(P, K, tiny)
     small_mxu_checks(P, tiny, K)
     small_multi_checks(P, tiny)
 
@@ -1469,6 +1726,19 @@ def main(argv=None) -> int:
     log("dead superstep ms: " + ", ".join(
         f"{name} {d:.6f}" for name, d in (("gather", gather["dead_ms"]), ("mxu", mxu["dead_ms"]),
                                           ("64-source batch", multi["dead_ms"]))))
+    log("push and pull engines (plain torch supersteps, XLA in the reference; no kernel row): "
+        + "; ".join(
+            f"{e}: search {edge[e]['mean']['secs']:.6f} s (loop {edge[e]['mean']['loop_s']:.6f}, "
+            f"results {edge[e]['mean']['result_s']:.6f}; eager {edge[e]['eager_mean']['secs']:.6f}), "
+            f"superstep mean {edge[e]['steps']['mean_ms']:.4f} ms, slowest "
+            f"{edge[e]['steps']['max_ms']:.4f} ms against a bound of {edge[e]['steps']['bound_ms']:.4f} ms, "
+            f"dead superstep {edge[e]['dead_ms']:.6f} ms, peak {edge[e]['peak']} bytes; batch of "
+            f"{edge[e]['batch']['trees']} {edge[e]['batch']['secs']:.6f} s"
+            for e in ("pull", "push"))
+        + f"; relay gather search {gather['mean']['secs']:.6f} s in the same run; layouts built in "
+        f"{edge_build['device_graph_s']:.3f} s (DeviceGraph) and {edge_build['pull_graph_s']:.3f} s "
+        f"(PullGraph); SuperstepRunner ms per run "
+        + ", ".join(f"{e} {sum(v) * 1e3:.3f} ({len(v)} steps)" for e, v in runners.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -114,7 +114,7 @@ def test_bfs_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         P.RelayEngine(g, device="cuda")
     with pytest.raises(ValueError):
-        P.bfs(g, 0, device="cpu", engine="pull")
+        P.bfs(g, 0, device="cpu", engine="ell")
     with pytest.raises(ValueError):
         P.bfs(g, 6, device="cpu")
 
@@ -125,7 +125,13 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.ops.relay_elem, bfs_tpu_torch.ops.relay_mxu, "
         "bfs_tpu_torch.graph.adj_tiles, bfs_tpu_torch.models.bfs, "
         "bfs_tpu_torch.models.multisource, bfs_tpu_torch.models.loop, "
-        "bfs_tpu_torch.ops.control; "
+        "bfs_tpu_torch.ops.control, bfs_tpu_torch.ops.relax, "
+        "bfs_tpu_torch.ops.pull, bfs_tpu_torch.graph.ell, "
+        "bfs_tpu_torch.graph.vertex, bfs_tpu_torch.config, "
+        "bfs_tpu_torch.utils.checkpoint, bfs_tpu_torch.utils.metrics, "
+        "bfs_tpu_torch.utils.logging, bfs_tpu_torch.utils.timing, "
+        "bfs_tpu_torch.oracle.native, bfs_tpu_torch.runners.run_parallel, "
+        "bfs_tpu_torch.runners.run_sequential; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"

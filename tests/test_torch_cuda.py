@@ -688,3 +688,59 @@ def test_card_capture_failure_raises(card):
     loop = L.BlockLoop((ctl,), step, k=2)
     with pytest.raises(RuntimeError):
         loop.run(True)
+
+
+@pytest.mark.parametrize("engine", ["push", "pull"])
+def test_card_edge_engine_matches_eager_cpu_and_oracle(card, engine):
+    """A push or pull search on the captured loop against the eager loop,
+    the CPU and the oracle; its accounting (one control step per superstep
+    issued); a dead block; the batch and SuperstepRunner on the card."""
+    from bfs_tpu_torch.models import loop as L
+
+    g = P.rmat_graph(12, 6, seed=1)
+    eng, cpu = P.EdgeEngine(g, engine=engine), P.EdgeEngine(g, engine=engine, device="cpu")
+    eng.run(0)  # captures the graph
+    for s in (0, 9, 100):
+        K.reset_launches()
+        got = eng.run(s)
+        run = dict(eng.last_run)
+        assert _counts(["loop_control"]) == {"loop_control": run["issued"]}
+        assert run["live"] == got.num_levels and run["issued"] == L.BLOCK * run["replays"]
+        eng.loop = "eager"
+        for want in (eng.run(s), cpu.run(s)):
+            np.testing.assert_array_equal(got.dist, want.dist)
+            np.testing.assert_array_equal(got.parent, want.parent)
+            assert got.num_levels == want.num_levels
+        eng.loop = "blocks"
+        dist, parent = P.canonical_bfs(g, s)
+        np.testing.assert_array_equal(got.dist, dist)
+        np.testing.assert_array_equal(got.parent, parent)
+    loop = eng._packed_loop()
+    before = [b.clone() for b in loop.buffers]
+    loop.dead_replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, loop.buffers))
+    sources = [0, 9, 100, 9]
+    a, b = eng.run_multi(sources), cpu.run_multi(sources)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    res = P.SuperstepRunner(g, engine=engine).run(9)
+    np.testing.assert_array_equal(res.dist, cpu.run(9).dist)
+    path = P.path_graph(100)  # the unpacked re-run through the captured loops
+    c = P.bfs(path, 0, engine=engine)
+    np.testing.assert_array_equal(c.dist, np.arange(100, dtype=np.int32))
+    assert c.num_levels == 100
+
+
+def test_card_relay_runner_matches_cpu(card):
+    g = P.rmat_graph(11, 6, seed=2)
+    gpu, cpu = P.SuperstepRunner(g, engine="relay"), P.SuperstepRunner(g, engine="relay",
+                                                                        device="cpu")
+    a, b = gpu.init(5), cpu.init(5)
+    while bool(b.changed):
+        K.reset_launches()
+        a, b = gpu.step(a), cpu.step(b)
+        assert _counts(["class_rowmin", "packed_update"]) == {"class_rowmin": 1, "packed_update": 1}
+        for x, y in zip(gpu.to_original(a, source=5), cpu.to_original(b, source=5)):
+            np.testing.assert_array_equal(x, y)
+    assert int(a.level) == int(b.level) and not bool(a.changed)

@@ -395,7 +395,7 @@ def test_multi_source_errors_match_reference():
         with pytest.raises(ValueError):
             call(ours)
     with pytest.raises(ValueError):
-        P.bfs_multi(g, [0], engine="pull", device="cpu")
+        P.bfs_multi(g, [0], engine="ell", device="cpu")
 
 
 def test_elem_wrappers_take_the_plain_version_on_cpu(layout):
