@@ -677,8 +677,9 @@ class EdgeEngine:
     stops on its 62-level cap is re-run on the unpacked carry.
 
     The supersteps are plain torch ops (XLA in the reference, no TPU
-    kernel): on a card the level loop captures blocks of them, gated by
-    the control block, in a CUDA graph, with the control step
+    kernel): on a card the level loop captures blocks of
+    :data:`~bfs_tpu_torch.models.loop.EDGE_BLOCK` of them, gated by the
+    control block, in a CUDA graph, with the control step
     ``loop_control`` ending each; ``loop = "eager"`` is the plain loop.
     """
 
@@ -749,7 +750,8 @@ class EdgeEngine:
 
             return (*fields, ctl), step
 
-        return L.cached(self._loops, ("packed" if packed else "unpacked", trees), make)
+        return L.cached(self._loops, ("packed" if packed else "unpacked", trees), make,
+                        k=L.EDGE_BLOCK)
 
     def _packed_loop(self) -> L.BlockLoop:
         return self._carry_loop(True, None)

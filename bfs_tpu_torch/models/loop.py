@@ -40,6 +40,15 @@ from ..ops import relay_cuda as K
 #: 3 dead supersteps where k = 8 issues 7.  Not a knob.
 BLOCK = 4
 
+#: Supersteps per block of the push and pull engines (``EdgeEngine``).
+#: Their supersteps are plain torch ops, so a dead one runs whole (1.8 ms
+#: push, 5.2 ms pull at R-MAT scale 22 on an H100) where a host read costs
+#: tens of microseconds: blocks of 1 issue no dead superstep.  Chosen on
+#: the card from ``chip_smoke.py``'s table of k = 1, 2, 4 beside the eager
+#: loop (``PERF.md``): k = 1 beat k = 4 on every search and batch, and
+#: k = 2 on the 64-source batches by 9-10%.  Not a knob.
+EDGE_BLOCK = 1
+
 
 @dataclass
 class LoopStats:
@@ -163,14 +172,15 @@ class BlockLoop:
             dst.copy_(src)
 
 
-def cached(loops: dict, kind, make) -> BlockLoop:
-    """The :class:`BlockLoop` of one carry kind at the current :data:`BLOCK`
-    in an engine's ``loops``, made (buffers and step) by ``make`` at first
-    use."""
-    key = (kind, BLOCK)
+def cached(loops: dict, kind, make, k: int | None = None) -> BlockLoop:
+    """The :class:`BlockLoop` of one carry kind at blocks of ``k``
+    supersteps (the current :data:`BLOCK` when None) in an engine's
+    ``loops``, made (buffers and step) by ``make`` at first use."""
+    k = BLOCK if k is None else k
+    key = (kind, k)
     loop = loops.get(key)
     if loop is None:
-        loop = loops[key] = BlockLoop(*make(), k=BLOCK)
+        loop = loops[key] = BlockLoop(*make(), k=k)
     return loop
 
 

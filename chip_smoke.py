@@ -32,12 +32,15 @@ against its plain version at the layout's real shapes.  The push and pull
 engines follow on the same graph: their layouts built on the host (timed),
 ``EdgeEngine.run`` for the same 4 roots on the captured loop and the eager
 loop, each result equal to ``canonical_bfs`` and to the relay engine's,
-each superstep's device time beside its byte bound, the pull batch of the
-same 64 sources and the push batch of the first ``PUSH_BATCH`` of them
-(every tree equal to the relay batch's), ``SuperstepRunner`` on push, pull
-and relay for the max-degree root (each step timed by the
-device-synchronised ``Stopwatch``, the final state equal to the fused
-result, the relay runner's K1–K4 launches counted against its steps), and
+each superstep's device time (ungated and gated by a live control block)
+beside its byte bound, the pull batch of the same 64 sources and the push
+batch of the first ``PUSH_BATCH`` of them (every tree equal to the relay
+batch's), each search and batch at blocks of 1, 2 and 4 supersteps and on
+the eager loop, ``SuperstepRunner`` on push, pull and relay for the
+max-degree root (each step timed by the device-synchronised ``Stopwatch``,
+the final state equal to the fused result, the relay runner's K1–K4
+launches counted against its steps, and its step's device time beside
+K1–K3 with the plain unpacked merge), and
 the command-line runners ``run_parallel`` (stepped push, ``--fused`` pull,
 stepped relay) and ``run_sequential`` on ``service.properties``.  Small
 graphs close the run: tinyCG (the paper's worked example) on the relay and
@@ -53,7 +56,7 @@ against it bit for bit; the script prints per search the host reads,
 replays, supersteps issued and live, and the loop and result seconds of
 both loops, checks launches = per-superstep count x supersteps issued and
 live supersteps = levels, traces both, times a dead superstep, the two
-result-copy designs and blocks of 1, 4, 8 and 16 supersteps, and prints
+result-copy designs and (relay) blocks of 1, 4, 8 and 16 supersteps, and prints
 the loop's targets as met or not met.
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
@@ -112,6 +115,8 @@ MXU_STEP = {"mxu_expand": 1, "packed_update": 1, "loop_control": 1}
 # A push or pull superstep is torch ops (XLA in the reference, no TPU
 # kernel); of the port's kernels its block loop launches the control step.
 EDGE_STEP = {"loop_control": 1}
+# Block sizes of the push and pull engines' table (``loop.EDGE_BLOCK``).
+EDGE_KS = (1, 2, 4)
 # The relay SuperstepRunner's eager step: both networks, the row-min and
 # the packed update, no control step.
 RELAY_RUNNER_STEP = {k: v for k, v in GATHER_STEP.items() if k != "loop_control"}
@@ -422,6 +427,7 @@ def loop_phase(label: str, eng, roots, per_step: dict, expect: str, K, L) -> dic
 
     eng.loop = "blocks"
     eng.run(roots[0])  # warm: the capture, caches and allocator
+    k = eng._packed_loop().k
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
@@ -432,7 +438,7 @@ def loop_phase(label: str, eng, roots, per_step: dict, expect: str, K, L) -> dic
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         run = dict(eng.last_run)
-        target = -(-(res.num_levels + 1) // L.BLOCK) + 1
+        target = -(-(res.num_levels + 1) // k) + 1
         if run["live"] != res.num_levels:
             raise AssertionError(f"{label} root {r}: {run['live']} live supersteps, "
                                  f"{res.num_levels} levels")
@@ -445,7 +451,7 @@ def loop_phase(label: str, eng, roots, per_step: dict, expect: str, K, L) -> dic
                                num_levels=res.num_levels)
         del res
         rows.append(dict(root=r, secs=secs, **run))
-        log(f"{label} root {r}, captured loop (k={L.BLOCK}): {secs:.6f} s (level loop "
+        log(f"{label} root {r}, captured loop (k={k}): {secs:.6f} s (level loop "
             f"{run['loop_s']:.6f} s, results {run['result_s']:.6f} s), {run['level']} levels; "
             f"host reads {run['host_reads']} (target <= {target}), replays {run['replays']}, "
             f"supersteps issued {run['issued']}, live {run['live']}")
@@ -529,18 +535,23 @@ def dead_superstep_ms(label: str, loop) -> float:
     return ms
 
 
-def block_table(label: str, run, L, eng, reps: int = 3) -> list:
-    """``run()`` (one search per root, or one batch) at blocks of k = 1, 4,
-    8 and 16 supersteps, each k captured anew after a warm call: mean host
-    seconds, loop seconds and host reads.  The loops of other k are dropped
-    after."""
+def block_table(label: str, run, L, eng, reps: int = 3, ks=(1, 4, 8, 16),
+                attr: str = "BLOCK", eager: bool = False) -> list:
+    """``run()`` (one search per root, or one batch) at blocks of each k in
+    ``ks`` supersteps (the loop module's ``attr``, the engine's block
+    size), each k captured anew after a warm call, and (``eager``) on the
+    eager loop: mean host seconds, loop seconds and host reads.  The loops
+    of other k are dropped after."""
     import numpy as np
     import torch
 
-    keep = L.BLOCK
+    keep = getattr(L, attr)
     rows = []
-    for k in (1, 4, 8, 16):
-        L.BLOCK = k
+    for k in (*ks, *(("eager",) if eager else ())):
+        if k == "eager":
+            eng.loop = "eager"
+        else:
+            setattr(L, attr, k)
         run()
         secs, loops, reads = [], [], []
         for _ in range(reps):
@@ -553,7 +564,8 @@ def block_table(label: str, run, L, eng, reps: int = 3) -> list:
             reads.append(host_reads)
         rows.append(dict(k=k, secs=float(np.mean(secs)), loop_s=float(np.mean(loops)),
                          host_reads=float(np.mean(reads))))
-    L.BLOCK = keep
+    eng.loop = "blocks"
+    setattr(L, attr, keep)
     eng._loops = {key: v for key, v in eng._loops.items() if key[1] == keep}
     torch.cuda.empty_cache()
     log(f"{label}, block size table (mean of {reps} runs): " + "; ".join(
@@ -1343,42 +1355,55 @@ def edge_layouts(g, P) -> tuple:
 
 def superstep_bytes(eng) -> int:
     """Bytes a push or pull superstep must move on one tree: the layout read
-    once (ELL levels; src int32 and dst int64 as stored), the frontier
-    table (pull) or the candidate array (push) written once, and the packed
-    carry (int32 words, bool frontier) read and written once."""
+    once (ELL levels; src and dst int32, as the reference stores them: the
+    port keeps dst as int64 for ``scatter_reduce_``, a cost of its
+    implementation and not of the function), the frontier table (pull) or
+    the candidate array (push) written once, and the packed carry (int32
+    words, bool frontier) read and written once."""
     n = eng.num_vertices + 1
     if eng.engine == "pull":
         layout = sum(t.numel() * t.element_size() for t in (eng.ell0, *eng.folds))
     else:
-        layout = eng.src.numel() * 4 + eng.dst.numel() * 8
+        layout = (eng.src.numel() + eng.dst.numel()) * 4
     return layout + 4 * n + 2 * 5 * n
 
 
 def superstep_table(label: str, eng, root: int) -> dict:
     """Every superstep of ``root``'s search on the packed carry, stepped
     eagerly: device ms of each (``cold_ms``: L2 flushed, launches hidden
-    behind a device sleep, mean of 3) beside the byte bound at 3.35 TB/s."""
+    behind a device sleep, mean of 3) beside the byte bound at 3.35 TB/s,
+    and the same superstep gated by a live control block (what the level
+    loop runs: the merge also selects by the LIVE word)."""
+    from bfs_tpu_torch.ops import control as C
     from bfs_tpu_torch.ops.relax import init_packed_state
     from bfs_tpu_torch.utils.timing import cold_ms
 
     st = init_packed_state(eng.num_vertices, root, eng.device)
+    ctl = C.new_ctl(eng.device)
+    C.init_ctl(ctl, eng.num_vertices)
     nbytes = superstep_bytes(eng)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     rows = []
     while True:
         front = int(st.frontier.sum())
         ms = cold_ms(lambda: eng.superstep(st), reps=3, warm=1)
+        gated = cold_ms(lambda: eng.superstep(st, ctl), reps=3, warm=1)
         st = eng.superstep(st)
-        rows.append(dict(level=len(rows) + 1, frontier=front, ms=ms))
+        rows.append(dict(level=len(rows) + 1, frontier=front, ms=ms, gated_ms=gated))
         if not bool(st.changed):
             break
     dense = max(rows, key=lambda r: r["ms"])
-    log(f"{label} supersteps from root {root} (device ms, cold, mean of 3; frontier at entry): "
-        + ", ".join(f"{r['level']}: {r['ms']:.4f} ({r['frontier']})" for r in rows)
+    n = len(rows)
+    gate = sum(r["gated_ms"] - r["ms"] for r in rows) / n
+    log(f"{label} supersteps from root {root} (device ms, cold, mean of 3; gated by a live "
+        "control block; frontier at entry): "
+        + ", ".join(f"{r['level']}: {r['ms']:.4f} / {r['gated_ms']:.4f} ({r['frontier']})"
+                    for r in rows)
         + f"; byte bound {bound:.4f} ms ({nbytes} bytes at 3.35 TB/s); slowest "
-        f"{dense['ms']:.4f} ms = {dense['ms'] / bound:.1f}x the bound")
+        f"{dense['ms']:.4f} ms = {dense['ms'] / bound:.1f}x the bound; the gate adds "
+        f"{gate:.4f} ms a superstep (mean)")
     return dict(rows=rows, bound_ms=bound, bytes=nbytes, max_ms=dense["ms"],
-                mean_ms=sum(r["ms"] for r in rows) / len(rows))
+                mean_ms=sum(r["ms"] for r in rows) / n, gate_ms=gate)
 
 
 def edge_search_phase(label: str, eng, roots, want: dict, K, L) -> dict:
@@ -1398,14 +1423,16 @@ def edge_search_phase(label: str, eng, roots, want: dict, K, L) -> dict:
             raise AssertionError(f"{label} root {r}: result differs from the relay engine's")
     log(f"{label}: all {len(roots)} roots oracle-exact and equal to the relay engine's bit for bit")
     res["steps"] = superstep_table(label, eng, roots[0])
+    res["table"] = block_table(f"{label}, 4 searches a run", lambda: searches(eng, roots), L, eng,
+                               ks=EDGE_KS, attr="EDGE_BLOCK", eager=True)
     return res
 
 
-def edge_batch_phase(label: str, eng, sources, relay, K) -> dict:
+def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
     """``run_multi`` (what ``bfs_multi`` runs) on the captured loop: the
     first call (captures the batch's block) and a timed one, each tree equal
     to the relay batch's bit for bit (whose trees equal the single-source
-    searches, four of them ``canonical_bfs``)."""
+    searches, four of them ``canonical_bfs``); then its block size table."""
     import numpy as np
     import torch
 
@@ -1427,19 +1454,32 @@ def edge_batch_phase(label: str, eng, sources, relay, K) -> dict:
     if K.LAUNCHES["loop_control"] != run["issued"] or run["live"] != res.num_levels:
         raise AssertionError(f"{label}: {K.LAUNCHES['loop_control']} control steps, "
                              f"{run['issued']} issued, {run['live']} live, {res.num_levels} levels")
+    res_levels = res.num_levels
     log(f"{label}, {n} sources: first call (captures) {first_s:.6f} s; then {secs:.6f} s per "
         f"batch (level loop {run['loop_s']:.6f} s, results {run['result_s']:.6f} s), "
         f"{secs / n:.6f} s per tree, {res.num_levels} levels; host reads {run['host_reads']}, "
         f"replays {run['replays']}, supersteps issued {run['issued']}, live {run['live']}; "
         f"peak device memory {peak} bytes; every tree equal to the relay batch's")
-    return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res.num_levels)
+    del res
+
+    def one_batch():
+        eng.run_multi(sources)
+        return eng.last_run["loop_s"], eng.last_run["host_reads"]
+
+    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=2, ks=EDGE_KS,
+                        attr="EDGE_BLOCK", eager=True)
+    return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res_levels,
+                table=table)
 
 
-def runner_phase(layouts: dict, root: int, want: dict, K, P) -> dict:
+def runner_phase(layouts: dict, root: int, want: dict, K, P) -> tuple[dict, dict]:
     """``SuperstepRunner`` on push, pull and relay from ``root``: each step
     timed by the device-synchronised ``Stopwatch``, the final state in
     original ids equal to the fused result; the relay runner's kernel
-    launches held to its per-step count times its steps."""
+    launches held to its per-step count times its steps.  Then, on the
+    relay runner's states, what its step's packed route (K4 on words built
+    from the unpacked carry, and the decode back) costs beside the plain
+    unpacked merge after K1-K3 (``RelayEngine.superstep``)."""
     import numpy as np
 
     from bfs_tpu_torch.utils.timing import Stopwatch
@@ -1450,8 +1490,10 @@ def runner_phase(layouts: dict, root: int, want: dict, K, P) -> dict:
         runner = P.SuperstepRunner(layout, engine=engine, device="cuda")
         st = runner.init(root)
         K.reset_launches()
-        sw, steps = Stopwatch("cuda"), []
+        sw, steps, states = Stopwatch("cuda"), [], []
         while bool(st.changed):
+            if engine == "relay":
+                states.append(st)
             sw.reset().start()
             st = runner.step(st)
             sw.stop()
@@ -1466,13 +1508,41 @@ def runner_phase(layouts: dict, root: int, want: dict, K, P) -> dict:
             if got != want_launches:
                 raise AssertionError(f"relay runner: launches {got} in {len(steps)} steps, "
                                      f"expected {want_launches}")
+            merge = relay_step_cost(runner._relay, states)
         log(f"SuperstepRunner({engine}) root {root}: {len(steps)} steps, ms each (Stopwatch, "
             "device-synchronised): " + ", ".join(f"{t * 1e3:.3f}" for t in steps)
             + "; final state equal to the fused result"
             + (f"; launches {got}" if engine == "relay" else ""))
         out[engine] = steps
-        del runner, st
-    return out
+        del runner, st, states
+    return out, merge
+
+
+def relay_step_cost(eng, states) -> dict:
+    """Device ms (``cold_ms``, mean of 3) of ``RelayEngine.step`` (K1-K4,
+    the merge through ``packed_update`` on words built from the unpacked
+    carry) beside ``RelayEngine.superstep`` (K1-K3, then the unpacked merge
+    in torch ops) on each of a search's states; both must agree."""
+    import torch
+
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    rows = []
+    for st in states:
+        a, b = eng.step(st), eng.superstep(st)
+        if not (all(torch.equal(x, y) for x, y in zip((a.dist, a.parent, a.fwords),
+                                                     (b.dist, b.parent, b.fwords)))
+                and bool(a.changed) == bool(b.changed)):
+            raise AssertionError(f"relay runner level {st.level + 1}: step and superstep differ")
+        rows.append((cold_ms(lambda: eng.step(st), reps=3, warm=1),
+                     cold_ms(lambda: eng.superstep(st), reps=3, warm=1)))
+    step_ms, plain_ms = (sum(r[i] for r in rows) / len(rows) for i in (0, 1))
+    log("relay runner step (K1-K4 through packed words) against the unpacked merge after K1-K3, "
+        "device ms (cold, mean of 3) per level: "
+        + ", ".join(f"{i + 1}: {a:.4f} / {b:.4f}" for i, (a, b) in enumerate(rows))
+        + f"; mean {step_ms:.4f} / {plain_ms:.4f}, the packed route {step_ms - plain_ms:+.4f} ms "
+        "a step; results equal")
+    return dict(step_ms=step_ms, plain_ms=plain_ms, rows=rows)
 
 
 def cli_phase(K) -> None:
@@ -1667,10 +1737,10 @@ def main(argv=None) -> int:
         edge[engine] = edge_search_phase(f"{engine} search", eeng, roots, want, K, L)
         batch = sources if engine == "pull" else sources[:PUSH_BATCH]
         edge[engine]["batch"] = edge_batch_phase(f"bfs_multi({engine})", eeng, batch,
-                                                 multi["result"], K)
+                                                 multi["result"], K, L)
         del eeng
         torch.cuda.empty_cache()
-    runners = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
+    runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
     del want
     cli_phase(K)
 
@@ -1732,13 +1802,16 @@ def main(argv=None) -> int:
             f"results {edge[e]['mean']['result_s']:.6f}; eager {edge[e]['eager_mean']['secs']:.6f}), "
             f"superstep mean {edge[e]['steps']['mean_ms']:.4f} ms, slowest "
             f"{edge[e]['steps']['max_ms']:.4f} ms against a bound of {edge[e]['steps']['bound_ms']:.4f} ms, "
+            f"the live gate {edge[e]['steps']['gate_ms']:.4f} ms, "
             f"dead superstep {edge[e]['dead_ms']:.6f} ms, peak {edge[e]['peak']} bytes; batch of "
             f"{edge[e]['batch']['trees']} {edge[e]['batch']['secs']:.6f} s"
             for e in ("pull", "push"))
         + f"; relay gather search {gather['mean']['secs']:.6f} s in the same run; layouts built in "
         f"{edge_build['device_graph_s']:.3f} s (DeviceGraph) and {edge_build['pull_graph_s']:.3f} s "
         f"(PullGraph); SuperstepRunner ms per run "
-        + ", ".join(f"{e} {sum(v) * 1e3:.3f} ({len(v)} steps)" for e, v in runners.items()))
+        + ", ".join(f"{e} {sum(v) * 1e3:.3f} ({len(v)} steps)" for e, v in runners.items())
+        + f"; relay runner step {relay_merge['step_ms']:.4f} ms against {relay_merge['plain_ms']:.4f} "
+        "ms for K1-K3 and the unpacked merge (device, mean)")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -68,7 +68,7 @@ def test_bfs_matches_reference(name):
 
 @needs_native
 def test_bfs_on_tinycg_gives_the_papers_example():
-    r = P.bfs(P.read_sedgewick(TINY), 0, device="cpu")
+    r = P.bfs(P.read_sedgewick(TINY), 0, engine="relay", device="cpu")
     assert r.dist.tolist() == [0, 1, 1, 2, 2, 1]
     assert r.parent.tolist() == [0, 0, 0, 2, 2, 0]
     assert r.num_levels == 3
@@ -79,7 +79,7 @@ def test_bfs_on_tinycg_gives_the_papers_example():
 @pytest.mark.parametrize("max_levels", [2, 70])
 def test_max_levels_matches_reference(max_levels):
     g = P.path_graph(100)
-    got = P.bfs(g, 0, device="cpu", max_levels=max_levels)
+    got = P.bfs(g, 0, engine="relay", device="cpu", max_levels=max_levels)
     want = JRelayEngine(JGraph(g.num_vertices, g.src.copy(), g.dst.copy())).run(
         0, max_levels=max_levels
     )

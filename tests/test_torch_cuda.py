@@ -705,7 +705,7 @@ def test_card_edge_engine_matches_eager_cpu_and_oracle(card, engine):
         got = eng.run(s)
         run = dict(eng.last_run)
         assert _counts(["loop_control"]) == {"loop_control": run["issued"]}
-        assert run["live"] == got.num_levels and run["issued"] == L.BLOCK * run["replays"]
+        assert run["live"] == got.num_levels and run["issued"] == L.EDGE_BLOCK * run["replays"]
         eng.loop = "eager"
         for want in (eng.run(s), cpu.run(s)):
             np.testing.assert_array_equal(got.dist, want.dist)

@@ -99,7 +99,7 @@ def test_bfs_relay_matches_reference(name):
 def test_packed_cap_reruns_unpacked(monkeypatch, engine, loop, k):
     """path_graph(100) from 0: 62 levels on the packed carry, stopped by its
     cap, then the unpacked re-run to 100, on either loop and block size."""
-    monkeypatch.setattr(L, "BLOCK", k)
+    monkeypatch.setattr(L, "EDGE_BLOCK", k)
     g = P.path_graph(100)
     eng = P.EdgeEngine(g, engine=engine, device="cpu")
     eng.loop = loop
