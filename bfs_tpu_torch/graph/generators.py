@@ -1,4 +1,5 @@
-"""Synthetic graph generators: R-MAT (Graph500 style), G(n, m), paths.
+"""Synthetic graph generators: R-MAT (Graph500 style), SNAP-shaped edge
+lists, G(n, m), paths and stars.
 
 The same NumPy generators as ``bfs_tpu.graph.generators``, so one seed
 gives the same graph in both packages.
@@ -58,6 +59,17 @@ def rmat_graph_native(scale: int, edge_factor: int = 16, *, seed: int = 1) -> Gr
     return Graph(1 << scale, np.concatenate([u, v]), np.concatenate([v, u]))
 
 
+def snap_shape_edges(num_vertices: int, num_edges: int, *, seed: int = 0) -> np.ndarray:
+    """R-MAT-skewed directed edge list with an arbitrary (non-power-of-two)
+    vertex count, the shape of real SNAP social graphs: edges drawn in the
+    enclosing power-of-two id space for the heavy-tailed degrees, then
+    folded into ``[0, V)``; the label permutation spreads the hubs."""
+    scale = max(int(num_vertices - 1).bit_length(), 1)
+    per = num_edges // (1 << scale) + 1  # per * 2^scale >= num_edges always
+    edges = rmat_edges(scale, per, seed=seed)[:num_edges]
+    return edges % num_vertices
+
+
 def gnm_graph(num_vertices: int, num_edges: int, *, seed: int = 0) -> Graph:
     """Uniform random undirected multigraph with ``num_edges`` edges."""
     rng = np.random.default_rng(seed)
@@ -69,3 +81,11 @@ def path_graph(num_vertices: int) -> Graph:
     """A simple path 0-1-2-...-(V-1); worst-case diameter for level-sync BFS."""
     u = np.arange(num_vertices - 1, dtype=np.int32)
     return Graph.from_undirected_edges(num_vertices, np.stack([u, u + 1], axis=1))
+
+
+def star_graph(num_vertices: int, hub: int = 0) -> Graph:
+    """A star: ``hub`` joined to every other vertex.  The maximum fan-out in
+    one superstep (the direction policy's switch case)."""
+    leaves = np.array([v for v in range(num_vertices) if v != hub], dtype=np.int32)
+    hubs = np.full(leaves.shape, hub, dtype=np.int32)
+    return Graph.from_undirected_edges(num_vertices, np.stack([hubs, leaves], axis=1))

@@ -1,0 +1,76 @@
+"""The port's environment knobs: a typed registry.
+
+Each knob has a type, a default and a validator; :func:`get` reads the
+environment, takes the default when the variable is unset or empty, and
+raises ``ValueError`` on a value its validator refuses (a typo'd knob that
+were silently clamped would quietly change what a run measured).  The
+three knobs mirror ``BFS_TPU_DIRECTION``, ``BFS_TPU_DIRECTION_ALPHA`` and
+``BFS_TPU_DIRECTION_BETA`` of the reference's registry:
+
+  ============================== ======= ======= ==========================
+  name                           type    default meaning
+  ============================== ======= ======= ==========================
+  BFS_TPU_TORCH_DIRECTION        enum    auto    push | pull | auto
+  BFS_TPU_TORCH_DIRECTION_ALPHA  float   14.0    go pull when m_f * alpha
+                                                 > m_u (> 0)
+  BFS_TPU_TORCH_DIRECTION_BETA   float   24.0    stay pull while n_f * beta
+                                                 > n (> 0)
+  ============================== ======= ======= ==========================
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Callable
+
+
+@dataclass(frozen=True)
+class Knob:
+    name: str
+    type: str
+    default: str
+    parse: Callable[[str], object]
+    help: str
+
+
+def _enum(*choices: str):
+    def parse(raw: str) -> str:
+        if raw not in choices:
+            raise ValueError(f"use one of {' | '.join(choices)}")
+        return raw
+    return parse
+
+
+def _positive_float(raw: str) -> float:
+    value = float(raw)
+    if not value > 0:
+        raise ValueError(f"must be > 0 (got {value})")
+    return value
+
+
+KNOBS: dict[str, Knob] = {k.name: k for k in (
+    Knob("BFS_TPU_TORCH_DIRECTION", "enum", "auto", _enum("push", "pull", "auto"),
+         "traversal body: force push or pull, or switch per superstep on the "
+         "alpha/beta thresholds"),
+    Knob("BFS_TPU_TORCH_DIRECTION_ALPHA", "float", "14.0", _positive_float,
+         "direction switch: enter pull when frontier out-edge mass * alpha "
+         "exceeds the unexplored mass"),
+    Knob("BFS_TPU_TORCH_DIRECTION_BETA", "float", "24.0", _positive_float,
+         "direction switch: stay in pull while frontier occupancy * beta "
+         "exceeds n"),
+)}
+
+
+def get(name: str):
+    """The typed read of a registered knob: the parsed environment value,
+    or the default when unset or empty; a bad value raises ``ValueError``
+    naming the knob."""
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"{name} is not a registered knob (bfs_tpu_torch/knobs.py)")
+    raw = os.environ.get(name) or knob.default
+    try:
+        return knob.parse(raw)
+    except ValueError as err:
+        raise ValueError(f"{name}={raw!r}: {err}") from None

@@ -1,5 +1,5 @@
 """BFS on the card: :func:`bfs`, the engines :class:`RelayEngine` and
-:class:`EdgeEngine`, and :class:`SuperstepRunner`.
+:class:`EdgeEngine`, :class:`SuperstepRunner` and :func:`bfs_level_curve`.
 
 The port of ``bfs_tpu.models.bfs``.  :func:`bfs` runs the pull engine by
 default, as the reference's does; :class:`EdgeEngine` holds the push and
@@ -46,6 +46,12 @@ against bit-packed 128x128 adjacency tiles (:mod:`bfs_tpu_torch.graph.adj_tiles`
 :mod:`bfs_tpu_torch.ops.relay_mxu`; kernel ``mxu_expand`` on tensor cores),
 whose candidates are ORIGINAL ids that the packed update merges as they
 are.  The element-major batch stays on the gather formulation.
+
+Level curves (:mod:`bfs_tpu_torch.obs.telemetry`): :func:`bfs_level_curve`
+runs push and pull through the direction loop in their forced mode
+(:mod:`bfs_tpu_torch.models.direction`); :meth:`RelayEngine.run_level_curve`
+carries the occupancy and direction accumulators in the relay loop's
+carry, recorded beside the kernels of the captured block.
 """
 
 from __future__ import annotations
@@ -61,6 +67,7 @@ from ..graph.adj_tiles import build_adj_tiles_from_relay
 from ..graph.csr import DeviceGraph, Graph, INF_DIST, build_device_graph
 from ..graph.ell import PullGraph, build_pull_graph, device_ell
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
+from ..obs import telemetry as T
 from ..ops import control as C
 from ..ops import relay as R
 from ..ops import relay_cuda as K
@@ -159,13 +166,29 @@ class RelayEngine:
     ``mxu`` builds the adjacency tiles on ``device`` under
     ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
     they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
+    ``direction`` (``push|pull|auto``, default ``BFS_TPU_TORCH_DIRECTION``)
+    is :attr:`direction`; every superstep runs dense, and ``push`` raises.
     """
 
     def __init__(
         self, graph: Graph | RelayGraph, *, device=None,
         expansion: str | None = None, tiles_budget_bytes: int | None = None,
+        direction: str | None = None,
     ):
+        from .direction import resolve_direction  # direction.py imports this module
+
         self.device = resolve_device(device)
+        #: The direction policy (``BFS_TPU_TORCH_DIRECTION`` unless given).
+        #: The port has no sparse hybrid superstep yet (ROADMAP A2 + A3), so
+        #: ``auto`` and ``pull`` run the dense superstep every level, as the
+        #: reference's engine does with ``sparse_hybrid=False``.
+        self.direction = resolve_direction(direction)
+        if self.direction.mode == "push":
+            raise ValueError(
+                "direction='push' needs the sparse hybrid superstep (the push body is "
+                "the sparse gather superstep), which the port does not have yet "
+                "(ROADMAP A2 + A3); use 'pull' or 'auto'"
+            )
         rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
         self.relay_graph = rg
         self.packed = packed_rank_fits(rg.in_classes)
@@ -188,6 +211,7 @@ class RelayEngine:
         self.adj_tiles = None
         self._route_index = None
         self._rank_tables = None
+        self._outdeg = None
         #: ``blocks``: the level loop runs in blocks of gated supersteps
         #: (:mod:`~bfs_tpu_torch.models.loop`, captured and replayed on a
         #: card); ``eager``: its plain version, a host read of ``changed``
@@ -309,34 +333,55 @@ class RelayEngine:
     def _empty(self, *shape) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.int32, device=self.device)
 
-    def _packed_loop(self) -> L.BlockLoop:
+    def _telemetry(self, fwords: torch.Tensor, telemetry: bool):
+        """``(buffers, record)``: with ``telemetry`` the occupancy and
+        direction accumulators and a recorder of the level a superstep
+        settles (gated by LIVE, so a dead superstep records nothing; every
+        superstep is the dense one, DIR_PULL); else nothing."""
+        if not telemetry:
+            return (), lambda ctl: None
+        occ, dirs = T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)
+
+        def record(ctl):
+            level, live = ctl[C.LEVEL] + 1, ctl[C.LIVE] != 0
+            T.record_frontier_words(occ, fwords, level, live)
+            T.record_direction(dirs, level, T.DIR_PULL, live)
+
+        return (occ, dirs), record
+
+    def _packed_loop(self, telemetry: bool = False) -> L.BlockLoop:
         """Packed carry ``(packed, fwords, ctl)``: the candidates, then the
         gated ``packed_update`` in place (the next frontier into the
-        carry's own words), then the control step."""
+        carry's own words), then the control step.  With ``telemetry`` the
+        carry is ``(packed, fwords, occupancy, directions, ctl)`` and the
+        recorder runs before the control step."""
         vr = self.relay_graph.vr
 
         def make():
             packed, fwords, ctl = self._empty(vr), self._empty(vr // 32), C.new_ctl(self.device)
             state = R.PackedRelayState(packed, fwords, None, None)
+            tel, record = self._telemetry(fwords, telemetry)
 
             def step():
                 cand = self._cand_packed(fwords, ctl)
                 K.apply_relay_candidates_packed(state, cand, fwords_out=fwords, ctl=ctl)
+                record(ctl)
                 K.loop_control(ctl)
 
-            return (packed, fwords, ctl), step
+            return (packed, fwords, *tel, ctl), step
 
-        return L.cached(self._loops, "packed", make)
+        return L.cached(self._loops, ("packed", telemetry), make)
 
-    def _unpacked_loop(self) -> L.BlockLoop:
+    def _unpacked_loop(self, telemetry: bool = False) -> L.BlockLoop:
         """Unpacked carry ``(dist, parent, fwords, ctl)``: the candidates,
         then the gated merge (torch ops) copied into the carry, its flag
-        raised, then the control step."""
+        raised, then the control step (telemetry as on the packed carry)."""
         vr = self.relay_graph.vr
 
         def make():
             dist, parent, fwords = self._empty(vr), self._empty(vr), self._empty(vr // 32)
             ctl = C.new_ctl(self.device)
+            tel, record = self._telemetry(fwords, telemetry)
 
             def step():
                 cand = self._cand_unpacked(fwords, ctl)
@@ -345,64 +390,109 @@ class RelayEngine:
                 parent.copy_(new.parent)
                 fwords.copy_(new.fwords)
                 C.raise_flag(ctl, new.changed)
+                record(ctl)
                 K.loop_control(ctl)
 
-            return (dist, parent, fwords, ctl), step
+            return (dist, parent, fwords, *tel, ctl), step
 
-        return L.cached(self._loops, "unpacked", make)
+        return L.cached(self._loops, ("unpacked", telemetry), make)
 
     def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
         t0 = time.perf_counter()
-        dist, parent_slots, stats = self._search(int(rg.old2new[source]), max_levels)
+        dist, parent_slots, stats, _ = self._search(int(rg.old2new[source]), max_levels)
         t1 = time.perf_counter()
         result = self._to_result(dist, parent_slots, stats.level, source)
         self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1,
                          **vars(stats)}
         return result
 
-    def _search(self, source_new: int, max_levels: int):
-        """(dist, parent, :class:`~bfs_tpu_torch.models.loop.LoopStats`) in
-        the relabeled space; parents are L1 slots on the gather arm and
-        original ids on the MXU arm.  On the block loop the tensors are the
-        loop's buffers (or decoded from them): the caller reads them before
-        the next search."""
+    def _search(self, source_new: int, max_levels: int, telemetry: bool = False):
+        """(dist, parent, :class:`~bfs_tpu_torch.models.loop.LoopStats`,
+        telemetry) in the relabeled space; parents are L1 slots on the
+        gather arm and original ids on the MXU arm.  On the block loop the
+        tensors are the loop's buffers (or decoded from them): the caller
+        reads them before the next search.  With ``telemetry`` the last
+        element is ``(occupancy, directions, packed_run)``, the accumulators
+        of the run that produced the state; else None."""
         rg = self.relay_graph
         stats = L.LoopStats()
         if self.packed:
             cap = packed_cap(max_levels)
-            if self.loop == "eager":
-                st, stats = L.eager(
-                    R.init_packed_relay_state(rg.vr, source_new, self.device),
-                    self.superstep_packed, cap,
-                )
-                packed = st.packed
-            else:
-                loop = self._packed_loop()
-                init = R.init_packed_relay_state(rg.vr, source_new, self.device)
-                stats = loop.run(L.start(loop.buffers, init, cap))
-                packed = loop.buffers[0]
+            init = R.init_packed_relay_state(rg.vr, source_new, self.device)
+            packed, stats, tel = self._run_loop(init, self.superstep_packed, self._packed_loop,
+                                                cap, telemetry)
+            packed = packed[0]
             if not packed_truncated(stats.changed, stats.level, max_levels):
+                tel = tel and (*tel, True)
                 if self.expansion == "mxu":
-                    return packed_dist(packed), packed_parent(packed), stats
+                    return packed_dist(packed), packed_parent(packed), stats, tel
                 dist, parent = R.unpack_relay_packed(packed, rg.in_classes, rg.vr)
-                return dist, parent, stats
+                return dist, parent, stats, tel
         # Deeper than the packed level field (or a rank too wide for it):
         # the unpacked carry has no level cap.
+        init = R.init_relay_state(rg.vr, source_new, self.device)
+        (dist, parent), more, tel = self._run_loop(init, self.superstep, self._unpacked_loop,
+                                                   max_levels, telemetry)
+        return dist, parent, stats.add(more), tel and (*tel, False)
+
+    def _run_loop(self, init, superstep, make_loop, cap: int, telemetry: bool):
+        """One run of a carry from ``init`` to ``cap`` levels: on the eager
+        loop (``superstep`` per level, the telemetry recorded after each) or
+        on the block loop that ``make_loop(telemetry)`` gives.  Returns the
+        state's words (``(packed,)`` or ``(dist, parent)``), the stats, and
+        the accumulators ``(occupancy, directions)`` or None."""
+        words = 1 if isinstance(init, R.PackedRelayState) else 2
+        tel = (T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)) \
+            if telemetry else None
         if self.loop == "eager":
-            st, more = L.eager(
-                R.init_relay_state(rg.vr, source_new, self.device),
-                self.superstep, max_levels,
-            )
-            dist, parent = st.dist, st.parent
-        else:
-            loop = self._unpacked_loop()
-            init = R.init_relay_state(rg.vr, source_new, self.device)
-            more = loop.run(L.start(loop.buffers, init, max_levels))
-            dist, parent = loop.buffers[0], loop.buffers[1]
-        return dist, parent, stats.add(more)
+            def step(st):
+                st = superstep(st)
+                if tel:
+                    T.record_frontier_words(tel[0], st.fwords, st.level)
+                    T.record_direction(tel[1], st.level, T.DIR_PULL)
+                return st
+
+            st, stats = L.eager(init, step, cap)
+            return tuple(st[:words]), stats, tel
+        loop = make_loop(telemetry)
+        carry = loop.buffers[: words + 1] + (loop.ctl,)
+        if tel:
+            for dst, src in zip(loop.buffers[words + 1 : -1], tel):
+                dst.copy_(src)
+            tel = loop.buffers[words + 1 : -1]
+        stats = loop.run(L.start(carry, init, cap))
+        return loop.buffers[:words], stats, tel
+
+    def run_level_curve(self, source: int = 0, *, max_levels: int | None = None,
+                        reference_reached: int | None = None) -> dict:
+        """One search with the telemetry accumulators in the level loop's
+        carry (the recorder beside the kernels in the captured block):
+        the JSON-ready level curve, per-level frontier occupancy and
+        out-edges (derived from the final levels at exit), packed-cap
+        proximity, and the direction schedule (every superstep dense,
+        ``pull``).  One host read of the accumulators at exit; the state
+        stays on the device.  Deeper than the packed cap, the curve comes
+        from the unpacked re-run."""
+        rg = self.relay_graph
+        check_sources(rg.num_vertices, source)
+        max_levels = int(max_levels) if max_levels is not None else rg.vr
+        dist, _, stats, (occ, dirs, packed_run) = self._search(
+            int(rg.old2new[source]), max_levels, telemetry=True)
+        if self._outdeg is None:
+            outdeg = np.diff(rg.adj_indptr[: rg.vr + 1].astype(np.int64)).astype(np.int32)
+            self._outdeg = torch.from_numpy(outdeg).to(self.device)
+        fe = T.edge_curve_from_levels(dist, self._outdeg, dist == INT32_MAX)
+        fv, fe, dirs = T.read_telemetry(occ, fe, dirs)
+        self.last_run = vars(stats)
+        cap = min(PACKED_MAX_LEVELS, max_levels) if packed_run else max_levels
+        curve = T.level_curve(fv, fe, cap=cap, reference_reached=reference_reached)
+        cfg = self.direction
+        curve["direction_schedule"] = T.direction_schedule(
+            dirs, mode=cfg.mode, alpha=cfg.alpha, beta=cfg.beta)
+        return curve
 
     def run_many_device(self, sources, *, max_levels: int | None = None) -> list:
         """One search per source on the block loop, chained without a host
@@ -641,7 +731,7 @@ class RelayEngine:
         parent = np.empty_like(dist)
         levels = 0
         for i, s in enumerate(sources.tolist()):
-            d, p, stats = self._search(int(rg.old2new[s]), max_levels)
+            d, p, stats, _ = self._search(int(rg.old2new[s]), max_levels)
             res = self._to_result(d, p, stats.level, s)
             dist[i], parent[i] = res.dist, res.parent
             levels = max(levels, res.num_levels)
@@ -854,6 +944,33 @@ def bfs(
         return RelayEngine(graph, device=device).run(source, max_levels=max_levels)
     eng = EdgeEngine(graph, engine=engine, device=device, block=block)
     return eng.run(source, max_levels=max_levels)
+
+
+def bfs_level_curve(
+    graph: Graph | DeviceGraph | PullGraph | RelayGraph,
+    source: int = 0,
+    *,
+    engine: str = "pull",
+    device=None,
+    max_levels: int | None = None,
+    block: int = 1024,
+    reference_reached: int | None = None,
+) -> dict:
+    """The level curve (per-level frontier occupancy,
+    :mod:`bfs_tpu_torch.obs.telemetry`) of one single-source search: the
+    telemetry twin of :func:`bfs`, one read of the accumulators at exit.
+    Push and pull run the direction loop in their forced mode; relay runs
+    :meth:`RelayEngine.run_level_curve` (which adds per-level out-edges)."""
+    from .direction import DirectionConfig, DirectionEngine  # it imports this module
+
+    if engine == "relay" or isinstance(graph, RelayGraph):
+        return RelayEngine(graph, device=device).run_level_curve(
+            source, max_levels=max_levels, reference_reached=reference_reached)
+    if engine not in ("pull", "push"):
+        raise ValueError(f"unknown engine {engine!r}; use 'relay', 'pull' or 'push'")
+    eng = EdgeEngine(graph, engine=engine, device=device, block=block)
+    return DirectionEngine(**{engine: eng}, config=DirectionConfig(mode=engine)).level_curve(
+        int(source), max_levels=max_levels, reference_reached=reference_reached)
 
 
 class SuperstepRunner:

@@ -172,6 +172,70 @@ class BlockLoop:
             dst.copy_(src)
 
 
+class SwitchLoop:
+    """One carry with one captured superstep per body over the same static
+    buffers: the direction loop.
+
+    ``steps`` maps a body's USE_PULL value (0 push, 1 pull) to one gated
+    superstep of that body on exactly ``buffers`` (the control block last),
+    which ends by writing the next superstep's body into the control block's
+    USE_PULL word and the control step.  The host reads the control block
+    after every superstep and issues the body that USE_PULL names: on a card
+    the replay of that body's graph, so no superstep carries the other body
+    as dead weight; on the CPU the body's superstep, eagerly.  Before its
+    first use each body is captured after one DEAD superstep of its own on
+    the carry (LIVE cleared for it, the control block restored after), which
+    fills the superstep's caches and changes nothing, so every superstep of
+    a run is a replay."""
+
+    def __init__(self, buffers: tuple[torch.Tensor, ...], steps: dict[int, Callable[[], None]]):
+        self.buffers = buffers
+        self.ctl = buffers[-1]
+        self.bodies = {body: BlockLoop(buffers, step, k=1) for body, step in steps.items()}
+
+    def _prepare(self) -> None:
+        for loop in self.bodies.values():
+            if loop.on_card and loop.graph is None:
+                saved = self.ctl.clone()
+                self.ctl[C.LIVE] = 0
+                loop.step()
+                self.ctl.copy_(saved)
+                loop._capture()
+
+    def run(self, live: bool, times: list | None = None) -> tuple[LoopStats, dict[int, int]]:
+        """Issue supersteps, each of the body the control block's USE_PULL
+        word names, until it reads not LIVE; ``live`` is LIVE as the caller
+        initialised it.  With more than one body the first body is read from
+        the control block too.  Returns the stats and the supersteps issued
+        per body.  ``times`` (a card): a list that gets ``(body, device ms)``
+        per superstep, by CUDA events around its replay."""
+        self._prepare()
+        stats = LoopStats()
+        issued = dict.fromkeys(self.bodies, 0)
+        ctl = [0] * C.WORDS
+        ctl[C.CHANGED] = 1
+        body = next(iter(self.bodies))
+        if live and len(self.bodies) > 1:
+            (ctl,) = read_ctls([self.ctl], stats)
+            body = ctl[C.USE_PULL]
+        events = []
+        while live:
+            if times is not None:
+                t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0.record()
+            self.bodies[body].issue(stats)
+            if times is not None:
+                t1.record()
+                events.append((body, t0, t1))
+            issued[body] += 1
+            (ctl,) = read_ctls([self.ctl], stats)
+            live, body = bool(ctl[C.LIVE]), ctl[C.USE_PULL]
+        if times is not None:
+            times.extend((b, a.elapsed_time(z)) for b, a, z in events)
+        stats.level, stats.changed, stats.live = ctl[C.LEVEL], bool(ctl[C.CHANGED]), ctl[C.STEPS]
+        return stats, issued
+
+
 def cached(loops: dict, kind, make, k: int | None = None) -> BlockLoop:
     """The :class:`BlockLoop` of one carry kind at blocks of ``k``
     supersteps (the current :data:`BLOCK` when None) in an engine's

@@ -1,8 +1,10 @@
 """Batched multi-source BFS: :class:`MultiBfsResult`, :func:`bfs_multi`,
-:func:`bfs_multi_device` and :func:`collapse_multi_source`.
+:func:`bfs_multi_device`, :func:`bfs_multi_level_curve` and
+:func:`collapse_multi_source`.
 
-The port of ``bfs_tpu.models.multisource`` without the direction and
-telemetry variants.  The engine work lives on
+The port of ``bfs_tpu.models.multisource``; its direction variant is
+:func:`bfs_tpu_torch.models.direction.bfs_multi_direction`.  The engine
+work lives on
 :class:`~bfs_tpu_torch.models.bfs.EdgeEngine` (push and pull: one
 lock-step loop over ``[S, V+1]`` carries, the reference's
 ``_bfs_multi_fused`` and ``_bfs_multi_pull_fused``) and
@@ -58,6 +60,24 @@ def bfs_multi(graph, sources, *, engine: str = "pull", device=None,
         return RelayEngine(graph, device=device).run_multi(sources, max_levels=max_levels)
     eng = EdgeEngine(graph, engine=engine, device=device, block=block)
     return eng.run_multi(sources, max_levels=max_levels)
+
+
+def bfs_multi_level_curve(graph, sources, *, engine: str = "pull", device=None,
+                          max_levels: int | None = None, block: int = 1024) -> dict:
+    """The global level curve of a lock-step batch on push or pull
+    (occupancy summed over the trees; its total is the sum of the trees'
+    reachable counts): one read of the accumulator at exit, the ``[S, V]``
+    state stays on the device; past the packed cap from the unpacked
+    re-run."""
+    from .bfs import EdgeEngine  # bfs.py imports this module
+    from .direction import DirectionConfig, DirectionEngine
+
+    if engine not in ("pull", "push"):
+        raise ValueError(f"unknown engine {engine!r}; use 'pull' or 'push'")
+    sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+    eng = EdgeEngine(graph, engine=engine, device=device, block=block)
+    return DirectionEngine(**{engine: eng}, config=DirectionConfig(mode=engine)).level_curve(
+        sources.tolist(), max_levels=max_levels)
 
 
 def collapse_multi_source(result: MultiBfsResult):

@@ -15,21 +15,24 @@ fused programs (``st.changed & (st.level < cap)``, ``bfs_tpu/models/bfs.py``
   FLAG     set by the superstep's update when a vertex changed; read and
            cleared by the control step
   STEPS    live supersteps counted on the device
+  USE_PULL the body of the next superstep in the direction loop (1 pull,
+           0 push; :mod:`bfs_tpu_torch.models.direction` writes it, the
+           host reads it to pick the graph it replays; no kernel reads it)
   ======== ==============================================================
 
 Every loop kernel reads LIVE at entry and returns at once when it is 0; the
 update kernels read LEVEL for the level they stamp.  The control step
 (kernel ``loop_control``, ``csrc/relay_kernels.cu``; :func:`loop_control`
 here is its plain version) ends each superstep.  A superstep that is not
-live leaves the state, LEVEL and CHANGED as they were.  The word indices
-mirror the ``kCtl*`` constants of ``csrc/control.cuh``.
+live leaves the state, LEVEL and CHANGED as they were.  The indices of the
+words a kernel reads mirror the ``kCtl*`` constants of ``csrc/control.cuh``.
 """
 
 from __future__ import annotations
 
 import torch
 
-LEVEL, CHANGED, LIVE, CAP, STEPS = range(5)
+LEVEL, CHANGED, LIVE, CAP, STEPS, USE_PULL = range(6)
 #: FLAG sits in a 128-byte line of its own: the update's blocks store to it
 #: while every block of every gated kernel loads LIVE.
 FLAG = 32

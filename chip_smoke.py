@@ -42,7 +42,20 @@ the final state equal to the fused result, the relay runner's K1–K4
 launches counted against its steps, and its step's device time beside
 K1–K3 with the plain unpacked merge), and
 the command-line runners ``run_parallel`` (stepped push, ``--fused`` pull,
-stepped relay) and ``run_sequential`` on ``service.properties``.  Small
+stepped relay) and ``run_sequential`` on ``service.properties``.  The
+direction policy runs on the same push and pull layouts:
+``DirectionEngine.run`` (``bfs_direction``'s engine) for the 4 roots in
+``auto``, ``push`` and ``pull`` on the captured two-graph loop and the eager
+loop, each result oracle-exact and equal to the relay engine's, each
+schedule equal to the one the host recomputes with numpy from the oracle's
+distances, every superstep one replay of one body's graph (the split by
+body equal to the schedule); each superstep's device time by body and the
+decide step's; then ``run_multi`` (``bfs_multi_direction``) in ``auto`` on
+the 64 sources, equal to the relay batch.  ``RelayEngine.run_level_curve``
+runs beside the gather search (its occupancy the oracle's level histogram).
+Every s22 result of the script also passes the on-device verifier
+(``DeviceChecker``), which must flag a corrupted parent and a corrupted
+distance.  Small
 graphs close the run: tinyCG (the paper's worked example) on the relay and
 the default (pull) engine, and a 100-vertex path (deeper than the packed
 carry's 62 levels, so it takes the unpacked re-run, on both expansion arms
@@ -1062,6 +1075,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         one = eng.run(s)
         if not (np.array_equal(res.dist[i], one.dist) and np.array_equal(res.parent[i], one.parent)):
             raise AssertionError(f"tree {i} (source {s}): differs from the single-source search")
+        verify(f"relay batch tree {i}", res.dist[i], res.parent[i], s)
     log(f"all {trees} trees equal the port's single-source RelayEngine.run bit for bit "
         f"({time.perf_counter() - t0:.1f} s)")
     for i in (0, 31, 32, trees - 1):  # bit 0 and bit 31 of both groups
@@ -1275,6 +1289,7 @@ def mxu_main_path(meng, g, roots, want: dict, directed_traversed: int, K, P, L) 
         violations = P.check(g, res.dist, res.parent, r)
         if violations:
             raise AssertionError(f"mxu root {r}: check() violations {violations[:3]}")
+        verify(f"mxu root {r}", res.dist, res.parent, r)
     mean_s = mxu["mean"]["secs"]
     log(f"mxu path: all {len(roots)} roots equal to canonical_bfs and the gather arm, check() "
         f"clean; {directed_traversed / 2 / mean_s:.6g} undirected TEPS (captured loop mean)")
@@ -1421,7 +1436,9 @@ def edge_search_phase(label: str, eng, roots, want: dict, K, L) -> dict:
         if not (np.array_equal(got.dist, relay.dist) and np.array_equal(got.parent, relay.parent)
                 and got.num_levels == relay.num_levels):
             raise AssertionError(f"{label} root {r}: result differs from the relay engine's")
-    log(f"{label}: all {len(roots)} roots oracle-exact and equal to the relay engine's bit for bit")
+        verify(f"{label} root {r}", got.dist, got.parent, r)
+    log(f"{label}: all {len(roots)} roots oracle-exact, equal to the relay engine's bit for bit, "
+        "DeviceChecker clean")
     res["steps"] = superstep_table(label, eng, roots[0])
     res["table"] = block_table(f"{label}, 4 searches a run", lambda: searches(eng, roots), L, eng,
                                ks=EDGE_KS, attr="EDGE_BLOCK", eager=True)
@@ -1455,6 +1472,8 @@ def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
         raise AssertionError(f"{label}: {K.LAUNCHES['loop_control']} control steps, "
                              f"{run['issued']} issued, {run['live']} live, {res.num_levels} levels")
     res_levels = res.num_levels
+    for i, s in enumerate(sources.tolist()):
+        verify(f"{label} tree {i}", res.dist[i], res.parent[i], s)
     log(f"{label}, {n} sources: first call (captures) {first_s:.6f} s; then {secs:.6f} s per "
         f"batch (level loop {run['loop_s']:.6f} s, results {run['result_s']:.6f} s), "
         f"{secs / n:.6f} s per tree, {res.num_levels} levels; host reads {run['host_reads']}, "
@@ -1610,6 +1629,253 @@ def small_edge_checks(P, K, tiny) -> None:
             "to the eager loop")
 
 
+# ------------------------------------------------ the on-device verifier --
+
+#: The s22 graph's DeviceChecker (set in main) and the results it passed.
+CHECKER: dict = {}
+
+
+def verify(label: str, dist, parent, source) -> None:
+    """One s22 result (host or device arrays in original ids) through the
+    on-device verifier: its verdict must be empty."""
+    verdict = CHECKER["dc"].check(dist, parent, source)
+    if verdict:
+        raise AssertionError(f"{label}: DeviceChecker verdict {verdict}")
+    CHECKER["passed"] += 1
+
+
+def verify_corruptions(g, root: int, dist, parent) -> dict:
+    """The verifier must report nonzero counts on one result with a
+    corrupted parent (a vertex at level 2 given a parent at level 2) and
+    one with a corrupted distance (a vertex at level 2 moved to level 4)."""
+    import numpy as np
+
+    w = int(np.flatnonzero(dist == 2)[0])
+    bad_parent = parent.copy()
+    bad_parent[w] = int(np.flatnonzero(dist == 2)[1])
+    bad_dist = dist.copy()
+    bad_dist[w] = 4
+    verdicts = {"parent": CHECKER["dc"].check(dist, bad_parent, root),
+                "dist": CHECKER["dc"].check(bad_dist, parent, root)}
+    for name, verdict in verdicts.items():
+        if not verdict:
+            raise AssertionError(f"DeviceChecker: a corrupted {name} gave an empty verdict")
+    log(f"DeviceChecker on corrupted results of root {root} (vertex {w}): parent {verdicts['parent']}, "
+        f"dist {verdicts['dist']}")
+    return verdicts
+
+
+# ------------------------------------------------ the direction policy --
+
+def host_schedule(outdeg, dists, mode: str, alpha: float, beta: float) -> list[str]:
+    """The schedule the direction loop must take, recomputed with numpy from
+    the oracle's distances (``dists`` int32[S, V], a row per tree): per level
+    the frontier's occupancy and out-edge mass summed over the trees, then
+    the decisions by the same float32 rule (Beamer's pair: go pull when
+    ``m_f * alpha > m_u``, stay pull while ``n_f * beta > n``; the
+    unexplored mass carried in float32, clamped at 0)."""
+    import numpy as np
+
+    from bfs_tpu_torch.graph.csr import INF_DIST
+
+    f32 = np.float32
+    trees, v = dists.shape
+    ecc = int(dists[dists != INF_DIST].max())
+    occ = np.zeros(ecc + 2, np.int64)
+    mass = np.zeros(ecc + 2, np.int64)
+    for row in dists:
+        r = row != INF_DIST
+        occ[: ecc + 1] += np.bincount(row[r], minlength=ecc + 1)
+        mass[: ecc + 1] += np.bincount(row[r], weights=outdeg[r], minlength=ecc + 1).astype(np.int64)
+    steps = ecc + 1  # the last superstep finds an empty frontier
+    if mode != "auto":
+        return [mode] * steps
+    n = f32(v * trees)
+
+    def take(prev, fs, fe, mu):
+        return f32(fs) * f32(beta) > n if prev else fe * f32(alpha) > mu
+
+    fe = f32(mass[0])
+    mu = f32(int(outdeg.sum())) * f32(trees) - fe
+    use, labels = take(False, occ[0], fe, mu), []
+    for i in range(1, steps + 1):
+        labels.append("pull" if use else "push")
+        fe = f32(mass[i]) if i <= ecc else f32(0)
+        mu = max(mu - fe, f32(0))
+        use = take(use, occ[i] if i <= ecc else 0, fe, mu)
+    return labels
+
+
+def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
+    """``DirectionEngine.run`` (what ``bfs_direction`` runs) for the 4 roots
+    in ``auto``, ``push`` and ``pull``, on the captured loop and the eager
+    loop: each result equal to ``canonical_bfs`` and to the relay engine's,
+    clean under the DeviceChecker, each schedule equal to the host's
+    recomputation; on the captured loop every superstep one replay of one
+    body's graph (replays = supersteps issued = control steps, the split by
+    body the schedule's).  Then each superstep's device time by body (CUDA
+    events around each replay) for the max-degree root in every mode, and
+    the decide step alone."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    cfg = deng.config
+    outdeg = np.bincount(g.src, minlength=g.num_vertices).astype(np.int64)
+    out = {"mean": {}, "schedules": {}}
+    for mode in ("auto", "push", "pull"):
+        deng.config = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
+        for loop in ("blocks", "eager"):
+            deng.loop = loop
+            deng.run(roots[0])  # warm: the capture
+            K.reset_launches()
+            rows = []
+            for r in roots:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, sched = deng.run(r)
+                secs = time.perf_counter() - t0
+                run = dict(deng.last_run)
+                (dist, parent), relay = want[r]
+                if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
+                    raise AssertionError(f"direction {mode} ({loop}) root {r}: differs from canonical_bfs")
+                if res.num_levels != relay.num_levels:
+                    raise AssertionError(f"direction {mode} ({loop}) root {r}: {res.num_levels} levels, "
+                                         f"relay {relay.num_levels}")
+                expect = host_schedule(outdeg, dist[None], mode, cfg.alpha, cfg.beta)
+                if sched["schedule"] != expect:
+                    raise AssertionError(f"direction {mode} ({loop}) root {r}: schedule "
+                                         f"{sched['schedule']}, the host's {expect}")
+                split = (run["issued_push"], run["issued_pull"])
+                if split != (sched["push_supersteps"], sched["pull_supersteps"]) or \
+                        run["issued"] != sum(split) or run["live"] != res.num_levels:
+                    raise AssertionError(f"direction {mode} ({loop}) root {r}: issued {run['issued']} "
+                                         f"as {split}, schedule {sched}")
+                if loop == "blocks" and run["replays"] != run["issued"]:
+                    raise AssertionError(f"direction {mode} root {r}: {run['replays']} replays in "
+                                         f"{run['issued']} supersteps issued")
+                verify(f"direction {mode} ({loop}) root {r}", res.dist, res.parent, r)
+                rows.append(dict(root=r, secs=secs, **run))
+                if mode == "auto" and loop == "blocks":
+                    out["schedules"][r] = sched["schedule"]
+                log(f"direction {mode} root {r}, {'captured' if loop == 'blocks' else 'eager'} loop: "
+                    f"{secs:.6f} s (level loop {run['loop_s']:.6f} s, results {run['result_s']:.6f} s), "
+                    f"{res.num_levels} levels; host reads {run['host_reads']}, replays "
+                    f"{run['replays']} (push {run['issued_push']}, pull {run['issued_pull']}), issued "
+                    f"{run['issued']}; schedule {','.join(sched['schedule'])}, equal "
+                    "to the host's; oracle-exact, equal to relay, DeviceChecker clean")
+            issued = sum(row["issued"] for row in rows)
+            controls = K.LAUNCHES["loop_control"]
+            if controls != (issued if loop == "blocks" else 0):
+                raise AssertionError(f"direction {mode} ({loop}): {controls} control steps in "
+                                     f"{issued} supersteps issued")
+            out["mean"][(mode, loop)] = float(np.mean([row["secs"] for row in rows]))
+    deng.loop = "blocks"
+    times = {}
+    for mode in ("auto", "push", "pull"):
+        deng.config = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
+        times[mode] = []
+        deng.run(roots[0], times=times[mode])
+    deng.config = cfg
+    names = ("push", "pull")
+    per_body = {b: float(np.mean([ms for _, ms in times[b]])) for b in names}
+    log(f"direction, root {roots[0]}: device ms of each superstep's replay (CUDA events), auto "
+        "(its body) beside the forced push and pull replays at that level: " + "; ".join(
+            f"{i + 1}: auto {names[b]} {ms:.4f} | push {times['push'][i][1]:.4f} | pull "
+            f"{times['pull'][i][1]:.4f}" for i, (b, ms) in enumerate(times["auto"]))
+        + f"; mean superstep push {per_body['push']:.4f} ms, pull {per_body['pull']:.4f} ms")
+    buffers = deng._loops[("auto", True, None)].buffers
+    frontier, dstate, ctl = buffers[1].clone(), buffers[-2].clone(), buffers[-1].clone()
+    decide_ms = cold_ms(lambda: D.decide_gated(dstate, ctl, frontier, deng.outdeg), 10)
+    log(f"direction: the decide step alone {decide_ms:.4f} ms (cold, mean of 10; the masses of a "
+        f"{frontier.numel()}-vertex frontier, the predicate, the gated writes)")
+    out.update(times=times, per_body=per_body, decide_ms=decide_ms)
+    return out
+
+
+def direction_batch_phase(deng, sources, relay, outdeg, K) -> dict:
+    """``DirectionEngine.run_multi`` (what ``bfs_multi_direction`` runs) in
+    ``auto`` (the engine's configuration) on the batch: the first call (captures) and a timed one, every
+    tree equal to the relay batch's and clean under the DeviceChecker, the
+    schedule equal to the host's recomputation from the relay batch's
+    trees, one replay per superstep."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    deng.run_multi(sources)
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res, sched = deng.run_multi(sources)
+    secs = time.perf_counter() - t0
+    run, peak = dict(deng.last_run), torch.cuda.max_memory_allocated()
+    if not (np.array_equal(res.dist, relay.dist) and np.array_equal(res.parent, relay.parent)
+            and res.num_levels == relay.num_levels):
+        raise AssertionError("bfs_multi_direction: a tree differs from the relay batch's")
+    cfg = deng.config
+    expect = host_schedule(outdeg, relay.dist, "auto", cfg.alpha, cfg.beta)
+    if sched["schedule"] != expect:
+        raise AssertionError(f"bfs_multi_direction: schedule {sched['schedule']}, the host's {expect}")
+    split = (run["issued_push"], run["issued_pull"])
+    if split != (sched["push_supersteps"], sched["pull_supersteps"]) or \
+            run["replays"] != run["issued"] or run["issued"] != sum(split) or \
+            K.LAUNCHES["loop_control"] != run["issued"]:
+        raise AssertionError(f"bfs_multi_direction: {run}, schedule {sched}")
+    for i, s in enumerate(sources.tolist()):
+        verify(f"bfs_multi_direction tree {i}", res.dist[i], res.parent[i], s)
+    log(f"bfs_multi_direction (auto), {len(sources)} sources: first call (captures) {first_s:.6f} s; "
+        f"then {secs:.6f} s per batch (level loop {run['loop_s']:.6f} s, results "
+        f"{run['result_s']:.6f} s), {secs / len(sources):.6f} s per tree, {res.num_levels} levels; "
+        f"schedule {sched['schedule']} (equal to the host's); host reads {run['host_reads']}, "
+        f"replays {run['replays']} (push {split[0]}, pull {split[1]}); peak device memory {peak} "
+        "bytes; every tree equal to the relay batch's, DeviceChecker clean")
+    return dict(first_s=first_s, secs=secs, run=run, peak=peak, schedule=sched["schedule"])
+
+
+def relay_curve_phase(eng, root: int, dist, K) -> dict:
+    """``RelayEngine.run_level_curve``: the recorder in the captured relay
+    block (K1-K4 and the control step per superstep, as the search
+    launches them), its occupancy equal to the oracle's level histogram
+    (so its sum is the reachable count), its schedule all ``pull``; timed
+    beside ``run`` on the same root."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.graph.csr import INF_DIST
+
+    eng.run_level_curve(root)  # warm: the capture
+    K.reset_launches()
+    curve = eng.run_level_curve(root)
+    run = dict(eng.last_run)
+    launches = {k: K.LAUNCHES[k] for k in GATHER_STEP}
+    if launches != {k: v * run["issued"] for k, v in GATHER_STEP.items()}:
+        raise AssertionError(f"run_level_curve: launches {launches} in {run['issued']} issued")
+    reached = dist != INF_DIST
+    hist = [int(x) for x in np.bincount(dist[reached])]
+    sched = curve["direction_schedule"]["schedule"]
+    if curve["occupancy"] != hist or curve["reachable"] != int(reached.sum()) or \
+            set(sched) != {"pull"} or len(sched) != curve["levels"]:
+        raise AssertionError(f"run_level_curve root {root}: {curve}")
+    secs = {"curve": [], "run": []}
+    for _ in range(3):  # in turns, so both see the same state of the caches
+        for name, fn in (("curve", lambda: eng.run_level_curve(root)), ("run", lambda: eng.run(root))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            secs[name].append(time.perf_counter() - t0)
+    curve_s, run_s = (float(np.mean(secs[k])) for k in ("curve", "run"))
+    log(f"RelayEngine.run_level_curve root {root}: {curve_s:.6f} s (run {run_s:.6f} s on the same "
+        f"root; mean of 3 each, in turns); occupancy {curve['occupancy']} sums to the oracle's {int(reached.sum())} reachable; "
+        f"frontier out-edges {curve['frontier_edges']}; schedule all pull ({curve['direction_schedule']['mode']}); "
+        f"host reads {run['host_reads']}, replays {run['replays']}, issued {run['issued']}; launches "
+        f"{launches}")
+    return dict(curve_s=curve_s, run_s=run_s, curve=curve)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1671,6 +1937,7 @@ def main(argv=None) -> int:
     eng = P.RelayEngine(rg, device="cuda")
     torch.cuda.synchronize()
     log(f"engine: layout shipped in {time.perf_counter() - t0:.2f} s")
+    CHECKER.update(dc=P.DeviceChecker.from_graph(g), passed=0)
 
     # ---- kernels against their plain versions -----------------------------
     kres = kernel_phase(eng, K, R, card)
@@ -1697,6 +1964,7 @@ def main(argv=None) -> int:
         violations = P.check(g, res.dist, res.parent, r)
         if violations:
             raise AssertionError(f"root {r}: check() violations {violations[:3]}")
+        verify(f"gather root {r}", res.dist, res.parent, r)
         want[r] = ((dist, parent), res)
     launches = {k: gather["launches"][k] for k in REPLACES}
     mean_s = gather["mean"]["secs"]
@@ -1704,6 +1972,8 @@ def main(argv=None) -> int:
         f"{mean_s:.6f} s/search, {directed_traversed / 2 / mean_s:.6g} undirected TEPS "
         f"({directed_traversed // 2} undirected edges in the component); launches {launches}")
     designs = result_designs(eng, root0)
+    curve = relay_curve_phase(eng, root0, want[root0][0][0], K)
+    corrupted = verify_corruptions(g, root0, *want[root0][0])
     gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L, eng)
 
     # ---- MXU arm: tiles, K6 against its plain version, the 4 searches ---
@@ -1740,6 +2010,19 @@ def main(argv=None) -> int:
                                                  multi["result"], K, L)
         del eeng
         torch.cuda.empty_cache()
+    # ---- the direction policy over push and pull, on the same layouts
+    from bfs_tpu_torch.models import direction as D
+
+    t0 = time.perf_counter()
+    deng = P.DirectionEngine.from_graph(dg, pull_graph=pg, config=P.resolve_direction("auto"))
+    torch.cuda.synchronize()
+    log(f"direction engine: both layouts shipped in {time.perf_counter() - t0:.2f} s; "
+        f"config {deng.config}")
+    direction = direction_phase(deng, g, roots, want, K, D)
+    direction["batch"] = direction_batch_phase(
+        deng, sources, multi["result"], np.bincount(g.src, minlength=g.num_vertices), K)
+    del deng
+    torch.cuda.empty_cache()
     runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
     del want
     cli_phase(K)
@@ -1812,6 +2095,16 @@ def main(argv=None) -> int:
         + ", ".join(f"{e} {sum(v) * 1e3:.3f} ({len(v)} steps)" for e, v in runners.items())
         + f"; relay runner step {relay_merge['step_ms']:.4f} ms against {relay_merge['plain_ms']:.4f} "
         "ms for K1-K3 and the unpacked merge (device, mean)")
+    log("direction policy (push/pull, plain torch bodies): mean s/search on the captured loop "
+        + ", ".join(f"{m} {direction['mean'][(m, 'blocks')]:.6f}" for m in ("auto", "push", "pull"))
+        + "; eager " + ", ".join(f"{m} {direction['mean'][(m, 'eager')]:.6f}"
+                                 for m in ("auto", "push", "pull"))
+        + f"; auto schedules {direction['schedules']}; superstep push "
+        f"{direction['per_body']['push']:.4f} ms, pull {direction['per_body']['pull']:.4f} ms, "
+        f"decide {direction['decide_ms']:.4f} ms; bfs_multi_direction {direction['batch']['secs']:.6f} s "
+        f"(schedule {direction['batch']['schedule']}); run_level_curve {curve['curve_s']:.6f} s "
+        f"against run {curve['run_s']:.6f} s; DeviceChecker: {CHECKER['passed']} results clean, "
+        f"corruptions flagged {corrupted}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -744,3 +744,112 @@ def test_card_relay_runner_matches_cpu(card):
         for x, y in zip(gpu.to_original(a, source=5), cpu.to_original(b, source=5)):
             np.testing.assert_array_equal(x, y)
     assert int(a.level) == int(b.level) and not bool(a.changed)
+
+
+# ------------------------------------------------ the direction loop, verifier --
+
+@pytest.mark.parametrize("mode", ["auto", "push", "pull"])
+def test_card_direction_loop_replays_one_body_per_superstep(card, mode):
+    """The two-graph direction loop on the card: each body's graph captured
+    once; every superstep one replay of the body that USE_PULL named (the
+    replays add up to the supersteps issued, their split is the schedule,
+    one control step each); results and schedules equal the CPU's, the
+    eager loop's and the oracle; a dead replay of either graph changes
+    nothing."""
+    from bfs_tpu_torch.models import direction as D
+    from bfs_tpu_torch.ops import control as C
+
+    g = P.gnm_graph(1 << 12, 3 << 12, seed=5)
+    s0 = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    cfg = D.DirectionConfig(mode=mode)
+    eng = D.DirectionEngine.from_graph(g, config=cfg)
+    cpu = D.DirectionEngine.from_graph(g, device="cpu", config=cfg)
+    eng.run(s0)  # captures the graphs
+    loop = eng._loops[(mode, True, None)]
+    assert all(b.graph is not None for b in loop.bodies.values())
+    assert sorted(loop.bodies) == ([0, 1] if mode == "auto" else [D._BODY[mode]])
+    for s in (s0, 9, 100):
+        K.reset_launches()
+        got, sched = eng.run(s)
+        run = dict(eng.last_run)
+        assert _counts(["loop_control"]) == {"loop_control": run["issued"]}
+        assert run["replays"] == run["issued"] == run["issued_push"] + run["issued_pull"]
+        assert (run["issued_push"], run["issued_pull"]) == (sched["push_supersteps"],
+                                                            sched["pull_supersteps"])
+        assert run["live"] == got.num_levels == len(sched["schedule"])
+        assert int(loop.ctl[C.USE_PULL]) in (0, 1)
+        want, wsched = cpu.run(s)
+        np.testing.assert_array_equal(got.dist, want.dist)
+        np.testing.assert_array_equal(got.parent, want.parent)
+        assert got.num_levels == want.num_levels and sched == wsched
+        eng.loop = "eager"
+        want, wsched = eng.run(s)
+        eng.loop = "blocks"
+        np.testing.assert_array_equal(got.dist, want.dist)
+        np.testing.assert_array_equal(got.parent, want.parent)
+        assert sched == wsched
+        dist, parent = P.canonical_bfs(g, s)
+        np.testing.assert_array_equal(got.dist, dist)
+        np.testing.assert_array_equal(got.parent, parent)
+    before = [b.clone() for b in loop.buffers]
+    for body in loop.bodies.values():
+        body.dead_replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, loop.buffers))
+    sources = [s0, 9, 100, 9]
+    a, asched = eng.run_multi(sources)
+    b, bsched = cpu.run_multi(sources)
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    assert asched == bsched
+    times = []
+    eng.run(s0, times=times)
+    assert [b for b, _ in times] == [int(x == "pull") for x in eng.run(s0)[1]["schedule"]]
+    assert all(ms > 0 for _, ms in times)
+    path, psched = D.bfs_direction(P.path_graph(80), 0, config=cfg)  # the unpacked re-run
+    np.testing.assert_array_equal(path.dist, np.arange(80, dtype=np.int32))
+    assert len(psched["schedule"]) == 80
+
+
+def test_card_level_curves_match_cpu(card):
+    g = P.rmat_graph(11, 6, seed=2)
+    for engine in ("pull", "push", "relay"):
+        got = P.bfs_level_curve(g, 5, engine=engine)
+        assert got == P.bfs_level_curve(g, 5, engine=engine, device="cpu")
+    assert (P.bfs_multi_level_curve(g, [5, 9, 5], engine="push")
+            == P.bfs_multi_level_curve(g, [5, 9, 5], engine="push", device="cpu"))
+    eng = P.RelayEngine(g)
+    eng.run_level_curve(5)
+    K.reset_launches()
+    curve = eng.run_level_curve(9)
+    run = eng.last_run
+    assert _counts(["class_rowmin", "packed_update", "loop_control"]) == {
+        "class_rowmin": run["issued"], "packed_update": run["issued"],
+        "loop_control": run["issued"]}
+    assert curve["reachable"] == int((P.canonical_bfs(g, 9)[0] != P.INF_DIST).sum())
+
+
+def test_card_device_checker_matches_cpu(card):
+    from bfs_tpu_torch.oracle.device import DeviceChecker
+
+    g = P.rmat_graph(11, 6, seed=2)
+    dc, cpu = DeviceChecker.from_graph(g), DeviceChecker.from_graph(g, device="cpu")
+    assert dc.src.is_cuda
+    dist, parent = P.canonical_bfs(g, [3, 40])
+    rng = np.random.default_rng(0)
+    for trial in range(4):
+        d, p = dist.copy(), parent.copy()
+        if trial:
+            idx = rng.choice(g.num_vertices, 6, replace=False)
+            d[idx[:3]] = rng.integers(0, 6, 3)
+            p[idx[3:]] = rng.integers(-1, g.num_vertices, 3)
+        got = dc.counts(torch.from_numpy(d).cuda(), torch.from_numpy(p).cuda(), [3, 40])
+        assert got.is_cuda
+        want = cpu.counts(torch.from_numpy(d), torch.from_numpy(p), [3, 40])
+        _eq(got, want)
+        assert (dc.check(d, p, [3, 40]) == {}) == (P.check(g, d, p, [3, 40]) == [])
+    words = dc.packed_reached(torch.from_numpy(dist).cuda())
+    assert dc.coverage_mismatch(torch.from_numpy(dist).cuda(), words) == 0
+    eng = P.RelayEngine(g)
+    st = eng.run_many_device([3])[0]
+    assert dc.check(*eng.to_original_device(st, 3), 3) == {}
