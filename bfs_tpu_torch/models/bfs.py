@@ -58,7 +58,7 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -167,7 +167,8 @@ class RelayEngine:
     ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
     they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
     ``direction`` (``push|pull|auto``, default ``BFS_TPU_TORCH_DIRECTION``)
-    is :attr:`direction`; every superstep runs dense, and ``push`` raises.
+    is :attr:`direction`; every superstep runs dense, and an explicit
+    ``push`` raises.
     """
 
     def __init__(
@@ -181,14 +182,21 @@ class RelayEngine:
         #: The direction policy (``BFS_TPU_TORCH_DIRECTION`` unless given).
         #: The port has no sparse hybrid superstep yet (ROADMAP A2 + A3), so
         #: ``auto`` and ``pull`` run the dense superstep every level, as the
-        #: reference's engine does with ``sparse_hybrid=False``.
-        self.direction = resolve_direction(direction)
-        if self.direction.mode == "push":
+        #: reference's engine does with ``sparse_hybrid=False``.  Its push
+        #: body is that sparse superstep: an explicit ``push`` raises, and a
+        #: ``push`` from the knob (which the edge engines honour) runs dense
+        #: here, labelled ``pull``, with a warning.
+        if direction == "push":
             raise ValueError(
                 "direction='push' needs the sparse hybrid superstep (the push body is "
                 "the sparse gather superstep), which the port does not have yet "
                 "(ROADMAP A2 + A3); use 'pull' or 'auto'"
             )
+        self.direction = resolve_direction(direction)
+        if self.direction.mode == "push":
+            logger.warning("BFS_TPU_TORCH_DIRECTION=push: the relay engine has no sparse push "
+                           "body yet (ROADMAP A2 + A3); every superstep runs dense (pull)")
+            self.direction = replace(self.direction, mode="pull")
         rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
         self.relay_graph = rg
         self.packed = packed_rank_fits(rg.in_classes)
@@ -742,9 +750,10 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Numpy arrays of ``tensors``: on a card each is copied into a pinned
     host tensor (PyTorch's caching host allocator, which reuses the block of
     a result the caller has freed) and the array is a view that keeps it
-    alive, one wait for all copies; on the CPU the tensors' own memory."""
+    alive, one wait for all copies; on the CPU copies (an unpacked run's
+    state is the loop's buffers, which the next run overwrites)."""
     if not tensors or tensors[0].device.type != "cuda":
-        return [t.numpy() for t in tensors]
+        return [t.numpy().copy() for t in tensors]
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
     for h, t in zip(host, tensors):
         h.copy_(t, non_blocking=True)
@@ -813,29 +822,39 @@ class EdgeEngine:
             return apply_candidates_packed(state, self.candidates(state), ctl)
         return apply_candidates(state, self.candidates(state), ctl)
 
-    def _carry_loop(self, packed: bool, trees: int | None) -> L.BlockLoop:
-        """The block loop of one carry kind for a single search (``trees``
-        None) or a batch of ``trees``: the gated superstep, its fields
-        copied into the carry, its flag raised, then the control step."""
+    def carry(self, packed: bool, trees: int | None):
+        """Static buffers of one carry kind for a single search (``trees``
+        None) or a batch of ``trees``: ``(fields, state)``, the state a view
+        of the fields."""
         shape = (self.num_vertices + 1,) if trees is None else (trees, self.num_vertices + 1)
 
-        def make():
-            def buf(dtype):
-                return torch.empty(shape, dtype=dtype, device=self.device)
+        def buf(dtype):
+            return torch.empty(shape, dtype=dtype, device=self.device)
 
+        if packed:
+            fields = (buf(torch.int32), buf(torch.bool))
+            return fields, PackedBfsState(*fields, None, None)
+        fields = (buf(torch.int32), buf(torch.int32), buf(torch.bool))
+        return fields, BfsState(*fields, None, None)
+
+    def gated_step(self, state, fields, ctl: torch.Tensor) -> None:
+        """One superstep gated by ``ctl`` on a carry's buffers (``state`` a
+        view of ``fields``): the new fields copied in, the flag raised."""
+        new = self.superstep(state, ctl)
+        for dst, src in zip(fields, new):
+            dst.copy_(src)
+        C.raise_flag(ctl, new.changed)
+
+    def _carry_loop(self, packed: bool, trees: int | None) -> L.BlockLoop:
+        """The block loop of one carry kind: the gated superstep, then the
+        control step."""
+
+        def make():
+            fields, state = self.carry(packed, trees)
             ctl = C.new_ctl(self.device)
-            if packed:
-                fields = (buf(torch.int32), buf(torch.bool))
-                state = PackedBfsState(*fields, None, None)
-            else:
-                fields = (buf(torch.int32), buf(torch.int32), buf(torch.bool))
-                state = BfsState(*fields, None, None)
 
             def step():
-                new = self.superstep(state, ctl)
-                for dst, src in zip(fields, new):
-                    dst.copy_(src)
-                C.raise_flag(ctl, new.changed)
+                self.gated_step(state, fields, ctl)
                 K.loop_control(ctl)
 
             return (*fields, ctl), step
@@ -846,12 +865,25 @@ class EdgeEngine:
     def _packed_loop(self) -> L.BlockLoop:
         return self._carry_loop(True, None)
 
-    def fused(self, sources, max_levels: int, packed: bool):
+    def _drive(self, init, cap: int, trees: int | None):
+        """The engine's level loop from the fresh state ``init`` (packed or
+        not) for at most ``cap`` levels: ``(state, LoopStats)``, the state
+        of ``init``'s kind on the device (on the block loop, the loop's
+        buffers)."""
+        if self.loop == "eager":
+            return L.eager(init, self.superstep, cap)
+        loop = self._carry_loop(isinstance(init, PackedBfsState), trees)
+        stats = loop.run(L.start(loop.buffers, init, cap))
+        return type(init)(*loop.buffers[:-1], None, None), stats
+
+    def fused(self, sources, max_levels: int, packed: bool, drive=None):
         """The level loop from one source (an int) or a batch (a sequence):
         ``(BfsState, LoopStats)``, the state unpacked, on the device, with
         ``level`` a host int and ``changed`` a host bool.  On the block
         loop an unpacked state's tensors are the loop's buffers: read them
-        before the next run."""
+        before the next run.  ``drive(init, cap, trees)`` runs another loop
+        over this engine's carry (the direction loop) in place of
+        :meth:`_drive`."""
         single = isinstance(sources, (int, np.integer))
         v = self.num_vertices
         if packed:
@@ -862,40 +894,41 @@ class EdgeEngine:
             init = init_state(v, sources, self.device) if single else \
                 init_batched_state(v, sources, self.device)
             cap = max_levels
-        if self.loop == "eager":
-            st, stats = L.eager(init, self.superstep, cap)
-        else:
-            loop = self._carry_loop(packed, None if single else len(sources))
-            stats = loop.run(L.start(loop.buffers, init, cap))
-            st = type(init)(*loop.buffers[:-1], None, None)
+        st, stats = (drive or self._drive)(init, cap, None if single else len(sources))
         if packed:
             st = unpack_bfs_state(st)
         return st._replace(level=stats.level, changed=stats.changed), stats
 
-    def _search(self, sources, max_levels: int):
+    def _search(self, sources, max_levels: int, drive=None):
         """:meth:`fused` on the engine's carry, re-run unpacked past the
         packed cap; the stats of both runs summed."""
-        st, stats = self.fused(sources, max_levels, self.packed)
+        st, stats = self.fused(sources, max_levels, self.packed, drive)
         if self.packed and packed_truncated(stats.changed, stats.level, max_levels):
-            st, more = self.fused(sources, max_levels, False)
+            st, more = self.fused(sources, max_levels, False, drive)
             stats = stats.add(more)
         return st, stats
 
-    def _host_run(self, sources, max_levels: int | None):
-        """``(dist, parent, num_levels)`` on the host for one source (an
-        int) or a batch (a list), with :attr:`last_run` set."""
+    def _host_run(self, sources, max_levels: int | None, drive=None, extra=None):
+        """``(dist, parent, extras, run)`` on the host for one source (an
+        int) or a batch (a list): ``extra()`` names device tensors (the
+        direction loop's accumulators) copied with the result, in its one
+        host read, into ``extras``; ``run`` is the host seconds and loop
+        counts (:attr:`last_run`)."""
         v = self.num_vertices
         check_sources(v, sources)
         max_levels = int(max_levels) if max_levels is not None else v
         t0 = time.perf_counter()
-        st, stats = self._search(sources, max_levels)
+        st, stats = self._search(sources, max_levels, drive)
         t1 = time.perf_counter()
-        dist, parent = to_host(st.dist[..., :v].contiguous(), st.parent[..., :v].contiguous())
-        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats)}
-        return dist, parent, stats.level
+        dist, parent, *extras = to_host(st.dist[..., :v].contiguous(),
+                                        st.parent[..., :v].contiguous(),
+                                        *(extra() if extra else ()))
+        run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats)}
+        return dist, parent, extras, run
 
     def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
-        return BfsResult(*self._host_run(int(source), max_levels))
+        dist, parent, _, self.last_run = self._host_run(int(source), max_levels)
+        return BfsResult(dist, parent, self.last_run["level"])
 
     def run_multi_device(self, sources, *, max_levels: int | None = None,
                          packed: bool | None = None) -> BfsState:
@@ -914,7 +947,8 @@ class EdgeEngine:
         """Lock-step batched BFS with host results; every tree equals its
         single-source search."""
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
-        return MultiBfsResult(sources, *self._host_run(sources.tolist(), max_levels))
+        dist, parent, _, self.last_run = self._host_run(sources.tolist(), max_levels)
+        return MultiBfsResult(sources, dist, parent, self.last_run["level"])
 
 
 def bfs(

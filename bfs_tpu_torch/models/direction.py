@@ -36,7 +36,7 @@ masses, which both carries produce).
 
 from __future__ import annotations
 
-import time
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,19 +49,11 @@ from ..graph.relay import RelayGraph
 from ..obs import telemetry as T
 from ..ops import control as C
 from ..ops import relay_cuda as K
-from ..ops.packed import packed_cap, packed_truncated
-from ..ops.relax import (
-    BfsState,
-    PackedBfsState,
-    init_batched_state,
-    init_packed_batched_state,
-    init_packed_state,
-    init_state,
-    unpack_bfs_state,
-)
+from ..ops.packed import packed_cap
+from ..ops.relax import PackedBfsState
 from ..ops.relay import unpack_std
 from . import loop as L
-from .bfs import BfsResult, EdgeEngine, check_sources, resolve_device, to_host
+from .bfs import BfsResult, EdgeEngine, check_sources, resolve_device
 from .multisource import MultiBfsResult
 
 DEFAULT_ALPHA = 14.0
@@ -203,7 +195,6 @@ class DirectionEngine:
         first = next(iter(self.engines.values()))
         self.device = first.device
         self.num_vertices = first.num_vertices
-        self.packed = first.packed
         self.config = config if config is not None else resolve_direction()
         self.outdeg = None
         if push is not None:
@@ -235,30 +226,38 @@ class DirectionEngine:
                              f"{' and '.join(('push', 'pull')[b] for b in missing)} layout")
         return bodies
 
+    @property
+    def packed(self) -> bool:
+        """Whether a run starts on the packed carry (the engines' choice;
+        setting it sets theirs)."""
+        return self._lead.packed
+
+    @packed.setter
+    def packed(self, value: bool) -> None:
+        for eng in self.engines.values():
+            eng.packed = value
+
+    @property
+    def _lead(self) -> EdgeEngine:
+        """The engine whose search path (:meth:`EdgeEngine.fused`, the
+        packed-cap re-run, the host result path) runs the direction loop
+        over its carry."""
+        return next(iter(self.engines.values()))
+
     # -- the loop on the device ------------------------------------------------
 
     def _switch_loop(self, mode: str, packed: bool, trees: int | None) -> L.SwitchLoop:
         """The direction loop of one mode and carry kind: carry ``(fields...,
         occupancy, directions, decision state, ctl)``; one step per body:
-        the gated superstep copied into the carry, its flag raised, the
-        occupancy and direction of the level it settles recorded, in
-        ``auto`` the next decision, then the control step."""
+        the gated superstep, the occupancy and direction of the level it
+        settles recorded, in ``auto`` the next decision, then the control
+        step."""
         bodies = self._bodies(mode)
         key = (mode, packed, trees)
         loop = self._loops.get(key)
         if loop is not None:
             return loop
-        shape = (self.num_vertices + 1,) if trees is None else (trees, self.num_vertices + 1)
-
-        def buf(dtype):
-            return torch.empty(shape, dtype=dtype, device=self.device)
-
-        if packed:
-            fields = (buf(torch.int32), buf(torch.bool))
-            state = PackedBfsState(*fields, None, None)
-        else:
-            fields = (buf(torch.int32), buf(torch.int32), buf(torch.bool))
-            state = BfsState(*fields, None, None)
+        fields, state = self._lead.carry(packed, trees)
         occ, dirs = T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)
         dstate = torch.zeros(DECIDE_WORDS, dtype=torch.float32, device=self.device)
         ctl = C.new_ctl(self.device)
@@ -268,10 +267,7 @@ class DirectionEngine:
             eng, code = self.engines[body], _CODE[body]
 
             def step():
-                new = eng.superstep(state, ctl)
-                for dst, src in zip(fields, new):
-                    dst.copy_(src)
-                C.raise_flag(ctl, new.changed)
+                eng.gated_step(state, fields, ctl)
                 level, live = ctl[C.LEVEL] + 1, ctl[C.LIVE] != 0
                 T.record_frontier_bools(occ, frontier, level, live)
                 T.record_direction(dirs, level, code, live)
@@ -285,103 +281,80 @@ class DirectionEngine:
         self._loops[key] = loop
         return loop
 
-    def _fused(self, sources, cap: int, packed: bool, mode: str, times: list | None):
-        """One run from ``sources`` (an int or a list) to ``cap`` levels:
-        ``(state, occupancy, directions, LoopStats, issued per body)``, the
-        state unpacked on the device (on the block loop, the loop's
-        buffers), the accumulators on the device."""
-        single = isinstance(sources, (int, np.integer))
-        v, dev = self.num_vertices, self.device
-        if packed:
-            init = init_packed_state(v, sources, dev) if single else \
-                init_packed_batched_state(v, sources, dev)
-        else:
-            init = init_state(v, sources, dev) if single else init_batched_state(v, sources, dev)
-        trees = 1 if single else len(sources)
+    def _drive(self, init, cap: int, trees: int | None, *, mode: str, times: list | None):
+        """The direction loop as the ``drive`` hook (see
+        :meth:`EdgeEngine.fused`): ``(state, LoopStats)`` from the fresh
+        state ``init``; the supersteps issued per body are added to
+        ``_issued`` and the run's accumulators and carry kind left in
+        ``_tel`` (the last run's: the re-run's past the packed cap)."""
+        packed = isinstance(init, PackedBfsState)
         if self.loop == "eager":
-            st, occ, dirs, stats, issued = self._eager(init, trees, cap, mode)
+            st, stats, occ, dirs = self._eager(init, trees or 1, cap, mode)
         else:
-            loop = self._switch_loop(mode, packed, None if single else trees)
+            loop = self._switch_loop(mode, packed, trees)
             *fields, occ, dirs, dstate, ctl = loop.buffers
-            for dst, src in zip(fields, init):
-                dst.copy_(src)
-            occ.copy_(T.init_level_acc(trees, device=dev))
+            live = L.start((*fields, ctl), init, cap)
+            occ.copy_(T.init_level_acc(trees or 1, device=self.device))
             dirs.zero_()
-            live = C.init_ctl(ctl, cap)
             if mode == "auto":
                 ctl[C.USE_PULL] = init_decision(dstate, fields[-1], self.outdeg,
                                                 self.config).to(torch.int32)
             else:
                 ctl[C.USE_PULL] = _BODY[mode]
             stats, issued = loop.run(live, times)
+            for body, n in issued.items():
+                self._issued[body] += n
             st = type(init)(*fields, None, None)
-        if packed:
-            st = unpack_bfs_state(st)
-        return st._replace(level=stats.level, changed=stats.changed), occ, dirs, stats, issued
+        self._tel = (occ, dirs, packed)
+        return st, stats
 
-    def _eager(self, state, trees: int, cap: int, mode: str):
-        """The plain version of the direction loop: each superstep the body
-        of the last decision, the telemetry recorded, the next decision
-        taken, and one host read of ``changed`` and the decision."""
+    def _eager(self, init, trees: int, cap: int, mode: str):
+        """The plain version of the direction loop on :func:`loop.eager`:
+        each superstep the body of the last decision, the telemetry
+        recorded, the next decision taken and read with ``changed`` in the
+        level's one host read.  Returns ``(state, stats, occupancy,
+        directions)``."""
         occ, dirs = T.init_level_acc(trees, device=self.device), T.init_dir_acc(device=self.device)
-        stats, issued = L.LoopStats(), {b: 0 for b in self._bodies(mode)}
+        dstate = torch.zeros(DECIDE_WORDS, dtype=torch.float32, device=self.device)
+        use_pull = mode == "pull"
         if mode == "auto":
-            dstate = torch.zeros(DECIDE_WORDS, dtype=torch.float32, device=self.device)
-            use_pull = bool(init_decision(dstate, state.frontier, self.outdeg, self.config))
-            stats.host_reads += 1
-        else:
-            use_pull = mode == "pull"
-        changed = True
-        while changed and stats.level < cap:
+            use_pull = bool(init_decision(dstate, init.frontier, self.outdeg, self.config))
+
+        def step(state):
+            nonlocal use_pull
             body = int(use_pull)
             state = self.engines[body].superstep(state)
             T.record_frontier_bools(occ, state.frontier, state.level)
             T.record_direction(dirs, state.level, _CODE[body])
-            if mode == "auto":
-                use, dstate[MU], dstate[FE] = decide(dstate, use_pull, state.frontier, self.outdeg)
-                changed, use_pull = (bool(x) for x in torch.stack([state.changed, use]).tolist())
-            else:
-                changed = bool(state.changed)
-            issued[body] += 1
-            stats.level += 1
-            stats.host_reads += 1
-            stats.issued += 1
-            stats.live += 1
-        stats.changed = changed
-        return state, occ, dirs, stats, issued
+            self._issued[body] += 1
+            if mode != "auto":
+                return state
+            use, dstate[MU], dstate[FE] = decide(dstate, use_pull, state.frontier, self.outdeg)
+            changed, use_pull = (bool(x) for x in torch.stack([state.changed, use]).tolist())
+            return state._replace(changed=changed)
 
-    def _search(self, sources, max_levels: int, mode: str, times: list | None = None):
-        """:meth:`_fused` on the engine's carry, re-run unpacked past the
-        packed cap (the telemetry of the re-run); the counts of both runs
-        summed.  Returns ``(state, occupancy, directions, stats, issued,
-        packed_run)``."""
-        packed = self.packed
-        cap = packed_cap(max_levels) if packed else max_levels
-        st, occ, dirs, stats, issued = self._fused(sources, cap, packed, mode, times)
-        if packed and packed_truncated(stats.changed, stats.level, max_levels):
-            st, occ, dirs, more, again = self._fused(sources, max_levels, False, mode, times)
-            stats = stats.add(more)
-            issued = {b: issued[b] + again[b] for b in issued}
-            packed = False
-        return st, occ, dirs, stats, issued, packed
+        st, stats = L.eager(init, step, cap)
+        stats.host_reads += mode == "auto"  # the first decision
+        return st, stats, occ, dirs
+
+    def _start(self, times: list | None = None):
+        """A run's ``drive`` hook, its per-body counts zeroed."""
+        mode = self.config.mode
+        self._issued = dict.fromkeys(self._bodies(mode), 0)
+        return functools.partial(self._drive, mode=mode, times=times)
 
     def _host_run(self, sources, max_levels: int | None, times: list | None):
         """``(dist, parent, num_levels, schedule)`` on the host for one
-        source (an int) or a batch (a list), with :attr:`last_run` set."""
-        v = self.num_vertices
-        check_sources(v, sources)
-        mode = self.config.mode
-        max_levels = int(max_levels) if max_levels is not None else v
-        t0 = time.perf_counter()
-        st, occ, dirs, stats, issued, _ = self._search(sources, max_levels, mode, times)
-        t1 = time.perf_counter()
-        dist, parent = to_host(st.dist[..., :v].contiguous(), st.parent[..., :v].contiguous())
-        (dirs_h,) = T.read_telemetry(dirs)
-        schedule = T.direction_schedule(dirs_h, mode=mode, alpha=self.config.alpha,
-                                        beta=self.config.beta)
-        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats),
-                         "issued_push": issued.get(0, 0), "issued_pull": issued.get(1, 0)}
-        return dist, parent, stats.level, schedule
+        source (an int) or a batch (a list), with :attr:`last_run` set; the
+        direction accumulator comes back in the result's host read."""
+        drive = self._start(times)
+        dist, parent, (dirs,), run = self._lead._host_run(
+            sources, max_levels, drive, extra=lambda: self._tel[1:2])
+        cfg = self.config
+        schedule = T.direction_schedule(dirs, mode=cfg.mode, alpha=cfg.alpha, beta=cfg.beta)
+        self.last_run = {**run, "issued_push": self._issued.get(0, 0),
+                         "issued_pull": self._issued.get(1, 0)}
+        return dist, parent, run["level"], schedule
 
     def run(self, source: int = 0, *, max_levels: int | None = None,
             times: list | None = None) -> tuple[BfsResult, dict]:
@@ -403,10 +376,10 @@ class DirectionEngine:
         """The level curve of one search (``sources`` an int) or a batch (a
         list) in the engine's forced mode: one read of the occupancy
         accumulator at exit; the state stays on the device."""
-        mode = self.config.mode
         check_sources(self.num_vertices, sources)
         max_levels = int(max_levels) if max_levels is not None else self.num_vertices
-        _, occ, _, stats, _, packed_run = self._search(sources, max_levels, mode)
+        _, stats = self._lead._search(sources, max_levels, self._start())
+        occ, _, packed_run = self._tel
         (fv,) = T.read_telemetry(occ)
         cap = packed_cap(max_levels) if packed_run else max_levels
         self.last_run = vars(stats)

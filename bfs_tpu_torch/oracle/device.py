@@ -103,37 +103,51 @@ def _coverage_mismatch(dist: torch.Tensor, ref_words: torch.Tensor, v: int) -> t
 class DeviceChecker:
     """The verifier bound to one graph's edge arrays on a device.
 
-    Ships the flat ``(src, dst)`` edges once (tensors already on the
-    device, such as the push engine's, are used as they are) and then
-    verifies any number of results for 24 bytes each.  Results from any
-    engine work once ``dist``/``parent`` are in original ids, as
+    Ships the flat ``(src, dst)`` edges once and then verifies any number
+    of results for 24 bytes each.  Edges that are tensors already (such as
+    the push engine's) stay where they are unless ``device`` names another;
+    host arrays go to the card unless ``device`` names the CPU, and without
+    a card that raises.  Results from any engine work once
+    ``dist``/``parent`` are in original ids, as
     :meth:`~bfs_tpu_torch.models.bfs.RelayEngine.to_original_device` gives
-    them without leaving the device."""
+    them without leaving the device; a result tensor on another device than
+    the checker's raises rather than being copied."""
 
     def __init__(self, src, dst, num_vertices: int, device=None):
+        from ..models.bfs import resolve_device
+
+        if device is None and isinstance(src, torch.Tensor):
+            dev = src.device
+        else:
+            dev = resolve_device(device)
         self.num_vertices = int(num_vertices)
-        self.src = torch.as_tensor(src, device=device).reshape(-1)
-        self.dst = torch.as_tensor(dst, device=device).reshape(-1)
-        self.device = self.src.device
+        self.src, self.dst = (
+            (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x)))
+            .to(dev).reshape(-1) for x in (src, dst))
+        self.device = self.src.device  # with its index: cuda:0, not cuda
 
     @classmethod
     def from_graph(cls, graph: Graph | DeviceGraph, device=None) -> "DeviceChecker":
         """From a host :class:`Graph` or padded :class:`DeviceGraph` (its
         sentinel edges are inert), on the card unless ``device`` names
         another."""
-        from ..models.bfs import resolve_device
-
-        dev = resolve_device(device)
-        return cls(torch.from_numpy(np.asarray(graph.src, dtype=np.int32)).to(dev),
-                   torch.from_numpy(np.asarray(graph.dst, dtype=np.int32)).to(dev),
-                   graph.num_vertices)
+        return cls(np.asarray(graph.src, dtype=np.int32), np.asarray(graph.dst, dtype=np.int32),
+                   graph.num_vertices, device=device)
 
     @property
     def edge_bytes(self) -> int:
         return (self.src.numel() + self.dst.numel()) * 4
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        """A result on the checker's device: host arrays are copied there;
+        a tensor elsewhere raises (verifying it here would move a card's
+        result to the host, or a host result to the card, unasked)."""
+        if isinstance(x, torch.Tensor):
+            if x.device != self.device:
+                raise ValueError(f"a result on {x.device} given to a DeviceChecker on "
+                                 f"{self.device}; build the checker on the result's device")
+            return x
+        return torch.as_tensor(np.asarray(x), device=self.device)
 
     def counts(self, dist, parent, sources) -> torch.Tensor:
         """The device int32[6] violation counters (:data:`COUNT_FIELDS`);

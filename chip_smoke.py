@@ -235,6 +235,28 @@ def device_trace(label: str, fn, wall_s: float, expect: str | None = None) -> fl
     return idle
 
 
+def host_trace(label: str, fn, top: int = 8) -> dict:
+    """Trace one call of ``fn`` with ``torch.profiler`` and print the host
+    time by event name, the ``top`` largest (self CPU ms and calls): the
+    CUDA runtime calls (``cudaHostAlloc``, ``cudaStreamSynchronize``,
+    ``cudaMemcpyAsync``, ``cudaGraphLaunch``) and the aten ops, which say
+    where a result path's host time goes.  Returns {name: self ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_cpu_time_total * 1e-3, e.count) for e in prof.key_averages()),
+                  key=lambda r: -r[1])[:top]
+    log(f"host trace, {label}: traced {traced_s:.6f} s; host self ms by event: "
+        + ", ".join(f"{k[:40]} {ms:.4f} ({n})" for k, ms, n in rows))
+    return {k: ms for k, ms, _ in rows}
+
+
 def kernel_phase(eng, K, R, card: str) -> dict:
     """Each kernel against its plain version on the card, on the inputs the
     main path gives it at the superstep with the largest frontier; each loop
@@ -1771,7 +1793,17 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
                 raise AssertionError(f"direction {mode} ({loop}): {controls} control steps in "
                                      f"{issued} supersteps issued")
             out["mean"][(mode, loop)] = float(np.mean([row["secs"] for row in rows]))
+            out.setdefault("split", {})[(mode, loop)] = {
+                k: float(np.mean([row[k] for row in rows])) for k in ("secs", "loop_s", "result_s")}
+    log("direction, mean over the roots (search s / level loop s / result copy s): " + "; ".join(
+        f"{mode} {'captured' if loop == 'blocks' else 'eager'} {v['secs']:.6f} / "
+        f"{v['loop_s']:.6f} / {v['result_s']:.6f}" for (mode, loop), v in out["split"].items()))
     deng.loop = "blocks"
+    deng.config = D.DirectionConfig("auto", cfg.alpha, cfg.beta)
+    kept = deng.run(roots[0])  # a result alive, as in the timed loop
+    host_trace(f"direction auto, captured loop, root {roots[1]} (the result copy: "
+               "cudaHostAlloc, cudaMemcpyAsync, cudaStreamSynchronize)", lambda: deng.run(roots[1]))
+    del kept
     times = {}
     for mode in ("auto", "push", "pull"):
         deng.config = D.DirectionConfig(mode, cfg.alpha, cfg.beta)

@@ -853,3 +853,18 @@ def test_card_device_checker_matches_cpu(card):
     eng = P.RelayEngine(g)
     st = eng.run_many_device([3])[0]
     assert dc.check(*eng.to_original_device(st, 3), 3) == {}
+
+
+def test_card_device_checker_host_edges_land_on_the_card(card):
+    """Host edge arrays with no device named go to the card; a card result
+    given to a CPU checker raises rather than being copied to the host."""
+    from bfs_tpu_torch.oracle.device import DeviceChecker
+
+    g = P.rmat_graph(9, 4, seed=1)
+    dc = DeviceChecker(g.src, g.dst, g.num_vertices)
+    assert dc.src.is_cuda and dc.dst.is_cuda and dc.device.type == "cuda"
+    dist, parent = P.canonical_bfs(g, 5)
+    assert dc.check(torch.from_numpy(dist).cuda(), torch.from_numpy(parent).cuda(), 5) == {}
+    cpu = DeviceChecker(g.src, g.dst, g.num_vertices, device="cpu")
+    with pytest.raises(ValueError):
+        cpu.check(torch.from_numpy(dist).cuda(), parent, 5)

@@ -161,3 +161,22 @@ def test_fields_and_device_choice():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             PD.DeviceChecker.from_graph(_graphs()["tiny"])
+
+
+def test_constructor_device_choice():
+    """Host edge arrays go to the card unless the caller names the CPU
+    (without a card that raises); tensor edges keep their device; a result
+    tensor on another device than the checker's raises, not copied."""
+    g = _graphs()["tiny"]
+    src, dst = g.src.copy(), g.dst.copy()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            PD.DeviceChecker(src, dst, g.num_vertices)
+    dc = PD.DeviceChecker(src, dst, g.num_vertices, device="cpu")
+    assert dc.device == torch.device("cpu") and dc.src.dtype == torch.int32
+    same = PD.DeviceChecker(torch.from_numpy(src), torch.from_numpy(dst), g.num_vertices)
+    assert same.device == torch.device("cpu")
+    dist, parent = canonical_bfs(_jgraph(g), 0)
+    assert dc.check(dist, parent, 0) == {} == same.check(torch.from_numpy(dist), parent, 0)
+    with pytest.raises(ValueError, match="meta"):
+        dc.check(torch.empty(g.num_vertices, dtype=torch.int32, device="meta"), parent, 0)

@@ -332,3 +332,22 @@ def test_star_and_snap_generators_match_reference(n, hub):
     np.testing.assert_array_equal(a.dst, b.dst)
     np.testing.assert_array_equal(P.snap_shape_edges(1000 + n, 5000, seed=hub),
                                   JG.snap_shape_edges(1000 + n, 5000, seed=hub))
+
+
+@pytest.mark.parametrize("engine", ["push", "pull", "direction"])
+def test_results_outlive_the_next_run(engine):
+    """A search past the packed cap ends on the unpacked carry, whose
+    buffers the next run reuses: the host result it returned must not
+    change when the engine runs again."""
+    g = P.path_graph(80)
+    if engine == "direction":
+        eng = D.DirectionEngine.from_graph(g, device="cpu")
+        first, again = eng.run(0)[0], lambda: eng.run(79)
+    else:
+        eng = P.EdgeEngine(g, engine=engine, device="cpu")
+        first, again = eng.run(0), lambda: eng.run(79)
+    dist, parent = first.dist.copy(), first.parent.copy()
+    assert first.num_levels == 80
+    again()
+    np.testing.assert_array_equal(first.dist, dist)
+    np.testing.assert_array_equal(first.parent, parent)

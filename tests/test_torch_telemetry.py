@@ -123,6 +123,29 @@ def test_relay_refuses_push_as_the_reference_does():
         JRelayEngine(_jgraph(g), sparse_hybrid=False, direction="push")
 
 
+@needs_native
+def test_relay_runs_dense_under_the_push_knob(monkeypatch):
+    """``BFS_TPU_TORCH_DIRECTION=push`` (which the edge engines honour)
+    does not make the relay entry points raise: they run the dense
+    superstep, as the reference's relay engine runs under
+    ``BFS_TPU_DIRECTION=push``, with the schedule labelled pull."""
+    monkeypatch.setenv("BFS_TPU_TORCH_DIRECTION", "push")
+    g = P.gnm_graph(200, 600, seed=4)
+    dist, parent = P.canonical_bfs(g, 3)
+    res = P.bfs(g, 3, engine="relay", device="cpu")
+    np.testing.assert_array_equal(res.dist, dist)
+    np.testing.assert_array_equal(res.parent, parent)
+    res = P.SuperstepRunner(g, engine="relay", device="cpu").run(3)
+    np.testing.assert_array_equal(res.dist, dist)
+    np.testing.assert_array_equal(res.parent, parent)
+    multi = P.bfs_multi(g, [3, 7], engine="relay", device="cpu")
+    np.testing.assert_array_equal(multi.dist[0], dist)
+    curve = P.bfs_level_curve(g, 3, engine="relay", device="cpu")
+    sched = curve["direction_schedule"]
+    assert sched["mode"] == "pull" and set(sched["schedule"]) == {"pull"}
+    assert P.bfs_level_curve(g, 3, engine="push", device="cpu")["occupancy"] == curve["occupancy"]
+
+
 def test_one_telemetry_read_per_curve(monkeypatch):
     """A curve costs one host read of the accumulators (a few hundred
     elements), never of the V-sized state."""
