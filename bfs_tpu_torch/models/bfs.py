@@ -47,6 +47,20 @@ against bit-packed 128x128 adjacency tiles (:mod:`bfs_tpu_torch.graph.adj_tiles`
 whose candidates are ORIGINAL ids that the packed update merges as they
 are.  The element-major batch stays on the gather formulation.
 
+The relay engine's schedule (``sparse_hybrid=True``, the default, as in the
+reference): in the ``auto`` and ``push`` modes of its direction policy each
+superstep runs one of two bodies over one carry, the sparse superstep of
+:mod:`bfs_tpu_torch.ops.sparse` (``push``: the frontier's out-edges
+gathered from the layout's CSR, plain torch, XLA in the reference) or the
+dense one above (``pull``).  ``auto`` takes the Beamer rule of
+:mod:`bfs_tpu_torch.models.direction` or'd with "the frontier is over the
+sparse budgets"; ``push`` takes the sparse body whenever the frontier fits
+them.  The loop is a :class:`~bfs_tpu_torch.models.loop.SwitchLoop`: one
+captured graph per body, each ending with the next body written into the
+control block, which the host reads after every superstep.  ``pull``, and
+every mode of an engine built with ``sparse_hybrid=False``, runs the dense
+superstep in blocks of :data:`~bfs_tpu_torch.models.loop.BLOCK`.
+
 Level curves (:mod:`bfs_tpu_torch.obs.telemetry`): :func:`bfs_level_curve`
 runs push and pull through the direction loop in their forced mode
 (:mod:`bfs_tpu_torch.models.direction`); :meth:`RelayEngine.run_level_curve`
@@ -58,7 +72,7 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -73,6 +87,7 @@ from ..ops import relay as R
 from ..ops import relay_cuda as K
 from ..ops import relay_elem as RE
 from ..ops import relay_mxu as RM
+from ..ops import sparse as S
 from ..ops.packed import (
     INT32_MAX,
     PACKED_MAX_LEVELS,
@@ -100,6 +115,7 @@ from ..ops.relax import (
     unpack_bfs_state,
 )
 from ..ops.relay import slots_to_parent
+from ..ops.sparse import SPARSE_BE, SPARSE_BV, sparse_budgets  # noqa: F401  (the reference's names)
 from . import loop as L
 from .multisource import MultiBfsResult
 
@@ -167,12 +183,17 @@ class RelayEngine:
     ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
     they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
     ``direction`` (``push|pull|auto``, default ``BFS_TPU_TORCH_DIRECTION``)
-    is :attr:`direction`; every superstep runs dense, and an explicit
-    ``push`` raises.
+    is :attr:`direction`, the schedule's policy.  ``sparse_hybrid`` (default
+    True, as in the reference) ships the sparse body's adjacency
+    (:mod:`bfs_tpu_torch.ops.sparse`) so that ``auto`` and ``push`` run the
+    hybrid schedule; without it every superstep is dense and ``push``
+    raises, from the argument or the knob.  :meth:`run` and
+    :meth:`run_level_curve` run the schedule; :meth:`run_multi`,
+    :meth:`run_multi_elem` and :meth:`step` stay dense, as the reference's.
     """
 
     def __init__(
-        self, graph: Graph | RelayGraph, *, device=None,
+        self, graph: Graph | RelayGraph, *, device=None, sparse_hybrid: bool = True,
         expansion: str | None = None, tiles_budget_bytes: int | None = None,
         direction: str | None = None,
     ):
@@ -180,23 +201,13 @@ class RelayEngine:
 
         self.device = resolve_device(device)
         #: The direction policy (``BFS_TPU_TORCH_DIRECTION`` unless given).
-        #: The port has no sparse hybrid superstep yet (ROADMAP A2 + A3), so
-        #: ``auto`` and ``pull`` run the dense superstep every level, as the
-        #: reference's engine does with ``sparse_hybrid=False``.  Its push
-        #: body is that sparse superstep: an explicit ``push`` raises, and a
-        #: ``push`` from the knob (which the edge engines honour) runs dense
-        #: here, labelled ``pull``, with a warning.
-        if direction == "push":
-            raise ValueError(
-                "direction='push' needs the sparse hybrid superstep (the push body is "
-                "the sparse gather superstep), which the port does not have yet "
-                "(ROADMAP A2 + A3); use 'pull' or 'auto'"
-            )
         self.direction = resolve_direction(direction)
-        if self.direction.mode == "push":
-            logger.warning("BFS_TPU_TORCH_DIRECTION=push: the relay engine has no sparse push "
-                           "body yet (ROADMAP A2 + A3); every superstep runs dense (pull)")
-            self.direction = replace(self.direction, mode="pull")
+        if self.direction.mode == "push" and not sparse_hybrid:
+            raise ValueError(
+                "direction='push' needs sparse_hybrid=True (the push body is the sparse "
+                "gather superstep); use 'pull' or 'auto'"
+            )
+        self.sparse_hybrid = bool(sparse_hybrid)
         rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
         self.relay_graph = rg
         self.packed = packed_rank_fits(rg.in_classes)
@@ -213,13 +224,19 @@ class RelayEngine:
         # Result mapping tables (relabeled -> original ids), on the device.
         self.old2new = torch.from_numpy(rg.old2new.astype(np.int64)).to(dev)
         self.src_l1 = torch.from_numpy(np.asarray(rg.src_l1, dtype=np.int32)).to(dev)
+        #: Out-degree per relabeled vertex, int32[vr] (the masses, the edge curve).
+        self.outdeg = torch.from_numpy(
+            np.diff(rg.adj_indptr[: rg.vr + 1].astype(np.int64)).astype(np.int32)).to(dev)
         #: Host seconds of the last run: the level loop (it ends in a
-        #: device read) and the result mapping with its copy to the host.
+        #: device read) and the result mapping with its copy to the host;
+        #: the loop's counts, with ``issued_push`` and ``issued_pull`` (the
+        #: supersteps issued per body) on single-source searches.
         self.last_run: dict = {}
         self.adj_tiles = None
         self._route_index = None
         self._rank_tables = None
-        self._outdeg = None
+        self._sparse: dict = {}
+        self._issued = {0: 0, 1: 0}
         #: ``blocks``: the level loop runs in blocks of gated supersteps
         #: (:mod:`~bfs_tpu_torch.models.loop`, captured and replayed on a
         #: card); ``eager``: its plain version, a host read of ``changed``
@@ -227,6 +244,8 @@ class RelayEngine:
         self.loop = "blocks"
         self._loops: dict = {}
         self._resolve_expansion(expansion, tiles_budget_bytes)
+        if self.sparse_hybrid:
+            self._sparse_tensors_for(self.packed)  # the engine's own carry flavor, now
 
     # -- the expansion arm --------------------------------------------------
 
@@ -305,7 +324,192 @@ class RelayEngine:
         unpacked merge (torch ops)."""
         return R.apply_relay_candidates(st, self._cand_unpacked(st.fwords))
 
-    # -- stepped execution (SuperstepRunner) ----------------------------------
+    def _gated_dense(self, st, ctl: torch.Tensor) -> None:
+        """One dense superstep gated by ``ctl``, in place on a loop's carry
+        (``st`` views of its buffers): on the packed carry ``packed_update``
+        writes the words and the next frontier; on the unpacked carry the
+        merge (torch ops) is copied in and the flag raised."""
+        if isinstance(st, R.PackedRelayState):
+            K.apply_relay_candidates_packed(st, self._cand_packed(st.fwords, ctl),
+                                            fwords_out=st.fwords, ctl=ctl)
+            return
+        new = R.apply_relay_candidates(st, self._cand_unpacked(st.fwords, ctl), ctl)
+        for dst, src in zip(st[:3], new[:3]):
+            dst.copy_(src)
+        C.raise_flag(ctl, new.changed)
+
+    # -- the sparse body and the schedule (sparse_hybrid) ---------------------
+
+    def _sparse_tensors_for(self, packed: bool) -> S.SparseAdjacency:
+        """The sparse body's operands for a carry flavor: the third array is
+        the original ids (keys) on the MXU arm, ranks for the packed gather
+        carry and L1 slots for the unpacked one (the re-run past the packed
+        cap), each built on the host and shipped at its first use; the CSR
+        and the out-degrees are shipped once and shared."""
+        if not self.sparse_hybrid:
+            raise ValueError("the sparse superstep needs an engine built with sparse_hybrid=True")
+        flavor = "keys" if self.expansion == "mxu" else ("ranks" if packed else "slots")
+        adj = self._sparse.get(flavor)
+        if adj is None:
+            rg, dev = self.relay_graph, self.device
+            shared = next(iter(self._sparse.values()), None)
+            if shared is None:
+                indptr = torch.from_numpy(np.ascontiguousarray(rg.adj_indptr, np.int32)).to(dev)
+                dst = torch.from_numpy(np.ascontiguousarray(rg.adj_dst, np.int32)).to(dev)
+            else:
+                indptr, dst = shared.indptr, shared.dst
+            third = S.sparse_third(rg, packed, self.expansion == "mxu")
+            adj = S.SparseAdjacency(indptr, dst, torch.from_numpy(third).to(dev), self.outdeg)
+            self._sparse[flavor] = adj
+        return adj
+
+    def _hybrid(self) -> bool:
+        """Does a search run the hybrid schedule (the switch loop)?"""
+        return self.sparse_hybrid and self.direction.mode != "pull"
+
+    def _first_body(self, dstate: torch.Tensor, fwords: torch.Tensor,
+                    adj: S.SparseAdjacency) -> torch.Tensor:
+        """The first superstep's body from the initial frontier, a device
+        bool (True: dense); in ``auto`` the decision state is started: the
+        unexplored mass is every out-edge (an exact int64 sum, then float32)
+        and the occupancy test counts the real vertices, not ``vr``."""
+        from . import direction as D
+
+        vr, n_adj = self.relay_graph.vr, adj.dst.shape[0]
+        if self.direction.mode == "push":
+            return ~S.take_sparse(fwords, adj.outdeg, vr, n_adj)
+        fsize, fedges = D.frontier_masses_words(fwords, adj.outdeg, vr)
+        mu0 = adj.outdeg.sum(dtype=torch.int64).to(torch.float32)
+        use = D.init_decision(dstate, fsize, fedges, mu0, self.relay_graph.num_vertices,
+                              self.direction)
+        return use | ~S.within_budgets(fsize, fedges, vr, n_adj)
+
+    def _next_body(self, mode: str, dstate: torch.Tensor, prev, fwords: torch.Tensor,
+                   adj: S.SparseAdjacency, ctl: torch.Tensor | None = None):
+        """The next superstep's body from the frontier the last one made: in
+        ``push`` not :func:`~bfs_tpu_torch.ops.sparse.take_sparse`; in
+        ``auto`` the Beamer rule after body ``prev`` (the decision state
+        updated) or'd with "over the budgets".  Returned as a device bool
+        (True: dense); with a control block ``ctl`` (``prev`` is then its
+        USE_PULL word) written into USE_PULL instead, and a superstep that is
+        not LIVE writes nothing."""
+        from . import direction as D
+
+        vr, n_adj = self.relay_graph.vr, adj.dst.shape[0]
+        if mode == "push":
+            use = ~S.take_sparse(fwords, adj.outdeg, vr, n_adj)
+            if ctl is None:
+                return use
+            ctl[C.USE_PULL] = torch.where(ctl[C.LIVE] != 0, use.to(torch.int32), ctl[C.USE_PULL])
+            return None
+        fsize, fedges = D.frontier_masses_words(fwords, adj.outdeg, vr)
+        over = ~S.within_budgets(fsize, fedges, vr, n_adj)
+        if ctl is not None:
+            D.decide_gated(dstate, ctl, fsize, fedges, force_pull=over)
+            return None
+        use, dstate[D.MU], dstate[D.FE] = D.decide(dstate, prev, fsize, fedges)
+        return use | over
+
+    def _switch_loop(self, packed: bool) -> L.SwitchLoop:
+        """The hybrid loop of the current mode and a carry kind: carry
+        ``(packed | dist, parent, fwords, occupancy, directions, decision
+        state, ctl)``, the state arrays views of arrays with one scratch slot
+        (the sparse body's dropped writes); one step per body (0 the gated
+        sparse superstep, 1 the gated dense one), each followed by the
+        occupancy and direction of the level it settles, the next body
+        written into USE_PULL, then the control step."""
+        from . import direction as D
+
+        mode = self.direction.mode
+        key = ("switch", mode, packed)
+        if key in self._loops:
+            return self._loops[key]
+        vr = self.relay_graph.vr
+        adj = self._sparse_tensors_for(packed)
+        ext = tuple(self._empty(vr + 1) for _ in range(1 if packed else 2))
+        fields = tuple(t[:vr] for t in ext)
+        fwords, ctl = self._empty(vr // 32), C.new_ctl(self.device)
+        occ, dirs = T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)
+        dstate = torch.zeros(D.DECIDE_WORDS, dtype=torch.float32, device=self.device)
+        state = (R.PackedRelayState if packed else R.RelayState)(*fields, fwords, None, None)
+
+        def make_step(body: int):
+            code = (T.DIR_PUSH, T.DIR_PULL)[body]
+
+            def step():
+                if body:
+                    self._gated_dense(state, ctl)
+                else:
+                    new = S.sparse_superstep(state, adj, vr, ctl=ctl, ext=ext)
+                    fwords.copy_(new.fwords)
+                    C.raise_flag(ctl, new.changed)
+                level, live = ctl[C.LEVEL] + 1, ctl[C.LIVE] != 0
+                T.record_frontier_words(occ, fwords, level, live)
+                T.record_direction(dirs, level, code, live)
+                self._next_body(mode, dstate, ctl[C.USE_PULL], fwords, adj, ctl)
+                K.loop_control(ctl)
+
+            return step
+
+        loop = L.SwitchLoop((*fields, fwords, occ, dirs, dstate, ctl),
+                            {0: make_step(0), 1: make_step(1)})
+        self._loops[key] = loop
+        return loop
+
+    def _start_switch(self, carry: tuple, init, cap: int, adj: S.SparseAdjacency) -> bool:
+        """Start a hybrid run in a carry of :meth:`_switch_loop`'s layout:
+        the state, control block and accumulators from ``init``, the first
+        body in USE_PULL; returns LIVE."""
+        *fields, fwords, occ, dirs, dstate, ctl = carry
+        live = L.start((*fields, fwords, ctl), init, cap)
+        occ.copy_(T.init_level_acc(device=self.device))
+        dirs.zero_()
+        ctl[C.USE_PULL] = self._first_body(dstate, fwords, adj).to(torch.int32)
+        return live
+
+    def _run_switch(self, init, cap: int, times: list | None):
+        """A hybrid run from ``init``: on the switch loop (every superstep one
+        replay of its body's graph on a card) or its plain version, the eager
+        loop (a host read of ``changed`` and the next body per superstep, and
+        one of the first body).  Returns the state's words, the stats and the
+        accumulators ``(occupancy, directions)``."""
+        packed = isinstance(init, R.PackedRelayState)
+        words = 1 if packed else 2
+        adj = self._sparse_tensors_for(packed)
+        if self.loop != "eager":
+            loop = self._switch_loop(packed)
+            stats, issued = loop.run(self._start_switch(loop.buffers, init, cap, adj), times)
+            for body, n in issued.items():
+                self._issued[body] += n
+            return loop.buffers[:words], stats, loop.buffers[words + 1 : words + 3]
+        from . import direction as D
+
+        mode, vr = self.direction.mode, self.relay_graph.vr
+        occ, dirs = T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)
+        dstate = torch.zeros(D.DECIDE_WORDS, dtype=torch.float32, device=self.device)
+        use_pull = bool(self._first_body(dstate, init.fwords, adj))
+        dense = self.superstep_packed if packed else self.superstep
+
+        def step(st):
+            nonlocal use_pull
+            body = int(use_pull)
+            st = dense(st) if body else S.sparse_superstep(st, adj, vr)
+            T.record_frontier_words(occ, st.fwords, st.level)
+            T.record_direction(dirs, st.level, (T.DIR_PUSH, T.DIR_PULL)[body])
+            self._issued[body] += 1
+            use = self._next_body(mode, dstate, use_pull, st.fwords, adj)
+            both = torch.cat([st.changed.reshape(1).to(torch.int32), use.reshape(1).to(torch.int32)])
+            changed, use_pull = (bool(x) for x in both.tolist())  # the level's one host read
+            return st._replace(changed=changed)
+
+        st, stats = L.eager(init, step, cap)
+        stats.host_reads += 1  # the first body
+        return tuple(st[:words]), stats, (occ, dirs)
+
+    def _issued_counts(self) -> dict:
+        return {"issued_push": self._issued[0], "issued_pull": self._issued[1]}
+
+    # -- stepped execution (SuperstepRunner, the bench profile) ----------------
 
     def init_state(self, source: int) -> R.RelayState:
         """The unpacked carry of a search from ``source`` (an original id)
@@ -313,6 +517,13 @@ class RelayEngine:
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         return R.init_relay_state(rg.vr, int(rg.old2new[source]), self.device)
+
+    def init_packed_state(self, source: int) -> R.PackedRelayState:
+        """The packed carry of a search from ``source`` at iteration 0: what
+        the level loop carries, for stepping its bodies."""
+        rg = self.relay_graph
+        check_sources(rg.num_vertices, source)
+        return R.init_packed_relay_state(rg.vr, int(rg.old2new[source]), self.device)
 
     def step(self, st: R.RelayState) -> R.RelayState:
         """One eager superstep of the unpacked carry, equal to
@@ -335,6 +546,53 @@ class RelayEngine:
             dist, parent = R.unpack_relay_packed(new.packed, rg.in_classes, rg.vr)
         parent = torch.where(unreached & (new.packed != -1), parent, st.parent)
         return R.RelayState(dist, parent, new.fwords, st.level + 1, new.changed)
+
+    def take_sparse(self, state) -> bool:
+        """THE sparse-path predicate (:func:`~bfs_tpu_torch.ops.sparse.take_sparse`,
+        what the ``push`` schedule decides by) for a state, as a host bool;
+        always False without the hybrid."""
+        if not self.sparse_hybrid:
+            return False
+        adj = self._sparse_tensors_for(self.packed)
+        return bool(S.take_sparse(state.fwords, adj.outdeg, self.relay_graph.vr, adj.dst.shape[0]))
+
+    def step_dispatch(self, state, take_sparse: bool | None = None):
+        """One superstep of a packed or unpacked state on the body the
+        ``push`` schedule would take for its frontier: ``(new_state,
+        "sparse"|"dense")``.  The decision is :meth:`take_sparse` unless the
+        caller passes it (to keep its host read out of a timed window).  The
+        dense body of a packed state updates its words in place on a card."""
+        if take_sparse is None:
+            take_sparse = self.take_sparse(state)
+        elif take_sparse and not self.sparse_hybrid:
+            raise ValueError("take_sparse=True on an engine built with sparse_hybrid=False")
+        packed = isinstance(state, R.PackedRelayState)
+        if take_sparse:
+            adj = self._sparse_tensors_for(packed)
+            return S.sparse_superstep(state, adj, self.relay_graph.vr), "sparse"
+        return (self.superstep_packed if packed else self.superstep)(state), "dense"
+
+    def warm_step_bodies(self, state) -> None:
+        """Run each superstep body once on a copy of ``state`` (the plans,
+        tables and kernel libraries they build at first use), so that a
+        timed :meth:`step_dispatch` pays none of it."""
+        for sparse in (False, True)[: 1 + self.sparse_hybrid]:
+            copy = state._replace(**{f: getattr(state, f).clone()
+                                     for f in state._fields[:-2]})
+            self.step_dispatch(copy, take_sparse=sparse)
+
+    def _dense_step_operands(self) -> tuple:
+        """The dense superstep's device operands on this engine's arm: the
+        two networks' masks and the valid-slot words (gather), or the tile
+        operands (MXU)."""
+        if self.expansion == "mxu":
+            return tuple(self.mxu_operands)
+        return self.vperm_masks, self.net_masks, self.valid_words
+
+    def frontier_stats(self, state) -> tuple[int, int]:
+        """(frontier vertices, frontier out-edges) of a state, host ints."""
+        fsize, fedges = S.frontier_stats(state.fwords, self.outdeg, self.relay_graph.vr)
+        return int(fsize), int(fedges)
 
     # -- the level loop -----------------------------------------------------
 
@@ -371,8 +629,7 @@ class RelayEngine:
             tel, record = self._telemetry(fwords, telemetry)
 
             def step():
-                cand = self._cand_packed(fwords, ctl)
-                K.apply_relay_candidates_packed(state, cand, fwords_out=fwords, ctl=ctl)
+                self._gated_dense(state, ctl)
                 record(ctl)
                 K.loop_control(ctl)
 
@@ -389,15 +646,11 @@ class RelayEngine:
         def make():
             dist, parent, fwords = self._empty(vr), self._empty(vr), self._empty(vr // 32)
             ctl = C.new_ctl(self.device)
+            state = R.RelayState(dist, parent, fwords, None, None)
             tel, record = self._telemetry(fwords, telemetry)
 
             def step():
-                cand = self._cand_unpacked(fwords, ctl)
-                new = R.apply_relay_candidates(R.RelayState(dist, parent, fwords, None, None), cand, ctl)
-                dist.copy_(new.dist)
-                parent.copy_(new.parent)
-                fwords.copy_(new.fwords)
-                C.raise_flag(ctl, new.changed)
+                self._gated_dense(state, ctl)
                 record(ctl)
                 K.loop_control(ctl)
 
@@ -405,34 +658,42 @@ class RelayEngine:
 
         return L.cached(self._loops, ("unpacked", telemetry), make)
 
-    def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
+    def run(self, source: int = 0, *, max_levels: int | None = None,
+            times: list | None = None) -> BfsResult:
+        """One search from ``source``.  ``times`` (a card, the hybrid
+        schedule): a list that gets ``(body, device ms)`` per superstep, by
+        CUDA events around its replay."""
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
         t0 = time.perf_counter()
-        dist, parent_slots, stats, _ = self._search(int(rg.old2new[source]), max_levels)
+        dist, parent_slots, stats, _ = self._search(int(rg.old2new[source]), max_levels,
+                                                    times=times)
         t1 = time.perf_counter()
         result = self._to_result(dist, parent_slots, stats.level, source)
         self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1,
-                         **vars(stats)}
+                         **vars(stats), **self._issued_counts()}
         return result
 
-    def _search(self, source_new: int, max_levels: int, telemetry: bool = False):
+    def _search(self, source_new: int, max_levels: int, telemetry: bool = False,
+                dense: bool = False, times: list | None = None):
         """(dist, parent, :class:`~bfs_tpu_torch.models.loop.LoopStats`,
         telemetry) in the relabeled space; parents are L1 slots on the
-        gather arm and original ids on the MXU arm.  On the block loop the
+        gather arm and original ids on the MXU arm.  On a level loop the
         tensors are the loop's buffers (or decoded from them): the caller
-        reads them before the next search.  With ``telemetry`` the last
-        element is ``(occupancy, directions, packed_run)``, the accumulators
-        of the run that produced the state; else None."""
+        reads them before the next search.  The last element is
+        ``(occupancy, directions, packed_run)``, the accumulators of the run
+        that produced the state, with ``telemetry`` or on the hybrid
+        schedule; else None.  ``dense`` runs the dense superstep whatever the
+        schedule (the lock-step batch)."""
         rg = self.relay_graph
+        hybrid = self._hybrid() and not dense
+        self._issued = {0: 0, 1: 0}
         stats = L.LoopStats()
         if self.packed:
             cap = packed_cap(max_levels)
             init = R.init_packed_relay_state(rg.vr, source_new, self.device)
-            packed, stats, tel = self._run_loop(init, self.superstep_packed, self._packed_loop,
-                                                cap, telemetry)
-            packed = packed[0]
+            (packed,), stats, tel = self._run_loop(init, cap, telemetry, hybrid, times)
             if not packed_truncated(stats.changed, stats.level, max_levels):
                 tel = tel and (*tel, True)
                 if self.expansion == "mxu":
@@ -442,17 +703,23 @@ class RelayEngine:
         # Deeper than the packed level field (or a rank too wide for it):
         # the unpacked carry has no level cap.
         init = R.init_relay_state(rg.vr, source_new, self.device)
-        (dist, parent), more, tel = self._run_loop(init, self.superstep, self._unpacked_loop,
-                                                   max_levels, telemetry)
+        (dist, parent), more, tel = self._run_loop(init, max_levels, telemetry, hybrid, times)
         return dist, parent, stats.add(more), tel and (*tel, False)
 
-    def _run_loop(self, init, superstep, make_loop, cap: int, telemetry: bool):
-        """One run of a carry from ``init`` to ``cap`` levels: on the eager
-        loop (``superstep`` per level, the telemetry recorded after each) or
-        on the block loop that ``make_loop(telemetry)`` gives.  Returns the
-        state's words (``(packed,)`` or ``(dist, parent)``), the stats, and
-        the accumulators ``(occupancy, directions)`` or None."""
-        words = 1 if isinstance(init, R.PackedRelayState) else 2
+    def _run_loop(self, init, cap: int, telemetry: bool, hybrid: bool, times: list | None):
+        """One run of a carry from ``init`` to ``cap`` levels: the hybrid
+        schedule (:meth:`_run_switch`), or the dense superstep on the eager
+        loop (the telemetry recorded after each superstep) or on the block
+        loop.  Returns the state's words (``(packed,)`` or ``(dist,
+        parent)``), the stats, and the accumulators ``(occupancy,
+        directions)`` (or None: a dense run without ``telemetry``); the
+        supersteps issued are added by body to ``_issued``."""
+        if hybrid:
+            return self._run_switch(init, cap, times)
+        packed = isinstance(init, R.PackedRelayState)
+        words = 1 if packed else 2
+        superstep, make_loop = ((self.superstep_packed, self._packed_loop) if packed
+                                else (self.superstep, self._unpacked_loop))
         tel = (T.init_level_acc(device=self.device), T.init_dir_acc(device=self.device)) \
             if telemetry else None
         if self.loop == "eager":
@@ -464,6 +731,7 @@ class RelayEngine:
                 return st
 
             st, stats = L.eager(init, step, cap)
+            self._issued[1] += stats.issued
             return tuple(st[:words]), stats, tel
         loop = make_loop(telemetry)
         carry = loop.buffers[: words + 1] + (loop.ctl,)
@@ -472,29 +740,27 @@ class RelayEngine:
                 dst.copy_(src)
             tel = loop.buffers[words + 1 : -1]
         stats = loop.run(L.start(carry, init, cap))
+        self._issued[1] += stats.issued
         return loop.buffers[:words], stats, tel
 
     def run_level_curve(self, source: int = 0, *, max_levels: int | None = None,
                         reference_reached: int | None = None) -> dict:
         """One search with the telemetry accumulators in the level loop's
-        carry (the recorder beside the kernels in the captured block):
-        the JSON-ready level curve, per-level frontier occupancy and
-        out-edges (derived from the final levels at exit), packed-cap
-        proximity, and the direction schedule (every superstep dense,
-        ``pull``).  One host read of the accumulators at exit; the state
-        stays on the device.  Deeper than the packed cap, the curve comes
-        from the unpacked re-run."""
+        carry (the recorder beside the kernels of each superstep): the
+        JSON-ready level curve, per-level frontier occupancy and out-edges
+        (derived from the final levels at exit), packed-cap proximity, and
+        the direction schedule (``push`` for the sparse body, ``pull`` for
+        the dense one).  One host read of the accumulators at exit; the
+        state stays on the device.  Deeper than the packed cap, the curve
+        and schedule come from the unpacked re-run."""
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
         dist, _, stats, (occ, dirs, packed_run) = self._search(
             int(rg.old2new[source]), max_levels, telemetry=True)
-        if self._outdeg is None:
-            outdeg = np.diff(rg.adj_indptr[: rg.vr + 1].astype(np.int64)).astype(np.int32)
-            self._outdeg = torch.from_numpy(outdeg).to(self.device)
-        fe = T.edge_curve_from_levels(dist, self._outdeg, dist == INT32_MAX)
+        fe = T.edge_curve_from_levels(dist, self.outdeg, dist == INT32_MAX)
         fv, fe, dirs = T.read_telemetry(occ, fe, dirs)
-        self.last_run = vars(stats)
+        self.last_run = {**vars(stats), **self._issued_counts()}
         cap = min(PACKED_MAX_LEVELS, max_levels) if packed_run else max_levels
         curve = T.level_curve(fv, fe, cap=cap, reference_reached=reference_reached)
         cfg = self.direction
@@ -503,12 +769,13 @@ class RelayEngine:
         return curve
 
     def run_many_device(self, sources, *, max_levels: int | None = None) -> list:
-        """One search per source on the block loop, chained without a host
-        read between them: each round issues one block for every source
-        still live (its carry copied into the loop's buffers and back, on
-        the device), then reads all their control blocks at once.  Returns
-        the device states, :class:`~bfs_tpu_torch.ops.relay.RelayState` in
-        the relabeled space (``parent`` L1 slots, or original ids on the
+        """One search per source on the level loop, chained without a host
+        read between them: each round issues, for every source still live,
+        one block (dense) or one superstep of the body its own control block
+        names (the hybrid schedule), its carry copied into the loop's buffers
+        and back on the device, then reads all their control blocks at once.
+        Returns the device states, :class:`~bfs_tpu_torch.ops.relay.RelayState`
+        in the relabeled space (``parent`` L1 slots, or original ids on the
         MXU arm; ``level`` a host int, ``changed`` a host bool), as the
         reference's ``run_many_device`` returns its finished states; map one
         with :meth:`to_original_device`.
@@ -521,38 +788,61 @@ class RelayEngine:
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
         check_sources(rg.num_vertices, sources)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
-        if self.packed:
-            loop, init, cap = self._packed_loop(), R.init_packed_relay_state, packed_cap(max_levels)
+        packed, hybrid = self.packed, self._hybrid()
+        words = 1 if packed else 2
+        cap = packed_cap(max_levels) if packed else max_levels
+        init = R.init_packed_relay_state if packed else R.init_relay_state
+        stats = L.LoopStats()
+        self._issued = {0: 0, 1: 0}
+        if hybrid:
+            loop, adj = self._switch_loop(packed), self._sparse_tensors_for(packed)
+
+            def start(carry, st):
+                self._start_switch(carry, st, cap, adj)
+
+            def issue(ctl_words):
+                body = ctl_words[C.USE_PULL]
+                loop.issue(body, stats)
+                self._issued[body] += 1
         else:
-            loop, init, cap = self._unpacked_loop(), R.init_relay_state, max_levels
+            loop = self._packed_loop() if packed else self._unpacked_loop()
+
+            def start(carry, st):
+                L.start(carry, st, cap)
+
+            def issue(ctl_words):
+                loop.issue(stats)
+                self._issued[1] += loop.k
         carries = []
         for s in sources.tolist():
             carry = tuple(torch.empty_like(b) for b in loop.buffers)
-            L.start(carry, init(rg.vr, int(rg.old2new[s]), self.device), cap)
+            start(carry, init(rg.vr, int(rg.old2new[s]), self.device))
             carries.append(carry)
-        # The control words as started (LEVEL 0, CHANGED 1), until read.
-        ctls = [[int(w == C.CHANGED) for w in range(C.WORDS)] for _ in carries]
-        stats = L.LoopStats()
         live = list(range(len(carries))) if cap > 0 else []
+        # The control words as started (LEVEL 0, CHANGED 1), until read; the
+        # hybrid's first bodies are read before the first round.
+        ctls = [[int(w == C.CHANGED) for w in range(C.WORDS)] for _ in carries]
+        if hybrid and live:
+            ctls = L.read_ctls([carry[-1] for carry in carries], stats)
         while live:
             for i in live:
                 loop.load(carries[i])
-                loop.issue(stats)
+                issue(ctls[i])
                 loop.store(carries[i])
-            for i, words in zip(live, L.read_ctls([carries[i][-1] for i in live], stats)):
-                ctls[i] = words
+            for i, ctl_words in zip(live, L.read_ctls([carries[i][-1] for i in live], stats)):
+                ctls[i] = ctl_words
             live = [i for i in live if ctls[i][C.LIVE]]
-        self.last_run = vars(stats)
+        self.last_run = {**vars(stats), **self._issued_counts()}
         states = []
-        for carry, words in zip(carries, ctls):
-            level, changed = words[C.LEVEL], bool(words[C.CHANGED])
-            if not self.packed:
+        for carry, ctl_words in zip(carries, ctls):
+            level, changed = ctl_words[C.LEVEL], bool(ctl_words[C.CHANGED])
+            if not packed:
                 dist, parent = carry[0], carry[1]
             elif self.expansion == "mxu":
                 dist, parent = packed_dist(carry[0]), packed_parent(carry[0])
             else:
                 dist, parent = R.unpack_relay_packed(carry[0], rg.in_classes, rg.vr)
-            states.append(R.RelayState(dist, parent, carry[-2], level, changed))
+            states.append(R.RelayState(dist, parent, carry[words], level, changed))
         return states
 
     # -- results in original ids ----------------------------------------------
@@ -739,7 +1029,7 @@ class RelayEngine:
         parent = np.empty_like(dist)
         levels = 0
         for i, s in enumerate(sources.tolist()):
-            d, p, stats, _ = self._search(int(rg.old2new[s]), max_levels)
+            d, p, stats, _ = self._search(int(rg.old2new[s]), max_levels, dense=True)
             res = self._to_result(d, p, stats.level, s)
             dist[i], parent[i] = res.dist, res.parent
             levels = max(levels, res.num_levels)
@@ -965,7 +1255,8 @@ def bfs(
     Engines (same results, bit for bit): ``'pull'`` (default, as in the
     reference), the ELL gather/row-min formulation; ``'push'``, the
     segmented-min formulation; ``'relay'``, the Beneš layout with the
-    hand-written kernels.  A prebuilt layout skips its build: a
+    hand-written kernels, on its hybrid schedule (:class:`RelayEngine`'s
+    defaults).  A prebuilt layout skips its build: a
     :class:`PullGraph` runs only on pull, a :class:`RelayGraph` only on
     relay."""
     if engine not in ("pull", "push", "relay"):

@@ -134,42 +134,43 @@ def _host_outdeg(num_vertices: int, src: np.ndarray) -> np.ndarray:
     return np.concatenate([deg, [0]]).astype(np.int32)
 
 
-def init_decision(dstate: torch.Tensor, frontier: torch.Tensor, outdeg: torch.Tensor,
+def init_decision(dstate: torch.Tensor, fsize, fedges, mu0, n,
                   cfg: DirectionConfig) -> torch.Tensor:
-    """Start the decision state of a run from its initial frontier (the
-    sources), in place, and return the first superstep's decision: the
-    unexplored mass is every out-edge of every tree less the sources'."""
-    trees = frontier.shape[0] if frontier.dim() == 2 else 1
-    _, src_edges = frontier_masses(frontier, outdeg)
-    fe = _f32(src_edges)
-    mu = _f32(outdeg.sum(dtype=torch.int64)) * float(trees) - fe
+    """Start the decision state of a run, in place, from the masses of its
+    initial frontier (the sources: occupancy ``fsize``, out-edge mass
+    ``fedges``), the unexplored mass before it ``mu0`` (float32) and the
+    vertex count ``n`` of the occupancy test; return the first superstep's
+    decision."""
+    fe = _f32(fedges)
+    mu = _f32(mu0) - fe
     dstate.zero_()
     dstate[ALPHA], dstate[BETA] = cfg.alpha, cfg.beta
-    dstate[NTHRESH] = (frontier.shape[-1] - 1) * trees
+    dstate[NTHRESH] = n
     dstate[MU], dstate[FE] = mu, fe
-    return take_pull(False, frontier.sum(dtype=torch.int64), fe, mu,
-                     dstate[NTHRESH], dstate[ALPHA], dstate[BETA])
+    return take_pull(False, fsize, fe, mu, dstate[NTHRESH], dstate[ALPHA], dstate[BETA])
 
 
-def decide(dstate: torch.Tensor, prev_pull, frontier: torch.Tensor, outdeg: torch.Tensor):
-    """The next superstep's decision from the frontier the last one made:
-    ``(use_pull, mu, fe)``, device scalars; ``mu`` is the unexplored mass
-    less this frontier's, clamped at 0 (float32 rounding must not take it
-    below zero, where any frontier would satisfy the pull test)."""
-    fsize, fedges = frontier_masses(frontier, outdeg)
+def decide(dstate: torch.Tensor, prev_pull, fsize, fedges):
+    """The next superstep's decision from the masses of the frontier the
+    last one made: ``(use_pull, mu, fe)``, device scalars; ``mu`` is the
+    unexplored mass less this frontier's, clamped at 0 (float32 rounding
+    must not take it below zero, where any frontier would satisfy the pull
+    test)."""
     fe = _f32(fedges)
     mu = torch.clamp_min(dstate[MU] - fe, 0.0)
     use = take_pull(prev_pull, fsize, fe, mu, dstate[NTHRESH], dstate[ALPHA], dstate[BETA])
     return use, mu, fe
 
 
-def decide_gated(dstate: torch.Tensor, ctl: torch.Tensor, frontier: torch.Tensor,
-                 outdeg: torch.Tensor) -> None:
+def decide_gated(dstate: torch.Tensor, ctl: torch.Tensor, fsize, fedges, force_pull=None) -> None:
     """:func:`decide` inside the level loop, in place: the previous decision
-    is the control block's USE_PULL word, and a superstep that is not LIVE
-    leaves USE_PULL and the decision state as they were."""
+    is the control block's USE_PULL word, ``force_pull`` (a device bool, the
+    relay engine's budget test) is or'd into the decision, and a superstep
+    that is not LIVE leaves USE_PULL and the decision state as they were."""
     live = ctl[C.LIVE] != 0
-    use, mu, fe = decide(dstate, ctl[C.USE_PULL], frontier, outdeg)
+    use, mu, fe = decide(dstate, ctl[C.USE_PULL], fsize, fedges)
+    if force_pull is not None:
+        use = use | force_pull
     dstate[MU] = torch.where(live, mu, dstate[MU])
     dstate[FE] = torch.where(live, fe, dstate[FE])
     ctl[C.USE_PULL] = torch.where(live, use.to(torch.int32), ctl[C.USE_PULL])
@@ -272,7 +273,7 @@ class DirectionEngine:
                 T.record_frontier_bools(occ, frontier, level, live)
                 T.record_direction(dirs, level, code, live)
                 if mode == "auto":
-                    decide_gated(dstate, ctl, frontier, self.outdeg)
+                    decide_gated(dstate, ctl, *frontier_masses(frontier, self.outdeg))
                 K.loop_control(ctl)
 
             return step
@@ -297,8 +298,7 @@ class DirectionEngine:
             occ.copy_(T.init_level_acc(trees or 1, device=self.device))
             dirs.zero_()
             if mode == "auto":
-                ctl[C.USE_PULL] = init_decision(dstate, fields[-1], self.outdeg,
-                                                self.config).to(torch.int32)
+                ctl[C.USE_PULL] = self._init_decision(dstate, fields[-1]).to(torch.int32)
             else:
                 ctl[C.USE_PULL] = _BODY[mode]
             stats, issued = loop.run(live, times)
@@ -307,6 +307,15 @@ class DirectionEngine:
             st = type(init)(*fields, None, None)
         self._tel = (occ, dirs, packed)
         return st, stats
+
+    def _init_decision(self, dstate: torch.Tensor, frontier: torch.Tensor) -> torch.Tensor:
+        """:func:`init_decision` from a run's initial frontier (the sources):
+        the unexplored mass is every out-edge of every tree, the occupancy
+        test counts ``V`` per tree."""
+        trees = frontier.shape[0] if frontier.dim() == 2 else 1
+        mu0 = _f32(self.outdeg.sum(dtype=torch.int64)) * float(trees)
+        return init_decision(dstate, *frontier_masses(frontier, self.outdeg), mu0,
+                             (frontier.shape[-1] - 1) * trees, self.config)
 
     def _eager(self, init, trees: int, cap: int, mode: str):
         """The plain version of the direction loop on :func:`loop.eager`:
@@ -318,7 +327,7 @@ class DirectionEngine:
         dstate = torch.zeros(DECIDE_WORDS, dtype=torch.float32, device=self.device)
         use_pull = mode == "pull"
         if mode == "auto":
-            use_pull = bool(init_decision(dstate, init.frontier, self.outdeg, self.config))
+            use_pull = bool(self._init_decision(dstate, init.frontier))
 
         def step(state):
             nonlocal use_pull
@@ -329,7 +338,8 @@ class DirectionEngine:
             self._issued[body] += 1
             if mode != "auto":
                 return state
-            use, dstate[MU], dstate[FE] = decide(dstate, use_pull, state.frontier, self.outdeg)
+            use, dstate[MU], dstate[FE] = decide(dstate, use_pull,
+                                                 *frontier_masses(state.frontier, self.outdeg))
             changed, use_pull = (bool(x) for x in torch.stack([state.changed, use]).tolist())
             return state._replace(changed=changed)
 

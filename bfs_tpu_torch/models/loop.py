@@ -202,6 +202,20 @@ class SwitchLoop:
                 self.ctl.copy_(saved)
                 loop._capture()
 
+    def issue(self, body: int, stats: LoopStats) -> None:
+        """Issue one superstep of ``body`` on the current stream (no host
+        read): on a card its graph's replay."""
+        self._prepare()
+        self.bodies[body].issue(stats)
+
+    def load(self, carry: tuple[torch.Tensor, ...]) -> None:
+        """Copy a carry of the same shapes into the static buffers."""
+        next(iter(self.bodies.values())).load(carry)
+
+    def store(self, carry: tuple[torch.Tensor, ...]) -> None:
+        """Copy the static buffers out into ``carry``."""
+        next(iter(self.bodies.values())).store(carry)
+
     def run(self, live: bool, times: list | None = None) -> tuple[LoopStats, dict[int, int]]:
         """Issue supersteps, each of the body the control block's USE_PULL
         word names, until it reads not LIVE; ``live`` is LIVE as the caller
@@ -209,7 +223,7 @@ class SwitchLoop:
         the control block too.  Returns the stats and the supersteps issued
         per body.  ``times`` (a card): a list that gets ``(body, device ms)``
         per superstep, by CUDA events around its replay."""
-        self._prepare()
+        self._prepare()  # every capture before the first timed replay
         stats = LoopStats()
         issued = dict.fromkeys(self.bodies, 0)
         ctl = [0] * C.WORDS
@@ -223,7 +237,7 @@ class SwitchLoop:
             if times is not None:
                 t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 t0.record()
-            self.bodies[body].issue(stats)
+            self.issue(body, stats)
             if times is not None:
                 t1.record()
                 events.append((body, t0, t1))

@@ -53,14 +53,30 @@ body equal to the schedule); each superstep's device time by body and the
 decide step's; then ``run_multi`` (``bfs_multi_direction``) in ``auto`` on
 the 64 sources, equal to the relay batch.  ``RelayEngine.run_level_curve``
 runs beside the gather search (its occupancy the oracle's level histogram).
+Every relay phase above builds its engine with ``sparse_hybrid=False`` (the
+dense superstep in blocks of 4).  The relay engine's hybrid schedule comes
+next, once the dense engines are freed, on both arms from the same layout:
+``RelayEngine(sparse_hybrid=True).run`` (the default engine of
+``bfs(engine="relay")``) for the 4 roots in ``auto`` and ``push`` on the
+captured switch loop (one graph per body) and the eager loop, each result
+oracle-exact, equal to the dense relay search and to pull, clean under the
+DeviceChecker, each schedule (``run_level_curve``) equal to the host's
+recomputation with the relay's sparse budgets, the replays by body adding up
+to the supersteps issued and split as the schedule, K1-K4 (or
+``mxu_expand`` and K4) launched once per dense superstep; then the device
+time of each superstep by body beside the dense superstep's on the same
+level (a run with ``alpha = beta = 1e9``, every superstep dense), the
+predicate step alone, a device trace, and ``run_many_device``.
 Every s22 result of the script also passes the on-device verifier
 (``DeviceChecker``), which must flag a corrupted parent and a corrupted
 distance.  Small
 graphs close the run: tinyCG (the paper's worked example) on the relay and
 the default (pull) engine, and a 100-vertex path (deeper than the packed
 carry's 62 levels, so it takes the unpacked re-run, on both expansion arms
-and on push and pull; with 32 sources, deeper than the 31 levels of the
-elem distance planes, so it takes the lock-step fallback).
+and on push and pull, and on the hybrid in ``auto`` and ``push`` on both
+arms with its level curve and ``run_many_device``; with 32 sources, deeper
+than the 31 levels of the elem distance planes, so it takes the lock-step
+fallback).
 
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
@@ -1213,7 +1229,8 @@ def mxu_engine(P, AT, rg, scale: int):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    meng = P.RelayEngine(rg, device="cuda", expansion="mxu", tiles_budget_bytes=TILES_BUDGET)
+    meng = P.RelayEngine(rg, device="cuda", sparse_hybrid=False, expansion="mxu",
+                         tiles_budget_bytes=TILES_BUDGET)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     at = meng.adj_tiles
@@ -1336,7 +1353,7 @@ def small_path_check(P, K, expansion: str) -> None:
     import numpy as np
 
     path = P.path_graph(100)
-    eng = P.RelayEngine(path, expansion=expansion)
+    eng = P.RelayEngine(path, expansion=expansion, sparse_hybrid=False)
     K.reset_launches()
     res = eng.run(0)
     run = dict(eng.last_run)
@@ -1689,13 +1706,18 @@ def verify_corruptions(g, root: int, dist, parent) -> dict:
 
 # ------------------------------------------------ the direction policy --
 
-def host_schedule(outdeg, dists, mode: str, alpha: float, beta: float) -> list[str]:
+def host_schedule(outdeg, dists, mode: str, alpha: float, beta: float,
+                  budgets: tuple[int, int] | None = None) -> list[str]:
     """The schedule the direction loop must take, recomputed with numpy from
     the oracle's distances (``dists`` int32[S, V], a row per tree): per level
     the frontier's occupancy and out-edge mass summed over the trees, then
     the decisions by the same float32 rule (Beamer's pair: go pull when
     ``m_f * alpha > m_u``, stay pull while ``n_f * beta > n``; the
-    unexplored mass carried in float32, clamped at 0)."""
+    unexplored mass carried in float32, clamped at 0).  ``budgets`` ``(bv,
+    be)``: the relay engine's hybrid schedule, whose push body is the sparse
+    superstep: in ``auto`` a frontier over the budgets takes pull whatever
+    the rule says; in ``push`` a frontier takes push exactly when it fits
+    them, each out-degree capped at ``be + 1``."""
     import numpy as np
 
     from bfs_tpu_torch.graph.csr import INF_DIST
@@ -1705,26 +1727,33 @@ def host_schedule(outdeg, dists, mode: str, alpha: float, beta: float) -> list[s
     ecc = int(dists[dists != INF_DIST].max())
     occ = np.zeros(ecc + 2, np.int64)
     mass = np.zeros(ecc + 2, np.int64)
+    capped = np.zeros(ecc + 2, np.int64)
+    bv, be = budgets or (0, 0)
     for row in dists:
         r = row != INF_DIST
         occ[: ecc + 1] += np.bincount(row[r], minlength=ecc + 1)
         mass[: ecc + 1] += np.bincount(row[r], weights=outdeg[r], minlength=ecc + 1).astype(np.int64)
+        capped[: ecc + 1] += np.bincount(row[r], weights=np.minimum(outdeg[r], be + 1),
+                                         minlength=ecc + 1).astype(np.int64)
     steps = ecc + 1  # the last superstep finds an empty frontier
+    if mode == "push" and budgets is not None:
+        return ["push" if occ[i] <= bv and capped[i] <= be else "pull" for i in range(steps)]
     if mode != "auto":
         return [mode] * steps
     n = f32(v * trees)
 
-    def take(prev, fs, fe, mu):
-        return f32(fs) * f32(beta) > n if prev else fe * f32(alpha) > mu
+    def take(prev, i, fe, mu):
+        pull = f32(occ[i]) * f32(beta) > n if prev else fe * f32(alpha) > mu
+        return pull or (budgets is not None and not (occ[i] <= bv and mass[i] <= be))
 
     fe = f32(mass[0])
     mu = f32(int(outdeg.sum())) * f32(trees) - fe
-    use, labels = take(False, occ[0], fe, mu), []
+    use, labels = take(False, 0, fe, mu), []
     for i in range(1, steps + 1):
         labels.append("pull" if use else "push")
-        fe = f32(mass[i]) if i <= ecc else f32(0)
+        fe = f32(mass[i])
         mu = max(mu - fe, f32(0))
-        use = take(use, occ[i] if i <= ecc else 0, fe, mu)
+        use = take(use, i, fe, mu)
     return labels
 
 
@@ -1819,7 +1848,8 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
         + f"; mean superstep push {per_body['push']:.4f} ms, pull {per_body['pull']:.4f} ms")
     buffers = deng._loops[("auto", True, None)].buffers
     frontier, dstate, ctl = buffers[1].clone(), buffers[-2].clone(), buffers[-1].clone()
-    decide_ms = cold_ms(lambda: D.decide_gated(dstate, ctl, frontier, deng.outdeg), 10)
+    decide_ms = cold_ms(
+        lambda: D.decide_gated(dstate, ctl, *D.frontier_masses(frontier, deng.outdeg)), 10)
     log(f"direction: the decide step alone {decide_ms:.4f} ms (cold, mean of 10; the masses of a "
         f"{frontier.numel()}-vertex frontier, the predicate, the gated writes)")
     out.update(times=times, per_body=per_body, decide_ms=decide_ms)
@@ -1908,6 +1938,264 @@ def relay_curve_phase(eng, root: int, dist, K) -> dict:
     return dict(curve_s=curve_s, run_s=run_s, curve=curve)
 
 
+# ------------------------------------------------- the relay hybrid --
+
+def hybrid_engine(P, rg, expansion: str):
+    """``RelayEngine(sparse_hybrid=True)`` (the default) on the cell's
+    layout, built after the dense engines are freed (one copy of the masks
+    on the card): the sparse body's CSR and third array built and shipped,
+    timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heng = P.RelayEngine(rg, device="cuda", direction="auto", expansion=expansion,
+                         **({"tiles_budget_bytes": TILES_BUDGET} if expansion == "mxu" else {}))
+    torch.cuda.synchronize()
+    from bfs_tpu_torch.ops import sparse as S
+
+    log(f"hybrid {expansion}: RelayEngine(sparse_hybrid=True) in {time.perf_counter() - t0:.2f} s "
+        f"(masks, the sparse body's CSR and its {'key' if expansion == 'mxu' else 'rank'} "
+        f"array shipped{', tiles built' if expansion == 'mxu' else ''}); budgets (vertices, "
+        f"edges) {S.sparse_budgets(rg.vr, len(rg.adj_dst))}; config {heng.direction}")
+    return heng
+
+
+def hybrid_phase(heng, g, roots, want: dict, pull: dict, dense_s: float, K, D) -> dict:
+    """The relay engine's hybrid schedule on one arm (``RelayEngine.run``
+    with ``sparse_hybrid=True``) for the 4 roots in ``auto`` and ``push``,
+    on the captured switch loop and the eager loop: each result equal to
+    ``canonical_bfs``, to the dense relay search and to pull, clean under
+    the DeviceChecker; each schedule (``run_level_curve``) equal to the
+    host's recomputation with the relay's budgets; the supersteps issued by
+    body adding up to the supersteps issued and split as the schedule; the
+    dense kernels launched once per dense superstep and the control step
+    once per superstep issued.  Then each superstep's device time by body
+    (CUDA events around each replay) in ``auto``, ``push`` and with every
+    superstep dense (``alpha = beta = 1e9``), the predicate step alone, a
+    device trace, and ``run_many_device`` on the 4 roots."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.graph.csr import INF_DIST
+    from bfs_tpu_torch.ops import control as C
+    from bfs_tpu_torch.ops import sparse as S
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    rg, arm = heng.relay_graph, heng.expansion
+    label = f"hybrid {arm}"
+    budgets = S.sparse_budgets(rg.vr, len(rg.adj_dst))
+    outdeg = np.bincount(g.src, minlength=g.num_vertices).astype(np.int64)
+    cfg = heng.direction
+    per_step = MXU_STEP if arm == "mxu" else GATHER_STEP
+    out = {"mean": {}, "schedules": {}, "split": {}}
+    for mode in ("auto", "push"):
+        heng.direction = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
+        expected = {r: host_schedule(outdeg, want[r][0][0][None], mode, cfg.alpha, cfg.beta, budgets)
+                    for r in roots}
+        for loop in ("blocks", "eager"):
+            heng.loop = loop
+            heng.run(roots[0])  # warm: the captures
+            K.reset_launches()
+            rows = []
+            for r in roots:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = heng.run(r)
+                secs = time.perf_counter() - t0
+                run = dict(heng.last_run)
+                (dist, parent), relay = want[r]
+                for name, d, p in (("canonical_bfs", dist, parent),
+                                   ("the dense relay search", relay.dist, relay.parent),
+                                   ("pull", pull[r].dist, pull[r].parent)):
+                    if not (np.array_equal(res.dist, d) and np.array_equal(res.parent, p)):
+                        raise AssertionError(f"{label} {mode} ({loop}) root {r}: differs from {name}")
+                if res.num_levels != relay.num_levels or run["live"] != res.num_levels:
+                    raise AssertionError(f"{label} {mode} ({loop}) root {r}: {res.num_levels} levels, "
+                                         f"{run['live']} live, dense relay {relay.num_levels}")
+                verify(f"{label} {mode} ({loop}) root {r}", res.dist, res.parent, r)
+                rows.append(dict(root=r, secs=secs, **run))
+                del res
+            issued = sum(row["issued"] for row in rows)
+            dense = sum(row["issued_pull"] for row in rows)
+            launches = {k: K.LAUNCHES[k] for k in per_step}
+            expect = {k: v * dense for k, v in per_step.items()}
+            expect["loop_control"] = issued if loop == "blocks" else 0
+            if launches != expect or issued != sum(row["issued_push"] for row in rows) + dense:
+                raise AssertionError(f"{label} {mode} ({loop}): launches {launches} in {issued} "
+                                     f"supersteps issued, {dense} dense; expected {expect}")
+            if loop == "blocks" and not all(launches.values()):
+                raise AssertionError(f"{label} {mode}: a kernel of the path was not launched: "
+                                     f"{launches}")
+            for row in rows:
+                r = row["root"]
+                dist = want[r][0][0]
+                curve = heng.run_level_curve(r)
+                sched = curve["direction_schedule"]
+                if sched["schedule"] != expected[r]:
+                    raise AssertionError(f"{label} {mode} ({loop}) root {r}: schedule "
+                                         f"{sched['schedule']}, the host's {expected[r]}")
+                split = (row["issued_push"], row["issued_pull"])
+                if split != (sched["push_supersteps"], sched["pull_supersteps"]) or \
+                        (loop == "blocks" and row["replays"] != row["issued"]):
+                    raise AssertionError(f"{label} {mode} ({loop}) root {r}: {row}, schedule {sched}")
+                reached = dist != INF_DIST
+                if curve["occupancy"] != [int(x) for x in np.bincount(dist[reached])]:
+                    raise AssertionError(f"{label} {mode} root {r}: occupancy {curve['occupancy']}")
+                if mode == "auto" and loop == "blocks":
+                    out["schedules"][r] = sched["schedule"]
+                log(f"{label} {mode} root {r}, {'captured' if loop == 'blocks' else 'eager'} loop: "
+                    f"{row['secs']:.6f} s (level loop {row['loop_s']:.6f} s, results "
+                    f"{row['result_s']:.6f} s), {row['level']} levels; host reads {row['host_reads']}, "
+                    f"replays {row['replays']} (sparse {split[0]}, dense {split[1]}), issued "
+                    f"{row['issued']}; schedule {','.join(sched['schedule'])}, equal to the host's; "
+                    "oracle-exact, equal to the dense relay and to pull, DeviceChecker clean")
+            out["mean"][(mode, loop)] = float(np.mean([row["secs"] for row in rows]))
+            out["split"][(mode, loop)] = {k: float(np.mean([row[k] for row in rows]))
+                                          for k in ("secs", "loop_s", "result_s", "host_reads")}
+            log(f"{label} {mode} ({loop}): launches {launches} in {issued} supersteps issued, "
+                f"{dense} dense")
+    log(f"{label}, mean over the roots (search s / level loop s / result copy s / host reads): "
+        + "; ".join(f"{m} {'captured' if lp == 'blocks' else 'eager'} {v['secs']:.6f} / "
+                    f"{v['loop_s']:.6f} / {v['result_s']:.6f} / {v['host_reads']:g}"
+                    for (m, lp), v in out["split"].items())
+        + f"; the dense search (sparse_hybrid=False, captured blocks of 4) {dense_s:.6f} s")
+    heng.loop = "blocks"
+    times = {}
+    for name, c in (("auto", cfg), ("push", D.DirectionConfig("push", cfg.alpha, cfg.beta)),
+                    ("dense", D.DirectionConfig("auto", 1e9, 1e9))):
+        heng.direction = c
+        times[name] = []
+        heng.run(roots[0], times=times[name])
+    if {b for b, _ in times["dense"]} != {1} or len(times["dense"]) != len(times["auto"]):
+        raise AssertionError(f"{label}: alpha = beta = 1e9 did not run every superstep dense: "
+                             f"{times['dense']}")
+    names = ("sparse", "dense")
+    sparse_levels = [i for i, (b, _) in enumerate(times["push"]) if b == 0]
+    sparse_ms = [times["push"][i][1] for i in sparse_levels]
+    dense_ms = [times["dense"][i][1] for i in sparse_levels]
+    log(f"{label}, root {roots[0]}: device ms of each superstep's replay (CUDA events), by level: "
+        + "; ".join(f"{i + 1}: auto {names[a[0]]} {a[1]:.4f} | push {names[p[0]]} {p[1]:.4f} | "
+                    f"dense {d[1]:.4f}" for i, (a, p, d) in enumerate(
+                        zip(times["auto"], times["push"], times["dense"])))
+        + f"; on the {len(sparse_levels)} levels push runs sparse: sparse "
+        + ", ".join(f"{x:.4f}" for x in sparse_ms) + " against dense "
+        + ", ".join(f"{x:.4f}" for x in dense_ms))
+    pred = {}
+    for mode in ("auto", "push"):
+        heng.direction = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
+        loop = heng._switch_loop(heng.packed)
+        words = 1 if heng.packed else 2
+        fwords, dstate, ctl = (loop.buffers[i].clone() for i in (words, -2, -1))
+        adj = heng._sparse_tensors_for(heng.packed)
+        pred[mode] = cold_ms(lambda: heng._next_body(mode, dstate, ctl[C.USE_PULL], fwords, adj,
+                                                     ctl), 10)
+    log(f"{label}: the predicate step alone (cold, mean of 10; the masses of a {rg.vr}-vertex "
+        f"frontier, the rule, the gated writes): auto {pred['auto']:.4f} ms, push "
+        f"{pred['push']:.4f} ms")
+    heng.direction = cfg
+    body = sparse_body_table(heng, roots[0], label)
+    idle = device_trace(f"{label} auto root {roots[0]}, captured", lambda: heng.run(roots[0]),
+                        out["mean"][("auto", "blocks")], "loop_control")
+    heng.run_many_device(roots)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = heng.run_many_device(roots)
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    many = dict(heng.last_run)
+    for r, st in zip(roots, states):
+        d, p = heng.to_original_device(st, r)
+        (dist, parent), _ = want[r]
+        if not (np.array_equal(d.cpu().numpy(), dist) and np.array_equal(p.cpu().numpy(), parent)):
+            raise AssertionError(f"{label} run_many_device root {r}: differs from canonical_bfs")
+        verify(f"{label} run_many_device root {r}", d, p, r)
+    if many["issued"] != many["issued_push"] + many["issued_pull"]:
+        raise AssertionError(f"{label} run_many_device: {many}")
+    log(f"{label} run_many_device, {len(roots)} roots chained: {many_s:.6f} s (no result copy); "
+        f"host reads {many['host_reads']}, replays {many['replays']} (sparse {many['issued_push']}, "
+        f"dense {many['issued_pull']}); every state oracle-exact, DeviceChecker clean")
+    out.update(times=times, sparse_ms=sparse_ms, dense_ms=dense_ms, predicate_ms=pred, idle=idle,
+               many_s=many_s, many=many, body=body)
+    return out
+
+
+def sparse_body_table(heng, root: int, label: str) -> list:
+    """The bodies alone, stepped eagerly on the packed carry from ``root``
+    (``step_dispatch``): on every level where ``push`` takes the sparse
+    superstep, its device ms (``cold_ms``: L2 flushed, launches hidden
+    behind a device sleep, mean of 3) beside the dense superstep's on the
+    same state, and the kernels one sparse superstep launches (a profiler
+    trace), the frontier's vertices and out-edges beside them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bfs_tpu_torch.ops import sparse as S
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    vr = heng.relay_graph.vr
+    adj = heng._sparse_tensors_for(True)
+    st, rows = heng.init_packed_state(root), []
+    while bool(st.changed):
+        take = heng.take_sparse(st)
+        if take:
+            fsize, fedges = heng.frontier_stats(st)
+            sparse_ms = cold_ms(lambda: S.sparse_superstep(st, adj, vr), reps=3, warm=1)
+            copy = st._replace(packed=st.packed.clone(), fwords=st.fwords.clone())
+            dense_ms = cold_ms(lambda: heng.superstep_packed(copy), reps=3, warm=1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                S.sparse_superstep(st, adj, vr)
+                torch.cuda.synchronize()
+            kernels = sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            rows.append(dict(level=st.level + 1, fsize=fsize, fedges=fedges, sparse_ms=sparse_ms,
+                             dense_ms=dense_ms, kernels=kernels))
+        st, _ = heng.step_dispatch(st, take_sparse=take)
+    log(f"{label}, root {root}: the bodies alone on the levels push runs sparse (device ms, cold, "
+        "mean of 3; frontier vertices / out-edges; device activities of one sparse superstep): " + "; ".join(
+            f"{r['level']}: sparse {r['sparse_ms']:.4f} | dense {r['dense_ms']:.4f} "
+            f"({r['fsize']} / {r['fedges']}; {r['kernels']})" for r in rows))
+    return rows
+
+
+def small_hybrid_checks(P, K) -> None:
+    """path_graph(100) from vertex 0 on the hybrid, both arms, ``auto`` and
+    ``push``: 62 levels on the packed carry, then the unpacked re-run (the
+    slot flavor of the sparse body on the gather arm) to 100; its level
+    curve and schedule (the re-run's, 100 levels), ``run_many_device``
+    stopping at the packed cap with ``changed`` set, and the eager loop."""
+    import numpy as np
+
+    path = P.path_graph(100)
+    dist, parent = P.canonical_bfs(path, 0)
+    for expansion in ("gather", "mxu"):
+        for mode in ("auto", "push"):
+            eng = P.RelayEngine(path, expansion=expansion, direction=mode)
+            res = eng.run(0)
+            run = dict(eng.last_run)
+            curve = eng.run_level_curve(0)
+            (st,) = eng.run_many_device([0])
+            eng.loop = "eager"
+            eager = eng.run(0)
+            for name, got in (("the captured loop", res), ("the eager loop", eager)):
+                if not (np.array_equal(got.dist, dist) and np.array_equal(got.parent, parent)
+                        and got.num_levels == 100):
+                    raise AssertionError(f"path_graph(100) hybrid {expansion} {mode}: {name} differs "
+                                         "from the oracle")
+            sched = curve["direction_schedule"]
+            if run["live"] != 62 + 100 or run["issued"] != run["issued_push"] + run["issued_pull"] \
+                    or curve["levels"] != 100 or len(sched["schedule"]) != 100 \
+                    or not (st.changed and st.level == 62):
+                raise AssertionError(f"path_graph(100) hybrid {expansion} {mode}: {run}, curve "
+                                     f"{curve['levels']} levels, run_many_device level {st.level}")
+            log(f"path_graph(100), hybrid {expansion} {mode}: 62 packed levels then the unpacked "
+                f"re-run to 100 (host reads {run['host_reads']}, replays {run['replays']}: sparse "
+                f"{run['issued_push']}, dense {run['issued_pull']}); schedule of the re-run: "
+                f"{sched['push_supersteps']} push, {sched['pull_supersteps']} pull; run_many_device "
+                "stops at the packed cap with changed set; oracle-exact, equal to the eager loop")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1933,6 +2221,11 @@ def main(argv=None) -> int:
     from bfs_tpu_torch.utils.timing import card_line
 
     t_all = time.perf_counter()
+    marks = [("start", t_all)]
+
+    def mark(name: str) -> None:
+        """The end of a phase: its wall seconds go into the closing breakdown."""
+        marks.append((name, time.perf_counter()))
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1949,6 +2242,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
+    mark("build")
     # ---- layout ---------------------------------------------------------
     t0 = time.perf_counter()
     # The native generator only (it raises if it cannot be built): the numpy
@@ -1966,13 +2260,15 @@ def main(argv=None) -> int:
         f"vperm={len(rg.vperm_table)} mask bytes={mask_bytes} "
         f"in_classes={len(rg.in_classes)} out_classes={len(rg.out_classes)}")
     t0 = time.perf_counter()
-    eng = P.RelayEngine(rg, device="cuda")
+    eng = P.RelayEngine(rg, device="cuda", sparse_hybrid=False)
     torch.cuda.synchronize()
     log(f"engine: layout shipped in {time.perf_counter() - t0:.2f} s")
     CHECKER.update(dc=P.DeviceChecker.from_graph(g), passed=0)
 
+    mark("graph, layout, engine")
     # ---- kernels against their plain versions -----------------------------
     kres = kernel_phase(eng, K, R, card)
+    mark("kernel phase")
 
     # ---- main path: the gather arm on the captured block loop, against
     # the eager loop; then the oracle, the result copy's two designs and
@@ -2007,6 +2303,7 @@ def main(argv=None) -> int:
     curve = relay_curve_phase(eng, root0, want[root0][0][0], K)
     corrupted = verify_corruptions(g, root0, *want[root0][0])
     gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L, eng)
+    mark("gather main path")
 
     # ---- MXU arm: tiles, K6 against its plain version, the 4 searches ---
     tiles_oracle_check(P, generators, AT)
@@ -2018,6 +2315,7 @@ def main(argv=None) -> int:
     del meng
     torch.cuda.empty_cache()
 
+    mark("mxu arm")
     # ---- multi-source: the batch (its first call builds the route index),
     # then the route index and the elem kernels against their plain versions
     sources = np.asarray(rng.choice(comp, BATCH, replace=False), dtype=np.int32)
@@ -2025,6 +2323,9 @@ def main(argv=None) -> int:
     multi = multi_source_phase(eng, g, sources, directed_traversed, K, RE, P, L)
     launches.update(multi["launches"])
     kres.update(elem_kernel_phase(eng, sources, K, RE, card))
+    mark("multi-source")
+    del eng  # the hybrid engines below ship the layout again
+    torch.cuda.empty_cache()
 
     # ---- the push and pull engines: layouts, the fused searches (captured
     # against eager), their supersteps against the byte bound, the batches,
@@ -2042,6 +2343,7 @@ def main(argv=None) -> int:
                                                  multi["result"], K, L)
         del eeng
         torch.cuda.empty_cache()
+        mark(f"{engine} engine")
     # ---- the direction policy over push and pull, on the same layouts
     from bfs_tpu_torch.models import direction as D
 
@@ -2055,9 +2357,21 @@ def main(argv=None) -> int:
         deng, sources, multi["result"], np.bincount(g.src, minlength=g.num_vertices), K)
     del deng
     torch.cuda.empty_cache()
+    mark("direction policy")
+    # ---- the relay engine's hybrid schedule (sparse_hybrid=True) on both
+    # arms, from the same layout, one engine at a time
+    hybrid = {}
+    for arm, dense_s in (("gather", gather["mean"]["secs"]), ("mxu", mxu["mean"]["secs"])):
+        heng = hybrid_engine(P, rg, arm)
+        hybrid[arm] = hybrid_phase(heng, g, roots, want, edge["pull"]["results"], dense_s, K, D)
+        del heng
+        torch.cuda.empty_cache()
+        mark(f"hybrid {arm}")
     runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
     del want
+    mark("runners")
     cli_phase(K)
+    mark("command line")
 
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2071,7 +2385,9 @@ def main(argv=None) -> int:
     small_path_check(P, K, "gather")
     small_edge_checks(P, K, tiny)
     small_mxu_checks(P, tiny, K)
+    small_hybrid_checks(P, K)
     small_multi_checks(P, tiny)
+    mark("small graphs")
 
     # ---- report ---------------------------------------------------------
     # One row per kres entry of a kernel (``kernel``, default the entry's
@@ -2137,6 +2453,20 @@ def main(argv=None) -> int:
         f"(schedule {direction['batch']['schedule']}); run_level_curve {curve['curve_s']:.6f} s "
         f"against run {curve['run_s']:.6f} s; DeviceChecker: {CHECKER['passed']} results clean, "
         f"corruptions flagged {corrupted}")
+    log("relay hybrid (sparse_hybrid=True; sparse body plain torch, XLA in the reference): mean "
+        "s/search on the captured loop " + "; ".join(
+            f"{arm}: auto {h['mean'][('auto', 'blocks')]:.6f}, push "
+            f"{h['mean'][('push', 'blocks')]:.6f} (eager {h['mean'][('auto', 'eager')]:.6f}, "
+            f"{h['mean'][('push', 'eager')]:.6f}), dense {dense_s:.6f}; sparse supersteps "
+            + ", ".join(f"{x:.4f}" for x in h["sparse_ms"])
+            + " ms against dense " + ", ".join(f"{x:.4f}" for x in h["dense_ms"])
+            + f" ms on the same levels; predicate auto {h['predicate_ms']['auto']:.4f} ms, push "
+            f"{h['predicate_ms']['push']:.4f} ms; run_many_device {h['many_s']:.6f} s"
+            for arm, h, dense_s in (("gather", hybrid["gather"], gather["mean"]["secs"]),
+                                    ("mxu", hybrid["mxu"], mxu["mean"]["secs"])))
+        + f"; auto schedules (gather) {hybrid['gather']['schedules']}")
+    log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
+                                        in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -133,7 +133,7 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.oracle.native, bfs_tpu_torch.runners.run_parallel, "
         "bfs_tpu_torch.runners.run_sequential, bfs_tpu_torch.knobs, "
         "bfs_tpu_torch.obs.telemetry, bfs_tpu_torch.models.direction, "
-        "bfs_tpu_torch.oracle.device; "
+        "bfs_tpu_torch.oracle.device, bfs_tpu_torch.ops.sparse; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"

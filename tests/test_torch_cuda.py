@@ -180,8 +180,8 @@ def test_card_class_rowmin_wide_classes_match_plain(card, density):
 
 def test_card_bfs_matches_cpu_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
-    cpu = P.RelayEngine(g, device="cpu")
-    on_card = P.RelayEngine(g)
+    cpu = P.RelayEngine(g, device="cpu", sparse_hybrid=False)
+    on_card = P.RelayEngine(g, sparse_hybrid=False)  # every superstep dense: K1-K4
     assert p_bfs.resolve_device().type == "cuda"
     K.reset_launches()
     for s in (0, 9):
@@ -543,8 +543,8 @@ def test_card_mxu_expand_empty_frontier_and_devices(card, monkeypatch):
 
 def test_card_mxu_engine_matches_gather_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
-    mxu = P.RelayEngine(g, expansion="mxu")
-    gather = P.RelayEngine(g)
+    mxu = P.RelayEngine(g, expansion="mxu", sparse_hybrid=False)
+    gather = P.RelayEngine(g, sparse_hybrid=False)
     assert mxu.adj_tiles.device.type == "cuda"
     K.reset_launches()
     for s in (0, 9):
@@ -586,7 +586,7 @@ def test_card_captured_loop_matches_eager(card, expansion):
     from bfs_tpu_torch.models import loop as L
 
     g = P.rmat_graph(12, 6, seed=1)
-    eng = P.RelayEngine(g, expansion=expansion)
+    eng = P.RelayEngine(g, expansion=expansion, sparse_hybrid=False)  # the dense block loop
     eng.run(0)  # captures the graph
     per_step = dict(PER_STEP[expansion])
     if expansion == "gather":  # outer passes of both networks at this size
@@ -818,7 +818,7 @@ def test_card_level_curves_match_cpu(card):
         assert got == P.bfs_level_curve(g, 5, engine=engine, device="cpu")
     assert (P.bfs_multi_level_curve(g, [5, 9, 5], engine="push")
             == P.bfs_multi_level_curve(g, [5, 9, 5], engine="push", device="cpu"))
-    eng = P.RelayEngine(g)
+    eng = P.RelayEngine(g, sparse_hybrid=False)  # the recorder in the dense block
     eng.run_level_curve(5)
     K.reset_launches()
     curve = eng.run_level_curve(9)
@@ -868,3 +868,131 @@ def test_card_device_checker_host_edges_land_on_the_card(card):
     cpu = DeviceChecker(g.src, g.dst, g.num_vertices, device="cpu")
     with pytest.raises(ValueError):
         cpu.check(torch.from_numpy(dist).cuda(), parent, 5)
+
+
+# ------------------------------------------------ the relay engine's hybrid --
+
+def _hybrid_graph():
+    """A G(n, m) whose frontier from its max-degree vertex ramps through the
+    thresholds, and the budgets (patched below) small enough that its dense
+    middle is over them."""
+    g = P.gnm_graph(1 << 12, 3 << 12, seed=5)
+    return g, int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+
+
+@pytest.mark.parametrize("expansion", ["gather", "mxu"])
+@pytest.mark.parametrize("mode", ["auto", "push"])
+def test_card_relay_switch_loop_replays_one_body_per_superstep(card, monkeypatch, mode, expansion):
+    """The hybrid's switch loop on the card: both bodies' graphs captured
+    once; every superstep one replay of the body its control block named
+    (the replays add up to the supersteps issued, split as the schedule);
+    the dense kernels launched once per dense superstep and the control
+    step once per superstep; results and schedules equal to the CPU's, the
+    eager loop's and the oracle's; a dead replay of either graph changes
+    nothing; ``run_many_device`` and the path past the packed cap."""
+    from bfs_tpu_torch.ops import control as C
+    from bfs_tpu_torch.ops import sparse as S
+
+    monkeypatch.setattr(S, "SPARSE_BV", 512)
+    monkeypatch.setattr(S, "SPARSE_BE", 2048)
+    g, s0 = _hybrid_graph()
+    eng = P.RelayEngine(g, direction=mode, expansion=expansion)
+    cpu = P.RelayEngine(g, device="cpu", direction=mode, expansion=expansion)
+    eng.run(s0)  # captures both graphs
+    loop = eng._switch_loop(eng.packed)
+    assert sorted(loop.bodies) == [0, 1] and all(b.graph is not None for b in loop.bodies.values())
+    dense = {"mxu_expand": 1} if expansion == "mxu" else {"class_rowmin": 1, "benes_local_pass": 2}
+    for s in (s0, 9, 100):
+        K.reset_launches()
+        got = eng.run(s)
+        run = dict(eng.last_run)
+        assert run["replays"] == run["issued"] == run["issued_push"] + run["issued_pull"]
+        assert run["live"] == got.num_levels
+        assert _counts([*dense, "packed_update", "loop_control"]) == {
+            **{k: v * run["issued_pull"] for k, v in dense.items()},
+            "packed_update": run["issued_pull"], "loop_control": run["issued"]}
+        curve = eng.run_level_curve(s)
+        sched = curve["direction_schedule"]
+        assert (run["issued_push"], run["issued_pull"]) == (sched["push_supersteps"],
+                                                            sched["pull_supersteps"])
+        assert curve == cpu.run_level_curve(s)
+        want = cpu.run(s)
+        for dist, parent in ((want.dist, want.parent), P.canonical_bfs(g, s)):
+            np.testing.assert_array_equal(got.dist, dist)
+            np.testing.assert_array_equal(got.parent, parent)
+        eng.loop = "eager"
+        eager = eng.run(s)
+        eng.loop = "blocks"
+        np.testing.assert_array_equal(got.dist, eager.dist)
+        np.testing.assert_array_equal(got.parent, eager.parent)
+    assert "push" in sched["schedule"] and "pull" in sched["schedule"]
+    before = [b.clone() for b in loop.buffers]
+    assert int(before[-1][C.LIVE]) == 0
+    for body in loop.bodies.values():
+        body.dead_replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(before, loop.buffers))
+    times = []
+    eng.run(s0, times=times)
+    assert [b for b, _ in times] == [int(x == "pull") for x in eng.run_level_curve(s0)[
+        "direction_schedule"]["schedule"]] and all(ms > 0 for _, ms in times)
+    for st, wst in zip(eng.run_many_device([s0, 9, 100]), cpu.run_many_device([s0, 9, 100])):
+        _eq(st.dist, wst.dist)
+        _eq(st.parent, wst.parent)
+        assert (st.level, st.changed) == (wst.level, wst.changed)
+    path = P.RelayEngine(P.path_graph(80), direction=mode, expansion=expansion)
+    res = path.run(0)  # the unpacked re-run on the slot (or key) flavor
+    np.testing.assert_array_equal(res.dist, np.arange(80, dtype=np.int32))
+    assert len(path.run_level_curve(0)["direction_schedule"]["schedule"]) == 80
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_card_sparse_body_is_captured_and_replays_without_a_host_sync(card, packed):
+    """The sparse superstep makes no host sync (run under the sync debug
+    mode that raises on one), is captured into a CUDA graph, and its replay
+    equals the CPU's superstep on the same carry, gated live and dead."""
+    from bfs_tpu_torch.ops import control as C
+    from bfs_tpu_torch.ops import sparse as S
+
+    g, s0 = _hybrid_graph()
+    eng = P.RelayEngine(g, direction="push")
+    cpu = P.RelayEngine(g, device="cpu", direction="push")
+    st = cpu.init_packed_state(s0) if packed else cpu.init_state(s0)
+    for _ in range(2):  # a frontier two levels out
+        st, _ = cpu.step_dispatch(st, take_sparse=True)
+    vr, n = eng.relay_graph.vr, 1 if packed else 2
+    adj, cadj = eng._sparse_tensors_for(packed), cpu._sparse_tensors_for(packed)
+    for live in (1, 0):
+        ext = tuple(torch.cat([f, f.new_zeros(1)]).cuda() for f in st[:n])
+        fwords = st.fwords.cuda()
+        ctl = C.new_ctl(card)
+        C.init_ctl(ctl, 62)
+        ctl[C.LEVEL], ctl[C.LIVE] = st.level, live
+        gst = st._replace(**dict(zip(st._fields[:n], (e[:vr] for e in ext))), fwords=fwords,
+                          level=None, changed=None)
+
+        def step():
+            new = S.sparse_superstep(gst, adj, vr, ctl=ctl, ext=ext)
+            fwords.copy_(new.fwords)
+            C.raise_flag(ctl, new.changed)
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()  # eager, warm: a sync would raise here
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ext0 = tuple(torch.cat([f, f.new_zeros(1)]).cuda() for f in st[:n])
+        for e, e0 in zip(ext, ext0):
+            e.copy_(e0)
+        fwords.copy_(st.fwords)
+        ctl[C.FLAG] = 0
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = S.sparse_superstep(st, cadj, vr) if live else st
+        for a, b in zip((*(e[:vr] for e in ext), fwords), (*want[:n], want.fwords)):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        assert int(ctl[C.FLAG]) == int(bool(live) and bool(want.changed))

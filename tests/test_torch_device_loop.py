@@ -84,7 +84,7 @@ def test_block_loop_matches_reference(monkeypatch, name, k):
     supersteps as levels."""
     monkeypatch.setattr(L, "BLOCK", k)
     g, ref = _reference(name)
-    eng = P.RelayEngine(g, device="cpu")
+    eng = P.RelayEngine(g, device="cpu", sparse_hybrid=False)  # the dense block loop
     for s in GRAPHS[name][1]:
         got = eng.run(s)
         _assert_same_result(got, ref.run(s))
@@ -180,7 +180,7 @@ def test_dead_block_changes_nothing(kind):
     """A block issued after its run converged (every superstep dead)
     leaves the carry and the control block bit-identical."""
     g = P.rmat_graph(10, 6, seed=1)
-    eng = P.RelayEngine(g, device="cpu")
+    eng = P.RelayEngine(g, device="cpu", sparse_hybrid=False)
     if kind == "elem":
         eng.run_multi_elem_device(np.arange(32, dtype=np.int32) * 3)
         loop = eng._elem_loop(1)
@@ -199,7 +199,7 @@ def test_eager_loop_is_the_plain_version():
     """The eager loop (a host read per level) gives the block loop's
     results, with one read per level."""
     g = P.rmat_graph(10, 6, seed=1)
-    eng = P.RelayEngine(g, device="cpu")
+    eng = P.RelayEngine(g, device="cpu", sparse_hybrid=False)
     blocks = eng.run(400)
     eng.loop = "eager"
     eager = eng.run(400)

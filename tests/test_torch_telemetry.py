@@ -80,7 +80,7 @@ def test_bfs_multi_level_curve_matches_reference(name, engine):
 def test_relay_level_curve_matches_reference(name, direction):
     make, roots = GRAPHS[name]
     g = make()
-    eng = P.RelayEngine(g, device="cpu", direction=direction)
+    eng = P.RelayEngine(g, device="cpu", sparse_hybrid=False, direction=direction)
     ref = JRelayEngine(_jgraph(g), sparse_hybrid=False, direction=direction)
     for s in roots:
         reached, hist = _oracle(g, s)
@@ -115,21 +115,29 @@ def test_relay_level_curve_loops_and_arms_agree():
 
 
 @needs_native
-def test_relay_refuses_push_as_the_reference_does():
+def test_relay_refuses_push_as_the_reference_does(monkeypatch):
+    """``push`` raises only without the sparse hybrid, from the argument or
+    from the knob, as the reference's engine does."""
     g = P.path_graph(10)
-    with pytest.raises(ValueError, match="sparse"):
-        P.RelayEngine(g, device="cpu", direction="push")
+    with pytest.raises(ValueError, match="sparse_hybrid"):
+        P.RelayEngine(g, device="cpu", sparse_hybrid=False, direction="push")
     with pytest.raises(ValueError, match="sparse_hybrid"):
         JRelayEngine(_jgraph(g), sparse_hybrid=False, direction="push")
+    assert P.RelayEngine(g, device="cpu", direction="push").direction.mode == "push"
+    monkeypatch.setenv("BFS_TPU_TORCH_DIRECTION", "push")
+    with pytest.raises(ValueError, match="sparse_hybrid"):
+        P.RelayEngine(g, device="cpu", sparse_hybrid=False)
 
 
 @needs_native
-def test_relay_runs_dense_under_the_push_knob(monkeypatch):
-    """``BFS_TPU_TORCH_DIRECTION=push`` (which the edge engines honour)
-    does not make the relay entry points raise: they run the dense
-    superstep, as the reference's relay engine runs under
-    ``BFS_TPU_DIRECTION=push``, with the schedule labelled pull."""
+def test_relay_runs_the_hybrid_under_the_push_knob(monkeypatch):
+    """``BFS_TPU_TORCH_DIRECTION=push`` runs the relay entry points on the
+    sparse hybrid's push schedule (the sparse superstep wherever the
+    frontier fits its budgets), labelled as the reference labels it under
+    ``BFS_TPU_DIRECTION=push``; the stepped runner and the lock-step batch
+    stay dense, with the same results."""
     monkeypatch.setenv("BFS_TPU_TORCH_DIRECTION", "push")
+    monkeypatch.setenv("BFS_TPU_DIRECTION", "push")
     g = P.gnm_graph(200, 600, seed=4)
     dist, parent = P.canonical_bfs(g, 3)
     res = P.bfs(g, 3, engine="relay", device="cpu")
@@ -141,8 +149,9 @@ def test_relay_runs_dense_under_the_push_knob(monkeypatch):
     multi = P.bfs_multi(g, [3, 7], engine="relay", device="cpu")
     np.testing.assert_array_equal(multi.dist[0], dist)
     curve = P.bfs_level_curve(g, 3, engine="relay", device="cpu")
+    assert curve == JRelayEngine(_jgraph(g)).run_level_curve(3)
     sched = curve["direction_schedule"]
-    assert sched["mode"] == "pull" and set(sched["schedule"]) == {"pull"}
+    assert sched["mode"] == "push" and set(sched["schedule"]) == {"push"}
     assert P.bfs_level_curve(g, 3, engine="push", device="cpu")["occupancy"] == curve["occupancy"]
 
 
