@@ -9,9 +9,13 @@ engines, and the direction-optimizing search over push and pull
 imports torch and numpy, never jax and nothing of ``bfs_tpu``.  Entry
 points run on the card unless the caller passes ``device="cpu"``.  The command-line entry points are
 ``python -m bfs_tpu_torch.runners.run_parallel`` and
-``python -m bfs_tpu_torch.runners.run_sequential``.
+``python -m bfs_tpu_torch.runners.run_sequential``.  A graph's relay
+layout is built on the card by :func:`build_relay_graph_device` and kept
+on disk as a content-addressed bundle by :func:`load_or_build_relay`
+(:class:`LayoutCache`; pull layouts by :func:`load_or_build_pull`).
 """
 
+from .cache.layout import LayoutCache, load_or_build_pull, load_or_build_relay
 from .config import ServiceConfiguration
 from .graph.adj_tiles import AdjTiles
 from .graph.csr import INF_DIST, NO_PARENT, DeviceGraph, Graph, build_device_graph
@@ -19,6 +23,7 @@ from .graph.ell import PullGraph, build_pull_graph
 from .graph.generators import gnm_graph, path_graph, rmat_graph, snap_shape_edges, star_graph
 from .graph.io import read_sedgewick
 from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
+from .graph.relay_device import build_relay_graph_device
 from .graph.vertex import Color, Vertex, parse_state, path_to, serialize_state
 from .models.bfs import (
     BfsResult,
@@ -57,6 +62,7 @@ __all__ = [
     "EdgeEngine",
     "Graph",
     "INF_DIST",
+    "LayoutCache",
     "MultiBfsResult",
     "NO_PARENT",
     "PullGraph",
@@ -75,11 +81,14 @@ __all__ = [
     "build_device_graph",
     "build_pull_graph",
     "build_relay_graph",
+    "build_relay_graph_device",
     "canonical_bfs",
     "check",
     "collapse_multi_source",
     "from_reference_layout",
     "gnm_graph",
+    "load_or_build_pull",
+    "load_or_build_relay",
     "parse_state",
     "path_graph",
     "path_to",

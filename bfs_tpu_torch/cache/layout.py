@@ -1,0 +1,352 @@
+"""Persistent layout-bundle cache: the port of ``bfs_tpu.cache.layout``
+(relay and pull bundles), a layout built once per graph.
+
+A layout is a pure function of (graph content, layout parameters, layout
+code version), so finished layouts are stored as content-addressed bundles
+on disk, in the reference's format byte for byte: a bundle that either
+package writes loads in the other.
+
+  * **bundle**: one directory ``<root>/<key>/`` holding ``meta.json`` and
+    one ``.npy`` file per array.  Arrays over 8 MiB load back as
+    ``np.memmap`` views, so a warm load reads headers; the bytes stream in
+    when the engine ships them to the card.
+  * **key**: ``{kind}_{layout params}_s{STORE_VERSION}_{graph hash}``, the
+    graph hash a blake2b over ``(V, E, src, dst)``.
+  * **integrity**: every field records dtype, shape and a head+tail
+    fingerprint; a failed check drops the bundle and reports a miss.
+  * **atomicity**: a bundle is written to a ``.tmp.<pid>`` sibling and
+    renamed into place; the first finished rename wins.
+  * **tags**: ``tags/<name>.json`` -> key aliases.
+
+One divergence from the reference: :func:`load_or_build_relay` has no
+fallback.  The reference builds on the host when its device builder
+raises; here a failing device build raises.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import shutil
+import time
+from typing import Any
+
+import numpy as np
+
+from .. import knobs
+from ..utils.metrics import bump_artifact
+
+logger = logging.getLogger(__name__)
+
+#: The bundle disk format's version, part of every key (the reference's).
+STORE_VERSION = 1
+
+#: Elements hashed from each end of an array for its fingerprint.
+_FPR_ELEMS = 16384
+
+#: Arrays at or under this many bytes load eagerly; larger ones memmap.
+_MMAP_MIN_BYTES = 1 << 23
+
+
+def default_root() -> str:
+    from ..config import layout_cache_dir
+
+    return layout_cache_dir()
+
+
+def graph_content_hash(graph) -> str:
+    """blake2b-128 over ``(num_vertices, E, src dtype, src bytes, dst
+    bytes)`` of anything with ``num_vertices``/``src``/``dst``; memoized
+    on the object."""
+    cached = getattr(graph, "_content_hash", None)
+    if cached is not None:
+        return cached
+    h = hashlib.blake2b(digest_size=16)
+    src = np.ascontiguousarray(np.asarray(graph.src).reshape(-1))
+    dst = np.ascontiguousarray(np.asarray(graph.dst).reshape(-1))
+    h.update(np.int64(graph.num_vertices).tobytes())
+    h.update(np.int64(src.shape[0]).tobytes())
+    h.update(str(src.dtype).encode())
+    h.update(memoryview(src))
+    h.update(memoryview(dst))
+    digest = h.hexdigest()
+    try:
+        object.__setattr__(graph, "_content_hash", digest)
+    except (AttributeError, TypeError):
+        pass
+    return digest
+
+
+def relay_key(graph) -> str:
+    from ..graph.relay import COMPACT_MIN_D, LAYOUT_VERSION
+
+    return (
+        f"relay_v{LAYOUT_VERSION}c{COMPACT_MIN_D}_s{STORE_VERSION}"
+        f"_{graph_content_hash(graph)}"
+    )
+
+
+def pull_key(graph, k: int, row_multiple: int) -> str:
+    return f"pull_k{k}r{row_multiple}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+
+
+def _fingerprint(arr: np.ndarray) -> str:
+    """dtype + shape + head/tail sample; reads no more of a memmap."""
+    arr = np.asarray(arr)
+    h = hashlib.blake2b(digest_size=8)
+    h.update(str(arr.dtype).encode())
+    h.update(repr(tuple(arr.shape)).encode())
+    flat = arr.reshape(-1)
+    take = min(int(flat.shape[0]), _FPR_ELEMS)
+    h.update(np.ascontiguousarray(flat[:take]).tobytes())
+    h.update(np.ascontiguousarray(flat[flat.shape[0] - take :]).tobytes())
+    return h.hexdigest()
+
+
+class LayoutCache:
+    """Content-addressed bundle store under one root directory."""
+
+    def __init__(self, root: str | None = None):
+        self.root = root or default_root()
+
+    def _dir(self, key: str) -> str:
+        return os.path.join(self.root, key)
+
+    def has(self, key: str) -> bool:
+        return os.path.isfile(os.path.join(self._dir(key), "meta.json"))
+
+    def save(self, key: str, arrays: dict[str, np.ndarray],
+             meta: dict[str, Any] | None = None, *, tag: str | None = None) -> None:
+        """Write a bundle atomically; ``meta`` is free-form JSON (build
+        seconds, provenance)."""
+        final = self._dir(key)
+        tmp = f"{final}.tmp.{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        try:
+            fields = {}
+            for name, arr in arrays.items():
+                arr = np.asarray(arr)
+                np.save(os.path.join(tmp, f"{name}.npy"), arr)
+                fields[name] = {
+                    "dtype": str(arr.dtype),
+                    "shape": list(arr.shape),
+                    "fingerprint": _fingerprint(arr),
+                }
+            doc = {
+                "key": key,
+                "store_version": STORE_VERSION,
+                "created": time.time(),
+                "fields": fields,
+                "meta": meta or {},
+            }
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+            if os.path.isdir(final):
+                shutil.rmtree(tmp, ignore_errors=True)  # lost the race
+            else:
+                try:
+                    os.rename(tmp, final)
+                except OSError:
+                    shutil.rmtree(tmp, ignore_errors=True)
+        except Exception:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        if tag:
+            self.tag(tag, key)
+
+    def load(self, key: str, *, mmap: bool = True):
+        """``(meta_doc, arrays)`` of a valid bundle, else None.  A field
+        that fails its dtype/shape/fingerprint check, or a stale key or
+        store version, drops the bundle (a rebuild, never a wrong layout);
+        an OS error reports a miss and keeps it."""
+        d = self._dir(key)
+        meta_path = os.path.join(d, "meta.json")
+        if not os.path.isfile(meta_path):
+            return None
+        try:
+            with open(meta_path) as f:
+                doc = json.load(f)
+            if doc.get("key") != key or doc.get("store_version") != STORE_VERSION:
+                raise ValueError("bundle key/store-version mismatch")
+            arrays = {}
+            for name, spec in doc["fields"].items():
+                nbytes = int(
+                    np.dtype(spec["dtype"]).itemsize * max(int(np.prod(spec["shape"] or [1])), 1)
+                )
+                arr = np.load(
+                    os.path.join(d, f"{name}.npy"),
+                    mmap_mode="r" if (mmap and nbytes > _MMAP_MIN_BYTES) else None,
+                )
+                if (
+                    str(arr.dtype) != spec["dtype"]
+                    or list(arr.shape) != spec["shape"]
+                    or _fingerprint(arr) != spec["fingerprint"]
+                ):
+                    raise ValueError(f"integrity check failed on field {name!r}")
+                arrays[name] = arr
+            return doc, arrays
+        except (OSError, MemoryError) as exc:
+            logger.warning("layout bundle %s unreadable (kept): %s", key, exc)
+            return None
+        except Exception as exc:
+            logger.warning("dropping corrupt/stale layout bundle %s: %s", key, exc)
+            self.invalidate(key)
+            return None
+
+    def invalidate(self, key: str) -> None:
+        shutil.rmtree(self._dir(key), ignore_errors=True)
+
+    def _tag_path(self, tag: str) -> str:
+        safe = "".join(c if (c.isalnum() or c in "._-") else "_" for c in tag)
+        return os.path.join(self.root, "tags", f"{safe}.json")
+
+    def tag(self, tag: str, key: str) -> None:
+        """Alias ``tag`` -> ``key`` (an atomic one-file write)."""
+        path = self._tag_path(tag)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump({"key": key}, f)
+        os.replace(tmp, path)
+
+    def resolve_tag(self, tag: str) -> str | None:
+        """The key a tag points at, iff that bundle exists."""
+        try:
+            with open(self._tag_path(tag)) as f:
+                key = json.load(f)["key"]
+        except (OSError, ValueError, KeyError):
+            return None
+        return key if self.has(key) else None
+
+
+def _load_or_build(graph, *, cache, tag, kind, key_fn, build_fn, to_arrays,
+                   from_arrays, build_meta: dict | None = None):
+    """The load-or-build skeleton and its ``info`` contract: ``cache``
+    ("hit"/"miss"/"disabled"), ``key``, ``load_seconds`` (hit) or
+    ``save_seconds`` (miss), and ``build_seconds`` (on a hit, the cold
+    build's, recorded in the bundle).  ``build_meta`` (builder, stage
+    seconds) is saved with a built bundle, replayed from it on a hit, and
+    merged into the info either way."""
+    from ..obs.spans import span as obs_span
+
+    build_meta = build_meta if build_meta is not None else {}
+    if cache is None:
+        t0 = time.perf_counter()
+        with obs_span("layout.build", kind=kind):
+            obj = build_fn()
+        return obj, {
+            "cache": "disabled",
+            "build_seconds": time.perf_counter() - t0,
+            **build_meta,
+        }
+    t0 = time.perf_counter()
+    key = key_fn()
+    with obs_span("layout.bundle_load", kind=kind):
+        loaded = cache.load(key)
+    if loaded is not None:
+        doc, arrays = loaded
+        obj = from_arrays(arrays)
+        bump_artifact("layout_cache_hits")
+        if tag:
+            cache.tag(tag, key)
+        meta = doc["meta"]
+        return obj, {
+            "cache": "hit",
+            "key": key,
+            "load_seconds": time.perf_counter() - t0,
+            "build_seconds": float(meta.get("build_seconds", -1.0)),
+            **{k: meta[k] for k in ("builder", "build_stages") if k in meta},
+        }
+    bump_artifact("layout_cache_misses")
+    t1 = time.perf_counter()
+    with obs_span("layout.build", kind=kind):
+        obj = build_fn()
+    build_seconds = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    with obs_span("layout.bundle_save", kind=kind):
+        cache.save(
+            key,
+            to_arrays(obj),
+            {
+                "kind": kind,
+                "build_seconds": build_seconds,
+                "num_vertices": int(getattr(obj, "num_vertices", -1)),
+                "num_edges": int(getattr(obj, "num_edges", -1)),
+                **build_meta,
+            },
+            tag=tag,
+        )
+    return obj, {
+        "cache": "miss",
+        "key": key,
+        "build_seconds": build_seconds,
+        "save_seconds": time.perf_counter() - t2,
+        **build_meta,
+    }
+
+
+def resolve_builder(builder: str | None = None) -> str:
+    """Relay builder: explicit arg > ``BFS_TPU_TORCH_LAYOUT_BUILD`` >
+    ``device`` (``host`` is the oracle builder)."""
+    builder = builder or knobs.get("BFS_TPU_TORCH_LAYOUT_BUILD")
+    if builder not in ("device", "host"):
+        raise ValueError(f"unknown layout builder {builder!r}; use device|host")
+    return builder
+
+
+def load_or_build_relay(graph, *, cache: LayoutCache | None = None,
+                        tag: str | None = None, builder: str | None = None,
+                        device=None):
+    """``(RelayGraph, info)``: the relay layout, from its bundle or built
+    and saved (info contract: :func:`_load_or_build`).
+
+    ``builder`` selects the device pipeline
+    (:func:`~bfs_tpu_torch.graph.relay_device.build_relay_graph_device` on
+    ``device``, the card unless ``"cpu"``; the default) or the host oracle
+    builder.  Their bundles are byte-identical, so the builder never splits
+    the cache.  A device build that raises is not retried on the host."""
+    from ..graph.relay import build_relay_graph, relay_from_arrays, relay_to_arrays
+
+    builder = resolve_builder(builder)
+    stage_times: dict = {}
+    build_meta = {"builder": builder, "build_stages": stage_times}
+
+    def build():
+        if builder == "device":
+            from ..graph.relay_device import build_relay_graph_device
+
+            return build_relay_graph_device(graph, device=device, stage_times=stage_times)
+        return build_relay_graph(graph, stage_times=stage_times)
+
+    return _load_or_build(
+        graph,
+        cache=cache,
+        tag=tag,
+        kind="relay",
+        key_fn=lambda: relay_key(graph),
+        build_fn=build,
+        to_arrays=relay_to_arrays,
+        from_arrays=relay_from_arrays,
+        build_meta=build_meta,
+    )
+
+
+def load_or_build_pull(graph, *, k: int | None = None, row_multiple: int = 64,
+                       cache: LayoutCache | None = None, tag: str | None = None):
+    """``(PullGraph, info)``: the ELL pull layout, from its bundle or built
+    and saved (info contract: :func:`_load_or_build`)."""
+    from ..graph.ell import DEFAULT_K, build_pull_graph, pull_from_arrays, pull_to_arrays
+
+    k = DEFAULT_K if k is None else int(k)
+    return _load_or_build(
+        graph,
+        cache=cache,
+        tag=tag,
+        kind="pull",
+        key_fn=lambda: pull_key(graph, k, row_multiple),
+        build_fn=lambda: build_pull_graph(graph, k=k, row_multiple=row_multiple),
+        to_arrays=pull_to_arrays,
+        from_arrays=pull_from_arrays,
+    )

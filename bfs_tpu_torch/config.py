@@ -1,18 +1,37 @@
-"""The ``service.properties`` layer: :func:`parse_properties` and
-:class:`ServiceConfiguration`, the port of ``bfs_tpu.config``'s properties
-half.
+"""The ``service.properties`` layer (:func:`parse_properties`,
+:class:`ServiceConfiguration`) and the artifact-cache directories
+(:func:`cache_root`, :func:`layout_cache_dir`): the port of
+``bfs_tpu.config``'s properties and cache halves.
 
 A ``key=value`` file loaded once: the app name, the comma-separated
 problem files (``problemFiles``), the source, the superstep dumps and the
 checkpoint interval.  ``mesh-batch`` and ``mesh-graph`` are read as the
 reference reads them; the port's runners run on one card and ignore them.
 A missing or malformed file raises.
+
+Persistent caches live under one root: ``BFS_TPU_TORCH_CACHE_DIR``, else
+``<repo>/.bench_cache`` (listed in ``.gitignore``), the reference's
+default root, so both packages share their byte-identical layout bundles.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+
+from . import knobs
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cache_root() -> str:
+    """Root directory of the persistent artifact caches."""
+    return knobs.get("BFS_TPU_TORCH_CACHE_DIR") or os.path.join(_REPO_ROOT, ".bench_cache")
+
+
+def layout_cache_dir() -> str:
+    """The layout-bundle store (:mod:`bfs_tpu_torch.cache.layout`)."""
+    return os.path.join(cache_root(), "layout")
 
 
 def parse_properties(text: str) -> dict[str, str]:

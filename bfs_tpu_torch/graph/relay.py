@@ -19,19 +19,43 @@ the lower index of each word pair (the others are structurally zero).
 
 from __future__ import annotations
 
+import logging
+import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 
 from . import benes, native_gen
-from .csr import Graph, INF_DIST
+from .csr import INF_DIST, DeviceGraph, Graph, unpad_edges
+
+logger = logging.getLogger(__name__)
 
 #: Layout version of the reference this build reproduces.
 LAYOUT_VERSION = 4
 
 #: Stages with element distance >= COMPACT_MIN_D are pair-compacted.
 COMPACT_MIN_D = 4096
+
+
+class _phase:
+    """Build-stage timer: logs ``layout phase <name> <seconds>`` at DEBUG on
+    this module's logger and, given a ``times`` dict, adds the stage's
+    seconds under ``name``."""
+
+    def __init__(self, name: str, times: dict | None = None):
+        self.name = name
+        self.times = times
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.times is not None:
+            self.times[self.name] = self.times.get(self.name, 0.0) + dt
+        logger.debug("layout phase %-22s %.3fs", self.name, dt)
 
 
 class StageSpec(NamedTuple):
@@ -83,6 +107,25 @@ def _class_width(deg: np.ndarray) -> np.ndarray:
     p2 = np.maximum(p2, 1)
     three_quarter = (p2 // 4) * 3
     return np.where((p2 >= 4) & (x <= three_quarter), three_quarter, p2)
+
+
+def width_candidates(max_width: int = 1 << 31) -> np.ndarray:
+    """Every value `_class_width` can produce, ascending: {2^k, 3*2^(k-1)}.
+    ``candidates[searchsorted(candidates, degree)]`` is `_class_width` of
+    the degree, in exact integer arithmetic (the device builder's form)."""
+    out = [1, 2]
+    k = 2
+    while (1 << k) <= max_width:
+        out.append(3 << (k - 2))
+        out.append(1 << k)
+        k += 1
+    return np.array([c for c in out if c <= max_width], dtype=np.int64)
+
+
+def width_index(deg: np.ndarray, candidates: np.ndarray) -> np.ndarray:
+    """Index into ``candidates`` of `_class_width(deg)`."""
+    x = np.maximum(np.asarray(deg, dtype=np.int64), 1)
+    return np.searchsorted(candidates, x, side="left").astype(np.int32)
 
 
 def ranked_placement(group: np.ndarray, base_by_group: np.ndarray) -> np.ndarray:
@@ -333,6 +376,18 @@ class LayoutMeta(NamedTuple):
     vp: int
 
 
+def extract_edges(graph: Graph | DeviceGraph):
+    """Host edge arrays shared by both builders: ``(src, dst, v, e)``; a
+    DeviceGraph gives its real edges (sentinel padding dropped)."""
+    if isinstance(graph, DeviceGraph):
+        src, dst = unpad_edges(graph)
+    else:
+        src, dst = graph.src, graph.dst
+    src = np.asarray(src).astype(np.int32)
+    dst = np.asarray(dst).astype(np.int32)
+    return src, dst, int(graph.num_vertices), int(src.shape[0])
+
+
 def seg_degrees(src: np.ndarray, dst: np.ndarray, v: int):
     """Per-vertex in/out degree-class widths."""
     if native_gen.native_available():
@@ -344,10 +399,14 @@ def seg_degrees(src: np.ndarray, dst: np.ndarray, v: int):
     return _class_width(indeg), _class_width(outdeg)
 
 
-def seg_classes(in_w: np.ndarray, out_w: np.ndarray, v: int) -> LayoutMeta:
-    """Degree widths -> aligned classes + every derived static size."""
-    widths, counts = np.unique(in_w, return_counts=True)
-    owidths, ocounts = np.unique(out_w, return_counts=True)
+def seg_classes_from_counts(
+    widths: np.ndarray, counts: np.ndarray,
+    owidths: np.ndarray, ocounts: np.ndarray, v: int,
+) -> LayoutMeta:
+    """Aligned classes and every derived static size from per-width
+    counts: the one home of the sizing formulas, which the host builder
+    reaches through `seg_classes` and the device builder through its
+    degree histograms."""
     in_classes = _build_classes(widths, counts)
     vr = _round32(in_classes[-1].vb) if in_classes else 32
     m1 = in_classes[-1].sb if in_classes else 0
@@ -364,14 +423,21 @@ def seg_classes(in_w: np.ndarray, out_w: np.ndarray, v: int) -> LayoutMeta:
     )
 
 
+def seg_classes(in_w: np.ndarray, out_w: np.ndarray, v: int) -> LayoutMeta:
+    """Degree widths -> aligned classes + every derived static size."""
+    widths, counts = np.unique(in_w, return_counts=True)
+    owidths, ocounts = np.unique(out_w, return_counts=True)
+    return seg_classes_from_counts(widths, counts, owidths, ocounts, v)
+
+
 def _width_class_map(classes):
     """Map REAL (pre-padding) width -> its ClassSlice."""
     return {int(c.real_width): c for c in classes}
 
 
-def seg_relabel(in_w: np.ndarray, out_w: np.ndarray, meta: LayoutMeta):
-    """Class-major, old-id-minor relabeling (dst side) and out-order
-    positions (src side)."""
+def seg_relabel_in(in_w: np.ndarray, meta: LayoutMeta):
+    """Class-major, old-id-minor relabeling (dst side): ``(new2old,
+    old2new)``."""
     v = int(in_w.shape[0])
     in_map = _width_class_map(meta.in_classes)
     in_va = np.array([in_map[int(w)].va for w in meta.widths], dtype=np.int64)
@@ -380,12 +446,22 @@ def seg_relabel(in_w: np.ndarray, out_w: np.ndarray, meta: LayoutMeta):
     ).astype(np.int32)
     new2old = np.full(meta.vr, -1, dtype=np.int32)
     new2old[old2new] = np.arange(v, dtype=np.int32)
+    return new2old, old2new
+
+
+def seg_relabel_out(out_w: np.ndarray, meta: LayoutMeta) -> np.ndarray:
+    """Out-order positions (src side), the same placement."""
     out_map = _width_class_map(meta.out_classes)
     out_va = np.array([out_map[int(w)].va for w in meta.owidths], dtype=np.int64)
-    outpos_of_old = ranked_placement(
+    return ranked_placement(
         np.searchsorted(meta.owidths, out_w), out_va
     ).astype(np.int32)
-    return new2old, old2new, outpos_of_old
+
+
+def seg_relabel(in_w: np.ndarray, out_w: np.ndarray, meta: LayoutMeta):
+    """Both sides of the relabeling: ``(new2old, old2new, outpos_of_old)``."""
+    new2old, old2new = seg_relabel_in(in_w, meta)
+    return new2old, old2new, seg_relabel_out(out_w, meta)
 
 
 def seg_l1_slots(src, dst, old2new, meta: LayoutMeta):
@@ -438,34 +514,53 @@ def seg_vperm_assembly(outpos_of_old, old2new, meta: LayoutMeta):
     return vperm
 
 
-def build_relay_graph(graph: Graph) -> RelayGraph:
-    """Build the full relay layout (host side, once per graph).  Requires
+def seg_csr(srcn, dstn, l1_by_edge, meta: LayoutMeta):
+    """Sparse-path CSR over relabeled src ids: ``(indptr int32[vr + 2],
+    adj_dst, adj_slot)``, edges in a stable counting order."""
+    return _csr_fill(srcn, dstn, l1_by_edge, meta.vr)
+
+
+def build_relay_graph(
+    graph: Graph | DeviceGraph, *, stage_times: dict | None = None
+) -> RelayGraph:
+    """Build the full relay layout on the host, one stage after another
+    (the oracle of :func:`~bfs_tpu_torch.graph.relay_device.build_relay_graph_device`).
+    ``stage_times``, if given, gets each stage's wall seconds.  Requires
     the native Beneš router; raises RuntimeError when it is unavailable."""
     if not benes.native_available():
         raise RuntimeError("relay engine requires the native benes router")
-    src = np.asarray(graph.src).astype(np.int32)
-    dst = np.asarray(graph.dst).astype(np.int32)
-    v = int(graph.num_vertices)
+    times = stage_times
+    src, dst, v, e = extract_edges(graph)
 
-    in_w, out_w = seg_degrees(src, dst, v)
-    meta = seg_classes(in_w, out_w, v)
-    new2old, old2new, outpos_of_old = seg_relabel(in_w, out_w, meta)
-    src_l1, l1_by_edge, dstn = seg_l1_slots(src, dst, old2new, meta)
-    l2_by_edge = seg_l2_slots(src, outpos_of_old, meta)
-    net = seg_net_assembly(l1_by_edge, l2_by_edge, meta)
-    net_masks, net_table = _compact_and_table(
-        benes.route_std(net, trusted=True), meta.n
-    )
-    vperm = seg_vperm_assembly(outpos_of_old, old2new, meta)
-    vperm_masks, vperm_table = _compact_and_table(
-        benes.route_std(vperm, trusted=True), meta.vp
-    )
-    srcn = _gather(old2new, src)
-    adj_indptr, adj_dst, adj_slot = _csr_fill(srcn, dstn, l1_by_edge, meta.vr)
+    with _phase("degrees", times):
+        in_w, out_w = seg_degrees(src, dst, v)
+    with _phase("classes", times):
+        meta = seg_classes(in_w, out_w, v)
+    with _phase("relabel", times):
+        new2old, old2new, outpos_of_old = seg_relabel(in_w, out_w, meta)
+    with _phase("l1 slots", times):
+        src_l1, l1_by_edge, dstn = seg_l1_slots(src, dst, old2new, meta)
+    with _phase("l2 slots", times):
+        l2_by_edge = seg_l2_slots(src, outpos_of_old, meta)
+    with _phase("net perm assembly", times):
+        net = seg_net_assembly(l1_by_edge, l2_by_edge, meta)
+    with _phase("net route", times):
+        net_masks_full = benes.route_std(net, trusted=True)
+    with _phase("net compact", times):
+        net_masks, net_table = _compact_and_table(net_masks_full, meta.n)
+        del net_masks_full
+    with _phase("vperm route", times):
+        vperm = seg_vperm_assembly(outpos_of_old, old2new, meta)
+        vperm_masks, vperm_table = _compact_and_table(
+            benes.route_std(vperm, trusted=True), meta.vp
+        )
+    with _phase("sparse CSR", times):
+        srcn = _gather(old2new, src)
+        adj_indptr, adj_dst, adj_slot = seg_csr(srcn, dstn, l1_by_edge, meta)
 
     return RelayGraph(
         num_vertices=v,
-        num_edges=int(src.shape[0]),
+        num_edges=e,
         vr=meta.vr,
         new2old=new2old,
         old2new=old2new,

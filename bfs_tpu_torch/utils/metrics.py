@@ -1,5 +1,6 @@
-"""Per-superstep run metrics and TEPS accounting: the port of the run-level
-half of ``bfs_tpu.utils.metrics``.
+"""Per-superstep run metrics, TEPS accounting and the artifact-cache
+counters: the port of the run-level and artifact halves of
+``bfs_tpu.utils.metrics``.
 
 Each superstep records its level, frontier size and seconds; the run
 reports traversed edges per second (TEPS, the Graph500 convention: the
@@ -10,7 +11,28 @@ reference's per-iteration log lines (``Elapsed time [i] ==> ...``).
 from __future__ import annotations
 
 import json
+import threading
 from dataclasses import asdict, dataclass, field
+
+_artifact_lock = threading.Lock()
+_artifact_counters: dict[str, int] = {}  # guarded by _artifact_lock
+
+
+def bump_artifact(name: str, by: int = 1) -> None:
+    """Count one artifact-cache event (e.g. ``layout_cache_hits``);
+    thread-safe, process-global."""
+    with _artifact_lock:
+        _artifact_counters[name] = _artifact_counters.get(name, 0) + by
+
+
+def artifact_report() -> dict:
+    """The artifact-cache counters plus the layout cache's hit rate
+    (``None`` when it saw no traffic in this process)."""
+    with _artifact_lock:
+        out: dict = dict(_artifact_counters)
+    h, m = out.get("layout_cache_hits", 0), out.get("layout_cache_misses", 0)
+    out["layout_cache_hit_rate"] = h / (h + m) if h + m else None
+    return out
 
 
 @dataclass

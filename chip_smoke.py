@@ -5,9 +5,16 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``bfs_tpu_torch/csrc``, builds the
-relay layout of a Graph500-style R-MAT graph (a/b/c = .57/.19/.19, edge
-factor 6, graph seed 1, scale 22 by default), holds every kernel against its
+It builds the hand-written kernels from ``bfs_tpu_torch/csrc``, holds the
+device layout builder against the host builder at R-MAT scale 18 (byte for
+byte with the native route; with the torch route every non-mask field, and a
+search on that layout against the oracle), builds the relay layout of a
+Graph500-style R-MAT graph (a/b/c = .57/.19/.19, edge factor 6, graph seed
+1, scale 22 by default) on the card with ``load_or_build_relay`` into a
+fresh bundle store, loads it back from the bundle (a warm hit, memmapped,
+byte for byte against the build) and ships every engine from that loaded
+layout, times the torch Beneš router on the layout's two networks beside
+the native router's seconds, holds every kernel against its
 plain PyTorch version on the card at the layout's real shapes (bit-exact),
 then drives the main path — ``RelayEngine.run`` on the card for 4 roots drawn
 from ``--seed`` — and checks every result against the port's host oracle
@@ -97,9 +104,12 @@ exits non-zero; without a CUDA device it exits non-zero before any phase.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data-sheet peak
@@ -113,6 +123,7 @@ ELEM_SOURCE = "bfs_tpu_torch/csrc/relay_elem_kernels.cu"
 MXU_SOURCE = "bfs_tpu_torch/csrc/relay_mxu_kernels.cu"
 TILES_BUDGET = 32 << 30  # the s22 layout takes 21 GB; the default budget is 4 GiB
 ORACLE_SCALE = 16  # the tile builder against the host oracle (82 MB of tiles)
+PARITY_SCALE = 18  # the device layout builder against the host builder
 REPLACES = {
     "benes_local_pass": "bfs_tpu/ops/relay_pallas.py:455",
     "benes_outer_pass": "bfs_tpu/ops/relay_pallas.py:618",
@@ -1196,6 +1207,144 @@ def small_multi_checks(P, tiny) -> None:
             "loop equal to the eager loop")
 
 
+# ------------------------------------------------ the layout set-up --
+
+def layout_parity_phase(P, generators) -> dict:
+    """The device layout builder on the card against the host builder at
+    R-MAT scale 18: byte-identical with the native route; with the torch
+    route every non-mask field, and an engine on that layout oracle-exact
+    from the max-degree root."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph.relay import relay_from_arrays, relay_to_arrays
+
+    g = generators.rmat_graph_native(PARITY_SCALE, EDGE_FACTOR, seed=GRAPH_SEED)
+    secs, layouts = {}, {}
+    for name, build in (
+        ("host", lambda t: P.build_relay_graph(g, stage_times=t)),
+        ("device", lambda t: P.build_relay_graph_device(g, segments="torch", route="native",
+                                                        stage_times=t)),
+        ("device, torch route", lambda t: P.build_relay_graph_device(
+            g, segments="torch", route="torch", stage_times=t)),
+    ):
+        t0 = time.perf_counter()
+        layouts[name] = relay_to_arrays(build({}))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    host = layouts["host"]
+    masks = ("net_masks", "vperm_masks", "net_table", "vperm_table")
+    for name in ("device", "device, torch route"):
+        for k, want in host.items():
+            if (name == "device" or k not in masks) and not (
+                    want.dtype == layouts[name][k].dtype
+                    and np.array_equal(want, layouts[name][k])):
+                raise AssertionError(f"layout s{PARITY_SCALE} ({name}): {k} differs from the host builder's")
+    same_masks = all(np.array_equal(host[k], layouts["device, torch route"][k]) for k in masks)
+    root = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    eng = P.RelayEngine(relay_from_arrays(layouts["device, torch route"]), device="cuda")
+    res = eng.run(root)
+    dist, parent = P.canonical_bfs(g, root)
+    if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
+        raise AssertionError(f"layout s{PARITY_SCALE}: the torch-routed layout's search differs "
+                             "from canonical_bfs")
+    violations = P.check(g, res.dist, res.parent, root)
+    if violations:
+        raise AssertionError(f"layout s{PARITY_SCALE}: check() violations {violations[:3]}")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"layout s{PARITY_SCALE}: V={g.num_vertices} directed E={g.num_edges}; device builder "
+        "(torch segments, native route) byte-identical to the host builder; torch route: every "
+        f"non-mask field identical, masks {'equal to' if same_masks else 'other than'} the "
+        f"native router's, the default engine from root {root} oracle-exact; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return secs
+
+
+def stage_line(times: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in times.items() if isinstance(v, float))
+
+
+def layout_phase(P, g, store: str) -> tuple:
+    """The cell's relay layout as a user gets it: ``load_or_build_relay``
+    into a fresh bundle store (a cold build by the device builder on the
+    card, saved), then again (a warm hit, memmapped), the two byte for
+    byte.  Returns the loaded layout and the numbers."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph.relay import relay_to_arrays
+
+    cache = P.LayoutCache(store)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built, cold = P.load_or_build_relay(g, cache=cache)
+    cold_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    stages = cold["build_stages"]
+    if (cold["cache"], cold["builder"], stages["segments"]) != ("miss", "device", "torch"):
+        raise AssertionError(f"layout: expected a cold device build, got {cold}")
+    bundle = os.path.join(store, cold["key"])
+    bundle_bytes = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle))
+    log(f"layout: cold load_or_build_relay {cold_s:.3f} s (build {cold['build_seconds']:.3f} s, "
+        f"bundle save {cold['save_seconds']:.3f} s, {bundle_bytes} bytes); builder "
+        f"{cold['builder']}, segments {stages['segments']}, route {stages['route']}; stages "
+        f"(s): {stage_line(stages)}; host syncs {stages['host_syncs']}; device memory peak "
+        f"{peak} bytes during the build, {held} held after it")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rg, warm = P.load_or_build_relay(g, cache=cache)
+    warm_s = time.perf_counter() - t0
+    if warm["cache"] != "hit" or warm["builder"] != "device":
+        raise AssertionError(f"layout: the second call was not a hit of the device build: {warm}")
+    mapped = sorted(k for k, v in vars(rg).items()
+                    if isinstance(v, np.ndarray) and isinstance(v.base, np.memmap))
+    t0 = time.perf_counter()
+    a, b = relay_to_arrays(built), relay_to_arrays(rg)
+    for k in a:
+        if not (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])):
+            raise AssertionError(f"layout: bundle field {k} differs from the built layout")
+    cmp_s = time.perf_counter() - t0
+    log(f"layout: warm load_or_build_relay {warm_s:.6f} s (load {warm['load_seconds']:.6f} s; "
+        f"memmapped {mapped}); every field byte-identical to the built layout "
+        f"(compared in {cmp_s:.2f} s)")
+    return rg, dict(cold_s=cold_s, warm_s=warm_s, build_s=cold["build_seconds"],
+                    save_s=cold["save_seconds"], bundle_bytes=bundle_bytes, stages=stages,
+                    peak=peak)
+
+
+def router_phase(g, rg, stages: dict) -> dict:
+    """Both Beneš routers on the cell's two networks: the torch router
+    (``route_masks_device``) timed on the card, beside the native router's
+    seconds from the cold build; its compacted masks held against the
+    layout's (the native router's)."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph import relay_device as RD
+
+    nets = RD.network_permutations(g)
+    out = {}
+    for (perm, n), name, stored in zip(nets, ("net", "vperm"), (rg.net_masks, rg.vperm_masks)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks = RD.route_masks_device(perm, n=n)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        flat, _ = RD._compact_program(masks, n)
+        same = np.array_equal(flat.cpu().numpy().view(np.uint32), stored)
+        out[name] = dict(torch_s=secs, native_s=stages[f"route_{name}"], same=same)
+        del masks, flat
+    del nets
+    torch.cuda.empty_cache()
+    log("routers: " + "; ".join(
+        f"{name} (n={rg.net_size if name == 'net' else rg.vperm_size}): torch "
+        f"route_masks_device {r['torch_s']:.3f} s, native (in the cold build) "
+        f"{r['native_s']:.3f} s; torch masks {'equal to' if r['same'] else 'other than'} the "
+        "native router's" for name, r in out.items()))
+    return out
+
+
 def tiles_oracle_check(P, generators, AT) -> None:
     """The device tile builder on the card against the numpy host oracle,
     byte for byte, on the R-MAT scale-16 relay layout."""
@@ -2243,29 +2392,38 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
     mark("build")
-    # ---- layout ---------------------------------------------------------
+    # ---- layout: the device builder against the host builder at s18, then
+    # the cell's layout built on the card into a fresh bundle store and
+    # loaded back (memmapped); the engine ships from the loaded layout
+    layout_parity = layout_parity_phase(P, generators)
+    mark("layout parity s18")
     t0 = time.perf_counter()
     # The native generator only (it raises if it cannot be built): the numpy
     # one draws other edges, so the measured graph would silently change.
     g = generators.rmat_graph_native(args.scale, EDGE_FACTOR, seed=GRAPH_SEED)
     t_gen = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rg = P.build_relay_graph(g)
-    t_layout = time.perf_counter() - t0
-    mask_bytes = rg.net_masks.nbytes + rg.vperm_masks.nbytes
     log(f"graph: R-MAT scale {args.scale} ef {EDGE_FACTOR} seed {GRAPH_SEED} "
         f"(native generator, {t_gen:.1f} s): V={g.num_vertices} directed E={g.num_edges}")
-    log(f"layout: {t_layout:.1f} s; vr={rg.vr} net_size={rg.net_size} "
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root_dir, ".bench_cache"), exist_ok=True)
+    store = tempfile.mkdtemp(prefix="chip_smoke_layout_", dir=os.path.join(root_dir, ".bench_cache"))
+    atexit.register(shutil.rmtree, store, True)
+    rg, setup = layout_phase(P, g, store)
+    mask_bytes = rg.net_masks.nbytes + rg.vperm_masks.nbytes
+    log(f"layout: vr={rg.vr} net_size={rg.net_size} "
         f"vperm_size={rg.vperm_size} stages net={len(rg.net_table)} "
         f"vperm={len(rg.vperm_table)} mask bytes={mask_bytes} "
         f"in_classes={len(rg.in_classes)} out_classes={len(rg.out_classes)}")
+    mark("graph, layout build and load")
+    routers = router_phase(g, rg, setup["stages"])
+    mark("routers")
     t0 = time.perf_counter()
     eng = P.RelayEngine(rg, device="cuda", sparse_hybrid=False)
     torch.cuda.synchronize()
     log(f"engine: layout shipped in {time.perf_counter() - t0:.2f} s")
     CHECKER.update(dc=P.DeviceChecker.from_graph(g), passed=0)
 
-    mark("graph, layout, engine")
+    mark("engine")
     # ---- kernels against their plain versions -----------------------------
     kres = kernel_phase(eng, K, R, card)
     mark("kernel phase")
@@ -2465,6 +2623,12 @@ def main(argv=None) -> int:
             for arm, h, dense_s in (("gather", hybrid["gather"], gather["mean"]["secs"]),
                                     ("mxu", hybrid["mxu"], mxu["mean"]["secs"])))
         + f"; auto schedules (gather) {hybrid['gather']['schedules']}")
+    log(f"layout set-up (R-MAT scale {args.scale}): cold load_or_build_relay {setup['cold_s']:.3f} s "
+        f"(device build {setup['build_s']:.3f} s, bundle save {setup['save_s']:.3f} s, "
+        f"{setup['bundle_bytes']} bytes), warm load {setup['warm_s']:.6f} s; net route native "
+        f"{routers['net']['native_s']:.3f} s against torch {routers['net']['torch_s']:.3f} s, vperm "
+        f"native {routers['vperm']['native_s']:.3f} s against torch {routers['vperm']['torch_s']:.3f} "
+        f"s; scale {PARITY_SCALE} builds " + ", ".join(f"{k} {v:.3f} s" for k, v in layout_parity.items()))
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -133,7 +133,9 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.oracle.native, bfs_tpu_torch.runners.run_parallel, "
         "bfs_tpu_torch.runners.run_sequential, bfs_tpu_torch.knobs, "
         "bfs_tpu_torch.obs.telemetry, bfs_tpu_torch.models.direction, "
-        "bfs_tpu_torch.oracle.device, bfs_tpu_torch.ops.sparse; "
+        "bfs_tpu_torch.oracle.device, bfs_tpu_torch.ops.sparse, "
+        "bfs_tpu_torch.cache, bfs_tpu_torch.cache.layout, "
+        "bfs_tpu_torch.graph.relay_device, bfs_tpu_torch.obs.spans; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -161,6 +163,9 @@ def test_no_jax_or_reference_imports_in_the_port():
     for root, _, names in os.walk(os.path.join(REPO, "bfs_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for sub in (("cache", "__init__.py"), ("cache", "layout.py"),
+                ("graph", "relay_device.py"), ("obs", "spans.py")):
+        assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -996,3 +996,40 @@ def test_card_sparse_body_is_captured_and_replays_without_a_host_sync(card, pack
         for a, b in zip((*(e[:vr] for e in ext), fwords), (*want[:n], want.fwords)):
             np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
         assert int(ctl[C.FLAG]) == int(bool(live) and bool(want.changed))
+
+
+# ------------------------------------------------------- the device builder --
+
+@pytest.mark.parametrize("route", ["native", "torch"])
+def test_card_device_builder_matches_the_host_builder(card, route):
+    """``build_relay_graph_device`` on the card (torch segments) at R-MAT s12:
+    byte-identical to the host builder with the native route; with the
+    torch route every non-mask field, and masks equal to the torch router's
+    on the CPU.  It runs under the sync debug mode ``error``: every host
+    sync it makes is one of the reasons it names."""
+    from bfs_tpu_torch.graph import relay_device as RD
+
+    g = P.rmat_graph(12, 8, seed=3)
+    host = p_relay.relay_to_arrays(P.build_relay_graph(g))
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rg = RD.build_relay_graph_device(g, route=route, stage_times=times)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (times["segments"], times["route"]) == ("torch", route)
+    assert set(times["host_syncs"]) <= {
+        "ingest", "degree histograms", "class tables", "stage timing", "route input",
+        "masks to the device", "stage ranges", "finalize"}
+    ours = p_relay.relay_to_arrays(rg)
+    masks = ("net_masks", "vperm_masks", "net_table", "vperm_table")
+    for k in host:
+        if route == "native" or k not in masks:
+            assert np.asarray(ours[k]).tobytes() == np.asarray(host[k]).tobytes(), k
+    if route == "torch":
+        cpu = RD.build_relay_graph_device(g, device="cpu", segments="torch", route="torch")
+        for k in masks:
+            assert np.asarray(ours[k]).tobytes() == np.asarray(
+                p_relay.relay_to_arrays(cpu)[k]).tobytes(), k
