@@ -66,7 +66,9 @@ def device_ell(pg: PullGraph, device) -> tuple[torch.Tensor, tuple[torch.Tensor,
     minor axis and the row-min reduces over the major one."""
 
     def ship(mat: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(mat).T)).to(device)
+        # Transposed where it lands: a host transpose of the [rows, K]
+        # matrix walks memory K words apart.
+        return torch.from_numpy(np.ascontiguousarray(mat)).to(device).t().contiguous()
 
     return ship(pg.ell0), tuple(ship(f) for f in pg.folds)
 

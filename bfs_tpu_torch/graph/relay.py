@@ -122,12 +122,6 @@ def width_candidates(max_width: int = 1 << 31) -> np.ndarray:
     return np.array([c for c in out if c <= max_width], dtype=np.int64)
 
 
-def width_index(deg: np.ndarray, candidates: np.ndarray) -> np.ndarray:
-    """Index into ``candidates`` of `_class_width(deg)`."""
-    x = np.maximum(np.asarray(deg, dtype=np.int64), 1)
-    return np.searchsorted(candidates, x, side="left").astype(np.int32)
-
-
 def ranked_placement(group: np.ndarray, base_by_group: np.ndarray) -> np.ndarray:
     """``pos[i] = base_by_group[group[i]] + rank``, rank being item ``i``'s
     stable rank within its group ordered by original index."""
@@ -228,9 +222,10 @@ def _mark_used(idx: np.ndarray, used: np.ndarray) -> None:
     used[np.asarray(idx)] = 1
 
 
-def _csr_fill(srcn, dstn, slotv, nk: int):
-    """Counting-sort CSR grouped by ``srcn``: (indptr int32[nk+2], adj_dst,
-    adj_slot)."""
+def seg_csr(srcn, dstn, slotv, nk: int):
+    """Sparse-path CSR: a counting sort grouped by ``srcn`` (relabeled src
+    ids), ``(indptr int32[nk + 2], adj_dst, adj_slot)``, edges in a stable
+    counting order."""
     if native_gen.native_available():
         return native_gen.csr_fill_native(srcn, dstn, slotv, nk)
     order = np.argsort(srcn, kind="stable")
@@ -435,9 +430,9 @@ def _width_class_map(classes):
     return {int(c.real_width): c for c in classes}
 
 
-def seg_relabel_in(in_w: np.ndarray, meta: LayoutMeta):
-    """Class-major, old-id-minor relabeling (dst side): ``(new2old,
-    old2new)``."""
+def seg_relabel(in_w: np.ndarray, out_w: np.ndarray, meta: LayoutMeta):
+    """Class-major, old-id-minor relabeling (dst side) and out-order
+    positions (src side)."""
     v = int(in_w.shape[0])
     in_map = _width_class_map(meta.in_classes)
     in_va = np.array([in_map[int(w)].va for w in meta.widths], dtype=np.int64)
@@ -446,22 +441,12 @@ def seg_relabel_in(in_w: np.ndarray, meta: LayoutMeta):
     ).astype(np.int32)
     new2old = np.full(meta.vr, -1, dtype=np.int32)
     new2old[old2new] = np.arange(v, dtype=np.int32)
-    return new2old, old2new
-
-
-def seg_relabel_out(out_w: np.ndarray, meta: LayoutMeta) -> np.ndarray:
-    """Out-order positions (src side), the same placement."""
     out_map = _width_class_map(meta.out_classes)
     out_va = np.array([out_map[int(w)].va for w in meta.owidths], dtype=np.int64)
-    return ranked_placement(
+    outpos_of_old = ranked_placement(
         np.searchsorted(meta.owidths, out_w), out_va
     ).astype(np.int32)
-
-
-def seg_relabel(in_w: np.ndarray, out_w: np.ndarray, meta: LayoutMeta):
-    """Both sides of the relabeling: ``(new2old, old2new, outpos_of_old)``."""
-    new2old, old2new = seg_relabel_in(in_w, meta)
-    return new2old, old2new, seg_relabel_out(out_w, meta)
+    return new2old, old2new, outpos_of_old
 
 
 def seg_l1_slots(src, dst, old2new, meta: LayoutMeta):
@@ -514,12 +499,6 @@ def seg_vperm_assembly(outpos_of_old, old2new, meta: LayoutMeta):
     return vperm
 
 
-def seg_csr(srcn, dstn, l1_by_edge, meta: LayoutMeta):
-    """Sparse-path CSR over relabeled src ids: ``(indptr int32[vr + 2],
-    adj_dst, adj_slot)``, edges in a stable counting order."""
-    return _csr_fill(srcn, dstn, l1_by_edge, meta.vr)
-
-
 def build_relay_graph(
     graph: Graph | DeviceGraph, *, stage_times: dict | None = None
 ) -> RelayGraph:
@@ -556,7 +535,7 @@ def build_relay_graph(
         )
     with _phase("sparse CSR", times):
         srcn = _gather(old2new, src)
-        adj_indptr, adj_dst, adj_slot = seg_csr(srcn, dstn, l1_by_edge, meta)
+        adj_indptr, adj_dst, adj_slot = seg_csr(srcn, dstn, l1_by_edge, meta.vr)
 
     return RelayGraph(
         num_vertices=v,
@@ -684,6 +663,19 @@ def relay_from_arrays(z) -> RelayGraph:
         adj_dst=np.asarray(z["adj_dst"], dtype=np.int32),
         adj_slot=np.asarray(z["adj_slot"], dtype=np.int32),
     )
+
+
+#: The fields the Beneš router decides: two routers' layouts may differ in
+#: these alone.
+MASK_FIELDS = ("net_masks", "vperm_masks", "net_table", "vperm_table")
+
+
+def differing_fields(want: RelayGraph, got: RelayGraph, skip=()) -> list[str]:
+    """The fields of ``got`` whose dtype or bytes differ from ``want``'s,
+    ``skip`` left out (``MASK_FIELDS`` for two routers' layouts)."""
+    a, b = relay_to_arrays(want), relay_to_arrays(got)
+    return [k for k in a if k not in skip and not (
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]))]
 
 
 def from_reference_layout(arrays: dict[str, np.ndarray]) -> RelayGraph:

@@ -26,19 +26,14 @@ the net route:
     on a worker thread once the net route has started (the native route is
     a ctypes call, which releases the GIL).
 
-Two arms per concern, as in the reference:
-
-  * **segments** (``BFS_TPU_TORCH_LAYOUT_SEGMENTS=auto|torch|host``): the
-    torch programs above on the builder's device, or the host segment
-    functions the host builder composes.  ``auto`` takes ``torch`` on a
-    card and ``host`` for ``device="cpu"``.  Both arms are byte-identical.
-  * **route** (``BFS_TPU_TORCH_LAYOUT_ROUTE=auto|native|torch``): the
-    native cycle-walking router, or the torch Beneš router
-    (:func:`route_masks_device`: pointer-jumping orbit-min coloring, the
-    reference's pure-JAX router, mask for mask).  ``auto`` takes ``native``
-    where it builds.  The two routers' masks may differ (any valid
-    coloring routes the permutation); every other field is byte-identical
-    either way.
+The ``route`` argument (``auto|native|torch``) picks the Beneš router:
+the native cycle-walking router, or the torch router
+(:func:`route_masks_device`: pointer-jumping orbit-min coloring, the
+reference's pure-JAX router, mask for mask).  ``auto`` takes ``native``
+where it builds.  The two routers' masks may differ (any valid coloring
+routes the permutation); every other field is byte-identical either way.
+The host builder is the oracle; these programs run on any device, the
+CPU included.
 
 Torch has no dropped scatter: where the reference drops out-of-range
 indices, the programs write into one scratch slot past the end and cut it
@@ -57,7 +52,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from .. import knobs
 from ..ops.packed import i32
 from . import benes
 from .csr import INF_DIST, DeviceGraph, Graph
@@ -65,20 +59,10 @@ from .relay import (
     COMPACT_MIN_D,
     RelayGraph,
     StageSpec,
-    _compact_and_table,
-    _gather,
     _phase,
     _width_class_map,
     extract_edges,
-    seg_classes,
     seg_classes_from_counts,
-    seg_csr,
-    seg_degrees,
-    seg_l1_slots,
-    seg_l2_slots,
-    seg_net_assembly,
-    seg_relabel,
-    seg_vperm_assembly,
     width_candidates,
 )
 
@@ -96,22 +80,10 @@ _TRACK_POOL = concurrent.futures.ThreadPoolExecutor(
 _SYNC_LOCK = threading.Lock()
 
 
-def resolve_segments(segments: str | None, device: torch.device) -> str:
-    """``torch`` (programs on ``device``) or ``host`` (the host segment
-    functions): explicit arg > ``BFS_TPU_TORCH_LAYOUT_SEGMENTS`` > torch on
-    a card, host for the CPU."""
-    segments = segments or knobs.get("BFS_TPU_TORCH_LAYOUT_SEGMENTS")
-    if segments == "auto":
-        return "host" if torch.device(device).type == "cpu" else "torch"
-    if segments not in ("torch", "host"):
-        raise ValueError(f"unknown segment arm {segments!r}; use auto|torch|host")
-    return segments
-
-
 def resolve_route(route: str | None = None) -> str:
-    """The route arm: explicit arg > ``BFS_TPU_TORCH_LAYOUT_ROUTE`` >
-    native where the router builds, else torch."""
-    route = route or knobs.get("BFS_TPU_TORCH_LAYOUT_ROUTE")
+    """The route arm: ``native`` or ``torch`` as given; ``None`` or
+    ``auto`` takes native where the router builds, else torch."""
+    route = route or "auto"
     if route == "auto":
         return "native" if benes.native_available() else "torch"
     if route not in ("native", "torch"):
@@ -122,12 +94,14 @@ def resolve_route(route: str | None = None) -> str:
 @contextlib.contextmanager
 def _host_sync(device: torch.device, why: str, syncs: dict):
     """Mark a host sync the build needs (``why``): counted in ``syncs``
-    and, on a card, let through a sync debug mode of ``error``."""
-    syncs[why] = syncs.get(why, 0) + 1
-    if device.type != "cuda":
-        yield
-        return
+    and, on a card, let through a sync debug mode of ``error``.  The mode
+    is process-wide: while one track holds the lock, a hidden sync of the
+    other goes unreported (the card test runs the tracks serialized)."""
     with _SYNC_LOCK:
+        syncs[why] = syncs.get(why, 0) + 1
+        if device.type != "cuda":
+            yield
+            return
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         try:
@@ -137,7 +111,7 @@ def _host_sync(device: torch.device, why: str, syncs: dict):
 
 
 # --------------------------------------------------------------------------
-# Device programs (the ``torch`` segment arm): plain torch, no host read.
+# Device programs: plain torch, no host read.
 # --------------------------------------------------------------------------
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -420,10 +394,8 @@ def _stage_table(n: int, nz: np.ndarray) -> tuple[StageSpec, ...]:
     return tuple(table)
 
 
-def _host(t, syncs: dict, why: str) -> np.ndarray:
-    """A host numpy copy of a tensor (or the array itself)."""
-    if not isinstance(t, torch.Tensor):
-        return t
+def _host(t: torch.Tensor, syncs: dict, why: str) -> np.ndarray:
+    """A host numpy copy of a tensor."""
     with _host_sync(t.device, why, syncs):
         return t.cpu().numpy()
 
@@ -439,31 +411,51 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _timer(times: dict, dev: torch.device, syncs: dict, device_stages: bool):
-    """``timed(name, fn)``: run ``fn`` as build stage ``name``, its wall
-    seconds added to ``times`` (on a card a device stage ends in a sync)."""
+def build_relay_graph_device(
+    graph: Graph | DeviceGraph,
+    *,
+    device=None,
+    route: str | None = None,
+    stage_times: dict | None = None,
+) -> RelayGraph:
+    """Build the relay layout with the device pipeline (module docstring):
+    byte-identical to :func:`relay.build_relay_graph` under the ``native``
+    route, every non-mask field byte-identical under ``torch``.
+
+    Runs on the card unless ``device`` names another (``"cpu"``).
+    ``stage_times`` gets each stage's wall seconds (on a card each stage
+    ends in a sync), the resolved ``route`` and ``device`` and
+    ``host_syncs`` (reason -> count)."""
+    dev = _resolve_device(device)
+    times: dict[str, Any] = stage_times if stage_times is not None else {}
+    route = resolve_route(route)
+    if route == "native" and not benes.native_available():
+        raise RuntimeError("route='native' needs the native benes router")
+    times.update(route=route, device=str(dev))
+    syncs: dict[str, int] = {}
+    times["host_syncs"] = syncs
+
+    from ..obs.spans import span as obs_span
+
     def timed(name, fn):
+        """Run ``fn`` as build stage ``name``, its wall seconds added to
+        ``times`` (on a card the stage ends in a sync)."""
         with _phase(f"dev {name}"):
             t0 = time.perf_counter()
             out = fn()
-            if device_stages and dev.type == "cuda":
+            if dev.type == "cuda":
                 with _host_sync(dev, "stage timing", syncs):
                     torch.cuda.synchronize(dev)
             times[name] = times.get(name, 0.0) + time.perf_counter() - t0
         return out
 
-    return timed
-
-
-def _torch_prelude(src_h, dst_h, v: int, dev: torch.device, syncs: dict, timed):
-    """The torch arm's first stages: the edges on ``dev``, the degree
-    histograms (to the host: they fix every static size), the class tables
-    and the relabeling."""
     def ingest():
+        src_h, dst_h, v, e = extract_edges(graph)
         with _host_sync(dev, "ingest", syncs):
-            return tuple(torch.from_numpy(a).to(dev) for a in (src_h, dst_h, _CANDIDATES))
+            ts = tuple(torch.from_numpy(a).to(dev) for a in (src_h, dst_h, _CANDIDATES))
+        return (*ts, v, e)
 
-    src, dst, cand = timed("ingest", ingest)
+    src, dst, cand, v, e = timed("ingest", ingest)
     in_widx, out_widx, in_hist, out_hist = timed(
         "layout.device_hist", lambda: _degree_hist_program(src, dst, cand, v)
     )
@@ -490,82 +482,20 @@ def _torch_prelude(src_h, dst_h, v: int, dev: torch.device, syncs: dict, timed):
         return meta, tables
 
     meta, (in_va, out_va, in_tabs, out_tabs) = timed("classes", classes)
-    relabeled = timed(
+    new2old, old2new, outpos_of_old = timed(
         "layout.device_relabel",
         lambda: _relabel_program(in_widx, out_widx, in_va, out_va, meta.vr),
     )
-    return src, dst, meta, relabeled, in_tabs, out_tabs
 
-
-def network_permutations(graph: Graph | DeviceGraph, *, device=None):
-    """``((net, n), (vperm, vp))``: the two permutations the builder routes
-    for ``graph``, as int32 tensors on ``device`` (the card unless
-    ``"cpu"``), built by the torch programs; for timing the routers."""
-    dev = _resolve_device(device)
-    syncs: dict[str, int] = {}
-    timed = _timer({}, dev, syncs, device_stages=False)
-    src_h, dst_h, v, _ = extract_edges(graph)
-    src, dst, meta, (_, old2new, outpos_of_old), in_tabs, out_tabs = _torch_prelude(
-        src_h, dst_h, v, dev, syncs, timed)
-    _, l1_by_edge, l2_by_edge, _, _ = _slots_program(
-        src, dst, old2new, outpos_of_old, in_tabs, out_tabs, meta.m1)
-    del src, dst
-    net = _net_assembly_program(l1_by_edge, l2_by_edge, meta.n)
-    del l1_by_edge, l2_by_edge
-    vperm = _vperm_assembly_program(outpos_of_old, old2new, meta.vp, meta.vr, meta.out_vb)
-    return (net, meta.n), (vperm, meta.vp)
-
-
-def build_relay_graph_device(
-    graph: Graph | DeviceGraph,
-    *,
-    device=None,
-    route: str | None = None,
-    segments: str | None = None,
-    stage_times: dict | None = None,
-) -> RelayGraph:
-    """Build the relay layout with the device pipeline (module docstring):
-    byte-identical to :func:`relay.build_relay_graph` under the ``native``
-    route, every non-mask field byte-identical under ``torch``.
-
-    Runs on the card unless ``device`` names another (``"cpu"``).
-    ``stage_times`` gets each stage's wall seconds (on a card each stage
-    ends in a sync), the resolved ``route``/``segments``/``device`` and
-    ``host_syncs`` (reason -> count)."""
-    dev = _resolve_device(device)
-    times: dict[str, Any] = stage_times if stage_times is not None else {}
-    route = resolve_route(route)
-    arm = resolve_segments(segments, dev)
-    if route == "native" and not benes.native_available():
-        raise RuntimeError("route='native' needs the native benes router")
-    times.update(route=route, segments=arm, device=str(dev))
-    syncs: dict[str, int] = {}
-    times["host_syncs"] = syncs
-    timed = _timer(times, dev, syncs, device_stages=arm == "torch")
-
-    from ..obs.spans import span as obs_span
-
-    src_h, dst_h, v, e = timed("ingest", lambda: extract_edges(graph))
-    if arm == "torch":
-        src, dst, meta, (new2old, old2new, outpos_of_old), in_tabs, out_tabs = (
-            _torch_prelude(src_h, dst_h, v, dev, syncs, timed))
-    else:
-        in_w, out_w = timed("degrees", lambda: seg_degrees(src_h, dst_h, v))
-        meta = timed("classes", lambda: seg_classes(in_w, out_w, v))
-        new2old, old2new, outpos_of_old = timed(
-            "relabel", lambda: seg_relabel(in_w, out_w, meta)
-        )
-
-    def route_and_compact(perm, n: int, name: str):
+    def route_and_compact(perm: torch.Tensor, n: int, name: str):
         """Route one network and compact its masks, on the calling thread."""
         with obs_span(f"layout.device.route_{name}"), _phase(f"dev {name} route"):
             t0 = time.perf_counter()
             if route == "native":
                 masks = benes.route_std(_host(perm, syncs, "route input"), trusted=True)
+                with _host_sync(dev, "masks to the device", syncs):
+                    masks = torch.from_numpy(masks.view(np.int32)).to(dev)
             else:
-                if not isinstance(perm, torch.Tensor):
-                    with _host_sync(dev, "route input", syncs):
-                        perm = torch.from_numpy(perm).to(dev)
                 masks = route_masks_device(perm, n=n)
                 if dev.type == "cuda":
                     with _host_sync(dev, "stage timing", syncs):
@@ -573,17 +503,9 @@ def build_relay_graph_device(
             times[f"route_{name}"] = time.perf_counter() - t0
         with _phase(f"dev {name} compact"):
             t0 = time.perf_counter()
-            if arm == "torch":
-                if not isinstance(masks, torch.Tensor):
-                    with _host_sync(dev, "masks to the device", syncs):
-                        masks = torch.from_numpy(masks.view(np.int32)).to(dev)
-                flat, nz = _compact_program(masks, n)
-                del masks
-                out = flat, _stage_table(n, _host(nz, syncs, "stage ranges"))
-            else:
-                if isinstance(masks, torch.Tensor):
-                    masks = _host(masks, syncs, "masks to the host").view(np.uint32)
-                out = _compact_and_table(masks, n)
+            flat, nz = _compact_program(masks, n)
+            del masks
+            out = flat, _stage_table(n, _host(nz, syncs, "stage ranges"))
             times[f"compact_{name}"] = time.perf_counter() - t0
         return out
 
@@ -599,47 +521,30 @@ def build_relay_graph_device(
         if "slots" not in box:
             return  # the main track failed before its route
         l1_by_edge, dstn, srcn = box["slots"]
-        if arm == "torch":
-            vperm = timed(
-                "layout.device_vperm_assembly",
-                lambda: _vperm_assembly_program(
-                    outpos_of_old, old2new, meta.vp, meta.vr, meta.out_vb),
-            )
-            box["vperm"] = route_and_compact(vperm, meta.vp, "vperm")
-            del vperm
-            box["csr"] = timed(
-                "layout.device_csr", lambda: _csr_program(srcn, dstn, l1_by_edge, meta.vr)
-            )
-        else:
-            vperm = timed(
-                "vperm_assembly", lambda: seg_vperm_assembly(outpos_of_old, old2new, meta)
-            )
-            box["vperm"] = route_and_compact(vperm, meta.vp, "vperm")
-            box["csr"] = timed(
-                "csr", lambda: seg_csr(_gather(old2new, src_h), dstn, l1_by_edge, meta)
-            )
+        vperm = timed(
+            "layout.device_vperm_assembly",
+            lambda: _vperm_assembly_program(
+                outpos_of_old, old2new, meta.vp, meta.vr, meta.out_vb),
+        )
+        box["vperm"] = route_and_compact(vperm, meta.vp, "vperm")
+        del vperm
+        box["csr"] = timed(
+            "layout.device_csr", lambda: _csr_program(srcn, dstn, l1_by_edge, meta.vr)
+        )
 
     worker = _TRACK_POOL.submit(tail_track)
     try:
-        if arm == "torch":
-            src_l1, l1_by_edge, l2_by_edge, dstn, srcn = timed(
-                "layout.device_slots",
-                lambda: _slots_program(src, dst, old2new, outpos_of_old, in_tabs, out_tabs,
-                                       meta.m1),
-            )
-            del src, dst
-            box["slots"] = (l1_by_edge, dstn, srcn)
-            net = timed(
-                "layout.device_net_assembly",
-                lambda: _net_assembly_program(l1_by_edge, l2_by_edge, meta.n),
-            )
-        else:
-            src_l1, l1_by_edge, dstn = timed(
-                "slots_l1", lambda: seg_l1_slots(src_h, dst_h, old2new, meta)
-            )
-            box["slots"] = (l1_by_edge, dstn, None)
-            l2_by_edge = timed("slots_l2", lambda: seg_l2_slots(src_h, outpos_of_old, meta))
-            net = timed("net_assembly", lambda: seg_net_assembly(l1_by_edge, l2_by_edge, meta))
+        src_l1, l1_by_edge, l2_by_edge, dstn, srcn = timed(
+            "layout.device_slots",
+            lambda: _slots_program(src, dst, old2new, outpos_of_old, in_tabs, out_tabs,
+                                   meta.m1),
+        )
+        del src, dst
+        box["slots"] = (l1_by_edge, dstn, srcn)
+        net = timed(
+            "layout.device_net_assembly",
+            lambda: _net_assembly_program(l1_by_edge, l2_by_edge, meta.n),
+        )
         del l2_by_edge
         route_started.set()
         net_masks, net_table = route_and_compact(net, meta.n, "net")
@@ -647,7 +552,8 @@ def build_relay_graph_device(
     except BaseException:
         # Unblock and drain the worker without masking this track's error.
         route_started.set()
-        concurrent.futures.wait([worker])
+        with contextlib.suppress(Exception):
+            worker.result()
         raise
     worker.result()  # re-raises a failure of the worker's track
     vperm_masks, vperm_table = box.pop("vperm")

@@ -5,7 +5,7 @@ environment, takes the default when the variable is unset or empty, and
 raises ``ValueError`` on a value its validator refuses (a typo'd knob that
 were silently clamped would quietly change what a run measured).  They
 mirror knobs of the reference's registry of the same names without
-``TORCH_`` (the layout arms with the port's own arm names):
+``TORCH_``:
 
   ============================== ======= ======= ==========================
   name                           type    default meaning
@@ -16,8 +16,6 @@ mirror knobs of the reference's registry of the same names without
   BFS_TPU_TORCH_DIRECTION_BETA   float   24.0    stay pull while n_f * beta
                                                  > n (> 0)
   BFS_TPU_TORCH_LAYOUT_BUILD     enum    device  device | host relay builder
-  BFS_TPU_TORCH_LAYOUT_SEGMENTS  enum    auto    auto | torch | host
-  BFS_TPU_TORCH_LAYOUT_ROUTE     enum    auto    auto | native | torch
   BFS_TPU_TORCH_CACHE_DIR        path    ""      artifact cache root
                                                  ("" = <repo>/.bench_cache)
   ============================== ======= ======= ==========================
@@ -71,12 +69,6 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_LAYOUT_BUILD", "enum", "device", _enum("device", "host"),
          "relay layout builder of load_or_build_relay; host is the oracle, "
          "byte-identical"),
-    Knob("BFS_TPU_TORCH_LAYOUT_SEGMENTS", "enum", "auto", _enum("auto", "torch", "host"),
-         "segment arm of the device builder: torch programs on its device, or "
-         "the host segment functions; auto = torch on a card, host on the CPU"),
-    Knob("BFS_TPU_TORCH_LAYOUT_ROUTE", "enum", "auto", _enum("auto", "native", "torch"),
-         "Benes route arm of the device builder: the native router or the "
-         "torch router on its device; auto = native where it builds"),
     Knob("BFS_TPU_TORCH_CACHE_DIR", "path", "", _path,
          "root of the persistent artifact caches (default <repo>/.bench_cache)"),
 )}

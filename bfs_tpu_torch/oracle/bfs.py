@@ -45,8 +45,11 @@ def _edges_by_dst(graph: Graph) -> tuple[np.ndarray, np.ndarray]:
     """Edges sorted by (dst, src), cached on the graph."""
 
     def make():
-        order = np.lexsort((graph.src, graph.dst))
-        return graph.src[order], graph.dst[order]
+        # One sort of packed dst-major keys: the (dst, src) order, in a
+        # fraction of a two-key lexsort's time.
+        v = np.int64(max(graph.num_vertices, 1))
+        keys = np.sort(graph.dst.astype(np.int64) * v + graph.src)
+        return (keys % v).astype(np.int32), (keys // v).astype(np.int32)
 
     return _cached(graph, "_oracle_by_dst", make)
 
@@ -90,18 +93,25 @@ def canonical_bfs(graph: Graph, sources: int | Sequence[int] = 0):
     parent = np.full(v, NO_PARENT, dtype=np.int32)
     dist[srcs] = 0
     parent[srcs] = srcs
-    s_sorted, d_sorted = _edges_by_dst(graph)
+    # The edges into still-unreached vertices, in (dst, src) order; they are
+    # compacted once most of them lead to reached vertices.
+    live_s, live_d = _edges_by_dst(graph)
     frontier = np.zeros(v, dtype=bool)
     frontier[srcs] = True
     level = 0
     while frontier.any():
-        idx = np.flatnonzero(frontier[s_sorted] & (dist[d_sorted] == INF_DIST))
-        dd = d_sorted[idx]
+        open_dst = dist[live_d] == INF_DIST
+        if 2 * np.count_nonzero(open_dst) < open_dst.shape[0]:
+            live_s, live_d = live_s[open_dst], live_d[open_dst]
+            idx = np.flatnonzero(frontier[live_s])
+        else:
+            idx = np.flatnonzero(frontier[live_s] & open_dst)
+        dd = live_d[idx]
         first = np.ones(dd.shape[0], dtype=bool)
         first[1:] = dd[1:] != dd[:-1]
         reached = dd[first]
         dist[reached] = level + 1
-        parent[reached] = s_sorted[idx[first]]
+        parent[reached] = live_s[idx[first]]
         frontier = np.zeros(v, dtype=bool)
         frontier[reached] = True
         level += 1
@@ -130,13 +140,14 @@ def check(
     for s in srcs[dist[srcs] != 0]:
         violations.append(f"distance of source {s} to itself = {dist[s]}, not 0")
 
-    sv, dv = graph.src.astype(np.int64), graph.dst.astype(np.int64)
-    reach_s, reach_d = dist[sv] != INF_DIST, dist[dv] != INF_DIST
+    sv, dv = graph.src, graph.dst
+    ds, dd = dist[sv], dist[dv]
+    reach_s, reach_d = ds != INF_DIST, dd != INF_DIST
     for i in np.flatnonzero(reach_s & ~reach_d)[:5]:
         violations.append(
             f"edge {sv[i]}->{dv[i]}: source reachable but destination is not"
         )
-    tri = reach_s & reach_d & (dist[dv] > dist[sv] + 1)
+    tri = reach_s & reach_d & (dd > ds + 1)
     for i in np.flatnonzero(tri)[:5]:
         violations.append(
             f"edge {sv[i]}-{dv[i]}: dist[{dv[i]}]={dist[dv[i]]} > "
@@ -157,16 +168,11 @@ def check(
         violations.append(
             f"tree edge {parent[w]}->{w}: dist[{w}]={dist[w]} != dist[{parent[w]}]+1"
         )
-    # Tree-edge membership: one sort of packed (src, dst) keys, cached on
-    # the graph, then a searchsorted per tree edge.
-    v64 = np.int64(graph.num_vertices)
-    edge_keys = _cached(graph, "_oracle_edge_keys", lambda: np.sort(sv * v64 + dv))
-    tree_keys = p * v64 + non_src
-    if edge_keys.shape[0]:
-        pos = np.minimum(np.searchsorted(edge_keys, tree_keys), edge_keys.shape[0] - 1)
-        missing = edge_keys[pos] != tree_keys
-    else:
-        missing = np.ones(tree_keys.shape[0], dtype=bool)
+    # Tree-edge membership in one pass over the edges: w's tree edge exists
+    # iff some edge into w comes from parent[w].
+    has_tree_edge = np.zeros(graph.num_vertices, dtype=bool)
+    has_tree_edge[dv[parent[dv] == sv]] = True
+    missing = ~has_tree_edge[non_src]
     for idx in np.flatnonzero(missing)[:5]:
         w = non_src[idx]
         violations.append(f"tree edge {parent[w]}->{w} is not a graph edge")

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with a card::
     python3 -m bfs_tpu_torch.tools.layout_build [--scale 22]
 
 Builds ``chip_smoke.py``'s graph (R-MAT, edge factor 6, graph seed 1) and
-its relay layout in turns: the device builder (torch segments on the card,
+its relay layout in turns: the device builder (torch programs on the card,
 native route), the host builder, the device builder again, then the device
 builder with the torch route.  Each build's wall seconds and stage split
 (``stage_times``), the host and device layouts held byte for byte, the
@@ -26,22 +26,20 @@ import shutil
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 from .. import LayoutCache, build_relay_graph, build_relay_graph_device, load_or_build_relay
 from ..graph import generators
-from ..graph.relay import relay_to_arrays
+from ..graph.relay import MASK_FIELDS, differing_fields
 from ..utils.native_loader import REPO_ROOT
 from ..utils.timing import card_line
 
 EDGE_FACTOR = 6
 GRAPH_SEED = 1
-MASKS = ("net_masks", "vperm_masks", "net_table", "vperm_table")
 
 
-def _timed_build(build) -> tuple[dict, float, dict, int]:
-    """``(arrays, seconds, stage_times, device peak bytes)`` of one build."""
+def _timed_build(build):
+    """``(layout, seconds, stage_times, device peak bytes)`` of one build."""
     times: dict = {}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -51,7 +49,7 @@ def _timed_build(build) -> tuple[dict, float, dict, int]:
     rg = build(times)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    return relay_to_arrays(rg), secs, times, torch.cuda.max_memory_allocated() - base
+    return rg, secs, times, torch.cuda.max_memory_allocated() - base
 
 
 def main(argv=None) -> int:
@@ -70,20 +68,19 @@ def main(argv=None) -> int:
     )
     rows, layouts = [], {}
     for name, build in builds:
-        arrays, secs, times, peak = _timed_build(build)
-        layouts.setdefault(name, arrays)
+        rg, secs, times, peak = _timed_build(build)
+        layouts.setdefault(name, rg)
+        del rg
         stages = {k: v for k, v in times.items() if isinstance(v, float)}
         rows.append(dict(builder=name, seconds=secs, peak_bytes=peak, stages=stages))
         print(f"{name}: {secs:.3f} s, device peak {peak} bytes; stages (s): "
               + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()), flush=True)
     host = layouts["host"]
-    for name in ("device", "device, torch route"):
-        for k in host:
-            if (name == "device" or k not in MASKS) and not (
-                    host[k].dtype == layouts[name][k].dtype
-                    and np.array_equal(host[k], layouts[name][k])):
-                raise AssertionError(f"{name}: {k} differs from the host builder's")
-    same = all(np.array_equal(host[k], layouts["device, torch route"][k]) for k in MASKS)
+    for name, skip in (("device", ()), ("device, torch route", MASK_FIELDS)):
+        bad = differing_fields(host, layouts[name], skip=skip)
+        if bad:
+            raise AssertionError(f"{name}: {bad} differ from the host builder's")
+    same = not differing_fields(host, layouts["device, torch route"])
     print(f"device layout byte-identical to the host's; torch-routed masks "
           f"{'equal to' if same else 'other than'} the native router's", flush=True)
     del layouts

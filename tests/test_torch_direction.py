@@ -94,8 +94,7 @@ def test_resolve_direction_rejects_bad_knobs(monkeypatch, name, value):
 def test_knobs_mirror_the_reference():
     assert sorted(knobs.KNOBS) == [
         "BFS_TPU_TORCH_CACHE_DIR", "BFS_TPU_TORCH_DIRECTION", "BFS_TPU_TORCH_DIRECTION_ALPHA",
-        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_LAYOUT_BUILD",
-        "BFS_TPU_TORCH_LAYOUT_ROUTE", "BFS_TPU_TORCH_LAYOUT_SEGMENTS"]
+        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_LAYOUT_BUILD"]
     for name, knob in knobs.KNOBS.items():
         ref = j_knobs.KNOBS[name.replace("BFS_TPU_TORCH_", "BFS_TPU_")]
         assert (knob.type, knob.default) == (ref.kind, ref.default)

@@ -94,7 +94,7 @@ def test_relay_builders_share_one_bundle(medium, tmp_path, monkeypatch):
     dev, info = C.load_or_build_relay(medium, cache=C.LayoutCache(str(tmp_path / "a")),
                                       device="cpu")
     assert info["builder"] == "device"
-    assert info["build_stages"]["segments"] == "host"  # auto on the CPU
+    assert info["build_stages"]["device"] == "cpu"
     monkeypatch.setenv("BFS_TPU_TORCH_LAYOUT_BUILD", "host")
     host, info_h = C.load_or_build_relay(medium, cache=C.LayoutCache(str(tmp_path / "b")))
     assert info_h["builder"] == "host" and info_h["key"] == info["key"]

@@ -1,8 +1,10 @@
 """The port's device layout builder (``bfs_tpu_torch.graph.relay_device``)
 on the CPU against the port's host builder and the reference's: byte parity
-on the rmat/gnm/star/path fixtures under both segment arms, the torch
-router against the reference's JAX router bit for bit, the arms and stage
+on the rmat/gnm/star/path/directed/sparse fixtures, the torch router
+against the reference's JAX router bit for bit, the route arm and stage
 times, and BFS on a torch-routed layout."""
+
+import threading
 
 import numpy as np
 import pytest
@@ -25,14 +27,25 @@ needs_native = pytest.mark.skipif(
     not j_benes.native_available(), reason="native benes router unavailable"
 )
 
+def _directed() -> P.Graph:
+    """A directed multigraph: self-loops, repeated edges, and a hub whose
+    in- and out-degrees differ (the two sides' classes differ)."""
+    rng = np.random.default_rng(11)
+    src = np.concatenate([rng.integers(0, 150, 900), np.full(60, 7), np.arange(40)])
+    dst = np.concatenate([rng.integers(0, 150, 900), rng.integers(0, 150, 60), np.arange(40)])
+    return P.Graph(150, src, dst)
+
+
 FIXTURES = {
     "rmat": lambda: P.rmat_graph(9, 8, seed=7),
     "gnm": lambda: P.gnm_graph(300, 1800, seed=3),
     "star": lambda: P.star_graph(96),
     "path": lambda: P.path_graph(70),
+    "directed": _directed,
+    "sparse": lambda: P.gnm_graph(400, 120, seed=5),  # most vertices isolated
 }
 
-MASK_FIELDS = ("net_masks", "vperm_masks", "net_table", "vperm_table")
+MASK_FIELDS = p_relay.MASK_FIELDS
 
 
 def _ref(g: P.Graph) -> JGraph:
@@ -71,13 +84,12 @@ def _torch_masks(perm: np.ndarray, n: int) -> np.ndarray:
 
 @needs_native
 @pytest.mark.parametrize("name", list(FIXTURES))
-@pytest.mark.parametrize("segments", ["host", "torch"])
-def test_device_builder_byte_identical_native_route(name, segments):
+def test_device_builder_byte_identical_native_route(name):
     """With the native route the device builder is byte-identical to the
     port's host builder and to the reference's."""
     g = FIXTURES[name]()
     dev = p_relay.relay_to_arrays(
-        P.build_relay_graph_device(g, device="cpu", segments=segments, route="native")
+        P.build_relay_graph_device(g, device="cpu", route="native")
     )
     _same(dev, p_relay.relay_to_arrays(P.build_relay_graph(g)))
     _same(dev, j_relay.relay_to_arrays(j_relay.build_relay_graph(_ref(g))))
@@ -85,14 +97,14 @@ def test_device_builder_byte_identical_native_route(name, segments):
 
 @needs_native
 @pytest.mark.parametrize("name", list(FIXTURES))
-@pytest.mark.parametrize("segments", ["host", "torch"])
-def test_torch_route_layout(name, segments):
+def test_torch_route_layout(name):
     """The torch route: every non-mask field byte-identical to the host
     builder, the masks those of the torch router compacted."""
     g = FIXTURES[name]()
-    rg = P.build_relay_graph_device(g, device="cpu", segments=segments, route="torch")
-    host = p_relay.relay_to_arrays(P.build_relay_graph(g))
-    _same(p_relay.relay_to_arrays(rg), host, skip=MASK_FIELDS)
+    rg = P.build_relay_graph_device(g, device="cpu", route="torch")
+    host_rg = P.build_relay_graph(g)
+    _same(p_relay.relay_to_arrays(rg), p_relay.relay_to_arrays(host_rg), skip=MASK_FIELDS)
+    assert p_relay.differing_fields(host_rg, rg, skip=MASK_FIELDS) == []
     (net, n), (vperm, vp) = _perms(g)
     masks, table = p_relay._compact_and_table(_torch_masks(net, n), n)
     np.testing.assert_array_equal(rg.net_masks, masks)
@@ -108,7 +120,7 @@ def test_device_builder_takes_a_device_graph():
     its layout is that of those edges."""
     dg = P.build_device_graph(P.rmat_graph(8, 6, seed=4), block=256)
     ours = p_relay.relay_to_arrays(
-        P.build_relay_graph_device(dg, device="cpu", segments="torch"))
+        P.build_relay_graph_device(dg, device="cpu"))
     _same(ours, p_relay.relay_to_arrays(P.build_relay_graph(dg)))
     src, dst = unpad_edges(dg)
     _same(ours, j_relay.relay_to_arrays(j_relay.build_relay_graph(
@@ -156,52 +168,49 @@ def test_torch_router_realizes_permutations(n):
 # ------------------------------------------------------ arms and stage times --
 
 def test_arm_resolution(monkeypatch):
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    monkeypatch.delenv("BFS_TPU_TORCH_LAYOUT_SEGMENTS", raising=False)
-    monkeypatch.delenv("BFS_TPU_TORCH_LAYOUT_ROUTE", raising=False)
-    assert RD.resolve_segments(None, cpu) == "host"
-    assert RD.resolve_segments(None, cuda) == "torch"
-    assert RD.resolve_segments("host", cuda) == "host"
     assert RD.resolve_route(None) == ("native" if p_benes.native_available() else "torch")
+    assert RD.resolve_route("torch") == "torch"
     monkeypatch.setattr(p_benes, "native_available", lambda: False)
     assert RD.resolve_route("auto") == "torch"
-    monkeypatch.setenv("BFS_TPU_TORCH_LAYOUT_SEGMENTS", "torch")
-    monkeypatch.setenv("BFS_TPU_TORCH_LAYOUT_ROUTE", "native")
-    assert RD.resolve_segments(None, cpu) == "torch"
-    assert RD.resolve_route(None) == "native"
-    with pytest.raises(ValueError):
-        RD.resolve_segments("xla", cpu)
     with pytest.raises(ValueError):
         RD.resolve_route("jax")
-    monkeypatch.setenv("BFS_TPU_TORCH_LAYOUT_ROUTE", "fastest")
-    with pytest.raises(ValueError, match="BFS_TPU_TORCH_LAYOUT_ROUTE"):
-        RD.resolve_route(None)
     with pytest.raises(RuntimeError, match="native"):
         P.build_relay_graph_device(P.path_graph(8), device="cpu", route="native")
 
 
 @needs_native
-@pytest.mark.parametrize("segments", ["host", "torch"])
-def test_stage_times(segments):
+def test_stage_times():
     g = P.gnm_graph(120, 500, seed=1)
     times = {}
-    P.build_relay_graph_device(g, device="cpu", segments=segments, stage_times=times)
-    assert (times["segments"], times["route"], times["device"]) == (segments, "native", "cpu")
+    P.build_relay_graph_device(g, device="cpu", stage_times=times)
+    assert (times["route"], times["device"]) == ("native", "cpu")
     for key in ("ingest", "classes", "route_net", "route_vperm", "compact_net",
-                "compact_vperm", "finalize"):
+                "compact_vperm", "finalize", "layout.device_hist", "layout.device_relabel",
+                "layout.device_slots", "layout.device_net_assembly",
+                "layout.device_vperm_assembly", "layout.device_csr"):
         assert times[key] >= 0.0, key
-    stages = ("layout.device_hist", "layout.device_relabel", "layout.device_slots",
-              "layout.device_net_assembly", "layout.device_vperm_assembly", "layout.device_csr")
-    if segments == "host":
-        stages = ("degrees", "relabel", "slots_l1", "slots_l2", "net_assembly",
-                  "vperm_assembly", "csr")
-    assert all(times[k] >= 0.0 for k in stages)
-    syncs = set(times["host_syncs"])
-    if segments == "torch":
-        assert syncs == {"ingest", "degree histograms", "class tables", "route input",
-                         "masks to the device", "stage ranges", "finalize"}
-    else:
-        assert syncs == set()
+    assert set(times["host_syncs"]) == {
+        "ingest", "degree histograms", "class tables", "route input",
+        "masks to the device", "stage ranges", "finalize"}
+
+
+def test_host_sync_counts_across_threads():
+    """Both tracks of a build count their syncs into one dict: no count
+    is lost to a race."""
+    syncs: dict = {}
+    cpu = torch.device("cpu")
+
+    def track():
+        for _ in range(2000):
+            with RD._host_sync(cpu, "finalize", syncs):
+                pass
+
+    threads = [threading.Thread(target=track) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert syncs == {"finalize": 8000}
 
 
 @needs_native
@@ -218,8 +227,7 @@ def test_degree_overflow_raises(monkeypatch):
     and the build raises, as the reference's dropped scatter makes it."""
     monkeypatch.setattr(RD, "_CANDIDATES", p_relay.width_candidates(4).astype(np.int32))
     with pytest.raises(RuntimeError, match="width table"):
-        P.build_relay_graph_device(P.star_graph(12), device="cpu", segments="torch",
-                                   route="torch")
+        P.build_relay_graph_device(P.star_graph(12), device="cpu", route="torch")
 
 
 def test_worker_failure_reraises(monkeypatch):
@@ -228,8 +236,7 @@ def test_worker_failure_reraises(monkeypatch):
 
     monkeypatch.setattr(RD, "_csr_program", boom)
     with pytest.raises(ArithmeticError, match="injected"):
-        P.build_relay_graph_device(P.path_graph(40), device="cpu", segments="torch",
-                                   route="torch")
+        P.build_relay_graph_device(P.path_graph(40), device="cpu", route="torch")
 
 
 def test_without_a_card_the_default_raises(monkeypatch):
@@ -257,7 +264,7 @@ def test_device_build_failure_raises(monkeypatch):
 @pytest.mark.parametrize("sparse_hybrid", [False, True])
 def test_bfs_on_a_torch_routed_layout(sparse_hybrid):
     g = P.rmat_graph(8, 6, seed=2)
-    rg = P.build_relay_graph_device(g, device="cpu", segments="torch", route="torch")
+    rg = P.build_relay_graph_device(g, device="cpu", route="torch")
     eng = P.RelayEngine(rg, device="cpu", sparse_hybrid=sparse_hybrid)
     for s in (3, 100, 255):
         r = eng.run(s)
@@ -281,10 +288,9 @@ def test_width_table_matches_class_width():
         (1 << np.arange(2, 30)) - 1,
         (1 << np.arange(2, 30)) + 1,
     ])
-    np.testing.assert_array_equal(p_relay._class_width(deg),
-                                  cand[p_relay.width_index(deg, cand)])
-    np.testing.assert_array_equal(p_relay.width_index(deg, cand),
-                                  j_relay.width_index(deg, cand))
+    idx = np.searchsorted(cand, np.maximum(deg, 1))  # the device builder's lookup
+    np.testing.assert_array_equal(p_relay._class_width(deg), cand[idx])
+    np.testing.assert_array_equal(idx, j_relay.width_index(deg, cand))
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))
@@ -302,7 +308,19 @@ def test_segment_helpers_match_reference(name):
     assert ours.in_classes == tuple(p_relay.rows_to_classes(j_relay.classes_to_rows(ref.in_classes)))
     assert (ours.vr, ours.m1, ours.m2, ours.out_vb, ours.n, ours.vp) == (
         ref.vr, ref.m1, ref.m2, ref.out_vb, ref.n, ref.vp)
-    for a, b in zip(p_relay.seg_relabel_in(in_w, ours), j_relay.seg_relabel_in(in_w, ref)):
+    want = (*j_relay.seg_relabel_in(in_w, ref), j_relay.seg_relabel_out(out_w, ref))
+    for a, b in zip(p_relay.seg_relabel(in_w, out_w, ours), want, strict=True):
         np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(p_relay.seg_relabel_out(out_w, ours),
-                                  j_relay.seg_relabel_out(out_w, ref))
+
+
+@needs_native
+def test_differing_fields_names_each_changed_field():
+    g = FIXTURES["gnm"]()
+    rg = P.build_relay_graph(g)
+    assert p_relay.differing_fields(rg, rg) == []
+    bent = p_relay.relay_from_arrays(
+        {k: np.array(v) for k, v in p_relay.relay_to_arrays(rg).items()})
+    bent.adj_dst[0] ^= 1
+    bent.net_masks[-1] ^= 1
+    assert p_relay.differing_fields(rg, bent) == ["net_masks", "adj_dst"]
+    assert p_relay.differing_fields(rg, bent, skip=MASK_FIELDS) == ["adj_dst"]
