@@ -18,6 +18,10 @@ mirror knobs of the reference's registry of the same names without
   BFS_TPU_TORCH_LAYOUT_BUILD     enum    device  device | host relay builder
   BFS_TPU_TORCH_CACHE_DIR        path    ""      artifact cache root
                                                  ("" = <repo>/.bench_cache)
+  BFS_TPU_TORCH_FAULT            spec    ""      fault injection:
+                                                 kill|raise|phase:<phase>
+                                                 [:nth] | delay:<phase>
+                                                 [:seconds]
   ============================== ======= ======= ==========================
 """
 
@@ -49,6 +53,16 @@ def _path(raw: str) -> str:
     return raw
 
 
+def _fault(raw: str) -> str:
+    """The fault spec's action and phase are checked here; nth and seconds
+    are told apart by :func:`bfs_tpu_torch.resilience.faults.fault_spec`."""
+    raw = raw.strip()
+    action, _, rest = raw.partition(":")
+    if raw and (action not in ("kill", "raise", "phase", "delay") or not rest):
+        raise ValueError("use kill|raise|phase:<phase>[:nth] | delay:<phase>[:seconds]")
+    return raw
+
+
 def _positive_float(raw: str) -> float:
     value = float(raw)
     if not value > 0:
@@ -71,6 +85,9 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "byte-identical"),
     Knob("BFS_TPU_TORCH_CACHE_DIR", "path", "", _path,
          "root of the persistent artifact caches (default <repo>/.bench_cache)"),
+    Knob("BFS_TPU_TORCH_FAULT", "spec", "", _fault,
+         "fault injection at a named phase boundary (resilience/faults.py): "
+         "kill|raise|phase:<phase>[:nth] | delay:<phase>[:seconds]"),
 )}
 
 

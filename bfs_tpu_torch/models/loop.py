@@ -18,14 +18,21 @@ A capture or a replay that fails raises: nothing falls back to the eager
 loop on a card.
 
 Kernel launch counts (``ops/relay_cuda.py::LAUNCHES``) count what reaches
-the card: a wrapper counts its launch when it is called, which happens once
-at capture; the capture's counts are taken back and each replay adds the
-block's captured launches.
+the card: a wrapper called under capture counts its launch into the
+capture's own record (:func:`~bfs_tpu_torch.ops.relay_cuda.capturing`, per
+thread, so launches other threads count meanwhile stay counted), and each
+replay adds the block's captured launches.
+
+A caller that may abandon a run (the query server's watchdog) runs it under
+:func:`attempt`: the check it gives is called before every block or
+superstep the loops of that thread issue, and raises to stop the run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -48,6 +55,27 @@ BLOCK = 4
 #: loop (``PERF.md``): k = 1 beat k = 4 on every search and batch, and
 #: k = 2 on the 64-source batches by 9-10%.  Not a knob.
 EDGE_BLOCK = 1
+
+_attempt = threading.local()  # .check: the running attempt's check, or None
+
+
+@contextlib.contextmanager
+def attempt(check: Callable[[], None]):
+    """Call ``check()`` before every block (and every eager superstep) that
+    a loop issues on this thread inside the block; an exception it raises
+    stops the run there, before anything more is launched."""
+    outer = getattr(_attempt, "check", None)
+    _attempt.check = check
+    try:
+        yield
+    finally:
+        _attempt.check = outer
+
+
+def _check_attempt() -> None:
+    check = getattr(_attempt, "check", None)
+    if check is not None:
+        check()
 
 
 @dataclass
@@ -96,7 +124,6 @@ class BlockLoop:
     # -- one block -----------------------------------------------------------
 
     def _capture(self) -> None:
-        before = dict(K.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         # Garbage of earlier engines (their graphs, memory pools, pinned
         # buffers) is freed now: freed during the capture, it would make a
@@ -105,20 +132,20 @@ class BlockLoop:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with K.capturing() as captured, torch.cuda.graph(graph):
                 for _ in range(self.k):
                     self.step()
         finally:
             if collecting:
                 gc.enable()
-        self.per_block = {n: K.LAUNCHES[n] - c for n, c in before.items() if K.LAUNCHES[n] != c}
-        K.LAUNCHES.update(before)  # captured, not launched
+        self.per_block = captured  # captured, not launched
         self.graph = graph
 
     def issue(self, stats: LoopStats) -> None:
         """Issue one block on the current stream (no host read): eagerly on
         the CPU; on a card the graph's replay, the first time after one
         eager superstep and the capture."""
+        _check_attempt()
         if not self.on_card:
             for _ in range(self.k):
                 self.step()
@@ -129,8 +156,7 @@ class BlockLoop:
             stats.issued += 1
             self._capture()
         self.graph.replay()
-        for name, count in self.per_block.items():
-            K.LAUNCHES[name] += count
+        K.add_launches(self.per_block)
         stats.replays += 1
         stats.issued += self.k
 
@@ -279,6 +305,7 @@ def eager(state, step: Callable, cap: int):
     stats = LoopStats()
     changed = True
     while changed and stats.level < cap:
+        _check_attempt()
         state = step(state)
         changed = bool(state.changed)  # the one host read per level
         stats.level += 1

@@ -1,0 +1,75 @@
+"""One process-global :class:`MetricsRegistry`: every counter behind one
+snapshot.  The port of ``bfs_tpu.obs.registry`` without the reference's
+retrace counters (the port compiles no traced programs).
+
+Free-form counters live here (``graph_evictions``, ``watchdog_timeouts``);
+every :class:`~bfs_tpu_torch.utils.metrics.ServeMetrics` registers itself
+at construction, weakly, so a dropped server is not kept alive by its
+metrics; :meth:`MetricsRegistry.snapshot` composes the counters, the
+artifact-cache counters, the span summary and every live server's report
+into one JSON-ready dict.
+"""
+
+from __future__ import annotations
+
+import threading
+import weakref
+
+
+class MetricsRegistry:
+    """Thread-safe process-global metrics hub."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: dict[str, int] = {}  # guarded by _lock
+        self._serve: list = []  # guarded by _lock: weakref.ref of ServeMetrics
+
+    def counter(self, name: str, by: int = 1) -> None:
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + by
+
+    def count(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def counters(self) -> dict:
+        with self._lock:
+            return dict(self._counters)
+
+    def register_serve(self, metrics) -> None:
+        """Adopt a ServeMetrics instance (idempotent; weakly held)."""
+        with self._lock:
+            live = [r for r in self._serve if r() is not None]
+            if not any(r() is metrics for r in live):
+                live.append(weakref.ref(metrics))
+            self._serve = live
+
+    def _serve_reports(self) -> list[dict]:
+        with self._lock:
+            refs = list(self._serve)
+        return [m.report() for m in (r() for r in refs) if m is not None]
+
+    def snapshot(self) -> dict:
+        """Registry counters, artifact caches, span summary and every live
+        ServeMetrics report."""
+        from ..utils.metrics import artifact_report
+        from .spans import span_report
+
+        return {
+            "counters": self.counters(),
+            "artifact_caches": artifact_report(),
+            "spans": span_report(),
+            "serve": self._serve_reports(),
+        }
+
+
+_REGISTRY_LOCK = threading.Lock()
+_REGISTRY: list[MetricsRegistry] = []  # guarded by _REGISTRY_LOCK
+
+
+def get_registry() -> MetricsRegistry:
+    """THE process-global registry (created on first use)."""
+    with _REGISTRY_LOCK:
+        if not _REGISTRY:
+            _REGISTRY.append(MetricsRegistry())
+        return _REGISTRY[0]

@@ -7,8 +7,10 @@ its hand-written CUDA kernel (``csrc/relay_kernels.cu``,
 ``csrc/relay_elem_kernels.cu``, ``csrc/relay_mxu_kernels.cu``) for a tensor
 on a card; any other device raises, and a CUDA tensor never
 reaches the plain version.  Each kernel has a launch count in
-:data:`LAUNCHES`, raised by one where the wrapper launches it and nowhere
-else.
+:data:`LAUNCHES`, raised by one (:func:`count_launch`) where the wrapper
+launches it and nowhere else; a launch made while the calling thread
+captures a CUDA graph (:func:`capturing`) goes into that capture's record
+instead, since its kernels reach the card only when the graph is replayed.
 
   ======================  ================================================
   kernel                  replaces (bfs_tpu/ops/relay_pallas.py)
@@ -40,8 +42,10 @@ always live, as outside the block loop.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -98,9 +102,46 @@ ELEM_REG_BITS = 5
 ELEM_SLOTS = 16
 
 
+_launch_lock = threading.Lock()  # guards LAUNCHES: serve threads launch too
+_capture = threading.local()  # .record: the launches of this thread's capture
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` by its wrapper: into :data:`LAUNCHES`,
+    or into the record of the capture this thread is in."""
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record[name] = record.get(name, 0) + 1
+        return
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """The launches of a replayed graph, by kernel."""
+    with _launch_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Launches counted on this thread inside the block go into the dict
+    it yields, not into :data:`LAUNCHES` (a CUDA graph being captured);
+    other threads count as usual."""
+    outer = getattr(_capture, "record", None)
+    record: dict[str, int] = {}
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = outer
 
 
 _VP = ctypes.c_void_p
@@ -320,7 +361,7 @@ def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None,
         compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
         len(stages), nw, tile_words, _ctl(ctl), _stream(),
     )
-    LAUNCHES["benes_local_pass"] += 1
+    count_launch("benes_local_pass")
     _call(rc, "benes_local_pass")
     return out
 
@@ -413,7 +454,7 @@ def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
         bits.ctypes.data_as(_VP), compact.ctypes.data_as(_VP), len(stages), b0, k,
         row.bit_length() - 1, nw, _ctl(ctl), _stream(),
     )
-    LAUNCHES["benes_outer_pass"] += 1
+    count_launch("benes_outer_pass")
     _call(rc, "benes_outer_pass")
     return out
 
@@ -517,7 +558,7 @@ def rowmin_ranks(
         _ptr(l1words), _ptr(valid_words), _ptr(out), _VP(table.data_ptr()),
         table.shape[0], blocks, _ctl(ctl), _stream(),
     )
-    LAUNCHES["class_rowmin"] += 1
+    count_launch("class_rowmin")
     _call(rc, "class_rowmin")
     return out
 
@@ -564,7 +605,7 @@ def apply_relay_candidates_packed(
         _ptr(fwords), ctypes.c_void_p(None) if changed is None else _ptr(changed), vr,
         bits, _ctl(ctl), _stream(),
     )
-    LAUNCHES["packed_update"] += 1
+    count_launch("packed_update")
     _call(rc, "packed_update")
     return R.PackedRelayState(state.packed, fwords, level, changed)
 
@@ -576,7 +617,7 @@ def loop_control(ctl: torch.Tensor) -> torch.Tensor:
     if not _on_card(ctl):
         return C.loop_control(ctl)
     rc = kernels().loop_control(_ctl(ctl), _stream())
-    LAUNCHES["loop_control"] += 1
+    count_launch("loop_control")
     _call(rc, "loop_control")
     return ctl
 
@@ -661,7 +702,7 @@ def launch_elem_local_pass(lib, x_in, masks, stages, n, tile, out=None,
         len(stages), phase_lo.ctypes.data_as(_VP), phase_end.ctypes.data_as(_VP),
         len(plan), groups, n, lg_tile, _stream(),
     )
-    LAUNCHES["benes_elem_local_pass"] += 1
+    count_launch("benes_elem_local_pass")
     _call(rc, "benes_elem_local_pass")
     return out
 
@@ -692,7 +733,7 @@ def benes_elem_outer_stage(
         _ptr(x_in), _ptr(out), _ptr(masks, st.offset), groups, n, st.d,
         int(st.compact), _stream(),
     )
-    LAUNCHES["benes_elem_outer_stage"] += 1
+    count_launch("benes_elem_outer_stage")
     _call(rc, "benes_elem_outer_stage")
     return out
 
@@ -741,7 +782,7 @@ def elem_frontier_interleave(frontier: torch.Tensor, out: torch.Tensor | None = 
         raise ValueError(f"out: expected a 16-byte aligned contiguous int32[{vr}, {groups}] tensor")
     rc = (lib or elem_kernels()).elem_frontier_interleave(
         _ptr(frontier), _ptr(out), vr, groups, _ctl(ctl), _stream())
-    LAUNCHES["elem_frontier_interleave"] += 1
+    count_launch("elem_frontier_interleave")
     _call(rc, "elem_frontier_interleave")
     return out
 
@@ -787,7 +828,7 @@ def launch_route_gather(lib, frontier, src, out=None, frontier_t=None,
         _ptr(f), _ptr(src), _ptr(out), frontier.shape[1], n, groups, int(interleaved),
         _ctl(ctl), _stream(),
     )
-    LAUNCHES["elem_route_gather"] += 1
+    count_launch("elem_route_gather")
     _call(rc, "elem_route_gather")
     return out
 
@@ -900,7 +941,7 @@ def elem_rowmin_update(
         _VP(table.data_ptr()), table.shape[0], blocks, groups, n, vr, pt,
         0 if ctl is not None else level, _ctl(ctl), _stream(),
     )
-    LAUNCHES["elem_rowmin_update"] += 1
+    count_launch("elem_rowmin_update")
     _call(rc, "elem_rowmin_update")
     return RE.ElemState(
         state.visited, frontier, state.dist_planes, state.rank_planes, level, changed,
@@ -952,6 +993,6 @@ def expand_frontier_mxu(
         _ptr(tiles), _ptr(row_idx), _ptr(col_id), _ptr(keys2d), _ptr(fwords),
         fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _ctl(ctl), _stream(),
     )
-    LAUNCHES["mxu_expand"] += 1
+    count_launch("mxu_expand")
     _call(rc, "mxu_expand")
     return out[:cols]

@@ -1,0 +1,73 @@
+"""bfs_tpu_torch.serve — long-lived, in-process BFS query serving on one
+card: the port of ``bfs_tpu.serve``.
+
+Register a graph once (layouts memoized, engines resident under a device
+budget), then stream single-source and multi-source queries through a
+micro-batcher that coalesces them into the batched engines and, in steady
+state, replays what it captured::
+
+    from bfs_tpu_torch.serve import BfsServer
+
+    server = BfsServer()               # the card; BfsServer(device="cpu")
+    server.register("g", graph)
+    reply = server.query("g", 0).result()
+    reply.dist, reply.parent           # canonical min-parent BFS tree
+
+Components: :class:`GraphRegistry` (epoch-versioned layouts and resident
+engines; re-registering a name hot-swaps the graph while in-flight queries
+finish on their admission-time snapshot), :class:`ExecutableCache` (batch
+runners keyed by graph, epoch, engine, bucket and direction policy),
+:class:`BfsServer` (admission queue, micro-batching, deadlines,
+transient-failure retry, result LRU, oracle degradation) and
+:class:`ServeHealth` (circuit breaker per executable, hung-call watchdog,
+sampled integrity checks).  The reference's fleet router, label tier and
+``registry_sssp``/``registry_cc`` are not ported.
+"""
+
+from .executor import (
+    AbandonedAttempt,
+    BatchRunner,
+    ExecutableCache,
+    HostRows,
+    build_batch_runner,
+    bucket_for,
+    run_oracle_batch,
+)
+from .health import HungCallError, ServeHealth, run_with_deadline
+from .registry import ENGINES, GraphRegistry, RegisteredGraph
+from .server import (
+    DEFAULT_RETRY_POLICY,
+    AdmissionError,
+    BfsServer,
+    CircuitOpenError,
+    DistReply,
+    QueryTimeout,
+    ServeError,
+    ServeReply,
+    ServerClosed,
+)
+
+__all__ = [
+    "AbandonedAttempt",
+    "AdmissionError",
+    "BatchRunner",
+    "BfsServer",
+    "CircuitOpenError",
+    "DEFAULT_RETRY_POLICY",
+    "DistReply",
+    "ENGINES",
+    "ExecutableCache",
+    "GraphRegistry",
+    "HostRows",
+    "HungCallError",
+    "QueryTimeout",
+    "RegisteredGraph",
+    "ServeError",
+    "ServeHealth",
+    "ServeReply",
+    "ServerClosed",
+    "bucket_for",
+    "build_batch_runner",
+    "run_oracle_batch",
+    "run_with_deadline",
+]

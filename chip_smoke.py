@@ -76,6 +76,18 @@ to the supersteps issued and split as the schedule, K1-K4 (or
 time of each superstep by body beside the dense superstep's on the same
 level (a run with ``alpha = beta = 1e9``, every superstep dense), the
 predicate step alone, a device trace, and ``run_many_device``.
+The query server closes the s22 part (``serve_phase``): a
+``GraphRegistry`` over the script's bundle store (warm hits for the relay
+and pull layouts) and ``BfsServer(engine="pull", max_batch=32,
+tick_s=0.002, verify_sample=4)``: 40 single-source queries from 4
+submitter threads, collapsed multi-source and tree queries and a
+``query_path``; staged ticks of 32 relay sources (``run_multi_elem``, the
+first building the route index), 4 relay sources (``run_multi``: K1-K4)
+and 8 push sources; a second round of every bucket, all executable-cache
+hits; the per-tick service and result seconds and kept host bytes, with
+the result cache at 0 and at 256; every reply held bit for bit against the
+batch's trees and the roots' oracle results, no degraded tick, and the
+launches of each staged tick counted.
 Every s22 result of the script also passes the on-device verifier
 (``DeviceChecker``), which must flag a corrupted parent and a corrupted
 distance.  Small
@@ -2334,6 +2346,232 @@ def sparse_body_table(heng, root: int, label: str) -> list:
     return rows
 
 
+SERVE_RELAY_STEP = ("benes_outer_pass", "benes_local_pass", "class_rowmin", "packed_update")
+# What the serve phase may not count unless a fault was injected on purpose.
+SERVE_DEGRADED = ("oracle_served", "device_errors", "watchdog_timeouts", "breaker_short_circuits")
+
+
+def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K) -> dict:
+    """The query server (``bfs_tpu_torch.serve``) at full width: a
+    ``GraphRegistry`` over the script's bundle store (warm hits for the
+    relay layout and the pull layout, which is put there first) and a
+    ``BfsServer(engine="pull", max_batch=32, tick_s=0.002, verify_sample=4)``
+    without a result cache.  Round 1: 40 single-source queries from 4
+    submitter threads as they come, 2 collapsed multi-source queries of 4,
+    one tree query of 2 and one ``query_path``; then staged ticks (the
+    server paused while 4 threads submit): relay 32 (``run_multi_elem``, its
+    first call building the route index), relay 4 (``run_multi``) and push
+    8.  Round 2 repeats every (engine, bucket) of round 1 as staged ticks
+    and must be all executable-cache hits.  Then a second server on the
+    same registry with the default result cache (256) runs 2 staged pull
+    ticks of 32, whose replies it keeps: result seconds beside round 2's.
+    Every reply is held bit for bit against the relay batch's trees and the
+    roots' oracle results; no degradation may be counted; launches are
+    counted per staged tick."""
+    import threading
+
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.cache.layout import pull_key
+    from bfs_tpu_torch.graph.ell import DEFAULT_K, pull_to_arrays
+    from bfs_tpu_torch.serve import BfsServer, GraphRegistry
+    from bfs_tpu_torch.utils.metrics import ServeMetrics
+
+    truth = {int(s): (batch.dist[i], batch.parent[i]) for i, s in enumerate(sources)}
+    truth.update({int(r): want[r][0] for r in roots})
+    cache = P.LayoutCache(store)
+    cache.save(pull_key(g, DEFAULT_K, 64), pull_to_arrays(pg),
+               {"kind": "pull", "num_vertices": g.num_vertices, "num_edges": g.num_edges})
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    disk = ServeMetrics()
+    reg = GraphRegistry(layout_cache=cache, metrics=disk)
+    reg.register("g", g)
+    layouts = {e: reg.layout("g", e) for e in ("relay", "pull", "push")}
+    setup_s = time.perf_counter() - t0
+    log(f"serve: registered, layouts in {setup_s:.3f} s (relay bundle "
+        f"{reg.layout_info().get('cache')}, relay load {reg.layout_info().get('load_seconds')}; "
+        f"pull bundle from the store; push built)")
+
+    def exact(mode, srcs, reply, label):
+        if mode == "single":
+            got, exp = (reply.dist, reply.parent), truth[srcs[0]]
+        elif mode == "tree":
+            got, exp = (reply.dist, reply.parent), tuple(np.stack([truth[s][k] for s in srcs])
+                                                         for k in (0, 1))
+        else:
+            exp = P.collapse_multi_source(P.MultiBfsResult(
+                np.asarray(srcs, dtype=np.int32), *(np.stack([truth[s][k] for s in srcs])
+                                                    for k in (0, 1)), 0))
+            got = (reply.dist, reply.parent)
+        for a, b in zip(got, exp):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"serve {label}: reply for {mode} {srcs} differs")
+
+    def staged(srv, engine, srcs, label):
+        """One tick: the server paused while 4 threads submit, then released."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        srv.pause()
+        futs = []
+
+        def submit(part):
+            for s in srcs[part::4]:
+                futs.append((s, srv.query("g", s, engine=engine)))
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        srv.resume()
+        for s, f in futs:
+            exact("single", [s], f.result(600), label)
+        torch.cuda.synchronize()
+        tick = srv.tick_log()[-1]
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+        if (tick["engine"], tick["sources"], tick["status"]) != (engine, len(srcs), "ok"):
+            raise AssertionError(f"serve {label}: not one device tick of {len(srcs)}: {tick}")
+        return tick, launched
+
+    def check_launches(label, engine, tick, launched, first_relay32=False):
+        issued = tick["issued"]
+        if engine == "relay" and tick["bucket"] % 32 == 0:
+            loop = {k: launched.get(k, 0) for k in ("elem_route_gather", "elem_rowmin_update",
+                                                    "loop_control")}
+            if set(loop.values()) != {issued}:
+                raise AssertionError(f"serve {label}: loop kernels {loop} in {issued} supersteps")
+            built = [launched.get(k, 0) > 0 for k in ELEM_BUILD]
+            if all(built) != first_relay32 or any(built) != first_relay32:
+                raise AssertionError(f"serve {label}: route index launches {launched}")
+        elif engine == "relay":
+            steps = launched.get("packed_update", 0)
+            want_l = {k: GATHER_STEP[k] * steps for k in (*SERVE_RELAY_STEP, "loop_control")}
+            got_l = {k: launched.get(k, 0) for k in want_l}
+            if steps <= 0 or got_l != want_l:
+                raise AssertionError(f"serve {label}: K1-K4 launches {got_l}, expected {want_l}")
+        elif launched != {"loop_control": issued}:
+            raise AssertionError(f"serve {label}: launches {launched} in {issued} supersteps")
+
+    def line(tick):
+        return (f"{tick['engine']} bucket {tick['bucket']} ({tick['sources']} real, "
+                f"{tick['requests']} requests, hit {tick['compile_hit']}): service "
+                f"{tick['service_s']:.6f} s, loop {tick['loop_s']}, result {tick['result_s']} "
+                f"(engine copy) + {tick['own_s']:.6f} s (rows copied out), replies keep "
+                f"{tick['kept_bytes']} bytes")
+
+    srcs = [int(s) for s in sources]
+    out = {"ticks": []}
+    pool = srcs + [int(r) for r in roots]
+    kw = dict(engine="pull", max_batch=32, tick_s=0.002, verify_sample=4)
+    with BfsServer(reg, result_cache_size=0, metrics=disk, **kw) as srv:
+        # ---- round 1: free-running pull traffic from 4 submitters
+        K.reset_launches()
+        t0 = time.perf_counter()
+        singles = srcs[:36] + [int(r) for r in roots]
+        futs = []
+
+        def submitter(part):
+            for s in singles[part::4]:
+                futs.append(("single", [s], srv.query("g", s)))
+                time.sleep(0.001)
+
+        threads = [threading.Thread(target=submitter, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for mode, group in (("collapse", srcs[40:44]), ("collapse", srcs[44:48]),
+                            ("tree", srcs[48:50])):
+            futs.append((mode, group, srv.query_multi("g", group, collapse=mode == "collapse")))
+        u = int(roots[0])
+        far = int(np.argmax(np.where(truth[u][0] == P.INF_DIST, -1, truth[u][0])))
+        path_fut = srv.query_path("g", u, far)
+        for t in threads:
+            t.join()
+        for mode, group, f in futs:
+            exact(mode, group, f.result(600), "round 1")
+        path = path_fut.result(600)
+        if path.dist != int(truth[u][0][far]) or len(path.path) != path.dist + 1 or any(
+                int(truth[u][1][b]) != a for a, b in zip(path.path, path.path[1:])):
+            raise AssertionError(f"serve: query_path {u} -> {far} wrong: {path}")
+        torch.cuda.synchronize()
+        round1_s = time.perf_counter() - t0
+        ticks1 = srv.tick_log()
+        issued1 = sum(t["issued"] for t in ticks1)
+        if K.LAUNCHES["loop_control"] != issued1 or any(
+                v for k, v in K.LAUNCHES.items() if k != "loop_control"):
+            raise AssertionError(f"serve round 1: launches {dict(K.LAUNCHES)} in {issued1} "
+                                 "supersteps")
+        rep1 = srv.report()
+        log(f"serve round 1 (pull, 4 submitters, tick 2 ms): {len(futs) + 1} queries in "
+            f"{round1_s:.3f} s, {len(ticks1)} ticks, p50 {rep1['latency_p50_ms']:.3f} ms, p99 "
+            f"{rep1['latency_p99_ms']:.3f} ms, {rep1['queries_per_sec']:.3f} queries/s; every "
+            f"reply exact; loop_control {issued1} = supersteps issued; ticks: "
+            + "; ".join(line(t) for t in ticks1))
+        out["ticks"] += ticks1
+        # ---- the staged engine ticks of round 1
+        plan = [("relay", srcs[:32], "relay 32"), ("relay", [int(r) for r in roots], "relay 4"),
+                ("push", srcs[:8], "push 8")]
+        for engine, group, label in plan:
+            tick, launched = staged(srv, engine, group, label)
+            check_launches(label, engine, tick, launched, first_relay32=label == "relay 32")
+            log(f"serve {label}: " + line(tick) + f"; launches {launched}")
+            out["ticks"].append(tick)
+        buckets = sorted({(t["engine"], t["bucket"]) for t in out["ticks"]})
+        # ---- round 2: the same buckets, every one an executable-cache hit
+        hits0, misses0 = srv.exe_cache.hits, srv.exe_cache.misses
+        round2 = []
+        for engine, bucket in buckets:
+            group = pool[-bucket:]  # no result cache: any sources are device work
+            tick, launched = staged(srv, engine, group, f"round 2 {engine} {bucket}")
+            check_launches(f"round 2 {engine} {bucket}", engine, tick, launched)
+            round2.append(tick)
+        hits, misses = srv.exe_cache.hits - hits0, srv.exe_cache.misses - misses0
+        if misses or hits != len(buckets) or not all(t["compile_hit"] for t in round2):
+            raise AssertionError(f"serve round 2: {hits} hits, {misses} misses over {buckets}")
+        rep = srv.report()
+        log(f"serve round 2 (staged, result cache 0): {len(buckets)} ticks {buckets}, "
+            f"executable-cache hits {hits} of {hits + misses} (100%); " +
+            "; ".join(line(t) for t in round2))
+        counters = rep["counters"]
+        degraded = {k: counters.get(k, 0) for k in SERVE_DEGRADED}
+        if any(degraded.values()):
+            raise AssertionError(f"serve: degraded ticks counted {degraded}")
+        out.update(report=rep, round2=round2, buckets=buckets, round1_s=round1_s)
+        log(f"serve report: p50 {rep['latency_p50_ms']:.3f} ms, p99 {rep['latency_p99_ms']:.3f} "
+            f"ms, {rep['queries_per_sec']:.3f} queries/s over {rep['served']} queries, "
+            f"compile hit rate {rep['compile_hit_rate']:.4f}; integrity checks "
+            f"{counters.get('integrity_checks', 0)} clean; {degraded}; resident "
+            f"{rep['registry']['resident_bytes']} bytes {rep['registry']['resident']}")
+    # ---- kept replies: the default result cache holds every reply
+    with BfsServer(reg, **kw) as srv:
+        kept = []
+        for i, group in enumerate((srcs[:32], srcs[32:64])):
+            tick, _ = staged(srv, "pull", group, f"kept {i}")
+            kept.append(tick)
+        log("serve, result cache 256 (replies kept): " + "; ".join(line(t) for t in kept))
+        out["kept"] = kept
+        out["kept_report"] = srv.report()
+    zero = [t for t in out["round2"] if (t["engine"], t["bucket"]) == ("pull", 32)]
+    out["result_s"] = {
+        "cache 0": [(t["result_s"] or 0.0) + t["own_s"] for t in zero],
+        "cache 256": [(t["result_s"] or 0.0) + t["own_s"] for t in out["kept"]],
+    }
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["setup_s"] = setup_s
+    log(f"serve: result seconds of a pull bucket-32 tick (engine copy + rows copied out): "
+        f"cache 0 {out['result_s']['cache 0']}, cache 256 {out['result_s']['cache 256']}; "
+        f"device memory peak {out['peak']} bytes over the phase; layouts {sorted(layouts)}; "
+        f"disk {disk.count('layout_disk_hits')} hits, {disk.count('layout_disk_misses')} misses "
+        f"({card})")
+    if disk.count("layout_disk_hits") != 2 or disk.count("layout_disk_misses"):
+        raise AssertionError("serve: the relay and pull layouts were not warm bundle hits")
+    del reg, layouts
+    torch.cuda.empty_cache()
+    return out
+
+
 def small_hybrid_checks(P, K) -> None:
     """path_graph(100) from vertex 0 on the hybrid, both arms, ``auto`` and
     ``push``: 62 levels on the packed carry, then the unpacked re-run (the
@@ -2553,8 +2791,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         mark(f"hybrid {arm}")
     runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
-    del want
     mark("runners")
+    # ---- the query server on the same graph: every reply against the
+    # relay batch's trees and the roots' oracle results
+    serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K)
+    del want
+    mark("serve")
     cli_phase(K)
     mark("command line")
 
@@ -2659,6 +2901,13 @@ def main(argv=None) -> int:
         f"{routers['net']['native_s']:.3f} s against torch {routers['net']['torch_s']:.3f} s, vperm "
         f"native {routers['vperm']['native_s']:.3f} s against torch {routers['vperm']['torch_s']:.3f} "
         f"s; scale {PARITY_SCALE} builds " + ", ".join(f"{k} {v:.3f} s" for k, v in layout_parity.items()))
+    srep = serve["report"]
+    log(f"query server (pull default, max_batch 32, tick 2 ms, verify 1 in 4; R-MAT scale "
+        f"{args.scale}): p50 {srep['latency_p50_ms']:.3f} ms, p99 {srep['latency_p99_ms']:.3f} ms, "
+        f"{srep['queries_per_sec']:.3f} queries/s over {srep['served']} queries; round 2 "
+        f"{len(serve['buckets'])} ticks, all executable-cache hits; result seconds of a pull "
+        f"bucket-32 tick: cache 0 {serve['result_s']['cache 0']}, cache 256 "
+        f"{serve['result_s']['cache 256']}; round 1 {serve['round1_s']:.3f} s")
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

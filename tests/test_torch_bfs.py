@@ -135,7 +135,13 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.obs.telemetry, bfs_tpu_torch.models.direction, "
         "bfs_tpu_torch.oracle.device, bfs_tpu_torch.ops.sparse, "
         "bfs_tpu_torch.cache, bfs_tpu_torch.cache.layout, "
-        "bfs_tpu_torch.graph.relay_device, bfs_tpu_torch.obs.spans; "
+        "bfs_tpu_torch.graph.relay_device, bfs_tpu_torch.obs.spans, "
+        "bfs_tpu_torch.obs.registry, bfs_tpu_torch.utils.locks, "
+        "bfs_tpu_torch.resilience, bfs_tpu_torch.resilience.faults, "
+        "bfs_tpu_torch.resilience.retry, bfs_tpu_torch.serve, "
+        "bfs_tpu_torch.serve.executor, bfs_tpu_torch.serve.registry, "
+        "bfs_tpu_torch.serve.health, bfs_tpu_torch.serve.server, "
+        "bfs_tpu_torch.runners.run_serve; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -164,7 +170,10 @@ def test_no_jax_or_reference_imports_in_the_port():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     for sub in (("cache", "__init__.py"), ("cache", "layout.py"),
-                ("graph", "relay_device.py"), ("obs", "spans.py")):
+                ("graph", "relay_device.py"), ("obs", "spans.py"), ("obs", "registry.py"),
+                ("resilience", "faults.py"), ("resilience", "retry.py"),
+                ("serve", "executor.py"), ("serve", "registry.py"), ("serve", "health.py"),
+                ("serve", "server.py"), ("runners", "run_serve.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):

@@ -8,6 +8,8 @@ with a card and no jax:
 Each test decides inside a fixture whether a card is present and skips
 without one.  Comparisons are exact (integer bit arithmetic)."""
 
+import threading
+import time
 import types
 
 import numpy as np
@@ -1044,3 +1046,129 @@ def test_card_device_builder_matches_the_host_builder(card, route, tracks, monke
     if route == "torch":
         cpu = RD.build_relay_graph_device(g, device="cpu", route="torch")
         assert p_relay.differing_fields(cpu, rg) == []
+
+
+# ------------------------------------------------------------ the query server --
+
+def _served_exact(g, source, reply):
+    d, p = P.canonical_bfs(g, source)
+    np.testing.assert_array_equal(reply.dist, d)
+    np.testing.assert_array_equal(reply.parent, p)
+
+
+@pytest.mark.parametrize("engine", ["pull", "relay"])
+def test_card_serve_capped_budget_alternation(card, engine):
+    """Two graphs under a budget that holds one engine: every query evicts
+    the other graph's engine (its tensors and captured loops) and ships its
+    own again, and every reply stays oracle-exact."""
+    from bfs_tpu_torch.serve import BfsServer, GraphRegistry
+
+    graphs = {"a": P.rmat_graph(10, 8, seed=3), "b": P.rmat_graph(10, 8, seed=4)}
+    reg = GraphRegistry(device_budget_bytes=1)
+    with BfsServer(reg, engine=engine, max_batch=4, result_cache_size=0) as srv:
+        for name, g in graphs.items():
+            srv.register(name, g)
+        for i in range(6):
+            name = "ab"[i % 2]
+            reply = srv.query(name, 3 * i).result(300)
+            _served_exact(graphs[name], 3 * i, reply)
+            assert reply.record.status == "ok"
+            assert reg.resident_keys() == [(name, 0, engine)]
+        assert reg.evictions == 5
+        assert srv.exe_cache.misses == 2 and srv.exe_cache.hits == 4
+
+
+def test_card_serve_hung_call_then_exact_replies(card, monkeypatch):
+    """``delay:serve.batch`` past the watchdog: the tick degrades to the
+    oracle; the abandoned attempt launches nothing once the next attempt
+    has begun, and the next replies are exact on the card."""
+    from bfs_tpu_torch.serve import BfsServer
+
+    g = P.rmat_graph(10, 8, seed=3)
+    with BfsServer(watchdog_s=0.5, watchdog_min_s=0.05, max_batch=4) as srv:
+        srv.register("g", g)
+        _served_exact(g, 1, srv.query("g", 1).result(300))
+        K.reset_launches()
+        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "delay:serve.batch:2.0")
+        t0 = time.monotonic()
+        reply = srv.query("g", 2).result(300)
+        monkeypatch.delenv("BFS_TPU_TORCH_FAULT")
+        assert reply.record.status == "oracle" and srv.metrics.count("watchdog_timeouts") == 1
+        _served_exact(g, 2, reply)
+        for s in (3, 4, 5):
+            reply = srv.query("g", s).result(300)
+            assert reply.record.status == "ok"
+            _served_exact(g, s, reply)
+        issued = sum(t["issued"] for t in srv.tick_log()[-3:])
+        time.sleep(max(0.0, t0 + 2.5 - time.monotonic()))
+        assert srv.metrics.count("abandoned_attempts") == 1
+        assert K.LAUNCHES["loop_control"] == issued  # nothing from the zombie
+        _served_exact(g, 6, srv.query("g", 6).result(300))
+
+
+def test_card_serve_cold_capture_while_submitters_run(card):
+    """Cold ticks (engine shipped, block loops captured on a watchdog
+    thread) while four threads keep submitting, with sampled verification
+    on: every reply oracle-exact, and the control kernel launched exactly
+    once per superstep the ticks issued."""
+    from bfs_tpu_torch.serve import BfsServer
+
+    g = P.rmat_graph(10, 8, seed=3)
+    sources = list(range(0, 256, 2))
+    K.reset_launches()
+    for engine in ("pull", "relay"):
+        with BfsServer(engine=engine, max_batch=32, tick_s=0.002, verify_sample=2,
+                       result_cache_size=0) as srv:
+            srv.register("g", g)
+            replies = {}
+
+            def submit(part):
+                for s in sources[part::4]:
+                    replies[s] = srv.query("g", s)
+                    time.sleep(0.001)
+
+            threads = [threading.Thread(target=submit, args=(i,)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for s, f in replies.items():
+                reply = f.result(300)
+                assert reply.record.status == "ok"
+                _served_exact(g, s, reply)
+            ticks = srv.tick_log()
+            counters = srv.metrics.report()["counters"]
+            assert counters.get("oracle_served", 0) == 0
+            assert counters["integrity_checks"] >= 1
+            assert counters.get("integrity_failures", 0) == 0
+        if engine == "pull":
+            assert K.LAUNCHES["loop_control"] == sum(t["issued"] for t in ticks)
+            K.reset_launches()
+    assert K.LAUNCHES["loop_control"] > 0 and K.LAUNCHES["packed_update"] > 0
+
+
+def test_card_serve_verify_fault_quarantines(card, monkeypatch):
+    """``raise:serve.verify`` on the card: the executable is quarantined
+    (circuit open, runner dropped), the tick re-runs on the oracle, and the
+    canary after the cooldown rebuilds the runner and serves exactly."""
+    from bfs_tpu_torch.resilience import faults
+    from bfs_tpu_torch.serve import BfsServer
+
+    g = P.rmat_graph(10, 8, seed=3)
+    with BfsServer(verify_sample=1, breaker_cooldown_s=0.2, max_batch=4) as srv:
+        srv.register("g", g)
+        _served_exact(g, 0, srv.query("g", 0).result(300))
+        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "raise:serve.verify")
+        faults.reset()
+        reply = srv.query("g", 1).result(300)
+        monkeypatch.delenv("BFS_TPU_TORCH_FAULT")
+        faults.reset()
+        assert reply.record.status == "oracle"
+        _served_exact(g, 1, reply)
+        assert srv.metrics.count("integrity_failures") == 1
+        assert srv.metrics.count("breaker_opened") == 1 and len(srv.exe_cache) == 0
+        time.sleep(0.25)
+        reply = srv.query("g", 2).result(300)
+        assert reply.record.status == "ok" and reply.record.compile_hit is False
+        _served_exact(g, 2, reply)
+        assert srv.metrics.count("breaker_closed") == 1
