@@ -419,7 +419,7 @@ def test_retry_semantics_on_the_tick_path(graph, case):
 
 
 def test_breaker_opens_short_circuits_then_canary_closes(graph):
-    with make_server(graph, breaker_failures=2, breaker_cooldown_s=0.15, watchdog_s=0.0) as srv:
+    with make_server(graph, breaker_failures=2, breaker_cooldown_s=0.5, watchdog_s=0.0) as srv:
         srv.exe_cache.put(_tick_key("g", "pull", 1),
                           Runner(graph, lambda n: n <= 2, PermanentError("poisoned")))
         for s in (0, 1):
@@ -429,7 +429,7 @@ def test_breaker_opens_short_circuits_then_canary_closes(graph):
         assert srv.metrics.count("breaker_opened") == 1
         assert srv.query("g", 2).result(TIMEOUT).record.status == "oracle"
         assert srv.metrics.count("breaker_short_circuits") >= 1
-        time.sleep(0.2)
+        time.sleep(0.6)
         reply = srv.query("g", 3).result(TIMEOUT)
         _exact(graph, 3, reply)
         assert reply.record.status == "ok"
@@ -512,7 +512,7 @@ def test_hung_integrity_check_degrades_instead_of_freezing(graph, monkeypatch):
 
 
 def test_integrity_failure_quarantines_and_reruns_on_fallback(graph, monkeypatch):
-    with make_server(graph, verify_sample=1, breaker_cooldown_s=0.15, watchdog_s=0.0) as srv:
+    with make_server(graph, verify_sample=1, breaker_cooldown_s=0.5, watchdog_s=0.0) as srv:
         assert srv.query("g", 0).result(TIMEOUT).record.status == "ok"
         n_exe = len(srv.exe_cache)
         monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "raise:serve.verify")
@@ -524,7 +524,7 @@ def test_integrity_failure_quarantines_and_reruns_on_fallback(graph, monkeypatch
         assert srv.metrics.count("breaker_opened") == 1
         assert len(srv.exe_cache) == n_exe - 1
         assert srv.query("g", 2).result(TIMEOUT).record.status == "oracle"
-        time.sleep(0.2)
+        time.sleep(0.6)
         reply = srv.query("g", 3).result(TIMEOUT)
         assert reply.record.status == "ok" and reply.record.compile_hit is False
         assert srv.metrics.count("breaker_closed") == 1
@@ -538,7 +538,7 @@ def test_injected_delay_abandons_the_attempt_and_it_never_launches(graph, monkey
     """``delay:serve.batch`` wedges the REAL batch call: the watchdog
     degrades the tick, and the abandoned attempt, waking after a later
     attempt on the same runner has begun, runs nothing on the engine."""
-    with make_server(graph, watchdog_s=0.3, watchdog_min_s=0.05) as srv:
+    with make_server(graph, watchdog_s=0.5, watchdog_min_s=0.05) as srv:
         _exact(graph, 5, srv.query("g", 5).result(TIMEOUT))  # build outside the fault
         runs = []
         real = EdgeEngine.run_multi
@@ -548,10 +548,10 @@ def test_injected_delay_abandons_the_attempt_and_it_never_launches(graph, monkey
             return real(self, sources, **kw)
 
         monkeypatch.setattr(EdgeEngine, "run_multi", spy)
-        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "delay:serve.batch:1.0")
+        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "delay:serve.batch:3.0")
         t0 = time.monotonic()
         reply = srv.query("g", 0).result(TIMEOUT)
-        assert time.monotonic() - t0 < 0.9
+        assert time.monotonic() - t0 < 2.5
         monkeypatch.delenv("BFS_TPU_TORCH_FAULT")
         assert reply.record.status == "oracle"
         _exact(graph, 0, reply)
@@ -559,7 +559,7 @@ def test_injected_delay_abandons_the_attempt_and_it_never_launches(graph, monkey
         reply = srv.query("g", 1).result(TIMEOUT)  # a later attempt begins
         assert reply.record.status == "ok"
         _exact(graph, 1, reply)
-        time.sleep(max(0.0, t0 + 1.3 - time.monotonic()))  # the zombie has woken
+        time.sleep(max(0.0, t0 + 3.3 - time.monotonic()))  # the zombie has woken
         assert len(runs) == 1, runs
         assert srv.metrics.count("abandoned_attempts") == 1
 
@@ -578,10 +578,10 @@ def test_abandoned_attempt_stops_between_supersteps(monkeypatch):
         me = threading.current_thread()
         events.append(("step", me, time.monotonic()))
         if slow_thread and me is slow_thread[0]:
-            time.sleep(0.05)
+            time.sleep(0.1)
         return real_step(self, state, ctl)
 
-    with make_server(g, watchdog_s=0.3, watchdog_min_s=0.05) as srv:
+    with make_server(g, watchdog_s=1.0, watchdog_min_s=0.05) as srv:
         _exact(g, 0, srv.query("g", 0).result(TIMEOUT))
         runner = srv.exe_cache.peek(_tick_key("g", "pull", 1))
         real_begin = runner.begin
@@ -941,7 +941,7 @@ def test_chaos_schedule(graph, monkeypatch):
     a swap under in-flight load answers each query on its own snapshot.
     Every reply is held against the oracle."""
     other = P.gnm_graph(60, 180, seed=8)
-    with make_server(graph, breaker_failures=2, breaker_cooldown_s=0.2, watchdog_s=0.4,
+    with make_server(graph, breaker_failures=2, breaker_cooldown_s=0.5, watchdog_s=0.4,
                      watchdog_min_s=0.05, verify_sample=1) as srv:
         _exact(graph, 0, srv.query("g", 0).result(TIMEOUT))
         monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "raise:serve.batch:1")
@@ -954,9 +954,10 @@ def test_chaos_schedule(graph, monkeypatch):
         assert srv.metrics.count("breaker_opened") == 1
         _exact(graph, 3, srv.query("g", 3).result(TIMEOUT))  # short-circuit
         assert srv.metrics.count("breaker_short_circuits") >= 1
-        time.sleep(0.25)
+        time.sleep(0.6)
         assert srv.query("g", 4).result(TIMEOUT).record.status == "ok"  # canary
-        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "delay:serve.batch:1.0")
+        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "delay:serve.batch:2.0")
+        t_hung = time.monotonic()
         _exact(graph, 5, srv.query("g", 5).result(TIMEOUT))
         monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "raise:serve.verify")
         F.reset()
@@ -965,7 +966,7 @@ def test_chaos_schedule(graph, monkeypatch):
         F.reset()
         assert srv.metrics.count("watchdog_timeouts") == 1
         assert srv.metrics.count("integrity_failures") == 1
-        time.sleep(0.25)
+        time.sleep(0.6)
         srv.pause()
         f_old = srv.query("g", 7)
         srv.register("g", other)
@@ -973,7 +974,7 @@ def test_chaos_schedule(graph, monkeypatch):
         srv.resume()
         _exact(graph, 7, f_old.result(TIMEOUT))
         _exact(other, 7, f_new.result(TIMEOUT))
-        time.sleep(1.1)  # the hung attempt has woken and stopped
+        time.sleep(max(0.0, t_hung + 2.3 - time.monotonic()))  # the hung attempt woke, stopped
         rep = srv.report()
         assert rep["counters"]["epochs_swapped"] == 1
         assert rep["counters"].get("abandoned_attempts", 0) == 1
