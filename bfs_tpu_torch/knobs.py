@@ -22,6 +22,10 @@ mirror knobs of the reference's registry of the same names without
                                                  kill|raise|phase:<phase>
                                                  [:nth] | delay:<phase>
                                                  [:seconds]
+  BFS_TPU_TORCH_CKPT             spec    off     superstep checkpoints:
+                                                 off | every:<k> | auto
+  BFS_TPU_TORCH_CKPT_MTBF_S      float   600.0   failure-rate prior of the
+                                                 auto interval (> 0)
   ============================== ======= ======= ==========================
 """
 
@@ -63,6 +67,20 @@ def _fault(raw: str) -> str:
     return raw
 
 
+def _ckpt(raw: str) -> str:
+    """The grammar of :func:`bfs_tpu_torch.resilience.superstep_ckpt.resolve_ckpt`."""
+    raw = raw.strip()
+    mode, _, arg = raw.partition(":")
+    if mode not in ("off", "every", "auto"):
+        raise ValueError("use off | every:<k> | auto")
+    if mode == "every":
+        if arg and int(arg) < 1:
+            raise ValueError("every:<k> needs k >= 1")
+    elif arg:
+        raise ValueError("only 'every' takes an argument")
+    return raw
+
+
 def _positive_float(raw: str) -> float:
     value = float(raw)
     if not value > 0:
@@ -88,6 +106,11 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_FAULT", "spec", "", _fault,
          "fault injection at a named phase boundary (resilience/faults.py): "
          "kill|raise|phase:<phase>[:nth] | delay:<phase>[:seconds]"),
+    Knob("BFS_TPU_TORCH_CKPT", "spec", "off", _ckpt,
+         "superstep checkpointing: off | every:<k> | auto (Young/Daly interval); "
+         "selects the fused or the segmented runs"),
+    Knob("BFS_TPU_TORCH_CKPT_MTBF_S", "float", "600.0", _positive_float,
+         "mean-time-between-failures prior of the auto checkpoint interval"),
 )}
 
 

@@ -743,6 +743,219 @@ class RelayEngine:
         self._issued[1] += stats.issued
         return loop.buffers[:words], stats, tel
 
+    # -- segmented runs (superstep checkpoints) ---------------------------------
+
+    def _auto(self) -> bool:
+        """Does the carry hold the ``auto`` schedule's decision state?"""
+        return self.sparse_hybrid and self.direction.mode == "auto"
+
+    def segment_keys(self, packed: bool, telemetry: bool) -> list[str]:
+        """The epoch keys of a segmented run's carry for one flavor: the
+        reference's (``pk`` or ``dist``/``parent``, ``fw``, ``level``,
+        ``changed``, and ``occ``/``dirs`` with telemetry) and, on the
+        ``auto`` schedule, the port's own decision words: ``dstate`` (the
+        decision state, float32) and ``use_pull`` (the next superstep's
+        body), where the reference keeps ``mu`` and ``prev`` and decides at
+        the start of a superstep.  An epoch of the reference's (``mu`` and
+        ``prev`` in place of the two) resumes with one decision taken on
+        restore (:meth:`segment_carry`)."""
+        keys = (["pk"] if packed else ["dist", "parent"]) + ["fw", "level", "changed"]
+        if self._auto():
+            keys += ["dstate", "use_pull"]
+        if telemetry:
+            keys += ["occ", "dirs"]
+        return keys
+
+    def _segment_loop(self, packed: bool, telemetry: bool):
+        """``(loop, views)``: the level loop a segmented run of this flavor
+        drives, the fused run's own (the switch loop on the hybrid schedule,
+        else the dense block loop), and its carry's tensors by epoch key,
+        views of the loop's buffers (the control block holds ``level``,
+        ``changed`` and the next body)."""
+        words = 1 if packed else 2
+        if self._hybrid():
+            loop = self._switch_loop(packed)
+            fields, fw = loop.buffers[:words], loop.buffers[words]
+            occ, dirs, dstate = loop.buffers[words + 1 : words + 4]
+            tel = (occ, dirs)
+        else:
+            loop = (self._packed_loop if packed else self._unpacked_loop)(telemetry)
+            fields, fw = loop.buffers[:words], loop.buffers[words]
+            tel, dstate = loop.buffers[words + 1 : -1], None
+        views = dict(zip(["pk"] if packed else ["dist", "parent"], fields), fw=fw)
+        if tel:
+            views.update(occ=tel[0], dirs=tel[1])
+        if dstate is not None and self._auto():
+            views["dstate"] = dstate
+        return loop, views
+
+    def segment_carry(self, source: int, *, packed: bool | None = None, telemetry: bool = False,
+                      restore: dict | None = None) -> dict:
+        """Start a segmented run in its loop's carry, paused before its first
+        segment: a fresh search from ``source``, or the carry of an epoch
+        (``restore``: host arrays by key; other keys are ignored) copied in.
+        Returns the carry's tensors by epoch key (:meth:`_segment_loop`) with
+        ``level`` and ``changed`` as host values.
+
+        A fresh hybrid run takes its first body as the fused run does (in
+        ``auto`` the decision state is started from every out-edge); a
+        restored one takes the body the epoch names, never a first body: in
+        ``push`` the frontier's own test, in ``auto`` the epoch's ``dstate``
+        and ``use_pull``, or, from the reference's ``mu`` and ``prev``, the
+        decision the reference takes at the start of its next superstep."""
+        from ..resilience.superstep_ckpt import epoch_tensor
+
+        if packed is None:
+            packed = self.packed
+        rg, dev = self.relay_graph, self.device
+        loop, views = self._segment_loop(packed, telemetry)
+        hybrid = self._hybrid()
+        adj = self._sparse_tensors_for(packed) if hybrid else None
+        if "occ" in views:  # empty accumulators unless the epoch carries them
+            views["occ"].copy_(T.init_level_acc(device=dev))
+            views["dirs"].zero_()
+        if restore is None:
+            check_sources(rg.num_vertices, source)
+            sn = int(rg.old2new[source])
+            init = (R.init_packed_relay_state if packed else R.init_relay_state)(rg.vr, sn, dev)
+            if hybrid:
+                self._start_switch(loop.buffers, init, 0, adj)
+            else:
+                L.start((*loop.buffers[: 2 if packed else 3], loop.ctl), init, 0)
+            return {**views, "level": 0, "changed": True}
+        for key, t in views.items():
+            if key in restore:
+                t.copy_(epoch_tensor(restore[key], dev, t.dtype))
+        level, changed = int(restore["level"]), bool(restore["changed"])
+        use_pull = 0
+        if hybrid:
+            use_pull = self._restored_body(restore, views, adj)
+        C.resume_ctl(loop.ctl, level, changed, level, use_pull)
+        return {**views, "level": level, "changed": changed}
+
+    def _restored_body(self, restore: dict, views: dict, adj: S.SparseAdjacency):
+        """The next body of a restored hybrid carry (an int or a device
+        int32 scalar), :meth:`segment_carry`'s rule."""
+        from . import direction as D
+
+        if self.direction.mode == "push":
+            return self._next_body("push", None, None, views["fw"], adj).to(torch.int32)
+        if "dstate" in restore:
+            return int(np.asarray(restore["use_pull"]))
+        dstate, cfg = views["dstate"], self.direction
+        dstate.zero_()
+        dstate[D.ALPHA], dstate[D.BETA] = cfg.alpha, cfg.beta
+        dstate[D.NTHRESH] = self.relay_graph.num_vertices
+        dstate[D.MU] = float(np.asarray(restore["mu"]))
+        prev = bool(np.asarray(restore["prev"]))
+        return self._next_body("auto", dstate, prev, views["fw"], adj).to(torch.int32)
+
+    def _segment_snapshot(self, views: dict, ctl: torch.Tensor, keys: list, level: int,
+                          changed: bool, packed: bool) -> dict:
+        """The carry as an epoch's host arrays (one copy to the host)."""
+        from ..resilience.superstep_ckpt import epoch_arrays
+
+        tensors = {k: views[k] for k in keys if k in views}
+        if "use_pull" in keys:
+            tensors["ctl"] = ctl
+        snap = epoch_arrays(tensors, level=np.int32(level), changed=np.bool_(changed),
+                            packed_flag=np.int32(packed))
+        if "ctl" in snap:
+            snap["use_pull"] = np.int32(snap.pop("ctl")[C.USE_PULL])
+        return snap
+
+    def _run_segmented_flavor(self, source: int, ckpt, max_levels: int, packed: bool,
+                              telemetry: bool):
+        """One carry flavor through bounded segments, an epoch after each:
+        ``(views, LoopStats, copy seconds)``, the carry's tensors at the end
+        and the host seconds of its copies to the host."""
+        from ..resilience.superstep_ckpt import restore_arrays
+
+        cap = packed_cap(max_levels) if packed else max_levels
+        keys = self.segment_keys(packed, telemetry)
+        decision = ("dstate", "use_pull")
+        arrays, _ = restore_arrays(
+            ckpt, packed, require=tuple(k for k in keys if k not in decision),
+            require_any=((decision, ("mu", "prev")),) if self._auto() else ())
+        carry = self.segment_carry(source, packed=packed, telemetry=telemetry, restore=arrays)
+        loop, views = self._segment_loop(packed, telemetry)
+        level, changed = carry["level"], carry["changed"]
+        stats = L.LoopStats(level, changed)
+        copy_s = 0.0
+        while changed and level < cap:
+            t0 = time.perf_counter()
+            seg = loop.segment(min(level + ckpt.interval(), cap), level, changed)
+            if isinstance(seg, tuple):  # the switch loop: supersteps by body
+                seg, issued = seg
+                for body, n in issued.items():
+                    self._issued[body] += n
+            else:
+                self._issued[1] += seg.issued
+            seg_s = time.perf_counter() - t0
+            stats = stats.add(seg)
+            # A disabled store marks the boundary without the copy to the host.
+            snap = {}
+            if ckpt.enabled:
+                t1 = time.perf_counter()
+                snap = self._segment_snapshot(views, loop.ctl, keys, seg.level, seg.changed, packed)
+                copy_s += time.perf_counter() - t1
+            ckpt.save_epoch(seg.level, snap)
+            ckpt.note_segment(seg.level - level, seg_s)
+            level, changed = seg.level, seg.changed
+        return views, stats, copy_s
+
+    def run_segmented(self, source: int = 0, *, ckpt, max_levels: int | None = None,
+                      telemetry: bool = False):
+        """One search from ``source`` in bounded segments with an epoch in
+        ``ckpt`` (a :class:`~bfs_tpu_torch.resilience.superstep_ckpt.SuperstepCheckpointer`)
+        after each, resuming from its newest valid epoch: the resumable twin
+        of :meth:`run` (and, with ``telemetry``, of :meth:`run_level_curve`),
+        bit for bit with it for any segmentation.  Returns a
+        :class:`BfsResult`, or ``(BfsResult, curve)`` with ``telemetry``.
+        Every segment runs on the fused run's own level loop (captured
+        once; ``loop = "eager"`` is not consulted).  A packed run stopped by
+        its 62-level cap clears the store and runs again unpacked; the
+        epochs are cleared when the run completes.  :attr:`last_run` holds
+        the loop's counts over every segment this process ran, and
+        ``copy_s``, the host seconds of the carry's copies to the host (the
+        epochs' writes are the checkpointer's ``snapshot_seconds``)."""
+        rg = self.relay_graph
+        check_sources(rg.num_vertices, source)
+        max_levels = int(max_levels) if max_levels is not None else rg.vr
+        self._issued = {0: 0, 1: 0}
+        packed = self.packed
+        t0 = time.perf_counter()
+        views, stats, copy_s = self._run_segmented_flavor(source, ckpt, max_levels, packed,
+                                                          telemetry)
+        if packed and packed_truncated(stats.changed, stats.level, max_levels):
+            ckpt.clear()  # packed epochs cannot feed the unpacked re-run
+            packed = False
+            views, more, more_s = self._run_segmented_flavor(source, ckpt, max_levels, False,
+                                                             telemetry)
+            stats, copy_s = stats.add(more), copy_s + more_s
+        ckpt.clear()
+        # The one unpack, at the true end: every epoch keeps the raw carry.
+        if not packed:
+            dist, parent = views["dist"], views["parent"]
+        elif self.expansion == "mxu":
+            dist, parent = packed_dist(views["pk"]), packed_parent(views["pk"])
+        else:
+            dist, parent = R.unpack_relay_packed(views["pk"], rg.in_classes, rg.vr)
+        curve = None
+        if telemetry:
+            fe = T.edge_curve_from_levels(dist, self.outdeg, dist == INT32_MAX)
+            fv, fe, dirs = T.read_telemetry(views["occ"], fe, views["dirs"])
+            cap = min(PACKED_MAX_LEVELS, max_levels) if packed else max_levels
+            curve = T.level_curve(fv, fe, cap=cap)
+            cfg = self.direction
+            curve["direction_schedule"] = T.direction_schedule(
+                dirs, mode=cfg.mode, alpha=cfg.alpha, beta=cfg.beta)
+        t1 = time.perf_counter()
+        result = self._to_result(dist, parent, stats.level, source)
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1,
+                         "copy_s": copy_s, **vars(stats), **self._issued_counts()}
+        return (result, curve) if telemetry else result
+
     def run_level_curve(self, source: int = 0, *, max_levels: int | None = None,
                         reference_reached: int | None = None) -> dict:
         """One search with the telemetry accumulators in the level loop's
@@ -1165,6 +1378,32 @@ class EdgeEngine:
         loop = self._carry_loop(isinstance(init, PackedBfsState), trees)
         stats = loop.run(L.start(loop.buffers, init, cap))
         return type(init)(*loop.buffers[:-1], None, None), stats
+
+    def segment(self, state, seg_end: int):
+        """One bounded segment of a paused run, single or batched:
+        ``state`` (packed or not; ``level`` a host int, ``changed`` a host
+        bool, as :func:`~bfs_tpu_torch.models.multisource.multi_segment_init`
+        makes it) run until it converges or reaches ``seg_end`` levels.
+        Returns ``(state, LoopStats)``, the state's ``level`` and
+        ``changed`` read at the boundary.  On the block loop the state is
+        copied into the loop's buffers unless it is already theirs (the
+        state a segment returns), and the control block is resumed at its
+        level with CAP at ``seg_end``: the loop's captured graph serves every
+        segment.  The returned tensors are the loop's buffers."""
+        if self.loop == "eager":
+            dev = state.frontier.device
+            st = state._replace(level=torch.tensor(state.level, dtype=torch.int32, device=dev),
+                                changed=torch.ones((), dtype=torch.bool, device=dev))
+            st, stats = L.eager(st, self.superstep, seg_end, level=state.level)
+            return st._replace(level=stats.level, changed=stats.changed), stats
+        trees = None if state.frontier.dim() == 1 else state.frontier.shape[0]
+        loop = self._carry_loop(isinstance(state, PackedBfsState), trees)
+        fields = loop.buffers[:-1]
+        if any(a is not b for a, b in zip(state, fields)):
+            for dst, src in zip(fields, state):
+                dst.copy_(src)
+        stats = loop.run(C.resume_ctl(loop.ctl, state.level, state.changed, seg_end))
+        return type(state)(*fields, stats.level, stats.changed), stats
 
     def fused(self, sources, max_levels: int, packed: bool, drive=None):
         """The level loop from one source (an int) or a batch (a sequence):

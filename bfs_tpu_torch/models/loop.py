@@ -23,6 +23,13 @@ capture's own record (:func:`~bfs_tpu_torch.ops.relay_cuda.capturing`, per
 thread, so launches other threads count meanwhile stay counted), and each
 replay adds the block's captured launches.
 
+A segmented run (:mod:`bfs_tpu_torch.resilience.superstep_ckpt`) drives the
+same loops one segment at a time (:meth:`BlockLoop.segment`,
+:meth:`SwitchLoop.segment`): the control block's CAP is moved to the
+segment's end, so the graph captured for the first segment serves every
+later one; :func:`captures` counts the captures of the process, which a
+segment must never add to.
+
 A caller that may abandon a run (the query server's watchdog) runs it under
 :func:`attempt`: the check it gives is called before every block or
 superstep the loops of that thread issue, and raises to stop the run.
@@ -57,6 +64,12 @@ BLOCK = 4
 EDGE_BLOCK = 1
 
 _attempt = threading.local()  # .check: the running attempt's check, or None
+_captures = 0  # CUDA graphs captured by every loop of the process
+
+
+def captures() -> int:
+    """CUDA graphs captured so far by the loops of this process."""
+    return _captures
 
 
 @contextlib.contextmanager
@@ -124,6 +137,7 @@ class BlockLoop:
     # -- one block -----------------------------------------------------------
 
     def _capture(self) -> None:
+        global _captures
         graph = torch.cuda.CUDAGraph()
         # Garbage of earlier engines (their graphs, memory pools, pinned
         # buffers) is freed now: freed during the capture, it would make a
@@ -140,6 +154,7 @@ class BlockLoop:
                 gc.enable()
         self.per_block = captured  # captured, not launched
         self.graph = graph
+        _captures += 1
 
     def issue(self, stats: LoopStats) -> None:
         """Issue one block on the current stream (no host read): eagerly on
@@ -185,6 +200,13 @@ class BlockLoop:
             live = bool(ctl[C.LIVE])
         stats.level, stats.changed, stats.live = ctl[C.LEVEL], bool(ctl[C.CHANGED]), ctl[C.STEPS]
         return stats
+
+    def segment(self, seg_end: int, level: int, changed: bool) -> LoopStats:
+        """One segment of a paused run (read at ``level`` and ``changed``):
+        blocks until the control block reads not LIVE, with CAP moved to
+        ``seg_end`` (:func:`~bfs_tpu_torch.ops.control.set_cap`).  ``live``
+        in the stats counts this segment's live supersteps."""
+        return self.run(C.set_cap(self.ctl, seg_end, level, changed))
 
     def load(self, carry: tuple[torch.Tensor, ...]) -> None:
         """Copy a carry of the same shapes into the static buffers (on the
@@ -242,6 +264,13 @@ class SwitchLoop:
         """Copy the static buffers out into ``carry``."""
         next(iter(self.bodies.values())).store(carry)
 
+    def segment(self, seg_end: int, level: int, changed: bool,
+                times: list | None = None) -> tuple[LoopStats, dict[int, int]]:
+        """One segment of a paused run, as :meth:`BlockLoop.segment`: the
+        bodies USE_PULL names until the control block reads not LIVE, CAP
+        moved to ``seg_end``."""
+        return self.run(C.set_cap(self.ctl, seg_end, level, changed), times)
+
     def run(self, live: bool, times: list | None = None) -> tuple[LoopStats, dict[int, int]]:
         """Issue supersteps, each of the body the control block's USE_PULL
         word names, until it reads not LIVE; ``live`` is LIVE as the caller
@@ -297,12 +326,14 @@ def start(carry: tuple[torch.Tensor, ...], state, cap: int) -> bool:
     return C.init_ctl(carry[-1], cap)
 
 
-def eager(state, step: Callable, cap: int):
+def eager(state, step: Callable, cap: int, level: int = 0):
     """The plain version of the block loop: ``state = step(state)`` while
     the last superstep changed something and fewer than ``cap`` levels ran,
     with a host read of ``changed`` per level.  Returns ``(state,
-    LoopStats)``."""
-    stats = LoopStats()
+    LoopStats)``.  A segment of a run that has run ``level`` levels (its
+    last superstep changed something) passes ``level`` and the segment's
+    end as ``cap``; ``live`` then counts the segment's supersteps."""
+    stats = LoopStats(level=int(level))
     changed = True
     while changed and stats.level < cap:
         _check_attempt()

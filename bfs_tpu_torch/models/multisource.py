@@ -10,6 +10,15 @@ lock-step loop over ``[S, V+1]`` carries, the reference's
 ``_bfs_multi_fused`` and ``_bfs_multi_pull_fused``) and
 :class:`~bfs_tpu_torch.models.bfs.RelayEngine` (``run_multi_elem``, the
 element-major batch on the card, and ``run_multi``, the lock-step form).
+
+Segments of the push and pull batch (the checkpointed runs of
+:func:`bfs_tpu_torch.resilience.superstep_ckpt.run_multi_segmented` and
+the serve tier's ``SegmentedBatchRunner``): :func:`multi_segment_init`
+starts a batch's carry or rebuilds it from an epoch,
+:meth:`~bfs_tpu_torch.models.bfs.EdgeEngine.segment` runs one bounded
+segment of it on the engine's captured loop, :func:`multi_snapshot` copies
+it to the host, and :func:`multi_segment_finish` unpacks it once, at the
+true end.
 """
 
 from __future__ import annotations
@@ -30,6 +39,49 @@ class MultiBfsResult:
     dist: np.ndarray
     parent: np.ndarray
     num_levels: int
+
+
+def multi_segment_init(eng, sources, packed: bool, restore: dict | None = None):
+    """A batch's carry paused at its first segment boundary: a fresh
+    batched state of ``sources`` on ``eng``'s device, or one rebuilt from an
+    epoch's host arrays (``restore``: the state's fields by name, plus
+    ``level`` and ``changed``; other keys are ignored).  The state is
+    packed or not as ``packed`` says; its ``level`` is a host int and its
+    ``changed`` a host bool."""
+    from ..ops.relax import (
+        BfsState,
+        PackedBfsState,
+        init_batched_state,
+        init_packed_batched_state,
+    )
+    from ..resilience.superstep_ckpt import epoch_tensor
+
+    cls = PackedBfsState if packed else BfsState
+    if restore is not None:
+        fields = [epoch_tensor(restore[f], eng.device) for f in cls._fields[:-2]]
+        return cls(*fields, int(restore["level"]), bool(restore["changed"]))
+    init = init_packed_batched_state if packed else init_batched_state
+    sources = np.asarray(sources, dtype=np.int32).tolist()
+    return init(eng.num_vertices, sources, eng.device)._replace(level=0, changed=True)
+
+
+def multi_snapshot(state, packed: bool) -> dict:
+    """A batch's carry as an epoch's host arrays: its fields (one copy to
+    the host), ``level``, ``changed`` and ``packed_flag``, the keys and
+    dtypes of the reference's epochs."""
+    from ..resilience.superstep_ckpt import epoch_arrays
+
+    fields = {f: getattr(state, f) for f in state._fields[:-2]}
+    return epoch_arrays(fields, level=np.int32(state.level), changed=np.bool_(state.changed),
+                        packed_flag=np.int32(packed))
+
+
+def multi_segment_finish(state, packed: bool):
+    """The one unpack at the true end of a segmented run (every epoch keeps
+    the raw packed carry): an unpacked state on the device."""
+    from ..ops.relax import unpack_bfs_state
+
+    return unpack_bfs_state(state) if packed else state
 
 
 def bfs_multi_device(graph, sources, *, engine: str = "pull", device=None,

@@ -20,6 +20,11 @@ fused programs (``st.changed & (st.level < cap)``, ``bfs_tpu/models/bfs.py``
            host reads it to pick the graph it replays; no kernel reads it)
   ======== ==============================================================
 
+A segmented run (:mod:`bfs_tpu_torch.resilience.superstep_ckpt`) pauses and
+resumes the same loops: :func:`resume_ctl` starts a block from a carry's
+level, ``changed`` and body, and :func:`set_cap` moves a paused run's CAP
+to the next segment's end, so one captured block serves every segment.
+
 Every loop kernel reads LIVE at entry and returns at once when it is 0; the
 update kernels read LEVEL for the level they stamp.  The control step
 (kernel ``loop_control``, ``csrc/relay_kernels.cu``; :func:`loop_control`
@@ -52,6 +57,33 @@ def init_ctl(ctl: torch.Tensor, cap: int) -> bool:
     ctl.zero_()
     ctl[CHANGED] = 1
     ctl[CAP] = int(cap)
+    ctl[LIVE] = int(live)
+    return live
+
+
+def resume_ctl(ctl: torch.Tensor, level: int, changed: bool, cap: int, use_pull=0) -> bool:
+    """Start ``ctl`` from a carry that has run ``level`` levels (its last
+    superstep ``changed``) with the next body ``use_pull`` (an int or a
+    device scalar), in place, with device fills only; STEPS starts at 0.
+    Returns LIVE."""
+    live = bool(changed) and int(level) < int(cap)
+    ctl.zero_()
+    ctl[LEVEL] = int(level)
+    ctl[CHANGED] = int(bool(changed))
+    ctl[CAP] = int(cap)
+    ctl[USE_PULL] = use_pull
+    ctl[LIVE] = int(live)
+    return live
+
+
+def set_cap(ctl: torch.Tensor, cap: int, level: int, changed: bool) -> bool:
+    """The next segment of a paused run in ``ctl`` (read on the host at
+    ``level`` and ``changed``): CAP moved to ``cap``, LIVE set with it and
+    STEPS cleared, in place, with device fills; LEVEL, CHANGED and
+    USE_PULL stay as the last superstep left them.  Returns LIVE."""
+    live = bool(changed) and int(level) < int(cap)
+    ctl[CAP] = int(cap)
+    ctl[STEPS] = 0
     ctl[LIVE] = int(live)
     return live
 

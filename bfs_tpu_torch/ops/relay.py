@@ -49,6 +49,8 @@ __all__ = [
     "rank_to_slot",
     "apply_relay_candidates",
     "apply_relay_candidates_packed",
+    "segment_live",
+    "relay_segment_words",
     "slots_to_parent",
     "unpack_relay_packed",
 ]
@@ -371,6 +373,29 @@ def apply_relay_candidates_packed(
     if live is not None:
         fwords = torch.where(live, fwords, state.fwords)
     return PackedRelayState(i32(new), fwords, _next_level(state, ctl), newly.any())
+
+
+def segment_live(state, cap: int, seg_end: int) -> bool:
+    """THE segment predicate: the fused loop's ``changed and level < cap``
+    with the segment's bound ``level < seg_end`` (a host read of a state
+    whose ``level`` is a host int and ``changed`` a device or host bool).
+    A segment boundary changes where the loop pauses, never what it
+    computes; the level loop's segments put the same bound into the
+    control block's CAP (:func:`~bfs_tpu_torch.ops.control.set_cap`)."""
+    return bool(state.changed) and state.level < cap and state.level < seg_end
+
+
+def relay_segment_words(state, step, *, cap: int, seg_end: int):
+    """One bounded segment of relay supersteps, the plain segment runner
+    of either carry (the reference's ``relay_segment_words`` and its packed
+    twin): ``step``, the engine's plain superstep of that carry
+    (:meth:`~bfs_tpu_torch.models.bfs.RelayEngine.superstep` or
+    ``superstep_packed``), iterated until convergence, the level cap or
+    ``seg_end``, whichever comes first.  Segments of any size run back to
+    back equal one full loop."""
+    while segment_live(state, cap, seg_end):
+        state = step(state)
+    return state
 
 
 def slots_to_parent(parent_slots: torch.Tensor, src_l1: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ runners keyed by graph, epoch, engine, bucket and direction policy),
 :class:`BfsServer` (admission queue, micro-batching, deadlines,
 transient-failure retry, result LRU, oracle degradation) and
 :class:`ServeHealth` (circuit breaker per executable, hung-call watchdog,
-sampled integrity checks).  The reference's fleet router, label tier and
+sampled integrity checks).  With ``BFS_TPU_TORCH_CKPT`` on, pull and push
+batches run checkpointed (:class:`SegmentedBatchRunner`), and a hung call
+resumes from its last segment.  The reference's fleet router, label tier and
 ``registry_sssp``/``registry_cc`` are not ported.
 """
 
@@ -29,6 +31,7 @@ from .executor import (
     BatchRunner,
     ExecutableCache,
     HostRows,
+    SegmentedBatchRunner,
     build_batch_runner,
     bucket_for,
     run_oracle_batch,
@@ -65,6 +68,7 @@ __all__ = [
     "ServeError",
     "ServeHealth",
     "ServeReply",
+    "SegmentedBatchRunner",
     "ServerClosed",
     "bucket_for",
     "build_batch_runner",

@@ -42,6 +42,12 @@ host-side work of the server (admission, the result cache, fan-out) never
 touches the card.  Host copies of a batch's rows are made inside the lock
 (:func:`host_rows`), so no page-locked buffer of a tick outlives its
 attempt: each reply owns exactly its own rows.
+
+**Checkpointed batches.**  With ``BFS_TPU_TORCH_CKPT`` on, pull and push
+buckets get a :class:`SegmentedBatchRunner`: the batch runs in bounded
+segments, each on the card's lock, with the carry copied to host memory at
+every boundary, where the lock is given back, so a hung attempt's retry
+resumes from the newest snapshot instead of from the roots.
 """
 
 from __future__ import annotations
@@ -257,12 +263,166 @@ class BatchRunner:
                 eng = result = None
 
 
+class SegmentedBatchRunner(BatchRunner):
+    """The resumable batch runner of pull and push under
+    ``BFS_TPU_TORCH_CKPT``: the batch runs as bounded segments of
+    ``interval`` supersteps (:meth:`~bfs_tpu_torch.models.bfs.EdgeEngine.segment`
+    on the engine's captured loop), and after each segment the whole carry
+    is copied to host arrays held in memory: the runner's progress.  A hung
+    attempt (the watchdog's ``HungCallError``) abandons only its thread, so
+    the next attempt on the same padded sources (the server's hung-call
+    resume loop, which reads :meth:`ckpt_progress`, or the breaker's
+    canary) resumes from that snapshot instead of from the roots
+    (``ckpt_resumes``; ``ckpt_segments`` counts segments).  Replies equal
+    the fused runner's bit for bit.
+
+    Each segment takes :data:`DEVICE_LOCK` on its own and gives it back at
+    the boundary: the snapshot replaces the progress, and the
+    ``serve.segment`` fault point (a wedged boundary in the chaos drills)
+    fires, with the card free for the next attempt.  Before its snapshot
+    replaces the progress, an attempt checks its ticket: a superseded one
+    raises :class:`AbandonedAttempt` there and leaves the progress to the
+    live attempt.  A segment after an eviction copies the carry into the
+    new engine's loop."""
+
+    resumable = True
+
+    def __init__(self, registry, rec, engine: str, batch: int, interval: int, metrics=None):
+        super().__init__(registry, rec, engine, batch, metrics=metrics)
+        self.interval = max(1, int(interval))
+        #: ``(sources key, packed flavor, host snapshot, level)`` of the
+        #: newest segment, guarded by ``_lock``.
+        self._progress = None
+
+    def ckpt_progress(self):
+        """The level of the resumable snapshot, or None: what the server's
+        hung-call loop checks to decide whether another attempt would make
+        progress."""
+        with self._lock:
+            return None if self._progress is None else self._progress[3]
+
+    def _bump(self, counter: str) -> None:
+        if self.metrics is not None:
+            self.metrics.bump(counter)
+
+    def _segment(self, ticket: int, sources, packed: bool, state, restore, seg_end: int):
+        """One segment on the card's lock: ``(state, snapshot, LoopStats)``,
+        the carry started from ``restore`` (host arrays) or fresh when there
+        is no ``state`` yet."""
+        from ..models.multisource import multi_segment_init, multi_snapshot
+
+        eng = None
+        with DEVICE_LOCK:
+            try:
+                self._current(ticket)
+                eng = self.registry.acquire_for(self.rec, self.engine)
+                if state is None:
+                    state = multi_segment_init(eng, sources, packed, restore=restore)
+                with L.attempt(lambda: self._current(ticket)):
+                    state, stats = eng.segment(state, seg_end)
+                return state, multi_snapshot(state, packed), stats
+            except BaseException as exc:
+                traceback.clear_frames(exc.__traceback__)
+                raise
+            finally:
+                eng = None
+
+    def _run_flavor(self, sources, key: bytes, ticket: int, packed: bool):
+        """The batch in one carry flavor, from the progress when it is this
+        batch's: ``(state, restored snapshot | None, host level, host
+        changed, LoopStats | None)``; ``state`` is None when the progress
+        was already at the end."""
+        from ..ops.packed import packed_cap
+        from ..resilience.faults import fault_point
+
+        v = self.rec.num_vertices
+        cap = packed_cap(v) if packed else v
+        with self._lock:
+            progress = self._progress
+        restore = None
+        if progress is not None and progress[0] == key and progress[1] == packed:
+            restore = progress[2]
+            self._bump("ckpt_resumes")
+        level = int(restore["level"]) if restore is not None else 0
+        changed = bool(restore["changed"]) if restore is not None else True
+        state = stats = None
+        while changed and level < cap:
+            state, snap, seg = self._segment(ticket, sources, packed, state, restore,
+                                             min(level + self.interval, cap))
+            stats = seg if stats is None else stats.add(seg)
+            level, changed = seg.level, seg.changed
+            with self._lock:
+                current = self._gen == ticket
+                if current:
+                    self._progress = (key, packed, snap, level)
+            if not current:
+                self._current(ticket)  # raises, counted
+            self._bump("ckpt_segments")
+            if changed and level < cap:
+                # The boundary the hung-call drills wedge (a delay here is a
+                # dispatch stuck mid-traversal); the card is free.
+                fault_point("serve.segment")
+        return state, restore, level, changed, stats
+
+    def __call__(self, sources, *, ticket: int | None = None, take=None):
+        from ..models.bfs import to_host
+        from ..models.multisource import multi_segment_finish, multi_segment_init
+        from ..ops.packed import packed_parent_fits, packed_truncated
+
+        sources = np.ascontiguousarray(sources, dtype=np.int32)
+        if ticket is None:
+            ticket = self.begin()
+        key = sources.tobytes()
+        v = self.rec.num_vertices
+        packed = packed_parent_fits(v)
+        t0 = time.perf_counter()
+        state, restore, level, changed, stats = self._run_flavor(sources, key, ticket, packed)
+        if packed and packed_truncated(changed, level, v):
+            # Deeper than the packed cap: run again unpacked (the packed
+            # progress cannot feed it).
+            with self._lock:
+                if self._gen == ticket:
+                    self._progress = None
+            packed = False
+            state, restore, level, changed, more = self._run_flavor(sources, key, ticket, False)
+            stats = more if stats is None or more is None else stats.add(more)
+        call_s = time.perf_counter() - t0
+        eng = result = None
+        with DEVICE_LOCK:
+            try:
+                self._current(ticket)
+                if state is None:  # the progress was the end of the run
+                    eng = self.registry.acquire_for(self.rec, self.engine)
+                    state = multi_segment_init(eng, sources, packed, restore=restore)
+                st = multi_segment_finish(state, packed)
+                dist, parent = to_host(st.dist[:, :v].contiguous(), st.parent[:, :v].contiguous())
+                result = MultiBfsResult(sources, dist, parent, level)
+                with self._lock:
+                    if self._gen == ticket:
+                        self._progress = None  # finished: the snapshot is dead weight
+                t1 = time.perf_counter()
+                out = result if take is None else take(result)
+                self.last_run = {"call_s": call_s, "result_s": t1 - t0 - call_s,
+                                 "take_s": time.perf_counter() - t1,
+                                 **(vars(stats) if stats is not None else {})}
+                return out
+            except BaseException as exc:
+                traceback.clear_frames(exc.__traceback__)
+                raise
+            finally:
+                eng = result = state = st = None
+
+
 def build_batch_runner(registry, name: str, engine: str, batch: int,
                        epoch: int | None = None) -> BatchRunner:
     """The runner of one ``(graph epoch, engine, bucket)``: the engine is
     acquired now (its layout shipped if it is not resident), and the
     runner pins the epoch (default: the current one), so a runner built
-    before a hot swap keeps running its own graph."""
+    before a hot swap keeps running its own graph.  With
+    ``BFS_TPU_TORCH_CKPT`` on, pull and push get a
+    :class:`SegmentedBatchRunner` (interval ``k``); off (the default), the
+    fused :class:`BatchRunner`."""
+    from ..resilience.superstep_ckpt import resolve_ckpt
     from .registry import ENGINES
 
     if engine not in ENGINES:
@@ -270,6 +430,10 @@ def build_batch_runner(registry, name: str, engine: str, batch: int,
     rec = registry.get(name) if epoch is None else registry.get_epoch(name, epoch)
     with DEVICE_LOCK:
         registry.acquire_for(rec, engine)
+    ckpt = resolve_ckpt()
+    if ckpt.enabled and engine in ("pull", "push"):
+        return SegmentedBatchRunner(registry, rec, engine, batch, interval=ckpt.k,
+                                    metrics=registry.metrics)
     return BatchRunner(registry, rec, engine, batch, metrics=registry.metrics)
 
 

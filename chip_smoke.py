@@ -99,6 +99,21 @@ arms with its level curve and ``run_many_device``; with 32 sources, deeper
 than the 31 levels of the elem distance planes, so it takes the lock-step
 fallback).
 
+Superstep checkpoints (``bfs_tpu_torch.resilience.superstep_ckpt``) run on
+the same s22 cell: ``RelayEngine.run_segmented`` at ``every:2`` into an
+epoch store on disk on the dense MXU engine and on the default hybrid
+(``auto``, gather) engine, for the max-degree root and one other, timed
+beside the fused run, each result, direction schedule and occupancy equal to
+the fused run's, no loop captured again, and the launches counted per
+superstep issued; on the hybrid a run stopped by ``raise:superstep:2`` is
+resumed from its epoch, bit-identical; ``run_multi_segmented`` on push for 8
+of the batch's sources at ``every:4`` against ``bfs_multi``; one
+``SegmentedBatchRunner`` push tick of 8 at ``every:4`` on the server's
+registry; and ``path_graph(100)`` through the packed-to-unpacked re-run.
+The launches counted there include the dead supersteps a block of 4 runs
+past a segment's end; live supersteps count those this process ran (after
+a resume, those after the epoch).
+
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
 Each path is also run on the eager loop (a host read per level) and held
@@ -177,6 +192,12 @@ EDGE_KS = (1, 2, 4)
 RELAY_RUNNER_STEP = {k: v for k, v in GATHER_STEP.items() if k != "loop_control"}
 # bfs_multi(engine="push") runs the first PUSH_BATCH sources of the batch.
 PUSH_BATCH = 64
+# Superstep checkpoints: relay segments of CKPT_EVERY supersteps; the
+# segmented push batch and serve tick take CKPT_MULTI sources in segments of
+# CKPT_MULTI_EVERY.
+CKPT_EVERY = 2
+CKPT_MULTI = 8
+CKPT_MULTI_EVERY = 4
 
 
 def log(msg: str) -> None:
@@ -2351,7 +2372,7 @@ SERVE_RELAY_STEP = ("benes_outer_pass", "benes_local_pass", "class_rowmin", "pac
 SERVE_DEGRADED = ("oracle_served", "device_errors", "watchdog_timeouts", "breaker_short_circuits")
 
 
-def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K) -> dict:
+def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K, L) -> dict:
     """The query server (``bfs_tpu_torch.serve``) at full width: a
     ``GraphRegistry`` over the script's bundle store (warm hits for the
     relay layout and the pull layout, which is put there first) and a
@@ -2367,7 +2388,8 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K)
     ticks of 32, whose replies it keeps: result seconds beside round 2's.
     Every reply is held bit for bit against the relay batch's trees and the
     roots' oracle results; no degradation may be counted; launches are
-    counted per staged tick."""
+    counted per staged tick.  Last, one ``SegmentedBatchRunner`` push tick
+    (:func:`ckpt_serve_tick`)."""
     import threading
 
     import numpy as np
@@ -2558,6 +2580,7 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K)
         "cache 0": [(t["result_s"] or 0.0) + t["own_s"] for t in zero],
         "cache 256": [(t["result_s"] or 0.0) + t["own_s"] for t in out["kept"]],
     }
+    out["segmented"] = ckpt_serve_tick(reg, srcs[:CKPT_MULTI], truth, disk, K, L, card)
     out["peak"] = torch.cuda.max_memory_allocated() - base
     out["setup_s"] = setup_s
     log(f"serve: result seconds of a pull bucket-32 tick (engine copy + rows copied out): "
@@ -2607,6 +2630,252 @@ def small_hybrid_checks(P, K) -> None:
                 f"{run['issued_push']}, dense {run['issued_pull']}); schedule of the re-run: "
                 f"{sched['push_supersteps']} push, {sched['pull_supersteps']} pull; run_many_device "
                 "stops at the packed cap with changed set; oracle-exact, equal to the eager loop")
+
+
+# ------------------------------------------------------ superstep checkpoints --
+
+def ckpt_config(every: int):
+    from bfs_tpu_torch.resilience.superstep_ckpt import CkptConfig
+
+    return CkptConfig("every", every)
+
+
+def ckpt_relay_phase(label: str, eng, roots, want: dict, per_step: dict, K, L, card: str,
+                     store: str, kill: bool = False) -> dict:
+    """Superstep checkpoints on one relay engine at full width:
+    ``run_segmented`` at ``every:CKPT_EVERY`` into an epoch store on disk for
+    each root, timed beside the fused ``run``, with and without telemetry;
+    each result equal to the fused run and the oracle, the level curve's
+    direction schedule and occupancy equal to ``run_level_curve``'s, the
+    epochs cleared at the end, no loop captured again (the fused runs
+    captured them), live supersteps equal to the levels, and the launches
+    held to the count of the supersteps issued: the dense kernels once per
+    dense superstep issued (a block's dead supersteps past a segment's end
+    included), the control step once per superstep issued.  With ``kill``,
+    a run stopped by ``BFS_TPU_TORCH_FAULT=raise:superstep:2`` is resumed
+    from its newest epoch: ``resumed_from_epoch`` reported, the result,
+    schedule and occupancy bit-identical, nothing captured again, and only
+    the supersteps after the epoch run."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+
+    def mgr(r, tag):
+        return SuperstepCheckpointer(store, {"label": label, "root": int(r), "run": tag},
+                                     cfg=ckpt_config(CKPT_EVERY))
+
+    def same(name, got, r):
+        (dist, parent), fused = want[r]
+        for what, d, p, n in (("the oracle", dist, parent, fused.num_levels),
+                              ("the fused run", fused.dist, fused.parent, fused.num_levels)):
+            if not (np.array_equal(got.dist, d) and np.array_equal(got.parent, p)
+                    and got.num_levels == n):
+                raise AssertionError(f"{label} root {r}: {name} differs from {what}")
+
+    out = {"rows": []}
+    for r in roots:
+        curve = eng.run_level_curve(r)  # warm: every loop of the path captured
+        eng.run(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused = eng.run(r)
+        fused_s = time.perf_counter() - t0
+        same("the fused run of this phase", fused, r)
+        del fused
+        caps = L.captures()
+        K.reset_launches()
+        m = mgr(r, "timed")
+        t0 = time.perf_counter()
+        res = eng.run_segmented(r, ckpt=m)
+        seg_s = time.perf_counter() - t0
+        run, rep = dict(eng.last_run), m.report()
+        launched = {k: K.LAUNCHES[k] for k in per_step}
+        expect = {k: v * run["issued_pull"] for k, v in per_step.items()}
+        expect["loop_control"] = run["issued"]
+        if launched != expect or not all(launched.values()):
+            raise AssertionError(f"{label} root {r}, segmented: launches {launched} in "
+                                 f"{run['issued']} supersteps issued, {run['issued_pull']} dense; "
+                                 f"expected {expect}")
+        same("the segmented run", res, r)
+        verify(f"{label} segmented root {r}", res.dist, res.parent, r)
+        m2 = mgr(r, "telemetry")
+        res2, curve2 = eng.run_segmented(r, ckpt=m2, telemetry=True)
+        same("the segmented run with telemetry", res2, r)
+        if curve2["direction_schedule"] != curve["direction_schedule"] or \
+                curve2["occupancy"] != curve["occupancy"]:
+            raise AssertionError(f"{label} root {r}: the segmented curve {curve2} differs from "
+                                 f"run_level_curve's {curve}")
+        if L.captures() != caps:
+            raise AssertionError(f"{label} root {r}: the segments captured {L.captures() - caps} "
+                                 "loops again")
+        if run["live"] != res.num_levels or m.epochs() or m2.epochs() or \
+                rep["segments"] != -(-res.num_levels // CKPT_EVERY):
+            raise AssertionError(f"{label} root {r}: {run}, {rep}, epochs left {m.epochs()}")
+        row = dict(root=r, fused_s=fused_s, seg_s=seg_s, run=run, report=rep,
+                   schedule=curve["direction_schedule"]["schedule"])
+        out["rows"].append(row)
+        log(f"{label} root {r}, every:{CKPT_EVERY}: fused {fused_s:.6f} s, segmented {seg_s:.6f} s "
+            f"({seg_s / fused_s:.3f}x; level loop {run['loop_s']:.6f} s, of it carry copies to "
+            f"the host {run['copy_s']:.6f} s and epoch writes {rep['snapshot_seconds_total']:.6f} s "
+            f"(mean {rep['snapshot_seconds_mean']:.6f} s); results {run['result_s']:.6f} s); "
+            f"{rep['segments']} segments, {rep['epochs_written']} epochs of "
+            f"{rep['snapshot_bytes']} bytes; supersteps issued {run['issued']} (dense "
+            f"{run['issued_pull']}), live {run['live']}; host reads {run['host_reads']}; launches "
+            f"{launched}; result, schedule and occupancy equal to the fused run, oracle-exact, no "
+            f"capture ({card})")
+        del res, res2
+    if kill:
+        r = roots[0]
+        caps = L.captures()
+        os.environ["BFS_TPU_TORCH_FAULT"] = "raise:superstep:2"
+        F.reset()
+        try:
+            eng.run_segmented(r, ckpt=mgr(r, "kill"), telemetry=True)
+            raise AssertionError(f"{label}: the injected fault did not stop the run")
+        except FaultInjected:
+            pass
+        finally:
+            os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+            F.reset()
+        m = mgr(r, "kill")
+        epochs = m.epochs()
+        t0 = time.perf_counter()
+        res, curve2 = eng.run_segmented(r, ckpt=m, telemetry=True)
+        resume_s = time.perf_counter() - t0
+        run, rep = dict(eng.last_run), m.report()
+        same("the resumed run", res, r)
+        want_curve = eng.run_level_curve(r)
+        if curve2["direction_schedule"] != want_curve["direction_schedule"] or \
+                curve2["occupancy"] != want_curve["occupancy"]:
+            raise AssertionError(f"{label} root {r}: the resumed curve differs")
+        if rep["resumed_from_epoch"] != 2 * CKPT_EVERY or epochs != [CKPT_EVERY, 2 * CKPT_EVERY] \
+                or run["live"] != res.num_levels - 2 * CKPT_EVERY or L.captures() != caps:
+            raise AssertionError(f"{label} root {r}: resume {rep}, epochs {epochs}, {run}, "
+                                 f"captures {L.captures() - caps}")
+        out["resume"] = dict(root=r, secs=resume_s, run=run, report=rep)
+        log(f"{label} root {r}: killed by raise:superstep:2 with epochs {epochs} on disk, resumed "
+            f"from epoch {rep['resumed_from_epoch']} in {resume_s:.6f} s (supersteps issued "
+            f"{run['issued']}, live {run['live']} of {res.num_levels}); dist, parent, schedule and "
+            f"occupancy bit-identical to the fused run; no loop captured again ({card})")
+    return out
+
+
+def ckpt_multi_phase(eng, sources, relay, K, L, card: str, store: str) -> dict:
+    """``run_multi_segmented`` on the push engine for the first
+    ``CKPT_MULTI`` sources of the batch at ``every:CKPT_MULTI_EVERY``, timed
+    beside the fused ``run_multi`` (which captures the batch's block first):
+    every tree equal to the relay batch's (``bfs_multi``'s), the control step
+    launched once per superstep issued, live supersteps equal to the
+    levels, no capture."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer, run_multi_segmented
+
+    eng.run_multi(sources)  # warm: the capture of this batch size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_multi(sources)
+    fused_s = time.perf_counter() - t0
+    caps = L.captures()
+    K.reset_launches()
+    m = SuperstepCheckpointer(store, {"multi": "push", "sources": [int(s) for s in sources]},
+                              cfg=ckpt_config(CKPT_MULTI_EVERY))
+    t0 = time.perf_counter()
+    res = run_multi_segmented(eng, sources, ckpt=m, engine="push")
+    seg_s = time.perf_counter() - t0
+    run, rep = dict(eng.last_run), m.report()
+    n = len(sources)
+    if not (np.array_equal(res.dist, relay.dist[:n]) and np.array_equal(res.parent, relay.parent[:n])):
+        raise AssertionError("run_multi_segmented(push): a tree differs from bfs_multi's")
+    if K.LAUNCHES["loop_control"] != run["issued"] or run["live"] != res.num_levels \
+            or L.captures() != caps or m.epochs():
+        raise AssertionError(f"run_multi_segmented(push): {K.LAUNCHES['loop_control']} control "
+                             f"steps, {run}, captures {L.captures() - caps}, epochs {m.epochs()}")
+    log(f"run_multi_segmented(push), {n} sources, every:{CKPT_MULTI_EVERY}: fused {fused_s:.6f} s, "
+        f"segmented {seg_s:.6f} s ({seg_s / fused_s:.3f}x); {rep['segments']} segments, "
+        f"{rep['epochs_written']} epochs of {rep['snapshot_bytes']} bytes, epoch writes "
+        f"{rep['snapshot_seconds_total']:.6f} s; supersteps issued {run['issued']}, live "
+        f"{run['live']}; every tree equal to bfs_multi's, no capture ({card})")
+    return dict(fused_s=fused_s, seg_s=seg_s, run=run, report=rep)
+
+
+def ckpt_serve_tick(reg, srcs, truth: dict, metrics, K, L, card: str) -> dict:
+    """One ``SegmentedBatchRunner`` push tick of ``len(srcs)`` sources under
+    ``BFS_TPU_TORCH_CKPT=every:CKPT_MULTI_EVERY`` on the server's registry,
+    after the fused runner's tick of the same sources: every row exact,
+    ``ckpt_segments`` counted, the control step launched once per superstep
+    issued, no capture."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.serve import BatchRunner, SegmentedBatchRunner, build_batch_runner
+
+    sources = np.asarray(srcs, dtype=np.int32)
+    fused = build_batch_runner(reg, "g", "push", len(srcs))
+    os.environ["BFS_TPU_TORCH_CKPT"] = f"every:{CKPT_MULTI_EVERY}"
+    try:
+        runner = build_batch_runner(reg, "g", "push", len(srcs))
+    finally:
+        os.environ.pop("BFS_TPU_TORCH_CKPT", None)
+    if type(fused) is not BatchRunner or not isinstance(runner, SegmentedBatchRunner):
+        raise AssertionError(f"serve: runners {type(fused)} and {type(runner)}")
+    fused(sources)  # warm: the bucket's capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused(sources)
+    fused_s = time.perf_counter() - t0
+    caps, seg0 = L.captures(), metrics.count("ckpt_segments")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = runner(sources)
+    secs = time.perf_counter() - t0
+    run, segments = dict(runner.last_run), metrics.count("ckpt_segments") - seg0
+    for i, s in enumerate(srcs):
+        if not (np.array_equal(res.dist[i], truth[s][0]) and np.array_equal(res.parent[i], truth[s][1])):
+            raise AssertionError(f"serve segmented push tick: row {i} (source {s}) differs")
+    if segments <= 0 or K.LAUNCHES["loop_control"] != run["issued"] or L.captures() != caps \
+            or runner.ckpt_progress() is not None:
+        raise AssertionError(f"serve segmented push tick: {segments} segments, {run}, launches "
+                             f"{dict(K.LAUNCHES)}, captures {L.captures() - caps}")
+    log(f"serve: SegmentedBatchRunner push tick of {len(srcs)} at every:{CKPT_MULTI_EVERY}: "
+        f"{secs:.6f} s (segments {run['call_s']:.6f} s, results {run['result_s']:.6f} s) against "
+        f"the fused runner's {fused_s:.6f} s; ckpt_segments {segments}; supersteps issued "
+        f"{run['issued']}, live {run['live']}; every row exact, no capture ({card})")
+    return dict(secs=secs, fused_s=fused_s, segments=segments, run=run)
+
+
+def small_ckpt_checks(P, L, store: str) -> None:
+    """path_graph(100) segmented at every:16 on the default relay engine
+    (hybrid ``auto``, gather) and the dense one: 62 packed levels in 4
+    segments, the store cleared, then the unpacked re-run to 100 in 7; the
+    result, schedule and occupancy equal to the fused run's, no capture."""
+    import numpy as np
+
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+
+    path = P.path_graph(100)
+    dist, parent = P.canonical_bfs(path, 0)
+    for hybrid in (True, False):
+        eng = P.RelayEngine(path, sparse_hybrid=hybrid)
+        curve = eng.run_level_curve(0)
+        eng.run(0)
+        caps = L.captures()
+        m = SuperstepCheckpointer(store, {"path": 100, "hybrid": hybrid}, cfg=ckpt_config(16))
+        res, curve2 = eng.run_segmented(0, ckpt=m, telemetry=True)
+        run, rep = eng.last_run, m.report()
+        if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)
+                and res.num_levels == 100) or curve2["direction_schedule"] != \
+                curve["direction_schedule"] or curve2["occupancy"] != curve["occupancy"] or \
+                rep["segments"] != 4 + 7 or run["live"] != 62 + 100 or L.captures() != caps:
+            raise AssertionError(f"path_graph(100) segmented (hybrid {hybrid}): {run}, {rep}")
+        log(f"path_graph(100) segmented at every:16, {'hybrid auto' if hybrid else 'dense'} "
+            f"gather: 62 packed levels in 4 segments, then the unpacked re-run to 100 in 7 "
+            f"(supersteps issued {run['issued']}, live {run['live']}); oracle-exact, schedule and "
+            "occupancy equal to the fused run's, no capture")
 
 
 def main(argv=None) -> int:
@@ -2672,6 +2941,9 @@ def main(argv=None) -> int:
     os.makedirs(os.path.join(root_dir, ".bench_cache"), exist_ok=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_layout_", dir=os.path.join(root_dir, ".bench_cache"))
     atexit.register(shutil.rmtree, store, True)
+    # The superstep checkpoints' epoch store.
+    ckpt_store = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(root_dir, ".bench_cache"))
+    atexit.register(shutil.rmtree, ckpt_store, True)
     rg, setup = layout_phase(P, g, store)
     mask_bytes = rg.net_masks.nbytes + rg.vperm_masks.nbytes
     log(f"layout: vr={rg.vr} net_size={rg.net_size} "
@@ -2735,10 +3007,15 @@ def main(argv=None) -> int:
     kres.update(mxu_kernel_phase(eng, meng, root0, K, R, RM, card))
     mxu = mxu_main_path(meng, g, roots, want, directed_traversed, K, P, L)
     launches.update({k: mxu["launches"][k] for k in MXU_REPLACES})
+    mark("mxu arm")
+    # ---- superstep checkpoints on the dense MXU engine
+    ckpt_roots = roots[:2]  # the max-degree root and one other
+    ckpt = {"mxu dense": ckpt_relay_phase("checkpoints, mxu dense", meng, ckpt_roots, want,
+                                          MXU_STEP, K, L, card, ckpt_store)}
+    mark("checkpoints, mxu dense")
     del meng
     torch.cuda.empty_cache()
 
-    mark("mxu arm")
     # ---- multi-source: the batch (its first call builds the route index),
     # then the route index and the elem kernels against their plain versions
     sources = np.asarray(rng.choice(comp, BATCH, replace=False), dtype=np.int32)
@@ -2764,6 +3041,9 @@ def main(argv=None) -> int:
         batch = sources if engine == "pull" else sources[:PUSH_BATCH]
         edge[engine]["batch"] = edge_batch_phase(f"bfs_multi({engine})", eeng, batch,
                                                  multi["result"], K, L)
+        if engine == "push":
+            ckpt["multi push"] = ckpt_multi_phase(eeng, sources[:CKPT_MULTI], multi["result"], K,
+                                                  L, card, ckpt_store)
         del eeng
         torch.cuda.empty_cache()
         mark(f"{engine} engine")
@@ -2787,14 +3067,21 @@ def main(argv=None) -> int:
     for arm, dense_s in (("gather", gather["mean"]["secs"]), ("mxu", mxu["mean"]["secs"])):
         heng = hybrid_engine(P, rg, arm)
         hybrid[arm] = hybrid_phase(heng, g, roots, want, edge["pull"]["results"], dense_s, K, D)
+        mark(f"hybrid {arm}")
+        if arm == "gather":
+            # ---- superstep checkpoints on the default engine: kill and resume
+            ckpt["hybrid gather"] = ckpt_relay_phase(
+                "checkpoints, hybrid gather auto", heng, ckpt_roots, want, GATHER_STEP, K, L, card,
+                ckpt_store, kill=True)
+            mark("checkpoints, hybrid gather")
         del heng
         torch.cuda.empty_cache()
-        mark(f"hybrid {arm}")
     runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
     mark("runners")
     # ---- the query server on the same graph: every reply against the
     # relay batch's trees and the roots' oracle results
-    serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K)
+    serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K, L)
+    ckpt["serve"] = serve["segmented"]
     del want
     mark("serve")
     cli_phase(K)
@@ -2813,6 +3100,7 @@ def main(argv=None) -> int:
     small_edge_checks(P, K, tiny)
     small_mxu_checks(P, tiny, K)
     small_hybrid_checks(P, K)
+    small_ckpt_checks(P, L, ckpt_store)
     small_multi_checks(P, tiny)
     mark("small graphs")
     del rg
@@ -2908,6 +3196,18 @@ def main(argv=None) -> int:
         f"{len(serve['buckets'])} ticks, all executable-cache hits; result seconds of a pull "
         f"bucket-32 tick: cache 0 {serve['result_s']['cache 0']}, cache 256 "
         f"{serve['result_s']['cache 256']}; round 1 {serve['round1_s']:.3f} s")
+    log(f"superstep checkpoints (R-MAT scale {args.scale}, {card}): relay every:{CKPT_EVERY}, "
+        "fused / segmented s, epoch bytes, epoch writes s, carry copies s: " + "; ".join(
+            f"{name} root {row['root']} {row['fused_s']:.6f} / {row['seg_s']:.6f}, "
+            f"{row['report']['snapshot_bytes']}, {row['report']['snapshot_seconds_total']:.6f}, "
+            f"{row['run']['copy_s']:.6f}"
+            for name in ("mxu dense", "hybrid gather") for row in ckpt[name]["rows"])
+        + f"; resumed from epoch {ckpt['hybrid gather']['resume']['report']['resumed_from_epoch']} "
+        f"in {ckpt['hybrid gather']['resume']['secs']:.6f} s; push batch of {CKPT_MULTI} at "
+        f"every:{CKPT_MULTI_EVERY} {ckpt['multi push']['fused_s']:.6f} / "
+        f"{ckpt['multi push']['seg_s']:.6f} ({ckpt['multi push']['report']['snapshot_bytes']} "
+        f"bytes an epoch); serve push tick of {CKPT_MULTI} {ckpt['serve']['fused_s']:.6f} / "
+        f"{ckpt['serve']['secs']:.6f} ({ckpt['serve']['segments']} segments)")
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

@@ -141,7 +141,8 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.resilience.retry, bfs_tpu_torch.serve, "
         "bfs_tpu_torch.serve.executor, bfs_tpu_torch.serve.registry, "
         "bfs_tpu_torch.serve.health, bfs_tpu_torch.serve.server, "
-        "bfs_tpu_torch.runners.run_serve; "
+        "bfs_tpu_torch.runners.run_serve, bfs_tpu_torch.resilience.journal, "
+        "bfs_tpu_torch.resilience.superstep_ckpt; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -172,6 +173,7 @@ def test_no_jax_or_reference_imports_in_the_port():
     for sub in (("cache", "__init__.py"), ("cache", "layout.py"),
                 ("graph", "relay_device.py"), ("obs", "spans.py"), ("obs", "registry.py"),
                 ("resilience", "faults.py"), ("resilience", "retry.py"),
+                ("resilience", "journal.py"), ("resilience", "superstep_ckpt.py"),
                 ("serve", "executor.py"), ("serve", "registry.py"), ("serve", "health.py"),
                 ("serve", "server.py"), ("runners", "run_serve.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files

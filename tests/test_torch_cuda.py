@@ -1172,3 +1172,91 @@ def test_card_serve_verify_fault_quarantines(card, monkeypatch):
         assert reply.record.status == "ok" and reply.record.compile_hit is False
         _served_exact(g, 2, reply)
         assert srv.metrics.count("breaker_closed") == 1
+
+
+# ------------------------------------------------------ superstep checkpoints --
+
+def _ckpt(path, every, **config):
+    from bfs_tpu_torch.resilience.superstep_ckpt import CkptConfig, SuperstepCheckpointer
+
+    return SuperstepCheckpointer(path, config, cfg=CkptConfig("every", every))
+
+
+@pytest.mark.parametrize("expansion", ["gather", "mxu"])
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_card_segmented_relay_matches_fused_with_one_capture_per_loop(card, tmp_path, monkeypatch,
+                                                                      hybrid, expansion):
+    """``run_segmented`` on the card at segments of 1, 2 and 3 equals the
+    fused run and the CPU's (result, schedule, occupancy); the segments
+    replay the loops the fused runs captured and capture none; a run killed
+    at boundary 2 resumes bit for bit, also without a capture."""
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.resilience import faults
+    from bfs_tpu_torch.resilience.faults import FaultInjected
+
+    g = P.rmat_graph(10, 8, seed=3)
+    eng = P.RelayEngine(g, device=card, sparse_hybrid=hybrid, expansion=expansion)
+    cpu = P.RelayEngine(g, device="cpu", sparse_hybrid=hybrid, expansion=expansion)
+    for s in (0, 743):  # 6 and 4 levels: every boundary of a kill at 2 is inside the search
+        want, want_curve = cpu.run(s), cpu.run_level_curve(s)
+        fused, curve = eng.run(s), eng.run_level_curve(s)
+        assert curve == want_curve
+        caps = L.captures()
+        for k in (1, 2, 3):
+            res, got_curve = eng.run_segmented(s, ckpt=_ckpt(tmp_path, k, s=s, k=k), telemetry=True)
+            for a in (res, fused):
+                np.testing.assert_array_equal(a.dist, want.dist)
+                np.testing.assert_array_equal(a.parent, want.parent)
+                assert a.num_levels == want.num_levels
+            assert got_curve["direction_schedule"] == want_curve["direction_schedule"]
+            assert got_curve["occupancy"] == want_curve["occupancy"]
+            _same_result(eng.run_segmented(s, ckpt=_ckpt(tmp_path, k, s=s, k=k, t=0)), want)
+        monkeypatch.setenv("BFS_TPU_TORCH_FAULT", "raise:superstep:2")
+        faults.reset()
+        with pytest.raises(FaultInjected):
+            eng.run_segmented(s, ckpt=_ckpt(tmp_path, 1, s=s, kill=1), telemetry=True)
+        monkeypatch.delenv("BFS_TPU_TORCH_FAULT")
+        faults.reset()
+        mgr = _ckpt(tmp_path, 1, s=s, kill=1)
+        res, got_curve = eng.run_segmented(s, ckpt=mgr, telemetry=True)
+        assert mgr.report()["resumed_from_epoch"] == 2
+        _same_result(res, want)
+        assert got_curve["direction_schedule"] == want_curve["direction_schedule"]
+        assert L.captures() == caps
+
+
+def _same_result(a, b) -> None:
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    assert a.num_levels == b.num_levels
+
+
+@pytest.mark.parametrize("engine", ["push", "pull"])
+def test_card_segmented_multi_and_serve_runner_match_fused(card, tmp_path, monkeypatch, engine):
+    """``run_multi_segmented`` and a ``SegmentedBatchRunner`` on the card
+    equal the fused batch and the CPU's; the segments capture nothing."""
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.resilience.superstep_ckpt import run_multi_segmented
+    from bfs_tpu_torch.serve import GraphRegistry, SegmentedBatchRunner, build_batch_runner
+
+    g = P.rmat_graph(10, 8, seed=3)
+    sources = np.asarray([0, 5, 9, 743], np.int32)
+    want = P.bfs_multi(g, sources, engine=engine, device="cpu")
+    eng = P.EdgeEngine(g, engine=engine, device=card)
+    _same_result(eng.run_multi(sources), want)
+    caps = L.captures()
+    for k in (1, 3):
+        _same_result(run_multi_segmented(eng, sources, ckpt=_ckpt(tmp_path, k, k=k), engine=engine),
+                     want)
+        assert eng.last_run["live"] == want.num_levels
+    assert L.captures() == caps
+    reg = GraphRegistry()
+    reg.register("g", g)
+    fused = build_batch_runner(reg, "g", engine, 4)
+    _same_result(fused(sources), want)
+    monkeypatch.setenv("BFS_TPU_TORCH_CKPT", "every:2")
+    runner = build_batch_runner(reg, "g", engine, 4)
+    assert isinstance(runner, SegmentedBatchRunner)
+    caps = L.captures()
+    _same_result(runner(sources), want)
+    assert L.captures() == caps and runner.ckpt_progress() is None
