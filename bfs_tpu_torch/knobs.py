@@ -26,6 +26,10 @@ mirror knobs of the reference's registry of the same names without
                                                  off | every:<k> | auto
   BFS_TPU_TORCH_CKPT_MTBF_S      float   600.0   failure-rate prior of the
                                                  auto interval (> 0)
+  BFS_TPU_TORCH_SSSP_DELTA       spec    64      delta-stepping bucket width:
+                                                 an int, or inf | infinite |
+                                                 single (one bucket); <= 0
+                                                 is one bucket
   ============================== ======= ======= ==========================
 """
 
@@ -81,6 +85,21 @@ def _ckpt(raw: str) -> str:
     return raw
 
 
+_INT32_MAX = (1 << 31) - 1
+
+
+def _delta(raw: str) -> int:
+    """The grammar of :func:`bfs_tpu_torch.algo.substrate.resolve_delta`:
+    an int (non-positive means one bucket) or inf | infinite | single, as
+    the int32 threshold increment."""
+    if raw.lower() in ("inf", "infinite", "single"):
+        return _INT32_MAX
+    value = int(raw)
+    if value <= 0:
+        return _INT32_MAX
+    return min(value, _INT32_MAX)
+
+
 def _positive_float(raw: str) -> float:
     value = float(raw)
     if not value > 0:
@@ -111,6 +130,9 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "selects the fused or the segmented runs"),
     Knob("BFS_TPU_TORCH_CKPT_MTBF_S", "float", "600.0", _positive_float,
          "mean-time-between-failures prior of the auto checkpoint interval"),
+    Knob("BFS_TPU_TORCH_SSSP_DELTA", "spec", "64", _delta,
+         "delta-stepping bucket width of sssp (int, or inf/single for plain "
+         "frontier Bellman-Ford); non-positive = one bucket"),
 )}
 
 

@@ -1,8 +1,9 @@
-"""BFS verification on the device: ``check()`` without copying the result
-to the host.
+"""Verification on the device: ``check()`` without copying the result to
+the host.
 
-The port of the BFS half of ``bfs_tpu.oracle.device`` (XLA there, plain
-torch here).  The host :func:`~bfs_tpu_torch.oracle.bfs.check` stays the
+The port of ``bfs_tpu.oracle.device`` (XLA there, plain torch here): the
+BFS verdict below and, at the end of the module, the SSSP and CC verdicts
+(:func:`sssp_device_check`, :func:`cc_device_check`).  The host :func:`~bfs_tpu_torch.oracle.bfs.check` stays the
 ground truth; this evaluates its three invariants as data-parallel
 reductions over the edge set on device-resident arrays and returns a
 verdict of six int32 counters:
@@ -176,3 +177,122 @@ class DeviceChecker:
         """Vertices whose reachability differs from ``ref_words`` (one
         int32 to the host)."""
         return int(_coverage_mismatch(self._tensor(dist), ref_words, self.num_vertices))
+
+
+# ------------------------------------------------------- algo verdicts --
+# The semiring algorithms' device checks: the same shape as the BFS
+# verdict, data-parallel reductions over the edge set with only the count
+# vector copied to the host.  The host oracles (oracle/sssp.py,
+# oracle/cc.py) stay the ground truth.
+
+#: Names of the SSSP verdict's counters, index-aligned.
+SSSP_COUNT_FIELDS = (
+    "source_dist_nonzero",
+    "edge_dst_unreached",
+    "edge_relaxable",
+    "reached_without_parent",
+    "tree_edge_not_tight",
+)
+
+#: Names of the CC verdict's counters, index-aligned.
+CC_COUNT_FIELDS = (
+    "edge_label_mismatch",
+    "label_above_id",
+    "root_not_self_labeled",
+)
+
+
+def _algo_device(src, device) -> torch.device:
+    """The device of an algorithm check: the edges' own when they are a
+    tensor and ``device`` is None; else ``device`` (the card unless it
+    names the CPU)."""
+    from ..models.bfs import resolve_device
+
+    if device is None and isinstance(src, torch.Tensor):
+        return src.device
+    return resolve_device(device)
+
+
+def _on(x, dev: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or host array) flat on ``dev``."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(dev).reshape(-1)
+
+
+def _sssp_check_counts(srcv, dstv, dist, parent, source: int, v: int,
+                       max_weight: int) -> torch.Tensor:
+    """int32[5] SSSP violation counts (:data:`SSSP_COUNT_FIELDS`), int32
+    arithmetic as the reference's.  Weights are recomputed from the
+    endpoint hash; sentinel-padded edges are inert; ``dist``/``parent`` may
+    carry the engines' sentinel slot."""
+    from ..algo.substrate import edge_weights
+
+    dev = dist.device
+    inf = INF_DIST
+    dist = dist[:v].to(torch.int32)
+    parent = parent[:v].to(torch.int32)
+    dist_p = torch.cat([dist, torch.full((1,), inf, dtype=torch.int32, device=dev)])
+    par_p = torch.cat([parent, torch.full((1,), NO_PARENT, dtype=torch.int32, device=dev)])
+    si = srcv.clamp(max=v).to(torch.int64)
+    di = dstv.clamp(max=v).to(torch.int64)
+    real = (srcv < v) & (dstv < v)
+    wv = edge_weights(srcv, dstv, max_weight)
+    ds, dd = dist_p[si], dist_p[di]
+
+    def count(mask):
+        return mask.sum(dtype=torch.int32)
+
+    c_src = count(dist_p[min(int(source), v)].reshape(1) != 0)
+    reach_s = real & (ds != inf)
+    reach_d = dd != inf
+    c_unreached = count(reach_s & ~reach_d)
+    # A relaxable edge remaining means the fixpoint was not reached.
+    c_relaxable = count(reach_s & reach_d & (dd > ds + wv))
+    reached = dist != inf
+    non_src = reached & (torch.arange(v, dtype=torch.int32, device=dev) != int(source))
+    c_noparent = count(non_src & ((parent < 0) | (parent >= v)))
+    hasp = non_src & (parent >= 0) & (parent < v)
+    # Tree-edge tightness by an edge-side scatter: edge (u, w) covers w when
+    # parent[w] == u and dist[w] == dist[u] + weight(u, w).
+    tight = real & (par_p[di] == srcv) & (dd == ds + wv)
+    covered = torch.zeros(v + 1, dtype=torch.bool, device=dev)
+    covered[torch.where(tight, di, v)] = True
+    c_loose = count(hasp & ~covered[:v])
+    return torch.stack([c_src, c_unreached, c_relaxable, c_noparent, c_loose])
+
+
+def _cc_check_counts(srcv, dstv, label, v: int) -> torch.Tensor:
+    """int32[3] CC violation counts (:data:`CC_COUNT_FIELDS`)."""
+    dev = label.device
+    label = label[:v].to(torch.int32)
+    label_p = torch.cat([label, torch.full((1,), -1, dtype=torch.int32, device=dev)])
+    si = srcv.clamp(max=v).to(torch.int64)
+    di = dstv.clamp(max=v).to(torch.int64)
+    real = (srcv < v) & (dstv < v)
+    c_edge = (real & (label_p[si] != label_p[di])).sum(dtype=torch.int32)
+    ids = torch.arange(v, dtype=torch.int32, device=dev)
+    c_above = (label > ids).sum(dtype=torch.int32)
+    inrange = (label >= 0) & (label < v)
+    roots = label_p[torch.where(inrange, label, v).to(torch.int64)]
+    c_root = (inrange & (roots != label)).sum(dtype=torch.int32)
+    return torch.stack([c_edge, c_above, c_root])
+
+
+def sssp_device_check(src, dst, dist, parent, source: int, num_vertices: int,
+                      max_weight: int, *, device=None) -> dict[str, int]:
+    """Named nonzero SSSP violation counts (empty: every invariant holds).
+    Runs on the edges' device when they are tensors (else on ``device``,
+    the card unless it names the CPU); the only host copy is the count
+    vector."""
+    dev = _algo_device(src, device)
+    counts = _sssp_check_counts(_on(src, dev), _on(dst, dev), _on(dist, dev), _on(parent, dev),
+                                int(source), int(num_vertices), int(max_weight))
+    return {name: int(n) for name, n in zip(SSSP_COUNT_FIELDS, counts.cpu().tolist()) if n}
+
+
+def cc_device_check(src, dst, label, num_vertices: int, *, device=None) -> dict[str, int]:
+    """Named nonzero CC violation counts (empty: consistent, self-rooted,
+    id-dominated labels); the device as :func:`sssp_device_check`."""
+    dev = _algo_device(src, device)
+    counts = _cc_check_counts(_on(src, dev), _on(dst, dev), _on(label, dev), int(num_vertices))
+    return {name: int(n) for name, n in zip(CC_COUNT_FIELDS, counts.cpu().tolist()) if n}

@@ -22,10 +22,12 @@ transient-failure retry, result LRU, oracle degradation) and
 :class:`ServeHealth` (circuit breaker per executable, hung-call watchdog,
 sampled integrity checks).  With ``BFS_TPU_TORCH_CKPT`` on, pull and push
 batches run checkpointed (:class:`SegmentedBatchRunner`), and a hung call
-resumes from its last segment.  The reference's fleet router, label tier and
-``registry_sssp``/``registry_cc`` are not ported.
+resumes from its last segment.  :func:`registry_sssp` and :func:`registry_cc`
+run weighted SSSP and connected components on a registered graph's resident
+engine.  The reference's fleet router and label tier are not ported.
 """
 
+from .algo import registry_cc, registry_sssp
 from .executor import (
     AbandonedAttempt,
     BatchRunner,
@@ -72,6 +74,8 @@ __all__ = [
     "ServerClosed",
     "bucket_for",
     "build_batch_runner",
+    "registry_cc",
+    "registry_sssp",
     "run_oracle_batch",
     "run_with_deadline",
 ]

@@ -114,6 +114,23 @@ The launches counted there include the dead supersteps a block of 4 runs
 past a segment's end; live supersteps count those this process ran (after
 a resume, those after the epoch).
 
+The semiring algorithms (``bfs_tpu_torch.algo``) run on the same push and
+pull engines of the s22 graph: connected components on both (twice on the
+captured loop, the second capturing nothing, and on the eager loop; the
+labels equal each component's minimum id from scipy's
+``connected_components``, ``check_cc`` and ``cc_device_check`` clean),
+weighted SSSP on push for the max-degree root and one other at the default
+delta and the max-degree root at ``delta=inf`` (captured against eager,
+``check_sssp`` and ``sssp_device_check`` clean, both deltas equal), each
+superstep's device time beside its byte bound; SSSP and CC segmented into
+at most 8 epochs, each also killed at boundary 2 and resumed, bit-identical
+with no capture; ``registry_sssp`` and ``registry_cc`` (push and pull) twice
+each on the serve phase's registry; at R-MAT scale 15 SSSP packed16 against
+unpacked against the heapq ``dijkstra`` and CC against
+``union_find_labels``; ``path_graph(600)`` through the truncation fallback;
+and ``graph500_run.main`` at scale 16.  Every run's control steps are held
+to its supersteps issued and added to the ``loop_control`` row.
+
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
 Each path is also run on the eager loop (a host read per level) and held
@@ -2372,7 +2389,8 @@ SERVE_RELAY_STEP = ("benes_outer_pass", "benes_local_pass", "class_rowmin", "pac
 SERVE_DEGRADED = ("oracle_served", "device_errors", "watchdog_timeouts", "breaker_short_circuits")
 
 
-def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K, L) -> dict:
+def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K, L,
+                algo_want=None) -> dict:
     """The query server (``bfs_tpu_torch.serve``) at full width: a
     ``GraphRegistry`` over the script's bundle store (warm hits for the
     relay layout and the pull layout, which is put there first) and a
@@ -2388,8 +2406,10 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K,
     ticks of 32, whose replies it keeps: result seconds beside round 2's.
     Every reply is held bit for bit against the relay batch's trees and the
     roots' oracle results; no degradation may be counted; launches are
-    counted per staged tick.  Last, one ``SegmentedBatchRunner`` push tick
-    (:func:`ckpt_serve_tick`)."""
+    counted per staged tick.  Then one ``SegmentedBatchRunner`` push tick
+    (:func:`ckpt_serve_tick`), and ``registry_sssp`` and ``registry_cc`` on
+    the same registry (:func:`algo_registry_phase`) against ``algo_want``
+    (the fused SSSP result of ``roots[0]`` and the CC labels)."""
     import threading
 
     import numpy as np
@@ -2581,6 +2601,7 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K,
         "cache 256": [(t["result_s"] or 0.0) + t["own_s"] for t in out["kept"]],
     }
     out["segmented"] = ckpt_serve_tick(reg, srcs[:CKPT_MULTI], truth, disk, K, L, card)
+    out["algo"] = algo_registry_phase(reg, roots[0], *algo_want, K, L, card)
     out["peak"] = torch.cuda.max_memory_allocated() - base
     out["setup_s"] = setup_s
     log(f"serve: result seconds of a pull bucket-32 tick (engine copy + rows copied out): "
@@ -2878,6 +2899,368 @@ def small_ckpt_checks(P, L, store: str) -> None:
             "occupancy equal to the fused run's, no capture")
 
 
+# ------------------------------------------------ the semiring algorithms --
+
+# SSSP at this R-MAT scale runs packed (V = 32,768 < 0xFFFF) beside unpacked
+# and against the heapq Dijkstra; the s22 cell runs unpacked.
+ALGO_SMALL_SCALE = 15
+# Segmented runs take ceil(rounds / ALGO_EPOCHS) supersteps a segment, so
+# each writes at most ALGO_EPOCHS epochs; the killed run stops at boundary
+# ALGO_KILL and is resumed.
+ALGO_EPOCHS = 8
+ALGO_KILL = 2
+GRAPH500_ARGS = ["--scales", "16", "--roots", "4", "--no-journal"]
+
+
+def algo_bytes(eng, kind: str) -> int:
+    """Bytes a superstep of ``kind`` (``sssp`` or ``cc``) must move on
+    ``eng``'s layout: the layout read once (src and dst as int32, as the
+    reference stores them; the ELL levels on pull), the SSSP weights (int32)
+    once, and the carry read and written once (dist or label int32, dirty or
+    frontier bool)."""
+    n = eng.num_vertices + 1
+    if eng.engine == "pull":
+        layout = sum(t.numel() * t.element_size() for t in (eng.ell0, *eng.folds))
+    else:
+        layout = (eng.src.numel() + eng.dst.numel()) * 4
+    weights = 4 * eng.src.numel() if kind == "sssp" else 0
+    return layout + weights + 2 * 4 * n + 2 * n
+
+
+def algo_step_ms(step, state, steps: int) -> float:
+    """Device ms of one superstep (``cold_ms``: L2 flushed, launches hidden
+    behind a device sleep, mean of 3) on the state ``steps`` supersteps into
+    the run."""
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    for _ in range(steps):
+        state = step(state)
+    return cold_ms(lambda: step(state), reps=3, warm=1)
+
+
+def cc_truth(g):
+    """Each vertex's component minimum id from
+    ``scipy.sparse.csgraph.connected_components`` (the host oracle at s22,
+    where the Python union-find is too slow)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    n = g.num_vertices
+    adj = csr_matrix((np.ones(g.src.size, dtype=np.int32), (g.src, g.dst)), shape=(n, n))
+    k, comp = connected_components(adj, directed=False)
+    mins = np.full(k, n, dtype=np.int64)
+    np.minimum.at(mins, comp, np.arange(n))
+    return mins[comp].astype(np.int32), int(k)
+
+
+def algo_captured(label: str, call, K, L, captures: int | None = None,
+                  resumed_at: int = 0) -> tuple:
+    """One algorithm run on the captured loop: ``call()`` timed, its control
+    steps held to the supersteps issued and its live supersteps to the rounds
+    (those after ``resumed_at`` for a resumed run); with ``captures`` the
+    number of graphs it must capture.  Returns ``(result, seconds,
+    loop_control launches)``."""
+    import torch
+
+    caps = L.captures()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = call()
+    secs = time.perf_counter() - t0
+    run, launched, added = res.run, K.LAUNCHES["loop_control"], L.captures() - caps
+    if launched != run["issued"] or run["live"] != res.rounds - resumed_at:
+        raise AssertionError(f"{label}: {launched} control steps, {run['issued']} issued, "
+                             f"{run['live']} live, {res.rounds} rounds")
+    if captures is not None and added != captures:
+        raise AssertionError(f"{label}: {added} graphs captured, {captures} expected")
+    return res, secs, launched
+
+
+def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
+    """Weighted SSSP on the s22 push engine (unpacked: V > 0xFFFF): the
+    max-degree root and one other at the default delta, the max-degree root
+    at ``delta=inf``.  Each twice on the captured loop (the first run of a
+    delta captures its loop, the second root's and every timed run capture
+    nothing) and on the eager loop, equal bit for bit with the same
+    rounds; ``check_sssp`` (the complete host certificate, canonical parents
+    included) and ``sssp_device_check`` clean; both deltas equal.  Then one
+    superstep's device time beside its byte bound."""
+    import numpy as np
+
+    from bfs_tpu_torch.algo import edge_weights_np, sssp
+    from bfs_tpu_torch.algo.sssp import init_sssp_state, sssp_superstep, weights
+    from bfs_tpu_torch.algo.substrate import DEFAULT_MAX_WEIGHT, resolve_delta
+    from bfs_tpu_torch.graph.csr import INF_DIST
+    from bfs_tpu_torch.oracle import check_sssp, sssp_device_check
+
+    t0 = time.perf_counter()
+    w_host = edge_weights_np(g.src, g.dst)
+    weights_s = time.perf_counter() - t0
+    v = eng.num_vertices
+    results, rows, launches = {}, [], 0
+    for i, (r, delta) in enumerate(((roots[0], None), (roots[1], None), (roots[0], "inf"))):
+        eng.loop = "blocks"
+        label = f"sssp root {r} delta {delta or 'default'}"
+        # The first run of each delta captures its loop (the second root's
+        # finds it); the timed run replays.
+        _, first_s, launched = algo_captured(label, lambda: sssp(eng, r, delta=delta), K, L,
+                                             captures=0 if i == 1 else 1)
+        res, secs, more = algo_captured(label, lambda: sssp(eng, r, delta=delta), K, L,
+                                        captures=0)
+        launches += launched + more
+        eng.loop = "eager"
+        t0 = time.perf_counter()
+        eager = sssp(eng, r, delta=delta)
+        eager_s = time.perf_counter() - t0
+        eng.loop = "blocks"
+        if not (np.array_equal(res.dist, eager.dist) and np.array_equal(res.parent, eager.parent)
+                and res.rounds == eager.rounds):
+            raise AssertionError(f"{label}: the captured loop differs from the eager loop")
+        t0 = time.perf_counter()
+        violations = check_sssp(g, w_host, res.dist, res.parent, r)
+        host_s = time.perf_counter() - t0
+        if violations:
+            raise AssertionError(f"{label}: check_sssp {violations[:3]}")
+        verdict = sssp_device_check(eng.src, eng.dst, res.dist, res.parent, r, v,
+                                    DEFAULT_MAX_WEIGHT)
+        if verdict:
+            raise AssertionError(f"{label}: sssp_device_check {verdict}")
+        results[(r, delta)] = res
+        run = res.run
+        rows.append(dict(root=r, delta=res.delta, secs=secs, eager_s=eager_s, rounds=res.rounds,
+                         issued=run["issued"], replays=run["replays"], loop_s=run["loop_s"],
+                         result_s=run["result_s"], reached=int((res.dist != INF_DIST).sum())))
+        log(f"{label} (unpacked): first call {first_s:.6f} s, then {secs:.6f} s (loop {run['loop_s']:.6f} s, "
+            f"results and parents {run['result_s']:.6f} s), {res.rounds} rounds, supersteps "
+            f"issued {run['issued']}, replays {run['replays']}, host reads {run['host_reads']}; "
+            f"eager {eager_s:.6f} s, equal bit for bit; {rows[-1]['reached']} reached, max dist "
+            f"{int(res.dist[res.dist != INF_DIST].max())}; check_sssp clean ({host_s:.2f} s), "
+            "sssp_device_check clean")
+    a, b = results[(roots[0], None)], results[(roots[0], "inf")]
+    if not (np.array_equal(a.dist, b.dist) and np.array_equal(a.parent, b.parent)):
+        raise AssertionError(f"sssp root {roots[0]}: delta 64 and inf differ")
+    delta = resolve_delta(None)
+    w = weights(eng._loops, eng.src, eng.dst, DEFAULT_MAX_WEIGHT)
+    state = init_sssp_state(v, roots[0], delta, eng.device)
+    step_ms = algo_step_ms(lambda s: sssp_superstep(s, eng.src, eng.dst, w, delta), state,
+                           a.rounds // 2)
+    nbytes = algo_bytes(eng, "sssp")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"sssp superstep (delta {delta}, state after {a.rounds // 2} rounds): "
+        f"{step_ms:.4f} ms device (cold, mean of 3) against a byte bound of {bound:.4f} ms "
+        f"({nbytes} bytes at 3.35 TB/s): {step_ms / bound:.1f}x; loop mean "
+        f"{np.mean([r['loop_s'] / r['issued'] for r in rows]) * 1e3:.4f} ms a superstep issued; "
+        f"host weights {weights_s:.2f} s; delta 64 and inf equal for root {roots[0]} "
+        f"({a.rounds} and {b.rounds} rounds) ({card})")
+    return dict(results=results, rows=rows, launches=launches, step_ms=step_ms, bound_ms=bound)
+
+
+def algo_cc_phase(eng, g, truth, K, L, card: str) -> dict:
+    """Connected components on one s22 engine (push or pull): twice on the
+    captured loop (the second captures nothing) and on the eager loop, equal
+    bit for bit; the labels equal each component's minimum id (``truth``),
+    ``check_cc`` and ``cc_device_check`` clean; then the first superstep's
+    device time (every vertex on the frontier) beside its byte bound."""
+    import numpy as np
+
+    from bfs_tpu_torch.algo import cc
+    from bfs_tpu_torch.algo.cc import cc_superstep, cc_superstep_pull, init_cc_state
+    from bfs_tpu_torch.oracle import cc_device_check, check_cc
+
+    label = f"cc {eng.engine}"
+    eng.loop = "blocks"
+    res, first_s, launches = algo_captured(label, lambda: cc(eng), K, L)
+    res, secs, more = algo_captured(label, lambda: cc(eng), K, L, captures=0)
+    launches += more
+    eng.loop = "eager"
+    t0 = time.perf_counter()
+    eager = cc(eng)
+    eager_s = time.perf_counter() - t0
+    eng.loop = "blocks"
+    if not (np.array_equal(res.label, eager.label) and res.rounds == eager.rounds):
+        raise AssertionError(f"{label}: the captured loop differs from the eager loop")
+    if not np.array_equal(res.label, truth):
+        raise AssertionError(f"{label}: labels differ from the components' minimum ids")
+    violations = check_cc(g, res.label)
+    if violations:
+        raise AssertionError(f"{label}: check_cc {violations[:3]}")
+    dc = CHECKER["dc"]
+    verdict = cc_device_check(dc.src, dc.dst, res.label, g.num_vertices)
+    if verdict:
+        raise AssertionError(f"{label}: cc_device_check {verdict}")
+    state = init_cc_state(eng.num_vertices, eng.device)
+    if eng.engine == "pull":
+        step = lambda s: cc_superstep_pull(s, eng.ell0, eng.folds)  # noqa: E731
+    else:
+        step = lambda s: cc_superstep(s, eng.src, eng.dst)  # noqa: E731
+    step_ms = algo_step_ms(step, state, 0)
+    nbytes = algo_bytes(eng, "cc")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    run = res.run
+    log(f"{label}: first call {first_s:.6f} s (captures), then {secs:.6f} s (loop "
+        f"{run['loop_s']:.6f} s, results {run['result_s']:.6f} s), {res.rounds} rounds, supersteps "
+        f"issued {run['issued']}, replays {run['replays']}, {res.num_components} components; eager "
+        f"{eager_s:.6f} s, equal bit for bit; labels equal the components' minimum ids, check_cc "
+        f"and cc_device_check clean; first superstep {step_ms:.4f} ms device against a byte bound "
+        f"of {bound:.4f} ms ({nbytes} bytes): {step_ms / bound:.1f}x ({card})")
+    return dict(result=res, secs=secs, first_s=first_s, eager_s=eager_s, launches=launches,
+                step_ms=step_ms, bound_ms=bound)
+
+
+def algo_ckpt_phase(eng, root: int, sssp_fused, cc_fused, store: str, K, L, card: str) -> dict:
+    """Segmented SSSP (``root``, default delta) and CC on the s22 push
+    engine, at ceil(rounds / ALGO_EPOCHS) supersteps a segment into an epoch
+    store on disk: each run bit-identical to the fused one, the control step
+    once per superstep issued, no graph captured (the fused runs captured
+    them); then each killed at boundary ALGO_KILL by
+    ``BFS_TPU_TORCH_FAULT=raise:superstep:<n>`` and resumed from its epoch,
+    bit-identical."""
+    import numpy as np
+
+    from bfs_tpu_torch.algo import cc_segmented, sssp_segmented
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+
+    def same(a, b) -> bool:
+        if hasattr(a, "label"):
+            return np.array_equal(a.label, b.label) and a.rounds == b.rounds
+        return (np.array_equal(a.dist, b.dist) and np.array_equal(a.parent, b.parent)
+                and a.rounds == b.rounds)
+
+    out, launches = {}, 0
+    for name, fused, run in (("sssp", sssp_fused, lambda m: sssp_segmented(eng, root, ckpt=m)),
+                             ("cc", cc_fused, lambda m: cc_segmented(eng, ckpt=m))):
+        every = max(1, -(-fused.rounds // ALGO_EPOCHS))
+        cfg = ckpt_config(every)
+        caps = L.captures()
+        m = SuperstepCheckpointer(store, {"algo": name, "root": root, "run": "whole"}, cfg=cfg)
+        res, secs, launched = algo_captured(f"segmented {name}", lambda: run(m), K, L, captures=0)
+        launches += launched
+        rep = m.report()
+        if not same(res, fused) or rep["epochs_written"] > ALGO_EPOCHS or m.epochs():
+            raise AssertionError(f"segmented {name}: differs from the fused run or {rep}")
+        key = {"algo": name, "root": root, "run": "killed"}
+        os.environ["BFS_TPU_TORCH_FAULT"] = f"raise:superstep:{ALGO_KILL}"
+        F.reset()
+        try:
+            run(SuperstepCheckpointer(store, key, cfg=cfg))
+            raise AssertionError(f"segmented {name}: the fault at boundary {ALGO_KILL} did not fire")
+        except FaultInjected:
+            pass
+        finally:
+            os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+            F.reset()
+        m2 = SuperstepCheckpointer(store, key, cfg=cfg)
+        resumed, rsecs, launched = algo_captured(f"resumed {name}", lambda: run(m2), K, L,
+                                                 captures=0, resumed_at=ALGO_KILL * every)
+        launches += launched
+        rrep = m2.report()
+        if not same(resumed, fused) or rrep["resumed_from_epoch"] != ALGO_KILL * every:
+            raise AssertionError(f"resumed {name}: differs from the fused run or {rrep}")
+        if L.captures() != caps:
+            raise AssertionError(f"segmented {name}: {L.captures() - caps} graphs captured")
+        out[name] = dict(every=every, secs=secs, fused_s=fused.run["loop_s"] + fused.run["result_s"],
+                         report=rep, resumed_s=rsecs, resumed=rrep)
+        log(f"segmented {name} at every:{every}: {secs:.6f} s against the fused "
+            f"{out[name]['fused_s']:.6f} s, {rep['epochs_written']} epochs of "
+            f"{rep['snapshot_bytes']} bytes ({rep['snapshot_seconds_total']:.6f} s of writes), "
+            f"supersteps issued {res.run['issued']}; killed at boundary {ALGO_KILL} and resumed from "
+            f"epoch {rrep['resumed_from_epoch']} in {rsecs:.6f} s ({resumed.run['live']} supersteps "
+            f"run); both bit-identical to the fused run, no graph captured ({card})")
+    out["launches"] = launches
+    return out
+
+
+def algo_registry_phase(reg, root: int, sssp_want, cc_want, K, L, card: str) -> dict:
+    """``registry_sssp`` (``root``, default delta) and ``registry_cc`` (push
+    and pull) on the serve phase's registry, each twice: every reply equal to
+    the s22 fused result; the second call a resident hit that captures
+    nothing."""
+    import numpy as np
+
+    from bfs_tpu_torch.serve import registry_cc, registry_sssp
+
+    rows, launches = [], 0
+    calls = (("registry_sssp", "push", lambda: registry_sssp(reg, "g", root)),
+             ("registry_cc push", "push", lambda: registry_cc(reg, "g")),
+             ("registry_cc pull", "pull", lambda: registry_cc(reg, "g", engine="pull")))
+    for name, engine, call in calls:
+        for i in range(2):
+            resident = reg.resident(reg.get("g"), engine)
+            res, secs, launched = algo_captured(name, call, K, L, captures=0 if i else None)
+            launches += launched
+            if hasattr(res, "label"):
+                ok = np.array_equal(res.label, cc_want.label) and res.rounds == cc_want.rounds
+            else:
+                ok = (np.array_equal(res.dist, sssp_want.dist)
+                      and np.array_equal(res.parent, sssp_want.parent)
+                      and res.rounds == sssp_want.rounds)
+            if not ok:
+                raise AssertionError(f"{name} call {i + 1}: differs from the fused run")
+            if i and not resident:
+                raise AssertionError(f"{name}: the second call was not a resident hit")
+            rows.append(dict(name=name, call=i + 1, secs=secs, resident=resident))
+        log(f"serve: {name} twice: {rows[-2]['secs']:.6f} s, then {rows[-1]['secs']:.6f} s "
+            f"(resident {engine} engine, no capture); both equal to the fused run ({card})")
+    return dict(rows=rows, launches=launches)
+
+
+def algo_small_checks(P, generators, K, L) -> dict:
+    """SSSP at R-MAT scale ALGO_SMALL_SCALE on the card: packed16 against
+    unpacked, bit-identical with the same rounds, both equal to the heapq
+    ``dijkstra``; CC push against ``union_find_labels``; ``path_graph(600)``
+    at weight 255 through the truncation fallback; then
+    ``graph500_run.main`` at a small scale, exit 0."""
+    import numpy as np
+
+    from bfs_tpu_torch.algo import cc, edge_weights_np, sssp
+    from bfs_tpu_torch.oracle import dijkstra, union_find_labels
+    from bfs_tpu_torch.tools import graph500_run
+
+    g = generators.rmat_graph_native(ALGO_SMALL_SCALE, EDGE_FACTOR, seed=GRAPH_SEED)
+    eng = P.EdgeEngine(g, engine="push")
+    root = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    packed = sssp(eng, root, packed=True)
+    unpacked = sssp(eng, root, packed=False)
+    t0 = time.perf_counter()
+    odist, opar = dijkstra(g, edge_weights_np(g.src, g.dst), root)
+    dijkstra_s = time.perf_counter() - t0
+    if not (packed.packed and not packed.truncated_fallbacks and packed.rounds == unpacked.rounds):
+        raise AssertionError(f"sssp s{ALGO_SMALL_SCALE}: packed {packed.packed}, rounds "
+                             f"{packed.rounds} and {unpacked.rounds}")
+    for res in (packed, unpacked):
+        if not (np.array_equal(res.dist, odist) and np.array_equal(res.parent, opar)):
+            raise AssertionError(f"sssp s{ALGO_SMALL_SCALE} (packed {res.packed}): differs "
+                                 "from dijkstra")
+    labels = cc(eng)
+    if not np.array_equal(labels.label, union_find_labels(g)):
+        raise AssertionError(f"cc s{ALGO_SMALL_SCALE}: differs from union_find_labels")
+    path = P.path_graph(600)
+    trunc = sssp(path, 0, packed=True)
+    pdist, ppar = dijkstra(path, edge_weights_np(path.src, path.dst), 0)
+    if not (trunc.truncated_fallbacks == 1 and not trunc.packed
+            and np.array_equal(trunc.dist, pdist) and np.array_equal(trunc.parent, ppar)):
+        raise AssertionError(f"path_graph(600): fallback {trunc.truncated_fallbacks}, packed "
+                             f"{trunc.packed}, or differs from dijkstra")
+    log(f"sssp R-MAT scale {ALGO_SMALL_SCALE} (V={g.num_vertices}) root {root}: packed16 "
+        f"{packed.run['loop_s']:.6f} s and unpacked {unpacked.run['loop_s']:.6f} s loops, "
+        f"{packed.rounds} rounds each, bit-identical, equal to dijkstra ({dijkstra_s:.2f} s); cc "
+        f"push {labels.rounds} rounds equal to union_find_labels; path_graph(600) at weight 255: "
+        f"the clamp fired, re-run unpacked ({trunc.rounds} rounds), equal to dijkstra")
+    del eng
+    t0 = time.perf_counter()
+    rc = graph500_run.main(GRAPH500_ARGS)
+    g500_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"graph500_run.main({GRAPH500_ARGS}) exited {rc}")
+    log(f"graph500_run {' '.join(GRAPH500_ARGS)}: exit 0 in {g500_s:.2f} s (the device checks on "
+        "every root, the oracles on the first)")
+    return dict(rounds=packed.rounds, graph500_s=g500_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3032,6 +3415,12 @@ def main(argv=None) -> int:
     # the stepped runners on all three engines and the command-line runners
     dg, pg, edge_build = edge_layouts(g, P)
     edge = {}
+    # The semiring algorithms ride the same two engines; CC's host oracle.
+    t0 = time.perf_counter()
+    cc_labels, ncomp = cc_truth(g)
+    log(f"cc oracle: scipy connected_components, {ncomp} components, minimum ids in "
+        f"{time.perf_counter() - t0:.2f} s")
+    algo = {}
     for engine, layout in (("pull", pg), ("push", dg)):
         t0 = time.perf_counter()
         eeng = P.EdgeEngine(layout, engine=engine)
@@ -3044,9 +3433,17 @@ def main(argv=None) -> int:
         if engine == "push":
             ckpt["multi push"] = ckpt_multi_phase(eeng, sources[:CKPT_MULTI], multi["result"], K,
                                                   L, card, ckpt_store)
+        mark(f"{engine} engine")
+        # ---- the semiring algorithms on the same engine: CC on both, SSSP
+        # and the segmented runs on push
+        algo[f"cc {engine}"] = algo_cc_phase(eeng, g, cc_labels, K, L, card)
+        if engine == "push":
+            algo["sssp"] = algo_sssp_phase(eeng, g, roots, K, L, card)
+            algo["ckpt"] = algo_ckpt_phase(eeng, roots[0], algo["sssp"]["results"][(roots[0], None)],
+                                           algo["cc push"]["result"], ckpt_store, K, L, card)
         del eeng
         torch.cuda.empty_cache()
-        mark(f"{engine} engine")
+        mark(f"algorithms, {engine}")
     # ---- the direction policy over push and pull, on the same layouts
     from bfs_tpu_torch.models import direction as D
 
@@ -3080,7 +3477,10 @@ def main(argv=None) -> int:
     mark("runners")
     # ---- the query server on the same graph: every reply against the
     # relay batch's trees and the roots' oracle results
-    serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K, L)
+    serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K, L,
+                        algo_want=(algo["sssp"]["results"][(roots[0], None)],
+                                   algo["cc push"]["result"]))
+    algo["registry"] = serve["algo"]
     ckpt["serve"] = serve["segmented"]
     del want
     mark("serve")
@@ -3103,11 +3503,16 @@ def main(argv=None) -> int:
     small_ckpt_checks(P, L, ckpt_store)
     small_multi_checks(P, tiny)
     mark("small graphs")
+    algo["small"] = algo_small_checks(P, generators, K, L)
+    mark("algorithms, small graphs and graph500_run")
     del rg
     shutil.rmtree(store)  # the bundle: memmapped pages stay valid until unmapped
     mark("bundle store removed")
 
     # ---- report ---------------------------------------------------------
+    # The control step ends every superstep of the algorithms' loops too.
+    launches["loop_control"] += sum(algo[k]["launches"] for k in
+                                    ("sssp", "cc pull", "cc push", "ckpt", "registry"))
     # One row per kres entry of a kernel (``kernel``, default the entry's
     # name); a row shared by ``share`` entries takes that part of the count.
     kernels = [
@@ -3208,6 +3613,19 @@ def main(argv=None) -> int:
         f"{ckpt['multi push']['seg_s']:.6f} ({ckpt['multi push']['report']['snapshot_bytes']} "
         f"bytes an epoch); serve push tick of {CKPT_MULTI} {ckpt['serve']['fused_s']:.6f} / "
         f"{ckpt['serve']['secs']:.6f} ({ckpt['serve']['segments']} segments)")
+    asp, ack = algo["sssp"], algo["ckpt"]
+    log(f"semiring algorithms (R-MAT scale {args.scale}, {card}): sssp "
+        + "; ".join(f"root {r['root']} delta {r['delta']} {r['secs']:.6f} s, {r['rounds']} rounds, "
+                    f"{r['issued']} issued" for r in asp["rows"])
+        + f"; superstep {asp['step_ms']:.4f} ms against a bound of {asp['bound_ms']:.4f} ms; cc "
+        + "; ".join(f"{e} {algo['cc ' + e]['secs']:.6f} s, {algo['cc ' + e]['result'].rounds} "
+                    f"rounds, first superstep {algo['cc ' + e]['step_ms']:.4f} ms against "
+                    f"{algo['cc ' + e]['bound_ms']:.4f} ms" for e in ("push", "pull"))
+        + "; segmented " + ", ".join(f"{k} every:{ack[k]['every']} {ack[k]['secs']:.6f} s "
+                                     f"(fused {ack[k]['fused_s']:.6f} s)" for k in ("sssp", "cc"))
+        + "; registry " + ", ".join(f"{r['name']} #{r['call']} {r['secs']:.6f} s"
+                                    for r in algo["registry"]["rows"])
+        + f"; graph500_run {algo['small']['graph500_s']:.2f} s")
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

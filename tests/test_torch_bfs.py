@@ -142,7 +142,10 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.serve.executor, bfs_tpu_torch.serve.registry, "
         "bfs_tpu_torch.serve.health, bfs_tpu_torch.serve.server, "
         "bfs_tpu_torch.runners.run_serve, bfs_tpu_torch.resilience.journal, "
-        "bfs_tpu_torch.resilience.superstep_ckpt; "
+        "bfs_tpu_torch.resilience.superstep_ckpt, bfs_tpu_torch.algo, "
+        "bfs_tpu_torch.algo.sssp, bfs_tpu_torch.algo.cc, bfs_tpu_torch.oracle.sssp, "
+        "bfs_tpu_torch.oracle.cc, bfs_tpu_torch.serve.algo, "
+        "bfs_tpu_torch.tools.graph500_run; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -175,7 +178,10 @@ def test_no_jax_or_reference_imports_in_the_port():
                 ("resilience", "faults.py"), ("resilience", "retry.py"),
                 ("resilience", "journal.py"), ("resilience", "superstep_ckpt.py"),
                 ("serve", "executor.py"), ("serve", "registry.py"), ("serve", "health.py"),
-                ("serve", "server.py"), ("runners", "run_serve.py")):
+                ("serve", "server.py"), ("runners", "run_serve.py"),
+                ("algo", "substrate.py"), ("algo", "sssp.py"), ("algo", "cc.py"),
+                ("oracle", "sssp.py"), ("oracle", "cc.py"), ("serve", "algo.py"),
+                ("tools", "graph500_run.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):

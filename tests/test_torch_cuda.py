@@ -1260,3 +1260,94 @@ def test_card_segmented_multi_and_serve_runner_match_fused(card, tmp_path, monke
     caps = L.captures()
     _same_result(runner(sources), want)
     assert L.captures() == caps and runner.ckpt_progress() is None
+
+
+def _same_sssp(a, b) -> None:
+    np.testing.assert_array_equal(a.dist, b.dist)
+    np.testing.assert_array_equal(a.parent, b.parent)
+    assert (a.rounds, a.packed, a.truncated_fallbacks) == (b.rounds, b.packed, b.truncated_fallbacks)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_card_sssp_matches_the_cpu_and_replays_its_capture(card, packed):
+    """SSSP on the card (captured loop, then eager) equals the CPU's plain
+    run and the oracle; a second run of the same loop captures nothing and
+    launches the control step once per superstep issued."""
+    from bfs_tpu_torch.algo import edge_weights_np, sssp
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.oracle import dijkstra
+
+    g = P.rmat_graph(10, 8, seed=3)
+    want = sssp(g, 5, max_weight=31, packed=packed, device="cpu")
+    odist, opar = dijkstra(g, edge_weights_np(g.src, g.dst, 31), 5)
+    np.testing.assert_array_equal(want.dist, odist)
+    np.testing.assert_array_equal(want.parent, opar)
+    eng = P.EdgeEngine(g, engine="push", device=card)
+    _same_sssp(sssp(eng, 5, max_weight=31, packed=packed), want)
+    caps = L.captures()
+    K.reset_launches()
+    got = sssp(eng, 5, max_weight=31, packed=packed)
+    _same_sssp(got, want)
+    assert L.captures() == caps
+    assert K.LAUNCHES["loop_control"] == got.run["issued"] and got.run["live"] == got.rounds
+    eng.loop = "eager"
+    _same_sssp(sssp(eng, 5, max_weight=31, packed=packed), want)
+    # path_graph(600) at weight 255: the packed clamp fires on the card too.
+    path = P.path_graph(600)
+    _same_sssp(sssp(path, 0, packed=True, device=card), sssp(path, 0, packed=True, device="cpu"))
+
+
+def test_card_cc_and_segments_match_the_cpu(card, tmp_path):
+    """CC push and pull, and segmented SSSP and CC, on the card equal the
+    CPU's runs; segments capture nothing; the device checks are clean."""
+    from bfs_tpu_torch.algo import cc, cc_segmented, sssp, sssp_segmented
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.oracle import cc_device_check, sssp_device_check
+
+    g = P.gnm_graph(3000, 4000, seed=7)
+    want = cc(g, device="cpu")
+    for engine in ("push", "pull"):
+        eng = P.EdgeEngine(g, engine=engine, device=card)
+        for _ in range(2):
+            got = cc(eng)
+            np.testing.assert_array_equal(got.label, want.label)
+            assert got.rounds == want.rounds
+    push = P.EdgeEngine(g, engine="push", device=card)
+    fused = cc(push)
+    s_fused = sssp(push, 3, packed=False)
+    _same_sssp(s_fused, sssp(g, 3, packed=False, device="cpu"))
+    caps = L.captures()
+    for k in (1, 3):
+        seg = cc_segmented(push, ckpt=_ckpt(tmp_path, k, run=f"cc{k}"))
+        np.testing.assert_array_equal(seg.label, fused.label)
+        assert seg.rounds == fused.rounds
+        _same_sssp(sssp_segmented(push, 3, ckpt=_ckpt(tmp_path, k, run=f"sssp{k}"), packed=False),
+                   s_fused)
+    assert L.captures() == caps
+    assert cc_device_check(push.src, push.dst, fused.label, g.num_vertices) == {}
+    assert sssp_device_check(push.src, push.dst, s_fused.dist, s_fused.parent, 3,
+                             g.num_vertices, 255) == {}
+    bad = s_fused.dist.copy()
+    bad[3] = 1
+    assert sssp_device_check(push.src, push.dst, bad, s_fused.parent, 3, g.num_vertices, 255)
+
+
+def test_card_registry_algorithms_replay_on_the_resident_engine(card):
+    """``registry_sssp``/``registry_cc`` on the card equal the CPU's; the
+    second call of each captures nothing."""
+    from bfs_tpu_torch.algo import cc, sssp
+    from bfs_tpu_torch.models import loop as L
+    from bfs_tpu_torch.serve import GraphRegistry, registry_cc, registry_sssp
+
+    g = P.gnm_graph(300, 2100, seed=5)
+    reg = GraphRegistry()
+    reg.register("g", g)
+    s_want, c_want = sssp(g, 3, device="cpu"), cc(g, device="cpu")
+    for call, check in ((lambda: registry_sssp(reg, "g", 3), lambda r: _same_sssp(r, s_want)),
+                        (lambda: registry_cc(reg, "g", engine="pull"),
+                         lambda r: np.testing.assert_array_equal(r.label, c_want.label))):
+        check(call())
+        caps = L.captures()
+        check(call())
+        assert L.captures() == caps
+    assert reg.get("g").pins == 0
