@@ -18,9 +18,9 @@ package writes loads in the other.
     renamed into place; the first finished rename wins.
   * **tags**: ``tags/<name>.json`` -> key aliases.
 
-One divergence from the reference: :func:`load_or_build_relay` has no
-fallback.  The reference builds on the host when its device builder
-raises; here a failing device build raises.
+One divergence from the reference: :func:`load_or_build_relay` and
+:func:`load_or_build_tiles` have no fallback.  The reference builds on the
+host when its device builder raises; here a failing device build raises.
 """
 
 from __future__ import annotations
@@ -350,3 +350,58 @@ def load_or_build_pull(graph, *, k: int | None = None, row_multiple: int = 64,
         to_arrays=pull_to_arrays,
         from_arrays=pull_from_arrays,
     )
+
+
+def tiles_key(rg) -> str:
+    """Content key of the MXU arm's tiles bundle, a sidecar beside the relay
+    bundle: blake2b over the relay layout's relabeled edges and relabel
+    table (what the tile builder reads), the reference's key."""
+    from ..graph.adj_tiles import TILES_VERSION
+
+    h = hashlib.blake2b(digest_size=16)
+    for arr in (rg.adj_indptr, rg.adj_dst, rg.new2old):
+        a = np.ascontiguousarray(np.asarray(arr))
+        h.update(str(a.dtype).encode())
+        h.update(memoryview(a))
+    h.update(np.int64(rg.vr).tobytes())
+    return f"adjtiles_v{TILES_VERSION}_s{STORE_VERSION}_{h.hexdigest()}"
+
+
+def load_or_build_tiles(rg, *, cache: LayoutCache | None = None,
+                        builder: str | None = None, budget_bytes: int | None = None,
+                        device="cpu"):
+    """``(AdjTiles, info)``: the MXU arm's tiles, from their bundle or built
+    (``builder``: :func:`~bfs_tpu_torch.graph.adj_tiles.resolve_tiles_builder`;
+    the device builder runs on ``device``) and saved (info contract:
+    :func:`_load_or_build`).  ``BFS_TPU_TORCH_TILES_CACHE=1`` uses the
+    default store when the caller passes none; otherwise nothing is kept.
+    A bundle loads on the CPU (memmapped where large).  A device build that
+    raises is not retried on the host.  ``budget_bytes`` gates warm hits
+    too: the key does not hold the budget."""
+    from ..graph.adj_tiles import (
+        build_adj_tiles_from_relay,
+        resolve_tiles_builder,
+        tiles_from_arrays,
+        tiles_to_arrays,
+    )
+
+    if cache is None and knobs.get("BFS_TPU_TORCH_TILES_CACHE"):
+        cache = LayoutCache()
+    builder = resolve_tiles_builder(builder)
+    at, info = _load_or_build(
+        rg,
+        cache=cache,
+        tag=None,
+        kind="adj_tiles",
+        key_fn=lambda: tiles_key(rg),
+        build_fn=lambda: build_adj_tiles_from_relay(rg, builder, budget_bytes, device=device),
+        to_arrays=tiles_to_arrays,
+        from_arrays=tiles_from_arrays,
+        build_meta={"builder": builder},
+    )
+    if budget_bytes is not None and at.nbytes > budget_bytes:
+        raise ValueError(
+            f"cached adjacency tile layout is {at.nbytes >> 20} MB, over the "
+            f"{budget_bytes >> 20} MB budget (tiles_budget_bytes)"
+        )
+    return at, info

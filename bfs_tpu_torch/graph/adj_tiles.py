@@ -10,8 +10,10 @@ level loop already carries feed the tiles directly):
     ``(u = row_idx[t]*128 + i, v = col_id[t]*128 + 32*j + b)`` exists.
     Empty tiles are never stored, so the layout costs 2 KB per nonempty
     128x128 block.
-  * tiles are sorted by ``(col_id, row_idx)``; the destination space pads
-    to a multiple of 16384 (the reference's column superblock).
+  * tiles are sorted by ``(col_id, row_idx)`` and grouped into **column
+    superblocks** of 128 column tiles (16384 destinations);
+    ``sb_indptr[g]`` bounds superblock ``g``'s tile span, the unit that
+    :mod:`bfs_tpu_torch.stream` pages from the host.
   * ``keys2d[rb, i]`` is the ORIGINAL id of source row ``u = rb*128 + i``
     (``KEY_SENTINEL`` at relabel dummies and padding): the expansion emits
     the minimum key over contributing frontier sources, the canonical
@@ -28,6 +30,7 @@ the host.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,8 +39,12 @@ import torch
 #: Tile geometry: 128 source rows x 128 destination bits (4 words per row).
 TILE = 128
 TILE_WORDS = TILE // 32
-#: Destination padding: the reference's column superblock of 128 tiles.
-SB_VERTS = 128 * TILE
+#: Column superblock: 128 column tiles, 16384 destinations.
+SB_TILES = 128
+SB_VERTS = SB_TILES * TILE
+
+#: The tiles bundle's schema version (the reference's).
+TILES_VERSION = 1
 
 #: Unreached / min-identity sentinel (``ops.packed.PACKED_SENTINEL``).
 KEY_SENTINEL = np.uint32(0xFFFFFFFF)
@@ -70,6 +77,7 @@ class AdjTiles:
     tiles: torch.Tensor  # int32[ntp, TILE, TILE_WORDS]
     row_idx: torch.Tensor  # int32[ntp]; pad = rtp // TILE
     col_id: torch.Tensor  # int32[ntp]; pad = vtp // TILE
+    sb_indptr: torch.Tensor  # int32[vtp // SB_VERTS + 1]
     keys2d: torch.Tensor  # int32[rtp // TILE + 1, TILE]
 
     @property
@@ -84,7 +92,7 @@ class AdjTiles:
     def nbytes(self) -> int:
         return sum(
             t.numel() * t.element_size()
-            for t in (self.tiles, self.row_idx, self.col_id, self.keys2d)
+            for t in (self.tiles, self.row_idx, self.col_id, self.sb_indptr, self.keys2d)
         )
 
 
@@ -104,8 +112,8 @@ def _finalize(
     rows: int, cols: int, nt: int, tiles, row_idx, col_id,
     keys2d: torch.Tensor, device,
 ) -> AdjTiles:
-    """Shared tail of both builders: pad to ``ntp >= 1`` with an inert tile,
-    on ``device``."""
+    """Shared tail of both builders: pad to ``ntp >= 1`` with an inert tile
+    and derive the superblock index, on ``device``."""
     rtp = round_up(rows, TILE)
     vtp = round_up(max(cols, 1), SB_VERTS)
     i32 = dict(dtype=torch.int32, device=device)
@@ -113,10 +121,14 @@ def _finalize(
         tiles = torch.zeros((1, TILE, TILE_WORDS), **i32)
         row_idx = torch.tensor([rtp // TILE], **i32)
         col_id = torch.tensor([vtp // TILE], **i32)
+    sb = torch.searchsorted(
+        (col_id[: max(nt, 0)] // SB_TILES).to(torch.int64).contiguous(),
+        torch.arange(vtp // SB_VERTS + 1, dtype=torch.int64, device=device),
+    )
     return AdjTiles(
         rows=int(rows), cols=int(cols), rtp=rtp, vtp=vtp, nt=int(nt),
         tiles=tiles.contiguous(), row_idx=row_idx.contiguous(),
-        col_id=col_id.contiguous(),
+        col_id=col_id.contiguous(), sb_indptr=sb.to(torch.int32),
         keys2d=keys2d.to(device=device, dtype=torch.int32).contiguous(),
     )
 
@@ -231,14 +243,26 @@ def _relay_edges(rg, device):
     return src, torch.from_numpy(np.asarray(rg.adj_dst, dtype=np.int64)).to(device)
 
 
+def resolve_tiles_builder(builder: str | None = None) -> str:
+    """The tile builder: explicit arg > ``BFS_TPU_TORCH_TILES_BUILD`` >
+    ``device`` (``host`` is the pinned numpy oracle)."""
+    from .. import knobs
+
+    builder = builder or knobs.get("BFS_TPU_TORCH_TILES_BUILD")
+    if builder not in ("device", "host"):
+        raise ValueError(f"unknown tiles builder {builder!r}; use device|host")
+    return builder
+
+
 def build_adj_tiles_from_relay(
-    rg, builder: str = "device", budget_bytes: int | None = None,
+    rg, builder: str | None = None, budget_bytes: int | None = None,
     device="cpu",
 ) -> AdjTiles:
     """The single-device layout: rows == cols == the relay ``vr``, keys
-    ``new2old``.  ``builder="device"`` runs the torch builder on
-    ``device``; ``"host"`` runs the numpy oracle on the CPU (the tests'
-    cross-check).
+    ``new2old``.  ``builder`` (:func:`resolve_tiles_builder`) ``device``
+    runs the torch builder on ``device``; ``host`` runs the numpy oracle
+    on the CPU, the builder for a layout the card cannot hold while it
+    builds.
 
     Unlike the reference, a failure of the device builder is not retried
     on the host oracle: on the card the tiles must end up on the card
@@ -246,8 +270,7 @@ def build_adj_tiles_from_relay(
     out-of-memory, and on the CPU both builders run on the same machine.
     An over-budget layout raises ``ValueError`` before any tile is
     allocated."""
-    if builder not in ("device", "host"):
-        raise ValueError(f"unknown tiles builder {builder!r}; use device|host")
+    builder = resolve_tiles_builder(builder)
     keys2d = keys_from_new2old(rg.new2old, rg.vr)
     if builder == "host":
         deg = np.diff(np.asarray(rg.adj_indptr[: rg.vr + 1], dtype=np.int64))
@@ -261,6 +284,26 @@ def build_adj_tiles_from_relay(
         src, dst, rows=rg.vr, cols=rg.vr, keys2d=keys2d,
         budget_bytes=budget_bytes, device=device,
     )
+
+
+def num_superblocks(at: AdjTiles) -> int:
+    """Column superblocks of a layout: the streaming transfer unit."""
+    return int(at.vtp // SB_VERTS)
+
+
+def sb_span(at: AdjTiles, g: int) -> tuple[int, int]:
+    """Tile span ``[lo, hi)`` of column superblock ``g``: real tiles only
+    (the pad tiles' ``col_id = vtp // TILE`` sorts past every span, so
+    ``sb_indptr[num_superblocks] == nt``)."""
+    return int(at.sb_indptr[g]), int(at.sb_indptr[g + 1])
+
+
+def sb_row_blocks(at: AdjTiles, g: int) -> np.ndarray:
+    """Ascending unique frontier row blocks (``row_idx`` values) that
+    superblock ``g``'s tiles read: the input of the streamed arm's demand
+    set."""
+    lo, hi = sb_span(at, g)
+    return np.unique(at.row_idx[lo:hi].cpu().numpy())
 
 
 def _popcount32(words: torch.Tensor) -> torch.Tensor:
@@ -294,3 +337,48 @@ def tile_occupancy_hist(at: AdjTiles) -> dict:
         "buckets": hist,
     }
 
+
+# ------------------------------------------------------------------------
+# The tiles bundle (cache/layout.load_or_build_tiles): the reference's
+# schema, uint32 words as the reference stores them, so a bundle written by
+# either package loads in the other.
+# ------------------------------------------------------------------------
+
+def tiles_to_arrays(at: AdjTiles) -> dict[str, np.ndarray]:
+    def host(t: torch.Tensor, dtype=np.int32) -> np.ndarray:
+        return t.cpu().numpy().view(dtype)
+
+    return {
+        "dims": np.array([TILES_VERSION, at.rows, at.cols, at.rtp, at.vtp, at.nt],
+                         dtype=np.int64),
+        "tiles": host(at.tiles, np.uint32),
+        "row_idx": host(at.row_idx),
+        "col_id": host(at.col_id),
+        "sb_indptr": host(at.sb_indptr),
+        "keys2d": host(at.keys2d, np.uint32),
+    }
+
+
+def _tensor(a, dtype) -> torch.Tensor:
+    """A CPU int32 tensor over ``a``'s words without a copy: a bundle's
+    large arrays are read-only memmaps, which no code of the port writes
+    (torch warns about any non-writable array)."""
+    a = np.asarray(a)
+    if a.dtype != dtype:
+        a = a.astype(dtype)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a.view(np.int32))
+
+
+def tiles_from_arrays(z) -> AdjTiles:
+    dims = np.asarray(z["dims"])
+    if int(dims[0]) != TILES_VERSION:
+        raise ValueError(f"adj-tiles schema version {int(dims[0])}")
+    return AdjTiles(
+        rows=int(dims[1]), cols=int(dims[2]), rtp=int(dims[3]), vtp=int(dims[4]),
+        nt=int(dims[5]),
+        tiles=_tensor(z["tiles"], np.uint32), row_idx=_tensor(z["row_idx"], np.int32),
+        col_id=_tensor(z["col_id"], np.int32), sb_indptr=_tensor(z["sb_indptr"], np.int32),
+        keys2d=_tensor(z["keys2d"], np.uint32),
+    )

@@ -30,6 +30,15 @@ mirror knobs of the reference's registry of the same names without
                                                  an int, or inf | infinite |
                                                  single (one bucket); <= 0
                                                  is one bucket
+  BFS_TPU_TORCH_TILES            enum    resident where the MXU arm's tiles
+                                                 live: resident | stream |
+                                                 auto
+  BFS_TPU_TORCH_TILES_BUILD      enum    device  device | host tile builder
+  BFS_TPU_TORCH_STREAM_CACHE_GB  float   1       the streamed arm's device
+                                                 superblock cache (GiB, > 0)
+  BFS_TPU_TORCH_STREAM_VERIFY    flag    0       fingerprint every cache hit
+  BFS_TPU_TORCH_TILES_CACHE      flag    0       keep built tiles bundles in
+                                                 the layout store
   ============================== ======= ======= ==========================
 """
 
@@ -100,6 +109,12 @@ def _delta(raw: str) -> int:
     return min(value, _INT32_MAX)
 
 
+def _flag(raw: str) -> bool:
+    if raw not in ("0", "1"):
+        raise ValueError("use one of 0 | 1")
+    return raw == "1"
+
+
 def _positive_float(raw: str) -> float:
     value = float(raw)
     if not value > 0:
@@ -133,6 +148,19 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_SSSP_DELTA", "spec", "64", _delta,
          "delta-stepping bucket width of sssp (int, or inf/single for plain "
          "frontier Bellman-Ford); non-positive = one bucket"),
+    Knob("BFS_TPU_TORCH_TILES", "enum", "resident", _enum("resident", "stream", "auto"),
+         "where the MXU arm's adjacency tiles live: on the card, streamed per "
+         "superblock from pinned host memory, or streamed when over the cache budget"),
+    Knob("BFS_TPU_TORCH_TILES_BUILD", "enum", "device", _enum("device", "host"),
+         "adjacency-tile builder; host is the numpy oracle, byte-identical"),
+    Knob("BFS_TPU_TORCH_STREAM_CACHE_GB", "float", "1", _positive_float,
+         "the streamed arm's device superblock cache budget (LRU, a single "
+         "oversized superblock allowed)"),
+    Knob("BFS_TPU_TORCH_STREAM_VERIFY", "flag", "0", _flag,
+         "fingerprint a streamed superblock again on every cache hit; a corrupt "
+         "entry is dropped and fetched again"),
+    Knob("BFS_TPU_TORCH_TILES_CACHE", "flag", "0", _flag,
+         "keep built adjacency-tile bundles in the layout store"),
 )}
 
 

@@ -46,6 +46,10 @@ against bit-packed 128x128 adjacency tiles (:mod:`bfs_tpu_torch.graph.adj_tiles`
 :mod:`bfs_tpu_torch.ops.relay_mxu`; kernel ``mxu_expand`` on tensor cores),
 whose candidates are ORIGINAL ids that the packed update merges as they
 are.  The element-major batch stays on the gather formulation.
+``tiles_mode="stream"`` (or ``auto`` over the cache budget) keeps the tiles
+in a pinned host store instead and pages column superblocks onto the card
+per pull level (:mod:`bfs_tpu_torch.stream`, :meth:`RelayEngine.run_streamed`);
+:meth:`RelayEngine.run` and :meth:`RelayEngine.run_segmented` route there.
 
 The relay engine's schedule (``sparse_hybrid=True``, the default, as in the
 reference): in the ``auto`` and ``push`` modes of its direction policy each
@@ -77,7 +81,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..graph.adj_tiles import build_adj_tiles_from_relay
 from ..graph.csr import DeviceGraph, Graph, INF_DIST, build_device_graph
 from ..graph.ell import PullGraph, build_pull_graph, device_ell
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
@@ -182,6 +185,11 @@ class RelayEngine:
     ``mxu`` builds the adjacency tiles on ``device`` under
     ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
     they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
+    ``tiles_mode`` (``resident|stream|auto``, default
+    ``BFS_TPU_TORCH_TILES``) says where the MXU arm's tiles live: shipped
+    to ``device``, or (``stream``, and ``auto`` when they exceed the stream
+    cache budget) cut into the host store :attr:`stream_store` with only the
+    O(V) key table on the device, searched by :meth:`run_streamed`.
     ``direction`` (``push|pull|auto``, default ``BFS_TPU_TORCH_DIRECTION``)
     is :attr:`direction`, the schedule's policy.  ``sparse_hybrid`` (default
     True, as in the reference) ships the sparse body's adjacency
@@ -195,7 +203,7 @@ class RelayEngine:
     def __init__(
         self, graph: Graph | RelayGraph, *, device=None, sparse_hybrid: bool = True,
         expansion: str | None = None, tiles_budget_bytes: int | None = None,
-        direction: str | None = None,
+        direction: str | None = None, tiles_mode: str | None = None,
     ):
         from .direction import resolve_direction  # direction.py imports this module
 
@@ -208,6 +216,9 @@ class RelayEngine:
                 "gather superstep); use 'pull' or 'auto'"
             )
         self.sparse_hybrid = bool(sparse_hybrid)
+        #: Where the MXU arm's tiles live (frozen; an ``auto`` engine decides
+        #: per run, :meth:`_stream_effective`).
+        self.tiles_mode = RM.resolve_tiles_mode(tiles_mode)
         rg = graph if isinstance(graph, RelayGraph) else build_relay_graph(graph)
         self.relay_graph = rg
         self.packed = packed_rank_fits(rg.in_classes)
@@ -233,6 +244,13 @@ class RelayEngine:
         #: supersteps issued per body) on single-source searches.
         self.last_run: dict = {}
         self.adj_tiles = None
+        self.mxu_operands = None
+        #: The stream ledger of the last streamed run (:meth:`run_streamed`).
+        self.stream_report: dict | None = None
+        self._stream_store = None
+        self._stream_cache = None
+        self._stream_copy = None  # the copy stream of every cache of this engine
+        self._stream_keys2d = None
         self._route_index = None
         self._rank_tables = None
         self._sparse: dict = {}
@@ -265,19 +283,72 @@ class RelayEngine:
             self._build_tiles(RM.DEFAULT_TILES_BUDGET_BYTES if budget is None else int(budget))
 
     def _build_tiles(self, budget: int) -> None:
-        """Build the tiled adjacency on the engine's device and keep its
-        device operands."""
+        """The tiled adjacency through ``load_or_build_tiles`` (built on the
+        engine's device unless ``BFS_TPU_TORCH_TILES_BUILD=host``), then
+        either shipped as the expansion's device operands, or, in stream
+        mode (and ``auto`` over the cache budget), cut into the host store
+        with only ``keys2d`` kept on the device; the layout's device copy is
+        then released."""
+        from ..cache.layout import load_or_build_tiles
+
         t0 = time.perf_counter()
-        at = build_adj_tiles_from_relay(self.relay_graph, budget_bytes=budget, device=self.device)
-        self.mxu_operands = RM.mxu_device_operands(at, self.device)
+        at, self.tiles_info = load_or_build_tiles(self.relay_graph, budget_bytes=budget,
+                                                  device=self.device)
         self.mxu_geometry = RM.mxu_static(at)
-        self.adj_tiles = at
-        #: Host seconds of the tile build and shipping.
+        #: Bytes of the tile layout (what ``auto`` holds against the budget).
+        self.tiles_nbytes = at.nbytes
+        if self.tiles_mode == "stream" or (
+                self.tiles_mode == "auto" and at.nbytes > RM.stream_cache_budget_bytes()):
+            from ..stream.runner import keys2d_for
+            from ..stream.store import HostTileStore
+
+            self._stream_store = HostTileStore(at, pin=self.device.type == "cuda")
+            keys2d_for(self)
+        else:
+            self.mxu_operands = RM.mxu_device_operands(at, self.device)
+            self.adj_tiles = at
+        #: Host seconds of the tile build and its shipping (or its host store).
         self.tiles_build_s = time.perf_counter() - t0
         logger.info(
-            "mxu tiles: %d tiles, %d bytes, built in %.3f s on %s",
+            "mxu tiles: %d tiles, %d bytes, built in %.3f s on %s, %s",
             at.nt, at.nbytes, self.tiles_build_s, self.device,
+            "resident" if self.adj_tiles is not None else "host store",
         )
+
+    # -- beyond device memory: the streamed arm ------------------------------------
+
+    def _stream_effective(self) -> bool:
+        """Do this engine's searches page the tiles from the host store?
+        Only the MXU arm streams (a gather engine stays resident whatever
+        ``tiles_mode`` says); a stream engine always does; ``auto`` does
+        exactly when the layout exceeds the stream cache budget now."""
+        if self.expansion != "mxu":
+            return False
+        if self.adj_tiles is None:
+            return True  # the tiles live in the host store only
+        return self.tiles_mode == "auto" and self.tiles_nbytes > RM.stream_cache_budget_bytes()
+
+    @property
+    def stream_store(self):
+        """The host tile store (:class:`~bfs_tpu_torch.stream.HostTileStore`)
+        of the streamed arm, cut from the resident layout at first use on an
+        ``auto`` engine."""
+        from ..stream.runner import store_for
+
+        return store_for(self)
+
+    def run_streamed(self, source: int = 0, *, ckpt=None, max_levels: int | None = None,
+                     telemetry: bool = False, cache_budget_bytes: int | None = None):
+        """One search with the tiles paged per column superblock from the
+        host store through the device cache
+        (:func:`bfs_tpu_torch.stream.run_streamed`): the streamed twin of
+        :meth:`run_segmented` (with ``ckpt``) and :meth:`run`, bit for bit
+        with them; the ledger lands on :attr:`stream_report`.  Raises
+        ``ValueError`` on a gather engine."""
+        from ..stream.runner import run_streamed
+
+        return run_streamed(self, source, ckpt=ckpt, max_levels=max_levels,
+                            telemetry=telemetry, cache_budget_bytes=cache_budget_bytes)
 
     # -- one superstep ------------------------------------------------------
 
@@ -300,6 +371,10 @@ class RelayEngine:
         """The packed carry's candidates: min ranks per vertex (gather arm),
         or min ORIGINAL ids (MXU arm, kernel ``mxu_expand``)."""
         if self.expansion == "mxu":
+            if self.mxu_operands is None:
+                raise RuntimeError(
+                    "a streamed engine keeps its tiles in the host store: search with "
+                    "run, run_segmented or run_streamed")
             rows, cols, rtp, vtp, _ = self.mxu_geometry
             return K.expand_frontier_mxu(
                 fwords, self.mxu_operands, rows=rows, cols=cols, rtp=rtp, vtp=vtp, ctl=ctl
@@ -663,6 +738,8 @@ class RelayEngine:
         """One search from ``source``.  ``times`` (a card, the hybrid
         schedule): a list that gets ``(body, device ms)`` per superstep, by
         CUDA events around its replay."""
+        if self._stream_effective():
+            return self.run_streamed(source, max_levels=max_levels)
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
@@ -918,7 +995,11 @@ class RelayEngine:
         epochs are cleared when the run completes.  :attr:`last_run` holds
         the loop's counts over every segment this process ran, and
         ``copy_s``, the host seconds of the carry's copies to the host (the
-        epochs' writes are the checkpointer's ``snapshot_seconds``)."""
+        epochs' writes are the checkpointer's ``snapshot_seconds``).  A
+        streamed engine runs :meth:`run_streamed` on the same epochs."""
+        if self._stream_effective():
+            return self.run_streamed(source, ckpt=ckpt, max_levels=max_levels,
+                                     telemetry=telemetry)
         rg = self.relay_graph
         check_sources(rg.num_vertices, source)
         max_levels = int(max_levels) if max_levels is not None else rg.vr

@@ -15,7 +15,8 @@ place with device ops only, so they can be captured in a CUDA graph.
 
 :func:`read_telemetry` is the one host copy of all accumulators at loop
 exit; :func:`level_curve` and :func:`direction_schedule` turn the host
-arrays into the reference's JSON-ready dicts.  The reference splits a
+arrays into the reference's JSON-ready dicts, and :func:`stream_report`
+the streamed arm's per-level rows into its ledger.  The reference splits a
 batch's counts into lo16/hi16 int32 halves because its device has no int64
 by default; here the accumulator is int64, and the host dict is the same.
 """
@@ -180,3 +181,21 @@ def level_curve(fvert, fedges=None, *, cap: int | None = None,
         out["reference_reached"] = int(reference_reached)
         out["occupancy_sum_matches_reference"] = int(fv.sum()) == int(reference_reached)
     return out
+
+
+def stream_report(levels: list, *, budget_bytes: int, store: dict, cache: dict) -> dict:
+    """JSON-ready ledger of a streamed run (the reference's keys): the
+    per-level rows (arm, demanded superblocks, level, and the cache's
+    counter deltas over the level), their totals, the host store's shape
+    and the cache's lifetime counters.  Totals sum the per-level deltas, so
+    a cache kept on the engine across runs still reports this run's
+    volume."""
+    total_keys = ("bytes_streamed", "hits", "misses", "evictions", "corrupt_refetches")
+    totals = {k: int(sum(int(row.get(k, 0)) for row in levels)) for k in total_keys}
+    return {
+        "budget_bytes": int(budget_bytes),
+        **{k: store[k] for k in sorted(store)},
+        "levels": [dict(row) for row in levels],
+        **totals,
+        "cache": dict(cache),
+    }

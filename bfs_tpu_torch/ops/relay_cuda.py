@@ -962,14 +962,29 @@ MXU_SPARSE_MAX_BITS = 256
 
 def expand_frontier_mxu(
     fwords: torch.Tensor, tile_ops: tuple, *, rows: int, cols: int, rtp: int,
-    vtp: int, ctl: torch.Tensor | None = None,
+    vtp: int, ctl: torch.Tensor | None = None, out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Min original-id candidate per destination, int32[cols] (uint32
     patterns, -1 where none): kernel ``mxu_expand`` on the card, into an
     output cleared to 0xFFFFFFFF here;
-    :func:`.relay_mxu.expand_frontier_mxu_plain` on the CPU."""
+    :func:`.relay_mxu.expand_frontier_mxu_plain` on the CPU.
+
+    ``out`` (int32[vtp], a caller's view, e.g. one superblock's rows of the
+    streamed arm's candidate grid with ``vtp = 16384``): the candidates are
+    min-merged into it (the kernel's atomics;
+    :func:`.relay_mxu.expand_into_plain` on the CPU) and it is neither
+    allocated nor cleared here; ``out[:cols]`` is returned.  A slab's pad
+    tiles (column ``vtp // 128``) add nothing: the kernel drops columns
+    ``>= vtp // 128``, and on the CPU they read the zero frontier pad
+    block."""
     tiles, row_idx, col_id, keys2d = tile_ops
-    if not _on_card(fwords, tiles, row_idx, col_id, keys2d):
+    if out is not None:
+        _check_words("out", out, vtp)
+    if not _on_card(fwords, tiles, row_idx, col_id, keys2d, *(() if out is None else (out,))):
+        if out is not None:
+            if ctl is not None and int(ctl[C.LIVE]) == 0:
+                return out[:cols]  # a dead superstep writes nothing
+            return RM.expand_into_plain(fwords, tile_ops, out, rows=rows, rtp=rtp, vtp=vtp)[:cols]
         return RM.expand_frontier_mxu_plain(
             fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp
         )
@@ -986,7 +1001,8 @@ def expand_frontier_mxu(
     if keys2d.data_ptr() % 16:
         raise ValueError("keys2d: expected a 16-byte aligned tensor")
     dev = fwords.device
-    out = torch.full((vtp,), -1, dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.full((vtp,), -1, dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = min(-(-ntp // (32 * MXU_WARPS)), sms * MXU_BLOCKS_PER_SM)
     rc = mxu_kernels().mxu_expand(

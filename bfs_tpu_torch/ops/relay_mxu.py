@@ -17,13 +17,19 @@ merges as it is, since the parent field of this arm holds original ids.
 kernel ``mxu_expand`` (K6, ``csrc/relay_mxu_kernels.cu``, wrapped as
 ``relay_cuda.expand_frontier_mxu``) and computes what the reference's XLA
 twin ``expand_frontier_mxu_xla`` computes, bit for bit.
+:func:`expand_into_plain` min-merges its result into a caller's output,
+the plain version of a launch with ``out=``; the streamed arm
+(:mod:`bfs_tpu_torch.stream`) expands one column superblock at a time with
+it (:func:`expand_superblock_plain`).  Where the tiles live is
+:func:`resolve_tiles_mode`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..graph.adj_tiles import TILE, TILE_WORDS, _popcount32
+from .. import knobs
+from ..graph.adj_tiles import SB_TILES, SB_VERTS, TILE, TILE_WORDS, _popcount32
 from .packed import INT32_MAX
 
 __all__ = [
@@ -35,6 +41,11 @@ __all__ = [
     "live_tiles",
     "reachable_bits",
     "expand_frontier_mxu_plain",
+    "expand_into_plain",
+    "expand_superblock_plain",
+    "TILES_MODES",
+    "resolve_tiles_mode",
+    "stream_cache_budget_bytes",
 ]
 
 EXPANSION_MODES = ("gather", "mxu")
@@ -57,6 +68,31 @@ def resolve_expansion(mode: str | None = None) -> str:
     if mode not in EXPANSION_MODES:
         raise ValueError(f"unknown expansion {mode!r}; use 'gather' or 'mxu'")
     return mode
+
+
+TILES_MODES = ("resident", "stream", "auto")
+
+
+def resolve_tiles_mode(mode: str | None = None) -> str:
+    """Where the MXU arm's tiles live (an explicit argument wins over
+    ``BFS_TPU_TORCH_TILES``): ``resident`` ships the layout to the card
+    once (the default); ``stream`` keeps it in a pinned host store and
+    pages column superblocks in on demand (:mod:`bfs_tpu_torch.stream`);
+    ``auto`` streams exactly when the layout exceeds
+    :func:`stream_cache_budget_bytes`.  Raises on an unknown mode."""
+    if mode is None:
+        mode = knobs.get("BFS_TPU_TORCH_TILES")
+    if mode not in TILES_MODES:
+        raise ValueError(f"unknown tiles mode {mode!r}; use 'resident', 'stream' or 'auto'")
+    return mode
+
+
+def stream_cache_budget_bytes() -> int:
+    """The streamed arm's device cache budget
+    (``BFS_TPU_TORCH_STREAM_CACHE_GB``, default 1 GiB): the working set the
+    LRU accounts against, not an allocator limit (a slab being expanded
+    stays alive past its eviction)."""
+    return int(knobs.get("BFS_TPU_TORCH_STREAM_CACHE_GB") * (1 << 30))
 
 
 def mxu_device_operands(at, device) -> tuple:
@@ -139,3 +175,39 @@ def expand_frontier_mxu_plain(
         dst = (col_id[ix].long()[:, None] * TILE + lane).reshape(-1)
         out.scatter_reduce_(0, dst, cand.reshape(-1), "amin")
     return out[:cols] ^ _FLIP
+
+
+def _umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Unsigned minimum of int32 bit patterns."""
+    return torch.minimum(a ^ _FLIP, b ^ _FLIP) ^ _FLIP
+
+
+def expand_into_plain(
+    fwords: torch.Tensor, tile_ops: tuple, out: torch.Tensor, *, rows: int, rtp: int,
+    vtp: int,
+) -> torch.Tensor:
+    """:func:`expand_frontier_mxu_plain` over all ``vtp`` columns, min-merged
+    (unsigned) into ``out`` int32[vtp] in place, as a launch of
+    ``mxu_expand`` with ``out=`` does with its atomics.  Returns ``out``.
+
+    A superblock slab's pad tiles (column ``vtp // 128``, row block
+    ``rtp // 128``) read the zero frontier pad block, so they are never
+    live and add nothing."""
+    cand = expand_frontier_mxu_plain(fwords, tile_ops, rows=rows, cols=vtp, rtp=rtp, vtp=vtp)
+    return out.copy_(_umin(out, cand))
+
+
+def expand_superblock_plain(
+    fwords: torch.Tensor, slab: tuple, keys2d: torch.Tensor, g: int, grid: torch.Tensor, *,
+    rows: int, rtp: int,
+) -> torch.Tensor:
+    """The streamed arm's expansion of column superblock ``g``: its slab
+    ``(tiles, row_idx, col_local)`` (column tiles local to the superblock,
+    pad tiles at ``col_local = SB_TILES``) min-merged into rows
+    ``[g * 16384, (g + 1) * 16384)`` of the caller's candidate grid
+    int32[vtp].  Returns that view.  The plain version of a launch of
+    ``mxu_expand`` on the slab with ``out=`` that view."""
+    tiles, row_idx, col_local = slab
+    view = grid[g * SB_VERTS : (g + 1) * SB_VERTS]
+    return expand_into_plain(fwords, (tiles, row_idx, col_local, keys2d), view,
+                             rows=rows, rtp=rtp, vtp=SB_TILES * TILE)

@@ -480,7 +480,6 @@ def run_multi_segmented(graph, sources, *, ckpt: SuperstepCheckpointer, engine: 
 NOT_PORTED = {
     "sharded": "ROADMAP A12 (multi-GPU)",
     "grid": "ROADMAP A12 (multi-GPU)",
-    "stream": "ROADMAP A13 (beyond-HBM streaming)",
 }
 
 
@@ -496,7 +495,7 @@ def _runner_main(argv=None) -> int:
     import sys
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", required=True, choices=("relay", "multi", *NOT_PORTED))
+    ap.add_argument("--config", required=True, choices=("relay", "multi", "stream", *NOT_PORTED))
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--scale", type=int, default=8)
@@ -531,6 +530,20 @@ def _runner_main(argv=None) -> int:
         eng = RelayEngine(graph, device=args.device, sparse_hybrid=True, direction="auto")
         result, curve = eng.run_segmented(args.source, ckpt=ckpt, telemetry=True)
         doc.update(direction_schedule=curve["direction_schedule"])
+    elif args.config == "stream":
+        # The streamed MXU arm under a budget of one largest superblock, so
+        # even a toy graph evicts.  A kill loses the cache (derived content)
+        # but not the carry: the resumed run's results and schedule are the
+        # golden run's, its ledger (a cold cache) is not.
+        from ..models.bfs import RelayEngine
+
+        eng = RelayEngine(graph, device=args.device, sparse_hybrid=True, direction="auto",
+                          expansion="mxu", tiles_mode="stream")
+        store = eng.stream_store
+        budget = max(store.sb_bytes(g) for g in range(store.num_superblocks))
+        result, curve = eng.run_streamed(args.source, ckpt=ckpt, telemetry=True,
+                                         cache_budget_bytes=budget)
+        doc.update(direction_schedule=curve["direction_schedule"], stream=eng.stream_report)
     else:  # multi
         v = graph.num_vertices
         sources = [(args.source + 7 * i) % v for i in range(4)]

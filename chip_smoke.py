@@ -131,6 +131,23 @@ unpacked against the heapq ``dijkstra`` and CC against
 and ``graph500_run.main`` at scale 16.  Every run's control steps are held
 to its supersteps issued and added to the ``loop_control`` row.
 
+The streamed MXU arm (``bfs_tpu_torch.stream``) closes the s22 part, once
+every resident MXU engine is freed: ``RelayEngine(tiles_mode="stream")``
+(its tiles built on the card, cut into pinned host slabs per column
+superblock and fingerprinted, the card's copy released; the device memory
+it holds beside the resident MXU engine's), ``mxu_expand`` through
+``out=`` on superblock slabs against the plain per-superblock expansion,
+``run_streamed`` for the max-degree root and one drawn root under a 4 GiB
+cache (oracle-exact, equal to the dense MXU arm, the schedule the host's
+recomputation, evictions counted, ``mxu_expand`` launched once per
+demanded superblock and ``packed_update`` once per pull level), one
+all-pull search at the default 1 GiB budget with each level's bytes, its
+copy rate beside a timed 1 GiB pinned copy and the share of copy time
+hidden under ``mxu_expand`` (CUDA events), ``run_segmented`` at
+``every:2`` killed at boundary 2 and resumed with a cold cache
+(bit-identical), and each streamed run's device peak against held bytes
++ budget + one largest slab + the candidate grid + a stated margin.
+
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
 Each path is also run on the eager loop (a host read per level) and held
@@ -1433,7 +1450,8 @@ def tiles_oracle_check(P, generators, AT) -> None:
 
 def mxu_engine(P, AT, rg, scale: int):
     """The MXU engine on the cell's graph: the tiles built on the card, timed, with the
-    peak device memory of the build and the occupancy histogram."""
+    peak device memory of the build and the occupancy histogram.  Returns the engine and
+    the device bytes it holds."""
     import torch
 
     torch.cuda.synchronize()
@@ -1455,7 +1473,7 @@ def mxu_engine(P, AT, rg, scale: int):
     t0 = time.perf_counter()
     hist = AT.tile_occupancy_hist(at)
     log(f"tiles s{scale}: occupancy ({time.perf_counter() - t0:.2f} s): {json.dumps(hist)}")
-    return meng
+    return meng, held
 
 
 def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
@@ -3261,6 +3279,363 @@ def algo_small_checks(P, generators, K, L) -> dict:
     return dict(rounds=packed.rounds, graph500_s=g500_s)
 
 
+# ------------------------------------------------ beyond device memory --
+
+STREAM_BUDGET = 4 << 30  # the stream phase's cache: the s22 tiles (21 GB) far exceed it
+STREAM_PEAK_MARGIN = 256 << 20  # the sparse body's and the result path's temporaries
+H2D_BOUND_BYTES = 1 << 30  # the pinned copy that bounds the streamed rate
+
+
+def pinned_copy_gbs(device, reps: int = 5) -> float:
+    """The card's host-to-device rate: the best of ``reps`` timed copies of
+    ``H2D_BOUND_BYTES`` from pinned host memory (CUDA events), in GB/s."""
+    import torch
+
+    host = torch.empty(H2D_BOUND_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(H2D_BOUND_BYTES, dtype=torch.uint8, device=device)
+    dev.copy_(host, non_blocking=True)
+    best = None
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dev.copy_(host, non_blocking=True)
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        best = ms if best is None else min(best, ms)
+    del host, dev
+    return H2D_BOUND_BYTES / (best / 1e3) / 1e9
+
+
+def frontier_of(eng, dist, level: int):
+    """The relay frontier words of the vertices at ``level`` of an oracle
+    result (original ids), on the engine's device."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.ops import relay as R
+
+    rg = eng.relay_graph
+    bits = np.zeros(rg.vr, dtype=bool)
+    bits[np.asarray(rg.old2new)[np.flatnonzero(dist == level)]] = True
+    return R.pack_std(torch.from_numpy(bits)).to(eng.device)
+
+
+def stream_kernel_check(seng, dist, K, RM, AT, card: str) -> dict:
+    """``mxu_expand`` through ``out=`` on superblock slabs against the plain
+    per-superblock expansion on the card, at the oracle level with the most
+    vertices: the largest slab and the first, each uploaded by the cache;
+    then one largest-slab launch timed (cold L2) beside the plain version."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.stream import SuperblockCache
+    from bfs_tpu_torch.stream.runner import keys2d_for
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    store = seng.stream_store
+    rows, _cols, rtp, vtp, _ = seng.mxu_geometry
+    level = int(np.argmax(np.bincount(dist[dist != np.iinfo(np.int32).max])))
+    fw = frontier_of(seng, dist, level)
+    big = max(range(store.num_superblocks), key=store.sb_bytes)
+    cache = SuperblockCache(store, budget_bytes=2 * store.sb_bytes(big), device=seng.device)
+    keys2d = keys2d_for(seng)
+    kw = dict(rows=rows, cols=AT.SB_VERTS, rtp=rtp, vtp=AT.SB_VERTS)
+    err = 0
+    for sb in dict.fromkeys((big, 0)):
+        slab = cache.get(sb)
+        slab.wait()
+        grid = torch.full((vtp,), -1, dtype=torch.int32, device=seng.device)
+        want = torch.full((vtp,), -1, dtype=torch.int32, device=seng.device)
+        K.expand_frontier_mxu(fw, (*slab, keys2d), **kw,
+                              out=grid[sb * AT.SB_VERTS : (sb + 1) * AT.SB_VERTS])
+        RM.expand_superblock_plain(fw, slab, keys2d, sb, want, rows=rows, rtp=rtp)
+        err = max(err, max_abs_err(grid, want))
+    if err:
+        raise AssertionError(f"mxu_expand through out=: differs from the plain per-superblock "
+                             f"expansion (max err {err})")
+    slab = cache.get(big)
+    view = grid[big * AT.SB_VERTS : (big + 1) * AT.SB_VERTS]
+    ms = cold_ms(lambda: K.expand_frontier_mxu(fw, (*slab, keys2d), **kw, out=view), 10,
+                 prep=lambda: view.fill_(-1))
+    pms = cold_ms(lambda: RM.expand_superblock_plain(fw, slab, keys2d, big, grid, rows=rows,
+                                                     rtp=rtp), 2, warm=1)
+    live = int(RM.live_tiles(fw, (slab[0], slab[1], slab[2], keys2d), rows=rows,
+                             rtp=rtp).numel())
+    log(f"stream kernel: mxu_expand through out= on superblocks {sorted({big, 0})} (largest "
+        f"{store.real_tiles(big)} real of {store.pad_tiles(big)} tiles) at level {level}: "
+        f"bit-exact against the plain per-superblock expansion; the largest slab "
+        f"{ms:.4f} ms per launch ({live} live tiles, plain {pms:.4f} ms), cold L2; {card}")
+    return {"superblock": big, "level": level, "ms": ms, "plain_ms": pms, "live": live}
+
+
+def stream_phase(P, rg, g, roots, want: dict, dense: dict, resident_held: int, K, RM, AT, D,
+                 card: str, ckpt_store: str) -> dict:
+    """The streamed MXU arm at R-MAT s22: ``RelayEngine(tiles_mode="stream")``
+    built after every resident MXU engine is freed (its tiles built on the
+    card, cut into pinned host slabs, the card's copy released; the device
+    memory it holds beside the resident engine's, ``resident_held``); K6
+    through ``out=`` against the plain per-superblock expansion; the
+    max-degree root and one drawn root by ``run_streamed`` under a
+    ``STREAM_BUDGET`` cache (oracle-exact, equal to the dense MXU arm's
+    results ``dense``, the schedule the host's recomputation, evictions, and
+    ``mxu_expand`` launched once per demanded superblock, ``packed_update``
+    once per pull level); one all-pull search at the default 1 GiB budget
+    with each level's bytes, its copy rate beside a timed pinned copy (the
+    best before and after the search: the host link varies), and the share
+    of copy time hidden under K6 (CUDA events); ``run_segmented`` of the
+    drawn root (whose pull levels come after boundary 2) at
+    ``every:CKPT_EVERY`` killed at boundary 2 and resumed with a fresh
+    cache, bit-identical; each streamed run's device peak (taken around
+    the run alone) against held + budget + one largest slab + the grid +
+    ``STREAM_PEAK_MARGIN``."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.ops import sparse as S
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+    from bfs_tpu_torch.stream.runner import cache_for
+
+    out = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seng = P.RelayEngine(rg, device="cuda", expansion="mxu", direction="auto",
+                         tiles_mode="stream", tiles_budget_bytes=TILES_BUDGET)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    init_peak = torch.cuda.max_memory_allocated() - base
+    store = seng.stream_store
+    srep = store.report()
+    real = sum(store.real_tiles(sb) * (AT.TILE_BYTES + 8) for sb in range(store.num_superblocks))
+    slabs = srep["host_store_bytes"] - store.keys2d.numel() * 4
+    tile_bytes = store.nt * AT.TILE_BYTES
+    if seng.adj_tiles is not None or not store.pinned:
+        raise AssertionError("stream engine: the tiles must live in the pinned host store only")
+    if held > resident_held - tile_bytes + (1 << 30):
+        raise AssertionError(f"stream engine holds {held} bytes on the card, the resident MXU "
+                             f"engine {resident_held}: not lower by about the {tile_bytes} tile "
+                             "bytes")
+    log(f"stream engine: RelayEngine(tiles_mode='stream') in {init_s:.2f} s: tile "
+        f"build {seng.tiles_info['build_seconds']:.3f} s on the card, host store "
+        f"{store.build_s['pin_s']:.3f} s pinning, {store.build_s['copy_s']:.3f} s filling from "
+        f"the card, then {store.build_s['fingerprint_s']:.3f} s for the fingerprints still "
+        f"running (a pool of {os.cpu_count()}); {srep['num_superblocks']} "
+        f"superblocks, {store.nt} real tiles ({tile_bytes} bytes), host_store_bytes "
+        f"{srep['host_store_bytes']} (padding {1 - real / slabs:.4f} of the slab bytes), largest "
+        f"slab {srep['max_superblock_bytes']}; device memory held {held} bytes against the "
+        f"resident MXU engine's {resident_held} ({resident_held - held} less), init peak "
+        f"{init_peak} ({card})")
+    out.update(init_s=init_s, held=held, store=srep, build_s=dict(store.build_s),
+               pad_share=1 - real / slabs, tiles_build_s=seng.tiles_info["build_seconds"])
+    out["kernel"] = stream_kernel_check(seng, want[roots[0]][0][0], K, RM, AT, card)
+
+    # ---- the max-degree root and one drawn root, budget STREAM_BUDGET
+    torch.cuda.synchronize()
+    after_init = torch.cuda.memory_allocated()
+    peaks, reserved = [], []
+
+    def streamed(call):
+        """One streamed run with the device peak taken around it alone (the
+        checks after it allocate their own temporaries), and how far the
+        allocator's reserved memory grew in it (its cache of free blocks
+        included)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_reserved()
+        try:
+            return call()
+        finally:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            reserved.append(torch.cuda.max_memory_reserved() - start)
+    budgets = S.sparse_budgets(rg.vr, len(rg.adj_dst))
+    outdeg = np.bincount(g.src, minlength=g.num_vertices).astype(np.int64)
+    cfg = seng.direction
+    totals = {"mxu_expand": 0, "packed_update": 0}
+    out["rows"], fused = [], {}
+
+    def same(label, got, r):
+        (dist, parent), _ = want[r]
+        ref = dense[r]
+        for what, d, p in (("the oracle", dist, parent), ("the dense MXU arm", ref.dist,
+                                                            ref.parent)):
+            if not (np.array_equal(got.dist, d) and np.array_equal(got.parent, p)):
+                raise AssertionError(f"{label} root {r}: differs from {what}")
+        if got.num_levels != ref.num_levels:
+            raise AssertionError(f"{label} root {r}: {got.num_levels} levels, dense MXU "
+                                 f"{ref.num_levels}")
+        verify(f"{label} root {r}", got.dist, got.parent, r)
+
+    def launched(rows_, some: bool = True):
+        pulls = [row for row in rows_ if row["arm"] == "pull"]
+        got = {k: K.LAUNCHES[k] for k in totals}
+        expect = {"mxu_expand": sum(row["demanded"] for row in pulls), "packed_update": len(pulls)}
+        if got != expect or (some and not all(got.values())):
+            raise AssertionError(f"stream: launches {got}, expected {expect} from the ledger")
+        for k in totals:
+            totals[k] += got[k]
+        return got
+
+    for r in roots[:2]:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, curve = streamed(lambda: seng.run_streamed(r, telemetry=True,
+                                                        cache_budget_bytes=STREAM_BUDGET))
+        secs = time.perf_counter() - t0
+        ledger = seng.stream_report
+        got = launched(ledger["levels"])
+        same("stream auto", res, r)
+        expected = host_schedule(level_sums(outdeg, want[r][0][0][None], budgets), "auto",
+                                 cfg.alpha, cfg.beta)
+        if curve["direction_schedule"]["schedule"] != expected:
+            raise AssertionError(f"stream root {r}: schedule {curve['direction_schedule']} differs "
+                                 f"from the host's {expected}")
+        if ledger["evictions"] <= 0:
+            raise AssertionError(f"stream root {r}: no eviction under {STREAM_BUDGET} bytes")
+        out["rows"].append(dict(root=r, secs=secs, run=dict(seng.last_run), ledger=ledger))
+        fused[r] = (res, curve)
+        log(f"stream root {r} (auto, cache {STREAM_BUDGET} bytes): {secs:.6f} s, schedule "
+            f"{expected}; per level (arm, demanded, misses, evictions, bytes) "
+            + ", ".join(f"{row['arm']} {row['demanded']} {row['misses']} {row['evictions']} "
+                        f"{row['bytes_streamed']}" for row in ledger["levels"])
+            + f"; {ledger['bytes_streamed']} bytes streamed, {ledger['hits']} hits; launches "
+            f"{got}; oracle-exact, equal to the dense MXU arm ({card})")
+
+    # ---- one all-pull search at the default budget: rates and overlap
+    h2d_before = pinned_copy_gbs(seng.device)
+    seng.direction = D.DirectionConfig("pull", cfg.alpha, cfg.beta)
+    r = roots[0]
+    cache = cache_for(seng, store, None)
+    uploads, k6 = [], []
+    real_k6, real_upload = K.expand_frontier_mxu, cache._upload
+
+    def timed_upload(g, nbytes):
+        # timed events on the copy stream around the cache's own upload
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record(cache._copy_stream)
+        slab = real_upload(g, nbytes)
+        b.record(cache._copy_stream)
+        uploads.append((g, nbytes, a, b))
+        return slab
+
+    def timed_k6(*args, **kwargs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ret = real_k6(*args, **kwargs)
+        b.record()
+        k6.append((a, b))
+        return ret
+
+    if cache._copy_stream is None:
+        raise AssertionError("the stream engine's cache has no copy stream")
+    K.reset_launches()
+    K.expand_frontier_mxu = timed_k6
+    cache._upload = timed_upload
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = streamed(lambda: seng.run_streamed(r))
+        secs = time.perf_counter() - t0
+    finally:
+        K.expand_frontier_mxu = real_k6
+        del cache._upload  # the class's own again
+        seng.direction = cfg
+    h2d = max(h2d_before, pinned_copy_gbs(seng.device))
+    ledger = seng.stream_report
+    got = launched(ledger["levels"])
+    same("stream pull", res, r)
+    ref_ev = uploads[0][2] if uploads else k6[0][0]
+    spans = [(ref_ev.elapsed_time(a), ref_ev.elapsed_time(b)) for _, _, a, b in uploads]
+    kspans = [(ref_ev.elapsed_time(a), ref_ev.elapsed_time(b)) for a, b in k6]
+    levels, ui, ki = [], 0, 0
+    for row in ledger["levels"]:
+        cu, kk = spans[ui : ui + row["misses"]], kspans[ki : ki + row["demanded"]]
+        ui, ki = ui + row["misses"], ki + row["demanded"]
+        copy_ms = sum(e - s for s, e in cu)
+        hidden = sum(max(0.0, min(e, ke) - max(s, ks)) for s, e in cu for ks, ke in kk)
+        span_ms = (max(e for _, e in cu + kk) - min(s for s, _ in cu + kk)) if cu + kk else 0.0
+        levels.append(dict(level=row["level"], demanded=row["demanded"],
+                           bytes=row["bytes_streamed"], copy_ms=copy_ms,
+                           k6_ms=sum(e - s for s, e in kk), span_ms=span_ms,
+                           gbs=row["bytes_streamed"] / copy_ms / 1e6 if copy_ms else 0.0,
+                           hidden=hidden / copy_ms if copy_ms else 0.0))
+    out["pull"] = dict(root=r, secs=secs, h2d_gbs=h2d, levels=levels, ledger=ledger)
+    log(f"stream root {r} (pull, cache {cache.budget_bytes} bytes): {secs:.6f} s; pinned copy "
+        f"bound {h2d:.3f} GB/s ({H2D_BOUND_BYTES} bytes, the best of 5 copies before and 5 "
+        f"after the search: {h2d_before:.3f} before); per level (demanded, bytes, "
+        "copy ms, GB/s, K6 ms, level span ms, copy share hidden under K6) "
+        + ", ".join(f"{x['level']}: {x['demanded']} {x['bytes']} {x['copy_ms']:.3f} "
+                    f"{x['gbs']:.3f} {x['k6_ms']:.3f} {x['span_ms']:.3f} {x['hidden']:.4f}"
+                    for x in levels)
+        + f"; launches {got}; oracle-exact, equal to the dense MXU arm ({card})")
+
+    # ---- run_segmented at every:CKPT_EVERY, killed at boundary 2, resumed cold
+    r = roots[1]
+    fused, fused_curve = fused[r]
+
+    def mgr():
+        return SuperstepCheckpointer(ckpt_store, {"label": "stream", "root": int(r)},
+                                     cfg=ckpt_config(CKPT_EVERY))
+
+    os.environ["BFS_TPU_TORCH_FAULT"] = "raise:superstep:2"
+    F.reset()
+    try:
+        streamed(lambda: seng.run_segmented(r, ckpt=mgr(), telemetry=True))
+        raise AssertionError("stream: the injected fault did not stop the run")
+    except FaultInjected:
+        pass
+    finally:
+        os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+        F.reset()
+    seng._stream_cache = None  # a fresh, cold cache
+    m = mgr()
+    epochs = m.epochs()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res, curve = streamed(lambda: seng.run_segmented(r, ckpt=m, telemetry=True))
+    resume_s = time.perf_counter() - t0
+    launched(seng.stream_report["levels"], some=False)  # the levels after the epoch may be push
+    rep = m.report()
+    if not (np.array_equal(res.dist, fused.dist) and np.array_equal(res.parent, fused.parent)
+            and res.num_levels == fused.num_levels) or \
+            curve["direction_schedule"] != fused_curve["direction_schedule"] or \
+            curve["occupancy"] != fused_curve["occupancy"]:
+        raise AssertionError("stream: the resumed run differs from the fused streamed run")
+    if rep["resumed_from_epoch"] != 2 * CKPT_EVERY or epochs != [CKPT_EVERY, 2 * CKPT_EVERY] \
+            or m.epochs():
+        raise AssertionError(f"stream: resume {rep}, epochs {epochs}, left {m.epochs()}")
+    out["resume"] = dict(root=r, secs=resume_s, report=rep, ledger=seng.stream_report)
+    log(f"stream root {r}: run_segmented every:{CKPT_EVERY} killed by raise:superstep:2 with "
+        f"epochs {epochs}, resumed with a cold cache from epoch {rep['resumed_from_epoch']} in "
+        f"{resume_s:.6f} s ({seng.stream_report['misses']} misses, "
+        f"{seng.stream_report['bytes_streamed']} bytes); dist, parent, schedule and occupancy "
+        f"bit-identical to the fused streamed run ({card})")
+
+    # ---- the device peak over the streamed runs
+    peak = max(peaks)
+    bound = after_init + STREAM_BUDGET + srep["max_superblock_bytes"] + 4 * seng.mxu_geometry[3] \
+        + STREAM_PEAK_MARGIN
+    if peak > bound:
+        raise AssertionError(f"stream: device peak {peak} bytes over its bound {bound}")
+    out.update(peak=peak - after_init, bound=bound - after_init, launches=totals,
+               reserved=reserved)
+    log(f"stream device peak over the streamed runs, each taken around the run alone: "
+        + ", ".join(str(p - after_init) for p in peaks)
+        + f" bytes over the {after_init - base} held, the largest within held + budget {STREAM_BUDGET} + largest slab "
+        f"{srep['max_superblock_bytes']} + grid {4 * seng.mxu_geometry[3]} + margin "
+        f"{STREAM_PEAK_MARGIN} = {bound - after_init}; the allocator's reserved memory grew "
+        f"by " + ", ".join(str(x) for x in reserved) + f" bytes in them ({card})")
+    del seng, cache
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3386,7 +3761,7 @@ def main(argv=None) -> int:
     # ---- MXU arm: tiles, K6 against its plain version, the 4 searches ---
     tiles_oracle_check(P, generators, AT)
     torch.cuda.empty_cache()
-    meng = mxu_engine(P, AT, rg, args.scale)
+    meng, mxu_held = mxu_engine(P, AT, rg, args.scale)
     kres.update(mxu_kernel_phase(eng, meng, root0, K, R, RM, card))
     mxu = mxu_main_path(meng, g, roots, want, directed_traversed, K, P, L)
     launches.update({k: mxu["launches"][k] for k in MXU_REPLACES})
@@ -3482,8 +3857,16 @@ def main(argv=None) -> int:
                                    algo["cc push"]["result"]))
     algo["registry"] = serve["algo"]
     ckpt["serve"] = serve["segmented"]
-    del want
     mark("serve")
+    # ---- beyond device memory: the streamed MXU arm, every resident MXU
+    # engine freed
+    torch.cuda.empty_cache()
+    stream = stream_phase(P, rg, g, roots, want, mxu["results"], mxu_held, K, RM, AT, D, card,
+                          ckpt_store)
+    for k, n in stream["launches"].items():
+        launches[k] += n
+    del want
+    mark("stream")
     cli_phase(K)
     mark("command line")
 
@@ -3626,6 +4009,19 @@ def main(argv=None) -> int:
         + "; registry " + ", ".join(f"{r['name']} #{r['call']} {r['secs']:.6f} s"
                                     for r in algo["registry"]["rows"])
         + f"; graph500_run {algo['small']['graph500_s']:.2f} s")
+    st_pull = stream["pull"]
+    log(f"streamed MXU arm (R-MAT scale {args.scale}, {card}): host store "
+        f"{stream['store']['host_store_bytes']} bytes over {stream['store']['num_superblocks']} "
+        f"superblocks (padding {stream['pad_share']:.4f}), built in {stream['init_s']:.2f} s "
+        f"(tiles {stream['tiles_build_s']:.3f}, pinning {stream['build_s']['pin_s']:.3f}, copy "
+        f"{stream['build_s']['copy_s']:.3f}, fingerprints {stream['build_s']['fingerprint_s']:.3f}); "
+        f"device memory held {stream['held']} bytes; auto searches "
+        + ", ".join(f"root {row['root']} {row['secs']:.6f} s ({row['ledger']['bytes_streamed']} "
+                    f"bytes)" for row in stream["rows"])
+        + f"; all-pull {st_pull['secs']:.6f} s at up to "
+        f"{max((x['gbs'] for x in st_pull['levels']), default=0.0):.3f} GB/s against a pinned "
+        f"copy's {st_pull['h2d_gbs']:.3f} GB/s; resumed run {stream['resume']['secs']:.6f} s; "
+        f"device peak {stream['peak']} bytes within {stream['bound']}")
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

@@ -145,7 +145,9 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.resilience.superstep_ckpt, bfs_tpu_torch.algo, "
         "bfs_tpu_torch.algo.sssp, bfs_tpu_torch.algo.cc, bfs_tpu_torch.oracle.sssp, "
         "bfs_tpu_torch.oracle.cc, bfs_tpu_torch.serve.algo, "
-        "bfs_tpu_torch.tools.graph500_run; "
+        "bfs_tpu_torch.tools.graph500_run, bfs_tpu_torch.stream, "
+        "bfs_tpu_torch.stream.store, bfs_tpu_torch.stream.cache, "
+        "bfs_tpu_torch.stream.prefetch, bfs_tpu_torch.stream.runner; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"

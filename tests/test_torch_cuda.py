@@ -1351,3 +1351,118 @@ def test_card_registry_algorithms_replay_on_the_resident_engine(card):
         check(call())
         assert L.captures() == caps
     assert reg.get("g").pins == 0
+
+
+# ------------------------------------------------- the streamed MXU arm --
+
+def test_card_mxu_expand_superblock_out_matches_plain(card):
+    """K6 on each superblock slab of a card-built layout, through ``out=``
+    (a view of one candidate grid, cleared once), equals the plain
+    per-superblock expansion on the same inputs; the pad tiles
+    (``col_local = 128``) are dropped and nothing outside the view is
+    written."""
+    from bfs_tpu_torch.stream import HostTileStore, SuperblockCache
+
+    g = P.gnm_graph(1 << 15, 1 << 17, seed=11)
+    rg = P.build_relay_graph(g)
+    at = PT.build_adj_tiles_from_relay(rg, device=card)
+    store = HostTileStore(at, pin=True)
+    assert store.pinned and store.num_superblocks >= 3
+    cache = SuperblockCache(store, budget_bytes=1 << 30)
+    keys2d = at.keys2d
+    rows, rtp, vtp = at.rows, at.rtp, at.vtp
+    rng = np.random.default_rng(2)
+    for fr in (0.01, 0.3, 1.0):
+        fw = _frontier(rng, rows, fr, card)[: rows // 32]
+        grid = torch.full((vtp,), -1, dtype=torch.int32, device=card)
+        want = torch.full((vtp,), -1, dtype=torch.int32, device=card)
+        K.reset_launches()
+        for sb in range(store.num_superblocks):
+            slab = cache.get(sb)
+            slab.wait()
+            got = K.expand_frontier_mxu(fw, (*slab, keys2d), rows=rows, cols=PT.SB_VERTS, rtp=rtp,
+                                        vtp=PT.SB_VERTS,
+                                        out=grid[sb * PT.SB_VERTS : (sb + 1) * PT.SB_VERTS])
+            assert got.data_ptr() == grid[sb * PT.SB_VERTS :].data_ptr()
+            RM.expand_superblock_plain(fw, slab, keys2d, sb, want, rows=rows, rtp=rtp)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["mxu_expand"] == store.num_superblocks
+        _eq(grid, want)
+        whole = RM.expand_frontier_mxu_plain(fw, RM.mxu_device_operands(at, card), rows=rows,
+                                             cols=at.cols, rtp=rtp, vtp=vtp)
+        _eq(grid[: at.cols], whole)
+    # one superblock alone leaves every other row of the grid untouched
+    grid = torch.full((vtp,), -1, dtype=torch.int32, device=card)
+    slab = cache.get(1)
+    slab.wait()
+    K.expand_frontier_mxu(torch.full((rows // 32,), -1, dtype=torch.int32, device=card),
+                          (*slab, keys2d), rows=rows, cols=PT.SB_VERTS, rtp=rtp, vtp=PT.SB_VERTS,
+                          out=grid[PT.SB_VERTS : 2 * PT.SB_VERTS])
+    torch.cuda.synchronize()
+    assert bool((grid[: PT.SB_VERTS] == -1).all()) and bool((grid[2 * PT.SB_VERTS :] == -1).all())
+    assert not bool((grid[PT.SB_VERTS : 2 * PT.SB_VERTS] == -1).all())
+    with pytest.raises(ValueError, match="out"):
+        K.expand_frontier_mxu(fw, (*slab, keys2d), rows=rows, cols=PT.SB_VERTS, rtp=rtp,
+                              vtp=PT.SB_VERTS, out=grid[:100])
+
+
+def test_card_streamed_run_matches_resident_and_cpu(card):
+    """A streamed engine on the card (auto schedule) equals the resident MXU
+    engine on the card, the CPU's streamed engine (results, schedule and
+    every ledger row) and the oracle; its tiles never sit on the card and
+    ``mxu_expand`` launches once per demanded superblock."""
+    g = P.gnm_graph(1 << 15, 1 << 17, seed=11)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng = P.RelayEngine(g, device=card, expansion="mxu", direction="auto", tiles_mode="stream")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert eng.adj_tiles is None and eng.stream_store.pinned
+    assert held < eng.tiles_nbytes  # the tiles (134 MB of slabs) live on the host
+    resident = P.RelayEngine(eng.relay_graph, device=card, expansion="mxu", direction="auto")
+    cpu = P.RelayEngine(eng.relay_graph, device="cpu", expansion="mxu", direction="auto",
+                        tiles_mode="stream")
+    budget = max(eng.stream_store.sb_bytes(s) for s in range(eng.stream_store.num_superblocks))
+    for s in (3, 9000):
+        K.reset_launches()
+        got, curve = eng.run_streamed(s, telemetry=True, cache_budget_bytes=budget)
+        launches = dict(K.LAUNCHES)
+        rows = eng.stream_report["levels"]
+        pulls = [r for r in rows if r["arm"] == "pull"]
+        assert pulls and launches["mxu_expand"] == sum(r["demanded"] for r in pulls)
+        assert launches["packed_update"] == len(pulls) and launches["loop_control"] == 0
+        want, want_curve = cpu.run_streamed(s, telemetry=True, cache_budget_bytes=budget)
+        assert eng.stream_report == cpu.stream_report
+        assert curve["direction_schedule"] == want_curve["direction_schedule"]
+        for other in (want, resident.run(s)):
+            _same_result(got, other)
+        dist, parent = P.canonical_bfs(g, s)
+        np.testing.assert_array_equal(got.dist, dist)
+        np.testing.assert_array_equal(got.parent, parent)
+
+
+def test_card_streamed_one_slab_budget_evicts_under_inflight_uploads(card):
+    """A cache of one slab on an all-pull search over eight superblocks:
+    every level evicts every slab while the next one's upload runs under
+    the current one's ``mxu_expand`` (the lookahead), so a slab's memory
+    handed to the next upload before its expansion retired would corrupt
+    the candidates.  Results equal the resident run's and the oracle's,
+    over repeated runs."""
+    g = P.rmat_graph(17, 8, seed=3)
+    eng = P.RelayEngine(g, device=card, expansion="mxu", direction="pull", tiles_mode="stream")
+    store = eng.stream_store
+    assert store.num_superblocks >= 8
+    budget = max(store.sb_bytes(s) for s in range(store.num_superblocks))
+    resident = P.RelayEngine(eng.relay_graph, device=card, expansion="mxu", direction="pull")
+    root = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    want = resident.run(root)
+    dist, parent = P.canonical_bfs(g, root)
+    np.testing.assert_array_equal(want.dist, dist)
+    for _ in range(3):
+        got = eng.run_streamed(root, cache_budget_bytes=budget)
+        _same_result(got, want)
+        rows = eng.stream_report["levels"]
+        assert all(r["arm"] == "pull" for r in rows)
+        assert sum(r["evictions"] for r in rows) >= sum(r["demanded"] for r in rows) - len(rows)
+        assert max(r["demanded"] for r in rows) >= 4
+    np.testing.assert_array_equal(got.parent, parent)
