@@ -1,5 +1,6 @@
 """Persistent layout-bundle cache: the port of ``bfs_tpu.cache.layout``
-(relay and pull bundles), a layout built once per graph.
+(relay and pull bundles, and the tiles and labels sidecars), a layout built
+once per graph.
 
 A layout is a pure function of (graph content, layout parameters, layout
 code version), so finished layouts are stored as content-addressed bundles
@@ -405,3 +406,91 @@ def load_or_build_tiles(rg, *, cache: LayoutCache | None = None,
             f"{budget_bytes >> 20} MB budget (tiles_budget_bytes)"
         )
     return at, info
+
+
+def labels_key(graph, k: int) -> str:
+    """Content key of the landmark distance-label sidecar bundle: (graph
+    content, K, label code version), the reference's key.  Landmark
+    sampling is seeded from the graph content hash
+    (:func:`bfs_tpu_torch.serve.labels.sample_landmarks`), so the key needs
+    no landmark list."""
+    from ..serve.labels import LABELS_VERSION
+
+    return f"labels_k{int(k)}_v{LABELS_VERSION}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+
+
+def load_or_build_labels(graph, k: int, *, cache: LayoutCache | None = None,
+                         engine: str = "pull", ckpt_dir: str | os.PathLike | None = None,
+                         device=None, sweep=None):
+    """``(LabelIndex, info)``: the serve label tier's landmark index, from its
+    sidecar bundle or built (:func:`bfs_tpu_torch.serve.labels.build_label_index`
+    on ``device``, through ``sweep`` when given) and saved (info contract:
+    :func:`_load_or_build`).  The cold sweep is chunk-checkpointed, so a
+    killed build resumes; a warm hit never sweeps."""
+    from ..serve.labels import build_label_index, labels_from_arrays, labels_to_arrays
+
+    return _load_or_build(
+        graph,
+        cache=cache,
+        tag=None,
+        kind="labels",
+        key_fn=lambda: labels_key(graph, k),
+        build_fn=lambda: build_label_index(graph, k, engine=engine, ckpt_dir=ckpt_dir,
+                                           device=device, sweep=sweep),
+        to_arrays=labels_to_arrays,
+        from_arrays=labels_from_arrays,
+        build_meta={"engine": engine, "k": int(k)},
+    )
+
+
+def verify_labels_bundle(graph, k: int, *, cache: LayoutCache | None = None) -> dict:
+    """Integrity report of the label sidecar bundle, building nothing on a
+    miss: the bundle loaded (every array fingerprint-checked by
+    :meth:`LayoutCache.load`), then the invariants the oracle leans on:
+    version and shape against the graph, landmark ids in range, each
+    landmark at distance 0 from itself and its own parent, the unreachable
+    sentinel agreeing between dist and parent.  JSON-ready; never raises on
+    a bad bundle."""
+    from ..serve.labels import LABEL_INF, LABELS_VERSION, labels_from_arrays
+
+    cache = cache if cache is not None else LayoutCache()
+    key = labels_key(graph, k)
+    loaded = cache.load(key)
+    if loaded is None:
+        return {"key": key, "ok": False, "status": "absent"}
+    _doc, arrays = loaded
+    try:
+        idx = labels_from_arrays(arrays)
+    except Exception as exc:  # a version bump, shape drift
+        return {"key": key, "ok": False, "status": f"unreadable: {exc}"}
+    problems = []
+    dims = np.asarray(arrays["dims"])
+    if int(dims[0]) != LABELS_VERSION:
+        problems.append(f"labels version {int(dims[0])} != {LABELS_VERSION}")
+    if idx.num_vertices != graph.num_vertices:
+        problems.append(f"num_vertices {idx.num_vertices} != graph {graph.num_vertices}")
+    if idx.dist.shape != (idx.k, idx.num_vertices):
+        problems.append(f"dist shape {idx.dist.shape} != (K, V)")
+    if idx.parent.shape != idx.dist.shape:
+        problems.append("parent shape differs from dist")
+    lm = np.asarray(idx.landmarks)
+    if lm.size and (int(lm.min()) < 0 or int(lm.max()) >= idx.num_vertices):
+        problems.append("landmark id outside the vertex space")
+    if not problems and lm.size:
+        rows = np.arange(idx.k)
+        if np.asarray(idx.dist)[rows, lm].any():
+            problems.append("a landmark is not at distance 0 from itself")
+        if (np.asarray(idx.parent)[rows, lm] != lm).any():
+            problems.append("a landmark is not its own parent")
+        sent = np.asarray(idx.dist) == LABEL_INF
+        orphan = np.asarray(idx.parent) < 0
+        if (sent != orphan).any():
+            problems.append("unreachable sentinel disagrees between dist and parent")
+    return {
+        "key": key,
+        "ok": not problems,
+        "status": "ok" if not problems else "; ".join(problems),
+        "k": int(idx.k),
+        "index_bytes": int(idx.nbytes),
+        "device_bytes": int(idx.device_bytes),
+    }

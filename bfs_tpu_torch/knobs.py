@@ -39,6 +39,16 @@ mirror knobs of the reference's registry of the same names without
   BFS_TPU_TORCH_STREAM_VERIFY    flag    0       fingerprint every cache hit
   BFS_TPU_TORCH_TILES_CACHE      flag    0       keep built tiles bundles in
                                                  the layout store
+  BFS_TPU_TORCH_LABELS           spec    off     landmark label tier: off |
+                                                 <K> roots swept at register
+  BFS_TPU_TORCH_LABELS_GB        float   2       device budget of the label
+                                                 rows (GiB, > 0)
+  BFS_TPU_TORCH_LABELS_VERIFY    int     0       check every Nth tight label
+                                                 answer exactly (0 = off)
+  BFS_TPU_TORCH_ROUTER_FAILURES  int     2       fleet router: failures that
+                                                 open a replica's breaker
+  BFS_TPU_TORCH_ROUTER_COOLDOWN_S float  2.0     fleet router breaker
+                                                 cooldown (s, > 0)
   ============================== ======= ======= ==========================
 """
 
@@ -115,6 +125,26 @@ def _flag(raw: str) -> bool:
     return raw == "1"
 
 
+def _labels(raw: str) -> int:
+    """off | <K>: the landmark count, 0 for off."""
+    raw = raw.strip().lower()
+    if raw in ("off", "0"):
+        return 0
+    value = int(raw)
+    if value < 1:
+        raise ValueError("use off | <K> with K >= 1")
+    return value
+
+
+def _int_at_least(minimum: int):
+    def parse(raw: str) -> int:
+        value = int(raw)
+        if value < minimum:
+            raise ValueError(f"must be >= {minimum} (got {value})")
+        return value
+    return parse
+
+
 def _positive_float(raw: str) -> float:
     value = float(raw)
     if not value > 0:
@@ -161,6 +191,21 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "entry is dropped and fetched again"),
     Knob("BFS_TPU_TORCH_TILES_CACHE", "flag", "0", _flag,
          "keep built adjacency-tile bundles in the layout store"),
+    Knob("BFS_TPU_TORCH_LABELS", "spec", "off", _labels,
+         "landmark distance-label tier: off | <K> landmark roots swept at the "
+         "server's register(); point queries answer from labels where the "
+         "tightness certificate holds"),
+    Knob("BFS_TPU_TORCH_LABELS_GB", "float", "2", _positive_float,
+         "device budget of the resident label rows (uint16[K, V]); an index "
+         "over it serves exact-only"),
+    Knob("BFS_TPU_TORCH_LABELS_VERIFY", "int", "0", _int_at_least(0),
+         "check every Nth tight label answer against the exact traversal; a "
+         "mismatch quarantines the index (0 = off)"),
+    Knob("BFS_TPU_TORCH_ROUTER_FAILURES", "int", "2", _int_at_least(1),
+         "fleet router per-replica breaker: consecutive failures before the "
+         "replica is routed around"),
+    Knob("BFS_TPU_TORCH_ROUTER_COOLDOWN_S", "float", "2.0", _positive_float,
+         "fleet router breaker cooldown before an opened replica is tried again"),
 )}
 
 

@@ -1509,31 +1509,37 @@ class EdgeEngine:
             st = unpack_bfs_state(st)
         return st._replace(level=stats.level, changed=stats.changed), stats
 
-    def _search(self, sources, max_levels: int, drive=None):
-        """:meth:`fused` on the engine's carry, re-run unpacked past the
-        packed cap; the stats of both runs summed."""
-        st, stats = self.fused(sources, max_levels, self.packed, drive)
-        if self.packed and packed_truncated(stats.changed, stats.level, max_levels):
+    def _search(self, sources, max_levels: int, drive=None, packed: bool | None = None):
+        """:meth:`fused` on the engine's carry (``packed=False`` forces the
+        unpacked one), re-run unpacked past the packed cap: ``(state, stats,
+        rerun)``, the stats of both runs summed, ``rerun`` whether the
+        packed run was cut by its cap."""
+        packed = self.packed if packed is None else packed and self.packed
+        st, stats = self.fused(sources, max_levels, packed, drive)
+        rerun = packed and packed_truncated(stats.changed, stats.level, max_levels)
+        if rerun:
             st, more = self.fused(sources, max_levels, False, drive)
             stats = stats.add(more)
-        return st, stats
+        return st, stats, rerun
 
-    def _host_run(self, sources, max_levels: int | None, drive=None, extra=None):
+    def _host_run(self, sources, max_levels: int | None, drive=None, extra=None,
+                  packed: bool | None = None):
         """``(dist, parent, extras, run)`` on the host for one source (an
         int) or a batch (a list): ``extra()`` names device tensors (the
         direction loop's accumulators) copied with the result, in its one
         host read, into ``extras``; ``run`` is the host seconds and loop
-        counts (:attr:`last_run`)."""
+        counts (:attr:`last_run`), and ``unpacked_rerun``."""
         v = self.num_vertices
         check_sources(v, sources)
         max_levels = int(max_levels) if max_levels is not None else v
         t0 = time.perf_counter()
-        st, stats = self._search(sources, max_levels, drive)
+        st, stats, rerun = self._search(sources, max_levels, drive, packed)
         t1 = time.perf_counter()
         dist, parent, *extras = to_host(st.dist[..., :v].contiguous(),
                                         st.parent[..., :v].contiguous(),
                                         *(extra() if extra else ()))
-        run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats)}
+        run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **vars(stats),
+               "unpacked_rerun": rerun}
         return dist, parent, extras, run
 
     def run(self, source: int = 0, *, max_levels: int | None = None) -> BfsResult:
@@ -1553,11 +1559,15 @@ class EdgeEngine:
         self.last_run = vars(stats)
         return st
 
-    def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
+    def run_multi(self, sources, *, max_levels: int | None = None,
+                  packed: bool | None = None) -> MultiBfsResult:
         """Lock-step batched BFS with host results; every tree equals its
-        single-source search."""
+        single-source search.  ``packed=False`` runs the unpacked carry
+        from the start (a caller that knows the graph is deeper than the
+        packed cap)."""
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
-        dist, parent, _, self.last_run = self._host_run(sources.tolist(), max_levels)
+        dist, parent, _, self.last_run = self._host_run(sources.tolist(), max_levels,
+                                                        packed=packed)
         return MultiBfsResult(sources, dist, parent, self.last_run["level"])
 
 

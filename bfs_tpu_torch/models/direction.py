@@ -388,7 +388,7 @@ class DirectionEngine:
         accumulator at exit; the state stays on the device."""
         check_sources(self.num_vertices, sources)
         max_levels = int(max_levels) if max_levels is not None else self.num_vertices
-        _, stats = self._lead._search(sources, max_levels, self._start())
+        _, stats, _ = self._lead._search(sources, max_levels, self._start())
         occ, _, packed_run = self._tel
         (fv,) = T.read_telemetry(occ)
         cap = packed_cap(max_levels) if packed_run else max_levels

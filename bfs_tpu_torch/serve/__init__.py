@@ -24,7 +24,12 @@ sampled integrity checks).  With ``BFS_TPU_TORCH_CKPT`` on, pull and push
 batches run checkpointed (:class:`SegmentedBatchRunner`), and a hung call
 resumes from its last segment.  :func:`registry_sssp` and :func:`registry_cc`
 run weighted SSSP and connected components on a registered graph's resident
-engine.  The reference's fleet router and label tier are not ported.
+engine.  With ``BFS_TPU_TORCH_LABELS=<K>`` the server answers point queries
+(``query_dist``, ``query_path``) from a landmark label index built at
+register time (:class:`LabelOracle` over a :class:`LabelIndex`), falling back
+to the traversal where its certificate does not hold; :class:`FleetRouter`
+puts N such servers behind a hash-by-graph router with failover and rolling
+epoch swaps over a shared bundle store.
 """
 
 from .algo import registry_cc, registry_sssp
@@ -39,7 +44,9 @@ from .executor import (
     run_oracle_batch,
 )
 from .health import HungCallError, ServeHealth, run_with_deadline
+from .labels import LabelBudgetError, LabelIndex, LabelOracle, build_label_index
 from .registry import ENGINES, GraphRegistry, RegisteredGraph
+from .router import FleetRouter, NoReplicaAvailable
 from .server import (
     DEFAULT_RETRY_POLICY,
     AdmissionError,
@@ -62,9 +69,14 @@ __all__ = [
     "DistReply",
     "ENGINES",
     "ExecutableCache",
+    "FleetRouter",
     "GraphRegistry",
     "HostRows",
     "HungCallError",
+    "LabelBudgetError",
+    "LabelIndex",
+    "LabelOracle",
+    "NoReplicaAvailable",
     "QueryTimeout",
     "RegisteredGraph",
     "ServeError",
@@ -74,6 +86,7 @@ __all__ = [
     "ServerClosed",
     "bucket_for",
     "build_batch_runner",
+    "build_label_index",
     "registry_cc",
     "registry_sssp",
     "run_oracle_batch",

@@ -43,6 +43,14 @@ touches the card.  Host copies of a batch's rows are made inside the lock
 (:func:`host_rows`), so no page-locked buffer of a tick outlives its
 attempt: each reply owns exactly its own rows.
 
+**The packed-cap latch.**  Pull and push run the packed carry while parent
+ids fit it; a batch deeper than its 62-level cap comes back truncated and
+is run again unpacked.  The first such tick latches the runner
+(``use_packed`` False, as the reference's executor latches its
+executable), so every later tick of that ``(graph epoch, bucket)`` runs
+the unpacked loop once instead of both.  A graph under the cap never
+leaves the packed carry.
+
 **Checkpointed batches.**  With ``BFS_TPU_TORCH_CKPT`` on, pull and push
 buckets get a :class:`SegmentedBatchRunner`: the batch runs in bounded
 segments, each on the card's lock, with the carry copied to host memory at
@@ -192,7 +200,8 @@ class BatchRunner:
     ``take``, to ``take(result)`` computed before the card is released.
     ``last_run`` holds the last call's host seconds: ``call_s`` (the
     engine's call), the engine's own ``loop_s``/``result_s`` where it
-    reports them, and ``take_s``."""
+    reports them, and ``take_s``.  ``use_packed`` is the packed-cap latch
+    (the module text)."""
 
     def __init__(self, registry, rec, engine: str, batch: int, metrics=None):
         self.registry = registry
@@ -203,6 +212,8 @@ class BatchRunner:
         self._lock = make_lock("executor.BatchRunner._lock")
         self._gen = 0  # guarded by _lock: the newest attempt's ticket
         self.last_run: dict = {}
+        #: False once a tick's packed run came back cut by the cap.
+        self.use_packed = True
 
     def begin(self) -> int:
         """A ticket for a new attempt; every older ticket is abandoned."""
@@ -227,7 +238,10 @@ class BatchRunner:
                 # levels it falls back to run_multi by itself.
                 return eng.run_multi_elem(sources)
             return eng.run_multi(sources)
-        return eng.run_multi(sources)
+        result = eng.run_multi(sources, packed=None if self.use_packed else False)
+        if eng.last_run.get("unpacked_rerun"):
+            self.use_packed = False  # the latch: deeper than the packed cap
+        return result
 
     def __call__(self, sources, *, ticket: int | None = None, take=None):
         sources = np.ascontiguousarray(sources, dtype=np.int32)
@@ -374,16 +388,16 @@ class SegmentedBatchRunner(BatchRunner):
             ticket = self.begin()
         key = sources.tobytes()
         v = self.rec.num_vertices
-        packed = packed_parent_fits(v)
+        packed = self.use_packed and packed_parent_fits(v)
         t0 = time.perf_counter()
         state, restore, level, changed, stats = self._run_flavor(sources, key, ticket, packed)
         if packed and packed_truncated(changed, level, v):
             # Deeper than the packed cap: run again unpacked (the packed
-            # progress cannot feed it).
+            # progress cannot feed it), and latch.
             with self._lock:
                 if self._gen == ticket:
                     self._progress = None
-            packed = False
+            packed = self.use_packed = False
             state, restore, level, changed, more = self._run_flavor(sources, key, ticket, False)
             stats = more if stats is None or more is None else stats.add(more)
         call_s = time.perf_counter() - t0

@@ -37,9 +37,17 @@ service and result seconds, and the host bytes their replies hold.
 
 ``BfsServer(device=...)`` runs on the card unless ``"cpu"`` (given a
 registry, the registry's device); without a card and without ``"cpu"`` it
-raises.  The reference's label tier (``BFS_TPU_LABELS``) is not ported:
-the server behaves as the reference does with labels off, its default, and
-``query_dist``/``query_path`` take the exact path.
+raises.
+
+**The label tier.**  With ``BFS_TPU_TORCH_LABELS=<K>``, ``register`` also
+builds (or loads from the layout store's sidecar) the landmark label index
+of the new epoch (:mod:`~bfs_tpu_torch.serve.labels`), sweeping on the
+registry's resident pull engine, and ``query_dist``/``query_path`` answer
+tight pairs from it at once, without a traversal; other pairs take the
+exact path.  The build is best-effort, as the reference's: a failure or a
+budget reject is counted (``label_build_errors``, ``label_budget_rejects``)
+and the server serves exact-only.  A lookup runs on the card's lock, so it
+waits for a running tick.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import knobs
 from ..graph.csr import INF_DIST
 from ..models.bfs import check_sources, resolve_device
 from ..models.multisource import MultiBfsResult, collapse_multi_source
@@ -62,6 +71,7 @@ from ..resilience.retry import RetryPolicy, retry_call
 from ..utils.locks import make_lock
 from ..utils.metrics import QueryRecord, ServeMetrics
 from .executor import (
+    DEVICE_LOCK,
     BatchRunner,
     ExecutableCache,
     bucket_for,
@@ -134,14 +144,18 @@ def _parent_chain(parent: np.ndarray, u: int, v: int) -> list | None:
 
 @dataclass
 class DistReply:
-    """One point-distance query (``query_dist``).  ``method`` is ``'exact'``
-    (the traversal path; the reference's label tier adds ``'labels'``)."""
+    """One point-distance query (``query_dist``).  ``method`` is the tier
+    that answered: ``'labels'`` (a tight certificate, provably exact),
+    ``'exact'`` (the traversal), or ``'labels_verified'`` (a sampled tight
+    answer also checked against the traversal before shipping).
+    ``landmark`` is the certifying landmark of a ``'labels'`` answer."""
 
     graph: str
     u: int
     v: int
     dist: int
     method: str
+    landmark: int | None = None
     path: list | None = None
 
 
@@ -224,6 +238,14 @@ class BfsServer:
         )
         # Per-epoch health state dies with the epoch; close() detaches.
         self.registry.add_retire_listener(self._health.forget_epoch)
+        # The label tier: one LabelOracle per (name, epoch) built at
+        # register(); the retire listener drops an epoch's oracle with its
+        # device state, so a swap never serves stale labels.  Dropped
+        # oracles hold device rows, freed on the card's lock (_bury_labels).
+        self._labels: dict[tuple, object] = {}  # guarded by _lock
+        self._label_tick = 0  # guarded by _lock (verify sampling)
+        self._label_graveyard: list = []  # guarded by _lock
+        self.registry.add_retire_listener(self._drop_label_epoch)
         # Direction policy resolved ONCE: a malformed knob fails
         # construction loudly instead of degrading every tick.
         from ..models.direction import resolve_direction
@@ -262,6 +284,11 @@ class BfsServer:
                 req.future.set_exception(ServerClosed("server closed"))
             self._unpin(req)
         self.registry.remove_retire_listener(self._health.forget_epoch)
+        self.registry.remove_retire_listener(self._drop_label_epoch)
+        with self._lock:
+            self._label_graveyard += self._labels.values()
+            self._labels.clear()
+        self._bury_labels(wait=True)
 
     def pause(self) -> None:
         """Hold batch formation (admission continues)."""
@@ -278,8 +305,13 @@ class BfsServer:
         """Register — or HOT-SWAP — a graph (:meth:`GraphRegistry.register`):
         queries admitted after this call see the new graph, in-flight ones
         finish on the snapshot they were admitted under.  Executable and
-        result caches need no purge: their keys carry the epoch."""
-        return self.registry.register(name, graph, **kw)
+        result caches need no purge: their keys carry the epoch.  With
+        ``BFS_TPU_TORCH_LABELS=<K>`` and a host graph, the new epoch's label
+        index is built or loaded here too; the old one dies with its
+        epoch."""
+        rec = self.registry.register(name, graph, **kw)
+        self._maybe_build_labels(rec)
+        return rec
 
     def unregister(self, name: str) -> None:
         """Drop a graph AND every cache derived from it (runners and cached
@@ -289,6 +321,9 @@ class BfsServer:
         with self._lock:
             for key in [k for k in self._result_cache if k[0] == name]:
                 del self._result_cache[key]
+            for key in [k for k in self._labels if k[0] == name]:
+                self._label_graveyard.append(self._labels.pop(key))
+        self._bury_labels()
 
     def query(self, graph: str, source: int, **kw) -> Future:
         """Single-source shortest-path query; reply rows are 1-D."""
@@ -300,15 +335,109 @@ class BfsServer:
         independent per-source trees (``mode='tree'``)."""
         return self.submit(graph, sources, mode="collapse" if collapse else "tree", **kw)
 
+    # ------------------------------------------------------- label tier --
+    def _drop_label_epoch(self, name: str, epoch: int) -> None:
+        # A retire listener: it fires under the registry's lock, so it
+        # touches only this server's state and never calls the registry.
+        with self._lock:
+            oracle = self._labels.pop((name, epoch), None)
+            if oracle is not None:
+                self._label_graveyard.append(oracle)
+        self._bury_labels()
+
+    def _bury_labels(self, wait: bool = False) -> None:
+        """Free dropped oracles' device rows on the card's lock: now when it
+        is free (or ``wait``), else at a later call."""
+        if not DEVICE_LOCK.acquire(blocking=wait):
+            return
+        try:
+            with self._lock:
+                dead, self._label_graveyard = self._label_graveyard, []
+            del dead
+        finally:
+            DEVICE_LOCK.release()
+
+    def _label_oracle(self, name: str, epoch: int):
+        with self._lock:
+            return self._labels.get((name, epoch))
+
+    def _label_sweep(self, rec):
+        """The label build's sweep on the registry's resident pull engine of
+        ``rec`` (no second layout beside the one the ticks use); called on
+        the card's lock."""
+        def sweep(roots):
+            return self.registry.acquire_for(rec, "pull").run_multi(roots)
+
+        return sweep
+
+    def _maybe_build_labels(self, rec) -> None:
+        """Build or load the label index of a freshly registered epoch.
+        Best-effort, as the reference's: a failed build or a budget reject
+        logs, bumps a counter, and the server serves exact-only."""
+        k = knobs.get("BFS_TPU_TORCH_LABELS")
+        if not k:
+            return
+        if rec.graph is None:
+            self.metrics.bump("label_build_skipped")
+            return
+        from .labels import LabelBudgetError, build_label_oracle
+
+        try:
+            oracle, info = build_label_oracle(rec.graph, k, cache=self.registry.layout_cache,
+                                              device=self.device, sweep=self._label_sweep(rec))
+        except LabelBudgetError as exc:
+            logger.warning("label index over budget: %s", exc)
+            self.metrics.bump("label_budget_rejects")
+            return
+        except Exception:
+            logger.warning("label index build failed; serving exact-only", exc_info=True)
+            self.metrics.bump("label_build_errors")
+            return
+        with self._lock:
+            self._labels[(rec.name, rec.epoch)] = oracle
+        if rec.released:  # retired during the build: its listener already ran
+            self._drop_label_epoch(rec.name, rec.epoch)
+        self.metrics.bump("label_builds")
+        self.metrics.bump("label_build_cache_hits" if info.get("cache") == "hit"
+                          else "label_build_cache_misses")
+
     def query_dist(self, graph: str, u: int, v: int, *, want_path: bool = False,
                    **kw) -> Future:
-        """Point query ``dist(u, v)`` on the exact path (:meth:`query` from
-        ``u``, every robustness property included); a Future resolving to
-        :class:`DistReply`.  ``want_path`` adds a shortest path from the
-        traversal's parent tree."""
+        """Point query ``dist(u, v)``; a Future resolving to
+        :class:`DistReply`.
+
+        A tight label answer (provably exact by the certificate) resolves at
+        once from the resident index: no traversal, no batch queue.  Other
+        pairs, and graphs without labels, take the exact path (:meth:`query`
+        from ``u``, every robustness property included).  Every
+        ``BFS_TPU_TORCH_LABELS_VERIFY``-th tight answer is also derived on
+        the exact path and compared before shipping; a mismatch quarantines
+        the index (``label_verify_failures``) and the exact answer ships.
+        ``want_path`` adds a shortest path (through the certifying landmark,
+        or from the traversal's parent tree)."""
         u, v = int(u), int(v)
         rec = self.registry.get(graph)
         check_sources(rec.num_vertices, np.asarray([u, v], dtype=np.int32))
+        oracle = self._label_oracle(graph, rec.epoch)
+        if oracle is not None:
+            d, tight, best_k = oracle.dist_one(u, v)
+            if tight:
+                self.metrics.bump("label_hits")
+                path = oracle.path(u, v) if want_path else None
+                verify_every = knobs.get("BFS_TPU_TORCH_LABELS_VERIFY")
+                if verify_every > 0:
+                    with self._lock:
+                        self._label_tick += 1
+                        sample = self._label_tick % verify_every == 0
+                    if sample:
+                        return self._verify_label_answer(graph, rec.epoch, u, v, d, path, **kw)
+                fut: Future = Future()
+                fut.set_result(DistReply(graph, u, v, d, "labels",
+                                         landmark=int(oracle.index.landmarks[best_k]), path=path))
+                return fut
+            self.metrics.bump("label_fallbacks")
+        else:
+            self.metrics.bump("label_misses")
         return self._exact_dist(graph, u, v, want_path, **kw)
 
     def query_path(self, graph: str, u: int, v: int, **kw) -> Future:
@@ -331,6 +460,33 @@ class BfsServer:
                 outer.set_result(DistReply(graph, u, v, d, "exact", path=path))
             except BaseException as exc:  # never hang the future
                 outer.set_exception(exc)
+
+        inner.add_done_callback(_done)
+        return outer
+
+    def _verify_label_answer(self, graph: str, epoch: int, u: int, v: int, label_d: int, path,
+                             **kw) -> Future:
+        """The sampled cross-check: the answer derived again on the exact
+        path and compared before shipping.  A mismatch drops the epoch's
+        index (it can never be trusted again) and ships the exact answer."""
+        outer: Future = Future()
+        inner = self._exact_dist(graph, u, v, False, **kw)
+
+        def _done(f: Future):
+            try:
+                exact = f.result()
+            except BaseException as exc:
+                outer.set_exception(exc)
+                return
+            if exact.dist != label_d:
+                self.metrics.bump("label_verify_failures")
+                logger.error("label answer mismatch on %s: dist(%d,%d) labels=%d exact=%d; "
+                             "quarantining the label index", graph, u, v, label_d, exact.dist)
+                self._drop_label_epoch(graph, epoch)
+                outer.set_result(exact)
+                return
+            self.metrics.bump("label_verifies")
+            outer.set_result(DistReply(graph, u, v, label_d, "labels_verified", path=path))
 
         inner.add_done_callback(_done)
         return outer
@@ -701,5 +857,8 @@ class BfsServer:
             "budget_bytes": self.registry.device_budget_bytes,
         }
         out["executables_cached"] = len(self.exe_cache)
+        with self._lock:
+            out["labels"] = {f"{name}@{epoch}": oracle.report()
+                             for (name, epoch), oracle in self._labels.items()}
         out["health"] = self._health.report()
         return out

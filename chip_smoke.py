@@ -148,6 +148,18 @@ hidden under ``mxu_expand`` (CUDA events), ``run_segmented`` at
 (bit-identical), and each streamed run's device peak against held bytes
 + budget + one largest slab + the candidate grid + a stated margin.
 
+The label tier and the fleet router follow the query server on the same
+graph (``labels_phase``, ``fleet_phase``): ``BFS_TPU_TORCH_LABELS=64`` on a
+pull server (the cold build: the 64-root sweep on the registry's pull engine
+and the sidecar bundle; a warm re-register from it), 512 point queries held
+against the batch's trees, the method and landmark against the certificate
+and the device bounds against ``host_label_bounds``, paths walked on the host
+CSR, sampled verification, a budget reject, and the latency of a label
+answer idle and behind a running pull tick of 32, and of an exact answer;
+then ``FleetRouter(replicas=2)`` warm-hitting that sidecar, 4 threads of
+single-source and point queries with a rolling re-register mid-load, a
+replica closed directly (failover), and every replica killed.
+
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
 Each path is also run on the eager loop (a host read per level) and held
@@ -1753,7 +1765,8 @@ def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
         eng.run_multi(sources)
         return eng.last_run["loop_s"], eng.last_run["host_reads"]
 
-    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=2, ks=EDGE_KS,
+    # One run a block size, at blocks of 1 and 2: the script's 600 s.
+    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=1, ks=EDGE_KS[:2],
                         attr="EDGE_BLOCK", eager=True)
     return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res_levels,
                 table=table)
@@ -2630,6 +2643,421 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K,
     if disk.count("layout_disk_hits") != 2 or disk.count("layout_disk_misses"):
         raise AssertionError("serve: the relay and pull layouts were not warm bundle hits")
     del reg, layouts
+    torch.cuda.empty_cache()
+    return out
+
+
+# Landmark labels: one DEFAULT_CHUNK of roots; 2^22 x 64 x 2 B = 512 MiB of
+# rows on the card at s22, under the default 2 GiB budget.
+LABELS_K = 64
+LABEL_PAIRS = 512  # point queries held against the batch's trees
+LABEL_PATHS = 16
+LABEL_VERIFY_PAIRS = 64  # with BFS_TPU_TORCH_LABELS_VERIFY=4
+LABEL_IDLE = 64  # tight label answers timed one at a time on an idle card
+LOCK_TICKS = 3  # pull ticks of 32, each with LOCK_WAITERS label answers timed behind it
+LOCK_WAITERS = 4
+LABEL_ROWS_CHECKED = 16  # landmark rows through the DeviceChecker, evenly spaced
+EXACT_TIMED = 16  # exact answers timed one at a time (result cache off)
+LABELS_SMALL_GB = "0.25"  # under the 512 MiB of rows: a budget reject
+FLEET_POINTS = 256
+FLEET_FAILOVER = 32
+
+
+def pcts(secs) -> str:
+    """p50 and p99 in milliseconds of a list of seconds."""
+    import numpy as np
+
+    ms = np.asarray(secs, dtype=np.float64) * 1e3
+    return f"p50 {np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms"
+
+
+def edge_keys(g):
+    """The host CSR's edges as sorted int64 keys ``src * V + dst``."""
+    import numpy as np
+
+    v = g.num_vertices
+    return np.sort(np.asarray(g.src, dtype=np.int64) * v + np.asarray(g.dst, dtype=np.int64))
+
+
+def is_walk(keys, v: int, path) -> bool:
+    import numpy as np
+
+    p = np.asarray(path, dtype=np.int64)
+    k = p[:-1] * v + p[1:]
+    i = np.minimum(np.searchsorted(keys, k), keys.size - 1)
+    return bool(np.all(keys[i] == k))
+
+
+def label_counters(srv) -> dict:
+    return {k: v for k, v in srv.metrics.report()["counters"].items() if k.startswith("label_")}
+
+
+def labels_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> dict:
+    """The landmark label tier (``serve/labels.py``) at full width, with
+    ``BFS_TPU_TORCH_LABELS=64``: a ``BfsServer(engine="pull",
+    max_batch=32)`` over the script's bundle store registers the graph
+    (the cold build: the 64-root sweep on the registry's pull engine, the
+    DeviceChecker rows, the sidecar save) and again (a new epoch, a warm
+    sidecar hit).  ``LABEL_ROWS_CHECKED`` landmark rows pass the on-device
+    verifier.
+    ``LABEL_PAIRS`` point queries (``u`` from the batch's sources, ``v``
+    uniform) are held against the batch's trees, their method against the
+    certificate, their landmark and the device bounds of all of them against
+    ``host_label_bounds``; ``LABEL_PATHS`` paths are walks of real edges of
+    the right length; sampled verification at 1 in 4 is clean; then the
+    latencies: a tight answer on an idle card, ``LOCK_WAITERS`` threads'
+    each behind a running pull tick of 32 (a tree query, so its rows are
+    held too), and, on a second
+    server whose budget rejects the rows (every answer exact, the result
+    cache off), an exact answer.  The lookup's device time and byte bound
+    at ``LABEL_PAIRS`` pairs (CUDA events, cold L2)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.cache.layout import labels_key
+    from bfs_tpu_torch.serve import BfsServer, GraphRegistry
+    from bfs_tpu_torch.serve import labels as PL
+    from bfs_tpu_torch.serve.executor import DEVICE_LOCK
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    v_n = g.num_vertices
+    truth = {int(s): (batch.dist[i], batch.parent[i]) for i, s in enumerate(sources)}
+    rng = np.random.default_rng(seed + 19)
+    cache = P.LayoutCache(store)
+    out = {}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["BFS_TPU_TORCH_LABELS"] = str(LABELS_K)
+    try:
+        srv = BfsServer(GraphRegistry(layout_cache=cache), engine="pull", max_batch=32)
+        with srv:
+            # ---- the cold build, then a warm re-register
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rec = srv.register("g", g)
+            torch.cuda.synchronize()
+            out["cold_s"] = time.perf_counter() - t0
+            c = label_counters(srv)
+            if (c.get("label_builds"), c.get("label_build_cache_misses"), c.get("label_build_errors", 0),
+                    c.get("label_budget_rejects", 0)) != (1, 1, 0, 0):
+                raise AssertionError(f"labels: the cold build was not one clean build: {c}")
+            with DEVICE_LOCK:
+                sweep = dict(srv.registry.acquire_for(rec, "pull").last_run)
+            swept = dict(K.LAUNCHES)
+            if {k: n for k, n in swept.items() if n} != {"loop_control": sweep["issued"]}:
+                raise AssertionError(f"labels: sweep launches {swept} in {sweep['issued']} supersteps")
+            launches = swept["loop_control"]
+            doc, _ = cache.load(labels_key(g, LABELS_K))
+            bundle = os.path.join(store, labels_key(g, LABELS_K))
+            out["bundle_bytes"] = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle))
+            out["build_s"] = float(doc["meta"]["build_seconds"])
+            idx = srv._label_oracle("g", rec.epoch).index
+            if idx.device_bytes != v_n * LABELS_K * 2 or srv.report()["labels"]["g@0"]["k"] != LABELS_K:
+                raise AssertionError(f"labels: {idx.device_bytes} device bytes for K = {idx.k}")
+            log(f"labels: cold register {out['cold_s']:.3f} s (build {out['build_s']:.3f} s: the "
+                f"{LABELS_K}-root sweep on the registry's pull engine, {sweep['issued']} supersteps, "
+                f"loop {sweep['loop_s']:.3f} s, results {sweep['result_s']:.3f} s, 2 DeviceChecker "
+                f"rows); index {idx.nbytes} bytes, {idx.device_bytes} on the card, bundle "
+                f"{out['bundle_bytes']} bytes ({card})")
+            t0 = time.perf_counter()
+            rows = np.unique(np.linspace(0, idx.k - 1, LABEL_ROWS_CHECKED).astype(int))
+            for r in rows:
+                d = np.where(idx.dist[r] == PL.LABEL_INF, P.INF_DIST, idx.dist[r].astype(np.int32))
+                verify(f"label row {r}", d, idx.parent[r], int(idx.landmarks[r]))
+            log(f"labels: {rows.size} of the {idx.k} landmark rows clean under the DeviceChecker in "
+                f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            rec = srv.register("g", g)
+            torch.cuda.synchronize()
+            out["warm_s"] = time.perf_counter() - t0
+            c = label_counters(srv)
+            if (c["label_builds"], c.get("label_build_cache_hits")) != (2, 1) or \
+                    srv._label_oracle("g", 0) is not None or srv._label_graveyard:
+                raise AssertionError(f"labels: the re-register was not a warm hit: {c}")
+            oracle = srv._label_oracle("g", rec.epoch)
+            idx = oracle.index
+            log(f"labels: warm re-register (epoch {rec.epoch}, sidecar hit) {out['warm_s']:.3f} s")
+            # ---- point queries against the batch's trees and the host bounds
+            K.reset_launches()
+            us = rng.choice(np.asarray(sources), LABEL_PAIRS).astype(np.int32)
+            vs = rng.integers(0, v_n, LABEL_PAIRS).astype(np.int32)
+            t0 = time.perf_counter()
+            replies = []
+            for w in range(0, LABEL_PAIRS, 128):  # within the admission queue's 256
+                futs = [srv.query_dist("g", int(u), int(v)) for u, v in zip(us[w:w + 128],
+                                                                           vs[w:w + 128])]
+                replies += [f.result(600) for f in futs]
+            points_s = time.perf_counter() - t0
+            hd, ht, hk, hu, hl = PL.host_label_bounds(idx.dist, us, vs)
+            for i, r in enumerate(replies):
+                want = int(truth[int(us[i])][0][vs[i]])
+                method = "labels" if ht[i] else "exact"
+                landmark = int(idx.landmarks[hk[i]]) if ht[i] else None
+                if (r.dist, r.method, r.landmark) != (want, method, landmark):
+                    raise AssertionError(f"labels: dist({us[i]}, {vs[i]}) reply {r}, want {want} "
+                                         f"by {method} via {landmark}")
+            got = oracle.bounds(us, vs)
+            for name, a, b in zip(("dist", "tight", "best_k", "upper", "lower"), got,
+                                  (hd, ht, hk, hu, hl)):
+                if a.dtype != b.dtype or not np.array_equal(a, b):
+                    raise AssertionError(f"labels: device {name} differs from the host evaluation")
+            ticks = srv.tick_log()
+            issued = sum(t["issued"] for t in ticks)
+            if {k: n for k, n in K.LAUNCHES.items() if n} != ({"loop_control": issued} if issued else {}):
+                raise AssertionError(f"labels: point query launches {dict(K.LAUNCHES)}, {issued} issued")
+            launches += issued
+            out["tight_rate"] = float(ht.mean())
+            log(f"labels: {LABEL_PAIRS} point queries in {points_s:.3f} s, every reply equal to the "
+                f"batch's trees; tight rate {out['tight_rate']:.4f} ({int(ht.sum())} by labels, "
+                f"{int((~ht).sum())} exact, {len(ticks)} ticks, {issued} supersteps); landmarks and "
+                f"the device bounds of all {LABEL_PAIRS} pairs equal to the host evaluation")
+            # ---- paths: walks of real edges on the host CSR
+            keys = edge_keys(g)
+            reach = [(int(u), int(v)) for u, v in zip(us, vs) if truth[int(u)][0][v] != P.INF_DIST]
+            for u, v in reach[:LABEL_PATHS]:
+                r = srv.query_path("g", u, v).result(600)
+                if r.dist != int(truth[u][0][v]) or len(r.path) != r.dist + 1 or \
+                        (r.path[0], r.path[-1]) != (u, v) or not is_walk(keys, v_n, r.path):
+                    raise AssertionError(f"labels: path {u} -> {v} wrong: {r}")
+            log(f"labels: {LABEL_PATHS} query_path replies are walks of real edges of length dist")
+            # ---- sampled verification at 1 in 4
+            os.environ["BFS_TPU_TORCH_LABELS_VERIFY"] = "4"
+            try:
+                us2 = rng.choice(np.asarray(sources), LABEL_VERIFY_PAIRS)
+                vs2 = rng.integers(0, v_n, LABEL_VERIFY_PAIRS)
+                for u, v in zip(us2.tolist(), vs2.tolist()):
+                    r = srv.query_dist("g", u, v).result(600)
+                    if r.dist != int(truth[u][0][v]):
+                        raise AssertionError(f"labels: verified reply {r} wrong")
+            finally:
+                del os.environ["BFS_TPU_TORCH_LABELS_VERIFY"]
+            c = label_counters(srv)
+            if c.get("label_verifies", 0) < 1 or c.get("label_verify_failures", 0):
+                raise AssertionError(f"labels: sampled verification {c}")
+            # ---- latency: a tight answer on an idle card, then behind a tick
+            tight = [(int(u), int(v)) for u, v, t in zip(us, vs, ht) if t]
+            idle = []
+            for u, v in (tight * 2)[:LABEL_IDLE]:
+                t0 = time.perf_counter()
+                srv.query_dist("g", u, v).result(600)
+                idle.append(time.perf_counter() - t0)
+            behind, tick_s = [], []
+
+            def wait_behind(u, v):
+                t0 = time.perf_counter()
+                srv.query_dist("g", u, v).result(600)
+                behind.append(time.perf_counter() - t0)
+
+            for i in range(LOCK_TICKS):
+                group = [int(s) for s in rng.choice(np.asarray(sources), 32, replace=False)]
+                fut = srv.query_multi("g", group, collapse=False)  # a new tree query: a tick of 32
+                time.sleep(0.05)
+                waiters = [threading.Thread(target=wait_behind, args=tight[(i * LOCK_WAITERS + j)
+                                                                           % len(tight)])
+                           for j in range(LOCK_WAITERS)]
+                for t in waiters:
+                    t.start()
+                for t in waiters:
+                    t.join()
+                r = fut.result(600)
+                for j, s in enumerate(group):
+                    if not (np.array_equal(r.dist[j], truth[s][0])
+                            and np.array_equal(r.parent[j], truth[s][1])):
+                        raise AssertionError(f"labels: tree reply of {s} differs from the batch")
+                tick_s.append(srv.tick_log()[-1]["service_s"])
+            out.update(idle=idle, behind=behind, tick_s=tick_s)
+            log(f"labels: a tight answer on an idle card {pcts(idle)} ({LABEL_IDLE} answers); behind "
+                f"a running pull tick of 32 {pcts(behind)} ({len(behind)} answers, {LOCK_WAITERS} "
+                f"threads behind each of {LOCK_TICKS} ticks; the ticks' service "
+                f"{min(tick_s):.3f}-{max(tick_s):.3f} s)")
+            # ---- the lookup alone on the card: LABEL_PAIRS pairs
+            pairs = torch.from_numpy(np.stack([us, vs]).astype(np.int64)).to(oracle._dist_dev.device)
+            with DEVICE_LOCK:
+                out["lookup_ms"] = cold_ms(lambda: PL.label_bounds(oracle._dist_dev, pairs[0], pairs[1]),
+                                           reps=20)
+            moved = LABELS_K * 2 * LABEL_PAIRS * 2 + 2 * LABEL_PAIRS * 8 + 5 * LABEL_PAIRS * 4
+            out["lookup_bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+            out["lookup_bytes"] = moved
+            log(f"labels: label_bounds on {LABEL_PAIRS} pairs {out['lookup_ms']:.4f} ms on the card "
+                f"(cold L2) against a bound of {out['lookup_bound_ms']:.6f} ms ({moved} bytes: "
+                f"2 x {LABELS_K} x {LABEL_PAIRS} uint16 labels, the pairs, 5 outputs)")
+            out["counters"] = label_counters(srv)
+            out["report"] = srv.report()["labels"]
+        srv.registry.unregister("g")  # its engines and rows go before the next server's
+        del srv, oracle, idx
+        torch.cuda.empty_cache()
+        # ---- a budget below the rows: every answer exact (result cache off)
+        os.environ["BFS_TPU_TORCH_LABELS_GB"] = LABELS_SMALL_GB
+        try:
+            with BfsServer(GraphRegistry(layout_cache=cache), engine="pull", max_batch=32,
+                           result_cache_size=0) as srv2:
+                srv2.register("g", g)
+                c = label_counters(srv2)
+                if c != {"label_budget_rejects": 1}:
+                    raise AssertionError(f"labels: budget reject counters {c}")
+                exact = []
+                for i, (u, v) in enumerate([(int(us[0]), int(vs[0]))] + list(zip(
+                        us[1:EXACT_TIMED + 1].tolist(), vs[1:EXACT_TIMED + 1].tolist()))):
+                    t0 = time.perf_counter()
+                    r = srv2.query_dist("g", u, v).result(600)
+                    if i:  # the first tick ships the engine and captures its loop
+                        exact.append(time.perf_counter() - t0)
+                    if (r.dist, r.method) != (int(truth[u][0][v]), "exact"):
+                        raise AssertionError(f"labels: budget-rejected reply {r}")
+                out["exact"] = exact
+                log(f"labels: BFS_TPU_TORCH_LABELS_GB={LABELS_SMALL_GB}: 1 budget reject, every answer "
+                    f"exact; an exact answer (a single-source pull tick, result cache off) "
+                    f"{pcts(exact)} ({EXACT_TIMED} answers)")
+        finally:
+            del os.environ["BFS_TPU_TORCH_LABELS_GB"]
+    finally:
+        del os.environ["BFS_TPU_TORCH_LABELS"]
+    out["launches"] = launches
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    log(f"labels: device memory peak {out['peak']} bytes over the phase; counters "
+        f"{out['counters']} ({card})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> dict:
+    """``FleetRouter(replicas=2, engine="pull", max_batch=32)`` over the
+    script's bundle store with labels at 64: the rolling register (both
+    replicas warm-hit the sidecar ``labels_phase`` left), 4 threads sending
+    the batch's 64 sources as routed single-source queries and
+    ``FLEET_POINTS`` point queries, a rolling re-register after the first
+    half (the second half is the steady part), replica 1 closed directly
+    and ``FLEET_FAILOVER`` tree queries of 2 of the batch's sources routed
+    around it, then both replicas killed.  Every answer is held against
+    the batch's trees; the control kernel's launches against the
+    supersteps the replicas' ticks issued."""
+    import threading
+
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.serve import FleetRouter, NoReplicaAvailable
+
+    truth = {int(s): (batch.dist[i], batch.parent[i]) for i, s in enumerate(sources)}
+    srcs = [int(s) for s in sources]
+    rng = np.random.default_rng(seed + 20)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    os.environ["BFS_TPU_TORCH_LABELS"] = str(LABELS_K)
+    try:
+        rt = FleetRouter(replicas=2, layout_cache=P.LayoutCache(store), engine="pull", max_batch=32)
+        with rt:
+            t0 = time.perf_counter()
+            rt.register("g", g)
+            out["register_s"] = time.perf_counter() - t0
+            for i, srv in enumerate(rt.servers):
+                c = label_counters(srv)
+                if (c.get("label_builds"), c.get("label_build_cache_hits")) != (1, 1) or \
+                        c.get("label_build_errors", 0) or c.get("label_budget_rejects", 0):
+                    raise AssertionError(f"fleet: replica {i} did not warm-hit the sidecar: {c}")
+            log(f"fleet: rolling register on 2 replicas in {out['register_s']:.3f} s, both sidecar hits")
+            # ---- load: 4 threads, a rolling re-register after the first half
+            K.reset_launches()
+            points = list(zip(rng.choice(np.asarray(sources), FLEET_POINTS).tolist(),
+                              rng.integers(0, g.num_vertices, FLEET_POINTS).tolist()))
+            work = [("single", s) for s in srcs] + [("point", p) for p in points]
+            order = rng.permutation(len(work))
+            work = [work[i] for i in order]
+            half = len(work) // 2
+            sent: list = []  # (half, kind, arg, t_submit, future, t_done holder)
+            sent_lock = threading.Lock()
+            first_half = threading.Barrier(5)
+            swapped = threading.Event()
+
+            def send(items, part):
+                for kind, arg in items:
+                    t = time.perf_counter()
+                    f = rt.query("g", arg) if kind == "single" else rt.query_dist("g", *arg)
+                    done = []
+                    f.add_done_callback(lambda _f, done=done: done.append(time.perf_counter()))
+                    with sent_lock:
+                        sent.append((part, kind, arg, t, f, done))
+
+            def worker(w):
+                send(work[w:half:4], 0)
+                first_half.wait()
+                swapped.wait()
+                send(work[half + w::4], 1)
+
+            threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+            for t in threads:
+                t.start()
+            first_half.wait()
+            t0 = time.perf_counter()
+            rt.register("g", g)  # mid-load: the first half is in flight
+            out["swap_s"] = time.perf_counter() - t0
+            swapped.set()
+            for t in threads:
+                t.join()
+            lat = {0: [], 1: []}
+            for part, kind, arg, t, f, done in sent:
+                r = f.result(600)
+                if kind == "single":
+                    if not (np.array_equal(r.dist, truth[arg][0])
+                            and np.array_equal(r.parent, truth[arg][1])):
+                        raise AssertionError(f"fleet: reply of {arg} differs from the batch")
+                elif r.dist != int(truth[arg[0]][0][arg[1]]):
+                    raise AssertionError(f"fleet: dist{arg} = {r.dist} by {r.method}")
+                lat[part].append(done[0] - t)
+            steady = [x for x in sent if x[0] == 1]
+            span = max(x[5][0] for x in steady) - min(x[3] for x in steady)
+            out["qps"] = len(steady) / span
+            out["steady"] = lat[1]
+            ticks = [t for srv in rt.servers for t in srv.tick_log()]
+            issued = sum(t["issued"] for t in ticks)
+            if {k: n for k, n in K.LAUNCHES.items() if n} != {"loop_control": issued}:
+                raise AssertionError(f"fleet: launches {dict(K.LAUNCHES)} in {issued} supersteps")
+            out["launches"] = issued
+            busy = sum(t["service_s"] for t in ticks)
+            log(f"fleet: {len(sent)} routed queries ({len(srcs)} single-source, {FLEET_POINTS} point), "
+                f"every answer equal to the batch's trees; rolling re-register mid-load "
+                f"{out['swap_s']:.3f} s; steady half {len(steady)} queries, {out['qps']:.3f} queries/s, "
+                f"{pcts(lat[1])} (first half {pcts(lat[0])}); {len(ticks)} ticks on 2 replicas, "
+                f"service {busy:.3f} s in all, one at a time on the card's lock")
+            # ---- replica 1 closed directly: failover, no answer lost
+            rt.servers[1].close()
+            futs = []
+            for _ in range(FLEET_FAILOVER):
+                pair = [int(s) for s in rng.choice(np.asarray(sources), 2, replace=False)]
+                futs.append((pair, rt.submit("g", pair, mode="tree")))
+            for pair, f in futs:
+                r = f.result(600)
+                for j, s in enumerate(pair):
+                    if not (np.array_equal(r.dist[j], truth[s][0])
+                            and np.array_equal(r.parent[j], truth[s][1])):
+                        raise AssertionError(f"fleet: tree reply {pair} differs after failover")
+            router = rt.report()["router"]
+            if router.get("router_failovers", 0) < 1:
+                raise AssertionError(f"fleet: no failover observed: {router}")
+            # ---- terminal: every replica dead
+            rt.kill_replica(0)
+            rt.kill_replica(1)
+            try:
+                rt.query("g", srcs[0])
+            except NoReplicaAvailable:
+                pass
+            else:
+                raise AssertionError("fleet: a query with every replica dead did not raise")
+            out["router"] = {k: v for k, v in rt.report()["router"].items() if k.startswith("router_")}
+            for srv in rt.servers:
+                srv.registry.unregister("g")
+    finally:
+        del os.environ["BFS_TPU_TORCH_LABELS"]
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"fleet: {FLEET_FAILOVER} tree queries with replica 1 closed, all exact; every replica "
+        f"killed: NoReplicaAvailable; router {out['router']}; device memory peak {out['peak']} "
+        f"bytes; phase {out['wall_s']:.3f} s ({card})")
+    del rt
     torch.cuda.empty_cache()
     return out
 
@@ -3858,6 +4286,13 @@ def main(argv=None) -> int:
     algo["registry"] = serve["algo"]
     ckpt["serve"] = serve["segmented"]
     mark("serve")
+    # ---- the landmark label tier, then the fleet router, on the same
+    # graph: every reply against the batch's trees
+    labels = labels_phase(P, g, store, sources, multi["result"], args.seed, K, card)
+    mark("labels")
+    fleet = fleet_phase(P, g, store, sources, multi["result"], args.seed, K, card)
+    mark("fleet")
+    launches["loop_control"] += labels["launches"] + fleet["launches"]
     # ---- beyond device memory: the streamed MXU arm, every resident MXU
     # engine freed
     torch.cuda.empty_cache()
@@ -3984,6 +4419,14 @@ def main(argv=None) -> int:
         f"{len(serve['buckets'])} ticks, all executable-cache hits; result seconds of a pull "
         f"bucket-32 tick: cache 0 {serve['result_s']['cache 0']}, cache 256 "
         f"{serve['result_s']['cache 256']}; round 1 {serve['round1_s']:.3f} s")
+    log(f"label tier (K = {LABELS_K}, pull, max_batch 32; R-MAT scale {args.scale}, {card}): cold "
+        f"register {labels['cold_s']:.3f} s (build {labels['build_s']:.3f} s, bundle "
+        f"{labels['bundle_bytes']} bytes), warm {labels['warm_s']:.3f} s; tight rate "
+        f"{labels['tight_rate']:.4f}; a label answer idle {pcts(labels['idle'])}, behind a pull "
+        f"tick of 32 {pcts(labels['behind'])}; an exact answer {pcts(labels['exact'])}; "
+        f"label_bounds {labels['lookup_ms']:.4f} ms against {labels['lookup_bound_ms']:.6f} ms; "
+        f"fleet of 2: steady {fleet['qps']:.3f} queries/s, {pcts(fleet['steady'])}, phase "
+        f"{fleet['wall_s']:.3f} s, router {fleet['router']}")
     log(f"superstep checkpoints (R-MAT scale {args.scale}, {card}): relay every:{CKPT_EVERY}, "
         "fused / segmented s, epoch bytes, epoch writes s, carry copies s: " + "; ".join(
             f"{name} root {row['root']} {row['fused_s']:.6f} / {row['seg_s']:.6f}, "

@@ -1466,3 +1466,134 @@ def test_card_streamed_one_slab_budget_evicts_under_inflight_uploads(card):
         assert sum(r["evictions"] for r in rows) >= sum(r["demanded"] for r in rows) - len(rows)
         assert max(r["demanded"] for r in rows) >= 4
     np.testing.assert_array_equal(got.parent, parent)
+
+
+def test_card_label_lookup_matches_the_host_evaluation(card):
+    """``label_bounds`` on the card (int16 rows holding the uint16 bits)
+    against ``host_label_bounds``, element for element: an index swept on
+    the card and a synthetic one of small labels, where most pairs tie
+    between landmarks (``best_k`` must be the first minimum, as numpy's
+    ``argmin``), with unreachable sentinels and ``u == v`` pairs."""
+    from bfs_tpu_torch.serve import labels as PL
+
+    g = P.rmat_graph(10, 8, seed=3)
+    swept = PL.build_label_index(g, 32, device=card)
+    on_cpu = PL.build_label_index(g, 32, device="cpu")
+    for f in ("landmarks", "dist", "parent"):
+        np.testing.assert_array_equal(getattr(swept, f), getattr(on_cpu, f))
+    rng = np.random.default_rng(7)
+    dist = rng.integers(0, 4, size=(64, 5000)).astype(np.uint16)
+    dist[rng.random(dist.shape) < 0.05] = PL.LABEL_INF
+    dist[:, :50] = PL.LABEL_INF  # 50 vertices no landmark reaches
+    ties = PL.LabelIndex(np.arange(64, dtype=np.int32), dist,
+                         np.zeros(dist.shape, dtype=np.int32), 5000)
+    for idx in (swept, ties):
+        oracle = PL.LabelOracle(idx, device=card)
+        assert oracle._dist_dev.dtype == torch.int16 and oracle._dist_dev.is_cuda
+        assert oracle._dist_dev.untyped_storage().nbytes() == idx.device_bytes
+        n = idx.num_vertices
+        u = rng.integers(0, n, 8192).astype(np.int32)
+        v = rng.integers(0, n, 8192).astype(np.int32)
+        v[:64] = u[:64]
+        got = oracle.bounds(u, v)
+        want = PL.host_label_bounds(idx.dist, u, v)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        cpu = PL.LabelOracle(idx, device="cpu").bounds(u, v)
+        for a, b in zip(got, cpu):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_card_label_server_and_fleet(card, tmp_path, monkeypatch):
+    """A label server on the card (the sweep on the registry's pull engine,
+    lookups on the card's lock) while four threads keep pull ticks running:
+    every point query equal to the oracle, the method the certificate's,
+    the build clean and counted; then a fleet of two over one store, both
+    replicas warm-hitting the sidecar, replica 1 closed: failover, every
+    answer exact."""
+    from bfs_tpu_torch.serve import BfsServer, FleetRouter, GraphRegistry
+    from bfs_tpu_torch.serve import labels as PL
+
+    g = P.rmat_graph(10, 8, seed=3)
+    monkeypatch.setenv("BFS_TPU_TORCH_LABELS", "16")
+    truth = {}
+
+    def dist_of(u):
+        if u not in truth:
+            truth[u] = P.canonical_bfs(g, u)[0]
+        return truth[u]
+
+    rng = np.random.default_rng(3)
+    pairs = rng.integers(0, g.num_vertices, size=(300, 2)).tolist()
+    cache = P.LayoutCache(str(tmp_path))
+    with BfsServer(GraphRegistry(layout_cache=cache), max_batch=32, result_cache_size=0) as srv:
+        srv.register("g", g)
+        c = srv.metrics.report()["counters"]
+        assert c["label_builds"] == 1 and c["label_build_cache_misses"] == 1
+        assert "label_build_errors" not in c and "label_budget_rejects" not in c
+        idx = srv._label_oracle("g", 0).index
+        stop = threading.Event()
+        ticks = []
+
+        def traffic(part):
+            s = part
+            while not stop.is_set():
+                ticks.append((s, srv.query("g", s)))
+                s = (s + 4) % g.num_vertices
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=traffic, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        try:
+            replies = [srv.query_dist("g", u, v).result(300) for u, v in pairs]
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        _, tight, best_k, _, _ = PL.host_label_bounds(idx.dist, *np.asarray(pairs).T)
+        for (u, v), r, t, k in zip(pairs, replies, tight, best_k):
+            assert r.dist == int(dist_of(u)[v])
+            assert r.method == ("labels" if t else "exact")
+            assert r.landmark == (int(idx.landmarks[k]) if t else None)
+        for s, f in ticks[:64]:
+            _served_exact(g, s, f.result(300))
+        c = srv.metrics.report()["counters"]
+        assert c["label_hits"] == int(tight.sum()) and c.get("label_fallbacks", 0) == int((~tight).sum())
+    with FleetRouter(replicas=2, layout_cache=cache, max_batch=32) as rt:
+        rt.register("g", g)
+        for srv in rt.servers:
+            c = srv.metrics.report()["counters"]
+            assert (c["label_builds"], c["label_build_cache_hits"]) == (1, 1)
+        rt.servers[1].close()
+        for s in range(0, 64, 2):
+            _served_exact(g, s, rt.query("g", s).result(300))
+        for u, v in pairs[:32]:
+            assert rt.query_dist("g", u, v).result(300).dist == int(dist_of(u)[v])
+        assert rt.report()["router"]["router_failovers"] >= 1
+
+
+def test_card_packed_cap_latch(card):
+    """``path_graph(600)`` through a pull batch runner on the card: the
+    first tick runs packed, is cut at 62 levels and runs unpacked, which
+    latches the runner; the second tick runs the unpacked loop once, its
+    control kernel launched once per superstep, with the same rows."""
+    from bfs_tpu_torch.serve import GraphRegistry, build_batch_runner
+
+    g = P.path_graph(600)
+    reg = GraphRegistry(device=card)
+    reg.register("g", g)
+    runner = build_batch_runner(reg, "g", "pull", 2)
+    sources = np.asarray([0, 599], dtype=np.int32)
+    first = runner(sources)
+    assert runner.last_run["unpacked_rerun"] and not runner.use_packed
+    K.reset_launches()
+    second = runner(sources)
+    assert not runner.last_run["unpacked_rerun"]
+    assert runner.last_run["issued"] == 600 and K.LAUNCHES["loop_control"] == 600
+    for res in (first, second):
+        for i, s in enumerate(sources.tolist()):
+            d, p = P.canonical_bfs(g, s)
+            np.testing.assert_array_equal(res.dist[i], d)
+            np.testing.assert_array_equal(res.parent[i], p)

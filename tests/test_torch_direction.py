@@ -95,7 +95,9 @@ def test_knobs_mirror_the_reference():
     assert sorted(knobs.KNOBS) == [
         "BFS_TPU_TORCH_CACHE_DIR", "BFS_TPU_TORCH_CKPT", "BFS_TPU_TORCH_CKPT_MTBF_S",
         "BFS_TPU_TORCH_DIRECTION", "BFS_TPU_TORCH_DIRECTION_ALPHA",
-        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_FAULT", "BFS_TPU_TORCH_LAYOUT_BUILD",
+        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_FAULT", "BFS_TPU_TORCH_LABELS",
+        "BFS_TPU_TORCH_LABELS_GB", "BFS_TPU_TORCH_LABELS_VERIFY", "BFS_TPU_TORCH_LAYOUT_BUILD",
+        "BFS_TPU_TORCH_ROUTER_COOLDOWN_S", "BFS_TPU_TORCH_ROUTER_FAILURES",
         "BFS_TPU_TORCH_SSSP_DELTA", "BFS_TPU_TORCH_STREAM_CACHE_GB",
         "BFS_TPU_TORCH_STREAM_VERIFY", "BFS_TPU_TORCH_TILES", "BFS_TPU_TORCH_TILES_BUILD",
         "BFS_TPU_TORCH_TILES_CACHE"]

@@ -346,3 +346,45 @@ def test_deep_graph_supersteps(server):
     reply = server.query("path", 0).result(TIMEOUT)
     np.testing.assert_array_equal(reply.dist, np.arange(40))
     assert reply.num_levels == 40
+
+
+@pytest.mark.parametrize("ckpt", ["off", "every:64"])
+def test_packed_cap_latch(ckpt, monkeypatch):
+    """A batch deeper than the packed carry's 62 levels: the first tick
+    runs packed, is cut by the cap and runs again unpacked, which latches
+    the runner; the second tick runs the unpacked loop once, with the same
+    rows.  A graph under the cap never leaves the packed carry.  The fused
+    runner and the segmented one (``BFS_TPU_TORCH_CKPT``) alike."""
+    from bfs_tpu_torch.serve import SegmentedBatchRunner, build_batch_runner
+
+    monkeypatch.setenv("BFS_TPU_TORCH_CKPT", ckpt)
+    deep, shallow = P.path_graph(600), P.gnm_graph(150, 400, seed=11)
+    reg = GraphRegistry(device="cpu")
+    reg.register("deep", deep)
+    reg.register("shallow", shallow)
+    sources = np.asarray([0, 599], dtype=np.int32)
+    runner = build_batch_runner(reg, "deep", "pull", 2)
+    assert isinstance(runner, SegmentedBatchRunner) == (ckpt != "off")
+    assert runner.use_packed
+    first = runner(sources)
+    run1 = dict(runner.last_run)
+    assert not runner.use_packed
+    second = runner(sources)
+    run2 = dict(runner.last_run)
+    for res in (first, second):
+        for i, s in enumerate(sources.tolist()):
+            d, p = P.canonical_bfs(deep, s)
+            np.testing.assert_array_equal(res.dist[i], d)
+            np.testing.assert_array_equal(res.parent[i], p)
+        assert res.num_levels == 600
+    # Once: the second tick issues only the unpacked loop's supersteps, the
+    # first the packed run's 62 (and, blocked, up to a block more) besides.
+    assert run2["issued"] == run2["live"] == 600
+    assert 600 + 62 <= run1["issued"] < run2["issued"] + 62 + 64
+    if ckpt == "off":
+        assert (run1["unpacked_rerun"], run2["unpacked_rerun"]) == (True, False)
+    shallow_runner = build_batch_runner(reg, "shallow", "pull", 2)
+    for _ in range(2):
+        shallow_runner(np.asarray([0, 7], dtype=np.int32))
+        assert shallow_runner.use_packed
+        assert shallow_runner.last_run.get("unpacked_rerun", False) is False
