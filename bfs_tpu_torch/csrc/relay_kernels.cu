@@ -6,6 +6,17 @@
 // Words are uint32 bit patterns in standard packing (element e at word
 // e >> 5, bit e & 31).  Each kernel's plain PyTorch version lives in
 // bfs_tpu_torch/ops/relay.py and is held bit-exact against it.
+//
+// The tree axis (the lock-step batch, RelayEngine.run_multi_device; the
+// reference lifts these kernels over a leading sources axis with vmap and
+// a batch grid axis): every kernel of the superstep takes `trees` and the
+// per-tree stride of each word array it reads or writes per tree; masks,
+// valid words and work tables are shared.  The Beneš passes and the row-min
+// put the tree index fastest in blockIdx.x, so the S trees of one tile,
+// unit or row block run in adjacent blocks and read the same masks from L2:
+// the bound of a batched pass is the masks once plus S times the words.
+// Each of these kernels is a template on kBatch: trees == 1 (the single
+// search) launches the <false> instance, compiled as before the tree axis.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -38,7 +49,8 @@ constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 // 37 dependent device-memory round trips (5.4 us per stage at s22).  Here:
 //   - the tile and the slabs of the stages with d >= 32 are copied into a
 //     ring of `slots` shared-memory slots (cp.async.bulk on one mbarrier
-//     per slot, evict-first in L2), the next `slots` stages' slabs in
+//     per slot, evict-first in L2, evict-normal in a batch, whose next
+//     trees' blocks read the same slabs), the next `slots` stages' slabs in
 //     flight while a stage computes; a slot is refilled as soon as the
 //     barrier after its stage has passed.  A slab that is not 16-byte
 //     aligned or not a multiple of 16 bytes (small networks only) is copied
@@ -162,12 +174,19 @@ __device__ __forceinline__ void sweep_pair(uint32_t* xs, const StageInfo* info, 
   if (two) xs[i2] = b;
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kLocalThreads)
 benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks,
-                        const LocalStages st, int tile_words, int slots,
-                        const int32_t* __restrict__ ctl) {
+                        const LocalStages st, int tile_words, int slots, int trees,
+                        long long tree_stride, const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
+  // Block b: tile b / trees of tree b % trees (the trees of a tile adjacent).
+  if (kBatch) {
+    const long long tree = blockIdx.x % trees;
+    x_in += tree * tree_stride;
+    x_out += tree * tree_stride;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ StageInfo info[kMaxLocalStages];
   __shared__ int cross[kMaxLocalStages];
@@ -175,14 +194,17 @@ benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kBarBytes);
   const int slab = (tile_words + 3) & ~3;  // words per ring slot
   uint32_t* ring = xs + slab;
-  const long long base = static_cast<long long>(blockIdx.x) * tile_words;
+  const long long base =
+      static_cast<long long>(kBatch ? blockIdx.x / trees : blockIdx.x) * tile_words;
   const int half = tile_words >> 1;
   if (threadIdx.x == 0) {
     for (int i = 0; i <= slots; ++i) mbar_init(bar + i);
     mbar_fence_init();
   }
   __syncthreads();
-  const uint64_t policy = evict_first_policy();
+  // A single search reads each slab once; a batch's slabs are read again by
+  // the next trees' blocks.
+  const uint64_t policy = kBatch ? evict_normal_policy() : evict_first_policy();
   uint32_t parity = 0;
   fetch(xs, x_in + base, tile_words, bar + slots, policy);
   if (threadIdx.x < st.count) {
@@ -304,18 +326,25 @@ __device__ __forceinline__ int lower_slot(int q, int e) {
   return ((q >> e) << (e + 1)) | (q & ((1 << e) - 1));
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kOuterThreads)
 benes_outer_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks, const OuterStages st,
-                        int b0, int k, int lg_row, int quads,
-                        const int32_t* __restrict__ ctl) {
+                        int b0, int k, int lg_row, int quads, int trees,
+                        long long tree_stride, const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
   __shared__ __align__(16) uint32_t xs[kOuterWords];
+  // Block b: unit b / trees of tree b % trees (the trees of a unit adjacent).
+  if (kBatch) {
+    const long long tree = blockIdx.x % trees;
+    x_in += tree * tree_stride;
+    x_out += tree * tree_stride;
+  }
   const int row = 1 << lg_row;
   const int words = row << k;
   const int pairs = words >> 1;
   const int mid_bits = b0 - lg_row;
-  const long long u = blockIdx.x;
+  const long long u = kBatch ? blockIdx.x / trees : blockIdx.x;
   const long long base = ((u & ((1LL << mid_bits) - 1)) << lg_row) |
                          ((u >> mid_bits) << (b0 + k));
   auto word_of = [&](int i) {
@@ -510,22 +539,32 @@ __device__ __forceinline__ void rowmin_wide_vertex(
   }
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kThreads)
 class_rowmin_kernel(const uint32_t* __restrict__ l1,
                     const uint32_t* __restrict__ valid,
                     uint32_t* __restrict__ out,
-                    const RowminItem* __restrict__ items, int nitems,
+                    const RowminItem* __restrict__ items, int nitems, int trees,
+                    long long l1_stride, long long out_stride,
                     const int32_t* __restrict__ ctl) {
   __shared__ uint32_t ranks[kThreads * 33];
   if (superstep_dead(ctl)) return;
-  // The item owning this block: the last one whose first block <= blockIdx.
+  // Block x: table block x / trees of tree x % trees (the trees of a row
+  // block adjacent, reading the same valid words).
+  const long long block = kBatch ? blockIdx.x / trees : blockIdx.x;
+  if (kBatch) {
+    const long long tree = blockIdx.x % trees;
+    l1 += tree * l1_stride;
+    out += tree * out_stride;
+  }
+  // The item owning this block: the last one whose first block <= block.
   int lo = 0, hi = nitems - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (items[mid].block0 <= blockIdx.x) lo = mid; else hi = mid - 1;
+    if (items[mid].block0 <= block) lo = mid; else hi = mid - 1;
   }
   const RowminItem it = items[lo];
-  const long long b = blockIdx.x - it.block0;
+  const long long b = block - it.block0;
   const int tid = threadIdx.x;
   if (it.kind == 0) {
     rowmin_rank_major(l1, valid, out, it, b, ranks);
@@ -563,7 +602,9 @@ class_rowmin_kernel(const uint32_t* __restrict__ l1,
 // One thread per vertex: pk2 = min(pk, cand | level_bits) in unsigned order.
 // The warp's ballot of (pk2 != pk) is the standard-packed frontier word of
 // its 32 vertices (vr is a multiple of 32, so warps never straddle it), and
-// a block OR of those bits sets the device `changed` flag.  Outside the
+// a block OR of those bits sets the device `changed` flag.  A batch's trees
+// are grid rows (blockIdx.y) and share the one flag: the lock-step loop's
+// changed is any tree's (the reference's per.changed.any()).  Outside the
 // block loop (ctl null) level_bits is a launch parameter and `changed` a
 // flag the launcher zeroes first on the same stream; inside it, the level
 // is the control block's (level + 1) << kParentBits and `changed` is its
@@ -576,9 +617,17 @@ constexpr int kParentBits = 26;  // the packed word is level:6 | parent:26
 __global__ void __launch_bounds__(kThreads)
 packed_update_kernel(const uint32_t* packed_in, const uint32_t* __restrict__ cand,
                      uint32_t* packed_out, uint32_t* __restrict__ fwords,
-                     int32_t* __restrict__ changed, long long vr,
-                     uint32_t level_bits, const int32_t* __restrict__ ctl) {
+                     int32_t* __restrict__ changed, long long vr, long long stride,
+                     long long cstride, long long fstride, uint32_t level_bits,
+                     const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
+  // blockIdx.y: the tree (words at `stride`, candidates at `cstride`,
+  // frontier words at `fstride`).
+  const long long tree = blockIdx.y;
+  packed_in += tree * stride;
+  cand += tree * cstride;
+  packed_out += tree * stride;
+  fwords += tree * fstride;
   if (ctl != nullptr) {
     level_bits = static_cast<uint32_t>(ctl_word(ctl, kCtlLevel) + 1) << kParentBits;
   }
@@ -625,8 +674,10 @@ extern "C" {
 int benes_local_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* dists,
                      const int* compact, const int* lo, const int* hi, int nstages,
-                     long long nwords, int tile_words, const void* ctl, void* stream) {
-  if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0) {
+                     long long nwords, int tile_words, int trees, long long tree_stride,
+                     const void* ctl, void* stream) {
+  if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0 ||
+      trees < 1 || (nwords / tile_words) * trees > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LocalStages st;
@@ -651,29 +702,30 @@ int benes_local_pass(const void* x_in, void* x_out, const void* masks,
   const size_t wanted = st.ncross > 0 ? static_cast<size_t>(st.ncross) : 1;
   slots = slots < wanted ? slots : wanted;
   const size_t smem = kBarBytes + slab + slots * slab;  // dynamic
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaFuncSetAttribute(benes_local_pass_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool batch = trees > 1;
+  auto kernel = batch ? benes_local_pass_kernel<true> : benes_local_pass_kernel<false>;
+  static size_t configured[2] = {0, 0};
+  if (smem > configured[batch]) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    configured = smem;
+    configured[batch] = smem;
   }
-  const unsigned blocks = static_cast<unsigned>(nwords / tile_words);
-  benes_local_pass_kernel<<<blocks, kLocalThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks = static_cast<unsigned>((nwords / tile_words) * trees);
+  kernel<<<blocks, kLocalThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots),
-      static_cast<const int32_t*>(ctl));
+      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots), trees,
+      tree_stride, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
 int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* bits, const int* compact,
                      int nstages, int b0, int k, int lg_row, long long nwords,
-                     const void* ctl, void* stream) {
+                     int trees, long long tree_stride, const void* ctl, void* stream) {
   if (nstages < 1 || nstages > kMaxOuterStages || k < 1 || k > kMaxOuterStages ||
       lg_row < 0 || lg_row > b0 || (1LL << (lg_row + k)) > kOuterWords ||
-      (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0) {
+      (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0 || trees < 1 ||
+      (nwords >> (lg_row + k)) * trees > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OuterStages st;
@@ -684,25 +736,32 @@ int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
     st.bit[s] = bits[s];
     st.compact[s] = compact[s];
   }
-  // 16-byte word copies: rows of whole quads, both word arrays 16-byte aligned.
-  const bool quads = lg_row >= 2 && ((reinterpret_cast<uintptr_t>(x_in) |
-                                      reinterpret_cast<uintptr_t>(x_out)) & 15u) == 0;
-  const unsigned units = static_cast<unsigned>(nwords >> (lg_row + k));
-  benes_outer_pass_kernel<<<units, kOuterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // 16-byte word copies: rows of whole quads, both word arrays (every tree's)
+  // 16-byte aligned.
+  const bool quads = lg_row >= 2 && (tree_stride & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(x_in) |
+                       reinterpret_cast<uintptr_t>(x_out)) & 15u) == 0;
+  const unsigned units = static_cast<unsigned>((nwords >> (lg_row + k)) * trees);
+  auto kernel = trees > 1 ? benes_outer_pass_kernel<true> : benes_outer_pass_kernel<false>;
+  kernel<<<units, kOuterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0,
-      static_cast<const int32_t*>(ctl));
+      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0, trees,
+      tree_stride, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
 int class_rowmin(const void* l1, const void* valid, void* out,
-                 const void* items, int nitems, long long total_blocks,
-                 const void* ctl, void* stream) {
-  class_rowmin_kernel<<<static_cast<unsigned>(total_blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                 const void* items, int nitems, long long total_blocks, int trees,
+                 long long l1_stride, long long out_stride, const void* ctl, void* stream) {
+  if (trees < 1 || total_blocks * trees > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = trees > 1 ? class_rowmin_kernel<true> : class_rowmin_kernel<false>;
+  kernel<<<static_cast<unsigned>(total_blocks * trees), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
       static_cast<uint32_t*>(out), static_cast<const RowminItem*>(items),
-      nitems, static_cast<const int32_t*>(ctl));
+      nitems, trees, l1_stride, out_stride, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -710,17 +769,20 @@ int class_rowmin(const void* l1, const void* valid, void* out,
 // raises the block's flag, and nothing is cleared here, so a superstep that
 // is not live leaves the flag of the last live one to the control step.
 int packed_update(const void* packed_in, const void* cand, void* packed_out,
-                  void* fwords, void* changed, long long vr,
-                  unsigned level_bits, void* ctl, void* stream) {
+                  void* fwords, void* changed, long long vr, int trees, long long stride,
+                  long long cstride, long long fstride, unsigned level_bits, void* ctl,
+                  void* stream) {
+  if (trees < 1 || trees > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* c = static_cast<int32_t*>(ctl);
   int32_t* flag = c != nullptr ? c + kCtlFlag : static_cast<int32_t*>(changed);
   if (c == nullptr) cudaMemsetAsync(flag, 0, sizeof(int32_t), s);
-  const unsigned blocks = static_cast<unsigned>((vr + kThreads - 1) / kThreads);
+  const dim3 blocks(static_cast<unsigned>((vr + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(trees));
   packed_update_kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const uint32_t*>(packed_in),
       static_cast<const uint32_t*>(cand), static_cast<uint32_t*>(packed_out),
-      static_cast<uint32_t*>(fwords), flag, vr, level_bits, c);
+      static_cast<uint32_t*>(fwords), flag, vr, stride, cstride, fstride, level_bits, c);
   return static_cast<int>(cudaGetLastError());
 }
 

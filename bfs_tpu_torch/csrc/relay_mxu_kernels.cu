@@ -65,6 +65,18 @@
 // same column in one launch and the atomics still give the bits of the
 // reference's in-order reduction.
 //
+// The tree axis (the lock-step batch, RelayEngine.run_multi_device; the
+// kernel is a template on kBatch, so a single search launches the <false>
+// instance, compiled as before the tree axis): with
+// `trees` S > 1 the frontier words and the output are S rows (at `fstride`
+// and `ostride` words), and the tiles, row and column indices and keys are
+// shared.  A tile is live when any tree's frontier block is nonzero, is
+// copied into the ring once, and is computed against each tree whose block
+// is nonzero (that tree's block read again, from L1/L2), into that tree's
+// output row: the tiles are read once per batch, not once per tree.  The
+// reference runs its XLA twin under vmap on this arm (Mosaic has no kernel
+// under vmap); the port keeps its own kernel there, bit for bit with it.
+//
 // Bound: bytes — each live tile reads 2,048 B of tile and 16 B of frontier
 // (R-MAT scale 22: 262,144 multiply-adds of the dense product a tile
 // against 4.6 edges).  What held the first design at 5.4x that bound: every
@@ -212,12 +224,13 @@ __device__ __forceinline__ uint32_t word_of(const uint4& r, int w) {
   return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
 }
 
+template <bool kBatch>
 __global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
 mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ row_idx,
                   const int32_t* __restrict__ col_id, const uint32_t* __restrict__ keys,
                   const uint32_t* __restrict__ fwords, long long nfw,
-                  uint32_t* __restrict__ out, long long ntp, int col_tiles,
-                  const int32_t* __restrict__ ctl) {
+                  uint32_t* __restrict__ out, long long ntp, int col_tiles, int trees,
+                  long long fstride, long long ostride, const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -258,12 +271,24 @@ mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ r
         my_rb = __ldg(row_idx + tix);
         my_cb = __ldg(col_id + tix);
         if (my_cb < col_tiles) {  // else the dropped overflow segment
+          if constexpr (kBatch) {  // live: any tree's frontier block is nonzero
+            uint32_t any = 0u;
+            for (int tr = 0; tr < trees; ++tr) {
 #pragma unroll
-          for (int i = 0; i < kTileWords; ++i) {
-            const long long w = static_cast<long long>(my_rb) * kTileWords + i;
-            my_f[i] = w < nfw ? __ldg(fwords + w) : 0u;  // the pad block reads zero
+              for (int i = 0; i < kTileWords; ++i) {
+                const long long w = static_cast<long long>(my_rb) * kTileWords + i;
+                any |= w < nfw ? __ldg(fwords + tr * fstride + w) : 0u;
+              }
+            }
+            live = any != 0u;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kTileWords; ++i) {
+              const long long w = static_cast<long long>(my_rb) * kTileWords + i;
+              my_f[i] = w < nfw ? __ldg(fwords + w) : 0u;  // the pad block reads zero
+            }
+            live = (my_f[0] | my_f[1] | my_f[2] | my_f[3]) != 0u;
           }
-          live = (my_f[0] | my_f[1] | my_f[2] | my_f[3]) != 0u;
         }
       }
       pending = __ballot_sync(kAll, live);
@@ -292,39 +317,50 @@ mxu_expand_kernel(const uint4* __restrict__ tiles, const int32_t* __restrict__ r
     mbar_wait(bar + slot, static_cast<uint32_t>((done / kStages) & 1));
     const TileHead h = head[slot];
     const uint4* ts = ring + slot * kTile;
-    // Rows lane + 32k, zeroed where the frontier bit is clear.
-    uint4 r[4];
-    int bits = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      r[k] = ts[lane + 32 * k];
-      if (!((h.f[k] >> lane) & 1u)) r[k] = make_uint4(0u, 0u, 0u, 0u);
-      bits += __popc(r[k].x) + __popc(r[k].y) + __popc(r[k].z) + __popc(r[k].w);
-    }
-    const int total = __reduce_add_sync(kAll, bits);
     const uint32_t* krow = keys + static_cast<long long>(h.rb) * kTile;
     uint32_t* o = out + static_cast<long long>(h.cb) * kTile;
-    if (total <= kSparseMaxBits) {
-      uint32_t key[4];
+    for (int tr = 0; tr < (kBatch ? trees : 1); ++tr) {
+      // One search: the head's block; a batch: tree tr's block, read again.
+      uint32_t f[kTileWords];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const bool hit = (r[k].x | r[k].y | r[k].z | r[k].w) != 0u;
-        key[k] = hit ? __ldg(krow + lane + 32 * k) : kSentinel;
+      for (int i = 0; i < kTileWords; ++i) {
+        const long long w = static_cast<long long>(h.rb) * kTileWords + i;
+        f[i] = !kBatch ? h.f[i] : w < nfw ? __ldg(fwords + tr * fstride + w) : 0u;
       }
+      if (kBatch && (f[0] | f[1] | f[2] | f[3]) == 0u) continue;  // warp-uniform
+      uint32_t* ot = o + tr * ostride;
+      // Rows lane + 32k, zeroed where the frontier bit is clear.
+      uint4 r[4];
+      int bits = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
+        r[k] = ts[lane + 32 * k];
+        if (!((f[k] >> lane) & 1u)) r[k] = make_uint4(0u, 0u, 0u, 0u);
+        bits += __popc(r[k].x) + __popc(r[k].y) + __popc(r[k].z) + __popc(r[k].w);
+      }
+      const int total = __reduce_add_sync(kAll, bits);
+      if (total <= kSparseMaxBits) {
+        uint32_t key[4];
 #pragma unroll
-        for (int w = 0; w < kTileWords; ++w) {
-          uint32_t m = word_of(r[k], w);
-          while (m) {
-            const int b = __ffs(m) - 1;
-            m &= m - 1;
-            atomicMin(o + 32 * w + b, key[k]);
+        for (int k = 0; k < 4; ++k) {
+          const bool hit = (r[k].x | r[k].y | r[k].z | r[k].w) != 0u;
+          key[k] = hit ? __ldg(krow + lane + 32 * k) : kSentinel;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int w = 0; w < kTileWords; ++w) {
+            uint32_t m = word_of(r[k], w);
+            while (m) {
+              const int b = __ffs(m) - 1;
+              m &= m - 1;
+              atomicMin(ot + 32 * w + b, key[k]);
+            }
           }
         }
+      } else {
+        dense_tile(reinterpret_cast<const uint32_t*>(ts), f, krow, ot, g, t);
       }
-    } else {
-      dense_tile(reinterpret_cast<const uint32_t*>(ts), h.f, krow, o, g, t);
     }
     __syncwarp();  // every lane's reads of the slot are done
     if (produce(slot)) ++issued;  // slot == issued % kStages until exhausted
@@ -337,22 +373,24 @@ extern "C" {
 
 int mxu_expand(const void* tiles, const void* row_idx, const void* col_id,
                const void* keys, const void* fwords, long long nfw, void* out,
-               long long ntp, int col_tiles, int blocks, const void* ctl, void* stream) {
-  if (blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;
-  if (!configured) {
+               long long ntp, int col_tiles, int trees, long long fstride,
+               long long ostride, int blocks, const void* ctl, void* stream) {
+  if (blocks <= 0 || trees < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool batch = trees > 1;
+  auto kernel = batch ? mxu_expand_kernel<true> : mxu_expand_kernel<false>;
+  static bool configured[2] = {false, false};
+  if (!configured[batch]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mxu_expand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+    configured[batch] = true;
   }
-  mxu_expand_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, kSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kWarps * 32, kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(tiles), static_cast<const int32_t*>(row_idx),
       static_cast<const int32_t*>(col_id), static_cast<const uint32_t*>(keys),
       static_cast<const uint32_t*>(fwords), nfw, static_cast<uint32_t*>(out), ntp,
-      col_tiles, static_cast<const int32_t*>(ctl));
+      col_tiles, trees, fstride, ostride, static_cast<const int32_t*>(ctl));
   return static_cast<int>(cudaGetLastError());
 }
 

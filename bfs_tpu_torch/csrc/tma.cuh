@@ -38,6 +38,14 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
   return policy;
 }
 
+// L2 policy for bytes that neighbouring blocks read again soon (the masks
+// of a tile that the S trees of a batch route in adjacent blocks).
+__device__ __forceinline__ uint64_t evict_normal_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
 // `bytes` from `src` to `dst` as one bulk copy whose bytes complete on `bar`
 // (the issuing thread's arrival).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,

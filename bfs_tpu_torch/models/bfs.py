@@ -39,6 +39,14 @@ superstep is one gather and the fused row-min/update, the kernels of
 levels its distance planes hold falls back to :meth:`RelayEngine.run_multi`,
 the lock-step form.
 
+The lock-step batch (:meth:`RelayEngine.run_multi_device`,
+:meth:`RelayEngine.run_multi`; the reference's ``vmap`` over the dense
+superstep) carries S trees on a leading axis in one level loop: each
+superstep runs the dense superstep above on all S trees at once (each
+kernel of the superstep one launch for the batch, the tree index in its
+grid), one update raises one flag for the batch and one control step ends
+it, so LEVEL is shared and the loop runs until no tree changes.
+
 ``RelayEngine(..., expansion="mxu")`` runs single-source searches (and the
 lock-step :meth:`RelayEngine.run_multi`) through the MXU expansion arm
 instead: phases 1-4 become one tiled masked product of the frontier
@@ -178,7 +186,8 @@ class RelayEngine:
 
     ``__init__`` builds the layout (unless given a :class:`RelayGraph`) and
     ships masks and valid-slot words to ``device`` once; :meth:`run` runs
-    one source, :meth:`run_multi_elem` and :meth:`run_multi` a batch.
+    one source, :meth:`run_multi_elem` and :meth:`run_multi` (on
+    :meth:`run_multi_device`, the lock-step loop) a batch.
 
     ``expansion`` (``gather|mxu``, default ``gather``: the port has no
     measured probe to choose by yet) picks the dense superstep's arm:
@@ -353,10 +362,12 @@ class RelayEngine:
     # -- one superstep ------------------------------------------------------
 
     def _routed(self, fwords: torch.Tensor, ctl: torch.Tensor | None = None) -> torch.Tensor:
-        """Phases 1-3: frontier words -> routed L1 slot words."""
+        """Phases 1-3: frontier words -> routed L1 slot words (one search,
+        or a batch on a leading axis)."""
         rg = self.relay_graph
-        fw = torch.zeros(rg.vperm_size // 32, dtype=torch.int32, device=self.device)
-        fw[: rg.vr // 32] = fwords  # dummy out-positions read the zero tail
+        fw = torch.zeros((*fwords.shape[:-1], rg.vperm_size // 32), dtype=torch.int32,
+                         device=self.device)
+        fw[..., : rg.vr // 32] = fwords  # dummy out-positions read the zero tail
         y = K.apply_benes(fw, self.vperm_masks, rg.vperm_table, rg.vperm_size, ctl=ctl)
         l2 = R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space)
         return K.apply_benes(l2, self.net_masks, rg.net_table, rg.net_size, ctl=ctl)
@@ -690,16 +701,20 @@ class RelayEngine:
 
         return (occ, dirs), record
 
-    def _packed_loop(self, telemetry: bool = False) -> L.BlockLoop:
+    def _packed_loop(self, telemetry: bool = False, trees: int | None = None) -> L.BlockLoop:
         """Packed carry ``(packed, fwords, ctl)``: the candidates, then the
         gated ``packed_update`` in place (the next frontier into the
         carry's own words), then the control step.  With ``telemetry`` the
         carry is ``(packed, fwords, occupancy, directions, ctl)`` and the
-        recorder runs before the control step."""
+        recorder runs before the control step.  ``trees`` S: the lock-step
+        batch's carry ``(packed[S, vr], fwords[S, vr/32], ctl)``, kept under
+        ``("multi_packed", S)``."""
         vr = self.relay_graph.vr
+        lead = () if trees is None else (trees,)
 
         def make():
-            packed, fwords, ctl = self._empty(vr), self._empty(vr // 32), C.new_ctl(self.device)
+            packed, fwords = self._empty(*lead, vr), self._empty(*lead, vr // 32)
+            ctl = C.new_ctl(self.device)
             state = R.PackedRelayState(packed, fwords, None, None)
             tel, record = self._telemetry(fwords, telemetry)
 
@@ -710,16 +725,20 @@ class RelayEngine:
 
             return (packed, fwords, *tel, ctl), step
 
-        return L.cached(self._loops, ("packed", telemetry), make)
+        kind = ("packed", telemetry) if trees is None else ("multi_packed", trees)
+        return L.cached(self._loops, kind, make)
 
-    def _unpacked_loop(self, telemetry: bool = False) -> L.BlockLoop:
+    def _unpacked_loop(self, telemetry: bool = False, trees: int | None = None) -> L.BlockLoop:
         """Unpacked carry ``(dist, parent, fwords, ctl)``: the candidates,
         then the gated merge (torch ops) copied into the carry, its flag
-        raised, then the control step (telemetry as on the packed carry)."""
+        raised, then the control step (telemetry as on the packed carry;
+        ``trees`` as there, kept under ``("multi_unpacked", S)``)."""
         vr = self.relay_graph.vr
+        lead = () if trees is None else (trees,)
 
         def make():
-            dist, parent, fwords = self._empty(vr), self._empty(vr), self._empty(vr // 32)
+            dist, parent = self._empty(*lead, vr), self._empty(*lead, vr)
+            fwords = self._empty(*lead, vr // 32)
             ctl = C.new_ctl(self.device)
             state = R.RelayState(dist, parent, fwords, None, None)
             tel, record = self._telemetry(fwords, telemetry)
@@ -731,7 +750,8 @@ class RelayEngine:
 
             return (dist, parent, fwords, *tel, ctl), step
 
-        return L.cached(self._loops, ("unpacked", telemetry), make)
+        kind = ("unpacked", telemetry) if trees is None else ("multi_unpacked", trees)
+        return L.cached(self._loops, kind, make)
 
     def run(self, source: int = 0, *, max_levels: int | None = None,
             times: list | None = None) -> BfsResult:
@@ -753,7 +773,7 @@ class RelayEngine:
         return result
 
     def _search(self, source_new: int, max_levels: int, telemetry: bool = False,
-                dense: bool = False, times: list | None = None):
+                times: list | None = None):
         """(dist, parent, :class:`~bfs_tpu_torch.models.loop.LoopStats`,
         telemetry) in the relabeled space; parents are L1 slots on the
         gather arm and original ids on the MXU arm.  On a level loop the
@@ -761,10 +781,9 @@ class RelayEngine:
         reads them before the next search.  The last element is
         ``(occupancy, directions, packed_run)``, the accumulators of the run
         that produced the state, with ``telemetry`` or on the hybrid
-        schedule; else None.  ``dense`` runs the dense superstep whatever the
-        schedule (the lock-step batch)."""
+        schedule; else None."""
         rg = self.relay_graph
-        hybrid = self._hybrid() and not dense
+        hybrid = self._hybrid()
         self._issued = {0: 0, 1: 0}
         stats = L.LoopStats()
         if self.packed:
@@ -1310,24 +1329,76 @@ class RelayEngine:
         self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1, **stats}
         return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=st.level)
 
-    def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
-        """Lock-step batched BFS without a depth cap: every source runs its
-        own search (through the engine's expansion arm) and ``num_levels``
-        is the largest, which is the lock-step loop's level (all trees
-        advance together until none changes)."""
+    def run_multi_device(self, sources, *, max_levels: int | None = None,
+                         packed: bool | None = None) -> R.RelayState:
+        """Batched multi-source BFS, all trees lock-step in one level loop
+        (the dense superstep over a leading sources axis; one ``LEVEL``,
+        ``changed`` any tree's), device-resident: the batched
+        :class:`~bfs_tpu_torch.ops.relay.RelayState` in the relabeled space,
+        ``dist`` and ``parent`` ``int32[S, vr]`` (``parent`` L1 slots on the
+        gather arm, original ids on the MXU arm), ``fwords``
+        ``int32[S, vr/32]``, ``level`` a host int and ``changed`` a host
+        bool; map tree ``i`` with :meth:`multi_tree_to_original_device`.
+
+        On the packed carry (the default where the layout fits) the loop
+        caps at the packed carry's 62 levels: a batch deeper than that comes
+        back with ``changed`` set, and :meth:`run_multi` re-runs it
+        unpacked.  On the block loop the state's tensors are (or are decoded
+        from) the engine's loop buffers for that batch size: the next batch
+        of as many trees overwrites them, so clone what must outlive it.
+        :attr:`last_run` holds the loop's counts."""
         rg = self.relay_graph
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
         check_sources(rg.num_vertices, sources)
         max_levels = int(max_levels) if max_levels is not None else rg.vr
-        dist = np.empty((sources.shape[0], rg.num_vertices), dtype=np.int32)
-        parent = np.empty_like(dist)
-        levels = 0
-        for i, s in enumerate(sources.tolist()):
-            d, p, stats, _ = self._search(int(rg.old2new[s]), max_levels, dense=True)
-            res = self._to_result(d, p, stats.level, s)
-            dist[i], parent[i] = res.dist, res.parent
-            levels = max(levels, res.num_levels)
-        return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=levels)
+        packed = self.packed if packed is None else bool(packed)
+        cap = packed_cap(max_levels) if packed else max_levels
+        init = R.init_relay_batch(rg.vr, rg.old2new[sources], self.device, packed)
+        words = 1 if packed else 2
+        if self.loop == "eager":
+            st, stats = L.eager(init, self.superstep_packed if packed else self.superstep, cap)
+        else:
+            loop = (self._packed_loop if packed else self._unpacked_loop)(trees=sources.shape[0])
+            stats = loop.run(L.start(loop.buffers, init, cap))
+            st = type(init)(*loop.buffers[: words + 1], None, None)
+        self.last_run = vars(stats)
+        if not packed:
+            dist, parent = st.dist, st.parent
+        elif self.expansion == "mxu":
+            dist, parent = packed_dist(st.packed), packed_parent(st.packed)
+        else:
+            dist, parent = R.unpack_relay_packed(st.packed, rg.in_classes, rg.vr)
+        return R.RelayState(dist, parent, st.fwords, stats.level, stats.changed)
+
+    def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
+        """Lock-step batched BFS without a depth cap (the reference's
+        ``run_multi``): one :meth:`run_multi_device` batch, re-run unpacked
+        when the packed carry's cap cut it, then every tree mapped to
+        original ids on the device and copied to the host at once.
+        ``num_levels`` is the loop's level: the deepest tree's.
+        :attr:`last_run` holds ``loop_s``, ``result_s``, the loops' counts
+        (both runs' summed) and ``unpacked_rerun``."""
+        rg = self.relay_graph
+        sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
+        requested = int(max_levels) if max_levels is not None else rg.vr
+        t0 = time.perf_counter()
+        state = self.run_multi_device(sources, max_levels=max_levels)
+        stats = L.LoopStats(**self.last_run)
+        rerun = self.packed and packed_truncated(state.changed, state.level, requested)
+        if rerun:
+            state = self.run_multi_device(sources, max_levels=max_levels, packed=False)
+            stats = stats.add(L.LoopStats(**self.last_run))
+        t1 = time.perf_counter()
+        par = state.parent if self.expansion == "mxu" else slots_to_parent(state.parent,
+                                                                            self.src_l1)
+        dist, parent = state.dist[:, self.old2new], par[:, self.old2new]
+        src = torch.from_numpy(sources.astype(np.int64)).to(self.device)
+        # The sources' own entries hold relabeled ids or slots, not parents.
+        parent[torch.arange(sources.shape[0], device=self.device), src] = src.to(torch.int32)
+        dist, parent = to_host(dist, parent)
+        self.last_run = {"loop_s": t1 - t0, "result_s": time.perf_counter() - t1,
+                         **vars(stats), "unpacked_rerun": rerun}
+        return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=state.level)
 
 
 def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:

@@ -6,6 +6,12 @@ These are the plain versions of the port's kernels
 card's kernels are held against them bit for bit.  Each function computes
 what its namesake in ``bfs_tpu.ops.relay`` computes, on the same inputs.
 
+The lock-step batch (:meth:`~bfs_tpu_torch.models.bfs.RelayEngine.run_multi_device`,
+the reference's ``vmap`` over a leading sources axis) hands every per-tree
+array with a leading axis of S trees: ``[S, n]`` words in place of ``[n]``,
+masks, valid words and tables shared.  Each function below takes either;
+``changed`` of a batch is any tree's.
+
 Words are uint32 bit patterns stored in ``int32`` tensors, standard
 packing (element ``e`` at word ``e >> 5``, bit ``e & 31``).  Shifts,
 unsigned mins and compares widen to ``int64 & 0xFFFFFFFF``
@@ -40,6 +46,7 @@ __all__ = [
     "PackedRelayState",
     "init_relay_state",
     "init_packed_relay_state",
+    "init_relay_batch",
     "pack_std",
     "unpack_std",
     "apply_benes_std",
@@ -110,11 +117,35 @@ def init_packed_relay_state(vr: int, source_new: int, device="cpu") -> PackedRel
     )
 
 
+def init_relay_batch(vr: int, sources_new, device="cpu", packed: bool = True):
+    """The carry of a lock-step batch at iteration 0, one tree per source
+    (relabeled ids): :func:`init_packed_relay_state` (``packed``) or
+    :func:`init_relay_state` of each source, stacked on a leading axis, as
+    the reference's ``vmap`` of them; ``level`` 0, ``changed`` True."""
+    src = np.asarray(sources_new, dtype=np.int64).reshape(-1)
+    trees = src.shape[0]
+    rows = torch.arange(trees, device=device)
+    at = torch.from_numpy(src).to(device)
+    bits = torch.from_numpy((np.uint32(1) << (src & 31).astype(np.uint32)).view(np.int32))
+    fwords = torch.zeros((trees, vr // 32), dtype=torch.int32, device=device)
+    fwords[rows, at >> 5] = bits.to(device)
+    changed = torch.ones((), dtype=torch.bool, device=device)
+    if packed:
+        words = torch.full((trees, vr), -1, dtype=torch.int32, device=device)  # sentinel
+        words[rows, at] = 0
+        return PackedRelayState(words, fwords, 0, changed)
+    dist = torch.full((trees, vr), INT32_MAX, dtype=torch.int32, device=device)
+    dist[rows, at] = 0
+    parent = torch.full((trees, vr), -1, dtype=torch.int32, device=device)
+    parent[rows, at] = at.to(torch.int32)
+    return RelayState(dist, parent, fwords, 0, changed)
+
+
 def pack_std(bits: torch.Tensor) -> torch.Tensor:
-    """bool/uint8[n] -> int32[n/32] words, standard packing."""
-    b = bits.reshape(-1, 32).to(torch.int64)
+    """bool/uint8[..., n] -> int32[..., n/32] words, standard packing."""
+    b = bits.reshape(*bits.shape[:-1], -1, 32).to(torch.int64)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
-    return i32((b << shifts).sum(dim=1))
+    return i32((b << shifts).sum(dim=-1))
 
 
 def unpack_std(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -128,7 +159,7 @@ def apply_benes_std(
     table: tuple[StageSpec, ...], n: int,
 ) -> torch.Tensor:
     """Apply the stages of ``table`` (a whole routed network or any run of
-    its stages) to standard-packed words.
+    its stages) to standard-packed words, ``[n/32]`` or ``[S, n/32]``.
 
     Stage ``d < 32`` swaps bits inside each word:
     ``t = (x ^ (x >> d)) & m; x ^= t ^ (t << d)``.  Stage ``d >= 32`` swaps
@@ -136,6 +167,7 @@ def apply_benes_std(
     read at the lower word (full storage) or at its pair-compacted index
     (``d >= 4096``)."""
     x = u32(words)
+    lead = tuple(words.shape[:-1])
     for st in table:
         m = u32(masks_flat[st.offset : st.offset + st.nwords])
         d = st.d
@@ -145,10 +177,10 @@ def apply_benes_std(
             continue
         dw = d >> 5
         mv = m.reshape(-1, dw) if st.compact else m.reshape(-1, 2, dw)[:, 0, :]
-        xr = x.reshape(-1, 2, dw)
-        lo, hi = xr[:, 0, :], xr[:, 1, :]
+        xr = x.reshape(*lead, -1, 2, dw)
+        lo, hi = xr[..., 0, :], xr[..., 1, :]
         t = (lo ^ hi) & mv
-        x = torch.stack([lo ^ t, hi ^ t], dim=1).reshape(-1)
+        x = torch.stack([lo ^ t, hi ^ t], dim=-2).reshape(*lead, -1)
     return i32(x)
 
 
@@ -187,7 +219,8 @@ def _broadcast_plan(out_classes: tuple, net_size: int, ywords: int, device: str)
 def broadcast_l2(
     ywords: torch.Tensor, out_classes, net_size: int, out_space: int
 ) -> torch.Tensor:
-    """Vperm-output words (out-position space) -> L2 slot words.
+    """Vperm-output words (out-position space, ``[n]`` or ``[S, n]``) ->
+    L2 slot words.
     Rank-major classes replicate whole words (each rank's 32-slot word IS
     the class's position-bit word); vertex-major classes fill width/32
     words with one position bit (0 or all ones); the tail is zero.
@@ -196,14 +229,14 @@ def broadcast_l2(
     vertex-major range."""
     del out_space  # the classes carry it
     idx, vm_lo, vm_hi, shift = _broadcast_plan(
-        tuple(out_classes), int(net_size), int(ywords.shape[0]),
+        tuple(out_classes), int(net_size), int(ywords.shape[-1]),
         str(ywords.device),
     )
-    zero = torch.zeros(1, dtype=ywords.dtype, device=ywords.device)
-    out = torch.cat([ywords, zero])[idx]
+    zero = ywords.new_zeros((*ywords.shape[:-1], 1))
+    out = torch.cat([ywords, zero], dim=-1)[..., idx]
     if vm_hi > vm_lo:
-        bits = (u32(out[vm_lo:vm_hi]) >> shift) & 1
-        out[vm_lo:vm_hi] = i32(bits * U32)
+        bits = (u32(out[..., vm_lo:vm_hi]) >> shift) & 1
+        out[..., vm_lo:vm_hi] = i32(bits * U32)
     return out
 
 
@@ -274,7 +307,10 @@ def rowmin_ranks(
 ) -> torch.Tensor:
     """Min active RANK per relabeled vertex: uint32 words (int32[vr]),
     PACKED_SENTINEL where none.  Slot words are ANDed with the valid-slot
-    words first (Beneš pad routing may deliver stray bits)."""
+    words first (Beneš pad routing may deliver stray bits).  A batch
+    ``[S, nw]`` gives ``[S, vr]``, tree by tree."""
+    if l1words.dim() == 2:
+        return torch.stack([rowmin_ranks(w, valid_words, in_classes, vr) for w in l1words])
     parts = []
     covered = 0
     for cs in _classes_in_order(in_classes):
@@ -338,8 +374,9 @@ def _next_level(state, ctl):
 def apply_relay_candidates(
     state: RelayState, cand: torch.Tensor, ctl: torch.Tensor | None = None
 ) -> RelayState:
-    """Merge candidate slots into the unpacked carry: a vertex not yet
-    reached takes level+1 and its candidate parent.  With a control block
+    """Merge candidate slots into the unpacked carry (one search or a batch,
+    ``changed`` any tree's): a vertex not yet reached takes level+1 and its
+    candidate parent.  With a control block
     ``ctl`` (:mod:`.control`) the level is its LEVEL word and a superstep
     that is not LIVE changes nothing (the frontier words included)."""
     level, live = level_live(ctl, state.level)
@@ -359,7 +396,8 @@ def apply_relay_candidates_packed(
     ctl: torch.Tensor | None = None,
 ) -> PackedRelayState:
     """Packed state update: one unsigned ``min(packed, rank | level_word)``
-    per vertex; the changed words' bits are the next frontier.  With a
+    per vertex; the changed words' bits are the next frontier (one search or
+    a batch, ``changed`` any tree's).  With a
     control block ``ctl`` the level is its LEVEL word and a superstep that
     is not LIVE changes nothing."""
     level, live = level_live(ctl, state.level)

@@ -38,6 +38,15 @@ optional control block ``ctl`` (:mod:`.control`): the kernel then returns at
 entry when the superstep is not live, and the two update kernels read the
 level they stamp from it and raise its flag.  Without one the kernel is
 always live, as outside the block loop.
+
+The tree axis: the wrappers of the lock-step batch's kernels
+(:func:`apply_benes` and its passes, :func:`rowmin_ranks`,
+:func:`apply_relay_candidates_packed`, :func:`expand_frontier_mxu`) take
+their per-tree word arrays as ``[n]`` (one search) or ``[S, n]`` (S trees,
+:meth:`~bfs_tpu_torch.models.bfs.RelayEngine.run_multi_device`), with the
+masks, valid words, tiles and tables shared, and launch ONE kernel for
+all S trees (the tree index a grid axis), counted once whatever S is.  The
+plain versions take the same shapes.
 """
 
 from __future__ import annotations
@@ -152,16 +161,18 @@ _INT = ctypes.c_int
 def _register(lib: ctypes.CDLL) -> None:
     lib.benes_local_pass.restype = _INT
     lib.benes_local_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _LL, _INT, _INT, _LL, _VP, _VP,
     ]
     lib.benes_outer_pass.restype = _INT
     lib.benes_outer_pass.argtypes = [
-        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _VP, _VP,
+        _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _INT, _LL, _VP, _VP,
     ]
     lib.class_rowmin.restype = _INT
-    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _VP, _VP]
+    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _VP, _VP]
     lib.packed_update.restype = _INT
-    lib.packed_update.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, ctypes.c_uint, _VP, _VP]
+    lib.packed_update.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _LL, _INT, _LL, _LL, _LL, ctypes.c_uint, _VP, _VP,
+    ]
     lib.loop_control.restype = _INT
     lib.loop_control.argtypes = [_VP, _VP]
 
@@ -186,7 +197,9 @@ def _register_elem(lib: ctypes.CDLL) -> None:
 
 def _register_mxu(lib: ctypes.CDLL) -> None:
     lib.mxu_expand.restype = _INT
-    lib.mxu_expand.argtypes = [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL, _INT, _INT, _VP, _VP]
+    lib.mxu_expand.argtypes = [
+        _VP, _VP, _VP, _VP, _VP, _LL, _VP, _LL, _INT, _INT, _LL, _LL, _INT, _VP, _VP,
+    ]
 
 
 SOURCES = {
@@ -243,10 +256,44 @@ def _check_words(name: str, t: torch.Tensor, numel: int | None = None) -> None:
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """For 16-byte loads and stores: a 16-byte aligned start and a multiple
-    of 4 words."""
-    if t.data_ptr() % 16 or t.numel() % 4:
+    """For 16-byte loads and stores: a 16-byte aligned start and rows (the
+    last axis) of a multiple of 4 words."""
+    if t.data_ptr() % 16 or t.shape[-1] % 4:
         raise ValueError(f"{name}: expected a 16-byte aligned tensor of a multiple of 4 words")
+
+
+#: Trees one launch takes at most (``packed_update`` puts them in grid rows).
+MAX_TREES = 65535
+
+
+def _trees(name: str, t: torch.Tensor, n: int) -> int:
+    """The tree count of a per-tree word array: 1 for ``int32[n]`` (one
+    search), S for ``int32[S, n]`` (contiguous, so tree i starts at word
+    ``i * n``); raises on any other shape."""
+    _check_words(name, t)
+    if t.dim() == 1 and t.shape[0] == n:
+        return 1
+    if t.dim() == 2 and t.shape[1] == n and 1 <= t.shape[0] <= MAX_TREES:
+        return int(t.shape[0])
+    raise ValueError(f"{name}: expected int32[{n}] or int32[trees, {n}], got {tuple(t.shape)}")
+
+
+def _like(name: str, t: torch.Tensor, *shape: int) -> None:
+    """A contiguous int32 array of exactly ``shape``."""
+    _check_words(name, t)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected int32{list(shape)}, got {tuple(t.shape)}")
+
+
+def _rows(name: str, t: torch.Tensor, *shape: int) -> int:
+    """An int32 array of exactly ``shape`` with contiguous rows, which may
+    be views of wider rows (the MXU arm's batched candidates, ``[S, vtp]``
+    cut to ``[S, cols]``): its row stride in words."""
+    wide = t.dim() == 2 and t.stride(0) < t.shape[1] and t.shape[0] > 1
+    if t.dtype != torch.int32 or tuple(t.shape) != shape or t.stride(-1) != 1 or wide:
+        raise ValueError(f"{name}: expected int32{list(shape)} with contiguous rows, got "
+                         f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+    return t.stride(0) if t.dim() == 2 else t.shape[0]
 
 
 def _call(rc: int, what: str) -> None:
@@ -337,7 +384,8 @@ def benes_local_pass(
 ) -> torch.Tensor:
     """Apply a consecutive run of stages with ``d < 32 * tile_words`` (one
     shared-memory tile per block; a stage is skipped on a tile outside its
-    nonzero range ``StageSpec.lo/hi``).  ``out`` may alias ``x_in``."""
+    nonzero range ``StageSpec.lo/hi``) to ``x_in``, ``[n/32]`` or
+    ``[S, n/32]`` (one launch for the S trees).  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
     return launch_local_pass(kernels(), x_in, masks, stages, n, tile_words, out, ctl)
@@ -348,18 +396,18 @@ def launch_local_pass(lib, x_in, masks, stages, n, tile_words, out=None,
     """:func:`benes_local_pass` on the card, through ``lib`` (the built
     ``relay_kernels.cu``, or a copy of it with other constants)."""
     nw = n // 32
-    _check_words("x_in", x_in, nw)
+    trees = _trees("x_in", x_in, nw)
     _check_words("masks", masks)
     if any(st.d >= 32 * tile_words for st in stages):
         raise ValueError("a local stage spans more than one tile")
     out = torch.empty_like(x_in) if out is None else out
-    _check_words("out", out, nw)
+    _like("out", out, *x_in.shape)
     offsets, dists, compact, lo, hi = _local_args(tuple(stages))
     rc = lib.benes_local_pass(
         _ptr(x_in), _ptr(out), _ptr(masks),
         offsets.ctypes.data_as(_VP), dists.ctypes.data_as(_VP),
         compact.ctypes.data_as(_VP), lo.ctypes.data_as(_VP), hi.ctypes.data_as(_VP),
-        len(stages), nw, tile_words, _ctl(ctl), _stream(),
+        len(stages), nw, tile_words, trees, nw, _ctl(ctl), _stream(),
     )
     count_launch("benes_local_pass")
     _call(rc, "benes_local_pass")
@@ -431,7 +479,8 @@ def benes_outer_pass(
 ) -> torch.Tensor:
     """Apply a run of outer stages of one side of a network (word distances
     ``2^b`` for consecutive bits ``b``, each once, at most
-    :data:`OUTER_MAX_STAGES`) in one launch.  ``out`` may alias ``x_in``."""
+    :data:`OUTER_MAX_STAGES`) in one launch, to ``[n/32]`` or ``[S, n/32]``
+    words.  ``out`` may alias ``x_in``."""
     if not _on_card(x_in, masks):
         return R.apply_benes_std(x_in, masks, stages, n)
     return launch_outer_pass(kernels(), x_in, masks, stages, n, out, ctl=ctl)
@@ -443,16 +492,16 @@ def launch_outer_pass(lib, x_in, masks, stages, n, out=None,
     ``relay_kernels.cu``, or a copy of it with other constants, whose
     ``kOuterWords`` is ``max_words``)."""
     nw = n // 32
-    _check_words("x_in", x_in, nw)
+    trees = _trees("x_in", x_in, nw)
     _check_words("masks", masks)
     b0, k, row, _ = outer_geometry(tuple(st.d for st in stages), n, max_words)
     out = torch.empty_like(x_in) if out is None else out
-    _check_words("out", out, nw)
+    _like("out", out, *x_in.shape)
     offsets, bits, compact = _outer_args(tuple(stages), b0)
     rc = lib.benes_outer_pass(
         _ptr(x_in), _ptr(out), _ptr(masks), offsets.ctypes.data_as(_VP),
         bits.ctypes.data_as(_VP), compact.ctypes.data_as(_VP), len(stages), b0, k,
-        row.bit_length() - 1, nw, _ctl(ctl), _stream(),
+        row.bit_length() - 1, nw, trees, nw, _ctl(ctl), _stream(),
     )
     count_launch("benes_outer_pass")
     _call(rc, "benes_outer_pass")
@@ -463,8 +512,9 @@ def apply_benes(
     words: torch.Tensor, masks: torch.Tensor, table: tuple[StageSpec, ...],
     n: int, out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """The whole routed network: the outer prefix (one fused pass per run
-    of :func:`outer_plan`), one local pass, the outer suffix (the plain
+    """The whole routed network on ``[n/32]`` or ``[S, n/32]`` words: the
+    outer prefix (one fused pass per run of :func:`outer_plan`), one local
+    pass, the outer suffix, each one launch for all S trees (the plain
     version on the CPU)."""
     if not _on_card(words, masks):
         return R.apply_benes_std(words, masks, table, n)
@@ -540,23 +590,28 @@ def rowmin_ranks(
     l1words: torch.Tensor, valid_words: torch.Tensor, in_classes, vr: int,
     out: torch.Tensor | None = None, ctl: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Min active rank per relabeled vertex (sentinel where none): kernel
-    ``class_rowmin`` on the card, :func:`.relay.rowmin_ranks` on the CPU."""
+    """Min active rank per relabeled vertex (sentinel where none), of
+    ``[nw]`` or ``[S, nw]`` slot words against the shared ``valid_words``
+    (``int32[vr]`` or ``int32[S, vr]`` out): kernel ``class_rowmin`` on the
+    card (one launch for the S trees), :func:`.relay.rowmin_ranks` on the
+    CPU."""
     if not _on_card(l1words, valid_words):
         return R.rowmin_ranks(l1words, valid_words, in_classes, vr)
-    _check_words("l1words", l1words)
-    _check_words("valid_words", valid_words, l1words.numel())
+    _check_words("valid_words", valid_words)
+    nw = valid_words.numel()
+    trees = _trees("l1words", l1words, nw)
     table, blocks, wide = rowmin_items(tuple(in_classes), int(vr), str(l1words.device))
     if wide:  # 16-byte loads, up to a 4-word boundary
         _check_aligned("l1words", l1words)
         _check_aligned("valid_words", valid_words)
-    out = torch.empty(vr, dtype=torch.int32, device=l1words.device) if out is None else out
-    _check_words("out", out, vr)
+    if out is None:
+        out = torch.empty((*l1words.shape[:-1], vr), dtype=torch.int32, device=l1words.device)
+    _like("out", out, *l1words.shape[:-1], vr)
     if blocks == 0:
         return out
     rc = kernels().class_rowmin(
         _ptr(l1words), _ptr(valid_words), _ptr(out), _VP(table.data_ptr()),
-        table.shape[0], blocks, _ctl(ctl), _stream(),
+        table.shape[0], blocks, trees, nw, vr, _ctl(ctl), _stream(),
     )
     count_launch("class_rowmin")
     _call(rc, "class_rowmin")
@@ -571,7 +626,12 @@ def apply_relay_candidates_packed(
 ) -> R.PackedRelayState:
     """Packed state update (kernel ``packed_update`` on the card, updating
     ``state.packed`` in place; :func:`.relay.apply_relay_candidates_packed`
-    on the CPU).  The returned ``changed`` is a device int32[1] flag.
+    on the CPU), of one search (``int32[vr]`` words and candidates,
+    ``int32[vr/32]`` frontier words) or of S trees (``[S, vr]`` and
+    ``[S, vr/32]``, one launch).  The returned ``changed`` is a device
+    int32[1] flag, raised when any tree changed.  The candidates' rows may
+    be views of wider rows (the MXU arm's ``[S, vtp]`` output cut to
+    ``[S, vr]``).
 
     With a control block ``ctl`` (the block loop) the level is its LEVEL
     word, a superstep that is not LIVE changes nothing, the update raises
@@ -586,15 +646,15 @@ def apply_relay_candidates_packed(
             torch.where(ctl[C.LIVE] != 0, new.fwords, fwords_out))  # dead: not written
         C.raise_flag(ctl, new.changed)
         return new._replace(packed=state.packed, fwords=fwords, changed=None)
-    vr = state.packed.numel()
-    _check_words("packed", state.packed, vr)
-    _check_words("rank_or_sent", rank_or_sent, vr)
+    vr = state.packed.shape[-1]
+    trees = _trees("packed", state.packed, vr)
+    cstride = _rows("rank_or_sent", rank_or_sent, *state.packed.shape)
     dev = state.packed.device
     fwords = (
-        torch.empty(vr // 32, dtype=torch.int32, device=dev)
+        torch.empty((*state.packed.shape[:-1], vr // 32), dtype=torch.int32, device=dev)
         if fwords_out is None else fwords_out
     )
-    _check_words("fwords_out", fwords, vr // 32)
+    _like("fwords_out", fwords, *state.packed.shape[:-1], vr // 32)
     if ctl is None:
         changed, level = torch.empty(1, dtype=torch.int32, device=dev), state.level + 1
         bits = level_word(level)
@@ -603,7 +663,7 @@ def apply_relay_candidates_packed(
     rc = kernels().packed_update(
         _ptr(state.packed), _ptr(rank_or_sent), _ptr(state.packed),
         _ptr(fwords), ctypes.c_void_p(None) if changed is None else _ptr(changed), vr,
-        bits, _ctl(ctl), _stream(),
+        trees, vr, cstride, vr // 32, bits, _ctl(ctl), _stream(),
     )
     count_launch("packed_update")
     _call(rc, "packed_update")
@@ -967,7 +1027,9 @@ def expand_frontier_mxu(
     """Min original-id candidate per destination, int32[cols] (uint32
     patterns, -1 where none): kernel ``mxu_expand`` on the card, into an
     output cleared to 0xFFFFFFFF here;
-    :func:`.relay_mxu.expand_frontier_mxu_plain` on the CPU.
+    :func:`.relay_mxu.expand_frontier_mxu_plain` on the CPU.  ``fwords``
+    ``[S, nfw]`` expands S trees' frontiers against the shared tiles in one
+    launch (each live tile read once for the batch), into ``[S, cols]``.
 
     ``out`` (int32[vtp], a caller's view, e.g. one superblock's rows of the
     streamed arm's candidate grid with ``vtp = 16384``): the candidates are
@@ -979,19 +1041,21 @@ def expand_frontier_mxu(
     block."""
     tiles, row_idx, col_id, keys2d = tile_ops
     if out is not None:
-        _check_words("out", out, vtp)
+        _trees("out", out, vtp)
     if not _on_card(fwords, tiles, row_idx, col_id, keys2d, *(() if out is None else (out,))):
         if out is not None:
             if ctl is not None and int(ctl[C.LIVE]) == 0:
-                return out[:cols]  # a dead superstep writes nothing
-            return RM.expand_into_plain(fwords, tile_ops, out, rows=rows, rtp=rtp, vtp=vtp)[:cols]
+                return out[..., :cols]  # a dead superstep writes nothing
+            return RM.expand_into_plain(fwords, tile_ops, out, rows=rows, rtp=rtp,
+                                        vtp=vtp)[..., :cols]
         return RM.expand_frontier_mxu_plain(
             fwords, tile_ops, rows=rows, cols=cols, rtp=rtp, vtp=vtp
         )
     ntp = int(tiles.shape[0])
-    _check_words("fwords", fwords)
-    if fwords.numel() > rtp // 32:
-        raise ValueError(f"fwords: {fwords.numel()} words exceed the {rtp}-row space")
+    nfw = int(fwords.shape[-1])
+    trees = _trees("fwords", fwords, nfw)
+    if nfw > rtp // 32:
+        raise ValueError(f"fwords: {nfw} words exceed the {rtp}-row space")
     _check_words("tiles", tiles, ntp * 128 * 4)
     if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (128, 4) or tiles.data_ptr() % 16:
         raise ValueError("tiles: expected a 16-byte aligned int32[ntp, 128, 4] tensor")
@@ -1002,13 +1066,14 @@ def expand_frontier_mxu(
         raise ValueError("keys2d: expected a 16-byte aligned tensor")
     dev = fwords.device
     if out is None:
-        out = torch.full((vtp,), -1, dtype=torch.int32, device=dev)
+        out = torch.full((*fwords.shape[:-1], vtp), -1, dtype=torch.int32, device=dev)
+    _like("out", out, *fwords.shape[:-1], vtp)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = min(-(-ntp // (32 * MXU_WARPS)), sms * MXU_BLOCKS_PER_SM)
     rc = mxu_kernels().mxu_expand(
         _ptr(tiles), _ptr(row_idx), _ptr(col_id), _ptr(keys2d), _ptr(fwords),
-        fwords.numel(), _ptr(out), ntp, vtp // 128, blocks, _ctl(ctl), _stream(),
+        nfw, _ptr(out), ntp, vtp // 128, trees, nfw, vtp, blocks, _ctl(ctl), _stream(),
     )
     count_launch("mxu_expand")
     _call(rc, "mxu_expand")
-    return out[:cols]
+    return out[..., :cols]

@@ -156,7 +156,11 @@ def expand_frontier_mxu_plain(
     mask, contribution bits, the min key per tile column, then
     ``scatter_reduce_(..., "amin")`` over ``col_id``.  Mins run on
     ``key ^ 0x80000000`` so that int32 order is uint32 order; min is exact
-    and order-free, so chunking cannot change a bit."""
+    and order-free, so chunking cannot change a bit.  A batch ``fwords``
+    ``[S, nfw]`` gives ``[S, cols]``, tree by tree."""
+    if fwords.dim() == 2:
+        return torch.stack([expand_frontier_mxu_plain(f, tile_ops, rows=rows, cols=cols, rtp=rtp,
+                                                      vtp=vtp, chunk=chunk) for f in fwords])
     tiles, row_idx, col_id, keys2d = tile_ops
     dev = tiles.device
     fblk = _pad_frontier_words(fwords, rows, rtp).reshape(-1, TILE_WORDS)
@@ -187,7 +191,7 @@ def expand_into_plain(
     vtp: int,
 ) -> torch.Tensor:
     """:func:`expand_frontier_mxu_plain` over all ``vtp`` columns, min-merged
-    (unsigned) into ``out`` int32[vtp] in place, as a launch of
+    (unsigned) into ``out`` int32[vtp] (a batch: ``[S, vtp]``) in place, as a launch of
     ``mxu_expand`` with ``out=`` does with its atomics.  Returns ``out``.
 
     A superblock slab's pad tiles (column ``vtp // 128``, row block

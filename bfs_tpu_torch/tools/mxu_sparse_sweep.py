@@ -55,7 +55,8 @@ def launch(lib, fw, ops, vtp: int, cols: int) -> torch.Tensor:
     blocks = min(-(-ntp // (32 * K.MXU_WARPS)), sms * K.MXU_BLOCKS_PER_SM)
     rc = lib.mxu_expand(
         K._ptr(tiles), K._ptr(row_idx), K._ptr(col_id), K._ptr(keys2d), K._ptr(fw),
-        fw.numel(), K._ptr(out), ntp, vtp // 128, blocks, K._ctl(None), K._stream(),
+        fw.numel(), K._ptr(out), ntp, vtp // 128, 1, fw.numel(), vtp, blocks, K._ctl(None),
+        K._stream(),
     )
     if rc:
         raise RuntimeError(f"mxu_expand: CUDA error {rc} at launch")

@@ -29,6 +29,22 @@ under a budget raised to 32 GiB), the tensor-core kernel ``mxu_expand`` held
 bit-exact against its plain version at the level of the max-degree root's
 search with the most live tiles, and ``RelayEngine(expansion="mxu")`` for the
 same 4 roots, each result equal to ``canonical_bfs`` and to the gather arm's.
+The lock-step batch follows the gather search (``lockstep_phase``):
+``RelayEngine.run_multi`` for the 4 roots and for 16 sources (the roots
+and 12 drawn with ``--seed + 1``; serve's relay buckets below 32), all
+trees in one captured level loop
+whose kernels take a tree axis: the first call (the capture) and a timed
+call with its peak memory, launches held to the single search's
+per-superstep count x supersteps issued, every tree against ``run`` (whose
+summed seconds, the old design's S x ``run``, are printed beside), two
+trees against the oracle, the eager loop against the captured one, a dead
+superstep and a trace; then each batched kernel on the 16 trees at their
+densest superstep (``lockstep_kernel_phase``) against its plain version and
+16 single launches, one launch per call, timed beside them and its bound
+(masks once + 16 x words); the MXU arm's batch of 4 after its searches,
+equal to the gather batch's trees, and ``mxu_expand`` on the 16 trees'
+frontiers; the 64-source batch below in lock-step too; and
+``path_graph(100)`` batched through the unpacked re-run on both arms.
 The multi-source path follows on the same graph:
 ``RelayEngine.run_multi_elem_device`` for a batch of 64 sources drawn from
 ``--seed`` (BASELINE.json config 5; G = 2 groups of 32 trees), whose first
@@ -82,7 +98,8 @@ and pull layouts) and ``BfsServer(engine="pull", max_batch=32,
 tick_s=0.002, verify_sample=4)``: 40 single-source queries from 4
 submitter threads, collapsed multi-source and tree queries and a
 ``query_path``; staged ticks of 32 relay sources (``run_multi_elem``, the
-first building the route index), 4 relay sources (``run_multi``: K1-K4)
+first building the route index), 4 relay sources (``run_multi``: K1-K4
+on the lock-step loop)
 and 8 push sources; a second round of every bucket, all executable-cache
 hits; the per-tick service and result seconds and kept host bytes, with
 the result cache at 0 and at 256; every reply held bit for bit against the
@@ -244,6 +261,11 @@ PUSH_BATCH = 64
 CKPT_EVERY = 2
 CKPT_MULTI = 8
 CKPT_MULTI_EVERY = 4
+# The lock-step batch (RelayEngine.run_multi): the gather arm at serve's
+# relay buckets of 4 and 16 (below the element-major 32), its kernels on
+# the last size's trees; the MXU arm at 4.
+LOCKSTEP_S = (4, 16)
+LOCKSTEP_MXU_S = (4,)
 
 
 def log(msg: str) -> None:
@@ -1201,14 +1223,34 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         return time.perf_counter() - t0, eng.last_run["host_reads"]
 
     table = block_table("64-source batch, one batch a run", one_batch, L, eng)
+    # The lock-step batch of the same sources (what run_multi_elem falls
+    # back to past 31 levels): the first call captures its size.
+    eng.run_multi(sources)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    lock = eng.run_multi(sources)
+    torch.cuda.synchronize()
+    lock_s = time.perf_counter() - t0
+    lock_run = dict(eng.last_run)
+    lock_launches = {k: K.LAUNCHES[k] for k in GATHER_STEP}
+    if (lock_launches != {k: v * lock_run["issued"] for k, v in GATHER_STEP.items()}
+            or lock.num_levels != level):
+        raise AssertionError(f"64-source lock-step batch: launches {lock_launches} in "
+                             f"{lock_run['issued']} supersteps, {lock.num_levels} levels")
     t0 = time.perf_counter()
     for i, s in enumerate(sources.tolist()):
         one = eng.run(s)
-        if not (np.array_equal(res.dist[i], one.dist) and np.array_equal(res.parent[i], one.parent)):
-            raise AssertionError(f"tree {i} (source {s}): differs from the single-source search")
+        for name, r in (("element-major", res), ("lock-step", lock)):
+            if not (np.array_equal(r.dist[i], one.dist) and np.array_equal(r.parent[i], one.parent)):
+                raise AssertionError(f"{name} tree {i} (source {s}): differs from the "
+                                     "single-source search")
         verify(f"relay batch tree {i}", res.dist[i], res.parent[i], s)
-    log(f"all {trees} trees equal the port's single-source RelayEngine.run bit for bit "
-        f"({time.perf_counter() - t0:.1f} s)")
+    del lock
+    log(f"lock-step batch of the same {trees} sources (run_multi): {lock_s:.6f} s (level loop "
+        f"{lock_run['loop_s']:.6f} s, results {lock_run['result_s']:.6f} s), {lock_run['issued']} "
+        f"supersteps issued, launches {lock_launches}; all {trees} trees of both batches equal "
+        f"the port's single-source RelayEngine.run bit for bit ({time.perf_counter() - t0:.1f} s)")
     for i in (0, 31, 32, trees - 1):  # bit 0 and bit 31 of both groups
         s = int(sources[i])
         dist, parent = P.canonical_bfs(g, s)
@@ -1218,7 +1260,9 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         if violations:
             raise AssertionError(f"tree {i}: check() violations {violations[:3]}")
     log("trees 0, 31, 32, 63: oracle-exact, check() clean")
-    return dict(launches={k: first[k] for k in ELEM_REPLACES}, secs=secs, eager_secs=esecs, levels=level, peak=peak,
+    return dict(launches={k: first[k] for k in ELEM_REPLACES}, lock_launches=lock_launches,
+                lock_s=lock_s, lock_run=lock_run, secs=secs, eager_secs=esecs, levels=level,
+                peak=peak,
                 eager_peak=epeak, run=run, idle=idle, dead_ms=dead, splits=splits,
                 staged_s=staged_s, table=table, result=res)
 
@@ -1287,6 +1331,311 @@ def small_multi_checks(P, tiny) -> None:
         log(f"{name}, 32 sources: {res.num_levels} levels"
             f"{' through the lock-step fallback' if fell_back else ''}, oracle-exact, captured "
             "loop equal to the eager loop")
+
+
+# ------------------------------------------------ the lock-step batch --
+
+def lockstep_phase(label: str, eng, g, sources, sizes, per_step: dict, expect: str, K, P, L,
+                   oracle: dict | None = None) -> dict:
+    """``RelayEngine.run_multi`` (the lock-step batch: the S trees in one
+    level loop, each kernel of the superstep one launch for the batch) at
+    each batch size S in ``sizes`` on the first S of ``sources``: the first
+    call (the capture of that size), then a timed call with its peak device
+    memory, its launches held to ``per_step`` (a single search's
+    per-superstep count) x supersteps issued and its live supersteps to its
+    levels; every tree against the single-source ``run`` (their summed
+    seconds: the old design's S x ``run``); with ``oracle`` (source ->
+    ``canonical_bfs`` result, computed by the main path) the first two
+    trees of the largest batch against it, ``check()`` and the
+    DeviceChecker; the eager loop bit for bit against
+    the captured one; a dead superstep of the batch's loop; a device trace
+    of the largest batch."""
+    import numpy as np
+    import torch
+
+    rows, launched = {}, dict.fromkeys(per_step, 0)
+    for S in sizes:
+        batch = np.asarray(sources[:S], dtype=np.int32)
+        eng.loop = "blocks"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_multi(batch)  # the capture of this batch size
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run_multi(batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        run = dict(eng.last_run)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: K.LAUNCHES[k] for k in per_step}
+        want = {k: v * run["issued"] for k, v in per_step.items()}
+        if launches != want or run["live"] != res.num_levels or run["unpacked_rerun"]:
+            raise AssertionError(f"{label} S={S}: launches {launches} in {run['issued']} "
+                                 f"supersteps issued, expected {per_step} per superstep; "
+                                 f"{run['live']} live in {res.num_levels} levels")
+        for k in per_step:
+            launched[k] += launches[k]
+        singles_s = 0.0
+        for i, s in enumerate(batch.tolist()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = eng.run(s)
+            singles_s += time.perf_counter() - t0
+            if not (np.array_equal(res.dist[i], one.dist)
+                    and np.array_equal(res.parent[i], one.parent)):
+                raise AssertionError(f"{label} S={S}: tree {i} (source {s}) differs from run")
+        eng.loop = "eager"
+        eager = eng.run_multi(batch)
+        eager_run = dict(eng.last_run)
+        eng.loop = "blocks"
+        if not (np.array_equal(eager.dist, res.dist) and np.array_equal(eager.parent, res.parent)
+                and eager.num_levels == res.num_levels):
+            raise AssertionError(f"{label} S={S}: the captured loop differs from the eager loop")
+        dead = dead_superstep_ms(f"{label} S={S}", eng._packed_loop(trees=S))
+        rows[S] = dict(first_s=first_s, secs=secs, singles_s=singles_s, peak=peak, run=run,
+                       launches=launches, eager_s=eager_run["loop_s"] + eager_run["result_s"],
+                       dead_ms=dead, result=res, sources=batch)
+        log(f"{label} S={S}: first call (capture) {first_s:.6f} s; timed {secs:.6f} s (level "
+            f"loop {run['loop_s']:.6f} s, results {run['result_s']:.6f} s), {res.num_levels} "
+            f"levels, host reads {run['host_reads']}, replays {run['replays']}, supersteps "
+            f"issued {run['issued']}, live {run['live']}; peak device memory {peak} bytes; "
+            f"launches {launches} = per superstep {per_step} x {run['issued']}; every tree "
+            f"equal to run, whose {S} searches took {singles_s:.6f} s (the old design); eager "
+            f"loop {rows[S]['eager_s']:.6f} s, equal bit for bit")
+    S = sizes[-1]
+    top = rows[S]
+    if oracle:
+        for i in (0, 1):
+            s = int(top["sources"][i])
+            dist, parent = oracle[s]
+            res = top["result"]
+            if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
+                raise AssertionError(f"{label} S={S}: tree {i} (source {s}) differs from "
+                                     "canonical_bfs")
+            violations = P.check(g, res.dist[i], res.parent[i], s)
+            if violations:
+                raise AssertionError(f"{label} S={S}: tree {i}: check() violations {violations[:3]}")
+            verify(f"{label} S={S} tree {i}", res.dist[i], res.parent[i], s)
+        log(f"{label} S={S}: trees 0 and 1 oracle-exact, check() and the DeviceChecker clean")
+    idle = device_trace(f"{label} S={S}, captured", lambda: eng.run_multi(top["sources"]),
+                        top["secs"], expect)
+    return dict(rows=rows, launches=launched, idle=idle)
+
+
+def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
+    """Each gather kernel of the lock-step superstep on S trees (the
+    sources' batch) on the inputs the batch's own main path gives it at its
+    superstep with the most frontier vertices: bit for bit against its
+    plain batched version and against S single-tree launches, ONE launch
+    per call; its time (cold L2) beside the S single launches' and the
+    plain version's, and its bound: the masks (or the valid words) read
+    once plus S times the words."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    rg, dev = eng.relay_graph, eng.device
+    S = len(sources)
+    st = R.init_relay_batch(rg.vr, rg.old2new[np.asarray(sources)], dev, True)
+    best = None
+    while bool(st.changed):
+        count = sum(int(R.unpack_std(f, rg.vr).sum()) for f in st.fwords)
+        if best is None or count > best[0]:
+            best = (count, st.packed.clone(), st.fwords.clone(), st.level)
+        st = eng.superstep_packed(st)
+    count, packed, fwords, level = best
+    del st
+    log(f"lock-step kernel inputs: {S} trees at superstep {level + 1}, {count} frontier "
+        f"vertices in all")
+    fw = torch.zeros((S, rg.vperm_size // 32), dtype=torch.int32, device=dev)
+    fw[:, : rg.vr // 32] = fwords
+    y = K.apply_benes(fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size)
+    l2 = R.broadcast_l2(y, rg.out_classes, rg.net_size, rg.out_space)
+    l1 = K.apply_benes(l2, eng.net_masks, rg.net_table, rg.net_size)
+    valid = eng.valid_words
+    cand = K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr)
+    results = {}
+
+    def check(name, kernel, batch, singles, plain, nbytes, shape, plain_reps=2):
+        """``batch()`` and ``singles()`` return the outputs (a tuple);
+        ``plain()`` the plain version's."""
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = batch()
+        torch.cuda.synchronize()
+        if K.LAUNCHES[kernel] != 1:
+            raise AssertionError(f"{name}: {K.LAUNCHES[kernel]} launches for {S} trees, expected 1")
+        want = plain()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        one = singles()
+        err1 = max(max_abs_err(a, b) for a, b in zip(got, one))
+        if err or err1:
+            raise AssertionError(f"{name}: batched kernel differs from its plain version "
+                                 f"(max err {err}) or from {S} single launches ({err1})")
+        ms = cold_ms(batch, 10)
+        sms = cold_ms(singles, 5)
+        pms = cold_ms(plain, plain_reps, warm=0)  # the comparison above warmed it
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        results[name] = dict(max_abs_err=err, ms=ms, singles_ms=sms, plain_ms=pms,
+                             bound_ms=bound, bound_bytes=nbytes, shape=shape)
+        log(f"lock-step kernel {name}, {S} trees: {shape}; bit-exact against the plain "
+            f"version and {S} single launches; 1 launch; {ms:.4f} ms (cold L2) against "
+            f"{sms:.4f} ms for {S} single launches (plain {pms:.4f} ms); bound {bound:.4f} ms "
+            f"from {nbytes} bytes at 3.35 TB/s (shared operands once + {S} x per-tree words) "
+            f"on {card}")
+
+    n, table, masks = rg.net_size, rg.net_table, eng.net_masks
+    nw = n // 32
+    pre, _, _, _ = K.split_passes(table, n)
+    run = K.outer_plan(table, pre, n)[0]
+    pstages = tuple(table[i] for i in run.stages)
+    out = torch.empty_like(l2)
+    out1 = torch.empty_like(l2)
+    check("benes_outer_pass (net prefix)", "benes_outer_pass",
+          lambda: (K.benes_outer_pass(l2, masks, pstages, n, out=out),),
+          lambda: (torch.stack([K.benes_outer_pass(l2[i], masks, pstages, n, out=out1[i])
+                                for i in range(S)]),),
+          lambda: (R.apply_benes_std(l2, masks, pstages, n),),
+          4 * sum(st.nwords for st in pstages) + S * 2 * 4 * nw,
+          f"net n={n} prefix, {run.k} stages, {run.units} units x {S} trees")
+    del out, out1
+    for name, words, m, tb, size in (
+        ("vperm", fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size),
+        ("net", l2, masks, table, n),
+    ):
+        p_, loc, _, t = K.split_passes(tb, size)
+        x = R.apply_benes_std(words, m, tuple(tb[i] for i in p_), size)
+        stages = tuple(tb[i] for i in loc)
+        out, out1 = torch.empty_like(x), torch.empty_like(x)
+        check(f"benes_local_pass ({name})", "benes_local_pass",
+              lambda: (K.benes_local_pass(x, m, stages, size, t, out=out),),
+              lambda: (torch.stack([K.benes_local_pass(x[i], m, stages, size, t, out=out1[i])
+                                    for i in range(S)]),),
+              lambda: (R.apply_benes_std(x, m, stages, size),),
+              4 * sum(st.hi - st.lo for st in stages) + S * 2 * 4 * (size // 32),
+              f"{name} n={size}, {len(stages)} local stages, tile {t} words, "
+              f"{size // 32 // t} tiles x {S} trees", plain_reps=1)
+        del x, out, out1
+    class_words = sum((c.sb - c.sa) // 32 for c in rg.in_classes)
+    rbuf, rbuf1 = torch.empty_like(cand), torch.empty_like(cand)
+    check("class_rowmin", "class_rowmin",
+          lambda: (K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr, out=rbuf),),
+          lambda: (torch.stack([K.rowmin_ranks(l1[i], valid, rg.in_classes, rg.vr,
+                                               out=rbuf1[i]) for i in range(S)]),),
+          lambda: (R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr),),
+          4 * class_words + S * (4 * class_words + 4 * rg.vr),
+          f"vr={rg.vr}, {len(rg.in_classes)} classes x {S} trees", plain_reps=1)
+    scratch, scratch1 = packed.clone(), packed.clone()
+    fout, fout1 = torch.empty_like(fwords), torch.empty_like(fwords)
+
+    # Each call updates its scratch words in place; a later call on the
+    # updated words moves the same bytes (as kernel_phase times it).
+    def batch_update():
+        new = K.apply_relay_candidates_packed(R.PackedRelayState(scratch, fwords, level, None),
+                                              cand, fwords_out=fout)
+        return new.packed, new.fwords, new.changed.to(torch.int32)
+
+    def single_updates():
+        new = [K.apply_relay_candidates_packed(
+            R.PackedRelayState(scratch1[i], fwords[i], level, None), cand[i],
+            fwords_out=fout1[i]) for i in range(S)]
+        flags = torch.stack([n.changed.reshape(-1)[0].to(torch.int32) for n in new])
+        return (torch.stack([n.packed for n in new]), torch.stack([n.fwords for n in new]),
+                flags.amax().reshape(1))
+
+    def plain_update():
+        new = R.apply_relay_candidates_packed(R.PackedRelayState(packed, fwords, level, None),
+                                              cand)
+        return new.packed, new.fwords, new.changed.reshape(1).to(torch.int32)
+
+    check("packed_update", "packed_update", batch_update, single_updates, plain_update,
+          S * (3 * 4 * rg.vr + rg.vr // 8) + 4, f"vr={rg.vr} x {S} trees", plain_reps=2)
+    return results
+
+
+def lockstep_mxu_kernel_check(meng, trees: list, K, RM, card: str) -> dict:
+    """``mxu_expand`` on S trees in one launch (each live tile read once for
+    the batch) at each tree's densest level (``trees``: its frontier words
+    there and at level 1): against S single launches bit for bit, timed
+    (cold L2) beside them, and against the plain batched expansion on the
+    level-1 frontiers (the plain version at the densest levels would take
+    tens of seconds a tree)."""
+    import torch
+
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    ops, (rows, cols, rtp, vtp, _) = meng.mxu_operands, meng.mxu_geometry
+    kw = dict(rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+    dense = torch.stack([d for d, _ in trees])
+    sparse = torch.stack([s for _, s in trees])
+    S = dense.shape[0]
+    live = [int(RM.live_tiles(f, ops, rows=rows, rtp=rtp).numel()) for f in dense]
+    union = dense[0].clone()
+    for f in dense[1:]:
+        union |= f
+    shared = int(RM.live_tiles(union, ops, rows=rows, rtp=rtp).numel())
+    K.reset_launches()
+    got = K.expand_frontier_mxu(dense, ops, **kw)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["mxu_expand"] != 1:
+        raise AssertionError(f"mxu_expand: {K.LAUNCHES['mxu_expand']} launches for {S} trees")
+    one = torch.stack([K.expand_frontier_mxu(f, ops, **kw) for f in dense])
+    err1 = max_abs_err(got, one)
+    err = max_abs_err(K.expand_frontier_mxu(sparse, ops, **kw),
+                      RM.expand_frontier_mxu_plain(sparse, ops, **kw))
+    if err or err1:
+        raise AssertionError(f"mxu_expand, {S} trees: differs from the plain version (max err "
+                             f"{err}) or from {S} single launches ({err1})")
+    ms = cold_ms(lambda: K.expand_frontier_mxu(dense, ops, **kw), 3)
+    sms = cold_ms(lambda: [K.expand_frontier_mxu(f, ops, **kw) for f in dense], 2)
+    pms = cold_ms(lambda: RM.expand_frontier_mxu_plain(sparse, ops, **kw), 1, warm=1)
+    nbytes = 2048 * shared + 16 * sum(live) + 4 * rows + S * 4 * cols
+    nops = 262144 * sum(live)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / FP16_TENSOR_OPS_PER_S * 1e3
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"lock-step kernel mxu_expand, {S} trees at their densest levels: {sum(live)} live "
+        f"tiles in all, {shared} distinct (read once); bit-exact against {S} single launches, "
+        f"and against the plain version on the level-1 frontiers; 1 launch; {ms:.4f} ms (cold "
+        f"L2) against {sms:.4f} ms for {S} single launches (plain, level 1: {pms:.4f} ms); "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms by {bound_by} ({nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.4f} ms: tiles once + frontier blocks, keys, {S} outputs; {nops} "
+        f"operations at 989 TFLOP/s dense fp16 = {ops_ms:.4f} ms) on {card}")
+    return {"mxu_expand": dict(max_abs_err=err, ms=ms, singles_ms=sms, plain_ms=pms,
+                               bound_ms=max(bytes_ms, ops_ms), bound_by=bound_by,
+                               live=sum(live), shared=shared)}
+
+
+def small_lockstep_checks(P, K) -> None:
+    """path_graph(100) batched on both arms: the packed carry cut at 62
+    levels, then the unpacked re-run, each through a captured loop; every
+    tree against the oracle and the eager loop."""
+    import numpy as np
+
+    path = P.path_graph(100)
+    sources = np.array([0, 37, 99], dtype=np.int32)
+    for expansion in ("gather", "mxu"):
+        eng = P.RelayEngine(path, expansion=expansion, sparse_hybrid=False)
+        res = eng.run_multi(sources)
+        run = dict(eng.last_run)
+        eng.loop = "eager"
+        eager = eng.run_multi(sources)
+        if not run["unpacked_rerun"] or res.num_levels != 100 or run["live"] != 62 + 100:
+            raise AssertionError(f"path_graph(100) lock-step {expansion}: {run}")
+        for i, s in enumerate(sources.tolist()):
+            dist, parent = P.canonical_bfs(path, s)
+            for name, r in (("the oracle", None), ("the eager loop", eager)):
+                d, p = (dist, parent) if r is None else (r.dist[i], r.parent[i])
+                if not (np.array_equal(res.dist[i], d) and np.array_equal(res.parent[i], p)):
+                    raise AssertionError(f"path_graph(100) lock-step {expansion}: tree {i} "
+                                         f"differs from {name}")
+        log(f"path_graph(100), lock-step batch of 3 on the {expansion} arm: 62 packed levels, "
+            f"then the unpacked re-run to 100 ({run['live']} live supersteps, {run['replays']} "
+            "replays); every tree oracle-exact and equal to the eager loop")
 
 
 # ------------------------------------------------ the layout set-up --
@@ -1529,7 +1878,9 @@ def mxu_kernel_phase(eng, meng, root0: int, K, R, RM, card: str) -> dict:
         raise AssertionError("mxu_expand: gated (live) launch differs from the ungated one")
     if not bool((K.expand_frontier_mxu(fw, ops, **kw, ctl=dead_ctl(fw.device)) == -1).all()):
         raise AssertionError("mxu_expand: a dead superstep's launch wrote candidates")
-    pms = cold_ms(lambda: RM.expand_frontier_mxu_plain(fw, ops, **kw), 2, warm=1)
+    # One timed call of the plain expansion (2.5 s at s22), after the
+    # comparison's call above.
+    pms = cold_ms(lambda: RM.expand_frontier_mxu_plain(fw, ops, **kw), 1, warm=0)
     nbytes = 2064 * t + 4 * rows + 4 * cols
     nops = 262144 * t
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4185,6 +4536,19 @@ def main(argv=None) -> int:
     corrupted = verify_corruptions(g, root0, *want[root0][0])
     gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L, eng)
     mark("gather main path")
+    # ---- the lock-step batch on the gather arm, then each of its kernels on
+    # the 16 trees against its plain version and 16 single launches
+    # The 4 roots first (their oracle results are at hand), then sources drawn
+    # with --seed + 1 from the rest of the component.
+    lock_sources = np.asarray([*roots, *np.random.default_rng(args.seed + 1).choice(
+        np.setdiff1d(comp, roots), max(LOCKSTEP_S) - len(roots), replace=False)], dtype=np.int32)
+    lockstep = {"gather": lockstep_phase("gather lock-step", eng, g, lock_sources, LOCKSTEP_S,
+                                         GATHER_STEP, "packed_update", K, P, L,
+                                         oracle={r: want[r][0] for r in roots})}
+    for k, n in lockstep["gather"]["launches"].items():
+        launches[k] += n
+    lock_kernels = lockstep_kernel_phase(eng, lock_sources, K, R, card)
+    mark("lock-step gather")
 
     # ---- MXU arm: tiles, K6 against its plain version, the 4 searches ---
     tiles_oracle_check(P, generators, AT)
@@ -4194,6 +4558,24 @@ def main(argv=None) -> int:
     mxu = mxu_main_path(meng, g, roots, want, directed_traversed, K, P, L)
     launches.update({k: mxu["launches"][k] for k in MXU_REPLACES})
     mark("mxu arm")
+    # ---- the lock-step batch on the MXU arm (its trees equal the gather
+    # batch's), then mxu_expand on the gather batch's 16 trees
+    lockstep["mxu"] = lockstep_phase("mxu lock-step", meng, g, lock_sources, LOCKSTEP_MXU_S,
+                                     MXU_STEP, "mxu_expand", K, P, L)
+    top = lockstep["gather"]["rows"][max(LOCKSTEP_S)]["result"]
+    for S, row in lockstep["mxu"]["rows"].items():
+        if not (np.array_equal(row["result"].dist, top.dist[:S])
+                and np.array_equal(row["result"].parent, top.parent[:S])):
+            raise AssertionError(f"mxu lock-step S={S}: trees differ from the gather arm's batch")
+    for k, n in lockstep["mxu"]["launches"].items():
+        launches[k] += n
+    trees = []
+    for d in top.dist:
+        densest = int(np.argmax(np.bincount(d[d != P.INF_DIST])))
+        trees.append((frontier_of(meng, d, densest), frontier_of(meng, d, 1)))
+    lock_kernels.update(lockstep_mxu_kernel_check(meng, trees, K, RM, card))
+    del trees, top
+    mark("lock-step mxu")
     # ---- superstep checkpoints on the dense MXU engine
     ckpt_roots = roots[:2]  # the max-degree root and one other
     ckpt = {"mxu dense": ckpt_relay_phase("checkpoints, mxu dense", meng, ckpt_roots, want,
@@ -4208,6 +4590,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     multi = multi_source_phase(eng, g, sources, directed_traversed, K, RE, P, L)
     launches.update(multi["launches"])
+    for k, n in multi["lock_launches"].items():
+        launches[k] += n
     kres.update(elem_kernel_phase(eng, sources, K, RE, card))
     mark("multi-source")
     del eng  # the hybrid engines below ship the layout again
@@ -4320,6 +4704,7 @@ def main(argv=None) -> int:
     small_hybrid_checks(P, K)
     small_ckpt_checks(P, L, ckpt_store)
     small_multi_checks(P, tiny)
+    small_lockstep_checks(P, K)
     mark("small graphs")
     algo["small"] = algo_small_checks(P, generators, K, L)
     mark("algorithms, small graphs and graph500_run")
@@ -4465,6 +4850,19 @@ def main(argv=None) -> int:
         f"{max((x['gbs'] for x in st_pull['levels']), default=0.0):.3f} GB/s against a pinned "
         f"copy's {st_pull['h2d_gbs']:.3f} GB/s; resumed run {stream['resume']['secs']:.6f} s; "
         f"device peak {stream['peak']} bytes within {stream['bound']}")
+    relay4 = [t for t in serve["ticks"] + serve["round2"]
+              if (t["engine"], t["bucket"]) == ("relay", 4)]
+    log(f"lock-step batch (RelayEngine.run_multi; R-MAT scale {args.scale}, {card}): " + "; ".join(
+        f"{arm} S={S} {r['secs']:.6f} s (loop {r['run']['loop_s']:.6f}, results "
+        f"{r['run']['result_s']:.6f}; first call {r['first_s']:.6f}) against {S} x run "
+        f"{r['singles_s']:.6f} s, dead superstep {r['dead_ms']:.6f} ms, peak {r['peak']} bytes"
+        for arm in ("gather", "mxu") for S, r in lockstep[arm]["rows"].items())
+        + f"; 64 sources {multi['lock_s']:.6f} s against the element-major batch's "
+        f"{multi['secs']:.6f} s; serve relay-4 ticks (service s) "
+        + ", ".join(f"{t['service_s']:.6f} (hit {t['compile_hit']})" for t in relay4)
+        + "; kernels at 16 trees, ms (cold L2) / 16 single launches / bound: "
+        + ", ".join(f"{name} {r['ms']:.4f} / {r['singles_ms']:.4f} / {r['bound_ms']:.4f}"
+                    for name, r in lock_kernels.items()))
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

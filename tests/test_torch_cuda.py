@@ -1597,3 +1597,202 @@ def test_card_packed_cap_latch(card):
             d, p = P.canonical_bfs(g, s)
             np.testing.assert_array_equal(res.dist[i], d)
             np.testing.assert_array_equal(res.parent[i], p)
+
+
+# ---------------------------------------------- the lock-step batch (trees) --
+
+def _batched_case(kernel: str, trees: int, card, layout):
+    """``(call, outs)`` for one batched kernel on ``trees`` trees of random
+    inputs: ``call(batch, ctl)`` runs the wrapper on ``[trees, n]``
+    operands (``batch`` False: tree by tree, a 1-D launch each) into the
+    returned output tensors; ``outs`` names the plain version's result in
+    the same order."""
+    rg = layout
+    rng = np.random.default_rng(trees)
+    if kernel in ("benes_local_pass", "benes_outer_pass"):
+        table, n = rg.net_table, rg.net_size
+        pre, local, _, tile = K.split_passes(table, n, 64)  # outer stages at this size
+        x = _t(_words(rng, trees * n // 32).reshape(trees, n // 32), card)
+        masks = _t(rg.net_masks, card)
+        if kernel == "benes_local_pass":
+            stages = tuple(table[i] for i in local)
+
+            def launch(words, out, ctl):
+                return K.benes_local_pass(words, masks, stages, n, tile, out=out, ctl=ctl)
+        else:
+            stages = tuple(table[i] for i in K.outer_plan(table, pre, n)[0].stages)
+
+            def launch(words, out, ctl):
+                return K.benes_outer_pass(words, masks, stages, n, out=out, ctl=ctl)
+        want = (R.apply_benes_std(x, masks, stages, n),)
+        outs = (torch.empty_like(x),)
+        inputs = (x,)
+    elif kernel == "class_rowmin":
+        l1 = _t(_words(rng, trees * rg.net_size // 32).reshape(trees, -1), card)
+        valid = _t(valid_slot_words(rg.src_l1, rg.net_size), card)
+        want = (R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr),)
+        outs = (torch.empty((trees, rg.vr), dtype=torch.int32, device=card),)
+        inputs = (l1,)
+
+        def launch(words, out, ctl):
+            return K.rowmin_ranks(words, valid, rg.in_classes, rg.vr, out=out, ctl=ctl)
+    elif kernel == "packed_update":
+        vr = rg.vr
+        lv = rng.integers(0, 6, (trees, vr)).astype(np.uint32)
+        packed = (lv << np.uint32(26)) | rng.integers(0, 1 << 10, (trees, vr)).astype(np.uint32)
+        packed[rng.random((trees, vr)) < 0.5] = 0xFFFFFFFF
+        cand = rng.integers(0, 1 << 10, (trees, vr)).astype(np.uint32)
+        cand[rng.random((trees, vr)) < 0.7] = 0xFFFFFFFF
+        packed, cand = _t(packed, card), _t(cand, card)
+        new = R.apply_relay_candidates_packed(R.PackedRelayState(packed, None, 5, None), cand)
+        want = (new.packed, new.fwords)
+        outs = (packed.clone(), torch.empty((trees, vr // 32), dtype=torch.int32, device=card))
+        inputs = (cand,)
+
+        def launch(c, out, ctl, fw=None):
+            raise AssertionError("packed_update launches through call()")
+    else:  # mxu_expand
+        rows = cols = 20000
+        src = rng.integers(0, rows, 400000)
+        dst = rng.integers(0, cols, 400000)
+        _, ops, kw = _tiles_on(card, src, dst, rows, cols, rng.permutation(rows))
+        fw = torch.stack([_frontier(rng, rows, fr, card) for fr in
+                          np.linspace(0.05, 0.9, trees)])
+        want = (RM.expand_frontier_mxu_plain(fw, ops, **kw),)
+        outs = (torch.full((trees, kw["vtp"]), -1, dtype=torch.int32, device=card),)
+        inputs = (fw,)
+
+        def launch(words, out, ctl):
+            return K.expand_frontier_mxu(words, ops, out=out, ctl=ctl, **kw)
+
+    def call(batch: bool, ctl=None):
+        if kernel == "packed_update":
+            pk, fwo = outs
+            if batch:
+                st = R.PackedRelayState(pk, fwo, 5 if ctl is None else None, None)
+                got = K.apply_relay_candidates_packed(st, inputs[0], fwords_out=fwo, ctl=ctl)
+                return got.packed, got.fwords, got.changed
+            flags = []
+            for i in range(trees):
+                st = R.PackedRelayState(pk[i], fwo[i], 5, None)
+                flags.append(K.apply_relay_candidates_packed(st, inputs[0][i],
+                                                             fwords_out=fwo[i]).changed)
+            return pk, fwo, torch.stack(flags).any()
+        if batch:
+            got = launch(inputs[0], outs[0], ctl)
+            return (got,)
+        return (torch.stack([launch(inputs[0][i], outs[0][i], None) for i in range(trees)]),)
+
+    return call, outs, want
+
+
+@pytest.mark.parametrize("trees", [1, 3, 16])
+@pytest.mark.parametrize("kernel", ["benes_local_pass", "benes_outer_pass", "class_rowmin",
+                                    "packed_update", "mxu_expand"])
+def test_card_batched_kernel_matches_plain_and_single_launches(card, layout, kernel, trees):
+    """Each kernel of the lock-step superstep on ``[S, n]`` operands: bit
+    for bit its plain batched version and S single-tree launches; ONE
+    launch per call whatever S is; gated by a live control block the same
+    words, and by a dead one nothing written."""
+    from bfs_tpu_torch.ops import control as C
+
+    call, outs, want = _batched_case(kernel, trees, card, layout)
+    if kernel == "packed_update":
+        start = outs[0].clone()
+    K.reset_launches()
+    got = call(True)
+    assert _counts([kernel]) == {kernel: 1}
+    for a, b in zip(got, want):
+        _eq(a[..., : b.shape[-1]], b)
+    if kernel == "packed_update":
+        new_packed, new_fwords = got[0].clone(), got[1].clone()
+        assert bool(got[2].item()) == bool((new_packed != start).any())
+        outs[0].copy_(start)
+    else:
+        batch_out = got[0].clone()
+        if kernel == "mxu_expand":
+            outs[0].fill_(-1)
+    single = call(False)
+    if kernel == "packed_update":
+        _eq(single[0], new_packed)
+        _eq(single[1], new_fwords)
+        outs[0].copy_(start)
+    else:
+        _eq(single[0][..., : batch_out.shape[-1]], batch_out)
+    live = C.new_ctl(card)
+    C.init_ctl(live, 62)
+    live[C.LEVEL] = 5  # stamps level 6, as the ungated launch at state level 5
+    if kernel == "mxu_expand":
+        outs[0].fill_(-1)
+    got = call(True, live)
+    for a, b in zip(got, want):
+        _eq(a[..., : b.shape[-1]], b)
+    if kernel == "packed_update":
+        assert int(live[C.FLAG]) == int(bool((new_packed != start).any()))
+        outs[0].copy_(start)
+    dead = C.new_ctl(card)
+    C.init_ctl(dead, 62)
+    dead[C.LEVEL], dead[C.CHANGED], dead[C.LIVE] = 3, 0, 0
+    before = [o.clone() for o in outs]
+    for o in outs[int(kernel == "packed_update"):]:
+        o.fill_(7)
+    sentinel = [o.clone() for o in outs]
+    call(True, dead)
+    torch.cuda.synchronize()
+    for o, s in zip(outs, sentinel):
+        assert torch.equal(o, s)
+    if kernel == "packed_update":
+        assert torch.equal(outs[0], before[0]) and int(dead[C.FLAG]) == 0
+
+
+@pytest.mark.parametrize("expansion", ["gather", "mxu"])
+def test_card_run_multi_device_matches_cpu_and_eager(card, expansion):
+    """``run_multi_device`` on the card against the CPU engine's state, bit
+    for bit, at S = 4 and 16, packed and unpacked; the captured loop against
+    the eager loop; launches = the single search's per-superstep count x
+    supersteps issued whatever S is; every tree of ``run_multi`` equals
+    ``run``; ``path_graph(100)`` through the unpacked re-run."""
+    g = P.rmat_graph(12, 6, seed=1)
+    eng = P.RelayEngine(g, expansion=expansion, sparse_hybrid=False)
+    cpu = P.RelayEngine(g, device="cpu", expansion=expansion, sparse_hybrid=False)
+    per_step = dict(PER_STEP[expansion])
+    if expansion == "gather":
+        rg = eng.relay_graph
+        per_step["benes_outer_pass"] = sum(
+            len(K.outer_plan(tb, side, n))
+            for tb, n in ((rg.vperm_table, rg.vperm_size), (rg.net_table, rg.net_size))
+            for side in K.split_passes(tb, n)[0:3:2])
+    rng = np.random.default_rng(5)
+    for trees in (4, 16):
+        sources = rng.integers(0, g.num_vertices, trees).astype(np.int32)
+        for packed in (True, False):
+            eng.run_multi_device(sources, packed=packed)  # the capture of this size
+            K.reset_launches()
+            got = eng.run_multi_device(sources, packed=packed)
+            run = dict(eng.last_run)
+            # The unpacked carry merges with torch ops, as a single search's does.
+            want_step = {n: c * (packed or n != "packed_update") for n, c in per_step.items()}
+            assert _counts(want_step) == {n: c * run["issued"] for n, c in want_step.items()}
+            assert run["live"] == got.level and run["host_reads"] == run["replays"]
+            want = cpu.run_multi_device(sources, packed=packed)
+            eng.loop = "eager"
+            eager = eng.run_multi_device(sources, packed=packed)
+            eng.loop = "blocks"
+            for other in (want, eager):
+                for a, b in zip(got[:3], other[:3]):
+                    _eq(a, b)
+                assert (got.level, got.changed) == (other.level, other.changed)
+        res = eng.run_multi(sources)
+        for i, s in enumerate(sources.tolist()):
+            one = eng.run(s)
+            np.testing.assert_array_equal(res.dist[i], one.dist)
+            np.testing.assert_array_equal(res.parent[i], one.parent)
+    path = P.path_graph(100)
+    peng = P.RelayEngine(path, expansion=expansion, sparse_hybrid=False)
+    sources = np.array([0, 50, 99], dtype=np.int32)
+    res = peng.run_multi(sources)
+    assert peng.last_run["unpacked_rerun"] and res.num_levels == 100
+    for i, s in enumerate(sources.tolist()):
+        d, p = P.canonical_bfs(path, s)
+        np.testing.assert_array_equal(res.dist[i], d)
+        np.testing.assert_array_equal(res.parent[i], p)
