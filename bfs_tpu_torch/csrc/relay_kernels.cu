@@ -11,12 +11,15 @@
 // reference lifts these kernels over a leading sources axis with vmap and
 // a batch grid axis): every kernel of the superstep takes `trees` and the
 // per-tree stride of each word array it reads or writes per tree; masks,
-// valid words and work tables are shared.  The Beneš passes and the row-min
-// put the tree index fastest in blockIdx.x, so the S trees of one tile,
-// unit or row block run in adjacent blocks and read the same masks from L2:
-// the bound of a batched pass is the masks once plus S times the words.
-// Each of these kernels is a template on kBatch: trees == 1 (the single
-// search) launches the <false> instance, compiled as before the tree axis.
+// valid words and work tables are shared, and the bound of a batched pass
+// is the masks once plus S times the words.  The Beneš passes have a batch
+// kernel of their own (benes_local_group, benes_outer_group): a block takes
+// a tile or unit for a group of trees and applies each mask word it loads
+// to all of them.  The row-min is a template on kBatch, the tree index
+// fastest in blockIdx.x (the S trees of a row block adjacent, reading the
+// same valid words from L2).  trees == 1 (the single search) launches the
+// kernels compiled as before the tree axis (the Beneš passes: below
+// kBatchTrees trees).
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -49,8 +52,7 @@ constexpr uint32_t kSentinel = 0xFFFFFFFFu;
 // 37 dependent device-memory round trips (5.4 us per stage at s22).  Here:
 //   - the tile and the slabs of the stages with d >= 32 are copied into a
 //     ring of `slots` shared-memory slots (cp.async.bulk on one mbarrier
-//     per slot, evict-first in L2, evict-normal in a batch, whose next
-//     trees' blocks read the same slabs), the next `slots` stages' slabs in
+//     per slot, evict-first in L2), the next `slots` stages' slabs in
 //     flight while a stage computes; a slot is refilled as soon as the
 //     barrier after its stage has passed.  A slab that is not 16-byte
 //     aligned or not a multiple of 16 bytes (small networks only) is copied
@@ -174,19 +176,12 @@ __device__ __forceinline__ void sweep_pair(uint32_t* xs, const StageInfo* info, 
   if (two) xs[i2] = b;
 }
 
-template <bool kBatch>
 __global__ void __launch_bounds__(kLocalThreads)
 benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks,
-                        const LocalStages st, int tile_words, int slots, int trees,
-                        long long tree_stride, const int32_t* __restrict__ ctl) {
+                        const LocalStages st, int tile_words, int slots,
+                        const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
-  // Block b: tile b / trees of tree b % trees (the trees of a tile adjacent).
-  if (kBatch) {
-    const long long tree = blockIdx.x % trees;
-    x_in += tree * tree_stride;
-    x_out += tree * tree_stride;
-  }
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ StageInfo info[kMaxLocalStages];
   __shared__ int cross[kMaxLocalStages];
@@ -194,17 +189,14 @@ benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kBarBytes);
   const int slab = (tile_words + 3) & ~3;  // words per ring slot
   uint32_t* ring = xs + slab;
-  const long long base =
-      static_cast<long long>(kBatch ? blockIdx.x / trees : blockIdx.x) * tile_words;
+  const long long base = static_cast<long long>(blockIdx.x) * tile_words;
   const int half = tile_words >> 1;
   if (threadIdx.x == 0) {
     for (int i = 0; i <= slots; ++i) mbar_init(bar + i);
     mbar_fence_init();
   }
   __syncthreads();
-  // A single search reads each slab once; a batch's slabs are read again by
-  // the next trees' blocks.
-  const uint64_t policy = kBatch ? evict_normal_policy() : evict_first_policy();
+  const uint64_t policy = evict_first_policy();  // each slab is read once
   uint32_t parity = 0;
   fetch(xs, x_in + base, tile_words, bar + slots, policy);
   if (threadIdx.x < st.count) {
@@ -279,6 +271,332 @@ benes_local_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
 }
 
 // ---------------------------------------------------------------------------
+// benes_local_group — benes_local_pass on the lock-step batch's [S, n/32]
+// words (the reference lifts _run_local_tile_major over its sources axis).
+//
+// One block owns one tile for a group of trees: the batch's S trees split
+// into `groups` groups as evenly as they go (at most `per` trees each), the
+// group's tiles side by side in shared memory under one ring of mask slabs,
+// as the single pass's, each slab applied to every tree of the group.  So a
+// mask word that crosses from L2 into an SM serves the whole group, not one
+// tree.  The groups of a tile run in adjacent blocks and find its slabs in
+// L2 (evict-normal).  A sweep (stages with d < 32)
+// loads a word's masks into registers once for the group.  Where the tile
+// is a multiple of 8 words a thread takes four consecutive words at a time
+// (16-byte accesses to the tiles and masks; a sweep then has twice the
+// mask bytes in flight).  A pair whose mask word is zero is not touched,
+// and a word that a stage leaves as it was is not stored (a batch's
+// frontier words are mostly zero).  The batch has a tile of its own
+// (ops/relay_cuda.py batch_tile_words), so that the group's tiles and two
+// ring slots fit one block.  The launcher picks the group: at most
+// kLocalGroup trees, as many tiles as leave room for two ring slots.
+// Bound: bytes — every tree's words read and written once, each local
+// stage's nonzero masks read once.  What stays above it (measured with
+// tools/benes_pass_sweep.py --only batch): the groups of a tile each read
+// the masks again, at the latency-bound rate of the loads a block keeps in
+// flight, and each stage reads and writes a tree's whole tile in shared
+// memory.  Clusters of a tile's blocks sharing one ring (multicast bulk
+// copies) measured slower at every group size: the slot is refilled only
+// once the slowest block of the cluster has released it (PERF.md).
+// ---------------------------------------------------------------------------
+constexpr int kLocalGroup = 16;  // trees a block of the batch takes at most
+// Fewest trees that launch the batch kernels (benes_local_group,
+// benes_outer_group); fewer launch the single search's.  A tuning lever:
+// tools/benes_pass_sweep.py builds 1 to time the batch kernels on one tree.
+constexpr int kBatchTrees = 2;
+
+// sweep_pair on words i and i2 of each of the `nt` tiles of a group (tree
+// t's at xs + t * slab): each mask word is loaded once for the group.
+__device__ __forceinline__ void sweep_group(uint32_t* xs, int slab, int nt,
+                                            const StageInfo* info, int s0, int len,
+                                            long long base, int i, bool two, int i2) {
+  uint32_t ma[kMaxSweep], mb[kMaxSweep];
+#pragma unroll
+  for (int j = 0; j < kMaxSweep; ++j) {
+    const StageInfo& f = info[s0 + (j < len ? j : 0)];
+    const long long a = base + i, b = base + i2;  // stored words (full storage)
+    ma[j] = j < len && a >= f.lo && a < f.hi ? __ldg(f.m + a) : 0u;
+    mb[j] = j < len && two && b >= f.lo && b < f.hi ? __ldg(f.m + b) : 0u;
+  }
+  for (int t = 0; t < nt; ++t) {
+    uint32_t* x = xs + t * slab;
+    const uint32_t a0 = x[i];
+    const uint32_t b0 = two ? x[i2] : 0u;
+    uint32_t a = a0, b = b0;
+#pragma unroll
+    for (int j = 0; j < kMaxSweep; ++j) {
+      if (j < len) {
+        const int d = info[s0 + j].d;
+        const uint32_t ta = (a ^ (a >> d)) & ma[j];
+        const uint32_t tb = (b ^ (b >> d)) & mb[j];
+        a ^= ta ^ (ta << d);
+        b ^= tb ^ (tb << d);
+      }
+    }
+    if (a != a0) x[i] = a;
+    if (two && b != b0) x[i2] = b;
+  }
+}
+
+// sweep_group on quad q (words 4q..4q+3) of each tile of a group: one
+// 16-byte load per stage of the quad's masks (where the stage's slab is
+// 16-byte aligned and the quad lies inside its nonzero range; word by word
+// where the quad straddles that range), so a thread has twice sweep_pair's
+// bytes in flight, and one 16-byte load and store of each tile's quad.
+__device__ __forceinline__ void sweep_group_quad(uint32_t* xs, int slab, int nt,
+                                                 const StageInfo* info, int s0, int len,
+                                                 long long base, int q) {
+  uint4 mk[kMaxSweep];
+  const long long a = base + 4 * q;  // stored word of the quad's first word
+#pragma unroll
+  for (int j = 0; j < kMaxSweep; ++j) {
+    mk[j] = make_uint4(0u, 0u, 0u, 0u);
+    const StageInfo& f = info[s0 + (j < len ? j : 0)];
+    if (j < len && a < f.hi && a + 4 > f.lo) {
+      const uint32_t* m = f.m + a;
+      if (a >= f.lo && a + 4 <= f.hi && (reinterpret_cast<uintptr_t>(m) & 15u) == 0) {
+        mk[j] = __ldg(reinterpret_cast<const uint4*>(m));
+      } else {
+        mk[j].x = a >= f.lo && a < f.hi ? __ldg(m) : 0u;
+        mk[j].y = a + 1 >= f.lo && a + 1 < f.hi ? __ldg(m + 1) : 0u;
+        mk[j].z = a + 2 >= f.lo && a + 2 < f.hi ? __ldg(m + 2) : 0u;
+        mk[j].w = a + 3 >= f.lo && a + 3 < f.hi ? __ldg(m + 3) : 0u;
+      }
+    }
+  }
+  for (int t = 0; t < nt; ++t) {
+    uint4* at = reinterpret_cast<uint4*>(xs + t * slab + 4 * q);
+    const uint4 v0 = *at;
+    uint4 v = v0;
+#pragma unroll
+    for (int j = 0; j < kMaxSweep; ++j) {
+      if (j < len) {
+        const int d = info[s0 + j].d;
+        uint32_t u;
+        u = (v.x ^ (v.x >> d)) & mk[j].x; v.x ^= u ^ (u << d);
+        u = (v.y ^ (v.y >> d)) & mk[j].y; v.y ^= u ^ (u << d);
+        u = (v.z ^ (v.z >> d)) & mk[j].z; v.z ^= u ^ (u << d);
+        u = (v.w ^ (v.w >> d)) & mk[j].w; v.w ^= u ^ (u << d);
+      }
+    }
+    if ((v.x ^ v0.x) | (v.y ^ v0.y) | (v.z ^ v0.z) | (v.w ^ v0.w)) *at = v;
+  }
+}
+
+// One ring stage (pairs at word distance dw >= 1) on the `nt` tiles of a
+// group, four pairs a thread (16-byte loads and stores of tiles and masks):
+// for dw >= 4 the pairs p..p+3 (consecutive lower words w..w+3 and upper
+// words w+dw..w+dw+3), for dw = 1 and 2 the two pairs inside words
+// 4q..4q+3.  Needs a tile of a multiple of 8 words.
+__device__ __forceinline__ void ring_stage_quads(uint32_t* xs, int slab, int nt,
+                                                 const uint32_t* m, int tile_words, int dw,
+                                                 bool compact) {
+  if (dw >= 4) {
+    for (int p = 4 * threadIdx.x; p < (tile_words >> 1); p += 4 * blockDim.x) {
+      const int w = ((p & ~(dw - 1)) << 1) | (p & (dw - 1));
+      const uint4 mk = *reinterpret_cast<const uint4*>(m + (compact ? p : w));
+      if ((mk.x | mk.y | mk.z | mk.w) == 0u) continue;
+      for (int t = 0; t < nt; ++t) {
+        uint4* lo = reinterpret_cast<uint4*>(xs + t * slab + w);
+        uint4* hi = reinterpret_cast<uint4*>(xs + t * slab + w + dw);
+        uint4 a = *lo, b = *hi;
+        const uint4 d = make_uint4((a.x ^ b.x) & mk.x, (a.y ^ b.y) & mk.y,
+                                   (a.z ^ b.z) & mk.z, (a.w ^ b.w) & mk.w);
+        if (d.x | d.y | d.z | d.w) {
+          a.x ^= d.x; a.y ^= d.y; a.z ^= d.z; a.w ^= d.w;
+          b.x ^= d.x; b.y ^= d.y; b.z ^= d.z; b.w ^= d.w;
+          *lo = a;
+          *hi = b;
+        }
+      }
+    }
+    return;
+  }
+  for (int q = threadIdx.x; q < (tile_words >> 2); q += blockDim.x) {
+    // Pairs (0, dw) and (1 + (dw == 1), 1 + (dw == 1) + dw) of the quad, that
+    // is pairs 2q and 2q + 1; masks at the lower words or the pair numbers.
+    uint32_t m0, m1;
+    if (compact) {
+      const uint2 mp = *reinterpret_cast<const uint2*>(m + 2 * q);
+      m0 = mp.x;
+      m1 = mp.y;
+    } else {
+      const uint4 mw = *reinterpret_cast<const uint4*>(m + 4 * q);
+      m0 = mw.x;
+      m1 = dw == 1 ? mw.z : mw.y;
+    }
+    if ((m0 | m1) == 0u) continue;
+    for (int t = 0; t < nt; ++t) {
+      uint4* at = reinterpret_cast<uint4*>(xs + t * slab + 4 * q);
+      uint4 v = *at;
+      uint32_t d0, d1;
+      if (dw == 1) {
+        d0 = (v.x ^ v.y) & m0;
+        d1 = (v.z ^ v.w) & m1;
+        v.x ^= d0; v.y ^= d0; v.z ^= d1; v.w ^= d1;
+      } else {
+        d0 = (v.x ^ v.z) & m0;
+        d1 = (v.y ^ v.w) & m1;
+        v.x ^= d0; v.z ^= d0; v.y ^= d1; v.w ^= d1;
+      }
+      if (d0 | d1) *at = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kLocalThreads)
+benes_local_group_kernel(const uint32_t* x_in, uint32_t* x_out,
+                         const uint32_t* __restrict__ masks,
+                         const LocalStages st, int tile_words, int slots, int trees,
+                         int groups, int per, long long tree_stride,
+                         const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
+  // Block b: tile b / groups for the trees [t0, t0 + nt) of group
+  // g = b % groups (the groups of a tile adjacent, reading the same slabs).
+  const int g = static_cast<int>(blockIdx.x % groups);
+  const int t0 = static_cast<int>(static_cast<long long>(g) * trees / groups);
+  const int nt = static_cast<int>(static_cast<long long>(g + 1) * trees / groups) - t0;
+  x_in += t0 * tree_stride;
+  x_out += t0 * tree_stride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ StageInfo info[kMaxLocalStages];
+  __shared__ int cross[kMaxLocalStages];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // ring slots, then the tiles
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem + kBarBytes);  // `per` tiles
+  const int slab = (tile_words + 3) & ~3;  // words per tile and per ring slot
+  uint32_t* ring = xs + per * slab;
+  const long long base = static_cast<long long>(blockIdx.x / groups) * tile_words;
+  const int half = tile_words >> 1;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= slots; ++i) mbar_init(bar + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const uint64_t policy = evict_normal_policy();  // the tile's next groups read the slabs
+  // The group's tiles on barrier `slots`: one bulk copy each under one
+  // arrival where every tree's tile is 16-byte aligned, else word by word.
+  const uint32_t bytes = static_cast<uint32_t>(tile_words) * 4u;
+  const bool bulk = bulk_ok(x_in + base, bytes) && (tree_stride & 3) == 0;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      const uint64_t once = evict_first_policy();  // each tree's words are read once
+      mbar_arrive_expect_tx(bar + slots, bytes * static_cast<uint32_t>(nt));
+      for (int t = 0; t < nt; ++t) {
+        bulk_copy(xs + t * slab, x_in + t * tree_stride + base, bytes, bar + slots, once);
+      }
+    }
+  } else {
+    for (int t = 0; t < nt; ++t) {
+      for (int i = threadIdx.x; i < tile_words; i += blockDim.x) {
+        __pipeline_memcpy_async(xs + t * slab + i, x_in + t * tree_stride + base + i,
+                                sizeof(uint32_t));
+      }
+    }
+    __pipeline_commit();
+  }
+  if (threadIdx.x < st.count) {
+    const int s = threadIdx.x;
+    StageInfo f;
+    f.m = masks + st.offset[s];
+    f.d = st.d[s];
+    f.compact = st.compact[s];
+    f.at = f.compact ? base >> 1 : base;
+    f.words = f.compact ? half : tile_words;
+    f.lo = st.lo[s];
+    f.hi = st.hi[s];
+    f.live = f.at < f.hi && f.at + f.words > f.lo;
+    info[s] = f;
+  }
+  if (threadIdx.x < st.ncross) cross[threadIdx.x] = st.cross[threadIdx.x];
+  __syncthreads();
+  const int count = st.count, ncross = st.ncross;
+  auto issue = [&](int c) {
+    const StageInfo& f = info[cross[c]];
+    if (f.live) fetch(ring + (c % slots) * slab, f.m + f.at, f.words, bar + c % slots, policy);
+  };
+  for (int c = 0; c < ncross && c < slots; ++c) issue(c);
+  uint32_t parity = 0;
+  if (bulk) {
+    mbar_wait(bar + slots, 0u);
+  } else {
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  const bool quads = (tile_words & 7) == 0;
+
+  int c = 0;
+  for (int s = 0; s < count;) {
+    const StageInfo& f = info[s];
+    if (f.d < 32) {
+      int len = 1;
+      bool live = f.live;
+      while (s + len < count && len < kMaxSweep && info[s + len].d < 32) {
+        live = live || info[s + len].live;
+        ++len;
+      }
+      if (live) {
+        if (quads) {
+          for (int q = threadIdx.x; q < (tile_words >> 2); q += blockDim.x) {
+            sweep_group_quad(xs, slab, nt, info, s, len, base, q);
+          }
+        } else {
+          for (int i = threadIdx.x; i < tile_words; i += 2 * blockDim.x) {
+            const int i2 = i + blockDim.x;
+            sweep_group(xs, slab, nt, info, s, len, base, i, i2 < tile_words, i2);
+          }
+        }
+        __syncthreads();
+      }
+      s += len;
+      continue;
+    }
+    if (f.live) {
+      const int k = c % slots;
+      fetched(f.m + f.at, f.words, bar, k, parity);
+      const uint32_t* m = ring + k * slab;
+      const int dw = f.d >> 5;
+      const bool compact = f.compact != 0;
+      if (quads) {
+        ring_stage_quads(xs, slab, nt, m, tile_words, dw, compact);
+      } else {
+        for (int p = threadIdx.x; p < half; p += blockDim.x) {
+          const int w = ((p & ~(dw - 1)) << 1) | (p & (dw - 1));
+          const uint32_t mk = m[compact ? p : w];
+          if (mk == 0u) continue;
+          for (int t = 0; t < nt; ++t) {
+            uint32_t* x = xs + t * slab;
+            const uint32_t a = x[w];
+            const uint32_t b = x[w + dw];
+            const uint32_t swap = (a ^ b) & mk;
+            if (swap) {
+              x[w] = a ^ swap;
+              x[w + dw] = b ^ swap;
+            }
+          }
+        }
+      }
+      __syncthreads();  // the tiles consistent, and the slot free
+    }
+    if (c + slots < ncross) issue(c + slots);
+    ++c;
+    ++s;
+  }
+  const bool vec = (tile_words & 3) == 0 && (tree_stride & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(x_out + base) & 15u) == 0;
+  for (int t = 0; t < nt; ++t) {
+    const uint32_t* x = xs + t * slab;
+    uint32_t* dst = x_out + t * tree_stride + base;
+    if (vec) {
+      for (int i = 4 * threadIdx.x; i < tile_words; i += 4 * blockDim.x) {
+        *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(x + i);
+      }
+    } else {
+      for (int i = threadIdx.x; i < tile_words; i += blockDim.x) dst[i] = x[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // benes_outer_pass — replaces the outer mode of bfs_tpu/ops/relay_pallas.py
 // _run_pass (K2: passes A and C, which fuse the outer prefix and suffix).
 //
@@ -326,25 +644,18 @@ __device__ __forceinline__ int lower_slot(int q, int e) {
   return ((q >> e) << (e + 1)) | (q & ((1 << e) - 1));
 }
 
-template <bool kBatch>
 __global__ void __launch_bounds__(kOuterThreads)
 benes_outer_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
                         const uint32_t* __restrict__ masks, const OuterStages st,
-                        int b0, int k, int lg_row, int quads, int trees,
-                        long long tree_stride, const int32_t* __restrict__ ctl) {
+                        int b0, int k, int lg_row, int quads,
+                        const int32_t* __restrict__ ctl) {
   if (superstep_dead(ctl)) return;
   __shared__ __align__(16) uint32_t xs[kOuterWords];
-  // Block b: unit b / trees of tree b % trees (the trees of a unit adjacent).
-  if (kBatch) {
-    const long long tree = blockIdx.x % trees;
-    x_in += tree * tree_stride;
-    x_out += tree * tree_stride;
-  }
   const int row = 1 << lg_row;
   const int words = row << k;
   const int pairs = words >> 1;
   const int mid_bits = b0 - lg_row;
-  const long long u = kBatch ? blockIdx.x / trees : blockIdx.x;
+  const long long u = blockIdx.x;
   const long long base = ((u & ((1LL << mid_bits) - 1)) << lg_row) |
                          ((u >> mid_bits) << (b0 + k));
   auto word_of = [&](int i) {
@@ -402,6 +713,121 @@ benes_outer_pass_kernel(const uint32_t* x_in, uint32_t* x_out,
     }
   } else {
     for (int i = threadIdx.x; i < words; i += kOuterThreads) x_out[word_of(i)] = xs[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// benes_outer_group — benes_outer_pass on the lock-step batch's [S, n/32]
+// words (passes A and C of the reference's _run_pass, lifted over its
+// sources axis).
+//
+// One block owns a unit, as the single pass's, for a group of trees (the S
+// trees split into `groups` groups as evenly as they go): it loads the
+// unit's mask words into registers once and runs the stages on each tree of
+// the group in turn, the words of tree t + 1 copied into the second of two
+// shared-memory buffers (cp.async) while the stages run on tree t, and tree
+// t's words stored while tree t + 1's stages wait for their copy.  So each
+// unit's masks are read once per group instead of once per tree, and a
+// block's copies overlap its work.  The groups of a unit are adjacent blocks.
+// The launcher picks the group: at most kOuterGroup trees.
+// Bound: bytes — every tree's words read and written once, each stage's
+// stored masks read once.
+// ---------------------------------------------------------------------------
+constexpr int kOuterGroup = 8;        // trees a block of the batch takes at most
+constexpr int kOuterGroupBlocks = 4;  // blocks an SM holds at least (caps the registers)
+
+__global__ void __launch_bounds__(kOuterThreads, kOuterGroupBlocks)
+benes_outer_group_kernel(const uint32_t* x_in, uint32_t* x_out,
+                         const uint32_t* __restrict__ masks, const OuterStages st,
+                         int b0, int k, int lg_row, int quads, int trees, int groups,
+                         long long tree_stride, const int32_t* __restrict__ ctl) {
+  if (superstep_dead(ctl)) return;
+  __shared__ __align__(16) uint32_t xs[2][kOuterWords];
+  // Block b: unit b / groups for the trees [t0, t1) of group b % groups.
+  const int g = static_cast<int>(blockIdx.x % groups);
+  const int t0 = static_cast<int>(static_cast<long long>(g) * trees / groups);
+  const int t1 = static_cast<int>(static_cast<long long>(g + 1) * trees / groups);
+  const int row = 1 << lg_row;
+  const int words = row << k;
+  const int pairs = words >> 1;
+  const int mid_bits = b0 - lg_row;
+  const long long u = blockIdx.x / groups;
+  const long long base = ((u & ((1LL << mid_bits) - 1)) << lg_row) |
+                         ((u >> mid_bits) << (b0 + k));
+  auto word_of = [&](int i) {
+    return base + (i & (row - 1)) + (static_cast<long long>(i >> lg_row) << b0);
+  };
+  // Tree t's words of the unit into buf, as one committed group.
+  auto load = [&](int t, uint32_t* buf) {
+    const uint32_t* src = x_in + t * tree_stride;
+    if (quads) {
+      for (int i = 4 * threadIdx.x; i < words; i += 4 * kOuterThreads) {
+        __pipeline_memcpy_async(buf + i, src + word_of(i), 4 * sizeof(uint32_t));
+      }
+    } else {
+      for (int i = threadIdx.x; i < words; i += kOuterThreads) {
+        __pipeline_memcpy_async(buf + i, src + word_of(i), sizeof(uint32_t));
+      }
+    }
+    __pipeline_commit();
+  };
+  load(t0, xs[0]);
+  uint32_t m[kMaxOuterStages][kOuterPairs];
+#pragma unroll
+  for (int s = 0; s < kMaxOuterStages; ++s) {
+#pragma unroll
+    for (int v = 0; v < kOuterPairs; ++v) {
+      const int q = threadIdx.x + v * kOuterThreads;
+      m[s][v] = 0u;
+      if (s < st.count && q < pairs) {
+        const int b = b0 + st.bit[s];
+        const long long w = word_of(lower_slot(q, lg_row + st.bit[s]));
+        const long long at =
+            st.compact[s] ? (((w >> (b + 1)) << b) | (w & ((1LL << b) - 1))) : w;
+        m[s][v] = __ldg(masks + st.offset[s] + at);
+      }
+    }
+  }
+  for (int t = t0; t < t1; ++t) {
+    uint32_t* cur = xs[(t - t0) & 1];
+    // The other buffer's last reads (tree t - 1's stores) passed the barrier
+    // that ended the previous tree.
+    if (t + 1 < t1) {
+      load(t + 1, xs[(t + 1 - t0) & 1]);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kMaxOuterStages; ++s) {
+      if (s >= st.count) break;
+      const int e = lg_row + st.bit[s];
+#pragma unroll
+      for (int v = 0; v < kOuterPairs; ++v) {
+        const int q = threadIdx.x + v * kOuterThreads;
+        if (q < pairs) {
+          const int i = lower_slot(q, e);
+          const uint32_t a = cur[i];
+          const uint32_t b = cur[i + (1 << e)];
+          const uint32_t swap = (a ^ b) & m[s][v];
+          if (swap) {
+            cur[i] = a ^ swap;
+            cur[i + (1 << e)] = b ^ swap;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    uint32_t* dst = x_out + t * tree_stride;
+    if (quads) {
+      for (int i = 4 * threadIdx.x; i < words; i += 4 * kOuterThreads) {
+        *reinterpret_cast<uint4*>(dst + word_of(i)) = *reinterpret_cast<const uint4*>(cur + i);
+      }
+    } else {
+      for (int i = threadIdx.x; i < words; i += kOuterThreads) dst[word_of(i)] = cur[i];
+    }
+    __syncthreads();  // cur is refilled with tree t + 2's words
   }
 }
 
@@ -667,17 +1093,53 @@ __global__ void loop_control_kernel(int32_t* ctl) {
   ctl[kCtlLive] = ctl[kCtlChanged] != 0 && ctl[kCtlLevel] < ctl[kCtlCap];
 }
 
+// Groups of a batch's trees when a block takes at most `most` of them; the
+// kernels split the trees into them as evenly as they go, so a block takes
+// at most ceil(trees / groups).
+int groups_of(int trees, int most) { return (trees + most - 1) / most; }
+
+// Groups of the batched local pass on tiles of `tile_words`: a block takes
+// at most kLocalGroup trees, as many tiles as leave room for two ring slots
+// (at least one tree, with one slot).
+int local_groups(int trees, int tile_words) {
+  const size_t slab = static_cast<size_t>((tile_words + 3) & ~3) * sizeof(uint32_t);
+  const long long fit = static_cast<long long>((kSmemLimit - kTableSmem - kBarBytes) / slab) - 2;
+  const int most = fit < 1 ? 1 : (fit < kLocalGroup ? static_cast<int>(fit) : kLocalGroup);
+  return groups_of(trees, most);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Trees one block of the lock-step batch's local pass (tiles of
+// `tile_words`) and outer pass takes, as the launchers below choose them.
+int local_pass_group(int trees, int tile_words) {
+  if (trees < kBatchTrees) return 1;
+  const int groups = local_groups(trees, tile_words);
+  return (trees + groups - 1) / groups;
+}
+
+int outer_pass_group(int trees) {
+  if (trees < kBatchTrees) return 1;
+  const int groups = groups_of(trees, kOuterGroup);
+  return (trees + groups - 1) / groups;
+}
+
+// A batch of at least kBatchTrees trees launches benes_local_group, fewer
+// the single search's per-tile kernel (one tree a block).
 int benes_local_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* dists,
                      const int* compact, const int* lo, const int* hi, int nstages,
                      long long nwords, int tile_words, int trees, long long tree_stride,
                      const void* ctl, void* stream) {
-  if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0 ||
-      trees < 1 || (nwords / tile_words) * trees > 0x7FFFFFFFLL) {
+  if (nstages > kMaxLocalStages || tile_words <= 0 || nwords % tile_words != 0 || trees < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool batch = trees >= kBatchTrees;
+  const int groups = batch ? local_groups(trees, tile_words) : 1;
+  const int per = (trees + groups - 1) / groups;  // trees of the fullest group
+  if ((nwords / tile_words) * groups > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   LocalStages st;
@@ -691,41 +1153,59 @@ int benes_local_pass(const void* x_in, void* x_out, const void* masks,
     st.hi[s] = hi[s];
     if (dists[s] >= 32) st.cross[st.ncross++] = s;
   }
-  // Shared memory: the stage tables, the barriers, the tile, and as many
-  // ring slots of one tile each as fit (at most kMaxRing, at most one per
-  // stage with d >= 32).
+  // Shared memory: the stage tables, the barriers, the tiles (one a tree of
+  // the group), and as many ring slots of one tile each as fit (at most
+  // kMaxRing, at most one per stage with d >= 32).
   const size_t slab = static_cast<size_t>((tile_words + 3) & ~3) * sizeof(uint32_t);
-  const size_t fixed = kTableSmem + kBarBytes + slab;
+  const size_t fixed = kTableSmem + kBarBytes + per * slab;
   if (fixed + slab > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   size_t slots = (kSmemLimit - fixed) / slab;
   slots = slots < kMaxRing ? slots : kMaxRing;
   const size_t wanted = st.ncross > 0 ? static_cast<size_t>(st.ncross) : 1;
   slots = slots < wanted ? slots : wanted;
-  const size_t smem = kBarBytes + slab + slots * slab;  // dynamic
-  const bool batch = trees > 1;
-  auto kernel = batch ? benes_local_pass_kernel<true> : benes_local_pass_kernel<false>;
+  const size_t smem = kBarBytes + (per + slots) * slab;  // dynamic
   static size_t configured[2] = {0, 0};
   if (smem > configured[batch]) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    if (batch) {
+      cudaFuncSetAttribute(benes_local_group_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    } else {
+      cudaFuncSetAttribute(benes_local_pass_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    }
     configured[batch] = smem;
   }
-  const unsigned blocks = static_cast<unsigned>((nwords / tile_words) * trees);
-  kernel<<<blocks, kLocalThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, tile_words, static_cast<int>(slots), trees,
-      tree_stride, static_cast<const int32_t*>(ctl));
+  const unsigned blocks = static_cast<unsigned>((nwords / tile_words) * groups);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* in = static_cast<const uint32_t*>(x_in);
+  uint32_t* out = static_cast<uint32_t*>(x_out);
+  const uint32_t* m = static_cast<const uint32_t*>(masks);
+  const int32_t* c = static_cast<const int32_t*>(ctl);
+  if (batch) {
+    benes_local_group_kernel<<<blocks, kLocalThreads, smem, s>>>(
+        in, out, m, st, tile_words, static_cast<int>(slots), trees, groups, per, tree_stride,
+        c);
+  } else {
+    benes_local_pass_kernel<<<blocks, kLocalThreads, smem, s>>>(
+        in, out, m, st, tile_words, static_cast<int>(slots), c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// A batch of at least kBatchTrees trees launches benes_outer_group, fewer
+// the single search's kernel.
 int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
                      const long long* offsets, const int* bits, const int* compact,
                      int nstages, int b0, int k, int lg_row, long long nwords,
                      int trees, long long tree_stride, const void* ctl, void* stream) {
   if (nstages < 1 || nstages > kMaxOuterStages || k < 1 || k > kMaxOuterStages ||
       lg_row < 0 || lg_row > b0 || (1LL << (lg_row + k)) > kOuterWords ||
-      (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0 || trees < 1 ||
-      (nwords >> (lg_row + k)) * trees > 0x7FFFFFFFLL) {
+      (1LL << (b0 + k)) > nwords || nwords % (1LL << (b0 + k)) != 0 || trees < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool batch = trees >= kBatchTrees;
+  const int groups = batch ? groups_of(trees, kOuterGroup) : 1;
+  if ((nwords >> (lg_row + k)) * groups > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   OuterStages st;
@@ -741,12 +1221,19 @@ int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
   const bool quads = lg_row >= 2 && (tree_stride & 3) == 0 &&
                      ((reinterpret_cast<uintptr_t>(x_in) |
                        reinterpret_cast<uintptr_t>(x_out)) & 15u) == 0;
-  const unsigned units = static_cast<unsigned>((nwords >> (lg_row + k)) * trees);
-  auto kernel = trees > 1 ? benes_outer_pass_kernel<true> : benes_outer_pass_kernel<false>;
-  kernel<<<units, kOuterThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x_in), static_cast<uint32_t*>(x_out),
-      static_cast<const uint32_t*>(masks), st, b0, k, lg_row, quads ? 1 : 0, trees,
-      tree_stride, static_cast<const int32_t*>(ctl));
+  const unsigned blocks = static_cast<unsigned>((nwords >> (lg_row + k)) * groups);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* in = static_cast<const uint32_t*>(x_in);
+  uint32_t* out = static_cast<uint32_t*>(x_out);
+  const uint32_t* m = static_cast<const uint32_t*>(masks);
+  const int32_t* c = static_cast<const int32_t*>(ctl);
+  if (batch) {
+    benes_outer_group_kernel<<<blocks, kOuterThreads, 0, s>>>(
+        in, out, m, st, b0, k, lg_row, quads ? 1 : 0, trees, groups, tree_stride, c);
+  } else {
+    benes_outer_pass_kernel<<<blocks, kOuterThreads, 0, s>>>(
+        in, out, m, st, b0, k, lg_row, quads ? 1 : 0, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,24 +39,37 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
 }
 
 // L2 policy for bytes that neighbouring blocks read again soon (the masks
-// of a tile that the S trees of a batch route in adjacent blocks).
+// of a tile that the tree groups of a batch route in adjacent blocks).
 __device__ __forceinline__ uint64_t evict_normal_policy() {
   uint64_t policy;
   asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(policy));
   return policy;
 }
 
-// `bytes` from `src` to `dst` as one bulk copy whose bytes complete on `bar`
-// (the issuing thread's arrival).
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar, uint64_t policy) {
+// The issuing thread's arrival on `bar`, which then also waits for `bytes`
+// more bytes of bulk copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// `bytes` from `src` to `dst` as one bulk copy completing on `bar`, whose
+// expected bytes already count them (mbar_arrive_expect_tx).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
       "[%0], [%1], %2, [%3], %4;"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
+}
+
+// `bytes` from `src` to `dst` as one bulk copy whose bytes complete on `bar`
+// (the issuing thread's arrival).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  mbar_arrive_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar, policy);
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {

@@ -100,6 +100,13 @@ OUTER_MAX_WORDS = 2048
 OUTER_ROW_WORDS = 32
 OUTER_MIN_ROW_WORDS = 8
 OUTER_TARGET_UNITS = 256
+#: The lock-step batch's local-pass tile, in words, at most (32 KB): a
+#: block of the batch's local pass (``benes_local_group``) takes one tile
+#: for a group of trees, as many tiles as leave room for two ring slots
+#: (four at this tile); the launcher picks the group (:func:`batch_groups`).
+#: Chosen with ``tools/benes_pass_sweep.py --only batch``; PERF.md records
+#: the sweep.
+BATCH_TILE_WORDS = 1 << 13
 #: Shared-memory tile of the elem local pass, in elements (128 KB); a
 #: smaller network is one tile.
 MAX_TILE_ELEMS = 1 << 15
@@ -167,6 +174,10 @@ def _register(lib: ctypes.CDLL) -> None:
     lib.benes_outer_pass.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _LL, _INT, _LL, _VP, _VP,
     ]
+    lib.local_pass_group.restype = _INT
+    lib.local_pass_group.argtypes = [_INT, _INT]
+    lib.outer_pass_group.restype = _INT
+    lib.outer_pass_group.argtypes = [_INT]
     lib.class_rowmin.restype = _INT
     lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _VP, _VP]
     lib.packed_update.restype = _INT
@@ -325,6 +336,21 @@ def tile_words_for(n: int) -> int:
     nw = n // 32
     t = 1 << max(nw // TARGET_BLOCKS, 1).bit_length() - 1
     return min(max(t, MIN_TILE_WORDS), MAX_TILE_WORDS, nw)
+
+
+def batch_tile_words(n: int) -> int:
+    """The local pass's tile (words) for a lock-step batch (``[S, n/32]``
+    words, S > 1) on a size-``n`` network: the single search's, at most
+    :data:`BATCH_TILE_WORDS`."""
+    return min(tile_words_for(n), BATCH_TILE_WORDS)
+
+
+def batch_groups(trees: int, tile_words: int, lib=None) -> tuple[int, int]:
+    """Trees one block of ``lib``'s (the built ``relay_kernels.cu``'s)
+    local pass on tiles of ``tile_words`` and outer pass takes on a batch of
+    ``trees``, as its launchers choose them: ``(local, outer)``."""
+    lib = kernels() if lib is None else lib
+    return lib.local_pass_group(trees, tile_words), lib.outer_pass_group(trees)
 
 
 def _split(table: tuple[StageSpec, ...], limit: int):
@@ -515,10 +541,12 @@ def apply_benes(
     """The whole routed network on ``[n/32]`` or ``[S, n/32]`` words: the
     outer prefix (one fused pass per run of :func:`outer_plan`), one local
     pass, the outer suffix, each one launch for all S trees (the plain
-    version on the CPU)."""
+    version on the CPU).  A batch of S > 1 trees splits the network at its
+    own tile (:func:`batch_tile_words`)."""
     if not _on_card(words, masks):
         return R.apply_benes_std(words, masks, table, n)
-    pre, local, suf, tile = split_passes(table, n)
+    batch = words.dim() == 2 and words.shape[0] > 1
+    pre, local, suf, tile = split_passes(table, n, batch_tile_words(n) if batch else None)
     out = torch.empty_like(words) if out is None else out
     src = words
     for run in outer_plan(table, pre, n):

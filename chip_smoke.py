@@ -41,7 +41,9 @@ trees against the oracle, the eager loop against the captured one, a dead
 superstep and a trace; then each batched kernel on the 16 trees at their
 densest superstep (``lockstep_kernel_phase``) against its plain version and
 16 single launches, one launch per call, timed beside them and its bound
-(masks once + 16 x words); the MXU arm's batch of 4 after its searches,
+(masks once + 16 x words), the Beneš passes (the four outer launches and
+both local passes at the batch's own split, with the batch's tile and
+trees a block printed) also on the first 4 trees; the MXU arm's batch of 4 after its searches,
 equal to the gather batch's trees, and ``mxu_expand`` on the 16 trees'
 frontiers; the 64-source batch below in lock-step too; and
 ``path_graph(100)`` batched through the unpacked re-run on both arms.
@@ -1432,7 +1434,9 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
     plain batched version and against S single-tree launches, ONE launch
     per call; its time (cold L2) beside the S single launches' and the
     plain version's, and its bound: the masks (or the valid words) read
-    once plus S times the words."""
+    once plus S times the words.  The Beneš passes (all four outer launches
+    of a superstep and both local passes, at the batch's own split) also on
+    the first 4 trees, as serve's relay-4 tick runs them."""
     import numpy as np
     import torch
 
@@ -1460,7 +1464,7 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
     cand = K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr)
     results = {}
 
-    def check(name, kernel, batch, singles, plain, nbytes, shape, plain_reps=2):
+    def check(name, kernel, trees, batch, singles, plain, nbytes, shape, plain_reps=2):
         """``batch()`` and ``singles()`` return the outputs (a tuple);
         ``plain()`` the plain version's."""
         torch.cuda.synchronize()
@@ -1468,61 +1472,77 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
         got = batch()
         torch.cuda.synchronize()
         if K.LAUNCHES[kernel] != 1:
-            raise AssertionError(f"{name}: {K.LAUNCHES[kernel]} launches for {S} trees, expected 1")
+            raise AssertionError(f"{name}: {K.LAUNCHES[kernel]} launches for {trees} trees, "
+                                 "expected 1")
         want = plain()
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
         one = singles()
         err1 = max(max_abs_err(a, b) for a, b in zip(got, one))
         if err or err1:
             raise AssertionError(f"{name}: batched kernel differs from its plain version "
-                                 f"(max err {err}) or from {S} single launches ({err1})")
+                                 f"(max err {err}) or from {trees} single launches ({err1})")
         ms = cold_ms(batch, 10)
         sms = cold_ms(singles, 5)
         pms = cold_ms(plain, plain_reps, warm=0)  # the comparison above warmed it
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         results[name] = dict(max_abs_err=err, ms=ms, singles_ms=sms, plain_ms=pms,
-                             bound_ms=bound, bound_bytes=nbytes, shape=shape)
-        log(f"lock-step kernel {name}, {S} trees: {shape}; bit-exact against the plain "
-            f"version and {S} single launches; 1 launch; {ms:.4f} ms (cold L2) against "
-            f"{sms:.4f} ms for {S} single launches (plain {pms:.4f} ms); bound {bound:.4f} ms "
-            f"from {nbytes} bytes at 3.35 TB/s (shared operands once + {S} x per-tree words) "
-            f"on {card}")
+                             bound_ms=bound, bound_bytes=nbytes, shape=shape, trees=trees)
+        log(f"lock-step kernel {name}: {shape}; bit-exact against the plain "
+            f"version and {trees} single launches; 1 launch; {ms:.4f} ms (cold L2) against "
+            f"{sms:.4f} ms for {trees} single launches (plain {pms:.4f} ms); bound {bound:.4f} "
+            f"ms from {nbytes} bytes at 3.35 TB/s (shared operands once + {trees} x per-tree "
+            f"words) on {card}")
 
-    n, table, masks = rg.net_size, rg.net_table, eng.net_masks
-    nw = n // 32
-    pre, _, _, _ = K.split_passes(table, n)
-    run = K.outer_plan(table, pre, n)[0]
-    pstages = tuple(table[i] for i in run.stages)
-    out = torch.empty_like(l2)
-    out1 = torch.empty_like(l2)
-    check("benes_outer_pass (net prefix)", "benes_outer_pass",
-          lambda: (K.benes_outer_pass(l2, masks, pstages, n, out=out),),
-          lambda: (torch.stack([K.benes_outer_pass(l2[i], masks, pstages, n, out=out1[i])
-                                for i in range(S)]),),
-          lambda: (R.apply_benes_std(l2, masks, pstages, n),),
-          4 * sum(st.nwords for st in pstages) + S * 2 * 4 * nw,
-          f"net n={n} prefix, {run.k} stages, {run.units} units x {S} trees")
-    del out, out1
+    # The Beneš passes at the batch's split, each on the words the passes
+    # before it give (the plain version chains them), at S and at 4 trees.
     for name, words, m, tb, size in (
         ("vperm", fw, eng.vperm_masks, rg.vperm_table, rg.vperm_size),
-        ("net", l2, masks, table, n),
+        ("net", l2, eng.net_masks, rg.net_table, rg.net_size),
     ):
-        p_, loc, _, t = K.split_passes(tb, size)
-        x = R.apply_benes_std(words, m, tuple(tb[i] for i in p_), size)
-        stages = tuple(tb[i] for i in loc)
-        out, out1 = torch.empty_like(x), torch.empty_like(x)
-        check(f"benes_local_pass ({name})", "benes_local_pass",
-              lambda: (K.benes_local_pass(x, m, stages, size, t, out=out),),
-              lambda: (torch.stack([K.benes_local_pass(x[i], m, stages, size, t, out=out1[i])
-                                    for i in range(S)]),),
-              lambda: (R.apply_benes_std(x, m, stages, size),),
-              4 * sum(st.hi - st.lo for st in stages) + S * 2 * 4 * (size // 32),
-              f"{name} n={size}, {len(stages)} local stages, tile {t} words, "
-              f"{size // 32 // t} tiles x {S} trees", plain_reps=1)
-        del x, out, out1
+        nw = size // 32
+        t = K.batch_tile_words(size)
+        pre, loc, suf, _ = K.split_passes(tb, size, t)
+        lstages = tuple(tb[i] for i in loc)
+        (loc_s, out_s), (loc_4, out_4) = K.batch_groups(S, t), K.batch_groups(4, t)
+        log(f"lock-step Beneš passes ({name} n={size}): batch tile {t} words (the single "
+            f"search's {K.tile_words_for(size)}); trees a block: local pass {loc_s} at {S} "
+            f"trees and {loc_4} at 4, outer pass {out_s} at {S} and {out_4} at 4; "
+            f"{len(pre)} + {len(suf)} outer stages, {len(lstages)} local")
+        x_loc = R.apply_benes_std(words, m, tuple(tb[i] for i in pre), size)
+        x_suf = R.apply_benes_std(x_loc, m, lstages, size)
+        for trees in (S, 4):
+            out, out1 = torch.empty_like(words[:trees]), torch.empty_like(words[:trees])
+            for side, x, idx in (("prefix", words, pre), ("suffix", x_suf, suf)):
+                x = x[:trees]
+                for run in K.outer_plan(tb, idx, size):
+                    ost = tuple(tb[i] for i in run.stages)
+                    check(f"benes_outer_pass ({name} {side}), {trees} trees", "benes_outer_pass",
+                          trees,
+                          lambda: (K.benes_outer_pass(x, m, ost, size, out=out),),
+                          lambda: (torch.stack([K.benes_outer_pass(x[i], m, ost, size,
+                                                                   out=out1[i])
+                                                for i in range(trees)]),),
+                          lambda: (R.apply_benes_std(x, m, ost, size),),
+                          4 * sum(st.hi - st.lo for st in ost) + trees * 2 * 4 * nw,
+                          f"{name} n={size} {side}, {run.k} stages, {run.units} units of "
+                          f"{run.row_words} x 2^{run.k} words x {trees} trees")
+                    x = R.apply_benes_std(x, m, ost, size)
+            x = x_loc[:trees]
+            check(f"benes_local_pass ({name}), {trees} trees", "benes_local_pass", trees,
+                  lambda: (K.benes_local_pass(x, m, lstages, size, t, out=out),),
+                  lambda: (torch.stack([K.benes_local_pass(x[i], m, lstages, size, t,
+                                                           out=out1[i])
+                                        for i in range(trees)]),),
+                  lambda: (R.apply_benes_std(x, m, lstages, size),),
+                  4 * sum(st.hi - st.lo for st in lstages) + trees * 2 * 4 * nw,
+                  f"{name} n={size}, {len(lstages)} local stages, tile {t} words, {nw // t} "
+                  f"tiles x {trees} trees, {K.batch_groups(trees, t)[0]} trees a block",
+                  plain_reps=1)
+            del out, out1, x
+        del x_loc, x_suf
     class_words = sum((c.sb - c.sa) // 32 for c in rg.in_classes)
     rbuf, rbuf1 = torch.empty_like(cand), torch.empty_like(cand)
-    check("class_rowmin", "class_rowmin",
+    check(f"class_rowmin, {S} trees", "class_rowmin", S,
           lambda: (K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr, out=rbuf),),
           lambda: (torch.stack([K.rowmin_ranks(l1[i], valid, rg.in_classes, rg.vr,
                                                out=rbuf1[i]) for i in range(S)]),),
@@ -1552,7 +1572,8 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
                                               cand)
         return new.packed, new.fwords, new.changed.reshape(1).to(torch.int32)
 
-    check("packed_update", "packed_update", batch_update, single_updates, plain_update,
+    check(f"packed_update, {S} trees", "packed_update", S, batch_update, single_updates,
+          plain_update,
           S * (3 * 4 * rg.vr + rg.vr // 8) + 4, f"vr={rg.vr} x {S} trees", plain_reps=2)
     return results
 
@@ -4860,9 +4881,9 @@ def main(argv=None) -> int:
         + f"; 64 sources {multi['lock_s']:.6f} s against the element-major batch's "
         f"{multi['secs']:.6f} s; serve relay-4 ticks (service s) "
         + ", ".join(f"{t['service_s']:.6f} (hit {t['compile_hit']})" for t in relay4)
-        + "; kernels at 16 trees, ms (cold L2) / 16 single launches / bound: "
-        + ", ".join(f"{name} {r['ms']:.4f} / {r['singles_ms']:.4f} / {r['bound_ms']:.4f}"
-                    for name, r in lock_kernels.items()))
+        + "; kernels (16 trees unless named), ms (cold L2) / as many single launches / "
+        "bound: " + ", ".join(f"{name} {r['ms']:.4f} / {r['singles_ms']:.4f} / "
+                              f"{r['bound_ms']:.4f}" for name, r in lock_kernels.items()))
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

@@ -175,7 +175,7 @@ def model_local_pass(x, masks, stages, n, tile, slots, max_sweep):
     skipped = 0
     for base in range(0, n // 32, tile):
         dead = set(range(len(cross)))
-        xs = out[base : base + tile].copy()
+        xs = out[..., base : base + tile].copy()
         ring = [None] * slots
         for c in range(min(slots, len(cross))):
             if live(c, base):
@@ -197,15 +197,15 @@ def model_local_pass(x, masks, stages, n, tile, slots, max_sweep):
                 dw = st.d >> 5
                 p = np.arange(tile // 2)
                 w = ((p & ~(dw - 1)) << 1) | (p & (dw - 1))
-                a, b = xs[w], xs[w + dw]
+                a, b = xs[..., w], xs[..., w + dw]
                 t = (a ^ b) & m[p if st.compact else w]
-                xs[w], xs[w + dw] = a ^ t, b ^ t
+                xs[..., w], xs[..., w + dw] = a ^ t, b ^ t
                 dead.discard(c)
             if c + slots < len(cross) and live(c + slots, base):
                 ring[(c + slots) % slots] = slab(c + slots, base)
             c += 1
             s += 1
-        out[base : base + tile] = xs
+        out[..., base : base + tile] = xs
         skipped += len(dead)
     return out, skipped
 
@@ -312,7 +312,9 @@ def test_outer_geometry_under_other_unit_caps(max_words):
             np.testing.assert_array_equal(got, want, err_msg=f"{name} cap {max_words}")
 
 
-@pytest.mark.parametrize("const", ["kMaxOuterStages", "kOuterWords", "kMaxRing", "kMaxSweep"])
+@pytest.mark.parametrize("const", ["kMaxOuterStages", "kOuterWords", "kMaxRing", "kMaxSweep",
+                                   "kLocalGroup", "kOuterGroup", "kOuterGroupBlocks",
+                                   "kBatchTrees"])
 def test_cuda_build_reads_the_source_constants(const):
     from bfs_tpu_torch.utils import cuda_build
 
@@ -364,6 +366,63 @@ def test_local_pass_model_matches_plain(scale, tile, slots):
     # tiles) some of its tiles skip stages.
     if scale == 16:
         assert skips["vperm"] > 0
+
+
+@pytest.mark.parametrize("scale,trees,group,tile", [
+    (12, 3, 4, None), (14, 5, 4, None), (16, 17, 4, 64), (16, 6, 2, 8), (14, 4, 1, None),
+])
+def test_local_group_model_matches_plain(scale, trees, group, tile):
+    """``benes_local_group``'s walk: per tile, each group of at most
+    ``group`` trees under one ring of slabs, every slab and every sweep's
+    mask words applied to all the group's tiles, against the plain local
+    run on ``[S, n/32]`` words (both networks)."""
+    rng = np.random.default_rng(300 + scale + trees)
+    max_sweep = _cu_constant("kMaxSweep")
+    for name, masks, table, n in _networks(scale):
+        tile_words = K.batch_tile_words(n) if tile is None else tile
+        _, local, _, t = K.split_passes(table, n, tile_words)
+        stages = tuple(table[i] for i in local)
+        x = _words(rng, trees * (n // 32)).reshape(trees, -1)
+        got = np.empty_like(x)
+        for t0 in range(0, trees, group):
+            got[t0 : t0 + group] = model_local_pass(x[t0 : t0 + group], masks, stages, n, t, 2,
+                                                    max_sweep)[0]
+        want = _u(R.apply_benes_std(_t(x), _t(masks), stages, n))
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} tile {t}")
+
+
+def _check_batch_split(table, n):
+    """The batch's split at :func:`~relay_cuda.batch_tile_words`: prefix,
+    local run and suffix partition the table in order; every local stage
+    has d < 32 * tile, every outer stage d >= 32 * tile; each side's runs
+    are at most OUTER_MAX_STAGES consecutive bits (``_check_plan``)."""
+    tile = K.batch_tile_words(n)
+    assert tile == min(K.tile_words_for(n), K.BATCH_TILE_WORDS)
+    pre, local, suf, t = K.split_passes(table, n, tile)
+    assert t == tile and pre + local + suf == tuple(range(len(table)))
+    assert all(table[i].d < 32 * tile for i in local)
+    assert all(table[i].d >= 32 * tile for i in pre + suf)
+    return _check_plan(table, pre, n) + _check_plan(table, suf, n), tile
+
+
+@pytest.mark.parametrize("log_n", range(13, 29))
+def test_batch_split_on_stage_tables(log_n):
+    """Up to 2^18-word batch tiles' nets: one outer launch a side while a
+    side has at most OUTER_MAX_STAGES stages (the s22 net's 2^26 at a tile
+    of 8,192 words: 8 a side), two beyond."""
+    n = 1 << log_n
+    table = _table_for(n)
+    runs, tile = _check_batch_split(table, n)
+    side = sum(1 for st in table if st.d >= 32 * tile) // 2
+    assert len(runs) == 2 * -(-side // K.OUTER_MAX_STAGES)
+    if log_n == 26:
+        assert (tile, side, len(runs)) == (8192, 8, 2)
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_batch_split_on_layouts(scale):
+    for _, _, table, n in _networks(scale):
+        _check_batch_split(table, n)
 
 
 @pytest.mark.parametrize("scale", [12, 16])

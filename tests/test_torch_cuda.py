@@ -134,6 +134,46 @@ def test_card_benes_per_word_copy_path(card, layout):
         _eq(K.apply_benes(x, m, tb, size), R.apply_benes_std(x, m, tb, size))
 
 
+@pytest.mark.parametrize("trees", [2, 5])
+def test_card_benes_batch_per_word_copy_path(card, layout, trees):
+    """The batch kernels' word-by-word copies, on ``[S, n/32]`` words
+    against the plain batched network: masks one word off alignment; words
+    one word off alignment; tiles of 2 words (rows under 4 words); and
+    networks of 32, 64 and 128 elements, whose tree strides of 1, 2 and 4
+    words leave every tree but the first unaligned."""
+    rg = layout
+    table, n = rg.net_table, rg.net_size
+    rng = np.random.default_rng(10 + trees)
+    buf = torch.empty(rg.net_masks.size + 1, dtype=torch.int32, device=card)
+    masks = buf[1:]
+    masks.copy_(_t(rg.net_masks, card))
+    x = _t(_words(rng, trees * n // 32).reshape(trees, -1), card)
+    want = R.apply_benes_std(x, masks, table, n)
+    _eq(K.apply_benes(x, masks, table, n), want)
+    xbuf = torch.empty(trees * (n // 32) + 1, dtype=torch.int32, device=card)
+    xm = xbuf[1:].view(trees, n // 32)
+    xm.copy_(x)
+    ym = torch.empty_like(xbuf)[1:].view(trees, n // 32)
+    assert xm.data_ptr() % 16 and ym.data_ptr() % 16
+    for tile in (2, 64, 256):
+        # From unaligned words into unaligned words, the passes as apply_benes chains them.
+        pre, local, suf, _ = K.split_passes(table, n, tile)
+        src = xm
+        for run in K.outer_plan(table, pre, n):
+            K.benes_outer_pass(src, masks, tuple(table[i] for i in run.stages), n, out=ym)
+            src = ym
+        K.benes_local_pass(src, masks, tuple(table[i] for i in local), n, tile, out=ym)
+        for run in K.outer_plan(table, suf, n):
+            K.benes_outer_pass(ym, masks, tuple(table[i] for i in run.stages), n, out=ym)
+        _eq(ym, want)
+        _eq(_passes(x, masks, table, n, tile, True)[1], want)
+    for size in (32, 64, 128):
+        m, tb = p_relay._compact_and_table(benes.route_std(rng.permutation(size)), size)
+        m = _t(m, card)
+        xs = _t(_words(rng, trees * size // 32).reshape(trees, -1), card)
+        _eq(K.apply_benes(xs, m, tb, size), R.apply_benes_std(xs, m, tb, size))
+
+
 def test_card_rowmin_and_update_match_plain(card, layout):
     rg = layout
     rng = np.random.default_rng(7)
@@ -1686,9 +1726,15 @@ def _batched_case(kernel: str, trees: int, card, layout):
     return call, outs, want
 
 
-@pytest.mark.parametrize("trees", [1, 3, 16])
-@pytest.mark.parametrize("kernel", ["benes_local_pass", "benes_outer_pass", "class_rowmin",
-                                    "packed_update", "mxu_expand"])
+@pytest.mark.parametrize("kernel,trees", [
+    *((k, t) for k in ("benes_local_pass", "benes_outer_pass", "class_rowmin", "packed_update",
+                       "mxu_expand") for t in (1, 3, 16)),
+    # The Beneš passes' batch kernels take trees in groups (at most 16 trees
+    # a block of the local pass on this layout's tiles, 8 of the outer
+    # pass): counts that are not a multiple of a group, and more groups
+    # than one.
+    *((k, t) for k in ("benes_local_pass", "benes_outer_pass") for t in (2, 5, 17, 64)),
+])
 def test_card_batched_kernel_matches_plain_and_single_launches(card, layout, kernel, trees):
     """Each kernel of the lock-step superstep on ``[S, n]`` operands: bit
     for bit its plain batched version and S single-tree launches; ONE
@@ -1745,6 +1791,45 @@ def test_card_batched_kernel_matches_plain_and_single_launches(card, layout, ker
         assert torch.equal(outs[0], before[0]) and int(dead[C.FLAG]) == 0
 
 
+@pytest.mark.parametrize("trees,tile,group", [
+    (5, 1 << 14, 1), (7, 1 << 13, 4), (9, 1 << 13, 3), (17, 1 << 12, 9), (16, 1 << 11, 16),
+    (33, 64, 11),
+])
+def test_card_local_pass_groups(card, trees, tile, group):
+    """``benes_local_pass`` on ``[S, n/32]`` words of a random 2^19-element
+    network at tiles whose groups differ: the launcher's trees a block (at
+    most 16, as many 4-byte-word tiles as leave room for two ring slots,
+    the trees split evenly), then bit for bit the plain batched version,
+    one launch, in place too, and with a dead control block nothing
+    written."""
+    from bfs_tpu_torch.ops import control as C
+    from bfs_tpu_torch.tools.benes_pass_sweep import network
+
+    gen = torch.Generator(device=card).manual_seed(trees)
+    table, masks, n = network(19, gen)
+    _, local, _, t = K.split_passes(table, n, tile)
+    assert t == tile
+    stages = tuple(table[i] for i in local)
+    assert K.batch_groups(trees, tile)[0] == group
+    x = torch.randint(-(2**31), 2**31, (trees, n // 32), dtype=torch.int32, device=card,
+                      generator=gen)
+    want = R.apply_benes_std(x, masks, stages, n)
+    lib = K.kernels()
+    out = torch.empty_like(x)
+    K.reset_launches()
+    _eq(K.launch_local_pass(lib, x, masks, stages, n, tile, out), want)
+    assert _counts(["benes_local_pass"]) == {"benes_local_pass": 1}
+    y = x.clone()  # in place
+    _eq(K.launch_local_pass(lib, y, masks, stages, n, tile, y), want)
+    dead = C.new_ctl(card)
+    C.init_ctl(dead, 62)
+    dead[C.LEVEL], dead[C.CHANGED], dead[C.LIVE] = 3, 0, 0
+    out.fill_(7)
+    K.launch_local_pass(lib, x, masks, stages, n, tile, out, dead)
+    torch.cuda.synchronize()
+    assert bool((out == 7).all())
+
+
 @pytest.mark.parametrize("expansion", ["gather", "mxu"])
 def test_card_run_multi_device_matches_cpu_and_eager(card, expansion):
     """``run_multi_device`` on the card against the CPU engine's state, bit
@@ -1756,12 +1841,12 @@ def test_card_run_multi_device_matches_cpu_and_eager(card, expansion):
     eng = P.RelayEngine(g, expansion=expansion, sparse_hybrid=False)
     cpu = P.RelayEngine(g, device="cpu", expansion=expansion, sparse_hybrid=False)
     per_step = dict(PER_STEP[expansion])
-    if expansion == "gather":
+    if expansion == "gather":  # at the batch's tile
         rg = eng.relay_graph
         per_step["benes_outer_pass"] = sum(
             len(K.outer_plan(tb, side, n))
             for tb, n in ((rg.vperm_table, rg.vperm_size), (rg.net_table, rg.net_size))
-            for side in K.split_passes(tb, n)[0:3:2])
+            for side in K.split_passes(tb, n, K.batch_tile_words(n))[0:3:2])
     rng = np.random.default_rng(5)
     for trees in (4, 16):
         sources = rng.integers(0, g.num_vertices, trees).astype(np.int32)
