@@ -13,13 +13,11 @@
 // per-tree stride of each word array it reads or writes per tree; masks,
 // valid words and work tables are shared, and the bound of a batched pass
 // is the masks once plus S times the words.  The Beneš passes have a batch
-// kernel of their own (benes_local_group, benes_outer_group): a block takes
-// a tile or unit for a group of trees and applies each mask word it loads
-// to all of them.  The row-min is a template on kBatch, the tree index
-// fastest in blockIdx.x (the S trees of a row block adjacent, reading the
-// same valid words from L2).  trees == 1 (the single search) launches the
-// kernels compiled as before the tree axis (the Beneš passes: below
-// kBatchTrees trees).
+// kernel of their own (benes_local_group, benes_outer_group), launched for
+// kBatchTrees trees or more; below, the single search's.  The row-min is
+// one kernel for any tree count.  Each takes a tile, unit or work item for
+// a group of trees and applies each mask or valid word it loads to all of
+// them.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -833,191 +831,357 @@ benes_outer_group_kernel(const uint32_t* x_in, uint32_t* x_out,
 
 // ---------------------------------------------------------------------------
 // class_rowmin — replaces bfs_tpu/ops/relay_pallas.py _class_tournament_call
-// (K3, behind rowmin_ranks_pallas), and the vertex-major classes that the
-// reference leaves to XLA.
+// (K3, behind rowmin_ranks_pallas, and the reference's vmap of it over the
+// lock-step batch's sources axis in _relay_multi_fused_program), and the
+// vertex-major classes that the reference leaves to XLA.
 //
-// Output: uint32[vr], the min active rank (over l1 & valid) per relabeled
-// vertex, or the sentinel.  One launch covers every class through a small
-// device table of work items (kind, va, count, sa/32, width, chunks, rows,
-// first block); a block is kWarps warps:
+// Output: uint32[vr] per tree, the min active rank (over l1 & valid) per
+// relabeled vertex, or the sentinel.  One launch covers every class of
+// every tree through a small device table of work items (kind, va, count,
+// sa/32, width, chunks, rows, first block; ops/relay_cuda.py rowmin_items
+// builds it, the items of the longest chains first).  A block is kWarps
+// warps and takes one table block for a group of trees (the S trees split
+// into `groups` groups as evenly as they go; one tree, the single search,
+// is a group of one; the groups of a table block are adjacent blocks):
+// each valid word it loads is ANDed with every tree's l1 word of the group,
+// and the item is found once for them.  Each tree keeps its own found
+// mask, and a tree's loads stop once it is done; the others read on, to
+// the end of their rows and no further.
 //   kind 0, rank-major (cw = count/32 column words of `width` rows): the
-//     rows are split into `chunks` C in {1, 2, 4, 8} of `rows` each, and a
-//     block covers kWarps / C spans of 32 column words with all C chunks,
-//     one warp per (span, chunk), lane = column word.  A thread scans its
-//     chunk's rows in ascending order, kRowBatch rows' loads in flight at a
-//     time, and stops once all 32 bits are found; the first row that sets a
-//     lane's bit is that lane's rank within the chunk.  Ranks are staged in
-//     shared memory (stride 33 against bank conflicts); the chunks hold
-//     disjoint ascending rows, so the min over them is the first row overall
-//     (== the tournament's min row index; zero rows never win), written out
-//     coalesced.
-//   kind 1, vertex-major narrower than ROWMIN_WIDE_BITS (4,096 bits,
-//     ops/relay_cuda.py, which builds the table): one warp per vertex scans
-//     its width/32 words 32 at a time; the first nonzero word and its lowest
-//     set bit give the rank.
-//   kind 3, vertex-major at least ROWMIN_WIDE_BITS wide: one block per vertex,
-//     16-byte loads from the aligned word below the row's first (words
-//     outside the row masked off), 1024 words a step, stopping after the
-//     first step with a hit; the min over the block's threads.
-//   kind 2: the sentinel tail [covered, vr).
-// Bound: bytes — the class slot words of l1 and valid are read once, vr
-// words written once.  What held the first design: one thread walked all
-// `width` rows of its column word, one row (two loads) at a time, so the
-// launch lasted as long as the widest class's chains of dependent steps
-// (1,536 rows at s22: 0.7322 ms against a 0.0096 ms bound).  Here no thread
-// walks more than ceil(width / 8) rows (32 up to width 256), with
-// 2 * kRowBatch loads in flight, and a wide vertex-major row is read by a
-// whole block.
+//     rows are split into `chunks` C (a power of two up to 32) of `rows`
+//     each, and a block covers W = kThreads / C column words with all C
+//     chunks, thread t taking word t % W and chunk t / W (a warp reads 32,
+//     16 or 8 consecutive words of a row: whole 32-byte sectors).  A thread
+//     scans its chunk's rows in ascending order, group_rows(kG) rows' loads
+//     in flight for the group at a time, and a tree is done once its 32
+//     bits are found; the first row that sets a bit is its rank within the
+//     chunk.  A tree's ranks are bit planes: plane k holds bit k of the
+//     rank, ORed in when the bit is first found, so a thread stages a found
+//     word and ceil(log2(rows)) planes per tree in shared memory — no
+//     sentinel fill, no 32 ranks a thread.  The chunks hold disjoint
+//     ascending rows, so a bit's rank is the one of the first chunk whose
+//     found word holds it (== the tournament's min row index; zero rows
+//     never win), written four outputs a thread (one 16-byte store where
+//     `quads`); with one chunk a warp writes its own words after a warp
+//     barrier only.
+//   kind 1, vertex-major narrower than ROWMIN_WIDE_BITS: one warp per
+//     vertex, 16-byte loads from the aligned word below the row's first
+//     (words outside the row masked off), 128 words a step; per tree a
+//     ballot of the lanes' lowest hits, the first lane's winning.
+//   kind 3, vertex-major at least ROWMIN_WIDE_BITS wide: one block per
+//     vertex, 16-byte loads as kind 1's, 1024 words a step; the block's
+//     per-tree "found" bits are ORed through shared memory after each step.
+//   kind 2: the sentinel tail [covered, vr), every tree of the group.
+// The launcher picks the group: as many trees as the staging leaves room
+// for, at most kRowminGroup, and launches the instance of the next power of
+// two.
+// Bound: bytes — the valid words once, every tree's slot words read and vr
+// outputs written; an early exit at first hits needs only the rows up to
+// each column word's last first hit and each vertex's words up to its
+// first hit.  What held the earlier designs: one thread walked a column
+// word's rows as a chain of dependent loads (the first: all 1,536 rows at
+// s22, 0.7322 ms against a 0.0096 ms bound); a block of the batch took one
+// tree, with the item search, a 32-rank sentinel fill and a barrier per
+// 1,024 words of a vertex-major row for each (PERF.md).
 // ---------------------------------------------------------------------------
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowBatch = 16;
+constexpr int kRowBatch = 8;       // rows in flight at one tree (a group: about as many loads)
+constexpr int kRowminGroup = 4;    // trees a block takes at most
+constexpr int kRowminBlocks = 4;   // blocks an SM holds at least (caps the registers)
+constexpr size_t kRowminStatic = 1024;  // static shared memory of the kernel, at most
 constexpr uint32_t kAll = 0xFFFFFFFFu;
+static_assert(kRowminGroup >= 1 && kRowminGroup <= 16, "kRowminGroup: 1 to 16 trees");
+static_assert((2 + 16) * kWarps * sizeof(uint32_t) <= kRowminStatic,
+              "the row-min's reductions outgrow kRowminStatic");
 
 struct RowminItem {
   long long kind, va, count, sa_word, width, chunks, rows, block0;
 };
 
-__device__ __forceinline__ void rowmin_rank_major(
-    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
-    uint32_t* __restrict__ out, const RowminItem& it, long long b,
-    uint32_t* ranks) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int chunks = static_cast<int>(it.chunks);
-  const int spans = kWarps / chunks;  // spans of 32 column words per block
-  const long long cw = it.count >> 5;
-  const long long span0 = b * spans;
-  const long long j = (span0 + warp / chunks) * 32 + lane;
-  const long long r0 = (warp % chunks) * it.rows;
-  const long long r1 = r0 + it.rows < it.width ? r0 + it.rows : it.width;
-  uint32_t* mine = ranks + tid * 33;
-  for (int k = 0; k < 32; ++k) mine[k] = kSentinel;
-  if (j < cw) {
-    const uint32_t* __restrict__ x = l1 + it.sa_word + j;
-    const uint32_t* __restrict__ v = valid + it.sa_word + j;
-    uint32_t found = 0;
-    for (long long r = r0; r < r1 && found != kAll; r += kRowBatch) {
-      uint32_t w[kRowBatch];
-#pragma unroll
-      for (int u = 0; u < kRowBatch; ++u) {
-        const long long at = (r + u) * cw;
-        w[u] = r + u < r1 ? __ldg(x + at) & __ldg(v + at) : 0u;
-      }
-#pragma unroll
-      for (int u = 0; u < kRowBatch; ++u) {
-        uint32_t fresh = w[u] & ~found;
-        found |= w[u];
-        while (fresh) {
-          mine[__ffs(fresh) - 1] = static_cast<uint32_t>(r + u);
-          fresh &= fresh - 1;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  // Output i of the block: span i >> 10, column word (i >> 5) & 31, bit
-  // i & 31; the staged rank of (span s, chunk c, word) is at thread
-  // (s * chunks + c) * 32 + word.
-  for (int i = tid; i < spans * 1024; i += kThreads) {
-    const int s = i >> 10, word = (i >> 5) & 31, bit = i & 31;
-    if ((span0 + s) * 32 + word >= cw) continue;
-    uint32_t best = kSentinel;
-    for (int c = 0; c < chunks; ++c) {
-      best = min(best, ranks[((s * chunks + c) * 32 + word) * 33 + bit]);
-    }
-    out[it.va + span0 * 1024 + i] = best;
-  }
+// Rows a thread of a group of kG trees loads at a time: about 2 * kRowBatch
+// loads, a valid word and kG l1 words a row.
+__host__ __device__ constexpr int group_rows(int kG) {
+  return 2 * kRowBatch / (kG + 1) > 1 ? 2 * kRowBatch / (kG + 1) : 1;
 }
 
-__device__ __forceinline__ void rowmin_wide_vertex(
-    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
-    uint32_t* __restrict__ out, const RowminItem& it, long long p,
-    uint32_t* warp_min) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row = it.sa_word + p * (it.width >> 5);
-  const long long end = row + (it.width >> 5);
-  const long long a0 = row & ~3LL;
-  const long long n4 = (((end + 3) & ~3LL) - a0) >> 2;
-  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(l1 + a0);
-  const uint4* __restrict__ v4 = reinterpret_cast<const uint4*>(valid + a0);
-  uint32_t best = kSentinel;
-  for (long long q0 = 0; q0 < n4; q0 += kThreads) {  // block-uniform trip count
-    const long long q = q0 + tid;
-    if (q < n4) {
-      const uint4 xa = __ldg(x4 + q);
-      const uint4 va = __ldg(v4 + q);
-      const uint32_t w[4] = {xa.x & va.x, xa.y & va.y, xa.z & va.z, xa.w & va.w};
-#pragma unroll
-      for (int u = 3; u >= 0; --u) {  // the lowest hit word of the four wins
-        const long long k = a0 + 4 * q + u;
-        if (w[u] && k >= row && k < end) {
-          best = static_cast<uint32_t>((k - row) * 32 + (__ffs(w[u]) - 1));
-        }
-      }
-    }
-    if (__syncthreads_or(best != kSentinel)) break;
-  }
-  best = __reduce_min_sync(kAll, best);
-  if (lane == 0) warp_min[warp] = best;
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < kWarps; ++w) best = min(best, warp_min[w]);
-    out[it.va + p] = best;
-  }
-}
-
-template <bool kBatch>
-__global__ void __launch_bounds__(kThreads)
-class_rowmin_kernel(const uint32_t* __restrict__ l1,
-                    const uint32_t* __restrict__ valid,
-                    uint32_t* __restrict__ out,
-                    const RowminItem* __restrict__ items, int nitems, int trees,
-                    long long l1_stride, long long out_stride,
-                    const int32_t* __restrict__ ctl) {
-  __shared__ uint32_t ranks[kThreads * 33];
-  if (superstep_dead(ctl)) return;
-  // Block x: table block x / trees of tree x % trees (the trees of a row
-  // block adjacent, reading the same valid words).
-  const long long block = kBatch ? blockIdx.x / trees : blockIdx.x;
-  if (kBatch) {
-    const long long tree = blockIdx.x % trees;
-    l1 += tree * l1_stride;
-    out += tree * out_stride;
-  }
-  // The item owning this block: the last one whose first block <= block.
+// The item owning table block `block`: the last one whose first block <= block.
+__device__ __forceinline__ RowminItem rowmin_item(const RowminItem* __restrict__ items,
+                                                  int nitems, long long block) {
   int lo = 0, hi = nitems - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
     if (items[mid].block0 <= block) lo = mid; else hi = mid - 1;
   }
-  const RowminItem it = items[lo];
-  const long long b = block - it.block0;
-  const int tid = threadIdx.x;
-  if (it.kind == 0) {
-    rowmin_rank_major(l1, valid, out, it, b, ranks);
-  } else if (it.kind == 3) {
-    rowmin_wide_vertex(l1, valid, out, it, b, ranks);
-  } else if (it.kind == 1) {
-    const int warp = tid >> 5, lane = tid & 31;
-    const long long p = b * kWarps + warp;
-    if (p >= it.count) return;
-    const long long ww = it.width >> 5;
-    const long long row = it.sa_word + p * ww;
-    uint32_t rank = kSentinel;
-    for (long long k0 = 0; k0 < ww; k0 += 32) {
-      const long long k = k0 + lane;
-      const uint32_t w = k < ww ? (__ldg(l1 + row + k) & __ldg(valid + row + k)) : 0u;
-      const uint32_t hit = __ballot_sync(kAll, w != 0);
+  return items[lo];
+}
+
+// Rank planes of a chunk of `rows` rows: bits of a rank within it.
+__device__ __forceinline__ int rank_planes(long long rows) {
+  return rows > 1 ? 32 - __clz(static_cast<uint32_t>(rows - 1)) : 0;
+}
+
+template <int kG>
+__device__ __forceinline__ void rowmin_rank_major(
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
+    uint32_t* __restrict__ out, const RowminItem& it, long long b, int nt,
+    long long l1_stride, long long out_stride, bool quads, uint32_t* stage) {
+  constexpr int kRows = group_rows(kG);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int chunks = static_cast<int>(it.chunks);
+  const int lg_w = __ffs(kThreads / chunks) - 1;  // W = kThreads / chunks words a block
+  const int word = tid & ((1 << lg_w) - 1), chunk = tid >> lg_w;
+  const long long cw = it.count >> 5;
+  const long long j0 = b << lg_w;  // the block's first column word
+  const long long j = j0 + word;
+  const long long r0 = chunk * it.rows;
+  const long long r1 = r0 + it.rows < it.width ? r0 + it.rows : it.width;
+  const int planes = rank_planes(it.rows);
+  // Tree g's found words at stage[g * (1 + planes) * kThreads + thread], its
+  // plane k at stage[(g * (1 + planes) + 1 + k) * kThreads + thread].
+  const int tree_words = (1 + planes) * kThreads;
+  uint32_t found[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    found[g] = g < nt ? 0u : kAll;  // a missing tree counts as done
+    if (g < nt) {
+      for (int k = 1; k <= planes; ++k) stage[g * tree_words + k * kThreads + tid] = 0;
+    }
+  }
+  if (j < cw) {
+    const uint32_t* __restrict__ x = l1 + it.sa_word + j;
+    const uint32_t* __restrict__ v = valid + it.sa_word + j;
+    uint32_t all = 0u;  // the trees' found words ANDed: kAll once every tree is done
+    for (long long r = r0; r < r1 && all != kAll; r += kRows) {
+      uint32_t vw[kRows], w[kRows][kG];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const long long at = (r + u) * cw;
+        const bool in = r + u < r1;
+        vw[u] = in ? __ldg(v + at) : 0u;
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          w[u][g] = in && found[g] != kAll ? __ldg(x + g * l1_stride + at) : 0u;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const uint32_t rank = static_cast<uint32_t>(r + u - r0);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          const uint32_t hit = w[u][g] & vw[u];
+          const uint32_t fresh = hit & ~found[g];
+          found[g] |= hit;
+          if (fresh) {
+            uint32_t* p = stage + g * tree_words + kThreads + tid;
+            for (int k = 0; k < planes; ++k) {
+              if ((rank >> k) & 1u) p[k * kThreads] |= fresh;
+            }
+          }
+        }
+      }
+      all = kAll;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) all &= found[g];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    if (g < nt) stage[g * tree_words + tid] = j < cw ? found[g] : 0u;
+  }
+  // The writers: with one chunk each warp writes its own 32 words, after a
+  // warp barrier; else the block writes its W words after a block barrier.
+  // Quad q of a writer (outputs 4q .. 4q + 3 of a tree): word w0 + q / 8,
+  // bits 4 (q % 8) ..; the staging of (chunk c, word) is thread c W + word's.
+  const bool own = chunks == 1;
+  if (own) __syncwarp(); else __syncthreads();
+  const int lg_words = own ? 5 : lg_w;  // words a writer covers
+  const int w0 = own ? tid & ~31 : 0;
+  const int first = own ? lane : tid, step = own ? 32 : kThreads;
+  const int rows = static_cast<int>(it.rows);
+  for (int i = first; i < nt << (lg_words + 3); i += step) {
+    const int g = i >> (lg_words + 3), q = i & ((8 << lg_words) - 1);
+    const int wd = w0 + (q >> 3), bit0 = (q & 7) * 4;
+    if (j0 + wd >= cw) continue;
+    const uint32_t* fw = stage + g * tree_words;
+    uint32_t r4[4] = {kSentinel, kSentinel, kSentinel, kSentinel};
+    uint32_t left = 0xFu;
+    for (int c = 0; c < chunks && left; ++c) {
+      const int t = (c << lg_w) + wd;
+      const uint32_t hit = (fw[t] >> bit0) & left;
       if (hit) {
-        const int src = __ffs(hit) - 1;
-        const uint32_t first = __shfl_sync(kAll, w, src);
-        rank = static_cast<uint32_t>((k0 + src) * 32 + (__ffs(first) - 1));
-        break;
+        uint32_t rk[4] = {0u, 0u, 0u, 0u};
+        for (int k = 0; k < planes; ++k) {
+          const uint32_t pl = fw[(1 + k) * kThreads + t] >> bit0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rk[e] |= ((pl >> e) & 1u) << k;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if ((hit >> e) & 1u) r4[e] = static_cast<uint32_t>(c * rows) + rk[e];
+        }
+        left &= ~hit;
       }
     }
-    if (lane == 0) out[it.va + p] = rank;
+    uint32_t* o = out + g * out_stride + it.va + (j0 + wd) * 32 + bit0;
+    if (quads) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(r4[0], r4[1], r4[2], r4[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = r4[e];
+    }
+  }
+}
+
+// The lowest hit of the four words at 16-byte index q of a vertex-major row
+// [row, end) (aligned base a0), or the sentinel: its rank in the row.
+__device__ __forceinline__ uint32_t quad_rank(uint4 x, uint4 v, long long a0, long long q,
+                                              long long row, long long end) {
+  const uint32_t w[4] = {x.x & v.x, x.y & v.y, x.z & v.z, x.w & v.w};
+  uint32_t best = kSentinel;
+#pragma unroll
+  for (int u = 3; u >= 0; --u) {  // the lowest hit word of the four wins
+    const long long k = a0 + 4 * q + u;
+    if (w[u] && k >= row && k < end) {
+      best = static_cast<uint32_t>((k - row) * 32 + (__ffs(w[u]) - 1));
+    }
+  }
+  return best;
+}
+
+template <int kG>
+__device__ __forceinline__ void rowmin_narrow_vertex(
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
+    uint32_t* __restrict__ out, const RowminItem& it, long long b, int nt,
+    long long l1_stride, long long out_stride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long p = b * kWarps + warp;
+  if (p >= it.count) return;
+  const long long row = it.sa_word + p * (it.width >> 5);
+  const long long end = row + (it.width >> 5);
+  const long long a0 = row & ~3LL;
+  const long long n4 = (((end + 3) & ~3LL) - a0) >> 2;
+  const uint4* __restrict__ v4 = reinterpret_cast<const uint4*>(valid + a0);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t rank[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) rank[g] = kSentinel;
+  uint32_t pending = (1u << nt) - 1;  // warp-uniform: the trees not yet hit
+  for (long long q0 = 0; q0 < n4 && pending; q0 += 32) {
+    const long long q = q0 + lane;
+    const bool in = q < n4;
+    const uint4 va = in ? __ldg(v4 + q) : zero;
+    uint4 xa[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      xa[g] = in && ((pending >> g) & 1u)
+                  ? __ldg(reinterpret_cast<const uint4*>(l1 + g * l1_stride + a0) + q)
+                  : zero;
+    }
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      if ((pending >> g) & 1u) {
+        const uint32_t mine = quad_rank(xa[g], va, a0, q, row, end);
+        const uint32_t hit = __ballot_sync(kAll, mine != kSentinel);
+        if (hit) {
+          rank[g] = __shfl_sync(kAll, mine, __ffs(hit) - 1);  // the lowest lane: the lowest word
+          pending &= ~(1u << g);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    if (g < nt && lane == g) out[g * out_stride + it.va + p] = rank[g];
+  }
+}
+
+template <int kG>
+__device__ __forceinline__ void rowmin_wide_vertex(
+    const uint32_t* __restrict__ l1, const uint32_t* __restrict__ valid,
+    uint32_t* __restrict__ out, const RowminItem& it, long long p, int nt,
+    long long l1_stride, long long out_stride, uint32_t* red) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = it.sa_word + p * (it.width >> 5);
+  const long long end = row + (it.width >> 5);
+  const long long a0 = row & ~3LL;
+  const long long n4 = (((end + 3) & ~3LL) - a0) >> 2;
+  const uint4* __restrict__ v4 = reinterpret_cast<const uint4*>(valid + a0);
+  uint32_t best[kG];
+#pragma unroll
+  for (int g = 0; g < kG; ++g) best[g] = kSentinel;
+  uint32_t pending = (1u << nt) - 1;  // block-uniform: the trees not yet hit
+  int flip = 0;                       // red[flip * kWarps ...]: this step's found bits
+  for (long long q0 = 0; q0 < n4 && pending; q0 += kThreads) {
+    const long long q = q0 + tid;
+    if (q < n4) {
+      const uint4 va = __ldg(v4 + q);
+      uint4 xa[kG];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        xa[g] = (pending >> g) & 1u
+                    ? __ldg(reinterpret_cast<const uint4*>(l1 + g * l1_stride + a0) + q)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        if ((pending >> g) & 1u) best[g] = quad_rank(xa[g], va, a0, q, row, end);
+      }
+    }
+    uint32_t mine = 0;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) mine |= best[g] != kSentinel ? 1u << g : 0u;
+    mine = __reduce_or_sync(kAll, mine);
+    if (lane == 0) red[flip * kWarps + warp] = mine;
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) pending &= ~red[flip * kWarps + w];
+    flip ^= 1;
+  }
+  uint32_t* mins = red + 2 * kWarps;  // [kG][kWarps]
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const uint32_t m = __reduce_min_sync(kAll, best[g]);
+    if (lane == 0) mins[g * kWarps + warp] = m;
+  }
+  __syncthreads();
+  if (tid < nt) {
+    uint32_t m = kSentinel;
+    for (int w = 0; w < kWarps; ++w) m = min(m, mins[tid * kWarps + w]);
+    out[tid * out_stride + it.va + p] = m;
+  }
+}
+
+template <int kG>
+__global__ void __launch_bounds__(kThreads, kRowminBlocks)
+class_rowmin_kernel(const uint32_t* __restrict__ l1,
+                    const uint32_t* __restrict__ valid,
+                    uint32_t* __restrict__ out,
+                    const RowminItem* __restrict__ items, int nitems, int trees,
+                    int groups, long long l1_stride, long long out_stride, int quads,
+                    const int32_t* __restrict__ ctl) {
+  extern __shared__ __align__(16) uint32_t stage[];
+  __shared__ uint32_t red[(2 + kG) * kWarps];
+  if (superstep_dead(ctl)) return;
+  // Block x: table block x / groups for the trees [t0, t0 + nt) of group
+  // x % groups.
+  const int grp = static_cast<int>(blockIdx.x % groups);
+  const int t0 = static_cast<int>(static_cast<long long>(grp) * trees / groups);
+  const int nt = static_cast<int>(static_cast<long long>(grp + 1) * trees / groups) - t0;
+  const long long block = blockIdx.x / groups;
+  const RowminItem it = rowmin_item(items, nitems, block);
+  const long long b = block - it.block0;
+  l1 += t0 * l1_stride;
+  out += t0 * out_stride;
+  if (it.kind == 0) {
+    rowmin_rank_major<kG>(l1, valid, out, it, b, nt, l1_stride, out_stride, quads != 0, stage);
+  } else if (it.kind == 3) {
+    rowmin_wide_vertex<kG>(l1, valid, out, it, b, nt, l1_stride, out_stride, red);
+  } else if (it.kind == 1) {
+    rowmin_narrow_vertex<kG>(l1, valid, out, it, b, nt, l1_stride, out_stride);
   } else {
-    const long long v = b * kThreads + tid;
-    if (v < it.count) out[it.va + v] = kSentinel;
+    const long long v = b * kThreads + threadIdx.x;
+    if (v < it.count) {
+      for (int g = 0; g < nt; ++g) out[g * out_stride + it.va + v] = kSentinel;
+    }
   }
 }
 
@@ -1108,6 +1272,57 @@ int local_groups(int trees, int tile_words) {
   return groups_of(trees, most);
 }
 
+// Bytes of a block of class_rowmin's staging per tree of its group when
+// its rank-major items need at most `planes` rank planes: a found word and
+// the planes, a word each per thread.
+size_t rowmin_tree_bytes(int planes) {
+  return static_cast<size_t>(1 + planes) * kThreads * sizeof(uint32_t);
+}
+
+// Groups of the row-min: a block takes at most kRowminGroup trees, as many
+// as the staging leaves room for (at least one).
+int rowmin_groups(int trees, int planes) {
+  const long long fit =
+      static_cast<long long>((kSmemLimit - kRowminStatic) / rowmin_tree_bytes(planes));
+  const int most = fit < 1 ? 1 : (fit < kRowminGroup ? static_cast<int>(fit) : kRowminGroup);
+  return groups_of(trees, most);
+}
+
+struct RowminLaunch {
+  const uint32_t* l1;
+  const uint32_t* valid;
+  uint32_t* out;
+  const RowminItem* items;
+  int nitems;
+  long long total_blocks;
+  int trees, groups, planes;
+  long long l1_stride, out_stride;
+  bool quads;  // out and its tree stride allow 16-byte stores
+  const int32_t* ctl;
+  cudaStream_t stream;
+};
+
+// class_rowmin's instance for the fullest group of `per` trees: the least
+// kG = 1, 2, 4 ... at least `per` (instances up to kRowminGroup only).
+template <int kG>
+int launch_rowmin(const RowminLaunch& a, int per) {
+  if constexpr (kG < kRowminGroup) {
+    if (per > kG) return launch_rowmin<2 * kG>(a, per);
+  }
+  const size_t smem = static_cast<size_t>(per) * rowmin_tree_bytes(a.planes);  // dynamic
+  static size_t configured = 0;
+  if (smem > configured) {
+    cudaFuncSetAttribute(class_rowmin_kernel<kG>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    configured = smem;
+  }
+  class_rowmin_kernel<kG>
+      <<<static_cast<unsigned>(a.total_blocks * a.groups), kThreads, smem, a.stream>>>(
+          a.l1, a.valid, a.out, a.items, a.nitems, a.trees, a.groups, a.l1_stride,
+          a.out_stride, a.quads ? 1 : 0, a.ctl);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1123,6 +1338,13 @@ int local_pass_group(int trees, int tile_words) {
 int outer_pass_group(int trees) {
   if (trees < kBatchTrees) return 1;
   const int groups = groups_of(trees, kOuterGroup);
+  return (trees + groups - 1) / groups;
+}
+
+// Trees one block of the row-min takes (its rank-major items need at most
+// `planes` rank planes), as class_rowmin chooses them.
+int rowmin_group(int trees, int planes) {
+  const int groups = rowmin_groups(trees, planes);
   return (trees + groups - 1) / groups;
 }
 
@@ -1237,19 +1459,22 @@ int benes_outer_pass(const void* x_in, void* x_out, const void* masks,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `planes`: the rank planes the table's rank-major items need at most.
 int class_rowmin(const void* l1, const void* valid, void* out,
-                 const void* items, int nitems, long long total_blocks, int trees,
-                 long long l1_stride, long long out_stride, const void* ctl, void* stream) {
-  if (trees < 1 || total_blocks * trees > 0x7FFFFFFFLL) {
+                 const void* items, int nitems, long long total_blocks, int planes,
+                 int trees, long long l1_stride, long long out_stride, const void* ctl,
+                 void* stream) {
+  if (trees < 1 || planes < 0 || planes > 31 || total_blocks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = trees > 1 ? class_rowmin_kernel<true> : class_rowmin_kernel<false>;
-  kernel<<<static_cast<unsigned>(total_blocks * trees), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
-      static_cast<uint32_t*>(out), static_cast<const RowminItem*>(items),
-      nitems, trees, l1_stride, out_stride, static_cast<const int32_t*>(ctl));
-  return static_cast<int>(cudaGetLastError());
+  const int groups = rowmin_groups(trees, planes);
+  if (total_blocks * groups > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const RowminLaunch a{static_cast<const uint32_t*>(l1), static_cast<const uint32_t*>(valid),
+                       static_cast<uint32_t*>(out), static_cast<const RowminItem*>(items),
+                       nitems, total_blocks, trees, groups, planes, l1_stride, out_stride,
+                       (reinterpret_cast<uintptr_t>(out) & 15u) == 0 && (out_stride & 3) == 0,
+                       static_cast<const int32_t*>(ctl), static_cast<cudaStream_t>(stream)};
+  return launch_rowmin<1>(a, (trees + groups - 1) / groups);  // trees of the fullest group
 }
 
 // With a control block (ctl not null) `changed` is ignored: the kernel

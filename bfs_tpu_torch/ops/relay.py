@@ -52,6 +52,8 @@ __all__ = [
     "apply_benes_std",
     "broadcast_l2",
     "rowmin_ranks",
+    "early_exit_words",
+    "early_exit_bytes",
     "rowmin_candidates",
     "rank_to_slot",
     "apply_relay_candidates",
@@ -324,6 +326,42 @@ def rowmin_ranks(
                        device=l1words.device)
         )
     return i32(torch.cat(parts))
+
+
+def early_exit_words(ranks: torch.Tensor, in_classes) -> dict:
+    """{class va: ``int64[S, units]``}: the slot words of each tree and
+    unit that a row-min stopping at first hits still reads, from the ranks
+    :func:`rowmin_ranks` gives (``[vr]`` or ``[S, vr]``): a rank-major
+    column word's rows up to the last of its 32 bits' first hits (all rows
+    where a bit is never hit), a vertex-major vertex's words up to its
+    first hit (all where none)."""
+    r_all = ranks.reshape(-1, ranks.shape[-1]).cpu().numpy().view(np.uint32).astype(np.int64)
+    out = {}
+    for cs in in_classes:
+        r = r_all[:, cs.va : cs.vb]
+        none = r == PACKED_SENTINEL
+        if cs.vertex_major:
+            out[cs.va] = np.where(none, cs.width // 32, r // 32 + 1)
+        else:
+            r, none = r.reshape(len(r), -1, 32), none.reshape(len(r), -1, 32)
+            out[cs.va] = np.where(none.any(-1), cs.width, r.max(-1) + 1)
+    return out
+
+
+def early_exit_bytes(ranks: torch.Tensor, in_classes, vas=None) -> int:
+    """The bytes a row-min with an early exit at first hits moves on
+    ``ranks`` (``[vr]`` or ``[S, vr]``): each tree's slot words up to its
+    first hits and the valid words up to the furthest tree's, read once,
+    and the ranks written; of the classes starting at ``vas`` (all where
+    None, the tail's outputs too)."""
+    words = early_exit_words(ranks, in_classes)
+    vas = set(words) if vas is None else set(vas)
+    total = sum(4 * int(w.sum()) + 4 * int(w.max(axis=0).sum()) for va, w in words.items()
+                if va in vas)
+    trees = ranks.numel() // ranks.shape[-1]
+    outs = ranks.shape[-1] if vas == set(words) else sum(
+        c.count for c in in_classes if c.va in vas)
+    return total + 4 * trees * outs
 
 
 @functools.lru_cache(maxsize=8)

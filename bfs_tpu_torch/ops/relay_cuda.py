@@ -179,7 +179,9 @@ def _register(lib: ctypes.CDLL) -> None:
     lib.outer_pass_group.restype = _INT
     lib.outer_pass_group.argtypes = [_INT]
     lib.class_rowmin.restype = _INT
-    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _INT, _LL, _LL, _VP, _VP]
+    lib.class_rowmin.argtypes = [_VP, _VP, _VP, _VP, _INT, _LL, _INT, _INT, _LL, _LL, _VP, _VP]
+    lib.rowmin_group.restype = _INT
+    lib.rowmin_group.argtypes = [_INT, _INT]
     lib.packed_update.restype = _INT
     lib.packed_update.argtypes = [
         _VP, _VP, _VP, _VP, _VP, _LL, _INT, _LL, _LL, _LL, ctypes.c_uint, _VP, _VP,
@@ -562,56 +564,104 @@ def apply_benes(
 
 ROWMIN_THREADS = 256
 ROWMIN_WARPS = ROWMIN_THREADS // 32
-#: A rank-major class's rows are halved into more chunks (at most one per
-#: warp of a block) while a chunk holds more rows than this.
+#: ``elem_rowmin_update``'s table: a rank-major class's rows are halved into
+#: more chunks (at most one per warp of a block) while a chunk holds more
+#: rows than this.
 ROWMIN_CHUNK_ROWS = 32
-#: Vertex-major classes at least this many bits wide take a block per
-#: vertex; narrower ones a warp per vertex.
+#: ``elem_rowmin_update``'s table: vertex-major classes at least this many
+#: bits wide take a block per vertex; narrower ones a warp per vertex.
 ROWMIN_WIDE_BITS = 4096
+#: ``class_rowmin``'s table: a rank-major class's rows are halved into more
+#: chunks while a chunk holds more rows than CLASS_CHUNK_ROWS, up to
+#: CLASS_MAX_CHUNKS chunks (a block then covers ROWMIN_THREADS / 32 = 8
+#: column words: whole 32-byte sectors); vertex-major classes at least
+#: CLASS_WIDE_BITS wide take a block per vertex, narrower ones a warp.
+#: Chosen with ``tools/rowmin_sweep.py``; PERF.md records the sweep.
+CLASS_CHUNK_ROWS = 16
+CLASS_MAX_CHUNKS = 32
+CLASS_WIDE_BITS = 32768
 
 
-def rowmin_chunks(width: int) -> tuple[int, int]:
+def rowmin_chunks(width: int, rows: int | None = None, most: int = ROWMIN_WARPS
+                  ) -> tuple[int, int]:
     """``(chunks, rows per chunk)`` of a rank-major class: chunks a power of
-    two up to :data:`ROWMIN_WARPS`, doubled while a chunk would hold more
-    than :data:`ROWMIN_CHUNK_ROWS` rows."""
+    two up to ``most``, doubled while a chunk would hold more than ``rows``
+    rows (:data:`ROWMIN_CHUNK_ROWS` by default)."""
+    rows = ROWMIN_CHUNK_ROWS if rows is None else rows
     chunks = 1
-    while chunks < ROWMIN_WARPS and -(-width // chunks) > ROWMIN_CHUNK_ROWS:
+    while chunks < most and -(-width // chunks) > rows:
         chunks *= 2
     return chunks, -(-width // chunks)
 
 
+def rowmin_depth(row) -> int:
+    """Steps of the longest dependent chain in a block of a work table row:
+    the rows of a rank-major chunk, the 128-word steps of a warp's or the
+    1,024-word steps of a block's vertex-major row, none for the tail."""
+    kind, width, rows = row[0], row[4], row[6]
+    return {0: rows, 1: -(-width // 4096), 3: -(-width // 32768)}.get(kind, 0)
+
+
+class RowminTable(NamedTuple):
+    """``class_rowmin``'s work table on its device, and what its launcher
+    needs to know of it."""
+
+    table: torch.Tensor  # int64 rows of (kind, va, count, sa/32, width, chunks, rows, block0)
+    blocks: int  # table blocks in all
+    vertex_major: bool  # any vertex-major row (16-byte loads)
+    planes: int  # rank planes of the longest rank-major chunk: bits of a rank within it
+
+
 @functools.lru_cache(maxsize=8)
-def rowmin_items(in_classes: tuple, vr: int, device: str):
+def rowmin_items(in_classes: tuple, vr: int, device: str) -> RowminTable:
     """Device work table of :func:`rowmin_ranks`: int64 rows of (kind, va,
     count, sa/32, width, chunks, rows per chunk, first block) — kind 0
-    rank-major (a block covers ``ROWMIN_WARPS / chunks`` spans of 32
-    column words, a warp per span and chunk of rows), 1 vertex-major (a
-    warp per vertex), 3 vertex-major at least :data:`ROWMIN_WIDE_BITS` wide
-    (a block per vertex), 2 the sentinel tail — the total block count,
-    and whether any kind 3 row (16-byte loads) is in the table."""
+    rank-major (a block covers ``ROWMIN_THREADS / chunks`` column words
+    with all their chunks of rows, a thread per word and chunk), 1
+    vertex-major (a warp per vertex), 3 vertex-major at least
+    :data:`CLASS_WIDE_BITS` wide (a block per vertex), 2 the sentinel tail
+    — the rows of the longest chains (:func:`rowmin_depth`) first, so that
+    their blocks start first; with the total block count, whether any row
+    is vertex-major, and the rank planes (bits of a rank within a chunk)
+    of its longest rank-major chunk, which the kernel stages a tree's ranks
+    in."""
     rows = []
-    block = 0
     covered = 0
     for cs in sorted(in_classes, key=lambda c: c.va):
         assert cs.va == covered, "in_classes must tile the vertex space"
         chunks, per = 1, cs.width
-        if cs.vertex_major and cs.width >= ROWMIN_WIDE_BITS:
+        if cs.vertex_major and cs.width >= CLASS_WIDE_BITS:
             kind, blocks = 3, cs.count
         elif cs.vertex_major:
             kind, blocks = 1, -(-cs.count // ROWMIN_WARPS)
         else:
-            chunks, per = rowmin_chunks(cs.width)
-            spans = -(-(cs.count // 32) // 32)
-            kind, blocks = 0, -(-spans // (ROWMIN_WARPS // chunks))
+            # The kernel writes a rank-major class's ranks as 16-byte quads
+            # from va on, and reads its column words 32 vertices a word.
+            assert cs.va % 32 == 0 and cs.count % 32 == 0, \
+                f"rank-major class at va={cs.va} (count {cs.count}) not aligned to 32 vertices"
+            chunks, per = rowmin_chunks(cs.width, CLASS_CHUNK_ROWS, CLASS_MAX_CHUNKS)
+            kind, blocks = 0, -(-(cs.count // 32) // (ROWMIN_THREADS // chunks))
         if blocks:
-            rows.append((kind, cs.va, cs.count, cs.sa // 32, cs.width, chunks, per, block))
-            block += blocks
+            rows.append(((kind, cs.va, cs.count, cs.sa // 32, cs.width, chunks, per), blocks))
         covered = cs.vb
     if covered < vr:
-        rows.append((2, covered, vr - covered, 0, 0, 1, 0, block))
-        block += -(-(vr - covered) // ROWMIN_THREADS)
-    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(device)
-    return table, block, any(r[0] == 3 for r in rows)
+        rows.append(((2, covered, vr - covered, 0, 0, 1, 0), -(-(vr - covered) // ROWMIN_THREADS)))
+    rows.sort(key=lambda r: -rowmin_depth(r[0]))  # stable: classes in order within a depth
+    table, block = [], 0
+    for row, blocks in rows:
+        table.append((*row, block))
+        block += blocks
+    planes = max([(r[6] - 1).bit_length() for r in table if r[0] == 0] or [0])
+    return RowminTable(torch.tensor(table, dtype=torch.int64).reshape(-1, 8).to(device), block,
+                       any(r[0] in (1, 3) for r in table), planes)
+
+
+def rowmin_group(trees: int, planes: int, lib=None) -> int:
+    """Trees one block of ``lib``'s (the built ``relay_kernels.cu``'s)
+    ``class_rowmin`` takes on a batch of ``trees`` whose table needs
+    ``planes`` rank planes, as its launcher chooses them."""
+    lib = kernels() if lib is None else lib
+    return lib.rowmin_group(trees, planes)
 
 
 def rowmin_ranks(
@@ -621,15 +671,17 @@ def rowmin_ranks(
     """Min active rank per relabeled vertex (sentinel where none), of
     ``[nw]`` or ``[S, nw]`` slot words against the shared ``valid_words``
     (``int32[vr]`` or ``int32[S, vr]`` out): kernel ``class_rowmin`` on the
-    card (one launch for the S trees), :func:`.relay.rowmin_ranks` on the
+    card (one launch for the S trees; a block takes a work item for a group
+    of :func:`rowmin_group` trees), :func:`.relay.rowmin_ranks` on the
     CPU."""
     if not _on_card(l1words, valid_words):
         return R.rowmin_ranks(l1words, valid_words, in_classes, vr)
     _check_words("valid_words", valid_words)
     nw = valid_words.numel()
     trees = _trees("l1words", l1words, nw)
-    table, blocks, wide = rowmin_items(tuple(in_classes), int(vr), str(l1words.device))
-    if wide:  # 16-byte loads, up to a 4-word boundary
+    table, blocks, vertex_major, planes = rowmin_items(tuple(in_classes), int(vr),
+                                                       str(l1words.device))
+    if vertex_major:  # 16-byte loads, up to a 4-word boundary
         _check_aligned("l1words", l1words)
         _check_aligned("valid_words", valid_words)
     if out is None:
@@ -639,7 +691,7 @@ def rowmin_ranks(
         return out
     rc = kernels().class_rowmin(
         _ptr(l1words), _ptr(valid_words), _ptr(out), _VP(table.data_ptr()),
-        table.shape[0], blocks, trees, nw, vr, _ctl(ctl), _stream(),
+        table.shape[0], blocks, planes, trees, nw, vr, _ctl(ctl), _stream(),
     )
     count_launch("class_rowmin")
     _call(rc, "class_rowmin")

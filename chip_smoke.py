@@ -41,9 +41,11 @@ trees against the oracle, the eager loop against the captured one, a dead
 superstep and a trace; then each batched kernel on the 16 trees at their
 densest superstep (``lockstep_kernel_phase``) against its plain version and
 16 single launches, one launch per call, timed beside them and its bound
-(masks once + 16 x words), the Beneš passes (the four outer launches and
-both local passes at the batch's own split, with the batch's tile and
-trees a block printed) also on the first 4 trees; the MXU arm's batch of 4 after its searches,
+(masks once + 16 x words; ``class_rowmin``'s: the bytes an early exit at
+first hits still moves, the full read beside it), the Beneš passes (the
+four outer launches and both local passes at the batch's own split, with
+the batch's tile and trees a block printed) and ``class_rowmin`` (with
+its trees a block) also on the first 4 trees; the MXU arm's batch of 4 after its searches,
 equal to the gather batch's trees, and ``mxu_expand`` on the 16 trees'
 frontiers; the 64-source batch below in lock-step too; and
 ``path_graph(100)`` batched through the unpacked re-run on both arms.
@@ -510,7 +512,8 @@ def kernel_phase(eng, K, R, card: str) -> dict:
     l1 = s.l1
     valid = eng.valid_words
     got = K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr)
-    err = max_abs_err(got, R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr))
+    want = R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr)
+    err = max_abs_err(got, want)
     ms = cold_ms(lambda: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 50)
     rbuf = torch.empty_like(got)
     gms = cold_ms(lambda: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr, out=rbuf, ctl=live_ctl), 50)
@@ -518,11 +521,18 @@ def kernel_phase(eng, K, R, card: str) -> dict:
                lambda c: K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr, out=rbuf, ctl=c),
                rbuf, got, dead)
     pms = cold_ms(lambda: R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr), 5)
+    # Bound: the bytes that a row-min stopping at first hits still moves on
+    # this superstep (from the plain ranks); the full read beside it.
     class_words = sum((c.sb - c.sa) // 32 for c in rg.in_classes)
-    nbytes = 2 * 4 * class_words + 4 * rg.vr
-    record("class_rowmin", err, ms, pms, nbytes,
-           f"vr={rg.vr}, {len(rg.in_classes)} classes, {class_words} slot words", gated_ms=gms)
-    items, blocks, _ = K.rowmin_items(tuple(rg.in_classes), rg.vr, str(dev))
+    full = 2 * 4 * class_words + 4 * rg.vr
+    record("class_rowmin", err, ms, pms, R.early_exit_bytes(want, rg.in_classes),
+           f"vr={rg.vr}, {len(rg.in_classes)} classes, {class_words} slot words; bound: "
+           "the slot and valid words up to the first hits, the ranks", gated_ms=gms)
+    results["class_rowmin"]["full_read_bound_ms"] = full / HBM_BYTES_PER_S * 1e3
+    log(f"kernel class_rowmin: the full read's bound {full / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({full} bytes: every slot word and valid word, the ranks) on {card}")
+    del want
+    items, blocks = K.rowmin_items(tuple(rg.in_classes), rg.vr, str(dev))[:2]
     log(f"class_rowmin work table: {items.shape[0]} items, {blocks} blocks of "
         f"{K.ROWMIN_THREADS} threads; (kind, width, count, chunks x rows): "
         + ", ".join(f"({k}, {w}, {c}, {ch}x{r})" for k, _, c, _, w, ch, r, _ in items.tolist()))
@@ -1435,8 +1445,11 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
     per call; its time (cold L2) beside the S single launches' and the
     plain version's, and its bound: the masks (or the valid words) read
     once plus S times the words.  The Beneš passes (all four outer launches
-    of a superstep and both local passes, at the batch's own split) also on
-    the first 4 trees, as serve's relay-4 tick runs them."""
+    of a superstep and both local passes, at the batch's own split) and the
+    row-min also on the first 4 trees, as serve's relay-4 tick runs them;
+    the row-min with the trees a block of its batch kernel takes, bound by
+    the bytes that an early exit at first hits still moves (the full read
+    beside it)."""
     import numpy as np
     import torch
 
@@ -1540,15 +1553,34 @@ def lockstep_kernel_phase(eng, sources, K, R, card: str) -> dict:
                   plain_reps=1)
             del out, out1, x
         del x_loc, x_suf
+    # The row-min at S and at 4 trees, as serve's relay-4 tick runs it. Its
+    # bound: the bytes that an early exit at first hits still moves (each
+    # tree's slot words up to its first hits, the valid words up to the
+    # furthest tree's, the ranks; from the plain ranks); the full read beside.
     class_words = sum((c.sb - c.sa) // 32 for c in rg.in_classes)
-    rbuf, rbuf1 = torch.empty_like(cand), torch.empty_like(cand)
-    check(f"class_rowmin, {S} trees", "class_rowmin", S,
-          lambda: (K.rowmin_ranks(l1, valid, rg.in_classes, rg.vr, out=rbuf),),
-          lambda: (torch.stack([K.rowmin_ranks(l1[i], valid, rg.in_classes, rg.vr,
-                                               out=rbuf1[i]) for i in range(S)]),),
-          lambda: (R.rowmin_ranks(l1, valid, rg.in_classes, rg.vr),),
-          4 * class_words + S * (4 * class_words + 4 * rg.vr),
-          f"vr={rg.vr}, {len(rg.in_classes)} classes x {S} trees", plain_reps=1)
+    planes = K.rowmin_items(tuple(rg.in_classes), rg.vr, str(dev)).planes
+    for trees in (S, 4):
+        x = l1[:trees]
+        rbuf, rbuf1 = torch.empty_like(cand[:trees]), torch.empty_like(cand[:trees])
+        name = f"class_rowmin, {trees} trees"
+        group = K.rowmin_group(trees, planes)
+        early = R.early_exit_bytes(R.rowmin_ranks(x, valid, rg.in_classes, rg.vr),
+                                   rg.in_classes)
+        full = 4 * class_words + trees * (4 * class_words + 4 * rg.vr)
+        check(name, "class_rowmin", trees,
+              lambda: (K.rowmin_ranks(x, valid, rg.in_classes, rg.vr, out=rbuf),),
+              lambda: (torch.stack([K.rowmin_ranks(x[i], valid, rg.in_classes, rg.vr,
+                                                   out=rbuf1[i]) for i in range(trees)]),),
+              lambda: (R.rowmin_ranks(x, valid, rg.in_classes, rg.vr),),
+              early,
+              f"vr={rg.vr}, {len(rg.in_classes)} classes x {trees} trees, {group} trees a "
+              f"block ({planes} rank planes); bound: the early exit's bytes", plain_reps=1)
+        results[name].update(group=group, full_read_bound_ms=full / HBM_BYTES_PER_S * 1e3)
+        log(f"lock-step kernel {name}: {group} trees a block; the full read's bound "
+            f"{results[name]['full_read_bound_ms']:.4f} ms ({full} bytes: the valid words "
+            f"once, every tree's slot words, the ranks) beside the early exit's "
+            f"{results[name]['bound_ms']:.4f} ms on {card}")
+        del x, rbuf, rbuf1
     scratch, scratch1 = packed.clone(), packed.clone()
     fout, fout1 = torch.empty_like(fwords), torch.empty_like(fwords)
 

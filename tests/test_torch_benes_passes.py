@@ -314,7 +314,7 @@ def test_outer_geometry_under_other_unit_caps(max_words):
 
 @pytest.mark.parametrize("const", ["kMaxOuterStages", "kOuterWords", "kMaxRing", "kMaxSweep",
                                    "kLocalGroup", "kOuterGroup", "kOuterGroupBlocks",
-                                   "kBatchTrees"])
+                                   "kBatchTrees", "kRowminGroup", "kRowBatch"])
 def test_cuda_build_reads_the_source_constants(const):
     from bfs_tpu_torch.utils import cuda_build
 

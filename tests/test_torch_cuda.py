@@ -222,6 +222,42 @@ def test_card_class_rowmin_wide_classes_match_plain(card, density):
         assert bool((got[: classes[-1].vb] == 0).all()) and bool((got[classes[-1].vb :] == -1).all())
 
 
+@pytest.mark.parametrize("trees", [5, 16])
+def test_card_class_rowmin_batched_wide_classes_match_plain(card, trees):
+    """``class_rowmin`` on ``[trees, nw]`` words of the wide classes, the
+    trees' L1 densities mixed within each group of the batch's kernel (none,
+    1e-4, 0.01, 0.5 and all bits, in turn), so that its trees finish at
+    different rows and vertices: one launch, bit for bit its plain batched
+    version and single launches; gated by a dead control block, nothing
+    written."""
+    from bfs_tpu_torch.ops import control as C
+
+    classes, vr, nwords = _wide_classes()
+    rng = np.random.default_rng(trees)
+    densities = (0.0, 1e-4, 0.01, 0.5, 1.0)
+    l1 = np.stack([np.packbits(rng.random(32 * nwords) < densities[i % 5], bitorder="little")
+                   .view(np.uint32) for i in range(trees)])
+    valid = np.packbits(rng.random(32 * nwords) < 0.97, bitorder="little").view(np.uint32)
+    l1, valid = _t(l1, card), _t(valid, card)
+    planes = K.rowmin_items(classes, vr, str(card)).planes
+    assert planes == 6  # the 1,536-row class: 32 chunks of 48 rows
+    assert 1 < K.rowmin_group(trees, planes) <= trees
+    K.reset_launches()
+    got = K.rowmin_ranks(l1, valid, classes, vr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["class_rowmin"] == 1
+    _eq(got, R.rowmin_ranks(l1, valid, classes, vr))
+    _eq(got, torch.stack([K.rowmin_ranks(l1[i], valid, classes, vr) for i in range(trees)]))
+    assert bool((got[0] == -1).all()) and bool((got[4] != -1).any())
+    dead = C.new_ctl(card)
+    C.init_ctl(dead, 62)
+    dead[C.LIVE] = 0
+    out = torch.full_like(got, 7)
+    K.rowmin_ranks(l1, valid, classes, vr, out=out, ctl=dead)
+    torch.cuda.synchronize()
+    assert bool((out == 7).all())
+
+
 def test_card_bfs_matches_cpu_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
     cpu = P.RelayEngine(g, device="cpu", sparse_hybrid=False)
@@ -1729,11 +1765,12 @@ def _batched_case(kernel: str, trees: int, card, layout):
 @pytest.mark.parametrize("kernel,trees", [
     *((k, t) for k in ("benes_local_pass", "benes_outer_pass", "class_rowmin", "packed_update",
                        "mxu_expand") for t in (1, 3, 16)),
-    # The Beneš passes' batch kernels take trees in groups (at most 16 trees
-    # a block of the local pass on this layout's tiles, 8 of the outer
-    # pass): counts that are not a multiple of a group, and more groups
-    # than one.
-    *((k, t) for k in ("benes_local_pass", "benes_outer_pass") for t in (2, 5, 17, 64)),
+    # The batch kernels of the Beneš passes and the row-min take trees in
+    # groups (at most 16 trees a block of the local pass on this layout's
+    # tiles, 8 of the outer pass and the row-min): counts that are not a
+    # multiple of a group, and more groups than one.
+    *((k, t) for k in ("benes_local_pass", "benes_outer_pass", "class_rowmin")
+      for t in (2, 5, 17, 64)),
 ])
 def test_card_batched_kernel_matches_plain_and_single_launches(card, layout, kernel, trees):
     """Each kernel of the lock-step superstep on ``[S, n]`` operands: bit

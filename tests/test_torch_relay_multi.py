@@ -217,21 +217,40 @@ def test_batched_benes_matches_reference_under_vmap(ops, network):
             _u(R.apply_benes_std(_t(words[i]), _t(masks), table, n)), np.asarray(want[i]))
 
 
-def test_batched_broadcast_and_rowmin_match_reference_under_vmap(ops):
+@pytest.mark.parametrize("trees", [2, 3, 5, 17])
+def test_batched_broadcast_and_rowmin_match_reference_under_vmap(ops, trees):
+    """The broadcast and the row-min on ``trees`` trees whose L1 densities
+    differ within the batch (none, 1e-4, 0.02, 0.5 and all bits, in turn),
+    so that the trees of one group of the card's kernel find their ranks at
+    different rows: against ``jax.vmap`` of the JAX twins and of the Pallas
+    tournament in interpret mode, and each tree alone."""
+    from bfs_tpu.ops import relay_pallas as JP
+
     jrg, rg = ops["jrg"], ops["rg"]
-    y = _words(ops["rng"], (3, rg.vperm_size // 32))
-    want = jax.vmap(lambda w: JR.broadcast_l2(w, jrg.out_classes, jrg.net_size,
-                                              jrg.out_space))(jnp.asarray(y))
+    rng = np.random.default_rng(trees)
+    y = _words(rng, (trees, rg.vperm_size // 32))
+    want = jax.jit(jax.vmap(lambda w: JR.broadcast_l2(w, jrg.out_classes, jrg.net_size,
+                                                      jrg.out_space)))(jnp.asarray(y))
     l2 = R.broadcast_l2(_t(y), rg.out_classes, rg.net_size, rg.out_space)
     np.testing.assert_array_equal(_u(l2), np.asarray(want))
-    l1 = _words(ops["rng"], (3, rg.net_size // 32), 0.02)
-    valid = ops["valid"]
-    want = jax.vmap(lambda w: JR.rowmin_ranks(w, jnp.asarray(valid), jrg.in_classes, jrg.vr))(
-        jnp.asarray(l1))
+    densities = (0.0, 1e-4, 0.02, 0.5, 1.0)
+    l1 = np.stack([np.packbits(rng.random(rg.net_size) < densities[i % len(densities)],
+                               bitorder="little").view(np.uint32) for i in range(trees)])
+    valid, jv = ops["valid"], jnp.asarray(ops["valid"])
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda w: JR.rowmin_ranks(w, jv, jrg.in_classes, jrg.vr)))(jnp.asarray(l1)))
+    np.testing.assert_array_equal(want, np.asarray(jax.vmap(
+        lambda w: JP.rowmin_ranks_pallas(w, jv, jrg.in_classes, jrg.vr, interpret=True))(
+        jnp.asarray(l1))))
     for got in (R.rowmin_ranks(_t(l1), _t(valid), rg.in_classes, rg.vr),
                 K.rowmin_ranks(_t(l1), _t(valid), rg.in_classes, rg.vr)):
-        assert got.shape == (3, rg.vr)
-        np.testing.assert_array_equal(_u(got), np.asarray(want))
+        assert got.shape == (trees, rg.vr)
+        np.testing.assert_array_equal(_u(got), want)
+    for i in range(trees):
+        np.testing.assert_array_equal(
+            _u(R.rowmin_ranks(_t(l1[i]), _t(valid), rg.in_classes, rg.vr)), want[i])
+    assert (want[0] == 0xFFFFFFFF).all()  # no frontier bit: no rank
+    assert trees < 4 or (want[3] != 0xFFFFFFFF).any()
 
 
 @pytest.mark.parametrize("level", [0, 5])

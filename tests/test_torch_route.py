@@ -176,10 +176,13 @@ def _slot_words(rng, nwords: int, density: float):
 
 
 def _coverage(table, total_blocks: int, in_classes, vr: int) -> None:
-    """Replay the kernel's block/warp/lane geometry over the table: every
+    """Replay the kernel's block/warp/thread geometry over the table: every
     (rank-major class, column word, row) once, every vertex-major vertex
-    and tail vertex once, the vertex space [0, vr) once."""
+    and tail vertex once, the vertex space [0, vr) once; the rows of the
+    longest chains first."""
     rows = table.tolist()
+    depths = [K.rowmin_depth(r) for r in rows]
+    assert depths == sorted(depths, reverse=True)
     by_va = {c.va: c for c in in_classes}
     written = np.zeros(vr, np.int64)
     for n, (kind, va, count, sa_word, width, chunks, per, block0) in enumerate(rows):
@@ -191,33 +194,45 @@ def _coverage(table, total_blocks: int, in_classes, vr: int) -> None:
         cs = by_va[va]
         assert (count, sa_word, width) == (cs.count, cs.sa // 32, cs.width)
         if kind == 3:
-            assert cs.vertex_major and cs.width >= K.ROWMIN_WIDE_BITS and nblocks == count
+            assert cs.vertex_major and cs.width >= K.CLASS_WIDE_BITS and nblocks == count
             written[va : va + count] += 1
         elif kind == 1:
-            assert cs.vertex_major and cs.width < K.ROWMIN_WIDE_BITS
+            assert cs.vertex_major and cs.width < K.CLASS_WIDE_BITS
             p = np.arange(nblocks * K.ROWMIN_WARPS)
             written[va + p[p < count]] += 1
             assert (p >= count).sum() < K.ROWMIN_WARPS
         else:
             assert kind == 0 and not cs.vertex_major
-            assert K.ROWMIN_WARPS % chunks == 0
-            assert per <= K.ROWMIN_CHUNK_ROWS or chunks == K.ROWMIN_WARPS
-            cw, spans = count // 32, K.ROWMIN_WARPS // chunks
+            assert va % 32 == 0 and count % 32 == 0  # the writer's 16-byte quads
+            assert chunks & (chunks - 1) == 0 and chunks <= K.CLASS_MAX_CHUNKS
+            assert per == -(-width // chunks)  # trailing chunks may be empty
+            # No chunk over CLASS_CHUNK_ROWS rows unless the chunks are at
+            # their most, and no more chunks than that needs.
+            assert per <= K.CLASS_CHUNK_ROWS or chunks == K.CLASS_MAX_CHUNKS
+            if chunks > 1:
+                assert -(-width // (chunks // 2)) > K.CLASS_CHUNK_ROWS
+            cw, words = count // 32, K.ROWMIN_THREADS // chunks  # words a block
+            assert words >= 8  # a warp reads whole 32-byte sectors of a row
             hits = np.zeros((width, cw), np.int64)
             for b in range(nblocks):
-                for w in range(K.ROWMIN_WARPS):
-                    j0 = (b * spans + w // chunks) * 32
-                    r0 = (w % chunks) * per
-                    hits[r0 : r0 + per, j0 : j0 + 32] += 1
+                for t in range(K.ROWMIN_THREADS):
+                    j, chunk = b * words + t % words, t // words
+                    if j < cw:
+                        hits[chunk * per : (chunk + 1) * per, j] += 1
             assert (hits == 1).all(), f"class va={va}: slots covered {np.unique(hits)}"
-            assert nblocks * spans * 32 - cw < spans * 32  # no block without a word
+            assert nblocks * words - cw < words  # no block without a word
             written[va : va + count] += 1
     assert (written == 1).all()
 
 
 def _check_items(classes, vr: int) -> None:
-    table, blocks, wide = K.rowmin_items(tuple(classes), vr, "cpu")
-    assert wide == any(c.vertex_major and c.width >= K.ROWMIN_WIDE_BITS for c in classes)
+    table, blocks, vertex_major, planes = K.rowmin_items(tuple(classes), vr, "cpu")
+    assert vertex_major == any(c.vertex_major for c in classes)
+    # The kernel stages a rank within a chunk in `planes` bit planes: enough
+    # for the longest chunk, and no more.
+    per = [r[6] for r in table.tolist() if r[0] == 0]
+    assert all(p <= 1 << planes for p in per)
+    assert planes == 0 or max(per) > 1 << (planes - 1)
     _coverage(table, blocks, classes, vr)
 
 
@@ -231,6 +246,14 @@ def test_rowmin_items_cover_every_slot_once_layout(layout):
     _check_items(layout.in_classes, layout.vr)
 
 
+def test_class_rowmin_threads_mirror_the_source():
+    """The work table's block geometry (column words and warps a block)
+    is the kernel's: ROWMIN_THREADS threads a block."""
+    from bfs_tpu_torch.utils import cuda_build
+
+    assert cuda_build.constant(K.SOURCES["relay_kernels"], "kThreads") == K.ROWMIN_THREADS
+
+
 @pytest.mark.parametrize("width", [1, 3, 32, 33, 48, 256, 257, 1536, 4096])
 def test_rowmin_chunks(width):
     chunks, per = K.rowmin_chunks(width)
@@ -238,6 +261,20 @@ def test_rowmin_chunks(width):
     assert per <= K.ROWMIN_CHUNK_ROWS or chunks == K.ROWMIN_WARPS
     if chunks > 1:
         assert -(-width // (chunks // 2)) > K.ROWMIN_CHUNK_ROWS  # no more chunks than needed
+
+
+@pytest.mark.parametrize("width", [1, 3, 16, 17, 33, 48, 129, 256, 257, 513, 1536, 4096])
+def test_class_rowmin_chunks(width):
+    """``class_rowmin``'s split: chunks a power of two up to
+    ``CLASS_MAX_CHUNKS``, none over ``CLASS_CHUNK_ROWS`` rows unless the
+    chunks are at their most, and no more chunks than that needs."""
+    rows, most = K.CLASS_CHUNK_ROWS, K.CLASS_MAX_CHUNKS
+    chunks, per = K.rowmin_chunks(width, rows, most)
+    assert chunks & (chunks - 1) == 0 and chunks <= most
+    assert per == -(-width // chunks)  # trailing chunks may be empty (129 rows in 16)
+    assert per <= rows or chunks == most
+    if chunks > 1:
+        assert -(-width // (chunks // 2)) > rows
 
 
 @pytest.mark.parametrize("density", [0.0, 1e-4, 0.01, 0.5, 1.0])
@@ -257,3 +294,52 @@ def test_rowmin_ranks_wide_classes_match_jax_and_pallas(density):
         assert (ours == 0xFFFFFFFF).all()
     if density == 1.0:  # every vertex's first valid row
         assert (ours[: classes[-1].vb] != 0xFFFFFFFF).any()
+
+
+def _scanned_words(lw: np.ndarray, cs) -> np.ndarray:
+    """The words a row-min stopping at first hits reads in class ``cs`` of
+    one tree's slot words ``lw`` (uint32, ANDed with valid), walked row by
+    row: per rank-major column word, the rows until each of its 32 bits is
+    found (all rows where one never is); per vertex-major vertex, the words
+    until its first set word (all where none)."""
+    words = lw[cs.sa // 32 : cs.sb // 32]
+    if cs.vertex_major:
+        hit = words.reshape(cs.count, cs.width // 32) != 0
+        return np.where(hit.any(1), hit.argmax(1) + 1, cs.width // 32)
+    cw = cs.count // 32
+    bits = np.unpackbits(words.reshape(cs.width, cw).view(np.uint8), bitorder="little")
+    bits = bits.reshape(cs.width, cw, 32).astype(bool)
+    out = np.empty(cw, np.int64)
+    for j in range(cw):
+        first = np.where(bits[:, j].any(0), bits[:, j].argmax(0), cs.width)
+        out[j] = cs.width if (first == cs.width).any() else first.max() + 1
+    return out
+
+
+@pytest.mark.parametrize("trees", [1, 3])
+def test_early_exit_words_match_a_row_by_row_walk(trees):
+    """``early_exit_words``, read off the plain ranks, equals a walk of the
+    slot words themselves, per tree and unit, with the trees' densities
+    apart (0, 1e-3, 0.5); ``early_exit_bytes`` adds the valid words up to
+    the furthest tree and the outputs, and on empty trees is the full read:
+    every slot word of every tree and the valid words once, the ranks
+    written."""
+    classes, vr, nwords = _synthetic_classes()
+    rng = np.random.default_rng(trees)
+    densities = [0.0, 1e-3, 0.5][-trees:]
+    l1, valid = zip(*(_slot_words(rng, nwords, d) for d in densities))
+    valid = valid[0]
+    ranks = R.rowmin_ranks(_t(np.stack(l1)), _t(valid), classes, vr)
+    got = R.early_exit_words(ranks, classes)
+    for s in range(trees):
+        for cs in classes:
+            np.testing.assert_array_equal(got[cs.va][s], _scanned_words(l1[s] & valid, cs))
+    nbytes = R.early_exit_bytes(ranks, classes)
+    assert nbytes == sum(4 * int(w.sum()) + 4 * int(w.max(0).sum()) for w in got.values()) \
+        + 4 * trees * vr
+    empty = R.rowmin_ranks(_t(np.zeros((trees, nwords), np.uint32)), _t(valid), classes, vr)
+    class_words = sum((c.sb - c.sa) // 32 for c in classes)
+    assert R.early_exit_bytes(empty, classes) == 4 * class_words * (1 + trees) + 4 * trees * vr
+    one = classes[0].va
+    assert R.early_exit_bytes(ranks, classes, [one]) == 4 * int(got[one].sum()) \
+        + 4 * int(got[one].max(0).sum()) + 4 * trees * classes[0].count
