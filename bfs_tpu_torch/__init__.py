@@ -21,7 +21,7 @@ from .graph.adj_tiles import AdjTiles
 from .graph.csr import INF_DIST, NO_PARENT, DeviceGraph, Graph, build_device_graph
 from .graph.ell import PullGraph, build_pull_graph
 from .graph.generators import gnm_graph, path_graph, rmat_graph, snap_shape_edges, star_graph
-from .graph.io import read_sedgewick
+from .graph.io import parse_sedgewick, read_sedgewick, read_snap_edge_list
 from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
 from .graph.relay_device import build_relay_graph_device
 from .graph.vertex import Color, Vertex, parse_state, path_to, serialize_state
@@ -89,11 +89,13 @@ __all__ = [
     "gnm_graph",
     "load_or_build_pull",
     "load_or_build_relay",
+    "parse_sedgewick",
     "parse_state",
     "path_graph",
     "path_to",
     "queue_bfs",
     "read_sedgewick",
+    "read_snap_edge_list",
     "resolve_direction",
     "resolve_expansion",
     "rmat_graph",

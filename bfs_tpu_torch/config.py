@@ -1,7 +1,7 @@
 """The ``service.properties`` layer (:func:`parse_properties`,
 :class:`ServiceConfiguration`) and the artifact-cache directories
-(:func:`cache_root`, :func:`layout_cache_dir`): the port of
-``bfs_tpu.config``'s properties and cache halves.
+(:func:`cache_root`, :func:`layout_cache_dir`, :func:`journal_dir`): the
+port of ``bfs_tpu.config``'s properties and cache halves.
 
 A ``key=value`` file loaded once: the app name, the comma-separated
 problem files (``problemFiles``), the source, the superstep dumps and the
@@ -32,6 +32,13 @@ def cache_root() -> str:
 def layout_cache_dir() -> str:
     """The layout-bundle store (:mod:`bfs_tpu_torch.cache.layout`)."""
     return os.path.join(cache_root(), "layout")
+
+
+def journal_dir() -> str:
+    """The run-journal directory (:mod:`bfs_tpu_torch.resilience.journal`):
+    ``BFS_TPU_TORCH_JOURNAL_DIR`` when set, else ``<cache root>/journal``,
+    beside the artifacts a resumed run must stay consistent with."""
+    return knobs.get("BFS_TPU_TORCH_JOURNAL_DIR") or os.path.join(cache_root(), "journal")
 
 
 def parse_properties(text: str) -> dict[str, str]:

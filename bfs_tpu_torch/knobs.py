@@ -49,7 +49,21 @@ mirror knobs of the reference's registry of the same names without
                                                  open a replica's breaker
   BFS_TPU_TORCH_ROUTER_COOLDOWN_S float  2.0     fleet router breaker
                                                  cooldown (s, > 0)
+  BFS_TPU_TORCH_JOURNAL          flag    1       run journal of the tools
+                                                 (resume a killed run)
+  BFS_TPU_TORCH_JOURNAL_DIR      path    ""      run-journal directory
+                                                 ("" = <cache root>/journal)
+  BFS_TPU_TORCH_SPANS            flag    1       phase spans; 0 disables
   ============================== ======= ======= ==========================
+
+A knob whose value changes what a run measures carries a ``journal_key``:
+its field in a :class:`~bfs_tpu_torch.resilience.journal.RunJournal`
+config, under the reference's field name, so one configuration keys one
+journal in either package.  :func:`journal_map` derives the fields from
+the registry.  The reference's other journal knobs (``BFS_TPU_PACKED``,
+``_ROWMIN``, ``_STATE_UPDATE``, ``_EXPANSION``, ``_MXU_KERNEL``,
+``_EXCHANGE``, ``_EXCHANGE_DIV``) have no knob here: the port chooses
+those by argument or has no such arm.
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ class Knob:
     default: str
     parse: Callable[[str], object]
     help: str
+    journal_key: str | None = None
 
 
 def _enum(*choices: str):
@@ -155,13 +170,13 @@ def _positive_float(raw: str) -> float:
 KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_DIRECTION", "enum", "auto", _enum("push", "pull", "auto"),
          "traversal body: force push or pull, or switch per superstep on the "
-         "alpha/beta thresholds"),
+         "alpha/beta thresholds", journal_key="direction"),
     Knob("BFS_TPU_TORCH_DIRECTION_ALPHA", "float", "14.0", _positive_float,
          "direction switch: enter pull when frontier out-edge mass * alpha "
-         "exceeds the unexplored mass"),
+         "exceeds the unexplored mass", journal_key="direction_alpha"),
     Knob("BFS_TPU_TORCH_DIRECTION_BETA", "float", "24.0", _positive_float,
          "direction switch: stay in pull while frontier occupancy * beta "
-         "exceeds n"),
+         "exceeds n", journal_key="direction_beta"),
     Knob("BFS_TPU_TORCH_LAYOUT_BUILD", "enum", "device", _enum("device", "host"),
          "relay layout builder of load_or_build_relay; host is the oracle, "
          "byte-identical"),
@@ -177,15 +192,16 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "mean-time-between-failures prior of the auto checkpoint interval"),
     Knob("BFS_TPU_TORCH_SSSP_DELTA", "spec", "64", _delta,
          "delta-stepping bucket width of sssp (int, or inf/single for plain "
-         "frontier Bellman-Ford); non-positive = one bucket"),
+         "frontier Bellman-Ford); non-positive = one bucket", journal_key="sssp_delta"),
     Knob("BFS_TPU_TORCH_TILES", "enum", "resident", _enum("resident", "stream", "auto"),
          "where the MXU arm's adjacency tiles live: on the card, streamed per "
-         "superblock from pinned host memory, or streamed when over the cache budget"),
+         "superblock from pinned host memory, or streamed when over the cache budget",
+         journal_key="tiles"),
     Knob("BFS_TPU_TORCH_TILES_BUILD", "enum", "device", _enum("device", "host"),
          "adjacency-tile builder; host is the numpy oracle, byte-identical"),
     Knob("BFS_TPU_TORCH_STREAM_CACHE_GB", "float", "1", _positive_float,
          "the streamed arm's device superblock cache budget (LRU, a single "
-         "oversized superblock allowed)"),
+         "oversized superblock allowed)", journal_key="stream_cache_gb"),
     Knob("BFS_TPU_TORCH_STREAM_VERIFY", "flag", "0", _flag,
          "fingerprint a streamed superblock again on every cache hit; a corrupt "
          "entry is dropped and fetched again"),
@@ -194,7 +210,7 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_LABELS", "spec", "off", _labels,
          "landmark distance-label tier: off | <K> landmark roots swept at the "
          "server's register(); point queries answer from labels where the "
-         "tightness certificate holds"),
+         "tightness certificate holds", journal_key="labels"),
     Knob("BFS_TPU_TORCH_LABELS_GB", "float", "2", _positive_float,
          "device budget of the resident label rows (uint16[K, V]); an index "
          "over it serves exact-only"),
@@ -206,6 +222,13 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "replica is routed around"),
     Knob("BFS_TPU_TORCH_ROUTER_COOLDOWN_S", "float", "2.0", _positive_float,
          "fleet router breaker cooldown before an opened replica is tried again"),
+    Knob("BFS_TPU_TORCH_JOURNAL", "flag", "1", _flag,
+         "run journal of the tools (graph500_run): completed phases are kept "
+         "and skipped when the run is made again; 0 disables"),
+    Knob("BFS_TPU_TORCH_JOURNAL_DIR", "path", "", _path,
+         "run-journal directory (default <cache root>/journal)"),
+    Knob("BFS_TPU_TORCH_SPANS", "flag", "1", _flag,
+         "phase spans (obs/spans.py); 0 disables"),
 )}
 
 
@@ -221,3 +244,10 @@ def get(name: str):
         return knob.parse(raw)
     except ValueError as err:
         raise ValueError(f"{name}={raw!r}: {err}") from None
+
+
+def journal_map() -> dict[str, str]:
+    """``{journal config key: knob name}`` of the knobs that carry a
+    ``journal_key``, sorted by key: the fields every run journal's config
+    holds (:func:`bfs_tpu_torch.resilience.journal.env_config`)."""
+    return dict(sorted((k.journal_key, k.name) for k in KNOBS.values() if k.journal_key))

@@ -611,6 +611,14 @@ class RelayEngine:
         check_sources(rg.num_vertices, source)
         return R.init_packed_relay_state(rg.vr, int(rg.old2new[source]), self.device)
 
+    def init_hot_state(self, source: int):
+        """The carry the engine's fused loop holds for a search from
+        ``source``: packed when :attr:`packed`, else unpacked (the bench
+        times the hot loop apart from it)."""
+        if self.packed:
+            return self.init_packed_state(source)
+        return self.init_state(source)
+
     def step(self, st: R.RelayState) -> R.RelayState:
         """One eager superstep of the unpacked carry, equal to
         :meth:`superstep`.  While ``level + 1`` fits the packed level field,

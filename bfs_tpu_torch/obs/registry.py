@@ -1,17 +1,22 @@
 """One process-global :class:`MetricsRegistry`: every counter behind one
 snapshot.  The port of ``bfs_tpu.obs.registry`` without the reference's
-retrace counters (the port compiles no traced programs).
+retrace counters: the port compiles no traced programs, so its snapshot,
+``to_json`` and ``to_prometheus`` take no ``retrace_baseline``.
 
 Free-form counters live here (``graph_evictions``, ``watchdog_timeouts``);
 every :class:`~bfs_tpu_torch.utils.metrics.ServeMetrics` registers itself
 at construction, weakly, so a dropped server is not kept alive by its
 metrics; :meth:`MetricsRegistry.snapshot` composes the counters, the
 artifact-cache counters, the span summary and every live server's report
-into one JSON-ready dict.
+into one JSON-ready dict; :func:`prometheus_text` renders it as
+Prometheus exposition text under the reference's ``bfs_tpu_`` prefix, so
+a dashboard scrapes either package under the same names.
 """
 
 from __future__ import annotations
 
+import json
+import re
 import threading
 import weakref
 
@@ -62,6 +67,12 @@ class MetricsRegistry:
             "serve": self._serve_reports(),
         }
 
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), indent=2, sort_keys=True)
+
+    def to_prometheus(self) -> str:
+        return prometheus_text(self.snapshot())
+
 
 _REGISTRY_LOCK = threading.Lock()
 _REGISTRY: list[MetricsRegistry] = []  # guarded by _REGISTRY_LOCK
@@ -73,3 +84,45 @@ def get_registry() -> MetricsRegistry:
         if not _REGISTRY:
             _REGISTRY.append(MetricsRegistry())
         return _REGISTRY[0]
+
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def _prom_name(*parts: str) -> str:
+    name = "_".join(_NAME_RE.sub("_", str(p)).strip("_") for p in parts if p != "")
+    return f"bfs_tpu_{name}"
+
+
+def _flatten(prefix: tuple, obj, out: list) -> None:
+    if isinstance(obj, bool):
+        out.append((_prom_name(*prefix), int(obj)))
+    elif isinstance(obj, (int, float)):
+        out.append((_prom_name(*prefix), obj))
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _flatten(prefix + (str(k),), v, out)
+    elif isinstance(obj, (list, tuple)):
+        # A list is indexed (serve reports nest one dict a server); a leaf
+        # that is not a number or a dict is not a gauge.
+        for i, v in enumerate(obj):
+            if isinstance(v, (dict, int, float)) and not isinstance(v, bool):
+                _flatten(prefix + (str(i),), v, out)
+
+
+def prometheus_text(snapshot: dict) -> str:
+    """Prometheus exposition text (untyped gauges) of a snapshot dict: its
+    numeric leaves as ``bfs_tpu_<path> <value>`` lines, names sanitized to
+    the metric charset, the first of duplicate names kept, other leaves
+    skipped."""
+    gauges: list[tuple[str, float]] = []
+    _flatten((), snapshot, gauges)
+    lines = []
+    seen = set()
+    for name, value in gauges:
+        if name in seen:
+            continue
+        seen.add(name)
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {value}")
+    return "\n".join(lines) + "\n"

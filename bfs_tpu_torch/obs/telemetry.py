@@ -199,3 +199,22 @@ def stream_report(levels: list, *, budget_bytes: int, store: dict, cache: dict) 
         **totals,
         "cache": dict(cache),
     }
+
+
+def render_curve_ascii(curve: dict, width: int = 50) -> str:
+    """A level curve as a terminal bar chart (``python -m bfs_tpu_torch.obs
+    curve``)."""
+    occ = curve.get("occupancy", [])
+    if not occ:
+        return "(empty level curve)"
+    peak = max(occ)
+    lines = [
+        f"level curve: {curve.get('reachable', sum(occ))} reachable over "
+        f"{curve.get('levels', len(occ))} levels"
+    ]
+    for lvl, n in enumerate(occ):
+        bar = "#" * max(1 if n else 0, round(width * n / peak)) if peak else ""
+        lines.append(f"  L{lvl:>3} {n:>12,d} {bar}")
+    if curve.get("truncated"):
+        lines.append(f"  (deeper levels clamped into slot {TEL_SLOTS - 1})")
+    return "\n".join(lines)

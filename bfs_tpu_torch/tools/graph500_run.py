@@ -17,16 +17,20 @@ reals; validation is the repo's oracle gate (the device checks on every
 root, host Dijkstra and the canonical BFS on the first), not the spec's
 five-clause validator.
 
-Every run is fresh: the reference's run journal (completed scales skipped
-on a re-run) is not ported yet, so ``--no-journal`` is the only behaviour
-and the flag is accepted for the reference's command lines.  ``--capture``
-appends the bench JSONL metric lines (``{"metric", "value", "unit",
-"vs_baseline", "details"}``).
+A run keeps a :class:`~bfs_tpu_torch.resilience.journal.RunJournal` under
+:func:`~bfs_tpu_torch.config.journal_dir` (``BFS_TPU_TORCH_JOURNAL_DIR``),
+keyed by its arguments, the device and the journal knobs: a scale the
+journal already completed is not run again, and its stored document is
+printed again.  The spans of each scale it runs go into the journal too
+(``python -m bfs_tpu_torch.obs trace <journal>`` stitches them).
+``--no-journal`` or ``BFS_TPU_TORCH_JOURNAL=0`` runs every scale afresh.
+``--capture`` appends the bench JSONL metric lines (``{"metric", "value",
+"unit", "vs_baseline", "details"}``).
 
 Usage::
 
     python -m bfs_tpu_torch.tools.graph500_run --scales 8,10 --roots 8 \
-        --capture graph500.jsonl [--device cpu]
+        --capture graph500.jsonl [--device cpu] [--no-journal]
 """
 
 from __future__ import annotations
@@ -38,8 +42,16 @@ import time
 
 import numpy as np
 
+from ..obs.spans import span
+
 #: Official stat order for the time/nedge blocks.
 _QSTATS = ("min", "firstquartile", "median", "thirdquartile", "max")
+#: The official order of a kernel's statistics block (a journaled document
+#: comes back with its keys sorted).
+_STAT_ORDER = (
+    *(f"{q}_{m}" for m in ("time", "nedge") for q in (*_QSTATS, "mean", "stddev")),
+    *(f"{q}_TEPS" for q in (*_QSTATS, "harmonic_mean", "harmonic_stddev")),
+)
 
 
 def _quartiles(x: np.ndarray) -> dict:
@@ -102,8 +114,8 @@ def format_output(scale: int, edgefactor: int, nbfs: int, gen_s: float,
     ]
     for kernel, stats in blocks.items():
         lines.append(f"{kernel} validation: PASSED")
-        for key, val in stats.items():
-            lines.append(f"{kernel}  {key}: {val:.6g}")
+        for key in sorted(stats, key=_STAT_ORDER.index):
+            lines.append(f"{kernel}  {key}: {stats[key]:.6g}")
     return "\n".join(lines) + "\n"
 
 
@@ -131,10 +143,27 @@ def traversed_edges(graph, dist: np.ndarray) -> int:
 
 
 def run_scale(scale: int, *, edgefactor: int, nbfs: int, seed: int, max_weight: int,
-              device=None) -> dict:
+              device=None, jr=None) -> dict:
     """Generate, construct, run BFS and SSSP over the sampled roots and
-    return the result document.  The device checks run on every root, the
-    host oracles on the first; a failed check exits non-zero."""
+    return the result document, or the document ``jr`` (a RunJournal)
+    already holds for this scale.  The device checks run on every root,
+    the host oracles on the first; a failed check exits non-zero."""
+    phase = f"scale:{scale}"
+    if jr is not None:
+        done = jr.get(phase)
+        if done is not None:
+            print(f"[graph500] scale {scale}: journal hit, skipping re-run", file=sys.stderr)
+            return done
+    with span("graph500.scale", scale=scale):
+        doc = _run_scale(scale, edgefactor=edgefactor, nbfs=nbfs, seed=seed,
+                         max_weight=max_weight, device=device)
+    if jr is not None:
+        jr.put(phase, doc)
+    return doc
+
+
+def _run_scale(scale: int, *, edgefactor: int, nbfs: int, seed: int, max_weight: int,
+               device) -> dict:
     from ..algo import edge_weights_np, sssp
     from ..graph.csr import Graph, build_device_graph
     from ..graph.generators import rmat_edges
@@ -143,11 +172,13 @@ def run_scale(scale: int, *, edgefactor: int, nbfs: int, seed: int, max_weight: 
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    edges = rmat_edges(scale, edgefactor, seed=seed)
+    with span("graph500.generate", scale=scale):
+        edges = rmat_edges(scale, edgefactor, seed=seed)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    graph = Graph.from_undirected_edges(1 << scale, edges.astype(np.int32))
-    dg = build_device_graph(graph)
+    with span("graph500.construct", scale=scale):
+        graph = Graph.from_undirected_edges(1 << scale, edges.astype(np.int32))
+        dg = build_device_graph(graph)
     con_s = time.perf_counter() - t0
     roots = sample_roots(graph, nbfs, seed)
     weights = edge_weights_np(graph.src, graph.dst, max_weight)
@@ -236,19 +267,40 @@ def main(argv=None) -> int:
     ap.add_argument("--capture", default=None,
                     help="append bench-ledger JSONL metric lines here")
     ap.add_argument("--no-journal", action="store_true",
-                    help="no run journal (the only behaviour: every run is fresh)")
+                    help="skip the run journal (fresh run, no resume)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
 
+    from .. import knobs
+    from ..models.bfs import resolve_device
+    from ..obs.spans import journal_spans
+
     scales = [int(s) for s in str(args.scales).split(",") if s.strip()]
+    device = resolve_device(args.device)
+    jr = None
+    if not args.no_journal and knobs.get("BFS_TPU_TORCH_JOURNAL"):
+        from ..config import journal_dir
+        from ..resilience.journal import RunJournal, env_config
+
+        # The package and the device key the journal too: a document
+        # measured elsewhere is never printed as this run's.
+        cfg = {
+            "tool": "graph500_run", "package": "bfs_tpu_torch", "device": device.type,
+            "scales": scales, "edgefactor": args.edgefactor, "roots": args.roots,
+            "seed": args.seed, "max_weight": args.max_weight, "env": env_config(),
+        }
+        jr = RunJournal.open_for(journal_dir(), cfg)
     blocks_text = []
     lines = []
     for scale in scales:
+        hit = jr is not None and jr.get(f"scale:{scale}") is not None
         doc = run_scale(
             scale, edgefactor=args.edgefactor, nbfs=args.roots,
-            seed=args.seed, max_weight=args.max_weight, device=args.device,
+            seed=args.seed, max_weight=args.max_weight, device=device, jr=jr,
         )
+        if not hit:  # the spans of the scale just run, kept if the run dies later
+            journal_spans(jr)
         text = format_output(
             doc["scale"], doc["edgefactor"], doc["nbfs"],
             doc["graph_generation"], doc["construction_time"],
@@ -258,6 +310,8 @@ def main(argv=None) -> int:
         lines.extend(capture_lines(doc))
         sys.stdout.write(text)
         sys.stdout.flush()
+    if jr is not None:
+        jr.close()
     if args.out:
         with open(args.out, "w") as fh:
             fh.write("\n".join(blocks_text))

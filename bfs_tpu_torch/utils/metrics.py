@@ -214,3 +214,6 @@ class ServeMetrics:
             counters, "result_cache_hits", "result_cache_misses")
         out["artifact_caches"] = artifact_report()
         return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.report(), indent=2, sort_keys=True)

@@ -55,7 +55,7 @@ The multi-source path follows on the same graph:
 call builds the route index through the element-major Beneš kernels (K5),
 then timed (one ``elem_frontier_interleave``, one ``elem_route_gather`` and
 one ``elem_rowmin_update`` per superstep, no K5 launch), traced, and every tree checked against the port's
-single-source search (and four against the oracle); then the route index
+single-source search (and two against the oracle); then the route index
 against the one the plain networks build, and every element-major kernel
 against its plain version at the layout's real shapes.  The push and pull
 engines follow on the same graph: their layouts built on the host (timed),
@@ -149,7 +149,9 @@ with no capture; ``registry_sssp`` and ``registry_cc`` (push and pull) twice
 each on the serve phase's registry; at R-MAT scale 15 SSSP packed16 against
 unpacked against the heapq ``dijkstra`` and CC against
 ``union_find_labels``; ``path_graph(600)`` through the truncation fallback;
-and ``graph500_run.main`` at scale 16.  Every run's control steps are held
+and ``graph500_run.main`` at scale 16 twice on one run journal (the second
+skips the scale), with the ``trace`` of ``python -m bfs_tpu_torch.obs``
+stitching the first run's spans.  Every run's control steps are held
 to its supersteps issued and added to the ``loop_control`` row.
 
 The streamed MXU arm (``bfs_tpu_torch.stream``) closes the s22 part, once
@@ -177,9 +179,17 @@ against the batch's trees, the method and landmark against the certificate
 and the device bounds against ``host_label_bounds``, paths walked on the host
 CSR, sampled verification, a budget reject, and the latency of a label
 answer idle and behind a running pull tick of 32, and of an exact answer;
-then ``FleetRouter(replicas=2)`` warm-hitting that sidecar, 4 threads of
+then the load generator's fleet mode (``bfs_tpu_torch.tools.
+serve_loadgen.run_fleet``) on ``FleetRouter(replicas=2)`` warm-hitting
+that sidecar, 4 threads of
 single-source and point queries with a rolling re-register mid-load, a
-replica closed directly (failover), and every replica killed.
+replica closed directly (failover), and every replica killed.  Between
+the server and the label tier, the load generator's classic mode
+(``loadgen_phase``) runs on a relay server: buckets 1–32 warmed, then 200
+requests from 8 threads, every reply against the batch's trees, a steady
+executable-cache hit rate of 1.0, and the relay kernels' launches held to
+the supersteps the ticks issued; the metrics registry's Prometheus text
+is parsed line by line after the server phase.
 
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
@@ -1263,7 +1273,9 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         f"{lock_run['loop_s']:.6f} s, results {lock_run['result_s']:.6f} s), {lock_run['issued']} "
         f"supersteps issued, launches {lock_launches}; all {trees} trees of both batches equal "
         f"the port's single-source RelayEngine.run bit for bit ({time.perf_counter() - t0:.1f} s)")
-    for i in (0, 31, 32, trees - 1):  # bit 0 and bit 31 of both groups
+    # The first tree of the first group and the last of the second (every
+    # tree is held against run and the DeviceChecker above).
+    for i in (0, trees - 1):
         s = int(sources[i])
         dist, parent = P.canonical_bfs(g, s)
         if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
@@ -1271,7 +1283,7 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         violations = P.check(g, res.dist[i], res.parent[i], s)
         if violations:
             raise AssertionError(f"tree {i}: check() violations {violations[:3]}")
-    log("trees 0, 31, 32, 63: oracle-exact, check() clean")
+    log(f"trees 0 and {trees - 1}: oracle-exact, check() clean")
     return dict(launches={k: first[k] for k in ELEM_REPLACES}, lock_launches=lock_launches,
                 lock_s=lock_s, lock_run=lock_run, secs=secs, eager_secs=esecs, levels=level,
                 peak=peak,
@@ -1424,14 +1436,12 @@ def lockstep_phase(label: str, eng, g, sources, sizes, per_step: dict, expect: s
             s = int(top["sources"][i])
             dist, parent = oracle[s]
             res = top["result"]
+            # check() passed on these canonical trees in the main path.
             if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
                 raise AssertionError(f"{label} S={S}: tree {i} (source {s}) differs from "
                                      "canonical_bfs")
-            violations = P.check(g, res.dist[i], res.parent[i], s)
-            if violations:
-                raise AssertionError(f"{label} S={S}: tree {i}: check() violations {violations[:3]}")
             verify(f"{label} S={S} tree {i}", res.dist[i], res.parent[i], s)
-        log(f"{label} S={S}: trees 0 and 1 oracle-exact, check() and the DeviceChecker clean")
+        log(f"{label} S={S}: trees 0 and 1 oracle-exact, the DeviceChecker clean")
     idle = device_trace(f"{label} S={S}, captured", lambda: eng.run_multi(top["sources"]),
                         top["secs"], expect)
     return dict(rows=rows, launches=launched, idle=idle)
@@ -1957,7 +1967,8 @@ def mxu_main_path(meng, g, roots, want: dict, directed_traversed: int, K, P, L) 
     """The MXU arm's main path: ``RelayEngine(expansion="mxu").run`` for
     the 4 roots on the block loop against the eager loop
     (:func:`loop_phase`), each result against ``canonical_bfs`` and the
-    gather arm's (``want``), ``check()`` clean; then its block size table."""
+    gather arm's (``want``, whose trees passed ``check()``), the
+    DeviceChecker clean; then its block size table."""
     import numpy as np
 
     mxu = loop_phase("mxu search", meng, roots, MXU_STEP, "mxu_expand", K, L)
@@ -1970,13 +1981,11 @@ def mxu_main_path(meng, g, roots, want: dict, directed_traversed: int, K, P, L) 
                 raise AssertionError(f"mxu root {r}: result differs from {name}")
         if res.num_levels != gather.num_levels:
             raise AssertionError(f"mxu root {r}: {res.num_levels} levels, gather arm {gather.num_levels}")
-        violations = P.check(g, res.dist, res.parent, r)
-        if violations:
-            raise AssertionError(f"mxu root {r}: check() violations {violations[:3]}")
         verify(f"mxu root {r}", res.dist, res.parent, r)
     mean_s = mxu["mean"]["secs"]
-    log(f"mxu path: all {len(roots)} roots equal to canonical_bfs and the gather arm, check() "
-        f"clean; {directed_traversed / 2 / mean_s:.6g} undirected TEPS (captured loop mean)")
+    log(f"mxu path: all {len(roots)} roots equal to canonical_bfs and the gather arm, "
+        f"DeviceChecker clean; {directed_traversed / 2 / mean_s:.6g} undirected TEPS (captured "
+        "loop mean)")
     mxu["table"] = block_table("mxu search, 4 searches a run", lambda: searches(meng, roots), L, meng)
     return mxu
 
@@ -2378,6 +2387,18 @@ def level_sums(outdeg, dists, budgets: tuple[int, int] | None = None) -> dict:
     return sums
 
 
+ROOT_SUMS: dict = {}
+
+
+def root_sums(outdeg, want: dict, r: int, budgets: tuple[int, int] | None = None) -> dict:
+    """:func:`level_sums` of root ``r``'s oracle tree, computed once a root
+    and budgets (the hybrid arms and the streamed arm share them)."""
+    key = (r, budgets)
+    if key not in ROOT_SUMS:
+        ROOT_SUMS[key] = level_sums(outdeg, want[r][0][0][None], budgets)
+    return ROOT_SUMS[key]
+
+
 def host_schedule(sums: dict, mode: str, alpha: float, beta: float) -> list[str]:
     """The schedule the direction loop must take, recomputed with numpy from
     the oracle's per-level sums (:func:`level_sums`): the decisions by the
@@ -2433,7 +2454,7 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
 
     cfg = deng.config
     outdeg = np.bincount(g.src, minlength=g.num_vertices).astype(np.int64)
-    sums = {r: level_sums(outdeg, want[r][0][0][None]) for r in roots}
+    sums = {r: root_sums(outdeg, want, r) for r in roots}
     out = {"mean": {}, "schedules": {}}
     for mode in ("auto", "push", "pull"):
         deng.config = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
@@ -2649,7 +2670,7 @@ def hybrid_phase(heng, g, roots, want: dict, pull: dict, dense_s: float, K, D) -
     cfg = heng.direction
     per_step = MXU_STEP if arm == "mxu" else GATHER_STEP
     out = {"mean": {}, "schedules": {}, "split": {}}
-    sums = {r: level_sums(outdeg, want[r][0][0][None], budgets) for r in roots}
+    sums = {r: root_sums(outdeg, want, r, budgets) for r in roots}
     for mode in ("auto", "push"):
         heng.direction = D.DirectionConfig(mode, cfg.alpha, cfg.beta)
         expected = {r: host_schedule(sums[r], mode, cfg.alpha, cfg.beta) for r in roots}
@@ -3051,6 +3072,121 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K,
     return out
 
 
+# The classic load generator on the relay engine: a steady run of
+# LOADGEN_REQUESTS from LOADGEN_THREADS submitters once every bucket is warm.
+LOADGEN_REQUESTS = 200
+LOADGEN_THREADS = 8
+
+
+def loadgen_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> dict:
+    """The load generator's classic mode (``bfs_tpu_torch.tools.
+    serve_loadgen``) on ``BfsServer(engine="relay", max_batch=32,
+    tick_s=0.002, verify_sample=4)`` over a registry warm-loading the
+    script's bundle store: :func:`~serve_loadgen.warmup` of buckets 1–32
+    (lock-step ``run_multi`` below 32, ``run_multi_elem`` at 32, whose first
+    tick builds the route index), then :func:`~serve_loadgen.run_classic`
+    of ``LOADGEN_REQUESTS`` drawn from the 64-source batch at concurrency
+    ``LOADGEN_THREADS``.  Single and tree replies are held bit for bit
+    against the batch's trees, collapsed ones on ``dist`` against the
+    trees' minimum and on ``parent`` through the ``DeviceChecker``; the
+    steady hit rate must be 1.0, no tick degraded, and the relay kernels'
+    launches equal to the supersteps the steady ticks issued."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.serve import BfsServer, GraphRegistry
+    from bfs_tpu_torch.serve.executor import DEVICE_LOCK
+    from bfs_tpu_torch.tools import serve_loadgen as LG
+    from bfs_tpu_torch.utils.metrics import ServeMetrics
+
+    truth = LG.Truth(rows={int(s): (batch.dist[i], batch.parent[i])
+                           for i, s in enumerate(sources)})
+
+    def device_check(dist, parent, srcs):
+        with DEVICE_LOCK:  # the card's calls of other threads wait out a capture
+            return CHECKER["dc"].check(dist, parent, srcs)
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    metrics = ServeMetrics()
+    reg = GraphRegistry(layout_cache=P.LayoutCache(store), metrics=metrics)
+    out = {}
+    with BfsServer(reg, engine="relay", max_batch=32, tick_s=0.002, verify_sample=4,
+                   metrics=metrics) as srv:
+        srv.register("g", g)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        nwarm = LG.warmup(srv, "g", g.num_vertices, 32)
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t0
+        out["warm_launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+        warm = srv.tick_log()
+        if sorted(t["bucket"] for t in warm) != [1, 2, 4, 8, 16, 32] or not all(
+                built in out["warm_launches"] for built in ELEM_BUILD):
+            raise AssertionError(f"loadgen warm-up: ticks {warm}, launches {out['warm_launches']}")
+        if metrics.count("layout_disk_hits") != 1 or metrics.count("layout_disk_misses"):
+            raise AssertionError("loadgen: the relay layout was not a warm bundle hit")
+        log(f"loadgen warm-up: {nwarm} queries, buckets 1-32 in {out['warm_s']:.3f} s (relay "
+            f"layout a warm bundle hit); launches {out['warm_launches']}")
+        rng = np.random.default_rng(seed + 23)
+        queries = LG.make_queries(rng, sources, LOADGEN_REQUESTS)
+        K.reset_launches()
+        res = LG.run_classic(srv, "g", queries, truth=truth, check=device_check,
+                             concurrency=LOADGEN_THREADS)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+    why = LG.failures(res)
+    counters = res["server_report"]["counters"]
+    degraded = {k: counters.get(k, 0) for k in SERVE_DEGRADED if counters.get(k, 0)}
+    if why or degraded or any(t["status"] != "ok" for t in res["ticks"]):
+        raise AssertionError(f"loadgen: {why}, degraded {degraded}")
+    lock_steps = sum(t["issued"] for t in res["ticks"] if t["bucket"] % 32)
+    elem_steps = sum(t["issued"] for t in res["ticks"] if not t["bucket"] % 32)
+    want = {k: GATHER_STEP[k] * lock_steps for k in SERVE_RELAY_STEP}
+    want.update(elem_route_gather=elem_steps, elem_rowmin_update=elem_steps,
+                loop_control=lock_steps + elem_steps)
+    if launched != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"loadgen: launches {launched}, expected {want} for {lock_steps} "
+                             f"lock-step and {elem_steps} element-major supersteps")
+    kinds = {m: sum(q[1] == m for q in queries) for m in ("single", "collapse", "tree")}
+    out.update(res=res, launches=launched, wall_s=time.perf_counter() - t_phase)
+    log(f"loadgen classic (relay, max_batch 32, tick 2 ms, verify 1 in 4; R-MAT scale "
+        f"{int(np.log2(g.num_vertices))}, {card}): {res['requests']} requests {kinds} from "
+        f"{LOADGEN_THREADS} threads, every reply checked, 0 wrong; {res['queries_per_sec']:.3f} "
+        f"queries/s, p50 {res['latency_p50_ms']:.3f} ms, p99 {res['latency_p99_ms']:.3f} ms over "
+        f"{res['steady_seconds']:.3f} s; steady executable-cache hit rate "
+        f"{res['steady_compile_hit_rate']:.4f}; integrity checks "
+        f"{counters.get('integrity_checks', 0)}, failures {res['integrity_failures']}; ticks "
+        f"{res['ticks_by_bucket']} (service {sum(t['service_s'] for t in res['ticks']):.3f} s "
+        f"and fan-out {sum(t['fanout_s'] for t in res['ticks']):.3f} s in all, the checks "
+        f"{res['check_seconds']:.3f} s over the threads); launches {launched} = per superstep "
+        f"x {lock_steps} lock-step + {elem_steps} element-major supersteps issued; phase "
+        f"{out['wall_s']:.3f} s")
+    del reg
+    torch.cuda.empty_cache()
+    return out
+
+
+def prometheus_check() -> int:
+    """The process registry's Prometheus text (``to_prometheus``): every
+    sample line ``bfs_tpu_<name> <number>`` behind its ``# TYPE`` line.
+    Returns the line count."""
+    import re
+
+    from bfs_tpu_torch.obs.registry import get_registry
+
+    lines = get_registry().to_prometheus().splitlines()
+    if not lines or len(lines) % 2:
+        raise AssertionError(f"prometheus text: {len(lines)} lines")
+    for head, sample in zip(lines[::2], lines[1::2]):
+        name, _, value = sample.partition(" ")
+        if head != f"# TYPE {name} gauge" or not re.fullmatch(r"bfs_tpu_[a-zA-Z0-9_]+", name):
+            raise AssertionError(f"prometheus text: {head!r} / {sample!r}")
+        float(value)
+    log(f"prometheus text of the metrics registry: {len(lines)} lines, {len(lines) // 2} "
+        "gauges, every one parsed")
+    return len(lines)
+
+
 # Landmark labels: one DEFAULT_CHUNK of roots; 2^22 x 64 x 2 B = 512 MiB of
 # rows on the card at s22, under the default 2 GiB budget.
 LABELS_K = 64
@@ -3327,23 +3463,23 @@ def labels_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> d
 
 
 def fleet_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> dict:
-    """``FleetRouter(replicas=2, engine="pull", max_batch=32)`` over the
+    """The load generator's fleet mode (``serve_loadgen.run_fleet``) on
+    ``FleetRouter(replicas=2, engine="pull", max_batch=32)`` over the
     script's bundle store with labels at 64: the rolling register (both
-    replicas warm-hit the sidecar ``labels_phase`` left), 4 threads sending
-    the batch's 64 sources as routed single-source queries and
-    ``FLEET_POINTS`` point queries, a rolling re-register after the first
-    half (the second half is the steady part), replica 1 closed directly
-    and ``FLEET_FAILOVER`` tree queries of 2 of the batch's sources routed
-    around it, then both replicas killed.  Every answer is held against
-    the batch's trees; the control kernel's launches against the
-    supersteps the replicas' ticks issued."""
-    import threading
-
+    replicas warm-hit the sidecar ``labels_phase`` left), the batch's 64
+    sources as routed single-source queries and ``FLEET_POINTS`` point
+    queries in one shuffled mix from 4 threads with a rolling re-register
+    at its half, then replica 1 closed directly and ``FLEET_FAILOVER`` more
+    requests of the same kinds routed around it, then both replicas
+    killed.  Every answer is held against the batch's trees; the control
+    kernel's launches against the supersteps the replicas' ticks issued."""
     import numpy as np
     import torch
     from bfs_tpu_torch.serve import FleetRouter, NoReplicaAvailable
+    from bfs_tpu_torch.tools import serve_loadgen as LG
 
-    truth = {int(s): (batch.dist[i], batch.parent[i]) for i, s in enumerate(sources)}
+    truth = LG.Truth(rows={int(s): (batch.dist[i], batch.parent[i])
+                           for i, s in enumerate(sources)})
     srcs = [int(s) for s in sources]
     rng = np.random.default_rng(seed + 20)
     t_phase = time.perf_counter()
@@ -3364,84 +3500,34 @@ def fleet_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> di
                         c.get("label_build_errors", 0) or c.get("label_budget_rejects", 0):
                     raise AssertionError(f"fleet: replica {i} did not warm-hit the sidecar: {c}")
             log(f"fleet: rolling register on 2 replicas in {out['register_s']:.3f} s, both sidecar hits")
-            # ---- load: 4 threads, a rolling re-register after the first half
+            points = zip(rng.choice(np.asarray(sources), FLEET_POINTS).tolist(),
+                         rng.integers(0, g.num_vertices, FLEET_POINTS).tolist())
+            mix = [("full", s, -1) for s in srcs] + [("point", a, b) for a, b in points]
+            mix = [mix[i] for i in rng.permutation(len(mix))]
+            chaos = LG.fleet_mix(rng, sources, FLEET_FAILOVER, point_frac=FLEET_POINTS / len(mix),
+                                 num_vertices=g.num_vertices)
             K.reset_launches()
-            points = list(zip(rng.choice(np.asarray(sources), FLEET_POINTS).tolist(),
-                              rng.integers(0, g.num_vertices, FLEET_POINTS).tolist()))
-            work = [("single", s) for s in srcs] + [("point", p) for p in points]
-            order = rng.permutation(len(work))
-            work = [work[i] for i in order]
-            half = len(work) // 2
-            sent: list = []  # (half, kind, arg, t_submit, future, t_done holder)
-            sent_lock = threading.Lock()
-            first_half = threading.Barrier(5)
-            swapped = threading.Event()
-
-            def send(items, part):
-                for kind, arg in items:
-                    t = time.perf_counter()
-                    f = rt.query("g", arg) if kind == "single" else rt.query_dist("g", *arg)
-                    done = []
-                    f.add_done_callback(lambda _f, done=done: done.append(time.perf_counter()))
-                    with sent_lock:
-                        sent.append((part, kind, arg, t, f, done))
-
-            def worker(w):
-                send(work[w:half:4], 0)
-                first_half.wait()
-                swapped.wait()
-                send(work[half + w::4], 1)
-
-            threads = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
-            for t in threads:
-                t.start()
-            first_half.wait()
-            t0 = time.perf_counter()
-            rt.register("g", g)  # mid-load: the first half is in flight
-            out["swap_s"] = time.perf_counter() - t0
-            swapped.set()
-            for t in threads:
-                t.join()
-            lat = {0: [], 1: []}
-            for part, kind, arg, t, f, done in sent:
-                r = f.result(600)
-                if kind == "single":
-                    if not (np.array_equal(r.dist, truth[arg][0])
-                            and np.array_equal(r.parent, truth[arg][1])):
-                        raise AssertionError(f"fleet: reply of {arg} differs from the batch")
-                elif r.dist != int(truth[arg[0]][0][arg[1]]):
-                    raise AssertionError(f"fleet: dist{arg} = {r.dist} by {r.method}")
-                lat[part].append(done[0] - t)
-            steady = [x for x in sent if x[0] == 1]
-            span = max(x[5][0] for x in steady) - min(x[3] for x in steady)
-            out["qps"] = len(steady) / span
-            out["steady"] = lat[1]
-            ticks = [t for srv in rt.servers for t in srv.tick_log()]
-            issued = sum(t["issued"] for t in ticks)
+            res = LG.run_fleet(rt, "g", g, mix, truth=truth, concurrency=4, swap_at=len(mix) // 2,
+                               chaos_mix=chaos)
+            torch.cuda.synchronize()
+            issued = sum(t["issued"] for t in res["ticks"])
+            why = LG.failures(res)
+            if why or res["router_failovers"] < 1:
+                raise AssertionError(f"fleet: {why}; failovers {res['router_failovers']}")
             if {k: n for k, n in K.LAUNCHES.items() if n} != {"loop_control": issued}:
                 raise AssertionError(f"fleet: launches {dict(K.LAUNCHES)} in {issued} supersteps")
-            out["launches"] = issued
-            busy = sum(t["service_s"] for t in ticks)
-            log(f"fleet: {len(sent)} routed queries ({len(srcs)} single-source, {FLEET_POINTS} point), "
-                f"every answer equal to the batch's trees; rolling re-register mid-load "
-                f"{out['swap_s']:.3f} s; steady half {len(steady)} queries, {out['qps']:.3f} queries/s, "
-                f"{pcts(lat[1])} (first half {pcts(lat[0])}); {len(ticks)} ticks on 2 replicas, "
-                f"service {busy:.3f} s in all, one at a time on the card's lock")
-            # ---- replica 1 closed directly: failover, no answer lost
-            rt.servers[1].close()
-            futs = []
-            for _ in range(FLEET_FAILOVER):
-                pair = [int(s) for s in rng.choice(np.asarray(sources), 2, replace=False)]
-                futs.append((pair, rt.submit("g", pair, mode="tree")))
-            for pair, f in futs:
-                r = f.result(600)
-                for j, s in enumerate(pair):
-                    if not (np.array_equal(r.dist[j], truth[s][0])
-                            and np.array_equal(r.parent[j], truth[s][1])):
-                        raise AssertionError(f"fleet: tree reply {pair} differs after failover")
-            router = rt.report()["router"]
-            if router.get("router_failovers", 0) < 1:
-                raise AssertionError(f"fleet: no failover observed: {router}")
+            out.update(res=res, launches=issued)
+            busy = sum(t["service_s"] for t in res["ticks"])
+            log(f"fleet: {len(mix)} routed queries ({len(srcs)} single-source, {FLEET_POINTS} "
+                f"point) from 4 threads, every answer equal to the batch's trees; rolling "
+                f"re-register mid-load {res['epoch_swap_seconds']:.3f} s; "
+                f"{res['queries_per_sec']:.3f} queries/s, p50 {res['latency_p50_ms']:.3f} ms, "
+                f"p99 {res['latency_p99_ms']:.3f} ms over {res['steady_seconds']:.3f} s; "
+                f"replica 1 closed: {res['chaos_requests']} more requests, all exact, p99 "
+                f"{res['chaos_latency_p99_ms']:.3f} ms, {res['router_failovers']} failovers; "
+                f"labels {res['labels']}; {len(res['ticks'])} ticks on 2 replicas, service "
+                f"{busy:.3f} s in all, one at a time on the card's lock; loop_control {issued} "
+                "= supersteps issued")
             # ---- terminal: every replica dead
             rt.kill_replica(0)
             rt.kill_replica(1)
@@ -3458,9 +3544,8 @@ def fleet_phase(P, g, store: str, sources, batch, seed: int, K, card: str) -> di
         del os.environ["BFS_TPU_TORCH_LABELS"]
     out["peak"] = torch.cuda.max_memory_allocated() - base
     out["wall_s"] = time.perf_counter() - t_phase
-    log(f"fleet: {FLEET_FAILOVER} tree queries with replica 1 closed, all exact; every replica "
-        f"killed: NoReplicaAvailable; router {out['router']}; device memory peak {out['peak']} "
-        f"bytes; phase {out['wall_s']:.3f} s ({card})")
+    log(f"fleet: every replica killed: NoReplicaAvailable; router {out['router']}; device "
+        f"memory peak {out['peak']} bytes; phase {out['wall_s']:.3f} s ({card})")
     del rt
     torch.cuda.empty_cache()
     return out
@@ -3759,7 +3844,7 @@ ALGO_SMALL_SCALE = 15
 # ALGO_KILL and is resumed.
 ALGO_EPOCHS = 8
 ALGO_KILL = 2
-GRAPH500_ARGS = ["--scales", "16", "--roots", "4", "--no-journal"]
+GRAPH500_ARGS = ["--scales", "16", "--roots", "4"]
 
 
 def algo_bytes(eng, kind: str) -> int:
@@ -3835,7 +3920,8 @@ def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
     delta captures its loop, the second root's and every timed run capture
     nothing) and on the eager loop, equal bit for bit with the same
     rounds; ``check_sssp`` (the complete host certificate, canonical parents
-    included) and ``sssp_device_check`` clean; both deltas equal.  Then one
+    included) clean at the default delta, the ``delta=inf`` result equal to
+    it bit for bit; ``sssp_device_check`` clean on all three.  Then one
     superstep's device time beside its byte bound."""
     import numpy as np
 
@@ -3869,7 +3955,13 @@ def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
                 and res.rounds == eager.rounds):
             raise AssertionError(f"{label}: the captured loop differs from the eager loop")
         t0 = time.perf_counter()
-        violations = check_sssp(g, w_host, res.dist, res.parent, r)
+        if delta == "inf":  # the host certificate holds for the default delta's equal result
+            a = results[(r, None)]
+            if not (np.array_equal(a.dist, res.dist) and np.array_equal(a.parent, res.parent)):
+                raise AssertionError(f"sssp root {r}: delta 64 and inf differ")
+            violations = []
+        else:
+            violations = check_sssp(g, w_host, res.dist, res.parent, r)
         host_s = time.perf_counter() - t0
         if violations:
             raise AssertionError(f"{label}: check_sssp {violations[:3]}")
@@ -3886,7 +3978,8 @@ def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
             f"results and parents {run['result_s']:.6f} s), {res.rounds} rounds, supersteps "
             f"issued {run['issued']}, replays {run['replays']}, host reads {run['host_reads']}; "
             f"eager {eager_s:.6f} s, equal bit for bit; {rows[-1]['reached']} reached, max dist "
-            f"{int(res.dist[res.dist != INF_DIST].max())}; check_sssp clean ({host_s:.2f} s), "
+            f"{int(res.dist[res.dist != INF_DIST].max())}; "
+            f"{'equal to the default delta' if delta else 'check_sssp clean'} ({host_s:.2f} s), "
             "sssp_device_check clean")
     a, b = results[(roots[0], None)], results[(roots[0], "inf")]
     if not (np.array_equal(a.dist, b.dist) and np.array_equal(a.parent, b.parent)):
@@ -4058,12 +4151,13 @@ def algo_registry_phase(reg, root: int, sssp_want, cc_want, K, L, card: str) -> 
     return dict(rows=rows, launches=launches)
 
 
-def algo_small_checks(P, generators, K, L) -> dict:
+def algo_small_checks(P, generators, K, L, store: str) -> dict:
     """SSSP at R-MAT scale ALGO_SMALL_SCALE on the card: packed16 against
     unpacked, bit-identical with the same rounds, both equal to the heapq
     ``dijkstra``; CC push against ``union_find_labels``; ``path_graph(600)``
     at weight 255 through the truncation fallback; then
-    ``graph500_run.main`` at a small scale, exit 0."""
+    ``graph500_run.main`` at a small scale with its journal
+    (:func:`graph500_journal_check`)."""
     import numpy as np
 
     from bfs_tpu_torch.algo import cc, edge_weights_np, sssp
@@ -4101,14 +4195,65 @@ def algo_small_checks(P, generators, K, L) -> dict:
         f"push {labels.rounds} rounds equal to union_find_labels; path_graph(600) at weight 255: "
         f"the clamp fired, re-run unpacked ({trunc.rounds} rounds), equal to dijkstra")
     del eng
-    t0 = time.perf_counter()
-    rc = graph500_run.main(GRAPH500_ARGS)
-    g500_s = time.perf_counter() - t0
+    return dict(rounds=packed.rounds, **graph500_journal_check(graph500_run, store))
+
+
+def graph500_journal_check(graph500_run, store: str) -> dict:
+    """``graph500_run.main`` twice on a journal directory under ``store``
+    (``BFS_TPU_TORCH_JOURNAL_DIR``): the first run journals its scale and
+    its spans, the second skips every scale (it prints the same blocks,
+    and the journal file does not change); then the ``trace`` command of
+    ``python -m bfs_tpu_torch.obs`` (its ``main``, in this process) on the
+    journal, whose trace must hold the first run's spans."""
+    import contextlib
+    import io
+
+    from bfs_tpu_torch.obs import __main__ as obs_cli
+    from bfs_tpu_torch.obs import spans
+    from bfs_tpu_torch.resilience.journal import read_records
+
+    jdir = os.path.join(store, "journal")
+    os.environ["BFS_TPU_TORCH_JOURNAL_DIR"] = jdir
+    try:
+        spans.drain_events()  # the journal holds this run's spans alone
+        runs = []
+        for _ in range(2):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = graph500_run.main(GRAPH500_ARGS)
+            runs.append((rc, time.perf_counter() - t0, buf.getvalue()))
+            if rc != 0:
+                raise AssertionError(f"graph500_run.main({GRAPH500_ARGS}) exited {rc}")
+            if len(runs) == 1:
+                (path,) = [os.path.join(jdir, f) for f in os.listdir(jdir)]
+                size = os.path.getsize(path)
+    finally:
+        del os.environ["BFS_TPU_TORCH_JOURNAL_DIR"]
+    recs = read_records(path)
+    phases = [r["phase"] for r in recs]
+    first = [e for r in recs if r["phase"].startswith("spans:") for e in r["payload"]["events"]]
+    scales = GRAPH500_ARGS[GRAPH500_ARGS.index("--scales") + 1].split(",")
+    want = [p for i, sc in enumerate(scales) for p in (f"scale:{sc}", f"spans:{i}")]
+    if runs[1][2] != runs[0][2] or os.path.getsize(path) != size or phases[1:] != want or not first:
+        raise AssertionError(f"graph500_run journal: phases {phases}, second run's output equal "
+                             f"{runs[1][2] == runs[0][2]}, file {size} -> {os.path.getsize(path)}")
+    out = os.path.join(store, "graph500.trace.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_cli.main(["trace", path, "-o", out])
     if rc != 0:
-        raise AssertionError(f"graph500_run.main({GRAPH500_ARGS}) exited {rc}")
-    log(f"graph500_run {' '.join(GRAPH500_ARGS)}: exit 0 in {g500_s:.2f} s (the device checks on "
-        "every root, the oracles on the first)")
-    return dict(rounds=packed.rounds, graph500_s=g500_s)
+        raise AssertionError(f"python -m bfs_tpu_torch.obs trace exited {rc}: {buf.getvalue()}")
+    with open(out) as f:
+        trace = json.load(f)["traceEvents"]
+    if trace != first or {e["pid"] for e in trace} != {os.getpid()} or not {
+            "graph500.scale", "graph500.generate", "graph500.construct"} <= {e["name"] for e in trace}:
+        raise AssertionError(f"obs trace: {len(trace)} events, names {sorted({e['name'] for e in trace})}")
+    log(f"graph500_run {' '.join(GRAPH500_ARGS)} with its journal: exit 0 in {runs[0][1]:.2f} s "
+        f"(the device checks on every root, the oracles on the first), journal {phases}; again: "
+        f"every scale skipped, the same blocks printed, the journal unchanged, {runs[1][1]:.2f} s; "
+        f"obs trace: {len(trace)} spans of the first run ({buf.getvalue().splitlines()[0]})")
+    return dict(graph500_s=runs[0][1], graph500_skip_s=runs[1][1])
 
 
 # ------------------------------------------------ beyond device memory --
@@ -4323,8 +4468,8 @@ def stream_phase(P, rg, g, roots, want: dict, dense: dict, resident_held: int, K
         ledger = seng.stream_report
         got = launched(ledger["levels"])
         same("stream auto", res, r)
-        expected = host_schedule(level_sums(outdeg, want[r][0][0][None], budgets), "auto",
-                                 cfg.alpha, cfg.beta)
+        expected = host_schedule(root_sums(outdeg, want, r, budgets), "auto", cfg.alpha,
+                                 cfg.beta)
         if curve["direction_schedule"]["schedule"] != expected:
             raise AssertionError(f"stream root {r}: schedule {curve['direction_schedule']} differs "
                                  f"from the host's {expected}")
@@ -4722,7 +4867,15 @@ def main(argv=None) -> int:
                                    algo["cc push"]["result"]))
     algo["registry"] = serve["algo"]
     ckpt["serve"] = serve["segmented"]
+    prom_lines = prometheus_check()
     mark("serve")
+    # ---- the load generator's classic mode on the relay engine, every
+    # bucket warm, its replies against the batch's trees
+    loadgen = loadgen_phase(P, g, store, sources, multi["result"], args.seed, K, card)
+    for part in (loadgen["warm_launches"], loadgen["launches"]):
+        for k, n in part.items():
+            launches[k] += n
+    mark("load generator")
     # ---- the landmark label tier, then the fleet router, on the same
     # graph: every reply against the batch's trees
     labels = labels_phase(P, g, store, sources, multi["result"], args.seed, K, card)
@@ -4759,7 +4912,7 @@ def main(argv=None) -> int:
     small_multi_checks(P, tiny)
     small_lockstep_checks(P, K)
     mark("small graphs")
-    algo["small"] = algo_small_checks(P, generators, K, L)
+    algo["small"] = algo_small_checks(P, generators, K, L, ckpt_store)
     mark("algorithms, small graphs and graph500_run")
     del rg
     shutil.rmtree(store)  # the bundle: memmapped pages stay valid until unmapped
@@ -4863,8 +5016,16 @@ def main(argv=None) -> int:
         f"{labels['tight_rate']:.4f}; a label answer idle {pcts(labels['idle'])}, behind a pull "
         f"tick of 32 {pcts(labels['behind'])}; an exact answer {pcts(labels['exact'])}; "
         f"label_bounds {labels['lookup_ms']:.4f} ms against {labels['lookup_bound_ms']:.6f} ms; "
-        f"fleet of 2: steady {fleet['qps']:.3f} queries/s, {pcts(fleet['steady'])}, phase "
-        f"{fleet['wall_s']:.3f} s, router {fleet['router']}")
+        f"fleet of 2 (load generator): {fleet['res']['queries_per_sec']:.3f} queries/s, p50 "
+        f"{fleet['res']['latency_p50_ms']:.3f} ms, p99 {fleet['res']['latency_p99_ms']:.3f} ms, "
+        f"phase {fleet['wall_s']:.3f} s, router {fleet['router']}")
+    lgr = loadgen["res"]
+    log(f"load generator, classic (relay, max_batch 32; R-MAT scale {args.scale}, {card}): "
+        f"{lgr['queries_per_sec']:.3f} queries/s, p50 {lgr['latency_p50_ms']:.3f} ms, p99 "
+        f"{lgr['latency_p99_ms']:.3f} ms over {lgr['requests']} requests, steady hit rate "
+        f"{lgr['steady_compile_hit_rate']:.4f}, ticks "
+        f"{ {k: v['ticks'] for k, v in lgr['ticks_by_bucket'].items()} }; warm-up "
+        f"{loadgen['warm_s']:.3f} s; prometheus text {prom_lines} lines")
     log(f"superstep checkpoints (R-MAT scale {args.scale}, {card}): relay every:{CKPT_EVERY}, "
         "fused / segmented s, epoch bytes, epoch writes s, carry copies s: " + "; ".join(
             f"{name} root {row['root']} {row['fused_s']:.6f} / {row['seg_s']:.6f}, "
