@@ -494,3 +494,97 @@ def verify_labels_bundle(graph, k: int, *, cache: LayoutCache | None = None) -> 
         "index_bytes": int(idx.nbytes),
         "device_bytes": int(idx.device_bytes),
     }
+
+
+# ---------------------------------------------------------------------------
+# The expansion probe's verdict memo (the reference's, beside its layout
+# bundles): ``probe_phase_kernels`` is a function of the layout's shapes, the
+# kernel and probe sources, the torch build, the card and the probe knobs,
+# so an engine over a layout already probed there reads the verdict back
+# instead of timing the arms again.  Verdicts are small JSON files.
+# ---------------------------------------------------------------------------
+
+#: Files whose bytes key the verdict: the kernels the probe times and the
+#: probe itself (an arm's code changed: probe again).
+_PROBE_SOURCES = (
+    "csrc/relay_kernels.cu", "csrc/relay_mxu_kernels.cu", "csrc/control.cuh", "csrc/tma.cuh",
+    "ops/relay.py", "ops/relay_cuda.py", "ops/relay_mxu.py", "profiling.py",
+)
+
+#: Knobs that key the verdict.
+_PROBE_ENV = ("BFS_TPU_TORCH_PHASE_PROBE",)
+
+
+def probe_verdict_key(eng) -> str:
+    """Content key of one engine's probe verdict: the relay layout's
+    geometry (the probe's operand shapes) and the carry, the tile
+    geometry ``(nt, vtp, rtp)`` when the engine counted tiles, the bytes of
+    :data:`_PROBE_SOURCES`, the torch and CUDA versions, the device's name
+    and the probe knobs."""
+    import torch
+
+    from ..utils.timing import device_name
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    h = hashlib.blake2b(digest_size=16)
+    for rel in _PROBE_SOURCES:
+        try:
+            with open(os.path.join(pkg, rel), "rb") as f:
+                h.update(f.read())
+        except OSError:
+            h.update(b"missing:" + rel.encode())
+    rg = eng.relay_graph
+    geo = (
+        rg.vr, rg.net_size, rg.vperm_size,
+        tuple((c.width, c.va, c.vb, c.sa, c.sb, c.vertex_major) for c in rg.in_classes),
+        bool(eng.packed),
+    )
+    tiles = getattr(eng, "tile_geometry", None)
+    if tiles is not None:
+        geo = geo + tuple(tiles)
+    h.update(repr(geo).encode())
+    h.update(f"{torch.__version__}|{torch.version.cuda}|{device_name(eng.device)}".encode())
+    for knob in _PROBE_ENV:
+        h.update(f"{knob}={os.environ.get(knob, '')}".encode())
+    return f"probe_{h.hexdigest()}"
+
+
+def _probe_dir(root: str | None = None) -> str:
+    return os.path.join(root or default_root(), "probe")
+
+
+def load_probe_verdict(key: str, root: str | None = None) -> dict | None:
+    """The verdict saved under ``key``, else None.  A file that does not
+    parse or holds another key is deleted and reads as a miss."""
+    path = os.path.join(_probe_dir(root), f"{key}.json")
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        if doc.get("key") != key:
+            raise ValueError("probe verdict key mismatch")
+        verdict = doc["verdict"]
+    except OSError:
+        return None
+    except Exception as exc:
+        logger.warning("dropping corrupt probe verdict %s: %s", key, exc)
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+        return None
+    bump_artifact("phase_probe_memo_hits")
+    return verdict
+
+
+def save_probe_verdict(key: str, verdict: dict, root: str | None = None) -> None:
+    """Write a verdict atomically (a ``.tmp.<pid>`` sibling renamed into
+    place)."""
+    d = _probe_dir(root)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{key}.json")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump({"key": key, "created": time.time(), "verdict": verdict}, f, indent=1,
+                  sort_keys=True)
+    os.replace(tmp, path)
+    bump_artifact("phase_probe_memo_writes")

@@ -31,6 +31,7 @@ the host.
 from __future__ import annotations
 
 import warnings
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -90,10 +91,7 @@ class AdjTiles:
 
     @property
     def nbytes(self) -> int:
-        return sum(
-            t.numel() * t.element_size()
-            for t in (self.tiles, self.row_idx, self.col_id, self.sb_indptr, self.keys2d)
-        )
+        return tiles_nbytes(self.nt, self.rows, self.cols)
 
 
 def keys_from_new2old(new2old: np.ndarray, rows: int) -> torch.Tensor:
@@ -116,6 +114,9 @@ def _finalize(
     and derive the superblock index, on ``device``."""
     rtp = round_up(rows, TILE)
     vtp = round_up(max(cols, 1), SB_VERTS)
+    if tuple(keys2d.shape) != (rtp // TILE + 1, TILE):
+        raise ValueError(f"keys2d is {tuple(keys2d.shape)}, not the key table "
+                         f"{(rtp // TILE + 1, TILE)} of {rows} rows (keys_from_new2old)")
     i32 = dict(dtype=torch.int32, device=device)
     if nt == 0:
         tiles = torch.zeros((1, TILE, TILE_WORDS), **i32)
@@ -241,6 +242,43 @@ def _relay_edges(rg, device):
         torch.arange(rg.vr, dtype=torch.int64, device=device), indptr.diff()
     )
     return src, torch.from_numpy(np.asarray(rg.adj_dst, dtype=np.int64)).to(device)
+
+
+def count_tiles_from_relay(rg, device="cpu") -> int:
+    """Nonempty 128x128 tiles of the single-device layout of
+    :func:`build_adj_tiles_from_relay`, counted without building it: one
+    sort of the edges' ``(column tile, row tile)`` codes on ``device``.
+    What the relay engine's ``auto`` arm holds against its tile budget
+    before any tile is built.  Memoized per layout object while it lives
+    (:data:`_TILE_COUNTS`)."""
+    cached = _TILE_COUNTS.get(id(rg))
+    if cached is not None:
+        return cached
+    src, dst = _relay_edges(rg, torch.device(device))
+    nt = 0
+    if src.numel():
+        code = torch.sort((dst >> 7) * (round_up(rg.vr, TILE) // TILE + 1) + (src >> 7)).values
+        del src, dst
+        nt = int(1 + (code[1:] != code[:-1]).sum())
+    _TILE_COUNTS[id(rg)] = nt
+    weakref.finalize(rg, _TILE_COUNTS.pop, id(rg), None)
+    return nt
+
+
+#: ``id(layout) -> nonempty tile count`` of :func:`count_tiles_from_relay`,
+#: each entry dropped when its layout is collected.
+_TILE_COUNTS: dict[int, int] = {}
+
+
+def tiles_nbytes(nt: int, rows: int, cols: int) -> int:
+    """Bytes of a tile layout of ``nt`` nonempty tiles over ``rows`` x
+    ``cols`` (:attr:`AdjTiles.nbytes`), known without building it: the
+    arrays of :func:`_finalize`, padded to at least one tile, with the
+    superblock index and the key table's pad block."""
+    ntp = max(int(nt), 1)
+    rtp = round_up(rows, TILE)
+    vtp = round_up(max(cols, 1), SB_VERTS)
+    return ntp * (TILE_BYTES + 8) + 4 * (vtp // SB_VERTS + 1) + 4 * (rtp + TILE)
 
 
 def resolve_tiles_builder(builder: str | None = None) -> str:

@@ -54,6 +54,10 @@ mirror knobs of the reference's registry of the same names without
   BFS_TPU_TORCH_JOURNAL_DIR      path    ""      run-journal directory
                                                  ("" = <cache root>/journal)
   BFS_TPU_TORCH_SPANS            flag    1       phase spans; 0 disables
+  BFS_TPU_TORCH_EXPANSION        enum    auto    the relay engine's dense
+                                                 arm: auto | gather | mxu
+  BFS_TPU_TORCH_PHASE_PROBE      enum    ""      force: run the expansion
+                                                 probe on the CPU too
   ============================== ======= ======= ==========================
 
 A knob whose value changes what a run measures carries a ``journal_key``:
@@ -61,9 +65,9 @@ its field in a :class:`~bfs_tpu_torch.resilience.journal.RunJournal`
 config, under the reference's field name, so one configuration keys one
 journal in either package.  :func:`journal_map` derives the fields from
 the registry.  The reference's other journal knobs (``BFS_TPU_PACKED``,
-``_ROWMIN``, ``_STATE_UPDATE``, ``_EXPANSION``, ``_MXU_KERNEL``,
-``_EXCHANGE``, ``_EXCHANGE_DIV``) have no knob here: the port chooses
-those by argument or has no such arm.
+``_ROWMIN``, ``_STATE_UPDATE``, ``_MXU_KERNEL``, ``_EXCHANGE``,
+``_EXCHANGE_DIV``) have no knob here: the port chooses those by argument
+or has no such arm (no ported kernel gives way to a stock op on a card).
 """
 
 from __future__ import annotations
@@ -229,6 +233,13 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "run-journal directory (default <cache root>/journal)"),
     Knob("BFS_TPU_TORCH_SPANS", "flag", "1", _flag,
          "phase spans (obs/spans.py); 0 disables"),
+    Knob("BFS_TPU_TORCH_EXPANSION", "enum", "auto", _enum("auto", "gather", "mxu"),
+         "the relay engine's dense-frontier expansion arm: the Benes relay gather, "
+         "the tiled masked product (mxu_expand), or auto: measured at engine "
+         "init on a card where the tiles fit their budget", journal_key="expansion"),
+    Knob("BFS_TPU_TORCH_PHASE_PROBE", "enum", "", _enum("", "force"),
+         "force the expansion probe on the CPU too (the plain arms); '' probes "
+         "on a card only"),
 )}
 
 

@@ -47,7 +47,8 @@ kernel of the superstep one launch for the batch, the tree index in its
 grid), one update raises one flag for the batch and one control step ends
 it, so LEVEL is shared and the loop runs until no tree changes.
 
-``RelayEngine(..., expansion="mxu")`` runs single-source searches (and the
+``RelayEngine(..., expansion="mxu")`` (or ``auto`` where the probe measures
+it faster, :mod:`bfs_tpu_torch.profiling`) runs single-source searches (and the
 lock-step :meth:`RelayEngine.run_multi`) through the MXU expansion arm
 instead: phases 1-4 become one tiled masked product of the frontier
 against bit-packed 128x128 adjacency tiles (:mod:`bfs_tpu_torch.graph.adj_tiles`,
@@ -89,6 +90,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import knobs
 from ..graph.csr import DeviceGraph, Graph, INF_DIST, build_device_graph
 from ..graph.ell import PullGraph, build_pull_graph, device_ell
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
@@ -189,11 +191,16 @@ class RelayEngine:
     one source, :meth:`run_multi_elem` and :meth:`run_multi` (on
     :meth:`run_multi_device`, the lock-step loop) a batch.
 
-    ``expansion`` (``gather|mxu``, default ``gather``: the port has no
-    measured probe to choose by yet) picks the dense superstep's arm:
-    ``mxu`` builds the adjacency tiles on ``device`` under
-    ``tiles_budget_bytes`` (default 4 GiB) and raises ``ValueError`` if
-    they exceed it.  :attr:`expansion_basis` says how the arm was chosen.
+    ``expansion`` (``auto|gather|mxu``, default ``BFS_TPU_TORCH_EXPANSION``,
+    ``auto``, as in the reference) picks the dense superstep's arm: ``mxu``
+    builds the adjacency tiles on ``device`` under ``tiles_budget_bytes``
+    (default 4 GiB) and raises ``ValueError`` if they exceed it; ``auto``
+    takes gather on the CPU, past the 26-bit packed parent field and where
+    the counted tiles exceed the budget (none built), and otherwise the
+    arm the memoized probe measures faster on the engine's own operands
+    (:meth:`_resolve_expansion_static`, :meth:`_resolve_expansion_measured`).
+    :attr:`expansion_basis` says how the arm was chosen, :attr:`phase_probe`
+    holds the probe's document.
     ``tiles_mode`` (``resident|stream|auto``, default
     ``BFS_TPU_TORCH_TILES``) says where the MXU arm's tiles live: shipped
     to ``device``, or (``stream``, and ``auto`` when they exceed the stream
@@ -277,45 +284,177 @@ class RelayEngine:
     # -- the expansion arm --------------------------------------------------
 
     def _resolve_expansion(self, requested: str | None, budget: int | None) -> None:
-        """``mxu`` builds the tiles now (a budget refusal raises) and drops
-        to the unpacked carry where ``V`` exceeds the 26-bit packed parent
-        field, which holds original ids on this arm."""
-        self.expansion = RM.resolve_expansion(requested)
-        if requested is None:
-            self.expansion_basis = (
-                "default: gather (no measured expansion probe in the port yet)"
-            )
-        else:
-            self.expansion_basis = "requested"
-        if self.expansion == "mxu":
-            self.packed = self.packed and packed_parent_fits(self.relay_graph.num_vertices)
-            self._build_tiles(RM.DEFAULT_TILES_BUDGET_BYTES if budget is None else int(budget))
+        """The dense superstep's arm, the reference's two halves: the static
+        gates (:meth:`_resolve_expansion_static`), then for an ``auto`` that
+        passed them the measured probe (:meth:`_resolve_expansion_measured`)."""
+        self._resolve_expansion_static(requested, budget)
+        if self.expansion == "auto-probe":
+            self._resolve_expansion_measured()
 
-    def _build_tiles(self, budget: int) -> None:
-        """The tiled adjacency through ``load_or_build_tiles`` (built on the
-        engine's device unless ``BFS_TPU_TORCH_TILES_BUILD=host``), then
-        either shipped as the expansion's device operands, or, in stream
-        mode (and ``auto`` over the cache budget), cut into the host store
-        with only ``keys2d`` kept on the device; the layout's device copy is
-        then released."""
+    def _resolve_expansion_static(self, requested: str | None, budget: int | None) -> None:
+        """The static gates, in order (:attr:`expansion_basis` names the one
+        that decided):
+
+        1. ``gather`` or ``mxu`` asked for (the argument, else
+           ``BFS_TPU_TORCH_EXPANSION``) resolves as asked; ``mxu`` builds the
+           tiles now (a budget refusal raises) and drops to the unpacked
+           carry where ``V`` exceeds the 26-bit packed parent field, which
+           holds original ids on this arm;
+        2. ``auto`` on a packed carry whose ``V`` exceeds that field: gather;
+        3. ``auto`` on the CPU: gather, no tile built (unless
+           ``BFS_TPU_TORCH_PHASE_PROBE=force``);
+        4. ``auto`` whose tiles would exceed ``tiles_budget_bytes``: gather,
+           from the tile count, before any tile is built.
+
+        Otherwise :attr:`expansion` is ``"auto-probe"`` until the measured
+        half."""
+        req = RM.resolve_expansion(requested)
+        rg = self.relay_graph
+        self.expansion_requested = req
+        self.tiles_budget_bytes = RM.DEFAULT_TILES_BUDGET_BYTES if budget is None else int(budget)
+        #: ``(nt, vtp, rtp)`` of the tiles ``auto`` counted (part of the probe
+        #: verdict's key), else None.
+        self.tile_geometry = None
+        #: The probe's document (None when no probe ran) and its expansion record.
+        self.phase_probe = None
+        self.expansion_probe = None
+        #: Host seconds of ``auto``'s steps: the tile count, the tile build
+        #: and shipping, the probe (0 when a step did not run).
+        self.tile_count_s = self.tiles_build_s = self.probe_s = 0.0
+        self.expansion = "gather"
+        if req != "auto":
+            self.expansion_basis = (
+                "requested" if requested is not None else "forced (BFS_TPU_TORCH_EXPANSION)")
+            if req == "mxu":
+                self.packed = self.packed and packed_parent_fits(rg.num_vertices)
+                self._build_tiles()
+                self.expansion = "mxu"
+            return
+        if self.packed and not packed_parent_fits(rg.num_vertices):
+            self.expansion_basis = (
+                "auto -> gather: V exceeds the 26-bit packed parent field for original-id "
+                "candidates")
+            return
+        if self.device.type != "cuda" and knobs.get("BFS_TPU_TORCH_PHASE_PROBE") != "force":
+            self.expansion_basis = (
+                "auto -> gather: cpu device, no probe (the kernels run only on a card; "
+                "BFS_TPU_TORCH_PHASE_PROBE=force probes the plain arms)")
+            return
+        from ..graph import adj_tiles as AT
+
+        t0 = time.perf_counter()
+        nt = AT.count_tiles_from_relay(rg, self.device)
+        need = AT.tiles_nbytes(nt, rg.vr, rg.vr)
+        self.tile_geometry = (nt, AT.round_up(max(rg.vr, 1), AT.SB_VERTS), AT.round_up(rg.vr, AT.TILE))
+        self.tile_count_s = time.perf_counter() - t0
+        if need > self.tiles_budget_bytes:
+            self.expansion_basis = (
+                f"auto -> gather: tiles over budget ({nt} tiles, {need} bytes > "
+                f"tiles_budget_bytes {self.tiles_budget_bytes}), none built")
+            return
+        self.expansion = "auto-probe"
+
+    def _resolve_expansion_measured(self) -> None:
+        """``auto`` past its gates: the memoized probe
+        (:meth:`_probe_memoized`; on a miss the tiles are built resident and
+        :func:`bfs_tpu_torch.profiling.probe_phase_kernels` times both arms)
+        selects the arm.  The MXU arm keeps (or, after a memo hit, builds)
+        its tiles, cut into the host store in stream mode; the gather arm
+        releases their device copy."""
+        from ..profiling import probe_phase_kernels
+
+        def probe(eng):
+            eng._build_tiles(resident=True)
+            t0 = time.perf_counter()
+            try:
+                return probe_phase_kernels(eng)
+            finally:
+                eng.probe_s = time.perf_counter() - t0
+
+        self.phase_probe = self._probe_memoized(probe)
+        memo = self.phase_probe.get("memo")
+        rec = self.phase_probe.get("expansion")
+        if rec is not None and "selected" in rec:
+            arm = rec["selected"]
+            self.expansion_probe = rec
+            times = ", ".join(f"{a} {rec[f'{a}_seconds']:.6g} s" for a in ("gather", "mxu")
+                              if f"{a}_seconds" in rec)
+            self.expansion_basis = (
+                f"auto -> {arm}: {rec['selection_basis']} ({times} a dense superstep; "
+                f"probe memo {memo})")
+        else:
+            arm = "gather"
+            why = (rec or {}).get("probe_error") or self.phase_probe.get("probe_error")
+            self.expansion_basis = f"auto -> gather: fallback (probe failed: {why})"
+        if arm == "mxu":
+            self._build_tiles()
+            self._place_tiles()
+            self.expansion = "mxu"
+        else:
+            self.adj_tiles = self.mxu_operands = None
+            self.expansion = "gather"
+
+    def _probe_memoized(self, probe_fn) -> dict:
+        """The probe, memoized beside the layout bundles: a verdict saved
+        under :func:`~bfs_tpu_torch.cache.layout.probe_verdict_key` is read
+        back (``memo: hit``, nothing timed, no tile built); else
+        ``probe_fn(self)`` runs and its verdict is saved (``memo: miss``).
+        On a card a probe that raises fails the engine (a kernel there
+        launches or raises); elsewhere it gives ``{"probe_error": ...}``.
+        A verdict that holds a failure is never saved, so a later engine
+        probes again."""
+        from ..cache.layout import load_probe_verdict, probe_verdict_key, save_probe_verdict
+
+        key = None
+        try:
+            key = probe_verdict_key(self)
+            cached = load_probe_verdict(key)
+            if cached is not None:
+                cached["memo"] = "hit"
+                return cached
+        except Exception as exc:
+            logger.warning("probe memo unavailable: %r", exc)
+        try:
+            probe = probe_fn(self)
+        except Exception as exc:
+            if self.device.type == "cuda":
+                raise
+            logger.warning("expansion probe failed: %r", exc)
+            return {"probe_error": repr(exc), "memo": "miss"}
+        probe["memo"] = "miss"
+        exp = probe.get("expansion") or {}
+        if "probe_error" in exp or "mxu_error" in exp.get("arms", {}):
+            logger.warning("expansion probe verdict not memoized: %s",
+                           exp.get("probe_error") or exp["arms"]["mxu_error"])
+        elif key is not None:
+            try:
+                save_probe_verdict(key, probe)
+            except Exception as exc:
+                logger.warning("probe memo write failed: %r", exc)
+        return probe
+
+    def _build_tiles(self, resident: bool = False) -> None:
+        """The tiled adjacency through ``load_or_build_tiles`` under
+        :attr:`tiles_budget_bytes` (built on the engine's device unless
+        ``BFS_TPU_TORCH_TILES_BUILD=host``; once per engine), shipped as
+        the expansion's device operands, then placed (:meth:`_place_tiles`)
+        unless ``resident`` (the probe times the resident arm)."""
+        if self.adj_tiles is not None or self._stream_store is not None:
+            return
         from ..cache.layout import load_or_build_tiles
 
         t0 = time.perf_counter()
-        at, self.tiles_info = load_or_build_tiles(self.relay_graph, budget_bytes=budget,
+        at, self.tiles_info = load_or_build_tiles(self.relay_graph,
+                                                  budget_bytes=self.tiles_budget_bytes,
                                                   device=self.device)
         self.mxu_geometry = RM.mxu_static(at)
         #: Bytes of the tile layout (what ``auto`` holds against the budget).
         self.tiles_nbytes = at.nbytes
-        if self.tiles_mode == "stream" or (
-                self.tiles_mode == "auto" and at.nbytes > RM.stream_cache_budget_bytes()):
-            from ..stream.runner import keys2d_for
-            from ..stream.store import HostTileStore
-
-            self._stream_store = HostTileStore(at, pin=self.device.type == "cuda")
-            keys2d_for(self)
-        else:
+        self.adj_tiles = at
+        if resident or not self._stream_mode():
             self.mxu_operands = RM.mxu_device_operands(at, self.device)
-            self.adj_tiles = at
+        else:
+            self._place_tiles()
         #: Host seconds of the tile build and its shipping (or its host store).
         self.tiles_build_s = time.perf_counter() - t0
         logger.info(
@@ -323,6 +462,25 @@ class RelayEngine:
             at.nt, at.nbytes, self.tiles_build_s, self.device,
             "resident" if self.adj_tiles is not None else "host store",
         )
+
+    def _stream_mode(self) -> bool:
+        """Do the tiles live in the host store: stream mode, or ``auto``
+        over the stream cache budget (at engine init)?"""
+        return self.tiles_mode == "stream" or (
+            self.tiles_mode == "auto" and self.tiles_nbytes > RM.stream_cache_budget_bytes())
+
+    def _place_tiles(self) -> None:
+        """In stream mode the layout is cut into the host store, only
+        ``keys2d`` is kept on the device and the layout's device copy is
+        released; otherwise it stays resident."""
+        if self.adj_tiles is None or not self._stream_mode():
+            return
+        from ..stream.runner import keys2d_for
+        from ..stream.store import HostTileStore
+
+        self._stream_store = HostTileStore(self.adj_tiles, pin=self.device.type == "cuda")
+        self.adj_tiles = self.mxu_operands = None
+        keys2d_for(self)
 
     # -- beyond device memory: the streamed arm ------------------------------------
 

@@ -91,6 +91,28 @@ def _check_attempt() -> None:
         check()
 
 
+def capture(step: Callable[[], None], k: int = 1) -> tuple[torch.cuda.CUDAGraph, dict[str, int]]:
+    """``(graph, launches)``: ``k`` calls of ``step`` captured into a CUDA
+    graph on the current device, and the kernel launches they recorded
+    (captured, not launched: a replay adds them,
+    :func:`~bfs_tpu_torch.ops.relay_cuda.add_launches`)."""
+    graph = torch.cuda.CUDAGraph()
+    # Garbage of earlier engines (their graphs, memory pools, pinned
+    # buffers) is freed now: freed during the capture, it would make a
+    # call that a capture forbids.
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with K.capturing() as captured, torch.cuda.graph(graph):
+            for _ in range(k):
+                step()
+    finally:
+        if collecting:
+            gc.enable()
+    return graph, captured
+
+
 @dataclass
 class LoopStats:
     """One run of a loop: the final ``level`` and ``changed`` (read from the
@@ -138,22 +160,7 @@ class BlockLoop:
 
     def _capture(self) -> None:
         global _captures
-        graph = torch.cuda.CUDAGraph()
-        # Garbage of earlier engines (their graphs, memory pools, pinned
-        # buffers) is freed now: freed during the capture, it would make a
-        # call that a capture forbids.
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with K.capturing() as captured, torch.cuda.graph(graph):
-                for _ in range(self.k):
-                    self.step()
-        finally:
-            if collecting:
-                gc.enable()
-        self.per_block = captured  # captured, not launched
-        self.graph = graph
+        self.graph, self.per_block = capture(self.step, self.k)
         _captures += 1
 
     def issue(self, stats: LoopStats) -> None:

@@ -48,7 +48,7 @@ __all__ = [
     "stream_cache_budget_bytes",
 ]
 
-EXPANSION_MODES = ("gather", "mxu")
+EXPANSION_MODES = ("auto", "gather", "mxu")
 
 #: Tile-storage ceiling for building the layout (the reference's default
 #: of 4 GiB): a scale-free tail can degrade toward one 2 KB tile per edge.
@@ -60,13 +60,16 @@ _FLIP = -(1 << 31)
 
 
 def resolve_expansion(mode: str | None = None) -> str:
-    """The dense superstep's arm: ``gather`` unless ``mode`` says ``mxu``
-    (the port has no measured probe to choose by yet); raises on an
+    """The dense superstep's arm as asked for (an explicit argument wins
+    over ``BFS_TPU_TORCH_EXPANSION``, default ``auto``): ``gather``,
+    ``mxu``, or ``auto``, which :class:`~bfs_tpu_torch.models.bfs.RelayEngine`
+    resolves by its static gates and the measured probe
+    (:func:`bfs_tpu_torch.profiling.probe_phase_kernels`).  Raises on an
     unknown mode."""
     if mode is None:
-        return "gather"
+        mode = knobs.get("BFS_TPU_TORCH_EXPANSION")
     if mode not in EXPANSION_MODES:
-        raise ValueError(f"unknown expansion {mode!r}; use 'gather' or 'mxu'")
+        raise ValueError(f"unknown expansion {mode!r}; use 'auto', 'gather' or 'mxu'")
     return mode
 
 

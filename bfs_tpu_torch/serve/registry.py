@@ -61,11 +61,12 @@ ENGINES = ("pull", "push", "relay")
 
 #: The knobs an engine resolves at construction, keying the resident LRU:
 #: a knob flipped between acquires never reuses an engine built under the
-#: old value.
+#: old value (the reference keys on its ``BFS_TPU_EXPANSION`` too).
 ENGINE_FLAVOR_ENV = (
     "BFS_TPU_TORCH_DIRECTION",
     "BFS_TPU_TORCH_DIRECTION_ALPHA",
     "BFS_TPU_TORCH_DIRECTION_BETA",
+    "BFS_TPU_TORCH_EXPANSION",
 )
 
 

@@ -73,6 +73,15 @@ class Stopwatch:
         return f"{s * 1e6:.1f} us"
 
 
+def device_name(device) -> str:
+    """The card's name (``torch.cuda.get_device_name``) for a CUDA device,
+    else the device type (``cpu``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
 def card_line() -> str:
     """The card's name and power limit, as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives

@@ -8,7 +8,13 @@ Run from the root of a checkout, with no arguments::
 It builds the hand-written kernels from ``bfs_tpu_torch/csrc``, holds the
 device layout builder against the host builder at R-MAT scale 18 (byte for
 byte with the native route; with the torch route every non-mask field, and a
-search on that layout against the oracle), builds the relay layout of a
+search on that layout against the oracle), runs the measured arm selection on
+its cell (``probe_phase``: R-MAT scale 18 at edge factor 64 on a torch-routed
+layout, where the tiles fit the default budget: the default engine,
+``expansion="auto"``, counts and builds its tiles and probes both arms, its
+launches held to the probe's loops, and a second engine reads the verdict
+back and launches nothing; 4 roots and the lock-step batch of 16 on both
+arms, oracle-exact and equal to each other), builds the relay layout of a
 Graph500-style R-MAT graph (a/b/c = .57/.19/.19, edge factor 6, graph seed
 1, scale 22 by default) on the card with ``load_or_build_relay`` into a
 fresh bundle store, loads it back from the bundle (a warm hit, memmapped,
@@ -22,7 +28,10 @@ layout's real shapes (bit-exact), then drives the main path — ``RelayEngine.ru
 from ``--seed`` — and checks every result against the port's host oracle
 (``canonical_bfs`` bit for bit, ``check()`` without violations) and that
 each superstep made 8 kernel launches (per Beneš network one outer pass per
-side and one local pass, then the row-min and the update).  The MXU
+side and one local pass, then the row-min and the update).  That default
+engine resolves ``auto`` to gather by the tile budget from the tile count,
+building no tile, and ``superstep_phase_ledger`` times its superstep's
+phases after the kernel phase (``ledger_phase``).  The MXU
 expansion arm comes next: its device tile builder held byte for byte against
 the host oracle at scale 16, the scale-22 tiles built on the card (21 GB,
 under a budget raised to 32 GiB), the tensor-core kernel ``mxu_expand`` held
@@ -280,6 +289,12 @@ CKPT_MULTI_EVERY = 4
 # the last size's trees; the MXU arm at 4.
 LOCKSTEP_S = (4, 16)
 LOCKSTEP_MXU_S = (4,)
+# The measured arm selection's cell (ROADMAP A7): R-MAT s18 at edge factor
+# 64 (Graph500 a/b/c, graph seed 1) on a torch-routed layout, where the
+# tiles fit the default 4 GiB budget, so a default engine probes both arms.
+PROBE_SCALE = 18
+PROBE_EDGE_FACTOR = 64
+PROBE_TREES = 16
 
 
 def log(msg: str) -> None:
@@ -1280,10 +1295,10 @@ def multi_source_phase(eng, g, sources, directed_traversed: int, K, RE, P, L) ->
         dist, parent = P.canonical_bfs(g, s)
         if not (np.array_equal(res.dist[i], dist) and np.array_equal(res.parent[i], parent)):
             raise AssertionError(f"tree {i} (source {s}): differs from canonical_bfs")
-        violations = P.check(g, res.dist[i], res.parent[i], s)
+        violations = P.check(g, res.dist[i], res.parent[i], s) if i == 0 else []
         if violations:
             raise AssertionError(f"tree {i}: check() violations {violations[:3]}")
-    log(f"trees 0 and {trees - 1}: oracle-exact, check() clean")
+    log(f"trees 0 and {trees - 1}: oracle-exact; check() clean on tree 0")
     return dict(launches={k: first[k] for k in ELEM_REPLACES}, lock_launches=lock_launches,
                 lock_s=lock_s, lock_run=lock_run, secs=secs, eager_secs=esecs, levels=level,
                 peak=peak,
@@ -3806,7 +3821,7 @@ def ckpt_serve_tick(reg, srcs, truth: dict, metrics, K, L, card: str) -> dict:
 
 def small_ckpt_checks(P, L, store: str) -> None:
     """path_graph(100) segmented at every:16 on the default relay engine
-    (hybrid ``auto``, gather) and the dense one: 62 packed levels in 4
+    (hybrid ``auto``, the arm its probe selects) and the dense one: 62 packed levels in 4
     segments, the store cleared, then the unpacked re-run to 100 in 7; the
     result, schedule and occupancy equal to the fused run's, no capture."""
     import numpy as np
@@ -3829,7 +3844,7 @@ def small_ckpt_checks(P, L, store: str) -> None:
                 rep["segments"] != 4 + 7 or run["live"] != 62 + 100 or L.captures() != caps:
             raise AssertionError(f"path_graph(100) segmented (hybrid {hybrid}): {run}, {rep}")
         log(f"path_graph(100) segmented at every:16, {'hybrid auto' if hybrid else 'dense'} "
-            f"gather: 62 packed levels in 4 segments, then the unpacked re-run to 100 in 7 "
+            f"{eng.expansion}: 62 packed levels in 4 segments, then the unpacked re-run to 100 in 7 "
             f"(supersteps issued {run['issued']}, live {run['live']}); oracle-exact, schedule and "
             "occupancy equal to the fused run's, no capture")
 
@@ -4613,6 +4628,196 @@ def stream_phase(P, rg, g, roots, want: dict, dense: dict, resident_held: int, K
     return out
 
 
+def launches_since(before: dict, K) -> dict:
+    """Kernel launches counted since the copy ``before`` of ``K.LAUNCHES``."""
+    return {k: n - before.get(k, 0) for k, n in K.LAUNCHES.items() if n != before.get(k, 0)}
+
+
+def probe_launches(probe: dict) -> dict:
+    """What a probe's loops launch: per timed body, its launches of one
+    call x the calls made."""
+    want: dict = {}
+    for body in probe["bodies"].values():
+        for k, n in body["per_step"].items():
+            want[k] = want.get(k, 0) + n * body["steps"]
+    return want
+
+
+def probe_phase(P, generators, K, seed: int, card: str) -> dict:
+    """The measured arm selection on its cell (R-MAT s18, edge factor 64, a
+    torch-routed layout): the default engine (``expansion="auto"``) counts
+    its tiles, builds them and probes both arms (memo miss), its launches
+    held to the probe's loop counts; a second engine on the same layout
+    reads the verdict back (memo hit) and launches nothing; the
+    max-out-degree root and 3 roots drawn with ``seed`` on the selected arm
+    and on the other, forced, bit for bit with each other and
+    ``canonical_bfs``, ``check()`` clean; the lock-step batch of 16 on each
+    arm, loop and results apart."""
+    import numpy as np
+    import torch
+
+    from bfs_tpu_torch.cache import layout as CL
+
+    t0 = time.perf_counter()
+    g = generators.rmat_graph_native(PROBE_SCALE, PROBE_EDGE_FACTOR, seed=GRAPH_SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rg = P.build_relay_graph_device(g, route="torch")
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    edges = int(rg.adj_indptr[rg.vr])
+    before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    eng = P.RelayEngine(rg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launched = launches_since(before, K)
+    probe, rec = eng.phase_probe, eng.expansion_probe
+    if (probe is None or probe.get("memo") != "miss" or rec is None
+            or rec.get("selection_basis") != "measured" or eng.expansion_requested != "auto"):
+        raise AssertionError(f"probe: the default engine did not measure both arms: "
+                             f"{eng.expansion_basis}; {probe}")
+    verdict = os.path.join(CL._probe_dir(), f"{CL.probe_verdict_key(eng)}.json")
+    if not (verdict.startswith(os.environ["BFS_TPU_TORCH_CACHE_DIR"] + os.sep)
+            and os.path.isfile(verdict)):
+        raise AssertionError(f"probe: the verdict was not saved in the run's cache root: {verdict}")
+    want = probe_launches(probe)
+    if launched != want or launched != probe["launches"] or probe["control_block"] != "live":
+        raise AssertionError(f"probe: launches {launched}, its loops account for {want}")
+    for k in ("benes_local_pass", "benes_outer_pass", "class_rowmin", "packed_update",
+              "mxu_expand"):
+        if not launched.get(k):
+            raise AssertionError(f"probe: {k} never launched")
+    nt, tiles_bytes = eng.tile_geometry[0], eng.tiles_nbytes
+    gather_s, mxu_s = rec["gather_seconds"], rec["mxu_seconds"]
+    log(f"probe cell: R-MAT s{PROBE_SCALE} ef {PROBE_EDGE_FACTOR} seed {GRAPH_SEED} (native "
+        f"generator {gen_s:.2f} s): V={g.num_vertices} directed E={g.num_edges}; torch-routed "
+        f"layout in {layout_s:.2f} s, vr={rg.vr} net_size={rg.net_size}, {edges} relabeled "
+        f"edges; {nt} tiles, {tiles_bytes} bytes ({edges / nt:.4f} edges a tile) against "
+        f"the {eng.tiles_budget_bytes}-byte budget ({card})")
+    log(f"probe: default engine in {init_s:.3f} s (tile count {eng.tile_count_s:.3f} s, tiles "
+        f"{eng.tiles_build_s:.3f} s, probe {eng.probe_s:.3f} s); dense superstep on a pinned "
+        f"dense frontier: gather {gather_s:.6g} s, mxu {mxu_s:.6g} s; selected {eng.expansion}, "
+        f"basis '{eng.expansion_basis}', memo {probe['memo']}; K3 kernel "
+        f"{probe['rowmin']['kernel_seconds']:.6g} s against plain "
+        f"{probe['rowmin']['plain_seconds']:.6g} s, K4 kernel "
+        f"{probe['state_update']['kernel_seconds']:.6g} s against plain "
+        f"{probe['state_update']['plain_seconds']:.6g} s; launches {launched} = the probe's "
+        f"loops (launches of one call x calls, {len(probe['bodies'])} bodies), control block "
+        f"live ({card})")
+    before = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    eng2 = P.RelayEngine(rg, device="cuda")
+    torch.cuda.synchronize()
+    init2_s = time.perf_counter() - t0
+    launched2 = launches_since(before, K)
+    if eng2.phase_probe.get("memo") != "hit" or launched2 or eng2.expansion != eng.expansion:
+        raise AssertionError(f"probe: the second engine: memo {eng2.phase_probe.get('memo')}, "
+                             f"launches {launched2}, arm {eng2.expansion}")
+    log(f"probe: second engine on the layout in {init2_s:.3f} s: memo hit, no kernel launched, "
+        f"arm {eng2.expansion}")
+    del eng2
+    torch.cuda.empty_cache()
+    selected = eng.expansion
+    other = "mxu" if selected == "gather" else "gather"
+    engines = {selected: eng, other: P.RelayEngine(rg, device="cuda", expansion=other)}
+    root0 = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    oracle = {root0: P.canonical_bfs(g, root0)}
+    comp = np.flatnonzero(oracle[root0][0] != P.INF_DIST)
+    roots = [root0] + [int(r) for r in np.random.default_rng(seed).choice(
+        comp, ROOTS - 1, replace=False)]
+    for r in roots[1:]:
+        oracle[r] = P.canonical_bfs(g, r)
+    secs = {}
+    for arm, e in engines.items():
+        for r in roots:
+            e.run(r)  # the captures
+        times = []
+        for r in roots:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = e.run(r)
+            times.append(time.perf_counter() - t0)
+            dist, parent = oracle[r]
+            if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
+                raise AssertionError(f"probe {arm}: root {r} differs from canonical_bfs")
+        secs[arm] = times
+    for r in roots:  # both arms equal the oracle's trees: check() them once
+        violations = P.check(g, *oracle[r], r)
+        if violations:
+            raise AssertionError(f"probe: root {r}: check() violations {violations[:3]}")
+    log(f"probe: {len(roots)} roots {roots} on both arms (default hybrid engines), oracle-exact "
+        "and equal to each other, check() clean; s/search " + "; ".join(
+            f"{arm}{' (selected)' if arm == selected else ''} " + ", ".join(f"{t:.6f}" for t in ts)
+            + f" (mean {np.mean(ts):.6f})" for arm, ts in secs.items()) + f" ({card})")
+    rest = np.setdiff1d(comp, roots)
+    sources = np.asarray([*roots, *np.random.default_rng(seed + 1).choice(
+        rest, PROBE_TREES - len(roots), replace=False)], dtype=np.int32)
+    lock = {}
+    for arm, e in engines.items():
+        e.run_multi(sources)  # the capture of this batch size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = e.run_multi(sources)
+        wall = time.perf_counter() - t0
+        lock[arm] = dict(secs=wall, loop_s=e.last_run["loop_s"], result_s=e.last_run["result_s"],
+                         levels=res.num_levels, issued=e.last_run["issued"], result=res)
+    a, b = lock[selected]["result"], lock[other]["result"]
+    if not (np.array_equal(a.dist, b.dist) and np.array_equal(a.parent, b.parent)):
+        raise AssertionError("probe: the lock-step batches of the two arms differ")
+    for i, r in enumerate(roots):
+        if not (np.array_equal(a.dist[i], oracle[r][0]) and np.array_equal(a.parent[i], oracle[r][1])):
+            raise AssertionError(f"probe: lock-step tree {i} (root {r}) differs from canonical_bfs")
+    mean = {arm: float(np.mean(ts)) for arm, ts in secs.items()}
+    log(f"probe: lock-step batch of {PROBE_TREES} (run_multi, the roots then {PROBE_TREES - 4} "
+        f"drawn with seed {seed + 1}), trees equal across the arms, the roots' oracle-exact: "
+        + "; ".join(f"{arm} {r['secs']:.6f} s (loop {r['loop_s']:.6f}, results "
+                    f"{r['result_s']:.6f}; {r['issued']} supersteps issued, {r['levels']} levels)"
+                    for arm, r in lock.items())
+        + f"; break-even edges a tile (edges a tile x mxu / gather): dense superstep "
+        f"{edges / nt * mxu_s / gather_s:.4f}, batch of {PROBE_TREES} loop "
+        f"{edges / nt * lock['mxu']['loop_s'] / lock['gather']['loop_s']:.4f} ({card})")
+    for r in lock.values():
+        del r["result"]
+    del engines, eng, a, b
+    torch.cuda.empty_cache()
+    return dict(edges=edges, tiles=nt, tiles_bytes=tiles_bytes, gather_s=gather_s,
+                mxu_s=mxu_s, selected=selected, init_s=init_s, init2_s=init2_s,
+                launches=launched, secs=mean, lock=lock, layout_s=layout_s)
+
+
+def ledger_phase(eng, card: str) -> dict:
+    """``superstep_phase_ledger`` on the s22 gather engine: each phase's
+    seconds and bytes, their sum against the whole dense superstep."""
+    import math
+
+    from bfs_tpu_torch.profiling import superstep_phase_ledger
+
+    t0 = time.perf_counter()
+    led = superstep_phase_ledger(eng)
+    wall = time.perf_counter() - t0
+    bad = [p for p, r in led["phases"].items() if not (math.isfinite(r["seconds"]) and r["seconds"] > 0)]
+    if bad or led["applier"] != "kernel" or "expansion" in led["phases"]:
+        raise AssertionError(f"ledger: phases {bad} not timed, applier {led['applier']}, "
+                             f"phases {sorted(led['phases'])}")
+    rows = []
+    for name, r in led["phases"].items():
+        extra = [f"{k} {r[k]}" for k in ("mask_bytes", "word_bytes_rw", "word_bytes_read",
+                                         "candidate_bytes_written") if k in r]
+        if "arms" in r:
+            extra.append("arms " + ", ".join(f"{a} {v:.6g} s" for a, v in r["arms"].items()))
+        if name == "state_update":
+            extra.append(f"bytes packed {r['packed']['bytes']['total']}, unpacked "
+                         f"{r['unpacked']['bytes']['total']} ({r['unpacked']['seconds']:.6g} s)")
+        rows.append(f"{name} {r['seconds'] * 1e3:.4f} ms"
+                    + (f" ({', '.join(extra)})" if extra else ""))
+    log(f"phase ledger (s22 gather engine, K = {led['loops']}, {wall:.2f} s): " + "; ".join(rows)
+        + f"; sum of phases {led['sum_of_phases_seconds'] * 1e3:.4f} ms against full superstep "
+        f"{led['full_superstep_seconds'] * 1e3:.4f} ms; telemetry overhead ratio "
+        f"{led['telemetry_overhead_ratio']:.4f}; mask bytes {led['mask_bytes_total']} ({card})")
+    return led
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -4625,7 +4830,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root_dir)
+    # Every persistent cache of the run (probe verdicts, label checkpoints,
+    # journals) under a root of its own, removed at exit: a second run in
+    # the same checkout starts from nothing, as the first did.
+    os.makedirs(os.path.join(root_dir, ".bench_cache"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_", dir=os.path.join(root_dir, ".bench_cache"))
+    atexit.register(shutil.rmtree, cache_dir, True)
+    os.environ["BFS_TPU_TORCH_CACHE_DIR"] = cache_dir
     import bfs_tpu_torch as P
     from bfs_tpu_torch.graph import adj_tiles as AT
     from bfs_tpu_torch.graph import generators
@@ -4652,6 +4865,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     K.build_all()
     log(f"build: all {len(K.SOURCES)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    # Every object alive now (modules, the kernel libraries) lives to the end:
+    # the collections before each CUDA graph capture skip them.
+    import gc
+
+    gc.freeze()
     for name in K.SOURCES:
         info = cuda_build.BUILD_INFO[name]
         log(f"build: {name}.cu (nvcc {info['seconds']:.2f} s)")
@@ -4665,6 +4883,10 @@ def main(argv=None) -> int:
     # loaded back (memmapped); the engine ships from the loaded layout
     layout_parity = layout_parity_phase(P, generators)
     mark("layout parity s18")
+    # ---- the measured arm selection on its cell: the default engine's
+    # probe (memo miss, then hit), both arms' searches and batches
+    probe = probe_phase(P, generators, K, args.seed, card)
+    mark(f"probe cell s{PROBE_SCALE} ef {PROBE_EDGE_FACTOR}")
     t0 = time.perf_counter()
     # The native generator only (it raises if it cannot be built): the numpy
     # one draws other edges, so the measured graph would silently change.
@@ -4672,8 +4894,6 @@ def main(argv=None) -> int:
     t_gen = time.perf_counter() - t0
     log(f"graph: R-MAT scale {args.scale} ef {EDGE_FACTOR} seed {GRAPH_SEED} "
         f"(native generator, {t_gen:.1f} s): V={g.num_vertices} directed E={g.num_edges}")
-    root_dir = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(root_dir, ".bench_cache"), exist_ok=True)
     store = tempfile.mkdtemp(prefix="chip_smoke_layout_", dir=os.path.join(root_dir, ".bench_cache"))
     atexit.register(shutil.rmtree, store, True)
     # The superstep checkpoints' epoch store.
@@ -4695,12 +4915,21 @@ def main(argv=None) -> int:
     eng = P.RelayEngine(rg, device="cuda", sparse_hybrid=False)
     torch.cuda.synchronize()
     log(f"engine: layout shipped in {time.perf_counter() - t0:.2f} s")
+    # The default arm (auto) at s22: gather by the tile budget, no tile built.
+    if (eng.expansion, eng.adj_tiles, eng.mxu_operands, eng.phase_probe, eng.tiles_build_s) != (
+            "gather", None, None, None, 0.0) or not eng.expansion_basis.startswith(
+            "auto -> gather: tiles over budget"):
+        raise AssertionError(f"s22 default engine: {eng.expansion} ({eng.expansion_basis})")
+    log(f"engine: expansion auto -> {eng.expansion} by the budget in {eng.tile_count_s:.3f} s "
+        f"(the tile count; no tile built): '{eng.expansion_basis}' ({card})")
     CHECKER.update(dc=P.DeviceChecker.from_graph(g), passed=0)
 
     mark("engine")
     # ---- kernels against their plain versions -----------------------------
     kres = kernel_phase(eng, K, R, card)
     mark("kernel phase")
+    ledger = ledger_phase(eng, card)
+    mark("phase ledger")
 
     # ---- main path: the gather arm on the captured block loop, against
     # the eager loop; then the oracle, the result copy's two designs and
@@ -4719,14 +4948,17 @@ def main(argv=None) -> int:
         dist, parent = oracle0 if r == root0 else P.canonical_bfs(g, r)
         if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
             raise AssertionError(f"root {r}: result differs from canonical_bfs")
-        violations = P.check(g, res.dist, res.parent, r)
+        # The host check() on the max-degree root; every root is
+        # canonical_bfs's tree and clean under the DeviceChecker.
+        violations = P.check(g, res.dist, res.parent, r) if r == root0 else []
         if violations:
             raise AssertionError(f"root {r}: check() violations {violations[:3]}")
         verify(f"gather root {r}", res.dist, res.parent, r)
         want[r] = ((dist, parent), res)
     launches = {k: gather["launches"][k] for k in REPLACES}
     mean_s = gather["mean"]["secs"]
-    log(f"main path: all {len(roots)} roots oracle-exact, check() clean; captured loop mean "
+    log(f"main path: all {len(roots)} roots oracle-exact and DeviceChecker-clean, check() clean "
+        f"on root {root0}; captured loop mean "
         f"{mean_s:.6f} s/search, {directed_traversed / 2 / mean_s:.6g} undirected TEPS "
         f"({directed_traversed // 2} undirected edges in the component); launches {launches}")
     designs = result_designs(eng, root0)
@@ -4919,6 +5151,9 @@ def main(argv=None) -> int:
     mark("bundle store removed")
 
     # ---- report ---------------------------------------------------------
+    # The default relay engine's probe (main path since auto is the default).
+    for k, n in probe["launches"].items():
+        launches[k] += n
     # The control step ends every superstep of the algorithms' loops too.
     launches["loop_control"] += sum(algo[k]["launches"] for k in
                                     ("sssp", "cc pull", "cc push", "ckpt", "registry"))
@@ -5077,6 +5312,16 @@ def main(argv=None) -> int:
         + "; kernels (16 trees unless named), ms (cold L2) / as many single launches / "
         "bound: " + ", ".join(f"{name} {r['ms']:.4f} / {r['singles_ms']:.4f} / "
                               f"{r['bound_ms']:.4f}" for name, r in lock_kernels.items()))
+    log(f"measured arm selection (R-MAT s{PROBE_SCALE} ef {PROBE_EDGE_FACTOR}, {card}): "
+        f"{probe['tiles']} tiles ({probe['edges'] / probe['tiles']:.4f} edges a tile); probe "
+        f"gather {probe['gather_s']:.6g} s, mxu {probe['mxu_s']:.6g} s a dense superstep, "
+        f"selected {probe['selected']}; default engine {probe['init_s']:.3f} s, memo hit "
+        f"{probe['init2_s']:.3f} s; mean s/search " + ", ".join(
+            f"{a} {t:.6f}" for a, t in probe["secs"].items()) + f"; batch of {PROBE_TREES} "
+        + ", ".join(f"{a} {r['secs']:.6f} s (loop {r['loop_s']:.6f})"
+                    for a, r in probe["lock"].items())
+        + f"; s22 phase ledger: sum {ledger['sum_of_phases_seconds'] * 1e3:.4f} ms, full "
+        f"superstep {ledger['full_superstep_seconds'] * 1e3:.4f} ms")
     log("phases, wall s: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                         in zip(marks, marks[1:])))
     log(f"total {time.perf_counter() - T_PROCESS:.1f} s since the script started")

@@ -150,7 +150,8 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.stream.prefetch, bfs_tpu_torch.stream.runner, "
         "bfs_tpu_torch.serve.labels, bfs_tpu_torch.serve.router, "
         "bfs_tpu_torch.obs.__main__, bfs_tpu_torch.graph.io, "
-        "bfs_tpu_torch.tools.serve_loadgen; "
+        "bfs_tpu_torch.tools.serve_loadgen, bfs_tpu_torch.profiling, "
+        "bfs_tpu_torch.tools.ledger_compare; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -187,7 +188,8 @@ def test_no_jax_or_reference_imports_in_the_port():
                 ("algo", "substrate.py"), ("algo", "sssp.py"), ("algo", "cc.py"),
                 ("oracle", "sssp.py"), ("oracle", "cc.py"), ("serve", "algo.py"),
                 ("tools", "graph500_run.py"), ("serve", "labels.py"), ("serve", "router.py"),
-                ("obs", "__main__.py"), ("graph", "io.py"), ("tools", "serve_loadgen.py")):
+                ("obs", "__main__.py"), ("graph", "io.py"), ("tools", "serve_loadgen.py"),
+                ("profiling.py",), ("tools", "ledger_compare.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):

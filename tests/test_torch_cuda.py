@@ -8,6 +8,7 @@ with a card and no jax:
 Each test decides inside a fixture whether a card is present and skips
 without one.  Comparisons are exact (integer bit arithmetic)."""
 
+import os
 import threading
 import time
 import types
@@ -261,7 +262,7 @@ def test_card_class_rowmin_batched_wide_classes_match_plain(card, trees):
 def test_card_bfs_matches_cpu_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
     cpu = P.RelayEngine(g, device="cpu", sparse_hybrid=False)
-    on_card = P.RelayEngine(g, sparse_hybrid=False)  # every superstep dense: K1-K4
+    on_card = P.RelayEngine(g, sparse_hybrid=False, expansion="gather")  # dense: K1-K4
     assert p_bfs.resolve_device().type == "cuda"
     K.reset_launches()
     for s in (0, 9):
@@ -624,7 +625,7 @@ def test_card_mxu_expand_empty_frontier_and_devices(card, monkeypatch):
 def test_card_mxu_engine_matches_gather_and_oracle(card):
     g = P.rmat_graph(12, 6, seed=1)
     mxu = P.RelayEngine(g, expansion="mxu", sparse_hybrid=False)
-    gather = P.RelayEngine(g, sparse_hybrid=False)
+    gather = P.RelayEngine(g, sparse_hybrid=False, expansion="gather")
     assert mxu.adj_tiles.device.type == "cuda"
     K.reset_launches()
     for s in (0, 9):
@@ -812,7 +813,8 @@ def test_card_edge_engine_matches_eager_cpu_and_oracle(card, engine):
     assert c.num_levels == 100
 
 
-def test_card_relay_runner_matches_cpu(card):
+def test_card_relay_runner_matches_cpu(card, monkeypatch):
+    monkeypatch.setenv("BFS_TPU_TORCH_EXPANSION", "gather")  # the runner's engine: K1-K4
     g = P.rmat_graph(11, 6, seed=2)
     gpu, cpu = P.SuperstepRunner(g, engine="relay"), P.SuperstepRunner(g, engine="relay",
                                                                         device="cpu")
@@ -898,7 +900,7 @@ def test_card_level_curves_match_cpu(card):
         assert got == P.bfs_level_curve(g, 5, engine=engine, device="cpu")
     assert (P.bfs_multi_level_curve(g, [5, 9, 5], engine="push")
             == P.bfs_multi_level_curve(g, [5, 9, 5], engine="push", device="cpu"))
-    eng = P.RelayEngine(g, sparse_hybrid=False)  # the recorder in the dense block
+    eng = P.RelayEngine(g, sparse_hybrid=False, expansion="gather")  # the recorder in the dense block
     eng.run_level_curve(5)
     K.reset_launches()
     curve = eng.run_level_curve(9)
@@ -1035,8 +1037,10 @@ def test_card_sparse_body_is_captured_and_replays_without_a_host_sync(card, pack
     from bfs_tpu_torch.ops import sparse as S
 
     g, s0 = _hybrid_graph()
-    eng = P.RelayEngine(g, direction="push")
-    cpu = P.RelayEngine(g, device="cpu", direction="push")
+    # One arm on both devices: the third array of the sparse operands is the
+    # arm's (ranks or slots on gather, original ids on the MXU arm).
+    eng = P.RelayEngine(g, direction="push", expansion="gather")
+    cpu = P.RelayEngine(g, device="cpu", direction="push", expansion="gather")
     st = cpu.init_packed_state(s0) if packed else cpu.init_state(s0)
     for _ in range(2):  # a frontier two levels out
         st, _ = cpu.step_dispatch(st, take_sparse=True)
@@ -1918,3 +1922,98 @@ def test_card_run_multi_device_matches_cpu_and_eager(card, expansion):
         d, p = P.canonical_bfs(path, s)
         np.testing.assert_array_equal(res.dist[i], d)
         np.testing.assert_array_equal(res.parent[i], p)
+
+
+# ------------------------------------------- the measured arm selection --
+
+def test_card_default_engine_probes_both_arms(card, tmp_path, monkeypatch):
+    """``expansion="auto"`` (the default) on the card: the tiles counted and
+    built, both arms timed on live kernels with their launches accounted
+    for, the faster selected; a second engine on the layout reads the
+    verdict back and launches nothing; searches equal the CPU engine's."""
+    monkeypatch.setenv("BFS_TPU_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("BFS_TPU_TORCH_EXPANSION", raising=False)
+    g = P.rmat_graph(10, 32, seed=5)
+    rg = P.build_relay_graph(g)
+    before = dict(K.LAUNCHES)
+    eng = P.RelayEngine(rg)
+    launched = {k: n - before[k] for k, n in K.LAUNCHES.items() if n != before[k]}
+    probe, rec = eng.phase_probe, eng.expansion_probe
+    assert probe["memo"] == "miss" and probe["control_block"] == "live"
+    assert probe["device"] == torch.cuda.get_device_name(0) and probe["applier"] == "kernel"
+    assert rec["selection_basis"] == "measured" and rec["selected"] == eng.expansion
+    assert rec["gather_seconds"] > 0 and rec["mxu_seconds"] > 0
+    assert eng.expansion_basis.startswith(f"auto -> {eng.expansion}: measured")
+    assert (eng.mxu_operands is not None) == (eng.expansion == "mxu")
+    for phase in ("rowmin", "state_update"):
+        assert probe[phase]["selected"] == "kernel"
+        assert probe[phase]["kernel_seconds"] > 0 and probe[phase]["plain_seconds"] > 0
+    want = {}
+    for body in probe["bodies"].values():
+        for k, n in body["per_step"].items():
+            want[k] = want.get(k, 0) + n * body["steps"]
+    assert launched == want == probe["launches"]
+    for k in ("benes_local_pass", "class_rowmin", "packed_update", "mxu_expand"):
+        assert launched[k] > 0, k
+    before = dict(K.LAUNCHES)
+    again = P.RelayEngine(rg)
+    assert again.phase_probe["memo"] == "hit" and again.expansion == eng.expansion
+    assert dict(K.LAUNCHES) == before
+    cpu = P.RelayEngine(rg, device="cpu")
+    for root in (0, 9, 300):
+        a, b = eng.run(root), cpu.run(root)
+        np.testing.assert_array_equal(a.dist, b.dist)
+        np.testing.assert_array_equal(a.parent, b.parent)
+
+
+def test_card_failing_mxu_arm_fails_the_engine(card, tmp_path, monkeypatch):
+    """On the card the probe catches nothing: an MXU arm that raises fails
+    the default engine, and no verdict is memoized."""
+    from bfs_tpu_torch import profiling as PP
+
+    monkeypatch.setenv("BFS_TPU_TORCH_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("BFS_TPU_TORCH_EXPANSION", raising=False)
+    real = PP._dense_arm
+
+    def failing(eng, arm, timer, ctl):
+        if arm == "mxu":
+            raise RuntimeError("mxu arm fault")
+        return real(eng, arm, timer, ctl)
+
+    monkeypatch.setattr(PP, "_dense_arm", failing)
+    with pytest.raises(RuntimeError, match="mxu arm fault"):
+        P.RelayEngine(P.rmat_graph(10, 32, seed=5))
+    assert not os.path.isdir(os.path.join(str(tmp_path), "layout", "probe"))
+
+
+@pytest.mark.parametrize("expansion", ["gather", "mxu"])
+def test_card_phase_ledger(card, expansion):
+    from bfs_tpu_torch import profiling as PP
+
+    g = P.rmat_graph(10, 8, seed=3)
+    eng = P.RelayEngine(g, expansion=expansion, sparse_hybrid=False)
+    led = PP.superstep_phase_ledger(eng, loops=2, repeats=2)
+    assert led["applier"] == "kernel" and led["device"] == torch.cuda.get_device_name(0)
+    for rec in led["phases"].values():
+        assert np.isfinite(rec["seconds"]) and rec["seconds"] > 0
+    for phase in ("rowmin", "state_update"):
+        rec = led["phases"][phase]
+        assert rec["selected"] == "kernel" and set(rec["arms"]) == {"kernel", "plain"}
+        assert rec["seconds"] == rec["arms"]["kernel"]
+    assert ("expansion" in led["phases"]) == (expansion == "mxu")
+    res = eng.run(7)
+    d, p = P.canonical_bfs(g, 7)
+    np.testing.assert_array_equal(res.dist, d)
+    np.testing.assert_array_equal(res.parent, p)
+
+
+def test_card_auto_over_budget_builds_no_tile(card, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a tile was built")
+
+    from bfs_tpu_torch.cache import layout as CL
+
+    monkeypatch.setattr(CL, "load_or_build_tiles", refuse)
+    eng = P.RelayEngine(P.rmat_graph(10, 8, seed=3), tiles_budget_bytes=4096)
+    assert eng.expansion == "gather" and eng.adj_tiles is None and eng.phase_probe is None
+    assert eng.expansion_basis.startswith("auto -> gather: tiles over budget")

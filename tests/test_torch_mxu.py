@@ -308,10 +308,11 @@ def test_mxu_engine_budget_refusal(monkeypatch):
 # ------------------------------------------------------------ arm choice --
 
 def test_resolve_expansion_and_refusals():
-    assert PM.resolve_expansion() == P.resolve_expansion() == "gather"
+    # auto is the default, as the reference's (BFS_TPU_EXPANSION)
+    assert PM.resolve_expansion() == P.resolve_expansion() == JM.resolve_expansion() == "auto"
     for mode in PM.EXPANSION_MODES:
         assert PM.resolve_expansion(mode) == mode
-    for bad in ("auto", "tensor", ""):
+    for bad in ("tensor", "", "Auto"):
         with pytest.raises(ValueError, match="expansion"):
             PM.resolve_expansion(bad)
 
@@ -325,8 +326,10 @@ def test_mxu_engine_tiles_equal_the_host_oracle():
     for f in FIELDS:
         assert torch.equal(getattr(eng.adj_tiles, f), getattr(host, f)), f
     assert_same(eng.run(1), P.RelayEngine(g, device="cpu", expansion="gather").run(1))
+    auto = P.RelayEngine(g, device="cpu", expansion="auto")  # valid now; the CPU gate
+    assert auto.expansion == "gather" and auto.adj_tiles is None
     with pytest.raises(ValueError, match="expansion"):
-        P.RelayEngine(g, device="cpu", expansion="auto")
+        P.RelayEngine(g, device="cpu", expansion="tensor")
 
 
 @needs_native
@@ -334,7 +337,8 @@ def test_default_expansion_is_gather():
     g = P.rmat_graph(8, 8, seed=7)
     eng = P.RelayEngine(g, device="cpu")
     assert eng.expansion == "gather" and eng.adj_tiles is None
-    assert eng.expansion_basis.startswith("default: gather")
+    assert eng.expansion_requested == "auto"
+    assert eng.expansion_basis.startswith("auto -> gather: cpu device")
     ref = JRelayEngine(_jgraph(g), expansion="auto")  # off a TPU: gather too
     assert ref.expansion == "gather" and ref.adj_tiles is None
     assert_same(eng.run(3), ref.run(3))
