@@ -12,94 +12,79 @@ points run on the card unless the caller passes ``device="cpu"``.  The command-l
 ``python -m bfs_tpu_torch.runners.run_sequential``.  A graph's relay
 layout is built on the card by :func:`build_relay_graph_device` and kept
 on disk as a content-addressed bundle by :func:`load_or_build_relay`
-(:class:`LayoutCache`; pull layouts by :func:`load_or_build_pull`).
+(:class:`LayoutCache`; pull layouts by :func:`load_or_build_pull`).  The
+public names are imported on first use.
 """
 
-from .cache.layout import LayoutCache, load_or_build_pull, load_or_build_relay
-from .config import ServiceConfiguration
-from .graph.adj_tiles import AdjTiles
-from .graph.csr import INF_DIST, NO_PARENT, DeviceGraph, Graph, build_device_graph
-from .graph.ell import PullGraph, build_pull_graph
-from .graph.generators import gnm_graph, path_graph, rmat_graph, snap_shape_edges, star_graph
-from .graph.io import parse_sedgewick, read_sedgewick, read_snap_edge_list
-from .graph.relay import RelayGraph, build_relay_graph, from_reference_layout
-from .graph.relay_device import build_relay_graph_device
-from .graph.vertex import Color, Vertex, parse_state, path_to, serialize_state
-from .models.bfs import (
-    BfsResult,
-    EdgeEngine,
-    RelayEngine,
-    SuperstepRunner,
-    bfs,
-    bfs_level_curve,
-)
-from .models.direction import (
-    DirectionConfig,
-    DirectionEngine,
-    bfs_direction,
-    bfs_multi_direction,
-    resolve_direction,
-)
-from .models.multisource import (
-    MultiBfsResult,
-    bfs_multi,
-    bfs_multi_device,
-    bfs_multi_level_curve,
-    collapse_multi_source,
-)
-from .ops.relay_mxu import resolve_expansion
-from .oracle.bfs import canonical_bfs, check, queue_bfs
-from .oracle.device import DeviceChecker
+import importlib
 
-__all__ = [
-    "AdjTiles",
-    "BfsResult",
-    "Color",
-    "DeviceChecker",
-    "DeviceGraph",
-    "DirectionConfig",
-    "DirectionEngine",
-    "EdgeEngine",
-    "Graph",
-    "INF_DIST",
-    "LayoutCache",
-    "MultiBfsResult",
-    "NO_PARENT",
-    "PullGraph",
-    "RelayEngine",
-    "RelayGraph",
-    "ServiceConfiguration",
-    "SuperstepRunner",
-    "Vertex",
-    "bfs",
-    "bfs_direction",
-    "bfs_level_curve",
-    "bfs_multi",
-    "bfs_multi_device",
-    "bfs_multi_direction",
-    "bfs_multi_level_curve",
-    "build_device_graph",
-    "build_pull_graph",
-    "build_relay_graph",
-    "build_relay_graph_device",
-    "canonical_bfs",
-    "check",
-    "collapse_multi_source",
-    "from_reference_layout",
-    "gnm_graph",
-    "load_or_build_pull",
-    "load_or_build_relay",
-    "parse_sedgewick",
-    "parse_state",
-    "path_graph",
-    "path_to",
-    "queue_bfs",
-    "read_sedgewick",
-    "read_snap_edge_list",
-    "resolve_direction",
-    "resolve_expansion",
-    "rmat_graph",
-    "serialize_state",
-    "snap_shape_edges",
-    "star_graph",
-]
+#: Public name -> the submodule that defines it, imported on first use
+#: (PEP 562), so that ``import bfs_tpu_torch.knobs`` or the lint
+#: (``python -m bfs_tpu_torch.analysis``) imports no torch.
+_EXPORTS = {
+    "AdjTiles": ".graph.adj_tiles",
+    "BfsResult": ".models.bfs",
+    "Color": ".graph.vertex",
+    "DeviceChecker": ".oracle.device",
+    "DeviceGraph": ".graph.csr",
+    "DirectionConfig": ".models.direction",
+    "DirectionEngine": ".models.direction",
+    "EdgeEngine": ".models.bfs",
+    "Graph": ".graph.csr",
+    "INF_DIST": ".graph.csr",
+    "LayoutCache": ".cache.layout",
+    "MultiBfsResult": ".models.multisource",
+    "NO_PARENT": ".graph.csr",
+    "PullGraph": ".graph.ell",
+    "RelayEngine": ".models.bfs",
+    "RelayGraph": ".graph.relay",
+    "ServiceConfiguration": ".config",
+    "SuperstepRunner": ".models.bfs",
+    "Vertex": ".graph.vertex",
+    "bfs": ".models.bfs",
+    "bfs_direction": ".models.direction",
+    "bfs_level_curve": ".models.bfs",
+    "bfs_multi": ".models.multisource",
+    "bfs_multi_device": ".models.multisource",
+    "bfs_multi_direction": ".models.direction",
+    "bfs_multi_level_curve": ".models.multisource",
+    "build_device_graph": ".graph.csr",
+    "build_pull_graph": ".graph.ell",
+    "build_relay_graph": ".graph.relay",
+    "build_relay_graph_device": ".graph.relay_device",
+    "canonical_bfs": ".oracle.bfs",
+    "check": ".oracle.bfs",
+    "collapse_multi_source": ".models.multisource",
+    "from_reference_layout": ".graph.relay",
+    "gnm_graph": ".graph.generators",
+    "load_or_build_pull": ".cache.layout",
+    "load_or_build_relay": ".cache.layout",
+    "parse_sedgewick": ".graph.io",
+    "parse_state": ".graph.vertex",
+    "path_graph": ".graph.generators",
+    "path_to": ".graph.vertex",
+    "queue_bfs": ".oracle.bfs",
+    "read_sedgewick": ".graph.io",
+    "read_snap_edge_list": ".graph.io",
+    "resolve_direction": ".models.direction",
+    "resolve_expansion": ".ops.relay_mxu",
+    "rmat_graph": ".graph.generators",
+    "serialize_state": ".graph.vertex",
+    "snap_shape_edges": ".graph.generators",
+    "star_graph": ".graph.generators",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module 'bfs_tpu_torch' has no attribute {name!r}")
+    value = getattr(importlib.import_module(module, __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

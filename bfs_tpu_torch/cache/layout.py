@@ -80,17 +80,36 @@ def graph_content_hash(graph) -> str:
     return digest
 
 
+#: The knobs each bundle key hashes (the ``layout``, ``tiles`` and
+#: ``labels`` domains of the knobs' ``affects``; the knob rung proves
+#: them).  None: every builder arm writes the same bytes, so a bundle is a
+#: function of the graph and the layout code alone, and the keys stay the
+#: reference's.
+_LAYOUT_ENV: tuple = ()
+_TILES_ENV: tuple = ()
+_LABELS_ENV: tuple = ()
+
+
+def _env_suffix(names: tuple) -> str:
+    """The raw values of ``names`` folded into a key: "" for no knob."""
+    if not names:
+        return ""
+    h = hashlib.blake2b(";".join(f"{n}={knobs.raw(n)}" for n in names).encode(), digest_size=6)
+    return f"_e{h.hexdigest()}"
+
+
 def relay_key(graph) -> str:
     from ..graph.relay import COMPACT_MIN_D, LAYOUT_VERSION
 
     return (
         f"relay_v{LAYOUT_VERSION}c{COMPACT_MIN_D}_s{STORE_VERSION}"
-        f"_{graph_content_hash(graph)}"
+        f"_{graph_content_hash(graph)}{_env_suffix(_LAYOUT_ENV)}"
     )
 
 
 def pull_key(graph, k: int, row_multiple: int) -> str:
-    return f"pull_k{k}r{row_multiple}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+    return (f"pull_k{k}r{row_multiple}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+            f"{_env_suffix(_LAYOUT_ENV)}")
 
 
 def _fingerprint(arr: np.ndarray) -> str:
@@ -365,7 +384,7 @@ def tiles_key(rg) -> str:
         h.update(str(a.dtype).encode())
         h.update(memoryview(a))
     h.update(np.int64(rg.vr).tobytes())
-    return f"adjtiles_v{TILES_VERSION}_s{STORE_VERSION}_{h.hexdigest()}"
+    return f"adjtiles_v{TILES_VERSION}_s{STORE_VERSION}_{h.hexdigest()}{_env_suffix(_TILES_ENV)}"
 
 
 def load_or_build_tiles(rg, *, cache: LayoutCache | None = None,
@@ -408,6 +427,51 @@ def load_or_build_tiles(rg, *, cache: LayoutCache | None = None,
     return at, info
 
 
+def verify_tiles_bundle(rg, *, cache: LayoutCache | None = None) -> dict:
+    """Integrity report of the tiles sidecar bundle of ``rg``, building
+    nothing on a miss (``cache_warm --tiles``'s check): the bundle loaded
+    (every array fingerprint-checked by :meth:`LayoutCache.load`, so a
+    corrupt field reads as ``absent``), then the geometry the streamed host
+    store (:mod:`bfs_tpu_torch.stream.store`) leans on: the version and
+    shape against the relay layout, a monotone ``sb_indptr`` closing at
+    ``nt``, every real tile's row and column id inside the padded spaces.
+    JSON-ready; never raises on a bad bundle."""
+    from ..graph.adj_tiles import SB_VERTS, TILE, TILES_VERSION, tiles_from_arrays
+
+    cache = cache if cache is not None else LayoutCache()
+    key = tiles_key(rg)
+    loaded = cache.load(key)
+    if loaded is None:
+        return {"key": key, "ok": False, "status": "absent"}
+    _doc, arrays = loaded
+    try:
+        at = tiles_from_arrays(arrays)
+    except Exception as exc:  # a stale dims row, shape drift
+        return {"key": key, "ok": False, "status": f"unreadable: {exc}"}
+    problems = []
+    if int(arrays["dims"][0]) != TILES_VERSION:
+        problems.append(f"tiles version {int(arrays['dims'][0])} != {TILES_VERSION}")
+    if at.rows != rg.vr:
+        problems.append(f"rows {at.rows} != relay vr {rg.vr}")
+    sb = np.asarray(arrays["sb_indptr"]).astype(np.int64)
+    if not (np.all(np.diff(sb) >= 0) and int(sb[0]) == 0 and int(sb[-1]) == at.nt):
+        problems.append("sb_indptr not a monotone span table closing at nt")
+    nt = at.nt
+    if nt:
+        if int(np.asarray(arrays["row_idx"][:nt]).max()) >= at.rtp // TILE:
+            problems.append("real tile row_idx outside the padded row space")
+        if int(np.asarray(arrays["col_id"][:nt]).max()) >= at.vtp // TILE:
+            problems.append("real tile col_id outside the padded col space")
+    return {
+        "key": key,
+        "ok": not problems,
+        "status": "ok" if not problems else "; ".join(problems),
+        "num_tiles": int(at.nt),
+        "num_superblocks": int(at.vtp // SB_VERTS),
+        "tile_bytes": int(at.nbytes),
+    }
+
+
 def labels_key(graph, k: int) -> str:
     """Content key of the landmark distance-label sidecar bundle: (graph
     content, K, label code version), the reference's key.  Landmark
@@ -416,7 +480,8 @@ def labels_key(graph, k: int) -> str:
     no landmark list."""
     from ..serve.labels import LABELS_VERSION
 
-    return f"labels_k{int(k)}_v{LABELS_VERSION}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+    return (f"labels_k{int(k)}_v{LABELS_VERSION}_s{STORE_VERSION}_{graph_content_hash(graph)}"
+            f"{_env_suffix(_LABELS_ENV)}")
 
 
 def load_or_build_labels(graph, k: int, *, cache: LayoutCache | None = None,
@@ -545,7 +610,7 @@ def probe_verdict_key(eng) -> str:
     h.update(repr(geo).encode())
     h.update(f"{torch.__version__}|{torch.version.cuda}|{device_name(eng.device)}".encode())
     for knob in _PROBE_ENV:
-        h.update(f"{knob}={os.environ.get(knob, '')}".encode())
+        h.update(f"{knob}={knobs.raw(knob)}".encode())
     return f"probe_{h.hexdigest()}"
 
 

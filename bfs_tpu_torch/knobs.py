@@ -58,9 +58,34 @@ mirror knobs of the reference's registry of the same names without
                                                  arm: auto | gather | mxu
   BFS_TPU_TORCH_PHASE_PROBE      enum    ""      force: run the expansion
                                                  probe on the CPU too
+  BFS_TPU_TORCH_TRANSFER_GUARD   spec    ""      sync guard over the hot
+                                                 regions: 0/off | 1/disallow
+                                                 (error) | log (warn)
+  BFS_TPU_TORCH_LOCK_ORDER       spec    ""      lock-order recorder on the
+                                                 serve locks: 0/off |
+                                                 1/record | raise
   ============================== ======= ======= ==========================
 
-A knob whose value changes what a run measures carries a ``journal_key``:
+Each knob also declares ``affects``: the content keys its value must be
+part of, one domain per key builder (:func:`flavor_env` derives each
+domain's tuple; ``python -m bfs_tpu_torch.analysis --knobs`` proves every
+builder hashes exactly its domain's knobs):
+
+* ``layout`` / ``tiles`` / ``labels`` -- the relay and pull, tiles and
+  label bundle keys (``cache/layout.py`` ``_LAYOUT_ENV``, ``_TILES_ENV``,
+  ``_LABELS_ENV``; no knob: every builder arm writes the same bytes);
+* ``probe`` -- the probe verdict's key (``cache/layout.py``
+  ``_PROBE_ENV``);
+* ``journal`` -- a run journal's config (``resilience/journal.py``
+  ``ENV_CONFIG_KEYS``, under each knob's ``journal_key``);
+* ``serve`` -- the serve registry's resident-engine key
+  (``serve/registry.py`` ``ENGINE_FLAVOR_ENV``).
+
+``scope`` is ``call`` (read when a run resolves it) or ``import`` (baked
+into a module constant); ``canary`` is a value the parser must refuse
+(None only for the free-form ``path`` knobs).
+
+A knob in the ``journal`` domain carries a ``journal_key``:
 its field in a :class:`~bfs_tpu_torch.resilience.journal.RunJournal`
 config, under the reference's field name, so one configuration keys one
 journal in either package.  :func:`journal_map` derives the fields from
@@ -85,6 +110,9 @@ class Knob:
     parse: Callable[[str], object]
     help: str
     journal_key: str | None = None
+    affects: frozenset = frozenset()
+    scope: str = "call"
+    canary: str | None = None
 
 
 def _enum(*choices: str):
@@ -171,76 +199,129 @@ def _positive_float(raw: str) -> float:
     return value
 
 
+def _transfer_guard(raw: str) -> str | None:
+    """The sync-debug mode of a guarded region: None (off), ``"error"``
+    (the reference's ``disallow``) or ``"warn"`` (its ``log``)."""
+    s = raw.strip().lower()
+    if s in ("", "0", "off", "false", "allow"):
+        return None
+    if s in ("1", "on", "true", "disallow", "error"):
+        return "error"
+    if s in ("log", "warn"):
+        return "warn"
+    raise ValueError("use 0/off | 1/disallow | log")
+
+
+def _lock_order(raw: str) -> str | None:
+    """None (off), ``"record"`` or ``"raise"``."""
+    s = raw.strip().lower()
+    if s in ("", "0", "off", "false"):
+        return None
+    if s == "raise":
+        return "raise"
+    if s in ("1", "on", "true", "record"):
+        return "record"
+    raise ValueError("use 0/off | 1/record | raise")
+
+
+_JS = ("journal", "serve")
+
 KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_DIRECTION", "enum", "auto", _enum("push", "pull", "auto"),
          "traversal body: force push or pull, or switch per superstep on the "
-         "alpha/beta thresholds", journal_key="direction"),
+         "alpha/beta thresholds", journal_key="direction", affects=frozenset(_JS),
+         canary="sideways"),
     Knob("BFS_TPU_TORCH_DIRECTION_ALPHA", "float", "14.0", _positive_float,
          "direction switch: enter pull when frontier out-edge mass * alpha "
-         "exceeds the unexplored mass", journal_key="direction_alpha"),
+         "exceeds the unexplored mass", journal_key="direction_alpha",
+         affects=frozenset(_JS), canary="fast"),
     Knob("BFS_TPU_TORCH_DIRECTION_BETA", "float", "24.0", _positive_float,
          "direction switch: stay in pull while frontier occupancy * beta "
-         "exceeds n", journal_key="direction_beta"),
+         "exceeds n", journal_key="direction_beta", affects=frozenset(_JS), canary="-1"),
     Knob("BFS_TPU_TORCH_LAYOUT_BUILD", "enum", "device", _enum("device", "host"),
          "relay layout builder of load_or_build_relay; host is the oracle, "
-         "byte-identical"),
+         "byte-identical", canary="tpu"),
     Knob("BFS_TPU_TORCH_CACHE_DIR", "path", "", _path,
          "root of the persistent artifact caches (default <repo>/.bench_cache)"),
     Knob("BFS_TPU_TORCH_FAULT", "spec", "", _fault,
          "fault injection at a named phase boundary (resilience/faults.py): "
-         "kill|raise|phase:<phase>[:nth] | delay:<phase>[:seconds]"),
+         "kill|raise|phase:<phase>[:nth] | delay:<phase>[:seconds]", canary="explode"),
     Knob("BFS_TPU_TORCH_CKPT", "spec", "off", _ckpt,
          "superstep checkpointing: off | every:<k> | auto (Young/Daly interval); "
-         "selects the fused or the segmented runs"),
+         "selects the fused or the segmented runs", canary="sometimes"),
     Knob("BFS_TPU_TORCH_CKPT_MTBF_S", "float", "600.0", _positive_float,
-         "mean-time-between-failures prior of the auto checkpoint interval"),
+         "mean-time-between-failures prior of the auto checkpoint interval", canary="-3"),
     Knob("BFS_TPU_TORCH_SSSP_DELTA", "spec", "64", _delta,
          "delta-stepping bucket width of sssp (int, or inf/single for plain "
-         "frontier Bellman-Ford); non-positive = one bucket", journal_key="sssp_delta"),
+         "frontier Bellman-Ford); non-positive = one bucket", journal_key="sssp_delta",
+         affects=frozenset({"journal"}), canary="wide"),
     Knob("BFS_TPU_TORCH_TILES", "enum", "resident", _enum("resident", "stream", "auto"),
          "where the MXU arm's adjacency tiles live: on the card, streamed per "
          "superblock from pinned host memory, or streamed when over the cache budget",
-         journal_key="tiles"),
+         journal_key="tiles", affects=frozenset({"journal"}), canary="hbm"),
     Knob("BFS_TPU_TORCH_TILES_BUILD", "enum", "device", _enum("device", "host"),
-         "adjacency-tile builder; host is the numpy oracle, byte-identical"),
+         "adjacency-tile builder; host is the numpy oracle, byte-identical", canary="gpu"),
     Knob("BFS_TPU_TORCH_STREAM_CACHE_GB", "float", "1", _positive_float,
          "the streamed arm's device superblock cache budget (LRU, a single "
-         "oversized superblock allowed)", journal_key="stream_cache_gb"),
+         "oversized superblock allowed)", journal_key="stream_cache_gb",
+         affects=frozenset({"journal"}), canary="big"),
     Knob("BFS_TPU_TORCH_STREAM_VERIFY", "flag", "0", _flag,
          "fingerprint a streamed superblock again on every cache hit; a corrupt "
-         "entry is dropped and fetched again"),
+         "entry is dropped and fetched again", canary="yes"),
     Knob("BFS_TPU_TORCH_TILES_CACHE", "flag", "0", _flag,
-         "keep built adjacency-tile bundles in the layout store"),
+         "keep built adjacency-tile bundles in the layout store", canary="yes"),
     Knob("BFS_TPU_TORCH_LABELS", "spec", "off", _labels,
          "landmark distance-label tier: off | <K> landmark roots swept at the "
          "server's register(); point queries answer from labels where the "
-         "tightness certificate holds", journal_key="labels"),
+         "tightness certificate holds", journal_key="labels",
+         affects=frozenset({"journal"}), canary="many"),
     Knob("BFS_TPU_TORCH_LABELS_GB", "float", "2", _positive_float,
          "device budget of the resident label rows (uint16[K, V]); an index "
-         "over it serves exact-only"),
+         "over it serves exact-only", canary="big"),
     Knob("BFS_TPU_TORCH_LABELS_VERIFY", "int", "0", _int_at_least(0),
          "check every Nth tight label answer against the exact traversal; a "
-         "mismatch quarantines the index (0 = off)"),
+         "mismatch quarantines the index (0 = off)", canary="-1"),
     Knob("BFS_TPU_TORCH_ROUTER_FAILURES", "int", "2", _int_at_least(1),
          "fleet router per-replica breaker: consecutive failures before the "
-         "replica is routed around"),
+         "replica is routed around", canary="0"),
     Knob("BFS_TPU_TORCH_ROUTER_COOLDOWN_S", "float", "2.0", _positive_float,
-         "fleet router breaker cooldown before an opened replica is tried again"),
+         "fleet router breaker cooldown before an opened replica is tried again",
+         canary="slow"),
     Knob("BFS_TPU_TORCH_JOURNAL", "flag", "1", _flag,
          "run journal of the tools (graph500_run): completed phases are kept "
-         "and skipped when the run is made again; 0 disables"),
+         "and skipped when the run is made again; 0 disables", canary="off"),
     Knob("BFS_TPU_TORCH_JOURNAL_DIR", "path", "", _path,
          "run-journal directory (default <cache root>/journal)"),
     Knob("BFS_TPU_TORCH_SPANS", "flag", "1", _flag,
-         "phase spans (obs/spans.py); 0 disables"),
+         "phase spans (obs/spans.py); 0 disables", canary="yes"),
     Knob("BFS_TPU_TORCH_EXPANSION", "enum", "auto", _enum("auto", "gather", "mxu"),
          "the relay engine's dense-frontier expansion arm: the Benes relay gather, "
          "the tiled masked product (mxu_expand), or auto: measured at engine "
-         "init on a card where the tiles fit their budget", journal_key="expansion"),
+         "init on a card where the tiles fit their budget", journal_key="expansion",
+         affects=frozenset(_JS), canary="dense"),
     Knob("BFS_TPU_TORCH_PHASE_PROBE", "enum", "", _enum("", "force"),
          "force the expansion probe on the CPU too (the plain arms); '' probes "
-         "on a card only"),
+         "on a card only", affects=frozenset({"probe"}), canary="maybe"),
+    Knob("BFS_TPU_TORCH_TRANSFER_GUARD", "spec", "", _transfer_guard,
+         "torch.cuda sync-debug mode over the hot regions "
+         "(analysis/runtime.py guarded_region): 0/off | 1/disallow (error) | log (warn)",
+         canary="never ever"),
+    Knob("BFS_TPU_TORCH_LOCK_ORDER", "spec", "", _lock_order,
+         "lock-order recorder on the named serve locks (analysis/runtime.py "
+         "make_lock): 0/off | 1/record | raise", canary="maybe"),
 )}
+
+
+def parse_value(name: str, raw: str):
+    """``raw`` parsed as knob ``name``; a value its parser refuses raises
+    ``ValueError`` naming the knob, an unregistered name ``KeyError``."""
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"{name} is not a registered knob (bfs_tpu_torch/knobs.py)")
+    try:
+        return knob.parse(raw)
+    except ValueError as err:
+        raise ValueError(f"{name}={raw!r}: {err}") from None
 
 
 def get(name: str):
@@ -250,15 +331,25 @@ def get(name: str):
     knob = KNOBS.get(name)
     if knob is None:
         raise KeyError(f"{name} is not a registered knob (bfs_tpu_torch/knobs.py)")
-    raw = os.environ.get(name) or knob.default
-    try:
-        return knob.parse(raw)
-    except ValueError as err:
-        raise ValueError(f"{name}={raw!r}: {err}") from None
+    return parse_value(name, os.environ.get(name) or knob.default)
+
+
+def raw(name: str) -> str:
+    """The unparsed environment value of a registered knob ("" when unset):
+    what a key builder hashes."""
+    if name not in KNOBS:
+        raise KeyError(f"{name} is not a registered knob (bfs_tpu_torch/knobs.py)")
+    return os.environ.get(name) or ""
+
+
+def flavor_env(domain: str) -> tuple:
+    """The sorted names of the knobs that declare ``domain`` in ``affects``."""
+    return tuple(sorted(k.name for k in KNOBS.values() if domain in k.affects))
 
 
 def journal_map() -> dict[str, str]:
-    """``{journal config key: knob name}`` of the knobs that carry a
-    ``journal_key``, sorted by key: the fields every run journal's config
-    holds (:func:`bfs_tpu_torch.resilience.journal.env_config`)."""
-    return dict(sorted((k.journal_key, k.name) for k in KNOBS.values() if k.journal_key))
+    """``{journal config key: knob name}`` of the knobs in the ``journal``
+    domain, sorted by key: the fields every run journal's config holds
+    (:func:`bfs_tpu_torch.resilience.journal.env_config`)."""
+    return dict(sorted((k.journal_key, k.name) for k in KNOBS.values()
+                       if "journal" in k.affects))

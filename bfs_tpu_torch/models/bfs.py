@@ -91,6 +91,7 @@ import numpy as np
 import torch
 
 from .. import knobs
+from ..analysis.runtime import explicit_transfer
 from ..graph.csr import DeviceGraph, Graph, INF_DIST, build_device_graph
 from ..graph.ell import PullGraph, build_pull_graph, device_ell
 from ..graph.relay import RelayGraph, build_relay_graph, valid_slot_words
@@ -680,6 +681,7 @@ class RelayEngine:
         def make_step(body: int):
             code = (T.DIR_PUSH, T.DIR_PULL)[body]
 
+            # bfs_tpu_torch: hot captured
             def step():
                 if body:
                     self._gated_dense(state, ctl)
@@ -875,15 +877,15 @@ class RelayEngine:
         recorder runs before the control step.  ``trees`` S: the lock-step
         batch's carry ``(packed[S, vr], fwords[S, vr/32], ctl)``, kept under
         ``("multi_packed", S)``."""
-        vr = self.relay_graph.vr
-        lead = () if trees is None else (trees,)
-
         def make():
+            vr = self.relay_graph.vr
+            lead = () if trees is None else (trees,)
             packed, fwords = self._empty(*lead, vr), self._empty(*lead, vr // 32)
             ctl = C.new_ctl(self.device)
             state = R.PackedRelayState(packed, fwords, None, None)
             tel, record = self._telemetry(fwords, telemetry)
 
+            # bfs_tpu_torch: hot captured
             def step():
                 self._gated_dense(state, ctl)
                 record(ctl)
@@ -899,16 +901,16 @@ class RelayEngine:
         then the gated merge (torch ops) copied into the carry, its flag
         raised, then the control step (telemetry as on the packed carry;
         ``trees`` as there, kept under ``("multi_unpacked", S)``)."""
-        vr = self.relay_graph.vr
-        lead = () if trees is None else (trees,)
-
         def make():
+            vr = self.relay_graph.vr
+            lead = () if trees is None else (trees,)
             dist, parent = self._empty(*lead, vr), self._empty(*lead, vr)
             fwords = self._empty(*lead, vr // 32)
             ctl = C.new_ctl(self.device)
             state = R.RelayState(dist, parent, fwords, None, None)
             tel, record = self._telemetry(fwords, telemetry)
 
+            # bfs_tpu_torch: hot captured
             def step():
                 self._gated_dense(state, ctl)
                 record(ctl)
@@ -1336,7 +1338,7 @@ class RelayEngine:
         flavor = self.expansion if flavor is None else flavor
         par = parent if flavor == "mxu" else slots_to_parent(parent, self.src_l1)
         dist_o, par_o = dist_new[self.old2new], par[self.old2new]
-        par_o[int(source)] = int(source)  # the source's slot entry is not a parent
+        par_o[int(source)].fill_(int(source))  # the source's slot entry is not a parent
         return dist_o, par_o
 
     def to_original_device(self, state, source: int):
@@ -1412,15 +1414,15 @@ class RelayEngine:
         for ``groups`` groups (one loop per group count): the gated
         superstep, the next frontier written into the carry's own buffer,
         then the control step."""
-        rg = self.relay_graph
-        _, pt = RE.rank_plane_layout(rg.in_classes)
-
         def make():
+            rg = self.relay_graph
+            _, pt = RE.rank_plane_layout(rg.in_classes)
             carry = (self._empty(groups, rg.vr), self._empty(groups, rg.vr),
                      self._empty(RE.DIST_PLANES, groups, rg.vr), self._empty(groups, pt))
             ctl = C.new_ctl(self.device)
             state = RE.ElemState(*carry, None, None)
 
+            # bfs_tpu_torch: hot captured
             def step():
                 self.superstep_elem(state, frontier_out=carry[1], ctl=ctl)
                 K.loop_control(ctl)
@@ -1558,7 +1560,8 @@ class RelayEngine:
         par = state.parent if self.expansion == "mxu" else slots_to_parent(state.parent,
                                                                             self.src_l1)
         dist, parent = state.dist[:, self.old2new], par[:, self.old2new]
-        src = torch.from_numpy(sources.astype(np.int64)).to(self.device)
+        with explicit_transfer():  # the sources' intended upload
+            src = torch.from_numpy(sources.astype(np.int64)).to(self.device)
         # The sources' own entries hold relabeled ids or slots, not parents.
         parent[torch.arange(sources.shape[0], device=self.device), src] = src.to(torch.int32)
         dist, parent = to_host(dist, parent)
@@ -1576,9 +1579,10 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     if not tensors or tensors[0].device.type != "cuda":
         return [t.numpy().copy() for t in tensors]
     host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    for h, t in zip(host, tensors):
-        h.copy_(t, non_blocking=True)
-    torch.cuda.current_stream().synchronize()
+    with explicit_transfer():  # the result's intended copy to the host
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
     return [h.numpy() for h in host]
 
 
@@ -1674,6 +1678,7 @@ class EdgeEngine:
             fields, state = self.carry(packed, trees)
             ctl = C.new_ctl(self.device)
 
+            # bfs_tpu_torch: hot captured
             def step():
                 self.gated_step(state, fields, ctl)
                 K.loop_control(ctl)

@@ -45,6 +45,7 @@ from typing import Callable
 
 import torch
 
+from ..analysis.runtime import bump_retrace, explicit_transfer
 from ..ops import control as C
 from ..ops import relay_cuda as K
 
@@ -144,8 +145,11 @@ class BlockLoop:
     the same Python callable eagerly and under capture."""
 
     def __init__(self, buffers: tuple[torch.Tensor, ...], step: Callable[[], None],
-                 k: int | None = None):
+                 k: int | None = None, name: str = "loop"):
         self.buffers = buffers
+        #: The key its captures are counted under (``analysis.runtime``'s
+        #: retrace report): the carry kind of :func:`cached`.
+        self.name = name
         self.ctl = buffers[-1]
         self.step = step
         self.k = BLOCK if k is None else int(k)
@@ -162,7 +166,9 @@ class BlockLoop:
         global _captures
         self.graph, self.per_block = capture(self.step, self.k)
         _captures += 1
+        bump_retrace(f"loop.capture/{self.name}")
 
+    # bfs_tpu_torch: hot
     def issue(self, stats: LoopStats) -> None:
         """Issue one block on the current stream (no host read): eagerly on
         the CPU; on a card the graph's replay, the first time after one
@@ -195,6 +201,7 @@ class BlockLoop:
 
     # -- the host's side ------------------------------------------------------
 
+    # bfs_tpu_torch: hot
     def run(self, live: bool) -> LoopStats:
         """Issue blocks until the control block reads not LIVE; ``live`` is
         LIVE as the caller initialised it (no block when it is 0)."""
@@ -246,13 +253,14 @@ class SwitchLoop:
     def __init__(self, buffers: tuple[torch.Tensor, ...], steps: dict[int, Callable[[], None]]):
         self.buffers = buffers
         self.ctl = buffers[-1]
-        self.bodies = {body: BlockLoop(buffers, step, k=1) for body, step in steps.items()}
+        self.bodies = {body: BlockLoop(buffers, step, k=1, name=f"switch/{body}")
+                       for body, step in steps.items()}
 
     def _prepare(self) -> None:
         for loop in self.bodies.values():
             if loop.on_card and loop.graph is None:
                 saved = self.ctl.clone()
-                self.ctl[C.LIVE] = 0
+                self.ctl[C.LIVE].fill_(0)
                 loop.step()
                 self.ctl.copy_(saved)
                 loop._capture()
@@ -278,6 +286,7 @@ class SwitchLoop:
         moved to ``seg_end``."""
         return self.run(C.set_cap(self.ctl, seg_end, level, changed), times)
 
+    # bfs_tpu_torch: hot
     def run(self, live: bool, times: list | None = None) -> tuple[LoopStats, dict[int, int]]:
         """Issue supersteps, each of the body the control block's USE_PULL
         word names, until it reads not LIVE; ``live`` is LIVE as the caller
@@ -320,7 +329,7 @@ def cached(loops: dict, kind, make, k: int | None = None) -> BlockLoop:
     key = (kind, k)
     loop = loops.get(key)
     if loop is None:
-        loop = loops[key] = BlockLoop(*make(), k=k)
+        loop = loops[key] = BlockLoop(*make(), k=k, name=f"{kind}/{k}")
     return loop
 
 
@@ -362,6 +371,7 @@ def read_ctls(ctls: list[torch.Tensor], stats: LoopStats) -> list[list[int]]:
     if both.device.type != "cuda":
         return both.tolist()
     host = torch.empty(both.shape, dtype=both.dtype, pin_memory=True)
-    host.copy_(both, non_blocking=True)
-    torch.cuda.current_stream().synchronize()
+    with explicit_transfer():  # the loop's one intended host read
+        host.copy_(both, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
     return host.tolist()

@@ -1,7 +1,8 @@
 """One process-global :class:`MetricsRegistry`: every counter behind one
-snapshot.  The port of ``bfs_tpu.obs.registry`` without the reference's
-retrace counters: the port compiles no traced programs, so its snapshot,
-``to_json`` and ``to_prometheus`` take no ``retrace_baseline``.
+snapshot.  The port of ``bfs_tpu.obs.registry``.  Its retrace counters are
+the port's counterparts of a retrace (a loop's CUDA-graph capture, a serve
+executable's build; :mod:`bfs_tpu_torch.analysis.runtime`), with their
+drift since a ``retrace_baseline`` snapshot when one is passed.
 
 Free-form counters live here (``graph_evictions``, ``watchdog_timeouts``);
 every :class:`~bfs_tpu_torch.utils.metrics.ServeMetrics` registers itself
@@ -26,8 +27,8 @@ class MetricsRegistry:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._counters: dict[str, int] = {}  # guarded by _lock
-        self._serve: list = []  # guarded by _lock: weakref.ref of ServeMetrics
+        self._counters: dict[str, int] = {}  # guarded-by: _lock
+        self._serve: list = []  # guarded-by: _lock (weakref.ref of ServeMetrics)
 
     def counter(self, name: str, by: int = 1) -> None:
         with self._lock:
@@ -54,28 +55,38 @@ class MetricsRegistry:
             refs = list(self._serve)
         return [m.report() for m in (r() for r in refs) if m is not None]
 
-    def snapshot(self) -> dict:
-        """Registry counters, artifact caches, span summary and every live
-        ServeMetrics report."""
+    def snapshot(self, retrace_baseline: dict | None = None) -> dict:
+        """Registry counters, artifact caches, retrace counters (with each
+        key's drift since ``retrace_baseline`` when given: a non-zero drift
+        after warm-up names the loop or executable rebuilt), span summary
+        and every live ServeMetrics report."""
+        from ..analysis.runtime import retrace_report
         from ..utils.metrics import artifact_report
         from .spans import span_report
 
-        return {
+        retraces = retrace_report()
+        out = {
             "counters": self.counters(),
             "artifact_caches": artifact_report(),
+            "retraces": retraces,
             "spans": span_report(),
             "serve": self._serve_reports(),
         }
+        if retrace_baseline is not None:
+            out["retrace_drift"] = {name: n - retrace_baseline.get(name, 0)
+                                    for name, n in retraces.items()
+                                    if n - retrace_baseline.get(name, 0)}
+        return out
 
-    def to_json(self) -> str:
-        return json.dumps(self.snapshot(), indent=2, sort_keys=True)
+    def to_json(self, retrace_baseline: dict | None = None) -> str:
+        return json.dumps(self.snapshot(retrace_baseline), indent=2, sort_keys=True)
 
-    def to_prometheus(self) -> str:
-        return prometheus_text(self.snapshot())
+    def to_prometheus(self, retrace_baseline: dict | None = None) -> str:
+        return prometheus_text(self.snapshot(retrace_baseline))
 
 
 _REGISTRY_LOCK = threading.Lock()
-_REGISTRY: list[MetricsRegistry] = []  # guarded by _REGISTRY_LOCK
+_REGISTRY: list[MetricsRegistry] = []  # guarded-by: _REGISTRY_LOCK
 
 
 def get_registry() -> MetricsRegistry:

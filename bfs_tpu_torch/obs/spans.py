@@ -32,10 +32,10 @@ from .. import knobs
 MAX_EVENTS = 200_000
 
 _lock = threading.Lock()
-_events: list[dict] = []  # guarded by _lock
-_dropped = 0  # guarded by _lock
-_open: dict[int, dict] = {}  # guarded by _lock: span id -> start info
-_next_id = [0]  # guarded by _lock
+_events: list[dict] = []  # guarded-by: _lock
+_dropped = 0  # guarded-by: _lock
+_open: dict[int, dict] = {}  # guarded-by: _lock (span id -> start info)
+_next_id = [0]  # guarded-by: _lock
 
 
 def spans_enabled() -> bool:

@@ -50,14 +50,24 @@ def new_ctl(device) -> torch.Tensor:
     return torch.zeros(WORDS, dtype=torch.int32, device=device)
 
 
+def _put(ctl: torch.Tensor, word: int, value) -> None:
+    """``ctl[word] = value`` as a device fill (a device copy for a tensor
+    ``value``): a Python scalar stored by indexing is copied from the host,
+    a host sync."""
+    if isinstance(value, torch.Tensor):
+        ctl[word].copy_(value)
+    else:
+        ctl[word].fill_(int(value))
+
+
 def init_ctl(ctl: torch.Tensor, cap: int) -> bool:
     """Start a run of at most ``cap`` levels in ``ctl``, in place, with
     device fills only (no copy from the host); returns LIVE."""
     live = int(cap) > 0
     ctl.zero_()
-    ctl[CHANGED] = 1
-    ctl[CAP] = int(cap)
-    ctl[LIVE] = int(live)
+    _put(ctl, CHANGED, 1)
+    _put(ctl, CAP, cap)
+    _put(ctl, LIVE, live)
     return live
 
 
@@ -68,11 +78,11 @@ def resume_ctl(ctl: torch.Tensor, level: int, changed: bool, cap: int, use_pull=
     Returns LIVE."""
     live = bool(changed) and int(level) < int(cap)
     ctl.zero_()
-    ctl[LEVEL] = int(level)
-    ctl[CHANGED] = int(bool(changed))
-    ctl[CAP] = int(cap)
-    ctl[USE_PULL] = use_pull
-    ctl[LIVE] = int(live)
+    _put(ctl, LEVEL, level)
+    _put(ctl, CHANGED, bool(changed))
+    _put(ctl, CAP, cap)
+    _put(ctl, USE_PULL, use_pull)
+    _put(ctl, LIVE, live)
     return live
 
 
@@ -82,9 +92,9 @@ def set_cap(ctl: torch.Tensor, cap: int, level: int, changed: bool) -> bool:
     STEPS cleared, in place, with device fills; LEVEL, CHANGED and
     USE_PULL stay as the last superstep left them.  Returns LIVE."""
     live = bool(changed) and int(level) < int(cap)
-    ctl[CAP] = int(cap)
-    ctl[STEPS] = 0
-    ctl[LIVE] = int(live)
+    _put(ctl, CAP, cap)
+    _put(ctl, STEPS, 0)
+    _put(ctl, LIVE, live)
     return live
 
 

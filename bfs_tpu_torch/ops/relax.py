@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..analysis.runtime import explicit_transfer
 from . import control as C
 from .packed import INT32_MAX, level_bits, merge_packed, packed_dist, packed_parent
 
@@ -87,7 +88,8 @@ def _scalars(device):
 
 def _grid(sources, device):
     """Row and column indices of tree s's source, ``(s, sources[s])``."""
-    cols = torch.as_tensor([int(x) for x in sources], dtype=torch.int64).to(device)
+    with explicit_transfer():  # the sources' intended upload
+        cols = torch.as_tensor([int(x) for x in sources], dtype=torch.int64).to(device)
     return torch.arange(cols.shape[0], device=device), cols
 
 
@@ -96,11 +98,11 @@ def init_state(num_vertices: int, source: int, device="cpu") -> BfsState:
     parent; everything else unreached."""
     n, s = num_vertices + 1, int(source)
     dist = torch.full((n,), INT32_MAX, dtype=torch.int32, device=device)
-    dist[s] = 0
+    dist[s].fill_(0)  # device fills: a scalar stored by indexing syncs
     parent = torch.full((n,), -1, dtype=torch.int32, device=device)
-    parent[s] = s
+    parent[s].fill_(s)
     frontier = torch.zeros(n, dtype=torch.bool, device=device)
-    frontier[s] = True
+    frontier[s].fill_(True)
     return BfsState(dist, parent, frontier, *_scalars(device))
 
 
@@ -110,11 +112,12 @@ def init_batched_state(num_vertices: int, sources, device="cpu") -> BfsState:
     rows, cols = _grid(sources, device)
     shape = (rows.shape[0], num_vertices + 1)
     dist = torch.full(shape, INT32_MAX, dtype=torch.int32, device=device)
-    dist[rows, cols] = 0
     parent = torch.full(shape, -1, dtype=torch.int32, device=device)
-    parent[rows, cols] = cols.to(torch.int32)
     frontier = torch.zeros(shape, dtype=torch.bool, device=device)
-    frontier[rows, cols] = True
+    with explicit_transfer():  # the scalar values of the seeds' stores
+        dist[rows, cols] = 0
+        parent[rows, cols] = cols.to(torch.int32)
+        frontier[rows, cols] = True
     return BfsState(dist, parent, frontier, *_scalars(device))
 
 

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..analysis.runtime import explicit_transfer
 from ..graph.relay import StageSpec
 from .control import level_live
 from .packed import (
@@ -91,16 +92,16 @@ class PackedRelayState(NamedTuple):
 def _source_fwords(vr: int, source_new: int, device) -> torch.Tensor:
     fwords = torch.zeros(vr // 32, dtype=torch.int32, device=device)
     bit = 1 << (source_new & 31)
-    fwords[source_new >> 5] = bit - (1 << 32) if bit >= 1 << 31 else bit
+    fwords[source_new >> 5].fill_(bit - (1 << 32) if bit >= 1 << 31 else bit)  # a device fill
     return fwords
 
 
 def init_relay_state(vr: int, source_new: int, device="cpu") -> RelayState:
     source_new = int(source_new)
     dist = torch.full((vr,), INT32_MAX, dtype=torch.int32, device=device)
-    dist[source_new] = 0
+    dist[source_new].fill_(0)
     parent = torch.full((vr,), -1, dtype=torch.int32, device=device)
-    parent[source_new] = source_new
+    parent[source_new].fill_(source_new)
     return RelayState(
         dist, parent, _source_fwords(vr, source_new, device), 0,
         torch.ones((), dtype=torch.bool, device=device),
@@ -112,7 +113,7 @@ def init_packed_relay_state(vr: int, source_new: int, device="cpu") -> PackedRel
     self-parent up host-side, as on the unpacked path."""
     source_new = int(source_new)
     packed = torch.full((vr,), -1, dtype=torch.int32, device=device)  # sentinel
-    packed[source_new] = 0
+    packed[source_new].fill_(0)
     return PackedRelayState(
         packed, _source_fwords(vr, source_new, device), 0,
         torch.ones((), dtype=torch.bool, device=device),
@@ -126,20 +127,22 @@ def init_relay_batch(vr: int, sources_new, device="cpu", packed: bool = True):
     the reference's ``vmap`` of them; ``level`` 0, ``changed`` True."""
     src = np.asarray(sources_new, dtype=np.int64).reshape(-1)
     trees = src.shape[0]
-    rows = torch.arange(trees, device=device)
-    at = torch.from_numpy(src).to(device)
-    bits = torch.from_numpy((np.uint32(1) << (src & 31).astype(np.uint32)).view(np.int32))
-    fwords = torch.zeros((trees, vr // 32), dtype=torch.int32, device=device)
-    fwords[rows, at >> 5] = bits.to(device)
-    changed = torch.ones((), dtype=torch.bool, device=device)
-    if packed:
-        words = torch.full((trees, vr), -1, dtype=torch.int32, device=device)  # sentinel
-        words[rows, at] = 0
-        return PackedRelayState(words, fwords, 0, changed)
-    dist = torch.full((trees, vr), INT32_MAX, dtype=torch.int32, device=device)
-    dist[rows, at] = 0
-    parent = torch.full((trees, vr), -1, dtype=torch.int32, device=device)
-    parent[rows, at] = at.to(torch.int32)
+    # The batch's inputs placed on the device: an intended upload.
+    with explicit_transfer():
+        rows = torch.arange(trees, device=device)
+        at = torch.from_numpy(src).to(device)
+        bits = torch.from_numpy((np.uint32(1) << (src & 31).astype(np.uint32)).view(np.int32))
+        fwords = torch.zeros((trees, vr // 32), dtype=torch.int32, device=device)
+        fwords[rows, at >> 5] = bits.to(device)
+        changed = torch.ones((), dtype=torch.bool, device=device)
+        if packed:
+            words = torch.full((trees, vr), -1, dtype=torch.int32, device=device)  # sentinel
+            words[rows, at] = 0
+            return PackedRelayState(words, fwords, 0, changed)
+        dist = torch.full((trees, vr), INT32_MAX, dtype=torch.int32, device=device)
+        dist[rows, at] = 0
+        parent = torch.full((trees, vr), -1, dtype=torch.int32, device=device)
+        parent[rows, at] = at.to(torch.int32)
     return RelayState(dist, parent, fwords, 0, changed)
 
 

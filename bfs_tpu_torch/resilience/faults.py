@@ -42,7 +42,7 @@ class FaultInjected(RuntimeError):
 
 
 _lock = threading.Lock()
-_counts: dict[str, int] = {}  # guarded by _lock
+_counts: dict[str, int] = {}  # guarded-by: _lock
 
 
 def reset() -> None:

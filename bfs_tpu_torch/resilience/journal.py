@@ -58,13 +58,18 @@ def config_key(config: dict) -> str:
     return hashlib.blake2b(_canon(config).encode(), digest_size=8).hexdigest()
 
 
+#: The knobs every journal config holds, derived from the registry (the
+#: ``journal`` domain of ``affects``); the knob rung (KNB002) proves it.
+ENV_CONFIG_KEYS = knobs.flavor_env("journal")
+
+
 def env_config() -> dict:
-    """``{journal config key: effective raw value}`` for every knob with a
-    ``journal_key`` (:func:`bfs_tpu_torch.knobs.journal_map`): the
+    """``{journal config key: effective raw value}`` for every knob of the
+    ``journal`` domain (:func:`bfs_tpu_torch.knobs.journal_map`): the
     environment's value when set and non-empty, else the registered
     default, so a default run and an explicit-default run resume each
     other and any change of a knob keys another journal."""
-    return {jk: os.environ.get(name) or knobs.KNOBS[name].default
+    return {jk: knobs.raw(name) or knobs.KNOBS[name].default
             for jk, name in knobs.journal_map().items()}
 
 

@@ -225,14 +225,14 @@ class CircuitBreaker:
         self._lock = threading.Lock()
         self._circuits: dict = {}  # guarded-by: _lock
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _cell(self, key) -> _Circuit:
         cell = self._circuits.get(key)
         if cell is None:
             cell = self._circuits[key] = _Circuit()
         return cell
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _set(self, cell: _Circuit, key, new: str, reason: str) -> list:
         old, cell.state, cell.reason = cell.state, new, reason
         return [(key, old, new, reason)] if old != new else []

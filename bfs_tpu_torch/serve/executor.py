@@ -67,6 +67,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..analysis.runtime import bump_retrace, guarded_region
 from ..models import loop as L
 from ..models.multisource import MultiBfsResult
 from ..utils.locks import make_lock
@@ -87,9 +88,9 @@ class ExecutableCache:
         self.capacity = capacity
         self.metrics = metrics  # ServeMetrics is internally locked
         self._lock = make_lock("executor._lock")
-        self._cache: OrderedDict[tuple, object] = OrderedDict()  # guarded by _lock
-        self.hits = 0  # guarded by _lock
-        self.misses = 0  # guarded by _lock
+        self._cache: OrderedDict[tuple, object] = OrderedDict()  # guarded-by: _lock
+        self.hits = 0  # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
 
     def get(self, key: tuple, build):
         with self._lock:
@@ -103,6 +104,10 @@ class ExecutableCache:
         # Built outside the cache-wide lock: a build ships a layout, and
         # readers of the cache must not stall behind it.  The serve loop is
         # one thread, so duplicate builds need servers sharing a cache.
+        # Counted as the reference counts a retrace, under the key's engine
+        # and bucket.
+        bump_retrace(f"serve.executable/{key[2]}/{key[3]}" if len(key) > 3 else
+                     f"serve.executable/{key!r}")
         runner = build()
         with self._lock:
             runner = self._cache.setdefault(key, runner)
@@ -210,8 +215,10 @@ class BatchRunner:
         self.batch = int(batch)
         self.metrics = metrics
         self._lock = make_lock("executor.BatchRunner._lock")
-        self._gen = 0  # guarded by _lock: the newest attempt's ticket
-        self.last_run: dict = {}
+        self._gen = 0  # guarded-by: _lock (the newest attempt's ticket)
+        # Replaced whole, under DEVICE_LOCK, by the attempt that ran; read by
+        # that attempt's thread after its call.
+        self.last_run: dict = {}  # bfs_tpu_torch: ok LCK002
         #: False once a tick's packed run came back cut by the cap.
         self.use_packed = True
 
@@ -258,8 +265,14 @@ class BatchRunner:
                 eng = self.registry.acquire_for(self.rec, self.engine)
                 eng.last_run = {}
                 t0 = time.perf_counter()
-                with L.attempt(lambda: self._current(ticket)):
+                # The device batch: an implicit host sync in here is a guard
+                # violation (BFS_TPU_TORCH_TRANSFER_GUARD); the loop's control
+                # reads and the result's copy are explicit transfers.
+                # bfs_tpu_torch: hot-start
+                with L.attempt(lambda: self._current(ticket)), guarded_region(
+                        f"serve.device_batch/{self.rec.name}/{self.engine}"):
                     result = self._run(eng, sources)
+                # bfs_tpu_torch: hot-end
                 stats = {"call_s": time.perf_counter() - t0, **eng.last_run}
                 self._current(ticket)
                 t1 = time.perf_counter()
@@ -305,8 +318,8 @@ class SegmentedBatchRunner(BatchRunner):
         super().__init__(registry, rec, engine, batch, metrics=metrics)
         self.interval = max(1, int(interval))
         #: ``(sources key, packed flavor, host snapshot, level)`` of the
-        #: newest segment, guarded by ``_lock``.
-        self._progress = None
+        #: newest segment.
+        self._progress = None  # guarded-by: _lock
 
     def ckpt_progress(self):
         """The level of the resumable snapshot, or None: what the server's
@@ -330,10 +343,13 @@ class SegmentedBatchRunner(BatchRunner):
             try:
                 self._current(ticket)
                 eng = self.registry.acquire_for(self.rec, self.engine)
-                if state is None:
-                    state = multi_segment_init(eng, sources, packed, restore=restore)
-                with L.attempt(lambda: self._current(ticket)):
+                # bfs_tpu_torch: hot-start
+                with L.attempt(lambda: self._current(ticket)), guarded_region(
+                        f"serve.device_batch/{self.rec.name}/{self.engine}-segmented"):
+                    if state is None:
+                        state = multi_segment_init(eng, sources, packed, restore=restore)
                     state, stats = eng.segment(state, seg_end)
+                # bfs_tpu_torch: hot-end
                 return state, multi_snapshot(state, packed), stats
             except BaseException as exc:
                 traceback.clear_frames(exc.__traceback__)

@@ -142,10 +142,10 @@ class ServeHealth:
             on_transition=self._on_transition,
         )
         self._lock = make_lock("health._lock")
-        self._latency: dict[tuple, _LatencyWindow] = {}  # guarded by _lock
-        self._ticks = 0  # executed device ticks, drives sampling — guarded by _lock
+        self._latency: dict[tuple, _LatencyWindow] = {}  # guarded-by: _lock
+        self._ticks = 0  # guarded-by: _lock (executed device ticks; drives sampling)
         # (name, epoch) -> DeviceChecker; small LRU (epochs churn on swap).
-        self._checkers: OrderedDict = OrderedDict()  # guarded by _lock
+        self._checkers: OrderedDict = OrderedDict()  # guarded-by: _lock
 
     # ----------------------------------------------------------- breaker --
     def _on_transition(self, key, old: str, new: str, reason: str) -> None:

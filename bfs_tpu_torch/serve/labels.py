@@ -323,8 +323,8 @@ class LabelOracle:
         bits = np.ascontiguousarray(index.dist, dtype=np.uint16).view(np.int16)
         with DEVICE_LOCK:
             self._dist_dev = torch.from_numpy(bits).to(self.device)
-        self.queries = 0  # guarded by DEVICE_LOCK
-        self.tight_hits = 0  # guarded by DEVICE_LOCK
+        self.queries = 0  # guarded-by: DEVICE_LOCK
+        self.tight_hits = 0  # guarded-by: DEVICE_LOCK
 
     @property
     def k(self) -> int:
@@ -397,8 +397,9 @@ class LabelOracle:
         return {
             "k": self.k,
             "device_bytes": self.device_bytes,
-            "queries": self.queries,
-            "tight_hits": self.tight_hits,
+            # A report does not wait for a tick: each counter is read whole.
+            "queries": self.queries,  # bfs_tpu_torch: ok LCK001 read without the card's lock
+            "tight_hits": self.tight_hits,  # bfs_tpu_torch: ok LCK001 as above
         }
 
 

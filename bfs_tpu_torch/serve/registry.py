@@ -44,13 +44,13 @@ raises.
 from __future__ import annotations
 
 import hashlib
-import os
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .. import knobs
 from ..graph.csr import DeviceGraph, Graph, build_device_graph
 from ..graph.ell import PullGraph, build_pull_graph
 from ..graph.relay import RelayGraph
@@ -61,7 +61,10 @@ ENGINES = ("pull", "push", "relay")
 
 #: The knobs an engine resolves at construction, keying the resident LRU:
 #: a knob flipped between acquires never reuses an engine built under the
-#: old value (the reference keys on its ``BFS_TPU_EXPANSION`` too).
+#: old value (the reference keys on its ``BFS_TPU_EXPANSION`` too).  Listed
+#: here, where the reference derives its list from the registry; the knob
+#: rung (``python -m bfs_tpu_torch.analysis --knobs``, KNB002) proves it
+#: equals the knobs that declare ``serve`` in ``affects``.
 ENGINE_FLAVOR_ENV = (
     "BFS_TPU_TORCH_DIRECTION",
     "BFS_TPU_TORCH_DIRECTION_ALPHA",
@@ -73,7 +76,7 @@ ENGINE_FLAVOR_ENV = (
 def _engine_env_fingerprint() -> str:
     """blake2b-6 over the raw serve knob values: the fourth element of the
     resident LRU's key."""
-    parts = ";".join(f"{n}={os.environ.get(n) or ''}" for n in ENGINE_FLAVOR_ENV)
+    parts = ";".join(f"{n}={knobs.raw(n)}" for n in ENGINE_FLAVOR_ENV)
     return hashlib.blake2b(parts.encode(), digest_size=6).hexdigest()
 
 
@@ -152,20 +155,20 @@ class GraphRegistry:
 
         self.device = resolve_device(device)
         self._lock = make_lock("registry._lock", "rlock")
-        self._graphs: dict[str, RegisteredGraph] = {}  # guarded by _lock
+        self._graphs: dict[str, RegisteredGraph] = {}  # guarded-by: _lock
         # Replaced epochs still pinned by in-flight work, keyed (name, epoch).
-        self._retired: dict[tuple[str, int], RegisteredGraph] = {}  # guarded by _lock
+        self._retired: dict[tuple[str, int], RegisteredGraph] = {}  # guarded-by: _lock
         # (name, epoch, engine, env fingerprint) -> (bytes, engine); LRU order.
         self._resident: OrderedDict[tuple[str, int, str, str], tuple[int, object]] = \
-            OrderedDict()  # guarded by _lock
-        self._graveyard: list = []  # guarded by _lock: evicted engines, freed on the card's lock
+            OrderedDict()  # guarded-by: _lock
+        self._graveyard: list = []  # guarded-by: _lock (evicted engines, freed on the card's lock)
         self.device_budget_bytes = device_budget_bytes
-        self.metrics = metrics  # guarded by _lock
-        self.evictions = 0  # guarded by _lock
-        self.evictions_deferred = 0  # guarded by _lock
+        self.metrics = metrics  # guarded-by: _lock
+        self.evictions = 0  # guarded-by: _lock
+        self.evictions_deferred = 0  # guarded-by: _lock
         #: Info of the most recent relay layout load or build (builder,
         #: seconds, stage times, cache hit or miss); {} before any.
-        self.last_layout_info: dict = {}  # guarded by _lock
+        self.last_layout_info: dict = {}  # guarded-by: _lock
         if isinstance(layout_cache, str):
             from ..cache.layout import LayoutCache
 
@@ -175,11 +178,11 @@ class GraphRegistry:
         # last unpin of a replaced epoch, unregister).  A list: servers
         # sharing one registry each subscribe their own.  Listeners must
         # never call back into the registry.
-        self._retire_listeners: list = []  # guarded by _lock
+        self._retire_listeners: list = []  # guarded-by: _lock
         # Per-name epoch counters that survive unregister: an in-flight
         # query pinned to epoch N never resolves against a re-registered
         # graph that reused N.
-        self._next_epoch: dict[str, int] = {}  # guarded by _lock
+        self._next_epoch: dict[str, int] = {}  # guarded-by: _lock
 
     def add_retire_listener(self, fn) -> None:
         with self._lock:
@@ -301,14 +304,14 @@ class GraphRegistry:
                     fn(name, r.epoch)
         self._bury()
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _rec_for(self, name: str, epoch: int) -> RegisteredGraph | None:
         rec = self._graphs.get(name)
         if rec is not None and rec.epoch == epoch:
             return rec
         return self._retired.get((name, epoch))
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _retire(self, rec: RegisteredGraph) -> None:
         """Release a replaced epoch (idempotent through ``rec.released``)."""
         if rec.released:
@@ -322,7 +325,7 @@ class GraphRegistry:
         for fn in list(self._retire_listeners):
             fn(rec.name, rec.epoch)
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _bump(self, counter: str, by: int = 1) -> None:
         if self.metrics is not None:
             self.metrics.bump(counter, by)
@@ -465,12 +468,12 @@ class GraphRegistry:
             self._bury()
             return eng
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _pinned(self, key) -> bool:
         rec = self._rec_for(key[0], key[1])
         return rec is not None and rec.pins > 0
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _make_room(self, incoming: int, *, keep) -> None:
         if self.device_budget_bytes is None:
             return
@@ -492,7 +495,7 @@ class GraphRegistry:
                 return
             self._evict(victim)
 
-    # holds _lock
+    # bfs_tpu_torch: holds _lock
     def _evict(self, key) -> None:
         nbytes, eng = self._resident.pop(key)
         self._graveyard.append(eng)  # freed on the card's lock (_bury)

@@ -89,7 +89,7 @@ class FleetRouter:
             self.servers = tuple(
                 BfsServer(GraphRegistry(layout_cache=layout_cache, device=device), **server_kw)
                 for _ in range(int(replicas)))
-        self._state = [_ReplicaState() for _ in self.servers]
+        self._state = [_ReplicaState() for _ in self.servers]  # guarded-by: _lock
         self._lock = make_lock("router._lock")
 
     # ----------------------------------------------------------- lifecycle --

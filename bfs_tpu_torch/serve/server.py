@@ -242,9 +242,9 @@ class BfsServer:
         # register(); the retire listener drops an epoch's oracle with its
         # device state, so a swap never serves stale labels.  Dropped
         # oracles hold device rows, freed on the card's lock (_bury_labels).
-        self._labels: dict[tuple, object] = {}  # guarded by _lock
-        self._label_tick = 0  # guarded by _lock (verify sampling)
-        self._label_graveyard: list = []  # guarded by _lock
+        self._labels: dict[tuple, object] = {}  # guarded-by: _lock
+        self._label_tick = 0  # guarded-by: _lock (verify sampling)
+        self._label_graveyard: list = []  # guarded-by: _lock
         self.registry.add_retire_listener(self._drop_label_epoch)
         # Direction policy resolved ONCE: a malformed knob fails
         # construction loudly instead of degrading every tick.
@@ -253,12 +253,12 @@ class BfsServer:
         self._direction_key = resolve_direction().key()
         self._lock = make_lock("server._lock")
         self._cond = threading.Condition(self._lock)  # holding _cond == holding _lock
-        self._result_cache: OrderedDict[tuple, tuple] = OrderedDict()  # guarded by _lock
+        self._result_cache: OrderedDict[tuple, tuple] = OrderedDict()  # guarded-by: _lock
         self._result_cache_size = int(result_cache_size)
-        self._pending: deque[_Request] = deque()  # guarded by _lock
-        self._paused = False  # guarded by _lock
-        self._closed = False  # guarded by _lock
-        self._ticks: deque[dict] = deque(maxlen=TICK_LOG)  # guarded by _lock
+        self._pending: deque[_Request] = deque()  # guarded-by: _lock
+        self._paused = False  # guarded-by: _lock
+        self._closed = False  # guarded-by: _lock
+        self._ticks: deque[dict] = deque(maxlen=TICK_LOG)  # guarded-by: _lock
         self._thread = threading.Thread(target=self._serve_loop, name="bfs-serve", daemon=True)
         self._thread.start()
 

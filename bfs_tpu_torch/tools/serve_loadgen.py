@@ -59,7 +59,7 @@ class Truth:
 
     def __init__(self, graph=None, rows: dict | None = None):
         self.graph = graph
-        self._rows = dict(rows or {})
+        self._rows = dict(rows or {})  # guarded-by: _lock
         self._lock = threading.Lock()
 
     def __call__(self, s: int):
@@ -354,9 +354,13 @@ def _report(out: dict) -> None:
     """The run's JSON report on stdout, with the metrics registry's."""
     from ..obs.registry import get_registry
 
-    out = {k: v for k, v in out.items() if k not in ("wrong", "ticks")}
-    out["metrics_registry"] = json.loads(get_registry().to_json())
+    from ..analysis.runtime import format_retrace_report
+
+    warm = out.get("retrace_warm")
+    out = {k: v for k, v in out.items() if k not in ("wrong", "ticks", "retrace_warm")}
+    out["metrics_registry"] = json.loads(get_registry().to_json(retrace_baseline=warm))
     print(json.dumps(out, indent=2, sort_keys=True, default=str))
+    print(format_retrace_report(warm), file=sys.stderr, flush=True)
 
 
 def _graph(args):
@@ -371,6 +375,7 @@ def _graph(args):
 
 
 def classic_main(args) -> dict:
+    from ..analysis.runtime import retrace_report
     from ..serve import BfsServer, GraphRegistry
 
     rng = np.random.default_rng(args.seed)
@@ -393,12 +398,16 @@ def classic_main(args) -> dict:
         nwarm = warmup(server, name, v, args.max_batch)
         print(f"warmup: {nwarm} queries, {server.report()['executables_cached']} batch shapes "
               f"in {time.perf_counter() - t0:.1f}s", file=sys.stderr, flush=True)
+        # The steady phase's baseline: a capture or build after it drifts.
+        retrace_warm = retrace_report()
         pool = rng.integers(0, v, size=max(args.source_pool, 4))
         queries = make_queries(rng, pool, args.requests, multi_frac=args.multi_frac,
                                multi_width=args.multi_width)
-        return run_classic(server, name, queries, truth=Truth(graph), check=host_check(graph),
-                           concurrency=args.concurrency, timeout_s=args.timeout_s,
-                           verify=not args.no_check)
+        out = run_classic(server, name, queries, truth=Truth(graph), check=host_check(graph),
+                          concurrency=args.concurrency, timeout_s=args.timeout_s,
+                          verify=not args.no_check)
+        out["retrace_warm"] = retrace_warm
+        return out
 
 
 def fleet_main(args) -> dict:
@@ -412,7 +421,7 @@ def fleet_main(args) -> dict:
     mix = fleet_mix(rng, pool, args.requests, point_frac=args.point_frac)
     chaos_n = int(args.requests * args.chaos_frac) if args.replicas >= 2 else 0
     chaos = fleet_mix(rng, pool, chaos_n, point_frac=args.point_frac)
-    prior = os.environ.get("BFS_TPU_TORCH_LABELS")
+    prior = os.environ.get("BFS_TPU_TORCH_LABELS")  # bfs_tpu_torch: ok KNB001 saved to restore it below
     if args.landmarks > 0:
         os.environ["BFS_TPU_TORCH_LABELS"] = str(args.landmarks)
     try:

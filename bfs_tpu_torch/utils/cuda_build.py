@@ -64,10 +64,14 @@ def build(sources: dict[str, str]) -> None:
     """Build every ``name -> source`` whose library is missing (or whose
     source changed): one nvcc per source, all started together.  Raises if
     any of them fails."""
+    from .metrics import bump_artifact
+
     started = {}
     for name, source in sources.items():
         so = _so_path(name, source)
         if os.path.exists(so):
+            if name not in BUILD_INFO:  # counted once a process
+                bump_artifact("kernel_library_hits")
             BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": ""})
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -85,6 +89,7 @@ def build(sources: dict[str, str]) -> None:
             continue
         os.replace(tmp, so)
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        bump_artifact("kernel_library_builds")
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -1,18 +1,13 @@
 """Named locks for the query server's shared state.
 
-:func:`make_lock` returns a plain ``threading.Lock`` or ``RLock``; the name
-says which field it guards.  The reference's lock-order recorder
-(``BFS_TPU_LOCK_ORDER``), which records the order locks of each name nest
-in and reports cycles, has no counterpart in the port yet.
+:func:`make_lock` is :func:`bfs_tpu_torch.analysis.runtime.make_lock`: a
+plain ``threading.Lock`` or ``RLock`` named for the field it guards, or,
+under ``BFS_TPU_TORCH_LOCK_ORDER``, a proxy that records the order locks
+of each name nest in and reports cycles (``lock_order_report``).
 """
 
 from __future__ import annotations
 
-import threading
+from ..analysis.runtime import make_lock
 
-
-def make_lock(name: str, kind: str = "lock"):
-    """A lock for the field named ``name``: ``kind`` ``'lock'`` or ``'rlock'``."""
-    if kind not in ("lock", "rlock"):
-        raise ValueError(f"{name}: unknown lock kind {kind!r}; use 'lock' or 'rlock'")
-    return threading.RLock() if kind == "rlock" else threading.Lock()
+__all__ = ["make_lock"]

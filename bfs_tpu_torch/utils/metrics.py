@@ -21,7 +21,7 @@ import threading
 from dataclasses import asdict, dataclass, field
 
 _artifact_lock = threading.Lock()
-_artifact_counters: dict[str, int] = {}  # guarded by _artifact_lock
+_artifact_counters: dict[str, int] = {}  # guarded-by: _artifact_lock
 
 
 def bump_artifact(name: str, by: int = 1) -> None:
@@ -145,10 +145,10 @@ class ServeMetrics:
         from .locks import make_lock
 
         self._lock = make_lock("metrics._lock")
-        self.records: deque[QueryRecord] = deque(maxlen=max_records)  # guarded by _lock
-        self.counters: dict[str, int] = {}  # guarded by _lock
-        self._first_ts: float | None = None  # guarded by _lock
-        self._last_ts: float | None = None  # guarded by _lock
+        self.records: deque[QueryRecord] = deque(maxlen=max_records)  # guarded-by: _lock
+        self.counters: dict[str, int] = {}  # guarded-by: _lock
+        self._first_ts: float | None = None  # guarded-by: _lock
+        self._last_ts: float | None = None  # guarded-by: _lock
         from ..obs.registry import get_registry
 
         get_registry().register_serve(self)

@@ -7,8 +7,7 @@ Run from the root of a checkout, with no arguments::
 
 It builds the hand-written kernels from ``bfs_tpu_torch/csrc``, holds the
 device layout builder against the host builder at R-MAT scale 18 (byte for
-byte with the native route; with the torch route every non-mask field, and a
-search on that layout against the oracle), runs the measured arm selection on
+byte with the native route), runs the measured arm selection on
 its cell (``probe_phase``: R-MAT scale 18 at edge factor 64 on a torch-routed
 layout, where the tiles fit the default budget: the default engine,
 ``expansion="auto"``, counts and builds its tiles and probes both arms, its
@@ -83,8 +82,9 @@ the command-line runners ``run_parallel`` (stepped push, ``--fused`` pull,
 stepped relay) and ``run_sequential`` on ``service.properties``.  The
 direction policy runs on the same push and pull layouts:
 ``DirectionEngine.run`` (``bfs_direction``'s engine) for the 4 roots in
-``auto``, ``push`` and ``pull`` on the captured two-graph loop and the eager
-loop, each result oracle-exact and equal to the relay engine's, each
+``auto`` and the first 2 in ``push`` and ``pull``, on the captured
+two-graph loop and the eager loop, each result oracle-exact and equal to
+the relay engine's (the captured loop's also under the DeviceChecker), each
 schedule equal to the one the host recomputes with numpy from the oracle's
 distances, every superstep one replay of one body's graph (the split by
 body equal to the schedule); each superstep's device time by body and the
@@ -151,7 +151,8 @@ labels equal each component's minimum id from scipy's
 ``connected_components``, ``check_cc`` and ``cc_device_check`` clean),
 weighted SSSP on push for the max-degree root and one other at the default
 delta and the max-degree root at ``delta=inf`` (captured against eager,
-``check_sssp`` and ``sssp_device_check`` clean, both deltas equal), each
+``sssp_device_check`` clean on all three, ``check_sssp`` on the max-degree
+root at the default delta, both deltas equal), each
 superstep's device time beside its byte bound; SSSP and CC segmented into
 at most 8 epochs, each also killed at boundary 2 and resumed, bit-identical
 with no capture; ``registry_sssp`` and ``registry_cc`` (push and pull) twice
@@ -169,7 +170,7 @@ every resident MXU engine is freed: ``RelayEngine(tiles_mode="stream")``
 superblock and fingerprinted, the card's copy released; the device memory
 it holds beside the resident MXU engine's), ``mxu_expand`` through
 ``out=`` on superblock slabs against the plain per-superblock expansion,
-``run_streamed`` for the max-degree root and one drawn root under a 4 GiB
+``run_streamed`` for the max-degree root under a 4 GiB
 cache (oracle-exact, equal to the dense MXU arm, the schedule the host's
 recomputation, evictions counted, ``mxu_expand`` launched once per
 demanded superblock and ``packed_update`` once per pull level), one
@@ -183,7 +184,7 @@ hidden under ``mxu_expand`` (CUDA events), ``run_segmented`` at
 The label tier and the fleet router follow the query server on the same
 graph (``labels_phase``, ``fleet_phase``): ``BFS_TPU_TORCH_LABELS=64`` on a
 pull server (the cold build: the 64-root sweep on the registry's pull engine
-and the sidecar bundle; a warm re-register from it), 512 point queries held
+and the sidecar bundle; a warm re-register from it), 256 point queries held
 against the batch's trees, the method and landmark against the certificate
 and the device bounds against ``host_label_bounds``, paths walked on the host
 CSR, sampled verification, a budget reject, and the latency of a label
@@ -199,6 +200,32 @@ requests from 8 threads, every reply against the batch's trees, a steady
 executable-cache hit rate of 1.0, and the relay kernels' launches held to
 the supersteps the ticks issued; the metrics registry's Prometheus text
 is parsed line by line after the server phase.
+
+The analysis package closes the s22 part (ROADMAP A15's resilience
+drivers and A16).  After the gather main path, ``guard_phase`` runs one
+search under ``BFS_TPU_TORCH_TRANSFER_GUARD=1`` in a guarded region
+(torch's sync-debug mode ``error``; the loop's control reads, the inputs'
+upload and the result's copy are explicit transfers) and an ``.item()`` in
+``guarded_region("smoke.canary")``, which must raise naming the region; the
+server phase serves a warm relay tick of 4 and a pull tick of 32 under the
+same guard.  After the command line the chaos driver's three modes start
+together (``start_chaos``), each a process of its own
+(``bfs_tpu_torch.tools.chaos_run``), with ``cache_warm``'s cold run, and
+run beside the small-graph checks; ``chaos_phase`` then holds them to
+their verdicts: ``serve`` at the reference's full
+schedule (scale 9, 12 healthy requests) under
+``BFS_TPU_TORCH_LOCK_ORDER=1``, which must exit 0 with a lock-order graph
+that has edges and no cycle; one ``traversal`` iteration of ``relay``,
+killed at a superstep boundary and resumed from an epoch bit for bit; one
+``loadgen`` iteration at scale 10.  ``cache_warm_phase`` waits for
+``cache_warm --tiles --compile`` at scale 16 cold and runs it warm, where
+every artifact (relay and tiles bundles, kernel
+libraries, the arm probe's verdict) must be a hit, then holds
+``verify_tiles_bundle`` ok, and ``absent`` once a field is corrupted.
+``registry_phase`` runs every kernel of ``analysis/kernels.py`` at lint
+scale against its plain version, and the ``kernels`` line is read from that
+registry: the script fails if a registry kernel was not held against its
+plain version in the run.
 
 Every search and the batch run on the level loop on the card: blocks of
 gated supersteps replayed from a CUDA graph (``bfs_tpu_torch/models/loop.py``).
@@ -260,6 +287,9 @@ ELEM_REPLACES = {
     "elem_rowmin_update": "bfs_tpu/ops/relay_elem.py:186",
 }
 MXU_REPLACES = {"mxu_expand": "bfs_tpu/ops/relay_mxu.py:373"}
+# The registry's batch kernels (the lock-step batch's Beneš passes), held in
+# lockstep_kernel_phase; every other registry kernel in the kernel phases.
+BATCH_SPECS = ("benes_local_group_kernel", "benes_outer_group_kernel")
 # Each launched once per batch superstep at G = 2 on the block loop.
 LOOP_KERNELS = ("elem_frontier_interleave", "elem_route_gather", "elem_rowmin_update",
                 "loop_control")
@@ -693,14 +723,15 @@ def loop_phase(label: str, eng, roots, per_step: dict, expect: str, K, L) -> dic
         raise AssertionError(f"{label} eager: launches {eager_launches}, expected {want}")
     eager_peak = torch.cuda.max_memory_allocated()
     idle = {"captured": [], "eager": []}
-    for row, erow in zip(rows, eager):
+    for i, (row, erow) in enumerate(zip(rows, eager)):
         r = row["root"]
         eng.loop = "blocks"
         idle["captured"].append(device_trace(f"{label} root {r}, captured", lambda: eng.run(r),
                                              row["secs"], expect))
-        eng.loop = "eager"
-        idle["eager"].append(device_trace(f"{label} root {r}, eager", lambda: eng.run(r),
-                                          erow["secs"]))
+        if i == 0:  # the eager loop traced on the first root only
+            eng.loop = "eager"
+            idle["eager"].append(device_trace(f"{label} root {r}, eager", lambda: eng.run(r),
+                                              erow["secs"]))
     eng.loop = "blocks"
     dead = dead_superstep_ms(label, eng._packed_loop())
     mean = {k: float(np.mean([row[k] for row in rows])) for k in ("secs", "loop_s", "result_s")}
@@ -1720,48 +1751,28 @@ def small_lockstep_checks(P, K) -> None:
 
 def layout_parity_phase(P, generators) -> dict:
     """The device layout builder on the card against the host builder at
-    R-MAT scale 18: byte-identical with the native route; with the torch
-    route every non-mask field, and an engine on that layout oracle-exact
-    from the max-degree root."""
-    import numpy as np
+    R-MAT scale 18: byte-identical with the native route.  (The torch
+    route is held against the bundle at the cell's scale in
+    :func:`router_phase`.)"""
     import torch
-    from bfs_tpu_torch.graph.relay import MASK_FIELDS, differing_fields
+    from bfs_tpu_torch.graph.relay import differing_fields
 
     g = generators.rmat_graph_native(PARITY_SCALE, EDGE_FACTOR, seed=GRAPH_SEED)
     secs, layouts = {}, {}
     for name, build in (
         ("host", lambda t: P.build_relay_graph(g, stage_times=t)),
         ("device", lambda t: P.build_relay_graph_device(g, route="native", stage_times=t)),
-        ("device, torch route", lambda t: P.build_relay_graph_device(
-            g, route="torch", stage_times=t)),
     ):
         t0 = time.perf_counter()
         layouts[name] = build({})
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - t0
-    host, torch_routed = layouts["host"], layouts["device, torch route"]
-    for name, skip in (("device", ()), ("device, torch route", MASK_FIELDS)):
-        bad = differing_fields(host, layouts[name], skip=skip)
-        if bad:
-            raise AssertionError(f"layout s{PARITY_SCALE} ({name}): {bad} differ from the host "
-                                 "builder's")
-    same_masks = not differing_fields(host, torch_routed)
-    root = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
-    eng = P.RelayEngine(torch_routed, device="cuda")
-    res = eng.run(root)
-    dist, parent = P.canonical_bfs(g, root)
-    if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
-        raise AssertionError(f"layout s{PARITY_SCALE}: the torch-routed layout's search differs "
-                             "from canonical_bfs")
-    violations = P.check(g, res.dist, res.parent, root)
-    if violations:
-        raise AssertionError(f"layout s{PARITY_SCALE}: check() violations {violations[:3]}")
-    del eng
-    torch.cuda.empty_cache()
+    bad = differing_fields(layouts["host"], layouts["device"])
+    if bad:
+        raise AssertionError(f"layout s{PARITY_SCALE} (device): {bad} differ from the host "
+                             "builder's")
     log(f"layout s{PARITY_SCALE}: V={g.num_vertices} directed E={g.num_edges}; device builder "
-        "(native route) byte-identical to the host builder; torch route: every "
-        f"non-mask field identical, masks {'equal to' if same_masks else 'other than'} the "
-        f"native router's, the default engine from root {root} oracle-exact; seconds "
+        "(native route) byte-identical to the host builder; seconds "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
     return secs
 
@@ -2194,7 +2205,7 @@ def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
         return eng.last_run["loop_s"], eng.last_run["host_reads"]
 
     # One run a block size, at blocks of 1 and 2: the script's 600 s.
-    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=1, ks=EDGE_KS[:2],
+    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=1, ks=EDGE_KS[:1],
                         attr="EDGE_BLOCK", eager=True)
     return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res_levels,
                 table=table)
@@ -2478,7 +2489,8 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
             deng.run(roots[0])  # warm: the capture
             K.reset_launches()
             rows = []
-            for r in roots:
+            # The forced modes on the max-degree root and one other.
+            for r in (roots if mode == "auto" else roots[:2]):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res, sched = deng.run(r)
@@ -2502,7 +2514,8 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
                 if loop == "blocks" and run["replays"] != run["issued"]:
                     raise AssertionError(f"direction {mode} root {r}: {run['replays']} replays in "
                                          f"{run['issued']} supersteps issued")
-                verify(f"direction {mode} ({loop}) root {r}", res.dist, res.parent, r)
+                if loop == "blocks":  # the eager loop's equal result is not checked again
+                    verify(f"direction {mode} ({loop}) root {r}", res.dist, res.parent, r)
                 rows.append(dict(root=r, secs=secs, **run))
                 if mode == "auto" and loop == "blocks":
                     out["schedules"][r] = sched["schedule"]
@@ -2511,7 +2524,8 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
                     f"{res.num_levels} levels; host reads {run['host_reads']}, replays "
                     f"{run['replays']} (push {run['issued_push']}, pull {run['issued_pull']}), issued "
                     f"{run['issued']}; schedule {','.join(sched['schedule'])}, equal "
-                    "to the host's; oracle-exact, equal to relay, DeviceChecker clean")
+                    "to the host's; oracle-exact, equal to relay"
+                    + (", DeviceChecker clean" if loop == "blocks" else ""))
             issued = sum(row["issued"] for row in rows)
             controls = K.LAUNCHES["loop_control"]
             if controls != (issued if loop == "blocks" else 0):
@@ -3052,6 +3066,26 @@ def serve_phase(P, g, store: str, pg, sources, roots, batch, want, card: str, K,
         if any(degraded.values()):
             raise AssertionError(f"serve: degraded ticks counted {degraded}")
         out.update(report=rep, round2=round2, buckets=buckets, round1_s=round1_s)
+        # ---- the transfer guard over two warm ticks, relay 4 and pull 32:
+        # each device batch runs in its guarded region under sync-debug mode
+        # 'error'; a violation would fail the batch onto the oracle
+        os.environ["BFS_TPU_TORCH_TRANSFER_GUARD"] = "1"
+        try:
+            guarded = []
+            for engine, group in (("relay", [int(r) for r in roots]), ("pull", pool[:32])):
+                label = f"guarded {engine} {len(group)}"
+                try:
+                    tick, launched = staged(srv, engine, group, label)
+                except AssertionError as exc:
+                    raise AssertionError(f"{exc}; health {srv.report()['health']}") from None
+                check_launches(label, engine, tick, launched)
+                guarded.append(tick)
+        finally:
+            del os.environ["BFS_TPU_TORCH_TRANSFER_GUARD"]
+        log("serve under BFS_TPU_TORCH_TRANSFER_GUARD=1 (each device batch in "
+            "serve.device_batch/g/<engine>, sync-debug mode 'error'): no violation; "
+            + "; ".join(line(t) for t in guarded) + f" ({card})")
+        out["guarded"] = guarded
         log(f"serve report: p50 {rep['latency_p50_ms']:.3f} ms, p99 {rep['latency_p99_ms']:.3f} "
             f"ms, {rep['queries_per_sec']:.3f} queries/s over {rep['served']} queries, "
             f"compile hit rate {rep['compile_hit_rate']:.4f}; integrity checks "
@@ -3205,11 +3239,11 @@ def prometheus_check() -> int:
 # Landmark labels: one DEFAULT_CHUNK of roots; 2^22 x 64 x 2 B = 512 MiB of
 # rows on the card at s22, under the default 2 GiB budget.
 LABELS_K = 64
-LABEL_PAIRS = 512  # point queries held against the batch's trees
+LABEL_PAIRS = 256  # point queries held against the batch's trees
 LABEL_PATHS = 16
 LABEL_VERIFY_PAIRS = 64  # with BFS_TPU_TORCH_LABELS_VERIFY=4
 LABEL_IDLE = 64  # tight label answers timed one at a time on an idle card
-LOCK_TICKS = 3  # pull ticks of 32, each with LOCK_WAITERS label answers timed behind it
+LOCK_TICKS = 1  # pull ticks of 32, each with LOCK_WAITERS label answers timed behind it
 LOCK_WAITERS = 4
 LABEL_ROWS_CHECKED = 16  # landmark rows through the DeviceChecker, evenly spaced
 EXACT_TIMED = 16  # exact answers timed one at a time (result cache off)
@@ -3975,8 +4009,10 @@ def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
             if not (np.array_equal(a.dist, res.dist) and np.array_equal(a.parent, res.parent)):
                 raise AssertionError(f"sssp root {r}: delta 64 and inf differ")
             violations = []
-        else:
+        elif i == 0:  # the host certificate (about 8 s) on the max-degree root only
             violations = check_sssp(g, w_host, res.dist, res.parent, r)
+        else:
+            violations = []
         host_s = time.perf_counter() - t0
         if violations:
             raise AssertionError(f"{label}: check_sssp {violations[:3]}")
@@ -3994,8 +4030,8 @@ def algo_sssp_phase(eng, g, roots, K, L, card: str) -> dict:
             f"issued {run['issued']}, replays {run['replays']}, host reads {run['host_reads']}; "
             f"eager {eager_s:.6f} s, equal bit for bit; {rows[-1]['reached']} reached, max dist "
             f"{int(res.dist[res.dist != INF_DIST].max())}; "
-            f"{'equal to the default delta' if delta else 'check_sssp clean'} ({host_s:.2f} s), "
-            "sssp_device_check clean")
+            + ("equal to the default delta" if delta else "check_sssp clean" if i == 0
+               else "no host certificate") + f" ({host_s:.2f} s), sssp_device_check clean")
     a, b = results[(roots[0], None)], results[(roots[0], "inf")]
     if not (np.array_equal(a.dist, b.dist) and np.array_equal(a.parent, b.parent)):
         raise AssertionError(f"sssp root {roots[0]}: delta 64 and inf differ")
@@ -4473,7 +4509,7 @@ def stream_phase(P, rg, g, roots, want: dict, dense: dict, resident_held: int, K
             totals[k] += got[k]
         return got
 
-    for r in roots[:2]:
+    for r in roots[:1]:  # the max-degree root (a second root cut for time)
         K.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4568,7 +4604,7 @@ def stream_phase(P, rg, g, roots, want: dict, dense: dict, resident_held: int, K
         + f"; launches {got}; oracle-exact, equal to the dense MXU arm ({card})")
 
     # ---- run_segmented at every:CKPT_EVERY, killed at boundary 2, resumed cold
-    r = roots[1]
+    r = roots[0]
     fused, fused_curve = fused[r]
 
     def mgr():
@@ -4656,6 +4692,7 @@ def probe_phase(P, generators, K, seed: int, card: str) -> dict:
     import numpy as np
     import torch
 
+    from bfs_tpu_torch import knobs
     from bfs_tpu_torch.cache import layout as CL
 
     t0 = time.perf_counter()
@@ -4678,7 +4715,7 @@ def probe_phase(P, generators, K, seed: int, card: str) -> dict:
         raise AssertionError(f"probe: the default engine did not measure both arms: "
                              f"{eng.expansion_basis}; {probe}")
     verdict = os.path.join(CL._probe_dir(), f"{CL.probe_verdict_key(eng)}.json")
-    if not (verdict.startswith(os.environ["BFS_TPU_TORCH_CACHE_DIR"] + os.sep)
+    if not (verdict.startswith(knobs.raw("BFS_TPU_TORCH_CACHE_DIR") + os.sep)
             and os.path.isfile(verdict)):
         raise AssertionError(f"probe: the verdict was not saved in the run's cache root: {verdict}")
     want = probe_launches(probe)
@@ -4818,6 +4855,206 @@ def ledger_phase(eng, card: str) -> dict:
     return led
 
 
+# The analysis phases: the transfer guard's canary region; the chaos
+# driver's serve schedule at the reference's full size
+# (tests/test_chaos_serve.py::test_chaos_serve_full_schedule: scale 9, 12
+# healthy requests) under the lock-order recorder, one traversal iteration
+# of the relay config and one load-generator iteration at the CLI's scale;
+# cache_warm at scale 16 (its tiles fit the default budget, so the default
+# engine's arm probe runs and is memoized).
+CHAOS_SCALE = 9
+CHAOS_REQUESTS = 12
+CHAOS_LOADGEN_SCALE = 10
+CACHE_WARM_SCALE = 16
+
+
+def guard_phase(eng, root: int, want, RT, card: str) -> dict:
+    """Under ``BFS_TPU_TORCH_TRANSFER_GUARD=1`` one s22 gather search in a
+    guarded region (its control reads and result copy are explicit
+    transfers; any other host sync raises), held against ``want`` (the
+    oracle's arrays); then an ``.item()`` in ``guarded_region("smoke.canary")``
+    must raise, naming the region.  The served ticks under the guard run in
+    ``serve_phase``."""
+    import numpy as np
+    import torch
+
+    os.environ["BFS_TPU_TORCH_TRANSFER_GUARD"] = "1"
+    try:
+        t0 = time.perf_counter()
+        with RT.guarded_region("smoke.gather_search"):
+            res = eng.run(root)
+        secs = time.perf_counter() - t0
+        if not (np.array_equal(res.dist, want[0]) and np.array_equal(res.parent, want[1])):
+            raise AssertionError("guard: the guarded search differs from canonical_bfs")
+        try:
+            with RT.guarded_region("smoke.canary"):
+                torch.ones(3, device=eng.device).sum().item()
+        except RuntimeError as exc:
+            canary = str(exc)
+        else:
+            raise AssertionError("guard: .item() in guarded_region('smoke.canary') did not raise")
+        if not canary.startswith("[transfer-guard:smoke.canary] "):
+            raise AssertionError(f"guard: the canary's error does not name its region: {canary}")
+    finally:
+        del os.environ["BFS_TPU_TORCH_TRANSFER_GUARD"]
+    log(f"guard: the s22 gather search from root {root} under sync-debug mode 'error' in "
+        f"{secs:.6f} s, no violation, oracle-exact; the canary raised '{canary}' ({card})")
+    return {"search_s": secs, "canary": canary}
+
+
+def run_tool(argv: list, env: dict | None = None):
+    """``python -m <argv>`` from the checkout's root: a started process, its
+    output into a temporary file (read by :func:`finish_tool`)."""
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, **(env or {}))
+    full["PYTHONPATH"] = root + (os.pathsep + full["PYTHONPATH"] if full.get("PYTHONPATH") else "")
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=root, env=full, text=True,
+                            stdout=out, stderr=subprocess.STDOUT)
+    proc.log_file = out
+    return proc
+
+
+def finish_tool(label: str, proc, timeout: float = 300.0) -> tuple[str, float]:
+    """Wait for ``proc``; its output, or an AssertionError with its tail."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    proc.log_file.seek(0)
+    out = proc.log_file.read()
+    proc.log_file.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n{out[-4000:]}")
+    return out, time.perf_counter() - t0
+
+
+def json_lines(out: str) -> list:
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def start_chaos(cache_root: str) -> tuple[dict, float]:
+    """The chaos driver's three modes on the card, started together, each a
+    process of its own: ``serve`` at the reference's full schedule under
+    ``BFS_TPU_TORCH_LOCK_ORDER=1``, ``traversal`` (one iteration of
+    ``relay``) and ``loadgen`` (one iteration)."""
+    chaos = ("bfs_tpu_torch.tools.chaos_run", "--seed", "1")
+    procs = {
+        "serve": run_tool([*chaos, "--mode", "serve", "--scale", str(CHAOS_SCALE),
+                           "--serve-requests", str(CHAOS_REQUESTS)],
+                          {"BFS_TPU_TORCH_LOCK_ORDER": "1"}),
+        "traversal": run_tool([*chaos, "--mode", "traversal", "--iterations", "1",
+                               "--traversal-configs", "relay"]),
+        "loadgen": run_tool([*chaos, "--mode", "loadgen", "--iterations", "1", "--scale",
+                             str(CHAOS_LOADGEN_SCALE), "--device", "cuda", "--cache-dir",
+                             os.path.join(cache_root, "chaos_loadgen")]),
+    }
+    return procs, time.perf_counter()
+
+
+def chaos_phase(procs: dict, t0: float, card: str) -> dict:
+    """Wait for :func:`start_chaos`'s runs and hold each to its verdict:
+    ``serve`` exits 0 with a lock-order graph that has edges and no cycle;
+    ``traversal`` was killed at a superstep boundary and resumed from an
+    epoch bit for bit; ``loadgen`` was killed, then ran whole and passed
+    its oracle gate."""
+    out, secs = {}, {}
+    for name, proc in procs.items():
+        out[name], _ = finish_tool(f"chaos {name}", proc)
+        secs[name] = time.perf_counter() - t0
+    if "serve chaos: ok" not in out["serve"]:
+        raise AssertionError(f"chaos serve: not ok\n{out['serve'][-3000:]}")
+    order = next((d["lock_order"] for d in json_lines(out["serve"]) if "lock_order" in d), None)
+    if order is None or not order["edges"] or order["cycles"]:
+        raise AssertionError(f"chaos serve: lock order {order}")
+    if "traversal chaos: 1/1 ok" not in out["traversal"] or "killed at boundary" not in \
+            out["traversal"]:
+        raise AssertionError(f"chaos traversal: not ok\n{out['traversal'][-3000:]}")
+    resumed = [x for x in out["traversal"].splitlines() if "resumed from epoch" in x]
+    if "loadgen chaos: 1/1 ok" not in out["loadgen"]:
+        raise AssertionError(f"chaos loadgen: not ok\n{out['loadgen'][-3000:]}")
+    log(f"chaos serve (scale {CHAOS_SCALE}, {CHAOS_REQUESTS} healthy requests, the full fault "
+        f"and swap schedule, every reply oracle-checked): ok; lock order under "
+        f"BFS_TPU_TORCH_LOCK_ORDER=1: {len(order['edges'])} edges, no cycle: "
+        f"{json.dumps(order['edges'], sort_keys=True)} ({card})")
+    log(f"chaos traversal (relay): {resumed[-1].split('] ', 2)[-1] if resumed else '?'}; "
+        f"chaos loadgen (scale {CHAOS_LOADGEN_SCALE}): killed, then a whole run passed its "
+        f"oracle gate; seconds from the start: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in secs.items()))
+    return {"secs": secs, "lock_order": order}
+
+
+def cache_warm_argv(cache_root: str) -> list:
+    return ["bfs_tpu_torch.tools.cache_warm", "--scales", str(CACHE_WARM_SCALE), "--tiles",
+            "--compile", "--cache-dir", os.path.join(cache_root, "cache_warm")]
+
+
+def cache_warm_phase(P, cache_root: str, cold_proc, card: str) -> dict:
+    """``cache_warm --tiles --compile`` at scale 16 on a cache root of its own,
+    cold (``cold_proc``, started with the chaos runs) then warm, each a
+    process of its own: the warm run must find every artifact (the relay and
+    tiles bundles, the kernel libraries, the arm probe's verdict) a hit;
+    then ``verify_tiles_bundle`` reports the bundle ok, and ``absent`` once
+    one of its fields is corrupted."""
+    from bfs_tpu_torch.cache import layout as CL
+    from bfs_tpu_torch.graph.generators import rmat_graph_native
+    from bfs_tpu_torch.resilience.faults import corrupt_file
+
+    root = os.path.join(cache_root, "cache_warm")
+    runs = {}
+    for name in ("cold", "warm"):
+        proc = cold_proc if name == "cold" else run_tool(cache_warm_argv(cache_root))
+        out, secs = finish_tool(f"cache_warm {name}", proc)
+        docs = json_lines(out)
+        runs[name] = {"secs": secs, "artifacts": docs[-2]["artifacts"],
+                      "counters": docs[-1]["artifact_caches"],
+                      "lines": [x for x in out.splitlines() if x.startswith(f"s{CACHE_WARM_SCALE}:")]}
+    cold, warm = runs["cold"]["artifacts"], runs["warm"]["artifacts"]
+    if set(warm) != {"relay", "tiles", "kernels", "probe"} or set(warm.values()) != {"hit"}:
+        raise AssertionError(f"cache_warm: the warm run built something: {warm}")
+    if (cold["relay"], cold["tiles"], cold["probe"]) != ("built",) * 3:
+        raise AssertionError(f"cache_warm: the cold run found a warm cache: {cold}")
+    g = rmat_graph_native(CACHE_WARM_SCALE, 6, seed=1)
+    cache = CL.LayoutCache(os.path.join(root, "layout"))
+    rg, info = CL.load_or_build_relay(g, cache=cache, device="cuda")
+    ok = CL.verify_tiles_bundle(rg, cache=cache)
+    field = os.path.join(cache.root, CL.tiles_key(rg), "col_id.npy")
+    corrupt_file(field, mode="flip", at=os.path.getsize(field) - 5)
+    bad = CL.verify_tiles_bundle(rg, cache=cache)
+    if info["cache"] != "hit" or not ok["ok"] or (bad["ok"], bad["status"]) != (False, "absent"):
+        raise AssertionError(f"cache_warm: verify_tiles_bundle {ok} then {bad} ({info['cache']})")
+    for name, r in runs.items():
+        log(f"cache_warm {name} (R-MAT s{CACHE_WARM_SCALE}, --tiles --compile): {r['secs']:.1f} s, "
+            f"artifacts {r['artifacts']}, counters {r['counters']}; " + "; ".join(r["lines"]))
+    log(f"cache_warm: verify_tiles_bundle ok ({ok['num_tiles']} tiles, "
+        f"{ok['num_superblocks']} superblocks), then '{bad['status']}' with col_id corrupted "
+        f"({card})")
+    return {"runs": runs, "verify": ok}
+
+
+def registry_phase(KREG, card: str) -> dict:
+    """Every kernel of the registry (``analysis/kernels.py``) at lint scale
+    on the card against its plain version, bit for bit, each launched."""
+    t0 = time.perf_counter()
+    if KREG.registry_findings(os.path.dirname(os.path.abspath(__file__))):
+        raise AssertionError("kernel registry: the pin failed")
+    findings, rows = KREG.run_on_card("cuda")
+    if findings or set(rows) != set(KREG.KERNEL_SPECS) or any(
+            r["launches"] < 1 for r in rows.values()):
+        raise AssertionError(f"kernel registry: {[f.render() for f in findings]} {rows}")
+    log(f"kernel registry: {len(rows)} kernels at lint scale (R-MAT s{KREG.LINT_SCALE}) "
+        f"bit-exact against their plain versions, each launched, in "
+        f"{time.perf_counter() - t0:.2f} s ({card})")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -4840,6 +5077,8 @@ def main(argv=None) -> int:
     atexit.register(shutil.rmtree, cache_dir, True)
     os.environ["BFS_TPU_TORCH_CACHE_DIR"] = cache_dir
     import bfs_tpu_torch as P
+    from bfs_tpu_torch.analysis import kernels as KREG
+    from bfs_tpu_torch.analysis import runtime as RT
     from bfs_tpu_torch.graph import adj_tiles as AT
     from bfs_tpu_torch.graph import generators
     from bfs_tpu_torch.models import loop as L
@@ -4966,6 +5205,9 @@ def main(argv=None) -> int:
     corrupted = verify_corruptions(g, root0, *want[root0][0])
     gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L, eng)
     mark("gather main path")
+    # ---- the transfer guard: the s22 search in a guarded region, the canary
+    guard = guard_phase(eng, root0, oracle0, RT, card)
+    mark("transfer guard")
     # ---- the lock-step batch on the gather arm, then each of its kernels on
     # the 16 trees against its plain version and 16 single launches
     # The 4 roots first (their oracle results are at hand), then sources drawn
@@ -5126,6 +5368,11 @@ def main(argv=None) -> int:
     mark("stream")
     cli_phase(K)
     mark("command line")
+    # ---- the resilience drivers, each a process of its own, started now:
+    # the chaos modes and cache_warm's cold run run beside the small-graph
+    # checks below
+    cold_warm = run_tool(cache_warm_argv(cache_dir))
+    chaos_procs, chaos_t0 = start_chaos(cache_dir)
 
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5146,6 +5393,14 @@ def main(argv=None) -> int:
     mark("small graphs")
     algo["small"] = algo_small_checks(P, generators, K, L, ckpt_store)
     mark("algorithms, small graphs and graph500_run")
+    # ---- the chaos runs' verdicts, cache_warm's warm run, and every
+    # registry kernel at lint scale against its plain version
+    chaos = chaos_phase(chaos_procs, chaos_t0, card)
+    mark("chaos driver (the wait left)")
+    warmed = cache_warm_phase(P, cache_dir, cold_warm, card)
+    mark("cache_warm")
+    registry = registry_phase(KREG, card)
+    mark("kernel registry")
     del rg
     shutil.rmtree(store)  # the bundle: memmapped pages stay valid until unmapped
     mark("bundle store removed")
@@ -5157,23 +5412,36 @@ def main(argv=None) -> int:
     # The control step ends every superstep of the algorithms' loops too.
     launches["loop_control"] += sum(algo[k]["launches"] for k in
                                     ("sssp", "cc pull", "cc push", "ckpt", "registry"))
-    # One row per kres entry of a kernel (``kernel``, default the entry's
-    # name); a row shared by ``share`` entries takes that part of the count.
-    kernels = [
-        dict(name=row, route="cuda", source=source, replaces=replaces[name],
-             launches=launches[name] // r.get("share", 1), max_abs_err=r["max_abs_err"],
-             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-             bound_by=r.get("bound_by", "bytes"), library_ms=r.get("library_ms"),
-             gated_ms=r.get("gated_ms"), phase="kernel phase: " + r["shape"])
-        for source, replaces in ((SOURCE, REPLACES), (ELEM_SOURCE, ELEM_REPLACES),
-                                 (MXU_SOURCE, MXU_REPLACES))
-        for name in replaces
-        for row, r in kres.items() if r.get("kernel", row) == name
-    ]
-    missing = {*REPLACES, *ELEM_REPLACES, *MXU_REPLACES} - {
-        r.get("kernel", row) for row, r in kres.items()}
-    if missing:
-        raise AssertionError(f"no kernel-phase row for {sorted(missing)}")
+    # The kernels line, read from the kernel registry (analysis/kernels.py):
+    # per spec its rows, each a held comparison with its plain version.  A
+    # single-search kernel's rows are its kres entries (``kernel``, default
+    # the entry's name; a row shared by ``share`` entries takes that part of
+    # the launch key's count, which holds the batch kernels' launches too); a
+    # batch kernel's rows are the lock-step kernel phase's (16 and 4 trees),
+    # with the gather lock-step batch's launches of its key.
+    kernels, unheld = [], []
+    for spec in KREG.KERNEL_SPECS.values():
+        if spec.name in BATCH_SPECS:
+            picked = [(name, r, lockstep["gather"]["launches"][spec.launch_key])
+                      for name, r in lock_kernels.items()
+                      if name.startswith(spec.launch_key + " (")]
+        else:
+            picked = [(row, r, launches[spec.launch_key] // r.get("share", 1))
+                      for row, r in kres.items() if r.get("kernel", row) == spec.launch_key]
+        if not picked or spec.name not in registry:
+            unheld.append(spec.name)
+        kernels += [
+            dict(name=row, route="cuda", source=spec.source, replaces=spec.replaces,
+                 launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                 bound_ms=r["bound_ms"], bound_by=r.get("bound_by", "bytes"),
+                 library_ms=r.get("library_ms"), gated_ms=r.get("gated_ms"),
+                 kernel=spec.name, reference=spec.k,
+                 phase=("lock-step kernel phase: " if spec.name in BATCH_SPECS
+                        else "kernel phase: ") + r["shape"])
+            for row, r, n in picked]
+    if unheld:
+        raise AssertionError(f"registry kernels never held against their plain versions in "
+                             f"this run: {unheld}")
     # The loop's targets, read off this run (reported, not enforced).
     extraction = multi["splits"]["dropped"][-1]["result_s"]
     targets = [

@@ -151,7 +151,11 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.serve.labels, bfs_tpu_torch.serve.router, "
         "bfs_tpu_torch.obs.__main__, bfs_tpu_torch.graph.io, "
         "bfs_tpu_torch.tools.serve_loadgen, bfs_tpu_torch.profiling, "
-        "bfs_tpu_torch.tools.ledger_compare; "
+        "bfs_tpu_torch.tools.ledger_compare, bfs_tpu_torch.analysis, "
+        "bfs_tpu_torch.analysis.runtime, bfs_tpu_torch.analysis.__main__, "
+        "bfs_tpu_torch.analysis.knobs, bfs_tpu_torch.analysis.knob_rules, "
+        "bfs_tpu_torch.analysis.kernels, bfs_tpu_torch.tools.chaos_run, "
+        "bfs_tpu_torch.tools.cache_warm; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -189,7 +193,12 @@ def test_no_jax_or_reference_imports_in_the_port():
                 ("oracle", "sssp.py"), ("oracle", "cc.py"), ("serve", "algo.py"),
                 ("tools", "graph500_run.py"), ("serve", "labels.py"), ("serve", "router.py"),
                 ("obs", "__main__.py"), ("graph", "io.py"), ("tools", "serve_loadgen.py"),
-                ("profiling.py",), ("tools", "ledger_compare.py")):
+                ("profiling.py",), ("tools", "ledger_compare.py"),
+                ("analysis", "__init__.py"), ("analysis", "__main__.py"), ("analysis", "core.py"),
+                ("analysis", "runtime.py"), ("analysis", "transfer.py"), ("analysis", "locks.py"),
+                ("analysis", "obs.py"), ("analysis", "recompile.py"), ("analysis", "knobs.py"),
+                ("analysis", "knob_rules.py"), ("analysis", "kernels.py"),
+                ("tools", "chaos_run.py"), ("tools", "cache_warm.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):

@@ -67,7 +67,7 @@ def test_registry_exports():
     metrics.bump("compile_hits", 3)
     doc = json.loads(reg.to_json())
     assert doc["counters"] == {"graph_evictions": 2}
-    assert set(doc) == {"counters", "artifact_caches", "spans", "serve"}
+    assert set(doc) == {"counters", "artifact_caches", "retraces", "spans", "serve"}
     assert doc["serve"][0]["compile_hit_rate"] == 1.0
     assert reg.to_prometheus() == R.prometheus_text(reg.snapshot())
     assert "bfs_tpu_counters_graph_evictions 2" in reg.to_prometheus().splitlines()
