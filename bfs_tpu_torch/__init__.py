@@ -5,7 +5,10 @@ The port of the JAX package ``bfs_tpu`` (which stays the reference): the
 same host layouts, byte for byte, and the same ``dist``/``parent``/
 ``num_levels``, bit for bit, on the pull (the default), push and relay
 engines, and the direction-optimizing search over push and pull
-(:func:`bfs_direction`; its knobs in :mod:`bfs_tpu_torch.knobs`).  It
+(:func:`bfs_direction`; its knobs in :mod:`bfs_tpu_torch.knobs`), and the
+mesh-sharded engine (:mod:`bfs_tpu_torch.parallel`: :func:`bfs_sharded`,
+:func:`bfs_sharded_multi` on a :func:`make_mesh` of shards stacked on one
+device).  It
 imports torch and numpy, never jax and nothing of ``bfs_tpu``.  Entry
 points run on the card unless the caller passes ``device="cpu"``.  The command-line entry points are
 ``python -m bfs_tpu_torch.runners.run_parallel`` and
@@ -38,6 +41,8 @@ _EXPORTS = {
     "PullGraph": ".graph.ell",
     "RelayEngine": ".models.bfs",
     "RelayGraph": ".graph.relay",
+    "ShardedPullGraph": ".graph.ell",
+    "ShardedRelayGraph": ".graph.relay",
     "ServiceConfiguration": ".config",
     "SuperstepRunner": ".models.bfs",
     "Vertex": ".graph.vertex",
@@ -47,18 +52,24 @@ _EXPORTS = {
     "bfs_multi": ".models.multisource",
     "bfs_multi_device": ".models.multisource",
     "bfs_multi_direction": ".models.direction",
+    "bfs_sharded": ".parallel.sharded",
+    "bfs_sharded_multi": ".parallel.sharded",
     "bfs_multi_level_curve": ".models.multisource",
     "build_device_graph": ".graph.csr",
     "build_pull_graph": ".graph.ell",
     "build_relay_graph": ".graph.relay",
     "build_relay_graph_device": ".graph.relay_device",
+    "build_sharded_pull_graph": ".graph.ell",
+    "build_sharded_relay_graph": ".graph.relay",
     "canonical_bfs": ".oracle.bfs",
+    "cc_sharded": ".algo.sharded",
     "check": ".oracle.bfs",
     "collapse_multi_source": ".models.multisource",
     "from_reference_layout": ".graph.relay",
     "gnm_graph": ".graph.generators",
     "load_or_build_pull": ".cache.layout",
     "load_or_build_relay": ".cache.layout",
+    "make_mesh": ".parallel.sharded",
     "parse_sedgewick": ".graph.io",
     "parse_state": ".graph.vertex",
     "path_graph": ".graph.generators",
@@ -71,6 +82,7 @@ _EXPORTS = {
     "rmat_graph": ".graph.generators",
     "serialize_state": ".graph.vertex",
     "snap_shape_edges": ".graph.generators",
+    "sssp_sharded": ".algo.sharded",
     "star_graph": ".graph.generators",
 }
 
@@ -78,6 +90,8 @@ __all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name: str):
+    if name == "parallel":  # the subpackage, as the reference exports it
+        return importlib.import_module(".parallel", __name__)
     module = _EXPORTS.get(name)
     if module is None:
         raise AttributeError(f"module 'bfs_tpu_torch' has no attribute {name!r}")

@@ -78,14 +78,23 @@ def _apply_labels(state: CcState, cand: torch.Tensor, ctl: torch.Tensor | None =
     return CcState(label, frontier, state.rounds, improved.any())
 
 
-def cc_superstep(state: CcState, src: torch.Tensor, dst: torch.Tensor,
-                 ctl: torch.Tensor | None = None) -> CcState:
-    """One label-min superstep (push): active vertices send their label
-    along out-edges; per destination the minimum wins."""
-    n = state.label.shape[0]
+def _cc_candidates(state: CcState, src, dst, n: int, axis: str | None):
+    if axis is not None:
+        from ..parallel.compat import pmin
+
+        return pmin(torch.stack([_cc_candidates(state, s, d, n, None)
+                                 for s, d in zip(src, dst)]), axis)
     active = state.frontier.index_select(0, src)
-    cand = combine_min(torch.where(active, state.label.index_select(0, src), INT32_MAX), dst, n)
-    return _apply_labels(state, cand, ctl)
+    return combine_min(torch.where(active, state.label.index_select(0, src), INT32_MAX), dst, n)
+
+
+def cc_superstep(state: CcState, src: torch.Tensor, dst: torch.Tensor,
+                 ctl: torch.Tensor | None = None, axis: str | None = None) -> CcState:
+    """One label-min superstep (push): active vertices send their label
+    along out-edges; per destination the minimum wins.  With a mesh
+    ``axis`` the edges are ``[n, E/n]`` shards merged with one ``pmin``."""
+    n = state.label.shape[0]
+    return _apply_labels(state, _cc_candidates(state, src, dst, n, axis), ctl)
 
 
 def cc_superstep_pull(state: CcState, ell0: torch.Tensor, folds,
@@ -128,10 +137,22 @@ def _resolve_engine(engine: str, graph) -> str:
     return "pull" if graph.num_edges / v >= 8 else "push"
 
 
+def _superstep_of(engine: str):
+    """The superstep of an arm: ``pull``, ``push``, or ``push_sharded`` (a
+    mesh's edge shards, :func:`bfs_tpu_torch.algo.sharded.cc_sharded`)."""
+    if engine == "pull":
+        return cc_superstep_pull
+    if engine == "push_sharded":
+        from ..parallel.compat import GRAPH_AXIS
+
+        return lambda st, src, dst, ctl=None: cc_superstep(st, src, dst, ctl, axis=GRAPH_AXIS)
+    return cc_superstep
+
+
 def cc_loop(cache: dict, operands: tuple, num_vertices: int, engine: str) -> L.BlockLoop:
     """The block loop of one arm over its operands (``(src, dst)`` for
-    push, ``(ell0, folds)`` for pull), kept in ``cache``: buffers ``(label,
-    frontier, ctl)``."""
+    push and ``push_sharded``, ``(ell0, folds)`` for pull), kept in
+    ``cache``: buffers ``(label, frontier, ctl)``."""
     def make():
         dev = operands[0].device
         n = num_vertices + 1
@@ -139,7 +160,7 @@ def cc_loop(cache: dict, operands: tuple, num_vertices: int, engine: str) -> L.B
                   torch.empty(n, dtype=torch.bool, device=dev))
         ctl = C.new_ctl(dev)
         state = CcState(*fields, None, None)
-        superstep = cc_superstep if engine == "push" else cc_superstep_pull
+        superstep = _superstep_of(engine)
 
         def step():
             new = superstep(state, *operands, ctl)
@@ -162,7 +183,7 @@ def _cc_run(operands: tuple, num_vertices: int, engine: str, max_rounds, cache, 
     t0 = time.perf_counter()
     init = init_cc_state(v, operands[0].device)
     if loop == "eager":
-        superstep = cc_superstep if engine == "push" else cc_superstep_pull
+        superstep = _superstep_of(engine)
         st, stats = L.eager(init, lambda s: superstep(s, *operands), cap)
         label = st.label
     else:
@@ -209,6 +230,8 @@ def cc(graph, *, engine: str | None = None, max_rounds: int | None = None,
     from .sssp import edge_operands
 
     if isinstance(graph, EdgeEngine):
+        if getattr(graph, "mesh", None) is not None:
+            raise ValueError("a sharded engine: use bfs_tpu_torch.algo.cc_sharded")
         if engine not in (None, "auto", graph.engine):
             raise ValueError(f"an EdgeEngine of {graph.engine!r} given for engine={engine!r}")
         if graph.engine == "pull":

@@ -172,20 +172,35 @@ def _tail(state, word_field, dirty, threshold, live):
     return type(state)(word_field, dirty, threshold, state.rounds, changed & live)
 
 
-def sssp_superstep(state: SsspState, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-                   delta: int, ctl: torch.Tensor | None = None) -> SsspState:
-    """One min-plus superstep: relax the current bucket's dirty vertices,
-    then advance the threshold iff the bucket drained with work left.
-    ``src`` int32, ``dst`` int64 (the index type of ``scatter_reduce_``),
-    ``w`` int32, all ``[E]``; gated by ``ctl`` in the level loop."""
-    n = state.dist.shape[0]
-    live = _live(ctl)
-    frontier = state.dirty & (state.dist < state.threshold)
+def _sssp_candidates(dist, frontier, src, dst, w, n: int, axis: str | None):
+    """Per destination the min of ``dist[src] + w`` over active in-edges;
+    with a mesh ``axis`` each edge shard's (``[n_shards, E/n]`` operands),
+    merged with one ``pmin``."""
+    if axis is not None:
+        from ..parallel.compat import pmin
+
+        return pmin(torch.stack([_sssp_candidates(dist, frontier, s, d, ws, n, None)
+                                 for s, d, ws in zip(src, dst, w)]), axis)
     active = frontier.index_select(0, src)
     # The sum wraps where dist is INT32_MAX; those lanes are inactive and
     # masked to the identity before the combine.
-    sums = state.dist.index_select(0, src) + w
-    cand = combine_min(torch.where(active, sums, INT32_MAX), dst, n)
+    sums = dist.index_select(0, src) + w
+    return combine_min(torch.where(active, sums, INT32_MAX), dst, n)
+
+
+def sssp_superstep(state: SsspState, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                   delta: int, ctl: torch.Tensor | None = None,
+                   axis: str | None = None) -> SsspState:
+    """One min-plus superstep: relax the current bucket's dirty vertices,
+    then advance the threshold iff the bucket drained with work left.
+    ``src`` int32, ``dst`` int64 (the index type of ``scatter_reduce_``),
+    ``w`` int32, all ``[E]`` (``[n, E/n]`` edge shards with a mesh
+    ``axis``, their candidates merged with one ``pmin``, as the reference's
+    ``axis_name``); gated by ``ctl`` in the level loop."""
+    n = state.dist.shape[0]
+    live = _live(ctl)
+    frontier = state.dirty & (state.dist < state.threshold)
+    cand = _sssp_candidates(state.dist, frontier, src, dst, w, n, axis)
     improved = cand < state.dist
     if live is not None:
         improved = improved & live
@@ -288,6 +303,8 @@ def edge_operands(graph, device=None, block: int = 1024):
     from ..models.bfs import EdgeEngine, resolve_device
 
     if isinstance(graph, EdgeEngine):
+        if getattr(graph, "mesh", None) is not None:
+            raise ValueError("a sharded engine: use bfs_tpu_torch.algo.sssp_sharded / cc_sharded")
         if graph.engine != "push":
             raise ValueError(f"an EdgeEngine of {graph.engine!r} given where push is needed")
         return graph.src, graph.dst, graph.num_vertices, graph._loops, graph.loop
@@ -320,11 +337,12 @@ def _step_weights(cache: dict, src, dst, max_weight: int, packed: bool) -> torch
 
 
 def sssp_loop(cache: dict, src, dst, num_vertices: int, *, packed: bool, delta: int,
-              max_weight: int) -> L.BlockLoop:
+              max_weight: int, axis: str | None = None) -> L.BlockLoop:
     """The block loop of one carry flavour, delta and max weight over these
     edges, kept in ``cache``: buffers ``(dist or packed, dirty, threshold,
     ctl)``, each superstep gated by the control block and ended by the
-    control step."""
+    control step.  ``axis``: the edges are a mesh's shards (unpacked
+    carry)."""
     def make():
         dev, n = src.device, num_vertices + 1
         w = _step_weights(cache, src, dst, max_weight, packed)
@@ -335,9 +353,10 @@ def sssp_loop(cache: dict, src, dst, num_vertices: int, *, packed: bool, delta: 
         cls, superstep = ((PackedSsspState, sssp_superstep_packed) if packed
                           else (SsspState, sssp_superstep))
         state = cls(*fields, None, None)
+        mesh = {} if axis is None else {"axis": axis}  # the sharded arm is unpacked
 
         def step():
-            new = superstep(state, src, dst, w, delta, ctl)
+            new = superstep(state, src, dst, w, delta, ctl, **mesh)
             for buf, val in zip(fields, new):
                 buf.copy_(val)
             C.raise_flag(ctl, new.changed)

@@ -1,9 +1,10 @@
 """Graph containers: flat directed edge arrays (int32) with a lazy CSR
 view, and the push engine's padded edge form.
 
-The port's copy of ``bfs_tpu.graph.csr``, single-shard: a
-:class:`DeviceGraph` is byte for byte the reference's
-``build_device_graph(graph, num_shards=1)``.  Undirected inputs are stored
+The port's copy of ``bfs_tpu.graph.csr``: a :class:`DeviceGraph` is byte
+for byte the reference's ``build_device_graph(graph, num_shards=n)``, one
+shard or the round-robin edge shards of the mesh engine
+(:mod:`bfs_tpu_torch.parallel.sharded`).  Undirected inputs are stored
 bi-directed, both (u, v) and (v, u), as algs4's ``Graph.addEdge`` does.
 """
 
@@ -86,12 +87,16 @@ class DeviceGraph:
     """The push engine's edge arrays: sorted by ``(dst, src)``, padded to a
     multiple of ``block`` with ``(sentinel, sentinel)`` edges, where
     ``sentinel == V``.  State arrays have V+1 slots and slot V is never on
-    the frontier, so padded edges are inert without masks."""
+    the frontier, so padded edges are inert without masks.  With
+    ``num_shards > 1`` the arrays are ``[num_shards, padded_edges /
+    num_shards]``: the edge shards of the mesh engine, each sorted by
+    ``(dst, src)`` on its own."""
 
     num_vertices: int
     num_edges: int  # real (unpadded) directed edges
-    src: np.ndarray  # int32[padded_edges]
+    src: np.ndarray  # int32[padded_edges] or int32[num_shards, padded / num_shards]
     dst: np.ndarray
+    num_shards: int = 1
 
     @property
     def padded_edges(self) -> int:
@@ -117,23 +122,55 @@ def _sorted_by_dst(src: np.ndarray, dst: np.ndarray) -> tuple[np.ndarray, np.nda
     return src[order], dst[order]
 
 
-def build_device_graph(graph: Graph, *, block: int = 1024) -> DeviceGraph:
-    """Sort edges by destination and pad with sentinel edges to a multiple
-    of ``block``."""
-    src, dst = _sorted_by_dst(graph.src, graph.dst)
+def build_device_graph(graph: "Graph | DeviceGraph", *, num_shards: int = 1,
+                       block: int = 1024) -> DeviceGraph:
+    """Sort edges by destination and pad with sentinel edges; with
+    ``num_shards > 1`` split them into edge shards.  A single-shard
+    DeviceGraph given as ``graph`` is sorted already: its edges are split
+    again without a sort.
+
+    Each shard holds a multiple of ``block`` edges.  The split is
+    round-robin over the dst-sorted edges (edge ``i`` to shard ``i % n``),
+    so every shard sees a similar spread of destinations.  Each shard is
+    then in ``(dst, src)`` order, as the reference sorts it: a strided
+    subsequence of a sorted sequence (the sentinel padding last) is
+    sorted."""
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    if isinstance(graph, DeviceGraph):
+        if graph.num_shards != 1:
+            raise ValueError("build_device_graph takes a Graph or a single-shard DeviceGraph")
+        src, dst = unpad_edges(graph)
+    else:
+        src, dst = _sorted_by_dst(graph.src, graph.dst)
     e = graph.num_edges
-    pad = pad_to_multiple(max(e, 1), block) - e
+    per_shard = pad_to_multiple(max(pad_to_multiple(e, num_shards) // num_shards, 1), block)
+    pad = per_shard * num_shards - e
     sentinel = np.full(pad, graph.num_vertices, dtype=np.int32)
+    src = np.concatenate([src, sentinel])
+    dst = np.concatenate([dst, sentinel])
+    if num_shards > 1:
+        src = np.ascontiguousarray(src.reshape(per_shard, num_shards).T)
+        dst = np.ascontiguousarray(dst.reshape(per_shard, num_shards).T)
     return DeviceGraph(
         num_vertices=graph.num_vertices,
         num_edges=e,
-        src=np.concatenate([src, sentinel]),
-        dst=np.concatenate([dst, sentinel]),
+        src=src,
+        dst=dst,
+        num_shards=num_shards,
     )
 
 
 def unpad_edges(dg: DeviceGraph) -> tuple[np.ndarray, np.ndarray]:
-    """The real ``(src, dst)`` host arrays of a DeviceGraph, in stored
-    (dst-sorted) order."""
-    keep = dg.dst != dg.sentinel
-    return dg.src[keep], dg.dst[keep]
+    """The real ``(src, dst)`` host arrays of a DeviceGraph of any shard
+    count, in stored (per-shard dst-sorted) order."""
+    src, dst = dg.src.reshape(-1), dg.dst.reshape(-1)
+    keep = dst != dg.sentinel
+    return src[keep], dst[keep]
+
+
+def reshard(dg: DeviceGraph, num_shards: int, *, block: int = 1024) -> DeviceGraph:
+    """The edges of ``dg`` split again into ``num_shards`` shards."""
+    src, dst = unpad_edges(dg)
+    return build_device_graph(Graph(dg.num_vertices, src, dst), num_shards=num_shards,
+                              block=block)

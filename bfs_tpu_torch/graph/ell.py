@@ -1,7 +1,8 @@
 """ELL-packed pull adjacency: the pull engine's layout.
 
-The port of ``bfs_tpu.graph.ell`` for one shard; the arrays are byte for
-byte the reference's.  For every destination vertex the pull superstep
+The port of ``bfs_tpu.graph.ell``; the arrays are byte for byte the
+reference's, of one shard (:class:`PullGraph`) or of the mesh engine's
+vertex blocks (:class:`ShardedPullGraph`).  For every destination vertex the pull superstep
 asks "what is the minimum active in-neighbour?" with gathers and row-mins
 only:
 
@@ -124,6 +125,8 @@ def build_pull_graph(
     if k < 2:
         raise ValueError("ELL width k must be >= 2")
     if isinstance(graph, DeviceGraph):
+        if graph.num_shards != 1:
+            raise ValueError("build_pull_graph expects a single-shard DeviceGraph")
         src, dst = unpad_edges(graph)
     else:
         src, dst = _sorted_by_dst(graph.src, graph.dst)
@@ -159,3 +162,122 @@ def build_pull_graph(
         prev_padded = r_next_padded
 
     return PullGraph(num_vertices=v, num_edges=e, ell0=ell0, folds=tuple(folds))
+
+
+@dataclass(frozen=True)
+class ShardedPullGraph:
+    """The pull layout partitioned by destination over ``num_shards``
+    vertex blocks: shard ``s`` owns vertices ``[s*block, (s+1)*block)`` and
+    holds the ELL in-adjacency of exactly those destinations, with GLOBAL
+    source ids, so each superstep gathers from the global frontier table
+    and produces candidates for its own block only.
+
+    The shards share one shape (stacked on axis 0): ``ell0`` int32[n, R0,
+    K] (sentinel ``n*block``, the frontier table's always-inactive slot)
+    and ``folds`` int32[n, R_i, K], the :class:`PullGraph` fold recursion
+    per shard, padded to a common depth (a shard that converged early gets
+    identity folds) and common row counts; a fold's padding indexes the
+    INF slot after the previous level's padded rows.  After the last fold,
+    rows ``0..block-1`` of shard ``s`` are its vertices in id order."""
+
+    num_vertices: int  # real V (unpadded)
+    num_edges: int  # real directed edges across all shards
+    num_shards: int
+    block: int  # owned vertices per shard, padded; a multiple of 32
+    ell0: np.ndarray
+    folds: tuple[np.ndarray, ...] = field(default_factory=tuple)
+
+    @property
+    def k(self) -> int:
+        return int(self.ell0.shape[2])
+
+    @property
+    def padded_vertices(self) -> int:
+        return self.num_shards * self.block
+
+
+def _shard_levels(dst_local: np.ndarray, block: int, k: int) -> list:
+    """One shard's ELL recursion, as placements: per level ``(rows,
+    row_of, col_of, values)`` (``values`` None at level 0, where the
+    caller places the edges' global sources), with natural row counts."""
+    counts = np.bincount(dst_local, minlength=block).astype(np.int64)
+    row_of, col_of, level_rows = _group_rows(counts, k)
+    levels = [(int(level_rows.sum()), row_of, col_of, None)]
+    while int(level_rows.max()) > 1:
+        prev_real = int(level_rows.sum())
+        row_of, col_of, level_rows = _group_rows(level_rows, k)
+        levels.append((int(level_rows.sum()), row_of, col_of,
+                       np.arange(prev_real, dtype=np.int32)))
+    return levels
+
+
+def build_sharded_pull_graph(
+    graph: Graph | DeviceGraph,
+    num_shards: int,
+    *,
+    k: int = DEFAULT_K,
+    block_multiple: int = 1024,
+    row_multiple: int = 64,
+) -> ShardedPullGraph:
+    """Partition a graph's in-adjacency into per-destination-block ELL
+    shards of one stacked shape (:class:`ShardedPullGraph`).  The block is
+    ``ceil(V / num_shards)`` rounded up to ``block_multiple`` (a multiple
+    of 32, for the packed frontier words).  Each level is written straight
+    into its stacked int32 array, its padding holding the value the
+    reference resolves its ``-1`` markers to."""
+    if k < 2:
+        raise ValueError("ELL width k must be >= 2")
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    if block_multiple % 32 != 0:
+        raise ValueError("block_multiple must be a multiple of 32")
+    if isinstance(graph, DeviceGraph):
+        # A single-shard DeviceGraph is dst-sorted already; a multi-shard
+        # one per shard only, so its edges are sorted again globally.
+        src, dst = unpad_edges(graph)
+        if graph.num_shards > 1:
+            src, dst = _sorted_by_dst(src, dst)
+    else:
+        src, dst = _sorted_by_dst(graph.src, graph.dst)
+    v, n = graph.num_vertices, num_shards
+    e = int(src.shape[0])
+    block = pad_to_multiple(max((v + n - 1) // n, 1), block_multiple)
+
+    # Edges are dst-sorted: the shard boundaries are one searchsorted.
+    bounds = np.searchsorted(dst, np.arange(n + 1, dtype=np.int64) * block)
+    plans = [_shard_levels(dst[bounds[s]:bounds[s + 1]].astype(np.int64) - s * block, block, k)
+             for s in range(n)]
+    depth = max(len(p) for p in plans)
+    identity = (block, np.arange(block, dtype=np.int64), np.zeros(block, dtype=np.int64),
+                np.arange(block, dtype=np.int32))
+    for p in plans:  # shards that converged early fold each final row to itself
+        p.extend([identity] * (depth - len(p)))
+
+    stacked = []
+    fill = n * block  # level 0: the always-inactive frontier slot
+    for i in range(depth):
+        rows = pad_to_multiple(max(p[i][0] for p in plans), row_multiple)
+        level = np.full((n, rows, k), fill, dtype=np.int32)
+        for s, p in enumerate(plans):
+            _, row_of, col_of, values = p[i]
+            level[s, row_of, col_of] = src[bounds[s]:bounds[s + 1]] if values is None else values
+        stacked.append(level)
+        fill = rows  # a fold's padding: the INF slot after these rows
+    return ShardedPullGraph(
+        num_vertices=v,
+        num_edges=e,
+        num_shards=n,
+        block=block,
+        ell0=stacked[0],
+        folds=tuple(stacked[1:]),
+    )
+
+
+def device_ell_sharded(spg: ShardedPullGraph, device) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The sharded twin of :func:`device_ell`: ``[n, R, K]`` ->
+    ``[n, K, R]`` on ``device``."""
+
+    def ship(mat: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(mat)).to(device).transpose(1, 2).contiguous()
+
+    return ship(spg.ell0), tuple(ship(f) for f in spg.folds)

@@ -19,7 +19,9 @@ the lower index of each word pair (the others are structurally zero).
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -27,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 
 from . import benes, native_gen
-from .csr import INF_DIST, DeviceGraph, Graph, unpad_edges
+from .csr import INF_DIST, DeviceGraph, Graph, _sorted_by_dst, unpad_edges
 
 logger = logging.getLogger(__name__)
 
@@ -698,3 +700,308 @@ def valid_slot_words(src_l1: np.ndarray, net_size: int) -> np.ndarray:
     return np.packbits(
         bits.reshape(-1, 32), axis=1, bitorder="little"
     ).view(np.uint32).reshape(-1)
+
+
+# --------------------------------------------------------------------------
+# The mesh engine's layout: per-shard relay layouts of one shared shape.
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShardedRelayGraph:
+    """Per-shard relay layouts (v4) with ONE unified class structure: the
+    mesh engine's layout (:mod:`bfs_tpu_torch.parallel.sharded`).
+
+    Shard ``s`` owns a block of the globally relabeled vertex space,
+    ``[s*block, (s+1)*block)``, and holds the relay pipeline of exactly
+    its destinations: its own vperm network, out-degree broadcast, Beneš
+    edge network and source tables.  Every shard has the SAME static
+    shapes (class slices, network sizes, stage tables; masks stacked on
+    axis 0), so one superstep program serves all of them.  Ownership is
+    class-balanced: each in-degree class is dealt across the shards in
+    equal contiguous chunks, so the shared shapes are about 1/n of the
+    single-shard layout's.  The relabeling is shard-major, so the
+    concatenated frontier words of the shards ARE the global frontier in
+    vperm input order.
+
+    The per-shard adjacency (``adj_*``) is each shard's CSR over GLOBAL
+    relabeled sources of the edges into its vertices: (local destination,
+    L1 slot) per edge, rows padded to the largest shard's edge count; the
+    push body of the direction schedule reads it, with ``outdeg`` (per
+    global relabeled id, 0 at dummies) for the direction decision."""
+
+    num_vertices: int
+    num_edges: int
+    num_shards: int
+    block: int  # owned vertex slots per shard (multiple of 32)
+    new2old: np.ndarray  # int32[n*block]; -1 at dummies
+    old2new: np.ndarray  # int32[V]
+    vperm_masks: np.ndarray  # uint32[n, vperm_words]
+    vperm_table: tuple[StageSpec, ...]
+    vperm_size: int
+    out_classes: tuple[ClassSlice, ...]
+    out_space: int
+    net_masks: np.ndarray  # uint32[n, net_words]
+    net_table: tuple[StageSpec, ...]
+    net_size: int
+    m1: int
+    m2: int
+    in_classes: tuple[ClassSlice, ...]  # over local [0, block)
+    src_l1: np.ndarray  # int32[n, m1]; ORIGINAL src ids, INF padding
+    adj_indptr: np.ndarray | None = None  # int32[n, n*block + 2]
+    adj_dst: np.ndarray | None = None  # int32[n, emax]; LOCAL dst ids
+    adj_slot: np.ndarray | None = None  # int32[n, emax]; L1 slots
+    outdeg: np.ndarray | None = None  # int32[n*block]
+
+
+#: The fields of a :class:`ShardedRelayGraph` in the reference's order.
+SHARDED_KEYS = (
+    "num_vertices", "num_edges", "num_shards", "block", "new2old", "old2new",
+    "vperm_masks", "vperm_table", "vperm_size", "out_classes", "out_space",
+    "net_masks", "net_table", "net_size", "m1", "m2", "in_classes", "src_l1",
+    "adj_indptr", "adj_dst", "adj_slot", "outdeg",
+)
+
+
+def _merge_tables(tables: list[tuple[StageSpec, ...]]) -> tuple[StageSpec, ...]:
+    """The shared stage table of stacked per-shard masks: the same layout
+    (one network size, the same offsets), each stage's nonzero range the
+    union over the shards."""
+    return tuple(
+        specs[0]._replace(lo=min(s.lo for s in specs), hi=max(s.hi for s in specs))
+        for specs in zip(*tables)
+    )
+
+
+def _unified_classes(widths: np.ndarray, per_shard_counts: np.ndarray):
+    """Aligned classes from per-width counts maxed over the shards
+    (``per_shard_counts``: [num_widths, n])."""
+    return _build_classes(widths, per_shard_counts.max(axis=1))
+
+
+def _route_shard(perm: np.ndarray, size: int, route: str, device):
+    """One shard's network: ``(masks uint32 flat, stage table)``, routed
+    by the native router on the host or the torch router on ``device``."""
+    if route == "native":
+        return _compact_and_table(benes.route_std(perm, trusted=True), size)
+    from .relay_device import _compact_program, _stage_table, route_masks_device
+
+    flat, nz = _compact_program(route_masks_device(perm, n=size, device=device), size)
+    return flat.cpu().numpy().view(np.uint32), _stage_table(size, nz.cpu().numpy())
+
+
+def build_sharded_relay_graph(
+    graph: Graph | DeviceGraph, num_shards: int, *, route: str | None = None,
+    device=None, stage_times: dict | None = None,
+) -> ShardedRelayGraph:
+    """Build the per-shard relay layouts with a unified static structure.
+
+    Ownership is class-balanced: each in-degree class is dealt across the
+    shards in equal contiguous chunks (ascending original id within a
+    chunk), so every shard's count per width is within 1 of ``count/n``;
+    vertices are relabeled within each shard so classes are contiguous,
+    and the global relabeled space is the concatenation of the shard
+    blocks.
+
+    ``route`` (``auto|native|torch``, :func:`~bfs_tpu_torch.graph.relay_device.resolve_route`)
+    picks the Beneš router of every shard's two networks: ``native`` gives
+    the reference's layout byte for byte; ``torch`` routes on ``device``
+    (the card unless it names another), and then every field but the masks
+    and stage tables is byte-identical.  The shards are built side by side,
+    a thread each.  ``stage_times``, if given, gets the wall seconds of the
+    shared stages and of ``shards``, and each shard stage's seconds summed
+    over the shards."""
+    from .relay_device import _resolve_device, resolve_route
+
+    route = resolve_route(route)
+    if route == "native" and not benes.native_available():
+        raise RuntimeError("route='native' needs the native benes router")
+    if num_shards < 1:
+        raise ValueError("num_shards must be >= 1")
+    dev = _resolve_device(device) if route == "torch" else None
+    times = stage_times if stage_times is not None else {}
+    times.update(route=route)
+    n = num_shards
+    with _phase("sort", times):
+        src, dst, v, e = extract_edges(graph)
+        if not (isinstance(graph, DeviceGraph) and graph.num_shards == 1):  # else sorted already
+            src, dst = _sorted_by_dst(src, dst)
+
+    with _phase("classes", times):
+        indeg = np.bincount(dst, minlength=v)
+        in_w = _class_width(indeg)
+        # Class-balanced ownership: each width's vertices, ascending, dealt
+        # in n equal contiguous chunks.
+        shard_of_old = np.empty(v, dtype=np.int64)
+        order_v = np.argsort(in_w, kind="stable")
+        widths_all, wcounts = np.unique(in_w, return_counts=True)
+        pos = 0
+        for cnt in wcounts.tolist():
+            shard_of_old[order_v[pos:pos + cnt]] = (np.arange(cnt, dtype=np.int64) * n) // cnt
+            pos += cnt
+        nwidths = int(widths_all.shape[0])
+        in_widx = np.searchsorted(widths_all, in_w).astype(np.int64)
+        counts = np.bincount(shard_of_old * nwidths + in_widx,
+                             minlength=n * nwidths).reshape(n, nwidths).T
+        in_classes = _unified_classes(widths_all, counts)
+        block = _round32(in_classes[-1].vb)
+        m1 = in_classes[-1].sb
+        gtot = n * block
+
+    with _phase("relabel", times):
+        # Shard-major, class-major, old-id-minor.
+        width_to_class = _width_class_map(in_classes)
+        va_by_widx = np.array([width_to_class[int(w)].va for w in widths_all], dtype=np.int64)
+        group_base = (np.arange(n, dtype=np.int64)[:, None] * block
+                      + va_by_widx[None, :]).reshape(-1)
+        old2new = ranked_placement(shard_of_old * nwidths + in_widx, group_base).astype(np.int32)
+        new2old = np.full(gtot, -1, dtype=np.int32)
+        new2old[old2new] = np.arange(v, dtype=np.int32)
+        # The edges grouped by the owner of their destination, dst order
+        # kept within a shard: a stable counting placement.
+        owner_e = _gather(shard_of_old.astype(np.int32), dst)
+        bounds = np.concatenate([[0], np.cumsum(np.bincount(owner_e, minlength=n))]).astype(np.int64)
+        at = _gather(bounds[:-1].astype(np.int32), owner_e) + _rank_by_count(owner_e, n)
+        src_g, dst_g = np.empty_like(src), np.empty_like(dst)
+        _scatter(src_g, at, src)
+        _scatter(dst_g, at, dst)
+        src, dst = src_g, dst_g
+        del owner_e, at, src_g, dst_g
+
+    with _phase("out classes", times):
+        out_sparse = []
+        owidth_counts: dict[int, int] = {}
+        for s in range(n):
+            per = np.bincount(src[bounds[s]:bounds[s + 1]], minlength=v)
+            uids = np.flatnonzero(per)
+            w = _class_width(per[uids])
+            out_sparse.append((uids, w))
+            for wv, c in zip(*np.unique(w, return_counts=True)):
+                owidth_counts[int(wv)] = max(owidth_counts.get(int(wv), 0), int(c))
+        owidths = np.array(sorted(owidth_counts), dtype=np.int64)
+        ocounts = np.array([owidth_counts[int(w)] for w in owidths], dtype=np.int64)
+        out_classes = _build_classes(owidths, ocounts)
+        out_vb = out_classes[-1].vb
+        m2 = out_classes[-1].sb
+        out_width_to_class = _width_class_map(out_classes)
+        net_size = _pow2_at_least(max(m1, m2))
+        max_dummies = max(int(out_vb - u.shape[0]) for u, _ in out_sparse)
+        vp = _pow2_at_least(max(gtot + max_dummies, out_vb, 32 * 128 * 2))
+        base1, stride1 = _vertex_tables(in_classes, block)
+        base2, stride2 = _vertex_tables(out_classes, out_vb)
+        va_by_owidx = np.array([out_width_to_class[int(w)].va for w in owidths], dtype=np.int64)
+        ova_bounds = np.array([c.va for c in out_classes], dtype=np.int64)
+        owidx_of_cls = np.searchsorted(
+            owidths, np.array([c.real_width for c in out_classes], dtype=np.int64))
+        owidx_of_pos = owidx_of_cls[np.searchsorted(ova_bounds, np.arange(out_vb), side="right") - 1]
+
+    src_l1 = np.full((n, m1), INF_DIST, dtype=np.int32)
+
+    def one_shard(s: int, stimes: dict):
+        """Shard ``s``'s two routed networks and its CSR (``src_l1[s]``
+        filled in place)."""
+        es, ee = bounds[s], bounds[s + 1]
+        with _phase("vperm assembly", stimes):
+            uids_s, uw_s = out_sparse[s]
+            # Out positions of this shard's sources: ascending original id
+            # within each width class.
+            owidx_s = np.searchsorted(owidths, uw_s).astype(np.int64)
+            outpos_s = ranked_placement(owidx_s, va_by_owidx)
+            outpos_of_old = np.full(v, -1, dtype=np.int32)
+            outpos_of_old[uids_s] = outpos_s
+            vperm = np.full(vp, -1, dtype=np.int32)
+            vperm[outpos_s] = old2new[uids_s]
+            # Dummy out positions: the tails of the classes present in this
+            # shard first, in ascending-width class order with positions
+            # ascending within a class; then the absent classes' positions.
+            front = vperm[:out_vb]
+            present = np.bincount(owidx_s, minlength=owidths.shape[0])[owidx_of_pos] > 0
+            tail = np.flatnonzero((front < 0) & present)
+            tail = tail[np.argsort(owidx_of_pos[tail], kind="stable")]
+            front[tail] = gtot + np.arange(tail.shape[0], dtype=np.int64)
+            missing = np.flatnonzero(front < 0)
+            vperm[missing] = gtot + tail.shape[0] + np.arange(missing.shape[0])
+            used = np.zeros(vp, dtype=np.uint8)
+            used[vperm[vperm >= 0]] = 1
+            _pad_identity(vperm, used, vp)
+        with _phase("vperm route", stimes):
+            vperm_routed = _route_shard(vperm, vp, route, dev)
+        del vperm, used
+        with _phase("slots", stimes):
+            # L1 slots by (local dst, src): the in-row rank is the canonical
+            # min-parent; L2 slots by (src out-position, local dst).
+            s_src, s_dst = src[es:ee], dst[es:ee]
+            dstn = _gather(old2new, s_dst) - np.int32(s * block)
+            o1, r1 = _sort_rank(dstn, s_src)
+            l1_sorted = _slot_assign(base1, stride1, _gather(dstn, o1), r1)
+            _scatter(src_l1[s], l1_sorted, _gather(s_src, o1))
+            srcpos = _gather(outpos_of_old, s_src)
+            o2, r2 = _sort_rank(srcpos, dstn)
+            l2_sorted = _slot_assign(base2, stride2, _gather(srcpos, o2), r2)
+            l1_by_edge = np.empty(ee - es, dtype=np.int32)
+            _scatter(l1_by_edge, o1, l1_sorted)
+            l2_by_edge = np.empty(ee - es, dtype=np.int32)
+            _scatter(l2_by_edge, o2, l2_sorted)
+            del o1, r1, o2, r2, l1_sorted, l2_sorted, srcpos
+        with _phase("sparse CSR", stimes):
+            # The push body's CSR over GLOBAL relabeled sources: (local
+            # dst, L1 slot) per edge, rows in counting order.
+            csr = seg_csr(_gather(old2new, s_src), dstn, l1_by_edge, gtot)
+        with _phase("net assembly", stimes):
+            net = np.full(net_size, -1, dtype=np.int32)
+            _scatter(net, l1_by_edge, l2_by_edge)
+            used = np.zeros(net_size, dtype=np.uint8)
+            _mark_used(l2_by_edge, used)
+            _pad_identity(net, used, net_size)
+        del l1_by_edge, l2_by_edge, used
+        with _phase("net route", stimes):
+            return vperm_routed, _route_shard(net, net_size, route, dev), csr
+
+    # The shards side by side, one thread each (the native helpers and the
+    # router release the GIL; torch routes queue on the device); each
+    # stage's seconds below are summed over the shards.
+    shard_times = [{} for _ in range(n)]
+    with _phase("shards", times), concurrent.futures.ThreadPoolExecutor(
+            max_workers=max(1, min(n, os.cpu_count() or 1)),
+            thread_name_prefix="sharded-relay-build") as pool:
+        done = [f.result() for f in [pool.submit(one_shard, s, shard_times[s]) for s in range(n)]]
+    for st in shard_times:
+        for k, sec in st.items():
+            times[k] = times.get(k, 0.0) + sec
+    (vperm_masks, vperm_tables), (net_masks, net_tables) = (
+        tuple(zip(*[r[i] for r in done])) for i in (0, 1))
+    adj_parts = [r[2] for r in done]
+
+    # One shape for every shard's adjacency rows: each padded to the
+    # largest shard's edge count (each indptr bounds its own entries).
+    emax = max(1, max(p[1].shape[0] for p in adj_parts))
+    adj_dst = np.zeros((n, emax), np.int32)
+    adj_slot = np.zeros((n, emax), np.int32)
+    for s, (_, d_s, sl_s) in enumerate(adj_parts):
+        adj_dst[s, : d_s.shape[0]] = d_s
+        adj_slot[s, : sl_s.shape[0]] = sl_s
+    outdeg = np.zeros(gtot, np.int32)
+    outdeg[old2new] = np.bincount(src, minlength=v).astype(np.int32)
+    return ShardedRelayGraph(
+        num_vertices=v,
+        num_edges=e,
+        num_shards=n,
+        block=block,
+        new2old=new2old,
+        old2new=old2new,
+        vperm_masks=np.stack(vperm_masks),
+        vperm_table=_merge_tables(list(vperm_tables)),
+        vperm_size=vp,
+        out_classes=tuple(out_classes),
+        out_space=out_vb,
+        net_masks=np.stack(net_masks),
+        net_table=_merge_tables(list(net_tables)),
+        net_size=net_size,
+        m1=m1,
+        m2=m2,
+        in_classes=tuple(in_classes),
+        src_l1=src_l1,
+        adj_indptr=np.stack([p[0] for p in adj_parts]).astype(np.int32),
+        adj_dst=adj_dst,
+        adj_slot=adj_slot,
+        outdeg=outdeg,
+    )

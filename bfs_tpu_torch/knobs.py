@@ -64,6 +64,11 @@ mirror knobs of the reference's registry of the same names without
   BFS_TPU_TORCH_LOCK_ORDER       spec    ""      lock-order recorder on the
                                                  serve locks: 0/off |
                                                  1/record | raise
+  BFS_TPU_TORCH_EXCHANGE         enum    auto    the mesh engine's frontier
+                                                 exchange: auto | bitmap |
+                                                 delta | flat
+  BFS_TPU_TORCH_EXCHANGE_DIV     int     8       word-list budget divisor:
+                                                 B = ceil(kw / div) (>= 1)
   ============================== ======= ======= ==========================
 
 Each knob also declares ``affects``: the content keys its value must be
@@ -90,9 +95,9 @@ its field in a :class:`~bfs_tpu_torch.resilience.journal.RunJournal`
 config, under the reference's field name, so one configuration keys one
 journal in either package.  :func:`journal_map` derives the fields from
 the registry.  The reference's other journal knobs (``BFS_TPU_PACKED``,
-``_ROWMIN``, ``_STATE_UPDATE``, ``_MXU_KERNEL``, ``_EXCHANGE``,
-``_EXCHANGE_DIV``) have no knob here: the port chooses those by argument
-or has no such arm (no ported kernel gives way to a stock op on a card).
+``_ROWMIN``, ``_STATE_UPDATE``, ``_MXU_KERNEL``) have no knob here: the
+port chooses those by argument or has no such arm (no ported kernel gives
+way to a stock op on a card).
 """
 
 from __future__ import annotations
@@ -309,6 +314,14 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     Knob("BFS_TPU_TORCH_LOCK_ORDER", "spec", "", _lock_order,
          "lock-order recorder on the named serve locks (analysis/runtime.py "
          "make_lock): 0/off | 1/record | raise", canary="maybe"),
+    Knob("BFS_TPU_TORCH_EXCHANGE", "enum", "auto", _enum("auto", "bitmap", "delta", "flat"),
+         "the mesh engine's frontier exchange arm (parallel/exchange.py): sieved "
+         "bitmaps, word-list deltas on sparse levels, or the flat oracle",
+         journal_key="exchange", affects=frozenset({"journal"}), canary="zip"),
+    Knob("BFS_TPU_TORCH_EXCHANGE_DIV", "int", "8", _int_at_least(1),
+         "exchange word-list budget divisor B = ceil(kw/div); larger cuts deeper "
+         "but engages on sparser levels only", journal_key="exchange_div",
+         affects=frozenset({"journal"}), canary="0"),
 )}
 
 

@@ -1,7 +1,7 @@
 """Superstep telemetry on the device: the level curve and the direction
 schedule, recorded in the level loop and read once at its exit.
 
-The port of the level-curve and direction halves of
+The port of the level-curve, direction and exchange halves of
 ``bfs_tpu.obs.telemetry``.  An occupancy accumulator is int64[TEL_SLOTS] in
 device memory: slot ``l`` holds the number of vertices that entered the
 frontier at level ``l`` (summed over the trees of a batch), so the curve's
@@ -92,6 +92,29 @@ def record_direction(dacc: torch.Tensor, level, code, live=None) -> torch.Tensor
     if live is not None:
         value = torch.where(live, value, dacc.index_select(0, idx))
     return dacc.index_copy_(0, idx, value)
+
+
+# The mesh engine's exchange (bfs_tpu_torch/parallel/exchange.py) records
+# per level the bytes its frontier exchange ships and the arm that shipped
+# them, in accumulators of the same slots, read with the others at exit.
+
+def init_bytes_acc(slots: int = TEL_SLOTS, device="cpu") -> torch.Tensor:
+    """int64[slots] exchange-bytes accumulator (slot 0 stays 0: the source
+    frontier is seeded by the state's init, nothing is shipped)."""
+    return torch.zeros(slots, dtype=torch.int64, device=device)
+
+
+def record_exchange(bacc: torch.Tensor, aacc: torch.Tensor, level, nbytes, arm,
+                    live=None) -> None:
+    """Record one superstep's exchange at the slot of the level its
+    frontier settled, in place: ``nbytes`` added into the bytes
+    accumulator, the arm code (``parallel/exchange.py`` ``EX_*``) set in the
+    arm accumulator (an int32 accumulator of :func:`init_dir_acc`'s shape);
+    each an int or a device scalar, nothing recorded on a dead superstep."""
+    if not isinstance(nbytes, torch.Tensor):
+        nbytes = torch.full((), int(nbytes), dtype=torch.int64, device=bacc.device)
+    record_count(bacc, level, nbytes, live)
+    record_direction(aacc, level, arm, live)
 
 
 def edge_curve_from_levels(dist: torch.Tensor, outdeg: torch.Tensor,

@@ -10,13 +10,17 @@ the parent id into one gathered value.
 
 The ELL matrices are the TRANSPOSED ``[K, rows]`` device operands of
 :func:`bfs_tpu_torch.graph.ell.device_ell`.
+
+The mesh engine (:mod:`bfs_tpu_torch.parallel.sharded`) reads the
+all-gathered packed frontier of its shards with
+:func:`unpack_frontier_blocks`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .packed import INT32_MAX
+from .packed import INT32_MAX, u32
 from .relax import BfsState, PackedBfsState, apply_candidates, apply_candidates_packed
 
 #: Gather temporary budget in elements (4 bytes each): a level whose
@@ -74,6 +78,14 @@ def pull_candidates(frontier_tab: torch.Tensor, ell0: torch.Tensor, folds) -> to
     for fold in folds:
         cand = _rowmin_level(_with_inf(cand), fold)
     return _with_inf(cand[..., :num_vertices])
+
+
+def unpack_frontier_blocks(words: torch.Tensor, num_blocks: int, num_words: int) -> torch.Tensor:
+    """int32[..., n*B/32] words of an all-gathered frontier (shard blocks
+    concatenated, standard packing) -> bool[..., n*B]."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (u32(words)[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], num_blocks * num_words * 32) != 0
 
 
 def relax_pull_superstep(state: BfsState, ell0, folds, ctl=None) -> BfsState:

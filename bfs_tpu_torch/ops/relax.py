@@ -18,6 +18,13 @@ sentinel that padded edges point at.  The packed carry
 (:class:`PackedBfsState`) holds ``level:6 | parent:26`` words
 (:mod:`.packed`) and runs exactly when ``packed_parent_fits(V)``.
 
+The mesh's push engine (:mod:`bfs_tpu_torch.parallel.sharded`) takes its
+candidates from :func:`shard_push_candidates` (the reference's
+``axis_name``): each edge shard's candidates, ``src``/``dst`` stacked on
+axis 0 (``[n, E/n]``), merged with one ``pmin`` over the mesh axis
+(:mod:`bfs_tpu_torch.parallel.compat`); the merge then runs once on the
+replicated state, so the ``changed`` of every shard is the same.
+
 Every merge takes an optional control block ``ctl`` (:mod:`.control`):
 inside the level loop the level it stamps is ctl's LEVEL word, and a
 superstep that is not LIVE selects the old carry in every field, the
@@ -46,6 +53,7 @@ __all__ = [
     "apply_candidates",
     "apply_candidates_packed",
     "combine_min",
+    "shard_push_candidates",
     "relax_superstep",
     "relax_superstep_packed",
     "relax_superstep_batched",
@@ -194,6 +202,18 @@ def _batched_push_candidates(frontier, src, dst, num_segments: int) -> torch.Ten
     ``[E]`` temporary at a time, where the reference materializes
     ``[E, S]``."""
     return torch.stack([_push_candidates(f, src, dst, num_segments) for f in frontier])
+
+
+def shard_push_candidates(frontier, src, dst, num_segments: int, axis: str | None = None):
+    """The push candidates of a single or batched frontier; with a mesh
+    ``axis``, of each edge shard of ``src``/``dst`` (``[n, E/n]``), merged
+    with one ``pmin`` over it."""
+    push = _batched_push_candidates if frontier.dim() == 2 else _push_candidates
+    if axis is None:
+        return push(frontier, src, dst, num_segments)
+    from ..parallel.compat import pmin
+
+    return pmin(torch.stack([push(frontier, s, d, num_segments) for s, d in zip(src, dst)]), axis)
 
 
 def relax_superstep(state: BfsState, src, dst, ctl=None) -> BfsState:

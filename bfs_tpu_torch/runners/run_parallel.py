@@ -11,9 +11,14 @@ on the card unless ``--device cpu`` is given.
 Usage:
     python -m bfs_tpu_torch.runners.run_parallel [service.properties] [--fused]
         [--engine push|pull|relay] [--device cpu] [--dump] [--source S] [--resume]
+        [--sharded [--mesh-graph N] [--mesh-batch B]]
 
 The stepped mode defaults to ``push`` and ``--fused`` to ``pull``, as in
-the reference.  ``--resume`` restarts a stepped push or pull run from its
+the reference.  ``--sharded`` (which implies ``--fused``) runs
+:func:`~bfs_tpu_torch.parallel.sharded.bfs_sharded` on a ``(B, N)`` mesh:
+the flags override the ``mesh-batch`` and ``mesh-graph`` keys of the
+configuration, where ``mesh-graph = 0`` takes every visible card.  With
+``--device`` the mesh's ``B * N`` shards are stacked on that one device.  ``--resume`` restarts a stepped push or pull run from its
 newest valid ``.ckpt_<level>.npz`` (either package's runner writes them).
 """
 
@@ -26,6 +31,7 @@ from ..config import ServiceConfiguration
 from ..graph.io import read_sedgewick
 from ..graph.vertex import initial_state_vertices, serialize_state
 from ..models.bfs import SuperstepRunner, bfs
+from ..parallel.sharded import bfs_sharded
 from ..oracle.bfs import check
 from ..utils.checkpoint import load_latest_checkpoint, save_checkpoint
 from ..utils.logging import get_logger
@@ -129,6 +135,26 @@ def run_fused(path: str, *, source: int = 0, engine: str = "pull", device=None):
     return result
 
 
+def run_sharded(path: str, *, source: int = 0, engine: str = "pull", device=None,
+                mesh_graph: int | None = None, mesh_batch: int = 1):
+    """One search of the mesh-sharded engine over one problem file, timed
+    with the layout build and the loop's capture, then checked."""
+    from ..parallel.sharded import make_mesh
+
+    devices = None
+    if device is not None:
+        devices = [device] * (mesh_batch * (mesh_graph or 1))
+    mesh = make_mesh(graph=mesh_graph or None, batch=mesh_batch, devices=devices)
+    graph = read_sedgewick(path)
+    sw = Stopwatch.create_started(device)
+    result = bfs_sharded(graph, source, mesh=mesh, engine=engine)
+    sw.stop()
+    logger.info("%s: %d supersteps in %s (sharded %s on %s, includes layout build and capture)",
+                path, result.num_levels, sw, engine, mesh)
+    _check(graph, result.dist, result.parent, source, path)
+    return result
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("config", nargs="?", default="service.properties")
@@ -141,6 +167,9 @@ def main(argv=None):
     )
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the card")
+    ap.add_argument("--sharded", action="store_true", help="use the mesh-sharded engine")
+    ap.add_argument("--mesh-graph", type=int, default=None)
+    ap.add_argument("--mesh-batch", type=int, default=None)
     ap.add_argument("--dump", action="store_true")
     ap.add_argument("--source", type=int, default=None)
     ap.add_argument(
@@ -156,8 +185,17 @@ def main(argv=None):
     )
     logger.info("Application name: %s", cfg.app_name)
     source = args.source if args.source is not None else cfg.source
+    # The flags override the configuration's mesh keys; 0 = every device.
+    mesh_graph = args.mesh_graph if args.mesh_graph is not None else cfg.mesh_graph
+    mesh_batch = args.mesh_batch if args.mesh_batch is not None else cfg.mesh_batch
+    if args.sharded and not args.fused:
+        logger.info("--sharded implies the fused engine; enabling --fused")
+        args.fused = True
     for path in cfg.problem_files or ():
-        if args.fused:
+        if args.sharded:
+            run_sharded(path, source=source, engine=args.engine or "pull", device=args.device,
+                        mesh_graph=mesh_graph, mesh_batch=mesh_batch)
+        elif args.fused:
             run_fused(path, source=source, engine=args.engine or "pull", device=args.device)
         else:
             run_problem_file(

@@ -5,7 +5,10 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the hand-written kernels from ``bfs_tpu_torch/csrc``, holds the
+It builds the hand-written kernels from ``bfs_tpu_torch/csrc`` (while a
+thread makes the host's share of what follows: the s22 graph, the probe
+cell's graph and its roots' oracle trees; the s22 roots' oracle trees
+are made beside the s22 layout build), holds the
 device layout builder against the host builder at R-MAT scale 18 (byte for
 byte with the native route), runs the measured arm selection on
 its cell (``probe_phase``: R-MAT scale 18 at edge factor 64 on a torch-routed
@@ -70,10 +73,12 @@ engines follow on the same graph: their layouts built on the host (timed),
 ``EdgeEngine.run`` for the same 4 roots on the captured loop and the eager
 loop, each result equal to ``canonical_bfs`` and to the relay engine's,
 each superstep's device time (ungated and gated by a live control block)
-beside its byte bound, the pull batch of the same 64 sources and the push
-batch of the first ``PUSH_BATCH`` of them (every tree equal to the relay
-batch's), each search and batch at blocks of 1, 2 and 4 supersteps and on
-the eager loop, ``SuperstepRunner`` on push, pull and relay for the
+beside its byte bound, the pull and push batches of the first
+``EDGE_BATCH`` of the same 64 sources (every tree equal to the relay
+batch's), each search at blocks of 1, 2 and 4 supersteps and on the eager
+loop, each batch on the eager loop for its first ``EAGER_BATCH`` sources
+(every tree equal to the captured batch's), ``SuperstepRunner`` on push,
+pull and relay for the
 max-degree root (each step timed by the device-synchronised ``Stopwatch``,
 the final state equal to the fused result, the relay runner's K1–K4
 launches counted against its steps, and its step's device time beside
@@ -105,7 +110,20 @@ to the supersteps issued and split as the schedule, K1-K4 (or
 time of each superstep by body beside the dense superstep's on the same
 level (a run with ``alpha = beta = 1e9``, every superstep dense), the
 predicate step alone, a device trace, and ``run_many_device``.
-The query server closes the s22 part (``serve_phase``): a
+The mesh-sharded engine follows (``sharded_phase``): on a mesh of
+``SHARDS`` (4) shards stacked on the card, the torch-routed sharded relay
+layouts of 4 and 2 shards and the 4-shard pull layout built side by side
+(build seconds and bytes); ``bfs_sharded`` on pull, push and relay
+(direction ``pull`` and ``auto``) from the max-degree root and a drawn one,
+each equal bit for bit to the single-chip result and clean under the
+DeviceChecker (``check()`` on the host for one), with seconds per search
+beside the single-chip ones; K1–K4 launched once per shard (4 x the
+shard's count x the supersteps issued); the relay search under the four
+exchange arms, bit-identical, their bytes and arm per level; the batch
+(``bfs_sharded_multi`` on a (2, 2) mesh, 8 of the batch sources, pull and
+relay) equal to the batch's trees; ``sssp_sharded`` and ``cc_sharded``
+equal to the single-chip results; the peak memory and the phase's wall
+time.  The query server closes the s22 part (``serve_phase``): a
 ``GraphRegistry`` over the script's bundle store (warm hits for the relay
 and pull layouts) and ``BfsServer(engine="pull", max_batch=32,
 tick_s=0.002, verify_sample=4)``: 40 single-source queries from 4
@@ -208,18 +226,19 @@ search under ``BFS_TPU_TORCH_TRANSFER_GUARD=1`` in a guarded region
 upload and the result's copy are explicit transfers) and an ``.item()`` in
 ``guarded_region("smoke.canary")``, which must raise naming the region; the
 server phase serves a warm relay tick of 4 and a pull tick of 32 under the
-same guard.  After the command line the chaos driver's three modes start
+same guard.  After the streamed arm the chaos driver's three modes start
 together (``start_chaos``), each a process of its own
-(``bfs_tpu_torch.tools.chaos_run``), with ``cache_warm``'s cold run, and
-run beside the small-graph checks; ``chaos_phase`` then holds them to
+(``bfs_tpu_torch.tools.chaos_run``), with ``cache_warm``'s cold run and,
+once it exits, its warm run (``start_cache_warm``), and run beside the
+command line and the small-graph checks; ``chaos_phase`` then holds them to
 their verdicts: ``serve`` at the reference's full
 schedule (scale 9, 12 healthy requests) under
 ``BFS_TPU_TORCH_LOCK_ORDER=1``, which must exit 0 with a lock-order graph
 that has edges and no cycle; one ``traversal`` iteration of ``relay``,
 killed at a superstep boundary and resumed from an epoch bit for bit; one
 ``loadgen`` iteration at scale 10.  ``cache_warm_phase`` waits for
-``cache_warm --tiles --compile`` at scale 16 cold and runs it warm, where
-every artifact (relay and tiles bundles, kernel
+``cache_warm --tiles --compile`` at scale 16 cold and warm, where the warm
+run's every artifact (relay and tiles bundles, kernel
 libraries, the arm probe's verdict) must be a hit, then holds
 ``verify_tiles_bundle`` ok, and ``absent`` once a field is corrupted.
 ``registry_phase`` runs every kernel of ``analysis/kernels.py`` at lint
@@ -306,8 +325,9 @@ EDGE_KS = (1, 2, 4)
 # The relay SuperstepRunner's eager step: both networks, the row-min and
 # the packed update, no control step.
 RELAY_RUNNER_STEP = {k: v for k, v in GATHER_STEP.items() if k != "loop_control"}
-# bfs_multi(engine="push") runs the first PUSH_BATCH sources of the batch.
-PUSH_BATCH = 64
+# bfs_multi on push and pull runs the first EDGE_BATCH sources of the batch
+# (64 until the sharded phase came in: 32 pays for the batches' eager runs).
+EDGE_BATCH = 32
 # Superstep checkpoints: relay segments of CKPT_EVERY supersteps; the
 # segmented push batch and serve tick take CKPT_MULTI sources in segments of
 # CKPT_MULTI_EVERY.
@@ -322,6 +342,10 @@ LOCKSTEP_MXU_S = (4,)
 # The measured arm selection's cell (ROADMAP A7): R-MAT s18 at edge factor
 # 64 (Graph500 a/b/c, graph seed 1) on a torch-routed layout, where the
 # tiles fit the default 4 GiB budget, so a default engine probes both arms.
+SHARDS = 4  # the sharded phase's mesh: 4 shards stacked on the one card
+SHARDED_BATCH = 8  # batch sources of bfs_sharded_multi on the (2, 2) mesh
+EAGER_BATCH = 8  # sources of the push and pull batches' eager run
+EXCHANGE_ARMS = ("flat", "bitmap", "delta", "auto")
 PROBE_SCALE = 18
 PROBE_EDGE_FACTOR = 64
 PROBE_TREES = 16
@@ -387,6 +411,7 @@ def device_trace(label: str, fn, wall_s: float, expect: str | None = None) -> fl
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t_wall = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -413,7 +438,8 @@ def device_trace(label: str, fn, wall_s: float, expect: str | None = None) -> fl
         f"{busy_s:.6f} s of the traced {traced_s:.6f} s (untraced {wall_s:.6f} s): "
         f"idle share {idle:.4f}; device ms by name: "
         + ", ".join(f"{n[:40]} {t * 1e-3:.4f}" for n, t in top)
-        + (f"; {seen} {expect} launches recorded" if expect else ""))
+        + (f"; {seen} {expect} launches recorded" if expect else "")
+        + f"; the trace took {time.perf_counter() - t_wall:.2f} s of wall time")
     if expect and not seen:
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -781,6 +807,7 @@ def block_table(label: str, run, L, eng, reps: int = 3, ks=(1, 4, 8, 16),
 
     keep = getattr(L, attr)
     rows = []
+    t_wall = time.perf_counter()
     for k in (*ks, *(("eager",) if eager else ())):
         if k == "eager":
             eng.loop = "eager"
@@ -804,7 +831,7 @@ def block_table(label: str, run, L, eng, reps: int = 3, ks=(1, 4, 8, 16),
     torch.cuda.empty_cache()
     log(f"{label}, block size table (mean of {reps} runs): " + "; ".join(
         f"k={r['k']}: {r['secs']:.6f} s, loop {r['loop_s']:.6f} s, {r['host_reads']:g} host reads"
-        for r in rows))
+        for r in rows) + f"; the table took {time.perf_counter() - t_wall:.2f} s of wall time")
     return rows
 
 
@@ -2012,7 +2039,8 @@ def mxu_main_path(meng, g, roots, want: dict, directed_traversed: int, K, P, L) 
     log(f"mxu path: all {len(roots)} roots equal to canonical_bfs and the gather arm, "
         f"DeviceChecker clean; {directed_traversed / 2 / mean_s:.6g} undirected TEPS (captured "
         "loop mean)")
-    mxu["table"] = block_table("mxu search, 4 searches a run", lambda: searches(meng, roots), L, meng)
+    mxu["table"] = block_table("mxu search, 4 searches a run", lambda: searches(meng, roots), L, meng,
+                               reps=1)
     return mxu
 
 
@@ -2160,15 +2188,17 @@ def edge_search_phase(label: str, eng, roots, want: dict, K, L) -> dict:
         "DeviceChecker clean")
     res["steps"] = superstep_table(label, eng, roots[0])
     res["table"] = block_table(f"{label}, 4 searches a run", lambda: searches(eng, roots), L, eng,
-                               ks=EDGE_KS, attr="EDGE_BLOCK", eager=True)
+                               reps=1, ks=EDGE_KS, attr="EDGE_BLOCK", eager=True)
     return res
 
 
-def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
+def edge_batch_phase(label: str, eng, sources, relay, K) -> dict:
     """``run_multi`` (what ``bfs_multi`` runs) on the captured loop: the
     first call (captures the batch's block) and a timed one, each tree equal
     to the relay batch's bit for bit (whose trees equal the single-source
-    searches, four of them ``canonical_bfs``); then its block size table."""
+    searches, four of them ``canonical_bfs``); then ``run_multi`` on the
+    eager loop for the first ``EAGER_BATCH`` sources, each tree equal bit
+    for bit to the captured batch's."""
     import numpy as np
     import torch
 
@@ -2198,17 +2228,26 @@ def edge_batch_phase(label: str, eng, sources, relay, K, L) -> dict:
         f"{secs / n:.6f} s per tree, {res.num_levels} levels; host reads {run['host_reads']}, "
         f"replays {run['replays']}, supersteps issued {run['issued']}, live {run['live']}; "
         f"peak device memory {peak} bytes; every tree equal to the relay batch's")
-    del res
-
-    def one_batch():
-        eng.run_multi(sources)
-        return eng.last_run["loop_s"], eng.last_run["host_reads"]
-
-    # One run a block size, at blocks of 1 and 2: the script's 600 s.
-    table = block_table(f"{label}, one batch a run", one_batch, L, eng, reps=1, ks=EDGE_KS[:1],
-                        attr="EDGE_BLOCK", eager=True)
+    # The eager loop (a host read per superstep, nothing captured) on fewer
+    # sources than the captured batch: no block size table of the batch
+    # since the sharded phase came in (it took 8.2 s (pull) and 4.7 s
+    # (push) of the script's 600 s).
+    m = min(n, EAGER_BATCH)
+    eng.loop = "eager"
+    try:
+        t0 = time.perf_counter()
+        eager = eng.run_multi(sources[:m])
+        eager_s = time.perf_counter() - t0
+    finally:
+        eng.loop = "blocks"
+    if not (np.array_equal(eager.dist, res.dist[:m]) and np.array_equal(eager.parent, res.parent[:m])):
+        raise AssertionError(f"{label}: an eager tree differs from the captured batch's")
+    log(f"{label}, eager loop, the first {m} sources: {eager_s:.6f} s ({eng.last_run['host_reads']} "
+        f"host reads, {eager.num_levels} levels); every tree equal bit for bit to the captured "
+        "batch's")
+    del res, eager
     return dict(first_s=first_s, secs=secs, run=run, peak=peak, trees=n, levels=res_levels,
-                table=table)
+                eager_s=eager_s, eager_trees=m)
 
 
 def runner_phase(layouts: dict, root: int, want: dict, K, P) -> tuple[dict, dict]:
@@ -2282,6 +2321,321 @@ def relay_step_cost(eng, states) -> dict:
         + f"; mean {step_ms:.4f} / {plain_ms:.4f}, the packed route {step_ms - plain_ms:+.4f} ms "
         "a step; results equal")
     return dict(step_ms=step_ms, plain_ms=plain_ms, rows=rows)
+
+
+def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want, K,
+                  card: str) -> dict:
+    """The mesh-sharded engine (``bfs_tpu_torch.parallel``) at s22 on
+    ``SHARDS`` shards stacked on the card: the layouts (the torch-routed
+    relay layouts of 4 and 2 shards built side by side first, then the
+    pull layouts and the edge shards; build seconds and bytes); single
+    searches on pull, push and relay (direction pull and auto) from the
+    max-degree root and a drawn one (the first calls capture; the timed
+    ones run once the host's side work is done), each equal bit for bit
+    to the single-chip result the script holds and clean under the
+    DeviceChecker (and ``check()`` on the host for one); K1-K4 launched
+    once per shard, ``SHARDS`` x the shard's count per superstep x the
+    supersteps issued; one dense superstep of shard 0 with each kernel
+    held against its plain version (``sharded_kernel_check``); the relay
+    search under the four exchange arms, bit-identical, their bytes and arm
+    per level; ``bfs_sharded_multi`` on a (2, 2) mesh for ``SHARDED_BATCH``
+    of the batch sources on pull and relay, every tree equal to the
+    batch's; ``sssp_sharded`` and ``cc_sharded`` equal to the single-chip
+    results.  ``bfs_sharded`` and ``bfs_sharded_multi`` build an engine
+    for the call and drop it; the timed replays run on held engines (the
+    stateful API).  Seconds per search beside the single-chip ones, the
+    peak memory and the phase's wall time.  Four shards on one card share
+    its memory: no wire, the exchange's bytes are counted."""
+    import concurrent.futures
+
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.algo import cc_sharded, sssp_sharded
+    from bfs_tpu_torch.parallel import sharded as SH
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.device("cuda")
+    mesh = SH.make_mesh(graph=SHARDS, devices=[cuda] * SHARDS)
+    mesh22 = SH.make_mesh(graph=2, batch=2, devices=[cuda] * 4)
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        return out, time.perf_counter() - t0
+
+    # The two torch-routed relay builds (their routes on the card) and the
+    # 4-shard pull build side by side, before any capture; the 2-shard pull
+    # build (host only) and one host check() run beside the first calls.
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3, thread_name_prefix="sharded-phase")
+    st4, st2 = {}, {}
+    t0 = time.perf_counter()
+    f_relay4 = pool.submit(timed, P.build_sharded_relay_graph, dg, SHARDS, route="torch",
+                           stage_times=st4)
+    f_relay2 = pool.submit(timed, P.build_sharded_relay_graph, dg, 2, route="torch",
+                           stage_times=st2)
+    f_pull4 = pool.submit(timed, P.build_sharded_pull_graph, dg, SHARDS)
+    dg4, dg4_s = timed(P.build_device_graph, dg, num_shards=SHARDS)
+    (srg, relay4_s), (srg2, relay2_s), (spg, pull4_s) = (f.result() for f in
+                                                         (f_relay4, f_relay2, f_pull4))
+    torch.cuda.synchronize()
+    layouts_s = time.perf_counter() - t0
+    f_pull2 = pool.submit(timed, P.build_sharded_pull_graph, dg, 2)
+
+    def nbytes(*arrays) -> int:
+        return int(sum(a.nbytes for a in arrays))
+
+    relay_bytes = nbytes(srg.vperm_masks, srg.net_masks, srg.src_l1, srg.adj_indptr, srg.adj_dst,
+                         srg.adj_slot, srg.outdeg)
+    pull_bytes = nbytes(spg.ell0, *spg.folds)
+    log(f"sharded layouts ({SHARDS} shards; {card}): relay (torch route) {relay4_s:.3f} s "
+        f"(stages {stage_line(st4)}), {relay_bytes} bytes: block {srg.block}, vperm "
+        f"{srg.vperm_size}, net {srg.net_size}, {len(srg.in_classes)} in-classes, adjacency "
+        f"rows of {srg.adj_dst.shape[1]}; pull {pull4_s:.3f} s, {pull_bytes} bytes (ell0 "
+        f"{spg.ell0.shape}, folds {[f.shape for f in spg.folds]}); edge shards {dg4_s:.3f} s "
+        f"({dg4.src.shape}); the 2-shard relay layout {relay2_s:.3f} s beside them; all in "
+        f"{layouts_s:.3f} s")
+
+    def same_as_single(label: str, res, r: int) -> None:
+        (dist, parent), relay = want[r]
+        if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
+            raise AssertionError(f"sharded {label} root {r}: result differs from canonical_bfs")
+        if res.num_levels != relay.num_levels:
+            raise AssertionError(f"sharded {label} root {r}: {res.num_levels} levels, the "
+                                 f"single-chip search {relay.num_levels}")
+        verify(f"sharded {label} root {r}", res.dist, res.parent, r)
+
+    # ---- single searches: pull and push once through ``bfs_sharded`` (a
+    # one-shot engine) from the max-degree root; each held engine's first
+    # call (it captures) from that root; then, once the host's side work is
+    # done, each root timed (a replay), each result dropped before the next
+    # as a caller taking one result at a time drops it.  The relay search
+    # goes through ``bfs_sharded`` under every exchange arm below.
+    K.reset_launches()
+    one_shot = {}
+    for engine, layout in (("pull", spg), ("push", dg4)):
+        res, one_shot[engine] = timed(SH.bfs_sharded, layout, roots[0], mesh=mesh, engine=engine)
+        same_as_single(f"{engine} (bfs_sharded)", res, roots[0])
+        del res
+    reng = SH.ShardedRelayEngine(srg, mesh)
+    engines = {"pull": SH.ShardedPullEngine(spg, mesh), "push": SH.ShardedPushEngine(dg4, mesh),
+               "relay": reng}
+    cases = (("pull", {}), ("push", {}),
+             ("relay pull", {"direction": "pull", "exchange": "auto"}),
+             ("relay auto", {"direction": "auto", "exchange": "auto"}))
+    rows, f_check = {}, None
+    for label, kw in cases:
+        eng = engines[label.split()[0]]
+        t0 = time.perf_counter()
+        res = eng.run(roots[0], **kw)
+        rows[label] = dict(first_s=time.perf_counter() - t0)
+        same_as_single(label, res, roots[0])
+        if label == "relay pull":
+            f_check = pool.submit(P.check, g, res.dist, res.parent, roots[0])
+        del res
+    spg2, pull2_s = f_pull2.result()
+    violations = f_check.result()
+    if violations:
+        raise AssertionError(f"sharded relay pull root {roots[0]}: check() violations {violations[:3]}")
+    for label, kw in cases:
+        eng = engines[label.split()[0]]
+        secs, runs = [], []
+        for r in roots[:2]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.run(r, **kw)
+            secs.append(time.perf_counter() - t0)
+            runs.append(dict(eng.last_run))
+            same_as_single(label, res, r)
+            del res
+        rows[label].update(secs=secs, run=runs[0])
+        log(f"sharded {label} search ({SHARDS} shards; {card}): first call (captures) "
+            f"{rows[label]['first_s']:.6f} s; then " + "; ".join(
+                f"root {r} {t:.6f} s (loop {u['loop_s']:.6f}, results {u['result_s']:.6f}; host "
+                f"reads {u['host_reads']}, issued {u['issued']}, live {u['live']})"
+                for r, t, u in zip(roots, secs, runs))
+            + f"; single-chip mean {single[label]:.6f} s; equal to canonical_bfs and the "
+            "single-chip search, DeviceChecker clean"
+            + (f"; through bfs_sharded (one-shot engine: build, ship, capture) "
+               f"{one_shot[label]:.6f} s" if label in one_shot else ""))
+    phase_launches = dict(K.LAUNCHES)
+    del engines["pull"], engines["push"]
+
+    # ---- launches of the relay search: once per shard per superstep
+    per = reng.dense_launches()
+    for label, kw in (("pull", {"direction": "pull"}), ("auto", {"direction": "auto"})):
+        K.reset_launches()
+        reng.run(roots[0], exchange="auto", **kw)
+        run = reng.last_run
+        got = {k: K.LAUNCHES[k] for k in (*per, "loop_control")}
+        expect = {k: SHARDS * c * (run["issued"] if k == "packed_update" else run["issued_pull"])
+                  for k, c in per.items()}
+        expect["loop_control"] = run["issued"]
+        if got != expect:
+            raise AssertionError(f"sharded relay {label}: launches {got}, expected {expect} "
+                                 f"({per} a shard, {SHARDS} shards, run {run})")
+        for k, n in got.items():
+            phase_launches[k] += n
+        log(f"sharded relay {label} root {roots[0]} ({card}): launches {got} = {SHARDS} shards x "
+            f"{per} a shard's dense superstep x {run['issued_pull']} dense of {run['issued']} supersteps "
+            f"issued (packed_update and loop_control on every superstep); the single-chip "
+            f"gather superstep launches {GATHER_STEP}")
+
+    # ---- one dense superstep of shard 0, each kernel against its plain
+    # version (these launches are not the path's: the next part resets)
+    check = sharded_kernel_check(reng, want[roots[0]][0][0], roots[0], K, card)
+    del reng, engines, eng
+
+    # ---- the exchange arms: bit-identical, bytes and arm per level
+    base, ex = None, {}
+    K.reset_launches()
+    for arm in EXCHANGE_ARMS:
+        t0 = time.perf_counter()
+        res, curve = SH.bfs_sharded(srg, roots[0], mesh=mesh, engine="relay", direction="pull",
+                                    exchange=arm, telemetry=True)
+        secs = time.perf_counter() - t0
+        if base is None:
+            same_as_single(f"relay exchange {arm}", res, roots[0])
+            base = (res, curve)
+        elif not (np.array_equal(res.dist, base[0].dist) and np.array_equal(res.parent, base[0].parent)
+                  and res.num_levels == base[0].num_levels
+                  and curve["occupancy"] == base[1]["occupancy"]):
+            raise AssertionError(f"sharded relay exchange {arm}: differs from the flat arm")
+        ex[arm] = dict(curve["exchange"], secs=secs)
+    for k, n in K.LAUNCHES.items():
+        phase_launches[k] += n
+    log(f"sharded exchange arms, relay root {roots[0]} ({SHARDS} shards on one card: the bytes a "
+        f"mesh would ship, counted; {card}): bit-identical; " + "; ".join(
+            f"{arm} {e['secs']:.6f} s, {e['total_bytes']} bytes (flat {e['flat_total_bytes']}), "
+            f"per level " + ", ".join(f"{a} {b}" for a, b in zip(e["schedule"], e["bytes_per_level"]))
+            for arm, e in ex.items()))
+
+    # ---- the batch on a (2, 2) mesh
+    srcs = np.asarray(batch.sources[:SHARDED_BATCH])
+    multi = {}
+    K.reset_launches()
+    for engine, layout, cls in (("pull", spg2, SH.ShardedPullEngine),
+                                ("relay", srg2, SH.ShardedRelayEngine)):
+        # bfs_sharded_multi (a one-shot engine), then a held engine's first
+        # call (it captures) and a replay, every tree against the batch's
+        one, one_s = timed(SH.bfs_sharded_multi, layout, srcs, mesh=mesh22, engine=engine)
+        beng = cls(layout, mesh22)
+        first_s = timed(beng.run_multi, srcs)[1]
+        res, secs = timed(beng.run_multi, srcs)
+        for label, got in (("bfs_sharded_multi", one), ("held engine", res)):
+            if not (np.array_equal(got.dist, batch.dist[:SHARDED_BATCH])
+                    and np.array_equal(got.parent, batch.parent[:SHARDED_BATCH])):
+                raise AssertionError(f"sharded batch {engine} ({label}): a tree differs from the "
+                                     "batch's")
+        verify(f"sharded batch {engine} tree 0", res.dist[0], res.parent[0], int(srcs[0]))
+        multi[engine] = dict(one_s=one_s, first_s=first_s, secs=secs, run=dict(beng.last_run))
+        del one, res, beng
+    for k, n in K.LAUNCHES.items():
+        phase_launches[k] += n
+    log(f"sharded batch (bfs_sharded_multi, (2, 2) mesh, {SHARDED_BATCH} sources; {card}): " + "; ".join(
+        f"{e} bfs_sharded_multi (one-shot engine) {m['one_s']:.6f} s; a held engine's first "
+        f"call {m['first_s']:.6f} s, then {m['secs']:.6f} s ({m['run']['issued']} supersteps "
+        "issued)" for e, m in multi.items())
+        + f"; every tree equal to the batch's; the 2-shard pull layout {pull2_s:.3f} s")
+
+    # ---- the algorithms on the edge shards
+    K.reset_launches()
+    ss, sssp_s = timed(sssp_sharded, dg4, roots[0], mesh=mesh)
+    if not (np.array_equal(ss.dist, sssp_want.dist) and np.array_equal(ss.parent, sssp_want.parent)
+            and ss.rounds == sssp_want.rounds):
+        raise AssertionError("sssp_sharded differs from the single-chip sssp")
+    cs, cc_s = timed(cc_sharded, dg4, mesh=mesh)
+    if not (np.array_equal(cs.label, cc_want.label) and cs.rounds == cc_want.rounds):
+        raise AssertionError("cc_sharded differs from the single-chip cc")
+    for k, n in K.LAUNCHES.items():
+        phase_launches[k] += n
+    pool.shutdown()
+    peak = torch.cuda.max_memory_allocated()
+    del srg, srg2, spg, spg2, dg4
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"sharded phase ({SHARDS} shards stacked on one card, not a multi-card figure; {card}): "
+        "s/search " + ", ".join(f"{k} {np.mean(v['secs']):.6f} (single-chip {single[k]:.6f})"
+                               for k, v in rows.items())
+        + f"; sssp_sharded {sssp_s:.6f} s ({ss.rounds} rounds), cc_sharded {cc_s:.6f} s "
+        f"({cs.rounds} rounds), both equal to the single-chip results; check() clean on the "
+        f"host; peak device memory {peak} bytes; phase {wall:.1f} s")
+    return dict(rows=rows, exchange=ex, multi=multi, launches=phase_launches, peak=peak, wall=wall,
+                layouts_s=layouts_s, sssp_s=sssp_s, cc_s=cc_s, check=check)
+
+
+def sharded_kernel_check(eng, dist, root: int, K, card: str) -> dict:
+    """One dense superstep of shard 0 of the sharded relay engine ``eng``
+    on the card, at the densest level of the search from ``root``
+    (``dist``: its distances, original ids).  The carry of that level is
+    made by the plain superstep of every shard (``.relay``'s functions on
+    the engine's masks and tables; the new frontier the shards' words
+    concatenated, as the flat exchange gathers them), then each kernel of
+    shard 0's superstep is held bit for bit against its plain version on
+    the same inputs: ``apply_benes`` on the vperm and net networks (K1 and
+    K2), ``rowmin_ranks`` (K3) and ``apply_relay_candidates_packed`` (K4).
+    Returns per launch key the largest error and the shape."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph.csr import INF_DIST
+    from bfs_tpu_torch.ops import relay as R
+
+    t0 = time.perf_counter()
+    srg, n, block, gtot = eng.layout, eng.n, eng.block, eng.gtot
+    if not eng.packed:
+        raise AssertionError("the sharded relay layout runs the unpacked carry: K4 is not on its path")
+    counts = np.bincount(dist[dist != INF_DIST])
+    level = int(np.argmax(counts))
+    src = int(srg.old2new[root])
+    packed = torch.full((n, block), -1, dtype=torch.int32, device=eng.device)
+    packed.view(-1)[src] = 0
+    words = np.zeros(srg.vperm_size // 32, dtype=np.uint32)
+    words[src >> 5] = np.uint32(1) << np.uint32(src & 31)
+    fin = torch.from_numpy(words.view(np.int32)).to(eng.device)
+
+    def plain(s: int, lvl: int):
+        y = R.apply_benes_std(fin, eng.vperm_masks[s], srg.vperm_table, srg.vperm_size)
+        l2 = R.broadcast_l2(y, srg.out_classes, srg.net_size, srg.out_space)
+        l1 = R.apply_benes_std(l2, eng.net_masks[s], srg.net_table, srg.net_size)
+        ranks = R.rowmin_ranks(l1, eng.valid_words[s], srg.in_classes, block)
+        new = R.apply_relay_candidates_packed(R.PackedRelayState(packed[s], None, lvl, None), ranks)
+        return y, l2, l1, ranks, new
+
+    for lvl in range(level):
+        news = [plain(s, lvl)[-1] for s in range(n)]
+        for s, new in enumerate(news):
+            packed[s] = new.packed
+        fin[: gtot // 32] = torch.cat([new.fwords for new in news])
+    frontier = int(np.unpackbits(fin[: gtot // 32].cpu().numpy().view(np.uint8)).sum())
+    if frontier != counts[level]:
+        raise AssertionError(f"sharded kernel check: the plain supersteps' frontier at level {level} "
+                             f"holds {frontier} vertices, the search {counts[level]}")
+    y, l2, l1, ranks, new = plain(0, level)
+    got = K.apply_relay_candidates_packed(R.PackedRelayState(packed[0].clone(), None, level, None),
+                                          ranks)
+    net_err = max_abs_err(K.apply_benes(l2, eng.net_masks[0], srg.net_table, srg.net_size), l1)
+    errs = {
+        "vperm": max_abs_err(K.apply_benes(fin, eng.vperm_masks[0], srg.vperm_table,
+                                           srg.vperm_size), y),
+        "net": net_err,
+        "class_rowmin": max_abs_err(K.rowmin_ranks(l1, eng.valid_words[0], srg.in_classes, block),
+                                    ranks),
+        "packed_update": max(max_abs_err(got.packed, new.packed), max_abs_err(got.fwords, new.fwords),
+                             int(bool(got.changed.item()) != bool(new.changed))),
+    }
+    if any(errs.values()):
+        raise AssertionError(f"sharded kernel check: a kernel differs from its plain version {errs}")
+    shape = (f"shard 0 of {n}, level {level} ({frontier} frontier vertices): vperm "
+             f"n={srg.vperm_size}, net n={srg.net_size}, block {block}, {len(srg.in_classes)} "
+             "in-classes")
+    log(f"sharded kernel check ({card}): {shape}; max_abs_err " + ", ".join(
+        f"{k} {v}" for k, v in errs.items()) + " against the plain versions, bit-exact; "
+        f"{time.perf_counter() - t0:.2f} s")
+    both = max(errs["vperm"], errs["net"])
+    return {"benes_local_pass": (both, shape), "benes_outer_pass": (both, shape),
+            "class_rowmin": (errs["class_rowmin"], shape),
+            "packed_update": (errs["packed_update"], shape)}
 
 
 def cli_phase(K) -> None:
@@ -3925,17 +4279,24 @@ def algo_step_ms(step, state, steps: int) -> float:
 def cc_truth(g):
     """Each vertex's component minimum id from
     ``scipy.sparse.csgraph.connected_components`` (the host oracle at s22,
-    where the Python union-find is too slow)."""
+    where the Python union-find is too slow), on the edges in (dst, src)
+    order that the host oracle's searches keep on the graph (a CSR of the
+    reversed edges: the same components); a component's minimum id is its
+    first vertex."""
     import numpy as np
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components
 
+    from bfs_tpu_torch.oracle.bfs import _edges_by_dst
+
     n = g.num_vertices
-    adj = csr_matrix((np.ones(g.src.size, dtype=np.int32), (g.src, g.dst)), shape=(n, n))
+    src, dst = _edges_by_dst(g)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=indptr[1:])
+    adj = csr_matrix((np.ones(src.size, dtype=np.int8), src, indptr), shape=(n, n))
     k, comp = connected_components(adj, directed=False)
-    mins = np.full(k, n, dtype=np.int64)
-    np.minimum.at(mins, comp, np.arange(n))
-    return mins[comp].astype(np.int32), int(k)
+    _, first = np.unique(comp, return_index=True)
+    return first[comp].astype(np.int32), int(k)
 
 
 def algo_captured(label: str, call, K, L, captures: int | None = None,
@@ -4679,25 +5040,47 @@ def probe_launches(probe: dict) -> dict:
     return want
 
 
-def probe_phase(P, generators, K, seed: int, card: str) -> dict:
+def probe_host(P, generators, seed: int) -> dict:
+    """The probe cell's host side, which needs no card (run beside the
+    kernel build): its graph, the max-out-degree root and 3 roots drawn
+    with ``seed`` from its component, their ``canonical_bfs`` trees, each
+    clean under ``check()``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    g = generators.rmat_graph_native(PROBE_SCALE, PROBE_EDGE_FACTOR, seed=GRAPH_SEED)
+    gen_s = time.perf_counter() - t0
+    root0 = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
+    oracle = {root0: P.canonical_bfs(g, root0)}
+    comp = np.flatnonzero(oracle[root0][0] != P.INF_DIST)
+    roots = [root0] + [int(r) for r in np.random.default_rng(seed).choice(
+        comp, ROOTS - 1, replace=False)]
+    for r in roots[1:]:
+        oracle[r] = P.canonical_bfs(g, r)
+    for r in roots:
+        violations = P.check(g, *oracle[r], r)
+        if violations:
+            raise AssertionError(f"probe: root {r}: check() violations {violations[:3]}")
+    return dict(g=g, gen_s=gen_s, comp=comp, roots=roots, oracle=oracle)
+
+
+def probe_phase(P, host: dict, K, seed: int, card: str) -> dict:
     """The measured arm selection on its cell (R-MAT s18, edge factor 64, a
-    torch-routed layout): the default engine (``expansion="auto"``) counts
-    its tiles, builds them and probes both arms (memo miss), its launches
-    held to the probe's loop counts; a second engine on the same layout
-    reads the verdict back (memo hit) and launches nothing; the
-    max-out-degree root and 3 roots drawn with ``seed`` on the selected arm
-    and on the other, forced, bit for bit with each other and
-    ``canonical_bfs``, ``check()`` clean; the lock-step batch of 16 on each
-    arm, loop and results apart."""
+    torch-routed layout; ``host`` from :func:`probe_host`): the default
+    engine (``expansion="auto"``) counts its tiles, builds them and probes
+    both arms (memo miss), its launches held to the probe's loop counts; a
+    second engine on the same layout reads the verdict back (memo hit) and
+    launches nothing; the max-out-degree root and 3 roots drawn with
+    ``seed`` on the selected arm and on the other, forced, bit for bit with
+    each other and ``canonical_bfs`` (whose trees are ``check()`` clean);
+    the lock-step batch of 16 on each arm, loop and results apart."""
     import numpy as np
     import torch
 
     from bfs_tpu_torch import knobs
     from bfs_tpu_torch.cache import layout as CL
 
-    t0 = time.perf_counter()
-    g = generators.rmat_graph_native(PROBE_SCALE, PROBE_EDGE_FACTOR, seed=GRAPH_SEED)
-    gen_s = time.perf_counter() - t0
+    g, gen_s, comp, roots, oracle = (host[k] for k in ("g", "gen_s", "comp", "roots", "oracle"))
     t0 = time.perf_counter()
     rg = P.build_relay_graph_device(g, route="torch")
     torch.cuda.synchronize()
@@ -4758,13 +5141,6 @@ def probe_phase(P, generators, K, seed: int, card: str) -> dict:
     selected = eng.expansion
     other = "mxu" if selected == "gather" else "gather"
     engines = {selected: eng, other: P.RelayEngine(rg, device="cuda", expansion=other)}
-    root0 = int(np.argmax(np.bincount(g.src, minlength=g.num_vertices)))
-    oracle = {root0: P.canonical_bfs(g, root0)}
-    comp = np.flatnonzero(oracle[root0][0] != P.INF_DIST)
-    roots = [root0] + [int(r) for r in np.random.default_rng(seed).choice(
-        comp, ROOTS - 1, replace=False)]
-    for r in roots[1:]:
-        oracle[r] = P.canonical_bfs(g, r)
     secs = {}
     for arm, e in engines.items():
         for r in roots:
@@ -4779,10 +5155,6 @@ def probe_phase(P, generators, K, seed: int, card: str) -> dict:
             if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
                 raise AssertionError(f"probe {arm}: root {r} differs from canonical_bfs")
         secs[arm] = times
-    for r in roots:  # both arms equal the oracle's trees: check() them once
-        violations = P.check(g, *oracle[r], r)
-        if violations:
-            raise AssertionError(f"probe: root {r}: check() violations {violations[:3]}")
     log(f"probe: {len(roots)} roots {roots} on both arms (default hybrid engines), oracle-exact "
         "and equal to each other, check() clean; s/search " + "; ".join(
             f"{arm}{' (selected)' if arm == selected else ''} " + ", ".join(f"{t:.6f}" for t in ts)
@@ -4996,13 +5368,34 @@ def cache_warm_argv(cache_root: str) -> list:
             "--compile", "--cache-dir", os.path.join(cache_root, "cache_warm")]
 
 
-def cache_warm_phase(P, cache_root: str, cold_proc, card: str) -> dict:
+def start_cache_warm(cache_root: str):
+    """``cache_warm``'s cold run, and its warm run started on a thread as
+    soon as the cold one exits (both beside the script's own work); the
+    thread's ``result()`` is ``(warm process, its wall seconds)``."""
+    import concurrent.futures
+
+    cold = run_tool(cache_warm_argv(cache_root))
+
+    def warm():
+        cold.wait()
+        t0 = time.perf_counter()
+        proc = run_tool(cache_warm_argv(cache_root))
+        proc.wait()
+        return proc, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="cache-warm")
+    f_warm = pool.submit(warm)
+    pool.shutdown(wait=False)
+    return cold, f_warm
+
+
+def cache_warm_phase(P, cache_root: str, cold_proc, f_warm, card: str) -> dict:
     """``cache_warm --tiles --compile`` at scale 16 on a cache root of its own,
-    cold (``cold_proc``, started with the chaos runs) then warm, each a
-    process of its own: the warm run must find every artifact (the relay and
-    tiles bundles, the kernel libraries, the arm probe's verdict) a hit;
-    then ``verify_tiles_bundle`` reports the bundle ok, and ``absent`` once
-    one of its fields is corrupted."""
+    cold (``cold_proc``) then warm (``f_warm``), each a process of its own
+    (:func:`start_cache_warm`): the warm run must find every artifact (the
+    relay and tiles bundles, the kernel libraries, the arm probe's verdict)
+    a hit; then ``verify_tiles_bundle`` reports the bundle ok, and
+    ``absent`` once one of its fields is corrupted."""
     from bfs_tpu_torch.cache import layout as CL
     from bfs_tpu_torch.graph.generators import rmat_graph_native
     from bfs_tpu_torch.resilience.faults import corrupt_file
@@ -5010,8 +5403,9 @@ def cache_warm_phase(P, cache_root: str, cold_proc, card: str) -> dict:
     root = os.path.join(cache_root, "cache_warm")
     runs = {}
     for name in ("cold", "warm"):
-        proc = cold_proc if name == "cold" else run_tool(cache_warm_argv(cache_root))
+        proc, own_s = (cold_proc, None) if name == "cold" else f_warm.result()
         out, secs = finish_tool(f"cache_warm {name}", proc)
+        secs = secs if own_s is None else own_s
         docs = json_lines(out)
         runs[name] = {"secs": secs, "artifacts": docs[-2]["artifacts"],
                       "counters": docs[-1]["artifact_caches"],
@@ -5100,6 +5494,23 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device {torch.cuda.get_device_name(0)}")
 
+    # ---- host work that needs no card runs beside the build on a thread of
+    # its own: the cell's s22 graph, then the probe cell's graph, its roots'
+    # canonical_bfs trees and their check()
+    import concurrent.futures
+
+    prep = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="smoke-host")
+
+    def s22_graph():
+        t0 = time.perf_counter()
+        # The native generator only (it raises if it cannot be built): the
+        # numpy one draws other edges, so the measured graph would silently
+        # change.
+        graph = generators.rmat_graph_native(args.scale, EDGE_FACTOR, seed=GRAPH_SEED)
+        return graph, time.perf_counter() - t0
+
+    f_graph = prep.submit(s22_graph)
+    f_probe = prep.submit(probe_host, P, generators, args.seed)
     # ---- build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
     K.build_all()
@@ -5117,6 +5528,9 @@ def main(argv=None) -> int:
                 print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
     mark("build")
+    g, t_gen = f_graph.result()
+    probe_pre = f_probe.result()
+    mark("host preparation (the wait left)")
     # ---- layout: the device builder against the host builder at s18, then
     # the cell's layout built on the card into a fresh bundle store and
     # loaded back (memmapped); the engine ships from the loaded layout
@@ -5124,13 +5538,9 @@ def main(argv=None) -> int:
     mark("layout parity s18")
     # ---- the measured arm selection on its cell: the default engine's
     # probe (memo miss, then hit), both arms' searches and batches
-    probe = probe_phase(P, generators, K, args.seed, card)
+    probe = probe_phase(P, probe_pre, K, args.seed, card)
+    del probe_pre
     mark(f"probe cell s{PROBE_SCALE} ef {PROBE_EDGE_FACTOR}")
-    t0 = time.perf_counter()
-    # The native generator only (it raises if it cannot be built): the numpy
-    # one draws other edges, so the measured graph would silently change.
-    g = generators.rmat_graph_native(args.scale, EDGE_FACTOR, seed=GRAPH_SEED)
-    t_gen = time.perf_counter() - t0
     log(f"graph: R-MAT scale {args.scale} ef {EDGE_FACTOR} seed {GRAPH_SEED} "
         f"(native generator, {t_gen:.1f} s): V={g.num_vertices} directed E={g.num_edges}")
     store = tempfile.mkdtemp(prefix="chip_smoke_layout_", dir=os.path.join(root_dir, ".bench_cache"))
@@ -5138,6 +5548,20 @@ def main(argv=None) -> int:
     # The superstep checkpoints' epoch store.
     ckpt_store = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(root_dir, ".bench_cache"))
     atexit.register(shutil.rmtree, ckpt_store, True)
+    # The roots' canonical_bfs trees on the host beside the layout build
+    # (host work too, on its own threads): the max-degree root's, then 3
+    # roots drawn with --seed from its component.
+    deg = np.bincount(g.src, minlength=g.num_vertices)
+    root0 = int(np.argmax(deg))
+
+    def root_oracles():
+        first = P.canonical_bfs(g, root0)
+        comp = np.flatnonzero(first[0] != P.INF_DIST)
+        rng = np.random.default_rng(args.seed)
+        drawn = [root0] + [int(r) for r in rng.choice(comp, ROOTS - 1, replace=False)]
+        return comp, rng, drawn, {root0: first, **{r: P.canonical_bfs(g, r) for r in drawn[1:]}}
+
+    f_oracles = prep.submit(root_oracles)
     rg, setup = layout_phase(P, g, store)
     mask_bytes = rg.net_masks.nbytes + rg.vperm_masks.nbytes
     log(f"layout: vr={rg.vr} net_size={rg.net_size} "
@@ -5145,9 +5569,11 @@ def main(argv=None) -> int:
         f"vperm={len(rg.vperm_table)} mask bytes={mask_bytes} "
         f"in_classes={len(rg.in_classes)} out_classes={len(rg.out_classes)}")
     mark("graph, layout build and load")
-    deg = np.bincount(g.src, minlength=g.num_vertices)
-    root0 = int(np.argmax(deg))
-    oracle0 = P.canonical_bfs(g, root0)
+    # ``rng`` goes on to draw the batch's sources after the roots.
+    comp, rng, roots, oracles = f_oracles.result()
+    prep.shutdown()
+    oracle0 = oracles[root0]
+    mark("root oracles (the wait left)")
     routers = router_phase(P, g, rg, setup["stages"], root0, oracle0, K, R, card)
     mark("routers")
     t0 = time.perf_counter()
@@ -5174,9 +5600,6 @@ def main(argv=None) -> int:
     # the eager loop; then the oracle, the result copy's two designs and
     # the block size table
     d0 = oracle0[0]
-    comp = np.flatnonzero(d0 != P.INF_DIST)
-    rng = np.random.default_rng(args.seed)
-    roots = [root0] + [int(r) for r in rng.choice(comp, ROOTS - 1, replace=False)]
     directed_traversed = int(np.count_nonzero(d0[g.src] != P.INF_DIST))
     gather = loop_phase("gather search", eng, roots, GATHER_STEP, "packed_update", K, L)
     # The oracle's and the search's host arrays are kept for the MXU arm's
@@ -5184,7 +5607,7 @@ def main(argv=None) -> int:
     want = {}
     for r in roots:
         res = gather["results"][r]
-        dist, parent = oracle0 if r == root0 else P.canonical_bfs(g, r)
+        dist, parent = oracles[r]
         if not (np.array_equal(res.dist, dist) and np.array_equal(res.parent, parent)):
             raise AssertionError(f"root {r}: result differs from canonical_bfs")
         # The host check() on the max-degree root; every root is
@@ -5203,7 +5626,8 @@ def main(argv=None) -> int:
     designs = result_designs(eng, root0)
     curve = relay_curve_phase(eng, root0, want[root0][0][0], K)
     corrupted = verify_corruptions(g, root0, *want[root0][0])
-    gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L, eng)
+    gather["table"] = block_table("gather search, 4 searches a run", lambda: searches(eng, roots), L,
+                                  eng, reps=1)
     mark("gather main path")
     # ---- the transfer guard: the s22 search in a guarded region, the canary
     guard = guard_phase(eng, root0, oracle0, RT, card)
@@ -5286,9 +5710,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         log(f"{engine} engine: layout shipped in {time.perf_counter() - t0:.2f} s")
         edge[engine] = edge_search_phase(f"{engine} search", eeng, roots, want, K, L)
-        batch = sources if engine == "pull" else sources[:PUSH_BATCH]
+        batch = sources[:EDGE_BATCH]
         edge[engine]["batch"] = edge_batch_phase(f"bfs_multi({engine})", eeng, batch,
-                                                 multi["result"], K, L)
+                                                 multi["result"], K)
         if engine == "push":
             ckpt["multi push"] = ckpt_multi_phase(eeng, sources[:CKPT_MULTI], multi["result"], K,
                                                   L, card, ckpt_store)
@@ -5334,6 +5758,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     runners, relay_merge = runner_phase({"push": dg, "pull": pg, "relay": rg}, root0, want, K, P)
     mark("runners")
+    # ---- the mesh-sharded engine: 4 shards stacked on the card, every
+    # search, batch and algorithm against the single-chip results above
+    sharded = sharded_phase(
+        P, g, dg, roots, want,
+        {"pull": edge["pull"]["mean"]["secs"], "push": edge["push"]["mean"]["secs"],
+         "relay pull": gather["mean"]["secs"],
+         "relay auto": hybrid["gather"]["mean"][("auto", "blocks")]},
+        multi["result"], algo["sssp"]["results"][(roots[0], None)], algo["cc push"]["result"],
+        K, card)
+    for k, n in sharded["launches"].items():
+        if n:
+            launches[k] = launches.get(k, 0) + n
+    mark("sharded")
     # ---- the query server on the same graph: every reply against the
     # relay batch's trees and the roots' oracle results
     serve = serve_phase(P, g, store, pg, sources, roots, multi["result"], want, card, K, L,
@@ -5366,13 +5803,13 @@ def main(argv=None) -> int:
         launches[k] += n
     del want
     mark("stream")
+    # ---- the resilience drivers, each a process of its own, started now:
+    # the chaos modes and cache_warm's cold and warm runs run beside the
+    # command line and the small-graph checks below, none of them timed
+    cold_warm, f_warm = start_cache_warm(cache_dir)
+    chaos_procs, chaos_t0 = start_chaos(cache_dir)
     cli_phase(K)
     mark("command line")
-    # ---- the resilience drivers, each a process of its own, started now:
-    # the chaos modes and cache_warm's cold run run beside the small-graph
-    # checks below
-    cold_warm = run_tool(cache_warm_argv(cache_dir))
-    chaos_procs, chaos_t0 = start_chaos(cache_dir)
 
     # ---- small graphs ---------------------------------------------------
     tiny = P.read_sedgewick(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5397,7 +5834,7 @@ def main(argv=None) -> int:
     # registry kernel at lint scale against its plain version
     chaos = chaos_phase(chaos_procs, chaos_t0, card)
     mark("chaos driver (the wait left)")
-    warmed = cache_warm_phase(P, cache_dir, cold_warm, card)
+    warmed = cache_warm_phase(P, cache_dir, cold_warm, f_warm, card)
     mark("cache_warm")
     registry = registry_phase(KREG, card)
     mark("kernel registry")
@@ -5437,7 +5874,10 @@ def main(argv=None) -> int:
                  library_ms=r.get("library_ms"), gated_ms=r.get("gated_ms"),
                  kernel=spec.name, reference=spec.k,
                  phase=("lock-step kernel phase: " if spec.name in BATCH_SPECS
-                        else "kernel phase: ") + r["shape"])
+                        else "kernel phase: ") + r["shape"],
+                 **({} if spec.name in BATCH_SPECS or spec.launch_key not in sharded["check"] else
+                    dict(sharded_max_abs_err=sharded["check"][spec.launch_key][0],
+                         sharded_shape=sharded["check"][spec.launch_key][1])))
             for row, r, n in picked]
     if unheld:
         raise AssertionError(f"registry kernels never held against their plain versions in "
@@ -5470,7 +5910,8 @@ def main(argv=None) -> int:
             f"{edge[e]['steps']['max_ms']:.4f} ms against a bound of {edge[e]['steps']['bound_ms']:.4f} ms, "
             f"the live gate {edge[e]['steps']['gate_ms']:.4f} ms, "
             f"dead superstep {edge[e]['dead_ms']:.6f} ms, peak {edge[e]['peak']} bytes; batch of "
-            f"{edge[e]['batch']['trees']} {edge[e]['batch']['secs']:.6f} s"
+            f"{edge[e]['batch']['trees']} {edge[e]['batch']['secs']:.6f} s (eager, the first "
+            f"{edge[e]['batch']['eager_trees']}: {edge[e]['batch']['eager_s']:.6f} s)"
             for e in ("pull", "push"))
         + f"; relay gather search {gather['mean']['secs']:.6f} s in the same run; layouts built in "
         f"{edge_build['device_graph_s']:.3f} s (DeviceGraph) and {edge_build['pull_graph_s']:.3f} s "

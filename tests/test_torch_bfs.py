@@ -155,7 +155,9 @@ def test_import_leaves_jax_out():
         "bfs_tpu_torch.analysis.runtime, bfs_tpu_torch.analysis.__main__, "
         "bfs_tpu_torch.analysis.knobs, bfs_tpu_torch.analysis.knob_rules, "
         "bfs_tpu_torch.analysis.kernels, bfs_tpu_torch.tools.chaos_run, "
-        "bfs_tpu_torch.tools.cache_warm; "
+        "bfs_tpu_torch.tools.cache_warm, bfs_tpu_torch.parallel, "
+        "bfs_tpu_torch.parallel.compat, bfs_tpu_torch.parallel.exchange, "
+        "bfs_tpu_torch.parallel.sharded, bfs_tpu_torch.algo.sharded; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'bfs_tpu' or m.startswith('bfs_tpu.')]; print(bad); "
         "sys.exit(1 if bad else 0)"
@@ -198,7 +200,10 @@ def test_no_jax_or_reference_imports_in_the_port():
                 ("analysis", "runtime.py"), ("analysis", "transfer.py"), ("analysis", "locks.py"),
                 ("analysis", "obs.py"), ("analysis", "recompile.py"), ("analysis", "knobs.py"),
                 ("analysis", "knob_rules.py"), ("analysis", "kernels.py"),
-                ("tools", "chaos_run.py"), ("tools", "cache_warm.py")):
+                ("tools", "chaos_run.py"), ("tools", "cache_warm.py"),
+                ("parallel", "__init__.py"), ("parallel", "compat.py"),
+                ("parallel", "exchange.py"), ("parallel", "sharded.py"),
+                ("algo", "sharded.py")):
         assert os.path.join(REPO, "bfs_tpu_torch", *sub) in files
     for path in files:
         for mod in _imported_modules(path):

@@ -2017,3 +2017,52 @@ def test_card_auto_over_budget_builds_no_tile(card, monkeypatch):
     eng = P.RelayEngine(P.rmat_graph(10, 8, seed=3), tiles_budget_bytes=4096)
     assert eng.expansion == "gather" and eng.adj_tiles is None and eng.phase_probe is None
     assert eng.expansion_basis.startswith("auto -> gather: tiles over budget")
+
+
+def test_card_sharded_relay_launches_per_shard(card):
+    """The mesh engine with 4 shards stacked on the card: each kernel of a
+    dense superstep is launched once per shard (4 x the shard's count x
+    the dense supersteps issued; ``packed_update`` on every superstep), on
+    the pull schedule's block loop and the auto schedule's switch loop, and
+    the results equal the oracle's and the CPU mesh's; the lock-step batch
+    on a (2, 2) mesh launches its kernels once per shard for all 8 trees;
+    every exchange arm gives the same tree."""
+    from bfs_tpu_torch.parallel import sharded as SH
+
+    g = P.rmat_graph(12, 8, seed=3)
+    srg = P.build_sharded_relay_graph(g, 4, route="torch", device=card)
+    mesh = SH.make_mesh(graph=4, devices=[card] * 4)
+    cpu_mesh = SH.make_mesh(graph=4, devices=[torch.device("cpu")] * 4)
+    d, p = P.canonical_bfs(g, 0)
+    eng = SH.ShardedRelayEngine(srg, mesh)
+    for direction in ("pull", "auto"):
+        for _ in range(2):  # the first call captures, the second replays
+            K.reset_launches()
+            res = eng.run(0, direction=direction, exchange="auto")
+        np.testing.assert_array_equal(res.dist, d)
+        np.testing.assert_array_equal(res.parent, p)
+        want = SH.bfs_sharded(srg, 0, mesh=cpu_mesh, engine="relay", direction=direction,
+                              exchange="auto")
+        np.testing.assert_array_equal(res.parent, want.parent)
+        run, per = eng.last_run, eng.dense_launches()
+        assert run["issued"] == run["issued_push"] + run["issued_pull"]
+        for k, c in per.items():
+            dense = run["issued"] if k == "packed_update" else run["issued_pull"]
+            assert K.LAUNCHES[k] == 4 * c * dense, (direction, k, K.LAUNCHES[k], c, run)
+        assert K.LAUNCHES["loop_control"] == run["issued"]
+    for arm in ("flat", "bitmap", "delta"):
+        got = SH.bfs_sharded(srg, 0, mesh=mesh, engine="relay", direction="pull", exchange=arm)
+        np.testing.assert_array_equal(got.parent, p)
+    sources = [0, 5, 77, 300, 511, 2, 8, 120]
+    mesh22 = SH.make_mesh(graph=2, batch=2, devices=[card] * 4)
+    srg2 = P.build_sharded_relay_graph(g, 2, route="torch", device=card)
+    eng = SH.ShardedRelayEngine(srg2, mesh22)
+    eng.run_multi(sources)
+    K.reset_launches()
+    multi = eng.run_multi(sources)
+    for k, c in eng.dense_launches(len(sources)).items():
+        assert K.LAUNCHES[k] == 2 * c * eng.last_run["issued"], (k, K.LAUNCHES[k], c)
+    for i, s in enumerate(sources):
+        d, p = P.canonical_bfs(g, s)
+        np.testing.assert_array_equal(multi.dist[i], d)
+        np.testing.assert_array_equal(multi.parent[i], p)

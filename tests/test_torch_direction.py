@@ -95,7 +95,8 @@ def test_knobs_mirror_the_reference():
     assert sorted(knobs.KNOBS) == [
         "BFS_TPU_TORCH_CACHE_DIR", "BFS_TPU_TORCH_CKPT", "BFS_TPU_TORCH_CKPT_MTBF_S",
         "BFS_TPU_TORCH_DIRECTION", "BFS_TPU_TORCH_DIRECTION_ALPHA",
-        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_EXPANSION", "BFS_TPU_TORCH_FAULT",
+        "BFS_TPU_TORCH_DIRECTION_BETA", "BFS_TPU_TORCH_EXCHANGE", "BFS_TPU_TORCH_EXCHANGE_DIV",
+        "BFS_TPU_TORCH_EXPANSION", "BFS_TPU_TORCH_FAULT",
         "BFS_TPU_TORCH_JOURNAL", "BFS_TPU_TORCH_JOURNAL_DIR", "BFS_TPU_TORCH_LABELS",
         "BFS_TPU_TORCH_LABELS_GB", "BFS_TPU_TORCH_LABELS_VERIFY", "BFS_TPU_TORCH_LAYOUT_BUILD",
         "BFS_TPU_TORCH_LOCK_ORDER",
@@ -119,7 +120,7 @@ def test_journal_map_mirrors_the_reference():
     ref = {key: name.replace("BFS_TPU_", "BFS_TPU_TORCH_")
            for key, name in j_knobs.journal_map().items()}
     assert knobs.journal_map() == {k: v for k, v in ref.items() if v in knobs.KNOBS}
-    assert len(knobs.journal_map()) == 8
+    assert len(knobs.journal_map()) == 10
     for knob in knobs.KNOBS.values():
         ref_knob = j_knobs.KNOBS[knob.name.replace("BFS_TPU_TORCH_", "BFS_TPU_")]
         assert knob.journal_key == ref_knob.journal_key
