@@ -7,8 +7,9 @@ same host layouts, byte for byte, and the same ``dist``/``parent``/
 engines, and the direction-optimizing search over push and pull
 (:func:`bfs_direction`; its knobs in :mod:`bfs_tpu_torch.knobs`), and the
 mesh-sharded engine (:mod:`bfs_tpu_torch.parallel`: :func:`bfs_sharded`,
-:func:`bfs_sharded_multi` on a :func:`make_mesh` of shards stacked on one
-device).  It
+:func:`bfs_sharded_multi` and the resumable :func:`bfs_sharded_segmented`
+on a :func:`make_mesh` of shards stacked on one device, on both expansion
+arms).  It
 imports torch and numpy, never jax and nothing of ``bfs_tpu``.  Entry
 points run on the card unless the caller passes ``device="cpu"``.  The command-line entry points are
 ``python -m bfs_tpu_torch.runners.run_parallel`` and
@@ -54,6 +55,7 @@ _EXPORTS = {
     "bfs_multi_direction": ".models.direction",
     "bfs_sharded": ".parallel.sharded",
     "bfs_sharded_multi": ".parallel.sharded",
+    "bfs_sharded_segmented": ".parallel.sharded",
     "bfs_multi_level_curve": ".models.multisource",
     "build_device_graph": ".graph.csr",
     "build_pull_graph": ".graph.ell",

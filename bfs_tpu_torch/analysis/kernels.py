@@ -327,6 +327,9 @@ KERNEL_SPECS: dict[str, KernelSpec] = {s.name: s for s in (
                lambda ctx: _outer(ctx, LINT_TREES)),
     KernelSpec("class_rowmin_kernel", RELAY_CU, "class_rowmin", "K3", ("rowmin.tournament",),
                f"{_PALLAS}:1059", f"{_RC}:rowmin_ranks", (f"{_R}:rowmin_ranks",), _rowmin),
+    # K4's paths: RelayEngine's packed loops (both arms, the lock-step batch),
+    # the mesh's ShardedRelayEngine.run and run_segmented once per shard per
+    # superstep (rank candidates on gather, original ids on the MXU arm).
     KernelSpec("packed_update_kernel", RELAY_CU, "packed_update", "K4", ("update.packed_words",),
                f"{_PALLAS}:1188", f"{_RC}:apply_relay_candidates_packed",
                (f"{_R}:apply_relay_candidates_packed",), _packed_update),
@@ -350,6 +353,10 @@ KERNEL_SPECS: dict[str, KernelSpec] = {s.name: s for s in (
     KernelSpec("elem_rowmin_update_kernel", ELEM_CU, "elem_rowmin_update", None, (),
                "bfs_tpu/ops/relay_elem.py:186", f"{_RC}:elem_rowmin_update",
                (f"{_RE}:rowmin_elem", f"{_RE}:apply_elem_found"), _elem_rowmin_update),
+    # K6's paths: RelayEngine's MXU arm (run, run_segmented, the lock-step
+    # batch, the streamed arm per superblock) and the mesh's
+    # ShardedRelayEngine.run and run_segmented with expansion="mxu", once per
+    # shard per dense superstep on the global frontier words.
     KernelSpec("mxu_expand_kernel", MXU_CU, "mxu_expand", "K6", ("expand.frontier_mxu",),
                "bfs_tpu/ops/relay_mxu.py:373", f"{_RC}:expand_frontier_mxu",
                ("bfs_tpu_torch.ops.relay_mxu:expand_frontier_mxu_plain",), _mxu_expand),

@@ -324,6 +324,64 @@ def build_adj_tiles_from_relay(
     )
 
 
+def _shard_edges(srg, s: int) -> tuple[np.ndarray, np.ndarray]:
+    """(src, dst) host edge lists of shard ``s`` of a sharded relay layout:
+    global relabeled sources from its CSR rows, LOCAL destinations."""
+    gtot = srg.num_shards * srg.block
+    indptr = np.asarray(srg.adj_indptr[s][: gtot + 1], dtype=np.int64)
+    src = np.repeat(np.arange(gtot, dtype=np.int64), np.diff(indptr))
+    return src, np.asarray(srg.adj_dst[s][: src.shape[0]], dtype=np.int64)
+
+
+def count_tiles_sharded(srg, device="cpu") -> list[int]:
+    """Nonempty tiles of each shard's layout of
+    :func:`build_adj_tiles_sharded`, counted without building any: one
+    sort of a shard's ``(column tile, row tile)`` codes on ``device`` at a
+    time."""
+    rbp = round_up(srg.num_shards * srg.block, TILE) // TILE + 1
+    counts = []
+    for s in range(srg.num_shards):
+        src, dst = (torch.from_numpy(a).to(device) for a in _shard_edges(srg, s))
+        code = torch.sort((dst >> 7) * rbp + (src >> 7)).values
+        del src, dst
+        counts.append(int(1 + (code[1:] != code[:-1]).sum()) if code.numel() else 0)
+    return counts
+
+
+def iter_adj_tiles_sharded(
+    srg, builder: str | None = None, budget_bytes: int | None = None, device="cpu",
+):
+    """Shard ``s``'s tile layout for ``s = 0, 1, ...``, one at a time (a
+    caller that stacks them frees each before the next is built), as
+    :func:`build_adj_tiles_sharded` builds them."""
+    builder = resolve_tiles_builder(builder)
+    gtot = srg.num_shards * srg.block
+    keys2d = keys_from_new2old(srg.new2old, gtot)
+    for s in range(srg.num_shards):
+        src, dst = _shard_edges(srg, s)
+        if builder == "host":
+            yield build_adj_tiles_host(src, dst, rows=gtot, cols=srg.block, keys2d=keys2d,
+                                       budget_bytes=budget_bytes)
+        else:
+            yield build_adj_tiles_device(torch.from_numpy(src), torch.from_numpy(dst), rows=gtot,
+                                         cols=srg.block, keys2d=keys2d,
+                                         budget_bytes=budget_bytes, device=device)
+
+
+def build_adj_tiles_sharded(
+    srg, builder: str | None = None, budget_bytes: int | None = None, device="cpu",
+) -> list[AdjTiles]:
+    """Per-shard tile layouts of a sharded relay layout (the mesh's MXU
+    arm): shard ``s`` tiles the GLOBAL relabeled sources (``rows = n *
+    block``, the all-gathered frontier words are the expansion's input)
+    against its own destination block (``cols = block``), from its CSR
+    ``adj_indptr[s]``/``adj_dst[s]``; keys are the global ``new2old``.
+    ``budget_bytes`` applies to each shard.  ``builder`` as in
+    :func:`build_adj_tiles_from_relay`, with no retry of a failed device
+    build on the host."""
+    return list(iter_adj_tiles_sharded(srg, builder, budget_bytes, device))
+
+
 def num_superblocks(at: AdjTiles) -> int:
     """Column superblocks of a layout: the streaming transfer unit."""
     return int(at.vtp // SB_VERTS)

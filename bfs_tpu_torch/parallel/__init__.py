@@ -3,4 +3,11 @@ shards, the shuffle recast as collectives (the port of
 ``bfs_tpu.parallel``)."""
 
 from .exchange import ExchangeConfig, resolve_exchange  # noqa: F401
-from .sharded import BATCH_AXIS, GRAPH_AXIS, bfs_sharded, bfs_sharded_multi, make_mesh  # noqa: F401
+from .sharded import (  # noqa: F401
+    BATCH_AXIS,
+    GRAPH_AXIS,
+    bfs_sharded,
+    bfs_sharded_multi,
+    bfs_sharded_segmented,
+    make_mesh,
+)

@@ -41,8 +41,19 @@ build an engine for one call and drop it.
 Results are bit-identical to the single-chip engines and the oracle: the
 relay engine's parents are per-shard L1 slots (ranks on the packed carry),
 mapped back to original ids on the device.  ``expansion="auto"`` resolves
-to gather on the mesh, as in the reference; the MXU arm on the mesh is
-ROADMAP A12's next step and raises.
+to gather on the mesh, as in the reference (the mesh has no probe);
+``expansion="mxu"`` is the MXU arm: each shard tiles the global sources
+against its own destination block
+(:func:`~bfs_tpu_torch.graph.adj_tiles.build_adj_tiles_sharded`), and its
+dense body is kernel K6 (``expand_frontier_mxu``) once per shard on the
+global frontier words, whose candidates are original ids, then K4 per
+shard; no Beneš mask is shipped on that arm.
+
+:func:`bfs_sharded_segmented` (:meth:`ShardedRelayEngine.run_segmented`)
+is the resumable search: the same captured loop in bounded segments, one
+epoch of per-shard state files after each
+(:mod:`bfs_tpu_torch.resilience.superstep_ckpt`), a lost shard file falling
+back to the last complete epoch.
 """
 
 from __future__ import annotations
@@ -64,8 +75,19 @@ from ..obs import telemetry as T
 from ..ops import control as C
 from ..ops import relay as R
 from ..ops import relay_cuda as K
+from ..ops import relay_mxu as RM
 from ..ops import sparse as S
-from ..ops.packed import INT32_MAX, PACKED_MAX_LEVELS, U32, packed_cap, packed_rank_fits, packed_truncated
+from ..ops.packed import (
+    INT32_MAX,
+    PACKED_MAX_LEVELS,
+    U32,
+    packed_cap,
+    packed_dist,
+    packed_parent,
+    packed_parent_fits,
+    packed_rank_fits,
+    packed_truncated,
+)
 from ..ops.pull import _rowmin_level, _with_inf, unpack_frontier_blocks
 from ..ops.relax import shard_push_candidates
 from .compat import BATCH_AXIS, GRAPH_AXIS, Mesh, all_gather
@@ -79,11 +101,11 @@ __all__ = [
     "ShardedRelayEngine",
     "bfs_sharded",
     "bfs_sharded_multi",
+    "bfs_sharded_segmented",
     "make_mesh",
+    "sharded_segment_carry",
+    "sharded_segment_keys",
 ]
-
-#: Where ROADMAP.md names the mesh's next steps.
-_MXU_STEP = "ROADMAP A12 (a), the MXU arm on the mesh"
 
 
 def make_mesh(graph: int | None = None, batch: int = 1, *,
@@ -364,6 +386,76 @@ def _sharded_adj_ranks(srg: ShardedRelayGraph) -> np.ndarray:
     return ((srg.adj_slot - base1[d]) // np.maximum(stride1[d], 1)).astype(np.int32)
 
 
+def _sharded_adj_keys(srg: ShardedRelayGraph) -> np.ndarray:
+    """Per-edge ORIGINAL source ids of the per-shard adjacency (the MXU
+    arm's payload, its candidates' format): ``src_l1[shard][slot]``."""
+    slots = np.clip(srg.adj_slot, 0, srg.src_l1.shape[1] - 1)
+    shard = np.arange(srg.adj_slot.shape[0])[:, None]
+    return np.where(srg.adj_slot >= 0, srg.src_l1[shard, slots], srg.adj_slot).astype(np.int32)
+
+
+class ShardedTiles(NamedTuple):
+    """The mesh's MXU operands, stacked on axis 0 by shard: ``tiles``
+    ``[n, ntp, 128, 4]``, ``row_idx``/``col_id`` ``[n, ntp]`` (each shard
+    padded to the largest ``ntp`` with inert tiles), ``sb_indptr``, and
+    ``keys2d`` (the global key table, one copy a shard); ``geometry`` is
+    ``(rows, cols, rtp, vtp, ntp)``, shared by every shard; ``info`` the
+    tile counts, bytes and build seconds."""
+
+    tiles: torch.Tensor
+    row_idx: torch.Tensor
+    col_id: torch.Tensor
+    sb_indptr: torch.Tensor
+    keys2d: torch.Tensor
+    geometry: tuple
+    info: dict
+
+    def shard(self, s: int) -> tuple:
+        """Shard ``s``'s operand tuple of ``expand_frontier_mxu``."""
+        return self.tiles[s], self.row_idx[s], self.col_id[s], self.keys2d[s]
+
+
+def _sharded_tiles_dev(srg: ShardedRelayGraph, device, budget_bytes: int,
+                       builder: str | None = None) -> ShardedTiles:
+    """Every shard's tile layout (:func:`~bfs_tpu_torch.graph.adj_tiles.
+    build_adj_tiles_sharded`) stacked on ``device``.  The tiles are counted
+    first (every shard held against ``budget_bytes`` before any is built),
+    the stacked arrays allocated once, and each shard built and copied into
+    its row, then freed: the peak is the stack plus one shard."""
+    from ..graph import adj_tiles as AT
+
+    t0 = time.perf_counter()
+    n, block = srg.num_shards, srg.block
+    host = AT.resolve_tiles_builder(builder) == "host"
+    counts = AT.count_tiles_sharded(srg, "cpu" if host else device)
+    for nt in counts:
+        AT._check_budget(nt, budget_bytes)
+    ntp = max(max(counts), 1)
+    rtp, vtp = AT.round_up(n * block, AT.TILE), AT.round_up(max(block, 1), AT.SB_VERTS)
+    i32 = dict(dtype=torch.int32, device=device)
+    tiles = torch.empty((n, ntp, AT.TILE, AT.TILE_WORDS), **i32)
+    row_idx = torch.full((n, ntp), rtp // AT.TILE, **i32)
+    col_id = torch.full((n, ntp), vtp // AT.TILE, **i32)
+    sb_indptr = torch.empty((n, vtp // AT.SB_VERTS + 1), **i32)
+    keys2d = None
+    for s, at in enumerate(AT.iter_adj_tiles_sharded(srg, builder, budget_bytes, device)):
+        k = at.ntp
+        tiles[s, :k].copy_(at.tiles)
+        tiles[s, k:].zero_()
+        row_idx[s, :k].copy_(at.row_idx)
+        col_id[s, :k].copy_(at.col_id)
+        sb_indptr[s].copy_(at.sb_indptr)
+        if keys2d is None:
+            keys2d = at.keys2d.to(device).unsqueeze(0).repeat(n, 1, 1)
+        del at
+    live = sum(max(nt, 1) for nt in counts)
+    info = {"nt": counts, "ntp": ntp, "tile_bytes": n * ntp * AT.TILE_BYTES,
+            "pad_bytes": (n * ntp - live) * AT.TILE_BYTES,
+            "build_s": time.perf_counter() - t0}
+    return ShardedTiles(tiles, row_idx, col_id, sb_indptr, keys2d,
+                        (n * block, block, rtp, vtp, ntp), info)
+
+
 def _per_shard(n: int, shape: tuple, device, fn) -> torch.Tensor:
     """``fn(s, out_row)`` for each shard, stacked into one ``[n, *shape]``
     int32 tensor: on a card the kernel writes its row in place, on the CPU
@@ -379,41 +471,64 @@ def _per_shard(n: int, shape: tuple, device, fn) -> torch.Tensor:
 
 class ShardedRelayEngine:
     """Per-shard relay layouts on the mesh (``engine='relay'``; the
-    reference's ``_bfs_sharded_relay_fused`` and
-    ``_bfs_sharded_relay_multi_fused``).
+    reference's ``_bfs_sharded_relay_fused``, its segmented twin
+    ``_bfs_sharded_relay_segment`` and ``_bfs_sharded_relay_multi_fused``).
 
     Shard ``s`` owns the block ``[s*block, (s+1)*block)`` of the global
     relabeled space.  The carry is shard-stacked: ``packed`` ``[n, block]``
-    (``level:6|rank:26`` words) or ``dist``/``parent`` (parents per-shard
-    L1 slots), ``[n, S, block]`` for a batch; the frontier is the global
+    (``level:6|rank:26`` words, ``level:6|parent:26`` on the MXU arm) or
+    ``dist``/``parent`` (parents per-shard L1 slots, original ids on the
+    MXU arm), ``[n, S, block]`` for a batch; the frontier is the global
     words ``[n*block/32]``, the head of the vperm network's input (its
-    tail stays zero).  A dense superstep, per shard: the vperm network on
-    the global words (K1, K2: ``apply_benes`` with the shard's masks), the
-    broadcast (torch, once for all shards), the net network (K1, K2), the
-    row-min against the shard's valid slots (K3, ``rowmin_ranks``), then
-    the update: ``packed_update`` (K4) on the packed carry, its improved
-    bits the shard's send words, or the unpacked merge (torch); then the
-    exchange (:mod:`.exchange`) and the control step."""
+    tail stays zero).  A dense superstep, per shard, on the gather arm:
+    the vperm network on the global words (K1, K2: ``apply_benes`` with
+    the shard's masks), the broadcast (torch, once for all shards), the
+    net network (K1, K2), the row-min against the shard's valid slots
+    (K3, ``rowmin_ranks``); on the MXU arm (``expansion="mxu"``) the
+    global words against the shard's tiles (K6, ``expand_frontier_mxu``),
+    the min original id per owned vertex.  Then the update:
+    ``packed_update`` (K4) on the packed carry, its improved bits the
+    shard's send words, or the unpacked merge (torch); then the exchange
+    (:mod:`.exchange`) and the control step.
 
-    def __init__(self, srg: ShardedRelayGraph, mesh: Mesh):
+    :meth:`run` is one search (with the direction schedule, telemetry and
+    the exchange arms), :meth:`run_segmented` the same search in bounded
+    segments with an epoch of per-shard state after each, resumable, and
+    :meth:`run_multi` the lock-step batch (gather arm only, as the
+    reference's).  ``expansion`` (``auto|gather|mxu``, default
+    ``BFS_TPU_TORCH_EXPANSION``): ``auto`` is gather, as in the
+    reference; ``mxu`` builds every shard's tiles on the mesh's device
+    (``tiles_budget_bytes`` per shard, default 4 GiB; over it raises) and
+    ships no Beneš mask and no valid-slot words."""
+
+    def __init__(self, srg: ShardedRelayGraph, mesh: Mesh, *, expansion: str | None = None,
+                 tiles_budget_bytes: int | None = None):
         n = _check_shards(srg, mesh)
         self.mesh, self.layout, self.device = mesh, srg, mesh.device
         dev = self.device
         self.n, self.block = n, srg.block
         self.nw, self.gtot = srg.block // 32, n * srg.block
-        self.packed = packed_rank_fits(srg.in_classes)
+        self.expansion, self.packed = _resolve_sharded_expansion(
+            expansion, srg, packed_rank_fits(srg.in_classes))
+        self.tiles_budget_bytes = (RM.DEFAULT_TILES_BUDGET_BYTES if tiles_budget_bytes is None
+                                   else int(tiles_budget_bytes))
 
         def ship(words) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)).to(dev)
 
-        self.vperm_masks = ship(srg.vperm_masks)
-        self.net_masks = ship(srg.net_masks)
-        self.valid_words = ship(np.stack([valid_slot_words(srg.src_l1[s], srg.net_size)
-                                          for s in range(n)]))
+        self.vperm_masks = self.net_masks = self.valid_words = self.src_l1 = None
+        self.tiles: ShardedTiles | None = None
+        if self.expansion == "mxu":
+            self.tiles = _sharded_tiles_dev(srg, dev, self.tiles_budget_bytes)
+        else:
+            self.vperm_masks = ship(srg.vperm_masks)
+            self.net_masks = ship(srg.net_masks)
+            self.valid_words = ship(np.stack([valid_slot_words(srg.src_l1[s], srg.net_size)
+                                              for s in range(n)]))
+            self.src_l1 = torch.from_numpy(np.ascontiguousarray(srg.src_l1, dtype=np.int32)).to(dev)
         self.own = torch.from_numpy(_own_word_table(srg).astype(np.int64)).to(dev)
         self.kw = int(self.own.shape[1])
         self.old2new = torch.from_numpy(np.asarray(srg.old2new, dtype=np.int64)).to(dev)
-        self.src_l1 = torch.from_numpy(np.ascontiguousarray(srg.src_l1, dtype=np.int32)).to(dev)
         self.outdeg = None if srg.outdeg is None else torch.from_numpy(
             np.asarray(srg.outdeg, dtype=np.int32)).to(dev)
         self._adj: dict = {}
@@ -436,16 +551,35 @@ class ShardedRelayEngine:
         return _per_shard(n, (*lead, self.block), dev, lambda s, o: K.rowmin_ranks(
             l1[s], self.valid_words[s], srg.in_classes, self.block, out=o, ctl=ctl))
 
+    def _dense_keys(self, fw: torch.Tensor, ctl) -> torch.Tensor:
+        """Every shard's min ORIGINAL id candidate per owned vertex (-1
+        where none) from the global frontier words ``fw`` (``[gtot/32]``):
+        K6 once per shard against its tiles, ``[n, block]``."""
+        rows, cols, rtp, vtp, _ = self.tiles.geometry
+        return _per_shard(self.n, (self.block,), self.device, lambda s, o: K.expand_frontier_mxu(
+            fw, self.tiles.shard(s), rows=rows, cols=cols, rtp=rtp, vtp=vtp, ctl=ctl))
+
+    def _dense_cand(self, fin: torch.Tensor, ctl, packed: bool) -> torch.Tensor:
+        """The dense body's candidates in the carry's format: ranks with the
+        sentinel (gather) or original ids with -1 (MXU) on the packed carry;
+        L1 slots or original ids with INT32_MAX on the unpacked one."""
+        if self.expansion == "mxu":
+            cand = self._dense_keys(fin[: self.gtot // 32], ctl)
+            return cand if packed else torch.where(cand == -1, INT32_MAX, cand)
+        cand = self._dense_ranks(fin, ctl)
+        return cand if packed else R.rank_to_slot(cand, self.layout.in_classes, self.block)
+
     def adjacency(self, packed: bool) -> S.SparseAdjacency:
         """The push body's per-shard operands ``(indptr [n, gtot+2], dst
-        [n, emax], third [n, emax], outdeg [gtot])``, the third array ranks
-        (packed carry) or L1 slots, shipped at first use."""
+        [n, emax], third [n, emax], outdeg [gtot])``, the third array
+        original ids on the MXU arm, else ranks (packed carry) or L1 slots,
+        shipped at first use."""
         srg = self.layout
         if srg.adj_dst is None or self.outdeg is None:
             raise ValueError("direction='push' needs the per-shard adjacency this "
                              "ShardedRelayGraph lacks; rebuild it with build_sharded_relay_graph "
                              "(use 'pull' or 'auto' to run dense only)")
-        flavor = "ranks" if packed else "slots"
+        flavor = "keys" if self.expansion == "mxu" else "ranks" if packed else "slots"
         adj = self._adj.get(flavor)
         if adj is None:
             shared = next(iter(self._adj.values()), None)
@@ -454,15 +588,17 @@ class ShardedRelayEngine:
                 dst = torch.from_numpy(np.asarray(srg.adj_dst, dtype=np.int32)).to(self.device)
             else:
                 indptr, dst = shared.indptr, shared.dst
-            third = _sharded_adj_ranks(srg) if packed else np.asarray(srg.adj_slot, dtype=np.int32)
+            third = (_sharded_adj_keys(srg) if flavor == "keys" else _sharded_adj_ranks(srg)
+                     if packed else np.asarray(srg.adj_slot, dtype=np.int32))
             adj = self._adj[flavor] = S.SparseAdjacency(
                 indptr, dst, torch.from_numpy(third).to(self.device), self.outdeg)
         return adj
 
     def _push_cand(self, fw: torch.Tensor, adj: S.SparseAdjacency, unreached: torch.Tensor,
                    packed: bool) -> torch.Tensor:
-        """The push body's candidates, in the dense body's format (ranks
-        with the sentinel packed, L1 slots with INT32_MAX unpacked), of
+        """The push body's candidates, in the dense body's format (ranks or
+        original ids with the sentinel packed, L1 slots or original ids
+        with INT32_MAX unpacked), of
         every shard from the global frontier's list: its out-edges into the
         shard's vertices fanned out through the shard's CSR, sorted by
         ``(local dst, payload)``, the first lane of each unreached
@@ -535,8 +671,11 @@ class ShardedRelayEngine:
         """The kernel launches of ONE shard's dense superstep (a search,
         or a lock-step batch of ``trees``), as ``apply_benes`` splits each
         network: per network its outer passes and one local pass, then
-        ``class_rowmin`` and, on the packed carry, ``packed_update``.  A
-        superstep launches each ``n`` times this."""
+        ``class_rowmin`` and, on the packed carry, ``packed_update``; on the
+        MXU arm ``mxu_expand`` and ``packed_update``.  A superstep launches
+        each ``n`` times this."""
+        if self.expansion == "mxu":
+            return {"mxu_expand": 1, "packed_update": int(self.packed)}
         srg = self.layout
         counts = {"benes_outer_pass": 0, "benes_local_pass": 0, "class_rowmin": 1,
                   "packed_update": int(self.packed)}
@@ -560,10 +699,10 @@ class ShardedRelayEngine:
         key = ("single", packed, telemetry, mode, ex_cfg.key())
         if key in self._loops:
             return self._loops[key]
-        srg, dev, n = self.layout, self.device, self.n
+        dev, n = self.device, self.n
         fields = tuple(torch.empty((n, self.block), dtype=torch.int32, device=dev)
                        for _ in range(1 if packed else 2))
-        fin = torch.zeros(srg.vperm_size // 32, dtype=torch.int32, device=dev)
+        fin = torch.zeros(self._fin_words(), dtype=torch.int32, device=dev)
         fw = fin[: self.gtot // 32]  # the global frontier; the tail stays zero
         send = torch.zeros((n, self.nw), dtype=torch.int32, device=dev)
         tel = ((T.init_level_acc(device=dev), T.init_dir_acc(device=dev),
@@ -583,9 +722,7 @@ class ShardedRelayEngine:
             # bfs_tpu_torch: hot captured
             def step():
                 if body:
-                    cand = self._dense_ranks(fin, ctl)
-                    if not packed:
-                        cand = R.rank_to_slot(cand, srg.in_classes, self.block)
+                    cand = self._dense_cand(fin, ctl, packed)
                 else:
                     cand = self._push_cand(fw, adj, unreached(), packed)
                 self._update(fields, send, cand, ctl)
@@ -628,9 +765,7 @@ class ShardedRelayEngine:
 
             # bfs_tpu_torch: hot captured
             def step():
-                cand = self._dense_ranks(fin, ctl)
-                if not packed:
-                    cand = R.rank_to_slot(cand, srg.in_classes, self.block)
+                cand = self._dense_cand(fin, ctl, packed)
                 self._update(fields, send, cand, ctl)
                 words = bitmap_gather(send.gather(-1, idx), self.own, self.nw)
                 fw.copy_(torch.where(ctl[C.LIVE] != 0, words, fw))
@@ -641,6 +776,18 @@ class ShardedRelayEngine:
         return L.cached(self._loops, ("multi", packed, trees), make)
 
     # -- runs ------------------------------------------------------------------
+
+    def _fin_words(self) -> int:
+        """Words of the dense body's frontier input: the vperm network's
+        input on the gather arm (the global words its head, its tail zero),
+        the global words on the MXU arm."""
+        return self.gtot // 32 if self.expansion == "mxu" else self.layout.vperm_size // 32
+
+    def _mode(self, cfg) -> str:
+        """The schedule a search runs: without the adjacency ``auto`` runs
+        dense; ``push`` raises in :meth:`adjacency`."""
+        has_adj = self.layout.adj_dst is not None and self.outdeg is not None
+        return cfg.mode if has_adj or cfg.mode == "push" else "pull"
 
     def _start(self, loop, packed: bool, sources, cap: int) -> bool:
         """Start a run in ``loop``'s carry from ``sources`` (relabeled ids:
@@ -658,27 +805,35 @@ class ShardedRelayEngine:
         send.zero_()
         return C.init_ctl(bufs[-1], cap)
 
-    def _run_single(self, source_new: int, cap: int, packed: bool, telemetry: bool, mode: str,
-                    ex_cfg: ExchangeConfig, cfg):
-        loop = self._single_loop(packed, telemetry, mode, ex_cfg)
+    def _begin(self, loop, packed: bool, source_new: int, cap: int, telemetry: bool, mode: str,
+               cfg) -> bool:
+        """Start one search in a loop of :meth:`_single_loop`: the state,
+        the accumulators and, on the switch loop, the first body; returns
+        LIVE."""
         live = self._start(loop, packed, source_new, cap)
         nf = 1 if packed else 2
-        tel = loop.buffers[nf + 2: nf + 6] if telemetry else ()
         if telemetry:
+            tel = loop.buffers[nf + 2: nf + 6]
             tel[0].copy_(T.init_level_acc(device=self.device))
             for t in tel[1:]:
                 t.zero_()
         if mode in ("auto", "push"):
-            dstate = loop.buffers[-2]
             fw = loop.buffers[nf][: self.gtot // 32]
-            ctl = loop.buffers[-1]
-            ctl[C.USE_PULL] = self._first_body(dstate, fw, self.adjacency(packed), mode,
-                                               cfg).to(torch.int32)
+            loop.ctl[C.USE_PULL] = self._first_body(loop.buffers[-2], fw, self.adjacency(packed),
+                                                    mode, cfg).to(torch.int32)
+        return live
+
+    def _run_single(self, source_new: int, cap: int, packed: bool, telemetry: bool, mode: str,
+                    ex_cfg: ExchangeConfig, cfg):
+        loop = self._single_loop(packed, telemetry, mode, ex_cfg)
+        live = self._begin(loop, packed, source_new, cap, telemetry, mode, cfg)
+        if mode in ("auto", "push"):
             stats, issued = loop.run(live)
         else:
             stats = loop.run(live)
             issued = {0: 0, 1: stats.issued}
-        return loop.buffers[:nf], stats, issued, tel
+        nf = 1 if packed else 2
+        return loop.buffers[:nf], stats, issued, loop.buffers[nf + 2: nf + 6] if telemetry else ()
 
     def run(self, source: int, *, max_levels: int | None = None, telemetry: bool = False,
             direction: str | None = None, exchange: str | None = None):
@@ -693,9 +848,7 @@ class ShardedRelayEngine:
         check_sources(srg.num_vertices, source)
         cfg = resolve_direction(direction)
         ex_cfg = resolve_exchange(exchange)
-        # Without the adjacency ``auto`` runs dense; ``push`` raises in adjacency().
-        has_adj = srg.adj_dst is not None and self.outdeg is not None
-        mode = cfg.mode if has_adj or cfg.mode == "push" else "pull"
+        mode = self._mode(cfg)
         max_levels = int(max_levels) if max_levels is not None else srg.num_vertices
         source_new = int(srg.old2new[source])
         t0 = time.perf_counter()
@@ -710,16 +863,19 @@ class ShardedRelayEngine:
                                                          mode, ex_cfg, cfg)
             stats = stats.add(more)
             issued = {b: issued[b] + more_issued[b] for b in issued}
+        return self._result(fields, packed, stats, issued, tel, source, t0, max_levels, cfg, ex_cfg)
+
+    def _result(self, fields, packed: bool, stats, issued: dict, tel, source: int, t0: float,
+                max_levels: int, cfg, ex_cfg, **extra):
+        """A search's result from its carry's fields: the state decoded
+        (:meth:`_decode`) and mapped back, :attr:`last_run`, and with the
+        accumulators ``tel`` the level curve."""
         t1 = time.perf_counter()
-        if packed:
-            dist, parent = R.unpack_relay_packed(fields[0], srg.in_classes, self.block)
-        else:
-            dist, parent = fields
-        dist, parent = to_host(*self._map_back(dist, parent, source))
+        dist, parent = to_host(*self._map_back(*self._decode(fields, packed), source))
         self.last_run = {**_run_stats(stats, t0, t1), "issued_push": issued[0],
-                         "issued_pull": issued[1], "packed": packed}
+                         "issued_pull": issued[1], "packed": packed, **extra}
         result = BfsResult(dist=dist, parent=parent, num_levels=stats.level)
-        if not telemetry:
+        if not tel:
             return result
         fv, dirs, xb, xa = T.read_telemetry(*tel)
         curve = T.level_curve(fv, cap=min(PACKED_MAX_LEVELS, max_levels) if packed else max_levels)
@@ -729,9 +885,198 @@ class ShardedRelayEngine:
                                             num_levels=result.num_levels)
         return result, curve
 
+    # -- segmented runs (superstep checkpoints) ---------------------------------
+
+    def _segment_views(self, loop, packed: bool, telemetry: bool, mode: str) -> dict:
+        """The carry's tensors by epoch key, views of ``loop``'s buffers:
+        the state flat in the global shard-major order (``[gtot]``, shard
+        ``s`` at ``[s*block, (s+1)*block)``), the global frontier words,
+        the accumulators, and on ``auto`` the decision state; the control
+        block holds ``level``, ``changed`` and the next body."""
+        bufs, nf = loop.buffers, 1 if packed else 2
+        views = dict(zip(_state_keys(packed), (f.view(-1) for f in bufs[:nf])))
+        views["fw"] = bufs[nf][: self.gtot // 32]
+        if telemetry:
+            views.update(zip(("occ", "dirs", "xb", "xa"), bufs[nf + 2: nf + 6]))
+        if mode == "auto":
+            views["dstate"] = bufs[-2]
+        return views
+
+    def _segment_carry(self, source: int, packed: bool, telemetry: bool, cfg, ex_cfg,
+                       restore: dict | None):
+        """:func:`sharded_segment_carry`'s work: ``(loop, views, level,
+        changed)``."""
+        from ..resilience.superstep_ckpt import epoch_tensor
+
+        srg, mode = self.layout, self._mode(cfg)
+        loop = self._single_loop(packed, telemetry, mode, ex_cfg)
+        views = self._segment_views(loop, packed, telemetry, mode)
+        if restore is None:
+            check_sources(srg.num_vertices, source)
+            self._begin(loop, packed, int(srg.old2new[source]), 0, telemetry, mode, cfg)
+            return loop, views, 0, True
+        if telemetry:  # empty accumulators unless the epoch carries them
+            views["occ"].copy_(T.init_level_acc(device=self.device))
+            for k in ("dirs", "xb", "xa"):
+                views[k].zero_()
+        loop.buffers[(1 if packed else 2) + 1].zero_()  # the send words
+        for key, t in views.items():
+            if key in restore:
+                t.copy_(epoch_tensor(restore[key], self.device, t.dtype))
+        level, changed = int(restore["level"]), bool(restore["changed"])
+        use_pull = 0
+        if mode in ("auto", "push"):
+            use_pull = self._restored_body(restore, views, self.adjacency(packed), mode, cfg)
+        C.resume_ctl(loop.ctl, level, changed, level, use_pull)
+        return loop, views, level, changed
+
+    def _restored_body(self, restore: dict, views: dict, adj: S.SparseAdjacency, mode: str, cfg):
+        """The next body of a restored carry on the switch loop: in ``push``
+        the frontier's own test; in ``auto`` the epoch's ``use_pull`` or,
+        from the reference's ``mu`` and ``prev``, the decision the
+        reference takes at the start of its next superstep."""
+        from ..models import direction as D
+
+        fw, gtot, num_edges = views["fw"], self.gtot, self.layout.num_edges
+        if mode == "push":
+            return (~S.take_sparse(fw, adj.outdeg, gtot, num_edges)).to(torch.int32)
+        if "use_pull" in restore:
+            return int(np.asarray(restore["use_pull"]))
+        dstate = views["dstate"]
+        dstate.zero_()
+        dstate[D.ALPHA], dstate[D.BETA] = cfg.alpha, cfg.beta
+        dstate[D.NTHRESH] = self.layout.num_vertices
+        dstate[D.MU] = float(np.asarray(restore["mu"]))
+        fsize, fedges = D.frontier_masses_words(fw, adj.outdeg, gtot)
+        use, dstate[D.MU], dstate[D.FE] = D.decide(dstate, bool(np.asarray(restore["prev"])),
+                                                   fsize, fedges)
+        return (use | ~S.within_budgets(fsize, fedges, gtot, num_edges)).to(torch.int32)
+
+    def _segment_snapshot(self, views: dict, ctl: torch.Tensor, keys: list, level: int,
+                          changed: bool, packed: bool) -> tuple[dict, list | None]:
+        """The carry as an epoch, one copy to the host: ``(meta arrays,
+        per-shard state arrays)`` in the reference's dtypes (the occupancy
+        and bytes accumulators are int64 here, int32 there; every count fits
+        it), or one file's arrays and None on a mesh of one shard."""
+        from ..resilience.superstep_ckpt import epoch_arrays
+
+        tensors = {k: views[k] for k in keys if k in views}
+        if "use_pull" in keys:
+            tensors["ctl"] = ctl
+        snap = epoch_arrays(tensors, level=np.int32(level), changed=np.bool_(changed),
+                            packed_flag=np.int32(packed))
+        if "ctl" in snap:
+            snap["use_pull"] = np.int32(snap.pop("ctl")[C.USE_PULL])
+        for k in ("occ", "xb"):
+            if k in snap:
+                snap[k] = snap[k].astype(np.int32)
+        if self.n == 1:
+            return snap, None
+        state = _state_keys(packed)
+        shards = [{k: snap[k][s * self.block:(s + 1) * self.block] for k in state}
+                  for s in range(self.n)]
+        return {k: v for k, v in snap.items() if k not in state}, shards
+
+    def _run_segmented_flavor(self, source: int, ckpt, max_levels: int, packed: bool,
+                              telemetry: bool, cfg, ex_cfg):
+        """One carry flavor through bounded segments, an epoch after each,
+        from the newest valid epoch of that flavor or from the start:
+        ``(fields, LoopStats, issued by body, accumulators, copy
+        seconds)``."""
+        from ..resilience.superstep_ckpt import restore_arrays
+
+        mode = self._mode(cfg)
+        cap = packed_cap(max_levels) if packed else max_levels
+        keys = sharded_segment_keys(packed, mode == "auto", telemetry)
+        state, decision = _state_keys(packed), ("dstate", "use_pull")
+        per_shard = self.n > 1
+        arrays, shard_arrays = restore_arrays(
+            ckpt, packed,
+            require=tuple(k for k in keys if k not in decision and not (per_shard and k in state)),
+            require_shards=state if per_shard else (),
+            require_any=((decision, ("mu", "prev")),) if mode == "auto" else ())
+        restore = None if arrays is None else dict(arrays)
+        if restore is not None and per_shard:
+            # The per-shard state reassembles shard-major into the global view.
+            for k in state:
+                restore[k] = np.concatenate([sa[k] for sa in shard_arrays])
+        loop, views, level, changed = self._segment_carry(source, packed, telemetry, cfg, ex_cfg,
+                                                          restore)
+        stats, issued, copy_s = L.LoopStats(level, changed), {0: 0, 1: 0}, 0.0
+        while changed and level < cap:
+            t0 = time.perf_counter()
+            seg = loop.segment(min(level + ckpt.interval(), cap), level, changed)
+            if isinstance(seg, tuple):  # the switch loop: supersteps by body
+                seg, by_body = seg
+                for body, k in by_body.items():
+                    issued[body] += k
+            else:
+                issued[1] += seg.issued
+            seg_s = time.perf_counter() - t0
+            stats = stats.add(seg)
+            # A disabled store marks the boundary without the copy to the host.
+            meta, shards = {}, None
+            if ckpt.enabled:
+                t1 = time.perf_counter()
+                meta, shards = self._segment_snapshot(views, loop.ctl, keys, seg.level,
+                                                      seg.changed, packed)
+                copy_s += time.perf_counter() - t1
+            ckpt.save_epoch(seg.level, meta, shards)
+            ckpt.note_segment(seg.level - level, seg_s)
+            level, changed = seg.level, seg.changed
+        nf = 1 if packed else 2
+        tel = loop.buffers[nf + 2: nf + 6] if telemetry else ()
+        return loop.buffers[:nf], stats, issued, tel, copy_s
+
+    def run_segmented(self, source: int, *, ckpt, max_levels: int | None = None,
+                      telemetry: bool = False, direction: str | None = None,
+                      exchange: str | None = None):
+        """One search from ``source`` in bounded segments with an epoch in
+        ``ckpt`` (a :class:`~bfs_tpu_torch.resilience.superstep_ckpt.SuperstepCheckpointer`
+        built with ``shards`` equal to the mesh's graph axis) after each,
+        resuming from its newest complete epoch: the resumable twin of
+        :meth:`run`, bit for bit with it (dist, parent, ``num_levels``, the
+        direction schedule, the exchange's arms and bytes) for any
+        segmentation.  Every segment runs on :meth:`run`'s own captured
+        loop, bounded by the segment's end; an epoch is one file per shard
+        (its block of the state) and a meta file (the frontier words, the
+        decision words and the accumulators), and a lost or damaged shard
+        file makes the loader fall back to the last complete epoch, which
+        resumes on any engine of the same layout.  A packed run stopped by
+        its 62-level cap clears the store and runs again unpacked; the
+        epochs are cleared when the run completes.  :attr:`last_run` adds
+        ``copy_s``, the host seconds of the carry's copies to the host."""
+        from ..models.direction import resolve_direction
+
+        if getattr(ckpt, "shards", 1) != self.n:
+            raise ValueError(f"checkpointer built for {getattr(ckpt, 'shards', 1)} shards but the "
+                             f"mesh graph axis has {self.n}")
+        srg = self.layout
+        check_sources(srg.num_vertices, source)
+        cfg, ex_cfg = resolve_direction(direction), resolve_exchange(exchange)
+        max_levels = int(max_levels) if max_levels is not None else srg.num_vertices
+        t0 = time.perf_counter()
+        packed = self.packed
+        fields, stats, issued, tel, copy_s = self._run_segmented_flavor(
+            source, ckpt, max_levels, packed, telemetry, cfg, ex_cfg)
+        if packed and packed_truncated(stats.changed, stats.level, max_levels):
+            ckpt.clear()  # packed epochs cannot feed the unpacked re-run
+            packed = False
+            fields, more, more_issued, tel, more_s = self._run_segmented_flavor(
+                source, ckpt, max_levels, packed, telemetry, cfg, ex_cfg)
+            stats, copy_s = stats.add(more), copy_s + more_s
+            issued = {b: issued[b] + more_issued[b] for b in issued}
+        ckpt.clear()
+        return self._result(fields, packed, stats, issued, tel, source, t0, max_levels, cfg,
+                            ex_cfg, copy_s=copy_s)
+
     def run_multi(self, sources, *, max_levels: int | None = None) -> MultiBfsResult:
         """The lock-step batch of ``sources`` (original ids): every tree
-        equals its single search; the loop runs until no tree changes."""
+        equals its single search; the loop runs until no tree changes.  On
+        the gather arm only, as the reference's batch on the mesh."""
+        if self.expansion == "mxu":
+            raise ValueError("the lock-step batch on the mesh runs the gather arm, as the "
+                             "reference's; build the engine with expansion='gather'")
         srg = self.layout
         sources = np.atleast_1d(np.asarray(sources, dtype=np.int32))
         check_sources(srg.num_vertices, sources)
@@ -747,30 +1092,39 @@ class ShardedRelayEngine:
             loop = self._multi_loop(packed, len(sources))
             stats = stats.add(loop.run(self._start(loop, packed, new, max_levels)))
         t1 = time.perf_counter()
-        if packed:
-            dist, parent = R.unpack_relay_packed(loop.buffers[0], srg.in_classes, self.block)
-        else:
-            dist, parent = loop.buffers[:2]
-        dist, parent = to_host(*self._map_back(dist, parent, sources))
+        fields = loop.buffers[: 1 if packed else 2]
+        dist, parent = to_host(*self._map_back(*self._decode(fields, packed), sources))
         self.last_run = {**_run_stats(stats, t0, t1), "packed": packed}
         return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=stats.level)
 
+    def _decode(self, fields, packed: bool):
+        """Shard-stacked ``(dist, parent)`` from a carry's fields: the
+        packed words decoded (ranks to L1 slots per shard on the gather
+        arm; the parent field, an original id, on the MXU arm)."""
+        if not packed:
+            return tuple(fields)
+        if self.expansion == "mxu":
+            return packed_dist(fields[0]), packed_parent(fields[0])
+        return R.unpack_relay_packed(fields[0], self.layout.in_classes, self.block)
+
     def _map_back(self, dist: torch.Tensor, parent: torch.Tensor, sources):
-        """Shard-stacked relabeled ``(dist, parent slots)`` -> ORIGINAL ids
-        on the device (the reference's ``_relay_map_back``): a vertex at
-        global id ``g`` is shard ``g // block``'s, its parent slot resolves
-        through that shard's ``src_l1``; the sources' entries are set to
-        themselves."""
+        """Shard-stacked relabeled ``(dist, parent)`` -> ORIGINAL ids on the
+        device (the reference's ``_relay_map_back``): on the gather arm a
+        vertex at global id ``g`` is shard ``g // block``'s and its parent
+        slot resolves through that shard's ``src_l1``; on the MXU arm the
+        parents are original ids already and only the index space is
+        remapped.  The sources' entries are set to themselves."""
         lead = dist.shape[1:-1]
 
         def flat(t):
             return t.movedim(0, -2).reshape(*lead, self.gtot)
 
         d, p = flat(dist), flat(parent)
-        m1 = self.src_l1.shape[1]
-        shard = torch.arange(self.gtot, device=self.device) // self.block
-        at = shard * m1 + p.clamp(0, m1 - 1).to(torch.int64)
-        p = torch.where(p >= 0, self.src_l1.reshape(-1)[at], p)
+        if self.expansion != "mxu":
+            m1 = self.src_l1.shape[1]
+            shard = torch.arange(self.gtot, device=self.device) // self.block
+            at = shard * m1 + p.clamp(0, m1 - 1).to(torch.int64)
+            p = torch.where(p >= 0, self.src_l1.reshape(-1)[at], p)
         d, p = d[..., self.old2new], p[..., self.old2new]
         if np.ndim(sources) == 0:
             p[int(sources)].fill_(int(sources))
@@ -781,25 +1135,74 @@ class ShardedRelayEngine:
         return d.contiguous(), p.contiguous()
 
 
+def _state_keys(packed: bool) -> tuple[str, ...]:
+    """The epoch keys of the per-shard state."""
+    return ("pk",) if packed else ("dist", "parent")
+
+
+def sharded_segment_keys(packed: bool, auto: bool, telemetry: bool) -> list[str]:
+    """The epoch keys of a segmented sharded run's carry: the reference's
+    (the state, ``fw``, ``level``, ``changed``, and ``occ``/``dirs``/
+    ``xb``/``xa`` with telemetry) and, on the ``auto`` schedule, the port's
+    own decision words ``dstate`` and ``use_pull`` where the reference
+    keeps ``mu`` and ``prev`` (an epoch of the reference's resumes with
+    one decision taken on restore).  The state keys go to the shard files,
+    the others to the meta file."""
+    keys = [*_state_keys(packed), "fw", "level", "changed"]
+    if auto:
+        keys += ["dstate", "use_pull"]
+    if telemetry:
+        keys += ["occ", "dirs", "xb", "xa"]
+    return keys
+
+
+def sharded_segment_carry(eng: ShardedRelayEngine, source: int, *, packed: bool | None = None,
+                          telemetry: bool = False, direction: str | None = None,
+                          exchange: str | None = None, restore: dict | None = None) -> dict:
+    """Start a segmented run of ``eng`` (a :class:`ShardedRelayEngine`) in
+    its loop's carry, paused before its first segment: a fresh search from
+    ``source``, or the carry of an epoch (``restore``: host arrays by key,
+    the per-shard state concatenated shard-major; other keys are ignored).
+    Returns the carry's tensors by epoch key with ``level`` and ``changed``
+    as host values.  A fresh run on the switch loop takes its first body as
+    :meth:`ShardedRelayEngine.run` does; a restored one the body the epoch
+    names (:meth:`ShardedRelayEngine._restored_body`)."""
+    from ..models.direction import resolve_direction
+
+    packed = eng.packed if packed is None else packed
+    _, views, level, changed = eng._segment_carry(source, packed, telemetry,
+                                                  resolve_direction(direction),
+                                                  resolve_exchange(exchange), restore)
+    return {**views, "level": level, "changed": changed}
+
+
 # -------------------------------------------------------------- entry points --
 
-def _resolve_sharded_expansion(expansion: str | None) -> str:
-    """The mesh's expansion arm: ``auto`` and ``gather`` run gather (as the
-    reference's mesh resolves ``auto``); ``mxu`` raises."""
-    from ..ops.relay_mxu import resolve_expansion
+def _resolve_sharded_expansion(expansion: str | None, srg: ShardedRelayGraph,
+                               packed: bool) -> tuple[str, bool]:
+    """The mesh's expansion arm and carry flavor, as the reference resolves
+    them: ``auto`` and ``gather`` run gather (the mesh has no probe);
+    ``mxu`` needs the per-shard adjacency (the tiles are built from it)
+    and runs the unpacked carry where ``V`` exceeds the 26-bit packed
+    parent field, which holds original ids on this arm.  The port has no
+    knob that forces the packed carry, so that case has nothing to
+    refuse."""
+    if RM.resolve_expansion(expansion) != "mxu":
+        return "gather", packed
+    if srg.adj_dst is None:
+        raise ValueError("expansion='mxu' needs the per-shard adjacency this ShardedRelayGraph "
+                         "lacks (the tile builder reads it); rebuild it with "
+                         "build_sharded_relay_graph")
+    return "mxu", packed and packed_parent_fits(srg.num_vertices)
 
-    req = resolve_expansion(expansion)
-    if req == "mxu":
-        raise ValueError(f"expansion='mxu' on the mesh is {_MXU_STEP}, not ported yet; "
-                         "use 'gather' or 'auto'")
-    return "gather"
 
-
-def _engine(graph, mesh: Mesh, engine: str, block: int, vertex_block_multiple: int):
+def _engine(graph, mesh: Mesh, engine: str, block: int = 1024, vertex_block_multiple: int = 1024,
+            **relay_kw):
     """The ``engine``'s engine over ``graph`` on ``mesh``: a prebuilt layout
     of its kind is taken as it is (its shard count checked), anything else
     (a Graph, a single-shard DeviceGraph) is built into one; the other
-    engines' sharded layouts are refused."""
+    engines' sharded layouts are refused.  ``relay_kw`` goes to
+    :class:`ShardedRelayEngine`."""
     n = _graph_shards(mesh)
     table = {
         "pull": (ShardedPullGraph, ShardedPullEngine,
@@ -815,7 +1218,7 @@ def _engine(graph, mesh: Mesh, engine: str, block: int, vertex_block_multiple: i
         if other != engine and isinstance(graph, table[other][0]):
             raise ValueError(f"a {table[other][0].__name__} only runs on engine='{other}'")
     kind, cls, build = table[engine]
-    return cls(graph if isinstance(graph, kind) else build(), mesh)
+    return cls(graph if isinstance(graph, kind) else build(), mesh, **relay_kw)
 
 
 def bfs_sharded(
@@ -849,23 +1252,58 @@ def bfs_sharded(
     ``direction`` (``BFS_TPU_TORCH_DIRECTION``) picks the body per
     superstep as the single-chip relay engine does, the same schedule;
     ``exchange`` (``BFS_TPU_TORCH_EXCHANGE``) the frontier exchange arm,
-    every arm bit-identical in results.  ``expansion`` ``mxu`` raises
-    (ROADMAP A12 (a)).  There is no ``applier``: the kernels run on a
-    card, their plain versions on the CPU."""
+    every arm bit-identical in results; ``expansion``
+    (``BFS_TPU_TORCH_EXPANSION``) ``mxu`` runs the MXU arm (each shard's
+    tiles built for the call under the default budget of 4 GiB a shard;
+    hold a :class:`ShardedRelayEngine` to pass another), ``auto`` and
+    ``gather`` the gather arm.  There is no ``applier``: the kernels run on
+    a card, their plain versions on the CPU."""
     from ..models.direction import resolve_direction
 
     mesh = _resolve_mesh(mesh)
     if telemetry and engine != "relay":
         raise ValueError("telemetry is carried by the sharded relay engine only")
     dir_cfg = resolve_direction(direction)
-    if engine == "relay":
-        resolve_exchange(exchange)  # a bad arm raises before the layout is built
-        _resolve_sharded_expansion(expansion)
-    eng = _engine(graph, mesh, engine, block, vertex_block_multiple)
     if engine != "relay":
-        return eng.run(source, max_levels=max_levels)
+        return _engine(graph, mesh, engine, block, vertex_block_multiple).run(
+            source, max_levels=max_levels)
+    resolve_exchange(exchange)  # a bad arm or expansion raises before the layout is built
+    RM.resolve_expansion(expansion)
+    eng = _engine(graph, mesh, engine, block, vertex_block_multiple, expansion=expansion)
     return eng.run(source, max_levels=max_levels, telemetry=telemetry, direction=dir_cfg.mode,
                    exchange=exchange)
+
+
+def bfs_sharded_segmented(
+    graph: Graph | DeviceGraph | ShardedRelayGraph,
+    source: int = 0,
+    *,
+    mesh: Mesh | None = None,
+    ckpt,
+    max_levels: int | None = None,
+    telemetry: bool = False,
+    direction: str | None = None,
+    exchange: str | None = None,
+    expansion: str | None = None,
+):
+    """The resumable twin of :func:`bfs_sharded` ``engine='relay'``: one
+    search in bounded segments with an epoch of per-shard state in ``ckpt``
+    (a :class:`~bfs_tpu_torch.resilience.superstep_ckpt.SuperstepCheckpointer`
+    built with ``shards`` equal to the mesh's graph axis, else
+    ``ValueError``) after each, resuming from its newest complete epoch;
+    bit for bit with the fused search for any segmentation
+    (:meth:`ShardedRelayEngine.run_segmented`).  Builds the engine for the
+    call and drops it: an epoch resumes on any engine of the same layout."""
+    mesh = _resolve_mesh(mesh)
+    n = _graph_shards(mesh)
+    if getattr(ckpt, "shards", 1) != n:
+        raise ValueError(f"checkpointer built for {getattr(ckpt, 'shards', 1)} shards but the "
+                         f"mesh graph axis has {n}")
+    resolve_exchange(exchange)
+    RM.resolve_expansion(expansion)
+    eng = _engine(graph, mesh, "relay", expansion=expansion)
+    return eng.run_segmented(source, ckpt=ckpt, max_levels=max_levels, telemetry=telemetry,
+                             direction=direction, exchange=exchange)
 
 
 def bfs_sharded_multi(

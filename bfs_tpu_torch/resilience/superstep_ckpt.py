@@ -39,10 +39,13 @@ and a run whose epochs are all damaged, or lack a key its carry needs,
 starts fresh (counted).  Per-shard epochs (a meta file plus one file per
 shard; complete only when all validate) are the sharded runs' store.
 
-Run ``python -m bfs_tpu_torch.resilience.superstep_ckpt --config relay|multi
---ckpt-dir D --out result.json [--device cpu]`` for one segmented traversal
-that a ``BFS_TPU_TORCH_FAULT=kill:superstep:<n>`` kills at its n-th
-boundary; running it again with the same ``--ckpt-dir`` resumes.
+Run ``python -m bfs_tpu_torch.resilience.superstep_ckpt --config
+relay|multi|stream|sharded --ckpt-dir D --out result.json [--device cpu]
+[--shards N]`` for one segmented traversal that a
+``BFS_TPU_TORCH_FAULT=kill:superstep:<n>`` kills at its n-th boundary;
+running it again with the same ``--ckpt-dir`` resumes.  ``sharded`` is
+the mesh's relay search on ``N`` shards (8 by default) stacked on the
+device, with per-shard epochs.
 """
 
 from __future__ import annotations
@@ -478,8 +481,7 @@ def run_multi_segmented(graph, sources, *, ckpt: SuperstepCheckpointer, engine: 
 #: Configurations of the reference's runner that need modules the port does
 #: not have yet, with the roadmap item that brings each.
 NOT_PORTED = {
-    "sharded": "ROADMAP A12 (multi-GPU)",
-    "grid": "ROADMAP A12 (multi-GPU)",
+    "grid": "ROADMAP A12 (c), the 2-D grid",
 }
 
 
@@ -495,7 +497,8 @@ def _runner_main(argv=None) -> int:
     import sys
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", required=True, choices=("relay", "multi", "stream", *NOT_PORTED))
+    ap.add_argument("--config", required=True,
+                    choices=("relay", "multi", "stream", "sharded", *NOT_PORTED))
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--scale", type=int, default=8)
@@ -508,6 +511,8 @@ def _runner_main(argv=None) -> int:
                     help="forced supersteps per segment (every:<k>)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the plain path)")
+    ap.add_argument("--shards", type=int, default=8,
+                    help="sharded config: the mesh's graph axis, its shards stacked on the device")
     args = ap.parse_args(argv)
     if args.config in NOT_PORTED:
         print(f"--config {args.config}: not ported to bfs_tpu_torch yet, see "
@@ -522,7 +527,8 @@ def _runner_main(argv=None) -> int:
         "runner": args.config, "scale": args.scale, "edge_factor": args.edge_factor,
         "seed": args.seed, "source": args.source, "interval": args.interval,
     }
-    ckpt = SuperstepCheckpointer(args.ckpt_dir, base_config, cfg=cfg)
+    ckpt = SuperstepCheckpointer(args.ckpt_dir, base_config, cfg=cfg,
+                                 shards=args.shards if args.config == "sharded" else 1)
     doc: dict = {"config": args.config}
     if args.config == "relay":
         from ..models.bfs import RelayEngine
@@ -544,6 +550,20 @@ def _runner_main(argv=None) -> int:
         result, curve = eng.run_streamed(args.source, ckpt=ckpt, telemetry=True,
                                          cache_budget_bytes=budget)
         doc.update(direction_schedule=curve["direction_schedule"], stream=eng.stream_report)
+    elif args.config == "sharded":
+        # The mesh's relay search (auto direction, auto exchange) on shards
+        # stacked on the device; its epochs are per-shard files, and the
+        # exchange's arm and bytes per level are part of what a resume must
+        # reproduce.
+        from ..models.bfs import resolve_device
+        from ..parallel.sharded import bfs_sharded_segmented, make_mesh
+
+        mesh = make_mesh(graph=args.shards, devices=[resolve_device(args.device)] * args.shards)
+        result, curve = bfs_sharded_segmented(graph, args.source, mesh=mesh, ckpt=ckpt,
+                                              direction="auto", exchange="auto", telemetry=True)
+        doc.update(direction_schedule=curve["direction_schedule"],
+                   exchange_schedule=curve["exchange"]["schedule"],
+                   exchange_bytes=curve["exchange"]["bytes_per_level"])
     else:  # multi
         v = graph.num_vertices
         sources = [(args.source + 7 * i) % v for i in range(4)]

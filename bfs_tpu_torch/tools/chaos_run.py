@@ -26,10 +26,11 @@ a random delay, then run it to completion; its own oracle gate decides.
 at a random superstep boundary (``BFS_TPU_TORCH_FAULT=kill:superstep:<n>``)
 and run it again on the same checkpoint directory until it completes; the
 result must equal an unkilled golden run bit for bit (the dist and parent
-hashes and the direction schedule) and must have resumed from an epoch.
-Configs ``relay``, ``multi`` and ``stream``; ``sharded`` and ``grid`` exit
-2 (the runner's ``NOT_PORTED``: they wait for the port's multi-card
-engines).
+hashes, the direction schedule and, on ``sharded``, the exchange's arm and
+bytes per level) and must have resumed from an epoch.  Configs ``relay``,
+``multi``, ``stream`` and ``sharded`` (the mesh's relay search on 8 shards
+stacked on the device, per-shard epochs); ``grid`` exits 2 (the runner's
+``NOT_PORTED``: it waits for the port's 2-D grid).
 
 **bench** is the reference's default mode: it chaoses the bench's journal
 phases, and the port has no bench yet, so it exits 2.
@@ -290,12 +291,15 @@ def chaos_serve(args, rng: random.Random) -> int:
 
 #: The runner's configs: relay = the single-source relay engine (sparse
 #: hybrid, auto direction); multi = the batched push run; stream = the
-#: streamed MXU arm under a one-superblock cache.  sharded and grid exit 2.
-TRAVERSAL_CONFIGS = ("relay", "multi", "stream")
+#: streamed MXU arm under a one-superblock cache; sharded = the mesh's relay
+#: search on 8 shards (auto direction, auto exchange).  grid exits 2.
+TRAVERSAL_CONFIGS = ("relay", "multi", "sharded", "stream")
 
 #: Fields a resumed run must reproduce bit for bit (a field a config does
-#: not write is absent on both sides).
-TRAVERSAL_DETERMINISTIC = ("dist_hash", "parent_hash", "num_levels", "direction_schedule")
+#: not write is absent on both sides): on sharded also the exchange's arm
+#: and bytes per level.
+TRAVERSAL_DETERMINISTIC = ("dist_hash", "parent_hash", "num_levels", "direction_schedule",
+                           "exchange_schedule", "exchange_bytes")
 
 
 def run_traversal(args, cfg: str, ckpt_dir: str, out: str, fault: str | None = None):
@@ -399,7 +403,7 @@ def main(argv=None) -> int:
     ap.add_argument("--loadgen-kill-max-s", type=float, default=20.0)
     ap.add_argument("--traversal-configs", default=",".join(TRAVERSAL_CONFIGS),
                     help="comma list of the superstep_ckpt runner's configs (relay, multi, "
-                    "stream; sharded and grid exit 2)")
+                    "sharded, stream; grid exits 2)")
     ap.add_argument("--ckpt-interval", type=int, default=2,
                     help="traversal mode: supersteps per checkpoint segment (every:<k>)")
     ap.add_argument("--serve-engine", default="pull", choices=("pull", "push", "relay"))

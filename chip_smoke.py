@@ -94,8 +94,8 @@ schedule equal to the one the host recomputes with numpy from the oracle's
 distances, every superstep one replay of one body's graph (the split by
 body equal to the schedule); each superstep's device time by body and the
 decide step's; then ``run_multi`` (``bfs_multi_direction``) in ``auto`` on
-the 64 sources, equal to the relay batch.  ``RelayEngine.run_level_curve``
-runs beside the gather search (its occupancy the oracle's level histogram).
+the first ``EDGE_BATCH`` (32) of the 64 sources, equal to the relay batch.
+``RelayEngine.run_level_curve`` runs beside the gather search (its occupancy the oracle's level histogram).
 Every relay phase above builds its engine with ``sparse_hybrid=False`` (the
 dense superstep in blocks of 4).  The relay engine's hybrid schedule comes
 next, once the dense engines are freed, on both arms from the same layout:
@@ -122,8 +122,18 @@ shard's count x the supersteps issued); the relay search under the four
 exchange arms, bit-identical, their bytes and arm per level; the batch
 (``bfs_sharded_multi`` on a (2, 2) mesh, 8 of the batch sources, pull and
 relay) equal to the batch's trees; ``sssp_sharded`` and ``cc_sharded``
-equal to the single-chip results; the peak memory and the phase's wall
-time.  The query server closes the s22 part (``serve_phase``): a
+equal to the single-chip results; the resumable search
+(``bfs_sharded_segmented`` at ``every:2``, direction and exchange
+``auto``, equal to the fused search in results, schedule and the
+exchange's bytes; a run stopped at a boundary, one shard file of its
+newest epoch truncated, resumed on a freshly built engine from the epoch
+before); the MXU arm on the mesh once every other engine of the phase is
+freed (each shard's tiles counted, reckoned against the free memory and
+built on the card; a search on ``pull`` and ``auto`` equal to the
+single-chip result, ``mxu_expand`` launched 4 x the dense supersteps,
+``packed_update`` 4 x every superstep; ``mxu_expand`` of shard 0 and
+``packed_update`` on its original-id candidates against their plain
+versions); the peak memory and the phase's wall time.  The query server closes the s22 part (``serve_phase``): a
 ``GraphRegistry`` over the script's bundle store (warm hits for the relay
 and pull layouts) and ``BfsServer(engine="pull", max_batch=32,
 tick_s=0.002, verify_sample=4)``: 40 single-source queries from 4
@@ -234,7 +244,8 @@ command line and the small-graph checks; ``chaos_phase`` then holds them to
 their verdicts: ``serve`` at the reference's full
 schedule (scale 9, 12 healthy requests) under
 ``BFS_TPU_TORCH_LOCK_ORDER=1``, which must exit 0 with a lock-order graph
-that has edges and no cycle; one ``traversal`` iteration of ``relay``,
+that has edges and no cycle; one ``traversal`` iteration of ``relay`` and
+one of ``sharded`` (8 shards stacked on the card, per-shard epochs), each
 killed at a superstep boundary and resumed from an epoch bit for bit; one
 ``loadgen`` iteration at scale 10.  ``cache_warm_phase`` waits for
 ``cache_warm --tiles --compile`` at scale 16 cold and warm, where the warm
@@ -2324,7 +2335,7 @@ def relay_step_cost(eng, states) -> dict:
 
 
 def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want, K,
-                  card: str) -> dict:
+                  card: str, store: str) -> dict:
     """The mesh-sharded engine (``bfs_tpu_torch.parallel``) at s22 on
     ``SHARDS`` shards stacked on the card: the layouts (the torch-routed
     relay layouts of 4 and 2 shards built side by side first, then the
@@ -2341,11 +2352,13 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     per level; ``bfs_sharded_multi`` on a (2, 2) mesh for ``SHARDED_BATCH``
     of the batch sources on pull and relay, every tree equal to the
     batch's; ``sssp_sharded`` and ``cc_sharded`` equal to the single-chip
-    results.  ``bfs_sharded`` and ``bfs_sharded_multi`` build an engine
-    for the call and drop it; the timed replays run on held engines (the
-    stateful API).  Seconds per search beside the single-chip ones, the
-    peak memory and the phase's wall time.  Four shards on one card share
-    its memory: no wire, the exchange's bytes are counted."""
+    results; the resumable search (``sharded_segmented_part``); the MXU
+    arm on the mesh (``sharded_mxu_part``), once every other engine of the
+    phase is freed.  ``bfs_sharded`` and ``bfs_sharded_multi`` build an
+    engine for the call and drop it; the timed replays run on held engines
+    (the stateful API).  Seconds per search beside the single-chip ones,
+    the peak memory and the phase's wall time.  Four shards on one card
+    share its memory: no wire, the exchange's bytes are counted."""
     import concurrent.futures
 
     import numpy as np
@@ -2485,6 +2498,11 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     # ---- one dense superstep of shard 0, each kernel against its plain
     # version (these launches are not the path's: the next part resets)
     check = sharded_kernel_check(reng, want[roots[0]][0][0], roots[0], K, card)
+    # ---- the resumable search on the held engine and one-shot engines
+    K.reset_launches()
+    segmented = sharded_segmented_part(reng, srg, mesh, roots[0], same_as_single, store, card)
+    for k, n in K.LAUNCHES.items():
+        phase_launches[k] += n
     del reng, engines, eng
 
     # ---- the exchange arms: bit-identical, bytes and arm per level
@@ -2552,7 +2570,15 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
         phase_launches[k] += n
     pool.shutdown()
     peak = torch.cuda.max_memory_allocated()
-    del srg, srg2, spg, spg2, dg4
+    del srg2, spg, spg2, dg4
+    torch.cuda.empty_cache()
+    # ---- the MXU arm on the mesh, every other engine of the phase freed
+    mxu = sharded_mxu_part(srg, mesh, roots[0], want, same_as_single, K, card)
+    for k, n in mxu["launches"].items():
+        phase_launches[k] = phase_launches.get(k, 0) + n
+    check.update(mxu["check"])
+    peak = max(peak, mxu["peak"])
+    del srg
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t_phase
     log(f"sharded phase ({SHARDS} shards stacked on one card, not a multi-card figure; {card}): "
@@ -2562,7 +2588,236 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
         f"({cs.rounds} rounds), both equal to the single-chip results; check() clean on the "
         f"host; peak device memory {peak} bytes; phase {wall:.1f} s")
     return dict(rows=rows, exchange=ex, multi=multi, launches=phase_launches, peak=peak, wall=wall,
-                layouts_s=layouts_s, sssp_s=sssp_s, cc_s=cc_s, check=check)
+                layouts_s=layouts_s, sssp_s=sssp_s, cc_s=cc_s, check=check, mxu=mxu,
+                segmented=segmented)
+
+
+def sharded_segmented_part(reng, srg, mesh, root: int, same_as_single, store: str,
+                           card: str) -> dict:
+    """The mesh's resumable search at s22 on the gather arm (``direction``
+    and ``exchange`` ``auto``, telemetry on): the fused search on the held
+    engine ``reng``; ``bfs_sharded_segmented`` at ``every:CKPT_EVERY`` (a
+    one-shot engine) equal to it in dist, parent, levels, the direction
+    schedule and the exchange's arm and bytes per level; then a run on the
+    held engine at ``every:1`` stopped by ``BFS_TPU_TORCH_FAULT=
+    raise:superstep:3``, one shard file of the newest epoch truncated, and
+    ``bfs_sharded_segmented`` on a freshly built engine, which must resume
+    from the epoch before (a shard file counted corrupt) to the same
+    result.  Epoch bytes and write seconds."""
+    import numpy as np
+    from bfs_tpu_torch.parallel import sharded as SH
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected, corrupt_file
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+
+    t_part = time.perf_counter()
+    kw = dict(direction="auto", exchange="auto", telemetry=True)
+
+    def mgr(tag: str, every: int):
+        return SuperstepCheckpointer(store, {"sharded": SHARDS, "root": root, "run": tag},
+                                     cfg=ckpt_config(every), shards=SHARDS)
+
+    t0 = time.perf_counter()
+    fused, fcurve = reng.run(root, **kw)
+    fused_s = time.perf_counter() - t0
+    same_as_single("relay auto (telemetry)", fused, root)
+
+    def same(label: str, res, curve) -> None:
+        ex, fx = curve["exchange"], fcurve["exchange"]
+        if not (np.array_equal(res.dist, fused.dist) and np.array_equal(res.parent, fused.parent)
+                and res.num_levels == fused.num_levels
+                and curve["direction_schedule"] == fcurve["direction_schedule"]
+                and ex["schedule"] == fx["schedule"]
+                and ex["bytes_per_level"] == fx["bytes_per_level"]
+                and curve["occupancy"] == fcurve["occupancy"]):
+            raise AssertionError(f"sharded segmented ({label}): differs from the fused search")
+
+    m = mgr("every", CKPT_EVERY)
+    t0 = time.perf_counter()
+    res, curve = SH.bfs_sharded_segmented(srg, root, mesh=mesh, ckpt=m, **kw)
+    seg_s = time.perf_counter() - t0
+    same(f"every:{CKPT_EVERY}", res, curve)
+    rep = m.report()
+    if m.epochs() or rep["segments"] != -(-fused.num_levels // CKPT_EVERY):
+        raise AssertionError(f"sharded segmented: {rep}, epochs left {m.epochs()}")
+    del res
+    os.environ["BFS_TPU_TORCH_FAULT"] = "raise:superstep:3"
+    F.reset()
+    try:
+        reng.run_segmented(root, ckpt=mgr("kill", 1), **kw)
+        raise AssertionError("sharded segmented: the injected fault did not stop the run")
+    except FaultInjected:
+        pass
+    finally:
+        os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+        F.reset()
+    killed = dict(reng.last_run)
+    m2 = mgr("kill", 1)
+    epochs = m2.epochs()
+    if epochs != [2, 3]:
+        raise AssertionError(f"sharded segmented: epochs {epochs} on disk after the kill at 3")
+    corrupt_file(m2._epoch_path(epochs[-1], shard=1), mode="truncate")
+    t0 = time.perf_counter()
+    res, curve = SH.bfs_sharded_segmented(srg, root, mesh=mesh, ckpt=m2, **kw)
+    resume_s = time.perf_counter() - t0
+    same("resumed after a lost shard file", res, curve)
+    rep2 = m2.report()
+    if rep2["resumed_from_epoch"] != epochs[-2] or rep2["epochs_corrupt_skipped"] < 1 \
+            or rep2["fresh_fallbacks"] or m2.epochs():
+        raise AssertionError(f"sharded segmented: the resume after the lost shard file {rep2}")
+    wall = time.perf_counter() - t_part
+    log(f"sharded segmented search ({SHARDS} shards, relay gather, auto/auto, telemetry; {card}): "
+        f"fused {fused_s:.6f} s on the held engine; bfs_sharded_segmented every:{CKPT_EVERY} "
+        f"{seg_s:.6f} s (a one-shot engine: ship, capture, {rep['segments']} segments), "
+        f"{rep['epochs_written']} epochs of {rep['snapshot_bytes']} bytes ({SHARDS} shard files + "
+        f"a meta file), writes {rep['snapshot_seconds_total']:.6f} s (mean "
+        f"{rep['snapshot_seconds_mean']:.6f} s); dist, parent, {fused.num_levels} levels, the "
+        f"direction schedule {fcurve['direction_schedule']['schedule']} and the exchange "
+        f"{list(zip(fcurve['exchange']['schedule'], fcurve['exchange']['bytes_per_level']))} "
+        f"equal to the fused search")
+    log(f"sharded segmented kill ({card}): every:1 on the held engine stopped by "
+        f"raise:superstep:3 (issued {killed.get('issued')}), epochs {epochs} on disk, shard 1 of "
+        f"epoch {epochs[-1]} truncated; bfs_sharded_segmented on a freshly built engine resumed "
+        f"from epoch {rep2['resumed_from_epoch']} ({rep2['epochs_corrupt_skipped']} corrupt file "
+        f"skipped) in {resume_s:.6f} s, bit-identical to the fused search; part {wall:.1f} s")
+    return dict(fused_s=fused_s, seg_s=seg_s, resume_s=resume_s, report=rep, resume=rep2,
+                wall=wall)
+
+
+def sharded_mxu_part(srg, mesh, root: int, want, same_as_single, K, card: str) -> dict:
+    """The MXU arm on the mesh at s22: the tiles counted per shard first
+    (their stacked bytes reckoned against the card's free memory), then
+    ``ShardedRelayEngine(expansion="mxu", tiles_budget_bytes=TILES_BUDGET)``
+    builds each shard's tiles on the card (every shard's ``nt``, the
+    stack's ``ntp``, the padding bytes, the build seconds, the peak); one
+    search from ``root`` on ``pull`` and on ``auto`` (a first call that
+    captures, then a timed one), each equal bit for bit to the single-chip
+    result, with ``mxu_expand`` launched ``SHARDS`` x the dense supersteps
+    issued and ``packed_update`` ``SHARDS`` x every superstep issued; then
+    ``sharded_mxu_kernel_check``."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph import adj_tiles as AT
+    from bfs_tpu_torch.parallel import sharded as SH
+
+    t_part = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    counts = AT.count_tiles_sharded(srg, torch.device("cuda"))
+    count_s = time.perf_counter() - t0
+    need = SHARDS * max(counts) * AT.TILE_BYTES
+    free, total = torch.cuda.mem_get_info()
+    log(f"sharded mxu tiles, reckoned ({card}): nt a shard {counts} (counted in {count_s:.3f} s), "
+        f"{sum(counts)} tiles, {sum(counts) * AT.TILE_BYTES} bytes; the stack pads each shard to "
+        f"{max(counts)}: {need} bytes; held {held} bytes, free {free} of {total}")
+    t0 = time.perf_counter()
+    meng = SH.ShardedRelayEngine(srg, mesh, expansion="mxu", tiles_budget_bytes=TILES_BUDGET)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    info = meng.tiles.info
+    log(f"sharded mxu engine ({SHARDS} shards; {card}): built in {build_s:.3f} s (tiles "
+        f"{info['build_s']:.3f} s): nt {info['nt']}, ntp {info['ntp']}, {info['tile_bytes']} "
+        f"bytes of tiles of which {info['pad_bytes']} padding; geometry (rows, cols, rtp, vtp, "
+        f"ntp) {meng.tiles.geometry}; no Beneš mask shipped; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    rows, launches = {}, {}
+    for direction in ("pull", "auto"):
+        t0 = time.perf_counter()
+        res = meng.run(root, direction=direction, exchange="auto")
+        first_s = time.perf_counter() - t0
+        same_as_single(f"mxu {direction}", res, root)
+        del res
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = meng.run(root, direction=direction, exchange="auto")
+        secs = time.perf_counter() - t0
+        run = dict(meng.last_run)
+        same_as_single(f"mxu {direction}", res, root)
+        del res
+        got = {k: K.LAUNCHES[k] for k in ("mxu_expand", "packed_update", "loop_control")}
+        expect = {"mxu_expand": SHARDS * run["issued_pull"], "packed_update": SHARDS * run["issued"],
+                  "loop_control": run["issued"]}
+        if got != expect or any(K.LAUNCHES[k] for k in ("benes_outer_pass", "benes_local_pass",
+                                                          "class_rowmin")):
+            raise AssertionError(f"sharded mxu {direction}: launches {dict(K.LAUNCHES)}, expected "
+                                 f"{expect} (run {run})")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        rows[direction] = dict(first_s=first_s, secs=secs, run=run)
+        log(f"sharded mxu {direction} root {root} ({SHARDS} shards; {card}): first call (captures) "
+            f"{first_s:.6f} s, then {secs:.6f} s (loop {run['loop_s']:.6f}, results "
+            f"{run['result_s']:.6f}; issued {run['issued']}, {run['issued_pull']} dense, live "
+            f"{run['live']}); launches {got} = {SHARDS} shards x the supersteps issued (mxu_expand "
+            "on the dense ones); equal to canonical_bfs and the single-chip search")
+    check, ms, plain_ms = sharded_mxu_kernel_check(meng, want[root][0], root, K, card)
+    peak = torch.cuda.max_memory_allocated()
+    del meng
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_part
+    log(f"sharded mxu part ({card}): peak device memory {peak} bytes; {wall:.1f} s")
+    return dict(rows=rows, launches=launches, check=check, peak=peak, info=info, build_s=build_s,
+                counts=counts, wall=wall, ms=ms, plain_ms=plain_ms)
+
+
+def sharded_mxu_kernel_check(meng, oracle, root: int, K, card: str) -> dict:
+    """``mxu_expand`` (K6) of shard 0 of the mesh's MXU engine ``meng`` on
+    the card at the densest level of the search from ``root`` (``oracle``:
+    its ``(dist, parent)`` in original ids), against
+    ``expand_frontier_mxu_plain`` on the same inputs, bit for bit and
+    timed (``cold_ms``); then ``packed_update`` (K4) on shard 0's packed
+    carry at that level with those original-id candidates against its
+    plain version."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph.csr import INF_DIST
+    from bfs_tpu_torch.ops import relay as R
+    from bfs_tpu_torch.ops import relay_mxu as RM
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    t0 = time.perf_counter()
+    dist, parent = oracle
+    srg, block, dev = meng.layout, meng.block, meng.device
+    counts = np.bincount(dist[dist != INF_DIST])
+    level = int(np.argmax(counts))
+    ids = np.asarray(srg.old2new, dtype=np.int64)[np.flatnonzero(dist == level)]
+    words = np.zeros(meng.gtot // 32, dtype=np.uint32)
+    np.bitwise_or.at(words, ids >> 5, np.uint32(1) << (ids & 31).astype(np.uint32))
+    fw = torch.from_numpy(words.view(np.int32)).to(dev)
+    rows, cols, rtp, vtp, _ = meng.tiles.geometry
+    ops = meng.tiles.shard(0)
+    kw = dict(rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+    got = K.expand_frontier_mxu(fw, ops, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = RM.expand_frontier_mxu_plain(fw, ops, **kw)  # plain torch: timed once, host clock
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    k6_err = max_abs_err(got, plain)
+    ms = cold_ms(lambda: K.expand_frontier_mxu(fw, ops, **kw), 5)
+    # Shard 0's packed carry at that level: level:6|parent:26 (original ids)
+    # where settled, the sentinel elsewhere.
+    n2o = np.asarray(srg.new2old[:block], dtype=np.int64)
+    real = n2o >= 0
+    d = np.where(real, dist[np.maximum(n2o, 0)], INF_DIST)
+    p = np.where(real, parent[np.maximum(n2o, 0)], 0)
+    settled = real & (d <= level)
+    word = np.where(settled, (d.astype(np.int64) << 26) | p, 0xFFFFFFFF).astype(np.uint32)
+    packed = torch.from_numpy(word.view(np.int32)).to(dev)
+    new = R.apply_relay_candidates_packed(R.PackedRelayState(packed.clone(), None, level, None), plain)
+    upd = K.apply_relay_candidates_packed(R.PackedRelayState(packed.clone(), None, level, None), plain)
+    k4_err = max(max_abs_err(upd.packed, new.packed), max_abs_err(upd.fwords, new.fwords),
+                 int(bool(upd.changed.item()) != bool(new.changed)))
+    if k6_err or k4_err:
+        raise AssertionError(f"sharded mxu kernel check: mxu_expand {k6_err}, packed_update {k4_err}")
+    shape = (f"shard 0 of {meng.n}, level {level} ({ids.size} frontier vertices of {rows} rows): "
+             f"{int(ops[0].shape[0])} tiles a shard (ntp), {cols} destinations")
+    log(f"sharded mxu kernel check ({card}): {shape}; mxu_expand {ms:.4f} ms, its plain version "
+        f"{plain_ms:.4f} ms, max_abs_err {k6_err}; packed_update on original-id candidates "
+        f"max_abs_err {k4_err}; bit-exact; {time.perf_counter() - t0:.2f} s")
+    return {"mxu_expand": (k6_err, shape), "packed_update (mxu)": (k4_err, shape)}, ms, plain_ms
 
 
 def sharded_kernel_check(eng, dist, root: int, K, card: str) -> dict:
@@ -2922,10 +3177,11 @@ def direction_phase(deng, g, roots, want: dict, K, D) -> dict:
 
 def direction_batch_phase(deng, sources, relay, outdeg, K) -> dict:
     """``DirectionEngine.run_multi`` (what ``bfs_multi_direction`` runs) in
-    ``auto`` (the engine's configuration) on the batch: the first call (captures) and a timed one, every
-    tree equal to the relay batch's and clean under the DeviceChecker, the
-    schedule equal to the host's recomputation from the relay batch's
-    trees, one replay per superstep."""
+    ``auto`` (the engine's configuration) on the first ``len(sources)``
+    sources of the relay batch ``relay``: the first call (captures) and a
+    timed one, every tree equal to the relay batch's and clean under the
+    DeviceChecker, the schedule equal to the host's recomputation from
+    those trees, one replay per superstep."""
     import numpy as np
     import torch
 
@@ -2939,11 +3195,12 @@ def direction_batch_phase(deng, sources, relay, outdeg, K) -> dict:
     res, sched = deng.run_multi(sources)
     secs = time.perf_counter() - t0
     run, peak = dict(deng.last_run), torch.cuda.max_memory_allocated()
-    if not (np.array_equal(res.dist, relay.dist) and np.array_equal(res.parent, relay.parent)
-            and res.num_levels == relay.num_levels):
+    n = len(sources)
+    if not (np.array_equal(res.dist, relay.dist[:n]) and np.array_equal(res.parent, relay.parent[:n])
+            and (n < len(relay.sources) or res.num_levels == relay.num_levels)):
         raise AssertionError("bfs_multi_direction: a tree differs from the relay batch's")
     cfg = deng.config
-    expect = host_schedule(level_sums(outdeg, relay.dist), "auto", cfg.alpha, cfg.beta)
+    expect = host_schedule(level_sums(outdeg, relay.dist[:n]), "auto", cfg.alpha, cfg.beta)
     if sched["schedule"] != expect:
         raise AssertionError(f"bfs_multi_direction: schedule {sched['schedule']}, the host's {expect}")
     split = (run["issued_push"], run["issued_pull"])
@@ -5235,6 +5492,7 @@ def ledger_phase(eng, card: str) -> dict:
 # cache_warm at scale 16 (its tiles fit the default budget, so the default
 # engine's arm probe runs and is memoized).
 CHAOS_SCALE = 9
+TRAVERSAL_CONFIGS = ("relay", "sharded")  # the chaos traversal's configs, 8 shards on the card
 CHAOS_REQUESTS = 12
 CHAOS_LOADGEN_SCALE = 10
 CACHE_WARM_SCALE = 16
@@ -5315,15 +5573,17 @@ def json_lines(out: str) -> list:
 def start_chaos(cache_root: str) -> tuple[dict, float]:
     """The chaos driver's three modes on the card, started together, each a
     process of its own: ``serve`` at the reference's full schedule under
-    ``BFS_TPU_TORCH_LOCK_ORDER=1``, ``traversal`` (one iteration of
-    ``relay``) and ``loadgen`` (one iteration)."""
+    ``BFS_TPU_TORCH_LOCK_ORDER=1``, ``traversal`` (one iteration of each
+    config of :data:`TRAVERSAL_CONFIGS`, a process each) and ``loadgen``
+    (one iteration)."""
     chaos = ("bfs_tpu_torch.tools.chaos_run", "--seed", "1")
     procs = {
         "serve": run_tool([*chaos, "--mode", "serve", "--scale", str(CHAOS_SCALE),
                            "--serve-requests", str(CHAOS_REQUESTS)],
                           {"BFS_TPU_TORCH_LOCK_ORDER": "1"}),
-        "traversal": run_tool([*chaos, "--mode", "traversal", "--iterations", "1",
-                               "--traversal-configs", "relay"]),
+        **{f"traversal {cfg}": run_tool([*chaos, "--mode", "traversal", "--iterations", "1",
+                                         "--traversal-configs", cfg])
+           for cfg in TRAVERSAL_CONFIGS},
         "loadgen": run_tool([*chaos, "--mode", "loadgen", "--iterations", "1", "--scale",
                              str(CHAOS_LOADGEN_SCALE), "--device", "cuda", "--cache-dir",
                              os.path.join(cache_root, "chaos_loadgen")]),
@@ -5335,8 +5595,8 @@ def chaos_phase(procs: dict, t0: float, card: str) -> dict:
     """Wait for :func:`start_chaos`'s runs and hold each to its verdict:
     ``serve`` exits 0 with a lock-order graph that has edges and no cycle;
     ``traversal`` was killed at a superstep boundary and resumed from an
-    epoch bit for bit; ``loadgen`` was killed, then ran whole and passed
-    its oracle gate."""
+    epoch bit for bit on each of its configs; ``loadgen`` was killed, then
+    ran whole and passed its oracle gate."""
     out, secs = {}, {}
     for name, proc in procs.items():
         out[name], _ = finish_tool(f"chaos {name}", proc)
@@ -5346,18 +5606,22 @@ def chaos_phase(procs: dict, t0: float, card: str) -> dict:
     order = next((d["lock_order"] for d in json_lines(out["serve"]) if "lock_order" in d), None)
     if order is None or not order["edges"] or order["cycles"]:
         raise AssertionError(f"chaos serve: lock order {order}")
-    if "traversal chaos: 1/1 ok" not in out["traversal"] or "killed at boundary" not in \
-            out["traversal"]:
-        raise AssertionError(f"chaos traversal: not ok\n{out['traversal'][-3000:]}")
-    resumed = [x for x in out["traversal"].splitlines() if "resumed from epoch" in x]
+    resumed = {}
+    for cfg in TRAVERSAL_CONFIGS:
+        text = out[f"traversal {cfg}"]
+        done = [x for x in text.splitlines() if "resumed from epoch" in x]
+        if "traversal chaos: 1/1 ok" not in text or "killed at boundary" not in text or \
+                not done or "resumed from epoch None" in done[-1]:
+            raise AssertionError(f"chaos traversal {cfg}: not ok\n{text[-3000:]}")
+        resumed[cfg] = done[-1].split("] ", 2)[-1]
     if "loadgen chaos: 1/1 ok" not in out["loadgen"]:
         raise AssertionError(f"chaos loadgen: not ok\n{out['loadgen'][-3000:]}")
     log(f"chaos serve (scale {CHAOS_SCALE}, {CHAOS_REQUESTS} healthy requests, the full fault "
         f"and swap schedule, every reply oracle-checked): ok; lock order under "
         f"BFS_TPU_TORCH_LOCK_ORDER=1: {len(order['edges'])} edges, no cycle: "
         f"{json.dumps(order['edges'], sort_keys=True)} ({card})")
-    log(f"chaos traversal (relay): {resumed[-1].split('] ', 2)[-1] if resumed else '?'}; "
-        f"chaos loadgen (scale {CHAOS_LOADGEN_SCALE}): killed, then a whole run passed its "
+    log("chaos traversal: " + "; ".join(f"{cfg}: {r}" for cfg, r in resumed.items())
+        + f"; chaos loadgen (scale {CHAOS_LOADGEN_SCALE}): killed, then a whole run passed its "
         f"oracle gate; seconds from the start: " + ", ".join(
             f"{k} {v:.1f}" for k, v in secs.items()))
     return {"secs": secs, "lock_order": order}
@@ -5737,7 +6001,7 @@ def main(argv=None) -> int:
         f"config {deng.config}")
     direction = direction_phase(deng, g, roots, want, K, D)
     direction["batch"] = direction_batch_phase(
-        deng, sources, multi["result"], np.bincount(g.src, minlength=g.num_vertices), K)
+        deng, sources[:EDGE_BATCH], multi["result"], np.bincount(g.src, minlength=g.num_vertices), K)
     del deng
     torch.cuda.empty_cache()
     mark("direction policy")
@@ -5766,7 +6030,7 @@ def main(argv=None) -> int:
          "relay pull": gather["mean"]["secs"],
          "relay auto": hybrid["gather"]["mean"][("auto", "blocks")]},
         multi["result"], algo["sssp"]["results"][(roots[0], None)], algo["cc push"]["result"],
-        K, card)
+        K, card, ckpt_store)
     for k, n in sharded["launches"].items():
         if n:
             launches[k] = launches.get(k, 0) + n

@@ -2,8 +2,9 @@
 the self-healing serve schedule at the reference smoke's size
 (``tests/test_chaos_serve.py::test_chaos_serve_smoke``) under the
 lock-order recorder, on pull and on relay; one traversal iteration of the
-relay config as a subprocess, killed at a superstep boundary and resumed
-bit for bit; and the modes that wait for other parts of the port."""
+relay and of the sharded config as a subprocess, killed at a superstep
+boundary and resumed bit for bit; and the modes that wait for other parts
+of the port."""
 
 import os
 import random
@@ -74,9 +75,21 @@ def test_chaos_traversal_relay_resumes_bit_identical():
     assert "resumed from epoch" in proc.stdout and "resumed from epoch None" not in proc.stdout
 
 
+def test_chaos_traversal_sharded_resumes_bit_identical():
+    """One iteration of the sharded config (8 shards stacked on the CPU,
+    per-shard epochs): killed at a boundary, resumed from an epoch, equal
+    to the golden run, the exchange's arms and bytes included."""
+    proc = _run("--mode", "traversal", "--iterations", "1", "--traversal-configs", "sharded",
+                "--device", "cpu", "--seed", "1")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "traversal chaos: 1/1 ok" in proc.stdout
+    assert "killed at boundary" in proc.stdout
+    assert "resumed from epoch" in proc.stdout and "resumed from epoch None" not in proc.stdout
+    assert {"exchange_schedule", "exchange_bytes"} <= set(chaos_run.TRAVERSAL_DETERMINISTIC)
+
+
 @pytest.mark.parametrize("argv", [
     ("--mode", "bench"),
-    ("--mode", "traversal", "--iterations", "1", "--traversal-configs", "sharded"),
     ("--mode", "traversal", "--iterations", "1", "--traversal-configs", "grid"),
 ])
 def test_modes_waiting_for_other_parts_exit_2(argv):

@@ -2066,3 +2066,97 @@ def test_card_sharded_relay_launches_per_shard(card):
         d, p = P.canonical_bfs(g, s)
         np.testing.assert_array_equal(multi.dist[i], d)
         np.testing.assert_array_equal(multi.parent[i], p)
+
+
+def test_card_sharded_mxu_expand_per_shard_matches_plain(card):
+    """The mesh's MXU arm with 4 shards stacked on the card: ``mxu_expand``
+    of every shard on a frontier of every level, against
+    ``expand_frontier_mxu_plain`` on the same inputs; the searches on
+    ``pull`` and ``auto`` equal to the oracle, the CPU mesh and the gather
+    arm, with ``mxu_expand`` launched once per shard per dense superstep
+    and ``packed_update`` once per shard per superstep; a dead superstep
+    of the pull loop changes nothing."""
+    from bfs_tpu_torch.parallel import sharded as SH
+
+    g = P.rmat_graph(12, 8, seed=3)
+    srg = P.build_sharded_relay_graph(g, 4, route="torch", device=card)
+    mesh = SH.make_mesh(graph=4, devices=[card] * 4)
+    cpu_mesh = SH.make_mesh(graph=4, devices=[torch.device("cpu")] * 4)
+    eng = SH.ShardedRelayEngine(srg, mesh, expansion="mxu")
+    assert eng.vperm_masks is None and eng.tiles.tiles.device.type == "cuda"
+    rows, cols, rtp, vtp, _ = eng.tiles.geometry
+    d, p = P.canonical_bfs(g, 0)
+    for level in range(int(d[d != P.INF_DIST].max()) + 1):
+        ids = np.asarray(srg.old2new, dtype=np.int64)[np.flatnonzero(d == level)]
+        words = np.zeros(eng.gtot // 32, np.uint32)
+        np.bitwise_or.at(words, ids >> 5, np.uint32(1) << (ids & 31).astype(np.uint32))
+        fw = _t(words, card)
+        for s in range(4):
+            ops = eng.tiles.shard(s)
+            kw = dict(rows=rows, cols=cols, rtp=rtp, vtp=vtp)
+            _eq(K.expand_frontier_mxu(fw, ops, **kw), RM.expand_frontier_mxu_plain(fw, ops, **kw))
+    for direction in ("pull", "auto"):
+        for _ in range(2):  # the first call captures, the second replays
+            K.reset_launches()
+            res = eng.run(0, direction=direction, exchange="auto")
+        np.testing.assert_array_equal(res.dist, d)
+        np.testing.assert_array_equal(res.parent, p)
+        want = SH.bfs_sharded(srg, 0, mesh=cpu_mesh, engine="relay", direction=direction,
+                              exchange="auto", expansion="mxu")
+        np.testing.assert_array_equal(res.parent, want.parent)
+        run = eng.last_run
+        assert K.LAUNCHES["mxu_expand"] == 4 * run["issued_pull"], (direction, run)
+        assert K.LAUNCHES["packed_update"] == 4 * run["issued"], (direction, run)
+        assert K.LAUNCHES["class_rowmin"] == K.LAUNCHES["benes_local_pass"] == 0
+    loop = next(v for k, v in eng._loops.items() if k[3] == "pull")
+    before = [b.clone() for b in loop.buffers]
+    loop.dead_replay()
+    for a, b in zip(before, loop.buffers):
+        assert torch.equal(a, b)
+
+
+def test_card_sharded_segmented_resumes_after_a_lost_shard(card, tmp_path):
+    """The mesh's segmented search on the card on both arms: equal to the
+    fused search (results, schedule, the exchange's bytes) at every:2;
+    stopped at boundary 3, one shard file lost, resumed on a freshly built
+    engine from the epoch before."""
+    from bfs_tpu_torch.parallel import sharded as SH
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected, corrupt_file
+    from bfs_tpu_torch.resilience.superstep_ckpt import CkptConfig, SuperstepCheckpointer
+
+    g = P.rmat_graph(12, 8, seed=3)
+    srg = P.build_sharded_relay_graph(g, 4, route="torch", device=card)
+    mesh = SH.make_mesh(graph=4, devices=[card] * 4)
+    kw = dict(direction="auto", exchange="auto", telemetry=True)
+    for arm in ("gather", "mxu"):
+        eng = SH.ShardedRelayEngine(srg, mesh, expansion=arm)
+        want, wcurve = eng.run(0, **kw)
+
+        def mgr(tag, k):
+            return SuperstepCheckpointer(tmp_path / arm / tag, {"t": 1}, cfg=CkptConfig("every", k),
+                                         shards=4)
+
+        res, curve = SH.bfs_sharded_segmented(srg, 0, mesh=mesh, ckpt=mgr("two", 2), expansion=arm,
+                                              **kw)
+        for got, gcurve in ((res, curve),):
+            np.testing.assert_array_equal(got.dist, want.dist)
+            np.testing.assert_array_equal(got.parent, want.parent)
+            assert gcurve["direction_schedule"] == wcurve["direction_schedule"]
+            assert gcurve["exchange"] == wcurve["exchange"]
+        os.environ["BFS_TPU_TORCH_FAULT"] = "raise:superstep:3"
+        F.reset()
+        try:
+            with pytest.raises(FaultInjected):
+                eng.run_segmented(0, ckpt=mgr("kill", 1), **kw)
+        finally:
+            os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+            F.reset()
+        m = mgr("kill", 1)
+        assert m.epochs() == [2, 3]
+        corrupt_file(m._epoch_path(3, shard=2), mode="truncate")
+        res, curve = SH.bfs_sharded_segmented(srg, 0, mesh=mesh, ckpt=m, expansion=arm, **kw)
+        assert m.report()["resumed_from_epoch"] == 2
+        np.testing.assert_array_equal(res.dist, want.dist)
+        np.testing.assert_array_equal(res.parent, want.parent)
+        assert curve["exchange"] == wcurve["exchange"]

@@ -418,17 +418,6 @@ def test_wrong_shard_counts_and_layouts_are_rejected():
         P.build_device_graph(g, num_shards=0)
 
 
-def test_forced_mxu_on_the_mesh_names_the_next_step(monkeypatch):
-    g = P.gnm_graph(64, 128, seed=0)
-    with pytest.raises(ValueError, match="A12"):
-        SH.bfs_sharded(g, 0, mesh=mesh(2), engine="relay", expansion="mxu")
-    monkeypatch.setenv("BFS_TPU_TORCH_EXPANSION", "mxu")
-    with pytest.raises(ValueError, match="A12"):
-        SH.bfs_sharded(g, 0, mesh=mesh(2), engine="relay")
-    monkeypatch.setenv("BFS_TPU_TORCH_EXPANSION", "auto")  # auto is gather on the mesh
-    _oracle(g, SH.bfs_sharded(g, 0, mesh=mesh(2), engine="relay", expansion="auto"), 0)
-
-
 def test_meshes_over_several_devices_are_refused():
     """A mesh whose shards sit on distinct devices is A12's later step;
     without a card there is no CPU fallback for the default devices."""

@@ -690,7 +690,7 @@ def test_cli_rejects_the_configs_it_does_not_port(tmp_path, capsys):
         rc = _runner_main(["--config", config, "--ckpt-dir", str(tmp_path),
                            "--out", str(tmp_path / "o.json")])
         assert rc == 2 and item in capsys.readouterr().err
-    assert set(NOT_PORTED) == {"sharded", "grid"}
+    assert set(NOT_PORTED) == {"grid"} and "A12 (c)" in NOT_PORTED["grid"]
 
 
 def test_cli_sigkill_round_trip(tmp_path):
