@@ -9,7 +9,8 @@ engines, and the direction-optimizing search over push and pull
 mesh-sharded engine (:mod:`bfs_tpu_torch.parallel`: :func:`bfs_sharded`,
 :func:`bfs_sharded_multi` and the resumable :func:`bfs_sharded_segmented`
 on a :func:`make_mesh` of shards stacked on one device, on both expansion
-arms).  It
+arms) and the 2-D grid (:func:`bfs_grid`, :func:`bfs_grid_segmented` on a
+:func:`make_grid_mesh` of cells stacked on one device).  It
 imports torch and numpy, never jax and nothing of ``bfs_tpu``.  Entry
 points run on the card unless the caller passes ``device="cpu"``.  The command-line entry points are
 ``python -m bfs_tpu_torch.runners.run_parallel`` and
@@ -34,6 +35,7 @@ _EXPORTS = {
     "DirectionConfig": ".models.direction",
     "DirectionEngine": ".models.direction",
     "EdgeEngine": ".models.bfs",
+    "GridEngine": ".parallel.grid",
     "Graph": ".graph.csr",
     "INF_DIST": ".graph.csr",
     "LayoutCache": ".cache.layout",
@@ -49,6 +51,8 @@ _EXPORTS = {
     "Vertex": ".graph.vertex",
     "bfs": ".models.bfs",
     "bfs_direction": ".models.direction",
+    "bfs_grid": ".parallel.grid",
+    "bfs_grid_segmented": ".parallel.grid",
     "bfs_level_curve": ".models.bfs",
     "bfs_multi": ".models.multisource",
     "bfs_multi_device": ".models.multisource",
@@ -71,6 +75,7 @@ _EXPORTS = {
     "gnm_graph": ".graph.generators",
     "load_or_build_pull": ".cache.layout",
     "load_or_build_relay": ".cache.layout",
+    "make_grid_mesh": ".parallel.grid",
     "make_mesh": ".parallel.sharded",
     "parse_sedgewick": ".graph.io",
     "parse_state": ".graph.vertex",

@@ -69,6 +69,8 @@ mirror knobs of the reference's registry of the same names without
                                                  delta | flat
   BFS_TPU_TORCH_EXCHANGE_DIV     int     8       word-list budget divisor:
                                                  B = ceil(kw / div) (>= 1)
+  BFS_TPU_TORCH_MESH             spec    ""      2-D grid mesh 'rxc' (bare c
+                                                 = 1xc); "" = 1 x devices
   ============================== ======= ======= ==========================
 
 Each knob also declares ``affects``: the content keys its value must be
@@ -217,6 +219,20 @@ def _transfer_guard(raw: str) -> str | None:
     raise ValueError("use 0/off | 1/disallow | log")
 
 
+def _mesh(raw: str) -> str:
+    """'rxc' (or a bare c, meaning 1xc), both axes >= 1, kept raw; "" is
+    the 1-D degenerate ``1 x devices``
+    (:func:`bfs_tpu_torch.graph.grid_layout.parse_mesh_spec` parses it)."""
+    s = raw.strip().lower()
+    if not s:
+        return ""
+    rs, x, cs = s.partition("x")
+    r, c = (int(rs), int(cs)) if x else (1, int(rs))
+    if r < 1 or c < 1:
+        raise ValueError("both mesh axes must be >= 1")
+    return raw
+
+
 def _lock_order(raw: str) -> str | None:
     """None (off), ``"record"`` or ``"raise"``."""
     s = raw.strip().lower()
@@ -322,6 +338,10 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
          "exchange word-list budget divisor B = ceil(kw/div); larger cuts deeper "
          "but engages on sparser levels only", journal_key="exchange_div",
          affects=frozenset({"journal"}), canary="0"),
+    Knob("BFS_TPU_TORCH_MESH", "spec", "", _mesh,
+         "the 2-D grid's mesh shape 'rxc' (parallel/grid.py; a bare c is 1xc); unset "
+         "is the 1-D degenerate 1 x the visible cards.  It keys no content: a grid "
+         "engine keeps its loops by its mesh's shape", canary="3by2"),
 )}
 
 

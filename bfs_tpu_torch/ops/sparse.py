@@ -80,17 +80,19 @@ def sparse_third(rg, packed: bool, mxu: bool) -> np.ndarray:
 
 
 def extract_frontier_list(fwords: torch.Tensor, vr: int, bv: int) -> torch.Tensor:
-    """The set bits of the frontier words in ascending order, padded with
-    ``vr``: int64[bv].  Word-level select, no ``nonzero`` (which reads the
-    host): popcounts and their cumulative sum, the owner word of every output
-    slot by ``searchsorted``, then a 5-step binary search for the bit of that
+    """The set bits of the frontier words ``[..., nw]`` in ascending order,
+    padded with ``vr``: int64[..., bv] (one list per row of a leading
+    batch).  Word-level select, no ``nonzero`` (which reads the host):
+    popcounts and their cumulative sum, the owner word of every output slot
+    by ``searchsorted``, then a 5-step binary search for the bit of that
     rank inside the word."""
-    nw = fwords.shape[0]
-    cs = torch.cumsum(_popcount32(fwords), 0)  # inclusive
+    nw = fwords.shape[-1]
+    cs = torch.cumsum(_popcount32(fwords), -1)  # inclusive
     o = torch.arange(bv, dtype=torch.int64, device=fwords.device)
+    o = o.expand(*fwords.shape[:-1], bv).contiguous()
     wc = torch.searchsorted(cs, o, right=True).clamp(0, nw - 1)
-    r = o - torch.where(wc > 0, cs[(wc - 1).clamp_min(0)], 0)  # rank inside the word
-    x = u32(fwords)[wc]
+    r = o - torch.where(wc > 0, cs.gather(-1, (wc - 1).clamp_min(0)), 0)  # rank inside the word
+    x = u32(fwords).gather(-1, wc)
     pos = torch.zeros_like(o)
     for k in (16, 8, 4, 2, 1):
         low = _popcount32(x & ((1 << k) - 1))
@@ -98,7 +100,7 @@ def extract_frontier_list(fwords: torch.Tensor, vr: int, bv: int) -> torch.Tenso
         r = torch.where(high, r - low, r)
         x = torch.where(high, x >> k, x)
         pos = pos + torch.where(high, k, 0)
-    return torch.where(o < cs[-1], wc * 32 + pos, vr)
+    return torch.where(o < cs[..., -1:], wc * 32 + pos, vr)
 
 
 def _sorted_frontier_edges(fwords: torch.Tensor, adj: SparseAdjacency, vr: int):

@@ -116,17 +116,23 @@ def make_mesh(graph: int | None = None, batch: int = 1, *,
     once: ``devices=[torch.device("cpu")] * 8`` stacks 8 shards on the
     CPU, ``[torch.device("cuda")] * 4`` 4 shards on one card.  Raises when
     the mesh needs more entries than it was given."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass devices=[torch.device('cpu')] * n "
-                               "to run the plain PyTorch path")
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = list(devices)
+    devices = mesh_devices(devices)
     if graph is None:
         graph = len(devices) // batch
     if batch < 1 or graph < 1 or batch * graph > len(devices):
         raise ValueError(f"mesh {batch}x{graph} needs {batch * graph} devices, have {len(devices)}")
     return Mesh([devices[r * graph:(r + 1) * graph] for r in range(batch)])
+
+
+def mesh_devices(devices: Sequence | None) -> list:
+    """``devices`` as a list, or the visible cards when None (raises
+    without a card: there is no CPU fallback)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass devices=[torch.device('cpu')] * n "
+                               "to run the plain PyTorch path")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return list(devices)
 
 
 def _graph_shards(mesh: Mesh) -> int:
@@ -624,49 +630,6 @@ class ShardedRelayEngine:
                           device=fw.device)
         return cand.scatter_(1, torch.where(upd, dk, block), sk.to(torch.int32))[:, :block]
 
-    def _update(self, fields: tuple, send: torch.Tensor, cand: torch.Tensor, ctl) -> None:
-        """The shards' update, gated by ``ctl``, in place: on the packed
-        carry ``packed_update`` per shard (its improved bits into the
-        shard's row of ``send``, the flag raised); on the unpacked carry
-        the merge (torch, all shards at once)."""
-        if len(fields) == 1:
-            for s in range(self.n):
-                K.apply_relay_candidates_packed(R.PackedRelayState(fields[0][s], send[s], None, None),
-                                                cand[s], fwords_out=send[s], ctl=ctl)
-            return
-        dist, parent = fields
-        new = R.apply_relay_candidates(R.RelayState(dist, parent, send, None, None), cand, ctl)
-        for buf, val in zip((dist, parent, send), new[:3]):
-            buf.copy_(val)
-        C.raise_flag(ctl, new.changed)
-
-    def _first_body(self, dstate, fw, adj, mode: str, cfg) -> torch.Tensor:
-        """The first superstep's body (True: dense), as the single-chip
-        relay engine decides it, on the global frontier and out-degrees."""
-        from ..models import direction as D
-
-        num_edges = self.layout.num_edges
-        if mode == "push":
-            return ~S.take_sparse(fw, adj.outdeg, self.gtot, num_edges)
-        fsize, fedges = D.frontier_masses_words(fw, adj.outdeg, self.gtot)
-        mu0 = adj.outdeg.sum(dtype=torch.int64).to(torch.float32)
-        use = D.init_decision(dstate, fsize, fedges, mu0, self.layout.num_vertices, cfg)
-        return use | ~S.within_budgets(fsize, fedges, self.gtot, num_edges)
-
-    def _next_body(self, dstate, fw, adj, mode: str, ctl) -> None:
-        """The next superstep's body into USE_PULL (a dead superstep
-        writes nothing)."""
-        from ..models import direction as D
-
-        num_edges = self.layout.num_edges
-        if mode == "push":
-            use = ~S.take_sparse(fw, adj.outdeg, self.gtot, num_edges)
-            ctl[C.USE_PULL] = torch.where(ctl[C.LIVE] != 0, use.to(torch.int32), ctl[C.USE_PULL])
-            return
-        fsize, fedges = D.frontier_masses_words(fw, adj.outdeg, self.gtot)
-        over = ~S.within_budgets(fsize, fedges, self.gtot, num_edges)
-        D.decide_gated(dstate, ctl, fsize, fedges, force_pull=over)
-
     def dense_launches(self, trees: int | None = None) -> dict:
         """The kernel launches of ONE shard's dense superstep (a search,
         or a lock-step batch of ``trees``), as ``apply_benes`` splits each
@@ -725,7 +688,7 @@ class ShardedRelayEngine:
                     cand = self._dense_cand(fin, ctl, packed)
                 else:
                     cand = self._push_cand(fw, adj, unreached(), packed)
-                self._update(fields, send, cand, ctl)
+                update_shards(fields, send, cand, ctl)
                 words, nbytes, arm = exchange(send, self.own)
                 live = ctl[C.LIVE] != 0
                 fw.copy_(torch.where(live, words, fw))
@@ -736,7 +699,7 @@ class ShardedRelayEngine:
                     T.record_direction(dirs, level, (T.DIR_PUSH, T.DIR_PULL)[body], live)
                     T.record_exchange(xb, xa, level, nbytes, arm, live)
                 if switch:
-                    self._next_body(dstate[0], fw, adj, mode, ctl)
+                    next_body(dstate[0], fw, adj.outdeg, self.layout, mode, ctl)
                 K.loop_control(ctl)
 
             return step
@@ -766,7 +729,7 @@ class ShardedRelayEngine:
             # bfs_tpu_torch: hot captured
             def step():
                 cand = self._dense_cand(fin, ctl, packed)
-                self._update(fields, send, cand, ctl)
+                update_shards(fields, send, cand, ctl)
                 words = bitmap_gather(send.gather(-1, idx), self.own, self.nw)
                 fw.copy_(torch.where(ctl[C.LIVE] != 0, words, fw))
                 K.loop_control(ctl)
@@ -819,8 +782,8 @@ class ShardedRelayEngine:
                 t.zero_()
         if mode in ("auto", "push"):
             fw = loop.buffers[nf][: self.gtot // 32]
-            loop.ctl[C.USE_PULL] = self._first_body(loop.buffers[-2], fw, self.adjacency(packed),
-                                                    mode, cfg).to(torch.int32)
+            loop.ctl[C.USE_PULL] = first_body(loop.buffers[-2], fw, self.adjacency(packed).outdeg,
+                                              self.layout, mode, cfg).to(torch.int32)
         return live
 
     def _run_single(self, source_new: int, cap: int, packed: bool, telemetry: bool, mode: str,
@@ -868,10 +831,11 @@ class ShardedRelayEngine:
     def _result(self, fields, packed: bool, stats, issued: dict, tel, source: int, t0: float,
                 max_levels: int, cfg, ex_cfg, **extra):
         """A search's result from its carry's fields: the state decoded
-        (:meth:`_decode`) and mapped back, :attr:`last_run`, and with the
+        (:meth:`_decode`) and mapped back (:func:`map_back`), :attr:`last_run`, and with the
         accumulators ``tel`` the level curve."""
         t1 = time.perf_counter()
-        dist, parent = to_host(*self._map_back(*self._decode(fields, packed), source))
+        dist, parent = to_host(*map_back(*self._decode(fields, packed), source, self.old2new,
+                                         self.src_l1))
         self.last_run = {**_run_stats(stats, t0, t1), "issued_push": issued[0],
                          "issued_pull": issued[1], "packed": packed, **extra}
         result = BfsResult(dist=dist, parent=parent, num_levels=stats.level)
@@ -926,31 +890,10 @@ class ShardedRelayEngine:
         level, changed = int(restore["level"]), bool(restore["changed"])
         use_pull = 0
         if mode in ("auto", "push"):
-            use_pull = self._restored_body(restore, views, self.adjacency(packed), mode, cfg)
+            use_pull = restored_body(restore, views.get("dstate"), views["fw"],
+                                     self.adjacency(packed).outdeg, self.layout, mode, cfg)
         C.resume_ctl(loop.ctl, level, changed, level, use_pull)
         return loop, views, level, changed
-
-    def _restored_body(self, restore: dict, views: dict, adj: S.SparseAdjacency, mode: str, cfg):
-        """The next body of a restored carry on the switch loop: in ``push``
-        the frontier's own test; in ``auto`` the epoch's ``use_pull`` or,
-        from the reference's ``mu`` and ``prev``, the decision the
-        reference takes at the start of its next superstep."""
-        from ..models import direction as D
-
-        fw, gtot, num_edges = views["fw"], self.gtot, self.layout.num_edges
-        if mode == "push":
-            return (~S.take_sparse(fw, adj.outdeg, gtot, num_edges)).to(torch.int32)
-        if "use_pull" in restore:
-            return int(np.asarray(restore["use_pull"]))
-        dstate = views["dstate"]
-        dstate.zero_()
-        dstate[D.ALPHA], dstate[D.BETA] = cfg.alpha, cfg.beta
-        dstate[D.NTHRESH] = self.layout.num_vertices
-        dstate[D.MU] = float(np.asarray(restore["mu"]))
-        fsize, fedges = D.frontier_masses_words(fw, adj.outdeg, gtot)
-        use, dstate[D.MU], dstate[D.FE] = D.decide(dstate, bool(np.asarray(restore["prev"])),
-                                                   fsize, fedges)
-        return (use | ~S.within_budgets(fsize, fedges, gtot, num_edges)).to(torch.int32)
 
     def _segment_snapshot(self, views: dict, ctl: torch.Tensor, keys: list, level: int,
                           changed: bool, packed: bool) -> tuple[dict, list | None]:
@@ -1093,7 +1036,8 @@ class ShardedRelayEngine:
             stats = stats.add(loop.run(self._start(loop, packed, new, max_levels)))
         t1 = time.perf_counter()
         fields = loop.buffers[: 1 if packed else 2]
-        dist, parent = to_host(*self._map_back(*self._decode(fields, packed), sources))
+        dist, parent = to_host(*map_back(*self._decode(fields, packed), sources, self.old2new,
+                                         self.src_l1))
         self.last_run = {**_run_stats(stats, t0, t1), "packed": packed}
         return MultiBfsResult(sources=sources, dist=dist, parent=parent, num_levels=stats.level)
 
@@ -1107,32 +1051,111 @@ class ShardedRelayEngine:
             return packed_dist(fields[0]), packed_parent(fields[0])
         return R.unpack_relay_packed(fields[0], self.layout.in_classes, self.block)
 
-    def _map_back(self, dist: torch.Tensor, parent: torch.Tensor, sources):
-        """Shard-stacked relabeled ``(dist, parent)`` -> ORIGINAL ids on the
-        device (the reference's ``_relay_map_back``): on the gather arm a
-        vertex at global id ``g`` is shard ``g // block``'s and its parent
-        slot resolves through that shard's ``src_l1``; on the MXU arm the
-        parents are original ids already and only the index space is
-        remapped.  The sources' entries are set to themselves."""
-        lead = dist.shape[1:-1]
 
-        def flat(t):
-            return t.movedim(0, -2).reshape(*lead, self.gtot)
+def update_shards(fields: tuple, send: torch.Tensor, cand: torch.Tensor, ctl) -> None:
+    """The shards' (or the grid's cells') update, gated by ``ctl``, in
+    place: on the packed carry ``packed_update`` (K4) once per shard on its
+    row (its improved bits into the shard's row of ``send``, the flag
+    raised; candidates -1 where none); on the unpacked carry the merge
+    (torch, all shards at once; candidates INT32_MAX where none)."""
+    if len(fields) == 1:
+        for s in range(fields[0].shape[0]):
+            K.apply_relay_candidates_packed(R.PackedRelayState(fields[0][s], send[s], None, None),
+                                            cand[s], fwords_out=send[s], ctl=ctl)
+        return
+    dist, parent = fields
+    new = R.apply_relay_candidates(R.RelayState(dist, parent, send, None, None), cand, ctl)
+    for buf, val in zip((dist, parent, send), new[:3]):
+        buf.copy_(val)
+    C.raise_flag(ctl, new.changed)
 
-        d, p = flat(dist), flat(parent)
-        if self.expansion != "mxu":
-            m1 = self.src_l1.shape[1]
-            shard = torch.arange(self.gtot, device=self.device) // self.block
-            at = shard * m1 + p.clamp(0, m1 - 1).to(torch.int64)
-            p = torch.where(p >= 0, self.src_l1.reshape(-1)[at], p)
-        d, p = d[..., self.old2new], p[..., self.old2new]
-        if np.ndim(sources) == 0:
-            p[int(sources)].fill_(int(sources))
-        else:
-            src = _sources_tensor(sources, self.device)
-            with explicit_transfer():  # the sources' self-parents
-                p[torch.arange(len(sources), device=self.device), src] = src.to(torch.int32)
-        return d.contiguous(), p.contiguous()
+
+def first_body(dstate, fw: torch.Tensor, outdeg: torch.Tensor, layout, mode: str,
+               cfg) -> torch.Tensor:
+    """The first superstep's body (True: dense) of a search on the mesh or
+    the grid, as the single-chip relay engine decides it, on the global
+    frontier words ``fw`` and out-degrees (the exact int64 masses):
+    ``push`` takes the sparse body while the frontier fits the budgets,
+    ``auto`` starts the decision state ``dstate``."""
+    from ..models import direction as D
+
+    gtot, num_edges = layout.num_shards * layout.block, layout.num_edges
+    if mode == "push":
+        return ~S.take_sparse(fw, outdeg, gtot, num_edges)
+    fsize, fedges = D.frontier_masses_words(fw, outdeg, gtot)
+    mu0 = outdeg.sum(dtype=torch.int64).to(torch.float32)
+    use = D.init_decision(dstate, fsize, fedges, mu0, layout.num_vertices, cfg)
+    return use | ~S.within_budgets(fsize, fedges, gtot, num_edges)
+
+
+def next_body(dstate, fw: torch.Tensor, outdeg: torch.Tensor, layout, mode: str, ctl) -> None:
+    """The next superstep's body into USE_PULL from the new global frontier
+    ``fw`` (a dead superstep writes nothing)."""
+    from ..models import direction as D
+
+    gtot, num_edges = layout.num_shards * layout.block, layout.num_edges
+    if mode == "push":
+        use = ~S.take_sparse(fw, outdeg, gtot, num_edges)
+        ctl[C.USE_PULL] = torch.where(ctl[C.LIVE] != 0, use.to(torch.int32), ctl[C.USE_PULL])
+        return
+    fsize, fedges = D.frontier_masses_words(fw, outdeg, gtot)
+    over = ~S.within_budgets(fsize, fedges, gtot, num_edges)
+    D.decide_gated(dstate, ctl, fsize, fedges, force_pull=over)
+
+
+def restored_body(restore: dict, dstate, fw: torch.Tensor, outdeg: torch.Tensor, layout,
+                  mode: str, cfg):
+    """The next body of a restored carry on the switch loop: in ``push``
+    the frontier's own test; in ``auto`` the epoch's ``use_pull`` or, from
+    the reference's ``mu`` and ``prev``, the decision the reference takes
+    at the start of its next superstep (``dstate`` restarted from them)."""
+    from ..models import direction as D
+
+    gtot, num_edges = layout.num_shards * layout.block, layout.num_edges
+    if mode == "push":
+        return (~S.take_sparse(fw, outdeg, gtot, num_edges)).to(torch.int32)
+    if "use_pull" in restore:
+        return int(np.asarray(restore["use_pull"]))
+    dstate.zero_()
+    dstate[D.ALPHA], dstate[D.BETA] = cfg.alpha, cfg.beta
+    dstate[D.NTHRESH] = layout.num_vertices
+    dstate[D.MU] = float(np.asarray(restore["mu"]))
+    fsize, fedges = D.frontier_masses_words(fw, outdeg, gtot)
+    use, dstate[D.MU], dstate[D.FE] = D.decide(dstate, bool(np.asarray(restore["prev"])),
+                                               fsize, fedges)
+    return (use | ~S.within_budgets(fsize, fedges, gtot, num_edges)).to(torch.int32)
+
+
+def map_back(dist: torch.Tensor, parent: torch.Tensor, sources, old2new: torch.Tensor,
+             src_l1: torch.Tensor | None = None):
+    """Shard-stacked relabeled ``(dist, parent)`` (``[n, (S,) block]``) ->
+    ORIGINAL ids on the device (the reference's ``_relay_map_back``): with
+    ``src_l1`` (the gather arm) a vertex at global id ``g`` is shard ``g //
+    block``'s and its parent slot resolves through that shard's row; without
+    it (the MXU flavor, the grid) the parents are original ids already and
+    only the index space is remapped.  The sources' entries are set to
+    themselves."""
+    lead, block = dist.shape[1:-1], dist.shape[-1]
+    gtot = dist.shape[0] * block
+    device = dist.device
+
+    def flat(t):
+        return t.movedim(0, -2).reshape(*lead, gtot)
+
+    d, p = flat(dist), flat(parent)
+    if src_l1 is not None:
+        m1 = src_l1.shape[1]
+        shard = torch.arange(gtot, device=device) // block
+        at = shard * m1 + p.clamp(0, m1 - 1).to(torch.int64)
+        p = torch.where(p >= 0, src_l1.reshape(-1)[at], p)
+    d, p = d[..., old2new], p[..., old2new]
+    if np.ndim(sources) == 0:
+        p[int(sources)].fill_(int(sources))
+    else:
+        src = _sources_tensor(sources, device)
+        with explicit_transfer():  # the sources' self-parents
+            p[torch.arange(len(sources), device=device), src] = src.to(torch.int32)
+    return d.contiguous(), p.contiguous()
 
 
 def _state_keys(packed: bool) -> tuple[str, ...]:
@@ -1166,7 +1189,7 @@ def sharded_segment_carry(eng: ShardedRelayEngine, source: int, *, packed: bool 
     Returns the carry's tensors by epoch key with ``level`` and ``changed``
     as host values.  A fresh run on the switch loop takes its first body as
     :meth:`ShardedRelayEngine.run` does; a restored one the body the epoch
-    names (:meth:`ShardedRelayEngine._restored_body`)."""
+    names (:func:`restored_body`)."""
     from ..models.direction import resolve_direction
 
     packed = eng.packed if packed is None else packed

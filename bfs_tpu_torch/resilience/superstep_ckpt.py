@@ -40,12 +40,13 @@ starts fresh (counted).  Per-shard epochs (a meta file plus one file per
 shard; complete only when all validate) are the sharded runs' store.
 
 Run ``python -m bfs_tpu_torch.resilience.superstep_ckpt --config
-relay|multi|stream|sharded --ckpt-dir D --out result.json [--device cpu]
-[--shards N]`` for one segmented traversal that a
+relay|multi|stream|sharded|grid --ckpt-dir D --out result.json [--device
+cpu] [--shards N] [--mesh rxc]`` for one segmented traversal that a
 ``BFS_TPU_TORCH_FAULT=kill:superstep:<n>`` kills at its n-th boundary;
 running it again with the same ``--ckpt-dir`` resumes.  ``sharded`` is
 the mesh's relay search on ``N`` shards (8 by default) stacked on the
-device, with per-shard epochs.
+device, with per-shard epochs; ``grid`` the 2-D grid's search on an
+``rxc`` mesh (2x4 by default), with per-cell epochs.
 """
 
 from __future__ import annotations
@@ -356,7 +357,7 @@ def epoch_arrays(tensors: dict, **extra) -> dict[str, np.ndarray]:
 
 
 #: Epoch keys whose arrays hold uint32 words (int32 bit patterns here).
-UINT32_KEYS = frozenset(("pk", "fw", "packed"))
+UINT32_KEYS = frozenset(("pk", "fw", "packed", "rc"))
 
 
 def epoch_tensor(a: np.ndarray, device, dtype=None):
@@ -479,10 +480,8 @@ def run_multi_segmented(graph, sources, *, ckpt: SuperstepCheckpointer, engine: 
 # ---------------------------------------------------------------------------
 
 #: Configurations of the reference's runner that need modules the port does
-#: not have yet, with the roadmap item that brings each.
-NOT_PORTED = {
-    "grid": "ROADMAP A12 (c), the 2-D grid",
-}
+#: not have yet, with the roadmap item that brings each (none left).
+NOT_PORTED: dict[str, str] = {}
 
 
 def _hash(a: np.ndarray) -> str:
@@ -498,7 +497,7 @@ def _runner_main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True,
-                    choices=("relay", "multi", "stream", "sharded", *NOT_PORTED))
+                    choices=("relay", "multi", "stream", "sharded", "grid", *NOT_PORTED))
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--scale", type=int, default=8)
@@ -513,6 +512,8 @@ def _runner_main(argv=None) -> int:
                     help="torch device (default: the card; 'cpu' runs the plain path)")
     ap.add_argument("--shards", type=int, default=8,
                     help="sharded config: the mesh's graph axis, its shards stacked on the device")
+    ap.add_argument("--mesh", default="2x4",
+                    help="grid config: the 'rxc' mesh, its cells stacked on the device")
     args = ap.parse_args(argv)
     if args.config in NOT_PORTED:
         print(f"--config {args.config}: not ported to bfs_tpu_torch yet, see "
@@ -527,8 +528,16 @@ def _runner_main(argv=None) -> int:
         "runner": args.config, "scale": args.scale, "edge_factor": args.edge_factor,
         "seed": args.seed, "source": args.source, "interval": args.interval,
     }
-    ckpt = SuperstepCheckpointer(args.ckpt_dir, base_config, cfg=cfg,
-                                 shards=args.shards if args.config == "sharded" else 1)
+    shards = 1
+    if args.config == "sharded":
+        shards = args.shards
+    elif args.config == "grid":
+        from ..graph.grid_layout import parse_mesh_spec
+
+        r, c = parse_mesh_spec(args.mesh)
+        base_config["mesh"] = f"{r}x{c}"
+        shards = r * c
+    ckpt = SuperstepCheckpointer(args.ckpt_dir, base_config, cfg=cfg, shards=shards)
     doc: dict = {"config": args.config}
     if args.config == "relay":
         from ..models.bfs import RelayEngine
@@ -564,6 +573,21 @@ def _runner_main(argv=None) -> int:
         doc.update(direction_schedule=curve["direction_schedule"],
                    exchange_schedule=curve["exchange"]["schedule"],
                    exchange_bytes=curve["exchange"]["bytes_per_level"])
+    elif args.config == "grid":
+        # The 2-D grid's search (auto direction, auto exchange) on r x c
+        # cells stacked on the device; per-cell epochs, and both axes' arm
+        # and bytes per level are part of what a resume must reproduce.
+        from ..models.bfs import resolve_device
+        from ..parallel.grid import bfs_grid_segmented, make_grid_mesh
+
+        mesh = make_grid_mesh(r, c, devices=[resolve_device(args.device)] * shards)
+        result, curve = bfs_grid_segmented(graph, args.source, mesh=mesh, ckpt=ckpt,
+                                           direction="auto", exchange="auto", telemetry=True)
+        ex = curve["exchange"]
+        doc.update(direction_schedule=curve["direction_schedule"],
+                   exchange_schedule=ex["schedule"], exchange_bytes=ex["bytes_per_level"],
+                   col_schedule=ex["col_schedule"], col_bytes=ex["col_bytes"],
+                   row_schedule=ex["row_schedule"], row_bytes=ex["row_bytes"])
     else:  # multi
         v = graph.num_vertices
         sources = [(args.source + 7 * i) % v for i in range(4)]

@@ -26,11 +26,12 @@ a random delay, then run it to completion; its own oracle gate decides.
 at a random superstep boundary (``BFS_TPU_TORCH_FAULT=kill:superstep:<n>``)
 and run it again on the same checkpoint directory until it completes; the
 result must equal an unkilled golden run bit for bit (the dist and parent
-hashes, the direction schedule and, on ``sharded``, the exchange's arm and
-bytes per level) and must have resumed from an epoch.  Configs ``relay``,
-``multi``, ``stream`` and ``sharded`` (the mesh's relay search on 8 shards
-stacked on the device, per-shard epochs); ``grid`` exits 2 (the runner's
-``NOT_PORTED``: it waits for the port's 2-D grid).
+hashes, the direction schedule and, on ``sharded`` and ``grid``, the
+exchange's arm and bytes per level, on ``grid`` of each axis) and must
+have resumed from an epoch.  Configs ``relay``, ``multi``, ``stream``,
+``sharded`` (the mesh's relay search on 8 shards stacked on the device,
+per-shard epochs) and ``grid`` (the 2-D grid on a ``--mesh`` of 2x4 cells
+stacked on the device, per-cell epochs).
 
 **bench** is the reference's default mode: it chaoses the bench's journal
 phases, and the port has no bench yet, so it exits 2.
@@ -292,14 +293,16 @@ def chaos_serve(args, rng: random.Random) -> int:
 #: The runner's configs: relay = the single-source relay engine (sparse
 #: hybrid, auto direction); multi = the batched push run; stream = the
 #: streamed MXU arm under a one-superblock cache; sharded = the mesh's relay
-#: search on 8 shards (auto direction, auto exchange).  grid exits 2.
-TRAVERSAL_CONFIGS = ("relay", "multi", "sharded", "stream")
+#: search on 8 shards (auto direction, auto exchange); grid = the 2-D grid
+#: on the --mesh (auto direction, auto exchange, per-cell epochs).
+TRAVERSAL_CONFIGS = ("relay", "multi", "sharded", "grid", "stream")
 
 #: Fields a resumed run must reproduce bit for bit (a field a config does
-#: not write is absent on both sides): on sharded also the exchange's arm
-#: and bytes per level.
+#: not write is absent on both sides): on sharded and grid also the
+#: exchange's arm and bytes per level, on grid each axis's.
 TRAVERSAL_DETERMINISTIC = ("dist_hash", "parent_hash", "num_levels", "direction_schedule",
-                           "exchange_schedule", "exchange_bytes")
+                           "exchange_schedule", "exchange_bytes",
+                           "col_schedule", "col_bytes", "row_schedule", "row_bytes")
 
 
 def run_traversal(args, cfg: str, ckpt_dir: str, out: str, fault: str | None = None):
@@ -313,6 +316,8 @@ def run_traversal(args, cfg: str, ckpt_dir: str, out: str, fault: str | None = N
            "--interval", str(args.ckpt_interval)]
     if args.device:
         cmd += ["--device", args.device]
+    if cfg == "grid":
+        cmd += ["--mesh", args.mesh]
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=REPO_ROOT,
                           timeout=args.timeout)
     doc = None
@@ -403,7 +408,9 @@ def main(argv=None) -> int:
     ap.add_argument("--loadgen-kill-max-s", type=float, default=20.0)
     ap.add_argument("--traversal-configs", default=",".join(TRAVERSAL_CONFIGS),
                     help="comma list of the superstep_ckpt runner's configs (relay, multi, "
-                    "sharded, stream; grid exits 2)")
+                    "sharded, grid, stream)")
+    ap.add_argument("--mesh", default="2x4",
+                    help="traversal mode: the grid config's 'rxc' mesh")
     ap.add_argument("--ckpt-interval", type=int, default=2,
                     help="traversal mode: supersteps per checkpoint segment (every:<k>)")
     ap.add_argument("--serve-engine", default="pull", choices=("pull", "push", "relay"))

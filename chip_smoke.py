@@ -127,8 +127,15 @@ equal to the single-chip results; the resumable search
 ``auto``, equal to the fused search in results, schedule and the
 exchange's bytes; a run stopped at a boundary, one shard file of its
 newest epoch truncated, resumed on a freshly built engine from the epoch
-before); the MXU arm on the mesh once every other engine of the phase is
-freed (each shard's tiles counted, reckoned against the free memory and
+before); the 2-D grid on the same 4-shard layout (``sharded_grid_part``:
+the 2x2 and 1x4 per-cell layouts built in the phase's pool beside the
+first searches; a 2x2 ``GridEngine`` on ``pull`` and ``auto`` from both
+roots equal bit for bit to the single-chip result, ``packed_update``
+launched 4 x the supersteps issued, cell 0's update at the densest level
+against its plain version; 1x4 equal to the 1-D mesh in results and the
+exchange's bytes and arms; the segmented 2x2 search at ``every:2`` and
+resumed after a lost cell file); the MXU arm on the mesh once every other
+engine of the phase is freed (each shard's tiles counted, reckoned against the free memory and
 built on the card; a search on ``pull`` and ``auto`` equal to the
 single-chip result, ``mxu_expand`` launched 4 x the dense supersteps,
 ``packed_update`` 4 x every superstep; ``mxu_expand`` of shard 0 and
@@ -2352,9 +2359,10 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     per level; ``bfs_sharded_multi`` on a (2, 2) mesh for ``SHARDED_BATCH``
     of the batch sources on pull and relay, every tree equal to the
     batch's; ``sssp_sharded`` and ``cc_sharded`` equal to the single-chip
-    results; the resumable search (``sharded_segmented_part``); the MXU
-    arm on the mesh (``sharded_mxu_part``), once every other engine of the
-    phase is freed.  ``bfs_sharded`` and ``bfs_sharded_multi`` build an
+    results; the resumable search (``sharded_segmented_part``); the 2-D
+    grid on the same layout (``sharded_grid_part``); the MXU arm on the
+    mesh (``sharded_mxu_part``), once every other engine of the phase is
+    freed.  ``bfs_sharded`` and ``bfs_sharded_multi`` build an
     engine for the call and drop it; the timed replays run on held engines
     (the stateful API).  Seconds per search beside the single-chip ones,
     the peak memory and the phase's wall time.  Four shards on one card
@@ -2364,6 +2372,7 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     import numpy as np
     import torch
     from bfs_tpu_torch.algo import cc_sharded, sssp_sharded
+    from bfs_tpu_torch.graph import grid_layout as PGL
     from bfs_tpu_torch.parallel import sharded as SH
 
     t_phase = time.perf_counter()
@@ -2381,7 +2390,7 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     # The two torch-routed relay builds (their routes on the card) and the
     # 4-shard pull build side by side, before any capture; the 2-shard pull
     # build (host only) and one host check() run beside the first calls.
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=3, thread_name_prefix="sharded-phase")
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=4, thread_name_prefix="sharded-phase")
     st4, st2 = {}, {}
     t0 = time.perf_counter()
     f_relay4 = pool.submit(timed, P.build_sharded_relay_graph, dg, SHARDS, route="torch",
@@ -2395,6 +2404,8 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
     torch.cuda.synchronize()
     layouts_s = time.perf_counter() - t0
     f_pull2 = pool.submit(timed, P.build_sharded_pull_graph, dg, 2)
+    # The 2-D grid's per-cell layouts (host) beside the first searches.
+    f_grid = [pool.submit(timed, PGL.grid_layout_for, srg, r, c) for r, c in ((2, 2), (1, 4))]
 
     def nbytes(*arrays) -> int:
         return int(sum(a.nbytes for a in arrays))
@@ -2568,10 +2579,17 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
         raise AssertionError("cc_sharded differs from the single-chip cc")
     for k, n in K.LAUNCHES.items():
         phase_launches[k] += n
-    pool.shutdown()
     peak = torch.cuda.max_memory_allocated()
     del srg2, spg, spg2, dg4
     torch.cuda.empty_cache()
+    # ---- the 2-D grid on the same 4-shard layout, before the MXU arm
+    grid = sharded_grid_part(srg, f_grid, roots, want, same_as_single, segmented["fcurve"], single,
+                             {k: rows[k]["secs"] for k in ("relay pull", "relay auto")}, K, card,
+                             store)
+    pool.shutdown()
+    for k, n in grid["launches"].items():
+        phase_launches[k] = phase_launches.get(k, 0) + n
+    peak = max(peak, grid["peak"])
     # ---- the MXU arm on the mesh, every other engine of the phase freed
     mxu = sharded_mxu_part(srg, mesh, roots[0], want, same_as_single, K, card)
     for k, n in mxu["launches"].items():
@@ -2589,7 +2607,7 @@ def sharded_phase(P, g, dg, roots, want, single: dict, batch, sssp_want, cc_want
         f"host; peak device memory {peak} bytes; phase {wall:.1f} s")
     return dict(rows=rows, exchange=ex, multi=multi, launches=phase_launches, peak=peak, wall=wall,
                 layouts_s=layouts_s, sssp_s=sssp_s, cc_s=cc_s, check=check, mxu=mxu,
-                segmented=segmented)
+                segmented=segmented, grid=grid)
 
 
 def sharded_segmented_part(reng, srg, mesh, root: int, same_as_single, store: str,
@@ -2681,7 +2699,276 @@ def sharded_segmented_part(reng, srg, mesh, root: int, same_as_single, store: st
         f"from epoch {rep2['resumed_from_epoch']} ({rep2['epochs_corrupt_skipped']} corrupt file "
         f"skipped) in {resume_s:.6f} s, bit-identical to the fused search; part {wall:.1f} s")
     return dict(fused_s=fused_s, seg_s=seg_s, resume_s=resume_s, report=rep, resume=rep2,
-                wall=wall)
+                wall=wall, fcurve=fcurve)
+
+
+def sharded_grid_part(srg, layouts, roots, want, same_as_single, fcurve, single: dict,
+                      one_d: dict, K, card: str, store: str) -> dict:
+    """The 2-D grid (``bfs_tpu_torch.parallel.grid``) at s22 on the
+    phase's 4-shard layout ``srg``, its cells stacked on the card, the
+    per-cell layouts of 2x2 and 1x4 built in the phase's pool beside the
+    first searches (``layouts``: their futures).  A 2x2 ``GridEngine``:
+    ``pull`` and ``auto`` from the max-degree root and the first drawn root
+    (a first call that captures, then a timed replay), each equal bit for
+    bit to the single-chip result, DeviceChecker clean, with
+    ``packed_update`` launched 4 x the supersteps issued on the packed carry
+    and ``loop_control`` once a superstep; cell 0's update at the densest
+    level held bit for bit against its plain version
+    (``grid_kernel_check``); a 1x4 grid equal to the 1-D mesh's search on the
+    same layout (``fcurve``: its curve, auto/auto) in results, direction
+    schedule and the exchange's bytes and arms per level, the row axis
+    shipping nothing; the segmented 2x2 search at every:2 equal to the fused
+    one, then stopped at boundary 3, one cell file truncated, resumed on a
+    freshly built engine bit for bit.  Seconds per search beside the 1-D
+    (``one_d``) and single-chip (``single``) ones, both axes' bytes per
+    level, the peak memory and the part's wall time."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.parallel import grid as G
+    from bfs_tpu_torch.resilience import faults as F
+    from bfs_tpu_torch.resilience.faults import FaultInjected, corrupt_file
+    from bfs_tpu_torch.resilience.superstep_ckpt import SuperstepCheckpointer
+
+    t_part = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.device("cuda")
+    (lay22, lay22_s), (lay14, lay14_s) = (f.result() for f in layouts)
+    for name, lay, secs in (("2x2", lay22, lay22_s), ("1x4", lay14, lay14_s)):
+        real = [int((lay.edst[k] < lay.r * lay.block).sum()) for k in range(lay.num_cells)]
+        log(f"grid layout {name} (host, in the phase's pool; {card}): {secs:.3f} s, emax "
+            f"{lay.emax}, edges per cell {real} (sum {sum(real)}), "
+            f"{lay.esrc.nbytes + lay.edst.nbytes + lay.ekey.nbytes + lay.indptr.nbytes} bytes "
+            f"(esrc, edst, ekey {lay.esrc.nbytes} each, indptr {lay.indptr.nbytes})")
+    kw = dict(exchange="auto", telemetry=True)
+    t0 = time.perf_counter()
+    eng = G.GridEngine(srg, G.make_grid_mesh(2, 2, devices=[cuda] * 4))
+    torch.cuda.synchronize()
+    ship_s = time.perf_counter() - t0
+    log(f"grid 2x2 engine ({card}): operands shipped in {ship_s:.3f} s, {eng.operand_bytes} "
+        f"bytes on the card")
+    rows, launches, curves = {}, {}, {}
+    for direction in ("pull", "auto"):
+        label = f"relay {direction}"
+        t0 = time.perf_counter()
+        res, _ = eng.run(roots[0], direction=direction, **kw)
+        first_s = time.perf_counter() - t0
+        same_as_single(f"grid 2x2 {direction}", res, roots[0])
+        del res
+        secs, runs = [], []
+        for r in roots[:2]:
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, curve = eng.run(r, direction=direction, **kw)
+            secs.append(time.perf_counter() - t0)
+            run = dict(eng.last_run)
+            runs.append(run)
+            got = {k: K.LAUNCHES[k] for k in ("packed_update", "loop_control")}
+            expect = {"packed_update": 4 * run["issued"], "loop_control": run["issued"]}
+            other = {k: n for k, n in K.LAUNCHES.items() if n and k not in got}
+            if not run["packed"] or got != expect or other:
+                raise AssertionError(f"grid 2x2 {direction} root {r}: launches {dict(K.LAUNCHES)}, "
+                                     f"expected {expect} on the packed carry (run {run})")
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            same_as_single(f"grid 2x2 {direction}", res, r)
+            curves[(direction, r)] = curve
+            del res
+        rows[direction] = dict(first_s=first_s, secs=secs, run=runs[0])
+        ex = curves[(direction, roots[0])]["exchange"]
+        log(f"grid 2x2 {direction} search ({card}): first call (captures) {first_s:.6f} s; then "
+            + "; ".join(f"root {r} {t:.6f} s (loop {u['loop_s']:.6f}, results {u['result_s']:.6f}; "
+                        f"host reads {u['host_reads']}, issued {u['issued']}, "
+                        f"{u['issued_pull']} dense, live {u['live']})"
+                        for r, t, u in zip(roots, secs, runs))
+            + f"; the 1-D mesh (4 shards) {np.mean(one_d[label]):.6f} s, single-chip "
+            f"{single[label]:.6f} s; launches packed_update = 4 cells x the supersteps issued, "
+            f"loop_control one a superstep; equal to canonical_bfs and the single-chip search, "
+            f"DeviceChecker clean; root {roots[0]} bytes per level: col "
+            f"{list(zip(ex['col_schedule'], ex['col_bytes']))}, row "
+            f"{list(zip(ex['row_schedule'], ex['row_bytes']))} (total {ex['total_bytes']}, the "
+            f"1-D flat arm's {ex['flat_total_bytes']}; counted, the cells share one card)")
+    check, pieces = grid_kernel_check(eng, want[roots[0]][0], roots[0], K, card)
+    peak = torch.cuda.max_memory_allocated()
+    fused, gcurve = eng.run(roots[0], direction="auto", **kw)
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- 1x4: the 1-D mesh exactly, bytes included
+    eng = G.GridEngine(srg, G.make_grid_mesh(1, 4, devices=[cuda] * 4))
+    eng.run(roots[0], direction="auto", **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, curve = eng.run(roots[0], direction="auto", **kw)
+    s14 = time.perf_counter() - t0
+    same_as_single("grid 1x4 auto", res, roots[0])
+    ex, fx = curve["exchange"], fcurve["exchange"]
+    if not (curve["direction_schedule"] == fcurve["direction_schedule"]
+            and ex["col_schedule"] == fx["schedule"] and ex["col_bytes"] == fx["bytes_per_level"]
+            and set(ex["row_schedule"]) == {"none"} and not any(ex["row_bytes"])
+            and ex["total_bytes"] == fx["total_bytes"]):
+        raise AssertionError(f"grid 1x4: differs from the 1-D mesh: {ex} against {fx}")
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    del eng, res
+    torch.cuda.empty_cache()
+    log(f"grid 1x4 auto root {roots[0]} ({card}): {s14:.6f} s (a replay); dist, parent, levels, "
+        f"the direction schedule and the exchange's arms and bytes per level "
+        f"{list(zip(ex['col_schedule'], ex['col_bytes']))} equal to the 1-D mesh's on the same "
+        "layout; the row axis ships nothing")
+
+    # ---- the segmented 2x2 search: every:2, then a kill and a lost cell file
+    mesh22 = G.make_grid_mesh(2, 2, devices=[cuda] * 4)
+
+    def mgr(tag: str, every: int):
+        return SuperstepCheckpointer(store, {"grid": "2x2", "root": roots[0], "run": tag},
+                                     cfg=ckpt_config(every), shards=4)
+
+    def same(label: str, res, curve) -> None:
+        if not (np.array_equal(res.dist, fused.dist) and np.array_equal(res.parent, fused.parent)
+                and res.num_levels == fused.num_levels
+                and curve["direction_schedule"] == gcurve["direction_schedule"]
+                and curve["exchange"] == gcurve["exchange"]
+                and curve["occupancy"] == gcurve["occupancy"]):
+            raise AssertionError(f"grid segmented ({label}): differs from the fused search")
+
+    t0 = time.perf_counter()
+    m = mgr("every", CKPT_EVERY)
+    res, curve = G.bfs_grid_segmented(srg, roots[0], mesh=mesh22, ckpt=m, direction="auto", **kw)
+    seg_s = time.perf_counter() - t0
+    same(f"every:{CKPT_EVERY}", res, curve)
+    rep = m.report()
+    if m.epochs() or rep["segments"] != -(-fused.num_levels // CKPT_EVERY):
+        raise AssertionError(f"grid segmented: {rep}, epochs left {m.epochs()}")
+    del res
+    os.environ["BFS_TPU_TORCH_FAULT"] = "raise:superstep:3"
+    F.reset()
+    try:
+        G.bfs_grid_segmented(srg, roots[0], mesh=mesh22, ckpt=mgr("kill", 1), direction="auto",
+                             **kw)
+        raise AssertionError("grid segmented: the injected fault did not stop the run")
+    except FaultInjected:
+        pass
+    finally:
+        os.environ.pop("BFS_TPU_TORCH_FAULT", None)
+        F.reset()
+    m2 = mgr("kill", 1)
+    epochs = m2.epochs()
+    if epochs != [2, 3]:
+        raise AssertionError(f"grid segmented: epochs {epochs} on disk after the kill at 3")
+    corrupt_file(m2._epoch_path(epochs[-1], shard=1), mode="truncate")
+    t0 = time.perf_counter()
+    res, curve = G.bfs_grid_segmented(srg, roots[0], mesh=mesh22, ckpt=m2, direction="auto", **kw)
+    resume_s = time.perf_counter() - t0
+    same("resumed after a lost cell file", res, curve)
+    rep2 = m2.report()
+    if rep2["resumed_from_epoch"] != epochs[-2] or rep2["epochs_corrupt_skipped"] < 1 \
+            or rep2["fresh_fallbacks"] or m2.epochs():
+        raise AssertionError(f"grid segmented: the resume after the lost cell file {rep2}")
+    del res
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_part
+    log(f"grid segmented 2x2 (auto/auto, telemetry; {card}): bfs_grid_segmented every:{CKPT_EVERY} "
+        f"{seg_s:.6f} s (a one-shot engine: ship, capture, {rep['segments']} segments), "
+        f"{rep['epochs_written']} epochs of {rep['snapshot_bytes']} bytes (4 cell files + a meta "
+        f"file), writes {rep['snapshot_seconds_total']:.6f} s, equal to the fused search; every:1 "
+        f"stopped by raise:superstep:3, epochs {epochs}, cell 1 of epoch {epochs[-1]} truncated, "
+        f"resumed on a freshly built engine from epoch {rep2['resumed_from_epoch']} in "
+        f"{resume_s:.6f} s, bit-identical")
+    log(f"grid part ({card}): s/search 2x2 " + ", ".join(
+        f"{d} {np.mean(r['secs']):.6f}" for d, r in rows.items())
+        + f", 1x4 auto {s14:.6f}; peak device memory {peak} bytes; part {wall:.1f} s")
+    return dict(rows=rows, launches=launches, check=check, pieces=pieces, peak=peak, wall=wall,
+                s14=s14,
+                seg_s=seg_s, resume_s=resume_s, report=rep, resume=rep2,
+                layout_s=(lay22_s, lay14_s), emax=(lay22.emax, lay14.emax))
+
+
+def grid_kernel_check(eng, oracle, root: int, K, card: str) -> dict:
+    """Cell 0's update of the 2x2 grid engine ``eng`` at the densest level
+    of the search from ``root`` (``oracle``: its distances and parents,
+    original ids): the carry of that level made on the host from the
+    distances (the level words of the vertices it has reached, the
+    frontier, the cells' reached views), the cells' candidates by the
+    engine's own dense body, sieve and flat row reduce, then
+    ``packed_update`` (K4) on cell 0's block held bit for bit against its
+    plain version, and its new words against the oracle's next level and
+    parents."""
+    import numpy as np
+    import torch
+    from bfs_tpu_torch.graph.csr import INF_DIST
+    from bfs_tpu_torch.ops import relay as R
+    from bfs_tpu_torch.ops.packed import packed_parent
+    from bfs_tpu_torch.parallel import exchange as PX
+    from bfs_tpu_torch.utils.timing import cold_ms
+
+    t0 = time.perf_counter()
+    dist, parent = oracle
+    srg, n, r, c, block, nw = eng.layout, eng.n, eng.r, eng.c, eng.block, eng.nw
+    counts = np.bincount(dist[dist != INF_DIST])
+    level = int(np.argmax(counts))
+    old2new = np.asarray(srg.old2new, dtype=np.int64)
+    gd = np.full(eng.gtot, INF_DIST, np.int64)
+    gd[old2new] = dist
+    reached = gd <= level
+    fw = np.packbits(gd == level, bitorder="little").view(np.int32)
+    rcb = np.packbits(reached, bitorder="little").view(np.uint32).reshape(r, c, nw)
+    rc = np.stack([rcb[:, t % c].reshape(-1) for t in range(n)]).view(np.int32)
+    cand = eng._dense_cand(torch.from_numpy(fw).to(eng.device))
+    cand = torch.where(eng._reached(torch.from_numpy(rc).to(eng.device)), PX.INT32_MAX, cand)
+    candg = PX.make_grid_row_reduce(PX.ExchangeConfig("flat"), eng.kw, nw, r, c)(cand, eng.own)[0]
+    own0 = candg[0, :block]  # cell (0, 0) owns block 0: stripe position 0 of column 0
+    own0 = torch.where(own0 == PX.INT32_MAX, -1, own0)
+    # The reached vertices' words hold their level (the parent field is
+    # never read: the sieve leaves them no candidate); the rest the sentinel.
+    pk = np.where(reached[:block], gd[:block] << 26, 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    pk = torch.from_numpy(pk).to(eng.device)
+    plain = R.apply_relay_candidates_packed(R.PackedRelayState(pk.clone(), None, level, None), own0)
+    got = K.apply_relay_candidates_packed(R.PackedRelayState(pk.clone(), None, level, None), own0)
+    err = max(max_abs_err(got.packed, plain.packed), max_abs_err(got.fwords, plain.fwords),
+              int(bool(got.changed.item()) != bool(plain.changed)))
+    settled = np.unpackbits(plain.fwords.cpu().numpy().view(np.uint8), bitorder="little")
+    settled = settled.astype(bool)
+    want = gd[:block] == level + 1
+    parents = packed_parent(plain.packed).cpu().numpy()[settled]
+    new2old = np.asarray(srg.new2old)[:block][settled]
+    if err or not np.array_equal(settled, want) or not np.array_equal(parents, parent[new2old]):
+        raise AssertionError(f"grid kernel check: packed_update err {err}; settled "
+                             f"{int(settled.sum())} of cell 0's block, the search {int(want.sum())}")
+    shape = (f"cell 0 of 2x2, level {level} ({int(counts[level])} frontier vertices, "
+             f"{int(want.sum())} of cell 0's block of {block} settled), emax {eng.grid.emax}")
+    # Where a dense grid superstep's time goes, each piece alone on this
+    # level's inputs (cold L2): the dense body, the sieve, the row reduce on
+    # each arm, the column broadcast of the settled words, K4 on each cell.
+    fw_t, rc_t = torch.from_numpy(fw).to(eng.device), torch.from_numpy(rc).to(eng.device)
+    send = torch.from_numpy(np.packbits(gd == level + 1, bitorder="little").view(np.int32)
+                            .reshape(n, nw)).to(eng.device)
+    own = candg.view(c, r, block).movedim(1, 0).reshape(n, block)
+    own = torch.where(own == PX.INT32_MAX, -1, own)
+    work = pk.repeat(n, 1)  # each cell's carry, restored before every timed call
+    pieces = {
+        "dense body": lambda: eng._dense_cand(fw_t),
+        "sieve": lambda: torch.where(eng._reached(rc_t), PX.INT32_MAX, cand),
+        **{f"row {arm}": (lambda f=PX.make_grid_row_reduce(PX.ExchangeConfig(arm), eng.kw, nw, r,
+                                                           c): f(cand, eng.own))
+           for arm in ("flat", "bitmap", "auto")},
+        "col auto": lambda: PX.make_grid_col_exchange(PX.ExchangeConfig("auto"), eng.kw, nw, r,
+                                                      c)(send, eng.own),
+    }
+    ms = {k: cold_ms(f, 5, warm=1) for k, f in pieces.items()}
+    ms["K4 x 4 cells"] = cold_ms(lambda: [K.apply_relay_candidates_packed(
+        R.PackedRelayState(work[t], None, level, None), own[t]) for t in range(n)], 5, warm=1,
+        prep=lambda: work.copy_(pk.expand(n, block)))
+    edges = int(sum((eng.grid.edst[k] < r * block).sum() for k in range(n)))
+    bound = (edges * 16 + 2 * n * (eng.rb + 1) * 4) / 3.35e9  # gsrc, ekey, dflat r; cand r+w
+    log(f"grid superstep pieces ({card}; {shape}): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; the dense body's bound {bound:.4f} ms (bytes: {edges} edges' gsrc, ekey and "
+        f"dflat read once, the cells' candidate rows written and read)")
+    log(f"grid kernel check ({card}): {shape}; packed_update max_abs_err {err} against the plain "
+        f"version, bit-exact; its new frontier and parents the oracle's; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"packed_update": (err, shape)}, ms
 
 
 def sharded_mxu_part(srg, mesh, root: int, want, same_as_single, K, card: str) -> dict:
@@ -6141,7 +6428,10 @@ def main(argv=None) -> int:
                         else "kernel phase: ") + r["shape"],
                  **({} if spec.name in BATCH_SPECS or spec.launch_key not in sharded["check"] else
                     dict(sharded_max_abs_err=sharded["check"][spec.launch_key][0],
-                         sharded_shape=sharded["check"][spec.launch_key][1])))
+                         sharded_shape=sharded["check"][spec.launch_key][1])),
+                 **({} if spec.name in BATCH_SPECS or spec.launch_key not in sharded["grid"]["check"]
+                    else dict(grid_max_abs_err=sharded["grid"]["check"][spec.launch_key][0],
+                              grid_shape=sharded["grid"]["check"][spec.launch_key][1])))
             for row, r, n in picked]
     if unheld:
         raise AssertionError(f"registry kernels never held against their plain versions in "

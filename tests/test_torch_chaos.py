@@ -93,5 +93,17 @@ def test_chaos_traversal_sharded_resumes_bit_identical():
     ("--mode", "traversal", "--iterations", "1", "--traversal-configs", "grid"),
 ])
 def test_modes_waiting_for_other_parts_exit_2(argv):
+    """The bench mode waits for the port's bench and exits 2; the grid
+    traversal, which waited for the 2-D grid, now runs: killed at a random
+    boundary, resumed from an epoch, both axes' arms and bytes equal to
+    the golden run's."""
     proc = _run(*argv, "--device", "cpu", "--seed", "1", timeout=120)
-    assert proc.returncode == 2, proc.stdout[-2000:] + proc.stderr[-2000:]
+    if "bench" in argv:
+        assert proc.returncode == 2, proc.stdout[-2000:] + proc.stderr[-2000:]
+        return
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "traversal chaos: 1/1 ok" in proc.stdout
+    assert "killed at boundary" in proc.stdout
+    assert "resumed from epoch" in proc.stdout and "resumed from epoch None" not in proc.stdout
+    assert {"col_schedule", "col_bytes", "row_schedule", "row_bytes"} <= set(
+        chaos_run.TRAVERSAL_DETERMINISTIC)

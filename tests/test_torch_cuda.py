@@ -2160,3 +2160,52 @@ def test_card_sharded_segmented_resumes_after_a_lost_shard(card, tmp_path):
         np.testing.assert_array_equal(res.dist, want.dist)
         np.testing.assert_array_equal(res.parent, want.parent)
         assert curve["exchange"] == wcurve["exchange"]
+
+
+def test_card_grid_equals_its_cpu_run_with_k4_per_cell(card, tmp_path):
+    """The 2-D grid with a 2x2 mesh stacked on the card: on the pull
+    schedule's block loop and the auto schedule's switch loop (a first call
+    that captures, then a replay), equal to the oracle and to the same grid
+    on the CPU (results, direction schedule, both axes' bytes and arms),
+    with ``packed_update`` launched 4 x the supersteps issued on the packed
+    carry and ``loop_control`` once per superstep; every arm the same tree;
+    a dead block changes nothing; the segmented search at every:2 equal to
+    the fused one."""
+    from bfs_tpu_torch.parallel import grid as G
+    from bfs_tpu_torch.resilience.superstep_ckpt import CkptConfig, SuperstepCheckpointer
+
+    g = P.rmat_graph(12, 8, seed=3)
+    srg = P.build_sharded_relay_graph(g, 4, route="torch", device=card)
+    mesh = G.make_grid_mesh(2, 2, devices=[card] * 4)
+    cpu = G.GridEngine(srg, G.make_grid_mesh(2, 2, devices=[torch.device("cpu")] * 4))
+    eng = G.GridEngine(srg, mesh)
+    assert eng.packed and eng.dflat.device.type == "cuda"
+    d, p = P.canonical_bfs(g, 0)
+    kw = dict(exchange="auto", telemetry=True)
+    for direction in ("pull", "auto"):
+        for _ in range(2):  # the first call captures, the second replays
+            K.reset_launches()
+            res, curve = eng.run(0, direction=direction, **kw)
+        np.testing.assert_array_equal(res.dist, d)
+        np.testing.assert_array_equal(res.parent, p)
+        want, wcurve = cpu.run(0, direction=direction, **kw)
+        np.testing.assert_array_equal(res.parent, want.parent)
+        assert res.num_levels == want.num_levels
+        assert curve["direction_schedule"] == wcurve["direction_schedule"]
+        assert curve["exchange"] == wcurve["exchange"]
+        run = eng.last_run
+        assert run["packed"] and run["replays"] > 0
+        assert K.LAUNCHES["packed_update"] == 4 * run["issued"], (direction, run)
+        assert K.LAUNCHES["loop_control"] == run["issued"]
+    loop = eng._loops[(True, True, "pull", ("auto", 8))]
+    before = [b.clone() for b in loop.buffers]
+    loop.dead_replay()
+    for a, b in zip(before, loop.buffers):
+        assert torch.equal(a, b)
+    for arm in ("flat", "bitmap", "delta"):
+        got = G.bfs_grid(srg, 0, mesh=mesh, direction="pull", exchange=arm)
+        np.testing.assert_array_equal(got.parent, p)
+    mgr = SuperstepCheckpointer(tmp_path, {"t": 1}, cfg=CkptConfig("every", 2), shards=4)
+    seg, scurve = eng.run_segmented(0, ckpt=mgr, direction="auto", **kw)
+    np.testing.assert_array_equal(seg.parent, p)
+    assert scurve["exchange"] == wcurve["exchange"] and mgr.epochs() == []

@@ -99,7 +99,7 @@ def test_knobs_mirror_the_reference():
         "BFS_TPU_TORCH_EXPANSION", "BFS_TPU_TORCH_FAULT",
         "BFS_TPU_TORCH_JOURNAL", "BFS_TPU_TORCH_JOURNAL_DIR", "BFS_TPU_TORCH_LABELS",
         "BFS_TPU_TORCH_LABELS_GB", "BFS_TPU_TORCH_LABELS_VERIFY", "BFS_TPU_TORCH_LAYOUT_BUILD",
-        "BFS_TPU_TORCH_LOCK_ORDER",
+        "BFS_TPU_TORCH_LOCK_ORDER", "BFS_TPU_TORCH_MESH",
         "BFS_TPU_TORCH_PHASE_PROBE", "BFS_TPU_TORCH_ROUTER_COOLDOWN_S", "BFS_TPU_TORCH_ROUTER_FAILURES",
         "BFS_TPU_TORCH_SPANS", "BFS_TPU_TORCH_SSSP_DELTA", "BFS_TPU_TORCH_STREAM_CACHE_GB",
         "BFS_TPU_TORCH_STREAM_VERIFY", "BFS_TPU_TORCH_TILES",
